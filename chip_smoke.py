@@ -16,7 +16,20 @@ Phases, each fatal on failure (no exception is caught):
      1 warm-up + 5 timed calls. The launch counter must grow by one per
      call, acc must be finite and the mean radiance per pass within 2% of
      the plain version's first pass (same draws). Prints ray segments/s
-     and the times per pass, writes build/chip_smoke_cornell_1024.png.
+     and the times per pass, writes build/chip_smoke_cornell_1024.png;
+  6. kernel 2 (the adjoint) vs its plain version (autograd through the
+     plain forward), same tables, draws and seeded random cotangent: cornell
+     b5 at 256x192 with all five groups and at 1024x1024 with ("sph",
+     "mat"). Per group: cosine >= 0.999, norm ratio within 1%, and at
+     256x192 max |kernel - plain| <= 5e-3 x the group's largest entry; the
+     PRNG route and the u-planes route agree to the same gates;
+  7. the training main path: cornell 1024^2 b5, mega_grad_wrt ("sph",
+     "mat"), sphere centers, radii and materials requiring grad; per step
+     render_pass -> image -> mean square -> backward -> SGD, the
+     progressive state threaded from step to step; 1 warm-up and 10 timed
+     steps. Exactly one kernel-1 and one kernel-2 launch per step, a finite
+     loss, finite nonzero gradients. Prints forward + backward segments/s
+     and kernel 2 alone in ms on the step's own cotangent.
 Ends with a kernels JSON line and, last, the device JSON line. Exits non-zero
 without a result where CUDA is missing or the package is not beside it.
 """
@@ -34,6 +47,11 @@ BOUNCES = 5
 MAIN_W = MAIN_H = 1024
 PASSES_PER_CALL = 16
 TIMED_CALLS = 5
+# phases 6-7
+GRAD_SEED = 2
+TRAIN_WRT = ("sph", "mat")
+TRAIN_STEPS = 10
+TRAIN_LR = 1e-3
 
 
 def _fail(msg: str) -> None:
@@ -234,6 +252,185 @@ def main_path(dev, smi: str) -> dict:
     return {"launches": launches, "ms": kernel_ms, "plain_ms": plain_ms}
 
 
+def _grad_gates(name: str, want, got, max_gate: bool) -> float:
+    """Phase 6 gates of one group; returns max |got - want|."""
+    import torch
+    a, b = want.double().ravel(), got.double().ravel()
+    _check(bool(torch.isfinite(b).all()), f"{name}: kernel 2 not finite")
+    err = (a - b).abs().max().item() if a.numel() else 0.0
+    na, nb = a.norm().item(), b.norm().item()
+    if na == 0.0:
+        _check(nb == 0.0, f"{name}: plain gradient is 0, kernel's {nb:g}")
+        return err
+    cos = (a @ b).item() / max(na * nb, 1e-300)
+    scale = a.abs().max().item()
+    print(f"    {name}: cosine {cos:.9f}, norm ratio {nb / na:.7f}, "
+          f"max|d| {err:.6g} = {err / scale:.3g} x max|plain| {scale:.6g}")
+    _check(cos >= 0.999, f"{name}: cosine {cos:.6f} < 0.999")
+    _check(abs(nb / na - 1.0) <= 0.01, f"{name}: norm ratio {nb / na:.5f}")
+    if max_gate:
+        _check(err <= 5e-3 * scale, f"{name}: max|d| {err:g} > 5e-3 x "
+               f"{scale:g}")
+    return err
+
+
+def kernel2_vs_plain(dev, w: int, h: int, wrt, max_gate: bool) -> dict:
+    """Phase 6 at one size: kernel 2 (u-planes and PRNG routes) vs its
+    plain version on the same tables, draws and random cotangent."""
+    import numpy as np
+    import torch
+    from raytracing_tpu_torch import RenderConfig
+    from raytracing_tpu_torch.models.scenes import cornell_box
+    from raytracing_tpu_torch.ops import megakernel_grad as MKG
+    from raytracing_tpu_torch.render import mega
+    from raytracing_tpu_torch.render import pathtracer as pt
+
+    cfg = RenderConfig(width=w, height=h, bounces=BOUNCES)
+    scene = cornell_box(cols=w, rows=h, device=dev)
+    tables = mega.scene_tables(scene, cfg)
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    u = mega.u_planes_for_pass(pt.init_state(cfg, dev)["key"], 0, cfg,
+                               scene.lights.count, dev)
+    g = torch.as_tensor(np.random.default_rng(GRAD_SEED).normal(
+        size=(cfg.total_rays, 3)).astype(np.float32), device=dev)
+    kw = dict(spp=cfg.spp, width=cfg.width, bounces=cfg.bounces,
+              two_sided=cfg.two_sided_triangles,
+              normalize_emitter=cfg.normalize_emitter, seed=cfg.seed,
+              diff_wrt=wrt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    want = MKG.pathtrace_pass_bwd_reference(tables[0], ipar, *tables[1:], g,
+                                            u, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    got_u = MKG.pathtrace_pass_bwd(tables[0], ipar, *tables[1:], g, u, **kw)
+    got_p = MKG.pathtrace_pass_bwd(tables[0], ipar, *tables[1:], g, None,
+                                   **kw)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    reps = 5
+    start.record()
+    for _ in range(reps):
+        MKG.pathtrace_pass_bwd(tables[0], ipar, *tables[1:], g, None, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    print(f"phase 6 {w}x{h} b{BOUNCES} wrt {list(wrt)}: plain backward "
+          f"{plain_ms:.6g} ms, peak memory {peak / 2**30:.3f} GiB; kernel 2 "
+          f"(PRNG route, random g) {ms:.6g} ms")
+    err = 0.0
+    names = MKG.DIFF_ALL
+    for route, got in (("u-planes", got_u), ("PRNG", got_p)):
+        print(f"  kernel 2 {route} route vs plain version:")
+        for name, a, b in zip(names, want, got):
+            if name in wrt:
+                err = max(err, _grad_gates(name, a, b, max_gate))
+            else:
+                _check(not b.any().item(), f"{name} outside diff_wrt "
+                       "is not zero")
+    print("  PRNG route vs u-planes route:")
+    for name, a, b in zip(names, got_u, got_p):
+        if name in wrt:
+            _grad_gates(name, a, b, max_gate)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def train_path(dev, smi: str) -> dict:
+    """Phase 7: the training main path; returns the kernel-2 entry's
+    launches and time."""
+    import torch
+    from raytracing_tpu_torch import RenderConfig, replace
+    from raytracing_tpu_torch.models.scenes import cornell_box
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.ops import megakernel_grad as MKG
+    from raytracing_tpu_torch.render import mega
+    from raytracing_tpu_torch.render import pathtracer as pt
+
+    cfg = RenderConfig(width=MAIN_W, height=MAIN_H, bounces=BOUNCES,
+                       mega_grad_wrt=TRAIN_WRT)
+    scene = cornell_box(cols=MAIN_W, rows=MAIN_H, device=dev)
+    n_l = scene.lights.count
+    segs = cfg.total_rays * (1 + n_l + cfg.bounces * (1 + n_l))
+    params = {"center": scene.spheres.center.clone().requires_grad_(True),
+              "radius": scene.spheres.radius.clone().requires_grad_(True),
+              "materials": scene.materials.clone().requires_grad_(True)}
+    seen = {}
+
+    def step(state):
+        sc = replace(scene, spheres=replace(scene.spheres,
+                                            center=params["center"],
+                                            radius=params["radius"]),
+                     materials=params["materials"])
+        st = pt.render_pass(sc, state, cfg)
+        st["acc"].register_hook(lambda g: seen.__setitem__("g", g))
+        loss = torch.mean(pt.image(st, cfg) ** 2)
+        loss.backward()
+        grads = {}
+        with torch.no_grad():
+            for name, p in params.items():
+                grads[name] = p.grad
+                p -= TRAIN_LR * p.grad
+                p.grad = None
+        return dict(st, acc=st["acc"].detach()), loss.detach(), grads
+
+    state = pt.init_state(cfg, dev)
+    state, loss0, _ = step(state)                       # warm-up
+    torch.cuda.synchronize()
+    MK.launches = MKG.launches = 0
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state, loss, grads = step(state)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = MK.launches, MKG.launches
+    _check(k1 == TRAIN_STEPS and k2 == TRAIN_STEPS,
+           f"{k1} kernel-1 and {k2} kernel-2 launches for {TRAIN_STEPS} "
+           "steps (want one each per step)")
+    losses = torch.stack([loss0] + losses)
+    _check(bool(torch.isfinite(losses).all()), "training loss not finite")
+    for name in ("center", "materials", "radius"):
+        gr = grads[name]
+        _check(gr is not None and bool(torch.isfinite(gr).all()),
+               f"{name} gradient missing or not finite")
+    for name in ("center", "materials"):
+        _check(bool(grads[name].any()), f"{name} gradient is zero")
+    _check(state["passes"] == 1 + TRAIN_STEPS, f"passes {state['passes']}")
+
+    # kernel 2 alone on the last step's own cotangent of acc
+    tables = mega.scene_tables(scene, cfg)
+    ipar = torch.tensor([state["passes"] - 1, 0], dtype=torch.int32)
+    kw = dict(spp=cfg.spp, width=cfg.width, bounces=cfg.bounces,
+              two_sided=cfg.two_sided_triangles,
+              normalize_emitter=cfg.normalize_emitter, seed=cfg.seed,
+              diff_wrt=TRAIN_WRT)
+    g = seen["g"].contiguous()
+    MKG.pathtrace_pass_bwd(tables[0], ipar, *tables[1:], g, None, **kw)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    reps = 10
+    start.record()
+    for _ in range(reps):
+        MKG.pathtrace_pass_bwd(tables[0], ipar, *tables[1:], g, None, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    live = (g != 0).any(-1).double().mean().item()
+    print(f"phase 7 train cornell {MAIN_W}x{MAIN_H} b{BOUNCES} wrt "
+          f"{list(TRAIN_WRT)}, {TRAIN_STEPS} timed steps on [{smi}]: "
+          f"{segs * TRAIN_STEPS / wall:.6g} fwd+bwd ray segments/s "
+          f"({segs} per step), {wall * 1e3 / TRAIN_STEPS:.6g} ms/step; "
+          f"launches kernel 1 {k1}, kernel 2 {k2}; kernel 2 alone on the "
+          f"step's cotangent {ms:.6g} ms ({live:.3%} of rays with g != 0); "
+          f"loss first {losses[0].item():.7g} last {losses[-1].item():.7g}; "
+          f"|grad| center {grads['center'].norm().item():.6g} radius "
+          f"{grads['radius'].norm().item():.6g} materials "
+          f"{grads['materials'].norm().item():.6g}")
+    return {"launches": k2, "ms": ms}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -254,15 +451,19 @@ def main() -> int:
     # phase 2: build the kernels
     from raytracing_tpu_torch.ops import _build
     from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.ops import megakernel_grad as MKG
     t0 = time.perf_counter()
-    _build.load("megakernel", MK._SIGNATURES)
-    info = _build.build_log.get("megakernel")
-    print(f"phase 2 build: {time.perf_counter() - t0:.2f} s "
-          f"({'built' if info else 'cached'} {_build.BUILD_DIR})")
-    if info:
-        for line in info["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip())
+    _build.load_all({"megakernel": MK._SIGNATURES,
+                     "megakernel_grad": MKG._SIGNATURES})
+    print(f"phase 2 build (both nvcc at once): "
+          f"{time.perf_counter() - t0:.2f} s ({_build.BUILD_DIR})")
+    for name in ("megakernel", "megakernel_grad"):
+        info = _build.build_log.get(name)
+        print(f"  {name}: " + (f"built in {info['seconds']:.2f} s"
+                               if info else "cached"))
+        for line in (info["ptxas"] if info else "").splitlines():
+            if "registers" in line or "spill" in line or "stack" in line:
+                print("    ptxas:", line.strip())
 
     # phase 3: kernel vs plain version
     compare_with_plain(dev, 256, 192)
@@ -271,6 +472,11 @@ def main() -> int:
     prng_equals_u_planes(dev, 256, 192)
     # phase 5: the main path
     k = main_path(dev, smi)
+    # phase 6: kernel 2 vs its plain version
+    g_small = kernel2_vs_plain(dev, 256, 192, MKG.DIFF_ALL, max_gate=True)
+    g_main = kernel2_vs_plain(dev, MAIN_W, MAIN_H, TRAIN_WRT, max_gate=False)
+    # phase 7: the training main path
+    t = train_path(dev, smi)
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -278,7 +484,13 @@ def main() -> int:
         "source": "raytracing_tpu_torch/csrc/megakernel.cu",
         "replaces": "raytracing_tpu/ops/pallas/megakernel.py:284",
         "launches": k["launches"], "max_abs_err": max_err,
-        "ms": k["ms"], "plain_ms": k["plain_ms"]}]}))
+        "ms": k["ms"], "plain_ms": k["plain_ms"]}, {
+        "name": "pathtrace_pass_bwd (adjoint megakernel)", "route": "cuda",
+        "source": "raytracing_tpu_torch/csrc/megakernel_grad.cu",
+        "replaces": "raytracing_tpu/ops/pallas/megakernel_grad.py:2152",
+        "launches": t["launches"],
+        "max_abs_err": max(g_small["max_abs_err"], g_main["max_abs_err"]),
+        "ms": t["ms"], "plain_ms": g_main["plain_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

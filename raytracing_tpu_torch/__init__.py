@@ -2,9 +2,10 @@
 
 Module names mirror ``raytracing_tpu`` (core/, models/, ops/, render/,
 io/, cli.py). Every progressive pass runs on an NVIDIA Hopper card as one
-hand-written CUDA kernel (``csrc/megakernel.cu``, built from source at
-first use); on CPU tensors the same entry points run the kernel's plain
-PyTorch version. The package never imports jax.
+hand-written CUDA kernel (``csrc/megakernel.cu``), and its backward, when
+scene parameters require grad, as a second one (``csrc/megakernel_grad.cu``),
+both built from source at first use; on CPU tensors the same entry points
+run the kernels' plain PyTorch versions. The package never imports jax.
 """
 from __future__ import annotations
 

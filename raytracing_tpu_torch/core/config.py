@@ -7,6 +7,15 @@ Fields the port does not implement yet (``russian_roulette``, ``use_grid``,
 rejected by ``render.mega.supported`` with the ROADMAP item that covers
 them. The port has only the kernel route, so ``use_megakernel`` is accepted
 either way.
+
+Training fields: ``mega_grad_wrt`` names the table groups ("par", "sph",
+"tri", "mat", "lig") that a differentiable pass gives cotangents to; the
+others get none. ``mega_bwd_impl`` takes "auto" only, which is kernel 2's
+hard route (``render.mega.bwd_impl_for`` raises for "cell", ROADMAP Queue 1
+item 12, and for the TPU-only "xla"). ``mega_bwd_sublanes`` is the TPU
+backward's tile height: TPU-only, kept for the shared configuration and
+ignored. ``mega_edge_bandwidth > 0`` (edge-aware gradients) raises in
+``render.mega.supported_diff`` (item 13).
 """
 from __future__ import annotations
 

@@ -44,234 +44,14 @@
 
 #include <cuda_runtime.h>
 
-#include "threefry.cuh"
+#include "pathtrace.cuh"
 
 namespace {
 
+using namespace rt;
+
 constexpr int kBlock = 128;
 constexpr int kMaxPasses = 64;  // pass keys carried in the parameter block
-constexpr int kNPar = 26;
-constexpr int kSph = 8;
-constexpr int kTri = 32;
-constexpr int kMat = 4;
-constexpr int kLig = 20;
-// par layout (the JAX kernel's _PAR)
-constexpr int kEye = 0, kU = 3, kV = 6, kW = 9, kFilmW = 12, kFilmH = 13,
-              kCols = 14, kRows = 15, kFocal = 16, kLensR = 17, kPmin = 18,
-              kPmax = 21, kEps = 24;
-constexpr float kPi4 = 0.785398163397448309616f;
-constexpr float kPi2 = 1.57079632679489661923f;
-
-__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
-
-struct V3 {
-  float x, y, z;
-};
-__device__ __forceinline__ V3 mk(float x, float y, float z) {
-  V3 r = {x, y, z};
-  return r;
-}
-__device__ __forceinline__ V3 operator+(V3 a, V3 b) {
-  return mk(a.x + b.x, a.y + b.y, a.z + b.z);
-}
-__device__ __forceinline__ V3 operator-(V3 a, V3 b) {
-  return mk(a.x - b.x, a.y - b.y, a.z - b.z);
-}
-__device__ __forceinline__ V3 operator*(float s, V3 a) {
-  return mk(s * a.x, s * a.y, s * a.z);
-}
-__device__ __forceinline__ float dot(V3 a, V3 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z;
-}
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return mk(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
-            a.x * b.y - a.y * b.x);
-}
-__device__ __forceinline__ V3 ld3(const float* p) { return mk(p[0], p[1], p[2]); }
-// safe normalize: guard the squared norm before rsqrt
-__device__ __forceinline__ V3 normalize(V3 v) {
-  const float n2 = dot(v, v);
-  const float inv = rsqrtf(n2 > 0.0f ? n2 : 1.0f);
-  return mk(v.x * inv, v.y * inv, v.z * inv);
-}
-
-// Shirley-Chiu concentric square -> disk; (0, 0) maps to itself.
-__device__ __forceinline__ void concentric(float u0, float u1, float& x,
-                                           float& y) {
-  if (u0 == 0.0f && u1 == 0.0f) {
-    x = u0;
-    y = u1;
-    return;
-  }
-  const float a = 2.0f * u0 - 1.0f;
-  const float b = 2.0f * u1 - 1.0f;
-  float radius, phi;
-  if (a * a > b * b) {
-    radius = a;
-    phi = kPi4 * (b / (a == 0.0f ? 1.0f : a));
-  } else {
-    radius = b;
-    phi = kPi2 - kPi4 * (a / (b == 0.0f ? 1.0f : b));
-  }
-  x = cosf(phi) * radius;
-  y = sinf(phi) * radius;
-}
-
-// min-|component| tangent frame, ties toward x
-__device__ __forceinline__ void tangent_frame(V3 n, V3& t, V3& b) {
-  const float ax = fabsf(n.x), ay = fabsf(n.y), az = fabsf(n.z);
-  const float mn = fminf(ax, fminf(ay, az));
-  const bool fx = ax == mn;
-  const bool fy = (ay == mn) && !fx;
-  const bool fz = (az == mn) && !fx && !fy;
-  const V3 v = normalize(mk(fx ? 1.0f : n.x, fy ? 1.0f : n.y,
-                            fz ? 1.0f : n.z));
-  t = normalize(cross(v, n));
-  b = normalize(cross(n, t));
-}
-
-// The scene tables in shared memory.
-struct Tables {
-  const float* par;
-  const float* sph;
-  const float* tri;
-  const float* mat;
-  const float* lig;
-  int n_sph, n_tri, n_mat, n_lig;
-  bool two_sided;
-};
-
-struct Hit {
-  V3 p, n;
-  float m;  // material id as float, -1 = no hit
-};
-
-// Draw slot j of this ray: from the u-planes (plane 2j + c, column rid) or
-// from threefry at counter (global_rid * n_draws + j) * 2 + c.
-struct Draws {
-  const float* u;
-  int n_rays;
-  int rid;
-  uint32_t k0, k1;
-  uint32_t base;  // global_rid * n_draws * 2
-  __device__ __forceinline__ void pair(int j, float& u0, float& u1) const {
-    if (u != nullptr) {
-      u0 = __ldg(u + static_cast<size_t>(2 * j) * n_rays + rid);
-      u1 = __ldg(u + static_cast<size_t>(2 * j + 1) * n_rays + rid);
-    } else {
-      const uint32_t c = base + 2u * static_cast<uint32_t>(j);
-      u0 = rt::threefry_uniform(k0, k1, c);
-      u1 = rt::threefry_uniform(k0, k1, c + 1u);
-    }
-  }
-};
-
-// Closest hit in [mint, maxt] (strict `t < best` champion); returns the
-// new maxt (champion t, or maxt on a miss).
-__device__ float trace(const Tables& T, V3 o, V3 d, float mint, float maxt,
-                       Hit& h) {
-  float bt = inf_f();
-  V3 bn = mk(0.0f, 0.0f, 0.0f);
-  float bm = -1.0f;
-  if (mint != maxt) {
-    const float a = dot(d, d);
-    const float inv2a = 0.5f / a;
-    for (int i = 0; i < T.n_sph; ++i) {
-      const float* s = T.sph + i * kSph;
-      if (!(s[5] > 0.0f)) continue;
-      const V3 c = ld3(s);
-      const float r = s[3];
-      const V3 m = o - c;
-      const float b = 2.0f * dot(m, d);
-      const float cq = dot(m, m) - r * r;
-      const float dis = b * b - 4.0f * a * cq;
-      if (!(dis >= 0.0f)) continue;
-      const float sq = sqrtf(dis);
-      const float t0 = (-b - sq) * inv2a;
-      const float t1 = (-b + sq) * inv2a;
-      const float tmn = fminf(t0, t1), tmx = fmaxf(t0, t1);
-      float t;
-      if (tmn >= mint && tmn <= maxt) {
-        t = tmn;
-      } else if (tmx >= mint && tmx <= maxt) {
-        t = tmx;
-      } else {
-        continue;
-      }
-      if (t < bt) {
-        bt = t;
-        bn = normalize(o + t * d - c);
-        bm = s[4];
-      }
-    }
-    const V3 oxd = cross(o, d);  // loop-invariant over triangles
-    for (int i = 0; i < T.n_tri; ++i) {
-      const float* q = T.tri + i * kTri;
-      if (!(q[17] > 0.0f)) continue;
-      const V3 ng = ld3(q);
-      const float div = dot(ng, d);
-      if (T.two_sided ? !(div != 0.0f) : !(div > 0.0f)) continue;
-      const float idiv = 1.0f / div;
-      // constant-split Moller-Trumbore over [n_geo, c1, c2, e1, e2, k]
-      const float beta = (dot(ld3(q + 12), oxd) - dot(ld3(q + 6), d)) * idiv;
-      const float gamma = (dot(ld3(q + 3), d) - dot(ld3(q + 9), oxd)) * idiv;
-      const float t = (q[15] - dot(ng, o)) * idiv;
-      if (beta >= 0.0f && beta <= 1.0f && gamma >= 0.0f &&
-          beta + gamma <= 1.0f && t >= mint && t <= maxt && t < bt) {
-        const float alpha = 1.0f - beta - gamma;
-        bn = normalize(alpha * ld3(q + 18) + beta * ld3(q + 21) +
-                       gamma * ld3(q + 24));
-        bt = t;
-        bm = q[16];
-      }
-    }
-  }
-  const bool found = bm >= 0.0f;
-  const float ts = found ? bt : 0.0f;
-  h.p = o + ts * d;
-  h.n = bn;
-  h.m = bm;
-  return found ? bt : maxt;
-}
-
-// Occlusion of the segment [mint, maxt]; stops at the first hit.
-__device__ bool anyhit(const Tables& T, V3 o, V3 d, float mint, float maxt) {
-  if (mint == maxt) return false;
-  const float a = dot(d, d);
-  const float inv2a = 0.5f / a;
-  for (int i = 0; i < T.n_sph; ++i) {
-    const float* s = T.sph + i * kSph;
-    if (!(s[5] > 0.0f)) continue;
-    const V3 m = o - ld3(s);
-    const float r = s[3];
-    const float b = 2.0f * dot(m, d);
-    const float cq = dot(m, m) - r * r;
-    const float dis = b * b - 4.0f * a * cq;
-    if (!(dis >= 0.0f)) continue;
-    const float sq = sqrtf(dis);
-    const float t0 = (-b - sq) * inv2a;
-    const float t1 = (-b + sq) * inv2a;
-    const float tmn = fminf(t0, t1), tmx = fmaxf(t0, t1);
-    if ((tmn >= mint && tmn <= maxt) || (tmx >= mint && tmx <= maxt))
-      return true;
-  }
-  const V3 oxd = cross(o, d);
-  for (int i = 0; i < T.n_tri; ++i) {
-    const float* q = T.tri + i * kTri;
-    if (!(q[17] > 0.0f)) continue;
-    const V3 ng = ld3(q);
-    const float div = dot(ng, d);
-    if (T.two_sided ? !(div != 0.0f) : !(div > 0.0f)) continue;
-    const float idiv = 1.0f / div;
-    const float beta = (dot(ld3(q + 12), oxd) - dot(ld3(q + 6), d)) * idiv;
-    const float gamma = (dot(ld3(q + 3), d) - dot(ld3(q + 9), oxd)) * idiv;
-    const float t = (q[15] - dot(ng, o)) * idiv;
-    if (beta >= 0.0f && beta <= 1.0f && gamma >= 0.0f &&
-        beta + gamma <= 1.0f && t >= mint && t <= maxt)
-      return true;
-  }
-  return false;
-}
 
 struct Acc {
   float r, g, b;     // accumulated radiance
@@ -285,147 +65,62 @@ __device__ __forceinline__ void nee(const Tables& T, const Draws& D, int slot,
                                     int li, const Hit& h, float eps, Acc& A) {
   if (!(h.m >= 0.0f)) return;
   const float* l = T.lig + li * kLig;
-  float u0, u1;
-  D.pair(slot, u0, u1);
-  float sx, sy;
-  concentric(u0, u1, sx, sy);
-  const float rad = l[12];
-  sx = sx * rad;
-  sy = sy * rad;
-  const V3 lp = ld3(l), ln = ld3(l + 3);
-  const V3 tgt = lp + sx * ld3(l + 14) + sy * ld3(l + 17);
-  const V3 so = h.p + eps * h.n;
-  const V3 dl = tgt - so;
-  const float d2 = dot(dl, dl);
-  const float dist = d2 > 0.0f ? sqrtf(d2) : 0.0f;
-  const V3 sd = normalize(dl);
-  const bool occ = anyhit(T, so, sd, 0.0f, dist);
+  const Shadow s = shadow_ray(T, D, slot, li, h, eps);
+  const bool occ = anyhit(T, s.so, s.sd, 0.0f, s.dist);
   // geometric term with the distance to the light CENTRE (reference quirk)
+  const V3 lp = ld3(l), ln = ld3(l + 3);
   const V3 q = h.p - lp;
   const float r2 = dot(q, q);
-  const float cosx = fminf(fmaxf(dot(sd, h.n), 0.0f), 1.0f);
-  const float cosy = fminf(fmaxf(-dot(sd, ln), 0.0f), 1.0f);
+  const float cosx = fminf(fmaxf(dot(s.sd, h.n), 0.0f), 1.0f);
+  const float cosy = fminf(fmaxf(-dot(s.sd, ln), 0.0f), 1.0f);
   const float geom = l[13] * cosx * cosy / fmaxf(r2, 1e-20f);
-  const int m = static_cast<int>(h.m);
-  float alr = 0.0f, alg = 0.0f, alb = 0.0f;
-  if (m < T.n_mat) {
-    alr = T.mat[m * kMat + 0];
-    alg = T.mat[m * kMat + 1];
-    alb = T.mat[m * kMat + 2];
-  }
+  const V3 al = albedo(T, static_cast<int>(h.m));
   if (!occ) {
-    A.r = A.r + A.tr * alr * (geom * l[6]);
-    A.g = A.g + A.tg * alg * (geom * l[7]);
-    A.b = A.b + A.tb * alb * (geom * l[8]);
+    A.r = A.r + A.tr * al.x * (geom * l[6]);
+    A.g = A.g + A.tg * al.y * (geom * l[7]);
+    A.b = A.b + A.tb * al.z * (geom * l[8]);
   }
-  A.tr = A.tr * alr;
-  A.tg = A.tg * alg;
-  A.tb = A.tb * alb;
+  A.tr = A.tr * al.x;
+  A.tg = A.tg * al.y;
+  A.tb = A.tb * al.z;
 }
 
 // One progressive pass of ray rid_g, added into A.r/g/b.
 __device__ void one_pass(const Tables& T, const Draws& D, int rid_g, int spp,
                          int width, int bounces, bool normalize_emitter,
                          Acc& A) {
-  const float* P = T.par;
   const int L = T.n_lig;
-  const int pix = rid_g / spp;
-  const int samp = rid_g - pix * spp;
-  const int row = pix / width;
-  const int col = pix - row * width;
-  const V3 e = ld3(P + kEye), U = ld3(P + kU), V = ld3(P + kV),
-           W = ld3(P + kW);
-  const float eps = P[kEps];
-
-  // film point -> pinhole direction -> focal point
-  const float su = (-0.5f + (static_cast<float>(col) + 0.5f) / P[kCols]) *
-                   P[kFilmW];
-  const float sv = (0.5f - (static_cast<float>(row) + 0.5f) / P[kRows]) *
-                   P[kFilmH];
-  const V3 pd = normalize(su * U + sv * V - W);
-  const float fl = P[kFocal];
-  const float pipd = -dot(e - fl * W, W);
-  const float tf = -(dot(e, W) + pipd) / dot(pd, W);
-  const V3 fp = e + tf * pd;
-
-  // thin-lens origin and direction; spp > 1 uses the stratified lens-cell
-  // centre and leaves draw slot 0 unused
-  float u0, u1;
-  if (spp > 1) {
-    const int k = static_cast<int>(sqrtf(static_cast<float>(spp)) + 0.5f);
-    const int si = samp / k;
-    const int sj = samp - si * k;
-    u0 = (static_cast<float>(sj) + 0.5f) / static_cast<float>(k);
-    u1 = (static_cast<float>(si) + 0.5f) / static_cast<float>(k);
-  } else {
-    D.pair(0, u0, u1);
-  }
-  float lx, ly;
-  concentric(u0, u1, lx, ly);
-  const float lr = P[kLensR];
-  V3 o = e + lr * (lx * U + ly * V);
-  V3 d = normalize(fp - o);
-
-  // clip to the scene AABB
-  const float ox[3] = {o.x, o.y, o.z}, dx[3] = {d.x, d.y, d.z};
-  float nr[3], fr[3];
-#pragma unroll
-  for (int ax = 0; ax < 3; ++ax) {
-    const float sd = dx[ax] == 0.0f ? 1e-30f : dx[ax];
-    const float t0 = (P[kPmin + ax] - ox[ax]) / sd;
-    const float t1 = (P[kPmax + ax] - ox[ax]) / sd;
-    nr[ax] = fminf(t0, t1);
-    fr[ax] = fmaxf(t0, t1);
-  }
-  const float tmin = fmaxf(fmaxf(nr[0], fmaxf(nr[1], nr[2])), 0.0f);
-  const float tmax = fminf(fr[0], fminf(fr[1], fr[2]));
-  float mint = inf_f(), maxt = inf_f();
-  if (tmin <= tmax) {
-    mint = tmin;
-    maxt = tmax;
-  }
+  const float eps = T.par[kEps];
+  int col, row, samp;
+  pixel_of(rid_g, spp, width, col, row, samp);
+  V3 o, d;
+  float mint, maxt;
+  camera_ray(T.par, D, col, row, samp, spp, o, d, mint, maxt);
 
   Hit h;
   maxt = trace(T, o, d, mint, maxt, h);
 
   // emitter hits on the primary segment only; a hit ends the path
-  for (int li = 0; li < L && mint != maxt; ++li) {
-    const float* l = T.lig + li * kLig;
-    const V3 lp = ld3(l), ln = ld3(l + 3);
-    const float den = dot(d, ln);
-    const float num = dot(lp - o, ln);
-    const float t = num / (den == 0.0f ? 1.0f : den);
-    const V3 q = o + t * d - lp;
-    const bool on_disk = dot(q, q) <= l[12] * l[12];
-    if (den != 0.0f && num != 0.0f && on_disk && t < inf_f() && t >= mint &&
-        t < maxt) {
-      const float* irr = l + (normalize_emitter ? 9 : 6);
-      A.r = A.r + irr[0];
-      A.g = A.g + irr[1];
-      A.b = A.b + irr[2];
-      mint = inf_f();
-      maxt = inf_f();
-      h.m = -1.0f;
-    }
+  const int emit = emitter_hit(T, o, d, mint, maxt);
+  if (emit >= 0) {
+    const float* irr = T.lig + emit * kLig + (normalize_emitter ? 9 : 6);
+    A.r = A.r + irr[0];
+    A.g = A.g + irr[1];
+    A.b = A.b + irr[2];
+    h.m = -1.0f;
   }
 
   A.tr = A.tg = A.tb = 1.0f;
-  for (int li = 0; li < L; ++li) nee(T, D, 1 + li, li, h, eps, A);
+  for (int li = 0; li < L; ++li) nee(T, D, nee_slot(0, li, L), li, h, eps, A);
 
   for (int depth = 0; depth < bounces; ++depth) {
     // a path without a valid hit stays dead: nothing more accumulates
     if (!(h.m >= 0.0f)) break;
-    const int slot = 1 + L + depth * (1 + L);
-    V3 tx, bx;
-    tangent_frame(h.n, tx, bx);
-    D.pair(slot, u0, u1);
-    float cx, cy;
-    concentric(u0, u1, cx, cy);
-    const float cz = sqrtf(fmaxf(0.0f, 1.0f - cx * cx - cy * cy));
-    d = normalize(cx * tx + cy * bx + cz * h.n);
-    o = h.p + eps * h.n;
+    float cx, cy, cz;
+    bounce_ray(D, bounce_slot(depth, L), h, eps, cx, cy, cz, o, d);
     trace(T, o, d, 0.0f, inf_f(), h);
-    for (int li = 0; li < L; ++li) nee(T, D, slot + 1 + li, li, h, eps, A);
+    for (int li = 0; li < L; ++li)
+      nee(T, D, nee_slot(depth + 1, li, L), li, h, eps, A);
   }
 }
 
@@ -445,11 +140,6 @@ struct Params {
   int spp, width, bounces;
   int two_sided, normalize_emitter;
 };
-
-__device__ __forceinline__ void copy_table(float* dst, const float* src,
-                                           int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-}
 
 // Params is __grid_constant__: the per-pass key reads index the parameter
 // block in place instead of copying it to each thread's stack.
@@ -484,7 +174,7 @@ __global__ void __launch_bounds__(kBlock)
   T.two_sided = p.two_sided != 0;
 
   const int rid_g = rid + p.ray_offset;
-  const int n_draws = 1 + p.n_lig + p.bounces * (1 + p.n_lig);
+  const int n_draws = n_draws_of(p.n_lig, p.bounces);
   Draws D;
   D.u = p.u;
   D.n_rays = p.n_rays;

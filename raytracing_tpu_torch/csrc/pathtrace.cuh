@@ -1,0 +1,419 @@
+// Device code shared by the forward pass (megakernel.cu) and its adjoint
+// (megakernel_grad.cu): vector helpers, the table layout, the draw source,
+// closest hit and any-hit, and the pieces of one pass that the adjoint
+// replays (camera ray, emitter test, NEE shadow ray, bounce ray). Both
+// kernels call the same functions, so the adjoint's forward replay picks
+// the same champions, occlusion bits and draws as the forward pass.
+#pragma once
+
+#include <cstddef>
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+#include "threefry.cuh"
+
+namespace rt {
+
+constexpr int kNPar = 26;
+constexpr int kSph = 8;
+constexpr int kTri = 32;
+constexpr int kMat = 4;
+constexpr int kLig = 20;
+// par layout (the JAX kernel's _PAR)
+constexpr int kEye = 0, kU = 3, kV = 6, kW = 9, kFilmW = 12, kFilmH = 13,
+              kCols = 14, kRows = 15, kFocal = 16, kLensR = 17, kPmin = 18,
+              kPmax = 21, kEps = 24;
+constexpr float kPi4 = 0.785398163397448309616f;
+constexpr float kPi2 = 1.57079632679489661923f;
+
+__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+
+struct V3 {
+  float x, y, z;
+};
+__device__ __forceinline__ V3 mk(float x, float y, float z) {
+  V3 r = {x, y, z};
+  return r;
+}
+__device__ __forceinline__ V3 operator+(V3 a, V3 b) {
+  return mk(a.x + b.x, a.y + b.y, a.z + b.z);
+}
+__device__ __forceinline__ V3 operator-(V3 a, V3 b) {
+  return mk(a.x - b.x, a.y - b.y, a.z - b.z);
+}
+__device__ __forceinline__ V3 operator*(float s, V3 a) {
+  return mk(s * a.x, s * a.y, s * a.z);
+}
+__device__ __forceinline__ float dot(V3 a, V3 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z;
+}
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+  return mk(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z,
+            a.x * b.y - a.y * b.x);
+}
+__device__ __forceinline__ V3 ld3(const float* p) { return mk(p[0], p[1], p[2]); }
+// safe normalize: guard the squared norm before rsqrt
+__device__ __forceinline__ V3 normalize(V3 v) {
+  const float n2 = dot(v, v);
+  const float inv = rsqrtf(n2 > 0.0f ? n2 : 1.0f);
+  return mk(v.x * inv, v.y * inv, v.z * inv);
+}
+
+// Shirley-Chiu concentric square -> disk; (0, 0) maps to itself.
+__device__ __forceinline__ void concentric(float u0, float u1, float& x,
+                                           float& y) {
+  if (u0 == 0.0f && u1 == 0.0f) {
+    x = u0;
+    y = u1;
+    return;
+  }
+  const float a = 2.0f * u0 - 1.0f;
+  const float b = 2.0f * u1 - 1.0f;
+  float radius, phi;
+  if (a * a > b * b) {
+    radius = a;
+    phi = kPi4 * (b / (a == 0.0f ? 1.0f : a));
+  } else {
+    radius = b;
+    phi = kPi2 - kPi4 * (a / (b == 0.0f ? 1.0f : b));
+  }
+  x = cosf(phi) * radius;
+  y = sinf(phi) * radius;
+}
+
+// min-|component| tangent frame, ties toward x
+__device__ __forceinline__ void tangent_frame(V3 n, V3& t, V3& b) {
+  const float ax = fabsf(n.x), ay = fabsf(n.y), az = fabsf(n.z);
+  const float mn = fminf(ax, fminf(ay, az));
+  const bool fx = ax == mn;
+  const bool fy = (ay == mn) && !fx;
+  const bool fz = (az == mn) && !fx && !fy;
+  const V3 v = normalize(mk(fx ? 1.0f : n.x, fy ? 1.0f : n.y,
+                            fz ? 1.0f : n.z));
+  t = normalize(cross(v, n));
+  b = normalize(cross(n, t));
+}
+
+// The scene tables in shared memory.
+struct Tables {
+  const float* par;
+  const float* sph;
+  const float* tri;
+  const float* mat;
+  const float* lig;
+  int n_sph, n_tri, n_mat, n_lig;
+  bool two_sided;
+};
+
+// A closest hit. Besides the surface (p, n, m) it names the champion, for
+// the adjoint: obj = sphere i, or n_sph + triangle j, or -1; t its ray
+// parameter; for a triangle beta and gamma, for a sphere beta = 1 when t
+// is the far root.
+struct Hit {
+  V3 p, n;
+  float m;  // material id as float, -1 = no hit
+  int obj;
+  float t, beta, gamma;
+};
+
+// Draw slot j of this ray: from the u-planes (plane 2j + c, column rid) or
+// from threefry at counter (global_rid * n_draws + j) * 2 + c.
+struct Draws {
+  const float* u;
+  int n_rays;
+  int rid;
+  uint32_t k0, k1;
+  uint32_t base;  // global_rid * n_draws * 2
+  __device__ __forceinline__ void pair(int j, float& u0, float& u1) const {
+    if (u != nullptr) {
+      u0 = __ldg(u + static_cast<size_t>(2 * j) * n_rays + rid);
+      u1 = __ldg(u + static_cast<size_t>(2 * j + 1) * n_rays + rid);
+    } else {
+      const uint32_t c = base + 2u * static_cast<uint32_t>(j);
+      u0 = threefry_uniform(k0, k1, c);
+      u1 = threefry_uniform(k0, k1, c + 1u);
+    }
+  }
+};
+
+// Draw slots of one pass: lens, NEE per light, then per depth: bounce and
+// NEE per light. Segment s (the primary hit is segment 0) draws its NEE
+// sample of light li at nee_slot(s, li) and its bounce at bounce_slot(s).
+__device__ __forceinline__ int n_draws_of(int n_lig, int bounces) {
+  return 1 + n_lig + bounces * (1 + n_lig);
+}
+__device__ __forceinline__ int nee_slot(int s, int li, int n_lig) {
+  return s * (1 + n_lig) + 1 + li;
+}
+__device__ __forceinline__ int bounce_slot(int s, int n_lig) {
+  return (s + 1) * (1 + n_lig);
+}
+
+// Closest hit in [mint, maxt] (strict `t < best` champion); returns the
+// new maxt (champion t, or maxt on a miss).
+__device__ float trace(const Tables& T, V3 o, V3 d, float mint, float maxt,
+                       Hit& h) {
+  float bt = inf_f();
+  V3 bn = mk(0.0f, 0.0f, 0.0f);
+  float bm = -1.0f;
+  int bobj = -1;
+  float bbeta = 0.0f, bgamma = 0.0f;
+  if (mint != maxt) {
+    const float a = dot(d, d);
+    const float inv2a = 0.5f / a;
+    for (int i = 0; i < T.n_sph; ++i) {
+      const float* s = T.sph + i * kSph;
+      if (!(s[5] > 0.0f)) continue;
+      const V3 c = ld3(s);
+      const float r = s[3];
+      const V3 m = o - c;
+      const float b = 2.0f * dot(m, d);
+      const float cq = dot(m, m) - r * r;
+      const float dis = b * b - 4.0f * a * cq;
+      if (!(dis >= 0.0f)) continue;
+      const float sq = sqrtf(dis);
+      const float t0 = (-b - sq) * inv2a;
+      const float t1 = (-b + sq) * inv2a;
+      const float tmn = fminf(t0, t1), tmx = fmaxf(t0, t1);
+      float t;
+      bool far = false;
+      if (tmn >= mint && tmn <= maxt) {
+        t = tmn;
+      } else if (tmx >= mint && tmx <= maxt) {
+        t = tmx;
+        far = true;
+      } else {
+        continue;
+      }
+      if (t < bt) {
+        bt = t;
+        bn = normalize(o + t * d - c);
+        bm = s[4];
+        bobj = i;
+        bbeta = far ? 1.0f : 0.0f;
+      }
+    }
+    const V3 oxd = cross(o, d);  // loop-invariant over triangles
+    for (int i = 0; i < T.n_tri; ++i) {
+      const float* q = T.tri + i * kTri;
+      if (!(q[17] > 0.0f)) continue;
+      const V3 ng = ld3(q);
+      const float div = dot(ng, d);
+      if (T.two_sided ? !(div != 0.0f) : !(div > 0.0f)) continue;
+      const float idiv = 1.0f / div;
+      // constant-split Moller-Trumbore over [n_geo, c1, c2, e1, e2, k]
+      const float beta = (dot(ld3(q + 12), oxd) - dot(ld3(q + 6), d)) * idiv;
+      const float gamma = (dot(ld3(q + 3), d) - dot(ld3(q + 9), oxd)) * idiv;
+      const float t = (q[15] - dot(ng, o)) * idiv;
+      if (beta >= 0.0f && beta <= 1.0f && gamma >= 0.0f &&
+          beta + gamma <= 1.0f && t >= mint && t <= maxt && t < bt) {
+        const float alpha = 1.0f - beta - gamma;
+        bn = normalize(alpha * ld3(q + 18) + beta * ld3(q + 21) +
+                       gamma * ld3(q + 24));
+        bt = t;
+        bm = q[16];
+        bobj = T.n_sph + i;
+        bbeta = beta;
+        bgamma = gamma;
+      }
+    }
+  }
+  const bool found = bm >= 0.0f;
+  const float ts = found ? bt : 0.0f;
+  h.p = o + ts * d;
+  h.n = bn;
+  h.m = bm;
+  h.obj = found ? bobj : -1;
+  h.t = ts;
+  h.beta = bbeta;
+  h.gamma = bgamma;
+  return found ? bt : maxt;
+}
+
+// Occlusion of the segment [mint, maxt]; stops at the first hit.
+__device__ bool anyhit(const Tables& T, V3 o, V3 d, float mint, float maxt) {
+  if (mint == maxt) return false;
+  const float a = dot(d, d);
+  const float inv2a = 0.5f / a;
+  for (int i = 0; i < T.n_sph; ++i) {
+    const float* s = T.sph + i * kSph;
+    if (!(s[5] > 0.0f)) continue;
+    const V3 m = o - ld3(s);
+    const float r = s[3];
+    const float b = 2.0f * dot(m, d);
+    const float cq = dot(m, m) - r * r;
+    const float dis = b * b - 4.0f * a * cq;
+    if (!(dis >= 0.0f)) continue;
+    const float sq = sqrtf(dis);
+    const float t0 = (-b - sq) * inv2a;
+    const float t1 = (-b + sq) * inv2a;
+    const float tmn = fminf(t0, t1), tmx = fmaxf(t0, t1);
+    if ((tmn >= mint && tmn <= maxt) || (tmx >= mint && tmx <= maxt))
+      return true;
+  }
+  const V3 oxd = cross(o, d);
+  for (int i = 0; i < T.n_tri; ++i) {
+    const float* q = T.tri + i * kTri;
+    if (!(q[17] > 0.0f)) continue;
+    const V3 ng = ld3(q);
+    const float div = dot(ng, d);
+    if (T.two_sided ? !(div != 0.0f) : !(div > 0.0f)) continue;
+    const float idiv = 1.0f / div;
+    const float beta = (dot(ld3(q + 12), oxd) - dot(ld3(q + 6), d)) * idiv;
+    const float gamma = (dot(ld3(q + 3), d) - dot(ld3(q + 9), oxd)) * idiv;
+    const float t = (q[15] - dot(ng, o)) * idiv;
+    if (beta >= 0.0f && beta <= 1.0f && gamma >= 0.0f &&
+        beta + gamma <= 1.0f && t >= mint && t <= maxt)
+      return true;
+  }
+  return false;
+}
+
+// Pixel (col, row) and sub-sample of global ray id rid_g.
+__device__ __forceinline__ void pixel_of(int rid_g, int spp, int width,
+                                         int& col, int& row, int& samp) {
+  const int pix = rid_g / spp;
+  samp = rid_g - pix * spp;
+  row = pix / width;
+  col = pix - row * width;
+}
+
+// Lens sample: spp > 1 uses the stratified lens-cell centre and leaves
+// draw slot 0 unused.
+__device__ __forceinline__ void lens_uv(const Draws& D, int samp, int spp,
+                                        float& u0, float& u1) {
+  if (spp > 1) {
+    const int k = static_cast<int>(sqrtf(static_cast<float>(spp)) + 0.5f);
+    const int si = samp / k;
+    const int sj = samp - si * k;
+    u0 = (static_cast<float>(sj) + 0.5f) / static_cast<float>(k);
+    u1 = (static_cast<float>(si) + 0.5f) / static_cast<float>(k);
+  } else {
+    D.pair(0, u0, u1);
+  }
+}
+
+// Primary ray of pixel (col, row): film point -> pinhole direction ->
+// focal point -> thin-lens origin and direction, clipped to the scene AABB
+// (a miss is the dead window mint = maxt = INF).
+__device__ __forceinline__ void camera_ray(const float* P, const Draws& D,
+                                           int col, int row, int samp,
+                                           int spp, V3& o, V3& d,
+                                           float& mint, float& maxt) {
+  const V3 e = ld3(P + kEye), U = ld3(P + kU), V = ld3(P + kV),
+           W = ld3(P + kW);
+  const float su = (-0.5f + (static_cast<float>(col) + 0.5f) / P[kCols]) *
+                   P[kFilmW];
+  const float sv = (0.5f - (static_cast<float>(row) + 0.5f) / P[kRows]) *
+                   P[kFilmH];
+  const V3 pd = normalize(su * U + sv * V - W);
+  const float fl = P[kFocal];
+  const float pipd = -dot(e - fl * W, W);
+  const float tf = -(dot(e, W) + pipd) / dot(pd, W);
+  const V3 fp = e + tf * pd;
+
+  float u0, u1;
+  lens_uv(D, samp, spp, u0, u1);
+  float lx, ly;
+  concentric(u0, u1, lx, ly);
+  const float lr = P[kLensR];
+  o = e + lr * (lx * U + ly * V);
+  d = normalize(fp - o);
+
+  const float ox[3] = {o.x, o.y, o.z}, dx[3] = {d.x, d.y, d.z};
+  float nr[3], fr[3];
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    const float sd = dx[ax] == 0.0f ? 1e-30f : dx[ax];
+    const float t0 = (P[kPmin + ax] - ox[ax]) / sd;
+    const float t1 = (P[kPmax + ax] - ox[ax]) / sd;
+    nr[ax] = fminf(t0, t1);
+    fr[ax] = fmaxf(t0, t1);
+  }
+  const float tmin = fmaxf(fmaxf(nr[0], fmaxf(nr[1], nr[2])), 0.0f);
+  const float tmax = fminf(fr[0], fminf(fr[1], fr[2]));
+  mint = inf_f();
+  maxt = inf_f();
+  if (tmin <= tmax) {
+    mint = tmin;
+    maxt = tmax;
+  }
+}
+
+// The light whose disk the primary segment [mint, maxt) hits first in
+// light order, or -1. A hit ends the path.
+__device__ __forceinline__ int emitter_hit(const Tables& T, V3 o, V3 d,
+                                           float mint, float maxt) {
+  for (int li = 0; li < T.n_lig && mint != maxt; ++li) {
+    const float* l = T.lig + li * kLig;
+    const V3 lp = ld3(l), ln = ld3(l + 3);
+    const float den = dot(d, ln);
+    const float num = dot(lp - o, ln);
+    const float t = num / (den == 0.0f ? 1.0f : den);
+    const V3 q = o + t * d - lp;
+    const bool on_disk = dot(q, q) <= l[12] * l[12];
+    if (den != 0.0f && num != 0.0f && on_disk && t < inf_f() && t >= mint &&
+        t < maxt)
+      return li;
+  }
+  return -1;
+}
+
+// The NEE shadow ray of light li from hit h with draw slot `slot`: disk
+// sample (sx, sy) = concentric(u) (before the radius), origin so =
+// h.p + eps h.n, unnormalised direction dl to the sampled point, unit
+// direction sd and length dist.
+struct Shadow {
+  float sx, sy;
+  V3 so, dl, sd;
+  float dist;
+};
+__device__ __forceinline__ Shadow shadow_ray(const Tables& T, const Draws& D,
+                                             int slot, int li, const Hit& h,
+                                             float eps) {
+  const float* l = T.lig + li * kLig;
+  Shadow s;
+  float u0, u1;
+  D.pair(slot, u0, u1);
+  concentric(u0, u1, s.sx, s.sy);
+  const float rad = l[12];
+  const float sx = s.sx * rad;
+  const float sy = s.sy * rad;
+  const V3 tgt = ld3(l) + sx * ld3(l + 14) + sy * ld3(l + 17);
+  s.so = h.p + eps * h.n;
+  s.dl = tgt - s.so;
+  const float d2 = dot(s.dl, s.dl);
+  s.dist = d2 > 0.0f ? sqrtf(d2) : 0.0f;
+  s.sd = normalize(s.dl);
+  return s;
+}
+
+// The cosine bounce from hit h with draw slot `slot`: disk sample (cx, cy)
+// lifted by cz, unit direction d and origin o = h.p + eps h.n.
+__device__ __forceinline__ void bounce_ray(const Draws& D, int slot,
+                                           const Hit& h, float eps, float& cx,
+                                           float& cy, float& cz, V3& o,
+                                           V3& d) {
+  V3 tx, bx;
+  tangent_frame(h.n, tx, bx);
+  float u0, u1;
+  D.pair(slot, u0, u1);
+  concentric(u0, u1, cx, cy);
+  cz = sqrtf(fmaxf(0.0f, 1.0f - cx * cx - cy * cy));
+  d = normalize(cx * tx + cy * bx + cz * h.n);
+  o = h.p + eps * h.n;
+}
+
+// Albedo rgb of material id m (zeros outside the table).
+__device__ __forceinline__ V3 albedo(const Tables& T, int m) {
+  if (m < T.n_mat) return ld3(T.mat + m * kMat);
+  return mk(0.0f, 0.0f, 0.0f);
+}
+
+__device__ __forceinline__ void copy_table(float* dst, const float* src,
+                                           int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
+}
+
+}  // namespace rt

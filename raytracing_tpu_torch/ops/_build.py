@@ -75,3 +75,13 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
         fn.argtypes = argtypes
     _loaded[name] = lib
     return lib
+
+
+def load_all(specs: dict) -> dict:
+    """``load`` of several libraries, ``specs`` mapping each name to its
+    signatures; the nvcc builds run at the same time."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=len(specs)) as pool:
+        futures = {name: pool.submit(load, name, sig)
+                   for name, sig in specs.items()}
+        return {name: f.result() for name, f in futures.items()}

@@ -51,7 +51,11 @@ def sphere_hit(o, d, a, inv2a, mint, maxt, row) -> tuple[torch.Tensor,
     b = 2.0 * dot3(m, d)
     cq = dot3(m, m) - r * r
     dis = b * b - 4.0 * a * cq
-    sq = torch.sqrt(torch.clamp(dis, min=0.0))
+    # sqrt(max(dis, 0)) with the double where of the JAX package's
+    # _safe_sqrt: its cotangent is 0, not 0/0, where dis <= 0 (a miss, or a
+    # ray whose discriminant is exactly 0 -- which a 1024^2 image has)
+    pos = dis > 0.0
+    sq = torch.where(pos, torch.sqrt(torch.where(pos, dis, 1.0)), 0.0)
     t0 = (-b - sq) * inv2a
     t1 = (-b + sq) * inv2a
     tmn = torch.minimum(t0, t1)

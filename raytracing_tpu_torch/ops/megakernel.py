@@ -13,7 +13,8 @@ Two versions of one function:
   kernel ``csrc/megakernel.cu`` or raises; on CPU tensors it runs the plain
   version. It updates ``acc`` in place (the kernel reads and writes the
   same buffer, as the Pallas call aliases it) and counts its launches in
-  the module integer ``launches``.
+  the module integer ``launches``. On the card it is forward-only: a call
+  whose tensors require grad raises (``ops.megakernel_grad`` differentiates).
 
 Draws: with ``u_planes`` (``(2 * n_draws, R)``, plane ``2j + c`` for slot
 ``j``, component ``c``) both versions read them; without, both make the
@@ -354,6 +355,14 @@ def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
         return acc
     if acc.device.type != "cuda":
         raise ValueError(f"no kernel for device {acc.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (par, sph, tri, mat, lig, acc, u_planes)):
+        # the kernel writes acc through its raw pointer, which autograd
+        # never sees
+        raise RuntimeError("pathtrace_pass is forward-only on the card; "
+                           "differentiate through ops.megakernel_grad."
+                           "pathtrace_pass_diff (one pass per call)")
     lib = _build.load("megakernel", _SIGNATURES)
     pass0, roff = (int(x) for x in ipar.tolist())
     base = rng.base_key(seed)

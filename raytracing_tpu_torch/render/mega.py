@@ -1,6 +1,12 @@
 """The megakernel pass: Scene -> packed tables -> one kernel launch per
 call (``raytracing_tpu.render.mega``).
 
+When a table that the pass reads requires grad (scene parameters being
+fitted) and grad mode is on, the pass is differentiable: it runs
+``ops.megakernel_grad.pathtrace_pass_diff``, whose backward on the card is
+kernel 2 (``csrc/megakernel_grad.cu``). ``supported_diff`` and
+``bwd_impl_for`` gate that route as the JAX package's do.
+
 ``supported`` is True only for what the port covers: path mode, no
 Russian roulette, no grid, no blocked layout, no stale-POI replication, at
 most 64 spheres and 64 triangles and fewer than 2^24 rays. Anything else
@@ -16,6 +22,7 @@ from ..core.config import RenderConfig
 from ..core.types import Scene, tangent_frame
 from ..ops import intersect as I
 from ..ops import megakernel as MK
+from ..ops import megakernel_grad as MKG
 from .stages import _all_triangles
 
 
@@ -109,6 +116,43 @@ def supported(scene: Scene | None, cfg: RenderConfig) -> bool:
     return True
 
 
+def supported_diff(scene: Scene | None, cfg: RenderConfig) -> bool:
+    """True when the differentiable pass covers this scene and config (the
+    hard-gradient backward over unrolled tables); raises
+    NotImplementedError naming the ROADMAP Queue 1 item otherwise."""
+    supported(scene, cfg)   # streamed tables (item 10) raise here
+    if cfg.mega_edge_bandwidth > 0.0:
+        raise NotImplementedError(
+            "edge-aware (soft) gradients are not ported yet (ROADMAP Queue 1 "
+            "item 13)")
+    if cfg.use_grid:
+        raise NotImplementedError(
+            "grid-mode training is not ported yet (ROADMAP Queue 1 items "
+            "11-12)")
+    MKG._check_wrt(cfg.mega_grad_wrt)
+    return True
+
+
+def bwd_impl_for(scene: Scene | None, cfg: RenderConfig) -> str:
+    """The backward the differentiable pass runs: the port has one, kernel
+    2's hard route over unrolled tables ("cuda"; the JAX package's
+    "pallas"), chosen by ``mega_bwd_impl="auto"``."""
+    impl = cfg.mega_bwd_impl
+    if impl == "cell":
+        raise NotImplementedError(
+            "the champion (cell) backward is not ported yet (ROADMAP Queue 1 "
+            "item 12)")
+    if impl == "xla":
+        raise NotImplementedError(
+            "the dense XLA backward is TPU-only and not ported (ROADMAP, "
+            "'Do not port'); the plain version is "
+            "ops.megakernel_grad.pathtrace_pass_bwd_reference")
+    if impl != "auto":
+        raise ValueError(f"mega_bwd_impl must be 'auto', got {impl!r}")
+    supported_diff(scene, cfg)
+    return "cuda"
+
+
 def u_planes_for_pass(key: torch.Tensor, passes: int, cfg: RenderConfig,
                       n_lights: int, device=None) -> torch.Tensor:
     """The pass-wide uniforms in the kernel's plane layout, (2 * n_draws, R):
@@ -122,8 +166,15 @@ def render_pass_mega(scene: Scene, state: dict, cfg: RenderConfig,
                      u_planes: torch.Tensor | None = None,
                      n_passes: int = 1) -> dict:
     """``n_passes`` progressive passes; same state contract as the JAX
-    ``render_pass_mega``. ``state["acc"]`` is updated in place (no second
-    accumulator) and returned in the new state.
+    ``render_pass_mega``.
+
+    Forward-only (nothing requires grad, or grad mode is off):
+    ``state["acc"]`` is updated in place (no second accumulator), one
+    kernel launch per call. Differentiable (grad mode on and a scene table
+    or ``state["acc"]`` requires grad): one pass only, out of place, through
+    ``pathtrace_pass_diff``; cotangents reach the groups of
+    ``cfg.mega_grad_wrt``. More than one pass with grad raises: the
+    in-launch multi-pass kernel has no backward.
 
     Without ``u_planes`` the draws of pass ``p`` are keyed by
     ``fold_in(PRNGKey(cfg.seed), p)``, which is ``state["key"]`` as
@@ -137,11 +188,22 @@ def render_pass_mega(scene: Scene, state: dict, cfg: RenderConfig,
                          "keys its draws by cfg.seed")
     par, sph, tri, mat, lig = scene_tables(scene, cfg)
     ipar = torch.tensor([int(state["passes"]), 0], dtype=torch.int32)
-    acc = MK.pathtrace_pass(par, ipar, sph, tri, mat, lig, state["acc"],
-                            u_planes, spp=cfg.spp, width=cfg.width,
-                            bounces=cfg.bounces,
-                            two_sided=cfg.two_sided_triangles,
-                            normalize_emitter=cfg.normalize_emitter,
-                            seed=cfg.seed, n_passes=n_passes)
+    kw = dict(spp=cfg.spp, width=cfg.width, bounces=cfg.bounces,
+              two_sided=cfg.two_sided_triangles,
+              normalize_emitter=cfg.normalize_emitter, seed=cfg.seed)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (par, sph, tri, mat, lig, state["acc"])):
+        if n_passes != 1:
+            raise ValueError(
+                f"a differentiable call takes one pass, got n_passes="
+                f"{n_passes}: call render_pass once per pass, or render "
+                "under torch.no_grad()")
+        bwd_impl_for(scene, cfg)
+        acc = MKG.pathtrace_pass_diff(par, ipar, sph, tri, mat, lig,
+                                      state["acc"], u_planes,
+                                      diff_wrt=cfg.mega_grad_wrt, **kw)
+    else:
+        acc = MK.pathtrace_pass(par, ipar, sph, tri, mat, lig, state["acc"],
+                                u_planes, n_passes=n_passes, **kw)
     return {"acc": acc, "key": state["key"],
             "passes": int(state["passes"]) + n_passes}

@@ -33,7 +33,13 @@ def init_state(cfg: RenderConfig, device) -> dict:
 
 
 def render_pass(scene: Scene, state: dict, cfg: RenderConfig) -> dict:
-    """One progressive pass (spp samples per pixel)."""
+    """One progressive pass (spp samples per pixel); the differentiable
+    step. With grad mode on and scene parameters that require grad, the
+    returned ``acc`` carries a graph: ``image`` of it, a loss and
+    ``backward()`` give the parameters cotangents (on the card from kernel
+    2, ``ops.megakernel_grad``), restricted to ``cfg.mega_grad_wrt``. The
+    state contract is unchanged; thread ``acc.detach()`` into the next
+    step's state so that one step's graph ends with it."""
     return render_pass_mega(scene, state, cfg)
 
 

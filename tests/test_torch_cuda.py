@@ -1,15 +1,18 @@
-"""The CUDA megakernel against its plain PyTorch version on the card.
+"""The CUDA kernels (the pass and its adjoint) against their plain PyTorch
+versions on the card.
 
 Runs only where there is a CUDA device; elsewhere each test skips. Imports
 no jax, so it runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -m cuda
 """
+import numpy as np
 import pytest
 import torch
 
-from raytracing_tpu_torch import RenderConfig
+from raytracing_tpu_torch import RenderConfig, replace
 from raytracing_tpu_torch.models.scenes import cornell_box
 from raytracing_tpu_torch.ops import megakernel as MK
+from raytracing_tpu_torch.ops import megakernel_grad as MKG
 from raytracing_tpu_torch.render import mega
 from raytracing_tpu_torch.render import pathtracer as pt
 
@@ -54,3 +57,67 @@ def test_prng_route_bit_equals_u_planes_route(cuda):
     a = mega.render_pass_mega(scene, st, cfg, u_planes=u)["acc"]
     b = pt.render_pass(scene, pt.init_state(cfg, cuda), cfg)["acc"]
     assert torch.equal(a, b)
+
+
+def _gates(want, got):
+    """chip_smoke's phase-6 gates: cosine >= 0.999, norm ratio within 1%,
+    max |got - want| <= 5e-3 x the group's largest entry (float atomics
+    sum in another order than autograd)."""
+    for name, a, b in zip(MKG.DIFF_ALL, want, got):
+        a, b = a.double().ravel(), b.double().ravel()
+        assert torch.isfinite(b).all(), name
+        na, nb = a.norm().item(), b.norm().item()
+        assert na > 0, name
+        assert (a @ b).item() / (na * nb) >= 0.999, name
+        assert abs(nb / na - 1.0) <= 0.01, name
+        assert (a - b).abs().max().item() <= 5e-3 * a.abs().max().item(), \
+            name
+
+
+def test_adjoint_kernel_matches_plain_version(cuda):
+    """Kernel 2 (u-planes and PRNG routes) vs autograd through the plain
+    forward, cornell 64x48 b2, all five groups, seeded random g."""
+    cfg = RenderConfig(width=64, height=48, bounces=2)
+    scene = cornell_box(cols=64, rows=48, device=cuda)
+    tables = mega.scene_tables(scene, cfg)
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    u = mega.u_planes_for_pass(pt.init_state(cfg, cuda)["key"], 0, cfg,
+                               scene.lights.count, cuda)
+    g = torch.as_tensor(np.random.default_rng(1).normal(
+        size=(cfg.total_rays, 3)).astype(np.float32), device=cuda)
+    kw = dict(spp=1, width=64, bounces=2, two_sided=False,
+              normalize_emitter=True, seed=cfg.seed)
+    want = MKG.pathtrace_pass_bwd_reference(tables[0], ipar, *tables[1:], g,
+                                            u, **kw)
+    before = MKG.launches
+    for planes in (u, None):
+        got = MKG.pathtrace_pass_bwd(tables[0], ipar, *tables[1:], g, planes,
+                                     **kw)
+        torch.cuda.synchronize()
+        _gates(want, got)
+    assert MKG.launches == before + 2
+
+
+def test_render_pass_trains_through_both_kernels(cuda):
+    """A requires-grad render_pass on the card: one launch of each kernel,
+    and the sphere and material gradients of the plain route on the CPU."""
+    cfg = RenderConfig(width=64, height=48, bounces=2,
+                       mega_grad_wrt=("sph", "mat"))
+
+    def grads(device):
+        scene = cornell_box(cols=64, rows=48, device=device)
+        c = scene.spheres.center.clone().requires_grad_(True)
+        m = scene.materials.clone().requires_grad_(True)
+        sc = replace(scene, spheres=replace(scene.spheres, center=c),
+                     materials=m)
+        st = pt.render_pass(sc, pt.init_state(cfg, device), cfg)
+        (pt.image(st, cfg) ** 2).mean().backward()
+        return c.grad.cpu(), m.grad.cpu()
+
+    k1, k2 = MK.launches, MKG.launches
+    got = grads(cuda)
+    assert (MK.launches, MKG.launches) == (k1 + 1, k2 + 1)
+    for a, b in zip(grads("cpu"), got):
+        assert torch.isfinite(b).all() and b.abs().max() > 0
+        cos = (a * b).sum() / (a.norm() * b.norm())
+        assert cos >= 0.999 and abs(b.norm() / a.norm() - 1) <= 0.01
