@@ -29,7 +29,29 @@ Phases, each fatal on failure (no exception is caught):
      progressive state threaded from step to step; 1 warm-up and 10 timed
      steps. Exactly one kernel-1 and one kernel-2 launch per step, a finite
      loss, finite nonzero gradients. Prints forward + backward segments/s
-     and kernel 2 alone in ms on the step's own cotangent.
+     and kernel 2 alone in ms on the step's own cotangent;
+  8. kernels 4 and 5 (the stage pipeline's hit searches) vs their plain
+     versions on 2^20 seeded rays with dead rays and short windows: kernel
+     4 over sphere_field(1024)'s spheres, kernel 5 over a seeded soup of
+     4096 triangles (single- and two-sided) and over cornell's 10. The
+     kernels are written to equal their plain versions bit for bit, so idx
+     and t must be equal on every ray (gates first set at idx on 99.99%
+     and t within rtol 1e-5, tightened once the card showed 100%). Kernel
+     and plain ms;
+  9. the stage pipeline's main path: render_passes(sphere_field(1024),
+     1024^2, b5, use_megakernel=False, use_pallas=True), 1 warm-up + 4
+     timed one-pass calls: exactly 12 kernel-4 and 0 kernel-5 launches per
+     pass, finite acc, and the first pass's mean radiance within 2% of the
+     same pass through use_pallas=False (same draws). Prints segments/s,
+     ms per pass and torch.profiler's split of one pass (the share in
+     kernels 4 and 5). Then one render_direct call on the same scene (2
+     kernel-4 launches), both PNGs under build/;
+ 10. the stage route against kernel 1: cornell 1024^2 b5, one pass with
+     the same pass key through use_megakernel=False, use_pallas=True (12
+     launches each of kernels 4 and 5) and through use_megakernel=True (1
+     launch of kernel 1): at most 1% of rays beyond rtol/atol 2e-4 and the
+     mean accumulator within 1e-5 relative (phase 3's gates; kernel 1
+     contracts FMAs, the stage route does not).
 Ends with a kernels JSON line and, last, the device JSON line. Exits non-zero
 without a result where CUDA is missing or the package is not beside it.
 """
@@ -52,6 +74,12 @@ GRAD_SEED = 2
 TRAIN_WRT = ("sph", "mat")
 TRAIN_STEPS = 10
 TRAIN_LR = 1e-3
+# phases 8-10
+HIT_RAYS = 1 << 20
+HIT_SEED = 8
+N_SPHERES = 1024
+SOUP_TRIANGLES = 4096
+STAGE_TIMED_CALLS = 4
 
 
 def _fail(msg: str) -> None:
@@ -92,7 +120,8 @@ def compare_with_plain(dev, w: int, h: int) -> float:
     from raytracing_tpu_torch.render import mega
     from raytracing_tpu_torch.render import pathtracer as pt
 
-    cfg = RenderConfig(width=w, height=h, bounces=BOUNCES)
+    cfg = RenderConfig(width=w, height=h, bounces=BOUNCES,
+                       use_megakernel=True)
     scene = cornell_box(cols=w, rows=h, device=dev)
     st = pt.init_state(cfg, dev)
     u = mega.u_planes_for_pass(st["key"], 0, cfg, scene.lights.count, dev)
@@ -121,7 +150,8 @@ def prng_equals_u_planes(dev, w: int, h: int) -> None:
     from raytracing_tpu_torch.render import mega
     from raytracing_tpu_torch.render import pathtracer as pt
 
-    cfg = RenderConfig(width=w, height=h, bounces=BOUNCES)
+    cfg = RenderConfig(width=w, height=h, bounces=BOUNCES,
+                       use_megakernel=True)
     scene = cornell_box(cols=w, rows=h, device=dev)
     start = 5
     st_u = dict(pt.init_state(cfg, dev), passes=start)
@@ -156,7 +186,8 @@ def main_path(dev, smi: str) -> dict:
     from raytracing_tpu_torch.render import mega
     from raytracing_tpu_torch.render import pathtracer as pt
 
-    cfg = RenderConfig(width=MAIN_W, height=MAIN_H, bounces=BOUNCES)
+    cfg = RenderConfig(width=MAIN_W, height=MAIN_H, bounces=BOUNCES,
+                       use_megakernel=True)
     scene = cornell_box(cols=MAIN_W, rows=MAIN_H, device=dev)
     n_l = scene.lights.count
     segs_per_pass = cfg.total_rays * (1 + n_l + cfg.bounces * (1 + n_l))
@@ -285,7 +316,8 @@ def kernel2_vs_plain(dev, w: int, h: int, wrt, max_gate: bool) -> dict:
     from raytracing_tpu_torch.render import mega
     from raytracing_tpu_torch.render import pathtracer as pt
 
-    cfg = RenderConfig(width=w, height=h, bounces=BOUNCES)
+    cfg = RenderConfig(width=w, height=h, bounces=BOUNCES,
+                       use_megakernel=True)
     scene = cornell_box(cols=w, rows=h, device=dev)
     tables = mega.scene_tables(scene, cfg)
     ipar = torch.tensor([0, 0], dtype=torch.int32)
@@ -349,7 +381,7 @@ def train_path(dev, smi: str) -> dict:
     from raytracing_tpu_torch.render import pathtracer as pt
 
     cfg = RenderConfig(width=MAIN_W, height=MAIN_H, bounces=BOUNCES,
-                       mega_grad_wrt=TRAIN_WRT)
+                       mega_grad_wrt=TRAIN_WRT, use_megakernel=True)
     scene = cornell_box(cols=MAIN_W, rows=MAIN_H, device=dev)
     n_l = scene.lights.count
     segs = cfg.total_rays * (1 + n_l + cfg.bounces * (1 + n_l))
@@ -431,6 +463,265 @@ def train_path(dev, smi: str) -> dict:
     return {"launches": k2, "ms": ms}
 
 
+def _seeded_rays(dev, n: int, seed: int, lo: float, hi: float):
+    """n rays from uniform origins in [lo, hi]^3 in uniform directions,
+    made with numpy from ``seed``: every 16th ray dead at INF, every 16th
+    (offset 5) dead at t = 1, every 7th with the window [0.5, 4]."""
+    import numpy as np
+    import torch
+    g = np.random.default_rng(seed)
+    o = g.uniform(lo, hi, (n, 3)).astype(np.float32)
+    d = g.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    mint = np.zeros((n,), np.float32)
+    maxt = np.full((n,), np.inf, np.float32)
+    mint[::7], maxt[::7] = 0.5, 4.0
+    mint[::16] = maxt[::16] = np.inf
+    mint[5::16] = maxt[5::16] = 1.0
+    return [torch.as_tensor(x, device=dev) for x in (o, d, mint, maxt)]
+
+
+def _soup(n: int, seed: int):
+    """A seeded triangle soup: centres in [-4, 4]^3, corners within 0.6."""
+    import numpy as np
+    from raytracing_tpu_torch.core.types import make_triangles
+    g = np.random.default_rng(seed)
+    v = (g.uniform(-4.0, 4.0, (n, 1, 3))
+         + g.uniform(-0.6, 0.6, (n, 3, 3))).astype(np.float32)
+    return make_triangles(v)
+
+
+def hit_kernel_vs_plain(dev, name: str, search, plain, rays, rows,
+                        *extra) -> dict:
+    """Phase 8, one table: the kernel against its plain version on the
+    same rays and packed rows; returns errors and times."""
+    import torch
+    got_t, got_i = search(*rays, rows, *extra)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want_t, want_i = plain(*rays, rows, *extra)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    same_i = got_i == want_i
+    idx_eq = same_i.double().mean().item()
+    fin = same_i & torch.isfinite(want_t)
+    dt = (got_t - want_t).abs()[fin]
+    max_err = dt.max().item() if dt.numel() else 0.0
+    rel = (dt / want_t.abs()[fin]).max().item() if dt.numel() else 0.0
+    bit_eq = (same_i & ((got_t == want_t) | (torch.isinf(got_t)
+                                             & torch.isinf(want_t)))
+              ).double().mean().item()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    reps = 10
+    start.record()
+    for _ in range(reps):
+        search(*rays, rows, *extra)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    hits = (want_i >= 0).double().mean().item()
+    print(f"phase 8 {name}: {rays[0].shape[0]} rays x {rows.shape[0]} "
+          f"objects, {hits:.3%} hit; idx equal {idx_eq:.6%}, t bit-equal "
+          f"{bit_eq:.6%}, max|d t| {max_err:.6g} (rel {rel:.3g}); kernel "
+          f"{ms:.6g} ms (CUDA events), plain {plain_ms:.6g} ms")
+    _check(hits > 0.01, f"{name}: only {hits:.3%} of rays hit")
+    # the kernels are written to equal their plain versions bit for bit
+    # (no FMA contraction; IEEE sqrt and division on both sides), and the
+    # card shows it, so the gates are exact
+    _check(idx_eq == 1.0, f"{name}: idx equal on {idx_eq:.6%} (< 100%)")
+    _check(bit_eq == 1.0, f"{name}: t bit-equal on {bit_eq:.6%} (< 100%)")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+
+
+def hit_kernels_vs_plain(dev) -> tuple[dict, dict]:
+    """Phase 8: kernels 4 and 5 against their plain versions; returns the
+    kernel-4 entry (sphere_field(1024)) and the kernel-5 entry (cornell's
+    10 triangles, the shape of its main path; the worst error of all)."""
+    from raytracing_tpu_torch.models.scenes import cornell_box, sphere_field
+    from raytracing_tpu_torch.ops import hit_kernels as HK
+
+    sp = sphere_field(N_SPHERES, device=dev).spheres
+    rays = _seeded_rays(dev, HIT_RAYS, HIT_SEED, -6.0, 6.0)
+    k4 = hit_kernel_vs_plain(
+        dev, f"kernel 4 sphere_field({N_SPHERES})", HK.sphere_search_rows,
+        HK.sphere_search_reference, rays,
+        HK.sphere_rows(sp.center, sp.radius, sp.mask))
+    soup = _soup(SOUP_TRIANGLES, HIT_SEED + 1).to(dev)
+    rows = HK.triangle_rows(soup.v, soup.mask)
+    errs = []
+    for two_sided in (False, True):
+        errs.append(hit_kernel_vs_plain(
+            dev, f"kernel 5 soup({SOUP_TRIANGLES}) two_sided={two_sided}",
+            HK.triangle_search_rows, HK.triangle_search_reference, rays,
+            rows, two_sided)["max_abs_err"])
+    tris = cornell_box(device=dev).triangles
+    k5 = hit_kernel_vs_plain(
+        dev, "kernel 5 cornell(10)", HK.triangle_search_rows,
+        HK.triangle_search_reference,
+        _seeded_rays(dev, HIT_RAYS, HIT_SEED + 2, -0.95, 0.95),
+        HK.triangle_rows(tris.v, tris.mask), False)
+    k5["max_abs_err"] = max([k5["max_abs_err"], *errs])
+    return k4, k5
+
+
+def _profile_split(run) -> str:
+    """torch.profiler over ``run()``: device time in the hit kernels
+    against all device time and the wall time, and the largest ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    # device-side entries (kernels, copies, fills), not the host ops that
+    # launched them
+    rows = [e for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
+    rows.sort(key=dev_us, reverse=True)
+    total = sum(dev_us(e) for e in rows) / 1e3
+    hit = sum(dev_us(e) for e in rows if "search_kernel" in e.key) / 1e3
+    top = "; ".join(f"{e.key[:60]} x{e.count} {dev_us(e) / 1e3:.4g} ms"
+                    for e in rows[:8])
+    return (f"profiled pass {wall:.6g} ms wall: device busy {total:.6g} ms "
+            f"({total / wall:.3%}), kernels 4+5 {hit:.6g} ms ({hit / wall:.3%}"
+            f" of the pass); largest: {top}")
+
+
+def stage_main_path(dev, smi: str) -> dict:
+    """Phase 9: the stage pipeline's main path on sphere_field(1024);
+    returns the kernel-4 launches."""
+    import torch
+    from raytracing_tpu_torch import RenderConfig, replace
+    from raytracing_tpu_torch.io.png import write_png
+    from raytracing_tpu_torch.models.scenes import sphere_field
+    from raytracing_tpu_torch.ops import hit_kernels as HK
+    from raytracing_tpu_torch.render import pathtracer as pt
+    from raytracing_tpu_torch.render.direct import render_direct
+
+    cfg = RenderConfig(width=MAIN_W, height=MAIN_H, bounces=BOUNCES,
+                       use_pallas=True)
+    _check(not cfg.use_megakernel, "RenderConfig() must take the stage route")
+    scene = sphere_field(N_SPHERES, cols=MAIN_W, rows=MAIN_H, device=dev)
+    n_l = scene.lights.count
+    segs_per_pass = cfg.total_rays * (1 + n_l + cfg.bounces * (1 + n_l))
+
+    HK.sphere_launches = HK.triangle_launches = 0
+    state = pt.render_passes(scene, pt.init_state(cfg, dev), cfg, 1)
+    torch.cuda.synchronize()
+    first = state["acc"].clone()
+    t0 = time.perf_counter()
+    for _ in range(STAGE_TIMED_CALLS):
+        state = pt.render_passes(scene, state, cfg, 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k4, k5 = HK.sphere_launches, HK.triangle_launches
+    n_passes = 1 + STAGE_TIMED_CALLS
+    _check(k4 == 12 * n_passes and k5 == 0,
+           f"{k4} kernel-4 and {k5} kernel-5 launches for {n_passes} passes "
+           "(want 12 and 0 per pass)")
+    acc = state["acc"]
+    _check(tuple(acc.shape) == (cfg.total_rays, 3), "acc shape")
+    _check(bool(torch.isfinite(acc).all()), "stage acc not finite")
+    _check(state["passes"] == n_passes, f"passes = {state['passes']}")
+    ms = wall * 1e3 / STAGE_TIMED_CALLS
+    rate = segs_per_pass * STAGE_TIMED_CALLS / wall
+
+    # the same first pass through the all-pairs search (same draws)
+    xcfg = replace(cfg, use_pallas=False)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    xla = pt.render_pass(scene, pt.init_state(xcfg, dev), xcfg)["acc"]
+    torch.cuda.synchronize()
+    xla_ms = (time.perf_counter() - t1) * 1e3
+    mk, mx = first.double().mean().item(), xla.double().mean().item()
+    rel = abs(mk - mx) / abs(mx)
+    beyond = ((first - xla).abs() > TOL + TOL * xla.abs()).any(-1) \
+        .double().mean().item()
+    split = _profile_split(lambda: pt.render_passes(scene, state, cfg, 1))
+    img = pt.image(state, cfg)
+    out = HERE / "build" / "chip_smoke_spheres_1024.png"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    write_png(str(out), img)
+    print(f"phase 9 stage route sphere_field({N_SPHERES}) {MAIN_W}x{MAIN_H} "
+          f"b{BOUNCES} use_pallas on [{smi}]: {rate:.6g} ray segments/s "
+          f"({segs_per_pass} per pass), {ms:.6g} ms/pass over "
+          f"{STAGE_TIMED_CALLS} timed one-pass calls; launches kernel 4 "
+          f"{k4}, kernel 5 {k5} for {n_passes} passes; first pass mean "
+          f"radiance {mk:.9g} vs use_pallas=False {mx:.9g} (rel {rel:.3g}, "
+          f"{beyond:.6%} of rays beyond {TOL:g}; that pass {xla_ms:.6g} "
+          f"ms); image mean {img.mean().item():.6g} -> {out}")
+    print(f"phase 9 {split}")
+    _check(rel <= 0.02, f"mean radiance differs by {rel:.3g} (> 2%)")
+
+    HK.sphere_launches = HK.triangle_launches = 0
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    dimg = render_direct(scene, cfg)
+    torch.cuda.synchronize()
+    direct_ms = (time.perf_counter() - t2) * 1e3
+    d4, d5 = HK.sphere_launches, HK.triangle_launches
+    _check(d4 == 2 * n_l and d5 == 0,
+           f"render_direct: {d4} kernel-4, {d5} kernel-5 launches")
+    _check(bool(torch.isfinite(dimg).all()) and dimg.max().item() > 0,
+           "direct image not finite or black")
+    dout = HERE / "build" / "chip_smoke_spheres_direct_1024.png"
+    write_png(str(dout), dimg)
+    print(f"phase 9 render_direct {MAIN_W}x{MAIN_H}: {direct_ms:.6g} ms, "
+          f"launches kernel 4 {d4}, kernel 5 {d5}; image mean "
+          f"{dimg.mean().item():.6g} -> {dout}")
+    return {"launches": k4}
+
+
+def stage_vs_megakernel(dev) -> dict:
+    """Phase 10: the stage route against kernel 1 on cornell; returns the
+    kernel-5 launches."""
+    import torch
+    from raytracing_tpu_torch import RenderConfig, replace
+    from raytracing_tpu_torch.models.scenes import cornell_box
+    from raytracing_tpu_torch.ops import hit_kernels as HK
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.render import pathtracer as pt
+
+    cfg = RenderConfig(width=MAIN_W, height=MAIN_H, bounces=BOUNCES,
+                       use_pallas=True)
+    scene = cornell_box(cols=MAIN_W, rows=MAIN_H, device=dev)
+    HK.sphere_launches = HK.triangle_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = pt.render_pass(scene, pt.init_state(cfg, dev), cfg)["acc"]
+    torch.cuda.synchronize()
+    stage_ms = (time.perf_counter() - t0) * 1e3
+    k4, k5 = HK.sphere_launches, HK.triangle_launches
+    mcfg = replace(cfg, use_megakernel=True)
+    k1 = MK.launches
+    want = pt.render_pass(scene, pt.init_state(mcfg, dev), mcfg)["acc"]
+    torch.cuda.synchronize()
+    k1 = MK.launches - k1
+    err = (got - want).abs()
+    beyond = (err > TOL + TOL * want.abs()).any(-1).double().mean().item()
+    gm, wm = got.double().mean().item(), want.double().mean().item()
+    rel = abs(gm - wm) / abs(wm)
+    print(f"phase 10 cornell {MAIN_W}x{MAIN_H} b{BOUNCES}, pass 0: stage "
+          f"route (kernels 4 + 5, {stage_ms:.6g} ms) vs kernel 1: max|d acc| "
+          f"{err.max().item():.6g}, rays beyond {TOL:g}: {beyond:.6%}, mean "
+          f"acc stage {gm:.9g} kernel 1 {wm:.9g} (rel {rel:.3g}); launches "
+          f"kernel 4 {k4}, kernel 5 {k5}, kernel 1 {k1}")
+    _check(k4 == 12 and k5 == 12 and k1 == 1,
+           f"launches: kernel 4 {k4}, kernel 5 {k5} (want 12 each), kernel "
+           f"1 {k1} (want 1)")
+    _check(bool(torch.isfinite(got).all()), "stage acc not finite")
+    _check(beyond <= 0.01, f"{beyond:.4%} of rays beyond {TOL:g} (> 1%)")
+    _check(rel <= 1e-5, f"mean acc differs by {rel:.3g} relative (> 1e-5)")
+    return {"launches": k5}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -450,14 +741,16 @@ def main() -> int:
 
     # phase 2: build the kernels
     from raytracing_tpu_torch.ops import _build
+    from raytracing_tpu_torch.ops import hit_kernels as HK
     from raytracing_tpu_torch.ops import megakernel as MK
     from raytracing_tpu_torch.ops import megakernel_grad as MKG
     t0 = time.perf_counter()
     _build.load_all({"megakernel": MK._SIGNATURES,
-                     "megakernel_grad": MKG._SIGNATURES})
-    print(f"phase 2 build (both nvcc at once): "
+                     "megakernel_grad": MKG._SIGNATURES,
+                     "hit_kernels": HK._SIGNATURES})
+    print(f"phase 2 build (three nvcc at once): "
           f"{time.perf_counter() - t0:.2f} s ({_build.BUILD_DIR})")
-    for name in ("megakernel", "megakernel_grad"):
+    for name in ("megakernel", "megakernel_grad", "hit_kernels"):
         info = _build.build_log.get(name)
         print(f"  {name}: " + (f"built in {info['seconds']:.2f} s"
                                if info else "cached"))
@@ -477,6 +770,12 @@ def main() -> int:
     g_main = kernel2_vs_plain(dev, MAIN_W, MAIN_H, TRAIN_WRT, max_gate=False)
     # phase 7: the training main path
     t = train_path(dev, smi)
+    # phase 8: kernels 4 and 5 vs their plain versions
+    h4, h5 = hit_kernels_vs_plain(dev)
+    # phase 9: the stage pipeline's main path
+    s9 = stage_main_path(dev, smi)
+    # phase 10: the stage route against kernel 1
+    s10 = stage_vs_megakernel(dev)
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -490,7 +789,16 @@ def main() -> int:
         "replaces": "raytracing_tpu/ops/pallas/megakernel_grad.py:2152",
         "launches": t["launches"],
         "max_abs_err": max(g_small["max_abs_err"], g_main["max_abs_err"]),
-        "ms": t["ms"], "plain_ms": g_main["plain_ms"]}]}))
+        "ms": t["ms"], "plain_ms": g_main["plain_ms"]}, {
+        "name": "sphere_search (closest hit over spheres)", "route": "cuda",
+        "source": "raytracing_tpu_torch/csrc/hit_kernels.cu",
+        "replaces": "raytracing_tpu/ops/pallas/hit_kernels.py:58",
+        "launches": s9["launches"], **h4}, {
+        "name": "triangle_search (closest hit over triangles)",
+        "route": "cuda",
+        "source": "raytracing_tpu_torch/csrc/hit_kernels.cu",
+        "replaces": "raytracing_tpu/ops/pallas/hit_kernels.py:138",
+        "launches": s10["launches"], **h5}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

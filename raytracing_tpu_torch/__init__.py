@@ -1,11 +1,14 @@
 """raytracing_tpu_torch -- the PyTorch + CUDA port of raytracing_tpu.
 
 Module names mirror ``raytracing_tpu`` (core/, models/, ops/, render/,
-io/, cli.py). Every progressive pass runs on an NVIDIA Hopper card as one
-hand-written CUDA kernel (``csrc/megakernel.cu``), and its backward, when
-scene parameters require grad, as a second one (``csrc/megakernel_grad.cu``),
-both built from source at first use; on CPU tensors the same entry points
-run the kernels' plain PyTorch versions. The package never imports jax.
+io/, cli.py). With ``RenderConfig.use_megakernel`` a progressive pass runs
+on an NVIDIA Hopper card as one hand-written CUDA kernel
+(``csrc/megakernel.cu``), and its backward, when scene parameters require
+grad, as a second one (``csrc/megakernel_grad.cu``); otherwise it runs as
+the wavefront stage pipeline, whose hit searches run in a third pair
+(``csrc/hit_kernels.cu``) with ``use_pallas``. All are built from source
+at first use; on CPU tensors the same entry points run the kernels' plain
+PyTorch versions. The package never imports jax.
 """
 from __future__ import annotations
 

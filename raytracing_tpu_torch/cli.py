@@ -1,11 +1,17 @@
-"""Command-line progressive renderer (``raytracing_tpu.cli``, path renderer):
+"""Command-line renderer (``raytracing_tpu.cli``: path and direct renderers):
 
   python -m raytracing_tpu_torch.cli --list-devices
   python -m raytracing_tpu_torch.cli --scene cornell --width 1024 \\
       --height 1024 --passes 16 -o out.png
+  python -m raytracing_tpu_torch.cli --scene spheres --no-megakernel \\
+      --pallas --width 1024 --height 1024 --passes 4 -o spheres.png
+  python -m raytracing_tpu_torch.cli --renderer direct --no-megakernel \\
+      --pallas -o direct.png
   python -m raytracing_tpu_torch.cli --cpu --width 64 --height 48 -o x.png
 
-Same flags as the JAX CLI. The progressive state is checkpointed after
+Same flags as the JAX CLI: the megakernel by default, the stage pipeline
+with ``--no-megakernel`` (its hit searches in the hit kernels with
+``--pallas``). The path renderer's progressive state is checkpointed after
 every chunk of passes and on Ctrl-C, and ``--resume`` continues it (JAX
 checkpoints included). Flags for parts not ported yet raise.
 """
@@ -24,7 +30,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="builtin scene name (cornell, spheres)")
     p.add_argument("--renderer", default="path",
                    choices=["path", "direct", "fake"],
-                   help="pipeline; only path is ported")
+                   help="pipeline; fake is not ported yet")
     p.add_argument("--width", type=int, default=320)
     p.add_argument("--height", type=int, default=240)
     p.add_argument("--spp", type=int, default=1,
@@ -40,14 +46,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh-slabs", default="auto", metavar="N|xml|auto",
                    help="per-mesh grid resolution (with --grid)")
     p.add_argument("--pallas", action="store_true",
-                   help="stage-pipeline hit kernels (not ported yet)")
+                   help="stage pipeline: run the closest-hit and any-hit "
+                        "searches in the hit kernels (kernels 4 and 5)")
     p.add_argument("--no-megakernel", action="store_true",
-                   help="accepted for compatibility; the port has only the "
-                        "kernel route")
+                   help="run the wavefront stage pipeline instead of the "
+                        "whole-pass megakernel")
     p.add_argument("--block", type=int, default=0, metavar="B",
                    help="blocked pixel layout (not ported yet)")
     p.add_argument("--chunk-passes", type=int, default=8,
-                   help="passes per kernel launch (progress granularity)")
+                   help="passes per call, between checkpoints (one kernel "
+                        "launch on the megakernel route)")
     p.add_argument("-o", "--output", default="render.png")
     p.add_argument("--checkpoint", default=None,
                    help="checkpoint path (default <output>.ckpt.npz)")
@@ -90,12 +98,14 @@ def main(argv=None) -> int:
             print(f"[{i}] cuda: {pr.name} ({pr.multi_processor_count} SMs, "
                   f"{pr.total_memory / 2**30:.0f} GiB)")
         return 0
-    if args.renderer != "path":
-        raise _not_ported(f"--renderer {args.renderer}", 8)
+    if args.renderer == "fake":
+        raise _not_ported("--renderer fake", 8)
+    if args.renderer == "direct" and not args.no_megakernel:
+        raise _not_ported("--renderer direct on the megakernel (kernel 1's "
+                          "direct mode; add --no-megakernel for the stage "
+                          "pipeline)", 8)
     if args.grid > 0:
         raise _not_ported("--grid", 11)
-    if args.pallas:
-        raise _not_ported("--pallas", 9)
     if args.block:
         raise _not_ported("--block", 10)
     if args.orbit:
@@ -115,13 +125,22 @@ def main(argv=None) -> int:
             args.lens_diameter / 2, dtype=torch.float32, device=device))
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
                        bounces=args.bounces, exposure=args.exposure,
-                       seed=args.seed, use_megakernel=not args.no_megakernel)
+                       seed=args.seed, use_pallas=args.pallas,
+                       use_megakernel=not args.no_megakernel)
 
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "plain PyTorch version")
     print(f"device: {device.type} ({name})")
     print(f"  spheres: {scene.spheres.count}  triangles: "
           f"{scene.triangles.count}  lights: {scene.lights.count}")
+
+    if args.renderer == "direct":
+        from .render.direct import render_direct
+        # --passes: independent direct-lighting estimates, averaged
+        write_png(args.output, render_direct(scene, cfg,
+                                             n_passes=args.passes))
+        print(f"wrote {args.output} ({args.passes} passes)")
+        return 0
 
     ckpt = args.checkpoint or (args.output + ".ckpt.npz")
     if args.resume:

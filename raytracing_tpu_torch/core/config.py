@@ -2,15 +2,22 @@
 ``raytracing_tpu.core.config.RenderConfig``, so a configuration reads the
 same in both packages.
 
-Fields the port does not implement yet (``russian_roulette``, ``use_grid``,
-``use_pallas``, ``replicate_stale_poi``, ``mega_block != 0``) are kept and
-rejected by ``render.mega.supported`` with the ROADMAP item that covers
-them. The port has only the kernel route, so ``use_megakernel`` is accepted
-either way.
+The route follows ``use_megakernel`` as in the JAX package: False (the
+default) runs the wavefront stage pipeline (``render.stages``), whose hit
+searches run in kernels 4 and 5 with ``use_pallas=True`` and in chunked
+all-pairs scans of ``obj_chunk`` objects otherwise; True runs every pass
+as kernel 1 (``render.mega``). The stage pipeline covers
+``russian_roulette`` and ``replicate_stale_poi``; the megakernel route
+raises for those, for ``mega_block != 0`` and for grids
+(``render.mega.supported``), and ``use_grid`` raises on both routes
+(ROADMAP Queue 1 item 11). ``n_slabs`` (grids) and ``ray_chunk`` (which
+no render path of either package reads) are kept for the shared
+configuration.
 
-Training fields: ``mega_grad_wrt`` names the table groups ("par", "sph",
-"tri", "mat", "lig") that a differentiable pass gives cotangents to; the
-others get none. ``mega_bwd_impl`` takes "auto" only, which is kernel 2's
+Training fields (megakernel route; the stage route differentiates every
+parameter through autograd): ``mega_grad_wrt`` names the table groups
+("par", "sph", "tri", "mat", "lig") that a differentiable pass gives
+cotangents to; the others get none. ``mega_bwd_impl`` takes "auto" only, which is kernel 2's
 hard route (``render.mega.bwd_impl_for`` raises for "cell", ROADMAP Queue 1
 item 12, and for the TPU-only "xla"). ``mega_bwd_sublanes`` is the TPU
 backward's tile height: TPU-only, kept for the shared configuration and

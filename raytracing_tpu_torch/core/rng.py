@@ -96,3 +96,8 @@ def uniform(key: torch.Tensor, shape, device=None) -> torch.Tensor:
     idx = torch.arange(math.prod(shape), dtype=torch.int64, device=device)
     y0, y1 = threefry2x32(*key_words(key), idx >> 32, idx & MASK32)
     return bits_to_uniform(y0 ^ y1).reshape(tuple(shape))
+
+
+def uniform2(key: torch.Tensor, n: int, device=None) -> torch.Tensor:
+    """(n, 2) uniforms in [0, 1): ``raytracing_tpu.core.rng.uniform2``."""
+    return uniform(key, (n, 2), device)

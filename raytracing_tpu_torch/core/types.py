@@ -86,6 +86,42 @@ class Rays(_OnDevice):
     mint: torch.Tensor   # (N,)
     maxt: torch.Tensor   # (N,)
 
+    @property
+    def n(self) -> int:
+        return self.o.shape[0]
+
+    @property
+    def alive(self) -> torch.Tensor:
+        return self.mint != self.maxt
+
+    def at(self, t: torch.Tensor) -> torch.Tensor:
+        """Point along each ray: o + t * d."""
+        return self.o + t[..., None] * self.d
+
+
+@dataclasses.dataclass(frozen=True)
+class Hits(_OnDevice):
+    """Per-ray hit record and path throughput; ``mat_id < 0`` marks no
+    hit."""
+    p: torch.Tensor           # (N, 3) hit point
+    n: torch.Tensor           # (N, 3) shading normal
+    throughput: torch.Tensor  # (N, 3)
+    mat_id: torch.Tensor      # (N,) int32, -1 = no hit
+    t: torch.Tensor           # (N,) hit distance
+
+    @property
+    def valid(self) -> torch.Tensor:
+        return self.mat_id >= 0
+
+    @staticmethod
+    def none(n: int, device=None) -> "Hits":
+        """No hits, unit throughput."""
+        z3 = torch.zeros((n, 3), device=device)
+        return Hits(p=z3, n=z3, throughput=torch.ones((n, 3), device=device),
+                    mat_id=torch.full((n,), -1, dtype=torch.int32,
+                                      device=device),
+                    t=torch.full((n,), INF, device=device))
+
 
 @dataclasses.dataclass(frozen=True)
 class AABB(_OnDevice):
@@ -185,6 +221,10 @@ class Lights(_OnDevice):
     @property
     def area(self) -> torch.Tensor:
         return math.pi * self.radius ** 2
+
+    def frames(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(T, B) of each light's disk, (L, 3) each."""
+        return tangent_frame(self.normal)
 
     @staticmethod
     def make(position, normal, irradiance, radius, device=None) -> "Lights":

@@ -7,11 +7,13 @@ fitted) and grad mode is on, the pass is differentiable: it runs
 kernel 2 (``csrc/megakernel_grad.cu``). ``supported_diff`` and
 ``bwd_impl_for`` gate that route as the JAX package's do.
 
-``supported`` is True only for what the port covers: path mode, no
-Russian roulette, no grid, no blocked layout, no stale-POI replication, at
-most 64 spheres and 64 triangles and fewer than 2^24 rays. Anything else
-raises, naming the ROADMAP item that will cover it; nothing falls back to
-another path.
+``supported`` is True only for what the port's kernel 1 covers: path mode,
+no Russian roulette, no grid, no blocked layout, no stale-POI replication,
+at most 64 spheres and 64 triangles and fewer than 2^24 rays. Anything
+else raises, naming the ROADMAP item that will cover it or the stage
+pipeline (``use_megakernel=False``) that covers it now; nothing falls
+through to another route. ``use_pallas`` selects the stage pipeline's hit
+kernels and is ignored here, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -89,14 +91,17 @@ def supported(scene: Scene | None, cfg: RenderConfig) -> bool:
     ``scene=None`` only the config is checked."""
     if cfg.russian_roulette:
         raise NotImplementedError(
-            "Russian roulette is not ported yet (ROADMAP Queue 1 item 7)")
+            "Russian roulette in the megakernel is not ported yet (ROADMAP "
+            "Queue 1 item 7); the stage pipeline has it: set "
+            "use_megakernel=False")
     if cfg.use_grid:
         raise NotImplementedError(
             "uniform grids are not ported yet (ROADMAP Queue 1 item 11)")
-    if cfg.use_pallas or cfg.replicate_stale_poi:
+    if cfg.replicate_stale_poi:
         raise NotImplementedError(
-            "the stage pipeline (use_pallas, replicate_stale_poi) is not "
-            "ported yet (ROADMAP Queue 1 item 9)")
+            "replicate_stale_poi is a stage-pipeline option (the JAX "
+            "megakernel falls through to the stage pipeline for it): set "
+            "use_megakernel=False")
     if cfg.mega_block:
         raise NotImplementedError(
             "the blocked pixel layout is not ported yet (ROADMAP Queue 1 "

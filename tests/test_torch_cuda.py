@@ -1,5 +1,5 @@
-"""The CUDA kernels (the pass and its adjoint) against their plain PyTorch
-versions on the card.
+"""The CUDA kernels (the pass, its adjoint and the stage pipeline's hit
+searches) against their plain PyTorch versions on the card.
 
 Runs only where there is a CUDA device; elsewhere each test skips. Imports
 no jax, so it runs on a machine without it:
@@ -10,7 +10,9 @@ import pytest
 import torch
 
 from raytracing_tpu_torch import RenderConfig, replace
-from raytracing_tpu_torch.models.scenes import cornell_box
+from raytracing_tpu_torch.models.scenes import cornell_box, sphere_field
+from raytracing_tpu_torch.core.types import make_triangles
+from raytracing_tpu_torch.ops import hit_kernels as HK
 from raytracing_tpu_torch.ops import megakernel as MK
 from raytracing_tpu_torch.ops import megakernel_grad as MKG
 from raytracing_tpu_torch.render import mega
@@ -30,7 +32,8 @@ def cuda():
 def test_kernel_matches_plain_version(cuda):
     """Same u-planes into the kernel and the plain version: at most 1% of
     rays beyond 2e-4 (contracted FMAs move silhouette and grazing rays)."""
-    cfg = RenderConfig(width=64, height=48, bounces=5)
+    cfg = RenderConfig(width=64, height=48, bounces=5,
+                       use_megakernel=True)
     scene = cornell_box(cols=64, rows=48, device=cuda)
     u = mega.u_planes_for_pass(pt.init_state(cfg, cuda)["key"], 0, cfg,
                                scene.lights.count, cuda)
@@ -50,7 +53,8 @@ def test_kernel_matches_plain_version(cuda):
 
 
 def test_prng_route_bit_equals_u_planes_route(cuda):
-    cfg = RenderConfig(width=64, height=48, bounces=5, seed=3)
+    cfg = RenderConfig(width=64, height=48, bounces=5, seed=3,
+                       use_megakernel=True)
     scene = cornell_box(cols=64, rows=48, device=cuda)
     st = pt.init_state(cfg, cuda)
     u = mega.u_planes_for_pass(st["key"], 0, cfg, 1, cuda)
@@ -77,7 +81,8 @@ def _gates(want, got):
 def test_adjoint_kernel_matches_plain_version(cuda):
     """Kernel 2 (u-planes and PRNG routes) vs autograd through the plain
     forward, cornell 64x48 b2, all five groups, seeded random g."""
-    cfg = RenderConfig(width=64, height=48, bounces=2)
+    cfg = RenderConfig(width=64, height=48, bounces=2,
+                       use_megakernel=True)
     scene = cornell_box(cols=64, rows=48, device=cuda)
     tables = mega.scene_tables(scene, cfg)
     ipar = torch.tensor([0, 0], dtype=torch.int32)
@@ -102,7 +107,7 @@ def test_render_pass_trains_through_both_kernels(cuda):
     """A requires-grad render_pass on the card: one launch of each kernel,
     and the sphere and material gradients of the plain route on the CPU."""
     cfg = RenderConfig(width=64, height=48, bounces=2,
-                       mega_grad_wrt=("sph", "mat"))
+                       mega_grad_wrt=("sph", "mat"), use_megakernel=True)
 
     def grads(device):
         scene = cornell_box(cols=64, rows=48, device=device)
@@ -121,3 +126,70 @@ def test_render_pass_trains_through_both_kernels(cuda):
         assert torch.isfinite(b).all() and b.abs().max() > 0
         cos = (a * b).sum() / (a.norm() * b.norm())
         assert cos >= 0.999 and abs(b.norm() / a.norm() - 1) <= 0.01
+
+
+def _rays(device, n=64 * 48, seed=0):
+    """Seeded rays from uniform origins in uniform directions, every 16th
+    dead (mint == maxt)."""
+    g = np.random.default_rng(seed)
+    o = g.uniform(-6.0, 6.0, (n, 3)).astype(np.float32)
+    d = g.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    mint = np.zeros((n,), np.float32)
+    maxt = np.full((n,), np.inf, np.float32)
+    mint[::16] = maxt[::16] = np.inf
+    return [torch.as_tensor(x, device=device) for x in (o, d, mint, maxt)]
+
+
+def _bit_equal(got, want):
+    """Same champion and the same bits of t on every ray: neither side
+    contracts FMAs, and both take IEEE sqrt and division."""
+    assert torch.equal(got[1], want[1])
+    fin = torch.isfinite(want[0])
+    assert torch.equal(torch.isfinite(got[0]), fin) and fin.any()
+    assert torch.equal(got[0][fin], want[0][fin])
+
+
+def test_sphere_kernel_matches_plain_version(cuda):
+    sp = sphere_field(1024, device=cuda).spheres
+    rows = HK.sphere_rows(sp.center, sp.radius, sp.mask)
+    rays = _rays(cuda)
+    before = HK.sphere_launches
+    got = HK.sphere_search_rows(*rays, rows)
+    torch.cuda.synchronize()
+    assert HK.sphere_launches == before + 1
+    _bit_equal(got, HK.sphere_search_reference(*rays, rows))
+
+
+@pytest.mark.parametrize("two_sided", [False, True])
+def test_triangle_kernel_matches_plain_version(cuda, two_sided):
+    g = np.random.default_rng(1)
+    tris = make_triangles((g.uniform(-4, 4, (600, 1, 3))
+                           + g.uniform(-0.6, 0.6, (600, 3, 3)))
+                          .astype(np.float32), device=cuda)
+    rows = HK.triangle_rows(tris.v, tris.mask)
+    rays = _rays(cuda, seed=2)
+    before = HK.triangle_launches
+    got = HK.triangle_search_rows(*rays, rows, two_sided)
+    torch.cuda.synchronize()
+    assert HK.triangle_launches == before + 1
+    _bit_equal(got, HK.triangle_search_reference(*rays, rows, two_sided))
+
+
+def test_stage_pass_matches_kernel_1(cuda):
+    """The stage route through kernels 4 and 5 against kernel 1, cornell
+    64x48 b2, same pass key, with chip_smoke phase 10's gates."""
+    cfg = RenderConfig(width=64, height=48, bounces=2, use_pallas=True)
+    scene = cornell_box(cols=64, rows=48, device=cuda)
+    k4, k5 = HK.sphere_launches, HK.triangle_launches
+    got = pt.render_pass(scene, pt.init_state(cfg, cuda), cfg)["acc"]
+    torch.cuda.synchronize()
+    # 3 closest-hit and 3 any-hit searches per type at b2
+    assert (HK.sphere_launches - k4, HK.triangle_launches - k5) == (6, 6)
+    mcfg = replace(cfg, use_megakernel=True)
+    want = pt.render_pass(scene, pt.init_state(mcfg, cuda), mcfg)["acc"]
+    beyond = ((got - want).abs() > TOL + TOL * want.abs()).any(-1)
+    assert torch.isfinite(got).all()
+    assert beyond.float().mean().item() <= 0.01
+    gm, wm = got.double().mean().item(), want.double().mean().item()
+    assert abs(gm - wm) <= 1e-5 * abs(wm)

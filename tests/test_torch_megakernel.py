@@ -51,7 +51,7 @@ def _jax_passes(js, n_passes=1, **kw):
 
 
 def _port_passes(ps, n_passes=1, **kw):
-    cfg = RenderConfig(**kw)
+    cfg = RenderConfig(use_megakernel=True, **kw)
     st = pt.render_passes(ps, pt.init_state(cfg, "cpu"), cfg, n_passes)
     assert st["passes"] == n_passes
     return st["acc"].numpy()
@@ -93,7 +93,8 @@ def test_prng_route_equals_u_planes_route(scenes_32x24):
     fold_in(PRNGKey(seed), pass): identical accumulators, one pass at a
     time or several in one call."""
     _, ps = scenes_32x24
-    cfg = RenderConfig(width=32, height=24, bounces=2, seed=77)
+    cfg = RenderConfig(width=32, height=24, bounces=2, seed=77,
+                       use_megakernel=True)
     key = rng.base_key(cfg.seed)
     st_u = pt.init_state(cfg, "cpu")
     for p in range(2):
@@ -105,7 +106,8 @@ def test_prng_route_equals_u_planes_route(scenes_32x24):
 
 def test_state_key_must_match_seed(scenes_32x24):
     _, ps = scenes_32x24
-    cfg = RenderConfig(width=32, height=24, bounces=0)
+    cfg = RenderConfig(width=32, height=24, bounces=0,
+                       use_megakernel=True)
     st = dict(pt.init_state(cfg, "cpu"), key=rng.base_key(5))
     with pytest.raises(ValueError, match="cfg.seed"):
         pt.render_pass(ps, st, cfg)
@@ -115,7 +117,8 @@ def test_plain_pass_handles_ray_offset(scenes_32x24):
     """A shard of rays (global offset) equals the same rows of the whole
     image: pixel decode and draws follow the global ray id."""
     _, ps = scenes_32x24
-    cfg = RenderConfig(width=32, height=24, bounces=1)
+    cfg = RenderConfig(width=32, height=24, bounces=1,
+                       use_megakernel=True)
     tables = mega.scene_tables(ps, cfg)
     kw = dict(spp=1, width=32, bounces=1, two_sided=False,
               normalize_emitter=True, seed=cfg.seed)

@@ -141,7 +141,8 @@ def test_render_pass_grads_match_jax_pipeline(scenes):
     position (through the NEE sample and r2), and the camera eye."""
     js, ps = scenes
     vx, gx = _jax_grads(js, JaxConfig(width=W, height=H, bounces=1))
-    vp, gp = _port_grads(ps, RenderConfig(width=W, height=H, bounces=1))
+    vp, gp = _port_grads(ps, RenderConfig(width=W, height=H, bounces=1,
+                                               use_megakernel=True))
     np.testing.assert_allclose(vp, vx, rtol=1e-5)
     for k in PARAMS:
         a, b = gx[k], gp[k]
@@ -156,11 +157,12 @@ def test_grads_finite_at_five_bounces(scenes):
     """Every group, triangles included, through the whole chain at b5 (the
     grazing sphere hit of ROADMAP Queue 3 included)."""
     _, ps = scenes
-    _, g = _port_grads(ps, RenderConfig(width=W, height=H, bounces=5))
+    _, g = _port_grads(ps, RenderConfig(width=W, height=H, bounces=5,
+                                              use_megakernel=True))
     for k in PARAMS:
         assert np.isfinite(g[k]).all(), k
         assert np.abs(g[k]).max() > 0, k
-    cfg = RenderConfig(width=W, height=H, bounces=5)
+    cfg = RenderConfig(width=W, height=H, bounces=5, use_megakernel=True)
     tables = mega.scene_tables(ps, cfg)
     gacc = torch.as_tensor(np.random.default_rng(5).normal(
         size=(cfg.total_rays, 3)).astype(np.float32))
@@ -175,7 +177,7 @@ def test_grad_wrt_subset_zeroes_the_rest(scenes):
     """cfg.mega_grad_wrt: selected groups equal the full run, the rest
     get no cotangent; the plain backward returns zeros for them."""
     _, ps = scenes
-    cfg = RenderConfig(width=W, height=H, bounces=1)
+    cfg = RenderConfig(width=W, height=H, bounces=1, use_megakernel=True)
     _, g_full = _port_grads(ps, cfg)
     _, g_sub = _port_grads(ps, replace(cfg, mega_grad_wrt=("sph", "mat")))
     for k in ("center", "radius", "mat"):
@@ -194,7 +196,7 @@ def test_grad_wrt_subset_zeroes_the_rest(scenes):
 
 def test_routing_of_requires_grad_calls(scenes):
     _, ps = scenes
-    cfg = RenderConfig(width=W, height=H, bounces=1)
+    cfg = RenderConfig(width=W, height=H, bounces=1, use_megakernel=True)
     # nothing requires grad: the forward-only route, in place
     st = pt.init_state(cfg, "cpu")
     out = mega.render_pass_mega(ps, st, cfg)
@@ -217,7 +219,7 @@ def test_routing_of_requires_grad_calls(scenes):
 
 def test_backward_gates(scenes):
     _, ps = scenes
-    cfg = RenderConfig(width=W, height=H, bounces=1)
+    cfg = RenderConfig(width=W, height=H, bounces=1, use_megakernel=True)
     assert mega.supported_diff(ps, cfg)
     assert mega.bwd_impl_for(ps, cfg) == "cuda"
     for kw, match in ((dict(mega_bwd_impl="cell"), "item 12"),

@@ -33,7 +33,7 @@ def test_plain_pass_matches_jax_kernel_interpret(scenes):
     u = u_planes_for_pass(st["key"], st["passes"], jcfg, 1)
     want = np.asarray(render_pass_mega(js, st, jcfg, u_planes=u,
                                        interpret=True)["acc"])
-    cfg = RenderConfig(width=W, height=H, bounces=1)
+    cfg = RenderConfig(width=W, height=H, bounces=1, use_megakernel=True)
     got = pt.render_pass(ps, pt.init_state(cfg, "cpu"), cfg)["acc"].numpy()
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
 
@@ -43,7 +43,7 @@ def test_render_matches_jax_render(scenes):
     kw = dict(width=W, height=H, bounces=2)
     want = np.asarray(jpt.render(js, JaxConfig(**kw), n_passes=3))
     before = MK.launches
-    got = pt.render(ps, RenderConfig(**kw), n_passes=3)
+    got = pt.render(ps, RenderConfig(use_megakernel=True, **kw), n_passes=3)
     assert MK.launches == before        # CPU tensors: no kernel launch
     assert got.shape == (H, W, 3)
     np.testing.assert_allclose(got.numpy(), want, rtol=5e-4, atol=5e-4)
@@ -61,7 +61,7 @@ def test_jax_checkpoint_resumes_in_port(scenes, tmp_path):
     jcfg = JaxConfig(width=W, height=H, bounces=1)
     path = str(tmp_path / "jax.npz")
     jpt.save_checkpoint(path, _jax_state(js, jcfg, 1))
-    cfg = RenderConfig(width=W, height=H, bounces=1)
+    cfg = RenderConfig(width=W, height=H, bounces=1, use_megakernel=True)
     st = pt.load_checkpoint(path, "cpu")
     assert st["passes"] == 1
     st = pt.render_pass(ps, st, cfg)
@@ -71,7 +71,7 @@ def test_jax_checkpoint_resumes_in_port(scenes, tmp_path):
 
 def test_port_checkpoint_resumes_in_jax(scenes, tmp_path):
     js, ps = scenes
-    cfg = RenderConfig(width=W, height=H, bounces=1)
+    cfg = RenderConfig(width=W, height=H, bounces=1, use_megakernel=True)
     path = str(tmp_path / "port.npz")
     pt.save_checkpoint(path, pt.render_pass(ps, pt.init_state(cfg, "cpu"),
                                             cfg))
@@ -96,8 +96,7 @@ def test_cli_writes_png_and_resumes(tmp_path, capsys):
     assert "wrote" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--renderer", "direct"], ["--grid", "4"],
-                                  ["--pallas"], ["--block", "8"],
+@pytest.mark.parametrize("flag", [["--grid", "4"], ["--block", "8"],
                                   ["--orbit", "2"]])
 def test_cli_rejects_what_is_not_ported(flag):
     with pytest.raises(SystemExit, match="not ported yet"):
