@@ -18,11 +18,13 @@ Phases, each fatal on failure (no exception is caught):
      the plain version's first pass (same draws). Prints ray segments/s
      and the times per pass, writes build/chip_smoke_cornell_1024.png;
   6. kernel 2 (the adjoint) vs its plain version (autograd through the
-     plain forward), same tables, draws and seeded random cotangent: cornell
-     b5 at 256x192 with all five groups and at 1024x1024 with ("sph",
-     "mat"). Per group: cosine >= 0.999, norm ratio within 1%, and at
-     256x192 max |kernel - plain| <= 5e-3 x the group's largest entry; the
-     PRNG route and the u-planes route agree to the same gates;
+     plain forward), same tables, draws and seeded random cotangent: at
+     256x192 cornell b5 and sphere_field(64) (the most spheres "auto" sends
+     to kernel 2) with all five groups, at 1024x1024 cornell with ("sph",
+     "mat") (timed) and with all five groups. Per group: cosine >= 0.999,
+     norm ratio within 1%, and at 256x192 max |kernel - plain| <= 5e-3 x
+     the group's largest entry; the PRNG route and the u-planes route agree
+     to the same gates;
   7. the training main path: cornell 1024^2 b5, mega_grad_wrt ("sph",
      "mat"), sphere centers, radii and materials requiring grad; per step
      render_pass -> image -> mean square -> backward -> SGD, the
@@ -51,7 +53,34 @@ Phases, each fatal on failure (no exception is caught):
      launches each of kernels 4 and 5) and through use_megakernel=True (1
      launch of kernel 1): at most 1% of rays beyond rtol/atol 2e-4 and the
      mean accumulator within 1e-5 relative (phase 3's gates; kernel 1
-     contracts FMAs, the stage route does not).
+     contracts FMAs, the stage route does not);
+ 11. the champion (cell) route's kernels: kernel 1 recording vs not
+     recording on sphere_field(1024) at 1024^2 b5 (bit-equal accumulators);
+     kernel 1 recording vs its plain version on the same u-planes, on
+     sphere_field(1024) at 1024^2 and on sphere_field(256) and cornell at
+     256x192, the share of differing champion ids and occlusion bits
+     printed: the same source built with --fmad=false must equal the plain
+     version on every ray, id and bit; the build that runs, on cornell,
+     phase 3's gates; on sphere fields, where contracted multiply-adds move
+     grazing hits, SPHERE_GATES (at most 0.02% of first-segment ids, 5e-3
+     of the mean, 5% of rays beyond 2e-4, 1% of id slots; the comment above
+     it gives the readings they sit between); kernel 3 vs its plain version
+     on kernel 1's own records (so both differentiate the same champions)
+     through the PRNG and the u-planes route: sphere_field(1024) at 1024^2
+     with ("sph", "mat") (cosine >= 0.999, norm ratio within 1%),
+     sphere_field(1024) and cornell at 256x192 with all five groups (also
+     max |d| <= 5e-3 x the group's largest entry); kernel 3 vs kernel 2 on
+     cornell b5 with the same cotangent, all five groups, with phase 6's
+     gates at 256x192 and at 1024^2;
+ 12. the cell route's training main path: sphere_field(1024) 1024^2 b5,
+     mega_grad_wrt ("sph", "mat"), mega_bwd_impl "auto"; per step
+     render_pass -> image -> mean square -> backward -> SGD on sphere
+     centers, radii and materials; 1 warm-up and 10 timed steps. Exactly
+     one kernel-1 and one kernel-3 launch per step and no kernel-2 launch,
+     a finite loss, finite gradients. Prints ms/step, forward + backward
+     segments/s, kernel 1 recording and kernel 3 alone (CUDA events around
+     the wrappers, on the last step's pass and cotangent) and the plain
+     champion backward's ms on the same record.
 Ends with a kernels JSON line and, last, the device JSON line. Exits non-zero
 without a result where CUDA is missing or the package is not beside it.
 """
@@ -80,6 +109,13 @@ HIT_SEED = 8
 N_SPHERES = 1024
 SOUP_TRIANGLES = 4096
 STAGE_TIMED_CALLS = 4
+# phases 11-12
+SMALL_W, SMALL_H = 256, 192
+SMALL_SPHERES = 256
+UNROLL_SPHERES = 64        # the most spheres "auto" sends to kernel 2
+# kernel 1 built without contracted multiply-adds computes its plain
+# version's float32 arithmetic, so it must equal it exactly
+EXACT_FLAGS = ("--fmad=false",)
 
 
 def _fail(msg: str) -> None:
@@ -305,20 +341,20 @@ def _grad_gates(name: str, want, got, max_gate: bool) -> float:
     return err
 
 
-def kernel2_vs_plain(dev, w: int, h: int, wrt, max_gate: bool) -> dict:
-    """Phase 6 at one size: kernel 2 (u-planes and PRNG routes) vs its
-    plain version on the same tables, draws and random cotangent."""
+def kernel2_vs_plain(dev, name: str, w: int, h: int, wrt,
+                     max_gate: bool) -> dict:
+    """Phase 6 on one scene and size: kernel 2 (u-planes and PRNG routes)
+    vs its plain version on the same tables, draws and random cotangent."""
     import numpy as np
     import torch
     from raytracing_tpu_torch import RenderConfig
-    from raytracing_tpu_torch.models.scenes import cornell_box
     from raytracing_tpu_torch.ops import megakernel_grad as MKG
     from raytracing_tpu_torch.render import mega
     from raytracing_tpu_torch.render import pathtracer as pt
 
     cfg = RenderConfig(width=w, height=h, bounces=BOUNCES,
                        use_megakernel=True)
-    scene = cornell_box(cols=w, rows=h, device=dev)
+    scene = _cell_scene(name, w, h, dev)
     tables = mega.scene_tables(scene, cfg)
     ipar = torch.tensor([0, 0], dtype=torch.int32)
     u = mega.u_planes_for_pass(pt.init_state(cfg, dev)["key"], 0, cfg,
@@ -349,8 +385,8 @@ def kernel2_vs_plain(dev, w: int, h: int, wrt, max_gate: bool) -> dict:
     end.record()
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / reps
-    print(f"phase 6 {w}x{h} b{BOUNCES} wrt {list(wrt)}: plain backward "
-          f"{plain_ms:.6g} ms, peak memory {peak / 2**30:.3f} GiB; kernel 2 "
+    print(f"phase 6 {name} {w}x{h} b{BOUNCES} wrt {list(wrt)}: plain "
+          f"backward {plain_ms:.6g} ms, peak memory {peak / 2**30:.3f} GiB; kernel 2 "
           f"(PRNG route, random g) {ms:.6g} ms")
     err = 0.0
     names = MKG.DIFF_ALL
@@ -722,6 +758,337 @@ def stage_vs_megakernel(dev) -> dict:
     return {"launches": k5}
 
 
+def _record(MK, tables, ipar, acc, u, cfg, build_flags=()):
+    """Kernel 1 recording one pass: (acc, ids, occs)."""
+    return MK.pathtrace_pass(
+        tables[0], ipar, *tables[1:], acc, u, spp=cfg.spp, width=cfg.width,
+        bounces=cfg.bounces, two_sided=cfg.two_sided_triangles,
+        normalize_emitter=cfg.normalize_emitter, seed=cfg.seed, record=True,
+        build_flags=build_flags)
+
+
+def _cell_scene(name: str, w: int, h: int, dev):
+    from raytracing_tpu_torch.models.scenes import cornell_box, sphere_field
+    if name == "cornell":
+        return cornell_box(cols=w, rows=h, device=dev)
+    n = int(name.split("(")[1].rstrip(")"))
+    return sphere_field(n, cols=w, rows=h, device=dev)
+
+
+# kernel 1 (contracted) recording vs plain on sphere fields. Sound readings
+# and those of kernel 1 skipping one visible sphere (a faulty loop bound),
+# on one H100 80GB HBM3 (PERF.md): first-segment ids 0.0020-0.0049% of
+# rays sound, 0.11-0.37% faulty; mean 4.2e-4..2.36e-3 sound, 0.025-0.11
+# with sphere 0 skipped (about 1e-3 with a smaller one). Rays beyond 2e-4
+# (1.35-2.32% sound, 1.52-2.49% faulty) and all id slots (0.07-0.35%
+# sound, 0.12-0.64% faulty) do not tell the two apart, so they only bound
+# the noise.
+SPHERE_GATES = {"ids0": 2e-4, "rel": 5e-3, "beyond": 0.05, "ids": 0.01}
+
+
+def record_vs_plain(dev) -> None:
+    """Phase 11, kernel 1's recording mode: bit-equal to the plain launch
+    at the main path's size; against its plain version on the same
+    u-planes, as built and as built with --fmad=false (which must equal it
+    on every ray, champion and bit), at the main path's size and at
+    256x192."""
+    import torch
+    from raytracing_tpu_torch import RenderConfig
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.render import mega
+    from raytracing_tpu_torch.render import pathtracer as pt
+
+    cfg = RenderConfig(width=MAIN_W, height=MAIN_H, bounces=BOUNCES,
+                       use_megakernel=True)
+    scene = _cell_scene(f"sphere_field({N_SPHERES})", MAIN_W, MAIN_H, dev)
+    tables = mega.scene_tables(scene, cfg)
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    acc = torch.zeros((cfg.total_rays, 3), device=dev)
+    norec = MK.pathtrace_pass(tables[0], ipar, *tables[1:], acc.clone(),
+                              None, spp=cfg.spp, width=cfg.width,
+                              bounces=cfg.bounces, two_sided=False,
+                              normalize_emitter=True, seed=cfg.seed)
+    rec, ids, occs = _record(MK, tables, ipar, acc.clone(), None, cfg)
+    torch.cuda.synchronize()
+    hit = (ids >= 0).double().mean(-1).tolist()
+    print(f"phase 11 kernel 1 sphere_field({N_SPHERES}) {MAIN_W}x{MAIN_H} "
+          f"b{BOUNCES}: recording vs not, max|d acc| "
+          f"{(rec - norec).abs().max().item():g}; share of rays with a "
+          f"champion per segment {[round(x, 6) for x in hit]}; occluded "
+          f"share {occs.double().mean().item():.6g}")
+    _check(torch.equal(rec, norec), "recording changes kernel 1's acc")
+    _check(bool((ids >= -1).all()) and bool((ids < N_SPHERES).all()),
+           "recorded ids outside [-1, n_sph)")
+
+    for name, w, h in ((f"sphere_field({N_SPHERES})", MAIN_W, MAIN_H),
+                       (f"sphere_field({SMALL_SPHERES})", SMALL_W, SMALL_H),
+                       ("cornell", SMALL_W, SMALL_H)):
+        cfg = RenderConfig(width=w, height=h, bounces=BOUNCES,
+                           use_megakernel=True)
+        scene = _cell_scene(name, w, h, dev)
+        tables = mega.scene_tables(scene, cfg)
+        u = mega.u_planes_for_pass(pt.init_state(cfg, dev)["key"], 0, cfg,
+                                   scene.lights.count, dev)
+        zeros = torch.zeros((cfg.total_rays, 3), device=dev)
+        t0 = time.perf_counter()
+        want = MK.pathtrace_pass_reference(
+            tables[0], ipar, *tables[1:], zeros, u, spp=cfg.spp,
+            width=cfg.width, bounces=cfg.bounces, two_sided=False,
+            normalize_emitter=True, seed=cfg.seed, record=True)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = _record(MK, tables, ipar, zeros.clone(), u, cfg)
+        exact = _record(MK, tables, ipar, zeros.clone(), u, cfg, EXACT_FLAGS)
+        torch.cuda.synchronize()
+        for build, r in (("kernel 1", got), ("--fmad=false build", exact)):
+            d = _record_diff(r, want)
+            print(f"phase 11 {build} recording vs plain ({plain_ms:.6g} "
+                  f"ms), {name} {w}x{h} b{BOUNCES}: max|d acc| "
+                  f"{d['max']:.6g}, rays beyond {TOL:g}: {d['beyond']:.6%}, "
+                  f"mean acc rel {d['rel']:.3g}; ids differ on "
+                  f"{d['ids']:.6%} of slots ({d['ids0']:.6%} of first "
+                  f"segments), occlusion bits on {d['occs']:.6%}")
+            _check(bool(torch.isfinite(r[0]).all()), f"{name}: acc")
+        d, dx = _record_diff(got, want), _record_diff(exact, want)
+        _check(dx["beyond"] == 0.0 and dx["ids"] == 0.0 and dx["occs"] == 0.0,
+               f"{name}: the --fmad=false build differs from the plain "
+               "version")
+        if name == "cornell":
+            _check(d["beyond"] <= 0.01, f"{name}: {d['beyond']:.4%} of rays "
+                   f"beyond {TOL:g}")
+            _check(d["rel"] <= 1e-5, f"{name}: mean acc differs by "
+                   f"{d['rel']:.3g}")
+        else:
+            _check(all(d[k] <= lim for k, lim in SPHERE_GATES.items()),
+                   f"{name}: kernel 1 vs plain {d}, limits {SPHERE_GATES}")
+
+
+def _record_diff(got, want) -> dict:
+    """Kernel 1's record (acc, ids, occs) against the plain version's."""
+    err = (got[0] - want[0]).abs()
+    gm, wm = got[0].double().mean().item(), want[0].double().mean().item()
+    return {"max": err.max().item(),
+            "beyond": (err > TOL + TOL * want[0].abs()).any(-1).double()
+            .mean().item(),
+            "rel": abs(gm - wm) / abs(wm),
+            "ids": (got[1] != want[1]).double().mean().item(),
+            "ids0": (got[1][0] != want[1][0]).double().mean().item(),
+            "occs": (got[2] != want[2]).double().mean().item()}
+
+
+def kernel3_vs_plain(dev, name: str, w: int, h: int, wrt,
+                     max_gate: bool) -> dict:
+    """Phase 11: kernel 3 (PRNG and u-planes routes) vs its plain version
+    on kernel 1's own record and a seeded random cotangent."""
+    import numpy as np
+    import torch
+    from raytracing_tpu_torch import RenderConfig
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.ops import megakernel_grad as MKG
+    from raytracing_tpu_torch.render import mega
+    from raytracing_tpu_torch.render import pathtracer as pt
+
+    cfg = RenderConfig(width=w, height=h, bounces=BOUNCES,
+                       use_megakernel=True)
+    scene = _cell_scene(name, w, h, dev)
+    tables = mega.scene_tables(scene, cfg)
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    u = mega.u_planes_for_pass(pt.init_state(cfg, dev)["key"], 0, cfg,
+                               scene.lights.count, dev)
+    _, ids, occs = _record(MK, tables, ipar,
+                           torch.zeros((cfg.total_rays, 3), device=dev),
+                           None, cfg)
+    g = torch.as_tensor(np.random.default_rng(GRAD_SEED).normal(
+        size=(cfg.total_rays, 3)).astype(np.float32), device=dev)
+    kw = dict(spp=cfg.spp, width=cfg.width, bounces=cfg.bounces,
+              two_sided=cfg.two_sided_triangles,
+              normalize_emitter=cfg.normalize_emitter, seed=cfg.seed,
+              diff_wrt=wrt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = MKG.pathtrace_pass_bwd_champ_reference(
+        tables[0], ipar, *tables[1:], g, u, ids, occs, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got_u = MKG.pathtrace_pass_bwd_champ(tables[0], ipar, *tables[1:], g, u,
+                                         ids, occs, **kw)
+    got_p = MKG.pathtrace_pass_bwd_champ(tables[0], ipar, *tables[1:], g,
+                                         None, ids, occs, **kw)
+    torch.cuda.synchronize()
+    print(f"phase 11 kernel 3 vs plain, {name} {w}x{h} b{BOUNCES} wrt "
+          f"{list(wrt)}: plain champion backward {plain_ms:.6g} ms")
+    err = 0.0
+    for route, got in (("u-planes", got_u), ("PRNG", got_p)):
+        print(f"  kernel 3 {route} route vs plain version:")
+        for gname, a, b in zip(MKG.DIFF_ALL, want, got):
+            if gname in wrt:
+                err = max(err, _grad_gates(gname, a, b, max_gate))
+            else:
+                _check(not b.any().item(), f"{gname} outside diff_wrt "
+                       "is not zero")
+    return {"max_abs_err": err, "plain_ms": plain_ms}
+
+
+def kernel3_vs_kernel2(dev, w: int, h: int, wrt, max_gate: bool) -> None:
+    """Phase 11: kernel 3 on kernel 1's record vs kernel 2 on cornell, the
+    same cotangent (phase 6's gates for kernel 2 vs plain)."""
+    import numpy as np
+    import torch
+    from raytracing_tpu_torch import RenderConfig
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.ops import megakernel_grad as MKG
+    from raytracing_tpu_torch.render import mega
+
+    cfg = RenderConfig(width=w, height=h, bounces=BOUNCES,
+                       use_megakernel=True)
+    scene = _cell_scene("cornell", w, h, dev)
+    tables = mega.scene_tables(scene, cfg)
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    _, ids, occs = _record(MK, tables, ipar,
+                           torch.zeros((cfg.total_rays, 3), device=dev),
+                           None, cfg)
+    g = torch.as_tensor(np.random.default_rng(GRAD_SEED).normal(
+        size=(cfg.total_rays, 3)).astype(np.float32), device=dev)
+    kw = dict(spp=cfg.spp, width=cfg.width, bounces=cfg.bounces,
+              two_sided=cfg.two_sided_triangles,
+              normalize_emitter=cfg.normalize_emitter, seed=cfg.seed,
+              diff_wrt=wrt)
+    k2 = MKG.pathtrace_pass_bwd(tables[0], ipar, *tables[1:], g, None, **kw)
+    k3 = MKG.pathtrace_pass_bwd_champ(tables[0], ipar, *tables[1:], g, None,
+                                      ids, occs, **kw)
+    torch.cuda.synchronize()
+    print(f"phase 11 kernel 3 vs kernel 2, cornell {w}x{h} b{BOUNCES}, wrt "
+          f"{list(wrt)}, random g:")
+    for gname, a, b in zip(MKG.DIFF_ALL, k2, k3):
+        if gname in wrt:
+            _grad_gates(gname, a, b, max_gate)
+
+
+def train_cell_path(dev, smi: str) -> dict:
+    """Phase 12: the cell route's training main path; returns the kernel-3
+    entry's launches and times."""
+    import torch
+    from raytracing_tpu_torch import RenderConfig, replace
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.ops import megakernel_grad as MKG
+    from raytracing_tpu_torch.render import mega
+    from raytracing_tpu_torch.render import pathtracer as pt
+
+    cfg = RenderConfig(width=MAIN_W, height=MAIN_H, bounces=BOUNCES,
+                       mega_grad_wrt=TRAIN_WRT, mega_bwd_impl="auto",
+                       use_megakernel=True)
+    scene = _cell_scene(f"sphere_field({N_SPHERES})", MAIN_W, MAIN_H, dev)
+    _check(mega.bwd_impl_for(scene, cfg) == "cell",
+           "sphere_field(1024) does not take the cell route")
+    n_l = scene.lights.count
+    segs = cfg.total_rays * (1 + n_l + cfg.bounces * (1 + n_l))
+    params = {"center": scene.spheres.center.clone().requires_grad_(True),
+              "radius": scene.spheres.radius.clone().requires_grad_(True),
+              "materials": scene.materials.clone().requires_grad_(True)}
+    seen = {}
+
+    def step(state):
+        sc = replace(scene, spheres=replace(scene.spheres,
+                                            center=params["center"],
+                                            radius=params["radius"]),
+                     materials=params["materials"])
+        st = pt.render_pass(sc, state, cfg)
+        st["acc"].register_hook(lambda g: seen.__setitem__("g", g))
+        loss = torch.mean(pt.image(st, cfg) ** 2)
+        loss.backward()
+        grads = {}
+        with torch.no_grad():
+            for name, p in params.items():
+                grads[name] = p.grad
+                p -= TRAIN_LR * p.grad
+                p.grad = None
+        return dict(st, acc=st["acc"].detach()), loss.detach(), grads
+
+    state = pt.init_state(cfg, dev)
+    state, loss0, _ = step(state)                       # warm-up
+    torch.cuda.synchronize()
+    MK.launches = MKG.launches = MKG.champ_launches = 0
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state, loss, grads = step(state)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2, k3 = MK.launches, MKG.launches, MKG.champ_launches
+    _check(k1 == TRAIN_STEPS and k3 == TRAIN_STEPS and k2 == 0,
+           f"{k1} kernel-1, {k3} kernel-3 and {k2} kernel-2 launches for "
+           f"{TRAIN_STEPS} steps (want one, one and none per step)")
+    losses = torch.stack([loss0] + losses)
+    _check(bool(torch.isfinite(losses).all()), "training loss not finite")
+    for name in ("center", "materials", "radius"):
+        gr = grads[name]
+        _check(gr is not None and bool(torch.isfinite(gr).all()),
+               f"{name} gradient missing or not finite")
+    for name in ("center", "materials"):
+        _check(bool(grads[name].any()), f"{name} gradient is zero")
+    _check(state["passes"] == 1 + TRAIN_STEPS, f"passes {state['passes']}")
+
+    # kernels 1 (recording) and 3 alone on the last step's pass and
+    # cotangent, with the parameters that step used
+    sc = replace(scene, spheres=replace(
+        scene.spheres, center=params["center"].detach(),
+        radius=params["radius"].detach()),
+        materials=params["materials"].detach())
+    tables = mega.scene_tables(sc, cfg)
+    ipar = torch.tensor([state["passes"] - 1, 0], dtype=torch.int32)
+    kw = dict(spp=cfg.spp, width=cfg.width, bounces=cfg.bounces,
+              two_sided=cfg.two_sided_triangles,
+              normalize_emitter=cfg.normalize_emitter, seed=cfg.seed)
+    g = seen["g"].contiguous()
+    acc = torch.zeros_like(g)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    reps = 10
+    _, ids, occs = _record(MK, tables, ipar, acc, None, cfg)
+    start.record()
+    for _ in range(reps):
+        _record(MK, tables, ipar, acc, None, cfg)
+    end.record()
+    torch.cuda.synchronize()
+    k1_ms = start.elapsed_time(end) / reps
+    MKG.pathtrace_pass_bwd_champ(tables[0], ipar, *tables[1:], g, None, ids,
+                                 occs, diff_wrt=TRAIN_WRT, **kw)
+    start.record()
+    for _ in range(reps):
+        got = MKG.pathtrace_pass_bwd_champ(tables[0], ipar, *tables[1:], g,
+                                           None, ids, occs,
+                                           diff_wrt=TRAIN_WRT, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    k3_ms = start.elapsed_time(end) / reps
+    t1 = time.perf_counter()
+    want = MKG.pathtrace_pass_bwd_champ_reference(
+        tables[0], ipar, *tables[1:], g, None, ids, occs, diff_wrt=TRAIN_WRT,
+        **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t1) * 1e3
+    live = (g != 0).any(-1).double().mean().item()
+    print(f"phase 12 train sphere_field({N_SPHERES}) {MAIN_W}x{MAIN_H} "
+          f"b{BOUNCES} wrt {list(TRAIN_WRT)}, cell route, {TRAIN_STEPS} timed "
+          f"steps on [{smi}]: {segs * TRAIN_STEPS / wall:.6g} fwd+bwd ray "
+          f"segments/s ({segs} per step), {wall * 1e3 / TRAIN_STEPS:.6g} "
+          f"ms/step; launches kernel 1 {k1}, kernel 3 {k3}, kernel 2 {k2}; "
+          f"alone on the last step's pass: kernel 1 recording {k1_ms:.6g} ms, "
+          f"kernel 3 {k3_ms:.6g} ms ({live:.3%} of rays with g != 0), plain "
+          f"champion backward {plain_ms:.6g} ms; loss first "
+          f"{losses[0].item():.7g} last {losses[-1].item():.7g}; |grad| "
+          f"center {grads['center'].norm().item():.6g} radius "
+          f"{grads['radius'].norm().item():.6g} materials "
+          f"{grads['materials'].norm().item():.6g}")
+    print("  kernel 3 on the step's cotangent vs plain version:")
+    err = 0.0
+    for gname, a, b in zip(MKG.DIFF_ALL, want, got):
+        if gname in TRAIN_WRT:
+            err = max(err, _grad_gates(gname, a, b, False))
+    return {"launches": k3, "ms": k3_ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "k1_record_ms": k1_ms}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -745,15 +1112,19 @@ def main() -> int:
     from raytracing_tpu_torch.ops import megakernel as MK
     from raytracing_tpu_torch.ops import megakernel_grad as MKG
     t0 = time.perf_counter()
-    _build.load_all({"megakernel": MK._SIGNATURES,
-                     "megakernel_grad": MKG._SIGNATURES,
-                     "hit_kernels": HK._SIGNATURES})
-    print(f"phase 2 build (three nvcc at once): "
+    # kernel 1 also as built without contracted multiply-adds (phase 11)
+    libs = [("megakernel", MK._SIGNATURES, ()),
+            ("megakernel", MK._SIGNATURES, EXACT_FLAGS),
+            ("megakernel_grad", MKG._SIGNATURES, MKG.ADJ_FLAGS),
+            ("megakernel_champ", MKG._CHAMP_SIGNATURES, MKG.ADJ_FLAGS),
+            ("hit_kernels", HK._SIGNATURES, ())]
+    _build.load_all(libs)
+    print(f"phase 2 build ({len(libs)} nvcc at once): "
           f"{time.perf_counter() - t0:.2f} s ({_build.BUILD_DIR})")
-    for name in ("megakernel", "megakernel_grad", "hit_kernels"):
-        info = _build.build_log.get(name)
-        print(f"  {name}: " + (f"built in {info['seconds']:.2f} s"
-                               if info else "cached"))
+    for name, _, flags in libs:
+        info = _build.build_log.get((name, flags))
+        print(f"  {' '.join((name,) + flags)}: "
+              + (f"built in {info['seconds']:.2f} s" if info else "cached"))
         for line in (info["ptxas"] if info else "").splitlines():
             if "registers" in line or "spill" in line or "stack" in line:
                 print("    ptxas:", line.strip())
@@ -766,8 +1137,13 @@ def main() -> int:
     # phase 5: the main path
     k = main_path(dev, smi)
     # phase 6: kernel 2 vs its plain version
-    g_small = kernel2_vs_plain(dev, 256, 192, MKG.DIFF_ALL, max_gate=True)
-    g_main = kernel2_vs_plain(dev, MAIN_W, MAIN_H, TRAIN_WRT, max_gate=False)
+    g_small = [kernel2_vs_plain(dev, name, SMALL_W, SMALL_H, MKG.DIFF_ALL,
+                                max_gate=True)
+               for name in ("cornell", f"sphere_field({UNROLL_SPHERES})")]
+    g_main = kernel2_vs_plain(dev, "cornell", MAIN_W, MAIN_H, TRAIN_WRT,
+                              max_gate=False)
+    g_all = kernel2_vs_plain(dev, "cornell", MAIN_W, MAIN_H, MKG.DIFF_ALL,
+                             max_gate=False)
     # phase 7: the training main path
     t = train_path(dev, smi)
     # phase 8: kernels 4 and 5 vs their plain versions
@@ -776,6 +1152,17 @@ def main() -> int:
     s9 = stage_main_path(dev, smi)
     # phase 10: the stage route against kernel 1
     s10 = stage_vs_megakernel(dev)
+    # phase 11: the cell route's kernels against their plain versions
+    record_vs_plain(dev)
+    c_main = kernel3_vs_plain(dev, f"sphere_field({N_SPHERES})", MAIN_W,
+                              MAIN_H, TRAIN_WRT, max_gate=False)
+    c_small = [kernel3_vs_plain(dev, name, SMALL_W, SMALL_H, MKG.DIFF_ALL,
+                                max_gate=True)
+               for name in (f"sphere_field({N_SPHERES})", "cornell")]
+    kernel3_vs_kernel2(dev, SMALL_W, SMALL_H, MKG.DIFF_ALL, max_gate=True)
+    kernel3_vs_kernel2(dev, MAIN_W, MAIN_H, MKG.DIFF_ALL, max_gate=False)
+    # phase 12: the cell route's training main path
+    c12 = train_cell_path(dev, smi)
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -788,7 +1175,8 @@ def main() -> int:
         "source": "raytracing_tpu_torch/csrc/megakernel_grad.cu",
         "replaces": "raytracing_tpu/ops/pallas/megakernel_grad.py:2152",
         "launches": t["launches"],
-        "max_abs_err": max(g_small["max_abs_err"], g_main["max_abs_err"]),
+        "max_abs_err": max(g["max_abs_err"]
+                           for g in g_small + [g_main, g_all]),
         "ms": t["ms"], "plain_ms": g_main["plain_ms"]}, {
         "name": "sphere_search (closest hit over spheres)", "route": "cuda",
         "source": "raytracing_tpu_torch/csrc/hit_kernels.cu",
@@ -798,7 +1186,15 @@ def main() -> int:
         "route": "cuda",
         "source": "raytracing_tpu_torch/csrc/hit_kernels.cu",
         "replaces": "raytracing_tpu/ops/pallas/hit_kernels.py:138",
-        "launches": s10["launches"], **h5}]}))
+        "launches": s10["launches"], **h5}, {
+        "name": "pathtrace_pass_bwd_champ (champion adjoint)",
+        "route": "cuda",
+        "source": "raytracing_tpu_torch/csrc/megakernel_champ.cu",
+        "replaces": "raytracing_tpu/ops/pallas/megakernel_grad.py:1173",
+        "launches": c12["launches"],
+        "max_abs_err": max([c12["max_abs_err"], c_main["max_abs_err"]]
+                           + [c["max_abs_err"] for c in c_small]),
+        "ms": c12["ms"], "plain_ms": c12["plain_ms"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

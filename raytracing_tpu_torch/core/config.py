@@ -17,9 +17,11 @@ configuration.
 Training fields (megakernel route; the stage route differentiates every
 parameter through autograd): ``mega_grad_wrt`` names the table groups
 ("par", "sph", "tri", "mat", "lig") that a differentiable pass gives
-cotangents to; the others get none. ``mega_bwd_impl`` takes "auto" only, which is kernel 2's
-hard route (``render.mega.bwd_impl_for`` raises for "cell", ROADMAP Queue 1
-item 12, and for the TPU-only "xla"). ``mega_bwd_sublanes`` is the TPU
+cotangents to; the others get none. ``mega_bwd_impl`` picks the backward
+as in the JAX package (``render.mega.bwd_impl_for``): "pallas" is kernel
+2's hard route, "cell" the champion route (kernel 1 recording, then kernel
+3), "auto" the first up to 64 objects per type and the second past that;
+the TPU-only "xla" raises. ``mega_bwd_sublanes`` is the TPU
 backward's tile height: TPU-only, kept for the shared configuration and
 ignored. ``mega_edge_bandwidth > 0`` (edge-aware gradients) raises in
 ``render.mega.supported_diff`` (item 13).

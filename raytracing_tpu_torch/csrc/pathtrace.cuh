@@ -1,9 +1,10 @@
-// Device code shared by the forward pass (megakernel.cu) and its adjoint
-// (megakernel_grad.cu): vector helpers, the table layout, the draw source,
-// closest hit and any-hit, and the pieces of one pass that the adjoint
-// replays (camera ray, emitter test, NEE shadow ray, bounce ray). Both
-// kernels call the same functions, so the adjoint's forward replay picks
-// the same champions, occlusion bits and draws as the forward pass.
+// Device code shared by the forward pass (megakernel.cu) and its adjoints
+// (megakernel_grad.cu, megakernel_champ.cu): vector helpers, the table
+// layout, the draw source, closest hit and any-hit, and the pieces of one
+// pass that the adjoints replay (camera ray, emitter test, NEE shadow ray,
+// bounce ray). The kernels call the same functions, so kernel 2's forward
+// replay picks the same champions, occlusion bits and draws as the forward
+// pass, and kernel 3 replays the same draws and rays.
 #pragma once
 
 #include <cstddef>
@@ -95,7 +96,8 @@ __device__ __forceinline__ void tangent_frame(V3 n, V3& t, V3& b) {
   b = normalize(cross(n, t));
 }
 
-// The scene tables in shared memory.
+// The scene tables, in shared memory (kernel 3 reads sph and tri from
+// global memory, at its champions' rows only).
 struct Tables {
   const float* par;
   const float* sph;

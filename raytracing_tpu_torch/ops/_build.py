@@ -6,6 +6,10 @@ lands in ``build/kernels/`` at the root of the checkout (listed in
 ``.gitignore``), named by a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one loads at once. The build runs inside
 the first call that launches a kernel, never at import.
+
+``load(name, signatures, flags)`` adds ``flags`` after ``NVCC_FLAGS``; each
+set of flags is a library of its own (the adjoints are built with
+``--fmad=false``, see ``csrc/pathtrace_adj.cuh``).
 """
 from __future__ import annotations
 
@@ -22,9 +26,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_loaded: dict[str, ctypes.CDLL] = {}
-# name -> {"path", "seconds", "ptxas"} for libraries built by this process
-build_log: dict[str, dict] = {}
+_loaded: dict[tuple, ctypes.CDLL] = {}
+# (name, flags) -> {"path", "seconds", "ptxas"} for libraries built by this
+# process
+build_log: dict[tuple, dict] = {}
 
 
 def nvcc_path() -> str:
@@ -36,27 +41,30 @@ def nvcc_path() -> str:
                        "kernels are built from csrc/ at first use")
 
 
-def _source_hash(src: Path) -> str:
+def _source_hash(src: Path, flags: tuple) -> str:
     h = hashlib.sha256()
     for p in [src, *sorted(CSRC.glob("*.cuh"))]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 
 
-def load(name: str, signatures: dict) -> ctypes.CDLL:
-    """The built library ``lib<name>``; ``signatures`` maps each exported
-    function to ``(restype, argtypes)``."""
-    if name in _loaded:
-        return _loaded[name]
+def load(name: str, signatures: dict, flags: tuple = ()) -> ctypes.CDLL:
+    """The built library ``lib<name>``, compiled with ``flags`` after
+    ``NVCC_FLAGS``; ``signatures`` maps each exported function to
+    ``(restype, argtypes)``."""
+    key = (name, tuple(flags))
+    if key in _loaded:
+        return _loaded[key]
     src = CSRC / f"{name}.cu"
-    so = BUILD_DIR / f"lib{name}-{_source_hash(src)}.so"
+    nvcc_flags = NVCC_FLAGS + key[1]
+    so = BUILD_DIR / f"lib{name}-{_source_hash(src, nvcc_flags)}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC),
+        proc = subprocess.run([nvcc_path(), *nvcc_flags, "-I", str(CSRC),
                                "-o", str(tmp), str(src)],
                               capture_output=True, text=True)
         if proc.returncode != 0:
@@ -65,23 +73,21 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
         os.replace(tmp, so)          # atomic: concurrent builds agree
         log = proc.stdout + proc.stderr
         so.with_suffix(".log").write_text(log)
-        build_log[name] = {"path": str(so),
-                           "seconds": time.perf_counter() - t0,
-                           "ptxas": log}
+        build_log[key] = {"path": str(so),
+                          "seconds": time.perf_counter() - t0, "ptxas": log}
     lib = ctypes.CDLL(str(so))
     for fname, (restype, argtypes) in signatures.items():
         fn = getattr(lib, fname)
         fn.restype = restype
         fn.argtypes = argtypes
-    _loaded[name] = lib
+    _loaded[key] = lib
     return lib
 
 
-def load_all(specs: dict) -> dict:
-    """``load`` of several libraries, ``specs`` mapping each name to its
-    signatures; the nvcc builds run at the same time."""
+def load_all(specs) -> list:
+    """``load`` of several ``(name, signatures, flags)``; the nvcc builds
+    run at the same time."""
     from concurrent.futures import ThreadPoolExecutor
+    specs = list(specs)
     with ThreadPoolExecutor(max_workers=len(specs)) as pool:
-        futures = {name: pool.submit(load, name, sig)
-                   for name, sig in specs.items()}
-        return {name: f.result() for name, f in futures.items()}
+        return list(pool.map(lambda spec: load(*spec), specs))

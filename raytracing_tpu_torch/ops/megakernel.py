@@ -16,6 +16,17 @@ Two versions of one function:
   the module integer ``launches``. On the card it is forward-only: a call
   whose tensors require grad raises (``ops.megakernel_grad`` differentiates).
 
+``record=True`` (single pass; ``megakernel.py:300-311``) also returns
+what the champion backward needs: ``ids`` (1 + bounces, R) int32, each
+trace segment's champion (sphere i, n_sph + triangle j, -1 for none) in
+schedule order, and ``occs`` ((1 + bounces) * L, R) bool, each NEE
+shadow ray's occlusion bit in schedule order (segment-major). Segments
+after a path died hold -1 / False.
+
+The tables stay resident (no streaming): at most ``SPH_RESIDENT_MAX``
+spheres (JAX's ``SMEM_TABLE_MAX // 8``, which JAX's kernel also loops over
+resident) and ``UNROLL_OBJECTS`` triangles.
+
 Draws: with ``u_planes`` (``(2 * n_draws, R)``, plane ``2j + c`` for slot
 ``j``, component ``c``) both versions read them; without, both make the
 draws of ``jax.random.uniform(pass_key, (R, n_draws, 2))`` themselves,
@@ -39,10 +50,15 @@ from . import intersect as I
 
 INF = math.inf
 
-# the kernel keeps every table in shared memory and loops over objects;
-# larger tables are ROADMAP Queue 1 item 10 (streaming)
+# the kernel keeps every table in shared memory and loops over objects.
+# UNROLL_OBJECTS is JAX's unroll budget (the routing threshold of the
+# backward); spheres stay resident up to JAX's SMEM_TABLE_MAX // 8, as in
+# JAX's kernel; larger tables are ROADMAP Queue 1 item 10 (streaming)
 UNROLL_OBJECTS = 64
-SMEM_BYTES_MAX = 48 * 1024
+SPH_RESIDENT_MAX = 36 * 1024 // 8
+TRI_RESIDENT_MAX = UNROLL_OBJECTS
+# shared memory a block may opt into on the H100 (227 KB)
+SMEM_BYTES_MAX = 232448
 # pass keys ride in the kernel's parameter block (csrc/megakernel.cu
 # kMaxPasses); longer runs take several launches
 MAX_PASSES_PER_LAUNCH = 64
@@ -84,7 +100,8 @@ def draw_planes(key: torch.Tensor, n_rays: int, n_draws: int,
 def _trace(o, d, mint, maxt, sph, tri, two_sided):
     """Closest hit over spheres then triangles (champion loops with a
     strict ``t < best``). Returns (new maxt, hit point, shading normal,
-    material id as float, -1 on a miss)."""
+    material id as float (-1 on a miss), champion (sphere i, n_sph +
+    triangle j, -1 on a miss) as int64)."""
     n = o.shape[0]
     alive = mint != maxt
     a = dot3(d, d)
@@ -92,6 +109,7 @@ def _trace(o, d, mint, maxt, sph, tri, two_sided):
     bt = torch.full((n,), INF, device=o.device)
     bn = torch.zeros((n, 3), device=o.device)
     bm = torch.full((n,), -1.0, device=o.device)
+    bo = torch.full((n,), -1, dtype=torch.int64, device=o.device)
     for i in range(sph.shape[0]):
         row = sph[i]
         ok, t = I.sphere_hit(o, d, a, inv2a, mint, maxt, row)
@@ -102,6 +120,7 @@ def _trace(o, d, mint, maxt, sph, tri, two_sided):
         bt = torch.where(better, t, bt)
         bn = torch.where(better[:, None], hn, bn)
         bm = torch.where(better, row[4], bm)
+        bo = torch.where(better, i, bo)
     oxd = cross3(o, d)          # loop-invariant over triangles
     for i in range(tri.shape[0]):
         row = tri[i]
@@ -116,9 +135,11 @@ def _trace(o, d, mint, maxt, sph, tri, two_sided):
         bt = torch.where(better, t, bt)
         bn = torch.where(better[:, None], hn, bn)
         bm = torch.where(better, row[16], bm)
+        bo = torch.where(better, sph.shape[0] + i, bo)
     found = bm >= 0.0
     ts = torch.where(found, bt, 0.0)
-    return torch.where(found, bt, maxt), o + ts[:, None] * d, bn, bm
+    return (torch.where(found, bt, maxt), o + ts[:, None] * d, bn, bm,
+            torch.where(found, bo, -1))
 
 
 def _anyhit(o, d, mint, maxt, sph, tri, two_sided):
@@ -146,12 +167,39 @@ def _albedo(mat, matf):
 
 def _pass_reference(par, sph, tri, mat, lig, acc, u, ray_offset: int, *,
                     spp: int, width: int, bounces: int, two_sided: bool,
-                    normalize_emitter: bool) -> torch.Tensor:
+                    normalize_emitter: bool, trace=None, anyhit=None,
+                    record=None) -> torch.Tensor:
     """One pass of ``_render_pass_kernel`` (path mode) over every ray;
-    returns the new accumulator."""
+    returns the new accumulator.
+
+    ``trace(o, d, mint, maxt)`` -> (maxt, hit point, normal, material,
+    champion) and ``anyhit(o, d, mint, maxt)`` -> occluded replace the
+    sweeps over the tables, as JAX's ``_tile_program(trace_override=,
+    anyhit_override=)`` does; they are called in schedule order. With
+    ``record`` (a dict of two lists) each trace appends its champions to
+    ``record["ids"]`` and each NEE its occlusion bits to
+    ``record["occs"]``."""
     n, dev = acc.shape[0], acc.device
     n_lig = lig.shape[0]
     slots = iter(range(u.shape[0] // 2))
+    if trace is None:
+        def trace(o, d, mint, maxt):
+            return _trace(o, d, mint, maxt, sph, tri, two_sided)
+    if anyhit is None:
+        def anyhit(o, d, mint, maxt):
+            return _anyhit(o, d, mint, maxt, sph, tri, two_sided)
+    if record is not None:
+        traced, occluded = trace, anyhit
+
+        def trace(*ray):
+            out = traced(*ray)
+            record["ids"].append(out[4])
+            return out
+
+        def anyhit(*ray):
+            occ = occluded(*ray)
+            record["occs"].append(occ)
+            return occ
 
     def draw():
         j = next(slots)
@@ -179,7 +227,7 @@ def _pass_reference(par, sph, tri, mat, lig, acc, u, ray_offset: int, *,
     o, d, mint, maxt = rays.o, rays.d, rays.mint, rays.maxt
     eps = par[24]
 
-    maxt, hp, hn, matf = _trace(o, d, mint, maxt, sph, tri, two_sided)
+    maxt, hp, hn, matf, _ = trace(o, d, mint, maxt)
 
     # emitter hits on the primary segment only
     for li in range(n_lig):
@@ -204,8 +252,8 @@ def _pass_reference(par, sph, tri, mat, lig, acc, u, ray_offset: int, *,
         dist = torch.sqrt(torch.where(d2 > 0.0, d2, 1.0))
         dist = torch.where(d2 > 0.0, dist, 0.0)
         sd = safe_normalize(dl)
-        occ = _anyhit(so, sd, torch.where(valid, 0.0, INF),
-                      torch.where(valid, dist, INF), sph, tri, two_sided)
+        occ = anyhit(so, sd, torch.where(valid, 0.0, INF),
+                     torch.where(valid, dist, INF))
         # geometric term uses the distance to the light CENTER (reference
         # quirk, kept)
         q = hp - lp
@@ -231,32 +279,49 @@ def _pass_reference(par, sph, tri, mat, lig, acc, u, ray_offset: int, *,
         o = hp + eps * hn
         mint = torch.where(valid, 0.0, INF)
         maxt = torch.full((n,), INF, device=dev)
-        maxt, hp, hn, matf = _trace(o, d, mint, maxt, sph, tri, two_sided)
+        maxt, hp, hn, matf, _ = trace(o, d, mint, maxt)
         for li in range(n_lig):
             acc, tp = nee(li, acc, tp, draw())
     return acc
 
 
+def pass_draws(ipar, u_planes, n_rays: int, n_lights: int, bounces: int,
+               seed: int, p: int = 0, device=None) -> torch.Tensor:
+    """The draws of pass ``ipar[0] + p``: ``u_planes``, or those the
+    kernels make in-kernel, keyed by ``fold_in(PRNGKey(seed), pass)``."""
+    if u_planes is not None:
+        return u_planes
+    pass0, roff = (int(x) for x in ipar.tolist())
+    return draw_planes(rng.pass_key(rng.base_key(seed), pass0 + p), n_rays,
+                       n_draws_of(n_lights, bounces), roff, device)
+
+
 def pathtrace_pass_reference(par, ipar, sph, tri, mat, lig, acc, u_planes,
                              *, spp: int, width: int, bounces: int,
                              two_sided: bool, normalize_emitter: bool,
-                             seed: int, n_passes: int = 1) -> torch.Tensor:
+                             seed: int, n_passes: int = 1,
+                             record: bool = False):
     """The plain version of ``pathtrace_pass`` on any device; returns a new
-    accumulator (``acc`` is not modified)."""
-    pass0, roff = (int(x) for x in ipar.tolist())
-    n = acc.shape[0]
-    n_draws = n_draws_of(lig.shape[0], bounces)
-    base = rng.base_key(seed)
+    accumulator (``acc`` is not modified), or ``(acc, ids, occs)`` with
+    ``record=True`` (one pass)."""
+    if record and n_passes != 1:
+        raise ValueError("champion recording is single-pass")
+    roff = int(ipar[1])
+    rec = {"ids": [], "occs": []} if record else None
     for p in range(n_passes):
-        u = u_planes
-        if u is None:
-            u = draw_planes(rng.pass_key(base, pass0 + p), n, n_draws, roff,
-                            acc.device)
+        u = pass_draws(ipar, u_planes, acc.shape[0], lig.shape[0], bounces,
+                       seed, p, acc.device)
         acc = _pass_reference(par, sph, tri, mat, lig, acc, u, roff,
                               spp=spp, width=width, bounces=bounces,
                               two_sided=two_sided,
-                              normalize_emitter=normalize_emitter)
-    return acc
+                              normalize_emitter=normalize_emitter,
+                              record=rec)
+    if not record:
+        return acc
+    occs = (torch.stack(rec["occs"]) if rec["occs"] else
+            torch.zeros((0, acc.shape[0]), dtype=torch.bool,
+                        device=acc.device))
+    return acc, torch.stack(rec["ids"]).to(torch.int32), occs
 
 
 # ---------------------------------------------------------------------------
@@ -271,6 +336,7 @@ _SIGNATURES = {
         _VP, _VP, _I,                         # u_planes, host keys, n_passes
         _I, _I, _I, _I, _I,                           # spp, width, bounces,
                                                       # two_sided, normalize
+        _VP, _VP,                                     # ids, occs (record)
         _VP]),                                        # stream
 }
 
@@ -309,8 +375,9 @@ def _check_args(par, ipar, sph, tri, mat, lig, acc, u_planes, spp, width,
     if n % (spp * width):
         raise ValueError(f"{n} rays are not whole rows of {width} pixels "
                          f"x {spp} spp")
-    if max(sph.shape[0], tri.shape[0]) > UNROLL_OBJECTS:
-        raise ValueError(f"at most {UNROLL_OBJECTS} spheres and triangles")
+    if sph.shape[0] > SPH_RESIDENT_MAX or tri.shape[0] > TRI_RESIDENT_MAX:
+        raise ValueError(f"at most {SPH_RESIDENT_MAX} spheres and "
+                         f"{TRI_RESIDENT_MAX} triangles stay resident")
     smem = 4 * (NPAR + sph.numel() + tri.numel() + mat.numel() + lig.numel())
     if smem > SMEM_BYTES_MAX:
         raise ValueError(f"scene tables take {smem} B of shared memory, "
@@ -334,8 +401,13 @@ def _ptr(t: torch.Tensor | None):
 def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
                    spp: int, width: int, bounces: int, two_sided: bool,
                    normalize_emitter: bool, seed: int,
-                   n_passes: int = 1) -> torch.Tensor:
-    """``n_passes`` progressive passes over ``acc`` (R, 3), in place.
+                   n_passes: int = 1, record: bool = False,
+                   build_flags: tuple = ()):
+    """``n_passes`` progressive passes over ``acc`` (R, 3), in place;
+    returns ``acc``, or ``(acc, ids, occs)`` with ``record=True`` (one
+    pass; see the module docstring). ``build_flags`` launches a build of
+    the kernel with these nvcc flags added (e.g. ``("--fmad=false",)``),
+    beside the default one.
 
     par (26,) f32 scalars; ipar (2,) int32 CPU tensor [pass index, global
     ray offset]; sph (S, 8) [center xyz, radius, mat, mask, pad2]; tri
@@ -346,13 +418,17 @@ def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
     global launches
     _check_args(par, ipar, sph, tri, mat, lig, acc, u_planes, spp, width,
                 bounces, n_passes)
+    if record and n_passes != 1:
+        raise ValueError("champion recording is single-pass")
     kw = dict(spp=spp, width=width, bounces=bounces, two_sided=two_sided,
               normalize_emitter=normalize_emitter, seed=seed,
               n_passes=n_passes)
     if acc.device.type == "cpu":
-        acc.copy_(pathtrace_pass_reference(par, ipar, sph, tri, mat, lig,
-                                           acc, u_planes, **kw))
-        return acc
+        out = pathtrace_pass_reference(par, ipar, sph, tri, mat, lig, acc,
+                                       u_planes, record=record, **kw)
+        if not record:
+            return acc.copy_(out)
+        return acc.copy_(out[0]), out[1], out[2]
     if acc.device.type != "cuda":
         raise ValueError(f"no kernel for device {acc.device}")
     if torch.is_grad_enabled() and any(
@@ -363,9 +439,16 @@ def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
         raise RuntimeError("pathtrace_pass is forward-only on the card; "
                            "differentiate through ops.megakernel_grad."
                            "pathtrace_pass_diff (one pass per call)")
-    lib = _build.load("megakernel", _SIGNATURES)
+    lib = _build.load("megakernel", _SIGNATURES, build_flags)
     pass0, roff = (int(x) for x in ipar.tolist())
     base = rng.base_key(seed)
+    ids = occs = None
+    if record:
+        # the kernel writes every slot, dead segments included
+        n, n_seg = acc.shape[0], 1 + bounces
+        ids = torch.empty((n_seg, n), dtype=torch.int32, device=acc.device)
+        occs = torch.empty((n_seg * lig.shape[0], n), dtype=torch.bool,
+                           device=acc.device)
     with torch.cuda.device(acc.device):
         stream = torch.cuda.current_stream(acc.device).cuda_stream
         for first in range(0, n_passes, MAX_PASSES_PER_LAUNCH):
@@ -379,9 +462,10 @@ def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
                 _ptr(mat), mat.shape[0], _ptr(lig), lig.shape[0],
                 _ptr(acc), acc.shape[0], roff, _ptr(u_planes),
                 ctypes.addressof(keys), k, spp, width, bounces,
-                int(two_sided), int(normalize_emitter), stream)
+                int(two_sided), int(normalize_emitter), _ptr(ids),
+                _ptr(occs), stream)
             if err != 0:
                 raise RuntimeError(
                     f"megakernel launch failed with CUDA error {err}")
             launches += 1
-    return acc
+    return (acc, ids, occs) if record else acc

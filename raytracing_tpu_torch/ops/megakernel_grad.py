@@ -1,17 +1,36 @@
 """The differentiable pass: the counterpart of
-``raytracing_tpu/ops/pallas/megakernel_grad.py`` (hard route, unrolled
-tables, path mode).
+``raytracing_tpu/ops/pallas/megakernel_grad.py`` (hard route, path mode):
+two backwards, as in the JAX package.
 
-* ``pathtrace_pass_bwd_reference`` -- the plain version of kernel 2: the
-  parameter cotangents of one pass by ``torch.autograd.grad`` through the
-  plain forward (``ops/megakernel._pass_reference``). It returns what JAX's
+Kernel 2, the backward by replay (``bwd_impl_for`` "pallas"; tables of at
+most 64 objects per type):
+
+* ``pathtrace_pass_bwd_reference`` -- its plain version: the parameter
+  cotangents of one pass by ``torch.autograd.grad`` through the plain
+  forward (``ops/megakernel._pass_reference``). It returns what JAX's
   ``_bwd_reference`` returns; the CPU tests hold it against it.
 * ``pathtrace_pass_bwd`` -- the wrapper of the hand-written CUDA adjoint
   ``csrc/megakernel_grad.cu``. It takes CUDA tensors or raises, and counts
   its launches in the module integer ``launches``.
-* ``pathtrace_pass_diff`` -- one differentiable pass. On CUDA tensors it is
-  ``_PassDiff``: forward = kernel 1, backward = kernel 2. On CPU tensors it
-  runs the plain forward under autograd.
+
+Kernel 3, the champion ("cell") backward (``bwd_impl_for`` "cell"; the
+route past 64 objects), which differentiates kernel 1's record of the pass
+(``ops.megakernel.pathtrace_pass(record=True)``) and sweeps no table:
+
+* ``champ_surface`` -- JAX's ``_champ_surface``: a recorded champion's
+  surface re-derived from its row with the kernels' formulas;
+* ``pathtrace_pass_bwd_champ_reference`` -- its plain version, JAX's
+  ``_bwd_champion``: autograd through the plain pass whose trace and
+  any-hit read the record (``champ_surface``, the recorded bits);
+* ``pathtrace_pass_bwd_champ`` -- the wrapper of the hand-written CUDA
+  kernel ``csrc/megakernel_champ.cu``: on CUDA tensors it launches it and
+  counts ``champ_launches``, on CPU tensors it runs the plain version.
+
+``pathtrace_pass_diff`` is one differentiable pass. Kernel 2's route on
+CUDA tensors is ``_PassDiff`` (forward = kernel 1, backward = kernel 2),
+on CPU tensors the plain forward under autograd. The cell route
+(``bwd_cell=True``) is ``_PassDiffCell`` on either device: forward = kernel
+1 recording, backward = kernel 3, each the plain version on CPU tensors.
 
 Gradients follow the JAX package's hard convention: the cotangent of a
 closest hit flows to its champion only, occlusion has no adjoint, and the
@@ -26,7 +45,9 @@ import ctypes
 import torch
 
 from ..core import rng
+from ..core.types import cross3, dot3, safe_normalize
 from . import _build
+from . import intersect as I
 from . import megakernel as MK
 
 DIFF_ALL = ("par", "sph", "tri", "mat", "lig")
@@ -35,13 +56,29 @@ DIFF_ALL = ("par", "sph", "tri", "mat", "lig")
 MAX_BOUNCES = 15
 MAX_LIGHTS = 32
 
-launches = 0
+launches = 0          # kernel 2
+champ_launches = 0    # kernel 3
+
+# nvcc flags of kernels 2 and 3: no contracted multiply-adds
+# (csrc/pathtrace_adj.cuh says why)
+ADJ_FLAGS = ("--fmad=false",)
 
 _VP, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _SIGNATURES = {
     "rt_pathtrace_bwd": (ctypes.c_int, [
         _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _I,     # par, sph, tri, mat, lig
         _VP, _I, _I,                                  # g, n_rays, ray_offset
+        _VP, _U, _U,                                  # u_planes, pass key
+        _I, _I, _I, _I, _I,                           # spp, width, bounces,
+                                                      # two_sided, normalize
+        _I,                                           # diff_wrt bits
+        _VP, _VP, _VP, _VP, _VP,                      # dpar .. dlig
+        _VP]),                                        # stream
+}
+_CHAMP_SIGNATURES = {
+    "rt_pathtrace_bwd_champ": (ctypes.c_int, [
+        _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _I,     # par, sph, tri, mat, lig
+        _VP, _VP, _VP, _I, _I,            # g, ids, occs, n_rays, ray_offset
         _VP, _U, _U,                                  # u_planes, pass key
         _I, _I, _I, _I, _I,                           # spp, width, bounces,
                                                       # two_sided, normalize
@@ -96,6 +133,11 @@ def _check_bwd_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp, width,
     if lig.shape[0] > MAX_LIGHTS:
         raise ValueError(f"the adjoint takes at most {MAX_LIGHTS} lights, "
                          f"got {lig.shape[0]}")
+    if max(sph.shape[0], tri.shape[0]) > MK.UNROLL_OBJECTS:
+        raise ValueError(
+            f"kernel 2 keeps the tables and their gradient buffers in shared "
+            f"memory, at most {MK.UNROLL_OBJECTS} objects per type; past that "
+            "the champion backward (pathtrace_pass_bwd_champ) differentiates")
 
 
 def pathtrace_pass_bwd(par, ipar, sph, tri, mat, lig, g, u_planes, *,
@@ -116,7 +158,7 @@ def pathtrace_pass_bwd(par, ipar, sph, tri, mat, lig, g, u_planes, *,
     wrt = sum(1 << i for i, n in enumerate(DIFF_ALL) if n in sel)
     if not wrt:
         return outs
-    lib = _build.load("megakernel_grad", _SIGNATURES)
+    lib = _build.load("megakernel_grad", _SIGNATURES, ADJ_FLAGS)
     pass0, roff = (int(x) for x in ipar.tolist())
     k0, k1 = rng.key_words(rng.pass_key(rng.base_key(seed), pass0))
     ptr = MK._ptr
@@ -131,6 +173,185 @@ def pathtrace_pass_bwd(par, ipar, sph, tri, mat, lig, g, u_planes, *,
         if err != 0:
             raise RuntimeError(f"kernel 2 launch failed with CUDA error {err}")
         launches += 1
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# kernel 3: the champion ("cell") backward
+# ---------------------------------------------------------------------------
+
+def champ_surface(ids, o, d, mint, maxt, sph, tri):
+    """JAX's ``_champ_surface`` (``megakernel_grad.py:951-1029``): the
+    surface of each ray's recorded champion ``ids`` (R,) (sphere i, n_sph +
+    triangle j, -1 or anything outside the tables for a miss), re-derived
+    from its gathered row with the formulas of the plain sweep
+    (``ops/megakernel._trace``): the sphere's root under the same [mint,
+    maxt] window, the constant-split Moller-Trumbore terms. Returns what
+    ``_trace`` returns: (new maxt, hit point, normal, material, champion).
+    Where the champion is the sweep's, every value equals the sweep's bit
+    for bit. Autograd through the row gathers scatter-adds the cotangents
+    onto the champions' rows."""
+    n, dev = o.shape[0], o.device
+    n_sph, n_tri = sph.shape[0], tri.shape[0]
+    ids = ids.to(torch.int64)
+    t_sel = torch.zeros((n,), device=dev)
+    hn = torch.zeros((n, 3), device=dev)
+    matf = torch.full((n,), -1.0, device=dev)
+    found = torch.zeros((n,), dtype=torch.bool, device=dev)
+    if n_sph:
+        is_s = (ids >= 0) & (ids < n_sph)
+        row = sph[ids.clamp(0, n_sph - 1)]
+        a = dot3(d, d)
+        inv2a = 0.5 / a
+        c = row[:, 0:3]
+        m = o - c
+        r = row[:, 3]
+        b = 2.0 * dot3(m, d)
+        cq = dot3(m, m) - r * r
+        dis = b * b - 4.0 * a * cq
+        # _safe_sqrt's double where: a tangent ray (dis == 0) gets a zero
+        # cotangent, not 0/0
+        pos = dis > 0.0
+        sq = torch.where(pos, I.sqrt_rn(torch.where(pos, dis, 1.0)), 0.0)
+        t0 = (-b - sq) * inv2a
+        t1 = (-b + sq) * inv2a
+        tmn = torch.minimum(t0, t1)
+        tmx = torch.maximum(t0, t1)
+        t = torch.where((tmn >= mint) & (tmn <= maxt), tmn, tmx)
+        ts = torch.where(is_s, t, 0.0)
+        sn = safe_normalize(o + ts[:, None] * d - c)
+        t_sel = torch.where(is_s, t, t_sel)
+        hn = torch.where(is_s[:, None], sn, hn)
+        matf = torch.where(is_s, row[:, 4], matf)
+        found = found | is_s
+    if n_tri:
+        is_t = (ids >= n_sph) & (ids < n_sph + n_tri)
+        row = tri[(ids - n_sph).clamp(0, n_tri - 1)]
+        ng = row[:, 0:3]
+        oxd = cross3(o, d)
+        div = dot3(d, ng)
+        idiv = 1.0 / torch.where(div == 0.0, 1.0, div)
+        beta = (dot3(oxd, row[:, 12:15]) - dot3(d, row[:, 6:9])) * idiv
+        gamma = (dot3(d, row[:, 3:6]) - dot3(oxd, row[:, 9:12])) * idiv
+        t = (row[:, 15] - dot3(o, ng)) * idiv
+        alpha = 1.0 - beta - gamma
+        tn = safe_normalize(alpha[:, None] * row[:, 18:21]
+                            + beta[:, None] * row[:, 21:24]
+                            + gamma[:, None] * row[:, 24:27])
+        t_sel = torch.where(is_t, t, t_sel)
+        hn = torch.where(is_t[:, None], tn, hn)
+        matf = torch.where(is_t, row[:, 16], matf)
+        found = found | is_t
+    ts = torch.where(found, t_sel, 0.0)
+    return (torch.where(found, t_sel, maxt), o + ts[:, None] * d,
+            torch.where(found[:, None], hn, 0.0),
+            torch.where(found, matf, -1.0), torch.where(found, ids, -1))
+
+
+def _champ_hooks(ids, occs, sph, tri):
+    """``_pass_reference``'s trace and any-hit hooks over a record, in
+    schedule order (JAX's ``_tile_program_champ``)."""
+    seg, occ = iter(ids), iter(occs)
+
+    def trace(o, d, mint, maxt):
+        return champ_surface(next(seg), o, d, mint, maxt, sph, tri)
+
+    def anyhit(o, d, mint, maxt):
+        return next(occ)
+
+    return trace, anyhit
+
+
+def pathtrace_pass_bwd_champ_reference(par, ipar, sph, tri, mat, lig, g,
+                                       u_planes, ids, occs, *, spp: int,
+                                       width: int, bounces: int,
+                                       two_sided: bool,
+                                       normalize_emitter: bool, seed: int,
+                                       diff_wrt=DIFF_ALL):
+    """Plain version of kernel 3, JAX's ``_bwd_champion``: ``(dpar, dsph,
+    dtri, dmat, dlig)`` of ``sum(g * acc_delta)`` for one pass, by autograd
+    through the plain pass on the record ``ids`` (1 + bounces, R) and
+    ``occs`` ((1 + bounces) * L, R), which stay fixed. Groups outside
+    ``diff_wrt`` come back as zeros."""
+    sel = _check_wrt(diff_wrt)
+    tables = dict(par=par, sph=sph, tri=tri, mat=mat, lig=lig)
+    u = MK.pass_draws(ipar, u_planes, g.shape[0], lig.shape[0], bounces,
+                      seed, 0, g.device)
+    with torch.enable_grad():
+        leaves = {k: (v.detach().requires_grad_(True) if k in sel
+                      else v.detach()) for k, v in tables.items()}
+        trace, anyhit = _champ_hooks(ids, occs, leaves["sph"], leaves["tri"])
+        acc = MK._pass_reference(
+            leaves["par"], leaves["sph"], leaves["tri"], leaves["mat"],
+            leaves["lig"], torch.zeros_like(g), u, int(ipar[1]), spp=spp,
+            width=width, bounces=bounces, two_sided=two_sided,
+            normalize_emitter=normalize_emitter, trace=trace, anyhit=anyhit)
+        grads = dict(zip(sel, torch.autograd.grad(
+            acc, [leaves[k] for k in sel], grad_outputs=g,
+            allow_unused=True, materialize_grads=True))) if sel else {}
+    return tuple(grads[k] if k in grads else torch.zeros_like(v)
+                 for k, v in tables.items())
+
+
+def _check_record(ids, occs, n_rays: int, n_lig: int, bounces: int, dev):
+    n_seg = 1 + bounces
+    for name, t, rows, dtype in (("ids", ids, n_seg, torch.int32),
+                                 ("occs", occs, n_seg * n_lig, torch.bool)):
+        if (t.device != dev or t.dtype != dtype
+                or tuple(t.shape) != (rows, n_rays) or not t.is_contiguous()):
+            raise ValueError(
+                f"{name} must be a contiguous ({rows}, {n_rays}) {dtype} "
+                f"tensor on {dev} (kernel 1's record of the pass), got "
+                f"{tuple(t.shape)} {t.dtype} on {t.device}")
+
+
+def pathtrace_pass_bwd_champ(par, ipar, sph, tri, mat, lig, g, u_planes, ids,
+                             occs, *, spp: int, width: int, bounces: int,
+                             two_sided: bool, normalize_emitter: bool,
+                             seed: int, diff_wrt=DIFF_ALL):
+    """Kernel 3: the cotangents of ``pathtrace_pass_bwd_champ_reference``
+    from the hand-written CUDA kernel on CUDA tensors, from the plain
+    version on CPU tensors. ``ids`` and ``occs`` are kernel 1's record of
+    the pass (``ops.megakernel.pathtrace_pass(record=True)``) on the same
+    tables and draws; ``g`` (R, 3) is the cotangent of the pass's
+    accumulator; the draws are ``u_planes`` or, without them, those of
+    pass ``ipar[0]`` of ``seed``. Groups outside ``diff_wrt`` come back as
+    zeros."""
+    global champ_launches
+    sel = _check_wrt(diff_wrt)
+    MK._check_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp, width,
+                   bounces, 1)
+    if bounces > MAX_BOUNCES or lig.shape[0] > MAX_LIGHTS:
+        raise ValueError(f"the adjoint's tape holds at most {MAX_BOUNCES} "
+                         f"bounces and {MAX_LIGHTS} lights")
+    _check_record(ids, occs, g.shape[0], lig.shape[0], bounces, g.device)
+    kw = dict(spp=spp, width=width, bounces=bounces, two_sided=two_sided,
+              normalize_emitter=normalize_emitter, seed=seed)
+    if g.device.type == "cpu":
+        return pathtrace_pass_bwd_champ_reference(
+            par, ipar, sph, tri, mat, lig, g, u_planes, ids, occs,
+            diff_wrt=sel, **kw)
+    if g.device.type != "cuda":
+        raise ValueError(f"no kernel for device {g.device}")
+    outs = tuple(torch.zeros_like(t) for t in (par, sph, tri, mat, lig))
+    wrt = sum(1 << i for i, n in enumerate(DIFF_ALL) if n in sel)
+    if not wrt:
+        return outs
+    lib = _build.load("megakernel_champ", _CHAMP_SIGNATURES, ADJ_FLAGS)
+    pass0, roff = (int(x) for x in ipar.tolist())
+    k0, k1 = rng.key_words(rng.pass_key(rng.base_key(seed), pass0))
+    ptr = MK._ptr
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = lib.rt_pathtrace_bwd_champ(
+            ptr(par), ptr(sph), sph.shape[0], ptr(tri), tri.shape[0],
+            ptr(mat), mat.shape[0], ptr(lig), lig.shape[0], ptr(g),
+            ptr(ids), ptr(occs), g.shape[0], roff, ptr(u_planes), k0, k1,
+            spp, width, bounces, int(two_sided), int(normalize_emitter), wrt,
+            *(ptr(t) for t in outs), stream)
+        if err != 0:
+            raise RuntimeError(f"kernel 3 launch failed with CUDA error {err}")
+        champ_launches += 1
     return outs
 
 
@@ -167,27 +388,65 @@ class _PassDiff(torch.autograd.Function):
         return (*grads, g_out, None, None, None, None)
 
 
+class _PassDiffCell(torch.autograd.Function):
+    """One pass on the cell route: forward = kernel 1 recording, out of
+    place; backward = kernel 3 on that record (JAX's ``_make_diff_op`` with
+    ``bwd_cell``). On CPU tensors the two wrappers run their plain
+    versions, so the CPU exercises the same wiring: the saved record,
+    ``diff_wrt`` and the hand-off of ``g`` to ``acc_in``."""
+
+    @staticmethod
+    def forward(ctx, par, sph, tri, mat, lig, acc_in, ipar, u_planes, kw,
+                diff_wrt):
+        acc, ids, occs = MK.pathtrace_pass(par, ipar, sph, tri, mat, lig,
+                                           acc_in.clone(), u_planes,
+                                           record=True, **kw)
+        ctx.save_for_backward(par, sph, tri, mat, lig, ids, occs)
+        ctx.ipar, ctx.u_planes, ctx.kw = ipar, u_planes, kw
+        ctx.diff_wrt = diff_wrt
+        return acc
+
+    @staticmethod
+    def backward(ctx, g_out):
+        par, sph, tri, mat, lig, ids, occs = ctx.saved_tensors
+        wrt = tuple(n for n, need in zip(DIFF_ALL, ctx.needs_input_grad[:5])
+                    if need and n in ctx.diff_wrt)
+        grads = [None] * 5
+        if wrt:
+            outs = pathtrace_pass_bwd_champ(
+                par, ctx.ipar, sph, tri, mat, lig, g_out.contiguous(),
+                ctx.u_planes, ids, occs, diff_wrt=wrt, **ctx.kw)
+            grads = [o if n in wrt else None for n, o in zip(DIFF_ALL, outs)]
+        return (*grads, g_out, None, None, None, None)
+
+
 def pathtrace_pass_diff(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
                         spp: int, width: int, bounces: int, two_sided: bool,
                         normalize_emitter: bool, seed: int,
-                        diff_wrt=DIFF_ALL) -> torch.Tensor:
+                        diff_wrt=DIFF_ALL, bwd_cell: bool = False
+                        ) -> torch.Tensor:
     """One differentiable progressive pass: returns a new accumulator
     (``acc`` is not modified); autograd reaches the tables in ``diff_wrt``
     and ``acc``. Arguments as ``ops.megakernel.pathtrace_pass`` with one
     pass; JAX's ``pathtrace_pass_diff`` without its TPU-only arguments.
 
-    On CUDA tensors the pass is kernel 1 and its backward kernel 2. On CPU
-    tensors it is the plain forward under autograd, with the groups outside
-    ``diff_wrt`` detached."""
+    ``bwd_cell=False`` (kernel 2's route): on CUDA tensors the pass is
+    kernel 1 and its backward kernel 2; on CPU tensors it is the plain
+    forward under autograd, with the groups outside ``diff_wrt`` detached.
+    ``bwd_cell=True``: kernel 1 recording and kernel 3 (``_PassDiffCell``),
+    their plain versions on CPU tensors."""
     sel = _check_wrt(diff_wrt)
     kw = dict(spp=spp, width=width, bounces=bounces, two_sided=two_sided,
               normalize_emitter=normalize_emitter, seed=seed)
+    if acc.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {acc.device}")
+    if bwd_cell:
+        return _PassDiffCell.apply(par, sph, tri, mat, lig, acc, ipar,
+                                   u_planes, kw, sel)
     if acc.device.type == "cpu":
         t = [x if n in sel else x.detach()
              for n, x in zip(DIFF_ALL, (par, sph, tri, mat, lig))]
         return MK.pathtrace_pass_reference(t[0], ipar, *t[1:], acc,
                                            u_planes, **kw)
-    if acc.device.type != "cuda":
-        raise ValueError(f"no kernel for device {acc.device}")
     return _PassDiff.apply(par, sph, tri, mat, lig, acc, ipar, u_planes, kw,
                            sel)

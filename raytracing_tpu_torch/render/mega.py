@@ -3,17 +3,21 @@ call (``raytracing_tpu.render.mega``).
 
 When a table that the pass reads requires grad (scene parameters being
 fitted) and grad mode is on, the pass is differentiable: it runs
-``ops.megakernel_grad.pathtrace_pass_diff``, whose backward on the card is
-kernel 2 (``csrc/megakernel_grad.cu``). ``supported_diff`` and
-``bwd_impl_for`` gate that route as the JAX package's do.
+``ops.megakernel_grad.pathtrace_pass_diff`` with the backward that
+``bwd_impl_for`` picks, as the JAX package does: kernel 2
+(``csrc/megakernel_grad.cu``) for tables of at most 64 objects per type,
+the champion ("cell") route past that -- kernel 1 records the champions
+and occlusion bits, kernel 3 (``csrc/megakernel_champ.cu``) differentiates
+the record. ``supported_diff`` gates the differentiable pass.
 
 ``supported`` is True only for what the port's kernel 1 covers: path mode,
 no Russian roulette, no grid, no blocked layout, no stale-POI replication,
-at most 64 spheres and 64 triangles and fewer than 2^24 rays. Anything
-else raises, naming the ROADMAP item that will cover it or the stage
-pipeline (``use_megakernel=False``) that covers it now; nothing falls
-through to another route. ``use_pallas`` selects the stage pipeline's hit
-kernels and is ignored here, as in the JAX package.
+at most 4608 spheres (JAX's ``SMEM_TABLE_MAX // 8``, the resident table
+its kernel loops over) and 64 triangles, and fewer than 2^24 rays.
+Anything else raises, naming the ROADMAP item that will cover it or the
+stage pipeline (``use_megakernel=False``) that covers it now; nothing
+falls through to another route. ``use_pallas`` selects the stage
+pipeline's hit kernels and is ignored here, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -26,6 +30,10 @@ from ..ops import intersect as I
 from ..ops import megakernel as MK
 from ..ops import megakernel_grad as MKG
 from .stages import _all_triangles
+
+# the differentiable pass's table budget per object type (JAX's
+# render/mega.py DIFF_TABLE_MAX)
+DIFF_TABLE_MAX = 4096
 
 
 def scene_tables(scene: Scene, cfg: RenderConfig
@@ -113,19 +121,26 @@ def supported(scene: Scene | None, cfg: RenderConfig) -> bool:
     if scene is None:
         return True
     n_sph, n_tri = scene.spheres.count, _all_triangles(scene).count
-    if max(n_sph, n_tri) > MK.UNROLL_OBJECTS:
+    if n_sph > MK.SPH_RESIDENT_MAX or n_tri > MK.TRI_RESIDENT_MAX:
         raise NotImplementedError(
-            f"{n_sph} spheres / {n_tri} triangles: more than "
-            f"{MK.UNROLL_OBJECTS} objects per type stream in Morton chunks, "
-            "not ported yet (ROADMAP Queue 1 item 10)")
+            f"{n_sph} spheres / {n_tri} triangles: kernel 1 keeps at most "
+            f"{MK.SPH_RESIDENT_MAX} spheres and {MK.TRI_RESIDENT_MAX} "
+            "triangles resident; larger tables stream in Morton chunks, not "
+            "ported yet (ROADMAP Queue 1 item 10)")
     return True
 
 
 def supported_diff(scene: Scene | None, cfg: RenderConfig) -> bool:
     """True when the differentiable pass covers this scene and config (the
-    hard-gradient backward over unrolled tables); raises
-    NotImplementedError naming the ROADMAP Queue 1 item otherwise."""
+    hard-gradient backward over resident tables of at most
+    ``DIFF_TABLE_MAX`` objects per type); raises NotImplementedError naming
+    the ROADMAP Queue 1 item otherwise."""
     supported(scene, cfg)   # streamed tables (item 10) raise here
+    if scene is not None and scene.spheres.count > DIFF_TABLE_MAX:
+        raise NotImplementedError(
+            f"{scene.spheres.count} spheres: the differentiable pass covers "
+            f"at most {DIFF_TABLE_MAX} per type (the JAX package's "
+            "DIFF_TABLE_MAX); larger tables render forward-only")
     if cfg.mega_edge_bandwidth > 0.0:
         raise NotImplementedError(
             "edge-aware (soft) gradients are not ported yet (ROADMAP Queue 1 "
@@ -139,23 +154,38 @@ def supported_diff(scene: Scene | None, cfg: RenderConfig) -> bool:
 
 
 def bwd_impl_for(scene: Scene | None, cfg: RenderConfig) -> str:
-    """The backward the differentiable pass runs: the port has one, kernel
-    2's hard route over unrolled tables ("cuda"; the JAX package's
-    "pallas"), chosen by ``mega_bwd_impl="auto"``."""
+    """The backward the differentiable pass runs (``cfg.mega_bwd_impl``),
+    with the JAX package's semantics and names:
+
+    * "pallas" -- kernel 2, the backward by replay over tables in shared
+      memory. Past ``UNROLL_OBJECTS`` (64) spheres or triangles it raises
+      (ROADMAP Queue 1 item 16);
+    * "cell" -- the champion route: kernel 1 recording, then kernel 3;
+    * "auto" -- "cell" past 64 objects of either type, "pallas" otherwise;
+    * "xla" -- the TPU-only dense backward: raises.
+
+    Returns "pallas" or "cell"."""
     impl = cfg.mega_bwd_impl
-    if impl == "cell":
-        raise NotImplementedError(
-            "the champion (cell) backward is not ported yet (ROADMAP Queue 1 "
-            "item 12)")
     if impl == "xla":
         raise NotImplementedError(
             "the dense XLA backward is TPU-only and not ported (ROADMAP, "
             "'Do not port'); the plain version is "
             "ops.megakernel_grad.pathtrace_pass_bwd_reference")
-    if impl != "auto":
-        raise ValueError(f"mega_bwd_impl must be 'auto', got {impl!r}")
+    if impl not in ("auto", "pallas", "cell"):
+        raise ValueError(f"mega_bwd_impl must be 'auto', 'pallas' or "
+                         f"'cell', got {impl!r}")
     supported_diff(scene, cfg)
-    return "cuda"
+    big = scene is not None and max(
+        scene.spheres.count,
+        _all_triangles(scene).count) > MK.UNROLL_OBJECTS
+    if impl == "auto":
+        return "cell" if big else "pallas"
+    if impl == "pallas" and big:
+        raise NotImplementedError(
+            f"kernel 2 keeps the tables and their gradient buffers in shared "
+            f"memory, at most {MK.UNROLL_OBJECTS} objects per type (ROADMAP "
+            "Queue 1 item 16); mega_bwd_impl='auto' takes the cell route")
+    return impl
 
 
 def u_planes_for_pass(key: torch.Tensor, passes: int, cfg: RenderConfig,
@@ -177,9 +207,10 @@ def render_pass_mega(scene: Scene, state: dict, cfg: RenderConfig,
     ``state["acc"]`` is updated in place (no second accumulator), one
     kernel launch per call. Differentiable (grad mode on and a scene table
     or ``state["acc"]`` requires grad): one pass only, out of place, through
-    ``pathtrace_pass_diff``; cotangents reach the groups of
-    ``cfg.mega_grad_wrt``. More than one pass with grad raises: the
-    in-launch multi-pass kernel has no backward.
+    ``pathtrace_pass_diff`` with the backward of ``bwd_impl_for``;
+    cotangents reach the groups of ``cfg.mega_grad_wrt``. More than one
+    pass with grad raises: the in-launch multi-pass kernel has no
+    backward.
 
     Without ``u_planes`` the draws of pass ``p`` are keyed by
     ``fold_in(PRNGKey(cfg.seed), p)``, which is ``state["key"]`` as
@@ -203,10 +234,11 @@ def render_pass_mega(scene: Scene, state: dict, cfg: RenderConfig,
                 f"a differentiable call takes one pass, got n_passes="
                 f"{n_passes}: call render_pass once per pass, or render "
                 "under torch.no_grad()")
-        bwd_impl_for(scene, cfg)
+        cell = bwd_impl_for(scene, cfg) == "cell"
         acc = MKG.pathtrace_pass_diff(par, ipar, sph, tri, mat, lig,
                                       state["acc"], u_planes,
-                                      diff_wrt=cfg.mega_grad_wrt, **kw)
+                                      diff_wrt=cfg.mega_grad_wrt,
+                                      bwd_cell=cell, **kw)
     else:
         acc = MK.pathtrace_pass(par, ipar, sph, tri, mat, lig, state["acc"],
                                 u_planes, n_passes=n_passes, **kw)

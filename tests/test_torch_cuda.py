@@ -1,5 +1,6 @@
-"""The CUDA kernels (the pass, its adjoint and the stage pipeline's hit
-searches) against their plain PyTorch versions on the card.
+"""The CUDA kernels (the pass and its recording mode, its two adjoints and
+the stage pipeline's hit searches) against their plain PyTorch versions on
+the card.
 
 Runs only where there is a CUDA device; elsewhere each test skips. Imports
 no jax, so it runs on a machine without it:
@@ -63,11 +64,11 @@ def test_prng_route_bit_equals_u_planes_route(cuda):
     assert torch.equal(a, b)
 
 
-def _gates(want, got):
+def _gates(want, got, names=MKG.DIFF_ALL):
     """chip_smoke's phase-6 gates: cosine >= 0.999, norm ratio within 1%,
     max |got - want| <= 5e-3 x the group's largest entry (float atomics
     sum in another order than autograd)."""
-    for name, a, b in zip(MKG.DIFF_ALL, want, got):
+    for name, a, b in zip(names, want, got):
         a, b = a.double().ravel(), b.double().ravel()
         assert torch.isfinite(b).all(), name
         na, nb = a.norm().item(), b.norm().item()
@@ -193,3 +194,119 @@ def test_stage_pass_matches_kernel_1(cuda):
     assert beyond.float().mean().item() <= 0.01
     gm, wm = got.double().mean().item(), want.double().mean().item()
     assert abs(gm - wm) <= 1e-5 * abs(wm)
+
+
+def _record(tables, acc, u, cfg):
+    return MK.pathtrace_pass(
+        tables[0], torch.tensor([0, 0], dtype=torch.int32), *tables[1:], acc,
+        u, spp=cfg.spp, width=cfg.width, bounces=cfg.bounces,
+        two_sided=False, normalize_emitter=True, seed=cfg.seed, record=True)
+
+
+def test_recording_kernel_1_bit_equals_its_plain_launch(cuda):
+    """Recording changes no arithmetic: the accumulator equals the
+    non-recording launch's bit for bit; every slot of the record is written
+    (a dead path's too) and agrees with the plain version's record on
+    nearly every ray (kernel 1 contracts FMAs)."""
+    cfg = RenderConfig(width=64, height=48, bounces=3, use_megakernel=True)
+    scene = sphere_field(200, cols=64, rows=48, device=cuda)
+    tables = mega.scene_tables(scene, cfg)
+    u = mega.u_planes_for_pass(pt.init_state(cfg, cuda)["key"], 0, cfg,
+                               scene.lights.count, cuda)
+    zeros = torch.zeros((cfg.total_rays, 3), device=cuda)
+    before = MK.launches
+    acc, ids, occs = _record(tables, zeros.clone(), u, cfg)
+    plain_launch = MK.pathtrace_pass(
+        tables[0], torch.tensor([0, 0], dtype=torch.int32), *tables[1:],
+        zeros.clone(), u, spp=1, width=64, bounces=3, two_sided=False,
+        normalize_emitter=True, seed=cfg.seed)
+    torch.cuda.synchronize()
+    assert MK.launches == before + 2
+    assert torch.equal(acc, plain_launch)
+    want_acc, want_ids, want_occs = MK.pathtrace_pass_reference(
+        tables[0], torch.tensor([0, 0], dtype=torch.int32), *tables[1:],
+        zeros, u, spp=1, width=64, bounces=3, two_sided=False,
+        normalize_emitter=True, seed=cfg.seed, record=True)
+    assert ids.shape == want_ids.shape and occs.shape == want_occs.shape
+    assert ((ids >= -1) & (ids < 200)).all()
+    assert (ids == want_ids).double().mean().item() >= 0.99
+    assert (occs == want_occs).double().mean().item() >= 0.99
+    assert (ids[-1] == -1).any()
+
+
+def test_champion_kernel_matches_plain_version(cuda):
+    """Kernel 3 (u-planes and PRNG routes) vs its plain version on kernel
+    1's own record, so both differentiate the same champions: sphere_field
+    past the unroll budget and cornell (triangle champions), 64x48 b2, all
+    five groups, seeded random g; phase 6's gates."""
+    cfg = RenderConfig(width=64, height=48, bounces=2, use_megakernel=True)
+    for scene in (sphere_field(200, cols=64, rows=48, device=cuda),
+                  cornell_box(cols=64, rows=48, device=cuda)):
+        tables = mega.scene_tables(scene, cfg)
+        ipar = torch.tensor([0, 0], dtype=torch.int32)
+        u = mega.u_planes_for_pass(pt.init_state(cfg, cuda)["key"], 0, cfg,
+                                   scene.lights.count, cuda)
+        _, ids, occs = _record(tables, torch.zeros(
+            (cfg.total_rays, 3), device=cuda), None, cfg)
+        g = torch.as_tensor(np.random.default_rng(3).normal(
+            size=(cfg.total_rays, 3)).astype(np.float32), device=cuda)
+        kw = dict(spp=1, width=64, bounces=2, two_sided=False,
+                  normalize_emitter=True, seed=cfg.seed)
+        want = MKG.pathtrace_pass_bwd_champ_reference(
+            tables[0], ipar, *tables[1:], g, u, ids, occs, **kw)
+        before = MKG.champ_launches
+        for planes in (u, None):
+            got = MKG.pathtrace_pass_bwd_champ(tables[0], ipar, *tables[1:],
+                                               g, planes, ids, occs, **kw)
+            torch.cuda.synchronize()
+            _gates([a for a in want if a.numel()],
+                   [b for b in got if b.numel()], names=[
+                       n for n, a in zip(MKG.DIFF_ALL, want) if a.numel()])
+        assert MKG.champ_launches == before + 2
+
+
+def test_cell_route_trains_through_kernels_1_and_3(cuda):
+    """A requires-grad render_pass past 64 spheres on the card: one launch
+    each of kernels 1 and 3, none of kernel 2, and the sphere and material
+    gradients of the same route on the CPU (plain versions)."""
+    cfg = RenderConfig(width=64, height=48, bounces=2,
+                       mega_grad_wrt=("sph", "mat"), use_megakernel=True)
+
+    def grads(device):
+        scene = sphere_field(100, cols=64, rows=48, device=device)
+        assert mega.bwd_impl_for(scene, cfg) == "cell"
+        c = scene.spheres.center.clone().requires_grad_(True)
+        m = scene.materials.clone().requires_grad_(True)
+        sc = replace(scene, spheres=replace(scene.spheres, center=c),
+                     materials=m)
+        st = pt.render_pass(sc, pt.init_state(cfg, device), cfg)
+        (pt.image(st, cfg) ** 2).mean().backward()
+        return c.grad.cpu(), m.grad.cpu()
+
+    counts = MK.launches, MKG.launches, MKG.champ_launches
+    got = grads(cuda)
+    assert (MK.launches, MKG.launches, MKG.champ_launches) == (
+        counts[0] + 1, counts[1], counts[2] + 1)
+    for a, b in zip(grads("cpu"), got):
+        assert torch.isfinite(b).all() and b.abs().max() > 0
+        cos = (a * b).sum() / (a.norm() * b.norm())
+        assert cos >= 0.999 and abs(b.norm() / a.norm() - 1) <= 0.01
+
+
+def test_kernel_1_keeps_4608_spheres_resident(cuda):
+    """The largest resident table (147 KB of shared memory, above the 48 KB
+    a launch gets without opting in) against the plain version."""
+    cfg = RenderConfig(width=32, height=24, bounces=1, use_megakernel=True)
+    scene = sphere_field(4608, cols=32, rows=24, device=cuda)
+    u = mega.u_planes_for_pass(pt.init_state(cfg, cuda)["key"], 0, cfg,
+                               scene.lights.count, cuda)
+    got = mega.render_pass_mega(scene, pt.init_state(cfg, cuda), cfg,
+                                u_planes=u)["acc"]
+    tables = mega.scene_tables(scene, cfg)
+    want = MK.pathtrace_pass_reference(
+        tables[0], torch.tensor([0, 0], dtype=torch.int32), *tables[1:],
+        torch.zeros_like(got), u, spp=1, width=32, bounces=1,
+        two_sided=False, normalize_emitter=True, seed=cfg.seed)
+    beyond = ((got - want).abs() > TOL + TOL * want.abs()).any(-1)
+    assert torch.isfinite(got).all() and want.abs().max() > 0
+    assert beyond.float().mean().item() <= 0.01

@@ -26,6 +26,7 @@ from raytracing_tpu.render import mega as jmega
 from raytracing_tpu.render import pathtracer as jpt
 from raytracing_tpu_torch import RenderConfig, replace
 from raytracing_tpu_torch.core.types import scene_from_numpy, scene_to_numpy
+from raytracing_tpu_torch.models.scenes import sphere_field
 from raytracing_tpu_torch.ops import megakernel_grad as MKG
 from raytracing_tpu_torch.render import mega
 from raytracing_tpu_torch.render import pathtracer as pt
@@ -218,18 +219,28 @@ def test_routing_of_requires_grad_calls(scenes):
 
 
 def test_backward_gates(scenes):
+    """bwd_impl_for has the JAX package's semantics: "auto" is kernel 2
+    ("pallas") up to 64 objects per type and the champion route ("cell")
+    past that; "pallas" past 64 objects and the TPU-only "xla" raise."""
     _, ps = scenes
     cfg = RenderConfig(width=W, height=H, bounces=1, use_megakernel=True)
     assert mega.supported_diff(ps, cfg)
-    assert mega.bwd_impl_for(ps, cfg) == "cuda"
-    for kw, match in ((dict(mega_bwd_impl="cell"), "item 12"),
-                      (dict(mega_bwd_impl="xla"), "Do not port"),
+    assert mega.bwd_impl_for(ps, cfg) == "pallas"
+    for impl in ("pallas", "cell"):
+        assert mega.bwd_impl_for(ps, replace(cfg, mega_bwd_impl=impl)) == impl
+    big = sphere_field(65, cols=W, rows=H)
+    assert mega.bwd_impl_for(big, cfg) == "cell"
+    for kw, match in ((dict(mega_bwd_impl="xla"), "Do not port"),
                       (dict(mega_edge_bandwidth=1e-2), "item 13"),
                       (dict(use_grid=True), "item")):
         with pytest.raises(NotImplementedError, match=match):
             mega.bwd_impl_for(ps, replace(cfg, **kw))
-    with pytest.raises(ValueError, match="auto"):
-        mega.bwd_impl_for(ps, replace(cfg, mega_bwd_impl="pallas"))
+    with pytest.raises(NotImplementedError, match="item 16"):
+        mega.bwd_impl_for(big, replace(cfg, mega_bwd_impl="pallas"))
+    with pytest.raises(NotImplementedError, match="DIFF_TABLE_MAX"):
+        mega.supported_diff(sphere_field(4097, cols=W, rows=H), cfg)
+    with pytest.raises(ValueError, match="'auto', 'pallas' or 'cell'"):
+        mega.bwd_impl_for(ps, replace(cfg, mega_bwd_impl="dense"))
     with pytest.raises(ValueError, match="unknown groups"):
         mega.supported_diff(ps, replace(cfg, mega_grad_wrt=("sph", "cam")))
     # kernel 2 takes CUDA tensors only; the CPU has the plain version

@@ -189,11 +189,22 @@ def test_supported_raises_outside_the_slice(case):
 
 
 def test_supported_object_budget():
+    """Kernel 1 keeps up to 4608 spheres resident (JAX's SMEM_TABLE_MAX //
+    8) and 64 triangles; more stream in Morton chunks (item 10)."""
     cfg = RenderConfig(width=8, height=8)
     assert mega.supported(scenes.cornell_box(cols=8, rows=8), cfg)
     assert mega.supported(scenes.sphere_field(64, cols=8, rows=8), cfg)
+    assert mega.supported(scenes.sphere_field(65, cols=8, rows=8), cfg)
+    assert mega.supported(scenes.sphere_field(4608, cols=8, rows=8), cfg)
     with pytest.raises(NotImplementedError, match="item 10"):
-        mega.supported(scenes.sphere_field(65, cols=8, rows=8), cfg)
+        mega.supported(scenes.sphere_field(4609, cols=8, rows=8), cfg)
+    v = np.random.default_rng(0).uniform(-1, 1, (65, 3, 3))
+    sc = scenes.cornell_box(cols=8, rows=8)
+    tris65 = types.build_scene(camera=sc.camera,
+                               triangles=types.make_triangles(v),
+                               lights=sc.lights, materials=sc.materials)
+    with pytest.raises(NotImplementedError, match="item 10"):
+        mega.supported(tris65, cfg)
 
 
 def test_wrapper_rejects_bad_arguments():
