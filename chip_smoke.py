@@ -16,7 +16,9 @@ Phases, each fatal on failure (no exception is caught):
      1 warm-up + 5 timed calls. The launch counter must grow by one per
      call, acc must be finite and the mean radiance per pass within 2% of
      the plain version's first pass (same draws). Prints ray segments/s
-     and the times per pass, writes build/chip_smoke_cornell_1024.png;
+     and the times per pass, writes build/chip_smoke_cornell_1024.png,
+     and kernel 1's share of its bound (bound ms / kernel ms; the bound
+     from the OPS_* counts on kernel 1's record of a pass, see below);
   6. kernel 2 (the adjoint) vs its plain version (autograd through the
      plain forward), same tables, draws and seeded random cotangent: at
      256x192 cornell b5 and sphere_field(64) (the most spheres "auto" sends
@@ -31,7 +33,8 @@ Phases, each fatal on failure (no exception is caught):
      progressive state threaded from step to step; 1 warm-up and 10 timed
      steps. Exactly one kernel-1 and one kernel-2 launch per step, a finite
      loss, finite nonzero gradients. Prints forward + backward segments/s
-     and kernel 2 alone in ms on the step's own cotangent;
+     and kernel 2 alone in ms on the step's own cotangent, with its
+     share of its bound;
   8. kernels 4 and 5 (the stage pipeline's hit searches) vs their plain
      versions on 2^20 seeded rays with dead rays and short windows: kernel
      4 over sphere_field(1024)'s spheres, kernel 5 over a seeded soup of
@@ -39,7 +42,7 @@ Phases, each fatal on failure (no exception is caught):
      kernels are written to equal their plain versions bit for bit, so idx
      and t must be equal on every ray (gates first set at idx on 99.99%
      and t within rtol 1e-5, tightened once the card showed 100%). Kernel
-     and plain ms;
+     and plain ms and the share of each kernel's bound;
   9. the stage pipeline's main path: render_passes(sphere_field(1024),
      1024^2, b5, use_megakernel=False, use_pallas=True), 1 warm-up + 4
      timed one-pass calls: exactly 12 kernel-4 and 0 kernel-5 launches per
@@ -55,7 +58,8 @@ Phases, each fatal on failure (no exception is caught):
      mean accumulator within 1e-5 relative (phase 3's gates; kernel 1
      contracts FMAs, the stage route does not);
  11. the champion (cell) route's kernels: kernel 1 recording vs not
-     recording on sphere_field(1024) at 1024^2 b5 (bit-equal accumulators);
+     recording on sphere_field(1024) at 1024^2 b5 (bit-equal accumulators;
+     the recording launch's ms and its share of its bound);
      kernel 1 recording vs its plain version on the same u-planes, on
      sphere_field(1024) at 1024^2 and on sphere_field(256) and cornell at
      256x192, the share of differing champion ids and occlusion bits
@@ -79,8 +83,9 @@ Phases, each fatal on failure (no exception is caught):
      one kernel-1 and one kernel-3 launch per step and no kernel-2 launch,
      a finite loss, finite gradients. Prints ms/step, forward + backward
      segments/s, kernel 1 recording and kernel 3 alone (CUDA events around
-     the wrappers, on the last step's pass and cotangent) and the plain
-     champion backward's ms on the same record.
+     the wrappers, on the last step's pass and cotangent) with their shares
+     of their bounds, and the plain champion backward's ms on the same
+     record.
 Ends with a kernels JSON line and, last, the device JSON line. Exits non-zero
 without a result where CUDA is missing or the package is not beside it.
 """
@@ -117,6 +122,69 @@ UNROLL_SPHERES = 64        # the most spheres "auto" sends to kernel 2
 # version's float32 arithmetic, so it must equal it exactly
 EXACT_FLAGS = ("--fmad=false",)
 
+# Bounds: the least time the card could take for a kernel's work, the
+# larger of its FP32 operations over the H100's 67 TFLOP/s and its bytes
+# over 3.35 TB/s (NVIDIA's data sheet, H100 SXM; the card's power limit
+# is printed beside). FP32 operations per unit of work, counted in
+# csrc/pathtrace.cuh and csrc/pathtrace_adj.cuh: each add, sub, mul, div,
+# sqrt, rsqrt, min, max, compare and select is one, a multiply-add two;
+# integer work (threefry draws, indexing) and warp shuffles are not
+# counted. The counts of work come from this run's record of the pass (the
+# champion ids and occlusion bits), so each bound is a lower bound: an
+# object test counts what every test computes -- a sphere's discriminant
+# (m = o - c 3, b 6, m.m - r^2 7, b^2 - 4ac 3, its test 1) or a
+# triangle's facing test (n.d 5, its test 1) -- plus the rest of the test
+# for each champion, and an occluded shadow ray one test.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+OPS_SPHERE_TEST = 20
+OPS_TRIANGLE_TEST = 6
+OPS_SPHERE_HIT = 33      # sqrt, two roots, window, select 15; normal 18
+OPS_TRIANGLE_HIT = 66    # 1/div, beta 12, gamma 12, t 7, window 8; normal 26
+                         # (kernels 4 and 5 compute no normal)
+OPS_CAMERA = 129         # film and focal point 50, lens 29, d 12, AABB 38
+OPS_TRACE = 24           # d.d, 0.5/a, 4a, o x d, hit point, found
+OPS_EMITTER = 36         # per light on the primary segment
+OPS_NEE = 112            # per shadow ray: disk point 28, ray 25, anyhit
+                         # set-up 16, geometric term 28, shading 15
+OPS_BOUNCE = 103         # tangent frame 53, disk lift 20, d 24, o 6
+OPS_CHAMP = 60           # kernel 3: a recorded champion's t, beta, gamma,
+                         # normal, material
+# The reverse sweep (csrc/pathtrace_adj.cuh reverse_sweep), per taped
+# segment, shadow ray or path, each term under the diff_wrt groups that run
+# it (_adj_ops). With dot 5, cross 9, normalize 11 and normalize_adj 24:
+OPS_ADJ_SURFACE_SPHERE = 22    # tape read 1, hit point 6, normal 3 + 11,
+                               # albedo 1
+OPS_ADJ_SURFACE_TRIANGLE = 36  # the same with the vertex normals 17
+OPS_ADJ_NEE = 107        # per shadow ray: shadow_ray 53, light geometry 24
+                         # (q, r2, floor, two cosines, clips), shading 3,
+                         # albedo and throughput cotangents 27
+OPS_ADJ_NEE_FREE = 4     # per free shadow ray: the geometric term
+OPS_ADJ_NEE_GEOM = 92    # per free shadow ray, with par/sph/tri/lig: gsh 6,
+                         # ggeom 5, area and cosine cotangents 9, r2 5, clips
+                         # 6, gq 4, direction 9 + 24, hit point and normal
+                         # 18, eps 6
+OPS_ADJ_NEE_LIG = 32     # per free shadow ray, with lig: the light row's
+                         # position, normal, irradiance, tangent, bitangent
+                         # 18, radius 14
+OPS_ADJ_BOUNCE = 293     # per segment followed by a taped one, with
+                         # par/sph/tri, after the recomputed bounce
+                         # (OPS_BOUNCE): tangent frame 53, direction 15 +
+                         # 24, cosine lift 9, tangent_frame_adj 171 (2
+                         # normalize 22, 6 cross 54, 3 normalize_adj 72,
+                         # min-component 11, adds 9, selects 3), origin,
+                         # normal and eps 21
+OPS_ADJ_SPHERE = 134     # per sphere champion, with par/sph/tri: hit point
+                         # and normal 32 + 18, root and discriminant 84
+OPS_ADJ_SPHERE_ROW = 2   # with sph: the radius cotangent
+OPS_ADJ_TRIANGLE = 162   # per triangle champion, with par/sph/tri: hit
+                         # point and normal 32, barycentrics 19, o x d 9,
+                         # Moller-Trumbore numerators and divisor 34, their
+                         # cotangents 20, origin and direction 48
+OPS_ADJ_TRIANGLE_ROW = 32  # with tri: the row's 25 cotangents
+OPS_ADJ_CAMERA = 280     # per path, with par: the camera chain replayed
+                         # 94, its adjoint 155, the par cotangents 31
+
 
 def _fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
@@ -134,6 +202,76 @@ def _smi(query: str) -> str:
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
+
+
+def _bound(ops: float, nbytes: float) -> dict:
+    """bound_ms and what sets it."""
+    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _pass_work(ids, occs, n_lig: int, n_sph: int, live=None) -> dict:
+    """The work of one pass from kernel 1's record (ids (1 + b, R), occs
+    (L (1 + b), R)), over the rays in ``live`` (all by default): rays,
+    traced segments (segment 0 counted only where it found a champion),
+    champions by kind, shadow rays free and occluded, bounces."""
+    if live is not None:
+        ids, occs = ids[:, live], occs[:, live]
+    hit = ids >= 0
+    per_seg = hit.sum(-1).double()
+    shadow = per_seg.sum().item() * n_lig
+    occluded = occs.double().sum().item()
+    return {"rays": ids.shape[1], "traced": per_seg[0].item()
+            + per_seg[:-1].sum().item(), "primary": per_seg[0].item(),
+            "sph_hits": (hit & (ids < n_sph)).double().sum().item(),
+            "tri_hits": (ids >= n_sph).double().sum().item(),
+            "shadow": shadow, "occluded": occluded,
+            "free": shadow - occluded, "bounces": per_seg[:-1].sum().item(),
+            "continued": per_seg[1:].sum().item(),
+            "taped": per_seg.sum().item()}
+
+
+def _k1_ops(w: dict, n_sph: int, n_tri: int, n_lig: int) -> float:
+    """FP32 operations of kernel 1's pass (and of kernel 2's replay)."""
+    tests = n_sph * OPS_SPHERE_TEST + n_tri * OPS_TRIANGLE_TEST
+    one = min(x for n, x in ((n_sph, OPS_SPHERE_TEST),
+                             (n_tri, OPS_TRIANGLE_TEST)) if n)
+    return (w["rays"] * OPS_CAMERA + w["traced"] * (OPS_TRACE + tests)
+            + w["sph_hits"] * OPS_SPHERE_HIT
+            + w["tri_hits"] * OPS_TRIANGLE_HIT
+            + w["primary"] * n_lig * OPS_EMITTER + w["shadow"] * OPS_NEE
+            + w["free"] * tests + w["occluded"] * one
+            + w["bounces"] * OPS_BOUNCE)
+
+
+def _adj_ops(w: dict, wrt) -> float:
+    """FP32 operations of the reverse sweep over the taped segments of w
+    for the diff_wrt groups ``wrt``; the warp sums of the row adds and the
+    atomics are not counted."""
+    geo = bool({"par", "sph", "tri"} & set(wrt))
+    ops = (w["sph_hits"] * OPS_ADJ_SURFACE_SPHERE
+           + w["tri_hits"] * OPS_ADJ_SURFACE_TRIANGLE
+           + w["shadow"] * OPS_ADJ_NEE + w["free"] * OPS_ADJ_NEE_FREE)
+    if geo or "lig" in wrt:
+        ops += w["free"] * OPS_ADJ_NEE_GEOM
+    if "lig" in wrt:
+        ops += w["free"] * OPS_ADJ_NEE_LIG
+    if geo:
+        ops += (w["sph_hits"] * OPS_ADJ_SPHERE
+                + w["tri_hits"] * OPS_ADJ_TRIANGLE
+                + w["continued"] * (OPS_BOUNCE + OPS_ADJ_BOUNCE))
+    if "sph" in wrt:
+        ops += w["sph_hits"] * OPS_ADJ_SPHERE_ROW
+    if "tri" in wrt:
+        ops += w["tri_hits"] * OPS_ADJ_TRIANGLE_ROW
+    if "par" in wrt:
+        ops += w["primary"] * OPS_ADJ_CAMERA
+    return ops
+
+
+def _table_bytes(tables) -> int:
+    return sum(4 * t.numel() for t in tables)
 
 
 def _plain(MK, mega, scene, cfg, u, acc):
@@ -308,6 +446,13 @@ def main_path(dev, smi: str) -> dict:
         return start.elapsed_time(end) / (reps * n_passes)
 
     k16 = kernel_only_ms(None, PASSES_PER_CALL, TIMED_CALLS)
+    # the bound of a pass, from kernel 1's record of pass 0 (a launch
+    # outside the main path's count)
+    _, ids, occs = _record(MK, tables, ipar, torch.zeros_like(acc), None, cfg)
+    n_s, n_t = tables[1].shape[0], tables[2].shape[0]
+    work = _pass_work(ids, occs, n_l, n_s)
+    ops = _k1_ops(work, n_s, n_t, n_l)
+    bound = _bound(ops, 24 * cfg.total_rays + _table_bytes(tables))
     # the cost of making the draws in-kernel: PRNG route vs reading the same
     # pass's u-planes (96 B/ray), one pass per launch, in turns
     one = [kernel_only_ms(x, 1, 20) for x in (None, u, u, None)]
@@ -316,7 +461,14 @@ def main_path(dev, smi: str) -> dict:
           f"{max(0.0, 1 - k16 / kernel_ms):.3%}); one pass per launch "
           f"(order PRNG, u, u, PRNG): PRNG route {one[0]:.6g} / "
           f"{one[3]:.6g} ms, u-planes route {one[1]:.6g} / {one[2]:.6g} ms")
-    return {"launches": launches, "ms": kernel_ms, "plain_ms": plain_ms}
+    print(f"phase 5 bound: {ops / cfg.total_rays:.6g} FP32 operations per "
+          f"ray and pass (OPS_* constants; {work['traced']:.0f} traced "
+          f"segments, {work['shadow']:.0f} shadow rays per pass) -> "
+          f"{bound['bound_ms']:.6g} ms per pass ({bound['bound_by']}); share "
+          f"of the bound {bound['bound_ms'] / k16:.3%} (kernel only), "
+          f"{bound['bound_ms'] / kernel_ms:.3%} (main path)")
+    return {"launches": launches, "ms": kernel_ms, "plain_ms": plain_ms,
+            **bound}
 
 
 def _grad_gates(name: str, want, got, max_gate: bool) -> float:
@@ -485,7 +637,16 @@ def train_path(dev, smi: str) -> dict:
     end.record()
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / reps
-    live = (g != 0).any(-1).double().mean().item()
+    live = (g != 0).any(-1)
+    # the bound: kernel 2 replays the pass of each ray with g != 0 and
+    # sweeps its taped segments back; the work from kernel 1's record of
+    # the same pass (a launch outside the step's count)
+    _, ids, occs = _record(MK, tables, ipar, torch.zeros_like(g), None, cfg)
+    n_s, n_t = tables[1].shape[0], tables[2].shape[0]
+    work = _pass_work(ids, occs, n_l, n_s, live)
+    ops = _k1_ops(work, n_s, n_t, n_l) + _adj_ops(work, TRAIN_WRT)
+    bound = _bound(ops, 12 * cfg.total_rays + 2 * _table_bytes(tables))
+    live = live.double().mean().item()
     print(f"phase 7 train cornell {MAIN_W}x{MAIN_H} b{BOUNCES} wrt "
           f"{list(TRAIN_WRT)}, {TRAIN_STEPS} timed steps on [{smi}]: "
           f"{segs * TRAIN_STEPS / wall:.6g} fwd+bwd ray segments/s "
@@ -496,7 +657,13 @@ def train_path(dev, smi: str) -> dict:
           f"|grad| center {grads['center'].norm().item():.6g} radius "
           f"{grads['radius'].norm().item():.6g} materials "
           f"{grads['materials'].norm().item():.6g}")
-    return {"launches": k2, "ms": ms}
+    print(f"phase 7 kernel 2 bound: {ops / work['rays']:.6g} FP32 operations "
+          f"per ray with g != 0 (the pass's, plus the reverse sweep's "
+          f"OPS_ADJ_* over {work['taped']:.0f} taped segments) -> "
+          f"{bound['bound_ms']:.6g}"
+          f" ms ({bound['bound_by']}); share of the bound "
+          f"{bound['bound_ms'] / ms:.3%}")
+    return {"launches": k2, "ms": ms, **bound}
 
 
 def _seeded_rays(dev, n: int, seed: int, lo: float, hi: float):
@@ -528,9 +695,10 @@ def _soup(n: int, seed: int):
 
 
 def hit_kernel_vs_plain(dev, name: str, search, plain, rays, rows,
-                        *extra) -> dict:
+                        *extra, test_ops: int, hit_ops: int) -> dict:
     """Phase 8, one table: the kernel against its plain version on the
-    same rays and packed rows; returns errors and times."""
+    same rays and packed rows; returns errors, times and the bound (every
+    live ray tests every row at ``test_ops``, each hit adds ``hit_ops``)."""
     import torch
     got_t, got_i = search(*rays, rows, *extra)
     torch.cuda.synchronize()
@@ -556,17 +724,24 @@ def hit_kernel_vs_plain(dev, name: str, search, plain, rays, rows,
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / reps
     hits = (want_i >= 0).double().mean().item()
+    n = rays[0].shape[0]
+    live = (rays[2] != rays[3]).double().sum().item()
+    bound = _bound(live * rows.shape[0] * test_ops
+                   + hits * n * hit_ops, 40 * n + 4 * rows.numel())
     print(f"phase 8 {name}: {rays[0].shape[0]} rays x {rows.shape[0]} "
           f"objects, {hits:.3%} hit; idx equal {idx_eq:.6%}, t bit-equal "
           f"{bit_eq:.6%}, max|d t| {max_err:.6g} (rel {rel:.3g}); kernel "
-          f"{ms:.6g} ms (CUDA events), plain {plain_ms:.6g} ms")
+          f"{ms:.6g} ms (CUDA events), plain {plain_ms:.6g} ms; bound "
+          f"{bound['bound_ms']:.6g} ms ({bound['bound_by']}), share "
+          f"{bound['bound_ms'] / ms:.3%}")
     _check(hits > 0.01, f"{name}: only {hits:.3%} of rays hit")
     # the kernels are written to equal their plain versions bit for bit
     # (no FMA contraction; IEEE sqrt and division on both sides), and the
     # card shows it, so the gates are exact
     _check(idx_eq == 1.0, f"{name}: idx equal on {idx_eq:.6%} (< 100%)")
     _check(bit_eq == 1.0, f"{name}: t bit-equal on {bit_eq:.6%} (< 100%)")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+            **bound}
 
 
 def hit_kernels_vs_plain(dev) -> tuple[dict, dict]:
@@ -581,7 +756,8 @@ def hit_kernels_vs_plain(dev) -> tuple[dict, dict]:
     k4 = hit_kernel_vs_plain(
         dev, f"kernel 4 sphere_field({N_SPHERES})", HK.sphere_search_rows,
         HK.sphere_search_reference, rays,
-        HK.sphere_rows(sp.center, sp.radius, sp.mask))
+        HK.sphere_rows(sp.center, sp.radius, sp.mask),
+        test_ops=OPS_SPHERE_TEST, hit_ops=OPS_SPHERE_HIT - 18)
     soup = _soup(SOUP_TRIANGLES, HIT_SEED + 1).to(dev)
     rows = HK.triangle_rows(soup.v, soup.mask)
     errs = []
@@ -589,13 +765,15 @@ def hit_kernels_vs_plain(dev) -> tuple[dict, dict]:
         errs.append(hit_kernel_vs_plain(
             dev, f"kernel 5 soup({SOUP_TRIANGLES}) two_sided={two_sided}",
             HK.triangle_search_rows, HK.triangle_search_reference, rays,
-            rows, two_sided)["max_abs_err"])
+            rows, two_sided, test_ops=OPS_TRIANGLE_TEST,
+            hit_ops=OPS_TRIANGLE_HIT - 26)["max_abs_err"])
     tris = cornell_box(device=dev).triangles
     k5 = hit_kernel_vs_plain(
         dev, "kernel 5 cornell(10)", HK.triangle_search_rows,
         HK.triangle_search_reference,
         _seeded_rays(dev, HIT_RAYS, HIT_SEED + 2, -0.95, 0.95),
-        HK.triangle_rows(tris.v, tris.mask), False)
+        HK.triangle_rows(tris.v, tris.mask), False,
+        test_ops=OPS_TRIANGLE_TEST, hit_ops=OPS_TRIANGLE_HIT - 26)
     k5["max_abs_err"] = max([k5["max_abs_err"], *errs])
     return k4, k5
 
@@ -810,6 +988,19 @@ def record_vs_plain(dev) -> None:
                               normalize_emitter=True, seed=cfg.seed)
     rec, ids, occs = _record(MK, tables, ipar, acc.clone(), None, cfg)
     torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(5):
+        _record(MK, tables, ipar, acc.clone(), None, cfg)
+    end.record()
+    torch.cuda.synchronize()
+    rec_ms = start.elapsed_time(end) / 5
+    bound, ops = _record_bound(tables, ids, occs, cfg)
+    print(f"phase 11 kernel 1 recording sphere_field({N_SPHERES}) "
+          f"{MAIN_W}x{MAIN_H} b{BOUNCES}: {rec_ms:.6g} ms; bound {ops:.6g} "
+          f"FP32 operations per ray (OPS_* constants) -> "
+          f"{bound['bound_ms']:.6g} ms ({bound['bound_by']}), share of the "
+          f"bound {bound['bound_ms'] / rec_ms:.3%}")
     hit = (ids >= 0).double().mean(-1).tolist()
     print(f"phase 11 kernel 1 sphere_field({N_SPHERES}) {MAIN_W}x{MAIN_H} "
           f"b{BOUNCES}: recording vs not, max|d acc| "
@@ -1067,6 +1258,7 @@ def train_cell_path(dev, smi: str) -> dict:
         **kw)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t1) * 1e3
+    k1_bound, k3_bound, ops = _cell_bounds(tables, ids, occs, g, cfg)
     live = (g != 0).any(-1).double().mean().item()
     print(f"phase 12 train sphere_field({N_SPHERES}) {MAIN_W}x{MAIN_H} "
           f"b{BOUNCES} wrt {list(TRAIN_WRT)}, cell route, {TRAIN_STEPS} timed "
@@ -1080,13 +1272,46 @@ def train_cell_path(dev, smi: str) -> dict:
           f"center {grads['center'].norm().item():.6g} radius "
           f"{grads['radius'].norm().item():.6g} materials "
           f"{grads['materials'].norm().item():.6g}")
+    print(f"phase 12 bounds on that pass: kernel 1 recording {ops[0]:.6g} "
+          f"FP32 operations per ray -> {k1_bound['bound_ms']:.6g} ms "
+          f"({k1_bound['bound_by']}), share {k1_bound['bound_ms'] / k1_ms:.3%};"
+          f" kernel 3 {ops[1]:.6g} per ray with g != 0 -> "
+          f"{k3_bound['bound_ms']:.6g} ms ({k3_bound['bound_by']}), share "
+          f"{k3_bound['bound_ms'] / k3_ms:.3%}")
     print("  kernel 3 on the step's cotangent vs plain version:")
     err = 0.0
     for gname, a, b in zip(MKG.DIFF_ALL, want, got):
         if gname in TRAIN_WRT:
             err = max(err, _grad_gates(gname, a, b, False))
     return {"launches": k3, "ms": k3_ms, "plain_ms": plain_ms,
-            "max_abs_err": err, "k1_record_ms": k1_ms}
+            "max_abs_err": err, "k1_record_ms": k1_ms, **k3_bound}
+
+
+def _record_bound(tables, ids, occs, cfg):
+    """Kernel 1 recording the pass (ids, occs): its bound and operations
+    per ray."""
+    n_s, n_t, n_l = (t.shape[0] for t in tables[1:3] + tables[4:5])
+    work = _pass_work(ids, occs, n_l, n_s)
+    ops = _k1_ops(work, n_s, n_t, n_l)
+    nbytes = ((24 + (1 + cfg.bounces) * (4 + n_l)) * cfg.total_rays
+              + _table_bytes(tables))
+    return _bound(ops, nbytes), ops / work["rays"]
+
+
+def _cell_bounds(tables, ids, occs, g, cfg):
+    """Bounds of kernel 1 recording a pass (ids, occs) and of kernel 3 on
+    that record and cotangent g; also the operations per ray of each."""
+    n_s, n_l = tables[1].shape[0], tables[4].shape[0]
+    k1, k1_ops = _record_bound(tables, ids, occs, cfg)
+    live = (g != 0).any(-1)
+    w3 = _pass_work(ids, occs, n_l, n_s, live)
+    k3_ops = (w3["rays"] * (OPS_CAMERA + n_l * OPS_EMITTER)
+              + (w3["sph_hits"] + w3["tri_hits"]) * OPS_CHAMP
+              + w3["bounces"] * OPS_BOUNCE + _adj_ops(w3, TRAIN_WRT))
+    k3 = _bound(k3_ops, 12 * cfg.total_rays
+                + (1 + cfg.bounces) * (4 + n_l) * w3["rays"]
+                + 2 * _table_bytes(tables))
+    return k1, k3, (k1_ops, k3_ops / max(w3["rays"], 1))
 
 
 def main() -> int:
@@ -1170,23 +1395,26 @@ def main() -> int:
         "source": "raytracing_tpu_torch/csrc/megakernel.cu",
         "replaces": "raytracing_tpu/ops/pallas/megakernel.py:284",
         "launches": k["launches"], "max_abs_err": max_err,
-        "ms": k["ms"], "plain_ms": k["plain_ms"]}, {
+        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "library_ms": None}, {
         "name": "pathtrace_pass_bwd (adjoint megakernel)", "route": "cuda",
         "source": "raytracing_tpu_torch/csrc/megakernel_grad.cu",
         "replaces": "raytracing_tpu/ops/pallas/megakernel_grad.py:2152",
         "launches": t["launches"],
         "max_abs_err": max(g["max_abs_err"]
                            for g in g_small + [g_main, g_all]),
-        "ms": t["ms"], "plain_ms": g_main["plain_ms"]}, {
+        "ms": t["ms"], "plain_ms": g_main["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None}, {
         "name": "sphere_search (closest hit over spheres)", "route": "cuda",
         "source": "raytracing_tpu_torch/csrc/hit_kernels.cu",
         "replaces": "raytracing_tpu/ops/pallas/hit_kernels.py:58",
-        "launches": s9["launches"], **h4}, {
+        "launches": s9["launches"], **h4, "library_ms": None}, {
         "name": "triangle_search (closest hit over triangles)",
         "route": "cuda",
         "source": "raytracing_tpu_torch/csrc/hit_kernels.cu",
         "replaces": "raytracing_tpu/ops/pallas/hit_kernels.py:138",
-        "launches": s10["launches"], **h5}, {
+        "launches": s10["launches"], **h5, "library_ms": None}, {
         "name": "pathtrace_pass_bwd_champ (champion adjoint)",
         "route": "cuda",
         "source": "raytracing_tpu_torch/csrc/megakernel_champ.cu",
@@ -1194,7 +1422,9 @@ def main() -> int:
         "launches": c12["launches"],
         "max_abs_err": max([c12["max_abs_err"], c_main["max_abs_err"]]
                            + [c["max_abs_err"] for c in c_small]),
-        "ms": c12["ms"], "plain_ms": c12["plain_ms"]}]}))
+        "ms": c12["ms"], "plain_ms": c12["plain_ms"],
+        "bound_ms": c12["bound_ms"], "bound_by": c12["bound_by"],
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

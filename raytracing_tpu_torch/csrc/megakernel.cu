@@ -17,39 +17,69 @@
 // safe-normalize guard, den == 0, d2 > 0, and the light-centre geometric
 // term, a reference quirk kept).
 //
-// What bounds it on this card: FP32 ALU work, branches and warp
-// divergence, not bytes. A launch moves 12 B/ray of accumulator each way
-// (plus 8 B per draw slot in u-planes mode) against ~12 object tests of
-// ~40 flops per segment and ~12 segments per pass. Measured on one H100
-// 80GB HBM3 (700 W): 0.63 ms per cornell 1024x1024 b5 pass, at most 36%
-// of the FP32 peak by the JAX tile program's op count, so instruction
-// throughput and divergence, not the ALUs alone, set the pace (not yet
-// profiled).
+// What bounds it on this card: instruction issue and latency, not bytes.
+// A launch moves 12 B/ray of accumulator each way (plus 8 B per draw slot
+// in u-planes mode); a cornell pass needs ~1,900 FP32 operations per ray by
+// the count of chip_smoke.py (its OPS_* constants: a lower bound that
+// counts each object test at its discriminant or facing test), 0.030 ms
+// per 1024^2 pass at 67 TFLOP/s, while the pass takes 0.58 ms: the
+// threefry draws (integer work, not counted), the divergent shading and the
+// dependent loads of the object loops set the pace. Measured before this
+// design (one H100 80GB HBM3, 700 W): the sphere mask read and tested
+// before the discriminant cost 19% of a sphere_field(1024) pass (8.14 ->
+// 6.56 ms with the mask behind the candidate test); at cornell's traces
+// in a 16-pass launch only 59% of a warp's lanes were active (paths end at
+// different depths and each lane's pass loop waited for the warp's longest
+// path).
 // The design follows from that:
 //   * one thread per ray over a flat 1-D grid, no tiles: the TPU's
 //     vector-wide masking becomes per-ray branches, so a dead path stops
 //     at once and a shadow ray stops at its first hit;
+//   * path regeneration across the K passes of a launch: one loop
+//     iteration traces one segment, and a lane whose path has ended starts
+//     its next pass at once, so a warp's lanes trace together whatever
+//     their pass and depth (cornell 16-pass launches 0.650 -> 0.606 ms per
+//     pass). Regenerating across rays as well (a grid the card holds, each
+//     lane walking its rays) measured slower on both cells and was dropped;
+//   * the object loops test the discriminant (or the facing test) first
+//     and read a row's mask only for a candidate that beats the champion,
+//     which changes no result since a masked row never becomes champion
+//     (sphere_field(1024) 8.14 -> 6.55 ms, cornell 0.59 -> 0.575 ms);
+//   * the sphere loop computes the discriminants of kRows rows before it
+//     looks at any candidate, so their loads and arithmetic overlap: 8 rows
+//     for a table of kWideSpheres or more, 2 rows below. The 8-row loop
+//     takes 71 registers against 56 and pays only on long tables; per
+//     pass, 2 / 8 rows: cornell 0.578 / 0.64 ms, sphere_field(64) 0.150 /
+//     0.213, (256) 0.78 / 0.94, (512) 1.92 / 1.92 in 16-pass launches and
+//     2.57 / 2.47 ms in one-pass launches, sphere_field(1024) recording
+//     6.18 / 5.47 ms. Two other designs measured slower and were dropped:
+//     rows read as float4s with the champion's normal deferred past the
+//     loop and the next row prefetched (71 registers: 8.2 ms on
+//     sphere_field(1024)), and float4 reads alone (no faster than the
+//     LDS.128 the compiler already makes of the aligned rows,
+//     pathtrace.cuh);
 //   * the scene tables are copied into shared memory once per block and
 //     looped over; every thread of a warp reads the same word, a
 //     broadcast. Up to 4608 spheres stay resident, as JAX's kernel keeps
 //     36K floats in SMEM: sphere_field(1024) takes 32 KB, cornell ~1.4 KB.
 //     Above 48 KB the launch opts into dynamic shared memory (at most
-//     227 KB on the H100). The other choice, reading sphere rows through
-//     __ldg from global memory and L1, was not taken: it adds a latency
-//     per row to the loop that a broadcast from shared memory does not
-//     have, while the large-table cost (~147 KB at 4608 spheres, one
-//     128-thread block per SM) falls only on scenes past sphere_field's
-//     size, which no main path runs;
+//     227 KB on the H100);
 //   * acc lives in registers across the K passes of a launch;
 //   * the draws are made in-kernel by threefry2x32 (threefry.cuh), so
 //     PRNG mode reads no draw bytes and equals the JAX package's
-//     u_planes_for_pass bit for bit;
+//     u_planes_for_pass bit for bit; the lens and bounce draws share one
+//     call site so lanes at different depths draw together;
 //   * recording (non-null ids) writes each segment's champion right after
 //     its trace and each NEE occlusion bit, 4 B + L B per segment and ray,
 //     coalesced across a warp; a path that dies still writes a miss into
 //     its remaining slots, so no slot keeps a stale value. The arithmetic
 //     is that of the non-recording launch (one binary, a runtime pointer),
 //     so the two accumulators are bit-equal.
+// Times (one H100 80GB HBM3, 700 W, python -m
+// raytracing_tpu_torch.profile_kernels, beside the earlier design built in
+// the same run): cornell 1024^2 b5 0.579 ms per pass in 16-pass launches
+// (0.645 before), 0.590 ms in one-pass launches (0.620);
+// sphere_field(1024) recording 5.48 ms (8.09).
 // Built with nvcc's default --fmad=true: contracted multiply-adds round
 // differently from the unfused plain PyTorch version, so the two agree to
 // float tolerance except where a ray sits within rounding of a silhouette
@@ -74,6 +104,7 @@ using namespace rt;
 
 constexpr int kBlock = 128;
 constexpr int kMaxPasses = 64;  // pass keys carried in the parameter block
+constexpr int kWideSpheres = 512;  // from here the 8-row sphere loop
 
 struct Acc {
   float r, g, b;     // accumulated radiance
@@ -100,12 +131,13 @@ struct Rec {
 // throughput *= albedo. A hit with no valid material adds nothing.
 // Returns the occlusion bit (false without a valid hit, as JAX's dead
 // window gives).
+template <int kRows>
 __device__ __forceinline__ bool nee(const Tables& T, const Draws& D, int slot,
                                     int li, const Hit& h, float eps, Acc& A) {
   if (!(h.m >= 0.0f)) return false;
   const float* l = T.lig + li * kLig;
   const Shadow s = shadow_ray(T, D, slot, li, h, eps);
-  const bool occ = anyhit(T, s.so, s.sd, 0.0f, s.dist);
+  const bool occ = anyhit<kRows>(T, s.so, s.sd, 0.0f, s.dist);
   // geometric term with the distance to the light CENTRE (reference quirk)
   const V3 lp = ld3(l), ln = ld3(l + 3);
   const V3 q = h.p - lp;
@@ -125,55 +157,76 @@ __device__ __forceinline__ bool nee(const Tables& T, const Draws& D, int slot,
   return occ;
 }
 
-// One progressive pass of ray rid_g, added into A.r/g/b.
-__device__ void one_pass(const Tables& T, const Draws& D, const Rec& R,
-                         int rid_g, int spp, int width, int bounces,
-                         bool normalize_emitter, Acc& A) {
+// The passes of ray rid_g, added into A.r/g/b, one trace segment per loop
+// iteration: a lane whose path has ended starts its next pass at once
+// (path regeneration), so the lanes of a warp trace together whatever
+// their pass and depth. Each ray's passes and segments run in the order
+// of the schedule, so acc is what pass after pass would give.
+template <int kRows>
+__device__ void passes(const Tables& T, Draws& D, const Rec& R,
+                       const uint32_t* keys, int n_passes, int rid_g,
+                       int spp, int width, int bounces,
+                       bool normalize_emitter, Acc& A) {
   const int L = T.n_lig;
   const float eps = T.par[kEps];
   int col, row, samp;
   pixel_of(rid_g, spp, width, col, row, samp);
   V3 o, d;
   float mint, maxt;
-  camera_ray(T.par, D, col, row, samp, spp, o, d, mint, maxt);
-
   Hit h;
-  maxt = trace(T, o, d, mint, maxt, h);
-  R.id(0, h.obj);  // before the emitter test, as JAX records it
-
-  // emitter hits on the primary segment only; a hit ends the path
-  const int emit = emitter_hit(T, o, d, mint, maxt);
-  if (emit >= 0) {
-    const float* irr = T.lig + emit * kLig + (normalize_emitter ? 9 : 6);
-    A.r = A.r + irr[0];
-    A.g = A.g + irr[1];
-    A.b = A.b + irr[2];
-    h.m = -1.0f;
-  }
-
-  A.tr = A.tg = A.tb = 1.0f;
-  for (int li = 0; li < L; ++li)
-    R.occ(li, nee(T, D, nee_slot(0, li, L), li, h, eps, A));
-
-  int depth = 0;
-  for (; depth < bounces; ++depth) {
-    // a path without a valid hit stays dead: nothing more accumulates
-    if (!(h.m >= 0.0f)) break;
-    float cx, cy, cz;
-    bounce_ray(D, bounce_slot(depth, L), h, eps, cx, cy, cz, o, d);
-    trace(T, o, d, 0.0f, inf_f(), h);
-    R.id(depth + 1, h.obj);
-    for (int li = 0; li < L; ++li)
-      R.occ((depth + 1) * L + li,
-            nee(T, D, nee_slot(depth + 1, li, L), li, h, eps, A));
-  }
-  // the dead path's remaining segments: a miss and no occlusion, as JAX's
-  // dead window (mint = maxt = inf) records them
-  if (R.ids != nullptr) {
-    for (; depth < bounces; ++depth) {
-      R.id(depth + 1, -1);
-      for (int li = 0; li < L; ++li) R.occ((depth + 1) * L + li, false);
+  int k = 0;       // the lane's pass
+  int depth = -1;  // its segment in that pass; -1: the pass starts
+  while (k < n_passes) {
+    const bool fresh = depth < 0;
+    if (fresh && keys != nullptr) {
+      D.k0 = keys[2 * k];
+      D.k1 = keys[2 * k + 1];
     }
+    // one draw site for the lens and the bounce, so lanes at different
+    // depths make their draws together (spp > 1 takes no lens draw)
+    float u0, u1;
+    if (fresh && spp > 1)
+      lens_uv(D, samp, spp, u0, u1);
+    else
+      D.pair(fresh ? 0 : bounce_slot(depth, L), u0, u1);
+    if (fresh) {
+      camera_ray_uv(T.par, u0, u1, col, row, o, d, mint, maxt);
+    } else {
+      float cx, cy, cz;
+      bounce_ray_uv(u0, u1, h, eps, cx, cy, cz, o, d);
+      mint = 0.0f;
+      maxt = inf_f();
+    }
+    depth += 1;
+    maxt = trace<kRows>(T, o, d, mint, maxt, h);
+    R.id(depth, h.obj);  // before the emitter test, as JAX records it
+    if (fresh) {
+      // emitter hits on the primary segment only; a hit ends the path
+      const int emit = emitter_hit(T, o, d, mint, maxt);
+      if (emit >= 0) {
+        const float* irr = T.lig + emit * kLig + (normalize_emitter ? 9 : 6);
+        A.r = A.r + irr[0];
+        A.g = A.g + irr[1];
+        A.b = A.b + irr[2];
+        h.m = -1.0f;
+      }
+      A.tr = A.tg = A.tb = 1.0f;
+    }
+    for (int li = 0; li < L; ++li)
+      R.occ(depth * L + li,
+            nee<kRows>(T, D, nee_slot(depth, li, L), li, h, eps, A));
+    // a path without a valid hit stays dead: nothing more accumulates
+    if (depth < bounces && h.m >= 0.0f) continue;
+    // the dead path's remaining segments: a miss and no occlusion, as
+    // JAX's dead window (mint = maxt = inf) records them
+    if (R.ids != nullptr) {
+      for (int s = depth + 1; s <= bounces; ++s) {
+        R.id(s, -1);
+        for (int li = 0; li < L; ++li) R.occ(s * L + li, false);
+      }
+    }
+    k += 1;
+    depth = -1;
   }
 }
 
@@ -198,35 +251,18 @@ struct Params {
 
 // Params is __grid_constant__: the per-pass key reads index the parameter
 // block in place instead of copying it to each thread's stack.
+// kRows: sphere rows per iteration of the object loops (pathtrace.cuh)
+template <int kRows>
 __global__ void __launch_bounds__(kBlock)
     pathtrace_kernel(const __grid_constant__ Params p) {
-  extern __shared__ float smem[];
-  float* s_par = smem;
-  float* s_sph = s_par + kNPar;
-  float* s_tri = s_sph + kSph * p.n_sph;
-  float* s_mat = s_tri + kTri * p.n_tri;
-  float* s_lig = s_mat + kMat * p.n_mat;
-  copy_table(s_par, p.par, kNPar);
-  copy_table(s_sph, p.sph, kSph * p.n_sph);
-  copy_table(s_tri, p.tri, kTri * p.n_tri);
-  copy_table(s_mat, p.mat, kMat * p.n_mat);
-  copy_table(s_lig, p.lig, kLig * p.n_lig);
+  extern __shared__ float4 smem4[];  // 16-byte aligned
+  const Tables T = stage_tables(reinterpret_cast<float*>(smem4), p.par, p.sph,
+                                p.n_sph, p.tri, p.n_tri, p.mat, p.n_mat,
+                                p.lig, p.n_lig, p.two_sided != 0);
   __syncthreads();
 
   const int rid = blockIdx.x * blockDim.x + threadIdx.x;
   if (rid >= p.n_rays) return;
-
-  Tables T;
-  T.par = s_par;
-  T.sph = s_sph;
-  T.tri = s_tri;
-  T.mat = s_mat;
-  T.lig = s_lig;
-  T.n_sph = p.n_sph;
-  T.n_tri = p.n_tri;
-  T.n_mat = p.n_mat;
-  T.n_lig = p.n_lig;
-  T.two_sided = p.two_sided != 0;
 
   const int rid_g = rid + p.ray_offset;
   const int n_draws = n_draws_of(p.n_lig, p.bounces);
@@ -247,14 +283,9 @@ __global__ void __launch_bounds__(kBlock)
   A.r = a[0];
   A.g = a[1];
   A.b = a[2];
-  for (int k = 0; k < p.n_passes; ++k) {
-    if (p.u == nullptr) {
-      D.k0 = p.keys[2 * k];
-      D.k1 = p.keys[2 * k + 1];
-    }
-    one_pass(T, D, R, rid_g, p.spp, p.width, p.bounces,
-             p.normalize_emitter != 0, A);
-  }
+  passes<kRows>(T, D, R, p.u == nullptr ? p.keys : nullptr, p.n_passes,
+                rid_g, p.spp, p.width, p.bounces, p.normalize_emitter != 0,
+                A);
   a[0] = A.r;
   a[1] = A.g;
   a[2] = A.b;
@@ -305,16 +336,19 @@ extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
   p.normalize_emitter = normalize_emitter;
   p.ids = ids;
   p.occs = occs;
-  const size_t smem = sizeof(float) * (kNPar + kSph * n_sph + kTri * n_tri +
-                                       kMat * n_mat + kLig * n_lig);
+  const size_t smem = sizeof(float) * tables_floats(n_sph, n_tri, n_mat,
+                                                    n_lig);
+  // eight sphere rows per loop iteration for a long table, two for a short
+  // one, where the wide loop's registers cost more occupancy than it saves
+  void (*kernel)(Params) = n_sph >= kWideSpheres ? pathtrace_kernel<8>
+                                                 : pathtrace_kernel<2>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        pathtrace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int grid = (n_rays + kBlock - 1) / kBlock;
-  pathtrace_kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
-      p);
+  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

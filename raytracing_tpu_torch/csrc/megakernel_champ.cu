@@ -24,17 +24,25 @@
 // What bounds it on this card: it reads 4 B of id + L B of bits per
 // segment and the 12 B cotangent per ray, and a 32 B sphere row (128 B
 // triangle row) per segment from L2 or L1; the rest is the adjoint's
-// arithmetic, independent of the table size, and its atomics. The design:
-// one thread per ray in a grid-stride loop over a grid sized to the card;
-// par, mat and lig (small) in shared memory; the sphere and triangle
-// tables stay in global memory (sphere_field(1024)'s 32 KB is read only
-// at the champions' rows); par cotangents in registers per thread;
-// mat and lig cotangents by shared-memory atomicAdd, flushed once per
-// block; sphere and triangle row cotangents by atomicAdd straight into
-// the global outputs -- with 1024+ rows a per-block shared table, flushed
-// whole as kernel 2 does, would cost more than the rows a block touches.
-// Float atomics make the sums depend on order: results agree with the
-// plain version to float tolerance, never bitwise.
+// arithmetic, independent of the table size, and its row adds. The design
+// is kernel 2's: one thread per ray in a grid-stride loop in steps of
+// whole warps over a grid sized to the card, the warp-uniform reverse
+// sweep of pathtrace_adj.cuh with its tape in shared memory and its
+// warp-aggregated row adds; par, mat and lig (small) in shared memory; the
+// sphere and triangle tables stay in global memory (sphere_field(1024)'s
+// 32 KB is read only at the champions' rows); par cotangents in registers
+// per thread; mat and lig cotangents into shared memory, flushed once per
+// block; sphere and triangle row cotangents by atomicAdd straight into the
+// global outputs, one per warp, row and word -- with 1024+ rows a
+// per-block shared table, flushed whole as kernel 2 does, would cost more
+// than the rows a block touches. __launch_bounds__ asks for kMinBlocks = 4
+// blocks of 128 threads per SM (128 registers, 72 B of stack, 132 B
+// spilled). Measured (one H100 80GB
+// HBM3, 700 W, python -m raytracing_tpu_torch.profile_kernels): 0.68 ms on
+// sphere_field(1024) 1024^2 b5 ("sph", "mat") on a training step's
+// cotangent, 0.96 ms with the earlier design's per-lane atomics. Float
+// atomics make the sums depend on order: results agree with the plain
+// version to float tolerance, never bitwise.
 //
 // Built with --fmad=false, as kernel 2 is (pathtrace_adj.cuh says why).
 
@@ -50,6 +58,9 @@ namespace {
 using namespace rt;
 
 constexpr int kBlock = 128;
+// blocks per SM that __launch_bounds__ asks registers for: 4 caps them at
+// 128 (measured on the H100 against 3 blocks at 168 and 5 at 96)
+constexpr int kMinBlocks = 4;
 
 // The recorded champion `obj` of a segment [mint, maxt] of ray (o, d), as
 // _champ_surface re-derives it: t, the hit point, the normal and the
@@ -122,55 +133,59 @@ struct Rec {
   }
 };
 
-// The whole champion adjoint of ray rid_g for acc cotangent g.
+// The whole champion adjoint of ray rid_g for acc cotangent g;
+// warp-uniform (every lane calls it, `active` false for a lane without a
+// ray).
 __device__ void ray_adjoint_champ(const Tables& T, const Draws& D,
-                                  const Rec& R, int rid_g, int spp, int width,
+                                  const Rec& R, bool active, int rid_g,
+                                  int spp, int width,
                                   int bounces, bool normalize_emitter, V3 g,
-                                  const Grads& G, float (&gp)[kNPar]) {
+                                  const Grads& G, const Tape& tape,
+                                  float (&gp)[kNPar]) {
   const int L = T.n_lig;
   const float eps = T.par[kEps];
-  int col, row, samp;
-  pixel_of(rid_g, spp, width, col, row, samp);
+  int col = 0, row = 0, samp = 0;
+  int nseg = 0, emit = -1;
+  if (active) {
+    pixel_of(rid_g, spp, width, col, row, samp);
 
-  // forward replay on the recorded champions, filling kernel 2's tape
-  Seg tape[kMaxSeg];
-  V3 o, d;
-  float mint, maxt;
-  camera_ray(T.par, D, col, row, samp, spp, o, d, mint, maxt);
-  Hit h;
-  maxt = champ_trace(T, o, d, mint, maxt, R.id(0), h);
-  const int emit = emitter_hit(T, o, d, mint, maxt);
-  if (emit >= 0) {
-    if (G.wrt & kWLig)
-      add3(G.lig + emit * kLig + (normalize_emitter ? 9 : 6), g);
-    return;  // the path ends; nothing else depends on the tables
-  }
-  int nseg = 0;
-  V3 tp = mk(1.0f, 1.0f, 1.0f);
-  for (int s = 0; s <= bounces; ++s) {
-    if (!(h.m >= 0.0f)) break;
-    Seg& q = tape[s];
-    q.o = o;
-    q.d = d;
-    q.tp = tp;
-    q.t = h.t;
-    q.beta = h.beta;
-    q.gamma = h.gamma;
-    q.obj = h.obj;
-    q.m = static_cast<int>(h.m);
-    q.occ = 0u;
-    const V3 al = albedo(T, q.m);
-    for (int li = 0; li < L; ++li) {
-      if (R.occ(s * L + li)) q.occ |= 1u << li;
-      tp = mk(tp.x * al.x, tp.y * al.y, tp.z * al.z);
+    // forward replay on the recorded champions, filling kernel 2's tape
+    V3 o, d;
+    float mint, maxt;
+    camera_ray(T.par, D, col, row, samp, spp, o, d, mint, maxt);
+    Hit h;
+    maxt = champ_trace(T, o, d, mint, maxt, R.id(0), h);
+    emit = emitter_hit(T, o, d, mint, maxt);
+    V3 tp = mk(1.0f, 1.0f, 1.0f);
+    for (int s = 0; s <= bounces && emit < 0; ++s) {
+      if (!(h.m >= 0.0f)) break;
+      Seg q;
+      q.o = o;
+      q.d = d;
+      q.tp = tp;
+      q.t = h.t;
+      q.beta = h.beta;
+      q.gamma = h.gamma;
+      q.obj = h.obj;
+      q.m = static_cast<int>(h.m);
+      q.occ = 0u;
+      const V3 al = albedo(T, q.m);
+      for (int li = 0; li < L; ++li) {
+        if (R.occ(s * L + li)) q.occ |= 1u << li;
+        tp = mk(tp.x * al.x, tp.y * al.y, tp.z * al.z);
+      }
+      tape.put(s, q);
+      nseg = s + 1;
+      if (s == bounces) break;
+      float cx, cy, cz;
+      bounce_ray(D, bounce_slot(s, L), h, eps, cx, cy, cz, o, d);
+      champ_trace(T, o, d, 0.0f, inf_f(), R.id(s + 1), h);
     }
-    nseg = s + 1;
-    if (s == bounces) break;
-    float cx, cy, cz;
-    bounce_ray(D, bounce_slot(s, L), h, eps, cx, cy, cz, o, d);
-    champ_trace(T, o, d, 0.0f, inf_f(), R.id(s + 1), h);
   }
-
+  // an emitter hit ends the path; nothing else depends on the tables
+  if (G.wrt & kWLig)
+    add_row3(G.lig + max(emit, 0) * kLig + (normalize_emitter ? 9 : 6), emit,
+             g);
   reverse_sweep(T, D, tape, nseg, col, row, samp, spp, g, G, gp);
 }
 
@@ -207,21 +222,25 @@ __device__ __forceinline__ void flush(float* dst, const float* src, int n) {
     if (src[i] != 0.0f) atomicAdd(dst + i, src[i]);
 }
 
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
     pathtrace_bwd_champ_kernel(const __grid_constant__ Params p) {
-  extern __shared__ float smem[];
-  const int n_par = kNPar, n_mat = kMat * p.n_mat, n_lig = kLig * p.n_lig;
-  const int n_tab = n_par + n_mat + n_lig;
+  extern __shared__ float4 smem4[];  // 16-byte aligned
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int n_mat = kMat * p.n_mat, n_lig = kLig * p.n_lig;
+  const int n_tab = kParPad + n_mat + n_lig;
   float* s_par = smem;
-  float* s_mat = s_par + n_par;
+  float* s_mat = s_par + kParPad;
   float* s_lig = s_mat + n_mat;
   float* g_par = smem + n_tab;  // gradient buffers, same layout
-  float* g_mat = g_par + n_par;
+  float* g_mat = g_par + kParPad;
   float* g_lig = g_mat + n_mat;
-  copy_table(s_par, p.par, n_par);
+  copy_table(s_par, p.par, kNPar);
   copy_table(s_mat, p.mat, n_mat);
   copy_table(s_lig, p.lig, n_lig);
   zero(g_par, n_tab);
+  Tape tape;
+  tape.col = smem + 2 * n_tab + threadIdx.x;  // then the tape slab
+  tape.stride = blockDim.x;
   __syncthreads();
 
   Tables T;
@@ -246,11 +265,18 @@ __global__ void __launch_bounds__(kBlock)
   float gp[kNPar];
 #pragma unroll
   for (int i = 0; i < kNPar; ++i) gp[i] = 0.0f;
-  for (int rid = blockIdx.x * blockDim.x + threadIdx.x; rid < p.n_rays;
-       rid += gridDim.x * blockDim.x) {
-    const float* gr = p.g + 3 * static_cast<size_t>(rid);
-    const V3 g = mk(gr[0], gr[1], gr[2]);
-    if (g.x == 0.0f && g.y == 0.0f && g.z == 0.0f) continue;
+  // a grid-stride loop in steps of whole warps: the lanes of a warp stay
+  // together (a lane past the end or with g = 0 runs inactive)
+  const int lane = threadIdx.x & 31;
+  for (int base = blockIdx.x * blockDim.x + threadIdx.x - lane;
+       base < p.n_rays; base += gridDim.x * blockDim.x) {
+    const int rid = base + lane;
+    V3 g = mk(0.0f, 0.0f, 0.0f);
+    if (rid < p.n_rays) {
+      const float* gr = p.g + 3 * static_cast<size_t>(rid);
+      g = mk(gr[0], gr[1], gr[2]);
+    }
+    const bool active = g.x != 0.0f || g.y != 0.0f || g.z != 0.0f;
     const int rid_g = rid + p.ray_offset;
     Draws D;
     D.u = p.u;
@@ -264,16 +290,12 @@ __global__ void __launch_bounds__(kBlock)
     R.occs = p.occs;
     R.n_rays = p.n_rays;
     R.rid = rid;
-    ray_adjoint_champ(T, D, R, rid_g, p.spp, p.width, p.bounces,
-                      p.normalize_emitter != 0, g, G, gp);
+    ray_adjoint_champ(T, D, R, active, rid_g, p.spp, p.width, p.bounces,
+                      p.normalize_emitter != 0, g, G, tape, gp);
   }
-  if (p.wrt & kWPar) {
-#pragma unroll
-    for (int i = 0; i < kNPar; ++i)
-      if (gp[i] != 0.0f) atomicAdd(g_par + i, gp[i]);
-  }
+  if (p.wrt & kWPar) add_par(g_par, gp);
   __syncthreads();
-  if (p.wrt & kWPar) flush(p.dpar, g_par, n_par);
+  if (p.wrt & kWPar) flush(p.dpar, g_par, kNPar);
   if (p.wrt & kWMat) flush(p.dmat, g_mat, n_mat);
   if (p.wrt & kWLig) flush(p.dlig, g_lig, n_lig);
 }
@@ -331,7 +353,8 @@ extern "C" int rt_pathtrace_bwd_champ(
   p.dmat = dmat;
   p.dlig = dlig;
   const size_t smem =
-      2 * sizeof(float) * (kNPar + kMat * n_mat + kLig * n_lig);
+      2 * sizeof(float) * (kParPad + kMat * n_mat + kLig * n_lig) +
+      tape_bytes(bounces, kBlock);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)

@@ -19,31 +19,45 @@
 //
 // Per ray: replay the forward pass with the same functions as the forward
 // kernel (pathtrace.cuh; draws from the u-planes or by threefry at the
-// same counters), keeping a tape of at most bounces + 1 segments (origin,
-// direction, champion, t, beta, gamma, material, occlusion bits, the
-// throughput at the segment's start). Then a reverse sweep of
-// hand-derived adjoints: NEE terms and albedo, the bounce (cosine lift,
-// tangent frame, offset origin), the hit normal and hit point, the sphere
-// root or the Moller-Trumbore t, beta and gamma, and last the camera chain
-// into par. The emitter term goes to lig's irradiance columns. The tape,
-// the adjoints and the reverse sweep live in pathtrace_adj.cuh, which
-// kernel 3 (megakernel_champ.cu) shares: only the tape's fill is here.
+// same counters), keeping a tape of bounces + 1 segments (origin,
+// direction, throughput at the segment's start, champion, t, beta, gamma,
+// occlusion bits; the material is re-read from the champion's row). Then a
+// reverse sweep of hand-derived adjoints: NEE terms and albedo, the bounce
+// (cosine lift, tangent frame, offset origin), the hit normal and hit
+// point, the sphere root or the Moller-Trumbore t, beta and gamma, and
+// last the camera chain into par. The emitter term goes to lig's
+// irradiance columns. The tape, the adjoints and the reverse sweep live in
+// pathtrace_adj.cuh, which kernel 3 (megakernel_champ.cu) shares: only the
+// tape's fill is here.
 //
-// What bounds it on this card: not bytes (12 B/ray of cotangent in); it
-// traces every segment and shadow ray once more and adds the adjoint.
-// Measured on one H100 80GB HBM3 (700 W): 6.2 ms per cornell 1024x1024 b5
-// backward with ("sph", "mat"), 9-10x kernel 1's pass over the same rays
-// (5.5 ms contracted; it is built with --fmad=false, see
-// pathtrace_adj.cuh); not yet profiled beyond that (candidates: a warp's shared-memory
-// atomics on one address serialise, 25% occupancy at 128 registers, the
-// 1 KB tape in local memory). The design: one thread
-// per ray in a grid-stride loop over a grid sized to the card (SMs x
-// resident blocks); tables and gradient buffers (laid out like the tables)
-// in shared memory; champion rows, materials and lights gathered by
-// shared-memory atomicAdd; par gradients in registers per thread; at the
-// end one global atomicAdd per nonzero entry per block. Float atomics make
-// the sums depend on order: results agree with the plain version to float
-// tolerance, never bitwise.
+// What bounded it (one H100 80GB HBM3, 700 W, python -m
+// raytracing_tpu_torch.profile_kernels on the earlier design and on copies
+// of it with one cost cut):
+// the gradient tables' float atomicAdd on shared memory compiles to a
+// compare-and-swap loop (ATOMS.CAST.SPIN, 71 sites), and a warp's lanes
+// all add into cornell's 2 sphere and 5 material rows, so each add retried
+// up to 32 times: 74% of the time (6.36 -> 1.68 ms on cornell 1024^2 b5,
+// ("sph", "mat"), with the atomics made plain racy adds). A 6-segment tape
+// in place of the 16-segment one changed nothing (1%).
+// The design: one thread per ray in a grid-stride loop in steps of whole
+// warps over a grid sized to the card (SMs x resident blocks), so the
+// lanes of a warp stay together; the sweep is warp-uniform, and every add
+// into a gradient row is warp-aggregated (pathtrace_adj.cuh): the warp's
+// lanes group by row, sum in registers by shuffles, and one lane per row
+// adds, so a row gets one atomic per warp and word, not one per lane. The
+// tables, their gradient buffers (same layout) and the tape, (bounces +
+// 1) x 14 words a thread laid out so that a warp's lanes touch consecutive
+// words, live in shared memory; par gradients in registers per thread,
+// summed over the warp at the end; one global atomicAdd per nonzero entry
+// per block. __launch_bounds__ asks for kMinBlocks = 4 blocks of 128
+// threads per SM: 128 registers, 80 B of stack, 164 B spilled (168
+// registers unbounded: 2.03 ms; 96 at 5 blocks: 1.96 ms; 128: 1.82 ms). Measured: 1.8 ms on
+// cornell 1024^2 b5 ("sph", "mat") on the training step's cotangent (6.4
+// ms before), 3.2 ms with all five groups (11.6 ms before); about 3x
+// kernel 1's pass over the same rays, from the replay, the sweep's
+// recomputed draws and its divergent adjoint branches. Float atomics and
+// the shuffle sums make the results depend on order: they agree with the
+// plain version to float tolerance, never bitwise.
 
 #include <cstddef>
 #include <cstdint>
@@ -57,57 +71,61 @@ namespace {
 using namespace rt;
 
 constexpr int kBlock = 128;
+// blocks per SM that __launch_bounds__ asks registers for: 4 caps them at
+// 128 (measured on the H100 against 3 blocks at 168 and 5 at 96)
+constexpr int kMinBlocks = 4;
 
-// The whole adjoint of ray rid_g for acc cotangent g.
-__device__ void ray_adjoint(const Tables& T, const Draws& D, int rid_g,
-                            int spp, int width, int bounces,
+// The whole adjoint of ray rid_g for acc cotangent g; warp-uniform (every
+// lane calls it, `active` false for a lane without a ray).
+__device__ void ray_adjoint(const Tables& T, const Draws& D, bool active,
+                            int rid_g, int spp, int width, int bounces,
                             bool normalize_emitter, V3 g, const Grads& G,
-                            float (&gp)[kNPar]) {
+                            const Tape& tape, float (&gp)[kNPar]) {
   const int L = T.n_lig;
   const float eps = T.par[kEps];
-  int col, row, samp;
-  pixel_of(rid_g, spp, width, col, row, samp);
+  int col = 0, row = 0, samp = 0;
+  int nseg = 0, emit = -1;
+  if (active) {
+    pixel_of(rid_g, spp, width, col, row, samp);
 
-  // forward replay with the tape
-  Seg tape[kMaxSeg];
-  V3 o, d;
-  float mint, maxt;
-  camera_ray(T.par, D, col, row, samp, spp, o, d, mint, maxt);
-  Hit h;
-  maxt = trace(T, o, d, mint, maxt, h);
-  const int emit = emitter_hit(T, o, d, mint, maxt);
-  if (emit >= 0) {
-    if (G.wrt & kWLig)
-      add3(G.lig + emit * kLig + (normalize_emitter ? 9 : 6), g);
-    return;  // the path ends; nothing else depends on the tables
-  }
-  int nseg = 0;
-  V3 tp = mk(1.0f, 1.0f, 1.0f);
-  for (int s = 0; s <= bounces; ++s) {
-    if (!(h.m >= 0.0f)) break;
-    Seg& q = tape[s];
-    q.o = o;
-    q.d = d;
-    q.tp = tp;
-    q.t = h.t;
-    q.beta = h.beta;
-    q.gamma = h.gamma;
-    q.obj = h.obj;
-    q.m = static_cast<int>(h.m);
-    q.occ = 0u;
-    const V3 al = albedo(T, q.m);
-    for (int li = 0; li < L; ++li) {
-      const Shadow sh = shadow_ray(T, D, nee_slot(s, li, L), li, h, eps);
-      if (anyhit(T, sh.so, sh.sd, 0.0f, sh.dist)) q.occ |= 1u << li;
-      tp = mk(tp.x * al.x, tp.y * al.y, tp.z * al.z);
+    // forward replay with the tape
+    V3 o, d;
+    float mint, maxt;
+    camera_ray(T.par, D, col, row, samp, spp, o, d, mint, maxt);
+    Hit h;
+    maxt = trace(T, o, d, mint, maxt, h);
+    emit = emitter_hit(T, o, d, mint, maxt);
+    V3 tp = mk(1.0f, 1.0f, 1.0f);
+    for (int s = 0; s <= bounces && emit < 0; ++s) {
+      if (!(h.m >= 0.0f)) break;
+      Seg q;
+      q.o = o;
+      q.d = d;
+      q.tp = tp;
+      q.t = h.t;
+      q.beta = h.beta;
+      q.gamma = h.gamma;
+      q.obj = h.obj;
+      q.m = static_cast<int>(h.m);
+      q.occ = 0u;
+      const V3 al = albedo(T, q.m);
+      for (int li = 0; li < L; ++li) {
+        const Shadow sh = shadow_ray(T, D, nee_slot(s, li, L), li, h, eps);
+        if (anyhit(T, sh.so, sh.sd, 0.0f, sh.dist)) q.occ |= 1u << li;
+        tp = mk(tp.x * al.x, tp.y * al.y, tp.z * al.z);
+      }
+      tape.put(s, q);
+      nseg = s + 1;
+      if (s == bounces) break;
+      float cx, cy, cz;
+      bounce_ray(D, bounce_slot(s, L), h, eps, cx, cy, cz, o, d);
+      trace(T, o, d, 0.0f, inf_f(), h);
     }
-    nseg = s + 1;
-    if (s == bounces) break;
-    float cx, cy, cz;
-    bounce_ray(D, bounce_slot(s, L), h, eps, cx, cy, cz, o, d);
-    trace(T, o, d, 0.0f, inf_f(), h);
   }
-
+  // an emitter hit ends the path; nothing else depends on the tables
+  if (G.wrt & kWLig)
+    add_row3(G.lig + max(emit, 0) * kLig + (normalize_emitter ? 9 : 6), emit,
+             g);
   reverse_sweep(T, D, tape, nseg, col, row, samp, spp, g, G, gp);
 }
 
@@ -142,41 +160,26 @@ __device__ __forceinline__ void flush(float* dst, const float* src, int n) {
     if (src[i] != 0.0f) atomicAdd(dst + i, src[i]);
 }
 
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, kMinBlocks)
     pathtrace_bwd_kernel(const __grid_constant__ Params p) {
-  extern __shared__ float smem[];
-  const int n_par = kNPar, n_sph = kSph * p.n_sph, n_tri = kTri * p.n_tri,
-            n_mat = kMat * p.n_mat, n_lig = kLig * p.n_lig;
-  const int n_tab = n_par + n_sph + n_tri + n_mat + n_lig;
-  float* s_par = smem;
-  float* s_sph = s_par + n_par;
-  float* s_tri = s_sph + n_sph;
-  float* s_mat = s_tri + n_tri;
-  float* s_lig = s_mat + n_mat;
-  float* g_par = smem + n_tab;  // gradient buffers, same layout
-  float* g_sph = g_par + n_par;
-  float* g_tri = g_sph + n_sph;
-  float* g_mat = g_tri + n_tri;
-  float* g_lig = g_mat + n_mat;
-  copy_table(s_par, p.par, n_par);
-  copy_table(s_sph, p.sph, n_sph);
-  copy_table(s_tri, p.tri, n_tri);
-  copy_table(s_mat, p.mat, n_mat);
-  copy_table(s_lig, p.lig, n_lig);
+  extern __shared__ float4 smem4[];  // 16-byte aligned
+  float* smem = reinterpret_cast<float*>(smem4);
+  const Tables T = stage_tables(smem, p.par, p.sph, p.n_sph, p.tri, p.n_tri,
+                                p.mat, p.n_mat, p.lig, p.n_lig,
+                                p.two_sided != 0);
+  // gradient buffers in the tables' layout, then the tape slab
+  const int n_tab = tables_floats(p.n_sph, p.n_tri, p.n_mat, p.n_lig);
+  float* g_par = smem + n_tab;
+  float* g_sph = g_par + kParPad;
+  float* g_tri = g_sph + kSph * p.n_sph;
+  float* g_mat = g_tri + kTri * p.n_tri;
+  float* g_lig = g_mat + kMat * p.n_mat;
   zero(g_par, n_tab);
+  Tape tape;
+  tape.col = smem + 2 * n_tab + threadIdx.x;
+  tape.stride = blockDim.x;
   __syncthreads();
 
-  Tables T;
-  T.par = s_par;
-  T.sph = s_sph;
-  T.tri = s_tri;
-  T.mat = s_mat;
-  T.lig = s_lig;
-  T.n_sph = p.n_sph;
-  T.n_tri = p.n_tri;
-  T.n_mat = p.n_mat;
-  T.n_lig = p.n_lig;
-  T.two_sided = p.two_sided != 0;
   Grads G;
   G.sph = g_sph;
   G.tri = g_tri;
@@ -188,11 +191,18 @@ __global__ void __launch_bounds__(kBlock)
   float gp[kNPar];
 #pragma unroll
   for (int i = 0; i < kNPar; ++i) gp[i] = 0.0f;
-  for (int rid = blockIdx.x * blockDim.x + threadIdx.x; rid < p.n_rays;
-       rid += gridDim.x * blockDim.x) {
-    const float* gr = p.g + 3 * static_cast<size_t>(rid);
-    const V3 g = mk(gr[0], gr[1], gr[2]);
-    if (g.x == 0.0f && g.y == 0.0f && g.z == 0.0f) continue;
+  // a grid-stride loop in steps of whole warps: the lanes of a warp stay
+  // together (a lane past the end or with g = 0 runs inactive)
+  const int lane = threadIdx.x & 31;
+  for (int base = blockIdx.x * blockDim.x + threadIdx.x - lane;
+       base < p.n_rays; base += gridDim.x * blockDim.x) {
+    const int rid = base + lane;
+    V3 g = mk(0.0f, 0.0f, 0.0f);
+    if (rid < p.n_rays) {
+      const float* gr = p.g + 3 * static_cast<size_t>(rid);
+      g = mk(gr[0], gr[1], gr[2]);
+    }
+    const bool active = g.x != 0.0f || g.y != 0.0f || g.z != 0.0f;
     const int rid_g = rid + p.ray_offset;
     Draws D;
     D.u = p.u;
@@ -201,20 +211,16 @@ __global__ void __launch_bounds__(kBlock)
     D.k0 = p.k0;
     D.k1 = p.k1;
     D.base = static_cast<uint32_t>(rid_g) * static_cast<uint32_t>(2 * n_draws);
-    ray_adjoint(T, D, rid_g, p.spp, p.width, p.bounces,
-                p.normalize_emitter != 0, g, G, gp);
+    ray_adjoint(T, D, active, rid_g, p.spp, p.width, p.bounces,
+                p.normalize_emitter != 0, g, G, tape, gp);
   }
-  if (p.wrt & kWPar) {
-#pragma unroll
-    for (int i = 0; i < kNPar; ++i)
-      if (gp[i] != 0.0f) atomicAdd(g_par + i, gp[i]);
-  }
+  if (p.wrt & kWPar) add_par(g_par, gp);
   __syncthreads();
-  if (p.wrt & kWPar) flush(p.dpar, g_par, n_par);
-  if (p.wrt & kWSph) flush(p.dsph, g_sph, n_sph);
-  if (p.wrt & kWTri) flush(p.dtri, g_tri, n_tri);
-  if (p.wrt & kWMat) flush(p.dmat, g_mat, n_mat);
-  if (p.wrt & kWLig) flush(p.dlig, g_lig, n_lig);
+  if (p.wrt & kWPar) flush(p.dpar, g_par, kNPar);
+  if (p.wrt & kWSph) flush(p.dsph, g_sph, kSph * p.n_sph);
+  if (p.wrt & kWTri) flush(p.dtri, g_tri, kTri * p.n_tri);
+  if (p.wrt & kWMat) flush(p.dmat, g_mat, kMat * p.n_mat);
+  if (p.wrt & kWLig) flush(p.dlig, g_lig, kLig * p.n_lig);
 }
 
 }  // namespace
@@ -265,9 +271,9 @@ extern "C" int rt_pathtrace_bwd(const float* par, const float* sph, int n_sph,
   p.dtri = dtri;
   p.dmat = dmat;
   p.dlig = dlig;
-  const size_t smem = 2 * sizeof(float) *
-                      (kNPar + kSph * n_sph + kTri * n_tri + kMat * n_mat +
-                       kLig * n_lig);
+  const size_t smem =
+      2 * sizeof(float) * tables_floats(n_sph, n_tri, n_mat, n_lig) +
+      tape_bytes(bounces, kBlock);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)

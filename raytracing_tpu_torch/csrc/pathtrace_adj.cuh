@@ -6,6 +6,18 @@
 // the reverse sweep over a filled tape. Hard-gradient convention and
 // guards as described in megakernel_grad.cu.
 //
+// The sweep is warp-uniform and its adds into gradient rows are
+// warp-aggregated (add_rows): every lane of a warp calls reverse_sweep
+// (nseg = 0 without a path), walks segments max(nseg) - 1 ... 0 under the
+// predicate s < nseg, and computes each row's contribution inside its
+// branch but adds it after, where all 32 lanes meet. A first version that
+// matched rows over whichever lanes reached an add site together
+// (__activemask) measured slower than the plain atomics it replaced (10.7
+// against 6.3 ms for kernel 2 on cornell 1024^2, one H100 80GB HBM3, 700
+// W): the lanes arrived diverged and the warp collectives took their
+// divergent path. The tape (Tape) sits in a shared-memory slab sized at
+// launch for bounces + 1 segments.
+//
 // Both kernels are built with --fmad=false (ops/megakernel_grad.ADJ_FLAGS):
 // no contracted multiply-adds, so each computes its plain version's
 // float32 arithmetic. The sphere root's discriminant b^2 - 4ac cancels
@@ -16,9 +28,10 @@
 // sphere_field(1024) at 1024^2 b5, sph cosine 0.068; kernel 2 on
 // sphere_field(64) at 256x192 b5, sph cosine 0.22 and par -0.80, and on
 // cornell at 1024^2 b5, par and tri norm ratios 1.042-1.043. Uncontracted,
-// every group agrees to ~1e-5 of scale or better. The cost: kernel 2 6.2
-// ms against 5.5 ms on cornell 1024^2, kernel 3 1.60 ms against 1.40 ms
-// on sphere_field(1024).
+// every group agrees to ~1e-5 of scale or better. The cost, measured on
+// the earlier design with per-lane atomics: kernel 2 6.2 ms against 5.5 ms
+// on cornell 1024^2, kernel 3 1.60 ms against 1.40 ms on
+// sphere_field(1024).
 #pragma once
 
 #include <cstddef>
@@ -32,6 +45,7 @@ namespace rt {
 
 constexpr int kMaxSeg = 16;     // bounces <= 15
 constexpr int kMaxLights = 32;  // occlusion bits per segment
+constexpr int kSegWords = 14;   // words of one tape segment
 // diff_wrt groups
 constexpr int kWPar = 1, kWSph = 2, kWTri = 4, kWMat = 8, kWLig = 16;
 
@@ -69,10 +83,66 @@ __device__ __forceinline__ V3 tangent_frame_adj(V3 n, V3 gt, V3 gb) {
   return gn + mk(fx ? 0.0f : gvr.x, fy ? 0.0f : gvr.y, fz ? 0.0f : gvr.z);
 }
 
-__device__ __forceinline__ void add3(float* p, V3 g) {
-  atomicAdd(p + 0, g.x);
-  atomicAdd(p + 1, g.y);
-  atomicAdd(p + 2, g.z);
+// Warp-aggregated adds. A float atomicAdd on shared memory compiles to a
+// compare-and-swap loop on sm_90 (ATOMS.CAST.SPIN), and the lanes of a warp
+// mostly add into the same few rows (cornell: 2 spheres, 5 materials), so
+// one add per lane and word retried up to 32 times per warp (74% of kernel
+// 2's time). Here every add site is reached by all 32 lanes of the warp
+// together (the sweep is warp-uniform: reverse_sweep); the lanes group by
+// row (__match_any_sync, row -1: nothing to add), each group sums its
+// values in registers by a shuffle tree over its members (log2 of the
+// group's size rounds), and its lowest lane adds the sums: one atomic per
+// word, row and warp, never a zero.
+constexpr unsigned kFull = 0xffffffffu;
+
+struct Rows {
+  unsigned peers;  // the lanes adding into this lane's row
+  bool any;        // some lane of the warp adds (uniform)
+};
+
+__device__ __forceinline__ Rows rows_of(int row) {
+  Rows r;
+  r.any = __any_sync(kFull, row >= 0);
+  r.peers = r.any ? __match_any_sync(kFull, row) : 0u;
+  if (row < 0) r.peers = 0u;  // never the lowest lane of a group that adds
+  return r;
+}
+
+template <int N>
+__device__ __forceinline__ void add_rows(const Rows& r, float* p,
+                                         float (&v)[N]) {
+  if (!r.any) return;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = r.peers & ((1u << lane) - 1u);
+  unsigned higher = r.peers & ~below & ~(1u << lane);
+  int rank = __popc(below);
+  while (__any_sync(kFull, higher != 0u)) {
+    const int src = higher != 0u ? __ffs(higher) - 1 : lane;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const float x = __shfl_sync(kFull, v[k], src);
+      if (higher != 0u) v[k] += x;
+    }
+    // the odd ranks have been read for the last time
+    higher &= ~__ballot_sync(kFull, rank & 1);
+    rank >>= 1;
+  }
+  if (r.peers != 0u && below == 0u) {
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      if (v[k] != 0.0f) atomicAdd(p + k, v[k]);
+  }
+}
+
+// Adds g into the 3 words at p of row `row` (-1: none), warp-uniform.
+__device__ __forceinline__ void add_row3(float* p, int row, V3 g) {
+  float v[3] = {g.x, g.y, g.z};
+  add_rows(rows_of(row), p, v);
+}
+
+// The par cotangents of the warp's lanes into g_par, warp-uniform.
+__device__ __forceinline__ void add_par(float* g_par, float (&gp)[kNPar]) {
+  add_rows(rows_of(0), g_par, gp);
 }
 
 // Gradient buffers laid out like the tables: all in shared memory in
@@ -91,9 +161,57 @@ struct Seg {
   V3 tp;  // throughput at the segment's start
   float t, beta, gamma;
   int obj;  // champion (sphere i, n_sph + triangle j); -1: no valid hit
-  int m;    // material id
+  int m;    // material id (not stored: the champion row's)
   uint32_t occ;  // bit li: light li's shadow ray was occluded
 };
+
+// The tape of bounces + 1 segments, in a slab of shared memory sized at
+// launch: kSegWords words per segment, laid out (segment, word, thread) so
+// that the lanes of a warp touch consecutive words (no bank conflicts).
+struct Tape {
+  float* col;  // this thread's column of the block's slab
+  int stride;  // threads per block
+  __device__ __forceinline__ float& w(int s, int k) const {
+    return col[(s * kSegWords + k) * stride];
+  }
+  __device__ __forceinline__ void put(int s, const Seg& q) const {
+    w(s, 0) = q.o.x;
+    w(s, 1) = q.o.y;
+    w(s, 2) = q.o.z;
+    w(s, 3) = q.d.x;
+    w(s, 4) = q.d.y;
+    w(s, 5) = q.d.z;
+    w(s, 6) = q.tp.x;
+    w(s, 7) = q.tp.y;
+    w(s, 8) = q.tp.z;
+    w(s, 9) = q.t;
+    w(s, 10) = q.beta;
+    w(s, 11) = q.gamma;
+    w(s, 12) = __int_as_float(q.obj);
+    w(s, 13) = __uint_as_float(q.occ);
+  }
+  __device__ __forceinline__ Seg get(const Tables& T, int s) const {
+    Seg q;
+    q.o = mk(w(s, 0), w(s, 1), w(s, 2));
+    q.d = mk(w(s, 3), w(s, 4), w(s, 5));
+    q.tp = mk(w(s, 6), w(s, 7), w(s, 8));
+    q.t = w(s, 9);
+    q.beta = w(s, 10);
+    q.gamma = w(s, 11);
+    q.obj = __float_as_int(w(s, 12));
+    q.occ = __float_as_uint(w(s, 13));
+    q.m = static_cast<int>(q.obj < T.n_sph
+                               ? T.sph[q.obj * kSph + 4]
+                               : T.tri[(q.obj - T.n_sph) * kTri + 16]);
+    return q;
+  }
+};
+
+// Shared-memory bytes of the tape slab of a block of `threads`.
+__host__ __device__ inline size_t tape_bytes(int bounces, int threads) {
+  return sizeof(float) * kSegWords * static_cast<size_t>(bounces + 1) *
+         threads;
+}
 
 // Surface of a tape segment: hit point, unnormalised and unit normal.
 __device__ __forceinline__ void surface(const Tables& T, const Seg& q, V3& hp,
@@ -109,11 +227,22 @@ __device__ __forceinline__ void surface(const Tables& T, const Seg& q, V3& hp,
   hn = normalize(nraw);
 }
 
+// The champion rows' cotangents of one segment, added after the
+// branches so that all lanes reach the add: ks the sphere (-1: none) with
+// vs = (c, r); kt the triangle (-1: none) with vt = [n_geo, c1, c2, e1,
+// e2, k] and vn = [vn0, vn1, vn2].
+struct RowGrads {
+  int ks, kt;
+  float vs[4];
+  float vt[16];
+  float vn[9];
+};
+
 // Adjoint of the closest hit of segment q: from the cotangents of the hit
 // point and unit normal to those of the segment's origin and direction,
-// with the champion row's cotangent added into G.
+// and the champion row's cotangent into R (groups in `wrt`).
 __device__ void trace_adj(const Tables& T, const Seg& q, V3 nraw, V3 ghp,
-                          V3 ghn, const Grads& G, V3& go, V3& gd) {
+                          V3 ghn, int wrt, V3& go, V3& gd, RowGrads& R) {
   const V3 o = q.o, d = q.d;
   const float t = q.t;
   // hp = o + t d
@@ -151,10 +280,12 @@ __device__ void trace_adj(const Tables& T, const Seg& q, V3 nraw, V3 ghp,
     gd = gd + (2.0f * gb) * m + (2.0f * ga) * d;
     go = go + gm;
     gc = gc - gm;
-    if (G.wrt & kWSph) {
-      float* gs = G.sph + q.obj * kSph;
-      add3(gs, gc);
-      atomicAdd(gs + 3, -2.0f * r * gcq);
+    if (wrt & kWSph) {
+      R.ks = q.obj;
+      R.vs[0] = gc.x;
+      R.vs[1] = gc.y;
+      R.vs[2] = gc.z;
+      R.vs[3] = -2.0f * r * gcq;
     }
     return;
   }
@@ -181,17 +312,24 @@ __device__ void trace_adj(const Tables& T, const Seg& q, V3 nraw, V3 ghp,
   const V3 goxd = gnb * e2 - gng * e1;
   gd = gd + gdiv * ng - gnb * c2 + gng * c1 + cross(goxd, o);
   go = go - gnt * ng + cross(d, goxd);
-  if (G.wrt & kWTri) {
-    float* gr = G.tri + j * kTri;
-    add3(gr + 0, gdiv * d - gnt * o);  // n_geo
-    add3(gr + 3, gng * d);             // c1
-    add3(gr + 6, -gnb * d);            // c2
-    add3(gr + 9, -gng * oxd);          // e1
-    add3(gr + 12, gnb * oxd);          // e2
-    atomicAdd(gr + 15, gnt);           // k
-    add3(gr + 18, alpha * gnr);
-    add3(gr + 21, beta * gnr);
-    add3(gr + 24, gamma * gnr);
+  if (wrt & kWTri) {
+    const V3 v3[8] = {gdiv * d - gnt * o, gng * d,     -gnb * d,
+                      -gng * oxd,         gnb * oxd,   alpha * gnr,
+                      beta * gnr,         gamma * gnr};
+    R.kt = j;
+#pragma unroll
+    for (int k = 0; k < 5; ++k) {  // n_geo, c1, c2, e1, e2
+      R.vt[3 * k] = v3[k].x;
+      R.vt[3 * k + 1] = v3[k].y;
+      R.vt[3 * k + 2] = v3[k].z;
+    }
+    R.vt[15] = gnt;  // k
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {  // vn0, vn1, vn2
+      R.vn[3 * k] = v3[5 + k].x;
+      R.vn[3 * k + 1] = v3[5 + k].y;
+      R.vn[3 * k + 2] = v3[5 + k].z;
+    }
   }
 }
 
@@ -279,8 +417,10 @@ __device__ void camera_adj(const float* P, const Draws& D, int col, int row,
 // the next segment's origin and direction through the bounce, the NEE
 // terms and the albedo, then the closest hit into its champion row; last
 // the camera chain into gp. Nothing here depends on how the tape was
-// filled.
-__device__ void reverse_sweep(const Tables& T, const Draws& D, const Seg* tape,
+// filled. Warp-uniform: every lane of the warp calls it (nseg = 0 for a
+// lane without a path) and walks segments max(nseg) - 1 ... 0 under the
+// predicate s < nseg, so all lanes reach every row add together.
+__device__ void reverse_sweep(const Tables& T, const Draws& D, const Tape& tape,
                               int nseg, int col, int row, int samp, int spp,
                               V3 g, const Grads& G, float (&gp)[kNPar]) {
   const int L = T.n_lig;
@@ -288,15 +428,20 @@ __device__ void reverse_sweep(const Tables& T, const Draws& D, const Seg* tape,
   const bool geo = (G.wrt & (kWPar | kWSph | kWTri)) != 0;
   V3 gtp = mk(0.0f, 0.0f, 0.0f);   // cotangent of the throughput
   V3 go_n = gtp, gd_n = gtp;       // of the next segment's origin, direction
-  for (int s = nseg - 1; s >= 0; --s) {
-    const Seg& q = tape[s];
-    V3 hp, nraw, hn;
-    surface(T, q, hp, nraw, hn);
-    V3 ghp = mk(0.0f, 0.0f, 0.0f), ghn = ghp;
+  for (int s = __reduce_max_sync(kFull, nseg) - 1; s >= 0; --s) {
+    const bool live = s < nseg;
+    Seg q;
+    V3 hp, nraw, hn, al;
+    V3 ghp = mk(0.0f, 0.0f, 0.0f), ghn = ghp, galb = ghp;
     Hit hq;
-    hq.p = hp;
-    hq.n = hn;
-    if (geo && s + 1 < nseg) {
+    if (live) {
+      q = tape.get(T, s);
+      surface(T, q, hp, nraw, hn);
+      hq.p = hp;
+      hq.n = hn;
+      al = albedo(T, q.m);
+    }
+    if (live && geo && s + 1 < nseg) {
       // o' = hp + eps hn, d' = normalize(cx t + cy b + cz hn)
       float cx, cy, cz;
       V3 o2, d2, tx, bx;
@@ -309,65 +454,94 @@ __device__ void reverse_sweep(const Tables& T, const Draws& D, const Seg* tape,
       gp[kEps] += dot(go_n, hn);
     }
     // NEE terms in reverse light order
-    const V3 al = albedo(T, q.m);
-    V3 galb = mk(0.0f, 0.0f, 0.0f);
     for (int li = L - 1; li >= 0; --li) {
-      V3 tpb = q.tp;  // throughput before this light's NEE
-      for (int k = 0; k < li; ++k)
-        tpb = mk(tpb.x * al.x, tpb.y * al.y, tpb.z * al.z);
       const float* l = T.lig + li * kLig;
-      const bool free = ((q.occ >> li) & 1u) == 0u;
-      float geom = 0.0f;
-      const Shadow sh = shadow_ray(T, D, nee_slot(s, li, L), li, hq, eps);
-      const V3 lp = ld3(l), ln = ld3(l + 3), irr = ld3(l + 6);
-      const V3 qv = hp - lp;
-      const float r2 = dot(qv, qv);
-      const float rr = fmaxf(r2, 1e-20f);
-      const float cxv = dot(sh.sd, hn), cyv = -dot(sh.sd, ln);
-      const float cosx = fminf(fmaxf(cxv, 0.0f), 1.0f);
-      const float cosy = fminf(fmaxf(cyv, 0.0f), 1.0f);
-      if (free) geom = l[13] * cosx * cosy / rr;
-      const V3 shd = geom * irr;
-      // acc += tpb * al * shd; tp = tpb * al
-      galb = galb + mk(gtp.x * tpb.x + g.x * tpb.x * shd.x,
-                       gtp.y * tpb.y + g.y * tpb.y * shd.y,
-                       gtp.z * tpb.z + g.z * tpb.z * shd.z);
-      gtp = mk(gtp.x * al.x + g.x * al.x * shd.x,
-               gtp.y * al.y + g.y * al.y * shd.y,
-               gtp.z * al.z + g.z * al.z * shd.z);
-      if (!free || !(geo || (G.wrt & kWLig))) continue;
-      const V3 gsh = mk(g.x * tpb.x * al.x, g.y * tpb.y * al.y,
-                        g.z * tpb.z * al.z);
-      const float ggeom = dot(gsh, irr);
-      const float garea = ggeom * cosx * cosy / rr;
-      const float gcosx = ggeom * l[13] * cosy / rr;
-      const float gcosy = ggeom * l[13] * cosx / rr;
-      const float gr2 = r2 > 1e-20f ? -ggeom * geom / rr : 0.0f;
-      const float gcx = (cxv > 0.0f && cxv < 1.0f) ? gcosx : 0.0f;
-      const float gcy = (cyv > 0.0f && cyv < 1.0f) ? gcosy : 0.0f;
-      const V3 gq = (2.0f * gr2) * qv;
-      // sd = normalize(dl), dl = tgt - so, so = hp + eps hn
-      const V3 gdl = normalize_adj(sh.dl, gcx * hn - gcy * ln);
-      ghp = ghp + gq - gdl;
-      ghn = ghn + gcx * sh.sd - eps * gdl;
-      gp[kEps] -= dot(gdl, hn);
+      // [pos, normal, irr] and [radius, area, tangent, bitangent]
+      float v0[9] = {}, v1[8] = {};
+      int key = -1;
+      if (live) {
+        V3 tpb = q.tp;  // throughput before this light's NEE
+        for (int k = 0; k < li; ++k)
+          tpb = mk(tpb.x * al.x, tpb.y * al.y, tpb.z * al.z);
+        const bool free = ((q.occ >> li) & 1u) == 0u;
+        float geom = 0.0f;
+        const Shadow sh = shadow_ray(T, D, nee_slot(s, li, L), li, hq, eps);
+        const V3 lp = ld3(l), ln = ld3(l + 3), irr = ld3(l + 6);
+        const V3 qv = hp - lp;
+        const float r2 = dot(qv, qv);
+        const float rr = fmaxf(r2, 1e-20f);
+        const float cxv = dot(sh.sd, hn), cyv = -dot(sh.sd, ln);
+        const float cosx = fminf(fmaxf(cxv, 0.0f), 1.0f);
+        const float cosy = fminf(fmaxf(cyv, 0.0f), 1.0f);
+        if (free) geom = l[13] * cosx * cosy / rr;
+        const V3 shd = geom * irr;
+        // acc += tpb * al * shd; tp = tpb * al
+        galb = galb + mk(gtp.x * tpb.x + g.x * tpb.x * shd.x,
+                         gtp.y * tpb.y + g.y * tpb.y * shd.y,
+                         gtp.z * tpb.z + g.z * tpb.z * shd.z);
+        gtp = mk(gtp.x * al.x + g.x * al.x * shd.x,
+                 gtp.y * al.y + g.y * al.y * shd.y,
+                 gtp.z * al.z + g.z * al.z * shd.z);
+        if (free && (geo || (G.wrt & kWLig))) {
+          const V3 gsh = mk(g.x * tpb.x * al.x, g.y * tpb.y * al.y,
+                            g.z * tpb.z * al.z);
+          const float ggeom = dot(gsh, irr);
+          const float garea = ggeom * cosx * cosy / rr;
+          const float gcosx = ggeom * l[13] * cosy / rr;
+          const float gcosy = ggeom * l[13] * cosx / rr;
+          const float gr2 = r2 > 1e-20f ? -ggeom * geom / rr : 0.0f;
+          const float gcx = (cxv > 0.0f && cxv < 1.0f) ? gcosx : 0.0f;
+          const float gcy = (cyv > 0.0f && cyv < 1.0f) ? gcosy : 0.0f;
+          const V3 gq = (2.0f * gr2) * qv;
+          // sd = normalize(dl), dl = tgt - so, so = hp + eps hn
+          const V3 gdl = normalize_adj(sh.dl, gcx * hn - gcy * ln);
+          ghp = ghp + gq - gdl;
+          ghn = ghn + gcx * sh.sd - eps * gdl;
+          gp[kEps] -= dot(gdl, hn);
+          if (G.wrt & kWLig) {
+            // tgt = lp + rad (sx ta + sy ba)
+            const float rad = l[12];
+            const V3 ta = ld3(l + 14), ba = ld3(l + 17);
+            const V3 v3[5] = {gdl - gq, -gcy * sh.sd, geom * gsh,
+                              (sh.sx * rad) * gdl, (sh.sy * rad) * gdl};
+#pragma unroll
+            for (int k = 0; k < 3; ++k) {  // pos, normal, irr
+              v0[3 * k] = v3[k].x;
+              v0[3 * k + 1] = v3[k].y;
+              v0[3 * k + 2] = v3[k].z;
+            }
+            v1[0] = dot(gdl, sh.sx * ta + sh.sy * ba);  // radius
+            v1[1] = garea;
+#pragma unroll
+            for (int k = 0; k < 2; ++k) {  // tangent, bitangent
+              v1[2 + 3 * k] = v3[3 + k].x;
+              v1[3 + 3 * k] = v3[3 + k].y;
+              v1[4 + 3 * k] = v3[3 + k].z;
+            }
+            key = li;
+          }
+        }
+      }
       if (G.wrt & kWLig) {
-        // tgt = lp + rad (sx ta + sy ba)
-        const float rad = l[12];
-        const V3 ta = ld3(l + 14), ba = ld3(l + 17);
-        float* gl = G.lig + li * kLig;
-        add3(gl + 0, gdl - gq);
-        add3(gl + 3, mk(-gcy * sh.sd.x, -gcy * sh.sd.y, -gcy * sh.sd.z));
-        add3(gl + 6, geom * gsh);
-        atomicAdd(gl + 12, dot(gdl, sh.sx * ta + sh.sy * ba));
-        atomicAdd(gl + 13, garea);
-        add3(gl + 14, (sh.sx * rad) * gdl);
-        add3(gl + 17, (sh.sy * rad) * gdl);
+        const Rows r = rows_of(key);
+        add_rows(r, G.lig + li * kLig, v0);
+        add_rows(r, G.lig + li * kLig + 12, v1);
       }
     }
-    if ((G.wrt & kWMat) && q.m < T.n_mat) add3(G.mat + q.m * kMat, galb);
+    if (G.wrt & kWMat) {
+      const bool add = live && q.m < T.n_mat;
+      add_row3(G.mat + (add ? q.m : 0) * kMat, add ? q.m : -1, galb);
+    }
     if (!geo) continue;
-    trace_adj(T, q, nraw, ghp, ghn, G, go_n, gd_n);
+    RowGrads R = {};
+    R.ks = R.kt = -1;
+    if (live) trace_adj(T, q, nraw, ghp, ghn, G.wrt, go_n, gd_n, R);
+    if (G.wrt & kWSph) add_rows(rows_of(R.ks), G.sph + R.ks * kSph, R.vs);
+    if (G.wrt & kWTri) {
+      const Rows r = rows_of(R.kt);
+      add_rows(r, G.tri + R.kt * kTri, R.vt);
+      add_rows(r, G.tri + R.kt * kTri + 18, R.vn);
+    }
   }
   if (nseg > 0 && (G.wrt & kWPar))
     camera_adj(T.par, D, col, row, samp, spp, go_n, gd_n, gp);

@@ -68,6 +68,9 @@ MAX_PASSES_PER_LAUNCH = 64
 # kernel's _PAR layout)
 NPAR = 26
 SPH_COLS, TRI_COLS, MAT_COLS, LIG_COLS = 8, 32, 4, 20
+# in shared memory par takes 28 floats, so that every table starts on a
+# 16-byte boundary (csrc/pathtrace.cuh kParPad)
+PAR_PAD = 28
 
 launches = 0
 
@@ -378,7 +381,8 @@ def _check_args(par, ipar, sph, tri, mat, lig, acc, u_planes, spp, width,
     if sph.shape[0] > SPH_RESIDENT_MAX or tri.shape[0] > TRI_RESIDENT_MAX:
         raise ValueError(f"at most {SPH_RESIDENT_MAX} spheres and "
                          f"{TRI_RESIDENT_MAX} triangles stay resident")
-    smem = 4 * (NPAR + sph.numel() + tri.numel() + mat.numel() + lig.numel())
+    smem = 4 * (PAR_PAD + sph.numel() + tri.numel() + mat.numel()
+                + lig.numel())
     if smem > SMEM_BYTES_MAX:
         raise ValueError(f"scene tables take {smem} B of shared memory, "
                          f"more than {SMEM_BYTES_MAX}")

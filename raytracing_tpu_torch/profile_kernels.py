@@ -1,0 +1,286 @@
+"""Time kernels 1-3 of several builds of ``csrc/`` side by side on one card.
+
+    python -m raytracing_tpu_torch.profile_kernels \
+        [--variant LABEL=CSRC_DIR ...] [--sass LABEL ...] [--out DIR]
+
+Each variant is a directory of CUDA sources laid out like
+``raytracing_tpu_torch/csrc`` (the package's own by default, label
+"tree"); e.g. a parent commit's, unpacked with ``git archive`` into a
+directory that ``.gitignore`` lists, or a copy with one constant changed.
+The C interfaces of the three kernels must be those of the package's
+wrappers: each variant's libraries are put in the wrappers' place in turn,
+so every variant runs through the same argument checks, tables and draws.
+
+Measured per variant (CUDA events, in turns: first to last variant, then
+back), cornell at 1024x1024 b5 and sphere_field(1024) at 1024x1024 b5:
+kernel 1 per pass in 16-pass launches and in one-pass launches on
+cornell, kernel 1 per pass in 16-pass launches and in one-pass launches
+on the sphere fields of FIELDS, kernel 1 recording on
+sphere_field(1024), kernel 2 on cornell
+with ("sph", "mat") on a training step's cotangent of acc (the gradient of
+mean(image^2) after 11 passes) and on a seeded random one, kernel 2 with
+("mat",) and with all five groups, and kernel 3 with ("sph", "mat") on
+sphere_field(1024)'s step cotangent and kernel 1's record of the pass.
+``--sass`` dumps ``cuobjdump -sass`` of the named variants' libraries into
+``--out`` and prints, per kernel, the count of each memory, atomic and
+warp-level opcode, and the instructions around the first shared-memory
+atomic. Every build's ``ptxas -v`` report is printed. Results also go to
+``--out``/profile.json. Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import shutil
+import subprocess
+import sys
+import time
+from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .models.scenes import cornell_box, sphere_field
+from .ops import _build
+from .ops import megakernel as MK
+from .ops import megakernel_grad as MKG
+from .render import mega
+from .render import pathtracer as pt
+from .core.config import RenderConfig
+
+ROOT = Path(__file__).resolve().parents[1]
+BUILD = ROOT / "build" / "profile"
+SIZE = 1024
+BOUNCES = 5
+STEP_PASSES = 11          # the training step's pass index + 1
+N_SPHERES = 1024
+# sphere fields on either side of kernel 1's switch between its 2-row and
+# 8-row sphere loops (csrc/megakernel.cu kWideSpheres)
+FIELDS = (16, 32, 64, 128, 256, 512)
+REPS = 10
+TRAIN_WRT = ("sph", "mat")
+
+# (library, C signatures, nvcc flags after _build.NVCC_FLAGS), keyed as the
+# wrappers load them
+LIBS = (("megakernel", MK._SIGNATURES, ()),
+        ("megakernel_grad", MKG._SIGNATURES, MKG.ADJ_FLAGS),
+        ("megakernel_champ", MKG._CHAMP_SIGNATURES, MKG.ADJ_FLAGS))
+
+
+def _smi(query: str) -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def build(label: str, src: Path, name: str, signatures: dict,
+          flags: tuple):
+    """nvcc ``src/<name>.cu`` as _build.load does; (ctypes lib, ptxas)."""
+    out = BUILD / label
+    out.mkdir(parents=True, exist_ok=True)
+    so = out / f"lib{name}.so"
+    proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, *flags,
+                           "-I", str(src), "-o", str(so),
+                           str(src / f"{name}.cu")],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise SystemExit(f"nvcc failed on {label}/{name}:\n{proc.stderr}")
+    lib = ctypes.CDLL(str(so))
+    for fname, (restype, argtypes) in signatures.items():
+        getattr(lib, fname).restype = restype
+        getattr(lib, fname).argtypes = argtypes
+    return lib, proc.stdout + proc.stderr
+
+
+def use(libs: dict) -> None:
+    """Put one variant's libraries in the wrappers' place."""
+    for name, _, flags in LIBS:
+        _build._loaded[(name, tuple(flags))] = libs[name]
+
+
+def sass_summary(label: str, name: str, out: Path) -> None:
+    so = BUILD / label / f"lib{name}.so"
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    proc = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True)
+    if proc.returncode != 0:
+        print(f"  cuobjdump failed on {so}: {proc.stderr.strip()}")
+        return
+    dump = out / f"{label}_{name}.sass"
+    dump.write_text(proc.stdout)
+    func, lines = None, {}
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            func = m.group(1)
+            lines[func] = []
+        elif func and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            lines[func].append(line.strip())
+    keep = re.compile(r"^(ATOM|RED|LDS|STS|LDL|STL|LDG|STG|MATCH|SHFL|VOTE|"
+                      r"BSSY|BSYNC|WARPSYNC|BAR|LDC)")
+    for func, body in lines.items():
+        ops = Counter()
+        first_atoms = None
+        for i, ins in enumerate(body):
+            text = re.sub(r"^/\*[0-9a-f]+\*/\s*", "", ins)
+            text = re.sub(r"^@!?U?P[T0-9]+\s+", "", text)
+            op = text.split(" ")[0].rstrip(";")
+            if keep.match(op):
+                ops[op] += 1
+            if first_atoms is None and op.startswith("ATOMS"):
+                first_atoms = i
+        print(f"  sass {label}/{name} {func[:90]}: {len(body)} instructions;"
+              f" {dict(sorted(ops.items()))}")
+        if first_atoms is not None:
+            lo, hi = max(0, first_atoms - 6), first_atoms + 6
+            print("    around the first ATOMS:\n      "
+                  + "\n      ".join(body[lo:hi]))
+
+
+def _events():
+    return (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+
+
+def time_ms(fn, reps: int = REPS, per: int = 1) -> float:
+    fn()
+    start, end = _events()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * per)
+
+
+class Case:
+    """One scene's tables and, with ``step``, a training step's cotangent
+    of acc and kernel 1's record of that step's pass."""
+
+    def __init__(self, scene, dev, step: bool = True):
+        self.cfg = RenderConfig(width=SIZE, height=SIZE, bounces=BOUNCES,
+                                use_megakernel=True)
+        self.tables = mega.scene_tables(scene, self.cfg)
+        self.kw = dict(spp=1, width=SIZE, bounces=BOUNCES, two_sided=False,
+                       normalize_emitter=True, seed=self.cfg.seed)
+        self.ipar = torch.tensor([STEP_PASSES - 1, 0], dtype=torch.int32)
+        self.acc = torch.zeros((SIZE * SIZE, 3), device=dev)
+        if not step:
+            return
+        state = pt.render_passes(scene, pt.init_state(self.cfg, dev),
+                                 self.cfg, STEP_PASSES)
+        acc = state["acc"].clone().requires_grad_(True)
+        loss = torch.mean(pt.image(dict(state, acc=acc), self.cfg) ** 2)
+        self.g = torch.autograd.grad(loss, acc)[0].contiguous()
+        self.g_rand = torch.as_tensor(np.random.default_rng(2).normal(
+            size=tuple(self.g.shape)).astype(np.float32), device=dev)
+        _, self.ids, self.occs = self.k1(record=True)
+        self.live = (self.g != 0).any(-1).double().mean().item()
+
+    def k1(self, n_passes: int = 1, record: bool = False):
+        return MK.pathtrace_pass(self.tables[0], self.ipar, *self.tables[1:],
+                                 self.acc, None, n_passes=n_passes,
+                                 record=record, **self.kw)
+
+    def k2(self, g, wrt):
+        return MKG.pathtrace_pass_bwd(self.tables[0], self.ipar,
+                                      *self.tables[1:], g, None,
+                                      diff_wrt=wrt, **self.kw)
+
+    def k3(self, g, wrt):
+        return MKG.pathtrace_pass_bwd_champ(
+            self.tables[0], self.ipar, *self.tables[1:], g, None, self.ids,
+            self.occs, diff_wrt=wrt, **self.kw)
+
+
+def measure(cornell: Case, spheres: Case, fields: dict) -> dict:
+    by_field = {}
+    for n, case in fields.items():
+        by_field[f"k1_field{n}_16pass_ms_per_pass"] = time_ms(
+            lambda: case.k1(n_passes=16), reps=5, per=16)
+        by_field[f"k1_field{n}_1pass_ms"] = time_ms(lambda: case.k1(),
+                                                     reps=20)
+    return {
+        "k1_cornell_16pass_ms_per_pass": time_ms(
+            lambda: cornell.k1(n_passes=16), reps=5, per=16),
+        "k1_cornell_1pass_ms": time_ms(lambda: cornell.k1(), reps=20),
+        "k1_spheres_record_ms": time_ms(lambda: spheres.k1(record=True)),
+        "k2_cornell_step_g_sph_mat_ms": time_ms(
+            lambda: cornell.k2(cornell.g, TRAIN_WRT)),
+        "k2_cornell_random_g_sph_mat_ms": time_ms(
+            lambda: cornell.k2(cornell.g_rand, TRAIN_WRT)),
+        "k2_cornell_step_g_mat_ms": time_ms(
+            lambda: cornell.k2(cornell.g, ("mat",))),
+        "k2_cornell_step_g_all_ms": time_ms(
+            lambda: cornell.k2(cornell.g, MKG.DIFF_ALL)),
+        "k3_spheres_step_g_sph_mat_ms": time_ms(
+            lambda: spheres.k3(spheres.g, TRAIN_WRT)),
+        **by_field,
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--variant", action="append", default=[],
+                    help="LABEL=CSRC_DIR (repeatable; default the package's "
+                         "csrc/ as 'tree')")
+    ap.add_argument("--sass", action="append", default=[],
+                    help="dump the SASS of this variant's libraries")
+    ap.add_argument("--out", default=str(BUILD / "out"))
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_kernels needs a CUDA card")
+    dev = torch.device("cuda", 0)
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    smi = _smi("name,power.limit")
+    print(f"card: {torch.cuda.get_device_name(0)} [{smi}]")
+
+    variants = [tuple(v.split("=", 1)) for v in args.variant] or [
+        ("tree", str(_build.CSRC))]
+    variants = [(label, Path(src).resolve()) for label, src in variants]
+    t0 = time.perf_counter()
+    jobs = [(label, src, *lib) for label, src in variants for lib in LIBS]
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        built = list(pool.map(lambda j: build(*j), jobs))
+    libs: dict = {}
+    for (label, _, name, _, _), (lib, log) in zip(jobs, built):
+        libs.setdefault(label, {})[name] = lib
+        for line in log.splitlines():
+            if re.search(r"registers|spill|stack", line):
+                print(f"  ptxas {label}/{name}: {line.strip()}")
+    print(f"built {len(jobs)} libraries in {time.perf_counter() - t0:.2f} s")
+    for label in args.sass:
+        for name, _, _ in LIBS:
+            sass_summary(label, name, out)
+
+    labels = [label for label, _ in variants]
+    use(libs[labels[0]])
+    cornell = Case(cornell_box(cols=SIZE, rows=SIZE, device=dev), dev)
+    spheres = Case(sphere_field(N_SPHERES, cols=SIZE, rows=SIZE,
+                                device=dev), dev)
+    fields = {n: Case(sphere_field(n, cols=SIZE, rows=SIZE, device=dev), dev,
+                     step=False) for n in FIELDS}
+    print(f"cotangent share of rays with g != 0: cornell {cornell.live:.4%},"
+          f" sphere_field({N_SPHERES}) {spheres.live:.4%}")
+    results: dict = {"card": smi, "turns": []}
+    for order in (labels, labels[::-1]):
+        turn = {}
+        for label in order:
+            use(libs[label])
+            turn[label] = measure(cornell, spheres, fields)
+            print(f"{label}: " + ", ".join(
+                f"{k} {v:.6g}" for k, v in turn[label].items()))
+        results["turns"].append(turn)
+    (out / "profile.json").write_text(json.dumps(results, indent=1))
+    print(f"card: [{smi}]")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,7 +12,8 @@ import torch
 
 from raytracing_tpu_torch import RenderConfig, replace
 from raytracing_tpu_torch.models.scenes import cornell_box, sphere_field
-from raytracing_tpu_torch.core.types import make_triangles
+from raytracing_tpu_torch.core.types import (Camera, Lights, build_scene,
+                                             make_spheres, make_triangles)
 from raytracing_tpu_torch.ops import hit_kernels as HK
 from raytracing_tpu_torch.ops import megakernel as MK
 from raytracing_tpu_torch.ops import megakernel_grad as MKG
@@ -291,6 +292,112 @@ def test_cell_route_trains_through_kernels_1_and_3(cuda):
         assert torch.isfinite(b).all() and b.abs().max() > 0
         cos = (a * b).sum() / (a.norm() * b.norm())
         assert cos >= 0.999 and abs(b.norm() / a.norm() - 1) <= 0.01
+
+
+def _one_sphere(w, h, device):
+    """One sphere filling the whole view, lit from behind the camera: every
+    ray's champion is sphere 0, the worst case for kernel 2's row
+    reductions."""
+    return build_scene(
+        camera=Camera.look_at([0.0, 0.0, 12.0], [0.0, 0.0, 0.0],
+                              [0.0, 1.0, 0.0], 60.0, w, h),
+        spheres=make_spheres([[0.0, 0.0, 0.0]], [9.0], [0]),
+        lights=Lights.make([[0.0, 6.0, 30.0]], [[0.0, 0.0, -1.0]],
+                           [[25.0, 25.0, 25.0]], [2.0]),
+        materials=np.array([[0.9, 0.8, 0.7, 1.0]], np.float32),
+        focal_length=12.0, lens_diameter=0.0).to(device)
+
+
+@pytest.mark.parametrize("scene_name", ["one_sphere", "sphere_field(64)"])
+def test_adjoint_kernel_under_row_contention(cuda, scene_name):
+    """Kernel 2 vs its plain version where every lane of a warp adds into
+    the same sphere row (one sphere fills the view), and spread over the 64
+    rows of sphere_field(64): all five groups, b5, phase 6's gates, both
+    draw routes."""
+    w, h = 64, 48
+    cfg = RenderConfig(width=w, height=h, bounces=5, use_megakernel=True)
+    scene = (_one_sphere(w, h, cuda) if scene_name == "one_sphere"
+             else sphere_field(64, cols=w, rows=h, device=cuda))
+    tables = mega.scene_tables(scene, cfg)
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    u = mega.u_planes_for_pass(pt.init_state(cfg, cuda)["key"], 0, cfg,
+                               scene.lights.count, cuda)
+    kw = dict(spp=1, width=w, bounces=5, two_sided=False,
+              normalize_emitter=True, seed=cfg.seed)
+    if scene_name == "one_sphere":
+        _, ids, _ = _record(tables, torch.zeros((cfg.total_rays, 3),
+                                                device=cuda), u, cfg)
+        assert (ids[0] == 0).all()
+    g = torch.as_tensor(np.random.default_rng(4).normal(
+        size=(cfg.total_rays, 3)).astype(np.float32), device=cuda)
+    want = MKG.pathtrace_pass_bwd_reference(tables[0], ipar, *tables[1:], g,
+                                            u, **kw)
+    names = [n for n, a in zip(MKG.DIFF_ALL, want) if a.numel()]
+    for planes in (u, None):
+        got = MKG.pathtrace_pass_bwd(tables[0], ipar, *tables[1:], g, planes,
+                                     **kw)
+        torch.cuda.synchronize()
+        _gates([a for a in want if a.numel()], [b for b in got if b.numel()],
+               names=names)
+
+
+# the fewest spheres for which kernel 1 runs its 8-row sphere loop
+# (csrc/megakernel.cu kWideSpheres)
+WIDE_SPHERES = 512
+
+
+def _masked(scene, masked):
+    """``scene`` with the spheres where ``masked`` is true masked out."""
+    sp = scene.spheres
+    return replace(scene, spheres=replace(sp, mask=sp.mask & ~masked))
+
+
+@pytest.mark.parametrize("scene_name", ["cornell", "sphere_field(512)"])
+def test_exact_kernel_1_skips_a_masked_sphere_in_front(cuda, scene_name):
+    """Kernel 1 reads a sphere's mask only for a candidate that beats the
+    champion. On cornell a masked sphere in front of the first sphere (the
+    2-row sphere loop); on sphere_field(512) every third sphere masked (the
+    8-row loop). Its --fmad=false build equals the plain version on every
+    ray, champion and occlusion bit (chip_smoke phase 11's check), and no
+    masked sphere is recorded, though some would be champions unmasked."""
+    cfg = RenderConfig(width=64, height=48, bounces=5, use_megakernel=True)
+    if scene_name == "cornell":
+        scene = cornell_box(cols=64, rows=48, device=cuda)
+        sp = scene.spheres
+        scene = replace(scene, spheres=replace(
+            sp, center=torch.cat([sp.center, torch.tensor(
+                [[-0.4, -0.55, 0.9]], device=cuda)]),
+            radius=torch.cat([sp.radius, torch.tensor([0.3], device=cuda)]),
+            mat_id=torch.cat([sp.mat_id, torch.tensor(
+                [4], dtype=torch.int32, device=cuda)]),
+            mask=torch.cat([sp.mask, torch.tensor([True], device=cuda)])))
+        masked = torch.tensor([False, False, True], device=cuda)
+    else:
+        scene = sphere_field(WIDE_SPHERES, cols=64, rows=48, device=cuda)
+        masked = torch.arange(WIDE_SPHERES, device=cuda) % 3 == 0
+    kw = dict(spp=1, width=64, bounces=5, two_sided=False,
+              normalize_emitter=True, seed=cfg.seed)
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    u = mega.u_planes_for_pass(pt.init_state(cfg, cuda)["key"], 0, cfg,
+                               scene.lights.count, cuda)
+    zeros = torch.zeros((cfg.total_rays, 3), device=cuda)
+    tables = mega.scene_tables(scene, cfg)
+    _, unmasked_ids, _ = MK.pathtrace_pass_reference(
+        tables[0], ipar, *tables[1:], zeros, u, record=True, **kw)
+    masked_ids = masked.nonzero().flatten()
+    assert torch.isin(unmasked_ids[0], masked_ids).any()
+    scene = _masked(scene, masked)
+    tables = mega.scene_tables(scene, cfg)
+    acc, ids, occs = MK.pathtrace_pass(tables[0], ipar, *tables[1:],
+                                       zeros.clone(), u, record=True,
+                                       build_flags=("--fmad=false",), **kw)
+    want = MK.pathtrace_pass_reference(tables[0], ipar, *tables[1:], zeros,
+                                       u, record=True, **kw)
+    torch.cuda.synchronize()
+    assert not torch.isin(ids, masked_ids).any()
+    assert torch.equal(ids, want[1]) and torch.equal(occs, want[2])
+    beyond = ((acc - want[0]).abs() > TOL + TOL * want[0].abs()).any(-1)
+    assert not beyond.any()
 
 
 def test_kernel_1_keeps_4608_spheres_resident(cuda):

@@ -10,6 +10,9 @@ float32 evaluation of the quadratic is off from float64 by 1e-4..3e-4
 green), so at b5 at most 0.1% of accumulator entries may exceed 2e-4,
 each by no more than 1e-3, and the image mean must hold to 1e-6.
 """
+import dataclasses
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -86,6 +89,28 @@ def test_plain_passes_accumulate_like_xla(scenes_32x24):
     np.testing.assert_allclose(_port_passes(ps, 2, **kw),
                                _jax_passes(js, 2, **kw),
                                rtol=5e-4, atol=5e-4)
+
+
+def test_plain_pass_ignores_a_masked_sphere_in_front(scenes_32x24):
+    """A masked sphere in front of cornell's first sphere (the kernels read
+    a sphere's mask only for a candidate that beats the champion): the
+    plain pass matches the XLA pipeline, and equals the pass without that
+    sphere bit for bit."""
+    js, ps = scenes_32x24
+    sp = js.spheres
+    masked = dataclasses.replace(js, spheres=dataclasses.replace(
+        sp, center=jnp.concatenate([sp.center, jnp.asarray(
+            [[-0.4, -0.55, 0.9]], jnp.float32)]),
+        radius=jnp.concatenate([sp.radius, jnp.asarray([0.3], jnp.float32)]),
+        mat_id=jnp.concatenate([sp.mat_id, jnp.asarray([4], jnp.int32)]),
+        mask=jnp.concatenate([sp.mask, jnp.asarray([False])])))
+    pm = scene_from_numpy(scene_to_numpy(masked))
+    assert pm.spheres.count == 3
+    kw = dict(width=32, height=24, spp=1, bounces=2)
+    got = _port_passes(pm, **kw)
+    np.testing.assert_allclose(got, _jax_passes(masked, **kw), rtol=TOL,
+                               atol=TOL)
+    np.testing.assert_array_equal(got, _port_passes(ps, **kw))
 
 
 def test_prng_route_equals_u_planes_route(scenes_32x24):
