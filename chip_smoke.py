@@ -85,7 +85,41 @@ Phases, each fatal on failure (no exception is caught):
      segments/s, kernel 1 recording and kernel 3 alone (CUDA events around
      the wrappers, on the last step's pass and cotangent) with their shares
      of their bounds, and the plain champion backward's ms on the same
-     record.
+     record;
+ 13. Russian roulette (from depth RR_START, as bench.py runs config 5):
+     kernel 1 vs its plain version on the same u-planes, cornell at 256x192
+     and 1024^2 b5 (phase 3's gates) and sphere_field(256) at 256x192
+     (SPHERE_GATES), its --fmad=false build equal to the plain version on
+     every ray, id and bit on cornell and sphere_field(256) at 256x192, the
+     PRNG route bit-equal to the u-planes route (1 pass, and 3 passes in
+     one launch); kernel 2 vs its plain version (phase 6's gates) on cornell
+     at 256x192 with all five groups and at 1024^2 with ("sph", "mat");
+     kernel 3 vs its plain version on kernel 1's own record of
+     sphere_field(256) at 256x192 (all groups), and vs kernel 2 on cornell
+     at 256x192 (all groups);
+ 14. config 5 as BASELINE.json specifies it (bench.py BENCH_FULL=1): render
+     cornell 1024^2 spp 1 b5 with Russian roulette for 1024 passes, 64 per
+     call: exactly 16 kernel-1 launches, a finite image whose mean is within
+     1% of the same 1024 passes without the roulette (unbiasedness); train
+     1024 steps with the roulette and ("sph", "mat") as bench.py's
+     _full_train_bench does (forward + backward every pass, parameters
+     fixed, state threaded): one kernel-1 and one kernel-2 launch per step,
+     a finite loss, finite nonzero last gradients; nominal segments/s of
+     both, counted as bench.py:271 and :320 count them; then 10 steps of
+     sphere_field(1024)'s cell route with the roulette: one kernel-1 and one
+     kernel-3 launch per step;
+ 15. direct mode and fake shade: kernel 1's direct mode vs its plain
+     version on u_planes_for_direct (phase 3's gates) on cornell 1024^2 spp
+     1 (assign08's shape) and spp 4 with focal length 2.8 and lens diameter
+     0.25 (assign09's, 4,194,304 rays), its PRNG route bit-equal to its
+     u-planes route; render_direct through kernel 1 against the stage
+     route's (use_megakernel=False, use_pallas=True) with the same key for
+     1 and 3 passes (phase 10's gates, on the image); timed, one kernel-1
+     launch per call, configs 2 and 4 at 1024^2 with 16 passes per call
+     (rays as bench.py:225-228 count them), the kernel alone (CUDA events
+     around the wrapper) beside the call; config 1 (16 orbit frames of
+     render_fake_shade_orbit at 1024^2; no hand-written kernel, as in JAX)
+     timed.
 Ends with a kernels JSON line and, last, the device JSON line. Exits non-zero
 without a result where CUDA is missing or the package is not beside it.
 """
@@ -121,6 +155,14 @@ UNROLL_SPHERES = 64        # the most spheres "auto" sends to kernel 2
 # kernel 1 built without contracted multiply-adds computes its plain
 # version's float32 arithmetic, so it must equal it exactly
 EXACT_FLAGS = ("--fmad=false",)
+# phases 13-15
+RR_START = 2               # bench.py's rr_start_depth
+FULL_PASSES = 1024         # BASELINE.json config 5: 1024 spp with RR
+FULL_CHUNK = 64            # passes per call (bench.py BENCH_PASSES)
+CELL_RR_STEPS = 10
+DIRECT_PASSES = 16         # bench.py's BENCH_PASSES for configs 2 and 4
+DIRECT_REPS = 10
+ORBIT_FRAMES = 16
 
 # Bounds: the least time the card could take for a kernel's work, the
 # larger of its FP32 operations over the H100's 67 TFLOP/s and its bytes
@@ -150,6 +192,11 @@ OPS_NEE = 112            # per shadow ray: disk point 28, ray 25, anyhit
 OPS_BOUNCE = 103         # tangent frame 53, disk lift 20, d 24, o 6
 OPS_CHAMP = 60           # kernel 3: a recorded champion's t, beta, gamma,
                          # normal, material
+OPS_RR = 9               # Russian roulette (rr_survive): max, max, clip 2,
+                         # compare, 1 / p, three products
+OPS_DIRECT_SHADE = 86    # per direct-mode shadow ray: disk point 28, ray
+                         # 25, any-hit set-up 16, cosine and clip 7,
+                         # ambient and clip 4, albedo x shade into acc 6
 # The reverse sweep (csrc/pathtrace_adj.cuh reverse_sweep), per taped
 # segment, shadow ray or path, each term under the diff_wrt groups that run
 # it (_adj_ops). With dot 5, cross 9, normalize 11 and normalize_adj 24:
@@ -184,6 +231,10 @@ OPS_ADJ_TRIANGLE = 162   # per triangle champion, with par/sph/tri: hit
 OPS_ADJ_TRIANGLE_ROW = 32  # with tri: the row's 25 cotangents
 OPS_ADJ_CAMERA = 280     # per path, with par: the camera chain replayed
                          # 94, its adjoint 155, the par cotangents 31
+OPS_ADJ_RR = 46          # per segment that followed a roulette, plus 3 per
+                         # light (the throughput replayed): p 5, 1 / p, the
+                         # tie and bound weights 20, g.tp 5, the chain 5,
+                         # the three cotangents 11
 
 
 def _fail(msg: str) -> None:
@@ -211,25 +262,35 @@ def _bound(ops: float, nbytes: float) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def _pass_work(ids, occs, n_lig: int, n_sph: int, live=None) -> dict:
+def _pass_work(ids, occs, n_lig: int, n_sph: int, live=None,
+               rr_start=None) -> dict:
     """The work of one pass from kernel 1's record (ids (1 + b, R), occs
     (L (1 + b), R)), over the rays in ``live`` (all by default): rays,
     traced segments (segment 0 counted only where it found a champion),
-    champions by kind, shadow rays free and occluded, bounces."""
+    champions by kind, shadow rays free and occluded, bounces. With the
+    roulette from depth ``rr_start``: its tests (every hit segment from
+    that depth but the last), the segments that followed one, and as
+    bounces only those that found a champion (the record does not tell a
+    path the roulette ended from a bounce that missed: a lower bound)."""
     if live is not None:
         ids, occs = ids[:, live], occs[:, live]
     hit = ids >= 0
     per_seg = hit.sum(-1).double()
     shadow = per_seg.sum().item() * n_lig
     occluded = occs.double().sum().item()
-    return {"rays": ids.shape[1], "traced": per_seg[0].item()
-            + per_seg[:-1].sum().item(), "primary": per_seg[0].item(),
+    bounces = (per_seg[:-1] if rr_start is None else per_seg[1:]).sum().item()
+    rr = 0 if rr_start is None else rr_start
+    return {"rays": ids.shape[1], "traced": per_seg[0].item() + bounces,
+            "primary": per_seg[0].item(),
             "sph_hits": (hit & (ids < n_sph)).double().sum().item(),
             "tri_hits": (ids >= n_sph).double().sum().item(),
             "shadow": shadow, "occluded": occluded,
-            "free": shadow - occluded, "bounces": per_seg[:-1].sum().item(),
+            "free": shadow - occluded, "bounces": bounces,
             "continued": per_seg[1:].sum().item(),
-            "taped": per_seg.sum().item()}
+            "taped": per_seg.sum().item(),
+            "rr": 0.0 if rr_start is None else per_seg[rr:-1].sum().item(),
+            "after_rr": (0.0 if rr_start is None
+                         else per_seg[rr + 1:].sum().item())}
 
 
 def _k1_ops(w: dict, n_sph: int, n_tri: int, n_lig: int) -> float:
@@ -242,10 +303,23 @@ def _k1_ops(w: dict, n_sph: int, n_tri: int, n_lig: int) -> float:
             + w["tri_hits"] * OPS_TRIANGLE_HIT
             + w["primary"] * n_lig * OPS_EMITTER + w["shadow"] * OPS_NEE
             + w["free"] * tests + w["occluded"] * one
-            + w["bounces"] * OPS_BOUNCE)
+            + w["bounces"] * OPS_BOUNCE + w["rr"] * OPS_RR)
 
 
-def _adj_ops(w: dict, wrt) -> float:
+def _direct_ops(w: dict, n_sph: int, n_tri: int) -> float:
+    """FP32 operations of a direct-mode pass, from the record of the
+    primary segment and its shadow rays (w of a pass without bounces)."""
+    tests = n_sph * OPS_SPHERE_TEST + n_tri * OPS_TRIANGLE_TEST
+    one = min(x for n, x in ((n_sph, OPS_SPHERE_TEST),
+                             (n_tri, OPS_TRIANGLE_TEST)) if n)
+    return (w["rays"] * OPS_CAMERA + w["primary"] * (OPS_TRACE + tests)
+            + w["sph_hits"] * OPS_SPHERE_HIT
+            + w["tri_hits"] * OPS_TRIANGLE_HIT
+            + w["shadow"] * OPS_DIRECT_SHADE + w["free"] * tests
+            + w["occluded"] * one)
+
+
+def _adj_ops(w: dict, wrt, n_lig: int = 1) -> float:
     """FP32 operations of the reverse sweep over the taped segments of w
     for the diff_wrt groups ``wrt``; the warp sums of the row adds and the
     atomics are not counted."""
@@ -267,11 +341,20 @@ def _adj_ops(w: dict, wrt) -> float:
         ops += w["tri_hits"] * OPS_ADJ_TRIANGLE_ROW
     if "par" in wrt:
         ops += w["primary"] * OPS_ADJ_CAMERA
-    return ops
+    return ops + w["after_rr"] * (OPS_ADJ_RR + 3 * n_lig)
 
 
 def _table_bytes(tables) -> int:
     return sum(4 * t.numel() for t in tables)
+
+
+def _pass_kw(cfg, **extra) -> dict:
+    """The kernels' keyword arguments for a RenderConfig."""
+    return dict(spp=cfg.spp, width=cfg.width, bounces=cfg.bounces,
+                two_sided=cfg.two_sided_triangles,
+                normalize_emitter=cfg.normalize_emitter, seed=cfg.seed,
+                russian_roulette=cfg.russian_roulette,
+                rr_start_depth=cfg.rr_start_depth, **extra)
 
 
 def _plain(MK, mega, scene, cfg, u, acc):
@@ -280,9 +363,7 @@ def _plain(MK, mega, scene, cfg, u, acc):
     tables = mega.scene_tables(scene, cfg)
     return MK.pathtrace_pass_reference(
         tables[0], torch.tensor([0, 0], dtype=torch.int32), *tables[1:],
-        acc, u, spp=cfg.spp, width=cfg.width, bounces=cfg.bounces,
-        two_sided=cfg.two_sided_triangles,
-        normalize_emitter=cfg.normalize_emitter, seed=cfg.seed)
+        acc, u, **_pass_kw(cfg))
 
 
 def compare_with_plain(dev, w: int, h: int) -> float:
@@ -494,9 +575,10 @@ def _grad_gates(name: str, want, got, max_gate: bool) -> float:
 
 
 def kernel2_vs_plain(dev, name: str, w: int, h: int, wrt,
-                     max_gate: bool) -> dict:
-    """Phase 6 on one scene and size: kernel 2 (u-planes and PRNG routes)
-    vs its plain version on the same tables, draws and random cotangent."""
+                     max_gate: bool, rr: bool = False) -> dict:
+    """Phase 6 on one scene and size (phase 13 with ``rr``: the roulette
+    from RR_START): kernel 2 (u-planes and PRNG routes) vs its plain
+    version on the same tables, draws and random cotangent."""
     import numpy as np
     import torch
     from raytracing_tpu_torch import RenderConfig
@@ -505,6 +587,7 @@ def kernel2_vs_plain(dev, name: str, w: int, h: int, wrt,
     from raytracing_tpu_torch.render import pathtracer as pt
 
     cfg = RenderConfig(width=w, height=h, bounces=BOUNCES,
+                       russian_roulette=rr, rr_start_depth=RR_START,
                        use_megakernel=True)
     scene = _cell_scene(name, w, h, dev)
     tables = mega.scene_tables(scene, cfg)
@@ -513,10 +596,7 @@ def kernel2_vs_plain(dev, name: str, w: int, h: int, wrt,
                                scene.lights.count, dev)
     g = torch.as_tensor(np.random.default_rng(GRAD_SEED).normal(
         size=(cfg.total_rays, 3)).astype(np.float32), device=dev)
-    kw = dict(spp=cfg.spp, width=cfg.width, bounces=cfg.bounces,
-              two_sided=cfg.two_sided_triangles,
-              normalize_emitter=cfg.normalize_emitter, seed=cfg.seed,
-              diff_wrt=wrt)
+    kw = _pass_kw(cfg, diff_wrt=wrt)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -537,7 +617,8 @@ def kernel2_vs_plain(dev, name: str, w: int, h: int, wrt,
     end.record()
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / reps
-    print(f"phase 6 {name} {w}x{h} b{BOUNCES} wrt {list(wrt)}: plain "
+    print(f"phase {13 if rr else 6} {name} {w}x{h} b{BOUNCES} wrt "
+          f"{list(wrt)}{' with the roulette' if rr else ''}: plain "
           f"backward {plain_ms:.6g} ms, peak memory {peak / 2**30:.3f} GiB; kernel 2 "
           f"(PRNG route, random g) {ms:.6g} ms")
     err = 0.0
@@ -938,11 +1019,9 @@ def stage_vs_megakernel(dev) -> dict:
 
 def _record(MK, tables, ipar, acc, u, cfg, build_flags=()):
     """Kernel 1 recording one pass: (acc, ids, occs)."""
-    return MK.pathtrace_pass(
-        tables[0], ipar, *tables[1:], acc, u, spp=cfg.spp, width=cfg.width,
-        bounces=cfg.bounces, two_sided=cfg.two_sided_triangles,
-        normalize_emitter=cfg.normalize_emitter, seed=cfg.seed, record=True,
-        build_flags=build_flags)
+    return MK.pathtrace_pass(tables[0], ipar, *tables[1:], acc, u,
+                             record=True, build_flags=build_flags,
+                             **_pass_kw(cfg))
 
 
 def _cell_scene(name: str, w: int, h: int, dev):
@@ -1068,9 +1147,10 @@ def _record_diff(got, want) -> dict:
 
 
 def kernel3_vs_plain(dev, name: str, w: int, h: int, wrt,
-                     max_gate: bool) -> dict:
-    """Phase 11: kernel 3 (PRNG and u-planes routes) vs its plain version
-    on kernel 1's own record and a seeded random cotangent."""
+                     max_gate: bool, rr: bool = False) -> dict:
+    """Phase 11 (phase 13 with ``rr``: the roulette from RR_START): kernel
+    3 (PRNG and u-planes routes) vs its plain version on kernel 1's own
+    record and a seeded random cotangent."""
     import numpy as np
     import torch
     from raytracing_tpu_torch import RenderConfig
@@ -1080,6 +1160,7 @@ def kernel3_vs_plain(dev, name: str, w: int, h: int, wrt,
     from raytracing_tpu_torch.render import pathtracer as pt
 
     cfg = RenderConfig(width=w, height=h, bounces=BOUNCES,
+                       russian_roulette=rr, rr_start_depth=RR_START,
                        use_megakernel=True)
     scene = _cell_scene(name, w, h, dev)
     tables = mega.scene_tables(scene, cfg)
@@ -1091,10 +1172,7 @@ def kernel3_vs_plain(dev, name: str, w: int, h: int, wrt,
                            None, cfg)
     g = torch.as_tensor(np.random.default_rng(GRAD_SEED).normal(
         size=(cfg.total_rays, 3)).astype(np.float32), device=dev)
-    kw = dict(spp=cfg.spp, width=cfg.width, bounces=cfg.bounces,
-              two_sided=cfg.two_sided_triangles,
-              normalize_emitter=cfg.normalize_emitter, seed=cfg.seed,
-              diff_wrt=wrt)
+    kw = _pass_kw(cfg, diff_wrt=wrt)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = MKG.pathtrace_pass_bwd_champ_reference(
@@ -1106,8 +1184,9 @@ def kernel3_vs_plain(dev, name: str, w: int, h: int, wrt,
     got_p = MKG.pathtrace_pass_bwd_champ(tables[0], ipar, *tables[1:], g,
                                          None, ids, occs, **kw)
     torch.cuda.synchronize()
-    print(f"phase 11 kernel 3 vs plain, {name} {w}x{h} b{BOUNCES} wrt "
-          f"{list(wrt)}: plain champion backward {plain_ms:.6g} ms")
+    print(f"phase {13 if rr else 11} kernel 3 vs plain, {name} {w}x{h} "
+          f"b{BOUNCES} wrt {list(wrt)}{' with the roulette' if rr else ''}: "
+          f"plain champion backward {plain_ms:.6g} ms")
     err = 0.0
     for route, got in (("u-planes", got_u), ("PRNG", got_p)):
         print(f"  kernel 3 {route} route vs plain version:")
@@ -1120,9 +1199,11 @@ def kernel3_vs_plain(dev, name: str, w: int, h: int, wrt,
     return {"max_abs_err": err, "plain_ms": plain_ms}
 
 
-def kernel3_vs_kernel2(dev, w: int, h: int, wrt, max_gate: bool) -> None:
-    """Phase 11: kernel 3 on kernel 1's record vs kernel 2 on cornell, the
-    same cotangent (phase 6's gates for kernel 2 vs plain)."""
+def kernel3_vs_kernel2(dev, w: int, h: int, wrt, max_gate: bool,
+                       rr: bool = False) -> None:
+    """Phase 11 (phase 13 with ``rr``): kernel 3 on kernel 1's record vs
+    kernel 2 on cornell, the same cotangent (phase 6's gates for kernel 2
+    vs plain)."""
     import numpy as np
     import torch
     from raytracing_tpu_torch import RenderConfig
@@ -1131,6 +1212,7 @@ def kernel3_vs_kernel2(dev, w: int, h: int, wrt, max_gate: bool) -> None:
     from raytracing_tpu_torch.render import mega
 
     cfg = RenderConfig(width=w, height=h, bounces=BOUNCES,
+                       russian_roulette=rr, rr_start_depth=RR_START,
                        use_megakernel=True)
     scene = _cell_scene("cornell", w, h, dev)
     tables = mega.scene_tables(scene, cfg)
@@ -1140,16 +1222,14 @@ def kernel3_vs_kernel2(dev, w: int, h: int, wrt, max_gate: bool) -> None:
                            None, cfg)
     g = torch.as_tensor(np.random.default_rng(GRAD_SEED).normal(
         size=(cfg.total_rays, 3)).astype(np.float32), device=dev)
-    kw = dict(spp=cfg.spp, width=cfg.width, bounces=cfg.bounces,
-              two_sided=cfg.two_sided_triangles,
-              normalize_emitter=cfg.normalize_emitter, seed=cfg.seed,
-              diff_wrt=wrt)
+    kw = _pass_kw(cfg, diff_wrt=wrt)
     k2 = MKG.pathtrace_pass_bwd(tables[0], ipar, *tables[1:], g, None, **kw)
     k3 = MKG.pathtrace_pass_bwd_champ(tables[0], ipar, *tables[1:], g, None,
                                       ids, occs, **kw)
     torch.cuda.synchronize()
-    print(f"phase 11 kernel 3 vs kernel 2, cornell {w}x{h} b{BOUNCES}, wrt "
-          f"{list(wrt)}, random g:")
+    print(f"phase {13 if rr else 11} kernel 3 vs kernel 2, cornell {w}x{h} "
+          f"b{BOUNCES}, wrt {list(wrt)}{' with the roulette' if rr else ''}"
+          f", random g:")
     for gname, a, b in zip(MKG.DIFF_ALL, k2, k3):
         if gname in wrt:
             _grad_gates(gname, a, b, max_gate)
@@ -1287,6 +1367,488 @@ def train_cell_path(dev, smi: str) -> dict:
             "max_abs_err": err, "k1_record_ms": k1_ms, **k3_bound}
 
 
+def rr_vs_plain(dev, name: str, w: int, h: int) -> dict:
+    """Phase 13, kernel 1 with the roulette: against its plain version on
+    the same u-planes (records compared), its --fmad=false build exactly
+    (at 256x192 and on sphere fields, as phase 11 checks it), and its PRNG
+    route against its u-planes route."""
+    import torch
+    from raytracing_tpu_torch import RenderConfig
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.render import mega
+    from raytracing_tpu_torch.render import pathtracer as pt
+
+    cfg = RenderConfig(width=w, height=h, bounces=BOUNCES,
+                       russian_roulette=True, rr_start_depth=RR_START,
+                       use_megakernel=True)
+    scene = _cell_scene(name, w, h, dev)
+    tables = mega.scene_tables(scene, cfg)
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    u = mega.u_planes_for_pass(pt.init_state(cfg, dev)["key"], 0, cfg,
+                               scene.lights.count, dev)
+    zeros = torch.zeros((cfg.total_rays, 3), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = MK.pathtrace_pass_reference(tables[0], ipar, *tables[1:], zeros,
+                                       u, record=True, **_pass_kw(cfg))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = _record(MK, tables, ipar, zeros.clone(), u, cfg)
+    d = _record_diff(got, want)
+    ended = ((want[1][:-1] >= 0) & (want[1][1:] < 0)).double().sum().item()
+    print(f"phase 13 kernel 1 with the roulette vs plain ({plain_ms:.6g} ms)"
+          f", {name} {w}x{h} b{BOUNCES}: max|d acc| {d['max']:.6g}, rays "
+          f"beyond {TOL:g}: {d['beyond']:.6%}, mean acc rel {d['rel']:.3g}; "
+          f"ids differ on {d['ids']:.6%} of slots ({d['ids0']:.6%} of first "
+          f"segments), occlusion bits on {d['occs']:.6%}; paths ended after "
+          f"a hit (roulette or miss) {ended:.0f}")
+    _check(bool(torch.isfinite(got[0]).all()), f"{name}: acc not finite")
+    if name == "cornell":
+        _check(d["beyond"] <= 0.01, f"{name}: {d['beyond']:.4%} of rays "
+               f"beyond {TOL:g}")
+        _check(d["rel"] <= 1e-5, f"{name}: mean acc differs by "
+               f"{d['rel']:.3g}")
+    else:
+        _check(all(d[k] <= lim for k, lim in SPHERE_GATES.items()),
+               f"{name}: kernel 1 vs plain {d}, limits {SPHERE_GATES}")
+    if w == SMALL_W or name != "cornell":
+        exact = _record(MK, tables, ipar, zeros.clone(), u, cfg, EXACT_FLAGS)
+        dx = _record_diff(exact, want)
+        print(f"phase 13 --fmad=false build with the roulette, {name} "
+              f"{w}x{h}: rays "
+              f"beyond {TOL:g} {dx['beyond']:.6%}, ids {dx['ids']:.6%}, "
+              f"bits {dx['occs']:.6%}, max|d acc| {dx['max']:.6g}")
+        _check(all(torch.equal(a, b) for a, b in zip(exact, want)),
+               f"{name}: the --fmad=false build differs from the plain "
+               "version with the roulette")
+    if name == "cornell" and w == SMALL_W:
+        kw = _pass_kw(cfg)
+        one = MK.pathtrace_pass(tables[0], ipar, *tables[1:], zeros.clone(),
+                                None, **kw)
+        three = MK.pathtrace_pass(tables[0], ipar, *tables[1:],
+                                  zeros.clone(), None, n_passes=3, **kw)
+        acc = zeros.clone()
+        for p in range(3):
+            up = mega.u_planes_for_pass(pt.init_state(cfg, dev)["key"], p,
+                                        cfg, scene.lights.count, dev)
+            MK.pathtrace_pass(tables[0], torch.tensor([p, 0],
+                                                      dtype=torch.int32),
+                              *tables[1:], acc, up, **kw)
+        torch.cuda.synchronize()
+        print(f"phase 13 PRNG vs u-planes with the roulette: max|d| 1 pass "
+              f"{(one - got[0]).abs().max().item():g}, 3 passes in one launch"
+              f" {(three - acc).abs().max().item():g}")
+        _check(torch.equal(one, got[0]),
+               "roulette PRNG route != u-planes route (1 pass)")
+        _check(torch.equal(three, acc),
+               "roulette PRNG route != u-planes route (3 passes)")
+    return {"max_abs_err": d["max"], "plain_ms": plain_ms}
+
+
+def full_render(dev, smi: str) -> dict:
+    """Phase 14, render: config 5 as specified, 1024 passes with the
+    roulette in calls of 64; returns kernel 1's roulette entry."""
+    import torch
+    from raytracing_tpu_torch import RenderConfig, replace
+    from raytracing_tpu_torch.models.scenes import cornell_box
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.render import mega
+    from raytracing_tpu_torch.render import pathtracer as pt
+
+    cfg = RenderConfig(width=MAIN_W, height=MAIN_H, bounces=BOUNCES,
+                       russian_roulette=True, rr_start_depth=RR_START,
+                       use_megakernel=True)
+    scene = cornell_box(cols=MAIN_W, rows=MAIN_H, device=dev)
+    n_l = scene.lights.count
+    segs = cfg.total_rays * (1 + n_l + cfg.bounces * (1 + n_l))
+    calls = FULL_PASSES // FULL_CHUNK
+
+    def run(c):
+        state = pt.init_state(c, dev)
+        for _ in range(calls):
+            state = pt.render_passes(scene, state, c, FULL_CHUNK)
+        return state
+
+    pt.render_passes(scene, pt.init_state(cfg, dev), cfg, FULL_CHUNK)
+    torch.cuda.synchronize()
+    MK.launches = 0
+    t0 = time.perf_counter()
+    state = run(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = MK.launches
+    _check(launches == calls, f"{launches} kernel-1 launches for {calls} "
+           f"calls of {FULL_CHUNK} passes (want one per call)")
+    _check(state["passes"] == FULL_PASSES, f"passes {state['passes']}")
+    img = pt.image(state, cfg)
+    _check(bool(torch.isfinite(state["acc"]).all())
+           and bool(torch.isfinite(img).all()), "full render not finite")
+    fixed_cfg = replace(cfg, russian_roulette=False)
+    t1 = time.perf_counter()
+    fixed = run(fixed_cfg)
+    torch.cuda.synchronize()
+    fixed_wall = time.perf_counter() - t1
+    m_rr = state["acc"].double().mean().item()
+    m_fixed = fixed["acc"].double().mean().item()
+    rel = abs(m_rr - m_fixed) / abs(m_fixed)
+    # the kernel alone (launches outside the count above): the same calls
+    # of FULL_CHUNK passes, tables packed once, events around the wrapper
+    tables = mega.scene_tables(scene, cfg)
+    acc = torch.zeros_like(state["acc"])
+    ipars = [torch.tensor([c * FULL_CHUNK, 0], dtype=torch.int32)
+             for c in range(calls)]
+    kw = _pass_kw(cfg, n_passes=FULL_CHUNK)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for ipar in ipars:
+        MK.pathtrace_pass(tables[0], ipar, *tables[1:], acc, None, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / FULL_PASSES
+    _check(torch.equal(acc, state["acc"]), "the kernel alone does not "
+           "repeat render_passes' accumulator")
+    # the bound of a pass, from kernel 1's record of pass 0 (a launch
+    # outside the count above)
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    _, ids, occs = _record(MK, tables, ipar,
+                           torch.zeros_like(state["acc"]), None, cfg)
+    n_s, n_t = tables[1].shape[0], tables[2].shape[0]
+    work = _pass_work(ids, occs, n_l, n_s, rr_start=RR_START)
+    ops = _k1_ops(work, n_s, n_t, n_l)
+    bound = _bound(ops, 24 * cfg.total_rays + _table_bytes(tables))
+    out = HERE / "build" / "chip_smoke_cornell_1024spp_rr.png"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    from raytracing_tpu_torch.io.png import write_png
+    write_png(str(out), img)
+    print(f"phase 14 config 5 render, cornell {MAIN_W}x{MAIN_H} spp 1 "
+          f"b{BOUNCES}, roulette from depth {RR_START}, {FULL_PASSES} passes "
+          f"in {calls} calls on [{smi}]: {wall:.6g} s, nominal "
+          f"{segs * FULL_PASSES / wall:.6g} ray segments/s ({segs} per "
+          f"pass), {wall * 1e3 / FULL_PASSES:.6g} ms/pass; kernel alone "
+          f"{ms:.6g} ms/pass (CUDA events around the wrapper); "
+          f"launches {launches}; without the roulette {fixed_wall:.6g} s "
+          f"({segs * FULL_PASSES / fixed_wall:.6g} segments/s); mean acc "
+          f"{m_rr:.9g} vs {m_fixed:.9g} without (rel {rel:.3g}); image mean "
+          f"{img.mean().item():.6g} -> {out}")
+    print(f"phase 14 kernel 1 roulette bound: {ops / cfg.total_rays:.6g} "
+          f"FP32 operations per ray and pass ({work['rr']:.0f} roulette "
+          f"tests, {work['traced']:.0f} traced segments) -> "
+          f"{bound['bound_ms']:.6g} ms ({bound['bound_by']}), share "
+          f"{bound['bound_ms'] / ms:.3%}")
+    _check(rel <= 0.01, f"the roulette's mean differs by {rel:.3g} (> 1%)")
+    return {"launches": launches, "ms": ms, **bound}
+
+
+def _train_step(params, scene, cfg, seen, state):
+    """One step as bench.py's _full_train_bench takes it: render_pass ->
+    image -> mean square -> backward, parameters fixed."""
+    import torch
+    from raytracing_tpu_torch import replace
+    from raytracing_tpu_torch.render import pathtracer as pt
+    sc = replace(scene, spheres=replace(scene.spheres,
+                                        center=params["center"],
+                                        radius=params["radius"]),
+                 materials=params["materials"])
+    st = pt.render_pass(sc, state, cfg)
+    st["acc"].register_hook(lambda g: seen.__setitem__("g", g))
+    loss = torch.mean(pt.image(st, cfg) ** 2)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return (dict(st, acc=st["acc"].detach()), loss.detach(),
+            dict(zip(params, grads)))
+
+
+def full_train(dev, smi: str) -> tuple[dict, dict]:
+    """Phase 14, train: config 5 as specified (1024 steps with the
+    roulette), then the cell route with the roulette; returns kernel 2's
+    and kernel 3's roulette entries."""
+    import torch
+    from raytracing_tpu_torch import RenderConfig
+    from raytracing_tpu_torch.models.scenes import cornell_box
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.ops import megakernel_grad as MKG
+    from raytracing_tpu_torch.render import mega
+    from raytracing_tpu_torch.render import pathtracer as pt
+
+    entries = []
+    for name, steps in (("cornell", FULL_PASSES),
+                        (f"sphere_field({N_SPHERES})", CELL_RR_STEPS)):
+        cfg = RenderConfig(width=MAIN_W, height=MAIN_H, bounces=BOUNCES,
+                           russian_roulette=True, rr_start_depth=RR_START,
+                           mega_grad_wrt=TRAIN_WRT, use_megakernel=True)
+        scene = (cornell_box(cols=MAIN_W, rows=MAIN_H, device=dev)
+                 if name == "cornell" else
+                 _cell_scene(name, MAIN_W, MAIN_H, dev))
+        cell = mega.bwd_impl_for(scene, cfg) == "cell"
+        _check(cell == (name != "cornell"), f"{name}: backward route")
+        n_l = scene.lights.count
+        segs = cfg.total_rays * (1 + n_l + cfg.bounces * (1 + n_l))
+        params = {"center": scene.spheres.center.clone().requires_grad_(True),
+                  "radius": scene.spheres.radius.clone().requires_grad_(True),
+                  "materials": scene.materials.clone().requires_grad_(True)}
+        seen = {}
+        state, _, _ = _train_step(params, scene, cfg, seen,
+                                  pt.init_state(cfg, dev))   # warm-up
+        state = pt.init_state(cfg, dev)
+        torch.cuda.synchronize()
+        MK.launches = MKG.launches = MKG.champ_launches = 0
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(steps):
+            state, loss, grads = _train_step(params, scene, cfg, seen, state)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1, k2, k3 = MK.launches, MKG.launches, MKG.champ_launches
+        want = (steps, 0, steps) if cell else (steps, steps, 0)
+        _check((k1, k2, k3) == want, f"{name}: launches kernel 1 {k1}, "
+               f"kernel 2 {k2}, kernel 3 {k3} for {steps} steps (want "
+               f"{want})")
+        losses = torch.stack(losses)
+        _check(bool(torch.isfinite(losses).all()), f"{name}: loss")
+        for gname, gr in grads.items():
+            _check(bool(torch.isfinite(gr).all()), f"{name}: {gname} grad")
+        for gname in ("center", "materials"):
+            _check(bool(grads[gname].any()), f"{name}: {gname} grad is zero")
+        # the backward alone on the last step's pass and cotangent
+        tables = mega.scene_tables(scene, cfg)
+        ipar = torch.tensor([state["passes"] - 1, 0], dtype=torch.int32)
+        kw = _pass_kw(cfg, diff_wrt=TRAIN_WRT)
+        g = seen["g"].contiguous()
+        _, ids, occs = _record(MK, tables, ipar, torch.zeros_like(g), None,
+                               cfg)
+        if cell:
+            def bwd():
+                return MKG.pathtrace_pass_bwd_champ(
+                    tables[0], ipar, *tables[1:], g, None, ids, occs, **kw)
+        else:
+            def bwd():
+                return MKG.pathtrace_pass_bwd(tables[0], ipar, *tables[1:],
+                                              g, None, **kw)
+        bwd()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(10):
+            bwd()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / 10
+        live = (g != 0).any(-1)
+        n_s, n_t = tables[1].shape[0], tables[2].shape[0]
+        work = _pass_work(ids, occs, n_l, n_s, live, rr_start=RR_START)
+        if cell:
+            ops = (work["rays"] * (OPS_CAMERA + n_l * OPS_EMITTER)
+                   + (work["sph_hits"] + work["tri_hits"]) * OPS_CHAMP
+                   + work["bounces"] * OPS_BOUNCE + work["rr"] * OPS_RR
+                   + _adj_ops(work, TRAIN_WRT, n_l))
+            nbytes = (12 * cfg.total_rays + (1 + cfg.bounces) * (4 + n_l)
+                      * work["rays"] + 2 * _table_bytes(tables))
+        else:
+            ops = _k1_ops(work, n_s, n_t, n_l) + _adj_ops(work, TRAIN_WRT,
+                                                          n_l)
+            nbytes = 12 * cfg.total_rays + 2 * _table_bytes(tables)
+        bound = _bound(ops, nbytes)
+        label = "kernel 3 (cell route)" if cell else "kernel 2"
+        print(f"phase 14 train {name} {MAIN_W}x{MAIN_H} b{BOUNCES} with the "
+              f"roulette, wrt {list(TRAIN_WRT)}, {steps} steps on [{smi}]: "
+              f"{wall:.6g} s, {wall * 1e3 / steps:.6g} ms/step, nominal "
+              f"{segs * steps / wall:.6g} fwd+bwd ray segments/s ({segs} per "
+              f"step); launches kernel 1 {k1}, kernel 2 {k2}, kernel 3 {k3}; "
+              f"loss first {losses[0].item():.7g} last "
+              f"{losses[-1].item():.7g}; last |grad| center "
+              f"{grads['center'].norm().item():.6g} materials "
+              f"{grads['materials'].norm().item():.6g}; {label} alone on the "
+              f"last step's cotangent {ms:.6g} ms, bound "
+              f"{bound['bound_ms']:.6g} ms ({bound['bound_by']}, "
+              f"{ops / max(work['rays'], 1):.6g} FP32 operations per ray with "
+              f"g != 0), share {bound['bound_ms'] / ms:.3%}")
+        entries.append({"launches": k3 if cell else k2, "ms": ms, **bound})
+    return entries[0], entries[1]
+
+
+def _image_gates(name: str, got, want) -> float:
+    """Phase 10's gates on two images: at most 1% of pixels beyond 2e-4,
+    the mean within 1e-5 relative; returns max |got - want|."""
+    import torch
+    err = (got - want).abs()
+    beyond = (err > TOL + TOL * want.abs()).any(-1).double().mean().item()
+    gm, wm = got.double().mean().item(), want.double().mean().item()
+    rel = abs(gm - wm) / abs(wm)
+    print(f"phase 15 {name}: max|d| {err.max().item():.6g}, pixels beyond "
+          f"{TOL:g}: {beyond:.6%}, mean {gm:.9g} vs {wm:.9g} (rel {rel:.3g})")
+    _check(bool(torch.isfinite(got).all()), f"{name}: not finite")
+    _check(beyond <= 0.01, f"{name}: {beyond:.4%} beyond {TOL:g} (> 1%)")
+    _check(rel <= 1e-5, f"{name}: mean differs by {rel:.3g} (> 1e-5)")
+    return err.max().item()
+
+
+def direct_vs_plain(dev) -> dict:
+    """Phase 15, correctness: kernel 1's direct mode against its plain
+    version, its PRNG route against its u-planes route, render_direct
+    through it against the stage route's."""
+    import torch
+    from raytracing_tpu_torch import replace
+    from raytracing_tpu_torch.core import rng
+    from raytracing_tpu_torch.models import assignments as A
+    from raytracing_tpu_torch.ops import hit_kernels as HK
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.render import mega
+    from raytracing_tpu_torch.render.direct import render_direct
+
+    err, plain_ms = 0.0, {}
+    for name, make in (("assign08", lambda: A.assign08(MAIN_W, MAIN_H,
+                                                       device=dev)),
+                       ("assign09", lambda: A.assign09(MAIN_W, MAIN_H, spp=4,
+                                                       device=dev))):
+        _, (scene, cfg), _ = make()
+        tables = mega.scene_tables(scene, cfg)
+        key = rng.base_key(cfg.seed)
+        u = mega.u_planes_for_direct(key, cfg, scene.lights.count, dev)
+        zeros = torch.zeros((cfg.total_rays, 3), device=dev)
+        kw = dict(key=key, spp=cfg.spp, width=cfg.width,
+                  two_sided=cfg.two_sided_triangles)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = MK.direct_pass_reference(tables[0], *tables[1:], zeros, u,
+                                        **kw)
+        torch.cuda.synchronize()
+        plain_ms[name] = (time.perf_counter() - t0) * 1e3
+        got = MK.direct_pass(tables[0], *tables[1:], zeros.clone(), u, **kw)
+        prng = MK.direct_pass(tables[0], *tables[1:], zeros.clone(), None,
+                              **kw)
+        torch.cuda.synchronize()
+        d = (got - want).abs()
+        beyond = (d > TOL + TOL * want.abs()).any(-1).double().mean().item()
+        gm, wm = got.double().mean().item(), want.double().mean().item()
+        rel = abs(gm - wm) / abs(wm)
+        err = max(err, d.max().item())
+        print(f"phase 15 direct mode vs plain ({plain_ms[name]:.6g} ms), "
+              f"{name} shape {MAIN_W}x{MAIN_H} spp {cfg.spp} lens "
+              f"{2 * scene.lens_radius.item():g} ({cfg.total_rays} rays): "
+              f"max|d acc| {d.max().item():.6g}, rays beyond {TOL:g}: "
+              f"{beyond:.6%}, mean rel {rel:.3g}; PRNG vs u-planes max|d| "
+              f"{(prng - got).abs().max().item():g}")
+        _check(bool(torch.isfinite(got).all()) and got.max().item() > 0,
+               f"{name}: direct acc not finite or black")
+        _check(beyond <= 0.01, f"{name}: {beyond:.4%} of rays beyond {TOL:g}")
+        _check(rel <= 1e-5, f"{name}: mean acc differs by {rel:.3g}")
+        _check(torch.equal(prng, got),
+               f"{name}: direct PRNG route != u-planes route")
+        scfg = replace(cfg, use_megakernel=False, use_pallas=True)
+        for n_passes in (1, 3):
+            k = MK.direct_launches
+            HK.sphere_launches = HK.triangle_launches = 0
+            img = render_direct(scene, cfg, key=key, n_passes=n_passes)
+            stage = render_direct(scene, scfg, key=key, n_passes=n_passes)
+            torch.cuda.synchronize()
+            _check(MK.direct_launches == k + 1 and HK.triangle_launches > 0,
+                   f"{name}: launches direct {MK.direct_launches - k}, "
+                   f"kernel 5 {HK.triangle_launches}")
+            err = max(err, _image_gates(
+                f"{name} render_direct, {n_passes} pass(es): kernel 1 vs "
+                "stage route", img, stage))
+    return {"max_abs_err": err, "plain_ms": plain_ms["assign08"]}
+
+
+def direct_main_path(dev, smi: str) -> dict:
+    """Phase 15, timed: configs 2 and 4 through render_direct (one kernel-1
+    launch per call), config 1 through render_fake_shade_orbit; returns
+    the direct-mode entry (config 2)."""
+    import torch
+    from raytracing_tpu_torch import replace
+    from raytracing_tpu_torch.core import rng
+    from raytracing_tpu_torch.models import assignments as A
+    from raytracing_tpu_torch.ops import hit_kernels as HK
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.render import mega
+    from raytracing_tpu_torch.render.simple import render_fake_shade_orbit
+
+    entry = None
+    for config, make in ((2, lambda: A.assign08(MAIN_W, MAIN_H, device=dev)),
+                         (4, lambda: A.assign09(MAIN_W, MAIN_H, spp=4,
+                                                device=dev))):
+        render, (scene, cfg), _ = make()
+        work = cfg.total_rays * (1 + scene.lights.count) * DIRECT_PASSES
+        img = render(scene, cfg, n_passes=DIRECT_PASSES)     # warm-up
+        torch.cuda.synchronize()
+        MK.direct_launches = MK.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(DIRECT_REPS):
+            img = render(scene, cfg, n_passes=DIRECT_PASSES)
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3 / DIRECT_REPS
+        launches = MK.direct_launches
+        _check(launches == DIRECT_REPS and MK.launches == 0,
+               f"config {config}: {launches} direct launches for "
+               f"{DIRECT_REPS} calls")
+        _check(bool(torch.isfinite(img).all()) and img.max().item() > 0,
+               f"config {config}: image not finite or black")
+        # the kernel alone: tables packed once, events around the wrapper
+        tables = mega.scene_tables(scene, cfg)
+        acc = torch.zeros((cfg.total_rays, 3), device=dev)
+        kw = dict(key=rng.base_key(cfg.seed), spp=cfg.spp, width=cfg.width,
+                  two_sided=cfg.two_sided_triangles, n_passes=DIRECT_PASSES)
+        MK.direct_pass(tables[0], *tables[1:], acc, None, **kw)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(DIRECT_REPS):
+            MK.direct_pass(tables[0], *tables[1:], acc, None, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        k_ms = start.elapsed_time(end) / DIRECT_REPS
+        # the bound of a pass, from kernel 1's path-mode record of a pass
+        # without bounces on the direct draws (the same primary rays and
+        # shadow rays; a launch outside the count above)
+        u = mega.u_planes_for_direct(kw["key"], cfg, scene.lights.count, dev)
+        _, ids, occs = _record(MK, tables, torch.tensor([0, 0],
+                                                        dtype=torch.int32),
+                               torch.zeros_like(acc), u,
+                               replace(cfg, bounces=0))
+        n_s, n_t = tables[1].shape[0], tables[2].shape[0]
+        w = _pass_work(ids, occs, scene.lights.count, n_s)
+        ops = _direct_ops(w, n_s, n_t)
+        bound = _bound(ops * DIRECT_PASSES,
+                       24 * cfg.total_rays + _table_bytes(tables))
+        shape = "assign08" if config == 2 else "assign09"
+        print(f"phase 15 config {config} ({shape}) {MAIN_W}x{MAIN_H} spp "
+              f"{cfg.spp}, "
+              f"{DIRECT_PASSES} passes per call on [{smi}]: "
+              f"{work / (call_ms / 1e3):.6g} rays/s ({work} per call), call "
+              f"{call_ms:.6g} ms, kernel alone {k_ms:.6g} ms (CUDA events; "
+              f"host share {max(0.0, 1 - k_ms / call_ms):.3%}); launches "
+              f"{launches}; bound {ops / cfg.total_rays:.6g} FP32 "
+              f"operations per ray and pass -> {bound['bound_ms']:.6g} ms "
+              f"per call ({bound['bound_by']}), share "
+              f"{bound['bound_ms'] / k_ms:.3%}")
+        if config == 2:
+            entry = {"launches": launches, "ms": k_ms / DIRECT_PASSES,
+                     "bound_ms": bound["bound_ms"] / DIRECT_PASSES,
+                     "bound_by": bound["bound_by"]}
+
+    render, (cam, spheres, colors), _ = A.assign01(MAIN_W, MAIN_H,
+                                                   device=dev)
+    bounds = spheres.bounds()
+    render_fake_shade_orbit(cam, spheres, colors, bounds, ORBIT_FRAMES)
+    torch.cuda.synchronize()
+    counts = (MK.launches, MK.direct_launches, HK.sphere_launches,
+              HK.triangle_launches)
+    t0 = time.perf_counter()
+    frames = render_fake_shade_orbit(cam, spheres, colors, bounds,
+                                     ORBIT_FRAMES)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    _check((MK.launches, MK.direct_launches, HK.sphere_launches,
+            HK.triangle_launches) == counts,
+           "fake shade launched a hand-written kernel")
+    _check(tuple(frames.shape) == (ORBIT_FRAMES, MAIN_H, MAIN_W, 3)
+           and bool(torch.isfinite(frames).all())
+           and frames.max().item() > 0, "fake-shade frames")
+    print(f"phase 15 config 1 (render_fake_shade_orbit) {MAIN_W}x{MAIN_H}, "
+          f"{ORBIT_FRAMES} frames on [{smi}]: {ms:.6g} ms, "
+          f"{MAIN_W * MAIN_H * ORBIT_FRAMES / (ms / 1e3):.6g} rays/s; no "
+          f"hand-written kernel (eager PyTorch, as JAX runs XLA)")
+    return entry
+
+
 def _record_bound(tables, ids, occs, cfg):
     """Kernel 1 recording the pass (ids, occs): its bound and operations
     per ray."""
@@ -1388,6 +1950,29 @@ def main() -> int:
     kernel3_vs_kernel2(dev, MAIN_W, MAIN_H, MKG.DIFF_ALL, max_gate=False)
     # phase 12: the cell route's training main path
     c12 = train_cell_path(dev, smi)
+    # phase 13: Russian roulette in kernels 1-3 against their plain versions
+    # (sphere_field(N_SPHERES) runs the 8-row loop, <8, true>)
+    r13 = [rr_vs_plain(dev, name, w, h) for name, w, h in (
+        ("cornell", SMALL_W, SMALL_H), ("cornell", MAIN_W, MAIN_H),
+        (f"sphere_field({SMALL_SPHERES})", SMALL_W, SMALL_H),
+        (f"sphere_field({N_SPHERES})", SMALL_W, SMALL_H),
+        (f"sphere_field({N_SPHERES})", MAIN_W, MAIN_H))]
+    g13 = [kernel2_vs_plain(dev, "cornell", SMALL_W, SMALL_H, MKG.DIFF_ALL,
+                            max_gate=True, rr=True),
+           kernel2_vs_plain(dev, "cornell", MAIN_W, MAIN_H, TRAIN_WRT,
+                            max_gate=False, rr=True)]
+    c13_main = kernel3_vs_plain(dev, f"sphere_field({N_SPHERES})", MAIN_W,
+                                MAIN_H, TRAIN_WRT, max_gate=False, rr=True)
+    kernel3_vs_plain(dev, f"sphere_field({SMALL_SPHERES})", SMALL_W, SMALL_H,
+                     MKG.DIFF_ALL, max_gate=True, rr=True)
+    kernel3_vs_kernel2(dev, SMALL_W, SMALL_H, MKG.DIFF_ALL, max_gate=True,
+                       rr=True)
+    # phase 14: config 5 as specified (1024 spp with the roulette)
+    f14 = full_render(dev, smi)
+    t14, c14 = full_train(dev, smi)
+    # phase 15: direct mode and fake shade
+    d15 = direct_vs_plain(dev)
+    m15 = direct_main_path(dev, smi)
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -1424,6 +2009,38 @@ def main() -> int:
                            + [c["max_abs_err"] for c in c_small]),
         "ms": c12["ms"], "plain_ms": c12["plain_ms"],
         "bound_ms": c12["bound_ms"], "bound_by": c12["bound_by"],
+        "library_ms": None}, {
+        "name": "pathtrace_pass (megakernel, Russian roulette)",
+        "route": "cuda",
+        "source": "raytracing_tpu_torch/csrc/megakernel.cu",
+        "replaces": "raytracing_tpu/ops/pallas/megakernel.py:1486",
+        "launches": f14["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in r13), "ms": f14["ms"],
+        "plain_ms": r13[1]["plain_ms"], "bound_ms": f14["bound_ms"],
+        "bound_by": f14["bound_by"], "library_ms": None}, {
+        "name": "direct_pass (megakernel, direct mode)", "route": "cuda",
+        "source": "raytracing_tpu_torch/csrc/megakernel.cu",
+        "replaces": "raytracing_tpu/ops/pallas/megakernel.py:1362",
+        "launches": m15["launches"], "max_abs_err": d15["max_abs_err"],
+        "ms": m15["ms"], "plain_ms": d15["plain_ms"],
+        "bound_ms": m15["bound_ms"], "bound_by": m15["bound_by"],
+        "library_ms": None}, {
+        "name": "pathtrace_pass_bwd (adjoint megakernel, Russian roulette)",
+        "route": "cuda",
+        "source": "raytracing_tpu_torch/csrc/megakernel_grad.cu",
+        "replaces": "raytracing_tpu/ops/pallas/megakernel_grad.py:909",
+        "launches": t14["launches"],
+        "max_abs_err": max(g["max_abs_err"] for g in g13), "ms": t14["ms"],
+        "plain_ms": g13[1]["plain_ms"], "bound_ms": t14["bound_ms"],
+        "bound_by": t14["bound_by"], "library_ms": None}, {
+        "name": "pathtrace_pass_bwd_champ (champion adjoint, Russian "
+                "roulette)",
+        "route": "cuda",
+        "source": "raytracing_tpu_torch/csrc/megakernel_champ.cu",
+        "replaces": "raytracing_tpu/ops/pallas/megakernel_grad.py:1101",
+        "launches": c14["launches"], "max_abs_err": c13_main["max_abs_err"],
+        "ms": c14["ms"], "plain_ms": c13_main["plain_ms"],
+        "bound_ms": c14["bound_ms"], "bound_by": c14["bound_by"],
         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,15 +5,19 @@
       --height 1024 --passes 16 -o out.png
   python -m raytracing_tpu_torch.cli --scene spheres --no-megakernel \\
       --pallas --width 1024 --height 1024 --passes 4 -o spheres.png
+  python -m raytracing_tpu_torch.cli --renderer direct -o direct.png
   python -m raytracing_tpu_torch.cli --renderer direct --no-megakernel \\
       --pallas -o direct.png
+  python -m raytracing_tpu_torch.cli --renderer fake -o fake.png
   python -m raytracing_tpu_torch.cli --cpu --width 64 --height 48 -o x.png
 
-Same flags as the JAX CLI: the megakernel by default, the stage pipeline
-with ``--no-megakernel`` (its hit searches in the hit kernels with
-``--pallas``). The path renderer's progressive state is checkpointed after
-every chunk of passes and on Ctrl-C, and ``--resume`` continues it (JAX
-checkpoints included). Flags for parts not ported yet raise.
+Same flags as the JAX CLI: the megakernel by default (kernel 1, in path
+or direct mode), the stage pipeline with ``--no-megakernel`` (its hit
+searches in the hit kernels with ``--pallas``); ``--renderer fake`` is the
+fake-shade sphere renderer (``render/simple.py``). The path renderer's
+progressive state is checkpointed after every chunk of passes and on
+Ctrl-C, and ``--resume`` continues it (JAX checkpoints included). Flags
+for parts not ported yet raise.
 """
 from __future__ import annotations
 
@@ -30,7 +34,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="builtin scene name (cornell, spheres)")
     p.add_argument("--renderer", default="path",
                    choices=["path", "direct", "fake"],
-                   help="pipeline; fake is not ported yet")
+                   help="pipeline: path tracing, direct lighting, or the "
+                        "fake-shade sphere renderer (Assign01/02)")
     p.add_argument("--width", type=int, default=320)
     p.add_argument("--height", type=int, default=240)
     p.add_argument("--spp", type=int, default=1,
@@ -98,12 +103,6 @@ def main(argv=None) -> int:
             print(f"[{i}] cuda: {pr.name} ({pr.multi_processor_count} SMs, "
                   f"{pr.total_memory / 2**30:.0f} GiB)")
         return 0
-    if args.renderer == "fake":
-        raise _not_ported("--renderer fake", 8)
-    if args.renderer == "direct" and not args.no_megakernel:
-        raise _not_ported("--renderer direct on the megakernel (kernel 1's "
-                          "direct mode; add --no-megakernel for the stage "
-                          "pipeline)", 8)
     if args.grid > 0:
         raise _not_ported("--grid", 11)
     if args.block:
@@ -133,6 +132,15 @@ def main(argv=None) -> int:
     print(f"device: {device.type} ({name})")
     print(f"  spheres: {scene.spheres.count}  triangles: "
           f"{scene.triangles.count}  lights: {scene.lights.count}")
+
+    if args.renderer == "fake":
+        from .render.simple import render_fake_shade
+        cam = replace(scene.camera, cols=args.width, rows=args.height)
+        sp = scene.spheres
+        colors = scene.materials[sp.mat_id.clamp(min=0).long()]
+        write_png(args.output, render_fake_shade(cam, sp, colors))
+        print(f"wrote {args.output}")
+        return 0
 
     if args.renderer == "direct":
         from .render.direct import render_direct

@@ -294,6 +294,22 @@ class Camera(_OnDevice):
                       w=torch.tensor([0.0, 0.0, 1.0], device=dev),
                       width=width, height=height, cols=cols, rows=rows)
 
+    def orbit(self, bounds: AABB, angle_deg) -> "Camera":
+        """The eye orbited around the bounds' centre in the xz plane at the
+        bounds' diagonal, looking at the centre (the JAX package's
+        ``Camera.orbit``; the reference's Camera.rotate)."""
+        center, diag = bounds.center, bounds.diagonal
+        rad = torch.deg2rad(torch.full((), float(angle_deg), dtype=F32,
+                                       device=center.device))
+        eye = center + diag * torch.stack([torch.sin(rad),
+                                           torch.zeros_like(rad),
+                                           torch.cos(rad)])
+        w = eye - center
+        w = w / torch.linalg.norm(w)
+        u = torch.linalg.cross(self.v, w)
+        u = u / torch.linalg.norm(u)
+        return replace(self, eye=eye, w=w, u=u)
+
 
 @dataclasses.dataclass(frozen=True)
 class Scene(_OnDevice):

@@ -3,9 +3,10 @@
 //
 // Replaces: raytracing_tpu/ops/pallas/megakernel.py::_render_pass_kernel
 // (launcher pathtrace_pass_pallas), path mode over resident tables with
-// u-planes or PRNG draws and spp >= 1, and its champion recording
-// (record=True) for the cell backward. Its other modes (Russian roulette,
-// direct, streamed chunks, grids, blocked layout) are not here.
+// u-planes or PRNG draws and spp >= 1, with or without Russian roulette,
+// its champion recording (record=True) for the cell backward, and its
+// direct mode (mode="direct", a kernel of its own below). Its other modes
+// (streamed chunks, grids, blocked layout) are not here.
 //
 // Per ray it runs the same schedule as the Pallas kernel: pixel decode from
 // the global ray id, film point -> focal point -> thin-lens ray, scene-AABB
@@ -161,11 +162,13 @@ __device__ __forceinline__ bool nee(const Tables& T, const Draws& D, int slot,
 // iteration: a lane whose path has ended starts its next pass at once
 // (path regeneration), so the lanes of a warp trace together whatever
 // their pass and depth. Each ray's passes and segments run in the order
-// of the schedule, so acc is what pass after pass would give.
-template <int kRows>
+// of the schedule, so acc is what pass after pass would give. kRR: Russian
+// roulette from depth rr_start on (a template parameter, so the build
+// without it keeps its registers and code).
+template <int kRows, bool kRR>
 __device__ void passes(const Tables& T, Draws& D, const Rec& R,
                        const uint32_t* keys, int n_passes, int rid_g,
-                       int spp, int width, int bounces,
+                       int spp, int width, int bounces, int rr_start,
                        bool normalize_emitter, Acc& A) {
   const int L = T.n_lig;
   const float eps = T.par[kEps];
@@ -188,7 +191,7 @@ __device__ void passes(const Tables& T, Draws& D, const Rec& R,
     if (fresh && spp > 1)
       lens_uv(D, samp, spp, u0, u1);
     else
-      D.pair(fresh ? 0 : bounce_slot(depth, L), u0, u1);
+      D.pair(fresh ? 0 : bounce_slot(depth, L, kRR), u0, u1);
     if (fresh) {
       camera_ray_uv(T.par, u0, u1, col, row, o, d, mint, maxt);
     } else {
@@ -214,11 +217,20 @@ __device__ void passes(const Tables& T, Draws& D, const Rec& R,
     }
     for (int li = 0; li < L; ++li)
       R.occ(depth * L + li,
-            nee<kRows>(T, D, nee_slot(depth, li, L), li, h, eps, A));
+            nee<kRows>(T, D, nee_slot(depth, li, L, kRR), li, h, eps, A));
     // a path without a valid hit stays dead: nothing more accumulates
-    if (depth < bounces && h.m >= 0.0f) continue;
-    // the dead path's remaining segments: a miss and no occlusion, as
-    // JAX's dead window (mint = maxt = inf) records them
+    bool more = depth < bounces && h.m >= 0.0f;
+    if (kRR && more && depth >= rr_start) {
+      V3 tp = mk(A.tr, A.tg, A.tb);
+      more = rr_survive(D, depth, L, tp);
+      A.tr = tp.x;
+      A.tg = tp.y;
+      A.tb = tp.z;
+    }
+    if (more) continue;
+    // the dead path's remaining segments (ended by a miss or by the
+    // roulette): a miss and no occlusion, as JAX's dead window (mint =
+    // maxt = inf) records them
     if (R.ids != nullptr) {
       for (int s = depth + 1; s <= bounces; ++s) {
         R.id(s, -1);
@@ -244,6 +256,7 @@ struct Params {
   int n_passes;
   uint32_t keys[2 * kMaxPasses];  // pass keys of the PRNG route
   int spp, width, bounces;
+  int rr_start;    // first depth of the roulette (kernel with kRR)
   int two_sided, normalize_emitter;
   int* ids;        // (1 + bounces, n_rays) or nullptr: not recording
   uint8_t* occs;   // ((1 + bounces) * n_lig, n_rays) or nullptr
@@ -251,8 +264,9 @@ struct Params {
 
 // Params is __grid_constant__: the per-pass key reads index the parameter
 // block in place instead of copying it to each thread's stack.
-// kRows: sphere rows per iteration of the object loops (pathtrace.cuh)
-template <int kRows>
+// kRows: sphere rows per iteration of the object loops (pathtrace.cuh);
+// kRR: Russian roulette
+template <int kRows, bool kRR>
 __global__ void __launch_bounds__(kBlock)
     pathtrace_kernel(const __grid_constant__ Params p) {
   extern __shared__ float4 smem4[];  // 16-byte aligned
@@ -265,7 +279,7 @@ __global__ void __launch_bounds__(kBlock)
   if (rid >= p.n_rays) return;
 
   const int rid_g = rid + p.ray_offset;
-  const int n_draws = n_draws_of(p.n_lig, p.bounces);
+  const int n_draws = n_draws_of(p.n_lig, p.bounces, kRR);
   Draws D;
   D.u = p.u;
   D.n_rays = p.n_rays;
@@ -283,30 +297,180 @@ __global__ void __launch_bounds__(kBlock)
   A.r = a[0];
   A.g = a[1];
   A.b = a[2];
-  passes<kRows>(T, D, R, p.u == nullptr ? p.keys : nullptr, p.n_passes,
-                rid_g, p.spp, p.width, p.bounces, p.normalize_emitter != 0,
-                A);
+  passes<kRows, kRR>(T, D, R, p.u == nullptr ? p.keys : nullptr,
+                     p.n_passes, rid_g, p.spp, p.width, p.bounces,
+                     p.rr_start, p.normalize_emitter != 0, A);
   a[0] = A.r;
   a[1] = A.g;
   a[2] = A.b;
+}
+
+// ---------------------------------------------------------------------------
+// Direct mode (JAX's mode="direct", megakernel.py:1362-1401): per pass and
+// ray the primary hit, then per light a concentric disk sample, a shadow
+// ray and albedo * clip(ambient + (occluded ? 0 : cos), 0, 1). No emitter
+// term, no throughput, no bounce; K passes per launch, acc in registers.
+// A kernel of its own, so path mode's loop pays nothing for it.
+//
+// Draws, in u_planes_for_direct's layout: slot 0 the lens (unused at
+// spp > 1), slot 1 + li light li. The PRNG route makes what the stage
+// route's render_direct draws: pass p of a call keyed by k_p = key (a
+// call of one pass) or fold_in(key, p), the lens from uniform(draw_key(k_p,
+// LENS), (R, 2)) and light li from uniform(draw_key(k_p, LIGHT, 0, li),
+// (R, 2)), i.e. threefry of slot key j at counter 2 rid + c. Each block
+// derives the K (1 + L) slot keys of its launch into shared memory before
+// its rays start (four threefry blocks a key), so the host makes no key.
+//
+// What bounds it: instruction issue, as in path mode. A launch moves 24 B
+// of accumulator per ray; a cornell pass needs ~480 FP32 operations per
+// ray (chip_smoke.py's OPS_* count), 0.0076 ms per 1024^2 pass at 67
+// TFLOP/s, while it takes 0.073 ms per pass in 16-pass launches (one H100
+// 80GB HBM3, 700 W): the threefry draws (integer, not counted) and the
+// object loops' dependent loads set the pace. 56 registers, 20 B spilled.
+// ---------------------------------------------------------------------------
+
+constexpr uint32_t kLensTag = 0u, kLightTag = 1u;  // core/rng LENS, LIGHT
+
+// jax.random.fold_in: threefry2x32(key, (0, data)) is the new key.
+__device__ __forceinline__ void fold_in(uint32_t& k0, uint32_t& k1,
+                                        uint32_t data) {
+  uint32_t x0 = 0u, x1 = data;
+  threefry2x32(k0, k1, x0, x1);
+  k0 = x0;
+  k1 = x1;
+}
+
+// The direct draws of ray rid: u-planes (plane 2j + c, column rid) or
+// threefry of slot key j of pass k at counter 2 rid_g + c.
+struct DirectDraws {
+  const float* u;
+  int n_rays, rid;
+  const uint32_t* keys;  // shared memory: 2 words per (pass, slot)
+  int n_slots;           // 1 + n_lig
+  uint32_t base;         // 2 * rid_g
+  __device__ __forceinline__ void pair(int k, int j, float& u0,
+                                       float& u1) const {
+    if (u != nullptr) {
+      u0 = __ldg(u + static_cast<size_t>(2 * j) * n_rays + rid);
+      u1 = __ldg(u + static_cast<size_t>(2 * j + 1) * n_rays + rid);
+    } else {
+      const uint32_t* key = keys + 2 * (k * n_slots + j);
+      u0 = threefry_uniform(key[0], key[1], base);
+      u1 = threefry_uniform(key[0], key[1], base + 1u);
+    }
+  }
+};
+
+struct DirectParams {
+  const float* par;
+  const float* sph;
+  const float* tri;
+  const float* mat;
+  const float* lig;
+  int n_sph, n_tri, n_mat, n_lig;
+  float* acc;  // (n_rays, 3), read once and written once
+  int n_rays;
+  int ray_offset;
+  const float* u;  // (2 * (1 + n_lig), n_rays) or nullptr
+  uint32_t k0, k1;  // the call's key (PRNG route)
+  int first_pass;   // index of this launch's first pass in the call
+  int per_pass;     // 0: a call of one pass, drawn from the key itself
+  int n_passes;
+  int spp, width;
+  int two_sided;
+};
+
+template <int kRows>
+__global__ void __launch_bounds__(kBlock)
+    direct_kernel(const __grid_constant__ DirectParams p) {
+  extern __shared__ float4 smem4[];  // 16-byte aligned
+  float* smem = reinterpret_cast<float*>(smem4);
+  const Tables T = stage_tables(smem, p.par, p.sph, p.n_sph, p.tri, p.n_tri,
+                                p.mat, p.n_mat, p.lig, p.n_lig,
+                                p.two_sided != 0);
+  uint32_t* keys = reinterpret_cast<uint32_t*>(
+      smem + tables_floats(p.n_sph, p.n_tri, p.n_mat, p.n_lig));
+  const int n_slots = 1 + p.n_lig;
+  if (p.u == nullptr) {
+    for (int i = threadIdx.x; i < p.n_passes * n_slots; i += blockDim.x) {
+      const int k = i / n_slots;
+      const int j = i - k * n_slots;
+      uint32_t k0 = p.k0, k1 = p.k1;
+      if (p.per_pass) fold_in(k0, k1, static_cast<uint32_t>(p.first_pass + k));
+      fold_in(k0, k1, j == 0 ? kLensTag : kLightTag);  // draw_key(k, tag,
+      fold_in(k0, k1, 0u);                              //   0, light)
+      fold_in(k0, k1, j == 0 ? 0u : static_cast<uint32_t>(j - 1));
+      keys[2 * i] = k0;
+      keys[2 * i + 1] = k1;
+    }
+  }
+  __syncthreads();
+
+  const int rid = blockIdx.x * blockDim.x + threadIdx.x;
+  if (rid >= p.n_rays) return;
+  const int rid_g = rid + p.ray_offset;
+  DirectDraws D;
+  D.u = p.u;
+  D.n_rays = p.n_rays;
+  D.rid = rid;
+  D.keys = keys;
+  D.n_slots = n_slots;
+  D.base = 2u * static_cast<uint32_t>(rid_g);
+  int col, row, samp;
+  pixel_of(rid_g, p.spp, p.width, col, row, samp);
+  const float eps = T.par[kEps];
+  const float ambient = T.par[kAmbient];
+
+  float* a = p.acc + 3 * static_cast<size_t>(rid);
+  float ar = a[0], ag = a[1], ab = a[2];
+  for (int k = 0; k < p.n_passes; ++k) {
+    float u0, u1;
+    if (p.spp > 1)
+      stratified_uv(samp, p.spp, u0, u1);
+    else
+      D.pair(k, 0, u0, u1);
+    V3 o, d;
+    float mint, maxt;
+    camera_ray_uv(T.par, u0, u1, col, row, o, d, mint, maxt);
+    Hit h;
+    trace<kRows>(T, o, d, mint, maxt, h);
+    if (!(h.m >= 0.0f)) continue;
+    const V3 al = albedo(T, static_cast<int>(h.m));
+    for (int li = 0; li < p.n_lig; ++li) {
+      D.pair(k, 1 + li, u0, u1);
+      const Shadow s = shadow_ray_uv(T, u0, u1, li, h, eps);
+      const bool occ = anyhit<kRows>(T, s.so, s.sd, 0.0f, s.dist);
+      const float cosx = fminf(fmaxf(dot(s.sd, h.n), 0.0f), 1.0f);
+      const float shade =
+          fminf(fmaxf(ambient + (occ ? 0.0f : cosx), 0.0f), 1.0f);
+      ar = ar + al.x * shade;
+      ag = ag + al.y * shade;
+      ab = ab + al.z * shade;
+    }
+  }
+  a[0] = ar;
+  a[1] = ag;
+  a[2] = ab;
 }
 
 }  // namespace
 
 // C interface (bound with ctypes). `keys` is a HOST array of n_passes pass
 // keys (ignored with u_planes), copied into the launch's parameters.
-// Non-null `ids` (and `occs` when n_lig > 0) record the champions and the
-// occlusion bits of a one-pass launch. Launches on `stream`, allocates
-// nothing, does not synchronise; returns cudaGetLastError() after the
-// launch.
+// rr != 0: Russian roulette from depth rr_start_depth on (its draw slots in
+// the layout). Non-null `ids` (and `occs` when n_lig > 0) record the
+// champions and the occlusion bits of a one-pass launch. Launches on
+// `stream`, allocates nothing, does not synchronise; returns
+// cudaGetLastError() after the launch.
 extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
                                  const float* tri, int n_tri, const float* mat,
                                  int n_mat, const float* lig, int n_lig,
                                  float* acc, int n_rays, int ray_offset,
                                  const float* u_planes, const uint32_t* keys,
                                  int n_passes, int spp, int width, int bounces,
-                                 int two_sided, int normalize_emitter,
-                                 int* ids, uint8_t* occs, void* stream) {
+                                 int rr, int rr_start_depth, int two_sided,
+                                 int normalize_emitter, int* ids,
+                                 uint8_t* occs, void* stream) {
   if (n_passes < 1 || n_passes > kMaxPasses || (u_planes && n_passes != 1) ||
       (ids && n_passes != 1) || (!ids && occs) ||
       (ids && n_lig > 0 && !occs))
@@ -332,6 +496,7 @@ extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
   p.spp = spp;
   p.width = width;
   p.bounces = bounces;
+  p.rr_start = rr_start_depth;
   p.two_sided = two_sided;
   p.normalize_emitter = normalize_emitter;
   p.ids = ids;
@@ -340,8 +505,66 @@ extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
                                                     n_lig);
   // eight sphere rows per loop iteration for a long table, two for a short
   // one, where the wide loop's registers cost more occupancy than it saves
-  void (*kernel)(Params) = n_sph >= kWideSpheres ? pathtrace_kernel<8>
-                                                 : pathtrace_kernel<2>;
+  const bool wide = n_sph >= kWideSpheres;
+  void (*kernel)(Params) =
+      rr ? (wide ? pathtrace_kernel<8, true> : pathtrace_kernel<2, true>)
+         : (wide ? pathtrace_kernel<8, false> : pathtrace_kernel<2, false>);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int grid = (n_rays + kBlock - 1) / kBlock;
+  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C interface of direct mode (bound with ctypes): n_passes passes into acc.
+// (k0, k1) is the call's key (ignored with u_planes); this launch runs
+// passes first_pass ... first_pass + n_passes - 1 of the call, each keyed
+// by fold_in(key, pass) when per_pass != 0, by the key itself otherwise (a
+// call of one pass). Launches on `stream`, allocates nothing, does not
+// synchronise; returns cudaGetLastError() after the launch.
+extern "C" int rt_direct_pass(const float* par, const float* sph, int n_sph,
+                              const float* tri, int n_tri, const float* mat,
+                              int n_mat, const float* lig, int n_lig,
+                              float* acc, int n_rays, int ray_offset,
+                              const float* u_planes, unsigned int k0,
+                              unsigned int k1, int first_pass, int per_pass,
+                              int n_passes, int spp, int width, int two_sided,
+                              void* stream) {
+  if (n_passes < 1 || n_passes > kMaxPasses || first_pass < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
+  DirectParams p;
+  p.par = par;
+  p.sph = sph;
+  p.tri = tri;
+  p.mat = mat;
+  p.lig = lig;
+  p.n_sph = n_sph;
+  p.n_tri = n_tri;
+  p.n_mat = n_mat;
+  p.n_lig = n_lig;
+  p.acc = acc;
+  p.n_rays = n_rays;
+  p.ray_offset = ray_offset;
+  p.u = u_planes;
+  p.k0 = k0;
+  p.k1 = k1;
+  p.first_pass = first_pass;
+  p.per_pass = per_pass;
+  p.n_passes = n_passes;
+  p.spp = spp;
+  p.width = width;
+  p.two_sided = two_sided;
+  // the tables, then the slot keys of the launch's passes
+  const size_t smem =
+      sizeof(float) * tables_floats(n_sph, n_tri, n_mat, n_lig) +
+      (u_planes ? 0 : 2 * sizeof(uint32_t) * n_passes * (1 + n_lig));
+  void (*kernel)(DirectParams) = n_sph >= kWideSpheres ? direct_kernel<8>
+                                                       : direct_kernel<2>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

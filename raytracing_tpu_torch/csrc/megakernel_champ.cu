@@ -3,8 +3,8 @@
 // from kernel 1's record of the pass, without sweeping the tables.
 //
 // Replaces: raytracing_tpu/ops/pallas/megakernel_grad.py::_bwd_champ_kernel
-// (launcher _bwd_champ_pallas), path mode, u-planes or PRNG draws,
-// spp >= 1. It computes what jax.vjp of _tile_program_champ gives
+// (launcher _bwd_champ_pallas), path mode with or without Russian
+// roulette, u-planes or PRNG draws, spp >= 1. It computes what jax.vjp of _tile_program_champ gives
 // (_bwd_champion): the hard gradient flows only through each trace
 // segment's champion row, and occlusion is a recorded constant. So once
 // kernel 1 has recorded each segment's champion (sphere i, n_sph +
@@ -135,11 +135,14 @@ struct Rec {
 
 // The whole champion adjoint of ray rid_g for acc cotangent g;
 // warp-uniform (every lane calls it, `active` false for a lane without a
-// ray).
+// ray). kRR: the pass played Russian roulette from depth rr_start on (JAX's
+// _tile_program_champ runs _tile_program's schedule, the roulette
+// included).
+template <bool kRR>
 __device__ void ray_adjoint_champ(const Tables& T, const Draws& D,
                                   const Rec& R, bool active, int rid_g,
-                                  int spp, int width,
-                                  int bounces, bool normalize_emitter, V3 g,
+                                  int spp, int width, int bounces,
+                                  int rr_start, bool normalize_emitter, V3 g,
                                   const Grads& G, const Tape& tape,
                                   float (&gp)[kNPar]) {
   const int L = T.n_lig;
@@ -177,8 +180,11 @@ __device__ void ray_adjoint_champ(const Tables& T, const Draws& D,
       tape.put(s, q);
       nseg = s + 1;
       if (s == bounces) break;
+      // the roulette as the forward played it (the record holds misses
+      // after a path it ended)
+      if (kRR && s >= rr_start && !rr_survive(D, s, L, tp)) break;
       float cx, cy, cz;
-      bounce_ray(D, bounce_slot(s, L), h, eps, cx, cy, cz, o, d);
+      bounce_ray(D, bounce_slot(s, L, kRR), h, eps, cx, cy, cz, o, d);
       champ_trace(T, o, d, 0.0f, inf_f(), R.id(s + 1), h);
     }
   }
@@ -186,7 +192,8 @@ __device__ void ray_adjoint_champ(const Tables& T, const Draws& D,
   if (G.wrt & kWLig)
     add_row3(G.lig + max(emit, 0) * kLig + (normalize_emitter ? 9 : 6), emit,
              g);
-  reverse_sweep(T, D, tape, nseg, col, row, samp, spp, g, G, gp);
+  reverse_sweep<kRR>(T, D, tape, nseg, col, row, samp, spp, rr_start, g, G,
+                     gp);
 }
 
 struct Params {
@@ -204,6 +211,7 @@ struct Params {
   const float* u;  // (2 * n_draws, n_rays) or nullptr
   uint32_t k0, k1;  // pass key of the PRNG route
   int spp, width, bounces;
+  int rr_start;  // first depth of the roulette (kernel with kRR)
   int two_sided, normalize_emitter;
   int wrt;
   float* dpar;
@@ -222,6 +230,7 @@ __device__ __forceinline__ void flush(float* dst, const float* src, int n) {
     if (src[i] != 0.0f) atomicAdd(dst + i, src[i]);
 }
 
+template <bool kRR>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
     pathtrace_bwd_champ_kernel(const __grid_constant__ Params p) {
   extern __shared__ float4 smem4[];  // 16-byte aligned
@@ -261,7 +270,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   G.lig = g_lig;
   G.wrt = p.wrt;
 
-  const int n_draws = n_draws_of(p.n_lig, p.bounces);
+  const int n_draws = n_draws_of(p.n_lig, p.bounces, kRR);
   float gp[kNPar];
 #pragma unroll
   for (int i = 0; i < kNPar; ++i) gp[i] = 0.0f;
@@ -290,8 +299,9 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
     R.occs = p.occs;
     R.n_rays = p.n_rays;
     R.rid = rid;
-    ray_adjoint_champ(T, D, R, active, rid_g, p.spp, p.width, p.bounces,
-                      p.normalize_emitter != 0, g, G, tape, gp);
+    ray_adjoint_champ<kRR>(T, D, R, active, rid_g, p.spp, p.width,
+                           p.bounces, p.rr_start, p.normalize_emitter != 0,
+                           g, G, tape, gp);
   }
   if (p.wrt & kWPar) add_par(g_par, gp);
   __syncthreads();
@@ -308,7 +318,8 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
 // 2 sph, 4 tri, 8 mat, 16 lig). `ids` (1 + bounces, n_rays) int32 and
 // `occs` ((1 + bounces) * n_lig, n_rays) bytes are kernel 1's record of
 // the same pass (occs may be null when n_lig == 0). (k0, k1) is the pass
-// key of the PRNG route (ignored with u_planes). Launches on `stream`,
+// key of the PRNG route (ignored with u_planes). rr != 0: the pass played
+// Russian roulette from depth rr_start_depth on. Launches on `stream`,
 // allocates nothing, does not synchronise; returns cudaGetLastError()
 // after the launch.
 extern "C" int rt_pathtrace_bwd_champ(
@@ -316,9 +327,9 @@ extern "C" int rt_pathtrace_bwd_champ(
     int n_tri, const float* mat, int n_mat, const float* lig, int n_lig,
     const float* g, const int* ids, const uint8_t* occs, int n_rays,
     int ray_offset, const float* u_planes, unsigned int k0, unsigned int k1,
-    int spp, int width, int bounces, int two_sided, int normalize_emitter,
-    int wrt, float* dpar, float* dsph, float* dtri, float* dmat, float* dlig,
-    void* stream) {
+    int spp, int width, int bounces, int rr, int rr_start_depth,
+    int two_sided, int normalize_emitter, int wrt, float* dpar, float* dsph,
+    float* dtri, float* dmat, float* dlig, void* stream) {
   if (bounces < 0 || bounces >= kMaxSeg || n_lig > kMaxLights ||
       ids == nullptr || (n_lig > 0 && occs == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -344,6 +355,7 @@ extern "C" int rt_pathtrace_bwd_champ(
   p.spp = spp;
   p.width = width;
   p.bounces = bounces;
+  p.rr_start = rr_start_depth;
   p.two_sided = two_sided;
   p.normalize_emitter = normalize_emitter;
   p.wrt = wrt;
@@ -355,17 +367,19 @@ extern "C" int rt_pathtrace_bwd_champ(
   const size_t smem =
       2 * sizeof(float) * (kParPad + kMat * n_mat + kLig * n_lig) +
       tape_bytes(bounces, kBlock);
+  void (*kernel)(Params) = rr ? pathtrace_bwd_champ_kernel<true>
+                              : pathtrace_bwd_champ_kernel<false>;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess && smem > 48 * 1024)
-    err = cudaFuncSetAttribute(pathtrace_bwd_champ_kernel,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, pathtrace_bwd_champ_kernel, kBlock, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kBlock, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   // a grid-stride loop over a grid the card holds at once: each block
   // flushes its mat / lig / par buffers once
@@ -373,7 +387,6 @@ extern "C" int rt_pathtrace_bwd_champ(
                          kBlock;
   const long long fit = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   const int grid = static_cast<int>(need < fit ? need : fit);
-  pathtrace_bwd_champ_kernel<<<grid, kBlock, smem,
-                               static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,8 @@
 //
 // Replaces: raytracing_tpu/ops/pallas/megakernel_grad.py::_bwd_kernel
 // (launcher _bwd_pallas), hard route (soft_bandwidth == 0) over unrolled
-// tables, path mode, u-planes or PRNG draws, spp >= 1. It computes what
+// tables, path mode with or without Russian roulette, u-planes or PRNG
+// draws, spp >= 1. It computes what
 // jax.vjp of _tile_program gives: cotangents of par (26,), sph (S, 8),
 // tri (T, 32), mat (M, 4) and lig (L, 20). The soft (edge-aware) route is
 // not here.
@@ -55,7 +56,12 @@
 // cornell 1024^2 b5 ("sph", "mat") on the training step's cotangent (6.4
 // ms before), 3.2 ms with all five groups (11.6 ms before); about 3x
 // kernel 1's pass over the same rays, from the replay, the sweep's
-// recomputed draws and its divergent adjoint branches. Float atomics and
+// recomputed draws and its divergent adjoint branches. With Russian
+// roulette (the kRR instance) 2.11 ms: +0.08 ms for the instance's code
+// with the roulette never played, +0.09 ms for the sweep's rr_adj, +0.11
+// ms for the replay's roulette draws and ends (ablation copies timed with
+// profile_kernels); the paths it ends save nothing here, since the
+// warp-uniform sweep walks every lane to its warp's longest path. Float atomics and
 // the shuffle sums make the results depend on order: they agree with the
 // plain version to float tolerance, never bitwise.
 
@@ -76,11 +82,14 @@ constexpr int kBlock = 128;
 constexpr int kMinBlocks = 4;
 
 // The whole adjoint of ray rid_g for acc cotangent g; warp-uniform (every
-// lane calls it, `active` false for a lane without a ray).
+// lane calls it, `active` false for a lane without a ray). kRR: the pass
+// plays Russian roulette from depth rr_start on.
+template <bool kRR>
 __device__ void ray_adjoint(const Tables& T, const Draws& D, bool active,
                             int rid_g, int spp, int width, int bounces,
-                            bool normalize_emitter, V3 g, const Grads& G,
-                            const Tape& tape, float (&gp)[kNPar]) {
+                            int rr_start, bool normalize_emitter, V3 g,
+                            const Grads& G, const Tape& tape,
+                            float (&gp)[kNPar]) {
   const int L = T.n_lig;
   const float eps = T.par[kEps];
   int col = 0, row = 0, samp = 0;
@@ -110,15 +119,19 @@ __device__ void ray_adjoint(const Tables& T, const Draws& D, bool active,
       q.occ = 0u;
       const V3 al = albedo(T, q.m);
       for (int li = 0; li < L; ++li) {
-        const Shadow sh = shadow_ray(T, D, nee_slot(s, li, L), li, h, eps);
+        const Shadow sh =
+            shadow_ray(T, D, nee_slot(s, li, L, kRR), li, h, eps);
         if (anyhit(T, sh.so, sh.sd, 0.0f, sh.dist)) q.occ |= 1u << li;
         tp = mk(tp.x * al.x, tp.y * al.y, tp.z * al.z);
       }
       tape.put(s, q);
       nseg = s + 1;
       if (s == bounces) break;
+      // the roulette as the forward plays it; a path it ends has no more
+      // segments
+      if (kRR && s >= rr_start && !rr_survive(D, s, L, tp)) break;
       float cx, cy, cz;
-      bounce_ray(D, bounce_slot(s, L), h, eps, cx, cy, cz, o, d);
+      bounce_ray(D, bounce_slot(s, L, kRR), h, eps, cx, cy, cz, o, d);
       trace(T, o, d, 0.0f, inf_f(), h);
     }
   }
@@ -126,7 +139,8 @@ __device__ void ray_adjoint(const Tables& T, const Draws& D, bool active,
   if (G.wrt & kWLig)
     add_row3(G.lig + max(emit, 0) * kLig + (normalize_emitter ? 9 : 6), emit,
              g);
-  reverse_sweep(T, D, tape, nseg, col, row, samp, spp, g, G, gp);
+  reverse_sweep<kRR>(T, D, tape, nseg, col, row, samp, spp, rr_start, g, G,
+                     gp);
 }
 
 struct Params {
@@ -142,6 +156,7 @@ struct Params {
   const float* u;  // (2 * n_draws, n_rays) or nullptr
   uint32_t k0, k1;  // pass key of the PRNG route
   int spp, width, bounces;
+  int rr_start;  // first depth of the roulette (kernel with kRR)
   int two_sided, normalize_emitter;
   int wrt;
   float* dpar;
@@ -160,6 +175,7 @@ __device__ __forceinline__ void flush(float* dst, const float* src, int n) {
     if (src[i] != 0.0f) atomicAdd(dst + i, src[i]);
 }
 
+template <bool kRR>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
     pathtrace_bwd_kernel(const __grid_constant__ Params p) {
   extern __shared__ float4 smem4[];  // 16-byte aligned
@@ -187,7 +203,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   G.lig = g_lig;
   G.wrt = p.wrt;
 
-  const int n_draws = n_draws_of(p.n_lig, p.bounces);
+  const int n_draws = n_draws_of(p.n_lig, p.bounces, kRR);
   float gp[kNPar];
 #pragma unroll
   for (int i = 0; i < kNPar; ++i) gp[i] = 0.0f;
@@ -211,8 +227,8 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
     D.k0 = p.k0;
     D.k1 = p.k1;
     D.base = static_cast<uint32_t>(rid_g) * static_cast<uint32_t>(2 * n_draws);
-    ray_adjoint(T, D, active, rid_g, p.spp, p.width, p.bounces,
-                p.normalize_emitter != 0, g, G, tape, gp);
+    ray_adjoint<kRR>(T, D, active, rid_g, p.spp, p.width, p.bounces,
+                     p.rr_start, p.normalize_emitter != 0, g, G, tape, gp);
   }
   if (p.wrt & kWPar) add_par(g_par, gp);
   __syncthreads();
@@ -229,7 +245,8 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
 // dpar (26,), dsph (S, 8), dtri (T, 32), dmat (M, 4), dlig (L, 20), which
 // the caller zeroes; `wrt` is a bit set of the groups to compute (1 par,
 // 2 sph, 4 tri, 8 mat, 16 lig). (k0, k1) is the pass key of the PRNG
-// route (ignored with u_planes). Launches on `stream`, allocates nothing,
+// route (ignored with u_planes). rr != 0: the pass played Russian roulette
+// from depth rr_start_depth on. Launches on `stream`, allocates nothing,
 // does not synchronise; returns cudaGetLastError() after the launch.
 extern "C" int rt_pathtrace_bwd(const float* par, const float* sph, int n_sph,
                                 const float* tri, int n_tri, const float* mat,
@@ -237,10 +254,10 @@ extern "C" int rt_pathtrace_bwd(const float* par, const float* sph, int n_sph,
                                 const float* g, int n_rays, int ray_offset,
                                 const float* u_planes, unsigned int k0,
                                 unsigned int k1, int spp, int width,
-                                int bounces, int two_sided,
-                                int normalize_emitter, int wrt, float* dpar,
-                                float* dsph, float* dtri, float* dmat,
-                                float* dlig, void* stream) {
+                                int bounces, int rr, int rr_start_depth,
+                                int two_sided, int normalize_emitter, int wrt,
+                                float* dpar, float* dsph, float* dtri,
+                                float* dmat, float* dlig, void* stream) {
   if (bounces < 0 || bounces >= kMaxSeg || n_lig > kMaxLights)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0 || wrt == 0) return static_cast<int>(cudaGetLastError());
@@ -263,6 +280,7 @@ extern "C" int rt_pathtrace_bwd(const float* par, const float* sph, int n_sph,
   p.spp = spp;
   p.width = width;
   p.bounces = bounces;
+  p.rr_start = rr_start_depth;
   p.two_sided = two_sided;
   p.normalize_emitter = normalize_emitter;
   p.wrt = wrt;
@@ -274,17 +292,19 @@ extern "C" int rt_pathtrace_bwd(const float* par, const float* sph, int n_sph,
   const size_t smem =
       2 * sizeof(float) * tables_floats(n_sph, n_tri, n_mat, n_lig) +
       tape_bytes(bounces, kBlock);
+  void (*kernel)(Params) =
+      rr ? pathtrace_bwd_kernel<true> : pathtrace_bwd_kernel<false>;
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess && smem > 48 * 1024)
-    err = cudaFuncSetAttribute(pathtrace_bwd_kernel,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, pathtrace_bwd_kernel, kBlock, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kBlock, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   // a grid-stride loop over a grid the card holds at once: each block
   // flushes its gradient buffers once
@@ -292,7 +312,6 @@ extern "C" int rt_pathtrace_bwd(const float* par, const float* sph, int n_sph,
                          kBlock;
   const long long fit = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   const int grid = static_cast<int>(need < fit ? need : fit);
-  pathtrace_bwd_kernel<<<grid, kBlock, smem,
-                         static_cast<cudaStream_t>(stream)>>>(p);
+  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

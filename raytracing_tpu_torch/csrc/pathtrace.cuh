@@ -24,7 +24,7 @@ constexpr int kLig = 20;
 // par layout (the JAX kernel's _PAR)
 constexpr int kEye = 0, kU = 3, kV = 6, kW = 9, kFilmW = 12, kFilmH = 13,
               kCols = 14, kRows = 15, kFocal = 16, kLensR = 17, kPmin = 18,
-              kPmax = 21, kEps = 24;
+              kPmax = 21, kEps = 24, kAmbient = 25;
 constexpr float kPi4 = 0.785398163397448309616f;
 constexpr float kPi2 = 1.57079632679489661923f;
 
@@ -147,19 +147,46 @@ struct Draws {
       u1 = threefry_uniform(k0, k1, c + 1u);
     }
   }
+  // u0 of slot j alone (Russian roulette reads no u1)
+  __device__ __forceinline__ float first(int j) const {
+    if (u != nullptr)
+      return __ldg(u + static_cast<size_t>(2 * j) * n_rays + rid);
+    return threefry_uniform(k0, k1, base + 2u * static_cast<uint32_t>(j));
+  }
 };
 
-// Draw slots of one pass: lens, NEE per light, then per depth: bounce and
-// NEE per light. Segment s (the primary hit is segment 0) draws its NEE
-// sample of light li at nee_slot(s, li) and its bounce at bounce_slot(s).
-__device__ __forceinline__ int n_draws_of(int n_lig, int bounces) {
-  return 1 + n_lig + bounces * (1 + n_lig);
+// Draw slots of one pass, in JAX's order (megakernel_grad.n_draw_pairs):
+// lens, NEE per light, then per depth: [rr], bounce, NEE per light, where
+// rr (0 or 1) is the Russian-roulette slot of a pass with Russian roulette.
+// Segment s (the primary hit is segment 0) draws its NEE sample of light li
+// at nee_slot(s, li), its roulette (u0 only) at rr_slot(s) and its bounce
+// at bounce_slot(s). With rr = 0 these are the slots of a pass without
+// Russian roulette.
+__device__ __forceinline__ int n_draws_of(int n_lig, int bounces, int rr) {
+  return 1 + n_lig + bounces * (1 + n_lig + rr);
 }
-__device__ __forceinline__ int nee_slot(int s, int li, int n_lig) {
-  return s * (1 + n_lig) + 1 + li;
+__device__ __forceinline__ int nee_slot(int s, int li, int n_lig, int rr) {
+  return s * (1 + n_lig + rr) + 1 + li;
 }
-__device__ __forceinline__ int bounce_slot(int s, int n_lig) {
-  return (s + 1) * (1 + n_lig);
+__device__ __forceinline__ int rr_slot(int s, int n_lig) {
+  return 1 + n_lig + s * (2 + n_lig);
+}
+__device__ __forceinline__ int bounce_slot(int s, int n_lig, int rr) {
+  return 1 + n_lig + s * (1 + n_lig + rr) + rr;
+}
+
+// Russian roulette after segment s's NEE, as JAX's _render_pass_kernel
+// plays it: the path survives with p = clip(max(tp), 0.05, 1) when u0 of
+// slot rr_slot(s) is below p, and its throughput is then scaled by 1 / p;
+// returns false when the path ends. The adjoints replay it bit for bit (a
+// product and a division, no multiply-add to contract).
+__device__ __forceinline__ bool rr_survive(const Draws& D, int s, int n_lig,
+                                           V3& tp) {
+  const float p = fminf(fmaxf(fmaxf(tp.x, fmaxf(tp.y, tp.z)), 0.05f), 1.0f);
+  if (!(D.first(rr_slot(s, n_lig)) < p)) return false;
+  const float inv_p = 1.0f / p;
+  tp = mk(tp.x * inv_p, tp.y * inv_p, tp.z * inv_p);
+  return true;
 }
 
 // The discriminant of sphere row s for ray (o, d) with a = d.d: b = 2 m.d,
@@ -335,19 +362,24 @@ __device__ __forceinline__ void pixel_of(int rid_g, int spp, int width,
   col = pix - row * width;
 }
 
+// The stratified lens-cell centre of sub-sample samp at spp = k^2 > 1.
+__device__ __forceinline__ void stratified_uv(int samp, int spp, float& u0,
+                                              float& u1) {
+  const int k = static_cast<int>(sqrtf(static_cast<float>(spp)) + 0.5f);
+  const int si = samp / k;
+  const int sj = samp - si * k;
+  u0 = (static_cast<float>(sj) + 0.5f) / static_cast<float>(k);
+  u1 = (static_cast<float>(si) + 0.5f) / static_cast<float>(k);
+}
+
 // Lens sample: spp > 1 uses the stratified lens-cell centre and leaves
 // draw slot 0 unused.
 __device__ __forceinline__ void lens_uv(const Draws& D, int samp, int spp,
                                         float& u0, float& u1) {
-  if (spp > 1) {
-    const int k = static_cast<int>(sqrtf(static_cast<float>(spp)) + 0.5f);
-    const int si = samp / k;
-    const int sj = samp - si * k;
-    u0 = (static_cast<float>(sj) + 0.5f) / static_cast<float>(k);
-    u1 = (static_cast<float>(si) + 0.5f) / static_cast<float>(k);
-  } else {
+  if (spp > 1)
+    stratified_uv(samp, spp, u0, u1);
+  else
     D.pair(0, u0, u1);
-  }
 }
 
 // Primary ray of pixel (col, row) for lens sample (u0, u1): film point ->
@@ -433,13 +465,11 @@ struct Shadow {
   V3 so, dl, sd;
   float dist;
 };
-__device__ __forceinline__ Shadow shadow_ray(const Tables& T, const Draws& D,
-                                             int slot, int li, const Hit& h,
-                                             float eps) {
+__device__ __forceinline__ Shadow shadow_ray_uv(const Tables& T, float u0,
+                                                float u1, int li,
+                                                const Hit& h, float eps) {
   const float* l = T.lig + li * kLig;
   Shadow s;
-  float u0, u1;
-  D.pair(slot, u0, u1);
   concentric(u0, u1, s.sx, s.sy);
   const float rad = l[12];
   const float sx = s.sx * rad;
@@ -451,6 +481,13 @@ __device__ __forceinline__ Shadow shadow_ray(const Tables& T, const Draws& D,
   s.dist = d2 > 0.0f ? sqrtf(d2) : 0.0f;
   s.sd = normalize(s.dl);
   return s;
+}
+__device__ __forceinline__ Shadow shadow_ray(const Tables& T, const Draws& D,
+                                             int slot, int li, const Hit& h,
+                                             float eps) {
+  float u0, u1;
+  D.pair(slot, u0, u1);
+  return shadow_ray_uv(T, u0, u1, li, h, eps);
 }
 
 // The cosine bounce from hit h for the draw (u0, u1): disk sample (cx, cy)

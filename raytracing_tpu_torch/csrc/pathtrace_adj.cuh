@@ -213,6 +213,31 @@ __host__ __device__ inline size_t tape_bytes(int bounces, int threads) {
          threads;
 }
 
+// Adjoint of Russian roulette's tp' = tp * (1 / p), p = clip(max(tp), 0.05,
+// 1) (rr_survive, on a path that survived): from the cotangent gy of tp'
+// to that of tp. dp/dtp follows JAX's rule at ties, which decides the main
+// path (cornell's white and yellow albedos make tied channels common):
+// jnp.maximum gives each of two equal arguments half the cotangent, and
+// jnp.clip, a minimum of a maximum, half at a bound. So max(x, max(y, z))
+// at x = y = z splits as (1/2, 1/4, 1/4).
+__device__ __forceinline__ V3 rr_adj(V3 tp, V3 gy) {
+  auto half = [](float a, float b) {  // d max(a, b) / da
+    return a > b ? 1.0f : (a == b ? 0.5f : 0.0f);
+  };
+  const float m12 = fmaxf(tp.y, tp.z);
+  const float m = fmaxf(tp.x, m12);
+  const float lo = fmaxf(m, 0.05f);
+  const float inv_p = 1.0f / fminf(lo, 1.0f);
+  // dp/dm through max(m, 0.05) and min(lo, 1)
+  const float dp = half(m, 0.05f) * half(1.0f, lo);
+  const float w12 = half(m12, tp.x);
+  // inv_p = 1 / p: d inv_p / dp = -inv_p^2
+  const float gm = -dot(gy, tp) * inv_p * inv_p * dp;
+  return mk(gy.x * inv_p + gm * half(tp.x, m12),
+            gy.y * inv_p + gm * w12 * half(tp.y, tp.z),
+            gy.z * inv_p + gm * w12 * half(tp.z, tp.y));
+}
+
 // Surface of a tape segment: hit point, unnormalised and unit normal.
 __device__ __forceinline__ void surface(const Tables& T, const Seg& q, V3& hp,
                                         V3& nraw, V3& hn) {
@@ -414,15 +439,18 @@ __device__ void camera_adj(const float* P, const Draws& D, int col, int row,
 
 // The reverse sweep over a tape of nseg segments (segment 0 is the
 // primary hit) for the accumulator cotangent g: per segment in reverse,
-// the next segment's origin and direction through the bounce, the NEE
-// terms and the albedo, then the closest hit into its champion row; last
-// the camera chain into gp. Nothing here depends on how the tape was
-// filled. Warp-uniform: every lane of the warp calls it (nseg = 0 for a
-// lane without a path) and walks segments max(nseg) - 1 ... 0 under the
+// the next segment's origin and direction through the bounce, the
+// roulette's 1 / p (kRR, from depth rr_start on), the NEE terms and the
+// albedo, then the closest hit into its champion row; last the camera
+// chain into gp. Nothing here depends on how the tape was filled.
+// Warp-uniform: every lane of the warp calls it (nseg = 0 for a lane
+// without a path) and walks segments max(nseg) - 1 ... 0 under the
 // predicate s < nseg, so all lanes reach every row add together.
+template <bool kRR>
 __device__ void reverse_sweep(const Tables& T, const Draws& D, const Tape& tape,
                               int nseg, int col, int row, int samp, int spp,
-                              V3 g, const Grads& G, float (&gp)[kNPar]) {
+                              int rr_start, V3 g, const Grads& G,
+                              float (&gp)[kNPar]) {
   const int L = T.n_lig;
   const float eps = T.par[kEps];
   const bool geo = (G.wrt & (kWPar | kWSph | kWTri)) != 0;
@@ -445,13 +473,20 @@ __device__ void reverse_sweep(const Tables& T, const Draws& D, const Tape& tape,
       // o' = hp + eps hn, d' = normalize(cx t + cy b + cz hn)
       float cx, cy, cz;
       V3 o2, d2, tx, bx;
-      bounce_ray(D, bounce_slot(s, L), hq, eps, cx, cy, cz, o2, d2);
+      bounce_ray(D, bounce_slot(s, L, kRR), hq, eps, cx, cy, cz, o2, d2);
       tangent_frame(hn, tx, bx);
       const V3 gdr = normalize_adj(cx * tx + cy * bx + cz * hn, gd_n);
       ghn = ghn + cz * gdr + tangent_frame_adj(hn, cx * gdr, cy * gdr);
       ghp = ghp + go_n;
       ghn = ghn + eps * go_n;
       gp[kEps] += dot(go_n, hn);
+    }
+    if (kRR && live && s + 1 < nseg && s >= rr_start) {
+      // segment s + 1 started from the throughput the roulette scaled:
+      // gtp (of that) -> the cotangent of the throughput after the NEE
+      V3 x = q.tp;
+      for (int li = 0; li < L; ++li) x = mk(x.x * al.x, x.y * al.y, x.z * al.z);
+      gtp = rr_adj(x, gtp);
     }
     // NEE terms in reverse light order
     for (int li = L - 1; li >= 0; --li) {
@@ -465,7 +500,8 @@ __device__ void reverse_sweep(const Tables& T, const Draws& D, const Tape& tape,
           tpb = mk(tpb.x * al.x, tpb.y * al.y, tpb.z * al.z);
         const bool free = ((q.occ >> li) & 1u) == 0u;
         float geom = 0.0f;
-        const Shadow sh = shadow_ray(T, D, nee_slot(s, li, L), li, hq, eps);
+        const Shadow sh =
+            shadow_ray(T, D, nee_slot(s, li, L, kRR), li, hq, eps);
         const V3 lp = ld3(l), ln = ld3(l + 3), irr = ld3(l + 6);
         const V3 qv = hp - lp;
         const float r2 = dot(qv, qv);

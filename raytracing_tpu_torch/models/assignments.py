@@ -1,0 +1,214 @@
+"""The reference's ten-assignment progression as ready-to-run model configs
+(``raytracing_tpu.models.assignments``).
+
+Each ``assignNN()`` returns ``(render_fn, args, cfg)`` such that
+``render_fn(*args)`` gives an (H, W, 3) float image of that assignment's
+capability:
+
+  01  one sphere, primary rays, fake depth shade
+  02  PDB molecule spheres, closest hit, CPK colours
+  03  wavefront split: ray generation and trace as two stages
+  04  triangle mesh + spheres through a shared maxt, direct shade
+  05  AABB-gated traversal (scene-bounds ray clip): 04's pipeline
+  06  1-D slab grid, 07  3-D uniform grid: not ported yet (ROADMAP Queue 1
+      item 11) and raise
+  08  shadow rays, ambient + cosine shade (direct mode of kernel 1)
+  09  thin-lens camera, stratified lens sampling (direct mode of kernel 1)
+  10  progressive Monte Carlo path tracing (kernel 1)
+
+Scenes are built on ``device`` (default: the card; tests pass "cpu", where
+the kernels' plain versions run). Reference data files (PDB molecules, XML
+scenes) are read from the directory named by the environment variable
+``RT_REFERENCE_DIR`` when it is set and holds them; otherwise the
+programmatic scenes of ``models/scenes.py`` stand in, as in the JAX package
+when its reference directory is absent. XML scenes are not ported yet
+(ROADMAP Queue 1 item 15) and raise.
+"""
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from ..core.config import RenderConfig
+from ..core.types import AABB, Camera, make_spheres
+from ..io.pdb import load_pdb
+from ..render.direct import render_direct
+from ..render.pathtracer import image, init_state, render_passes
+from ..render.simple import render_fake_shade
+from .scenes import cornell_box
+
+
+def _device(device):
+    if device is None:
+        from .. import default_device
+        return default_device()
+    return torch.device(device)
+
+
+def _ref(path: str) -> str | None:
+    root = os.environ.get("RT_REFERENCE_DIR")
+    if not root:
+        return None
+    p = os.path.join(root, path)
+    return p if os.path.exists(p) else None
+
+
+def _no_xml(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: XML scenes are not ported yet (ROADMAP Queue 1 item 15)")
+
+
+def _no_grid(name: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{name} renders through a uniform grid, not ported yet (ROADMAP "
+        "Queue 1 item 11)")
+
+
+def molecule_scene(name: str = "c60.pdb", cols: int = 512, rows: int = 512,
+                   device=None):
+    """(spheres, per-sphere colours, camera) from a reference PDB file, or
+    the JAX package's synthetic fallback molecule; the camera is framed
+    from the bounds."""
+    dev = _device(device)
+    path = _ref(f"Assign02-Multi_Sphere_Ray_Tracing/mol/{name}") \
+        or _ref(f"Assign10-Path_Tracing/mol/{name}")
+    if path:
+        mol = load_pdb(path)
+        spheres = make_spheres(mol.centers, mol.radii, device=dev)
+        colors = torch.as_tensor(mol.colors[mol.color_ids], device=dev)
+        bounds = AABB(pmin=torch.as_tensor(mol.bounds_min, device=dev),
+                      pmax=torch.as_tensor(mol.bounds_max, device=dev))
+    else:
+        rng = np.random.default_rng(0)
+        centers = rng.normal(size=(64, 3)).astype(np.float32) * 3
+        radii = rng.uniform(0.6, 1.2, 64).astype(np.float32)
+        spheres = make_spheres(centers, radii, device=dev)
+        colors = torch.as_tensor(
+            rng.uniform(0.2, 1.0, (64, 4)).astype(np.float32), device=dev)
+        bounds = spheres.bounds()
+    return spheres, colors, Camera.auto_frame(bounds, cols, rows)
+
+
+def assign01(cols=512, rows=512, device=None):
+    """Single hard-coded sphere, fake depth shade."""
+    dev = _device(device)
+    spheres = make_spheres([[0.0, 0.0, 0.0]], [0.5], device=dev)
+    colors = torch.ones((1, 4), device=dev)
+    cam = Camera.look_at([0, 0, 2], [0, 0, 0], [0, 1, 0], 60.0, cols, rows,
+                         device=dev)
+    return render_fake_shade, (cam, spheres, colors), RenderConfig(
+        width=cols, height=rows)
+
+
+def assign02(cols=512, rows=512, molecule="c60.pdb", device=None):
+    spheres, colors, cam = molecule_scene(molecule, cols, rows, device)
+    return render_fake_shade, (cam, spheres, colors), RenderConfig(
+        width=cols, height=rows)
+
+
+def assign03(cols=512, rows=512, molecule="c60.pdb", device=None):
+    """Wavefront split: a ray-generation stage, then a trace stage reading
+    its ray buffer (the Assign03 two-kernel structure)."""
+    from ..core.types import dot3
+    from ..ops.closest_hit import (closest_hit_spheres, palette_lookup,
+                                   sphere_hit_attrs)
+    from ..render.camera import pinhole_rays, pixel_grid
+
+    spheres, colors, cam = molecule_scene(molecule, cols, rows, device)
+
+    def gen_stage():
+        col, row = pixel_grid(cam)
+        return pinhole_rays(cam, col, row)
+
+    def trace_stage(rays):
+        ch = closest_hit_spheres(rays, spheres)
+        _, n, _ = sphere_hit_attrs(rays, spheres, ch)
+        shade = dot3(n, cam.w)
+        rgb = palette_lookup(colors[:, :3], ch.idx) * shade[:, None]
+        img = torch.where(ch.valid[:, None], rgb, 0.0)
+        return img.reshape(cam.rows, cam.cols, 3)
+
+    def run():
+        return trace_stage(gen_stage())
+
+    return run, (), RenderConfig(width=cols, height=rows)
+
+
+def _mesh_scene(cols, rows, device):
+    scene = cornell_box(cols=cols, rows=rows, device=_device(device))
+    # the megakernel route, as in the JAX package (kernel 1's direct mode)
+    cfg = RenderConfig(width=cols, height=rows, spp=1, bounces=0,
+                       use_megakernel=True)
+    return scene, cfg
+
+
+def assign04(cols=512, rows=512, device=None):
+    """Triangle mesh + spheres composed through a shared maxt; direct
+    shade."""
+    scene, cfg = _mesh_scene(cols, rows, device)
+    return render_direct, (scene, cfg), cfg
+
+
+def assign05(cols=512, rows=512, device=None):
+    """AABB culling: 04's pipeline, every ray clipped to the scene AABB."""
+    return assign04(cols, rows, device)
+
+
+def assign06(cols=512, rows=512, n_slabs=8, device=None):
+    """1-D slab acceleration (an n x 1 x 1 grid)."""
+    raise _no_grid("assign06")
+
+
+def assign07(cols=512, rows=512, n_slabs=4, scene_xml: str | None = None,
+             mesh_slabs: int | str = "xml", device=None):
+    """Full 3-D uniform grid DDA."""
+    if scene_xml is not None:
+        raise _no_xml("assign07(scene_xml=...)")
+    raise _no_grid("assign07")
+
+
+def assign08(cols=320, rows=240, scene_xml: str | None = None, device=None):
+    """Disk lights, shadow rays and ambient + cosine shade (cornell, or the
+    reference's cornell.xml, which needs the XML reader)."""
+    if scene_xml is not None:
+        raise _no_xml("assign08(scene_xml=...)")
+    if _ref("Assign08-Shadow_Tracing/scenes/cornell.xml"):
+        raise _no_xml("assign08 with the reference's cornell.xml")
+    scene = cornell_box(cols=cols, rows=rows, device=_device(device))
+    cfg = RenderConfig(width=cols, height=rows, spp=1, bounces=0,
+                       use_megakernel=True)
+    return render_direct, (scene, cfg), cfg
+
+
+def assign09(cols=320, rows=240, spp=4, focal_length=2.8,
+             lens_diameter=0.25, device=None):
+    """Thin-lens depth of field with stratified lens sampling."""
+    scene = cornell_box(cols=cols, rows=rows, focal_length=focal_length,
+                        lens_diameter=lens_diameter, device=_device(device))
+    cfg = RenderConfig(width=cols, height=rows, spp=spp, bounces=0,
+                       use_megakernel=True)
+    return render_direct, (scene, cfg), cfg
+
+
+def assign10(cols=320, rows=240, spp=1, bounces=5, passes=32,
+             scene_xml: str | None = None, device=None):
+    """Progressive Monte Carlo path tracing (the flagship pipeline)."""
+    if scene_xml:
+        raise _no_xml("assign10(scene_xml=...)")
+    dev = _device(device)
+    scene = cornell_box(cols=cols, rows=rows, device=dev)
+    cfg = RenderConfig(width=cols, height=rows, spp=spp, bounces=bounces,
+                       use_megakernel=True)
+
+    def run():
+        state = render_passes(scene, init_state(cfg, dev), cfg, passes)
+        return image(state, cfg)
+
+    return run, (), cfg
+
+
+ALL = {f"assign{i:02d}": fn for i, fn in enumerate(
+    [assign01, assign02, assign03, assign04, assign05, assign06, assign07,
+     assign08, assign09, assign10], start=1)}

@@ -1,13 +1,14 @@
 """The whole progressive path-tracing pass: the counterpart of
-``raytracing_tpu/ops/pallas/megakernel.py`` (path mode, unrolled tables).
+``raytracing_tpu/ops/pallas/megakernel.py`` (path mode, with or without
+Russian roulette, and direct mode, over resident tables).
 
 Two versions of one function:
 
 * ``pathtrace_pass_reference`` -- the plain PyTorch version, vectorised
   over rays and looping over objects. Its math and its draw-slot order
-  (lens, NEE per light, then per depth: bounce, NEE per light) follow
-  ``_render_pass_kernel`` (``megakernel.py:404-1528``) line for line. The
-  CPU tests hold it against the JAX package.
+  (lens, NEE per light, then per depth: [rr], bounce, NEE per light)
+  follow ``_render_pass_kernel`` (``megakernel.py:404-1528``) line for
+  line. The CPU tests hold it against the JAX package.
 * ``pathtrace_pass`` -- the wrapper, with the signature of
   ``pathtrace_pass_pallas``. On CUDA tensors it launches the hand-written
   kernel ``csrc/megakernel.cu`` or raises; on CPU tensors it runs the plain
@@ -32,6 +33,20 @@ Draws: with ``u_planes`` (``(2 * n_draws, R)``, plane ``2j + c`` for slot
 draws of ``jax.random.uniform(pass_key, (R, n_draws, 2))`` themselves,
 keyed by ``fold_in(PRNGKey(seed), pass)`` -- the kernel in-kernel, bit for
 bit the same (``csrc/threefry.cuh``).
+
+Russian roulette (``russian_roulette=True``, ``megakernel.py:1486-1500``)
+takes one more draw slot per depth (u0 only) and, from ``rr_start_depth``
+on, ends a path unless u0 < p = clip(max(throughput), 0.05, 1), scaling
+the throughput of a survivor by 1 / p.
+
+Direct mode (``direct_pass_reference`` / ``direct_pass``, the kernel's
+``mode="direct"``, ``megakernel.py:1362-1401``): per ray the primary hit,
+then per light a disk sample, a shadow ray and ``albedo * clip(ambient +
+(occluded ? 0 : cos), 0, 1)``; no emitter term, throughput or bounce. Its
+draws are ``render/mega.u_planes_for_direct``'s (slot 0 the lens, slot 1 +
+li light li), or without u-planes those the stage route's ``render_direct``
+draws (``direct_draw_planes``), which the kernel makes in-kernel bit for
+bit.
 """
 from __future__ import annotations
 
@@ -72,13 +87,14 @@ SPH_COLS, TRI_COLS, MAT_COLS, LIG_COLS = 8, 32, 4, 20
 # 16-byte boundary (csrc/pathtrace.cuh kParPad)
 PAR_PAD = 28
 
-launches = 0
+launches = 0          # path mode (csrc/megakernel.cu pathtrace_kernel)
+direct_launches = 0   # direct mode (csrc/megakernel.cu direct_kernel)
 
 
-def n_draws_of(n_lights: int, bounces: int) -> int:
+def n_draws_of(n_lights: int, bounces: int, rr: bool = False) -> int:
     """Draw slots of one pass: lens, NEE per light, then per depth:
-    bounce and NEE per light."""
-    return 1 + n_lights + bounces * (1 + n_lights)
+    [rr with Russian roulette], bounce and NEE per light."""
+    return 1 + n_lights + bounces * (int(rr) + 1 + n_lights)
 
 
 def draw_planes(key: torch.Tensor, n_rays: int, n_draws: int,
@@ -94,6 +110,22 @@ def draw_planes(key: torch.Tensor, n_rays: int, n_draws: int,
     y0, y1 = rng.threefry2x32(*rng.key_words(key), idx >> 32,
                               idx & rng.MASK32)
     return rng.bits_to_uniform(y0 ^ y1)
+
+
+def direct_draw_planes(key: torch.Tensor, n_rays: int, n_lights: int,
+                       spp: int, device=None) -> torch.Tensor:
+    """Direct mode's draws in ``u_planes_for_direct``'s layout ``(2 * (1 +
+    L), n_rays)``: the lens pair from ``uniform(draw_key(key, LENS), (R,
+    2))`` (zeros at spp > 1, where the lens is stratified), then light li's
+    pair from ``uniform(draw_key(key, LIGHT, 0, li), (R, 2))`` -- the
+    stage route's ``render_direct`` draws."""
+    def pair(k):
+        return draw_planes(k, n_rays, 1, 0, device)
+
+    lens = (pair(rng.draw_key(key, rng.LENS)) if spp == 1 else
+            torch.zeros((2, n_rays), device=device))
+    return torch.cat([lens] + [pair(rng.draw_key(key, rng.LIGHT, 0, li))
+                               for li in range(n_lights)])
 
 
 # ---------------------------------------------------------------------------
@@ -168,9 +200,45 @@ def _albedo(mat, matf):
     return torch.where(ok[:, None], rgb, 0.0)
 
 
+def _camera_rays(par, lens_uv, n: int, ray_offset: int, spp: int,
+                 width: int):
+    """(o, d, mint, maxt) of the primary rays of rays ``[ray_offset,
+    ray_offset + n)``, the kernel's camera: pixel decode from the global
+    ray id, film point -> focal point -> thin-lens ray from ``lens_uv``
+    (n, 2) (stratified lens-cell centres at spp > 1), scene-AABB clip."""
+    dev = par.device
+    # pixel decode from the global ray id (integer; the kernel's float
+    # decode is exact in its < 2^24 range)
+    rid = torch.arange(n, dtype=torch.int64, device=dev) + ray_offset
+    pix = torch.div(rid, spp, rounding_mode="floor")
+    samp = rid - pix * spp
+    row = torch.div(pix, width, rounding_mode="floor")
+    col = pix - row * width
+    # the camera as the kernel reads it from par (cols/rows as f32 scalars)
+    cam = Camera(eye=par[0:3], u=par[3:6], v=par[6:9], w=par[9:12],
+                 width=par[12], height=par[13], cols=par[14], rows=par[15])
+    fp = focal_points(cam, col.to(torch.float32), row.to(torch.float32),
+                      par[16])
+    uv = stratified_lens_uv(samp, spp) if spp > 1 else lens_uv
+    rays = clip_to_bounds(thin_lens_rays(cam, fp, par[17], uv),
+                          AABB(pmin=par[18:21], pmax=par[21:24]))
+    return rays.o, rays.d, rays.mint, rays.maxt
+
+
+def survival_p(tp: torch.Tensor) -> torch.Tensor:
+    """Russian roulette's survival probability clip(max(tp), 0.05, 1) of
+    throughputs tp (R, 3), written as JAX's jnp.clip is (a minimum of a
+    maximum of a chain of maximum), so that its gradient splits at ties and
+    bounds as JAX's does (torch.clamp would pass it whole at a bound)."""
+    m = torch.maximum(tp[:, 0], torch.maximum(tp[:, 1], tp[:, 2]))
+    return torch.minimum(torch.maximum(m, torch.full_like(m, 0.05)),
+                         torch.full_like(m, 1.0))
+
+
 def _pass_reference(par, sph, tri, mat, lig, acc, u, ray_offset: int, *,
                     spp: int, width: int, bounces: int, two_sided: bool,
-                    normalize_emitter: bool, trace=None, anyhit=None,
+                    normalize_emitter: bool, russian_roulette: bool = False,
+                    rr_start_depth: int = 0, trace=None, anyhit=None,
                     record=None) -> torch.Tensor:
     """One pass of ``_render_pass_kernel`` (path mode) over every ray;
     returns the new accumulator.
@@ -208,26 +276,8 @@ def _pass_reference(par, sph, tri, mat, lig, acc, u, ray_offset: int, *,
         j = next(slots)
         return u[2 * j:2 * j + 2].t()
 
-    # pixel decode from the global ray id (integer; the kernel's float
-    # decode is exact in its < 2^24 range)
-    rid = torch.arange(n, dtype=torch.int64, device=dev) + ray_offset
-    pix = torch.div(rid, spp, rounding_mode="floor")
-    samp = rid - pix * spp
-    row = torch.div(pix, width, rounding_mode="floor")
-    col = pix - row * width
-    # the camera as the kernel reads it from par (cols/rows as f32 scalars)
-    cam = Camera(eye=par[0:3], u=par[3:6], v=par[6:9], w=par[9:12],
-                 width=par[12], height=par[13], cols=par[14], rows=par[15])
-    fp = focal_points(cam, col.to(torch.float32), row.to(torch.float32),
-                      par[16])
-    if spp > 1:
-        next(slots)          # slot 0 reserved: stratified lens, no draw
-        uv = stratified_lens_uv(samp, spp)
-    else:
-        uv = draw()
-    rays = clip_to_bounds(thin_lens_rays(cam, fp, par[17], uv),
-                          AABB(pmin=par[18:21], pmax=par[21:24]))
-    o, d, mint, maxt = rays.o, rays.d, rays.mint, rays.maxt
+    lens = draw() if spp == 1 else next(slots)  # slot 0: no draw at spp > 1
+    o, d, mint, maxt = _camera_rays(par, lens, n, ray_offset, spp, width)
     eps = par[24]
 
     maxt, hp, hn, matf, _ = trace(o, d, mint, maxt)
@@ -275,7 +325,16 @@ def _pass_reference(par, sph, tri, mat, lig, acc, u, ray_offset: int, *,
     for li in range(n_lig):
         acc, tp = nee(li, acc, tp, draw())
     up = torch.tensor([0.0, 0.0, 1.0], device=dev)
-    for _depth in range(bounces):
+    for depth in range(bounces):
+        if russian_roulette:
+            # its slot is drawn at every depth, played from rr_start_depth
+            u_rr = draw()[:, 0]
+            if depth >= rr_start_depth:
+                p_srv = survival_p(tp)
+                survive = u_rr < p_srv
+                inv_p = torch.full_like(p_srv, 1.0) / p_srv
+                tp = torch.where(survive[:, None], tp * inv_p[:, None], 0.0)
+                matf = torch.where(survive, matf, -1.0)
         valid = matf >= 0.0
         sn = torch.where(valid[:, None], hn, up)
         d = cosine_hemisphere(sn, draw())
@@ -289,20 +348,23 @@ def _pass_reference(par, sph, tri, mat, lig, acc, u, ray_offset: int, *,
 
 
 def pass_draws(ipar, u_planes, n_rays: int, n_lights: int, bounces: int,
-               seed: int, p: int = 0, device=None) -> torch.Tensor:
+               seed: int, p: int = 0, device=None,
+               rr: bool = False) -> torch.Tensor:
     """The draws of pass ``ipar[0] + p``: ``u_planes``, or those the
     kernels make in-kernel, keyed by ``fold_in(PRNGKey(seed), pass)``."""
     if u_planes is not None:
         return u_planes
     pass0, roff = (int(x) for x in ipar.tolist())
     return draw_planes(rng.pass_key(rng.base_key(seed), pass0 + p), n_rays,
-                       n_draws_of(n_lights, bounces), roff, device)
+                       n_draws_of(n_lights, bounces, rr), roff, device)
 
 
 def pathtrace_pass_reference(par, ipar, sph, tri, mat, lig, acc, u_planes,
                              *, spp: int, width: int, bounces: int,
                              two_sided: bool, normalize_emitter: bool,
                              seed: int, n_passes: int = 1,
+                             russian_roulette: bool = False,
+                             rr_start_depth: int = 0,
                              record: bool = False):
     """The plain version of ``pathtrace_pass`` on any device; returns a new
     accumulator (``acc`` is not modified), or ``(acc, ids, occs)`` with
@@ -313,12 +375,13 @@ def pathtrace_pass_reference(par, ipar, sph, tri, mat, lig, acc, u_planes,
     rec = {"ids": [], "occs": []} if record else None
     for p in range(n_passes):
         u = pass_draws(ipar, u_planes, acc.shape[0], lig.shape[0], bounces,
-                       seed, p, acc.device)
+                       seed, p, acc.device, russian_roulette)
         acc = _pass_reference(par, sph, tri, mat, lig, acc, u, roff,
                               spp=spp, width=width, bounces=bounces,
                               two_sided=two_sided,
                               normalize_emitter=normalize_emitter,
-                              record=rec)
+                              russian_roulette=russian_roulette,
+                              rr_start_depth=rr_start_depth, record=rec)
     if not record:
         return acc
     occs = (torch.stack(rec["occs"]) if rec["occs"] else
@@ -327,8 +390,54 @@ def pathtrace_pass_reference(par, ipar, sph, tri, mat, lig, acc, u_planes,
     return acc, torch.stack(rec["ids"]).to(torch.int32), occs
 
 
+def _direct_reference(par, sph, tri, mat, lig, acc, u, *, spp: int,
+                      width: int, two_sided: bool) -> torch.Tensor:
+    """One pass of ``_render_pass_kernel`` in direct mode over every ray;
+    returns the new accumulator."""
+    o, d, mint, maxt = _camera_rays(par, u[0:2].t(), acc.shape[0], 0, spp,
+                                    width)
+    _, hp, hn, matf, _ = _trace(o, d, mint, maxt, sph, tri, two_sided)
+    eps, ambient = par[24], par[25]
+    valid = matf >= 0.0
+    alb = _albedo(mat, matf)
+    for li in range(lig.shape[0]):
+        lr = lig[li]
+        tgt = sample_disk_point(lr[0:3], lr[14:17], lr[17:20], lr[12],
+                                u[2 + 2 * li:4 + 2 * li].t())
+        so = hp + eps * hn
+        dl = tgt - so
+        d2 = dot3(dl, dl)
+        dist = torch.sqrt(torch.where(d2 > 0.0, d2, 1.0))
+        dist = torch.where(d2 > 0.0, dist, 0.0)
+        sd = safe_normalize(dl)
+        occ = _anyhit(so, sd, torch.where(valid, 0.0, INF),
+                      torch.where(valid, dist, INF), sph, tri, two_sided)
+        cosx = torch.clamp(dot3(sd, hn), 0.0, 1.0)
+        shade = torch.clamp(ambient + torch.where(occ, 0.0, cosx), 0.0, 1.0)
+        acc = acc + torch.where(valid[:, None], alb * shade[:, None], 0.0)
+    return acc
+
+
+def direct_pass_reference(par, sph, tri, mat, lig, acc, u_planes, *,
+                          key: torch.Tensor, spp: int, width: int,
+                          two_sided: bool, n_passes: int = 1) -> torch.Tensor:
+    """The plain version of ``direct_pass`` on any device; returns a new
+    accumulator. Pass p reads ``u_planes`` or, without them, the draws of
+    ``direct_draw_planes`` keyed by ``key`` (one pass) or ``pass_key(key,
+    p)``."""
+    for p in range(n_passes):
+        u = u_planes
+        if u is None:
+            u = direct_draw_planes(key if n_passes == 1 else
+                                   rng.pass_key(key, p), acc.shape[0],
+                                   lig.shape[0], spp, acc.device)
+        acc = _direct_reference(par, sph, tri, mat, lig, acc, u, spp=spp,
+                                width=width, two_sided=two_sided)
+    return acc
+
+
 # ---------------------------------------------------------------------------
-# the wrapper
+# the wrappers
 # ---------------------------------------------------------------------------
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
@@ -337,15 +446,25 @@ _SIGNATURES = {
         _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _I,     # par, sph, tri, mat, lig
         _VP, _I, _I,                                  # acc, n_rays, ray_offset
         _VP, _VP, _I,                         # u_planes, host keys, n_passes
-        _I, _I, _I, _I, _I,                           # spp, width, bounces,
-                                                      # two_sided, normalize
+        _I, _I, _I, _I, _I,                # spp, width, bounces, rr, start
+        _I, _I,                                       # two_sided, normalize
         _VP, _VP,                                     # ids, occs (record)
+        _VP]),                                        # stream
+    "rt_direct_pass": (ctypes.c_int, [
+        _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _I,     # par, sph, tri, mat, lig
+        _VP, _I, _I,                                  # acc, n_rays, ray_offset
+        _VP, ctypes.c_uint, ctypes.c_uint,            # u_planes, key
+        _I, _I, _I,                         # first pass, per_pass, n_passes
+        _I, _I, _I,                                   # spp, width, two_sided
         _VP]),                                        # stream
 }
 
 
 def _check_args(par, ipar, sph, tri, mat, lig, acc, u_planes, spp, width,
-                bounces, n_passes):
+                n_draws, n_passes, multi_pass_planes=False):
+    """Devices, types, shapes and limits of a launch of ``n_draws`` draw
+    slots per ray and pass; ``multi_pass_planes`` lets one u-planes tensor
+    serve every pass (direct mode)."""
     dev = acc.device
     if acc.dtype != torch.float32 or acc.dim() != 2 or acc.shape[1] != 3:
         raise ValueError(f"acc must be (R, 3) float32, got "
@@ -354,7 +473,6 @@ def _check_args(par, ipar, sph, tri, mat, lig, acc, u_planes, spp, width,
     shapes = {"par": (par, (NPAR,)), "sph": (sph, (None, SPH_COLS)),
               "tri": (tri, (None, TRI_COLS)), "mat": (mat, (None, MAT_COLS)),
               "lig": (lig, (None, LIG_COLS)), "acc": (acc, (n, 3))}
-    n_draws = n_draws_of(lig.shape[0], bounces)
     if u_planes is not None:
         shapes["u_planes"] = (u_planes, (2 * n_draws, n))
     for name, (t, shape) in shapes.items():
@@ -393,7 +511,7 @@ def _check_args(par, ipar, sph, tri, mat, lig, acc, u_planes, spp, width,
         raise ValueError("draw counters must stay below 2^32")
     if n_passes < 1:
         raise ValueError(f"n_passes must be >= 1, got {n_passes}")
-    if n_passes != 1 and u_planes is not None:
+    if n_passes != 1 and u_planes is not None and not multi_pass_planes:
         raise ValueError("a u_planes tensor carries one pass of draws; "
                          "multi-pass launches use the in-kernel PRNG")
 
@@ -402,16 +520,31 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None or t.numel() == 0 else t.data_ptr()
 
 
+def _check_launch(acc, tensors, what: str) -> None:
+    """The card's wrappers take CUDA tensors that do not require grad."""
+    if acc.device.type != "cuda":
+        raise ValueError(f"no kernel for device {acc.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        # the kernel writes acc through its raw pointer, which autograd
+        # never sees
+        raise RuntimeError(f"{what} is forward-only on the card; "
+                           "differentiate through ops.megakernel_grad."
+                           "pathtrace_pass_diff (one pass per call)")
+
+
 def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
                    spp: int, width: int, bounces: int, two_sided: bool,
                    normalize_emitter: bool, seed: int,
-                   n_passes: int = 1, record: bool = False,
+                   n_passes: int = 1, russian_roulette: bool = False,
+                   rr_start_depth: int = 0, record: bool = False,
                    build_flags: tuple = ()):
     """``n_passes`` progressive passes over ``acc`` (R, 3), in place;
     returns ``acc``, or ``(acc, ids, occs)`` with ``record=True`` (one
-    pass; see the module docstring). ``build_flags`` launches a build of
-    the kernel with these nvcc flags added (e.g. ``("--fmad=false",)``),
-    beside the default one.
+    pass; see the module docstring). ``russian_roulette`` plays the
+    roulette from depth ``rr_start_depth`` on. ``build_flags`` launches a
+    build of the kernel with these nvcc flags added (e.g.
+    ``("--fmad=false",)``), beside the default one.
 
     par (26,) f32 scalars; ipar (2,) int32 CPU tensor [pass index, global
     ray offset]; sph (S, 8) [center xyz, radius, mat, mask, pad2]; tri
@@ -421,28 +554,21 @@ def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
     """
     global launches
     _check_args(par, ipar, sph, tri, mat, lig, acc, u_planes, spp, width,
-                bounces, n_passes)
+                n_draws_of(lig.shape[0], bounces, russian_roulette), n_passes)
     if record and n_passes != 1:
         raise ValueError("champion recording is single-pass")
     kw = dict(spp=spp, width=width, bounces=bounces, two_sided=two_sided,
               normalize_emitter=normalize_emitter, seed=seed,
-              n_passes=n_passes)
+              n_passes=n_passes, russian_roulette=russian_roulette,
+              rr_start_depth=rr_start_depth)
     if acc.device.type == "cpu":
         out = pathtrace_pass_reference(par, ipar, sph, tri, mat, lig, acc,
                                        u_planes, record=record, **kw)
         if not record:
             return acc.copy_(out)
         return acc.copy_(out[0]), out[1], out[2]
-    if acc.device.type != "cuda":
-        raise ValueError(f"no kernel for device {acc.device}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (par, sph, tri, mat, lig, acc, u_planes)):
-        # the kernel writes acc through its raw pointer, which autograd
-        # never sees
-        raise RuntimeError("pathtrace_pass is forward-only on the card; "
-                           "differentiate through ops.megakernel_grad."
-                           "pathtrace_pass_diff (one pass per call)")
+    _check_launch(acc, (par, sph, tri, mat, lig, acc, u_planes),
+                  "pathtrace_pass")
     lib = _build.load("megakernel", _SIGNATURES, build_flags)
     pass0, roff = (int(x) for x in ipar.tolist())
     base = rng.base_key(seed)
@@ -466,10 +592,52 @@ def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
                 _ptr(mat), mat.shape[0], _ptr(lig), lig.shape[0],
                 _ptr(acc), acc.shape[0], roff, _ptr(u_planes),
                 ctypes.addressof(keys), k, spp, width, bounces,
-                int(two_sided), int(normalize_emitter), _ptr(ids),
-                _ptr(occs), stream)
+                int(russian_roulette), rr_start_depth, int(two_sided),
+                int(normalize_emitter), _ptr(ids), _ptr(occs), stream)
             if err != 0:
                 raise RuntimeError(
                     f"megakernel launch failed with CUDA error {err}")
             launches += 1
     return (acc, ids, occs) if record else acc
+
+
+def direct_pass(par, sph, tri, mat, lig, acc, u_planes, *,
+                key: torch.Tensor, spp: int, width: int, two_sided: bool,
+                n_passes: int = 1, build_flags: tuple = ()) -> torch.Tensor:
+    """Kernel 1's direct mode: ``n_passes`` direct-lighting passes added
+    into ``acc`` (R, 3), in place; returns ``acc``. Pass p reads
+    ``u_planes`` ((2 * (1 + L), R), ``u_planes_for_direct``'s layout) or,
+    without them, makes ``direct_draw_planes``'s draws in-kernel, keyed by
+    ``key`` ((2,) uint32 CPU tensor) for a call of one pass and by
+    ``pass_key(key, p)`` otherwise. On CPU tensors it runs
+    ``direct_pass_reference``; on CUDA tensors it launches the kernel (one
+    launch per 64 passes) and counts ``direct_launches``. Tables as
+    ``pathtrace_pass``."""
+    global direct_launches
+    _check_args(par, torch.zeros(2, dtype=torch.int32), sph, tri, mat, lig,
+                acc, u_planes, spp, width, 1 + lig.shape[0], n_passes,
+                multi_pass_planes=True)
+    kw = dict(key=key, spp=spp, width=width, two_sided=two_sided,
+              n_passes=n_passes)
+    if acc.device.type == "cpu":
+        return acc.copy_(direct_pass_reference(par, sph, tri, mat, lig, acc,
+                                               u_planes, **kw))
+    _check_launch(acc, (par, sph, tri, mat, lig, acc, u_planes),
+                  "direct_pass")
+    lib = _build.load("megakernel", _SIGNATURES, build_flags)
+    k0, k1 = rng.key_words(key)
+    with torch.cuda.device(acc.device):
+        stream = torch.cuda.current_stream(acc.device).cuda_stream
+        for first in range(0, n_passes, MAX_PASSES_PER_LAUNCH):
+            k = min(MAX_PASSES_PER_LAUNCH, n_passes - first)
+            err = lib.rt_direct_pass(
+                _ptr(par), _ptr(sph), sph.shape[0], _ptr(tri), tri.shape[0],
+                _ptr(mat), mat.shape[0], _ptr(lig), lig.shape[0],
+                _ptr(acc), acc.shape[0], 0, _ptr(u_planes), k0, k1,
+                first, int(n_passes > 1), k, spp, width, int(two_sided),
+                stream)
+            if err != 0:
+                raise RuntimeError(
+                    f"direct-mode launch failed with CUDA error {err}")
+            direct_launches += 1
+    return acc

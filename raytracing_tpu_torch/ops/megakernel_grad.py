@@ -1,6 +1,6 @@
 """The differentiable pass: the counterpart of
-``raytracing_tpu/ops/pallas/megakernel_grad.py`` (hard route, path mode):
-two backwards, as in the JAX package.
+``raytracing_tpu/ops/pallas/megakernel_grad.py`` (hard route, path mode,
+with or without Russian roulette): two backwards, as in the JAX package.
 
 Kernel 2, the backward by replay (``bwd_impl_for`` "pallas"; tables of at
 most 64 objects per type):
@@ -34,7 +34,11 @@ on CPU tensors the plain forward under autograd. The cell route
 
 Gradients follow the JAX package's hard convention: the cotangent of a
 closest hit flows to its champion only, occlusion has no adjoint, and the
-scene-AABB window only selects (pmin, pmax and ambient get zeros).
+scene-AABB window only selects (pmin, pmax and ambient get zeros). With
+Russian roulette the survival test is a step function, and the cotangent
+of a survivor's throughput flows through its 1 / p, p = clip(max(tp),
+0.05, 1), split at ties and bounds as JAX's jnp.maximum and jnp.clip
+split it.
 ``diff_wrt`` (``cfg.mega_grad_wrt``) names the table groups that get
 cotangents; the others get none.
 """
@@ -69,8 +73,8 @@ _SIGNATURES = {
         _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _I,     # par, sph, tri, mat, lig
         _VP, _I, _I,                                  # g, n_rays, ray_offset
         _VP, _U, _U,                                  # u_planes, pass key
-        _I, _I, _I, _I, _I,                           # spp, width, bounces,
-                                                      # two_sided, normalize
+        _I, _I, _I, _I, _I,                # spp, width, bounces, rr, start
+        _I, _I,                                       # two_sided, normalize
         _I,                                           # diff_wrt bits
         _VP, _VP, _VP, _VP, _VP,                      # dpar .. dlig
         _VP]),                                        # stream
@@ -80,8 +84,8 @@ _CHAMP_SIGNATURES = {
         _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _I,     # par, sph, tri, mat, lig
         _VP, _VP, _VP, _I, _I,            # g, ids, occs, n_rays, ray_offset
         _VP, _U, _U,                                  # u_planes, pass key
-        _I, _I, _I, _I, _I,                           # spp, width, bounces,
-                                                      # two_sided, normalize
+        _I, _I, _I, _I, _I,                # spp, width, bounces, rr, start
+        _I, _I,                                       # two_sided, normalize
         _I,                                           # diff_wrt bits
         _VP, _VP, _VP, _VP, _VP,                      # dpar .. dlig
         _VP]),                                        # stream
@@ -99,7 +103,8 @@ def _check_wrt(diff_wrt) -> tuple:
 def pathtrace_pass_bwd_reference(par, ipar, sph, tri, mat, lig, g, u_planes,
                                  *, spp: int, width: int, bounces: int,
                                  two_sided: bool, normalize_emitter: bool,
-                                 seed: int, diff_wrt=DIFF_ALL):
+                                 seed: int, russian_roulette: bool = False,
+                                 rr_start_depth: int = 0, diff_wrt=DIFF_ALL):
     """Plain version of kernel 2: ``(dpar, dsph, dtri, dmat, dlig)`` of
     ``sum(g * acc_delta)`` for one pass, by autograd through the plain
     forward. Groups outside ``diff_wrt`` come back as zeros."""
@@ -112,7 +117,8 @@ def pathtrace_pass_bwd_reference(par, ipar, sph, tri, mat, lig, g, u_planes,
             leaves["par"], ipar, leaves["sph"], leaves["tri"], leaves["mat"],
             leaves["lig"], torch.zeros_like(g), u_planes, spp=spp,
             width=width, bounces=bounces, two_sided=two_sided,
-            normalize_emitter=normalize_emitter, seed=seed)
+            normalize_emitter=normalize_emitter, seed=seed,
+            russian_roulette=russian_roulette, rr_start_depth=rr_start_depth)
         grads = dict(zip(sel, torch.autograd.grad(
             acc, [leaves[k] for k in sel], grad_outputs=g,
             allow_unused=True, materialize_grads=True))) if sel else {}
@@ -121,9 +127,9 @@ def pathtrace_pass_bwd_reference(par, ipar, sph, tri, mat, lig, g, u_planes,
 
 
 def _check_bwd_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp, width,
-                    bounces):
+                    bounces, rr):
     MK._check_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp, width,
-                   bounces, 1)
+                   MK.n_draws_of(lig.shape[0], bounces, rr), 1)
     if g.device.type != "cuda":
         raise ValueError(f"kernel 2 takes CUDA tensors, got {g.device}; "
                          "on the CPU use pathtrace_pass_bwd_reference")
@@ -143,7 +149,8 @@ def _check_bwd_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp, width,
 def pathtrace_pass_bwd(par, ipar, sph, tri, mat, lig, g, u_planes, *,
                        spp: int, width: int, bounces: int, two_sided: bool,
                        normalize_emitter: bool, seed: int,
-                       diff_wrt=DIFF_ALL):
+                       russian_roulette: bool = False,
+                       rr_start_depth: int = 0, diff_wrt=DIFF_ALL):
     """Kernel 2: the cotangents of ``pathtrace_pass_bwd_reference`` from
     the hand-written CUDA adjoint, for CUDA tensors (anything else raises).
     ``g`` (R, 3) is the cotangent of the pass's accumulator; the draws are
@@ -153,7 +160,7 @@ def pathtrace_pass_bwd(par, ipar, sph, tri, mat, lig, g, u_planes, *,
     global launches
     sel = _check_wrt(diff_wrt)
     _check_bwd_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp, width,
-                    bounces)
+                    bounces, russian_roulette)
     outs = tuple(torch.zeros_like(t) for t in (par, sph, tri, mat, lig))
     wrt = sum(1 << i for i, n in enumerate(DIFF_ALL) if n in sel)
     if not wrt:
@@ -168,8 +175,8 @@ def pathtrace_pass_bwd(par, ipar, sph, tri, mat, lig, g, u_planes, *,
             ptr(par), ptr(sph), sph.shape[0], ptr(tri), tri.shape[0],
             ptr(mat), mat.shape[0], ptr(lig), lig.shape[0], ptr(g),
             g.shape[0], roff, ptr(u_planes), k0, k1, spp, width, bounces,
-            int(two_sided), int(normalize_emitter), wrt,
-            *(ptr(t) for t in outs), stream)
+            int(russian_roulette), rr_start_depth, int(two_sided),
+            int(normalize_emitter), wrt, *(ptr(t) for t in outs), stream)
         if err != 0:
             raise RuntimeError(f"kernel 2 launch failed with CUDA error {err}")
         launches += 1
@@ -267,6 +274,8 @@ def pathtrace_pass_bwd_champ_reference(par, ipar, sph, tri, mat, lig, g,
                                        width: int, bounces: int,
                                        two_sided: bool,
                                        normalize_emitter: bool, seed: int,
+                                       russian_roulette: bool = False,
+                                       rr_start_depth: int = 0,
                                        diff_wrt=DIFF_ALL):
     """Plain version of kernel 3, JAX's ``_bwd_champion``: ``(dpar, dsph,
     dtri, dmat, dlig)`` of ``sum(g * acc_delta)`` for one pass, by autograd
@@ -276,7 +285,7 @@ def pathtrace_pass_bwd_champ_reference(par, ipar, sph, tri, mat, lig, g,
     sel = _check_wrt(diff_wrt)
     tables = dict(par=par, sph=sph, tri=tri, mat=mat, lig=lig)
     u = MK.pass_draws(ipar, u_planes, g.shape[0], lig.shape[0], bounces,
-                      seed, 0, g.device)
+                      seed, 0, g.device, russian_roulette)
     with torch.enable_grad():
         leaves = {k: (v.detach().requires_grad_(True) if k in sel
                       else v.detach()) for k, v in tables.items()}
@@ -285,7 +294,9 @@ def pathtrace_pass_bwd_champ_reference(par, ipar, sph, tri, mat, lig, g,
             leaves["par"], leaves["sph"], leaves["tri"], leaves["mat"],
             leaves["lig"], torch.zeros_like(g), u, int(ipar[1]), spp=spp,
             width=width, bounces=bounces, two_sided=two_sided,
-            normalize_emitter=normalize_emitter, trace=trace, anyhit=anyhit)
+            normalize_emitter=normalize_emitter,
+            russian_roulette=russian_roulette, rr_start_depth=rr_start_depth,
+            trace=trace, anyhit=anyhit)
         grads = dict(zip(sel, torch.autograd.grad(
             acc, [leaves[k] for k in sel], grad_outputs=g,
             allow_unused=True, materialize_grads=True))) if sel else {}
@@ -308,7 +319,8 @@ def _check_record(ids, occs, n_rays: int, n_lig: int, bounces: int, dev):
 def pathtrace_pass_bwd_champ(par, ipar, sph, tri, mat, lig, g, u_planes, ids,
                              occs, *, spp: int, width: int, bounces: int,
                              two_sided: bool, normalize_emitter: bool,
-                             seed: int, diff_wrt=DIFF_ALL):
+                             seed: int, russian_roulette: bool = False,
+                             rr_start_depth: int = 0, diff_wrt=DIFF_ALL):
     """Kernel 3: the cotangents of ``pathtrace_pass_bwd_champ_reference``
     from the hand-written CUDA kernel on CUDA tensors, from the plain
     version on CPU tensors. ``ids`` and ``occs`` are kernel 1's record of
@@ -320,13 +332,15 @@ def pathtrace_pass_bwd_champ(par, ipar, sph, tri, mat, lig, g, u_planes, ids,
     global champ_launches
     sel = _check_wrt(diff_wrt)
     MK._check_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp, width,
-                   bounces, 1)
+                   MK.n_draws_of(lig.shape[0], bounces, russian_roulette), 1)
     if bounces > MAX_BOUNCES or lig.shape[0] > MAX_LIGHTS:
         raise ValueError(f"the adjoint's tape holds at most {MAX_BOUNCES} "
                          f"bounces and {MAX_LIGHTS} lights")
     _check_record(ids, occs, g.shape[0], lig.shape[0], bounces, g.device)
     kw = dict(spp=spp, width=width, bounces=bounces, two_sided=two_sided,
-              normalize_emitter=normalize_emitter, seed=seed)
+              normalize_emitter=normalize_emitter, seed=seed,
+              russian_roulette=russian_roulette,
+              rr_start_depth=rr_start_depth)
     if g.device.type == "cpu":
         return pathtrace_pass_bwd_champ_reference(
             par, ipar, sph, tri, mat, lig, g, u_planes, ids, occs,
@@ -347,7 +361,8 @@ def pathtrace_pass_bwd_champ(par, ipar, sph, tri, mat, lig, g, u_planes, ids,
             ptr(par), ptr(sph), sph.shape[0], ptr(tri), tri.shape[0],
             ptr(mat), mat.shape[0], ptr(lig), lig.shape[0], ptr(g),
             ptr(ids), ptr(occs), g.shape[0], roff, ptr(u_planes), k0, k1,
-            spp, width, bounces, int(two_sided), int(normalize_emitter), wrt,
+            spp, width, bounces, int(russian_roulette), rr_start_depth,
+            int(two_sided), int(normalize_emitter), wrt,
             *(ptr(t) for t in outs), stream)
         if err != 0:
             raise RuntimeError(f"kernel 3 launch failed with CUDA error {err}")
@@ -423,8 +438,9 @@ class _PassDiffCell(torch.autograd.Function):
 def pathtrace_pass_diff(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
                         spp: int, width: int, bounces: int, two_sided: bool,
                         normalize_emitter: bool, seed: int,
-                        diff_wrt=DIFF_ALL, bwd_cell: bool = False
-                        ) -> torch.Tensor:
+                        russian_roulette: bool = False,
+                        rr_start_depth: int = 0, diff_wrt=DIFF_ALL,
+                        bwd_cell: bool = False) -> torch.Tensor:
     """One differentiable progressive pass: returns a new accumulator
     (``acc`` is not modified); autograd reaches the tables in ``diff_wrt``
     and ``acc``. Arguments as ``ops.megakernel.pathtrace_pass`` with one
@@ -437,7 +453,9 @@ def pathtrace_pass_diff(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
     their plain versions on CPU tensors."""
     sel = _check_wrt(diff_wrt)
     kw = dict(spp=spp, width=width, bounces=bounces, two_sided=two_sided,
-              normalize_emitter=normalize_emitter, seed=seed)
+              normalize_emitter=normalize_emitter, seed=seed,
+              russian_roulette=russian_roulette,
+              rr_start_depth=rr_start_depth)
     if acc.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {acc.device}")
     if bwd_cell:

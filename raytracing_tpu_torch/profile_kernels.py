@@ -20,7 +20,13 @@ sphere_field(1024), kernel 2 on cornell
 with ("sph", "mat") on a training step's cotangent of acc (the gradient of
 mean(image^2) after 11 passes) and on a seeded random one, kernel 2 with
 ("mat",) and with all five groups, and kernel 3 with ("sph", "mat") on
-sphere_field(1024)'s step cotangent and kernel 1's record of the pass.
+sphere_field(1024)'s step cotangent and kernel 1's record of the pass;
+then the same source's Russian-roulette instances (from depth RR_START,
+as ``bench.py`` runs config 5: kernel 1 on cornell in 16-pass launches,
+kernel 2 on the step cotangent with ("sph", "mat")) and kernel 1's direct
+mode on cornell in 16-pass launches. A variant whose sources predate those
+modes (a parent commit's) is timed by running this tool from that
+commit's own checkout instead.
 ``--sass`` dumps ``cuobjdump -sass`` of the named variants' libraries into
 ``--out`` and prints, per kernel, the count of each memory, atomic and
 warp-level opcode, and the instructions around the first shared-memory
@@ -44,6 +50,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .core import rng
 from .models.scenes import cornell_box, sphere_field
 from .ops import _build
 from .ops import megakernel as MK
@@ -63,6 +70,7 @@ N_SPHERES = 1024
 FIELDS = (16, 32, 64, 128, 256, 512)
 REPS = 10
 TRAIN_WRT = ("sph", "mat")
+RR_START = 2
 
 # (library, C signatures, nvcc flags after _build.NVCC_FLAGS), keyed as the
 # wrappers load them
@@ -170,6 +178,7 @@ class Case:
                        normalize_emitter=True, seed=self.cfg.seed)
         self.ipar = torch.tensor([STEP_PASSES - 1, 0], dtype=torch.int32)
         self.acc = torch.zeros((SIZE * SIZE, 3), device=dev)
+        self.key = rng.base_key(self.cfg.seed)
         if not step:
             return
         state = pt.render_passes(scene, pt.init_state(self.cfg, dev),
@@ -182,15 +191,25 @@ class Case:
         _, self.ids, self.occs = self.k1(record=True)
         self.live = (self.g != 0).any(-1).double().mean().item()
 
-    def k1(self, n_passes: int = 1, record: bool = False):
+    def k1(self, n_passes: int = 1, record: bool = False, rr=False):
         return MK.pathtrace_pass(self.tables[0], self.ipar, *self.tables[1:],
                                  self.acc, None, n_passes=n_passes,
-                                 record=record, **self.kw)
+                                 record=record, **self.kw, **self._rr(rr))
 
-    def k2(self, g, wrt):
+    def k2(self, g, wrt, rr=False):
         return MKG.pathtrace_pass_bwd(self.tables[0], self.ipar,
                                       *self.tables[1:], g, None,
-                                      diff_wrt=wrt, **self.kw)
+                                      diff_wrt=wrt, **self.kw, **self._rr(rr))
+
+    def direct(self, n_passes: int):
+        return MK.direct_pass(self.tables[0], *self.tables[1:], self.acc,
+                              None, key=self.key, spp=1, width=SIZE,
+                              two_sided=False, n_passes=n_passes)
+
+    @staticmethod
+    def _rr(rr: bool) -> dict:
+        return ({"russian_roulette": True, "rr_start_depth": RR_START}
+                if rr else {})
 
     def k3(self, g, wrt):
         return MKG.pathtrace_pass_bwd_champ(
@@ -221,6 +240,12 @@ def measure(cornell: Case, spheres: Case, fields: dict) -> dict:
         "k3_spheres_step_g_sph_mat_ms": time_ms(
             lambda: spheres.k3(spheres.g, TRAIN_WRT)),
         **by_field,
+        "k1_cornell_rr_16pass_ms_per_pass": time_ms(
+            lambda: cornell.k1(n_passes=16, rr=True), reps=5, per=16),
+        "k2_cornell_rr_step_g_sph_mat_ms": time_ms(
+            lambda: cornell.k2(cornell.g, TRAIN_WRT, rr=True)),
+        "k1_direct_cornell_16pass_ms_per_pass": time_ms(
+            lambda: cornell.direct(16), reps=5, per=16),
     }
 
 

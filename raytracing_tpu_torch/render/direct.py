@@ -3,9 +3,12 @@ pipeline): camera rays -> closest hit -> per light: shadow ray -> any-hit
 -> ambient + clamped cosine shading; the image is the mean over spp and
 passes divided by the light count.
 
-Stage pipeline only: with ``cfg.use_pallas`` its searches run in the hit
-kernels (``ops/hit_kernels.py``). The megakernel's direct mode (kernel 1
-``mode="direct"``) is ROADMAP Queue 1 item 8 and raises.
+Two routes, as in the JAX package: ``cfg.use_megakernel`` runs the whole
+pass in kernel 1's direct mode (``render.mega.render_direct_mega``; where
+that route does not cover the config, ``mega.supported`` raises), otherwise
+the stage pipeline below, whose searches run in the hit kernels
+(``ops/hit_kernels.py``) with ``cfg.use_pallas``. Both draw the same
+uniforms.
 """
 from __future__ import annotations
 
@@ -32,9 +35,8 @@ def render_direct(scene: Scene, cfg: RenderConfig,
     ``pass_key(key, p)``); one pass uses ``key`` itself, as the JAX package
     does. ``key`` defaults to ``PRNGKey(cfg.seed)``."""
     if cfg.use_megakernel:
-        raise NotImplementedError(
-            "the megakernel's direct mode is not ported yet (ROADMAP Queue 1 "
-            "item 8); set use_megakernel=False for the stage pipeline")
+        from .mega import render_direct_mega
+        return render_direct_mega(scene, cfg, key=key, n_passes=n_passes)
     if key is None:
         key = rng.base_key(cfg.seed)
     if n_passes == 1:

@@ -1,5 +1,7 @@
 """The megakernel pass: Scene -> packed tables -> one kernel launch per
-call (``raytracing_tpu.render.mega``).
+call (``raytracing_tpu.render.mega``), in path mode (``render_pass_mega``,
+with or without Russian roulette) and in direct mode
+(``render_direct_mega``).
 
 When a table that the pass reads requires grad (scene parameters being
 fitted) and grad mode is on, the pass is differentiable: it runs
@@ -10,10 +12,10 @@ the champion ("cell") route past that -- kernel 1 records the champions
 and occlusion bits, kernel 3 (``csrc/megakernel_champ.cu``) differentiates
 the record. ``supported_diff`` gates the differentiable pass.
 
-``supported`` is True only for what the port's kernel 1 covers: path mode,
-no Russian roulette, no grid, no blocked layout, no stale-POI replication,
-at most 4608 spheres (JAX's ``SMEM_TABLE_MAX // 8``, the resident table
-its kernel loops over) and 64 triangles, and fewer than 2^24 rays.
+``supported`` is True only for what the port's kernel 1 covers: no grid,
+no blocked layout, no stale-POI replication, at most 4608 spheres (JAX's
+``SMEM_TABLE_MAX // 8``, the resident table its kernel loops over) and 64
+triangles, and fewer than 2^24 rays.
 Anything else raises, naming the ROADMAP item that will cover it or the
 stage pipeline (``use_megakernel=False``) that covers it now; nothing
 falls through to another route. ``use_pallas`` selects the stage
@@ -97,11 +99,6 @@ def supported(scene: Scene | None, cfg: RenderConfig) -> bool:
     """True when the port renders this scene and config; raises
     NotImplementedError naming the ROADMAP Queue 1 item otherwise. With
     ``scene=None`` only the config is checked."""
-    if cfg.russian_roulette:
-        raise NotImplementedError(
-            "Russian roulette in the megakernel is not ported yet (ROADMAP "
-            "Queue 1 item 7); the stage pipeline has it: set "
-            "use_megakernel=False")
     if cfg.use_grid:
         raise NotImplementedError(
             "uniform grids are not ported yet (ROADMAP Queue 1 item 11)")
@@ -188,6 +185,42 @@ def bwd_impl_for(scene: Scene | None, cfg: RenderConfig) -> str:
     return impl
 
 
+def u_planes_for_direct(key: torch.Tensor, cfg: RenderConfig, n_lights: int,
+                        device=None) -> torch.Tensor:
+    """The draws of one direct pass in the kernel's plane layout, (2 * (1 +
+    L), R): the lens pair (``draw_key(key, LENS)``; zeros at spp > 1),
+    then one pair per light (``draw_key(key, LIGHT, 0, li)``) -- exactly
+    the JAX package's ``u_planes_for_direct``, and the stage route's
+    ``render_direct`` draws."""
+    return MK.direct_draw_planes(key, cfg.total_rays, n_lights, cfg.spp,
+                                 device)
+
+
+def render_direct_mega(scene: Scene, cfg: RenderConfig,
+                       key: torch.Tensor | None = None,
+                       u_planes: torch.Tensor | None = None,
+                       n_passes: int = 1) -> torch.Tensor:
+    """The direct-lighting image (H, W, 3) in [0, 1] through kernel 1's
+    direct mode, one launch per call (per 64 passes): the JAX package's
+    ``render_direct_mega``. ``n_passes`` independent estimates are
+    averaged; pass p draws from ``key`` (one pass) or ``pass_key(key, p)``
+    as the stage route's ``render_direct`` does, or reads ``u_planes``
+    (``u_planes_for_direct``) in every pass. ``key`` defaults to
+    ``PRNGKey(cfg.seed)``."""
+    supported(scene, cfg)
+    if key is None:
+        key = rng.base_key(cfg.seed)
+    par, sph, tri, mat, lig = scene_tables(scene, cfg)
+    acc = torch.zeros((cfg.total_rays, 3), device=scene.device)
+    MK.direct_pass(par, sph, tri, mat, lig, acc, u_planes, key=key,
+                   spp=cfg.spp, width=cfg.width,
+                   two_sided=cfg.two_sided_triangles, n_passes=n_passes)
+    n_lights = max(scene.lights.count, 1)
+    img = acc.reshape(cfg.height, cfg.width, cfg.spp, 3).mean(2) \
+        / (n_lights * n_passes)
+    return torch.clamp(img, 0.0, 1.0)
+
+
 def u_planes_for_pass(key: torch.Tensor, passes: int, cfg: RenderConfig,
                       n_lights: int, device=None) -> torch.Tensor:
     """The pass-wide uniforms in the kernel's plane layout, (2 * n_draws, R):
@@ -226,7 +259,9 @@ def render_pass_mega(scene: Scene, state: dict, cfg: RenderConfig,
     ipar = torch.tensor([int(state["passes"]), 0], dtype=torch.int32)
     kw = dict(spp=cfg.spp, width=cfg.width, bounces=cfg.bounces,
               two_sided=cfg.two_sided_triangles,
-              normalize_emitter=cfg.normalize_emitter, seed=cfg.seed)
+              normalize_emitter=cfg.normalize_emitter, seed=cfg.seed,
+              russian_roulette=cfg.russian_roulette,
+              rr_start_depth=cfg.rr_start_depth)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (par, sph, tri, mat, lig, state["acc"])):
         if n_passes != 1:

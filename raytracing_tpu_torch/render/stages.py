@@ -24,6 +24,7 @@ from ..core.types import Hits, Lights, Rays, Scene, Triangles, dot3, \
     replace, safe_normalize
 from ..ops import hit_kernels as HK
 from ..ops import intersect as I
+from ..ops.megakernel import survival_p
 from ..ops.closest_hit import (anyhit_spheres, anyhit_triangles,
                                closest_hit_spheres, closest_hit_triangles,
                                palette_lookup, sphere_hit_attrs,
@@ -220,11 +221,9 @@ def apply_russian_roulette(hits: Hits, u: torch.Tensor, depth: int,
     if not cfg.russian_roulette or depth < cfg.rr_start_depth:
         return hits
     tp = hits.throughput
-    # a chain of maximum (not amax): on tied channels its gradient splits
+    # kernel 1's clip: on tied channels and at a bound its gradient splits
     # as the JAX package's does
-    p = torch.clamp(torch.maximum(tp[:, 0], torch.maximum(tp[:, 1],
-                                                          tp[:, 2])),
-                    0.05, 1.0)
+    p = survival_p(tp)
     survive = u < p
     return replace(hits,
                    throughput=torch.where(survive[:, None], tp / p[:, None],

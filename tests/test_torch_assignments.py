@@ -1,0 +1,176 @@
+"""The port's assignment configs, fake-shade renderer, camera orbit, PDB
+reader and CLI renderers against the JAX package.
+
+``models/assignments``: assign01, 02, 04, 09 and 10 at 48x36 against
+JAX's own assignment functions, and against ``tests/golden/*.npy`` with
+``tests/test_golden.py``'s tolerances (max |d| < 2e-2, mean within 1e-3).
+assign02's golden was rendered from the reference's c60.pdb; without the
+reference directory both packages draw the synthetic fallback molecule
+(JAX's own assign02 is 0.985 from that golden then), so assign02 is held to
+the golden only when ``RT_REFERENCE_DIR`` holds the PDB. assign04 and 09
+run kernel 1's direct mode and assign10 its path mode, through their plain
+versions here; JAX's assign10 runs its interpret-mode kernel, so it is
+compared at one pass of one bounce (the golden at four passes of two). assign06 and 07 need grids
+(ROADMAP Queue 1 item 11) and raise, as an XML scene does (item 15).
+
+Images at rtol/atol 2e-4; fake shade (assign01-03, ``render/simple.py``
+and its orbit) allows 0.2% of pixels past that and none past 1e-3: its
+sphere test takes PyTorch's CPU float32 sqrt, which is not correctly
+rounded (README), so where two spheres overlap a pixel's hit point moves
+(2 of assign02's 1728 pixels sit 4.1e-4 from JAX's). The orbited camera at
+1e-6; the PDB reader equal.
+"""
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from raytracing_tpu.core import types as jtypes
+from raytracing_tpu.io import pdb as jpdb
+from raytracing_tpu.io.png import read_png
+from raytracing_tpu.models import assignments as JA
+from raytracing_tpu.render import simple as jsimple
+from raytracing_tpu_torch import cli
+from raytracing_tpu_torch.core.types import AABB, Camera, make_spheres
+from raytracing_tpu_torch.io import pdb
+from raytracing_tpu_torch.models import assignments as A
+from raytracing_tpu_torch.render import simple
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
+W, H = 48, 36
+TOL = 2e-4
+CASES = {"assign01": {}, "assign02": {}, "assign04": {},
+         "assign09": dict(spp=4), "assign10": dict(passes=4, bounces=2)}
+
+
+def _np(x):
+    return np.asarray(x.detach().cpu() if isinstance(x, torch.Tensor) else x)
+
+
+def _run(fn_args_cfg):
+    fn, args, _ = fn_args_cfg
+    return _np(fn(*args))
+
+
+def _close_fake_shade(got, want):
+    err = np.abs(got - want)
+    beyond = (err > TOL + TOL * np.abs(want)).any(-1)
+    assert beyond.mean() <= 2e-3, beyond.sum()
+    assert err.max() <= 1e-3
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_assignment_matches_jax_and_golden(name):
+    kw = CASES[name]
+    got = _run(A.ALL[name](W, H, device="cpu", **kw))
+    assert got.shape == (H, W, 3) and np.isfinite(got).all()
+    jkw = dict(kw, passes=1, bounces=1) if name == "assign10" else kw
+    one = got if name != "assign10" else _run(A.ALL[name](W, H, device="cpu",
+                                                          **jkw))
+    want = _run(JA.ALL[name](W, H, **jkw))
+    if name in ("assign01", "assign02"):
+        _close_fake_shade(one, want)
+    else:
+        np.testing.assert_allclose(one, want, rtol=TOL, atol=TOL)
+    pdb_ref = os.environ.get("RT_REFERENCE_DIR") and A._ref(
+        "Assign02-Multi_Sphere_Ray_Tracing/mol/c60.pdb")
+    if name != "assign02" or pdb_ref:
+        ref = np.load(os.path.join(GOLDEN, f"{name}.npy"))
+        assert np.abs(got - ref).max() < 2e-2
+        assert abs(got.mean() - ref.mean()) < 1e-3
+
+
+def test_assignments_without_a_port_raise():
+    for name in ("assign06", "assign07"):
+        with pytest.raises(NotImplementedError, match="item 11"):
+            A.ALL[name](W, H, device="cpu")
+    for fn in (A.assign07, A.assign08, A.assign10):
+        with pytest.raises(NotImplementedError, match="item 15"):
+            fn(W, H, scene_xml="scene.xml", device="cpu")
+    assert sorted(A.ALL) == sorted(JA.ALL)
+    # assign03 (two stages) and assign05 (assign04's pipeline) as JAX's
+    _close_fake_shade(_run(A.assign03(W, H, device="cpu")),
+                      _run(JA.assign03(W, H)))
+    np.testing.assert_array_equal(_run(A.assign05(W, H, device="cpu")),
+                                  _run(A.assign04(W, H, device="cpu")))
+
+
+def _molecule():
+    g = np.random.default_rng(3)
+    centers = g.normal(size=(12, 3)).astype(np.float32)
+    radii = g.uniform(0.3, 0.7, 12).astype(np.float32)
+    colors = g.uniform(0.2, 1.0, (12, 4)).astype(np.float32)
+    return centers, radii, colors
+
+
+def test_camera_orbit_matches_jax():
+    centers, radii, _ = _molecule()
+    jsp = jtypes.make_spheres(centers, radii)
+    sp = make_spheres(centers, radii)
+    jcam = jtypes.Camera.auto_frame(jsp.bounds(), W, H)
+    cam = Camera.auto_frame(sp.bounds(), W, H)
+    for angle in (0.0, 37.5, 200.0):
+        want = jcam.orbit(jsp.bounds(), angle)
+        got = cam.orbit(sp.bounds(), angle)
+        for f in ("eye", "u", "v", "w"):
+            np.testing.assert_allclose(_np(getattr(got, f)),
+                                       np.asarray(getattr(want, f)),
+                                       rtol=1e-6, atol=1e-6, err_msg=f)
+
+
+def test_fake_shade_and_orbit_match_jax():
+    centers, radii, colors = _molecule()
+    jsp = jtypes.make_spheres(centers, radii)
+    sp = make_spheres(centers, radii)
+    jcam = jtypes.Camera.auto_frame(jsp.bounds(), W, H)
+    cam = Camera.auto_frame(sp.bounds(), W, H)
+    want = np.asarray(jsimple.render_fake_shade(jcam, jsp,
+                                                jnp.asarray(colors)))
+    got = _np(simple.render_fake_shade(cam, sp, torch.as_tensor(colors)))
+    assert got.shape == (H, W, 3) and got.max() > 0
+    _close_fake_shade(got, want)
+    want = np.asarray(jsimple.render_fake_shade_orbit(
+        jcam, jsp, jnp.asarray(colors), jsp.bounds(), n_frames=4))
+    got = _np(simple.render_fake_shade_orbit(
+        cam, sp, torch.as_tensor(colors),
+        AABB(pmin=sp.bounds().pmin, pmax=sp.bounds().pmax), n_frames=4))
+    assert got.shape == (4, H, W, 3)
+    _close_fake_shade(got, want)
+
+
+PDB_TEXT = """\
+ATOM      1  C1  LIG A   1       1.000   2.000   3.000  1.00  0.00           C
+ATOM      2  O1  LIG A   1      -1.000   0.000   0.500  1.00  0.00           O
+ATOM      3  O2  LIG B   1      -1.000   0.000   0.500  1.00  0.00           O
+HETATM    4  H1  LIG A   1       0.000   0.000   0.000  1.00  0.00           H
+ATOM      5  N   LIG A   1       0.500   0.500   0.500
+ATOM      6 ZN   LIG A   1       2.000   1.000   0.000  1.00  0.00          ZN
+CONECT    1    2    4
+CONECT    4    1
+"""
+
+
+def test_load_pdb_matches_jax(tmp_path):
+    path = tmp_path / "mol.pdb"
+    path.write_text(PDB_TEXT)
+    want, got = jpdb.load_pdb(str(path)), pdb.load_pdb(str(path))
+    assert got.size == want.size == 6
+    for f in ("centers", "radii", "color_ids", "colors", "element_radii",
+              "bounds_min", "bounds_max"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f),
+                                      err_msg=f)
+    assert got.bonds == want.bonds and (0, 1) in got.bonds
+
+
+@pytest.mark.parametrize("renderer", ["fake", "direct"])
+def test_cli_writes_fake_and_direct_renders(tmp_path, renderer):
+    out = str(tmp_path / f"{renderer}.png")
+    argv = ["--cpu", "--renderer", renderer, "--width", "32", "--height",
+            "24", "--passes", "2", "-o", out]
+    if renderer == "fake":
+        argv += ["--scene", "spheres"]
+    assert cli.main(argv) == 0
+    img = read_png(out)
+    assert img.shape == (24, 32, 3) and img.max() > 0

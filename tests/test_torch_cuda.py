@@ -1,6 +1,7 @@
-"""The CUDA kernels (the pass and its recording mode, its two adjoints and
-the stage pipeline's hit searches) against their plain PyTorch versions on
-the card.
+"""The CUDA kernels (the pass with and without Russian roulette, its
+recording and direct modes, its two adjoints with and without the roulette
+and the stage pipeline's hit searches) against their plain PyTorch
+versions on the card.
 
 Runs only where there is a CUDA device; elsewhere each test skips. Imports
 no jax, so it runs on a machine without it:
@@ -417,3 +418,173 @@ def test_kernel_1_keeps_4608_spheres_resident(cuda):
     beyond = ((got - want).abs() > TOL + TOL * want.abs()).any(-1)
     assert torch.isfinite(got).all() and want.abs().max() > 0
     assert beyond.float().mean().item() <= 0.01
+
+
+def _rr_setup(device, w=64, h=48, bounces=4, start=0, white=(1.0, 1.0, 1.0)):
+    """Cornell with the roulette from depth ``start``; ``white`` is the
+    white walls' albedo (cornell's exact 1.0 ties the throughput's channels
+    on the clip bound)."""
+    cfg = RenderConfig(width=w, height=h, bounces=bounces,
+                       russian_roulette=True, rr_start_depth=start,
+                       use_megakernel=True)
+    scene = cornell_box(cols=w, rows=h, device=device)
+    mat = scene.materials.clone()
+    mat[0, :3] = torch.tensor(white, device=device)
+    scene = replace(scene, materials=mat)
+    tables = mega.scene_tables(scene, cfg)
+    u = mega.u_planes_for_pass(pt.init_state(cfg, device)["key"], 0, cfg,
+                               scene.lights.count, device)
+    kw = dict(spp=1, width=w, bounces=bounces, two_sided=False,
+              normalize_emitter=True, seed=cfg.seed, russian_roulette=True,
+              rr_start_depth=start)
+    return cfg, tables, u, kw
+
+
+@pytest.mark.parametrize("start", [0, 2])
+def test_roulette_kernel_1_matches_plain_version(cuda, start):
+    """Kernel 1 with Russian roulette: the default build within phase 3's
+    gates of the plain version on the same u-planes, the --fmad=false build
+    equal to it on every ray, id and bit, and the PRNG route equal to the
+    u-planes route."""
+    cfg, tables, u, kw = _rr_setup(cuda, bounces=5, start=start)
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    z = torch.zeros((cfg.total_rays, 3), device=cuda)
+    want = MK.pathtrace_pass_reference(tables[0], ipar, *tables[1:], z, u,
+                                       record=True, **kw)
+    before = MK.launches
+    got = MK.pathtrace_pass(tables[0], ipar, *tables[1:], z.clone(), u, **kw)
+    exact = MK.pathtrace_pass(tables[0], ipar, *tables[1:], z.clone(), u,
+                              record=True, build_flags=("--fmad=false",),
+                              **kw)
+    prng = MK.pathtrace_pass(tables[0], ipar, *tables[1:], z.clone(), None,
+                             **kw)
+    torch.cuda.synchronize()
+    assert MK.launches == before + 3
+    beyond = ((got - want[0]).abs() > TOL + TOL * want[0].abs()).any(-1)
+    assert torch.isfinite(got).all()
+    assert beyond.float().mean().item() <= 0.01
+    for a, b in zip(exact, want):
+        assert torch.equal(a, b)
+    assert torch.equal(prng, got)
+    # the roulette ended paths before the last segment
+    assert ((want[1][2] >= 0) & (want[1][3] < 0)).any()
+
+
+@pytest.mark.parametrize("white", [(1.0, 1.0, 1.0), (0.8, 0.8, 0.8)])
+def test_roulette_adjoint_kernels_match_plain_versions(cuda, white):
+    """Kernels 2 and 3 with Russian roulette from depth 0 against their
+    plain versions (phase 6's gates), all five groups, both draw routes;
+    with white walls of (1, 1, 1) the throughput's channels tie on the
+    clip bound, with (0.8, 0.8, 0.8) they tie inside it."""
+    cfg, tables, u, kw = _rr_setup(cuda, white=white)
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    g = torch.as_tensor(np.random.default_rng(6).normal(
+        size=(cfg.total_rays, 3)).astype(np.float32), device=cuda)
+    want = MKG.pathtrace_pass_bwd_reference(tables[0], ipar, *tables[1:], g,
+                                            u, **kw)
+    _, ids, occs = MK.pathtrace_pass(
+        tables[0], ipar, *tables[1:], torch.zeros_like(g), u, record=True,
+        **kw)
+    want3 = MKG.pathtrace_pass_bwd_champ_reference(
+        tables[0], ipar, *tables[1:], g, u, ids, occs, **kw)
+    for planes in (u, None):
+        _gates(want, MKG.pathtrace_pass_bwd(tables[0], ipar, *tables[1:], g,
+                                            planes, **kw))
+        _gates(want3, MKG.pathtrace_pass_bwd_champ(
+            tables[0], ipar, *tables[1:], g, planes, ids, occs, **kw))
+    torch.cuda.synchronize()
+
+
+def test_roulette_on_the_8_row_sphere_loop(cuda):
+    """sphere_field(512), kernel 1's 8-row loop, with the roulette from
+    depth 0: kernel 1's --fmad=false build equals its plain version on
+    every ray, id and bit, its PRNG route equals its u-planes route, and
+    kernel 3 on that record meets phase 6's gates against its plain
+    version for the training groups ("sph", "mat")."""
+    wrt = ("sph", "mat")
+    cfg = RenderConfig(width=64, height=48, bounces=5, russian_roulette=True,
+                       rr_start_depth=0, use_megakernel=True)
+    scene = sphere_field(WIDE_SPHERES, cols=64, rows=48, device=cuda)
+    tables = mega.scene_tables(scene, cfg)
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    u = mega.u_planes_for_pass(pt.init_state(cfg, cuda)["key"], 0, cfg,
+                               scene.lights.count, cuda)
+    kw = dict(spp=1, width=64, bounces=5, two_sided=False,
+              normalize_emitter=True, seed=cfg.seed, russian_roulette=True,
+              rr_start_depth=0)
+    z = torch.zeros((cfg.total_rays, 3), device=cuda)
+    want = MK.pathtrace_pass_reference(tables[0], ipar, *tables[1:], z, u,
+                                       record=True, **kw)
+    exact = MK.pathtrace_pass(tables[0], ipar, *tables[1:], z.clone(), u,
+                              record=True, build_flags=("--fmad=false",),
+                              **kw)
+    got = MK.pathtrace_pass(tables[0], ipar, *tables[1:], z.clone(), u, **kw)
+    prng = MK.pathtrace_pass(tables[0], ipar, *tables[1:], z.clone(), None,
+                             **kw)
+    for a, b in zip(exact, want):
+        assert torch.equal(a, b)
+    assert torch.equal(prng, got)
+    _, ids, occs = exact
+    g = torch.as_tensor(np.random.default_rng(6).normal(
+        size=(cfg.total_rays, 3)).astype(np.float32), device=cuda)
+    want3 = MKG.pathtrace_pass_bwd_champ_reference(
+        tables[0], ipar, *tables[1:], g, u, ids, occs, diff_wrt=wrt, **kw)
+    got3 = MKG.pathtrace_pass_bwd_champ(
+        tables[0], ipar, *tables[1:], g, u, ids, occs, diff_wrt=wrt, **kw)
+    torch.cuda.synchronize()
+    pick = [MKG.DIFF_ALL.index(n) for n in wrt]
+    _gates([want3[i] for i in pick], [got3[i] for i in pick], wrt)
+
+
+@pytest.mark.parametrize("spp,lens", [(1, 0.0), (4, 0.25)])
+def test_direct_mode_kernel_matches_plain_version(cuda, spp, lens):
+    """Kernel 1's direct mode on u_planes_for_direct: within phase 3's gates
+    of the plain version, its --fmad=false build equal on every ray; its
+    PRNG route equal to the u-planes route, and over three passes (pass p
+    keyed by pass_key(key, p)) to the plain version's own draws."""
+    from raytracing_tpu_torch.core import rng
+    cfg = RenderConfig(width=64, height=48, spp=spp, bounces=0,
+                       use_megakernel=True)
+    scene = cornell_box(cols=64, rows=48, lens_diameter=lens, device=cuda)
+    tables = mega.scene_tables(scene, cfg)
+    key = rng.base_key(9)
+    u = mega.u_planes_for_direct(key, cfg, scene.lights.count, cuda)
+    z = torch.zeros((cfg.total_rays, 3), device=cuda)
+    kw = dict(key=key, spp=spp, width=64, two_sided=False)
+    want = MK.direct_pass_reference(tables[0], *tables[1:], z, u, **kw)
+    before = MK.direct_launches
+    got = MK.direct_pass(tables[0], *tables[1:], z.clone(), u, **kw)
+    exact = MK.direct_pass(tables[0], *tables[1:], z.clone(), u,
+                           build_flags=("--fmad=false",), **kw)
+    prng = MK.direct_pass(tables[0], *tables[1:], z.clone(), None, **kw)
+    three = MK.direct_pass(tables[0], *tables[1:], z.clone(), None,
+                           n_passes=3, build_flags=("--fmad=false",), **kw)
+    torch.cuda.synchronize()
+    assert MK.direct_launches == before + 4
+    beyond = ((got - want).abs() > TOL + TOL * want.abs()).any(-1)
+    assert beyond.float().mean().item() <= 0.01 and got.max() > 0
+    assert torch.equal(exact, want) and torch.equal(prng, got)
+    assert torch.equal(three, MK.direct_pass_reference(
+        tables[0], *tables[1:], z, None, n_passes=3, **kw))
+
+
+def test_exact_kernel_1_without_roulette_still_equals_plain(cuda):
+    """The non-roulette instance of the --fmad=false kernel 1 (the build
+    beside the roulette one) equals its plain version on every ray, id and
+    bit on cornell b5."""
+    cfg = RenderConfig(width=64, height=48, bounces=5, use_megakernel=True)
+    scene = cornell_box(cols=64, rows=48, device=cuda)
+    tables = mega.scene_tables(scene, cfg)
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    u = mega.u_planes_for_pass(pt.init_state(cfg, cuda)["key"], 0, cfg,
+                               scene.lights.count, cuda)
+    kw = dict(spp=1, width=64, bounces=5, two_sided=False,
+              normalize_emitter=True, seed=cfg.seed)
+    z = torch.zeros((cfg.total_rays, 3), device=cuda)
+    want = MK.pathtrace_pass_reference(tables[0], ipar, *tables[1:], z, u,
+                                       record=True, **kw)
+    got = MK.pathtrace_pass(tables[0], ipar, *tables[1:], z.clone(), u,
+                            record=True, build_flags=("--fmad=false",), **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

@@ -170,8 +170,6 @@ def test_png_written_by_port_reads_back(tmp_path):
 
 
 UNSUPPORTED = {
-    "russian_roulette": (dict(russian_roulette=True),
-                         "ROADMAP Queue 1 item 7"),
     "grid": (dict(use_grid=True), "ROADMAP Queue 1 item 11"),
     "stale_poi": (dict(replicate_stale_poi=True),
                   "stage-pipeline option.*set use_megakernel=False"),

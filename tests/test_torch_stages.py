@@ -201,8 +201,10 @@ def test_render_direct_matches_jax(cornell, n_passes):
     got = direct.render_direct(ps, RenderConfig(**kw), n_passes=n_passes)
     assert got.shape == (H, W, 3)
     _close(got, want)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        direct.render_direct(ps, RenderConfig(use_megakernel=True, **kw))
+    # the megakernel branch runs kernel 1's direct mode (its plain version
+    # on the CPU) on the same draws
+    _close(direct.render_direct(ps, RenderConfig(use_megakernel=True, **kw),
+                                n_passes=n_passes), want)
 
 
 def test_default_config_takes_the_stage_route(cornell, monkeypatch):
@@ -286,5 +288,10 @@ def test_cli_direct_renderer(tmp_path):
                                 n_passes=2)
     np.testing.assert_array_equal(
         read_png(out), (want.numpy() * 255 + 0.5).astype(np.uint8))
-    with pytest.raises(SystemExit, match="--no-megakernel"):
-        cli.main(base)
+    # without --no-megakernel: kernel 1's direct mode (its plain version)
+    assert cli.main(base + ["--passes", "2"]) == 0
+    mk = direct.render_direct(scene, RenderConfig(width=16, height=12,
+                                                  use_megakernel=True),
+                              n_passes=2)
+    np.testing.assert_array_equal(
+        read_png(out), (mk.numpy() * 255 + 0.5).astype(np.uint8))
