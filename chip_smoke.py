@@ -120,11 +120,45 @@ Phases, each fatal on failure (no exception is caught):
      around the wrapper) beside the call; config 1 (16 orbit frames of
      render_fake_shade_orbit at 1024^2; no hand-written kernel, as in JAX)
      timed.
+ 16. grid build: prepare_grids of shapes 1 and 3 at 1024^2 -- cornell plus
+     a procedural 992-triangle torus mesh (the teapot's size; its kernel
+     grid 3^3 by auto_slabs, the walls the brute prefix; the scene of
+     tests/torch_grid_scenes.py) and sphere_field(8192) (its sphere grid
+     6^3, past the resident 4608) -- with the build ms; phases 17-19 reuse
+     these scenes (built once per shape and size);
+ 17. kernel 1's grid mode vs its plain version (accel/traverse's march with
+     the brute loops' arithmetic) at 256x192 on both scenes in direct,
+     path and roulette modes, the path modes recording (the record and the
+     accumulator of the recording launch against the plain record; the
+     path launch's accumulator equal to the recording launch's), same
+     draws: phase 3's gates on the torus, SPHERE_GATES on the sphere grid;
+     its --fmad=false build equal on every ray, id and bit; the plain grid
+     version equal to the brute plain version (ids and bits, acc within
+     1e-6) in direct mode and, on the torus, in path mode at depth 1. The
+     plain march's walk steps and distinct (ray, item) tests give the grid
+     bounds (OPS_WALK, OPS_CELL), scaled to 1024^2;
+ 18. timings at 1024^2: config 3's shape through render_direct (16 passes
+     per call, one launch per call) at block 64 and block 0 in turns, rays
+     as bench.py:225-228 count them, the kernel alone and its share of the
+     bound, the two blocks' images bit-equal, the first pass vs plain
+     (phase 3's gates); shapes 2 (the torus scene in path mode b5, block
+     64, BENCH_GRID=1) and 3 (sphere_field(8192), block 0): forward
+     segments/s, kernel alone, first pass vs plain, then 5 cell-route train
+     steps (("sph", "mat", "tri") on the torus, ("sph", "mat") on the
+     spheres): one kernel-1 and one kernel-3 launch per step, no kernel 2,
+     ms/step, kernel 1 recording and kernel 3 alone with their bounds, and
+     kernel 3 vs its plain version on the last step's record and cotangent
+     (phase 6's gates at 1024^2);
+ 19. kernel 3 on kernel 1's grid record (original rows) vs its plain
+     version (PRNG and u-planes routes, phase 6's gates) on both scenes at
+     256x192 with all five groups.
+Each phase prints the seconds elapsed since the start before it runs.
 Ends with a kernels JSON line and, last, the device JSON line. Exits non-zero
 without a result where CUDA is missing or the package is not beside it.
 """
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -132,6 +166,7 @@ import time
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
+START = time.perf_counter()
 TOL = 2e-4
 BOUNCES = 5
 MAIN_W = MAIN_H = 1024
@@ -163,6 +198,16 @@ CELL_RR_STEPS = 10
 DIRECT_PASSES = 16         # bench.py's BENCH_PASSES for configs 2 and 4
 DIRECT_REPS = 10
 ORBIT_FRAMES = 16
+# phases 16-19: kernel 1's grid mode on config 3's shape (cornell plus a
+# procedural 992-triangle torus mesh, the teapot's size), its path mode
+# (BENCH_GRID=1) and a molecule-scale sphere grid
+TORUS_SEGMENTS = (31, 16)   # tests/torch_grid_scenes.py's torus, 992 faces
+GRID_SPHERES = 8192        # past SPH_RESIDENT_MAX: the sphere grid
+GRID_PASSES = 16           # passes per call (bench.py BENCH_PASSES)
+GRID_BLOCK = 64            # assign07's (and bench.py's mesh scenes') block
+GRID_REPS = 5
+GRID_TRAIN_STEPS = 5
+MESH_WRT = ("sph", "mat", "tri")
 
 # Bounds: the least time the card could take for a kernel's work, the
 # larger of its FP32 operations over the H100's 67 TFLOP/s and its bytes
@@ -194,6 +239,12 @@ OPS_CHAMP = 60           # kernel 3: a recorded champion's t, beta, gamma,
                          # normal, material
 OPS_RR = 9               # Russian roulette (rr_survive): max, max, clip 2,
                          # compare, 1 / p, three products
+OPS_WALK = 86            # grid mode, per grid walked by a traced segment or
+                         # shadow ray: slab test and cell crossings 39,
+                         # margin and window 8, entry point and cell 21,
+                         # first faces 18 (csrc/pathtrace.cuh grid_walk)
+OPS_CELL = 10            # per walk step: nearest face 2, bound, margin
+                         # and test 3, tie tests 4, one face advanced 1
 OPS_DIRECT_SHADE = 86    # per direct-mode shadow ray: disk point 28, ray
                          # 25, any-hit set-up 16, cosine and clip 7,
                          # ambient and clip 4, albedo x shade into acc 6
@@ -235,6 +286,11 @@ OPS_ADJ_RR = 46          # per segment that followed a roulette, plus 3 per
                          # light (the throughput replayed): p 5, 1 / p, the
                          # tie and bound weights 20, g.tp 5, the chain 5,
                          # the three cotangents 11
+
+
+def _elapsed(phase: int) -> None:
+    print(f"[{time.perf_counter() - START:.1f} s elapsed before phase "
+          f"{phase}]")
 
 
 def _fail(msg: str) -> None:
@@ -1849,6 +1905,569 @@ def direct_main_path(dev, smi: str) -> dict:
     return entry
 
 
+# ---------------------------------------------------------------------------
+# phases 16-19: kernel 1's grid mode
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _grid_scene(shape: str, w: int, h: int, dev):
+    """Config 3's scene (cornell plus the torus mesh of
+    tests/torch_grid_scenes.py, its grid at auto_slabs(992) = 3 over the
+    mesh, the walls brute force) or sphere_field(GRID_SPHERES) with its
+    sphere grid, prepared as bench.py's BENCH_GRID=1 prepares them
+    ("auto"); built once per shape and size (nothing mutates a scene)."""
+    from raytracing_tpu_torch.accel import prepare_grids
+    from raytracing_tpu_torch.models.scenes import sphere_field
+    if shape == "spheres":
+        return prepare_grids(sphere_field(GRID_SPHERES, cols=w, rows=h,
+                                          device=dev), "auto")
+    sys.path.insert(0, str(HERE / "tests"))
+    from torch_grid_scenes import cornell_torus
+    return prepare_grids(cornell_torus(w, h, *TORUS_SEGMENTS, device=dev),
+                         "auto", mesh_slabs="auto")
+
+
+def _grid_cfg(shape: str, w: int, h: int, mode: str, **kw):
+    from raytracing_tpu_torch import RenderConfig
+    return RenderConfig(width=w, height=h,
+                        bounces=0 if mode == "direct" else BOUNCES,
+                        use_grid=True, use_megakernel=True,
+                        russian_roulette=mode == "rr",
+                        rr_start_depth=RR_START, **kw)
+
+
+def _grid_bytes(tables, grid) -> int:
+    return _table_bytes(tables) + sum(
+        4 * (g.cell_offsets.numel() + g.item_indices.numel())
+        for g in list(grid.tri) + ([grid.sph] if grid.sph is not None
+                                   else []))
+
+
+def _grid_ops(w: dict, work: dict, grid, n_sph: int, n_lig: int,
+              direct: bool) -> float:
+    """FP32 operations of a grid-mode pass: the brute prefix as _k1_ops and
+    _direct_ops count it (the spheres unless gridded, the triangles below
+    ``start``), one walk set-up per grid for each traced segment and shadow
+    ray, and the walks' cell steps and item tests as the plain march
+    counted them (``work``, scaled to this pass's rays): each item once per
+    ray and walk however many of the walk's cells hold it, no side cell
+    (their visits and the raw tests are printed beside)."""
+    n_s = 0 if grid.sph is not None else n_sph
+    n_t = grid.start
+    tests = n_s * OPS_SPHERE_TEST + n_t * OPS_TRIANGLE_TEST
+    one = OPS_TRIANGLE_TEST if n_t else (OPS_SPHERE_TEST if n_s else 0)
+    seg = w["primary"] if direct else w["traced"]
+    n_grids = len(grid.tri) + (grid.sph is not None)
+    ops = (w["rays"] * OPS_CAMERA + seg * (OPS_TRACE + tests)
+           + w["sph_hits"] * OPS_SPHERE_HIT + w["tri_hits"] * OPS_TRIANGLE_HIT
+           + w["free"] * tests + w["occluded"] * one
+           + (seg + w["shadow"]) * n_grids * OPS_WALK
+           + work["cells"] * OPS_CELL
+           + work.get("sph_tests", 0) * OPS_SPHERE_TEST
+           + work.get("tri_tests", 0) * OPS_TRIANGLE_TEST)
+    if direct:
+        return ops + w["shadow"] * OPS_DIRECT_SHADE
+    return ops + (w["primary"] * n_lig * OPS_EMITTER + w["shadow"] * OPS_NEE
+                  + w["bounces"] * OPS_BOUNCE + w["rr"] * OPS_RR)
+
+
+def grid_build(dev) -> None:
+    """Phase 16: build the grids of shapes 1 and 3 (host binning, then the
+    CSR arrays to the card) and print the build ms."""
+    import torch
+    for shape in ("torus", "spheres"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scene = _grid_scene(shape, MAIN_W, MAIN_H, dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        g = scene.mega_sph_grid if shape == "spheres" else \
+            scene.folded_tri_grid[0]
+        want = (6, 6, 6) if shape == "spheres" else (3, 3, 3)
+        print(f"phase 16 grid build {shape}: {ms:.6g} ms (prepare_grids, "
+              f"all of the scene's grids); kernel grid {g.n}, "
+              f"{g.item_indices.numel()} payload rows, at most "
+              f"{g.max_per_cell} per cell, start {g.start}")
+        _check(g.n == want, f"{shape}: grid {g.n}, want {want}")
+        if shape == "torus":
+            _check(g.start == 10 and scene.mega_sph_grid is None,
+                   "torus: the walls are not the brute prefix")
+
+
+def grid_vs_plain(dev, shape: str, mode: str) -> dict:
+    """Phase 17 at 256x192, one shape and mode ("direct", "path", "rr"):
+    kernel 1's grid mode against its plain grid version on the same draws
+    (phase 3's gates; SPHERE_GATES on the sphere grid), the path modes
+    recording (in "path" the launch without the record must give the
+    recording launch's accumulator bit for bit), its --fmad=false build
+    equal on every ray, id and bit, and the plain grid version against the
+    brute plain version over the whole tables (ids and bits equal, acc
+    within 1e-6) in direct mode and, on the torus, in path mode at depth 1
+    (the brute loops launch per object: ~20 s for a b5 pass over the torus
+    whatever the film; the CPU tests hold the roulette's grid to brute
+    force). Returns max |d|, the plain ms and the plain march's work."""
+    import torch
+    from raytracing_tpu_torch import replace
+    from raytracing_tpu_torch.core import rng
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.render import mega
+    from raytracing_tpu_torch.render import pathtracer as pt
+
+    w, h = SMALL_W, SMALL_H
+    scene = _grid_scene(shape, w, h, dev)
+    cfg = _grid_cfg(shape, w, h, mode)
+    tables = mega.scene_tables(scene, cfg)
+    grid = mega.grid_tables(scene)
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    zeros = torch.zeros((cfg.total_rays, 3), device=dev)
+    work = {}
+    if mode == "direct":
+        key = rng.base_key(cfg.seed)
+        u = mega.u_planes_for_direct(key, cfg, scene.lights.count, dev)
+        kw = dict(key=key, spp=1, width=w, two_sided=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = (MK.direct_pass_reference(*tables, zeros, u, grid=grid,
+                                         work=work, **kw),)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = (MK.direct_pass(*tables, zeros.clone(), u, grid=grid, **kw),)
+        exact = (MK.direct_pass(*tables, zeros.clone(), u, grid=grid,
+                                build_flags=EXACT_FLAGS, **kw),)
+        brute = (want, (MK.direct_pass_reference(*tables, zeros, u, **kw),))
+    else:
+        u = mega.u_planes_for_pass(pt.init_state(cfg, dev)["key"], 0, cfg,
+                                   scene.lights.count, dev)
+        kw = _pass_kw(cfg)
+
+        def run(**extra):
+            return MK.pathtrace_pass(tables[0], ipar, *tables[1:],
+                                     zeros.clone(), u, grid=grid, **kw,
+                                     **extra)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = MK.pathtrace_pass_reference(tables[0], ipar, *tables[1:],
+                                           zeros, u, grid=grid, work=work,
+                                           record=True, **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = run(record=True)
+        exact = run(record=True, build_flags=EXACT_FLAGS)
+        if mode == "path":
+            _check(torch.equal(run(), got[0]), f"{shape}: the recording "
+                   "launch's acc differs from the path launch's")
+        brute = None
+        if shape == "torus" and mode == "path":
+            c1 = replace(cfg, bounces=1)
+            u1 = mega.u_planes_for_pass(pt.init_state(c1, dev)["key"], 0, c1,
+                                        scene.lights.count, dev)
+            brute = tuple(MK.pathtrace_pass_reference(
+                tables[0], ipar, *tables[1:], zeros, u1, record=True,
+                grid=g, **_pass_kw(c1)) for g in (grid, None))
+    torch.cuda.synchronize()
+    err = (got[0] - want[0]).abs()
+    beyond = (err > TOL + TOL * want[0].abs()).any(-1).double().mean().item()
+    gm, wm = got[0].double().mean().item(), want[0].double().mean().item()
+    rel = abs(gm - wm) / abs(wm)
+    ids = ((got[1] != want[1]).double().mean().item() if len(got) > 1
+           else 0.0)
+    ids0 = ((got[1][0] != want[1][0]).double().mean().item()
+            if len(got) > 1 else 0.0)
+    same = all(torch.equal(a, b) for a, b in zip(exact, want))
+    line = (f"phase 17 grid mode {shape} {mode} {w}x{h}: kernel vs plain "
+            f"({plain_ms:.6g} ms) max|d acc| {err.max().item():.6g}, rays "
+            f"beyond {TOL:g} {beyond:.6%}, mean rel {rel:.3g}, ids differ "
+            f"{ids:.6%} (first segments {ids0:.6%}); --fmad=false build "
+            f"equal {same}; plain march: "
+            f"{ {k: int(v) for k, v in work.items()} }")
+    if brute is not None:
+        gv, bv = brute
+        bsame = all(torch.equal(a, b) for a, b in zip(gv[1:], bv[1:]))
+        bmax = (gv[0] - bv[0]).abs().max().item()
+        line += (f"; brute plain{' (b1)' if mode == 'path' else ''}: ids "
+                 f"and bits equal {bsame}, max|d| {bmax:g}")
+        _check(bsame and bmax <= 1e-6,
+               f"{shape} {mode}: grid plain version != brute plain version")
+    print(line)
+    _check(bool(torch.isfinite(got[0]).all()) and got[0].max().item() > 0,
+           f"{shape} {mode}: grid acc not finite or black")
+    _check(same, f"{shape} {mode}: the --fmad=false build differs from the "
+           "plain version")
+    if shape == "torus":
+        _check(beyond <= 0.01 and rel <= 1e-5,
+               f"{shape} {mode}: beyond {beyond:.4%}, mean rel {rel:.3g}")
+    else:
+        d = {"beyond": beyond, "rel": rel, "ids": ids, "ids0": ids0}
+        _check(all(d[k] <= SPHERE_GATES[k] for k in d),
+               f"{shape} {mode}: {d}, limits {SPHERE_GATES}")
+    return {"max_abs_err": err.max().item(), "plain_ms": plain_ms,
+            "work": work}
+
+
+def _scaled(work: dict, factor: float) -> dict:
+    return {k: float(v) * factor for k, v in work.items()}
+
+
+def grid_direct_main(dev, smi: str, work: dict) -> dict:
+    """Phase 18, shape 1 (config 3's shape): render_direct in grid mode,
+    16 passes per call, at B = GRID_BLOCK and B = 0 in turns (B, 0, 0, B);
+    one direct-mode launch per call; rays as bench.py:225-228 count them;
+    the kernel alone (CUDA events around the wrapper) and its share of the
+    bound (the 256x192 march's work scaled); the kernel's first pass vs
+    the plain version at 1024^2 (phase 3's gates). Returns the entry."""
+    import torch
+    from raytracing_tpu_torch import replace
+    from raytracing_tpu_torch.core import rng
+    from raytracing_tpu_torch.io.png import write_png
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.render import mega
+    from raytracing_tpu_torch.render.direct import render_direct
+
+    scene = _grid_scene("torus", MAIN_W, MAIN_H, dev)
+    base = _grid_cfg("torus", MAIN_W, MAIN_H, "direct", n_slabs=3)
+    n_rays = base.total_rays * (1 + scene.lights.count) * GRID_PASSES
+    tables = mega.scene_tables(scene, base)
+    grid = mega.grid_tables(scene)
+    key = rng.base_key(base.seed)
+    res = {}
+    for block in (GRID_BLOCK, 0, 0, GRID_BLOCK):
+        cfg = replace(base, mega_block=block)
+        img = render_direct(scene, cfg, n_passes=GRID_PASSES)   # warm-up
+        torch.cuda.synchronize()
+        MK.direct_launches = MK.launches = 0
+        t0 = time.perf_counter()
+        for _ in range(GRID_REPS):
+            img = render_direct(scene, cfg, n_passes=GRID_PASSES)
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3 / GRID_REPS
+        launches = MK.direct_launches
+        _check(launches == GRID_REPS and MK.launches == 0,
+               f"B={block}: {launches} direct launches for {GRID_REPS} calls")
+        _check(bool(torch.isfinite(img).all()) and img.max().item() > 0,
+               f"B={block}: image not finite or black")
+        acc = torch.zeros((base.total_rays, 3), device=dev)
+        kw = dict(key=key, spp=1, width=MAIN_W, two_sided=False,
+                  n_passes=GRID_PASSES, grid=grid, block=block)
+        MK.direct_pass(*tables, acc, None, **kw)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(GRID_REPS):
+            MK.direct_pass(*tables, acc, None, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        k_ms = start.elapsed_time(end) / GRID_REPS
+        res.setdefault(block, []).append((call_ms, k_ms, img, launches))
+        n_tri = 2 * TORUS_SEGMENTS[0] * TORUS_SEGMENTS[1]
+        print(f"phase 18 config 3's shape (cornell + torus({n_tri}), "
+              f"grid {grid.tri[0].n}) {MAIN_W}x{MAIN_H} direct, "
+              f"{GRID_PASSES} passes per call, B = {block} on [{smi}]: "
+              f"{n_rays / (call_ms / 1e3):.6g} rays/s ({n_rays} per call), "
+              f"call {call_ms:.6g} ms, kernel alone {k_ms:.6g} ms (host "
+              f"share {max(0.0, 1 - k_ms / call_ms):.3%}); launches "
+              f"{launches}")
+    _check(torch.equal(res[GRID_BLOCK][0][2], res[0][0][2]),
+           f"B = {GRID_BLOCK} image != B = 0 image")
+    out = HERE / "build" / "chip_smoke_cornell_torus_direct_1024.png"
+    write_png(str(out), res[GRID_BLOCK][0][2])
+    # one pass against the plain version on the same draws
+    u = mega.u_planes_for_direct(key, base, scene.lights.count, dev)
+    zeros = torch.zeros((base.total_rays, 3), device=dev)
+    one = dict(key=key, spp=1, width=MAIN_W, two_sided=False, grid=grid)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = MK.direct_pass_reference(*tables, zeros, u, **one)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = MK.direct_pass(*tables, zeros.clone(), u, block=GRID_BLOCK, **one)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    beyond = (err > TOL + TOL * want.abs()).any(-1).double().mean().item()
+    rel = abs(got.double().mean().item() / want.double().mean().item() - 1)
+    _check(beyond <= 0.01 and rel <= 1e-5,
+           f"config 3 shape 1024^2: beyond {beyond:.4%}, rel {rel:.3g}")
+    # the bound of a pass: the record of a pass without bounces on the
+    # direct draws (primary and shadow rays; a launch outside the count)
+    _, ids, occs = MK.pathtrace_pass(
+        tables[0], torch.tensor([0, 0], dtype=torch.int32), *tables[1:],
+        torch.zeros_like(zeros), u, grid=grid, record=True,
+        **_pass_kw(replace(base, bounces=0)))
+    w = _pass_work(ids, occs, scene.lights.count, tables[1].shape[0])
+    ops = _grid_ops(w, _scaled(work, base.total_rays / (SMALL_W * SMALL_H)),
+                    grid, tables[1].shape[0], scene.lights.count, True)
+    bound = _bound(ops, 24 * base.total_rays + _grid_bytes(tables, grid))
+    k_b = min(x[1] for x in res[GRID_BLOCK]) / GRID_PASSES
+    k_0 = min(x[1] for x in res[0]) / GRID_PASSES
+    print(f"phase 18 config 3's shape per pass: kernel B = {GRID_BLOCK} "
+          f"{k_b:.6g} ms, B = 0 {k_0:.6g} ms (best of two turns); plain "
+          f"version {plain_ms:.6g} ms, max|d acc| {err.max().item():.6g}, "
+          f"rays beyond {TOL:g} {beyond:.6%}, mean rel {rel:.3g}; bound "
+          f"{ops / base.total_rays:.6g} FP32 operations per ray -> "
+          f"{bound['bound_ms']:.6g} ms ({bound['bound_by']}), share "
+          f"{bound['bound_ms'] / k_b:.3%}; image -> {out}")
+    return {"launches": res[GRID_BLOCK][1][3], "ms": k_b,
+            "plain_ms": plain_ms, "max_abs_err": err.max().item(), **bound}
+
+
+def grid_path_main(dev, smi: str, shape: str, work: dict) -> tuple:
+    """Phase 18, shapes 2 (the torus scene, B = GRID_BLOCK) and 3
+    (sphere_field(GRID_SPHERES), B = 0), path mode b5 as bench.py's
+    BENCH_GRID=1 runs them: the forward (render_passes, 16 passes per
+    call, one launch per call) in segments/s and ms per pass, the kernel
+    alone, its first pass vs the plain version at 1024^2, its bound; then
+    the cell route's train step (render_pass -> image -> mean square ->
+    backward -> SGD; one kernel-1 recording and one kernel-3 launch per
+    step, no kernel 2), kernel 1 recording and kernel 3 alone on the last
+    step. Returns the forward entry and the kernel-3 entry."""
+    import torch
+    from raytracing_tpu_torch import replace
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.ops import megakernel_grad as MKG
+    from raytracing_tpu_torch.render import mega
+    from raytracing_tpu_torch.render import pathtracer as pt
+
+    block = GRID_BLOCK if shape == "torus" else 0
+    wrt = MESH_WRT if shape == "torus" else TRAIN_WRT
+    scene = _grid_scene(shape, MAIN_W, MAIN_H, dev)
+    cfg = _grid_cfg(shape, MAIN_W, MAIN_H, "path", mega_block=block,
+                    mega_grad_wrt=wrt)
+    grid = mega.grid_tables(scene)
+    tables = mega.scene_tables(scene, cfg)
+    n_l = scene.lights.count
+    segs = cfg.total_rays * (1 + n_l + cfg.bounces * (1 + n_l))
+    state = pt.render_passes(scene, pt.init_state(cfg, dev), cfg,
+                             GRID_PASSES)                        # warm-up
+    torch.cuda.synchronize()
+    MK.launches = 0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(GRID_REPS):
+        state = pt.render_passes(scene, state, cfg, GRID_PASSES)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = MK.launches
+    _check(launches == GRID_REPS, f"{shape}: {launches} kernel-1 launches "
+           f"for {GRID_REPS} render_passes calls")
+    _check(bool(torch.isfinite(state["acc"]).all()), f"{shape}: acc")
+    ms_pass = start.elapsed_time(end) / (GRID_REPS * GRID_PASSES)
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    acc = torch.zeros((cfg.total_rays, 3), device=dev)
+    kw = _pass_kw(cfg)
+    MK.pathtrace_pass(tables[0], ipar, *tables[1:], acc, None, grid=grid,
+                      block=block, n_passes=GRID_PASSES, **kw)
+    start.record()
+    MK.pathtrace_pass(tables[0], ipar, *tables[1:], acc, None, grid=grid,
+                      block=block, n_passes=GRID_PASSES, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    k_ms = start.elapsed_time(end) / GRID_PASSES
+    # the first pass against the plain version on the same draws
+    u = mega.u_planes_for_pass(state["key"], 0, cfg, n_l, dev)
+    zeros = torch.zeros_like(acc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = MK.pathtrace_pass_reference(tables[0], ipar, *tables[1:], zeros,
+                                       u, grid=grid, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got, ids, occs = MK.pathtrace_pass(tables[0], ipar, *tables[1:],
+                                       zeros.clone(), u, grid=grid,
+                                       block=block, record=True, **kw)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    beyond = (err > TOL + TOL * want.abs()).any(-1).double().mean().item()
+    rel = abs(got.double().mean().item() / want.double().mean().item() - 1)
+    gates = ((0.01, 1e-5) if shape == "torus"
+             else (SPHERE_GATES["beyond"], SPHERE_GATES["rel"]))
+    _check(beyond <= gates[0] and rel <= gates[1],
+           f"{shape} 1024^2 pass: beyond {beyond:.4%}, rel {rel:.3g}")
+    w = _pass_work(ids, occs, n_l, tables[1].shape[0])
+    ops = _grid_ops(w, _scaled(work, cfg.total_rays / (SMALL_W * SMALL_H)),
+                    grid, tables[1].shape[0], n_l, False)
+    bound = _bound(ops, 24 * cfg.total_rays + _grid_bytes(tables, grid))
+    name = ("cornell + torus" if shape == "torus"
+            else f"sphere_field({GRID_SPHERES})")
+    sph_grid = (f" + sphere grid {grid.sph.n}" if grid.sph is not None
+                else "")
+    print(f"phase 18 {name} {MAIN_W}x{MAIN_H} b{BOUNCES} grid mode "
+          f"(kernel grids {[g.n for g in grid.tri]}"
+          f"{sph_grid}"
+          f"), B = {block}, {GRID_PASSES} passes/call x {GRID_REPS} on "
+          f"[{smi}]: {segs * GRID_PASSES * GRID_REPS / wall:.6g} forward ray "
+          f"segments/s ({segs} per pass), {ms_pass:.6g} ms/pass (CUDA "
+          f"events), kernel alone {k_ms:.6g} ms/pass; launches {launches}; "
+          f"plain version {plain_ms:.6g} ms/pass, max|d acc| "
+          f"{err.max().item():.6g}, rays beyond {TOL:g} {beyond:.6%}, mean "
+          f"rel {rel:.3g}; bound {ops / cfg.total_rays:.6g} FP32 operations "
+          f"per ray -> {bound['bound_ms']:.6g} ms ({bound['bound_by']}), "
+          f"share {bound['bound_ms'] / k_ms:.3%}")
+    fwd = {"launches": launches, "ms": k_ms, "plain_ms": plain_ms,
+           "max_abs_err": err.max().item(), **bound}
+
+    # the cell route's train step
+    _check(mega.bwd_impl_for(scene, cfg) == "cell", f"{shape}: not cell")
+    params = {"center": scene.spheres.center.clone().requires_grad_(True),
+              "radius": scene.spheres.radius.clone().requires_grad_(True),
+              "materials": scene.materials.clone().requires_grad_(True)}
+    if shape == "torus":
+        params["tv"] = scene.meshes[0].tris.v.clone().requires_grad_(True)
+    seen = {}
+
+    def sc_of(p):
+        sc = replace(scene, spheres=replace(scene.spheres, center=p["center"],
+                                            radius=p["radius"]),
+                     materials=p["materials"])
+        if "tv" in p:
+            m = scene.meshes[0]
+            sc = replace(sc, meshes=(replace(m, tris=replace(m.tris,
+                                                             v=p["tv"])),))
+        return sc
+
+    def step(st):
+        st = pt.render_pass(sc_of(params), st, cfg)
+        st["acc"].register_hook(lambda g: seen.__setitem__("g", g))
+        loss = torch.mean(pt.image(st, cfg) ** 2)
+        loss.backward()
+        grads = {}
+        with torch.no_grad():
+            for k, p in params.items():
+                grads[k] = p.grad
+                p -= TRAIN_LR * p.grad
+                p.grad = None
+        return dict(st, acc=st["acc"].detach()), loss.detach(), grads
+
+    st = pt.init_state(cfg, dev)
+    st, loss0, _ = step(st)                                  # warm-up
+    torch.cuda.synchronize()
+    MK.launches = MKG.launches = MKG.champ_launches = 0
+    t0 = time.perf_counter()
+    for _ in range(GRID_TRAIN_STEPS):
+        st, loss, grads = step(st)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / GRID_TRAIN_STEPS
+    k1, k2, k3 = MK.launches, MKG.launches, MKG.champ_launches
+    _check(k1 == GRID_TRAIN_STEPS and k3 == GRID_TRAIN_STEPS and k2 == 0,
+           f"{shape} train: {k1} kernel-1, {k3} kernel-3, {k2} kernel-2 "
+           f"launches for {GRID_TRAIN_STEPS} steps")
+    _check(bool(torch.isfinite(loss)), f"{shape} train: loss")
+    for k, gr in grads.items():
+        _check(gr is not None and bool(torch.isfinite(gr).all()),
+               f"{shape} train: {k} gradient missing or not finite")
+    _check(bool(grads["materials"].any()), f"{shape}: materials grad zero")
+    if "tv" in grads:
+        _check(bool(grads["tv"].any()), f"{shape}: mesh vertex grad zero")
+    # kernels 1 (recording) and 3 alone on the last step's pass
+    with torch.no_grad():
+        tabs = mega.scene_tables(sc_of({k: p.detach()
+                                        for k, p in params.items()}), cfg)
+    ipar = torch.tensor([st["passes"] - 1, 0], dtype=torch.int32)
+    g = seen["g"].contiguous()
+    rec_kw = dict(kw, grid=grid, block=block, record=True)
+    _, ids, occs = MK.pathtrace_pass(tabs[0], ipar, *tabs[1:],
+                                     torch.zeros_like(g), None, **rec_kw)
+    start.record()
+    for _ in range(GRID_REPS):
+        MK.pathtrace_pass(tabs[0], ipar, *tabs[1:], torch.zeros_like(g),
+                          None, **rec_kw)
+    end.record()
+    torch.cuda.synchronize()
+    rec_ms = start.elapsed_time(end) / GRID_REPS
+    k3kw = dict(kw, diff_wrt=wrt)
+    MKG.pathtrace_pass_bwd_champ(tabs[0], ipar, *tabs[1:], g, None, ids,
+                                 occs, **k3kw)
+    start.record()
+    for _ in range(GRID_REPS):
+        got3 = MKG.pathtrace_pass_bwd_champ(tabs[0], ipar, *tabs[1:], g,
+                                            None, ids, occs, **k3kw)
+    end.record()
+    torch.cuda.synchronize()
+    k3_ms = start.elapsed_time(end) / GRID_REPS
+    t1 = time.perf_counter()
+    want3 = MKG.pathtrace_pass_bwd_champ_reference(
+        tabs[0], ipar, *tabs[1:], g, None, ids, occs, **k3kw)
+    torch.cuda.synchronize()
+    plain3_ms = (time.perf_counter() - t1) * 1e3
+    print(f"  {shape}: kernel 3 on the last step's record and cotangent vs "
+          "plain version:")
+    err3 = max(_grad_gates(n, a, b, False)
+               for n, a, b in zip(MKG.DIFF_ALL, want3, got3) if n in wrt)
+    live = (g != 0).any(-1)
+    w3 = _pass_work(ids, occs, n_l, tabs[1].shape[0], live)
+    k3_ops = (w3["rays"] * (OPS_CAMERA + n_l * OPS_EMITTER)
+              + (w3["sph_hits"] + w3["tri_hits"]) * OPS_CHAMP
+              + w3["bounces"] * OPS_BOUNCE + _adj_ops(w3, wrt))
+    k3_bound = _bound(k3_ops, 12 * cfg.total_rays
+                      + (1 + cfg.bounces) * (4 + n_l) * w3["rays"]
+                      + 2 * _table_bytes(tabs))
+    rec_bound = _bound(ops, (24 + (1 + cfg.bounces) * (4 + n_l))
+                       * cfg.total_rays + _grid_bytes(tabs, grid))
+    print(f"phase 18 train {name} {MAIN_W}x{MAIN_H} b{BOUNCES} wrt "
+          f"{list(wrt)}, cell route, {GRID_TRAIN_STEPS} timed steps on "
+          f"[{smi}]: {step_ms:.6g} ms/step, {segs / (step_ms / 1e3):.6g} "
+          f"fwd+bwd ray segments/s; launches kernel 1 {k1}, kernel 3 {k3}, "
+          f"kernel 2 {k2}; alone on the last step: kernel 1 recording "
+          f"{rec_ms:.6g} ms (bound {rec_bound['bound_ms']:.6g} ms, share "
+          f"{rec_bound['bound_ms'] / rec_ms:.3%}), kernel 3 {k3_ms:.6g} ms "
+          f"(bound {k3_bound['bound_ms']:.6g} ms, {k3_bound['bound_by']}, "
+          f"share {k3_bound['bound_ms'] / k3_ms:.3%}), plain champion "
+          f"backward {plain3_ms:.6g} ms; loss first {loss0.item():.7g} last "
+          f"{loss.item():.7g}")
+    return fwd, {"launches": k3, "ms": k3_ms, "plain_ms": plain3_ms,
+                 "max_abs_err": err3, "step_ms": step_ms, **k3_bound}
+
+
+def kernel3_on_grid_record(dev, shape: str, w: int, h: int, wrt,
+                           max_gate: bool) -> dict:
+    """Phase 19: kernel 3 (PRNG and u-planes routes) vs its plain version
+    on kernel 1's grid-mode record (original rows) and a seeded random
+    cotangent, under phase 6's gates."""
+    import numpy as np
+    import torch
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.ops import megakernel_grad as MKG
+    from raytracing_tpu_torch.render import mega
+    from raytracing_tpu_torch.render import pathtracer as pt
+
+    scene = _grid_scene(shape, w, h, dev)
+    cfg = _grid_cfg(shape, w, h, "path")
+    tables = mega.scene_tables(scene, cfg)
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    u = mega.u_planes_for_pass(pt.init_state(cfg, dev)["key"], 0, cfg,
+                               scene.lights.count, dev)
+    _, ids, occs = MK.pathtrace_pass(
+        tables[0], ipar, *tables[1:],
+        torch.zeros((cfg.total_rays, 3), device=dev), None,
+        grid=mega.grid_tables(scene), record=True, **_pass_kw(cfg))
+    g = torch.as_tensor(np.random.default_rng(GRAD_SEED).normal(
+        size=(cfg.total_rays, 3)).astype(np.float32), device=dev)
+    kw = _pass_kw(cfg, diff_wrt=wrt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = MKG.pathtrace_pass_bwd_champ_reference(
+        tables[0], ipar, *tables[1:], g, u, ids, occs, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    n_sph = tables[1].shape[0]
+    tri_ids = ids[ids >= n_sph]
+    print(f"phase 19 kernel 3 on the grid record, {shape} {w}x{h} "
+          f"b{BOUNCES} wrt {list(wrt)}: plain {plain_ms:.6g} ms; recorded "
+          f"rows: spheres {int(((ids >= 0) & (ids < n_sph)).sum())}, "
+          f"triangles {tri_ids.numel()} (largest row "
+          f"{int(ids.max())} of {n_sph + tables[2].shape[0]})")
+    err = 0.0
+    for route, uu in (("u-planes", u), ("PRNG", None)):
+        got = MKG.pathtrace_pass_bwd_champ(tables[0], ipar, *tables[1:], g,
+                                           uu, ids, occs, **kw)
+        torch.cuda.synchronize()
+        print(f"  kernel 3 {route} route vs plain version:")
+        for gname, a, b in zip(MKG.DIFF_ALL, want, got):
+            if gname in wrt:
+                err = max(err, _grad_gates(gname, a, b, max_gate))
+    return {"max_abs_err": err, "plain_ms": plain_ms}
+
+
 def _record_bound(tables, ids, occs, cfg):
     """Kernel 1 recording the pass (ids, occs): its bound and operations
     per ray."""
@@ -1887,21 +2506,26 @@ def main() -> int:
            f"raytracing_tpu_torch found at {pkg}, not beside this script")
     dev = torch.device("cuda", 0)
 
+    _elapsed(1)
     # phase 1: the card
     smi = _smi("name,power.limit")
     print(f"phase 1 device: {torch.cuda.get_device_name(0)} "
           f"(torch {torch.__version__}, CUDA {torch.version.cuda})")
     print(smi)
 
+    _elapsed(2)
     # phase 2: build the kernels
     from raytracing_tpu_torch.ops import _build
     from raytracing_tpu_torch.ops import hit_kernels as HK
     from raytracing_tpu_torch.ops import megakernel as MK
     from raytracing_tpu_torch.ops import megakernel_grad as MKG
     t0 = time.perf_counter()
-    # kernel 1 also as built without contracted multiply-adds (phase 11)
+    # kernel 1's brute and grid-mode halves, each also as built without
+    # contracted multiply-adds (phases 11 and 17)
     libs = [("megakernel", MK._SIGNATURES, ()),
             ("megakernel", MK._SIGNATURES, EXACT_FLAGS),
+            ("megakernel", MK._SIGNATURES, EXACT_FLAGS + MK.GRID_FLAGS),
+            ("megakernel", MK._SIGNATURES, MK.GRID_FLAGS),
             ("megakernel_grad", MKG._SIGNATURES, MKG.ADJ_FLAGS),
             ("megakernel_champ", MKG._CHAMP_SIGNATURES, MKG.ADJ_FLAGS),
             ("hit_kernels", HK._SIGNATURES, ())]
@@ -1913,16 +2537,21 @@ def main() -> int:
         print(f"  {' '.join((name,) + flags)}: "
               + (f"built in {info['seconds']:.2f} s" if info else "cached"))
         for line in (info["ptxas"] if info else "").splitlines():
-            if "registers" in line or "spill" in line or "stack" in line:
+            if any(k in line for k in ("registers", "spill", "stack",
+                                       "Compiling entry")):
                 print("    ptxas:", line.strip())
 
+    _elapsed(3)
     # phase 3: kernel vs plain version
     compare_with_plain(dev, 256, 192)
     max_err = compare_with_plain(dev, MAIN_W, MAIN_H)
+    _elapsed(4)
     # phase 4: in-kernel PRNG vs u-planes
     prng_equals_u_planes(dev, 256, 192)
+    _elapsed(5)
     # phase 5: the main path
     k = main_path(dev, smi)
+    _elapsed(6)
     # phase 6: kernel 2 vs its plain version
     g_small = [kernel2_vs_plain(dev, name, SMALL_W, SMALL_H, MKG.DIFF_ALL,
                                 max_gate=True)
@@ -1931,14 +2560,19 @@ def main() -> int:
                               max_gate=False)
     g_all = kernel2_vs_plain(dev, "cornell", MAIN_W, MAIN_H, MKG.DIFF_ALL,
                              max_gate=False)
+    _elapsed(7)
     # phase 7: the training main path
     t = train_path(dev, smi)
+    _elapsed(8)
     # phase 8: kernels 4 and 5 vs their plain versions
     h4, h5 = hit_kernels_vs_plain(dev)
+    _elapsed(9)
     # phase 9: the stage pipeline's main path
     s9 = stage_main_path(dev, smi)
+    _elapsed(10)
     # phase 10: the stage route against kernel 1
     s10 = stage_vs_megakernel(dev)
+    _elapsed(11)
     # phase 11: the cell route's kernels against their plain versions
     record_vs_plain(dev)
     c_main = kernel3_vs_plain(dev, f"sphere_field({N_SPHERES})", MAIN_W,
@@ -1948,8 +2582,10 @@ def main() -> int:
                for name in (f"sphere_field({N_SPHERES})", "cornell")]
     kernel3_vs_kernel2(dev, SMALL_W, SMALL_H, MKG.DIFF_ALL, max_gate=True)
     kernel3_vs_kernel2(dev, MAIN_W, MAIN_H, MKG.DIFF_ALL, max_gate=False)
+    _elapsed(12)
     # phase 12: the cell route's training main path
     c12 = train_cell_path(dev, smi)
+    _elapsed(13)
     # phase 13: Russian roulette in kernels 1-3 against their plain versions
     # (sphere_field(N_SPHERES) runs the 8-row loop, <8, true>)
     r13 = [rr_vs_plain(dev, name, w, h) for name, w, h in (
@@ -1967,12 +2603,39 @@ def main() -> int:
                      MKG.DIFF_ALL, max_gate=True, rr=True)
     kernel3_vs_kernel2(dev, SMALL_W, SMALL_H, MKG.DIFF_ALL, max_gate=True,
                        rr=True)
+    _elapsed(14)
     # phase 14: config 5 as specified (1024 spp with the roulette)
     f14 = full_render(dev, smi)
     t14, c14 = full_train(dev, smi)
+    _elapsed(15)
     # phase 15: direct mode and fake shade
     d15 = direct_vs_plain(dev)
     m15 = direct_main_path(dev, smi)
+    _elapsed(16)
+    # phase 16: the grids of shapes 1 and 3
+    grid_build(dev)
+    _elapsed(17)
+    # phase 17: kernel 1's grid mode vs its plain versions at 256x192
+    g17 = {(shape, mode): grid_vs_plain(dev, shape, mode)
+           for shape in ("torus", "spheres")
+           for mode in ("direct", "path", "rr")}
+    _elapsed(18)
+    # phase 18: shapes 1-3 at 1024^2 (config 3's shape, BENCH_GRID=1, the
+    # sphere grid), forward and the cell route's train step
+    d18 = grid_direct_main(dev, smi, g17[("torus", "direct")]["work"])
+    p18t, k18t = grid_path_main(dev, smi, "torus",
+                                g17[("torus", "path")]["work"])
+    p18s, k18s = grid_path_main(dev, smi, "spheres",
+                                g17[("spheres", "path")]["work"])
+    _elapsed(19)
+    # phase 19: kernel 3 on the grid record
+    # (at 1024^2 phase 18 holds kernel 3 to its plain version on both
+    # train steps' records)
+    c19 = {shape: kernel3_on_grid_record(dev, shape, SMALL_W, SMALL_H,
+                                         MKG.DIFF_ALL, max_gate=True)
+           for shape in ("torus", "spheres")}
+    g17_err = {shape: max(v["max_abs_err"] for (s_, _), v in g17.items()
+                          if s_ == shape) for shape in ("torus", "spheres")}
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -2041,6 +2704,51 @@ def main() -> int:
         "launches": c14["launches"], "max_abs_err": c13_main["max_abs_err"],
         "ms": c14["ms"], "plain_ms": c13_main["plain_ms"],
         "bound_ms": c14["bound_ms"], "bound_by": c14["bound_by"],
+        "library_ms": None}, {
+        "name": "direct_pass (megakernel, grid mode: config 3's shape)",
+        "route": "cuda", "source": "raytracing_tpu_torch/csrc/megakernel.cu",
+        "replaces": "raytracing_tpu/ops/pallas/megakernel.py:1146",
+        "launches": d18["launches"],
+        "max_abs_err": max(d18["max_abs_err"], g17_err["torus"]),
+        "ms": d18["ms"], "plain_ms": d18["plain_ms"],
+        "bound_ms": d18["bound_ms"], "bound_by": d18["bound_by"],
+        "library_ms": None}, {
+        "name": "pathtrace_pass (megakernel, grid mode: mesh grid)",
+        "route": "cuda", "source": "raytracing_tpu_torch/csrc/megakernel.cu",
+        "replaces": "raytracing_tpu/ops/pallas/megakernel.py:932",
+        "launches": p18t["launches"],
+        "max_abs_err": max(p18t["max_abs_err"], g17_err["torus"]),
+        "ms": p18t["ms"], "plain_ms": p18t["plain_ms"],
+        "bound_ms": p18t["bound_ms"], "bound_by": p18t["bound_by"],
+        "library_ms": None}, {
+        "name": "pathtrace_pass (megakernel, grid mode: sphere grid)",
+        "route": "cuda", "source": "raytracing_tpu_torch/csrc/megakernel.cu",
+        "replaces": "raytracing_tpu/ops/pallas/megakernel.py:932",
+        "launches": p18s["launches"],
+        "max_abs_err": max(p18s["max_abs_err"], g17_err["spheres"]),
+        "ms": p18s["ms"], "plain_ms": p18s["plain_ms"],
+        "bound_ms": p18s["bound_ms"], "bound_by": p18s["bound_by"],
+        "library_ms": None}, {
+        "name": "pathtrace_pass_bwd_champ (champion adjoint, grid record: "
+                "sphere grid)",
+        "route": "cuda",
+        "source": "raytracing_tpu_torch/csrc/megakernel_champ.cu",
+        "replaces": "raytracing_tpu/ops/pallas/megakernel_grad.py:1173",
+        "launches": k18s["launches"],
+        "max_abs_err": max(k18s["max_abs_err"],
+                           c19["spheres"]["max_abs_err"]),
+        "ms": k18s["ms"], "plain_ms": k18s["plain_ms"],
+        "bound_ms": k18s["bound_ms"], "bound_by": k18s["bound_by"],
+        "library_ms": None}, {
+        "name": "pathtrace_pass_bwd_champ (champion adjoint, grid record: "
+                "mesh grid, with \"tri\")",
+        "route": "cuda",
+        "source": "raytracing_tpu_torch/csrc/megakernel_champ.cu",
+        "replaces": "raytracing_tpu/ops/pallas/megakernel_grad.py:1173",
+        "launches": k18t["launches"],
+        "max_abs_err": max(k18t["max_abs_err"], c19["torus"]["max_abs_err"]),
+        "ms": k18t["ms"], "plain_ms": k18t["plain_ms"],
+        "bound_ms": k18t["bound_ms"], "bound_by": k18t["bound_by"],
         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,12 +9,18 @@
   python -m raytracing_tpu_torch.cli --renderer direct --no-megakernel \\
       --pallas -o direct.png
   python -m raytracing_tpu_torch.cli --renderer fake -o fake.png
+  python -m raytracing_tpu_torch.cli --renderer direct --grid 4 --block 64 \
+      -o grid.png
   python -m raytracing_tpu_torch.cli --cpu --width 64 --height 48 -o x.png
 
 Same flags as the JAX CLI: the megakernel by default (kernel 1, in path
 or direct mode), the stage pipeline with ``--no-megakernel`` (its hit
 searches in the hit kernels with ``--pallas``); ``--renderer fake`` is the
-fake-shade sphere renderer (``render/simple.py``). The path renderer's
+fake-shade sphere renderer (``render/simple.py``). ``--grid N`` builds
+the uniform grids (``accel.prepare_grids(scene, N, mesh_slabs=...)``) and
+renders in kernel 1's grid mode (the stage route's grid branch with
+``--no-megakernel``); ``--block B`` is kernel 1's blocked layout. The path
+renderer's
 progressive state is checkpointed after every chunk of passes and on
 Ctrl-C, and ``--resume`` continues it (JAX checkpoints included). Flags
 for parts not ported yet raise.
@@ -47,9 +53,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--exposure", type=float, default=1.8)
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--grid", type=int, default=0, metavar="N",
-                   help="uniform-grid acceleration (not ported yet)")
+                   help="use N^3 uniform-grid acceleration (0 = brute "
+                        "force); mesh instances get their own grids")
     p.add_argument("--mesh-slabs", default="auto", metavar="N|xml|auto",
-                   help="per-mesh grid resolution (with --grid)")
+                   help="per-mesh grid resolution: 'auto' (default) from "
+                        "the cost model, 'xml' each mesh's nslabs, an int "
+                        "for every mesh")
     p.add_argument("--pallas", action="store_true",
                    help="stage pipeline: run the closest-hit and any-hit "
                         "searches in the hit kernels (kernels 4 and 5)")
@@ -57,7 +66,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the wavefront stage pipeline instead of the "
                         "whole-pass megakernel")
     p.add_argument("--block", type=int, default=0, metavar="B",
-                   help="blocked pixel layout (not ported yet)")
+                   help="megakernel blocked pixel layout: a warp's rays in "
+                        "a BxB pixel block (0 = row-major; 64 for mesh "
+                        "scenes)")
     p.add_argument("--chunk-passes", type=int, default=8,
                    help="passes per call, between checkpoints (one kernel "
                         "launch on the megakernel route)")
@@ -103,10 +114,6 @@ def main(argv=None) -> int:
             print(f"[{i}] cuda: {pr.name} ({pr.multi_processor_count} SMs, "
                   f"{pr.total_memory / 2**30:.0f} GiB)")
         return 0
-    if args.grid > 0:
-        raise _not_ported("--grid", 11)
-    if args.block:
-        raise _not_ported("--block", 10)
     if args.orbit:
         raise _not_ported("--orbit", 15)
 
@@ -124,8 +131,16 @@ def main(argv=None) -> int:
             args.lens_diameter / 2, dtype=torch.float32, device=device))
     cfg = RenderConfig(width=args.width, height=args.height, spp=args.spp,
                        bounces=args.bounces, exposure=args.exposure,
-                       seed=args.seed, use_pallas=args.pallas,
-                       use_megakernel=not args.no_megakernel)
+                       seed=args.seed, use_grid=args.grid > 0,
+                       n_slabs=max(args.grid, 1), use_pallas=args.pallas,
+                       use_megakernel=not args.no_megakernel,
+                       mega_block=args.block)
+    if args.grid > 0:
+        from .accel import prepare_grids
+        ms = args.mesh_slabs
+        scene = prepare_grids(scene, args.grid,
+                              mesh_slabs=ms if ms in ("xml", "auto")
+                              else int(ms))
 
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "plain PyTorch version")

@@ -7,12 +7,13 @@ default) runs the wavefront stage pipeline (``render.stages``), whose hit
 searches run in kernels 4 and 5 with ``use_pallas=True`` and in chunked
 all-pairs scans of ``obj_chunk`` objects otherwise; True runs every pass
 as kernel 1 (``render.mega``). The stage pipeline covers
-``russian_roulette`` and ``replicate_stale_poi``; the megakernel route
-raises for those, for ``mega_block != 0`` and for grids
-(``render.mega.supported``), and ``use_grid`` raises on both routes
-(ROADMAP Queue 1 item 11). ``n_slabs`` (grids) and ``ray_chunk`` (which
-no render path of either package reads) are kept for the shared
-configuration.
+``replicate_stale_poi``, which the megakernel route raises for
+(``render.mega.supported``). ``use_grid`` renders through the grids of
+``accel.prepare_grids`` on both routes (kernel 1's grid mode on the
+megakernel route), ``mega_block`` is kernel 1's blocked layout, and
+``n_slabs`` is read by ``models.assignments`` and the CLI, which prepare
+the grids; ``ray_chunk`` (which no render path of either package reads)
+is kept for the shared configuration.
 
 Training fields (megakernel route; the stage route differentiates every
 parameter through autograd): ``mega_grad_wrt`` names the table groups

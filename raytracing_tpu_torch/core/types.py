@@ -3,8 +3,9 @@ counterparts of ``raytracing_tpu.core.types``.
 
 Each type has ``.to(device)``. Vectors are ``(..., 3)`` float32 tensors;
 material ids are int32 and masks bool, as in the JAX package.
-``scene_to_numpy`` / ``scene_from_numpy`` carry a scene across the two
-packages as a dict of numpy arrays, so both render the same inputs.
+``scene_to_numpy`` / ``scene_from_numpy`` carry a scene, its mesh
+instances and its prepared grids across the two packages as a dict of
+numpy arrays, so both render the same inputs.
 """
 from __future__ import annotations
 
@@ -25,14 +26,16 @@ def replace(obj, **kw):
 def _to(obj, device):
     """Copy of a dataclass with every tensor (and nested dataclass) field
     moved to ``device``."""
-    kw = {}
-    for f in dataclasses.fields(obj):
-        v = getattr(obj, f.name)
+    def move(v):
         if isinstance(v, torch.Tensor):
-            kw[f.name] = v.to(device)
-        elif dataclasses.is_dataclass(v):
-            kw[f.name] = _to(v, device)
-    return dataclasses.replace(obj, **kw)
+            return v.to(device)
+        if dataclasses.is_dataclass(v):
+            return _to(v, device)
+        if isinstance(v, tuple):
+            return tuple(move(x) for x in v)
+        return v
+    return dataclasses.replace(obj, **{f.name: move(getattr(obj, f.name))
+                                       for f in dataclasses.fields(obj)})
 
 
 class _OnDevice:
@@ -311,8 +314,32 @@ class Camera(_OnDevice):
         return replace(self, eye=eye, w=w, u=u)
 
 
-@dataclasses.dataclass(frozen=True)
+@dataclasses.dataclass(frozen=True, eq=False)
+class MeshInstance(_OnDevice):
+    """A triangle mesh with its own grid resolution ``nslabs`` (the
+    reference's Mesh, Assign10 code.js:94-170); its material ids are baked
+    into its triangles."""
+    tris: Triangles
+    bounds_min: torch.Tensor   # (3,)
+    bounds_max: torch.Tensor
+    grid: object = None        # accel.grid.Grid, built by prepare_grids
+    nslabs: int = 1
+
+    @property
+    def bounds(self) -> AABB:
+        return AABB(pmin=self.bounds_min, pmax=self.bounds_max)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class Scene(_OnDevice):
+    """Geometry, lights, materials, camera and bounds. The grid fields are
+    filled by ``accel.prepare_grids``: ``sphere_grid`` and
+    ``triangle_grid`` over the sphere and scene-triangle batches (the stage
+    route's grid mode, with each mesh's own ``grid``), ``folded_tri_grid``
+    kernel 1's triangle grids (one per mesh of more than 64 triangles, item
+    ids absolute into ``render.stages._all_triangles``' fold, or one over
+    the whole fold) and ``mega_sph_grid`` kernel 1's sphere grid (built past
+    the resident sphere budget)."""
     camera: Camera
     spheres: Spheres
     triangles: Triangles
@@ -326,6 +353,11 @@ class Scene(_OnDevice):
     triangle_bounds_max: torch.Tensor
     focal_length: torch.Tensor       # ()
     lens_radius: torch.Tensor        # () lens_diameter / 2
+    meshes: tuple = ()               # MeshInstance, ...
+    sphere_grid: object = None
+    triangle_grid: object = None
+    folded_tri_grid: tuple | None = None
+    mega_sph_grid: object = None
 
     @property
     def bounds(self) -> AABB:
@@ -340,9 +372,10 @@ def build_scene(camera: Camera, spheres: Spheres | None = None,
                 triangles: Triangles | None = None,
                 lights: Lights | None = None, materials=None,
                 focal_length: float = 1.0,
-                lens_diameter: float = 0.0) -> Scene:
-    """Assemble a Scene with merged bounds, inflating degenerate triangle
-    AABB axes by 0.1 (raytracing_tpu.core.types.build_scene)."""
+                lens_diameter: float = 0.0, meshes: tuple = ()) -> Scene:
+    """Assemble a Scene with merged bounds (the meshes' bounds merged in),
+    inflating degenerate triangle AABB axes by 0.1
+    (raytracing_tpu.core.types.build_scene)."""
     dev = camera.eye.device
     spheres = spheres if spheres is not None else Spheres.empty(dev)
     triangles = triangles if triangles is not None else Triangles.empty(dev)
@@ -358,8 +391,10 @@ def build_scene(camera: Camera, spheres: Spheres | None = None,
     if triangles.count:
         tb = tb.inflate_degenerate(0.1)
     merged = sb.merge(tb)
+    for m in meshes:
+        merged = merged.merge(m.bounds)
     return Scene(camera=camera, spheres=spheres, triangles=triangles,
-                 lights=lights, materials=materials,
+                 meshes=tuple(meshes), lights=lights, materials=materials,
                  bounds_min=merged.pmin, bounds_max=merged.pmax,
                  sphere_bounds_min=sb.pmin, sphere_bounds_max=sb.pmax,
                  triangle_bounds_min=tb.pmin, triangle_bounds_max=tb.pmax,
@@ -441,19 +476,61 @@ def _np(x) -> np.ndarray:
     return np.asarray(x)
 
 
+def _grid_csr(g) -> tuple[np.ndarray, np.ndarray]:
+    """(offsets, payload) of a grid in cell order. The JAX package's
+    kernel grids are stored front to back from the camera
+    (``mega_order_grid``, which keeps each cell's list and records the
+    cell centres in visit order): their cells are put back in order, each
+    centre naming its cell."""
+    off, pay = _np(g.cell_offsets), _np(g.item_indices)
+    cen = getattr(g, "cell_centers", None)
+    if cen is None:
+        return off, pay
+    n = np.asarray(tuple(g.n))
+    pmin = _np(g.pmin).astype(np.float64)
+    width = (_np(g.pmax) - _np(g.pmin)) / n
+    width = np.where(width <= 0, 1e-30, width)
+    ijk = np.clip(np.floor((_np(cen) - pmin) / width), 0, n - 1) \
+        .astype(np.int64)
+    cell = (ijk[:, 2] * n[1] + ijk[:, 1]) * n[0] + ijk[:, 0]
+    if not np.array_equal(np.sort(cell), np.arange(cell.shape[0])):
+        raise ValueError("the grid's cell centres do not name its cells")
+    visit = np.argsort(cell)           # visit slot of each cell in order
+    counts = np.diff(off)[visit]
+    new_off = np.zeros_like(off)
+    np.cumsum(counts, out=new_off[1:])
+    new_pay = (np.concatenate([pay[off[k]:off[k + 1]] for k in visit])
+               if pay.size else pay)
+    return new_off, new_pay
+
+
+def _grid_to_numpy(d: dict, key: str, g) -> None:
+    off, pay = _grid_csr(g)
+    d[f"{key}.offsets"], d[f"{key}.payload"] = off, pay
+    d[f"{key}.pmin"], d[f"{key}.pmax"] = _np(g.pmin), _np(g.pmax)
+    d[f"{key}.n"] = np.asarray(tuple(g.n))
+    d[f"{key}.start"] = np.asarray(int(getattr(g, "start", 0)))
+
+
+def _grid_from_numpy(d: dict, key: str, device):
+    if f"{key}.offsets" not in d:
+        return None
+    from ..accel.grid import grid_from_csr
+    return grid_from_csr(d[f"{key}.offsets"], d[f"{key}.payload"],
+                         d[f"{key}.pmin"], d[f"{key}.pmax"],
+                         tuple(int(x) for x in d[f"{key}.n"]),
+                         start=int(d[f"{key}.start"]), device=device)
+
+
+_GRIDS = ("sphere_grid", "triangle_grid", "mega_sph_grid")
+
+
 def scene_to_numpy(scene) -> dict:
-    """Leaves of a scene as numpy arrays, keyed ``"group.field"``. Reads
-    attributes only, so it takes this package's Scene and the JAX package's
-    alike. Mesh instances and prepared grids are not ported yet (ROADMAP
-    Queue 1 items 11 and 15) and raise."""
-    if getattr(scene, "meshes", ()):
-        raise NotImplementedError(
-            "mesh instances are not ported yet (ROADMAP Queue 1 item 15)")
-    for g in ("sphere_grid", "triangle_grid", "folded_tri_grid",
-              "mega_sph_grid"):
-        if getattr(scene, g, None) is not None:
-            raise NotImplementedError(
-                "uniform grids are not ported yet (ROADMAP Queue 1 item 11)")
+    """Leaves of a scene as numpy arrays, keyed ``"group.field"``, with its
+    mesh instances (``meshes.<i>.*``) and prepared grids as CSR arrays
+    (``<grid>.offsets``, ``.payload``, ``.pmin``, ``.pmax``, ``.n``,
+    ``.start``). Reads attributes only, so it takes this package's Scene
+    and the JAX package's alike."""
     d = {}
     for group, names in _LEAVES.items():
         obj = getattr(scene, group)
@@ -463,6 +540,24 @@ def scene_to_numpy(scene) -> dict:
     d["camera.rows"] = np.asarray(scene.camera.rows)
     for name in _SCENE_LEAVES:
         d[name] = _np(getattr(scene, name))
+    meshes = tuple(getattr(scene, "meshes", ()))
+    d["meshes.count"] = np.asarray(len(meshes))
+    for i, m in enumerate(meshes):
+        for name in _LEAVES["triangles"]:
+            d[f"meshes.{i}.tris.{name}"] = _np(getattr(m.tris, name))
+        d[f"meshes.{i}.bounds_min"] = _np(m.bounds_min)
+        d[f"meshes.{i}.bounds_max"] = _np(m.bounds_max)
+        d[f"meshes.{i}.nslabs"] = np.asarray(m.nslabs)
+        if m.grid is not None:
+            _grid_to_numpy(d, f"meshes.{i}.grid", m.grid)
+    for key in _GRIDS:
+        if getattr(scene, key, None) is not None:
+            _grid_to_numpy(d, key, getattr(scene, key))
+    folded = getattr(scene, "folded_tri_grid", None)
+    if folded is not None:
+        d["folded_tri_grid.count"] = np.asarray(len(folded))
+        for k, g in enumerate(folded):
+            _grid_to_numpy(d, f"folded_tri_grid.{k}", g)
     return d
 
 
@@ -470,10 +565,26 @@ def scene_from_numpy(d: dict, device=None) -> Scene:
     """Inverse of ``scene_to_numpy``: this package's Scene on ``device``."""
     def t(key):
         return torch.as_tensor(np.array(d[key]), device=device)
+
+    def tris(prefix):
+        return Triangles(**{n: t(f"{prefix}.{n}")
+                            for n in _LEAVES["triangles"]})
     cam = Camera(**{n: t(f"camera.{n}") for n in _LEAVES["camera"]},
                  cols=int(d["camera.cols"]), rows=int(d["camera.rows"]))
     sph = Spheres(**{n: t(f"spheres.{n}") for n in _LEAVES["spheres"]})
-    tri = Triangles(**{n: t(f"triangles.{n}") for n in _LEAVES["triangles"]})
     lig = Lights(**{n: t(f"lights.{n}") for n in _LEAVES["lights"]})
-    return Scene(camera=cam, spheres=sph, triangles=tri, lights=lig,
+    meshes = tuple(
+        MeshInstance(tris=tris(f"meshes.{i}.tris"),
+                     bounds_min=t(f"meshes.{i}.bounds_min"),
+                     bounds_max=t(f"meshes.{i}.bounds_max"),
+                     grid=_grid_from_numpy(d, f"meshes.{i}.grid", device),
+                     nslabs=int(d[f"meshes.{i}.nslabs"]))
+        for i in range(int(d.get("meshes.count", 0))))
+    folded = None
+    if "folded_tri_grid.count" in d:
+        folded = tuple(_grid_from_numpy(d, f"folded_tri_grid.{k}", device)
+                       for k in range(int(d["folded_tri_grid.count"])))
+    return Scene(camera=cam, spheres=sph, triangles=tris("triangles"),
+                 lights=lig, meshes=meshes, folded_tri_grid=folded,
+                 **{k: _grid_from_numpy(d, k, device) for k in _GRIDS},
                  **{n: t(n) for n in _SCENE_LEAVES})

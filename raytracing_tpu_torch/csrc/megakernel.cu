@@ -5,8 +5,9 @@
 // (launcher pathtrace_pass_pallas), path mode over resident tables with
 // u-planes or PRNG draws and spp >= 1, with or without Russian roulette,
 // its champion recording (record=True) for the cell backward, and its
-// direct mode (mode="direct", a kernel of its own below). Its other modes
-// (streamed chunks, grids, blocked layout) are not here.
+// direct mode (mode="direct", a kernel of its own below), its uniform-grid
+// mode (below) and its blocked layout (a thread's slot maps to a pixel
+// block, below). Its streamed chunks are not here.
 //
 // Per ray it runs the same schedule as the Pallas kernel: pixel decode from
 // the global ray id, film point -> focal point -> thin-lens ray, scene-AABB
@@ -81,6 +82,40 @@
 // the same run): cornell 1024^2 b5 0.579 ms per pass in 16-pass launches
 // (0.645 before), 0.590 ms in one-pass launches (0.620);
 // sphere_field(1024) recording 5.48 ms (8.09).
+//
+// Grid mode (the template parameter kGrid of both kernels; the instances
+// without it keep their code and registers): the Pallas kernel's grid
+// operands (megakernel.py:325-350, closest hit :932-1019, any-hit
+// :1146-1321) visit every cell whose tight AABB a ray tile's window
+// overlaps, in a baked front-to-back order, and stop a tile once no lane
+// can gain (_loop_early): the TPU's vector-wide form of a per-ray march.
+// Here each ray walks its own cells in order (pathtrace.cuh grid_walk, a
+// 3-axis DDA) and stops at its own champion, so no cell order is baked.
+// The brute prefix stays in shared memory: the triangles below the grids'
+// start (cornell's walls) and the spheres unless the sphere grid is on.
+// The gridded rows, the whole sphere table under the sphere grid and the
+// CSR arrays are read from global memory (__ldg for the CSR; the rows by
+// plain loads): a 992-triangle table is 127 KB and 8192 spheres 256 KB,
+// which L2 holds. Champions are the least (t, id) pair, so a record names
+// the row the brute loops would (the original row: sphere i or n_sph +
+// fold index j, never a duplicated cell-major row as JAX's diff tables
+// do), and kernel 3 differentiates it unchanged. What bounds it: the
+// dependent CSR and row loads of the walk, whose cells and items differ
+// from lane to lane; simple and correct first (its times in PERF.md).
+//
+// One build holds one half of the instances: the brute ones, or, with
+// -DRT_GRID_MODE=1 (ops/megakernel.py GRID_FLAGS), grid mode's. The wrappers
+// load the half a launch needs, so nvcc compiles the halves at once as two
+// libraries, and a program that walks no grid never builds grid mode.
+//
+// Blocked layout (block > 0, JAX's mega_block; grid mode only):
+// consecutive thread slots cover block x block pixel squares, so a warp's
+// rays are neighbours and walk the same cells. Only the slot -> ray map
+// changes: every draw, accumulator slot and record column stays keyed by
+// the row-major ray id, so the image is bit-identical with and without
+// blocking. In the brute instances the map cost the 2-row path loop 20 B
+// of spill (ptxas) for nothing to gain, so they keep the row-major map.
+//
 // Built with nvcc's default --fmad=true: contracted multiply-adds round
 // differently from the unfused plain PyTorch version, so the two agree to
 // float tolerance except where a ray sits within rounding of a silhouette
@@ -98,6 +133,11 @@
 #include <cuda_runtime.h>
 
 #include "pathtrace.cuh"
+
+#ifndef RT_GRID_MODE
+#define RT_GRID_MODE 0
+#endif
+constexpr bool kGridBuild = RT_GRID_MODE != 0;
 
 namespace {
 
@@ -132,13 +172,14 @@ struct Rec {
 // throughput *= albedo. A hit with no valid material adds nothing.
 // Returns the occlusion bit (false without a valid hit, as JAX's dead
 // window gives).
-template <int kRows>
-__device__ __forceinline__ bool nee(const Tables& T, const Draws& D, int slot,
-                                    int li, const Hit& h, float eps, Acc& A) {
+template <int kRows, bool kGrid>
+__device__ __forceinline__ bool nee(const Tables& T, const Grids* G,
+                                    const Draws& D, int slot, int li,
+                                    const Hit& h, float eps, Acc& A) {
   if (!(h.m >= 0.0f)) return false;
   const float* l = T.lig + li * kLig;
   const Shadow s = shadow_ray(T, D, slot, li, h, eps);
-  const bool occ = anyhit<kRows>(T, s.so, s.sd, 0.0f, s.dist);
+  const bool occ = anyhit<kRows, kGrid>(T, s.so, s.sd, 0.0f, s.dist, G);
   // geometric term with the distance to the light CENTRE (reference quirk)
   const V3 lp = ld3(l), ln = ld3(l + 3);
   const V3 q = h.p - lp;
@@ -165,8 +206,9 @@ __device__ __forceinline__ bool nee(const Tables& T, const Draws& D, int slot,
 // of the schedule, so acc is what pass after pass would give. kRR: Russian
 // roulette from depth rr_start on (a template parameter, so the build
 // without it keeps its registers and code).
-template <int kRows, bool kRR>
-__device__ void passes(const Tables& T, Draws& D, const Rec& R,
+template <int kRows, bool kRR, bool kGrid>
+__device__ void passes(const Tables& T, const Grids* G, Draws& D,
+                       const Rec& R,
                        const uint32_t* keys, int n_passes, int rid_g,
                        int spp, int width, int bounces, int rr_start,
                        bool normalize_emitter, Acc& A) {
@@ -201,7 +243,7 @@ __device__ void passes(const Tables& T, Draws& D, const Rec& R,
       maxt = inf_f();
     }
     depth += 1;
-    maxt = trace<kRows>(T, o, d, mint, maxt, h);
+    maxt = trace<kRows, kGrid>(T, o, d, mint, maxt, h, G);
     R.id(depth, h.obj);  // before the emitter test, as JAX records it
     if (fresh) {
       // emitter hits on the primary segment only; a hit ends the path
@@ -217,7 +259,8 @@ __device__ void passes(const Tables& T, Draws& D, const Rec& R,
     }
     for (int li = 0; li < L; ++li)
       R.occ(depth * L + li,
-            nee<kRows>(T, D, nee_slot(depth, li, L, kRR), li, h, eps, A));
+            nee<kRows, kGrid>(T, G, D, nee_slot(depth, li, L, kRR), li, h,
+                              eps, A));
     // a path without a valid hit stays dead: nothing more accumulates
     bool more = depth < bounces && h.m >= 0.0f;
     if (kRR && more && depth >= rr_start) {
@@ -260,23 +303,64 @@ struct Params {
   int two_sided, normalize_emitter;
   int* ids;        // (1 + bounces, n_rays) or nullptr: not recording
   uint8_t* occs;   // ((1 + bounces) * n_lig, n_rays) or nullptr
+  int block;       // blocked layout's block edge, 0: row-major
+  Grids grids;     // grid mode (kernel with kGrid)
 };
+
+// The row-major ray of thread slot `slot` in the blocked layout: slots
+// fill block x block pixel squares, squares row by row (JAX's
+// _effective_block decode; spp rays per pixel stay together).
+__device__ __forceinline__ int blocked_ray(int slot, int spp, int width,
+                                           int block) {
+  const int pix = slot / spp;
+  const int samp = slot - pix * spp;
+  const int bb = block * block;
+  const int bid = pix / bb;
+  const int w_in = pix - bid * bb;
+  const int per_row = width / block;
+  const int brow = bid / per_row;
+  const int bcol = bid - brow * per_row;
+  const int wrow = w_in / block;
+  const int row = brow * block + wrow;
+  const int col = bcol * block + (w_in - wrow * block);
+  return (row * width + col) * spp + samp;
+}
+
+// Tables of a launch in shared memory: in grid mode only the brute prefix
+// (triangles below the grids' start, the spheres unless gridded); n_sph
+// stays the whole table's, as the ids number triangles after it.
+template <bool kGrid>
+__device__ __forceinline__ Tables stage_launch_tables(
+    float* smem, const float* par, const float* sph, int n_sph,
+    const float* tri, int n_tri, const float* mat, int n_mat,
+    const float* lig, int n_lig, bool two_sided, const Grids& G) {
+  Tables T = stage_tables(smem, par, sph, kGrid && G.sph ? 0 : n_sph, tri,
+                          kGrid ? G.tri_start : n_tri, mat, n_mat, lig,
+                          n_lig, two_sided);
+  T.n_sph = n_sph;
+  return T;
+}
 
 // Params is __grid_constant__: the per-pass key reads index the parameter
 // block in place instead of copying it to each thread's stack.
 // kRows: sphere rows per iteration of the object loops (pathtrace.cuh);
 // kRR: Russian roulette
-template <int kRows, bool kRR>
+template <int kRows, bool kRR, bool kGrid>
 __global__ void __launch_bounds__(kBlock)
     pathtrace_kernel(const __grid_constant__ Params p) {
   extern __shared__ float4 smem4[];  // 16-byte aligned
-  const Tables T = stage_tables(reinterpret_cast<float*>(smem4), p.par, p.sph,
-                                p.n_sph, p.tri, p.n_tri, p.mat, p.n_mat,
-                                p.lig, p.n_lig, p.two_sided != 0);
+  const Tables T = stage_launch_tables<kGrid>(
+      reinterpret_cast<float*>(smem4), p.par, p.sph, p.n_sph, p.tri, p.n_tri,
+      p.mat, p.n_mat, p.lig, p.n_lig, p.two_sided != 0, p.grids);
   __syncthreads();
 
-  const int rid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (rid >= p.n_rays) return;
+  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
+  if (slot >= p.n_rays) return;
+  // the blocked layout is grid mode's (the brute instances keep their
+  // registers and spills; their rays hold no cell coherence to gain)
+  const int rid = kGrid && p.block
+                      ? blocked_ray(slot, p.spp, p.width, p.block)
+                      : slot;
 
   const int rid_g = rid + p.ray_offset;
   const int n_draws = n_draws_of(p.n_lig, p.bounces, kRR);
@@ -297,7 +381,8 @@ __global__ void __launch_bounds__(kBlock)
   A.r = a[0];
   A.g = a[1];
   A.b = a[2];
-  passes<kRows, kRR>(T, D, R, p.u == nullptr ? p.keys : nullptr,
+  passes<kRows, kRR, kGrid>(T, &p.grids, D, R,
+                            p.u == nullptr ? p.keys : nullptr,
                      p.n_passes, rid_g, p.spp, p.width, p.bounces,
                      p.rr_start, p.normalize_emitter != 0, A);
   a[0] = A.r;
@@ -378,18 +463,22 @@ struct DirectParams {
   int n_passes;
   int spp, width;
   int two_sided;
+  int block;       // blocked layout's block edge, 0: row-major
+  Grids grids;     // grid mode (kernel with kGrid)
 };
 
-template <int kRows>
+template <int kRows, bool kGrid>
 __global__ void __launch_bounds__(kBlock)
     direct_kernel(const __grid_constant__ DirectParams p) {
   extern __shared__ float4 smem4[];  // 16-byte aligned
   float* smem = reinterpret_cast<float*>(smem4);
-  const Tables T = stage_tables(smem, p.par, p.sph, p.n_sph, p.tri, p.n_tri,
-                                p.mat, p.n_mat, p.lig, p.n_lig,
-                                p.two_sided != 0);
+  const Tables T = stage_launch_tables<kGrid>(
+      smem, p.par, p.sph, p.n_sph, p.tri, p.n_tri, p.mat, p.n_mat, p.lig,
+      p.n_lig, p.two_sided != 0, p.grids);
   uint32_t* keys = reinterpret_cast<uint32_t*>(
-      smem + tables_floats(p.n_sph, p.n_tri, p.n_mat, p.n_lig));
+      smem + tables_floats(kGrid && p.grids.sph ? 0 : p.n_sph,
+                           kGrid ? p.grids.tri_start : p.n_tri, p.n_mat,
+                           p.n_lig));
   const int n_slots = 1 + p.n_lig;
   if (p.u == nullptr) {
     for (int i = threadIdx.x; i < p.n_passes * n_slots; i += blockDim.x) {
@@ -406,8 +495,13 @@ __global__ void __launch_bounds__(kBlock)
   }
   __syncthreads();
 
-  const int rid = blockIdx.x * blockDim.x + threadIdx.x;
-  if (rid >= p.n_rays) return;
+  const int slot = blockIdx.x * blockDim.x + threadIdx.x;
+  if (slot >= p.n_rays) return;
+  // the blocked layout is grid mode's (the brute instances keep their
+  // registers and spills; their rays hold no cell coherence to gain)
+  const int rid = kGrid && p.block
+                      ? blocked_ray(slot, p.spp, p.width, p.block)
+                      : slot;
   const int rid_g = rid + p.ray_offset;
   DirectDraws D;
   D.u = p.u;
@@ -433,13 +527,14 @@ __global__ void __launch_bounds__(kBlock)
     float mint, maxt;
     camera_ray_uv(T.par, u0, u1, col, row, o, d, mint, maxt);
     Hit h;
-    trace<kRows>(T, o, d, mint, maxt, h);
+    trace<kRows, kGrid>(T, o, d, mint, maxt, h, &p.grids);
     if (!(h.m >= 0.0f)) continue;
     const V3 al = albedo(T, static_cast<int>(h.m));
     for (int li = 0; li < p.n_lig; ++li) {
       D.pair(k, 1 + li, u0, u1);
       const Shadow s = shadow_ray_uv(T, u0, u1, li, h, eps);
-      const bool occ = anyhit<kRows>(T, s.so, s.sd, 0.0f, s.dist);
+      const bool occ =
+          anyhit<kRows, kGrid>(T, s.so, s.sd, 0.0f, s.dist, &p.grids);
       const float cosx = fminf(fmaxf(dot(s.sd, h.n), 0.0f), 1.0f);
       const float shade =
           fminf(fmaxf(ambient + (occ ? 0.0f : cosx), 0.0f), 1.0f);
@@ -455,12 +550,34 @@ __global__ void __launch_bounds__(kBlock)
 
 }  // namespace
 
+// The grid arguments of a launch (HOST array `grids` of n_grids
+// descriptors: n_grids - sph_grid triangle grids, then the sphere grid
+// when sph_grid != 0) into the kernel's parameters; sph and tri are the
+// whole tables in global memory. Returns false on bad arguments.
+static bool set_grids(Grids& G, const GridDesc* grids, int n_grids,
+                      int sph_grid, int tri_start, const float* sph,
+                      const float* tri) {
+  if (n_grids < 0 || n_grids > kMaxGrids || sph_grid < 0 || sph_grid > 1 ||
+      sph_grid > n_grids || tri_start < 0 || (n_grids > 0 && !grids))
+    return false;
+  for (int i = 0; i < kMaxGrids; ++i)
+    G.g[i] = i < n_grids ? grids[i] : GridDesc{};
+  G.n_tri = n_grids - sph_grid;
+  G.sph = sph_grid;
+  G.tri_start = tri_start;
+  G.sph_tab = sph;
+  G.tri_tab = tri;
+  return true;
+}
+
 // C interface (bound with ctypes). `keys` is a HOST array of n_passes pass
 // keys (ignored with u_planes), copied into the launch's parameters.
 // rr != 0: Russian roulette from depth rr_start_depth on (its draw slots in
 // the layout). Non-null `ids` (and `occs` when n_lig > 0) record the
-// champions and the occlusion bits of a one-pass launch. Launches on
-// `stream`, allocates nothing, does not synchronise; returns
+// champions and the occlusion bits of a one-pass launch. grid_mode != 0 runs
+// grid mode over `grids` (set_grids; only in the build with RT_GRID_MODE=1,
+// which takes nothing else); block > 0 its blocked layout.
+// Launches on `stream`, allocates nothing, does not synchronise; returns
 // cudaGetLastError() after the launch.
 extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
                                  const float* tri, int n_tri, const float* mat,
@@ -470,13 +587,20 @@ extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
                                  int n_passes, int spp, int width, int bounces,
                                  int rr, int rr_start_depth, int two_sided,
                                  int normalize_emitter, int* ids,
-                                 uint8_t* occs, void* stream) {
+                                 uint8_t* occs, int grid_mode,
+                                 const GridDesc* grids, int n_grids,
+                                 int sph_grid, int tri_start, int block,
+                                 void* stream) {
+  Params p;
   if (n_passes < 1 || n_passes > kMaxPasses || (u_planes && n_passes != 1) ||
-      (ids && n_passes != 1) || (!ids && occs) ||
-      (ids && n_lig > 0 && !occs))
+      (grid_mode != 0) != kGridBuild || (ids && n_passes != 1) ||
+      (!ids && occs) ||
+      (ids && n_lig > 0 && !occs) || block < 0 || (block && !grid_mode) ||
+      !set_grids(p.grids, grids, grid_mode ? n_grids : 0,
+                 grid_mode ? sph_grid : 0, grid_mode ? tri_start : n_tri,
+                 sph, tri))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  Params p;
   p.par = par;
   p.sph = sph;
   p.tri = tri;
@@ -501,14 +625,20 @@ extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
   p.normalize_emitter = normalize_emitter;
   p.ids = ids;
   p.occs = occs;
-  const size_t smem = sizeof(float) * tables_floats(n_sph, n_tri, n_mat,
-                                                    n_lig);
+  p.block = block;
+  // the tables in shared memory: in grid mode the brute prefix alone
+  const int n_sph_smem = p.grids.sph ? 0 : n_sph;
+  const int n_tri_smem = p.grids.tri_start;
+  const size_t smem =
+      sizeof(float) * tables_floats(n_sph_smem, n_tri_smem, n_mat, n_lig);
   // eight sphere rows per loop iteration for a long table, two for a short
   // one, where the wide loop's registers cost more occupancy than it saves
-  const bool wide = n_sph >= kWideSpheres;
+  const bool wide = n_sph_smem >= kWideSpheres;
   void (*kernel)(Params) =
-      rr ? (wide ? pathtrace_kernel<8, true> : pathtrace_kernel<2, true>)
-         : (wide ? pathtrace_kernel<8, false> : pathtrace_kernel<2, false>);
+      rr ? (wide ? pathtrace_kernel<8, true, kGridBuild>
+                 : pathtrace_kernel<2, true, kGridBuild>)
+         : (wide ? pathtrace_kernel<8, false, kGridBuild>
+                 : pathtrace_kernel<2, false, kGridBuild>);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -524,8 +654,9 @@ extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
 // (k0, k1) is the call's key (ignored with u_planes); this launch runs
 // passes first_pass ... first_pass + n_passes - 1 of the call, each keyed
 // by fold_in(key, pass) when per_pass != 0, by the key itself otherwise (a
-// call of one pass). Launches on `stream`, allocates nothing, does not
-// synchronise; returns cudaGetLastError() after the launch.
+// call of one pass). grid_mode and block as rt_pathtrace_pass. Launches on
+// `stream`, allocates nothing, does not synchronise; returns
+// cudaGetLastError() after the launch.
 extern "C" int rt_direct_pass(const float* par, const float* sph, int n_sph,
                               const float* tri, int n_tri, const float* mat,
                               int n_mat, const float* lig, int n_lig,
@@ -533,11 +664,18 @@ extern "C" int rt_direct_pass(const float* par, const float* sph, int n_sph,
                               const float* u_planes, unsigned int k0,
                               unsigned int k1, int first_pass, int per_pass,
                               int n_passes, int spp, int width, int two_sided,
+                              int grid_mode, const GridDesc* grids,
+                              int n_grids,
+                              int sph_grid, int tri_start, int block,
                               void* stream) {
-  if (n_passes < 1 || n_passes > kMaxPasses || first_pass < 0)
+  DirectParams p;
+  if (n_passes < 1 || n_passes > kMaxPasses || first_pass < 0 || block < 0 ||
+      (grid_mode != 0) != kGridBuild || (block && !grid_mode) ||
+      !set_grids(p.grids, grids, grid_mode ? n_grids : 0,
+                 grid_mode ? sph_grid : 0, grid_mode ? tri_start : n_tri,
+                 sph, tri))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  DirectParams p;
   p.par = par;
   p.sph = sph;
   p.tri = tri;
@@ -559,12 +697,17 @@ extern "C" int rt_direct_pass(const float* par, const float* sph, int n_sph,
   p.spp = spp;
   p.width = width;
   p.two_sided = two_sided;
-  // the tables, then the slot keys of the launch's passes
+  p.block = block;
+  // the tables (in grid mode the brute prefix), then the slot keys of the
+  // launch's passes
+  const int n_sph_smem = p.grids.sph ? 0 : n_sph;
   const size_t smem =
-      sizeof(float) * tables_floats(n_sph, n_tri, n_mat, n_lig) +
+      sizeof(float) *
+          tables_floats(n_sph_smem, p.grids.tri_start, n_mat, n_lig) +
       (u_planes ? 0 : 2 * sizeof(uint32_t) * n_passes * (1 + n_lig));
-  void (*kernel)(DirectParams) = n_sph >= kWideSpheres ? direct_kernel<8>
-                                                       : direct_kernel<2>;
+  const bool wide = n_sph_smem >= kWideSpheres;
+  void (*kernel)(DirectParams) =
+      wide ? direct_kernel<8, kGridBuild> : direct_kernel<2, kGridBuild>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -129,6 +129,111 @@ struct Hit {
   float t, beta, gamma;
 };
 
+// Uniform grids (kernel 1's grid mode; accel/grid.py builds them on the
+// host). One grid: the CSR offsets (C + 1) and payload of item ids (the
+// absolute row of the triangle fold, or the sphere row), in global memory;
+// its box [pmin, pmax], cell width (1e-30 on a degenerate axis) and
+// resolution. The layout is the ctypes structure of ops/megakernel.py.
+constexpr int kMaxGrids = 8;
+struct GridDesc {
+  const int* off;
+  const int* items;
+  float pmin[3], width[3], pmax[3];
+  int n[3];
+};
+// A launch's grids: triangle grids g[0, n_tri), then the sphere grid when
+// sph != 0; triangles [0, tri_start) and (without the sphere grid) the
+// spheres stay brute force in shared memory; the gridded rows are read
+// from the whole tables in global memory.
+struct Grids {
+  GridDesc g[kMaxGrids];
+  int n_tri, sph, tri_start;
+  const float* sph_tab;
+  const float* tri_tab;
+};
+
+// The walk of one ray's live window [mint, maxt] through grid g, cell by
+// cell in order (Amanatides-Woo, as the reference's Assign07 marches):
+// visit(cell) tests the cell's items over the whole window and returns
+// true to stop (an occluder found); bound() is the champion's t (the walk
+// ends once the next cell's entry exceeds it). Conservative, so that no
+// cell holding the hit is skipped by rounding: the walk starts `margin`
+// before the ray enters the grid; where faces are crossed within `margin`
+// of each other (through a cell edge or corner) it also visits the side
+// cells of the other crossing orders and steps over all those faces at
+// once; it stops only past bound() + margin. margin = kRelMargin (|exit
+// t| + the ray's shortest cell crossing). accel/traverse.py's march is
+// the same walk in PyTorch.
+constexpr float kRelMargin = 1e-4f;
+template <class Visit, class Bound>
+__device__ __forceinline__ void grid_walk(const GridDesc& g, V3 o, V3 d,
+                                          float mint, float maxt,
+                                          Visit&& visit, Bound&& bound) {
+  const float ox[3] = {o.x, o.y, o.z}, dx[3] = {d.x, d.y, d.z};
+  float near = -inf_f(), far = inf_f(), tcell = inf_f();
+  float td[3];
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    const float sd = dx[ax] == 0.0f ? 1e-30f : dx[ax];
+    const float t0 = (g.pmin[ax] - ox[ax]) / sd;
+    const float t1 = (g.pmax[ax] - ox[ax]) / sd;
+    near = fmaxf(near, fminf(t0, t1));
+    far = fminf(far, fmaxf(t0, t1));
+    const float ad = fabsf(dx[ax]);
+    td[ax] = ad > 0.0f ? g.width[ax] / ad : inf_f();
+    tcell = fminf(tcell, td[ax]);
+  }
+  const float margin = kRelMargin * (fabsf(far) + tcell);
+  const float lo = fmaxf(near, mint);
+  const float hi = fminf(far, maxt);
+  if (!(lo <= hi + margin)) return;
+  const float t = lo - margin;
+  int c[3], st[3];
+  float tn[3];
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    const float q = floorf((ox[ax] + t * dx[ax] - g.pmin[ax]) / g.width[ax]);
+    c[ax] = static_cast<int>(
+        fminf(fmaxf(q, 0.0f), static_cast<float>(g.n[ax] - 1)));
+    const bool pos = dx[ax] > 0.0f;
+    st[ax] = pos ? 1 : -1;
+    const float bnd =
+        g.pmin[ax] + static_cast<float>(c[ax] + (pos ? 1 : 0)) * g.width[ax];
+    tn[ax] = dx[ax] != 0.0f ? (bnd - ox[ax]) / dx[ax] : inf_f();
+  }
+  const int nx = g.n[0], ny = g.n[1], nz = g.n[2];
+  for (int s = 0; s <= nx + ny + nz; ++s) {  // each step advances an axis
+    if (visit((c[2] * ny + c[1]) * nx + c[0])) return;
+    const float tmin = fminf(tn[0], fminf(tn[1], tn[2]));
+    if (!(tmin <= fminf(hi, bound()) + margin)) return;
+    const float lim = tmin + margin;
+    const int tie = (tn[0] <= lim ? 1 : 0) | (tn[1] <= lim ? 2 : 0) |
+                    (tn[2] <= lim ? 4 : 0);
+    const int n_tie = __popc(tie);
+    if (n_tie > 1) {
+      for (int sub = 1; sub < 7; ++sub) {
+        if ((sub & ~tie) != 0 || __popc(sub) >= n_tie) continue;
+        const int x = c[0] + ((sub & 1) ? st[0] : 0);
+        const int y = c[1] + ((sub & 2) ? st[1] : 0);
+        const int z = c[2] + ((sub & 4) ? st[2] : 0);
+        if (x >= 0 && x < nx && y >= 0 && y < ny && z >= 0 && z < nz &&
+            visit((z * ny + y) * nx + x))
+          return;
+      }
+    }
+    bool out = false;
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      if (tie & (1 << ax)) {
+        c[ax] += st[ax];
+        tn[ax] += td[ax];
+        out = out || c[ax] < 0 || c[ax] >= g.n[ax];
+      }
+    }
+    if (out) return;
+  }
+}
+
 // Draw slot j of this ray: from the u-planes (plane 2j + c, column rid) or
 // from threefry at counter (global_rid * n_draws + j) * 2 + c.
 struct Draws {
@@ -232,9 +337,16 @@ __device__ __forceinline__ bool sphere_root(float b, float dis, float inv2a,
 // 0.58 / 0.58 / 0.61 / 0.63 ms per pass). A row's mask is read only for a
 // candidate that beats the champion: a masked object never becomes the
 // champion, so this changes no result.
-template <int kRows = 2>
+//
+// Grid mode (kGrid, G non-null): the brute loops cover the shared-memory
+// prefix (T.n_tri triangles; the spheres unless G->sph), then each grid is
+// walked (grid_walk) and its items tested from the global tables with the
+// same arithmetic; there a candidate wins on the least (t, id) pair, so
+// the champion is the brute loops' whatever order the cells come in (mesh
+// triangles that share an edge are hit at the same t).
+template <int kRows = 2, bool kGrid = false>
 __device__ float trace(const Tables& T, V3 o, V3 d, float mint, float maxt,
-                       Hit& h) {
+                       Hit& h, const Grids* G = nullptr) {
   float bt = inf_f();
   V3 bn = mk(0.0f, 0.0f, 0.0f);
   float bm = -1.0f;
@@ -256,8 +368,9 @@ __device__ float trace(const Tables& T, V3 o, V3 d, float mint, float maxt,
         bbeta = far ? 1.0f : 0.0f;
       }
     };
+    const int ns = (kGrid && G->sph) ? 0 : T.n_sph;
     int i = 0;
-    for (; i + kRows <= T.n_sph; i += kRows) {
+    for (; i + kRows <= ns; i += kRows) {
       float b[kRows], dis[kRows];
 #pragma unroll
       for (int k = 0; k < kRows; ++k)
@@ -266,7 +379,7 @@ __device__ float trace(const Tables& T, V3 o, V3 d, float mint, float maxt,
       for (int k = 0; k < kRows; ++k)
         if (dis[k] >= 0.0f) candidate(i + k, b[k], dis[k]);
     }
-    for (; i < T.n_sph; ++i) {
+    for (; i < ns; ++i) {
       float b;
       const float dis = sphere_dis(T.sph + i * kSph, o, d, a, b);
       if (dis >= 0.0f) candidate(i, b, dis);
@@ -295,6 +408,66 @@ __device__ float trace(const Tables& T, V3 o, V3 d, float mint, float maxt,
         bgamma = gamma;
       }
     }
+    if constexpr (kGrid) {
+      auto bound = [&]() { return bt; };
+      for (int gi = 0; gi < G->n_tri; ++gi) {
+        const GridDesc& g = G->g[gi];
+        grid_walk(g, o, d, mint, maxt, [&](int cell) {
+          const int e = __ldg(g.off + cell + 1);
+          for (int k = __ldg(g.off + cell); k < e; ++k) {
+            const int j = __ldg(g.items + k);
+            const float* q = G->tri_tab + static_cast<size_t>(j) * kTri;
+            const V3 ng = ld3(q);
+            const float div = dot(ng, d);
+            if (T.two_sided ? !(div != 0.0f) : !(div > 0.0f)) continue;
+            const float idiv = 1.0f / div;
+            const float beta =
+                (dot(ld3(q + 12), oxd) - dot(ld3(q + 6), d)) * idiv;
+            const float gamma =
+                (dot(ld3(q + 3), d) - dot(ld3(q + 9), oxd)) * idiv;
+            const float t = (q[15] - dot(ng, o)) * idiv;
+            const int obj = T.n_sph + j;
+            if (beta >= 0.0f && beta <= 1.0f && gamma >= 0.0f &&
+                beta + gamma <= 1.0f && t >= mint && t <= maxt &&
+                (t < bt || (t == bt && obj < bobj)) && q[17] > 0.0f) {
+              const float alpha = 1.0f - beta - gamma;
+              bn = normalize(alpha * ld3(q + 18) + beta * ld3(q + 21) +
+                             gamma * ld3(q + 24));
+              bt = t;
+              bm = q[16];
+              bobj = obj;
+              bbeta = beta;
+              bgamma = gamma;
+            }
+          }
+          return false;
+        }, bound);
+      }
+      if (G->sph) {
+        const GridDesc& g = G->g[G->n_tri];
+        grid_walk(g, o, d, mint, maxt, [&](int cell) {
+          const int e = __ldg(g.off + cell + 1);
+          for (int k = __ldg(g.off + cell); k < e; ++k) {
+            const int j = __ldg(g.items + k);
+            const float* s = G->sph_tab + static_cast<size_t>(j) * kSph;
+            float b;
+            const float dis = sphere_dis(s, o, d, a, b);
+            float t;
+            bool far;
+            if (dis >= 0.0f &&
+                sphere_root(b, dis, inv2a, mint, maxt, t, far) &&
+                (t < bt || (t == bt && j < bobj)) && s[5] > 0.0f) {
+              bt = t;
+              bn = normalize(o + t * d - ld3(s));
+              bm = s[4];
+              bobj = j;
+              bbeta = far ? 1.0f : 0.0f;
+            }
+          }
+          return false;
+        }, bound);
+      }
+    }
   }
   const bool found = bm >= 0.0f;
   const float ts = found ? bt : 0.0f;
@@ -310,8 +483,11 @@ __device__ float trace(const Tables& T, V3 o, V3 d, float mint, float maxt,
 
 // Occlusion of the segment [mint, maxt]; stops at the first hit. Spheres
 // kRows at a time and masks as in trace.
-template <int kRows = 2>
-__device__ bool anyhit(const Tables& T, V3 o, V3 d, float mint, float maxt) {
+// Grid mode (kGrid): the prefix as in trace, then the grids' walks, each
+// stopping at its first occluder.
+template <int kRows = 2, bool kGrid = false>
+__device__ bool anyhit(const Tables& T, V3 o, V3 d, float mint, float maxt,
+                       const Grids* G = nullptr) {
   if (mint == maxt) return false;
   const float a = dot(d, d);
   const float inv2a = 0.5f / a;
@@ -321,8 +497,9 @@ __device__ bool anyhit(const Tables& T, V3 o, V3 d, float mint, float maxt) {
     return sphere_root(b, dis, inv2a, mint, maxt, t, far) &&
            T.sph[i * kSph + 5] > 0.0f;
   };
+  const int ns = (kGrid && G->sph) ? 0 : T.n_sph;
   int i = 0;
-  for (; i + kRows <= T.n_sph; i += kRows) {
+  for (; i + kRows <= ns; i += kRows) {
     float b[kRows], dis[kRows];
 #pragma unroll
     for (int k = 0; k < kRows; ++k)
@@ -331,7 +508,7 @@ __device__ bool anyhit(const Tables& T, V3 o, V3 d, float mint, float maxt) {
     for (int k = 0; k < kRows; ++k)
       if (dis[k] >= 0.0f && hits(i + k, b[k], dis[k])) return true;
   }
-  for (; i < T.n_sph; ++i) {
+  for (; i < ns; ++i) {
     float b;
     const float dis = sphere_dis(T.sph + i * kSph, o, d, a, b);
     if (dis >= 0.0f && hits(i, b, dis)) return true;
@@ -349,6 +526,52 @@ __device__ bool anyhit(const Tables& T, V3 o, V3 d, float mint, float maxt) {
     if (beta >= 0.0f && beta <= 1.0f && gamma >= 0.0f &&
         beta + gamma <= 1.0f && t >= mint && t <= maxt && q[17] > 0.0f)
       return true;
+  }
+  if constexpr (kGrid) {
+    bool occ = false;
+    auto bound = []() { return inf_f(); };
+    for (int gi = 0; gi < G->n_tri && !occ; ++gi) {
+      const GridDesc& g = G->g[gi];
+      grid_walk(g, o, d, mint, maxt, [&](int cell) {
+        const int e = __ldg(g.off + cell + 1);
+        for (int k = __ldg(g.off + cell); k < e && !occ; ++k) {
+          const float* q =
+              G->tri_tab + static_cast<size_t>(__ldg(g.items + k)) * kTri;
+          const V3 ng = ld3(q);
+          const float div = dot(ng, d);
+          if (T.two_sided ? !(div != 0.0f) : !(div > 0.0f)) continue;
+          const float idiv = 1.0f / div;
+          const float beta =
+              (dot(ld3(q + 12), oxd) - dot(ld3(q + 6), d)) * idiv;
+          const float gamma =
+              (dot(ld3(q + 3), d) - dot(ld3(q + 9), oxd)) * idiv;
+          const float t = (q[15] - dot(ng, o)) * idiv;
+          occ = beta >= 0.0f && beta <= 1.0f && gamma >= 0.0f &&
+                beta + gamma <= 1.0f && t >= mint && t <= maxt &&
+                q[17] > 0.0f;
+        }
+        return occ;
+      }, bound);
+    }
+    if (G->sph && !occ) {
+      const GridDesc& g = G->g[G->n_tri];
+      grid_walk(g, o, d, mint, maxt, [&](int cell) {
+        const int e = __ldg(g.off + cell + 1);
+        for (int k = __ldg(g.off + cell); k < e && !occ; ++k) {
+          const float* s =
+              G->sph_tab + static_cast<size_t>(__ldg(g.items + k)) * kSph;
+          float b;
+          const float dis = sphere_dis(s, o, d, a, b);
+          float t;
+          bool far;
+          occ = dis >= 0.0f &&
+                sphere_root(b, dis, inv2a, mint, maxt, t, far) &&
+                s[5] > 0.0f;
+        }
+        return occ;
+      }, bound);
+    }
+    return occ;
   }
   return false;
 }

@@ -10,8 +10,8 @@ capability:
   03  wavefront split: ray generation and trace as two stages
   04  triangle mesh + spheres through a shared maxt, direct shade
   05  AABB-gated traversal (scene-bounds ray clip): 04's pipeline
-  06  1-D slab grid, 07  3-D uniform grid: not ported yet (ROADMAP Queue 1
-      item 11) and raise
+  06  1-D slab grid (an n x 1 x 1 grid), 07  3-D uniform grid: 04's scene
+      through kernel 1's grid mode, direct shade, blocked layout of 64
   08  shadow rays, ambient + cosine shade (direct mode of kernel 1)
   09  thin-lens camera, stratified lens sampling (direct mode of kernel 1)
   10  progressive Monte Carlo path tracing (kernel 1)
@@ -31,6 +31,7 @@ import os
 import numpy as np
 import torch
 
+from ..accel import prepare_grids
 from ..core.config import RenderConfig
 from ..core.types import AABB, Camera, make_spheres
 from ..io.pdb import load_pdb
@@ -58,12 +59,6 @@ def _ref(path: str) -> str | None:
 def _no_xml(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what}: XML scenes are not ported yet (ROADMAP Queue 1 item 15)")
-
-
-def _no_grid(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name} renders through a uniform grid, not ported yet (ROADMAP "
-        "Queue 1 item 11)")
 
 
 def molecule_scene(name: str = "c60.pdb", cols: int = 512, rows: int = 512,
@@ -136,11 +131,15 @@ def assign03(cols=512, rows=512, molecule="c60.pdb", device=None):
     return run, (), RenderConfig(width=cols, height=rows)
 
 
-def _mesh_scene(cols, rows, device):
+def _mesh_scene(cols, rows, device, use_grid: bool = False, n_slabs=1):
     scene = cornell_box(cols=cols, rows=rows, device=_device(device))
-    # the megakernel route, as in the JAX package (kernel 1's direct mode)
+    # the megakernel route, as in the JAX package (kernel 1's direct mode;
+    # grid scenes in its grid mode with the blocked layout of 64)
     cfg = RenderConfig(width=cols, height=rows, spp=1, bounces=0,
-                       use_megakernel=True)
+                       use_grid=use_grid, n_slabs=n_slabs,
+                       use_megakernel=True, mega_block=64 if use_grid else 0)
+    if use_grid:
+        scene = prepare_grids(scene, n_slabs)
     return scene, cfg
 
 
@@ -157,16 +156,22 @@ def assign05(cols=512, rows=512, device=None):
 
 
 def assign06(cols=512, rows=512, n_slabs=8, device=None):
-    """1-D slab acceleration (an n x 1 x 1 grid)."""
-    raise _no_grid("assign06")
+    """1-D slab acceleration: a true n x 1 x 1 grid, binning by x-extent
+    and the walk stepping along x alone."""
+    scene, cfg = _mesh_scene(cols, rows, device, use_grid=True,
+                             n_slabs=(n_slabs, 1, 1))
+    return render_direct, (scene, cfg), cfg
 
 
 def assign07(cols=512, rows=512, n_slabs=4, scene_xml: str | None = None,
              mesh_slabs: int | str = "xml", device=None):
-    """Full 3-D uniform grid DDA."""
+    """Full 3-D uniform grid DDA (``scene_xml``, a mesh-instancing XML
+    scene with ``mesh_slabs``, needs the XML reader)."""
     if scene_xml is not None:
         raise _no_xml("assign07(scene_xml=...)")
-    raise _no_grid("assign07")
+    scene, cfg = _mesh_scene(cols, rows, device, use_grid=True,
+                             n_slabs=n_slabs)
+    return render_direct, (scene, cfg), cfg
 
 
 def assign08(cols=320, rows=240, scene_xml: str | None = None, device=None):

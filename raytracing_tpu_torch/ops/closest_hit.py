@@ -131,6 +131,13 @@ def closest_hit_spheres(rays: Rays, spheres: Spheres, *,
         return _miss(rays)
     best_t, best_i = _sphere_search(rays, spheres, obj_chunk, use_pallas,
                                     rows)
+    return sphere_champion(rays, spheres, best_t, best_i)
+
+
+def sphere_champion(rays: Rays, spheres: Spheres, best_t: torch.Tensor,
+                    best_i: torch.Tensor) -> Champion:
+    """The Champion of a search's (best_t, best_i), its t recomputed
+    differentiably from the champion sphere's parameters."""
     valid = torch.isfinite(best_t) & rays.alive
 
     # differentiable recompute for the champions; lanes that are not
@@ -215,6 +222,13 @@ def closest_hit_triangles(rays: Rays, tris: Triangles, *,
         return _miss(rays)
     best_t, best_i = _triangle_search(rays, tris, obj_chunk, two_sided,
                                       use_pallas, rows)
+    return triangle_champion(rays, tris, best_t, best_i)
+
+
+def triangle_champion(rays: Rays, tris: Triangles, best_t: torch.Tensor,
+                      best_i: torch.Tensor) -> Champion:
+    """The Champion of a search's (best_t, best_i), its t recomputed
+    differentiably from the champion triangle's vertices."""
     valid = torch.isfinite(best_t) & rays.alive
 
     # differentiable recompute for the champions (guarded division)

@@ -59,11 +59,11 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
 
 def sphere_hit(o, d, a, inv2a, mint, maxt, row) -> tuple[torch.Tensor,
                                                            torch.Tensor]:
-    """(ok, t) of one packed sphere row [center xyz, radius, mat, mask, ..]:
-    the nearest root inside [mint, maxt]. ``a = |d|^2`` and ``inv2a =
-    0.5 / a`` are per ray."""
-    m = o - row[0:3]
-    r = row[3]
+    """(ok, t) of one packed sphere row [center xyz, radius, mat, mask, ..]
+    (or one row per ray, (R, 8)): the nearest root inside [mint, maxt].
+    ``a = |d|^2`` and ``inv2a = 0.5 / a`` are per ray."""
+    m = o - row[..., 0:3]
+    r = row[..., 3]
     b = 2.0 * dot3(m, d)
     cq = dot3(m, m) - r * r
     dis = b * b - 4.0 * a * cq
@@ -78,16 +78,17 @@ def sphere_hit(o, d, a, inv2a, mint, maxt, row) -> tuple[torch.Tensor,
     tmx = torch.maximum(t0, t1)
     in_mn = (tmn >= mint) & (tmn <= maxt)
     in_mx = (tmx >= mint) & (tmx <= maxt)
-    ok = (in_mn | in_mx) & (dis >= 0.0) & (row[5] > 0.0)
+    ok = (in_mn | in_mx) & (dis >= 0.0) & (row[..., 5] > 0.0)
     return ok, torch.where(in_mn, tmn, tmx)
 
 
 def triangle_hit(o, d, oxd, mint, maxt, row, two_sided: bool
                  ) -> tuple[torch.Tensor, ...]:
     """(ok, t, beta, gamma) of one packed triangle row [n_geo, c1, c2, e1,
-    e2, k, mat, mask, vn0, vn1, vn2, pad]; ``oxd = cross(o, d)`` per ray."""
-    ng, c1, c2 = row[0:3], row[3:6], row[6:9]
-    e1, e2, k = row[9:12], row[12:15], row[15]
+    e2, k, mat, mask, vn0, vn1, vn2, pad] (or one row per ray, (R, >= 18));
+    ``oxd = cross(o, d)`` per ray."""
+    ng, c1, c2 = row[..., 0:3], row[..., 3:6], row[..., 6:9]
+    e1, e2, k = row[..., 9:12], row[..., 12:15], row[..., 15]
     div = dot3(d, ng)
     side_ok = (div != 0.0) if two_sided else (div > 0.0)
     idiv = 1.0 / torch.where(div == 0.0, 1.0, div)
@@ -95,7 +96,8 @@ def triangle_hit(o, d, oxd, mint, maxt, row, two_sided: bool
     gamma = (dot3(d, c1) - dot3(oxd, e1)) * idiv
     t = (k - dot3(o, ng)) * idiv
     ok = side_ok & (beta >= 0.0) & (beta <= 1.0) & (gamma >= 0.0) \
-        & (beta + gamma <= 1.0) & (t >= mint) & (t <= maxt) & (row[17] > 0.0)
+        & (beta + gamma <= 1.0) & (t >= mint) & (t <= maxt) \
+        & (row[..., 17] > 0.0)
     return ok, t, beta, gamma
 
 

@@ -24,9 +24,10 @@ schedule order, and ``occs`` ((1 + bounces) * L, R) bool, each NEE
 shadow ray's occlusion bit in schedule order (segment-major). Segments
 after a path died hold -1 / False.
 
-The tables stay resident (no streaming): at most ``SPH_RESIDENT_MAX``
-spheres (JAX's ``SMEM_TABLE_MAX // 8``, which JAX's kernel also loops over
-resident) and ``UNROLL_OBJECTS`` triangles.
+The brute loops' tables stay resident (no streaming): at most
+``SPH_RESIDENT_MAX`` spheres (JAX's ``SMEM_TABLE_MAX // 8``, which JAX's
+kernel also loops over resident) and ``UNROLL_OBJECTS`` triangles; in grid
+mode that bounds the brute prefix only.
 
 Draws: with ``u_planes`` (``(2 * n_draws, R)``, plane ``2j + c`` for slot
 ``j``, component ``c``) both versions read them; without, both make the
@@ -38,6 +39,19 @@ Russian roulette (``russian_roulette=True``, ``megakernel.py:1486-1500``)
 takes one more draw slot per depth (u0 only) and, from ``rr_start_depth``
 on, ends a path unless u0 < p = clip(max(throughput), 0.05, 1), scaling
 the throughput of a survivor by 1 / p.
+
+Grid mode (``grid``, a ``KernelGrids``; ``render/mega.grid_tables`` makes
+it from ``accel.prepare_grids``' grids, the counterpart of the Pallas
+kernel's grid operands): the triangles below ``grid.start`` and, without
+a sphere grid, the spheres are the brute prefix that stays resident (the
+caps below apply to it); each triangle grid and the sphere grid are
+walked per ray (``accel/traverse.march`` in the plain version,
+``csrc/pathtrace.cuh`` grid_walk in the kernel), their items read from
+the whole tables with the brute loops' arithmetic, a candidate winning
+on the least (t, id) pair, so ids, record and accumulator are the brute
+version's. ``block`` (the blocked layout, grid mode only) maps the
+kernel's threads to pixel blocks; draws, accumulator and record stay
+row-major, so the plain version ignores it.
 
 Direct mode (``direct_pass_reference`` / ``direct_pass``, the kernel's
 ``mode="direct"``, ``megakernel.py:1362-1401``): per ray the primary hit,
@@ -52,6 +66,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -65,10 +80,11 @@ from . import intersect as I
 
 INF = math.inf
 
-# the kernel keeps every table in shared memory and loops over objects.
-# UNROLL_OBJECTS is JAX's unroll budget (the routing threshold of the
-# backward); spheres stay resident up to JAX's SMEM_TABLE_MAX // 8, as in
-# JAX's kernel; larger tables are ROADMAP Queue 1 item 10 (streaming)
+# the kernel keeps the brute loops' tables in shared memory and loops over
+# objects. UNROLL_OBJECTS is JAX's unroll budget (the routing threshold of
+# the backward); spheres stay resident up to JAX's SMEM_TABLE_MAX // 8, as
+# in JAX's kernel (accel.prepare_grids builds the sphere grid past it);
+# larger brute tables are ROADMAP Queue 1 item 10 (streaming)
 UNROLL_OBJECTS = 64
 SPH_RESIDENT_MAX = 36 * 1024 // 8
 TRI_RESIDENT_MAX = UNROLL_OBJECTS
@@ -86,6 +102,15 @@ SPH_COLS, TRI_COLS, MAT_COLS, LIG_COLS = 8, 32, 4, 20
 # in shared memory par takes 28 floats, so that every table starts on a
 # 16-byte boundary (csrc/pathtrace.cuh kParPad)
 PAR_PAD = 28
+
+# grids of one launch (csrc/pathtrace.cuh kMaxGrids)
+GRIDS_MAX = 8
+# nvcc flags of the library that holds grid mode's instances (the default
+# build holds the brute ones; csrc/megakernel.cu RT_GRID_MODE)
+GRID_FLAGS = ("-DRT_GRID_MODE=1",)
+# rays per chunk of the plain grid walk (bounds its (ray, item) pairs: a
+# few GB at 146 triangles per cell)
+PLAIN_GRID_CHUNK = 1 << 17
 
 launches = 0          # path mode (csrc/megakernel.cu pathtrace_kernel)
 direct_launches = 0   # direct mode (csrc/megakernel.cu direct_kernel)
@@ -128,15 +153,145 @@ def direct_draw_planes(key: torch.Tensor, n_rays: int, n_lights: int,
                                for li in range(n_lights)])
 
 
+class KernelGrids(NamedTuple):
+    """Kernel 1's grid mode: triangle grids (``accel.grid.Grid``, item ids
+    absolute into the folded triangle table), the sphere grid or None, and
+    ``start``, the brute triangle prefix."""
+    tri: tuple
+    sph: object
+    start: int
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch version
 # ---------------------------------------------------------------------------
 
-def _trace(o, d, mint, maxt, sph, tri, two_sided):
+def _add_walk_work(work, kind: str, keys, steps, side) -> None:
+    """Adds the work of one walk per ray through one grid to ``work``:
+    ``cells`` (the walk's steps), ``side_cells`` (the side cells visited
+    at edge and corner crossings), ``{kind}_tests_raw`` (every (ray, item)
+    test made) and ``{kind}_tests`` (the distinct (ray, item) pairs, the
+    ``keys``: an item binned into several cells is tested once per cell,
+    and a bound counts it once)."""
+    if work is None:
+        return
+    keys = torch.cat(keys) if keys else steps.new_zeros(0)
+    for k, x in (("cells", steps.sum()), ("side_cells", side.sum()),
+                 (f"{kind}_tests_raw", keys.numel()),
+                 (f"{kind}_tests", torch.unique(keys).numel())):
+        work[k] = work.get(k, 0) + int(x)
+
+
+def _grid_walks(grid: KernelGrids):
+    """(kind, grid) of each walk: the triangle grids, then the spheres'."""
+    return [("tri", g) for g in grid.tri] + (
+        [("sph", grid.sph)] if grid.sph is not None else [])
+
+
+def _grid_closest(o, d, a, inv2a, oxd, mint, maxt, sph, tri, two_sided,
+                  grid: KernelGrids, state, work):
+    """The grid walks of ``_trace``: each gridded item the march reaches is
+    tested with ``_trace``'s arithmetic and wins on the least (t, id)
+    pair; returns the champion state (t, normal, material, id)."""
+    from ..accel.traverse import cell_items, lex_min, march
+    bt, bn, bm, bo = (x.clone() for x in state)
+    n_sph = sph.shape[0]
+    for s in range(0, o.shape[0], PLAIN_GRID_CHUNK):
+        c = slice(s, s + PLAIN_GRID_CHUNK)
+        oc, dc, ac, ic, xc = o[c], d[c], a[c], inv2a[c], oxd[c]
+        lo, hi = mint[c], maxt[c]
+        m = oc.shape[0]
+        for kind, g in _grid_walks(grid):
+            table = sph if kind == "sph" else tri
+            keys = []
+
+            def visit(cell, active, kind=kind, g=g, table=table, keys=keys):
+                ray, item = cell_items(g, cell, active)
+                if work is not None:
+                    keys.append(ray * table.shape[0] + item)
+                rows = table[item]
+                if kind == "sph":
+                    ok, t = I.sphere_hit(oc[ray], dc[ray], ac[ray], ic[ray],
+                                         lo[ray], hi[ray], rows)
+                    obj = item
+                else:
+                    ok, t, beta, gamma = I.triangle_hit(
+                        oc[ray], dc[ray], xc[ray], lo[ray], hi[ray], rows,
+                        two_sided)
+                    obj = item + n_sph
+                t = torch.where(ok, t, INF)
+                tmin, omin, widx = lex_min(t, obj, ray, m)
+                cur_t, cur_o = bt[c], bo[c]
+                better = (omin >= 0) & ((tmin < cur_t) | (
+                    (tmin == cur_t) & (omin < cur_o)))
+                r = torch.nonzero(better).squeeze(1)
+                w, row = widx[r], rows[widx[r]]
+                if kind == "sph":
+                    hn = safe_normalize(oc[r] + tmin[r][:, None] * dc[r]
+                                        - row[:, 0:3])
+                    mat = row[:, 4]
+                else:
+                    be, ga = beta[w], gamma[w]
+                    alpha = 1.0 - be - ga
+                    hn = safe_normalize(alpha[:, None] * row[:, 18:21]
+                                        + be[:, None] * row[:, 21:24]
+                                        + ga[:, None] * row[:, 24:27])
+                    mat = row[:, 16]
+                bt[s + r], bn[s + r] = tmin[r], hn
+                bm[s + r], bo[s + r] = mat, omin[r]
+                return bt[c]
+
+            _add_walk_work(work, kind, keys,
+                           *march(oc, dc, lo, hi, g, visit))
+    return bt, bn, bm, bo
+
+
+def _grid_occluded(o, d, a, inv2a, oxd, mint, maxt, sph, tri, two_sided,
+                   grid: KernelGrids, occ, work):
+    """The grid walks of ``_anyhit`` for the rays ``occ`` leaves free; each
+    ray's walk stops at its first occluder."""
+    from ..accel.traverse import cell_items, march
+    occ = occ.clone()
+    for s in range(0, o.shape[0], PLAIN_GRID_CHUNK):
+        c = slice(s, s + PLAIN_GRID_CHUNK)
+        oc, dc, ac, ic, xc = o[c], d[c], a[c], inv2a[c], oxd[c]
+        m = oc.shape[0]
+        for kind, g in _grid_walks(grid):
+            table = sph if kind == "sph" else tri
+            # occluded rays get a dead window: the march skips them
+            lo = torch.where(occ[c], maxt[c], mint[c])
+            hi = maxt[c]
+            keys = []
+
+            def visit(cell, active, kind=kind, g=g, table=table, lo=lo,
+                      hi=hi, keys=keys):
+                ray, item = cell_items(g, cell, active)
+                if work is not None:
+                    keys.append(ray * table.shape[0] + item)
+                rows = table[item]
+                if kind == "sph":
+                    ok = I.sphere_hit(oc[ray], dc[ray], ac[ray], ic[ray],
+                                      lo[ray], hi[ray], rows)[0]
+                else:
+                    ok = I.triangle_hit(oc[ray], dc[ray], xc[ray], lo[ray],
+                                        hi[ray], rows, two_sided)[0]
+                hit = torch.zeros(m, dtype=torch.bool, device=oc.device)
+                hit[ray[ok]] = True
+                occ[s:s + m] |= hit
+                return torch.where(occ[c], -INF, INF)
+
+            _add_walk_work(work, kind, keys,
+                           *march(oc, dc, lo, hi, g, visit))
+    return occ
+
+
+def _trace(o, d, mint, maxt, sph, tri, two_sided, grid=None, work=None):
     """Closest hit over spheres then triangles (champion loops with a
     strict ``t < best``). Returns (new maxt, hit point, shading normal,
     material id as float (-1 on a miss), champion (sphere i, n_sph +
-    triangle j, -1 on a miss) as int64)."""
+    triangle j, -1 on a miss) as int64). With ``grid`` the loops cover the
+    brute prefix and the grids' walks the rest (``_grid_closest``);
+    ``work`` (a dict) then sums the walks' work (``_add_walk_work``)."""
     n = o.shape[0]
     alive = mint != maxt
     a = dot3(d, d)
@@ -145,7 +300,9 @@ def _trace(o, d, mint, maxt, sph, tri, two_sided):
     bn = torch.zeros((n, 3), device=o.device)
     bm = torch.full((n,), -1.0, device=o.device)
     bo = torch.full((n,), -1, dtype=torch.int64, device=o.device)
-    for i in range(sph.shape[0]):
+    n_bs = sph.shape[0] if grid is None or grid.sph is None else 0
+    n_bt = tri.shape[0] if grid is None else grid.start
+    for i in range(n_bs):
         row = sph[i]
         ok, t = I.sphere_hit(o, d, a, inv2a, mint, maxt, row)
         t = torch.where(ok & alive, t, INF)
@@ -157,7 +314,7 @@ def _trace(o, d, mint, maxt, sph, tri, two_sided):
         bm = torch.where(better, row[4], bm)
         bo = torch.where(better, i, bo)
     oxd = cross3(o, d)          # loop-invariant over triangles
-    for i in range(tri.shape[0]):
+    for i in range(n_bt):
         row = tri[i]
         ok, t, beta, gamma = I.triangle_hit(o, d, oxd, mint, maxt, row,
                                             two_sided)
@@ -171,25 +328,36 @@ def _trace(o, d, mint, maxt, sph, tri, two_sided):
         bn = torch.where(better[:, None], hn, bn)
         bm = torch.where(better, row[16], bm)
         bo = torch.where(better, sph.shape[0] + i, bo)
+    if grid is not None:
+        bt, bn, bm, bo = _grid_closest(o, d, a, inv2a, oxd, mint, maxt, sph,
+                                       tri, two_sided, grid,
+                                       (bt, bn, bm, bo), work)
     found = bm >= 0.0
     ts = torch.where(found, bt, 0.0)
     return (torch.where(found, bt, maxt), o + ts[:, None] * d, bn, bm,
             torch.where(found, bo, -1))
 
 
-def _anyhit(o, d, mint, maxt, sph, tri, two_sided):
-    """Occlusion of the segments [mint, maxt] by any object."""
+def _anyhit(o, d, mint, maxt, sph, tri, two_sided, grid=None, work=None):
+    """Occlusion of the segments [mint, maxt] by any object (with ``grid``
+    the brute prefix, then ``_grid_occluded``)."""
     alive = mint != maxt
     a = dot3(d, d)
     inv2a = 0.5 / a
     occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
-    for i in range(sph.shape[0]):
+    n_bs = sph.shape[0] if grid is None or grid.sph is None else 0
+    n_bt = tri.shape[0] if grid is None else grid.start
+    for i in range(n_bs):
         occ = occ | I.sphere_hit(o, d, a, inv2a, mint, maxt, sph[i])[0]
     oxd = cross3(o, d)
-    for i in range(tri.shape[0]):
+    for i in range(n_bt):
         occ = occ | I.triangle_hit(o, d, oxd, mint, maxt, tri[i],
                                    two_sided)[0]
-    return occ & alive
+    occ = occ & alive
+    if grid is not None:
+        occ = _grid_occluded(o, d, a, inv2a, oxd, mint, maxt, sph, tri,
+                             two_sided, grid, occ, work) & alive
+    return occ
 
 
 def _albedo(mat, matf):
@@ -239,7 +407,7 @@ def _pass_reference(par, sph, tri, mat, lig, acc, u, ray_offset: int, *,
                     spp: int, width: int, bounces: int, two_sided: bool,
                     normalize_emitter: bool, russian_roulette: bool = False,
                     rr_start_depth: int = 0, trace=None, anyhit=None,
-                    record=None) -> torch.Tensor:
+                    record=None, grid=None, work=None) -> torch.Tensor:
     """One pass of ``_render_pass_kernel`` (path mode) over every ray;
     returns the new accumulator.
 
@@ -255,10 +423,10 @@ def _pass_reference(par, sph, tri, mat, lig, acc, u, ray_offset: int, *,
     slots = iter(range(u.shape[0] // 2))
     if trace is None:
         def trace(o, d, mint, maxt):
-            return _trace(o, d, mint, maxt, sph, tri, two_sided)
+            return _trace(o, d, mint, maxt, sph, tri, two_sided, grid, work)
     if anyhit is None:
         def anyhit(o, d, mint, maxt):
-            return _anyhit(o, d, mint, maxt, sph, tri, two_sided)
+            return _anyhit(o, d, mint, maxt, sph, tri, two_sided, grid, work)
     if record is not None:
         traced, occluded = trace, anyhit
 
@@ -365,10 +533,12 @@ def pathtrace_pass_reference(par, ipar, sph, tri, mat, lig, acc, u_planes,
                              seed: int, n_passes: int = 1,
                              russian_roulette: bool = False,
                              rr_start_depth: int = 0,
-                             record: bool = False):
+                             record: bool = False, grid=None, work=None):
     """The plain version of ``pathtrace_pass`` on any device; returns a new
     accumulator (``acc`` is not modified), or ``(acc, ids, occs)`` with
-    ``record=True`` (one pass)."""
+    ``record=True`` (one pass). ``grid``: grid mode (a ``KernelGrids``);
+    ``work``: a dict that sums its walks' cell steps and item tests
+    (``_add_walk_work``)."""
     if record and n_passes != 1:
         raise ValueError("champion recording is single-pass")
     roff = int(ipar[1])
@@ -381,7 +551,8 @@ def pathtrace_pass_reference(par, ipar, sph, tri, mat, lig, acc, u_planes,
                               two_sided=two_sided,
                               normalize_emitter=normalize_emitter,
                               russian_roulette=russian_roulette,
-                              rr_start_depth=rr_start_depth, record=rec)
+                              rr_start_depth=rr_start_depth, record=rec,
+                              grid=grid, work=work)
     if not record:
         return acc
     occs = (torch.stack(rec["occs"]) if rec["occs"] else
@@ -391,12 +562,14 @@ def pathtrace_pass_reference(par, ipar, sph, tri, mat, lig, acc, u_planes,
 
 
 def _direct_reference(par, sph, tri, mat, lig, acc, u, *, spp: int,
-                      width: int, two_sided: bool) -> torch.Tensor:
+                      width: int, two_sided: bool, grid=None,
+                      work=None) -> torch.Tensor:
     """One pass of ``_render_pass_kernel`` in direct mode over every ray;
     returns the new accumulator."""
     o, d, mint, maxt = _camera_rays(par, u[0:2].t(), acc.shape[0], 0, spp,
                                     width)
-    _, hp, hn, matf, _ = _trace(o, d, mint, maxt, sph, tri, two_sided)
+    _, hp, hn, matf, _ = _trace(o, d, mint, maxt, sph, tri, two_sided, grid,
+                                work)
     eps, ambient = par[24], par[25]
     valid = matf >= 0.0
     alb = _albedo(mat, matf)
@@ -411,7 +584,8 @@ def _direct_reference(par, sph, tri, mat, lig, acc, u, *, spp: int,
         dist = torch.where(d2 > 0.0, dist, 0.0)
         sd = safe_normalize(dl)
         occ = _anyhit(so, sd, torch.where(valid, 0.0, INF),
-                      torch.where(valid, dist, INF), sph, tri, two_sided)
+                      torch.where(valid, dist, INF), sph, tri, two_sided,
+                      grid, work)
         cosx = torch.clamp(dot3(sd, hn), 0.0, 1.0)
         shade = torch.clamp(ambient + torch.where(occ, 0.0, cosx), 0.0, 1.0)
         acc = acc + torch.where(valid[:, None], alb * shade[:, None], 0.0)
@@ -420,11 +594,12 @@ def _direct_reference(par, sph, tri, mat, lig, acc, u, *, spp: int,
 
 def direct_pass_reference(par, sph, tri, mat, lig, acc, u_planes, *,
                           key: torch.Tensor, spp: int, width: int,
-                          two_sided: bool, n_passes: int = 1) -> torch.Tensor:
+                          two_sided: bool, n_passes: int = 1, grid=None,
+                          work=None) -> torch.Tensor:
     """The plain version of ``direct_pass`` on any device; returns a new
     accumulator. Pass p reads ``u_planes`` or, without them, the draws of
     ``direct_draw_planes`` keyed by ``key`` (one pass) or ``pass_key(key,
-    p)``."""
+    p)``. ``grid`` and ``work`` as ``pathtrace_pass_reference``."""
     for p in range(n_passes):
         u = u_planes
         if u is None:
@@ -432,7 +607,8 @@ def direct_pass_reference(par, sph, tri, mat, lig, acc, u_planes, *,
                                    rng.pass_key(key, p), acc.shape[0],
                                    lig.shape[0], spp, acc.device)
         acc = _direct_reference(par, sph, tri, mat, lig, acc, u, spp=spp,
-                                width=width, two_sided=two_sided)
+                                width=width, two_sided=two_sided, grid=grid,
+                                work=work)
     return acc
 
 
@@ -449,22 +625,71 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I,                # spp, width, bounces, rr, start
         _I, _I,                                       # two_sided, normalize
         _VP, _VP,                                     # ids, occs (record)
-        _VP]),                                        # stream
+        _I, _VP, _I, _I, _I, _I,   # grid, grids, n_grids, sph grid, start,
+        _VP]),                                        # block; stream
     "rt_direct_pass": (ctypes.c_int, [
         _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _I,     # par, sph, tri, mat, lig
         _VP, _I, _I,                                  # acc, n_rays, ray_offset
         _VP, ctypes.c_uint, ctypes.c_uint,            # u_planes, key
         _I, _I, _I,                         # first pass, per_pass, n_passes
         _I, _I, _I,                                   # spp, width, two_sided
-        _VP]),                                        # stream
+        _I, _VP, _I, _I, _I, _I,   # grid, grids, n_grids, sph grid, start,
+        _VP]),                                        # block; stream
 }
 
 
+class _GridDesc(ctypes.Structure):
+    """csrc/pathtrace.cuh GridDesc."""
+    _fields_ = [("off", ctypes.c_void_p), ("items", ctypes.c_void_p),
+                ("pmin", ctypes.c_float * 3), ("width", ctypes.c_float * 3),
+                ("pmax", ctypes.c_float * 3), ("n", ctypes.c_int * 3)]
+
+
+def _grid_args(grid: KernelGrids | None, n_tri: int):
+    """(grid, descriptors, n_grids, sph grid, start) of the C interface;
+    the descriptors array must outlive the call."""
+    if grid is None:
+        return (0, None, 0, 0, n_tri), None
+    walks = [g for _, g in _grid_walks(grid)]
+    desc = (_GridDesc * len(walks))(*(
+        _GridDesc(g.cell_offsets.data_ptr(), g.item_indices.data_ptr()
+                  if g.item_indices.numel() else None,
+                  (ctypes.c_float * 3)(*g.pmin.tolist()),
+                  (ctypes.c_float * 3)(*g.width().tolist()),
+                  (ctypes.c_float * 3)(*g.pmax.tolist()),
+                  (ctypes.c_int * 3)(*g.n)) for g in walks))
+    return (1, ctypes.addressof(desc), len(walks),
+            int(grid.sph is not None), grid.start), desc
+
+
+def _check_grid(grid: KernelGrids, n_tri: int, dev) -> None:
+    """The grids' shapes, types and devices (their item ids index the
+    tables by construction, ``accel.prepare_grids``)."""
+    walks = _grid_walks(grid)
+    if len(walks) > GRIDS_MAX:
+        raise ValueError(f"{len(walks)} grids: at most {GRIDS_MAX} per "
+                         "launch")
+    if not 0 <= grid.start <= n_tri:
+        raise ValueError(f"grid start {grid.start} outside [0, {n_tri}]")
+    for _, g in walks:
+        for t in (g.cell_offsets, g.item_indices):
+            if (t.device != dev or t.dtype != torch.int32
+                    or not t.is_contiguous()):
+                raise ValueError("grid CSR arrays must be contiguous int32 "
+                                 f"on {dev}")
+        if g.cell_offsets.shape[0] != g.n_cells + 1:
+            raise ValueError(f"grid of {g.n} cells has "
+                             f"{g.cell_offsets.shape[0]} offsets")
+
+
 def _check_args(par, ipar, sph, tri, mat, lig, acc, u_planes, spp, width,
-                n_draws, n_passes, multi_pass_planes=False):
+                n_draws, n_passes, multi_pass_planes=False, grid=None,
+                block=0, resident=True):
     """Devices, types, shapes and limits of a launch of ``n_draws`` draw
     slots per ray and pass; ``multi_pass_planes`` lets one u-planes tensor
-    serve every pass (direct mode)."""
+    serve every pass (direct mode). With ``grid`` the resident caps apply
+    to its brute prefix; ``resident=False`` (kernel 3, which reads the
+    sphere and triangle tables from global memory) drops them."""
     dev = acc.device
     if acc.dtype != torch.float32 or acc.dim() != 2 or acc.shape[1] != 3:
         raise ValueError(f"acc must be (R, 3) float32, got "
@@ -496,10 +721,17 @@ def _check_args(par, ipar, sph, tri, mat, lig, acc, u_planes, spp, width,
     if n % (spp * width):
         raise ValueError(f"{n} rays are not whole rows of {width} pixels "
                          f"x {spp} spp")
-    if sph.shape[0] > SPH_RESIDENT_MAX or tri.shape[0] > TRI_RESIDENT_MAX:
+    n_sph, n_tri = sph.shape[0], tri.shape[0]
+    if grid is not None:
+        _check_grid(grid, n_tri, dev)
+        n_sph = 0 if grid.sph is not None else n_sph
+        n_tri = grid.start
+    if not resident:
+        n_sph = n_tri = 0
+    if n_sph > SPH_RESIDENT_MAX or n_tri > TRI_RESIDENT_MAX:
         raise ValueError(f"at most {SPH_RESIDENT_MAX} spheres and "
                          f"{TRI_RESIDENT_MAX} triangles stay resident")
-    smem = 4 * (PAR_PAD + sph.numel() + tri.numel() + mat.numel()
+    smem = 4 * (PAR_PAD + SPH_COLS * n_sph + TRI_COLS * n_tri + mat.numel()
                 + lig.numel())
     if smem > SMEM_BYTES_MAX:
         raise ValueError(f"scene tables take {smem} B of shared memory, "
@@ -507,6 +739,13 @@ def _check_args(par, ipar, sph, tri, mat, lig, acc, u_planes, spp, width,
     roff = int(ipar[1])
     if roff < 0 or roff + n >= (1 << 24):
         raise ValueError("pixel math is exact below 2^24 rays")
+    if block:
+        rows = n // (spp * width)
+        if grid is None:
+            raise ValueError("the blocked layout is grid mode's")
+        if block < 0 or width % block or rows % block or roff:
+            raise ValueError(f"block {block} must tile the {width} x {rows} "
+                             "film of an unsharded launch")
     if (roff + n) * n_draws * 2 >= (1 << 32):
         raise ValueError("draw counters must stay below 2^32")
     if n_passes < 1:
@@ -533,18 +772,27 @@ def _check_launch(acc, tensors, what: str) -> None:
                            "pathtrace_pass_diff (one pass per call)")
 
 
+def _lib(grid, build_flags: tuple):
+    """The build of kernel 1 that holds the launch's instances: grid mode's
+    (``GRID_FLAGS``) or the brute ones, with ``build_flags`` added."""
+    return _build.load("megakernel", _SIGNATURES, tuple(build_flags) + (
+        GRID_FLAGS if grid is not None else ()))
+
+
 def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
                    spp: int, width: int, bounces: int, two_sided: bool,
                    normalize_emitter: bool, seed: int,
                    n_passes: int = 1, russian_roulette: bool = False,
                    rr_start_depth: int = 0, record: bool = False,
+                   grid: KernelGrids | None = None, block: int = 0,
                    build_flags: tuple = ()):
     """``n_passes`` progressive passes over ``acc`` (R, 3), in place;
     returns ``acc``, or ``(acc, ids, occs)`` with ``record=True`` (one
     pass; see the module docstring). ``russian_roulette`` plays the
-    roulette from depth ``rr_start_depth`` on. ``build_flags`` launches a
-    build of the kernel with these nvcc flags added (e.g.
-    ``("--fmad=false",)``), beside the default one.
+    roulette from depth ``rr_start_depth`` on. ``grid`` runs grid mode,
+    ``block`` the blocked layout (see the module docstring).
+    ``build_flags`` launches a build of the kernel with these nvcc flags
+    added (e.g. ``("--fmad=false",)``), beside the default one.
 
     par (26,) f32 scalars; ipar (2,) int32 CPU tensor [pass index, global
     ray offset]; sph (S, 8) [center xyz, radius, mat, mask, pad2]; tri
@@ -554,7 +802,8 @@ def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
     """
     global launches
     _check_args(par, ipar, sph, tri, mat, lig, acc, u_planes, spp, width,
-                n_draws_of(lig.shape[0], bounces, russian_roulette), n_passes)
+                n_draws_of(lig.shape[0], bounces, russian_roulette), n_passes,
+                grid=grid, block=block)
     if record and n_passes != 1:
         raise ValueError("champion recording is single-pass")
     kw = dict(spp=spp, width=width, bounces=bounces, two_sided=two_sided,
@@ -563,13 +812,14 @@ def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
               rr_start_depth=rr_start_depth)
     if acc.device.type == "cpu":
         out = pathtrace_pass_reference(par, ipar, sph, tri, mat, lig, acc,
-                                       u_planes, record=record, **kw)
+                                       u_planes, record=record, grid=grid,
+                                       **kw)
         if not record:
             return acc.copy_(out)
         return acc.copy_(out[0]), out[1], out[2]
     _check_launch(acc, (par, sph, tri, mat, lig, acc, u_planes),
                   "pathtrace_pass")
-    lib = _build.load("megakernel", _SIGNATURES, build_flags)
+    lib = _lib(grid, build_flags)
     pass0, roff = (int(x) for x in ipar.tolist())
     base = rng.base_key(seed)
     ids = occs = None
@@ -579,6 +829,7 @@ def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
         ids = torch.empty((n_seg, n), dtype=torch.int32, device=acc.device)
         occs = torch.empty((n_seg * lig.shape[0], n), dtype=torch.bool,
                            device=acc.device)
+    gargs, _desc = _grid_args(grid, tri.shape[0])
     with torch.cuda.device(acc.device):
         stream = torch.cuda.current_stream(acc.device).cuda_stream
         for first in range(0, n_passes, MAX_PASSES_PER_LAUNCH):
@@ -593,7 +844,8 @@ def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
                 _ptr(acc), acc.shape[0], roff, _ptr(u_planes),
                 ctypes.addressof(keys), k, spp, width, bounces,
                 int(russian_roulette), rr_start_depth, int(two_sided),
-                int(normalize_emitter), _ptr(ids), _ptr(occs), stream)
+                int(normalize_emitter), _ptr(ids), _ptr(occs), *gargs, block,
+                stream)
             if err != 0:
                 raise RuntimeError(
                     f"megakernel launch failed with CUDA error {err}")
@@ -603,7 +855,8 @@ def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
 
 def direct_pass(par, sph, tri, mat, lig, acc, u_planes, *,
                 key: torch.Tensor, spp: int, width: int, two_sided: bool,
-                n_passes: int = 1, build_flags: tuple = ()) -> torch.Tensor:
+                n_passes: int = 1, grid: KernelGrids | None = None,
+                block: int = 0, build_flags: tuple = ()) -> torch.Tensor:
     """Kernel 1's direct mode: ``n_passes`` direct-lighting passes added
     into ``acc`` (R, 3), in place; returns ``acc``. Pass p reads
     ``u_planes`` ((2 * (1 + L), R), ``u_planes_for_direct``'s layout) or,
@@ -611,21 +864,22 @@ def direct_pass(par, sph, tri, mat, lig, acc, u_planes, *,
     ``key`` ((2,) uint32 CPU tensor) for a call of one pass and by
     ``pass_key(key, p)`` otherwise. On CPU tensors it runs
     ``direct_pass_reference``; on CUDA tensors it launches the kernel (one
-    launch per 64 passes) and counts ``direct_launches``. Tables as
-    ``pathtrace_pass``."""
+    launch per 64 passes) and counts ``direct_launches``. Tables, ``grid``
+    and ``block`` as ``pathtrace_pass``."""
     global direct_launches
     _check_args(par, torch.zeros(2, dtype=torch.int32), sph, tri, mat, lig,
                 acc, u_planes, spp, width, 1 + lig.shape[0], n_passes,
-                multi_pass_planes=True)
+                multi_pass_planes=True, grid=grid, block=block)
     kw = dict(key=key, spp=spp, width=width, two_sided=two_sided,
-              n_passes=n_passes)
+              n_passes=n_passes, grid=grid)
     if acc.device.type == "cpu":
         return acc.copy_(direct_pass_reference(par, sph, tri, mat, lig, acc,
                                                u_planes, **kw))
     _check_launch(acc, (par, sph, tri, mat, lig, acc, u_planes),
                   "direct_pass")
-    lib = _build.load("megakernel", _SIGNATURES, build_flags)
+    lib = _lib(grid, build_flags)
     k0, k1 = rng.key_words(key)
+    gargs, _desc = _grid_args(grid, tri.shape[0])
     with torch.cuda.device(acc.device):
         stream = torch.cuda.current_stream(acc.device).cuda_stream
         for first in range(0, n_passes, MAX_PASSES_PER_LAUNCH):
@@ -635,7 +889,7 @@ def direct_pass(par, sph, tri, mat, lig, acc, u_planes, *,
                 _ptr(mat), mat.shape[0], _ptr(lig), lig.shape[0],
                 _ptr(acc), acc.shape[0], 0, _ptr(u_planes), k0, k1,
                 first, int(n_passes > 1), k, spp, width, int(two_sided),
-                stream)
+                *gargs, block, stream)
             if err != 0:
                 raise RuntimeError(
                     f"direct-mode launch failed with CUDA error {err}")

@@ -331,8 +331,11 @@ def pathtrace_pass_bwd_champ(par, ipar, sph, tri, mat, lig, g, u_planes, ids,
     zeros."""
     global champ_launches
     sel = _check_wrt(diff_wrt)
+    # kernel 3 reads the sphere and triangle tables from global memory, at
+    # any size (a grid scene's whole tables)
     MK._check_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp, width,
-                   MK.n_draws_of(lig.shape[0], bounces, russian_roulette), 1)
+                   MK.n_draws_of(lig.shape[0], bounces, russian_roulette), 1,
+                   resident=False)
     if bounces > MAX_BOUNCES or lig.shape[0] > MAX_LIGHTS:
         raise ValueError(f"the adjoint's tape holds at most {MAX_BOUNCES} "
                          f"bounces and {MAX_LIGHTS} lights")
@@ -380,9 +383,10 @@ class _PassDiff(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, par, sph, tri, mat, lig, acc_in, ipar, u_planes, kw,
-                diff_wrt):
+                diff_wrt, fwd):
         acc = acc_in.clone()
-        MK.pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, **kw)
+        MK.pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes,
+                          **kw, **fwd)
         ctx.save_for_backward(par, sph, tri, mat, lig)
         # ipar carries the pass index (the draws' key) and the ray offset
         ctx.ipar, ctx.u_planes, ctx.kw = ipar, u_planes, kw
@@ -400,7 +404,7 @@ class _PassDiff(torch.autograd.Function):
                 tables[0], ctx.ipar, *tables[1:], g_out.contiguous(),
                 ctx.u_planes, diff_wrt=wrt, **ctx.kw)
             grads = [o if n in wrt else None for n, o in zip(DIFF_ALL, outs)]
-        return (*grads, g_out, None, None, None, None)
+        return (*grads, g_out, None, None, None, None, None)
 
 
 class _PassDiffCell(torch.autograd.Function):
@@ -408,14 +412,17 @@ class _PassDiffCell(torch.autograd.Function):
     place; backward = kernel 3 on that record (JAX's ``_make_diff_op`` with
     ``bwd_cell``). On CPU tensors the two wrappers run their plain
     versions, so the CPU exercises the same wiring: the saved record,
-    ``diff_wrt`` and the hand-off of ``g`` to ``acc_in``."""
+    ``diff_wrt`` and the hand-off of ``g`` to ``acc_in``. ``fwd`` holds
+    the recording forward's own arguments (``grid``, ``block``): the
+    record names original rows in grid mode too, so kernel 3 takes the
+    whole tables as they are."""
 
     @staticmethod
     def forward(ctx, par, sph, tri, mat, lig, acc_in, ipar, u_planes, kw,
-                diff_wrt):
+                diff_wrt, fwd):
         acc, ids, occs = MK.pathtrace_pass(par, ipar, sph, tri, mat, lig,
                                            acc_in.clone(), u_planes,
-                                           record=True, **kw)
+                                           record=True, **kw, **fwd)
         ctx.save_for_backward(par, sph, tri, mat, lig, ids, occs)
         ctx.ipar, ctx.u_planes, ctx.kw = ipar, u_planes, kw
         ctx.diff_wrt = diff_wrt
@@ -432,7 +439,7 @@ class _PassDiffCell(torch.autograd.Function):
                 par, ctx.ipar, sph, tri, mat, lig, g_out.contiguous(),
                 ctx.u_planes, ids, occs, diff_wrt=wrt, **ctx.kw)
             grads = [o if n in wrt else None for n, o in zip(DIFF_ALL, outs)]
-        return (*grads, g_out, None, None, None, None)
+        return (*grads, g_out, None, None, None, None, None)
 
 
 def pathtrace_pass_diff(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
@@ -440,7 +447,8 @@ def pathtrace_pass_diff(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
                         normalize_emitter: bool, seed: int,
                         russian_roulette: bool = False,
                         rr_start_depth: int = 0, diff_wrt=DIFF_ALL,
-                        bwd_cell: bool = False) -> torch.Tensor:
+                        bwd_cell: bool = False, grid=None,
+                        block: int = 0) -> torch.Tensor:
     """One differentiable progressive pass: returns a new accumulator
     (``acc`` is not modified); autograd reaches the tables in ``diff_wrt``
     and ``acc``. Arguments as ``ops.megakernel.pathtrace_pass`` with one
@@ -450,8 +458,14 @@ def pathtrace_pass_diff(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
     kernel 1 and its backward kernel 2; on CPU tensors it is the plain
     forward under autograd, with the groups outside ``diff_wrt`` detached.
     ``bwd_cell=True``: kernel 1 recording and kernel 3 (``_PassDiffCell``),
-    their plain versions on CPU tensors."""
+    their plain versions on CPU tensors. ``grid`` (kernel 1's grid mode)
+    takes the cell route only; ``block`` is kernel 1's blocked layout."""
     sel = _check_wrt(diff_wrt)
+    if grid is not None and not bwd_cell:
+        raise NotImplementedError(
+            "grid-mode training takes the cell route; kernel 2 over a grid "
+            "scene's tables is ROADMAP Queue 1 item 16")
+    fwd = dict(grid=grid, block=block)
     kw = dict(spp=spp, width=width, bounces=bounces, two_sided=two_sided,
               normalize_emitter=normalize_emitter, seed=seed,
               russian_roulette=russian_roulette,
@@ -460,11 +474,11 @@ def pathtrace_pass_diff(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
         raise ValueError(f"no kernel for device {acc.device}")
     if bwd_cell:
         return _PassDiffCell.apply(par, sph, tri, mat, lig, acc, ipar,
-                                   u_planes, kw, sel)
+                                   u_planes, kw, sel, fwd)
     if acc.device.type == "cpu":
         t = [x if n in sel else x.detach()
              for n, x in zip(DIFF_ALL, (par, sph, tri, mat, lig))]
         return MK.pathtrace_pass_reference(t[0], ipar, *t[1:], acc,
                                            u_planes, **kw)
     return _PassDiff.apply(par, sph, tri, mat, lig, acc, ipar, u_planes, kw,
-                           sel)
+                           sel, fwd)

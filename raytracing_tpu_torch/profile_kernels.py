@@ -24,9 +24,14 @@ sphere_field(1024)'s step cotangent and kernel 1's record of the pass;
 then the same source's Russian-roulette instances (from depth RR_START,
 as ``bench.py`` runs config 5: kernel 1 on cornell in 16-pass launches,
 kernel 2 on the step cotangent with ("sph", "mat")) and kernel 1's direct
-mode on cornell in 16-pass launches. A variant whose sources predate those
-modes (a parent commit's) is timed by running this tool from that
-commit's own checkout instead.
+mode on cornell in 16-pass launches; then kernel 1's grid mode on the
+scenes of ``chip_smoke.py``'s phase 18 (config 3's shape: cornell plus a
+992-triangle torus mesh in its 3^3 grid, in direct mode at block 64 and
+0 and in path mode at block 64, and recording; sphere_field(8192) in its
+6^3 sphere grid in path mode and recording) and kernel 3 on the sphere
+grid's record. A variant whose sources predate those modes (a parent
+commit's) is timed by running this tool from that commit's own checkout
+instead.
 ``--sass`` dumps ``cuobjdump -sass`` of the named variants' libraries into
 ``--out`` and prints, per kernel, the count of each memory, atomic and
 warp-level opcode, and the instructions around the first shared-memory
@@ -75,6 +80,7 @@ RR_START = 2
 # (library, C signatures, nvcc flags after _build.NVCC_FLAGS), keyed as the
 # wrappers load them
 LIBS = (("megakernel", MK._SIGNATURES, ()),
+        ("megakernel", MK._SIGNATURES, MK.GRID_FLAGS),
         ("megakernel_grad", MKG._SIGNATURES, MKG.ADJ_FLAGS),
         ("megakernel_champ", MKG._CHAMP_SIGNATURES, MKG.ADJ_FLAGS))
 
@@ -86,12 +92,18 @@ def _smi(query: str) -> str:
         timeout=60).stdout.strip().splitlines()[0]
 
 
+def _stem(name: str, flags: tuple) -> str:
+    """A library's file stem: its source's name, "-grid" for kernel 1's
+    grid-mode half."""
+    return name + ("-grid" if MK.GRID_FLAGS[0] in flags else "")
+
+
 def build(label: str, src: Path, name: str, signatures: dict,
           flags: tuple):
     """nvcc ``src/<name>.cu`` as _build.load does; (ctypes lib, ptxas)."""
     out = BUILD / label
     out.mkdir(parents=True, exist_ok=True)
-    so = out / f"lib{name}.so"
+    so = out / f"lib{_stem(name, flags)}.so"
     proc = subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, *flags,
                            "-I", str(src), "-o", str(so),
                            str(src / f"{name}.cu")],
@@ -108,10 +120,11 @@ def build(label: str, src: Path, name: str, signatures: dict,
 def use(libs: dict) -> None:
     """Put one variant's libraries in the wrappers' place."""
     for name, _, flags in LIBS:
-        _build._loaded[(name, tuple(flags))] = libs[name]
+        _build._loaded[(name, tuple(flags))] = libs[_stem(name, flags)]
 
 
 def sass_summary(label: str, name: str, out: Path) -> None:
+    """``name``: a library's file stem (``_stem``)."""
     so = BUILD / label / f"lib{name}.so"
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     proc = subprocess.run([tool, "-sass", str(so)], capture_output=True,
@@ -168,11 +181,17 @@ def time_ms(fn, reps: int = REPS, per: int = 1) -> float:
 
 class Case:
     """One scene's tables and, with ``step``, a training step's cotangent
-    of acc and kernel 1's record of that step's pass."""
+    of acc and kernel 1's record of that step's pass; ``grid``: in kernel
+    1's grid mode over the scene's prepared grids, in the blocked layout
+    ``block``."""
 
-    def __init__(self, scene, dev, step: bool = True):
+    def __init__(self, scene, dev, step: bool = True, grid: bool = False,
+                 block: int = 0):
         self.cfg = RenderConfig(width=SIZE, height=SIZE, bounces=BOUNCES,
-                                use_megakernel=True)
+                                use_megakernel=True, use_grid=grid,
+                                mega_block=block)
+        self.grid = mega.grid_tables(scene) if grid else None
+        self.block = block
         self.tables = mega.scene_tables(scene, self.cfg)
         self.kw = dict(spp=1, width=SIZE, bounces=BOUNCES, two_sided=False,
                        normalize_emitter=True, seed=self.cfg.seed)
@@ -191,20 +210,28 @@ class Case:
         _, self.ids, self.occs = self.k1(record=True)
         self.live = (self.g != 0).any(-1).double().mean().item()
 
+    def _mode(self, block=None) -> dict:
+        if self.grid is None:
+            return {}
+        return {"grid": self.grid,
+                "block": self.block if block is None else block}
+
     def k1(self, n_passes: int = 1, record: bool = False, rr=False):
         return MK.pathtrace_pass(self.tables[0], self.ipar, *self.tables[1:],
                                  self.acc, None, n_passes=n_passes,
-                                 record=record, **self.kw, **self._rr(rr))
+                                 record=record, **self.kw, **self._rr(rr),
+                                 **self._mode())
 
     def k2(self, g, wrt, rr=False):
         return MKG.pathtrace_pass_bwd(self.tables[0], self.ipar,
                                       *self.tables[1:], g, None,
                                       diff_wrt=wrt, **self.kw, **self._rr(rr))
 
-    def direct(self, n_passes: int):
+    def direct(self, n_passes: int, block=None):
         return MK.direct_pass(self.tables[0], *self.tables[1:], self.acc,
                               None, key=self.key, spp=1, width=SIZE,
-                              two_sided=False, n_passes=n_passes)
+                              two_sided=False, n_passes=n_passes,
+                              **self._mode(block))
 
     @staticmethod
     def _rr(rr: bool) -> dict:
@@ -215,6 +242,37 @@ class Case:
         return MKG.pathtrace_pass_bwd_champ(
             self.tables[0], self.ipar, *self.tables[1:], g, None, self.ids,
             self.occs, diff_wrt=wrt, **self.kw)
+
+
+def grid_cases(dev) -> dict:
+    """Kernel 1's grid-mode cases on chip_smoke.py's phase 18 scenes (the
+    torus mesh is the smoke script's, not the package's)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    return {"torus": Case(chip_smoke._grid_scene("torus", SIZE, SIZE, dev),
+                          dev, step=False, grid=True, block=64),
+            "spheres": Case(chip_smoke._grid_scene("spheres", SIZE, SIZE,
+                                                   dev), dev, grid=True)}
+
+
+def measure_grid(cases: dict) -> dict:
+    torus, spheres = cases["torus"], cases["spheres"]
+    return {
+        "k1_grid_torus_direct_B64_16pass_ms_per_pass": time_ms(
+            lambda: torus.direct(16), reps=5, per=16),
+        "k1_grid_torus_direct_B0_16pass_ms_per_pass": time_ms(
+            lambda: torus.direct(16, block=0), reps=5, per=16),
+        "k1_grid_torus_path_B64_16pass_ms_per_pass": time_ms(
+            lambda: torus.k1(n_passes=16), reps=2, per=16),
+        "k1_grid_torus_record_ms": time_ms(lambda: torus.k1(record=True),
+                                           reps=5),
+        "k1_grid_spheres_16pass_ms_per_pass": time_ms(
+            lambda: spheres.k1(n_passes=16), reps=2, per=16),
+        "k1_grid_spheres_record_ms": time_ms(
+            lambda: spheres.k1(record=True), reps=5),
+        "k3_grid_spheres_step_g_sph_mat_ms": time_ms(
+            lambda: spheres.k3(spheres.g, TRAIN_WRT)),
+    }
 
 
 def measure(cornell: Case, spheres: Case, fields: dict) -> dict:
@@ -274,15 +332,16 @@ def main(argv=None) -> int:
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         built = list(pool.map(lambda j: build(*j), jobs))
     libs: dict = {}
-    for (label, _, name, _, _), (lib, log) in zip(jobs, built):
-        libs.setdefault(label, {})[name] = lib
+    for (label, _, name, _, flags), (lib, log) in zip(jobs, built):
+        libs.setdefault(label, {})[_stem(name, flags)] = lib
         for line in log.splitlines():
             if re.search(r"registers|spill|stack", line):
-                print(f"  ptxas {label}/{name}: {line.strip()}")
+                print(f"  ptxas {label}/{_stem(name, flags)}: "
+                      f"{line.strip()}")
     print(f"built {len(jobs)} libraries in {time.perf_counter() - t0:.2f} s")
     for label in args.sass:
-        for name, _, _ in LIBS:
-            sass_summary(label, name, out)
+        for name, _, flags in LIBS:
+            sass_summary(label, _stem(name, flags), out)
 
     labels = [label for label, _ in variants]
     use(libs[labels[0]])
@@ -293,12 +352,14 @@ def main(argv=None) -> int:
                      step=False) for n in FIELDS}
     print(f"cotangent share of rays with g != 0: cornell {cornell.live:.4%},"
           f" sphere_field({N_SPHERES}) {spheres.live:.4%}")
+    grid = grid_cases(dev)
     results: dict = {"card": smi, "turns": []}
     for order in (labels, labels[::-1]):
         turn = {}
         for label in order:
             use(libs[label])
-            turn[label] = measure(cornell, spheres, fields)
+            turn[label] = {**measure(cornell, spheres, fields),
+                           **measure_grid(grid)}
             print(f"{label}: " + ", ".join(
                 f"{k} {v:.6g}" for k, v in turn[label].items()))
         results["turns"].append(turn)

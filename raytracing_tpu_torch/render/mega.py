@@ -12,10 +12,13 @@ the champion ("cell") route past that -- kernel 1 records the champions
 and occlusion bits, kernel 3 (``csrc/megakernel_champ.cu``) differentiates
 the record. ``supported_diff`` gates the differentiable pass.
 
-``supported`` is True only for what the port's kernel 1 covers: no grid,
-no blocked layout, no stale-POI replication, at most 4608 spheres (JAX's
-``SMEM_TABLE_MAX // 8``, the resident table its kernel loops over) and 64
-triangles, and fewer than 2^24 rays.
+``supported`` is True only for what the port's kernel 1 covers: no
+stale-POI replication, fewer than 2^24 rays, and a resident table of at
+most 4608 spheres (JAX's ``SMEM_TABLE_MAX // 8``, the resident table its
+kernel loops over) and 64 triangles -- with ``cfg.use_grid`` the brute
+prefix alone, the rest in kernel 1's grid mode over the grids of
+``accel.prepare_grids`` (``grid_tables``). ``cfg.mega_block`` is grid
+mode's blocked layout where it tiles the film (``effective_block``).
 Anything else raises, naming the ROADMAP item that will cover it or the
 stage pipeline (``use_megakernel=False``) that covers it now; nothing
 falls through to another route. ``use_pallas`` selects the stage
@@ -36,6 +39,12 @@ from .stages import _all_triangles
 # the differentiable pass's table budget per object type (JAX's
 # render/mega.py DIFF_TABLE_MAX)
 DIFF_TABLE_MAX = 4096
+# grid mode's differentiable row budget, counted as JAX counts its
+# duplicated cell-major diff rows (render/mega.py GRID_DIFF_MAX): the
+# triangle prefix plus the grids' payloads, and the sphere grid's payload.
+# The port's cell route records original rows, so no table of that size is
+# built here; the budget is kept so that the port trains what JAX trains.
+GRID_DIFF_MAX = 32768
 
 
 def scene_tables(scene: Scene, cfg: RenderConfig
@@ -95,22 +104,54 @@ def scene_tables(scene: Scene, cfg: RenderConfig
     return par, sph, tri, mat, lig
 
 
+def effective_block(cfg: RenderConfig) -> int:
+    """cfg.mega_block where it tiles the film, else 0 (row-major): JAX's
+    ``_effective_block``."""
+    b = cfg.mega_block
+    return b if b and cfg.width % b == 0 and cfg.height % b == 0 else 0
+
+
+def grid_tables(scene: Scene) -> MK.KernelGrids:
+    """Kernel 1's grid-mode arguments from the scene's prepared grids:
+    ``folded_tri_grid`` (the brute prefix ends at the first one's
+    ``start``; without triangle grids it is every triangle) and
+    ``mega_sph_grid``. The grids' CSR arrays are used as built: a cell
+    holds its items in id order and the kernel walks each ray's cells in
+    order, so nothing is baked for a camera."""
+    grids = tuple(scene.folded_tri_grid or ())
+    start = grids[0].start if grids else _all_triangles(scene).count
+    return MK.KernelGrids(tri=grids, sph=scene.mega_sph_grid, start=start)
+
+
+def _prepared(scene: Scene) -> None:
+    """Raises unless ``accel.prepare_grids`` built the grids a grid-mode
+    render of the scene reads."""
+    if _all_triangles(scene).count and scene.folded_tri_grid is None:
+        raise ValueError("use_grid needs the scene's grids: call "
+                         "accel.prepare_grids(scene, ...) first")
+    if (scene.spheres.count > MK.SPH_RESIDENT_MAX
+            and scene.mega_sph_grid is None):
+        raise ValueError(
+            f"{scene.spheres.count} spheres are past the resident "
+            f"{MK.SPH_RESIDENT_MAX}: call accel.prepare_grids(scene, ...) "
+            "for the sphere grid")
+
+
 def supported(scene: Scene | None, cfg: RenderConfig) -> bool:
     """True when the port renders this scene and config; raises
-    NotImplementedError naming the ROADMAP Queue 1 item otherwise. With
+    NotImplementedError naming the ROADMAP Queue 1 item otherwise (and
+    ValueError for a grid-mode scene without its prepared grids). With
     ``scene=None`` only the config is checked."""
-    if cfg.use_grid:
-        raise NotImplementedError(
-            "uniform grids are not ported yet (ROADMAP Queue 1 item 11)")
     if cfg.replicate_stale_poi:
         raise NotImplementedError(
             "replicate_stale_poi is a stage-pipeline option (the JAX "
             "megakernel falls through to the stage pipeline for it): set "
             "use_megakernel=False")
-    if cfg.mega_block:
+    if cfg.mega_block and not cfg.use_grid:
         raise NotImplementedError(
-            "the blocked pixel layout is not ported yet (ROADMAP Queue 1 "
-            "item 10)")
+            "mega_block is the blocked layout of kernel 1's grid mode (set "
+            "use_grid=True); the brute instances keep the row-major map, "
+            "which gives the same image")
     if cfg.total_rays >= (1 << 24):
         raise NotImplementedError(
             f"{cfg.total_rays} rays: the kernel takes fewer than 2^24 per "
@@ -118,12 +159,22 @@ def supported(scene: Scene | None, cfg: RenderConfig) -> bool:
     if scene is None:
         return True
     n_sph, n_tri = scene.spheres.count, _all_triangles(scene).count
+    if cfg.use_grid:
+        _prepared(scene)
+        g = grid_tables(scene)
+        n_sph = 0 if g.sph is not None else n_sph
+        n_tri = g.start
+        if len(g.tri) + (g.sph is not None) > MK.GRIDS_MAX:
+            raise NotImplementedError(
+                f"kernel 1 walks at most {MK.GRIDS_MAX} grids per launch")
     if n_sph > MK.SPH_RESIDENT_MAX or n_tri > MK.TRI_RESIDENT_MAX:
+        where = " outside the grids" if cfg.use_grid else ""
         raise NotImplementedError(
-            f"{n_sph} spheres / {n_tri} triangles: kernel 1 keeps at most "
-            f"{MK.SPH_RESIDENT_MAX} spheres and {MK.TRI_RESIDENT_MAX} "
-            "triangles resident; larger tables stream in Morton chunks, not "
-            "ported yet (ROADMAP Queue 1 item 10)")
+            f"{n_sph} spheres / {n_tri} triangles{where}: kernel 1 keeps "
+            f"at most {MK.SPH_RESIDENT_MAX} spheres and "
+            f"{MK.TRI_RESIDENT_MAX} triangles resident; use_grid with "
+            "accel.prepare_grids walks larger tables, and streaming them "
+            "in Morton chunks is not ported yet (ROADMAP Queue 1 item 10)")
     return True
 
 
@@ -133,20 +184,30 @@ def supported_diff(scene: Scene | None, cfg: RenderConfig) -> bool:
     ``DIFF_TABLE_MAX`` objects per type); raises NotImplementedError naming
     the ROADMAP Queue 1 item otherwise."""
     supported(scene, cfg)   # streamed tables (item 10) raise here
-    if scene is not None and scene.spheres.count > DIFF_TABLE_MAX:
-        raise NotImplementedError(
-            f"{scene.spheres.count} spheres: the differentiable pass covers "
-            f"at most {DIFF_TABLE_MAX} per type (the JAX package's "
-            "DIFF_TABLE_MAX); larger tables render forward-only")
     if cfg.mega_edge_bandwidth > 0.0:
         raise NotImplementedError(
             "edge-aware (soft) gradients are not ported yet (ROADMAP Queue 1 "
             "item 13)")
-    if cfg.use_grid:
-        raise NotImplementedError(
-            "grid-mode training is not ported yet (ROADMAP Queue 1 items "
-            "11-12)")
     MKG._check_wrt(cfg.mega_grad_wrt)
+    if scene is None:
+        return True
+    if cfg.use_grid:
+        g = grid_tables(scene)
+        tri_rows = g.start + sum(int(x.item_indices.shape[0]) for x in g.tri)
+        sph_rows = (int(g.sph.item_indices.shape[0]) if g.sph is not None
+                    else scene.spheres.count)
+        budget = GRID_DIFF_MAX if g.sph is not None else DIFF_TABLE_MAX
+        if tri_rows > GRID_DIFF_MAX or sph_rows > budget:
+            raise NotImplementedError(
+                f"{tri_rows} triangle / {sph_rows} sphere rows: grid-mode "
+                f"training covers at most {GRID_DIFF_MAX} rows per type "
+                f"(the JAX package's GRID_DIFF_MAX; spheres without a grid "
+                f"{DIFF_TABLE_MAX}); larger scenes render forward-only")
+    elif scene.spheres.count > DIFF_TABLE_MAX:
+        raise NotImplementedError(
+            f"{scene.spheres.count} spheres: the differentiable pass covers "
+            f"at most {DIFF_TABLE_MAX} per type (the JAX package's "
+            "DIFF_TABLE_MAX); larger tables render forward-only")
     return True
 
 
@@ -158,10 +219,13 @@ def bwd_impl_for(scene: Scene | None, cfg: RenderConfig) -> str:
       memory. Past ``UNROLL_OBJECTS`` (64) spheres or triangles it raises
       (ROADMAP Queue 1 item 16);
     * "cell" -- the champion route: kernel 1 recording, then kernel 3;
-    * "auto" -- "cell" past 64 objects of either type, "pallas" otherwise;
+    * "auto" -- "cell" for grid mode and past 64 objects of either type,
+      "pallas" otherwise;
     * "xla" -- the TPU-only dense backward: raises.
 
-    Returns "pallas" or "cell"."""
+    "pallas" on a grid-mode scene raises (ROADMAP Queue 1 item 16): JAX
+    runs kernel 2 over its duplicated cell-major diff tables there, which
+    the port does not build. Returns "pallas" or "cell"."""
     impl = cfg.mega_bwd_impl
     if impl == "xla":
         raise NotImplementedError(
@@ -176,7 +240,12 @@ def bwd_impl_for(scene: Scene | None, cfg: RenderConfig) -> str:
         scene.spheres.count,
         _all_triangles(scene).count) > MK.UNROLL_OBJECTS
     if impl == "auto":
-        return "cell" if big else "pallas"
+        return "cell" if big or cfg.use_grid else "pallas"
+    if impl == "pallas" and cfg.use_grid:
+        raise NotImplementedError(
+            "grid-mode training takes the cell route (mega_bwd_impl 'auto' "
+            "or 'cell'); kernel 2 over a grid scene is ROADMAP Queue 1 item "
+            "16")
     if impl == "pallas" and big:
         raise NotImplementedError(
             f"kernel 2 keeps the tables and their gradient buffers in shared "
@@ -214,7 +283,9 @@ def render_direct_mega(scene: Scene, cfg: RenderConfig,
     acc = torch.zeros((cfg.total_rays, 3), device=scene.device)
     MK.direct_pass(par, sph, tri, mat, lig, acc, u_planes, key=key,
                    spp=cfg.spp, width=cfg.width,
-                   two_sided=cfg.two_sided_triangles, n_passes=n_passes)
+                   two_sided=cfg.two_sided_triangles, n_passes=n_passes,
+                   grid=grid_tables(scene) if cfg.use_grid else None,
+                   block=effective_block(cfg))
     n_lights = max(scene.lights.count, 1)
     img = acc.reshape(cfg.height, cfg.width, cfg.spp, 3).mean(2) \
         / (n_lights * n_passes)
@@ -261,7 +332,9 @@ def render_pass_mega(scene: Scene, state: dict, cfg: RenderConfig,
               two_sided=cfg.two_sided_triangles,
               normalize_emitter=cfg.normalize_emitter, seed=cfg.seed,
               russian_roulette=cfg.russian_roulette,
-              rr_start_depth=cfg.rr_start_depth)
+              rr_start_depth=cfg.rr_start_depth,
+              grid=grid_tables(scene) if cfg.use_grid else None,
+              block=effective_block(cfg))
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (par, sph, tri, mat, lig, state["acc"])):
         if n_passes != 1:

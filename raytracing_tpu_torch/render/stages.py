@@ -8,8 +8,11 @@ through autograd, as the JAX package's stages are through ``jax.grad``.
 With ``cfg.use_pallas`` every closest-hit and any-hit search runs in the
 hit kernels (``ops/hit_kernels.py``: kernels 4 and 5 on the card), over
 object rows packed once per pass (``hit_tables``); otherwise in chunked
-all-pairs scans. Uniform grids (``cfg.use_grid``) are ROADMAP Queue 1
-item 11 and raise.
+all-pairs scans. With ``cfg.use_grid`` (after ``accel.prepare_grids``)
+spheres, scene triangles and each mesh are searched through their own
+grids by the DDA of ``accel/traverse.py`` (plain PyTorch, as the JAX
+package's runs in XLA), as the JAX package's grid branch does; a scene
+without its grids raises.
 """
 from __future__ import annotations
 
@@ -34,11 +37,16 @@ INF = math.inf
 
 
 def _all_triangles(scene: Scene) -> Triangles:
-    """Every triangle the brute-force path traces. The JAX package folds
-    mesh instances in after the scene triangles; the port has no mesh
-    instances yet (ROADMAP Queue 1 item 15), so this is the scene's
-    triangle batch."""
-    return scene.triangles
+    """Every triangle the brute-force path traces, in the JAX package's
+    fold order: the scene triangles, then meshes of at most 64 triangles,
+    then the larger meshes (whose suffix kernel 1's grid mode covers)."""
+    small = [m.tris for m in scene.meshes if m.tris.count <= 64]
+    large = [m.tris for m in scene.meshes if m.tris.count > 64]
+    parts = [p for p in [scene.triangles] + small + large if p.count]
+    if len(parts) <= 1:
+        return parts[0] if parts else scene.triangles
+    return Triangles(*(torch.cat([getattr(p, f) for p in parts])
+                       for f in ("v", "vn", "mat_id", "mask")))
 
 
 class HitTables(NamedTuple):
@@ -60,10 +68,22 @@ def hit_tables(scene: Scene, cfg: RenderConfig) -> HitTables:
             HK.triangle_rows(tris.v, tris.mask) if tris.count else None)
 
 
-def _no_grid(cfg: RenderConfig) -> None:
-    if cfg.use_grid:
-        raise NotImplementedError(
-            "uniform grids are not ported yet (ROADMAP Queue 1 item 11)")
+def _check_grids(scene: Scene) -> None:
+    """The grid branch reads grids that ``accel.prepare_grids`` built;
+    without them it raises rather than search brute force."""
+    if ((scene.spheres.count and scene.sphere_grid is None)
+            or (scene.triangles.count and scene.triangle_grid is None)
+            or any(m.grid is None for m in scene.meshes)):
+        raise ValueError("use_grid needs the scene's grids: call "
+                         "accel.prepare_grids(scene, ...) first")
+
+
+def _grid_batches(scene: Scene):
+    """The triangle batches of the grid branch with their grids: the scene
+    triangles, then each mesh."""
+    out = [(scene.triangles, scene.triangle_grid)] if scene.triangles.count \
+        else []
+    return out + [(m.tris, m.grid) for m in scene.meshes]
 
 
 def trace_all(rays: Rays, hits: Hits, scene: Scene, cfg: RenderConfig,
@@ -73,7 +93,10 @@ def trace_all(rays: Rays, hits: Hits, scene: Scene, cfg: RenderConfig,
     and the merged hits; ``hits`` carries the incoming throughput and, with
     ``cfg.replicate_stale_poi``, the previous hit kept on lanes that miss
     (the reference's stale-POI quirk)."""
-    _no_grid(cfg)
+    if cfg.use_grid:
+        from ..accel.traverse import grid_closest_spheres, \
+            grid_closest_triangles
+        _check_grids(scene)
     if tables is None:
         tables = hit_tables(scene, cfg)
     n, dev = rays.n, rays.o.device
@@ -91,14 +114,26 @@ def trace_all(rays: Rays, hits: Hits, scene: Scene, cfg: RenderConfig,
         bm = torch.where(better, mat, bm)
 
     if scene.spheres.count:
-        ch = closest_hit_spheres(rays, scene.spheres, obj_chunk=cfg.obj_chunk,
-                                 use_pallas=cfg.use_pallas, rows=tables.sph)
+        if cfg.use_grid:
+            ch = grid_closest_spheres(rays, scene.spheres, scene.sphere_grid)
+        else:
+            ch = closest_hit_spheres(rays, scene.spheres,
+                                     obj_chunk=cfg.obj_chunk,
+                                     use_pallas=cfg.use_pallas,
+                                     rows=tables.sph)
         merge(ch, *sphere_hit_attrs(rays, scene.spheres, ch))
-    tris = _all_triangles(scene)
-    if tris.count:
+    ts = cfg.two_sided_triangles
+    if cfg.use_grid:
+        # per batch (the reference's per-mesh dispatch); ids are local to
+        # the batch, which the attributes below read
+        for tris, grid in _grid_batches(scene):
+            ch = grid_closest_triangles(rays, tris, grid, two_sided=ts)
+            merge(ch, *triangle_hit_attrs(rays, tris, ch))
+    elif _all_triangles(scene).count:
+        tris = _all_triangles(scene)
         ch = closest_hit_triangles(rays, tris, obj_chunk=cfg.obj_chunk,
-                                   two_sided=cfg.two_sided_triangles,
-                                   use_pallas=cfg.use_pallas, rows=tables.tri)
+                                   two_sided=ts, use_pallas=cfg.use_pallas,
+                                   rows=tables.tri)
         merge(ch, *triangle_hit_attrs(rays, tris, ch))
 
     found = bm >= 0
@@ -114,20 +149,33 @@ def trace_all(rays: Rays, hits: Hits, scene: Scene, cfg: RenderConfig,
 
 def occluded_any(rays: Rays, scene: Scene, cfg: RenderConfig,
                  tables: HitTables | None = None) -> torch.Tensor:
-    """Any-hit over every geometry type: (R,) bool."""
-    _no_grid(cfg)
+    """Any-hit over every geometry type: (R,) bool. With ``cfg.use_grid``
+    each batch is searched through its grid (its closest hit, as the JAX
+    package's grid branch does)."""
+    if cfg.use_grid:
+        from ..accel.traverse import grid_closest_spheres, \
+            grid_closest_triangles
+        _check_grids(scene)
     if tables is None:
         tables = hit_tables(scene, cfg)
     occ = torch.zeros((rays.n,), dtype=torch.bool, device=rays.o.device)
     if scene.spheres.count:
-        occ = occ | anyhit_spheres(rays, scene.spheres,
-                                   obj_chunk=cfg.obj_chunk,
-                                   use_pallas=cfg.use_pallas,
-                                   rows=tables.sph)
-    tris = _all_triangles(scene)
-    if tris.count:
-        occ = occ | anyhit_triangles(rays, tris, obj_chunk=cfg.obj_chunk,
-                                     two_sided=cfg.two_sided_triangles,
+        if cfg.use_grid:
+            occ = occ | grid_closest_spheres(rays, scene.spheres,
+                                             scene.sphere_grid).valid
+        else:
+            occ = occ | anyhit_spheres(rays, scene.spheres,
+                                       obj_chunk=cfg.obj_chunk,
+                                       use_pallas=cfg.use_pallas,
+                                       rows=tables.sph)
+    ts = cfg.two_sided_triangles
+    if cfg.use_grid:
+        for tris, grid in _grid_batches(scene):
+            occ = occ | grid_closest_triangles(rays, tris, grid,
+                                               two_sided=ts).valid
+    elif _all_triangles(scene).count:
+        occ = occ | anyhit_triangles(rays, _all_triangles(scene),
+                                     obj_chunk=cfg.obj_chunk, two_sided=ts,
                                      use_pallas=cfg.use_pallas,
                                      rows=tables.tri)
     return occ

@@ -1,7 +1,7 @@
 """The CUDA kernels (the pass with and without Russian roulette, its
-recording and direct modes, its two adjoints with and without the roulette
-and the stage pipeline's hit searches) against their plain PyTorch
-versions on the card.
+recording, direct and grid modes and its blocked layout, its two adjoints
+with and without the roulette and the stage pipeline's hit searches)
+against their plain PyTorch versions on the card.
 
 Runs only where there is a CUDA device; elsewhere each test skips. Imports
 no jax, so it runs on a machine without it:
@@ -588,3 +588,135 @@ def test_exact_kernel_1_without_roulette_still_equals_plain(cuda):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+def _torus_scene(device, w=64, h=48):
+    """cornell plus the 992-triangle torus mesh of the grid tests, its
+    kernel grid at auto_slabs(992) = 3."""
+    from raytracing_tpu_torch.accel import prepare_grids
+    from torch_grid_scenes import cornell_torus
+    return prepare_grids(cornell_torus(w, h, 31, 16, device=device), 3,
+                         mesh_slabs="auto")
+
+
+@pytest.mark.parametrize("mode", ["direct", "path", "roulette"])
+def test_grid_kernel_matches_plain_version(cuda, mode):
+    """Kernel 1's grid mode on cornell + torus: its --fmad=false build
+    equals the plain grid version on every ray, id and bit (and that the
+    brute plain version); the default build within phase 3's gates."""
+    scene = _torus_scene(cuda)
+    cfg = RenderConfig(width=64, height=48, use_megakernel=True,
+                       use_grid=True, bounces=0 if mode == "direct" else 4,
+                       russian_roulette=mode == "roulette", rr_start_depth=1)
+    tables = mega.scene_tables(scene, cfg)
+    grid = mega.grid_tables(scene)
+    zeros = torch.zeros((cfg.total_rays, 3), device=cuda)
+    if mode == "direct":
+        key = torch.as_tensor(np.array([0, 5], np.uint32))
+        u = mega.u_planes_for_direct(key, cfg, scene.lights.count, cuda)
+        kw = dict(key=key, spp=1, width=64, two_sided=False)
+        want = (MK.direct_pass_reference(*tables, zeros, u, grid=grid, **kw),)
+        brute = (MK.direct_pass_reference(*tables, zeros, u, **kw),)
+        got = (MK.direct_pass(*tables, zeros.clone(), u, grid=grid, **kw),)
+        exact = (MK.direct_pass(*tables, zeros.clone(), u, grid=grid,
+                                build_flags=("--fmad=false",), **kw),)
+    else:
+        ipar = torch.tensor([0, 0], dtype=torch.int32)
+        u = mega.u_planes_for_pass(pt.init_state(cfg, cuda)["key"], 0, cfg,
+                                   scene.lights.count, cuda)
+        kw = dict(spp=1, width=64, bounces=cfg.bounces, two_sided=False,
+                  normalize_emitter=True, seed=cfg.seed, record=True,
+                  russian_roulette=cfg.russian_roulette, rr_start_depth=1)
+        want = MK.pathtrace_pass_reference(tables[0], ipar, *tables[1:],
+                                           zeros, u, grid=grid, **kw)
+        brute = MK.pathtrace_pass_reference(tables[0], ipar, *tables[1:],
+                                            zeros, u, **kw)
+        got = MK.pathtrace_pass(tables[0], ipar, *tables[1:], zeros.clone(),
+                                u, grid=grid, **kw)
+        exact = MK.pathtrace_pass(tables[0], ipar, *tables[1:],
+                                  zeros.clone(), u, grid=grid,
+                                  build_flags=("--fmad=false",), **kw)
+    torch.cuda.synchronize()
+    for a, b, c in zip(exact, want, brute):
+        assert torch.equal(a, b)
+        if a.dtype != torch.float32:
+            assert torch.equal(b, c)
+    assert (want[0] - brute[0]).abs().max().item() <= 1e-6
+    beyond = ((got[0] - want[0]).abs() > TOL + TOL * want[0].abs()).any(-1)
+    assert torch.isfinite(got[0]).all() and got[0].max() > 0
+    assert beyond.float().mean().item() <= 0.01
+
+
+def test_grid_blocked_layout_is_bit_equal(cuda):
+    """mega_block only maps threads to pixels: 16 x 16 blocks give the
+    row-major image, accumulator and record bit for bit."""
+    scene = _torus_scene(cuda)
+    cfg = RenderConfig(width=64, height=48, bounces=3, use_megakernel=True,
+                       use_grid=True)
+    tables = mega.scene_tables(scene, cfg)
+    grid = mega.grid_tables(scene)
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    kw = dict(spp=1, width=64, bounces=3, two_sided=False,
+              normalize_emitter=True, seed=cfg.seed, record=True, grid=grid)
+    zeros = torch.zeros((cfg.total_rays, 3), device=cuda)
+    a = MK.pathtrace_pass(tables[0], ipar, *tables[1:], zeros.clone(), None,
+                          **kw)
+    b = MK.pathtrace_pass(tables[0], ipar, *tables[1:], zeros.clone(), None,
+                          block=16, **kw)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    dcfg = replace(cfg, bounces=0)
+    img0 = mega.render_direct_mega(scene, dcfg, n_passes=3)
+    img16 = mega.render_direct_mega(scene, replace(dcfg, mega_block=16),
+                                    n_passes=3)
+    assert torch.equal(img0, img16)
+
+
+def test_sphere_grid_kernel_matches_brute(cuda, monkeypatch):
+    """The kernel's sphere grid (sphere_field(600), the resident budget
+    patched to 64): its --fmad=false build equals the brute plain version
+    on every ray, id and bit."""
+    from raytracing_tpu_torch.accel import prepare_grids
+    monkeypatch.setattr(MK, "SPH_RESIDENT_MAX", 64)
+    scene = prepare_grids(sphere_field(600, cols=64, rows=48, device=cuda),
+                          1)
+    assert scene.mega_sph_grid is not None
+    cfg = RenderConfig(width=64, height=48, bounces=3, use_megakernel=True,
+                       use_grid=True)
+    tables = mega.scene_tables(scene, cfg)
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    u = mega.u_planes_for_pass(pt.init_state(cfg, cuda)["key"], 0, cfg,
+                               scene.lights.count, cuda)
+    kw = dict(spp=1, width=64, bounces=3, two_sided=False,
+              normalize_emitter=True, seed=cfg.seed, record=True)
+    zeros = torch.zeros((cfg.total_rays, 3), device=cuda)
+    exact = MK.pathtrace_pass(tables[0], ipar, *tables[1:], zeros.clone(), u,
+                              grid=mega.grid_tables(scene),
+                              build_flags=("--fmad=false",), **kw)
+    want = MK.pathtrace_pass_reference(tables[0], ipar, *tables[1:], zeros,
+                                       u, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(exact, want):
+        assert torch.equal(a, b)
+
+
+def test_grid_cell_route_trains_through_kernels_1_and_3(cuda):
+    """render_pass on the torus scene in grid mode with ("sph", "mat",
+    "tri") requiring grad: one kernel-1 (grid recording) and one kernel-3
+    launch, no kernel 2, finite gradients that reach the mesh."""
+    scene = _torus_scene(cuda)
+    cfg = RenderConfig(width=64, height=48, bounces=3, use_megakernel=True,
+                       use_grid=True, mega_grad_wrt=("sph", "mat", "tri"))
+    m = scene.meshes[0]
+    tv = m.tris.v.clone().requires_grad_(True)
+    mat = scene.materials.clone().requires_grad_(True)
+    sc = replace(scene, materials=mat,
+                 meshes=(replace(m, tris=replace(m.tris, v=tv)),))
+    k1, k2, k3 = MK.launches, MKG.launches, MKG.champ_launches
+    st = pt.render_pass(sc, pt.init_state(cfg, cuda), cfg)
+    torch.mean(pt.image(st, cfg) ** 2).backward()
+    torch.cuda.synchronize()
+    assert (MK.launches - k1, MKG.launches - k2,
+            MKG.champ_launches - k3) == (1, 0, 1)
+    assert torch.isfinite(tv.grad).all() and tv.grad.abs().max() > 0
+    assert torch.isfinite(mat.grad).all() and mat.grad.abs().max() > 0

@@ -25,6 +25,7 @@ from raytracing_tpu.ops.pallas.megakernel_grad import _bwd_reference
 from raytracing_tpu.render import mega as jmega
 from raytracing_tpu.render import pathtracer as jpt
 from raytracing_tpu_torch import RenderConfig, replace
+from raytracing_tpu_torch.accel import prepare_grids
 from raytracing_tpu_torch.core.types import scene_from_numpy, scene_to_numpy
 from raytracing_tpu_torch.models.scenes import sphere_field
 from raytracing_tpu_torch.ops import megakernel_grad as MKG
@@ -231,10 +232,14 @@ def test_backward_gates(scenes):
     big = sphere_field(65, cols=W, rows=H)
     assert mega.bwd_impl_for(big, cfg) == "cell"
     for kw, match in ((dict(mega_bwd_impl="xla"), "Do not port"),
-                      (dict(mega_edge_bandwidth=1e-2), "item 13"),
-                      (dict(use_grid=True), "item")):
+                      (dict(mega_edge_bandwidth=1e-2), "item 13")):
         with pytest.raises(NotImplementedError, match=match):
             mega.bwd_impl_for(ps, replace(cfg, **kw))
+    # grid mode trains on the cell route; kernel 2 over it is item 16
+    gs, gcfg = prepare_grids(ps, 2), replace(cfg, use_grid=True)
+    assert mega.bwd_impl_for(gs, gcfg) == "cell"
+    with pytest.raises(NotImplementedError, match="item 16"):
+        mega.bwd_impl_for(gs, replace(gcfg, mega_bwd_impl="pallas"))
     with pytest.raises(NotImplementedError, match="item 16"):
         mega.bwd_impl_for(big, replace(cfg, mega_bwd_impl="pallas"))
     with pytest.raises(NotImplementedError, match="DIFF_TABLE_MAX"):

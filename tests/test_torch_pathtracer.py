@@ -96,8 +96,11 @@ def test_cli_writes_png_and_resumes(tmp_path, capsys):
     assert "wrote" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("flag", [["--grid", "4"], ["--block", "8"],
+@pytest.mark.parametrize("flag", [["--scene", "room.xml"],
+                                  ["--grid", "2", "--scene", "room.xml"],
                                   ["--orbit", "2"]])
 def test_cli_rejects_what_is_not_ported(flag):
+    """XML scenes (item 15) and the orbit animation raise; --grid and
+    --block are ported (tests/test_torch_grid.py)."""
     with pytest.raises(SystemExit, match="not ported yet"):
         cli.main(["--cpu", "--width", "8", "--height", "8", *flag])

@@ -170,32 +170,43 @@ def test_png_written_by_port_reads_back(tmp_path):
 
 
 UNSUPPORTED = {
-    "grid": (dict(use_grid=True), "ROADMAP Queue 1 item 11"),
-    "stale_poi": (dict(replicate_stale_poi=True),
+    "grid": (dict(use_grid=True), ValueError, "accel.prepare_grids"),
+    "stale_poi": (dict(replicate_stale_poi=True), NotImplementedError,
                   "stage-pipeline option.*set use_megakernel=False"),
-    "block": (dict(mega_block=8), "ROADMAP Queue 1 item 10"),
-    "rays": (dict(width=4096, height=4096), "ROADMAP Queue 1 item 14"),
+    "rays": (dict(width=4096, height=4096), NotImplementedError,
+             "ROADMAP Queue 1 item 14"),
+    "block": (dict(mega_block=8), NotImplementedError, "grid mode"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNSUPPORTED))
 def test_supported_raises_outside_the_slice(case):
-    kw, match = UNSUPPORTED[case]
-    with pytest.raises(NotImplementedError, match=match):
+    """Outside what kernel 1 covers ``supported`` raises; a grid-mode
+    render of a scene without its grids names prepare_grids; the blocked
+    layout is grid mode's (tests/test_torch_grid_mega.py holds it)."""
+    kw, exc, match = UNSUPPORTED[case]
+    with pytest.raises(exc, match=match):
         mega.supported(scenes.cornell_box(cols=8, rows=8),
                        RenderConfig(**{"width": 8, "height": 8, **kw}))
 
 
 def test_supported_object_budget():
     """Kernel 1 keeps up to 4608 spheres resident (JAX's SMEM_TABLE_MAX //
-    8) and 64 triangles; more stream in Morton chunks (item 10)."""
+    8) and 64 triangles; more raise (streaming is item 10) without a grid
+    and pass with one (grid mode walks them from global memory)."""
+    from raytracing_tpu_torch.accel import prepare_grids
     cfg = RenderConfig(width=8, height=8)
+    gcfg = RenderConfig(width=8, height=8, use_grid=True)
     assert mega.supported(scenes.cornell_box(cols=8, rows=8), cfg)
     assert mega.supported(scenes.sphere_field(64, cols=8, rows=8), cfg)
     assert mega.supported(scenes.sphere_field(65, cols=8, rows=8), cfg)
     assert mega.supported(scenes.sphere_field(4608, cols=8, rows=8), cfg)
+    big = scenes.sphere_field(4609, cols=8, rows=8)
     with pytest.raises(NotImplementedError, match="item 10"):
-        mega.supported(scenes.sphere_field(4609, cols=8, rows=8), cfg)
+        mega.supported(big, cfg)
+    with pytest.raises(ValueError, match="prepare_grids"):
+        mega.supported(big, gcfg)
+    assert mega.supported(prepare_grids(big, 1), gcfg)
     v = np.random.default_rng(0).uniform(-1, 1, (65, 3, 3))
     sc = scenes.cornell_box(cols=8, rows=8)
     tris65 = types.build_scene(camera=sc.camera,
@@ -203,6 +214,7 @@ def test_supported_object_budget():
                                lights=sc.lights, materials=sc.materials)
     with pytest.raises(NotImplementedError, match="item 10"):
         mega.supported(tris65, cfg)
+    assert mega.supported(prepare_grids(tris65, 2), gcfg)
 
 
 def test_wrapper_rejects_bad_arguments():

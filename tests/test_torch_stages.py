@@ -232,7 +232,8 @@ def test_default_config_takes_the_stage_route(cornell, monkeypatch):
     with pytest.raises(NotImplementedError, match="use_megakernel=False"):
         pt.render_pass(ps, pt.init_state(mcfg, "cpu"),
                        replace(mcfg, replicate_stale_poi=True))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # grid mode reads the grids of accel.prepare_grids, never brute force
+    with pytest.raises(ValueError, match="prepare_grids"):
         pt.render_pass(ps, pt.init_state(cfg, "cpu"),
                        replace(cfg, use_grid=True))
 
