@@ -151,7 +151,28 @@ Phases, each fatal on failure (no exception is caught):
      (phase 6's gates at 1024^2);
  19. kernel 3 on kernel 1's grid record (original rows) vs its plain
      version (PRNG and u-planes routes, phase 6's gates) on both scenes at
-     256x192 with all five groups.
+     256x192 with all five groups;
+ 20. edge-aware gradients (bench.py BENCH_EDGE=1, mega_edge_bandwidth and
+     tau EDGE_BW): (a) kernel 2s (csrc/megakernel_soft.cu, the adjoint of
+     the soft program) vs its plain version
+     (ops/megakernel_soft.pathtrace_pass_bwd_soft_reference, run over the
+     rays in chunks) on cornell 256x192 b5 with and without the roulette,
+     all five groups and ("sph", "mat"), the same u-planes and seeded
+     random cotangent, its PRNG route too, with phase 6's gates (max |d|
+     included); (b) edge mode over prepare_grids(cornell, 2) (kernel 1's
+     grid mode forward) against the brute edge route through
+     render_pass_mega, all five groups, the same cotangent of acc: cosine
+     >= 0.999999 and max |d| <= 1e-4 of each group's scale (only kernel
+     2s's float atomics differ), one kernel-1 and one kernel-2s launch per
+     pass; (c) the BENCH_EDGE step at 1024^2 b5 with ("sph", "mat") as
+     bench.py::_train_bench runs it (parameters fixed, state threaded) and
+     the hard step in the same run: median ms of 10 synchronised steps
+     after a warm-up, fwd+bwd segments/s (bench.py:393-395), launches
+     (edge: kernel 1 and kernel 2s once per step, kernel 2 never), the
+     ratio of the two steps (bench.py's budget is 3x; not gated), kernel 2s
+     alone on the last step's cotangent (CUDA events) against its plain
+     version (phase 6's gates, max |d| included) and its share of its
+     bound (OPS_SOFT_*).
 Each phase prints the seconds elapsed since the start before it runs.
 Ends with a kernels JSON line and, last, the device JSON line. Exits non-zero
 without a result where CUDA is missing or the package is not beside it.
@@ -208,6 +229,10 @@ GRID_BLOCK = 64            # assign07's (and bench.py's mesh scenes') block
 GRID_REPS = 5
 GRID_TRAIN_STEPS = 5
 MESH_WRT = ("sph", "mat", "tri")
+# phase 20: edge-aware gradients (kernel 2s), bench.py BENCH_EDGE=1
+EDGE_BW = 2e-2             # mega_edge_bandwidth (and tau)
+EDGE_W, EDGE_H = 256, 192  # kernel 2s vs its plain version, edge x grid
+EDGE_STEPS = 10
 
 # Bounds: the least time the card could take for a kernel's work, the
 # larger of its FP32 operations over the H100's 67 TFLOP/s and its bytes
@@ -286,6 +311,61 @@ OPS_ADJ_RR = 46          # per segment that followed a roulette, plus 3 per
                          # light (the throughput replayed): p 5, 1 / p, the
                          # tie and bound weights 20, g.tp 5, the chain 5,
                          # the three cotangents 11
+# Kernel 2s (csrc/pathtrace_soft_adj.cuh, csrc/megakernel_soft.cu), counted
+# the same way with each expf as one operation (a sigmoid: negate, expf,
+# add, divide: 4); _soft_ops puts them together per segment and light. What
+# the function needs is counted once: the kernel's replays (its tape pass
+# and its sweep each run the soft forward, comp_adj recomputes the fields
+# and the pair sigmoids, hyp_adj its hypothesis, the sweep the bounce) are
+# not, and the *_ADJ constants are the adjoint's own operations.
+OPS_SOFT_SPHERE = 37     # a sphere hypothesis (hyp_fwd): m 3, b 5, c 7,
+                         # discriminant 2, mask 2, guarded root 3, t 2, two
+                         # sigmoids with their scalings and products 13
+OPS_SOFT_TRIANGLE = 63   # a triangle hypothesis: n.d 5, side 2, 1 / div 3,
+                         # beta 12, gamma 12, t 8, margin 4, coverage 17
+OPS_SOFT_FIELDS_SPHERE = 30    # its fields: hit point 6 + 3, normal 11,
+                               # material 4, point 6
+OPS_SOFT_FIELDS_TRIANGLE = 42  # clips 6, vertex normals 15, normalize 11,
+                               # material 4, point 6
+OPS_SOFT_PAIR = 9        # per ordered pair of the composite (comp_fwd):
+                         # sigmoid of the depth order 6, 1 - alpha s 2, product
+OPS_SOFT_BLEND = 24      # per hypothesis: coverage sum 2, weight 2, blend 20
+OPS_SOFT_SEGMENT = 30    # per segment: o x d 9, 1 / cov 5, the finished
+                         # surface (clip, normal and its fallback) 16
+OPS_SOFT_PAIR_ADJ = 14   # per ordered pair in comp_adj, past the pair's
+                         # sigmoid and factor 1 - alpha s (the forward's):
+                         # the suffix product 1, the prefix pass 13
+OPS_SOFT_BLEND_ADJ = 40  # per hypothesis in comp_adj: gb . f 20, 1 / cov 3,
+                         # alpha and trans 7, the fields' cotangents 10
+OPS_SOFT_SEGMENT_ADJ = 27  # per segment: the normal's adjoint 17, the
+                           # coverage's clip and 1 / cov 10
+OPS_SOFT_HYP_ADJ_SPHERE = 58     # hyp_adj past its hypothesis: sigmoids
+                                 # 15, root and discriminant 14, m, o, d,
+                                 # centre 24, radius 5
+OPS_SOFT_HYP_ADJ_TRIANGLE = 152  # sigmoids 15, margin's min ties 20,
+                                 # 1 / div and numerators 16, o x d and the
+                                 # origin and direction 63, the row 38
+OPS_SOFT_FIELDS_ADJ_SPHERE = 49    # past the fields: normalize_adj 24,
+                                   # point, centre, origin, direction and t
+                                   # 22, mat 3
+OPS_SOFT_FIELDS_ADJ_TRIANGLE = 94  # past the fields' clips and vertex
+                                   # normals: 9 + normalize_adj 24,
+                                   # barycentric cotangents 33, point 16,
+                                   # rows 12
+OPS_SOFT_OCCLUDER = 9    # per occluder of soft_vis past its hypothesis:
+                         # sigmoid 6, coverage 1, transmittance 2
+OPS_SOFT_OCCLUDER_ADJ = 13   # its adjoint past its factor 1 - alpha s:
+                             # suffix 1, prefix 4, sigmoid 7, t 1
+OPS_SOFT_NEE_ADJ = 298   # per shadow ray (the forward's NEE runs only in the
+                         # sweep): the shadow ray 53 (OPS_NEE's disk point
+                         # and ray), the light geometry 31, its adjoint 125,
+                         # the direction and disk point's adjoint 89
+OPS_SOFT_EMIT = 62       # per light on the primary segment (emit_fwd): plane
+                         # 26, disk and front sigmoids 18, race 9, weight 9
+OPS_SOFT_EMIT_ADJ = 106  # its adjoint and the emitter term's (emit_adj and
+                         # the sweep's acc and path-weight cotangents)
+OPS_SOFT_BOUNCE_ADJ = 225  # per bounce: OPS_ADJ_BOUNCE past the tangent
+                           # frame 53 and the direction 15 it recomputes
 
 
 def _elapsed(phase: int) -> None:
@@ -2495,6 +2575,325 @@ def _cell_bounds(tables, ids, occs, g, cfg):
     return k1, k3, (k1_ops, k3_ops / max(w3["rays"], 1))
 
 
+def _soft_ops(rays: float, segs: float, n_sph: int, n_tri: int,
+              n_lig: int) -> float:
+    """FP32 operations of kernel 2s without the roulette and without par
+    (the main path's step) over ``rays`` live rays (g != 0, inside the
+    scene box) with ``segs`` segments between them. The soft program's work
+    depends on the data only through those counts: every segment
+    composites every hypothesis, every shadow ray sees every occluder.
+    Each segment's soft surface, each shadow ray's transmittance, the
+    emitter and the bounce count once, then their adjoints."""
+    n = n_sph + n_tri
+    hyp = n_sph * OPS_SOFT_SPHERE + n_tri * OPS_SOFT_TRIANGLE
+    fields = n_sph * OPS_SOFT_FIELDS_SPHERE + n_tri * OPS_SOFT_FIELDS_TRIANGLE
+    hyp_adj = (n_sph * OPS_SOFT_HYP_ADJ_SPHERE
+               + n_tri * OPS_SOFT_HYP_ADJ_TRIANGLE)
+    fields_adj = (n_sph * OPS_SOFT_FIELDS_ADJ_SPHERE
+                  + n_tri * OPS_SOFT_FIELDS_ADJ_TRIANGLE)
+    pairs = n * (n - 1)
+    # the surface, the throughput (3 per light), and their adjoints
+    surface = (hyp + fields + pairs * OPS_SOFT_PAIR + n * OPS_SOFT_BLEND
+               + OPS_SOFT_SEGMENT + 3 * n_lig + hyp_adj + fields_adj
+               + pairs * OPS_SOFT_PAIR_ADJ + n * OPS_SOFT_BLEND_ADJ
+               + OPS_SOFT_SEGMENT_ADJ)
+    nee = (hyp + n * OPS_SOFT_OCCLUDER + hyp_adj + n * OPS_SOFT_OCCLUDER_ADJ
+           + OPS_SOFT_NEE_ADJ)
+    return (rays * (OPS_CAMERA + n_lig * (OPS_SOFT_EMIT + OPS_SOFT_EMIT_ADJ))
+            + segs * (surface + n_lig * nee)
+            + (segs - rays) * (OPS_BOUNCE + OPS_SOFT_BOUNCE_ADJ + 1))
+
+
+def _soft_work(MK, tables, g, cfg) -> tuple:
+    """(live rays, their segments) of kernel 2s without the roulette: the
+    rays with g != 0 whose primary ray meets the scene box."""
+    import torch
+    lens = torch.full((cfg.total_rays, 2), 0.5, device=g.device)
+    _, _, mint, _ = MK._camera_rays(tables[0], lens, cfg.total_rays, 0,
+                                    cfg.spp, cfg.width)
+    live = ((g != 0).any(-1) & (mint < float("inf"))).double().sum().item()
+    return live, live * (1 + cfg.bounces)
+
+
+def _soft_plain(MKS, tables, ipar, g, u, kw, chunk: int = 1 << 18):
+    """Kernel 2s's plain version over the rays in chunks of ``chunk`` (its
+    autograd graph at 1024^2 would not fit at once): the cotangents add
+    over rays, each chunk at its own ray offset."""
+    import torch
+    out = None
+    for lo in range(0, g.shape[0], chunk):
+        part = MKS.pathtrace_pass_bwd_soft_reference(
+            tables[0], torch.tensor([int(ipar[0]), lo], dtype=torch.int32),
+            *tables[1:], g[lo:lo + chunk],
+            None if u is None else u[:, lo:lo + chunk].contiguous(), **kw)
+        out = part if out is None else tuple(a + b for a, b in zip(out, part))
+    return out
+
+
+def kernel2s_vs_plain(dev, w: int, h: int, wrt, rr: bool) -> dict:
+    """Phase 20 (a): kernel 2s (u-planes and PRNG routes) vs its plain
+    version on cornell at w x h b5 with the same tables, draws and seeded
+    random cotangent, under phase 6's gates."""
+    import numpy as np
+    import torch
+    from raytracing_tpu_torch import RenderConfig
+    from raytracing_tpu_torch.models.scenes import cornell_box
+    from raytracing_tpu_torch.ops import megakernel_grad as MKG
+    from raytracing_tpu_torch.ops import megakernel_soft as MKS
+    from raytracing_tpu_torch.render import mega
+    from raytracing_tpu_torch.render import pathtracer as pt
+
+    cfg = RenderConfig(width=w, height=h, bounces=BOUNCES,
+                       russian_roulette=rr, rr_start_depth=RR_START,
+                       use_megakernel=True)
+    scene = cornell_box(cols=w, rows=h, device=dev)
+    tables = mega.scene_tables(scene, cfg)
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    u = mega.u_planes_for_pass(pt.init_state(cfg, dev)["key"], 0, cfg,
+                               scene.lights.count, dev)
+    g = torch.as_tensor(np.random.default_rng(GRAD_SEED).normal(
+        size=(cfg.total_rays, 3)).astype(np.float32), device=dev)
+    kw = _pass_kw(cfg, diff_wrt=wrt, soft_bandwidth=EDGE_BW,
+                  soft_tau=EDGE_BW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = _soft_plain(MKS, tables, ipar, g, u, kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got_u = MKS.pathtrace_pass_bwd_soft(tables[0], ipar, *tables[1:], g, u,
+                                        **kw)
+    got_p = MKS.pathtrace_pass_bwd_soft(tables[0], ipar, *tables[1:], g,
+                                        None, **kw)
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    reps = 3
+    start.record()
+    for _ in range(reps):
+        MKS.pathtrace_pass_bwd_soft(tables[0], ipar, *tables[1:], g, None,
+                                    **kw)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    print(f"phase 20 kernel 2s cornell {w}x{h} b{BOUNCES} wrt {list(wrt)}"
+          f"{' with the roulette' if rr else ''}: plain {plain_ms:.6g} ms; "
+          f"kernel 2s (PRNG route, random g) {ms:.6g} ms")
+    err = 0.0
+    for route, got in (("u-planes", got_u), ("PRNG", got_p)):
+        print(f"  kernel 2s {route} route vs plain version:")
+        for name, a, b in zip(MKG.DIFF_ALL, want, got):
+            if name in wrt:
+                err = max(err, _grad_gates(name, a, b, True))
+            else:
+                _check(not b.any().item(), f"{name} outside diff_wrt "
+                       "is not zero")
+    print("  PRNG route vs u-planes route:")
+    for name, a, b in zip(MKG.DIFF_ALL, got_u, got_p):
+        if name in wrt:
+            _grad_gates(name, a, b, True)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def _edge_params(scene):
+    """Every table group's source in the scene, requiring grad."""
+    return {"center": scene.spheres.center, "tv": scene.triangles.v,
+            "materials": scene.materials, "irr": scene.lights.irradiance,
+            "eye": scene.camera.eye}
+
+
+def _with_params(scene, p):
+    from raytracing_tpu_torch import replace
+    return replace(
+        scene, spheres=replace(scene.spheres, center=p["center"]),
+        triangles=replace(scene.triangles, v=p["tv"]),
+        lights=replace(scene.lights, irradiance=p["irr"]),
+        materials=p["materials"], camera=replace(scene.camera, eye=p["eye"]))
+
+
+def edge_grid_vs_brute(dev, w: int, h: int) -> float:
+    """Phase 20 (b): edge mode over prepare_grids(cornell, 2) (kernel 1's
+    grid mode forward, kernel 2s over the scene's own rows) against the
+    brute edge route, all five groups, the same seeded cotangent of acc:
+    equal up to the order of kernel 2s's float atomics. Returns the
+    largest |d| over the groups' scales."""
+    import numpy as np
+    import torch
+    from raytracing_tpu_torch import RenderConfig, replace
+    from raytracing_tpu_torch.accel import prepare_grids
+    from raytracing_tpu_torch.models.scenes import cornell_box
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.ops import megakernel_grad as MKG
+    from raytracing_tpu_torch.ops import megakernel_soft as MKS
+    from raytracing_tpu_torch.render import mega
+    from raytracing_tpu_torch.render import pathtracer as pt
+
+    cfg = RenderConfig(width=w, height=h, bounces=BOUNCES,
+                       use_megakernel=True, mega_edge_bandwidth=EDGE_BW)
+    scene = cornell_box(cols=w, rows=h, device=dev)
+    gs, gcfg = prepare_grids(scene, 2), replace(cfg, use_grid=True)
+    _check(mega.bwd_impl_for(gs, gcfg) == "pallas",
+           "edge mode over grids does not take kernel 2s")
+    gacc = torch.as_tensor(np.random.default_rng(GRAD_SEED).normal(
+        size=(cfg.total_rays, 3)).astype(np.float32), device=dev)
+    grads = []
+    for sc, c in ((scene, cfg), (gs, gcfg)):
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in _edge_params(sc).items()}
+        MK.launches = MKS.soft_launches = MKG.launches = 0
+        acc = mega.render_pass_mega(_with_params(sc, p),
+                                    pt.init_state(c, dev), c)["acc"]
+        grads.append(torch.autograd.grad((acc * gacc).sum(),
+                                          list(p.values())))
+        torch.cuda.synchronize()
+        _check(MK.launches == 1 and MKS.soft_launches == 1
+               and MKG.launches == 0,
+               f"edge {'grid' if c.use_grid else 'brute'} pass: "
+               f"{MK.launches} kernel-1, {MKS.soft_launches} kernel-2s and "
+               f"{MKG.launches} kernel-2 launches (want 1, 1, 0)")
+    worst = 0.0
+    print(f"phase 20 edge x grid, cornell {w}x{h} b{BOUNCES} in "
+          "prepare_grids(., 2) vs brute, all groups:")
+    for name, a, b in zip(_edge_params(scene), *grads):
+        a, b = a.double().ravel(), b.double().ravel()
+        _check(bool(torch.isfinite(b).all()), f"{name}: not finite")
+        scale = a.abs().max().item()
+        rel = (a - b).abs().max().item() / max(scale, 1e-30)
+        cos = (a @ b).item() / max(a.norm().item() * b.norm().item(), 1e-300)
+        print(f"    {name}: cosine {cos:.9f}, max|d| {rel:.3g} x "
+              f"max|brute| {scale:.6g}")
+        _check(scale > 0 and cos >= 0.999999 and rel <= 1e-4,
+               f"edge x grid {name}: cosine {cos:.9f}, max|d| {rel:.3g}")
+        worst = max(worst, rel)
+    return worst
+
+
+def _bench_step(scene, cfg, dev, seen: dict):
+    """bench.py::_train_bench's step (one pass, mean(image^2), grads wrt
+    sphere centres, radii and materials; parameters fixed, the state
+    threaded): (the state after a warm-up step, the step)."""
+    import torch
+    from raytracing_tpu_torch import replace
+    from raytracing_tpu_torch.render import pathtracer as pt
+
+    params = {"center": scene.spheres.center.clone().requires_grad_(True),
+              "radius": scene.spheres.radius.clone().requires_grad_(True),
+              "materials": scene.materials.clone().requires_grad_(True)}
+    sc = replace(scene, spheres=replace(scene.spheres,
+                                        center=params["center"],
+                                        radius=params["radius"]),
+                 materials=params["materials"])
+
+    def step(state):
+        st = pt.render_pass(sc, state, cfg)
+        st["acc"].register_hook(lambda g: seen.__setitem__("g", g))
+        loss = torch.mean(pt.image(st, cfg) ** 2)
+        grads = torch.autograd.grad(loss, list(params.values()))
+        return dict(st, acc=st["acc"].detach()), loss.detach(), grads
+
+    state, _, _ = step(pt.init_state(cfg, dev))
+    torch.cuda.synchronize()
+    return state, step
+
+
+def edge_train(dev, smi: str) -> dict:
+    """Phase 20 (c): the BENCH_EDGE step at 1024^2 b5 with ("sph", "mat")
+    beside the hard step, in the same run; returns kernel 2s's entry."""
+    import torch
+    from raytracing_tpu_torch import RenderConfig, replace
+    from raytracing_tpu_torch.models.scenes import cornell_box
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.ops import megakernel_grad as MKG
+    from raytracing_tpu_torch.ops import megakernel_soft as MKS
+    from raytracing_tpu_torch.render import mega
+
+    scene = cornell_box(cols=MAIN_W, rows=MAIN_H, device=dev)
+    hard = RenderConfig(width=MAIN_W, height=MAIN_H, bounces=BOUNCES,
+                        mega_grad_wrt=TRAIN_WRT, use_megakernel=True)
+    edge = replace(hard, mega_edge_bandwidth=EDGE_BW)
+    n_l = scene.lights.count
+    segs = hard.total_rays * (1 + n_l + hard.bounces * (1 + n_l))
+    res = {}
+    for label, cfg in (("hard", hard), ("edge", edge)):
+        seen, times = {}, []
+        state, step = _bench_step(scene, cfg, dev, seen)
+        MK.launches = MKG.launches = MKS.soft_launches = 0
+        for _ in range(EDGE_STEPS):
+            t0 = time.perf_counter()
+            state, loss, grads = step(state)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        k1, k2, k2s = MK.launches, MKG.launches, MKS.soft_launches
+        want = (EDGE_STEPS, 0, EDGE_STEPS) if label == "edge" else (
+            EDGE_STEPS, EDGE_STEPS, 0)
+        _check((k1, k2, k2s) == want,
+               f"{label} step: {k1} kernel-1, {k2} kernel-2 and {k2s} "
+               f"kernel-2s launches for {EDGE_STEPS} steps (want {want})")
+        _check(bool(torch.isfinite(loss)), f"{label} loss not finite")
+        for name, gr in zip(("center", "radius", "materials"), grads):
+            _check(bool(torch.isfinite(gr).all()),
+                   f"{label} {name} gradient not finite")
+        _check(bool(grads[0].any()) and bool(grads[2].any()),
+               f"{label} center or materials gradient is zero")
+        ms = float(sorted(times)[len(times) // 2])
+        res[label] = {"ms": ms, "g": seen["g"].contiguous(),
+                      "passes": state["passes"], "launches": k2s}
+        print(f"phase 20 {label} train step cornell {MAIN_W}x{MAIN_H} "
+              f"b{BOUNCES} wrt {list(TRAIN_WRT)}"
+              f"{f' mega_edge_bandwidth {EDGE_BW:g}' if cfg is edge else ''}"
+              f" on [{smi}]: median {ms:.6g} ms/step of {EDGE_STEPS} (min "
+              f"{min(times):.6g}, max {max(times):.6g}), "
+              f"{segs / ms * 1e3:.6g} fwd+bwd ray segments/s ({segs} per "
+              f"step); launches kernel 1 {k1}, kernel 2 {k2}, kernel 2s {k2s};"
+              f" loss {loss.item():.7g}; |grad| center "
+              f"{grads[0].norm().item():.6g} materials "
+              f"{grads[2].norm().item():.6g}")
+    ratio = res["edge"]["ms"] / res["hard"]["ms"]
+    print(f"phase 20 edge step / hard step: {ratio:.4g}x (bench.py:66-68's "
+          "budget is 3x; recorded, not gated)")
+
+    # kernel 2s alone on the last edge step's own cotangent, against its
+    # plain version on the same inputs
+    tables = mega.scene_tables(scene, edge)
+    ipar = torch.tensor([res["edge"]["passes"] - 1, 0], dtype=torch.int32)
+    kw = _pass_kw(edge, diff_wrt=TRAIN_WRT, soft_bandwidth=EDGE_BW,
+                  soft_tau=EDGE_BW)
+    g = res["edge"]["g"]
+    got = MKS.pathtrace_pass_bwd_soft(tables[0], ipar, *tables[1:], g, None,
+                                      **kw)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    reps = 5
+    start.record()
+    for _ in range(reps):
+        MKS.pathtrace_pass_bwd_soft(tables[0], ipar, *tables[1:], g, None,
+                                    **kw)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / reps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = _soft_plain(MKS, tables, ipar, g, None, kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    print("  kernel 2s on the step's cotangent vs plain version:")
+    err = 0.0
+    for name, a, b in zip(MKG.DIFF_ALL, want, got):
+        if name in TRAIN_WRT:
+            err = max(err, _grad_gates(name, a, b, True))
+    rays, nsegs = _soft_work(MK, tables, g, edge)
+    ops = _soft_ops(rays, nsegs, tables[1].shape[0], tables[2].shape[0], n_l)
+    bound = _bound(ops, 12 * edge.total_rays + 2 * _table_bytes(tables))
+    print(f"phase 20 kernel 2s alone on the step's cotangent {ms:.6g} ms "
+          f"({ms / res['edge']['ms']:.3%} of the edge step), plain version "
+          f"{plain_ms:.6g} ms; bound: {ops / max(rays, 1):.6g} FP32 "
+          f"operations per live ray (OPS_SOFT_* constants, expf counted as "
+          f"one; {rays:.0f} live rays, {nsegs:.0f} segments) -> "
+          f"{bound['bound_ms']:.6g} ms ({bound['bound_by']}); share of the "
+          f"bound {bound['bound_ms'] / ms:.3%}")
+    return {"launches": res["edge"]["launches"], "ms": ms,
+            "plain_ms": plain_ms, "max_abs_err": err,
+            "step_ms": res["edge"]["ms"], "hard_step_ms": res["hard"]["ms"],
+            **bound}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2519,6 +2918,7 @@ def main() -> int:
     from raytracing_tpu_torch.ops import hit_kernels as HK
     from raytracing_tpu_torch.ops import megakernel as MK
     from raytracing_tpu_torch.ops import megakernel_grad as MKG
+    from raytracing_tpu_torch.ops import megakernel_soft as MKS
     t0 = time.perf_counter()
     # kernel 1's brute and grid-mode halves, each also as built without
     # contracted multiply-adds (phases 11 and 17)
@@ -2528,6 +2928,7 @@ def main() -> int:
             ("megakernel", MK._SIGNATURES, MK.GRID_FLAGS),
             ("megakernel_grad", MKG._SIGNATURES, MKG.ADJ_FLAGS),
             ("megakernel_champ", MKG._CHAMP_SIGNATURES, MKG.ADJ_FLAGS),
+            ("megakernel_soft", MKS._SIGNATURES, MKG.ADJ_FLAGS),
             ("hit_kernels", HK._SIGNATURES, ())]
     _build.load_all(libs)
     print(f"phase 2 build ({len(libs)} nvcc at once): "
@@ -2636,6 +3037,13 @@ def main() -> int:
            for shape in ("torus", "spheres")}
     g17_err = {shape: max(v["max_abs_err"] for (s_, _), v in g17.items()
                           if s_ == shape) for shape in ("torus", "spheres")}
+    _elapsed(20)
+    # phase 20: edge-aware gradients (kernel 2s)
+    s20 = [kernel2s_vs_plain(dev, EDGE_W, EDGE_H, wrt, rr)
+           for rr in (False, True) for wrt in (MKG.DIFF_ALL, TRAIN_WRT)]
+    edge_grid_vs_brute(dev, EDGE_W, EDGE_H)
+    t20 = edge_train(dev, smi)
+    print(f"[{time.perf_counter() - START:.1f} s elapsed in all]")
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -2749,6 +3157,16 @@ def main() -> int:
         "max_abs_err": max(k18t["max_abs_err"], c19["torus"]["max_abs_err"]),
         "ms": k18t["ms"], "plain_ms": k18t["plain_ms"],
         "bound_ms": k18t["bound_ms"], "bound_by": k18t["bound_by"],
+        "library_ms": None}, {
+        "name": "pathtrace_pass_bwd_soft (edge-aware adjoint, kernel 2s)",
+        "route": "cuda",
+        "source": "raytracing_tpu_torch/csrc/megakernel_soft.cu",
+        "replaces": "raytracing_tpu/ops/pallas/megakernel_grad.py:1516",
+        "launches": t20["launches"],
+        "max_abs_err": max([t20["max_abs_err"]]
+                           + [x["max_abs_err"] for x in s20]),
+        "ms": t20["ms"], "plain_ms": t20["plain_ms"],
+        "bound_ms": t20["bound_ms"], "bound_by": t20["bound_by"],
         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

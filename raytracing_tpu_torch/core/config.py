@@ -24,8 +24,12 @@ as in the JAX package (``render.mega.bwd_impl_for``): "pallas" is kernel
 3), "auto" the first up to 64 objects per type and the second past that;
 the TPU-only "xla" raises. ``mega_bwd_sublanes`` is the TPU
 backward's tile height: TPU-only, kept for the shared configuration and
-ignored. ``mega_edge_bandwidth > 0`` (edge-aware gradients) raises in
-``render.mega.supported_diff`` (item 13).
+ignored. ``mega_edge_bandwidth > 0`` gives edge-aware gradients: the
+forward stays kernel 1's hard pass, the backward is kernel 2s, the adjoint
+of the soft program (``ops.megakernel_soft``) with that silhouette
+bandwidth and ``mega_edge_tau`` (0: the bandwidth) as its depth-order
+temperature; up to 64 objects per type, grid mode included, and past that
+``render.mega.supported_diff`` raises (ROADMAP Queue 1 item 16).
 """
 from __future__ import annotations
 

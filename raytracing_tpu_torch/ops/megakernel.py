@@ -155,11 +155,14 @@ def direct_draw_planes(key: torch.Tensor, n_rays: int, n_lights: int,
 
 class KernelGrids(NamedTuple):
     """Kernel 1's grid mode: triangle grids (``accel.grid.Grid``, item ids
-    absolute into the folded triangle table), the sphere grid or None, and
-    ``start``, the brute triangle prefix."""
+    absolute into the folded triangle table), the sphere grid or None,
+    ``start``, the brute triangle prefix, and ``rows``, the scene's own
+    (sphere, triangle) row counts, which the tables the grids index hold
+    (the edge-aware backward checks its tables against them)."""
     tri: tuple
     sph: object
     start: int
+    rows: tuple
 
 
 # ---------------------------------------------------------------------------

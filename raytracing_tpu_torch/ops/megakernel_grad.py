@@ -127,12 +127,13 @@ def pathtrace_pass_bwd_reference(par, ipar, sph, tri, mat, lig, g, u_planes,
 
 
 def _check_bwd_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp, width,
-                    bounces, rr):
+                    bounces, rr, what: str = "kernel 2"):
     MK._check_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp, width,
                    MK.n_draws_of(lig.shape[0], bounces, rr), 1)
     if g.device.type != "cuda":
-        raise ValueError(f"kernel 2 takes CUDA tensors, got {g.device}; "
-                         "on the CPU use pathtrace_pass_bwd_reference")
+        raise ValueError(f"{what} takes CUDA tensors, got {g.device}; "
+                         "on the CPU use its plain version (the wrapper's "
+                         "name with _reference)")
     if bounces > MAX_BOUNCES:
         raise ValueError(f"the adjoint's tape holds at most {MAX_BOUNCES} "
                          f"bounces, got {bounces}")
@@ -141,9 +142,10 @@ def _check_bwd_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp, width,
                          f"got {lig.shape[0]}")
     if max(sph.shape[0], tri.shape[0]) > MK.UNROLL_OBJECTS:
         raise ValueError(
-            f"kernel 2 keeps the tables and their gradient buffers in shared "
+            f"{what} keeps the tables and their gradient buffers in shared "
             f"memory, at most {MK.UNROLL_OBJECTS} objects per type; past that "
-            "the champion backward (pathtrace_pass_bwd_champ) differentiates")
+            "the hard route's champion backward (pathtrace_pass_bwd_champ) "
+            "differentiates, the soft route is ROADMAP Queue 1 item 16")
 
 
 def pathtrace_pass_bwd(par, ipar, sph, tri, mat, lig, g, u_planes, *,
@@ -442,13 +444,62 @@ class _PassDiffCell(torch.autograd.Function):
         return (*grads, g_out, None, None, None, None, None)
 
 
+def _check_soft_grid_rows(grid, sph, tri) -> None:
+    """The edge x grid contract (JAX ``render/mega.py:687-699``): the soft
+    backward composites each of the scene's rows once, so the tables it
+    differentiates hold the scene's own rows (``grid.rows``, counted where
+    ``render/mega.grid_tables`` built the grids), never a grid's
+    cell-major duplicates."""
+    have = (sph.shape[0], tri.shape[0])
+    if have != tuple(grid.rows):
+        raise ValueError(
+            f"edge x grid: {have[0]} sphere / {have[1]} triangle rows, but "
+            f"the scene has {grid.rows[0]} / {grid.rows[1]}: the soft "
+            "backward takes the scene's own rows, not cell-major duplicates")
+
+
+class _PassDiffSoft(torch.autograd.Function):
+    """One pass on the edge-aware route (JAX's ``_make_diff_op`` with
+    ``soft_bandwidth > 0``): forward = the hard pass, kernel 1 out of place
+    (``fwd``: its ``grid`` and ``block``); backward = kernel 2s, the
+    adjoint of the soft program over the tables as they are (the scene's
+    own rows, also in grid mode). On CPU tensors the forward and backward
+    are their plain versions, so the CPU runs the same wiring."""
+
+    @staticmethod
+    def forward(ctx, par, sph, tri, mat, lig, acc_in, ipar, u_planes, kw,
+                diff_wrt, fwd, soft):
+        acc = MK.pathtrace_pass(par, ipar, sph, tri, mat, lig,
+                                acc_in.clone(), u_planes, **kw, **fwd)
+        ctx.save_for_backward(par, sph, tri, mat, lig)
+        ctx.ipar, ctx.u_planes, ctx.kw = ipar, u_planes, kw
+        ctx.diff_wrt, ctx.soft = diff_wrt, soft
+        return acc
+
+    @staticmethod
+    def backward(ctx, g_out):
+        from . import megakernel_soft as MKS
+        par, sph, tri, mat, lig = ctx.saved_tensors
+        wrt = tuple(n for n, need in zip(DIFF_ALL, ctx.needs_input_grad[:5])
+                    if need and n in ctx.diff_wrt)
+        grads = [None] * 5
+        if wrt:
+            bwd = (MKS.pathtrace_pass_bwd_soft if g_out.device.type == "cuda"
+                   else MKS.pathtrace_pass_bwd_soft_reference)
+            outs = bwd(par, ctx.ipar, sph, tri, mat, lig, g_out.contiguous(),
+                       ctx.u_planes, diff_wrt=wrt, **ctx.kw, **ctx.soft)
+            grads = [o if n in wrt else None for n, o in zip(DIFF_ALL, outs)]
+        return (*grads, g_out, None, None, None, None, None, None)
+
+
 def pathtrace_pass_diff(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
                         spp: int, width: int, bounces: int, two_sided: bool,
                         normalize_emitter: bool, seed: int,
                         russian_roulette: bool = False,
                         rr_start_depth: int = 0, diff_wrt=DIFF_ALL,
                         bwd_cell: bool = False, grid=None,
-                        block: int = 0) -> torch.Tensor:
+                        block: int = 0, soft_bandwidth: float = 0.0,
+                        soft_tau: float = 0.0) -> torch.Tensor:
     """One differentiable progressive pass: returns a new accumulator
     (``acc`` is not modified); autograd reaches the tables in ``diff_wrt``
     and ``acc``. Arguments as ``ops.megakernel.pathtrace_pass`` with one
@@ -459,9 +510,21 @@ def pathtrace_pass_diff(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
     forward under autograd, with the groups outside ``diff_wrt`` detached.
     ``bwd_cell=True``: kernel 1 recording and kernel 3 (``_PassDiffCell``),
     their plain versions on CPU tensors. ``grid`` (kernel 1's grid mode)
-    takes the cell route only; ``block`` is kernel 1's blocked layout."""
+    takes the cell route or the edge-aware one; ``block`` is kernel 1's
+    blocked layout.
+
+    ``soft_bandwidth > 0`` (edge-aware gradients, ``_PassDiffSoft`` on
+    either device): the forward stays the hard pass, the backward is kernel
+    2s, the adjoint of the soft program (``ops.megakernel_soft``), with
+    ``soft_tau`` its depth-order temperature. It differentiates the tables
+    it is given, which must be the scene's own rows: with ``grid`` too, no
+    cell-major duplicates (they would composite a surface twice)."""
     sel = _check_wrt(diff_wrt)
-    if grid is not None and not bwd_cell:
+    soft = soft_bandwidth > 0.0
+    if soft and bwd_cell:
+        raise ValueError("the champion (cell) backward is hard-gradient "
+                         "only; edge mode needs the soft sweep")
+    if grid is not None and not (bwd_cell or soft):
         raise NotImplementedError(
             "grid-mode training takes the cell route; kernel 2 over a grid "
             "scene's tables is ROADMAP Queue 1 item 16")
@@ -472,6 +535,13 @@ def pathtrace_pass_diff(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
               rr_start_depth=rr_start_depth)
     if acc.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {acc.device}")
+    if soft:
+        if grid is not None:
+            _check_soft_grid_rows(grid, sph, tri)
+        return _PassDiffSoft.apply(par, sph, tri, mat, lig, acc, ipar,
+                                   u_planes, kw, sel, fwd,
+                                   dict(soft_bandwidth=soft_bandwidth,
+                                        soft_tau=soft_tau or soft_bandwidth))
     if bwd_cell:
         return _PassDiffCell.apply(par, sph, tri, mat, lig, acc, ipar,
                                    u_planes, kw, sel, fwd)

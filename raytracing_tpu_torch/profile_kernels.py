@@ -24,7 +24,13 @@ sphere_field(1024)'s step cotangent and kernel 1's record of the pass;
 then the same source's Russian-roulette instances (from depth RR_START,
 as ``bench.py`` runs config 5: kernel 1 on cornell in 16-pass launches,
 kernel 2 on the step cotangent with ("sph", "mat")) and kernel 1's direct
-mode on cornell in 16-pass launches; then kernel 1's grid mode on the
+mode on cornell in 16-pass launches; kernel 2s (the edge-aware backward,
+bandwidth and tau EDGE_BW as ``bench.py``'s BENCH_EDGE) on cornell's step
+cotangent with ("sph", "mat"), with all five groups and with the roulette,
+and on the seeded random one, where the variant has ``megakernel_soft.cu``
+(a tree from before kernel 2s has none and times the rest), each
+variant's kernel 2s cotangents held to the first variant's (cosine and
+max |d| printed); then kernel 1's grid mode on the
 scenes of ``chip_smoke.py``'s phase 18 (config 3's shape: cornell plus a
 992-triangle torus mesh in its 3^3 grid, in direct mode at block 64 and
 0 and in path mode at block 64, and recording; sphere_field(8192) in its
@@ -60,6 +66,7 @@ from .models.scenes import cornell_box, sphere_field
 from .ops import _build
 from .ops import megakernel as MK
 from .ops import megakernel_grad as MKG
+from .ops import megakernel_soft as MKS
 from .render import mega
 from .render import pathtracer as pt
 from .core.config import RenderConfig
@@ -76,13 +83,15 @@ FIELDS = (16, 32, 64, 128, 256, 512)
 REPS = 10
 TRAIN_WRT = ("sph", "mat")
 RR_START = 2
+EDGE_BW = 2e-2            # bench.py BENCH_EDGE's mega_edge_bandwidth
 
 # (library, C signatures, nvcc flags after _build.NVCC_FLAGS), keyed as the
 # wrappers load them
 LIBS = (("megakernel", MK._SIGNATURES, ()),
         ("megakernel", MK._SIGNATURES, MK.GRID_FLAGS),
         ("megakernel_grad", MKG._SIGNATURES, MKG.ADJ_FLAGS),
-        ("megakernel_champ", MKG._CHAMP_SIGNATURES, MKG.ADJ_FLAGS))
+        ("megakernel_champ", MKG._CHAMP_SIGNATURES, MKG.ADJ_FLAGS),
+        ("megakernel_soft", MKS._SIGNATURES, MKG.ADJ_FLAGS))
 
 
 def _smi(query: str) -> str:
@@ -118,9 +127,14 @@ def build(label: str, src: Path, name: str, signatures: dict,
 
 
 def use(libs: dict) -> None:
-    """Put one variant's libraries in the wrappers' place."""
+    """Put one variant's libraries in the wrappers' place (a library the
+    variant has no source for is taken out)."""
     for name, _, flags in LIBS:
-        _build._loaded[(name, tuple(flags))] = libs[_stem(name, flags)]
+        lib = libs.get(_stem(name, flags))
+        if lib is None:
+            _build._loaded.pop((name, tuple(flags)), None)
+        else:
+            _build._loaded[(name, tuple(flags))] = lib
 
 
 def sass_summary(label: str, name: str, out: Path) -> None:
@@ -238,6 +252,12 @@ class Case:
         return ({"russian_roulette": True, "rr_start_depth": RR_START}
                 if rr else {})
 
+    def k2s(self, g, wrt, rr=False):
+        return MKS.pathtrace_pass_bwd_soft(
+            self.tables[0], self.ipar, *self.tables[1:], g, None,
+            diff_wrt=wrt, soft_bandwidth=EDGE_BW, soft_tau=EDGE_BW,
+            **self.kw, **self._rr(rr))
+
     def k3(self, g, wrt):
         return MKG.pathtrace_pass_bwd_champ(
             self.tables[0], self.ipar, *self.tables[1:], g, None, self.ids,
@@ -307,6 +327,35 @@ def measure(cornell: Case, spheres: Case, fields: dict) -> dict:
     }
 
 
+def measure_soft(cornell: Case, first: dict) -> dict:
+    """Kernel 2s on cornell's step cotangent (and the seeded random one).
+    Each variant's cotangents are held to those of the first variant
+    measured (``first``, filled on the first call): cosine and max |d|
+    over the group's scale, printed, so that a variant that computes
+    something else is not timed as a faster one."""
+    for name, wrt in (("sph_mat", TRAIN_WRT), ("all", MKG.DIFF_ALL)):
+        got = cornell.k2s(cornell.g, wrt)
+        want = first.setdefault(name, got)
+        for gname, a, b in zip(MKG.DIFF_ALL, want, got):
+            if gname in wrt:
+                a, b = a.double().ravel(), b.double().ravel()
+                cos = (a @ b).item() / max(a.norm().item() * b.norm().item(),
+                                           1e-300)
+                rel = ((a - b).abs().max() / a.abs().max()).item()
+                print(f"  k2s {name} {gname} vs the first variant: cosine "
+                      f"{cos:.9f}, max|d| {rel:.3g} x scale")
+    return {
+        "k2s_cornell_step_g_sph_mat_ms": time_ms(
+            lambda: cornell.k2s(cornell.g, TRAIN_WRT), reps=3),
+        "k2s_cornell_random_g_sph_mat_ms": time_ms(
+            lambda: cornell.k2s(cornell.g_rand, TRAIN_WRT), reps=3),
+        "k2s_cornell_step_g_all_ms": time_ms(
+            lambda: cornell.k2s(cornell.g, MKG.DIFF_ALL), reps=3),
+        "k2s_cornell_rr_step_g_sph_mat_ms": time_ms(
+            lambda: cornell.k2s(cornell.g, TRAIN_WRT, rr=True), reps=3),
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variant", action="append", default=[],
@@ -328,7 +377,8 @@ def main(argv=None) -> int:
         ("tree", str(_build.CSRC))]
     variants = [(label, Path(src).resolve()) for label, src in variants]
     t0 = time.perf_counter()
-    jobs = [(label, src, *lib) for label, src in variants for lib in LIBS]
+    jobs = [(label, src, *lib) for label, src in variants for lib in LIBS
+            if (src / f"{lib[0]}.cu").exists()]
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         built = list(pool.map(lambda j: build(*j), jobs))
     libs: dict = {}
@@ -354,12 +404,16 @@ def main(argv=None) -> int:
           f" sphere_field({N_SPHERES}) {spheres.live:.4%}")
     grid = grid_cases(dev)
     results: dict = {"card": smi, "turns": []}
+    soft_first: dict = {}
     for order in (labels, labels[::-1]):
         turn = {}
         for label in order:
             use(libs[label])
             turn[label] = {**measure(cornell, spheres, fields),
                            **measure_grid(grid)}
+            if "megakernel_soft" in libs[label]:
+                print(f"{label}:")
+                turn[label].update(measure_soft(cornell, soft_first))
             print(f"{label}: " + ", ".join(
                 f"{k} {v:.6g}" for k, v in turn[label].items()))
         results["turns"].append(turn)

@@ -117,10 +117,13 @@ def grid_tables(scene: Scene) -> MK.KernelGrids:
     ``start``; without triangle grids it is every triangle) and
     ``mega_sph_grid``. The grids' CSR arrays are used as built: a cell
     holds its items in id order and the kernel walks each ray's cells in
-    order, so nothing is baked for a camera."""
+    order, so nothing is baked for a camera. ``rows`` are the row counts
+    of ``scene_tables``, which packs each of the scene's objects once."""
     grids = tuple(scene.folded_tri_grid or ())
-    start = grids[0].start if grids else _all_triangles(scene).count
-    return MK.KernelGrids(tri=grids, sph=scene.mega_sph_grid, start=start)
+    n_tri = _all_triangles(scene).count
+    start = grids[0].start if grids else n_tri
+    return MK.KernelGrids(tri=grids, sph=scene.mega_sph_grid, start=start,
+                          rows=(scene.spheres.count, n_tri))
 
 
 def _prepared(scene: Scene) -> None:
@@ -181,15 +184,22 @@ def supported(scene: Scene | None, cfg: RenderConfig) -> bool:
 def supported_diff(scene: Scene | None, cfg: RenderConfig) -> bool:
     """True when the differentiable pass covers this scene and config (the
     hard-gradient backward over resident tables of at most
-    ``DIFF_TABLE_MAX`` objects per type); raises NotImplementedError naming
-    the ROADMAP Queue 1 item otherwise."""
+    ``DIFF_TABLE_MAX`` objects per type; the edge-aware one,
+    ``cfg.mega_edge_bandwidth > 0``, over at most ``UNROLL_OBJECTS`` per
+    type, grid mode included); raises NotImplementedError naming the
+    ROADMAP Queue 1 item otherwise."""
     supported(scene, cfg)   # streamed tables (item 10) raise here
-    if cfg.mega_edge_bandwidth > 0.0:
-        raise NotImplementedError(
-            "edge-aware (soft) gradients are not ported yet (ROADMAP Queue 1 "
-            "item 13)")
     MKG._check_wrt(cfg.mega_grad_wrt)
     if scene is None:
+        return True
+    if cfg.mega_edge_bandwidth > 0.0:
+        n_sph, n_tri = scene.spheres.count, _all_triangles(scene).count
+        if max(n_sph, n_tri) > MK.UNROLL_OBJECTS:
+            raise NotImplementedError(
+                f"{n_sph} spheres / {n_tri} triangles: the edge-aware "
+                f"backward (kernel 2s) keeps at most {MK.UNROLL_OBJECTS} "
+                "objects per type in shared memory; past that it is ROADMAP "
+                "Queue 1 item 16 (JAX takes its TPU-only 'xla' route)")
         return True
     if cfg.use_grid:
         g = grid_tables(scene)
@@ -225,7 +235,12 @@ def bwd_impl_for(scene: Scene | None, cfg: RenderConfig) -> str:
 
     "pallas" on a grid-mode scene raises (ROADMAP Queue 1 item 16): JAX
     runs kernel 2 over its duplicated cell-major diff tables there, which
-    the port does not build. Returns "pallas" or "cell"."""
+    the port does not build. Returns "pallas" or "cell".
+
+    Edge mode (``cfg.mega_edge_bandwidth > 0``): "auto" and "pallas" give
+    "pallas", kernel 2s over the scene's own rows, grid mode included;
+    "cell" raises, as JAX asserts; past 64 objects of either type it raises
+    (item 16) where JAX returns "xla"."""
     impl = cfg.mega_bwd_impl
     if impl == "xla":
         raise NotImplementedError(
@@ -236,6 +251,12 @@ def bwd_impl_for(scene: Scene | None, cfg: RenderConfig) -> str:
         raise ValueError(f"mega_bwd_impl must be 'auto', 'pallas' or "
                          f"'cell', got {impl!r}")
     supported_diff(scene, cfg)
+    if cfg.mega_edge_bandwidth > 0.0:
+        if impl == "cell":
+            raise ValueError("the champion (cell) backward is hard-gradient "
+                             "only; edge mode needs the soft sweep "
+                             "(mega_bwd_impl 'auto' or 'pallas')")
+        return "pallas"
     big = scene is not None and max(
         scene.spheres.count,
         _all_triangles(scene).count) > MK.UNROLL_OBJECTS
@@ -343,10 +364,13 @@ def render_pass_mega(scene: Scene, state: dict, cfg: RenderConfig,
                 f"{n_passes}: call render_pass once per pass, or render "
                 "under torch.no_grad()")
         cell = bwd_impl_for(scene, cfg) == "cell"
-        acc = MKG.pathtrace_pass_diff(par, ipar, sph, tri, mat, lig,
-                                      state["acc"], u_planes,
-                                      diff_wrt=cfg.mega_grad_wrt,
-                                      bwd_cell=cell, **kw)
+        # edge x grid: the primal walks the grids, the soft backward sweeps
+        # the scene's own rows (scene_tables never duplicates a row)
+        acc = MKG.pathtrace_pass_diff(
+            par, ipar, sph, tri, mat, lig, state["acc"], u_planes,
+            diff_wrt=cfg.mega_grad_wrt, bwd_cell=cell,
+            soft_bandwidth=cfg.mega_edge_bandwidth,
+            soft_tau=cfg.mega_edge_tau or cfg.mega_edge_bandwidth, **kw)
     else:
         acc = MK.pathtrace_pass(par, ipar, sph, tri, mat, lig, state["acc"],
                                 u_planes, n_passes=n_passes, **kw)

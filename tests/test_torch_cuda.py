@@ -1,7 +1,8 @@
 """The CUDA kernels (the pass with and without Russian roulette, its
 recording, direct and grid modes and its blocked layout, its two adjoints
-with and without the roulette and the stage pipeline's hit searches)
-against their plain PyTorch versions on the card.
+with and without the roulette, the edge-aware adjoint kernel 2s and the
+stage pipeline's hit searches) against their plain PyTorch versions on the
+card.
 
 Runs only where there is a CUDA device; elsewhere each test skips. Imports
 no jax, so it runs on a machine without it:
@@ -18,6 +19,7 @@ from raytracing_tpu_torch.core.types import (Camera, Lights, build_scene,
 from raytracing_tpu_torch.ops import hit_kernels as HK
 from raytracing_tpu_torch.ops import megakernel as MK
 from raytracing_tpu_torch.ops import megakernel_grad as MKG
+from raytracing_tpu_torch.ops import megakernel_soft as MKS
 from raytracing_tpu_torch.render import mega
 from raytracing_tpu_torch.render import pathtracer as pt
 
@@ -720,3 +722,124 @@ def test_grid_cell_route_trains_through_kernels_1_and_3(cuda):
             MKG.champ_launches - k3) == (1, 0, 1)
     assert torch.isfinite(tv.grad).all() and tv.grad.abs().max() > 0
     assert torch.isfinite(mat.grad).all() and mat.grad.abs().max() > 0
+
+
+@pytest.mark.parametrize("rr", [False, True])
+@pytest.mark.parametrize("wrt", [MKG.DIFF_ALL, ("sph", "mat")],
+                         ids=["all", "sph-mat"])
+def test_soft_adjoint_kernel_matches_plain_version(cuda, rr, wrt):
+    """Kernel 2s (u-planes and PRNG routes) vs its plain version (autograd
+    of the soft program), cornell 64x48 b2, seeded random g, bandwidth and
+    tau 2e-2, with and without the roulette (from depth 1); the groups
+    outside diff_wrt stay zero."""
+    cfg = RenderConfig(width=64, height=48, bounces=2, russian_roulette=rr,
+                       rr_start_depth=1, use_megakernel=True)
+    scene = cornell_box(cols=64, rows=48, device=cuda)
+    tables = mega.scene_tables(scene, cfg)
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    u = mega.u_planes_for_pass(pt.init_state(cfg, cuda)["key"], 0, cfg,
+                               scene.lights.count, cuda)
+    g = torch.as_tensor(np.random.default_rng(4).normal(
+        size=(cfg.total_rays, 3)).astype(np.float32), device=cuda)
+    kw = dict(spp=1, width=64, bounces=2, two_sided=False,
+              normalize_emitter=True, seed=cfg.seed, russian_roulette=rr,
+              rr_start_depth=1, diff_wrt=wrt, soft_bandwidth=2e-2,
+              soft_tau=2e-2)
+    want = MKS.pathtrace_pass_bwd_soft_reference(tables[0], ipar,
+                                                 *tables[1:], g, u, **kw)
+    before = MKS.soft_launches
+    for planes in (u, None):
+        got = MKS.pathtrace_pass_bwd_soft(tables[0], ipar, *tables[1:], g,
+                                          planes, **kw)
+        torch.cuda.synchronize()
+        _gates([a for n, a in zip(MKG.DIFF_ALL, want) if n in wrt],
+               [b for n, b in zip(MKG.DIFF_ALL, got) if n in wrt], wrt)
+        for n, b in zip(MKG.DIFF_ALL, got):
+            assert n in wrt or not b.any(), n
+    assert MKS.soft_launches == before + 2
+
+
+def test_soft_adjoint_kernel_on_66_objects(cuda):
+    """Kernel 2s's full scratch and two-level composite (6 spheres and 60
+    triangles: more than 64 hypotheses, at most 64 of each type) vs its
+    plain version, 32x24 b2, all five groups."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from torch_edge_scenes import split_tables
+
+    cfg = RenderConfig(width=32, height=24, bounces=2, use_megakernel=True)
+    scene = cornell_box(cols=32, rows=24)
+    tables = [torch.as_tensor(t, device=cuda) for t in split_tables(
+        [t.numpy() for t in mega.scene_tables(scene, cfg)],
+        scene.triangles.v.numpy(), scene.triangles.vn.numpy())]
+    assert tables[1].shape[0] + tables[2].shape[0] > 64
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    g = torch.as_tensor(np.random.default_rng(5).normal(
+        size=(cfg.total_rays, 3)).astype(np.float32), device=cuda)
+    kw = dict(spp=1, width=32, bounces=2, two_sided=False,
+              normalize_emitter=True, seed=cfg.seed, soft_bandwidth=2e-2,
+              soft_tau=2e-2)
+    want = MKS.pathtrace_pass_bwd_soft_reference(tables[0], ipar,
+                                                 *tables[1:], g, None, **kw)
+    got = MKS.pathtrace_pass_bwd_soft(tables[0], ipar, *tables[1:], g, None,
+                                      **kw)
+    torch.cuda.synchronize()
+    _gates(want, got)
+
+
+def test_edge_route_trains_through_kernels_1_and_2s(cuda):
+    """A requires-grad render_pass in edge mode on the card: one launch of
+    kernel 1 and one of kernel 2s (none of kernel 2), the hard forward, and
+    the gradients of the same route on the CPU (the plain versions)."""
+    cfg = RenderConfig(width=64, height=48, bounces=2,
+                       mega_edge_bandwidth=2e-2, use_megakernel=True)
+
+    def run(device):
+        scene = cornell_box(cols=64, rows=48, device=device)
+        c = scene.spheres.center.clone().requires_grad_(True)
+        v = scene.triangles.v.clone().requires_grad_(True)
+        m = scene.materials.clone().requires_grad_(True)
+        sc = replace(scene, spheres=replace(scene.spheres, center=c),
+                     triangles=replace(scene.triangles, v=v), materials=m)
+        st = pt.render_pass(sc, pt.init_state(cfg, device), cfg)
+        (pt.image(st, cfg) ** 2).mean().backward()
+        return st["acc"].detach().cpu(), [x.grad.cpu() for x in (c, v, m)]
+
+    k1, k2, k2s = MK.launches, MKG.launches, MKS.soft_launches
+    acc, got = run(cuda)
+    assert (MK.launches, MKG.launches, MKS.soft_launches) == (
+        k1 + 1, k2, k2s + 1)
+    with torch.no_grad():
+        hard = pt.render_pass(cornell_box(cols=64, rows=48, device=cuda),
+                              pt.init_state(cfg, cuda), cfg)["acc"].cpu()
+    assert torch.equal(acc, hard)
+    _, want = run("cpu")
+    for a, b in zip(want, got):
+        assert torch.isfinite(b).all() and b.abs().max() > 0
+        cos = (a * b).sum() / (a.norm() * b.norm())
+        assert cos >= 0.999 and abs(b.norm() / a.norm() - 1) <= 0.01
+
+
+def test_soft_adjoint_kernel_finite_at_tiny_bandwidth(cuda):
+    """Bandwidth and tau 1e-4 on cornell 64x48 b2 with a wide field of view
+    (rays that leave the open box, cov ~ 0): every cotangent finite, and
+    the plain version's too."""
+    cfg = RenderConfig(width=64, height=48, bounces=2, use_megakernel=True)
+    scene = cornell_box(cols=64, rows=48, device=cuda)
+    scene = replace(scene, camera=Camera.look_at(
+        [0.0, 0.0, 2.6], [0.0, -0.1, 0.0], [0.0, 1.0, 0.0], 110.0, 64, 48,
+        device=cuda))
+    tables = mega.scene_tables(scene, cfg)
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    g = torch.as_tensor(np.random.default_rng(6).normal(
+        size=(cfg.total_rays, 3)).astype(np.float32), device=cuda)
+    kw = dict(spp=1, width=64, bounces=2, two_sided=False,
+              normalize_emitter=True, seed=cfg.seed, soft_bandwidth=1e-4,
+              soft_tau=1e-4)
+    got = MKS.pathtrace_pass_bwd_soft(tables[0], ipar, *tables[1:], g, None,
+                                      **kw)
+    want = MKS.pathtrace_pass_bwd_soft_reference(tables[0], ipar,
+                                                 *tables[1:], g, None, **kw)
+    for name, a, b in zip(MKG.DIFF_ALL, want, got):
+        assert torch.isfinite(a).all() and torch.isfinite(b).all(), name

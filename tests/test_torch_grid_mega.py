@@ -191,7 +191,7 @@ def test_grid_work_counts_each_item_once_per_walk():
     work = {}
     out = MK._trace(o, d, torch.zeros(2), torch.full((2,), 100.0), sph,
                     torch.zeros((0, MK.TRI_COLS)), False,
-                    MK.KernelGrids(tri=(), sph=g, start=0), work)
+                    MK.KernelGrids(tri=(), sph=g, start=0, rows=(1, 0)), work)
     assert (out[-1] == -1).all()
     assert work == {"cells": 8, "side_cells": 0, "sph_tests_raw": 8,
                     "sph_tests": 2}

@@ -231,10 +231,18 @@ def test_backward_gates(scenes):
         assert mega.bwd_impl_for(ps, replace(cfg, mega_bwd_impl=impl)) == impl
     big = sphere_field(65, cols=W, rows=H)
     assert mega.bwd_impl_for(big, cfg) == "cell"
-    for kw, match in ((dict(mega_bwd_impl="xla"), "Do not port"),
-                      (dict(mega_edge_bandwidth=1e-2), "item 13")):
-        with pytest.raises(NotImplementedError, match=match):
-            mega.bwd_impl_for(ps, replace(cfg, **kw))
+    with pytest.raises(NotImplementedError, match="Do not port"):
+        mega.bwd_impl_for(ps, replace(cfg, mega_bwd_impl="xla"))
+    # edge mode: kernel 2s up to 64 objects per type, "cell" is hard-only,
+    # past 64 it is item 16 (JAX's TPU-only "xla" route)
+    edge = replace(cfg, mega_edge_bandwidth=1e-2)
+    for impl in ("auto", "pallas"):
+        assert mega.bwd_impl_for(ps, replace(edge, mega_bwd_impl=impl)) \
+            == "pallas"
+    with pytest.raises(ValueError, match="hard-gradient only"):
+        mega.bwd_impl_for(ps, replace(edge, mega_bwd_impl="cell"))
+    with pytest.raises(NotImplementedError, match="item 16"):
+        mega.bwd_impl_for(big, edge)
     # grid mode trains on the cell route; kernel 2 over it is item 16
     gs, gcfg = prepare_grids(ps, 2), replace(cfg, use_grid=True)
     assert mega.bwd_impl_for(gs, gcfg) == "cell"
