@@ -172,7 +172,32 @@ Phases, each fatal on failure (no exception is caught):
      ratio of the two steps (bench.py's budget is 3x; not gated), kernel 2s
      alone on the last step's cotangent (CUDA events) against its plain
      version (phase 6's gates, max |d| included) and its share of its
-     bound (OPS_SOFT_*).
+     bound (OPS_SOFT_*);
+ 21. streamed Morton chunks (render/mega.chunk_tables, no grid): (1)
+     kernel 1 over cornell plus the 992-triangle torus (1,002 triangles in
+     8 chunks) in path, roulette (from RR_START) and direct modes, the
+     path modes recording, and over sphere_field(STREAM_SPHERES) (64
+     sphere chunks) in path mode, vs the plain streamed version on the
+     same draws at 256x192: phase 3's gates and at most 1% of id slots and
+     occlusion bits differing on the torus, SPHERE_GATES on the spheres;
+     the --fmad=false build equal on every ray, id and bit; records
+     naming original rows; (2) the plain streamed version equal to the
+     plain brute version (ids, bits, acc) on the torus scene at
+     STREAM_BRUTE_W x STREAM_BRUTE_H, path b1 and direct; (3) kernel 3 on
+     kernel 1's streamed record vs its plain version with ("sph", "mat",
+     "tri") (phase 19's gates); (4) at 1024^2 b5: the torus scene's
+     forward (16 passes per call) at block 64 with the cell route's train
+     step (one streamed kernel-1 recording and one kernel-3 launch per
+     step, no kernel 2), at block 0, with the roulette, and direct through
+     render_direct (16 passes per call, block 64), and sphere_field(8192)
+     streamed beside phase 18's sphere-grid time: segments/s or rays/s, ms
+     per pass, the kernel alone, the device's idle share, the first pass
+     vs plain, the share of the bound (OPS_CHUNK per slab test, OPS_STREAM
+     per streamed trace or shadow ray, and the plain version's row tests
+     at 256x192, a shadow ray's up to its first occluder, scaled); every
+     launch of the phase's main-path runs must stream
+     (MK.stream_launches); timing only, the torus of HOUSE_SEGMENTS (5,322
+     triangles, BENCH_SCENE=house's count).
 Each phase prints the seconds elapsed since the start before it runs.
 Ends with a kernels JSON line and, last, the device JSON line. Exits non-zero
 without a result where CUDA is missing or the package is not beside it.
@@ -229,6 +254,9 @@ GRID_BLOCK = 64            # assign07's (and bench.py's mesh scenes') block
 GRID_REPS = 5
 GRID_TRAIN_STEPS = 5
 MESH_WRT = ("sph", "mat", "tri")
+STREAM_SPHERES = GRID_SPHERES   # streamed: no sphere grid (phase 21)
+HOUSE_SEGMENTS = (83, 32)  # 5,312 faces + 10 walls: BENCH_SCENE=house's 5,322
+STREAM_BRUTE_W, STREAM_BRUTE_H = 64, 48  # plain streamed vs plain brute
 # phase 20: edge-aware gradients (kernel 2s), bench.py BENCH_EDGE=1
 EDGE_BW = 2e-2             # mega_edge_bandwidth (and tau)
 EDGE_W, EDGE_H = 256, 192  # kernel 2s vs its plain version, edge x grid
@@ -268,6 +296,11 @@ OPS_WALK = 86            # grid mode, per grid walked by a traced segment or
                          # shadow ray: slab test and cell crossings 39,
                          # margin and window 8, entry point and cell 21,
                          # first faces 18 (csrc/pathtrace.cuh grid_walk)
+OPS_CHUNK = 31           # a streamed chunk's slab test: box - o 6, times
+                         # 1 / d 6, min 3 and max 3 per axis, near 2, far 2,
+                         # window max, min and compare 3 (JAX's ~30)
+OPS_STREAM = 6           # per traced segment or shadow ray that streams:
+                         # safe_inv's 3 divisions and 3 selects
 OPS_CELL = 10            # per walk step: nearest face 2, bound, margin
                          # and test 3, tie tests 4, one face advanced 1
 OPS_DIRECT_SHADE = 86    # per direct-mode shadow ray: disk point 28, ray
@@ -2292,13 +2325,46 @@ def grid_direct_main(dev, smi: str, work: dict) -> dict:
 def grid_path_main(dev, smi: str, shape: str, work: dict) -> tuple:
     """Phase 18, shapes 2 (the torus scene, B = GRID_BLOCK) and 3
     (sphere_field(GRID_SPHERES), B = 0), path mode b5 as bench.py's
-    BENCH_GRID=1 runs them: the forward (render_passes, 16 passes per
-    call, one launch per call) in segments/s and ms per pass, the kernel
-    alone, its first pass vs the plain version at 1024^2, its bound; then
-    the cell route's train step (render_pass -> image -> mean square ->
-    backward -> SGD; one kernel-1 recording and one kernel-3 launch per
-    step, no kernel 2), kernel 1 recording and kernel 3 alone on the last
-    step. Returns the forward entry and the kernel-3 entry."""
+    BENCH_GRID=1 runs them (``_path_main``). Returns the forward entry and
+    the kernel-3 entry."""
+    from raytracing_tpu_torch.render import mega
+
+    block = GRID_BLOCK if shape == "torus" else 0
+    scene = _grid_scene(shape, MAIN_W, MAIN_H, dev)
+    cfg = _grid_cfg(shape, MAIN_W, MAIN_H, "path", mega_block=block,
+                    mega_grad_wrt=MESH_WRT if shape == "torus" else TRAIN_WRT)
+    grid = mega.grid_tables(scene)
+    scale = cfg.total_rays / (SMALL_W * SMALL_H)
+    n_sph = scene.spheres.count
+    name = ("cornell + torus" if shape == "torus"
+            else f"sphere_field({GRID_SPHERES})")
+    sph_grid = (f" + sphere grid {grid.sph.n}" if grid.sph is not None
+                else "")
+    return _path_main(
+        dev, smi, 18, name, scene, cfg,
+        f"grid mode (kernel grids {[g.n for g in grid.tri]}{sph_grid})",
+        accel=lambda sc, tables: {"grid": grid},
+        ops_of=lambda w: _grid_ops(w, _scaled(work, scale), grid, n_sph,
+                                   scene.lights.count, False),
+        bytes_of=lambda tables: _grid_bytes(tables, grid),
+        gates=((0.01, 1e-5) if shape == "torus"
+               else (SPHERE_GATES["beyond"], SPHERE_GATES["rel"])))
+
+
+def _path_main(dev, smi: str, phase: int, name: str, scene, cfg, how: str,
+               accel, ops_of, bytes_of, gates, train: bool = True) -> tuple:
+    """Path mode b5 at 1024^2 in a mode of kernel 1 that ``accel(scene,
+    tables)`` gives (its keyword arguments: ``grid`` or ``chunks``): the
+    forward (render_passes, 16 passes per call, one launch per call) in
+    segments/s and ms per pass, the kernel alone and the device's idle
+    share, its first pass vs the plain version at 1024^2 (``gates``: rays
+    beyond 2e-4, mean rel), its bound (``ops_of(pass work)`` operations,
+    24 B per ray and ``bytes_of(tables)``); then, with ``train``, the cell
+    route's train step (render_pass -> image -> mean square -> backward ->
+    SGD on cfg.mega_grad_wrt's groups; one kernel-1 recording and one
+    kernel-3 launch per step, no kernel 2), kernel 1 recording and kernel 3
+    alone on the last step. Returns the forward entry and the kernel-3
+    entry (None without ``train``)."""
     import torch
     from raytracing_tpu_torch import replace
     from raytracing_tpu_torch.ops import megakernel as MK
@@ -2306,19 +2372,14 @@ def grid_path_main(dev, smi: str, shape: str, work: dict) -> tuple:
     from raytracing_tpu_torch.render import mega
     from raytracing_tpu_torch.render import pathtracer as pt
 
-    block = GRID_BLOCK if shape == "torus" else 0
-    wrt = MESH_WRT if shape == "torus" else TRAIN_WRT
-    scene = _grid_scene(shape, MAIN_W, MAIN_H, dev)
-    cfg = _grid_cfg(shape, MAIN_W, MAIN_H, "path", mega_block=block,
-                    mega_grad_wrt=wrt)
-    grid = mega.grid_tables(scene)
+    block, wrt = cfg.mega_block, cfg.mega_grad_wrt
     tables = mega.scene_tables(scene, cfg)
     n_l = scene.lights.count
     segs = cfg.total_rays * (1 + n_l + cfg.bounces * (1 + n_l))
     state = pt.render_passes(scene, pt.init_state(cfg, dev), cfg,
                              GRID_PASSES)                        # warm-up
     torch.cuda.synchronize()
-    MK.launches = 0
+    MK.launches = MK.stream_launches = 0
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     t0 = time.perf_counter()
     start.record()
@@ -2327,19 +2388,20 @@ def grid_path_main(dev, smi: str, shape: str, work: dict) -> tuple:
     end.record()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = MK.launches
-    _check(launches == GRID_REPS, f"{shape}: {launches} kernel-1 launches "
+    launches, streamed = MK.launches, MK.stream_launches
+    _check(launches == GRID_REPS, f"{name}: {launches} kernel-1 launches "
            f"for {GRID_REPS} render_passes calls")
-    _check(bool(torch.isfinite(state["acc"]).all()), f"{shape}: acc")
+    _check(bool(torch.isfinite(state["acc"]).all()), f"{name}: acc")
     ms_pass = start.elapsed_time(end) / (GRID_REPS * GRID_PASSES)
     ipar = torch.tensor([0, 0], dtype=torch.int32)
     acc = torch.zeros((cfg.total_rays, 3), device=dev)
     kw = _pass_kw(cfg)
-    MK.pathtrace_pass(tables[0], ipar, *tables[1:], acc, None, grid=grid,
-                      block=block, n_passes=GRID_PASSES, **kw)
+    ak = accel(scene, tables)
+    MK.pathtrace_pass(tables[0], ipar, *tables[1:], acc, None, block=block,
+                      n_passes=GRID_PASSES, **ak, **kw)
     start.record()
-    MK.pathtrace_pass(tables[0], ipar, *tables[1:], acc, None, grid=grid,
-                      block=block, n_passes=GRID_PASSES, **kw)
+    MK.pathtrace_pass(tables[0], ipar, *tables[1:], acc, None, block=block,
+                      n_passes=GRID_PASSES, **ak, **kw)
     end.record()
     torch.cuda.synchronize()
     k_ms = start.elapsed_time(end) / GRID_PASSES
@@ -2349,49 +2411,45 @@ def grid_path_main(dev, smi: str, shape: str, work: dict) -> tuple:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     want = MK.pathtrace_pass_reference(tables[0], ipar, *tables[1:], zeros,
-                                       u, grid=grid, **kw)
+                                       u, **ak, **kw)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     got, ids, occs = MK.pathtrace_pass(tables[0], ipar, *tables[1:],
-                                       zeros.clone(), u, grid=grid,
-                                       block=block, record=True, **kw)
+                                       zeros.clone(), u, block=block,
+                                       record=True, **ak, **kw)
     torch.cuda.synchronize()
     err = (got - want).abs()
     beyond = (err > TOL + TOL * want.abs()).any(-1).double().mean().item()
     rel = abs(got.double().mean().item() / want.double().mean().item() - 1)
-    gates = ((0.01, 1e-5) if shape == "torus"
-             else (SPHERE_GATES["beyond"], SPHERE_GATES["rel"]))
     _check(beyond <= gates[0] and rel <= gates[1],
-           f"{shape} 1024^2 pass: beyond {beyond:.4%}, rel {rel:.3g}")
+           f"{name} 1024^2 pass: beyond {beyond:.4%}, rel {rel:.3g}")
     w = _pass_work(ids, occs, n_l, tables[1].shape[0])
-    ops = _grid_ops(w, _scaled(work, cfg.total_rays / (SMALL_W * SMALL_H)),
-                    grid, tables[1].shape[0], n_l, False)
-    bound = _bound(ops, 24 * cfg.total_rays + _grid_bytes(tables, grid))
-    name = ("cornell + torus" if shape == "torus"
-            else f"sphere_field({GRID_SPHERES})")
-    sph_grid = (f" + sphere grid {grid.sph.n}" if grid.sph is not None
-                else "")
-    print(f"phase 18 {name} {MAIN_W}x{MAIN_H} b{BOUNCES} grid mode "
-          f"(kernel grids {[g.n for g in grid.tri]}"
-          f"{sph_grid}"
-          f"), B = {block}, {GRID_PASSES} passes/call x {GRID_REPS} on "
+    ops = ops_of(w)
+    bound = _bound(ops, 24 * cfg.total_rays + bytes_of(tables))
+    print(f"phase {phase} {name} {MAIN_W}x{MAIN_H} b{BOUNCES} {how}, "
+          f"B = {block}, {GRID_PASSES} passes/call x {GRID_REPS} on "
           f"[{smi}]: {segs * GRID_PASSES * GRID_REPS / wall:.6g} forward ray "
           f"segments/s ({segs} per pass), {ms_pass:.6g} ms/pass (CUDA "
-          f"events), kernel alone {k_ms:.6g} ms/pass; launches {launches}; "
-          f"plain version {plain_ms:.6g} ms/pass, max|d acc| "
-          f"{err.max().item():.6g}, rays beyond {TOL:g} {beyond:.6%}, mean "
-          f"rel {rel:.3g}; bound {ops / cfg.total_rays:.6g} FP32 operations "
-          f"per ray -> {bound['bound_ms']:.6g} ms ({bound['bound_by']}), "
-          f"share {bound['bound_ms'] / k_ms:.3%}")
-    fwd = {"launches": launches, "ms": k_ms, "plain_ms": plain_ms,
+          f"events), kernel alone {k_ms:.6g} ms/pass (device idle share "
+          f"{max(0.0, 1 - k_ms / ms_pass):.3%}); launches {launches} "
+          f"(streamed {streamed}); plain version {plain_ms:.6g} ms/pass, "
+          f"max|d acc| {err.max().item():.6g}, rays beyond {TOL:g} "
+          f"{beyond:.6%}, mean rel {rel:.3g}; bound "
+          f"{ops / cfg.total_rays:.6g} FP32 operations per ray -> "
+          f"{bound['bound_ms']:.6g} ms ({bound['bound_by']}), share "
+          f"{bound['bound_ms'] / k_ms:.3%}")
+    fwd = {"launches": launches, "streamed": streamed, "ms": k_ms,
+           "call_ms": ms_pass, "plain_ms": plain_ms,
            "max_abs_err": err.max().item(), **bound}
+    if not train:
+        return fwd, None
 
     # the cell route's train step
-    _check(mega.bwd_impl_for(scene, cfg) == "cell", f"{shape}: not cell")
+    _check(mega.bwd_impl_for(scene, cfg) == "cell", f"{name}: not cell")
     params = {"center": scene.spheres.center.clone().requires_grad_(True),
               "radius": scene.spheres.radius.clone().requires_grad_(True),
               "materials": scene.materials.clone().requires_grad_(True)}
-    if shape == "torus":
+    if "tri" in wrt:
         params["tv"] = scene.meshes[0].tris.v.clone().requires_grad_(True)
     seen = {}
 
@@ -2421,7 +2479,8 @@ def grid_path_main(dev, smi: str, shape: str, work: dict) -> tuple:
     st = pt.init_state(cfg, dev)
     st, loss0, _ = step(st)                                  # warm-up
     torch.cuda.synchronize()
-    MK.launches = MKG.launches = MKG.champ_launches = 0
+    MK.launches = MK.stream_launches = 0
+    MKG.launches = MKG.champ_launches = 0
     t0 = time.perf_counter()
     for _ in range(GRID_TRAIN_STEPS):
         st, loss, grads = step(st)
@@ -2429,22 +2488,24 @@ def grid_path_main(dev, smi: str, shape: str, work: dict) -> tuple:
     step_ms = (time.perf_counter() - t0) * 1e3 / GRID_TRAIN_STEPS
     k1, k2, k3 = MK.launches, MKG.launches, MKG.champ_launches
     _check(k1 == GRID_TRAIN_STEPS and k3 == GRID_TRAIN_STEPS and k2 == 0,
-           f"{shape} train: {k1} kernel-1, {k3} kernel-3, {k2} kernel-2 "
+           f"{name} train: {k1} kernel-1, {k3} kernel-3, {k2} kernel-2 "
            f"launches for {GRID_TRAIN_STEPS} steps")
-    _check(bool(torch.isfinite(loss)), f"{shape} train: loss")
+    _check(MK.stream_launches == (GRID_TRAIN_STEPS if streamed else 0),
+           f"{name} train: {MK.stream_launches} streamed kernel-1 launches")
+    _check(bool(torch.isfinite(loss)), f"{name} train: loss")
     for k, gr in grads.items():
         _check(gr is not None and bool(torch.isfinite(gr).all()),
-               f"{shape} train: {k} gradient missing or not finite")
-    _check(bool(grads["materials"].any()), f"{shape}: materials grad zero")
+               f"{name} train: {k} gradient missing or not finite")
+    _check(bool(grads["materials"].any()), f"{name}: materials grad zero")
     if "tv" in grads:
-        _check(bool(grads["tv"].any()), f"{shape}: mesh vertex grad zero")
+        _check(bool(grads["tv"].any()), f"{name}: mesh vertex grad zero")
     # kernels 1 (recording) and 3 alone on the last step's pass
     with torch.no_grad():
-        tabs = mega.scene_tables(sc_of({k: p.detach()
-                                        for k, p in params.items()}), cfg)
+        sc_last = sc_of({k: p.detach() for k, p in params.items()})
+        tabs = mega.scene_tables(sc_last, cfg)
     ipar = torch.tensor([st["passes"] - 1, 0], dtype=torch.int32)
     g = seen["g"].contiguous()
-    rec_kw = dict(kw, grid=grid, block=block, record=True)
+    rec_kw = dict(kw, block=block, record=True, **accel(sc_last, tabs))
     _, ids, occs = MK.pathtrace_pass(tabs[0], ipar, *tabs[1:],
                                      torch.zeros_like(g), None, **rec_kw)
     start.record()
@@ -2469,7 +2530,7 @@ def grid_path_main(dev, smi: str, shape: str, work: dict) -> tuple:
         tabs[0], ipar, *tabs[1:], g, None, ids, occs, **k3kw)
     torch.cuda.synchronize()
     plain3_ms = (time.perf_counter() - t1) * 1e3
-    print(f"  {shape}: kernel 3 on the last step's record and cotangent vs "
+    print(f"  {name}: kernel 3 on the last step's record and cotangent vs "
           "plain version:")
     err3 = max(_grad_gates(n, a, b, False)
                for n, a, b in zip(MKG.DIFF_ALL, want3, got3) if n in wrt)
@@ -2482,8 +2543,8 @@ def grid_path_main(dev, smi: str, shape: str, work: dict) -> tuple:
                       + (1 + cfg.bounces) * (4 + n_l) * w3["rays"]
                       + 2 * _table_bytes(tabs))
     rec_bound = _bound(ops, (24 + (1 + cfg.bounces) * (4 + n_l))
-                       * cfg.total_rays + _grid_bytes(tabs, grid))
-    print(f"phase 18 train {name} {MAIN_W}x{MAIN_H} b{BOUNCES} wrt "
+                       * cfg.total_rays + bytes_of(tabs))
+    print(f"phase {phase} train {name} {MAIN_W}x{MAIN_H} b{BOUNCES} wrt "
           f"{list(wrt)}, cell route, {GRID_TRAIN_STEPS} timed steps on "
           f"[{smi}]: {step_ms:.6g} ms/step, {segs / (step_ms / 1e3):.6g} "
           f"fwd+bwd ray segments/s; launches kernel 1 {k1}, kernel 3 {k3}, "
@@ -2495,14 +2556,16 @@ def grid_path_main(dev, smi: str, shape: str, work: dict) -> tuple:
           f"backward {plain3_ms:.6g} ms; loss first {loss0.item():.7g} last "
           f"{loss.item():.7g}")
     return fwd, {"launches": k3, "ms": k3_ms, "plain_ms": plain3_ms,
-                 "max_abs_err": err3, "step_ms": step_ms, **k3_bound}
+                 "max_abs_err": err3, "step_ms": step_ms, "rec_ms": rec_ms,
+                 **k3_bound}
 
 
-def kernel3_on_grid_record(dev, shape: str, w: int, h: int, wrt,
-                           max_gate: bool) -> dict:
+def kernel3_on_record(dev, shape: str, w: int, h: int, wrt,
+                           max_gate: bool, stream: bool = False) -> dict:
     """Phase 19: kernel 3 (PRNG and u-planes routes) vs its plain version
     on kernel 1's grid-mode record (original rows) and a seeded random
-    cotangent, under phase 6's gates."""
+    cotangent, under phase 6's gates; with ``stream`` (phase 21) on kernel
+    1's record over the streamed tables of ``_stream_scene(shape)``."""
     import numpy as np
     import torch
     from raytracing_tpu_torch.ops import megakernel as MK
@@ -2510,16 +2573,18 @@ def kernel3_on_grid_record(dev, shape: str, w: int, h: int, wrt,
     from raytracing_tpu_torch.render import mega
     from raytracing_tpu_torch.render import pathtracer as pt
 
-    scene = _grid_scene(shape, w, h, dev)
-    cfg = _grid_cfg(shape, w, h, "path")
+    scene = (_stream_scene if stream else _grid_scene)(shape, w, h, dev)
+    cfg = (_stream_cfg if stream else _grid_cfg)(shape, w, h, "path")
     tables = mega.scene_tables(scene, cfg)
+    accel = ({"chunks": mega.chunk_tables(scene, cfg, tables[1], tables[2])}
+             if stream else {"grid": mega.grid_tables(scene)})
     ipar = torch.tensor([0, 0], dtype=torch.int32)
     u = mega.u_planes_for_pass(pt.init_state(cfg, dev)["key"], 0, cfg,
                                scene.lights.count, dev)
     _, ids, occs = MK.pathtrace_pass(
         tables[0], ipar, *tables[1:],
-        torch.zeros((cfg.total_rays, 3), device=dev), None,
-        grid=mega.grid_tables(scene), record=True, **_pass_kw(cfg))
+        torch.zeros((cfg.total_rays, 3), device=dev), None, record=True,
+        **accel, **_pass_kw(cfg))
     g = torch.as_tensor(np.random.default_rng(GRAD_SEED).normal(
         size=(cfg.total_rays, 3)).astype(np.float32), device=dev)
     kw = _pass_kw(cfg, diff_wrt=wrt)
@@ -2531,7 +2596,8 @@ def kernel3_on_grid_record(dev, shape: str, w: int, h: int, wrt,
     plain_ms = (time.perf_counter() - t0) * 1e3
     n_sph = tables[1].shape[0]
     tri_ids = ids[ids >= n_sph]
-    print(f"phase 19 kernel 3 on the grid record, {shape} {w}x{h} "
+    print(f"phase {21 if stream else 19} kernel 3 on the "
+          f"{'streamed' if stream else 'grid'} record, {shape} {w}x{h} "
           f"b{BOUNCES} wrt {list(wrt)}: plain {plain_ms:.6g} ms; recorded "
           f"rows: spheres {int(((ids >= 0) & (ids < n_sph)).sum())}, "
           f"triangles {tri_ids.numel()} (largest row "
@@ -2894,6 +2960,389 @@ def edge_train(dev, smi: str) -> dict:
             **bound}
 
 
+def _stream_scene(shape: str, w: int, h: int, dev):
+    """Phase 21's scenes, no grid prepared: cornell plus the torus of
+    TORUS_SEGMENTS (1,002 triangles: 8 streamed chunks; "house": of
+    HOUSE_SEGMENTS, 5,322 triangles in 42 chunks) or
+    sphere_field(STREAM_SPHERES) (64 streamed sphere chunks)."""
+    from raytracing_tpu_torch.models.scenes import sphere_field
+    if shape == "spheres":
+        return sphere_field(STREAM_SPHERES, cols=w, rows=h, device=dev)
+    sys.path.insert(0, str(HERE / "tests"))
+    from torch_grid_scenes import cornell_torus
+    segs = HOUSE_SEGMENTS if shape == "house" else TORUS_SEGMENTS
+    return cornell_torus(w, h, *segs, device=dev)
+
+
+def _stream_cfg(shape: str, w: int, h: int, mode: str, **kw):
+    from raytracing_tpu_torch import RenderConfig
+    return RenderConfig(width=w, height=h,
+                        bounces=0 if mode == "direct" else BOUNCES,
+                        use_megakernel=True, russian_roulette=mode == "rr",
+                        rr_start_depth=RR_START, **kw)
+
+
+def _stream_bytes(tables, chunks) -> int:
+    """The tables (a streamed one read through its order) and each
+    stream's boxes and order (perm)."""
+    return _table_bytes(tables) + sum(
+        4 * (st.boxes.numel() + st.perm.numel())
+        for st in (chunks.tri, chunks.sph) if st is not None)
+
+
+def _stream_ops(w: dict, work: dict, chunks, n_sph: int, n_tri: int,
+                n_lig: int, direct: bool) -> float:
+    """FP32 operations of a streamed pass: the resident tables as _k1_ops
+    and _direct_ops count them, the streamed set-up (OPS_STREAM) per
+    traced segment and shadow ray, and the slab tests and the (ray, row)
+    tests of the chunks as the plain version counted them (``work``,
+    scaled to this pass's rays; a shadow ray's rows up to its first
+    occluder)."""
+    n_s = 0 if chunks.sph is not None else n_sph
+    n_t = 0 if chunks.tri is not None else n_tri
+    tests = n_s * OPS_SPHERE_TEST + n_t * OPS_TRIANGLE_TEST
+    one = OPS_TRIANGLE_TEST if n_t else (OPS_SPHERE_TEST if n_s else 0)
+    seg = w["primary"] if direct else w["traced"]
+    ops = (w["rays"] * OPS_CAMERA + seg * (OPS_TRACE + tests)
+           + w["sph_hits"] * OPS_SPHERE_HIT + w["tri_hits"] * OPS_TRIANGLE_HIT
+           + w["free"] * tests + w["occluded"] * one
+           + (seg + w["shadow"]) * OPS_STREAM
+           + work["chunk_tests"] * OPS_CHUNK
+           + work.get("sph_tests", 0) * OPS_SPHERE_TEST
+           + work.get("tri_tests", 0) * OPS_TRIANGLE_TEST)
+    if direct:
+        return ops + w["shadow"] * OPS_DIRECT_SHADE
+    return ops + (w["primary"] * n_lig * OPS_EMITTER + w["shadow"] * OPS_NEE
+                  + w["bounces"] * OPS_BOUNCE + w["rr"] * OPS_RR)
+
+
+def stream_vs_plain(dev, shape: str, mode: str) -> dict:
+    """Phase 21 (1) at 256x192, one shape and mode ("direct", "path",
+    "rr"): kernel 1 over the streamed tables against its plain streamed
+    version on the same draws, the path modes recording (in "path" the
+    launch without the record gives the recording launch's accumulator
+    bit for bit): phase 3's gates and at most 1% of id slots and of
+    occlusion bits differing (the grazing share) on the torus,
+    SPHERE_GATES on the spheres; its --fmad=false build equal on every
+    ray, id and bit. Returns max |d|, the plain ms and the plain version's
+    chunk work."""
+    import torch
+    from raytracing_tpu_torch.core import rng
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.render import mega
+    from raytracing_tpu_torch.render import pathtracer as pt
+
+    w, h = SMALL_W, SMALL_H
+    scene = _stream_scene(shape, w, h, dev)
+    cfg = _stream_cfg(shape, w, h, mode)
+    tables = mega.scene_tables(scene, cfg)
+    chunks = mega.chunk_tables(scene, cfg, tables[1], tables[2])
+    if shape == "spheres":
+        _check(chunks.tri is None and chunks.sph.n_chunks
+               == STREAM_SPHERES // MK.STREAM_CHUNK, "spheres: chunks")
+    else:
+        _check(chunks.sph is None and chunks.tri.n_chunks == -(
+            -tables[2].shape[0] // MK.STREAM_CHUNK), f"{shape}: chunks")
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    zeros = torch.zeros((cfg.total_rays, 3), device=dev)
+    work = {}
+    if mode == "direct":
+        key = rng.base_key(cfg.seed)
+        u = mega.u_planes_for_direct(key, cfg, scene.lights.count, dev)
+        kw = dict(key=key, spp=1, width=w, two_sided=False, chunks=chunks)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = (MK.direct_pass_reference(*tables, zeros, u, work=work,
+                                         **kw),)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = (MK.direct_pass(*tables, zeros.clone(), u, **kw),)
+        exact = (MK.direct_pass(*tables, zeros.clone(), u,
+                                build_flags=EXACT_FLAGS, **kw),)
+    else:
+        u = mega.u_planes_for_pass(pt.init_state(cfg, dev)["key"], 0, cfg,
+                                   scene.lights.count, dev)
+        kw = _pass_kw(cfg, chunks=chunks)
+
+        def run(**extra):
+            return MK.pathtrace_pass(tables[0], ipar, *tables[1:],
+                                     zeros.clone(), u, **kw, **extra)
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = MK.pathtrace_pass_reference(tables[0], ipar, *tables[1:],
+                                           zeros, u, work=work, record=True,
+                                           **kw)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        got = run(record=True)
+        exact = run(record=True, build_flags=EXACT_FLAGS)
+        if mode == "path":
+            _check(torch.equal(run(), got[0]), f"{shape}: the recording "
+                   "launch's acc differs from the path launch's")
+    torch.cuda.synchronize()
+    err = (got[0] - want[0]).abs()
+    beyond = (err > TOL + TOL * want[0].abs()).any(-1).double().mean().item()
+    gm, wm = got[0].double().mean().item(), want[0].double().mean().item()
+    rel = abs(gm - wm) / abs(wm)
+    rec = len(got) > 1
+    ids = (got[1] != want[1]).double().mean().item() if rec else 0.0
+    ids0 = (got[1][0] != want[1][0]).double().mean().item() if rec else 0.0
+    occs = (got[2] != want[2]).double().mean().item() if rec else 0.0
+    same = all(torch.equal(a, b) for a, b in zip(exact, want))
+    print(f"phase 21 streamed {shape} {mode} {w}x{h}: kernel vs plain "
+          f"({plain_ms:.6g} ms) max|d acc| {err.max().item():.6g}, rays "
+          f"beyond {TOL:g} {beyond:.6%}, mean rel {rel:.3g}, ids differ "
+          f"{ids:.6%} (first segments {ids0:.6%}), occlusion bits {occs:.6%};"
+          f" --fmad=false build equal {same}; plain chunk work: "
+          f"{ {k: int(v) for k, v in work.items()} }")
+    _check(bool(torch.isfinite(got[0]).all()) and got[0].max().item() > 0,
+           f"{shape} {mode}: streamed acc not finite or black")
+    _check(same, f"{shape} {mode}: the --fmad=false build differs from the "
+           "plain version")
+    if rec:
+        _check(bool((got[1] >= -1).all()) and bool(
+            (got[1] < tables[1].shape[0] + tables[2].shape[0]).all()),
+            f"{shape} {mode}: recorded ids outside the original rows")
+    if shape == "spheres":
+        d = {"beyond": beyond, "rel": rel, "ids": ids, "ids0": ids0}
+        _check(all(d[k] <= SPHERE_GATES[k] for k in d),
+               f"{shape} {mode}: {d}, limits {SPHERE_GATES}")
+    else:
+        _check(beyond <= 0.01 and rel <= 1e-5 and ids <= SPHERE_GATES["ids"]
+               and occs <= SPHERE_GATES["ids"],
+               f"{shape} {mode}: beyond {beyond:.4%}, mean rel {rel:.3g}, "
+               f"ids {ids:.4%}, occlusion bits {occs:.4%}")
+    return {"max_abs_err": err.max().item(), "plain_ms": plain_ms,
+            "work": work}
+
+
+def stream_plain_vs_brute(dev) -> None:
+    """Phase 21 (2): the plain streamed version against the plain brute
+    version over the same tables on the card, cornell plus the torus at
+    STREAM_BRUTE_W x STREAM_BRUTE_H (the brute loops launch per object,
+    ~1.3 ms per object and loop whatever the film), path b1 with its record
+    and direct mode: equal accumulators, ids and bits."""
+    import torch
+    from raytracing_tpu_torch import replace
+    from raytracing_tpu_torch.core import rng
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.render import mega
+    from raytracing_tpu_torch.render import pathtracer as pt
+
+    w, h = STREAM_BRUTE_W, STREAM_BRUTE_H
+    scene = _stream_scene("torus", w, h, dev)
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    for mode in ("path", "direct"):
+        cfg = replace(_stream_cfg("torus", w, h, mode),
+                      bounces=int(mode == "path"))
+        tables = mega.scene_tables(scene, cfg)
+        chunks = mega.chunk_tables(scene, cfg, tables[1], tables[2])
+        zeros = torch.zeros((cfg.total_rays, 3), device=dev)
+        t0 = time.perf_counter()
+        if mode == "path":
+            u = mega.u_planes_for_pass(pt.init_state(cfg, dev)["key"], 0,
+                                       cfg, scene.lights.count, dev)
+            got, want = (MK.pathtrace_pass_reference(
+                tables[0], ipar, *tables[1:], zeros, u, record=True,
+                chunks=c, **_pass_kw(cfg)) for c in (chunks, None))
+        else:
+            key = rng.base_key(cfg.seed)
+            u = mega.u_planes_for_direct(key, cfg, scene.lights.count, dev)
+            got, want = ((MK.direct_pass_reference(
+                *tables, zeros, u, key=key, spp=1, width=w, two_sided=False,
+                chunks=c),) for c in (chunks, None))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        print(f"phase 21 plain streamed vs plain brute, cornell + torus "
+              f"{w}x{h} {mode}{' b1' if mode == 'path' else ''} "
+              f"({(time.perf_counter() - t0):.3g} s): equal {same}, max|d "
+              f"acc| {(got[0] - want[0]).abs().max().item():g}")
+        _check(same and got[0].max().item() > 0,
+               f"{mode}: the plain streamed version != the brute one")
+
+
+def stream_direct_main(dev, smi: str, work: dict) -> dict:
+    """Phase 21 (4), the torus scene in direct mode at 1024^2 through
+    render_direct, 16 passes per call (one launch per call, streamed), in
+    rays/s as bench.py:225-228 counts them; the chunk build's ms (host
+    clock, synchronised), the kernel alone, its first pass vs the plain
+    version (phase 3's gates) and its bound (the 256x192 chunk work
+    scaled). Returns the entry."""
+    import torch
+    from raytracing_tpu_torch import replace
+    from raytracing_tpu_torch.core import rng
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.render import mega
+    from raytracing_tpu_torch.render.direct import render_direct
+
+    scene = _stream_scene("torus", MAIN_W, MAIN_H, dev)
+    cfg = _stream_cfg("torus", MAIN_W, MAIN_H, "direct",
+                      mega_block=GRID_BLOCK)
+    n_rays = cfg.total_rays * (1 + scene.lights.count) * GRID_PASSES
+    tables = mega.scene_tables(scene, cfg)
+    chunks = mega.chunk_tables(scene, cfg, tables[1], tables[2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(GRID_REPS):              # every call builds its chunks
+        mega.chunk_tables(scene, cfg, tables[1], tables[2])
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3 / GRID_REPS
+    key = rng.base_key(cfg.seed)
+    img = render_direct(scene, cfg, n_passes=GRID_PASSES)        # warm-up
+    torch.cuda.synchronize()
+    MK.direct_launches = MK.launches = MK.stream_launches = 0
+    t0 = time.perf_counter()
+    for _ in range(GRID_REPS):
+        img = render_direct(scene, cfg, n_passes=GRID_PASSES)
+    torch.cuda.synchronize()
+    call_ms = (time.perf_counter() - t0) * 1e3 / GRID_REPS
+    launches, streamed = MK.direct_launches, MK.stream_launches
+    _check(launches == GRID_REPS and streamed == GRID_REPS
+           and MK.launches == 0, f"direct: {launches} launches ({streamed} "
+           f"streamed) for {GRID_REPS} calls")
+    _check(bool(torch.isfinite(img).all()) and img.max().item() > 0,
+           "direct: image not finite or black")
+    acc = torch.zeros((cfg.total_rays, 3), device=dev)
+    kw = dict(key=key, spp=1, width=MAIN_W, two_sided=False,
+              n_passes=GRID_PASSES, chunks=chunks, block=GRID_BLOCK)
+    MK.direct_pass(*tables, acc, None, **kw)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(GRID_REPS):
+        MK.direct_pass(*tables, acc, None, **kw)
+    end.record()
+    torch.cuda.synchronize()
+    k_ms = start.elapsed_time(end) / (GRID_REPS * GRID_PASSES)
+    u = mega.u_planes_for_direct(key, cfg, scene.lights.count, dev)
+    zeros = torch.zeros((cfg.total_rays, 3), device=dev)
+    one = dict(key=key, spp=1, width=MAIN_W, two_sided=False, chunks=chunks)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = MK.direct_pass_reference(*tables, zeros, u, **one)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    got = MK.direct_pass(*tables, zeros.clone(), u, block=GRID_BLOCK, **one)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    beyond = (err > TOL + TOL * want.abs()).any(-1).double().mean().item()
+    rel = abs(got.double().mean().item() / want.double().mean().item() - 1)
+    _check(beyond <= 0.01 and rel <= 1e-5,
+           f"streamed direct 1024^2: beyond {beyond:.4%}, rel {rel:.3g}")
+    _, ids, occs = MK.pathtrace_pass(
+        tables[0], torch.tensor([0, 0], dtype=torch.int32), *tables[1:],
+        torch.zeros_like(zeros), u, chunks=chunks, record=True,
+        **_pass_kw(replace(cfg, bounces=0)))
+    w = _pass_work(ids, occs, scene.lights.count, tables[1].shape[0])
+    ops = _stream_ops(w, _scaled(work, cfg.total_rays / (SMALL_W * SMALL_H)),
+                      chunks, tables[1].shape[0], tables[2].shape[0],
+                      scene.lights.count, True)
+    bound = _bound(ops, 24 * cfg.total_rays + _stream_bytes(tables, chunks))
+    print(f"phase 21 cornell + torus ({tables[2].shape[0]} triangles, "
+          f"{chunks.tri.n_chunks} chunks) {MAIN_W}x{MAIN_H} direct, "
+          f"streamed, {GRID_PASSES} passes per call, B = {GRID_BLOCK} on "
+          f"[{smi}]: {n_rays / (call_ms / 1e3):.6g} rays/s ({n_rays} per "
+          f"call), call {call_ms:.6g} ms (chunk build {build_ms:.6g} ms), "
+          f"kernel alone {k_ms:.6g} ms/pass "
+          f"(device idle share "
+          f"{max(0.0, 1 - k_ms * GRID_PASSES / call_ms):.3%}); launches "
+          f"{launches}; plain version {plain_ms:.6g} ms, max|d acc| "
+          f"{err.max().item():.6g}, rays beyond {TOL:g} {beyond:.6%}, mean "
+          f"rel {rel:.3g}; bound {ops / cfg.total_rays:.6g} FP32 operations "
+          f"per ray -> {bound['bound_ms']:.6g} ms ({bound['bound_by']}), "
+          f"share {bound['bound_ms'] / k_ms:.3%}")
+    return {"launches": launches, "ms": k_ms, "plain_ms": plain_ms,
+            "max_abs_err": err.max().item(), **bound}
+
+
+def stream_house(dev, smi: str) -> None:
+    """Phase 21 (4), timing only: cornell plus the HOUSE_SEGMENTS torus
+    streamed (the triangle count of BENCH_SCENE=house, whose asset is
+    absent), path b5 at 1024^2 through render_passes, 16 passes per call
+    at block 64: one streamed launch per call, ms per pass (CUDA events)
+    after a warm-up call."""
+    import torch
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.render import pathtracer as pt
+
+    scene = _stream_scene("house", MAIN_W, MAIN_H, dev)
+    cfg = _stream_cfg("house", MAIN_W, MAIN_H, "path", mega_block=GRID_BLOCK)
+    state = pt.render_passes(scene, pt.init_state(cfg, dev), cfg,
+                             GRID_PASSES)                        # warm-up
+    torch.cuda.synchronize()
+    MK.launches = MK.stream_launches = 0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    state = pt.render_passes(scene, state, cfg, GRID_PASSES)
+    end.record()
+    torch.cuda.synchronize()
+    _check(MK.launches == 1 == MK.stream_launches,
+           f"house stand-in: {MK.launches} launches, {MK.stream_launches} "
+           "streamed, for one call")
+    _check(bool(torch.isfinite(state["acc"]).all()), "house stand-in: acc")
+    n_t = 2 * HOUSE_SEGMENTS[0] * HOUSE_SEGMENTS[1] + 10
+    print(f"phase 21 house stand-in (cornell + torus, {n_t} triangles, "
+          f"{-(-n_t // MK.STREAM_CHUNK)} chunks) {MAIN_W}x{MAIN_H} "
+          f"b{BOUNCES}, B = {GRID_BLOCK}, {GRID_PASSES} passes per call on "
+          f"[{smi}]: {start.elapsed_time(end) / GRID_PASSES:.6g} ms/pass "
+          "(timing only)")
+
+
+def stream_main(dev, smi: str, work: dict, grid_ms: float) -> dict:
+    """Phase 21 (4) in path mode b5 at 1024^2 (``_path_main``): the torus
+    scene streamed at B = GRID_BLOCK with the cell route's train step
+    (("sph", "mat", "tri")), at B = 0, with the roulette from RR_START;
+    sphere_field(STREAM_SPHERES) streamed beside shape 3's sphere-grid
+    time of phase 18 (``grid_ms``). ``work`` holds the 256x192 chunk work
+    of phase 21 (1) per shape and mode. Returns the entries by name."""
+    from raytracing_tpu_torch.render import mega
+
+    scale = MAIN_W * MAIN_H / (SMALL_W * SMALL_H)
+    out = {}
+
+    def run(label, shape, mode, train, block, wk):
+        scene = _stream_scene(shape, MAIN_W, MAIN_H, dev)
+        cfg = _stream_cfg(shape, MAIN_W, MAIN_H, mode, mega_block=block,
+                          mega_grad_wrt=MESH_WRT)
+        tables = mega.scene_tables(scene, cfg)
+        n_s, n_t = tables[1].shape[0], tables[2].shape[0]
+        chunks = mega.chunk_tables(scene, cfg, tables[1], tables[2])
+        n_c = sum(st.n_chunks for st in (chunks.tri, chunks.sph)
+                  if st is not None)
+        name = (f"sphere_field({n_s})" if shape == "spheres"
+                else f"cornell + torus ({n_t} triangles)")
+        fwd, k3 = _path_main(
+            dev, smi, 21, name, scene, cfg,
+            f"streamed ({n_c} chunks){', RR' if mode == 'rr' else ''}",
+            accel=lambda sc, tabs: {"chunks": mega.chunk_tables(
+                sc, cfg, tabs[1], tabs[2])},
+            ops_of=lambda w: _stream_ops(
+                w, _scaled(wk, scale), chunks, n_s, n_t, scene.lights.count,
+                False),
+            bytes_of=lambda tabs: _stream_bytes(tabs, chunks),
+            gates=((SPHERE_GATES["beyond"], SPHERE_GATES["rel"])
+                   if shape == "spheres" else (0.01, 1e-5)),
+            train=train)
+        _check(fwd["streamed"] == fwd["launches"],
+               f"{label}: {fwd['streamed']} of {fwd['launches']} launches "
+               "streamed")
+        out[label] = fwd
+        if k3 is not None:
+            out["k3"] = k3
+        return fwd
+
+    run("torus", "torus", "path", True, GRID_BLOCK, work[("torus", "path")])
+    run("torus B0", "torus", "path", False, 0, work[("torus", "path")])
+    run("torus rr", "torus", "rr", False, GRID_BLOCK, work[("torus", "rr")])
+    sp = run("spheres", "spheres", "path", False, 0,
+             work[("spheres", "path")])
+    print(f"phase 21 sphere_field({STREAM_SPHERES}) 1024^2 b{BOUNCES}: "
+          f"streamed {sp['ms']:.6g} ms/pass vs phase 18's sphere grid "
+          f"{grid_ms:.6g} ms/pass in this run (x{sp['ms'] / grid_ms:.3g}); "
+          f"cornell + torus streamed {out['torus']['ms']:.6g} ms/pass")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3032,8 +3481,8 @@ def main() -> int:
     # phase 19: kernel 3 on the grid record
     # (at 1024^2 phase 18 holds kernel 3 to its plain version on both
     # train steps' records)
-    c19 = {shape: kernel3_on_grid_record(dev, shape, SMALL_W, SMALL_H,
-                                         MKG.DIFF_ALL, max_gate=True)
+    c19 = {shape: kernel3_on_record(dev, shape, SMALL_W, SMALL_H,
+                                    MKG.DIFF_ALL, max_gate=True)
            for shape in ("torus", "spheres")}
     g17_err = {shape: max(v["max_abs_err"] for (s_, _), v in g17.items()
                           if s_ == shape) for shape in ("torus", "spheres")}
@@ -3043,6 +3492,20 @@ def main() -> int:
            for rr in (False, True) for wrt in (MKG.DIFF_ALL, TRAIN_WRT)]
     edge_grid_vs_brute(dev, EDGE_W, EDGE_H)
     t20 = edge_train(dev, smi)
+    _elapsed(21)
+    # phase 21: streamed Morton chunks (no grid): kernel 1 vs its plain
+    # version, the plain streamed version vs the plain brute one, kernel 3
+    # on the streamed record, the timings at 1024^2
+    s21 = {(shape, mode): stream_vs_plain(dev, shape, mode)
+           for shape, mode in (("torus", "path"), ("torus", "rr"),
+                               ("torus", "direct"), ("spheres", "path"))}
+    stream_plain_vs_brute(dev)
+    c21 = kernel3_on_record(dev, "torus", SMALL_W, SMALL_H, MESH_WRT,
+                            max_gate=True, stream=True)
+    d21 = stream_direct_main(dev, smi, s21[("torus", "direct")]["work"])
+    m21 = stream_main(dev, smi, {k: v["work"] for k, v in s21.items()},
+                      p18s["ms"])
+    stream_house(dev, smi)
     print(f"[{time.perf_counter() - START:.1f} s elapsed in all]")
 
     print(smi)
@@ -3167,6 +3630,34 @@ def main() -> int:
                            + [x["max_abs_err"] for x in s20]),
         "ms": t20["ms"], "plain_ms": t20["plain_ms"],
         "bound_ms": t20["bound_ms"], "bound_by": t20["bound_by"],
+        "library_ms": None}] + [{
+        "name": name, "route": "cuda",
+        "source": "raytracing_tpu_torch/csrc/megakernel.cu",
+        "replaces": f"raytracing_tpu/ops/pallas/megakernel.py:{line}",
+        "launches": e["launches"],
+        "max_abs_err": max([e["max_abs_err"]]
+                           + [s21[k]["max_abs_err"] for k in keys]),
+        "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+        "bound_by": e["bound_by"], "library_ms": None}
+        for name, line, e, keys in (
+            ("pathtrace_pass (megakernel, streamed triangles: cornell + "
+             "torus)", 903, m21["torus"], [("torus", "path")]),
+            ("pathtrace_pass (megakernel, streamed spheres: "
+             f"sphere_field({STREAM_SPHERES}))", 874, m21["spheres"],
+             [("spheres", "path")]),
+            ("pathtrace_pass (megakernel, streamed triangles, Russian "
+             "roulette)", 1486, m21["torus rr"], [("torus", "rr")]),
+            ("direct_pass (megakernel, direct mode, streamed triangles)",
+             1248, d21, [("torus", "direct")]))] + [{
+        "name": "pathtrace_pass_bwd_champ (champion adjoint, streamed "
+                "record, with \"tri\")",
+        "route": "cuda",
+        "source": "raytracing_tpu_torch/csrc/megakernel_champ.cu",
+        "replaces": "raytracing_tpu/ops/pallas/megakernel_grad.py:1173",
+        "launches": m21["k3"]["launches"],
+        "max_abs_err": max(m21["k3"]["max_abs_err"], c21["max_abs_err"]),
+        "ms": m21["k3"]["ms"], "plain_ms": m21["k3"]["plain_ms"],
+        "bound_ms": m21["k3"]["bound_ms"], "bound_by": m21["k3"]["bound_by"],
         "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

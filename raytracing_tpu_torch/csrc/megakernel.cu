@@ -6,8 +6,8 @@
 // u-planes or PRNG draws and spp >= 1, with or without Russian roulette,
 // its champion recording (record=True) for the cell backward, and its
 // direct mode (mode="direct", a kernel of its own below), its uniform-grid
-// mode (below) and its blocked layout (a thread's slot maps to a pixel
-// block, below). Its streamed chunks are not here.
+// mode and its streamed Morton chunks (below) and its blocked layout (a
+// thread's slot maps to a pixel block, below).
 //
 // Per ray it runs the same schedule as the Pallas kernel: pixel decode from
 // the global ray id, film point -> focal point -> thin-lens ray, scene-AABB
@@ -103,12 +103,30 @@
 // dependent CSR and row loads of the walk, whose cells and items differ
 // from lane to lane; simple and correct first (its times in PERF.md).
 //
-// One build holds one half of the instances: the brute ones, or, with
-// -DRT_GRID_MODE=1 (ops/megakernel.py GRID_FLAGS), grid mode's. The wrappers
-// load the half a launch needs, so nvcc compiles the halves at once as two
-// libraries, and a program that walks no grid never builds grid mode.
+// Streamed tables (JAX's Morton chunks, megakernel.py:874-935 and
+// :1226-1270; pathtrace.cuh Stream): a triangle table past 64 rows outside
+// grid mode, and a sphere table past 4608 rows without a sphere grid, stay
+// in global memory in Morton-sorted chunks of 128 rows with a box each.
+// They run in instances of the grid-mode build of their own (template
+// parameter kStream, 2-row sphere loop only: three more instances), whose
+// grid walks are skipped when there is no grid; the grid-only instances
+// keep their code, since the stream loops in them cost grid direct mode
+// 10-15% per pass (96 registers against 72; one H100 80GB HBM3, 700 W,
+// profile_kernels). The shared-memory prefix is empty for a streamed
+// table. Each thread slab-tests every chunk against its
+// live window and tests the rows of the chunks it overlaps, a candidate
+// winning on the least (t, original id) pair, so the record names original
+// rows and the champion is the brute loops' (JAX keeps the first in Morton
+// order at an exact tie). Simple and correct first: per-thread culling and
+// global reads of rows that L2 holds (times in PERF.md).
 //
-// Blocked layout (block > 0, JAX's mega_block; grid mode only):
+// One build holds one half of the instances: the brute ones, or, with
+// -DRT_GRID_MODE=1 (ops/megakernel.py GRID_FLAGS), grid mode's, which also
+// stream. The wrappers load the half a launch needs, so nvcc compiles the
+// halves at once as two libraries, and a program that walks no grid and
+// streams no table never builds grid mode.
+//
+// Blocked layout (block > 0, JAX's mega_block; grid mode and streaming):
 // consecutive thread slots cover block x block pixel squares, so a warp's
 // rays are neighbours and walk the same cells. Only the slot -> ray map
 // changes: every draw, accumulator slot and record column stays keyed by
@@ -172,14 +190,15 @@ struct Rec {
 // throughput *= albedo. A hit with no valid material adds nothing.
 // Returns the occlusion bit (false without a valid hit, as JAX's dead
 // window gives).
-template <int kRows, bool kGrid>
+template <int kRows, bool kGrid, bool kStream>
 __device__ __forceinline__ bool nee(const Tables& T, const Grids* G,
                                     const Draws& D, int slot, int li,
                                     const Hit& h, float eps, Acc& A) {
   if (!(h.m >= 0.0f)) return false;
   const float* l = T.lig + li * kLig;
   const Shadow s = shadow_ray(T, D, slot, li, h, eps);
-  const bool occ = anyhit<kRows, kGrid>(T, s.so, s.sd, 0.0f, s.dist, G);
+  const bool occ =
+      anyhit<kRows, kGrid, kStream>(T, s.so, s.sd, 0.0f, s.dist, G);
   // geometric term with the distance to the light CENTRE (reference quirk)
   const V3 lp = ld3(l), ln = ld3(l + 3);
   const V3 q = h.p - lp;
@@ -206,7 +225,7 @@ __device__ __forceinline__ bool nee(const Tables& T, const Grids* G,
 // of the schedule, so acc is what pass after pass would give. kRR: Russian
 // roulette from depth rr_start on (a template parameter, so the build
 // without it keeps its registers and code).
-template <int kRows, bool kRR, bool kGrid>
+template <int kRows, bool kRR, bool kGrid, bool kStream>
 __device__ void passes(const Tables& T, const Grids* G, Draws& D,
                        const Rec& R,
                        const uint32_t* keys, int n_passes, int rid_g,
@@ -243,7 +262,7 @@ __device__ void passes(const Tables& T, const Grids* G, Draws& D,
       maxt = inf_f();
     }
     depth += 1;
-    maxt = trace<kRows, kGrid>(T, o, d, mint, maxt, h, G);
+    maxt = trace<kRows, kGrid, kStream>(T, o, d, mint, maxt, h, G);
     R.id(depth, h.obj);  // before the emitter test, as JAX records it
     if (fresh) {
       // emitter hits on the primary segment only; a hit ends the path
@@ -259,8 +278,8 @@ __device__ void passes(const Tables& T, const Grids* G, Draws& D,
     }
     for (int li = 0; li < L; ++li)
       R.occ(depth * L + li,
-            nee<kRows, kGrid>(T, G, D, nee_slot(depth, li, L, kRR), li, h,
-                              eps, A));
+            nee<kRows, kGrid, kStream>(T, G, D, nee_slot(depth, li, L, kRR),
+                                       li, h, eps, A));
     // a path without a valid hit stays dead: nothing more accumulates
     bool more = depth < bounces && h.m >= 0.0f;
     if (kRR && more && depth >= rr_start) {
@@ -327,14 +346,16 @@ __device__ __forceinline__ int blocked_ray(int slot, int spp, int width,
 }
 
 // Tables of a launch in shared memory: in grid mode only the brute prefix
-// (triangles below the grids' start, the spheres unless gridded); n_sph
-// stays the whole table's, as the ids number triangles after it.
+// (triangles below the grids' start, none when they stream; the spheres
+// unless gridded or streamed); n_sph stays the whole table's, as the ids
+// number triangles after it.
 template <bool kGrid>
 __device__ __forceinline__ Tables stage_launch_tables(
     float* smem, const float* par, const float* sph, int n_sph,
     const float* tri, int n_tri, const float* mat, int n_mat,
     const float* lig, int n_lig, bool two_sided, const Grids& G) {
-  Tables T = stage_tables(smem, par, sph, kGrid && G.sph ? 0 : n_sph, tri,
+  Tables T = stage_tables(smem, par, sph,
+                          kGrid ? G.sph_resident(n_sph) : n_sph, tri,
                           kGrid ? G.tri_start : n_tri, mat, n_mat, lig,
                           n_lig, two_sided);
   T.n_sph = n_sph;
@@ -344,8 +365,9 @@ __device__ __forceinline__ Tables stage_launch_tables(
 // Params is __grid_constant__: the per-pass key reads index the parameter
 // block in place instead of copying it to each thread's stack.
 // kRows: sphere rows per iteration of the object loops (pathtrace.cuh);
-// kRR: Russian roulette
-template <int kRows, bool kRR, bool kGrid>
+// kRR: Russian roulette; kGrid: grid mode's global tables; kStream: the
+// streamed chunks as well
+template <int kRows, bool kRR, bool kGrid, bool kStream>
 __global__ void __launch_bounds__(kBlock)
     pathtrace_kernel(const __grid_constant__ Params p) {
   extern __shared__ float4 smem4[];  // 16-byte aligned
@@ -381,7 +403,7 @@ __global__ void __launch_bounds__(kBlock)
   A.r = a[0];
   A.g = a[1];
   A.b = a[2];
-  passes<kRows, kRR, kGrid>(T, &p.grids, D, R,
+  passes<kRows, kRR, kGrid, kStream>(T, &p.grids, D, R,
                             p.u == nullptr ? p.keys : nullptr,
                      p.n_passes, rid_g, p.spp, p.width, p.bounces,
                      p.rr_start, p.normalize_emitter != 0, A);
@@ -467,7 +489,7 @@ struct DirectParams {
   Grids grids;     // grid mode (kernel with kGrid)
 };
 
-template <int kRows, bool kGrid>
+template <int kRows, bool kGrid, bool kStream>
 __global__ void __launch_bounds__(kBlock)
     direct_kernel(const __grid_constant__ DirectParams p) {
   extern __shared__ float4 smem4[];  // 16-byte aligned
@@ -476,7 +498,7 @@ __global__ void __launch_bounds__(kBlock)
       smem, p.par, p.sph, p.n_sph, p.tri, p.n_tri, p.mat, p.n_mat, p.lig,
       p.n_lig, p.two_sided != 0, p.grids);
   uint32_t* keys = reinterpret_cast<uint32_t*>(
-      smem + tables_floats(kGrid && p.grids.sph ? 0 : p.n_sph,
+      smem + tables_floats(kGrid ? p.grids.sph_resident(p.n_sph) : p.n_sph,
                            kGrid ? p.grids.tri_start : p.n_tri, p.n_mat,
                            p.n_lig));
   const int n_slots = 1 + p.n_lig;
@@ -527,14 +549,15 @@ __global__ void __launch_bounds__(kBlock)
     float mint, maxt;
     camera_ray_uv(T.par, u0, u1, col, row, o, d, mint, maxt);
     Hit h;
-    trace<kRows, kGrid>(T, o, d, mint, maxt, h, &p.grids);
+    trace<kRows, kGrid, kStream>(T, o, d, mint, maxt, h, &p.grids);
     if (!(h.m >= 0.0f)) continue;
     const V3 al = albedo(T, static_cast<int>(h.m));
     for (int li = 0; li < p.n_lig; ++li) {
       D.pair(k, 1 + li, u0, u1);
       const Shadow s = shadow_ray_uv(T, u0, u1, li, h, eps);
       const bool occ =
-          anyhit<kRows, kGrid>(T, s.so, s.sd, 0.0f, s.dist, &p.grids);
+          anyhit<kRows, kGrid, kStream>(T, s.so, s.sd, 0.0f, s.dist,
+                                        &p.grids);
       const float cosx = fminf(fmaxf(dot(s.sd, h.n), 0.0f), 1.0f);
       const float shade =
           fminf(fmaxf(ambient + (occ ? 0.0f : cosx), 0.0f), 1.0f);
@@ -550,13 +573,16 @@ __global__ void __launch_bounds__(kBlock)
 
 }  // namespace
 
-// The grid arguments of a launch (HOST array `grids` of n_grids
-// descriptors: n_grids - sph_grid triangle grids, then the sphere grid
-// when sph_grid != 0) into the kernel's parameters; sph and tri are the
-// whole tables in global memory. Returns false on bad arguments.
+// The global-memory arguments of a launch into the kernel's parameters:
+// the HOST array `grids` of n_grids descriptors (n_grids - sph_grid
+// triangle grids, then the sphere grid when sph_grid != 0) and the HOST
+// array `streams` (null, or the triangles' and the spheres' Stream, n = 0
+// for a table that does not stream); sph and tri are the whole tables in
+// global memory. Returns false on bad arguments.
 static bool set_grids(Grids& G, const GridDesc* grids, int n_grids,
-                      int sph_grid, int tri_start, const float* sph,
-                      const float* tri) {
+                      int sph_grid, int tri_start, const Stream* streams,
+                      const float* sph, int n_sph, const float* tri,
+                      int n_tri) {
   if (n_grids < 0 || n_grids > kMaxGrids || sph_grid < 0 || sph_grid > 1 ||
       sph_grid > n_grids || tri_start < 0 || (n_grids > 0 && !grids))
     return false;
@@ -567,6 +593,12 @@ static bool set_grids(Grids& G, const GridDesc* grids, int n_grids,
   G.tri_start = tri_start;
   G.sph_tab = sph;
   G.tri_tab = tri;
+  G.tri_st = streams ? streams[0] : Stream{};
+  G.sph_st = streams ? streams[1] : Stream{};
+  // a streamed table is the whole table, and neither gridded nor resident
+  if ((G.tri_st.n && (G.tri_st.n != n_tri || G.n_tri || tri_start)) ||
+      (G.sph_st.n && (G.sph_st.n != n_sph || G.sph)))
+    return false;
   return true;
 }
 
@@ -575,8 +607,9 @@ static bool set_grids(Grids& G, const GridDesc* grids, int n_grids,
 // rr != 0: Russian roulette from depth rr_start_depth on (its draw slots in
 // the layout). Non-null `ids` (and `occs` when n_lig > 0) record the
 // champions and the occlusion bits of a one-pass launch. grid_mode != 0 runs
-// grid mode over `grids` (set_grids; only in the build with RT_GRID_MODE=1,
-// which takes nothing else); block > 0 its blocked layout.
+// grid mode over `grids` and the streamed tables `streams` (set_grids; only
+// in the build with RT_GRID_MODE=1, which takes nothing else); block > 0
+// its blocked layout.
 // Launches on `stream`, allocates nothing, does not synchronise; returns
 // cudaGetLastError() after the launch.
 extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
@@ -589,7 +622,8 @@ extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
                                  int normalize_emitter, int* ids,
                                  uint8_t* occs, int grid_mode,
                                  const GridDesc* grids, int n_grids,
-                                 int sph_grid, int tri_start, int block,
+                                 int sph_grid, int tri_start,
+                                 const Stream* streams, int block,
                                  void* stream) {
   Params p;
   if (n_passes < 1 || n_passes > kMaxPasses || (u_planes && n_passes != 1) ||
@@ -598,7 +632,7 @@ extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
       (ids && n_lig > 0 && !occs) || block < 0 || (block && !grid_mode) ||
       !set_grids(p.grids, grids, grid_mode ? n_grids : 0,
                  grid_mode ? sph_grid : 0, grid_mode ? tri_start : n_tri,
-                 sph, tri))
+                 grid_mode ? streams : nullptr, sph, n_sph, tri, n_tri))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
   p.par = par;
@@ -627,7 +661,7 @@ extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
   p.occs = occs;
   p.block = block;
   // the tables in shared memory: in grid mode the brute prefix alone
-  const int n_sph_smem = p.grids.sph ? 0 : n_sph;
+  const int n_sph_smem = p.grids.sph_resident(n_sph);
   const int n_tri_smem = p.grids.tri_start;
   const size_t smem =
       sizeof(float) * tables_floats(n_sph_smem, n_tri_smem, n_mat, n_lig);
@@ -635,10 +669,15 @@ extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
   // one, where the wide loop's registers cost more occupancy than it saves
   const bool wide = n_sph_smem >= kWideSpheres;
   void (*kernel)(Params) =
-      rr ? (wide ? pathtrace_kernel<8, true, kGridBuild>
-                 : pathtrace_kernel<2, true, kGridBuild>)
-         : (wide ? pathtrace_kernel<8, false, kGridBuild>
-                 : pathtrace_kernel<2, false, kGridBuild>);
+      rr ? (wide ? pathtrace_kernel<8, true, kGridBuild, false>
+                 : pathtrace_kernel<2, true, kGridBuild, false>)
+         : (wide ? pathtrace_kernel<8, false, kGridBuild, false>
+                 : pathtrace_kernel<2, false, kGridBuild, false>);
+#if RT_GRID_MODE
+  if (p.grids.tri_st.n || p.grids.sph_st.n)  // the streamed instances
+    kernel = rr ? pathtrace_kernel<2, true, true, true>
+                : pathtrace_kernel<2, false, true, true>;
+#endif
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -665,15 +704,15 @@ extern "C" int rt_direct_pass(const float* par, const float* sph, int n_sph,
                               unsigned int k1, int first_pass, int per_pass,
                               int n_passes, int spp, int width, int two_sided,
                               int grid_mode, const GridDesc* grids,
-                              int n_grids,
-                              int sph_grid, int tri_start, int block,
+                              int n_grids, int sph_grid, int tri_start,
+                              const Stream* streams, int block,
                               void* stream) {
   DirectParams p;
   if (n_passes < 1 || n_passes > kMaxPasses || first_pass < 0 || block < 0 ||
       (grid_mode != 0) != kGridBuild || (block && !grid_mode) ||
       !set_grids(p.grids, grids, grid_mode ? n_grids : 0,
                  grid_mode ? sph_grid : 0, grid_mode ? tri_start : n_tri,
-                 sph, tri))
+                 grid_mode ? streams : nullptr, sph, n_sph, tri, n_tri))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
   p.par = par;
@@ -700,14 +739,18 @@ extern "C" int rt_direct_pass(const float* par, const float* sph, int n_sph,
   p.block = block;
   // the tables (in grid mode the brute prefix), then the slot keys of the
   // launch's passes
-  const int n_sph_smem = p.grids.sph ? 0 : n_sph;
+  const int n_sph_smem = p.grids.sph_resident(n_sph);
   const size_t smem =
       sizeof(float) *
           tables_floats(n_sph_smem, p.grids.tri_start, n_mat, n_lig) +
       (u_planes ? 0 : 2 * sizeof(uint32_t) * n_passes * (1 + n_lig));
   const bool wide = n_sph_smem >= kWideSpheres;
-  void (*kernel)(DirectParams) =
-      wide ? direct_kernel<8, kGridBuild> : direct_kernel<2, kGridBuild>;
+  void (*kernel)(DirectParams) = wide ? direct_kernel<8, kGridBuild, false>
+                                      : direct_kernel<2, kGridBuild, false>;
+#if RT_GRID_MODE
+  if (p.grids.tri_st.n || p.grids.sph_st.n)  // the streamed instance
+    kernel = direct_kernel<2, true, true>;
+#endif
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -141,16 +141,81 @@ struct GridDesc {
   float pmin[3], width[3], pmax[3];
   int n[3];
 };
-// A launch's grids: triangle grids g[0, n_tri), then the sphere grid when
-// sph != 0; triangles [0, tri_start) and (without the sphere grid) the
-// spheres stay brute force in shared memory; the gridded rows are read
-// from the whole tables in global memory.
+// A streamed table (JAX's Morton chunks; ops/megakernel.py Stream, built
+// on the card by render/mega.py chunk_tables): its n rows in Morton order
+// in global memory, in chunks of kChunk rows (the last one partial; the
+// padding rows past n are never read), each chunk's box [pmin xyz, pmax
+// xyz, 0, 0] (widened when built, so that a slab test's rounding never
+// drops a chunk whose row the brute loop hits), and perm, the original
+// row of each sorted row. A sorted copy: read through perm instead, the
+// whole table cost the streamed kernel 1.1-1.6x (one H100 80GB HBM3,
+// 700 W, profile_kernels). n = 0: the table is not streamed.
+constexpr int kChunk = 128;
+struct Stream {
+  const float* rows;
+  const float* box;
+  const int* perm;
+  int n;
+};
+
+// The tables of a launch that live in global memory: triangle grids g[0,
+// n_tri), then the sphere grid when sph != 0, and the streamed tables
+// (tri_st, sph_st). Triangles [0, tri_start) and (without the sphere grid
+// or a sphere stream) the spheres stay brute force in shared memory; the
+// gridded rows are read from the whole tables in global memory.
 struct Grids {
   GridDesc g[kMaxGrids];
   int n_tri, sph, tri_start;
   const float* sph_tab;
   const float* tri_tab;
+  Stream tri_st, sph_st;
+  // spheres in shared memory (the brute loops') out of a table of n_sph
+  __host__ __device__ int sph_resident(int n_sph) const {
+    return (sph || sph_st.n) ? 0 : n_sph;
+  }
 };
+
+// 1 / d per axis, with 1e-30 in place of a zero component (JAX's safe_inv).
+__device__ __forceinline__ V3 safe_inv(V3 d) {
+  return mk(1.0f / (d.x == 0.0f ? 1e-30f : d.x),
+            1.0f / (d.y == 0.0f ? 1e-30f : d.y),
+            1.0f / (d.z == 0.0f ? 1e-30f : d.z));
+}
+
+// The slab test of the box [b[0..2], b[3..5]] (global memory) against the
+// ray's window [lo, hi], with inv = safe_inv(d): JAX's chunk_overlap for
+// one ray.
+__device__ __forceinline__ bool chunk_overlap(const float* b, V3 o, V3 inv,
+                                              float lo, float hi) {
+  const float t0x = (__ldg(b + 0) - o.x) * inv.x;
+  const float t1x = (__ldg(b + 3) - o.x) * inv.x;
+  const float t0y = (__ldg(b + 1) - o.y) * inv.y;
+  const float t1y = (__ldg(b + 4) - o.y) * inv.y;
+  const float t0z = (__ldg(b + 2) - o.z) * inv.z;
+  const float t1z = (__ldg(b + 5) - o.z) * inv.z;
+  const float near = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                           fminf(t0z, t1z));
+  const float far = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                          fmaxf(t0z, t1z));
+  return fmaxf(near, lo) <= fminf(far, hi);
+}
+
+// The rows of stream S (kCols floats each), chunk by chunk in order: each
+// chunk whose box overlaps [lo, hi()] (hi read per chunk, so that a closer
+// champion culls the chunks after it) has row(q, r) called on each of its
+// rows q, r its sorted position (its original id is perm[r]); stops and
+// returns true where row returns true.
+template <int kCols, class Hi, class Row>
+__device__ __forceinline__ bool stream_rows(const Stream& S, V3 o, V3 inv,
+                                            float lo, Hi hi, Row row) {
+  for (int c = 0; c * kChunk < S.n; ++c) {
+    if (!chunk_overlap(S.box + 8 * c, o, inv, lo, hi())) continue;
+    const int e = min(S.n, (c + 1) * kChunk);
+    for (int r = c * kChunk; r < e; ++r)
+      if (row(S.rows + static_cast<size_t>(r) * kCols, r)) return true;
+  }
+  return false;
+}
 
 // The walk of one ray's live window [mint, maxt] through grid g, cell by
 // cell in order (Amanatides-Woo, as the reference's Assign07 marches):
@@ -327,6 +392,92 @@ __device__ __forceinline__ bool sphere_root(float b, float dis, float inv2a,
   return true;
 }
 
+// The closest-hit champion of one ray: t, shading normal, material,
+// object id, and beta, gamma (for a sphere beta = 1 at the far root).
+struct Champ {
+  float t;
+  V3 n;
+  float m;
+  int obj;
+  float beta, gamma;
+};
+
+// Triangle row q of a global table (a grid cell's item, a streamed
+// chunk's row), object id obj, as a closest-hit candidate of the ray (o,
+// d) in [mint, maxt]: the brute loop's arithmetic, the least (t, id) pair
+// winning over the champion c.
+__device__ __forceinline__ void tri_candidate(const float* q, int obj, V3 o,
+                                              V3 d, V3 oxd, bool two_sided,
+                                              float mint, float maxt,
+                                              Champ& c) {
+  const V3 ng = ld3(q);
+  const float div = dot(ng, d);
+  if (two_sided ? !(div != 0.0f) : !(div > 0.0f)) return;
+  const float idiv = 1.0f / div;
+  // constant-split Moller-Trumbore over [n_geo, c1, c2, e1, e2, k]
+  const float beta = (dot(ld3(q + 12), oxd) - dot(ld3(q + 6), d)) * idiv;
+  const float gamma = (dot(ld3(q + 3), d) - dot(ld3(q + 9), oxd)) * idiv;
+  const float t = (q[15] - dot(ng, o)) * idiv;
+  if (beta >= 0.0f && beta <= 1.0f && gamma >= 0.0f &&
+      beta + gamma <= 1.0f && t >= mint && t <= maxt &&
+      (t < c.t || (t == c.t && obj < c.obj)) && q[17] > 0.0f) {
+    const float alpha = 1.0f - beta - gamma;
+    c.n = normalize(alpha * ld3(q + 18) + beta * ld3(q + 21) +
+                    gamma * ld3(q + 24));
+    c.t = t;
+    c.m = q[16];
+    c.obj = obj;
+    c.beta = beta;
+    c.gamma = gamma;
+  }
+}
+
+// Sphere row s of a global table, object id j, as tri_candidate; a = d.d,
+// inv2a = 0.5 / a.
+__device__ __forceinline__ void sph_candidate(const float* s, int j, V3 o,
+                                              V3 d, float a, float inv2a,
+                                              float mint, float maxt,
+                                              Champ& c) {
+  float b;
+  const float dis = sphere_dis(s, o, d, a, b);
+  float t;
+  bool far;
+  if (dis >= 0.0f && sphere_root(b, dis, inv2a, mint, maxt, t, far) &&
+      (t < c.t || (t == c.t && j < c.obj)) && s[5] > 0.0f) {
+    c.t = t;
+    c.n = normalize(o + t * d - ld3(s));
+    c.m = s[4];
+    c.obj = j;
+    c.beta = far ? 1.0f : 0.0f;
+  }
+}
+
+// Whether triangle row q / sphere row s of a global table occludes the
+// ray (o, d) in [mint, maxt] (the brute any-hit loop's tests).
+__device__ __forceinline__ bool tri_occludes(const float* q, V3 o, V3 d,
+                                             V3 oxd, bool two_sided,
+                                             float mint, float maxt) {
+  const V3 ng = ld3(q);
+  const float div = dot(ng, d);
+  if (two_sided ? !(div != 0.0f) : !(div > 0.0f)) return false;
+  const float idiv = 1.0f / div;
+  const float beta = (dot(ld3(q + 12), oxd) - dot(ld3(q + 6), d)) * idiv;
+  const float gamma = (dot(ld3(q + 3), d) - dot(ld3(q + 9), oxd)) * idiv;
+  const float t = (q[15] - dot(ng, o)) * idiv;
+  return beta >= 0.0f && beta <= 1.0f && gamma >= 0.0f &&
+         beta + gamma <= 1.0f && t >= mint && t <= maxt && q[17] > 0.0f;
+}
+__device__ __forceinline__ bool sph_occludes(const float* s, V3 o, V3 d,
+                                             float a, float inv2a,
+                                             float mint, float maxt) {
+  float b;
+  const float dis = sphere_dis(s, o, d, a, b);
+  float t;
+  bool far;
+  return dis >= 0.0f && sphere_root(b, dis, inv2a, mint, maxt, t, far) &&
+         s[5] > 0.0f;
+}
+
 // Closest hit in [mint, maxt] (strict `t < best` champion over increasing
 // index, spheres then triangles); returns the new maxt (champion t, or
 // maxt on a miss). The sphere loop takes kRows rows per iteration: their
@@ -339,12 +490,23 @@ __device__ __forceinline__ bool sphere_root(float b, float dis, float inv2a,
 // champion, so this changes no result.
 //
 // Grid mode (kGrid, G non-null): the brute loops cover the shared-memory
-// prefix (T.n_tri triangles; the spheres unless G->sph), then each grid is
-// walked (grid_walk) and its items tested from the global tables with the
-// same arithmetic; there a candidate wins on the least (t, id) pair, so
-// the champion is the brute loops' whatever order the cells come in (mesh
+// prefix (T.n_tri triangles; the spheres unless gridded or streamed), then
+// the streamed tables are read chunk by chunk (kStream, instances of their
+// own, so that grid mode alone keeps its code) and each grid is walked
+// (grid_walk), their rows tested from global memory with the same
+// arithmetic (tri_candidate / sph_candidate serve both); there a
+// candidate wins on the least (t, original id) pair, so the champion is
+// the brute loops' whatever order the chunks and cells come in (mesh
 // triangles that share an edge are hit at the same t).
-template <int kRows = 2, bool kGrid = false>
+//
+// A streamed table (the Pallas kernel's chunk loops, megakernel.py:874-935):
+// each thread slab-tests every chunk's box against its own live window
+// [mint, min(maxt, champion t)] and tests the rows of the chunks it
+// overlaps, from the Morton-sorted copy (stream_rows). The Pallas kernel
+// fetches a chunk when any ray of its tile overlaps it; here a warp runs
+// a chunk's rows when any of its lanes does (SIMT), and only those lanes
+// test them. The rows live in L2 (1,002 triangles take 125 KB).
+template <int kRows = 2, bool kGrid = false, bool kStream = false>
 __device__ float trace(const Tables& T, V3 o, V3 d, float mint, float maxt,
                        Hit& h, const Grids* G = nullptr) {
   float bt = inf_f();
@@ -368,7 +530,7 @@ __device__ float trace(const Tables& T, V3 o, V3 d, float mint, float maxt,
         bbeta = far ? 1.0f : 0.0f;
       }
     };
-    const int ns = (kGrid && G->sph) ? 0 : T.n_sph;
+    const int ns = kGrid ? G->sph_resident(T.n_sph) : T.n_sph;
     int i = 0;
     for (; i + kRows <= ns; i += kRows) {
       float b[kRows], dis[kRows];
@@ -409,36 +571,31 @@ __device__ float trace(const Tables& T, V3 o, V3 d, float mint, float maxt,
       }
     }
     if constexpr (kGrid) {
-      auto bound = [&]() { return bt; };
+      Champ c = {bt, bn, bm, bobj, bbeta, bgamma};
+      if constexpr (kStream) {
+        const V3 inv = safe_inv(d);
+        auto live = [&]() { return fminf(maxt, c.t); };
+        const Stream& SS = G->sph_st;
+        stream_rows<kSph>(SS, o, inv, mint, live, [&](const float* s, int r) {
+          sph_candidate(s, __ldg(SS.perm + r), o, d, a, inv2a, mint, maxt, c);
+          return false;
+        });
+        const Stream& TS = G->tri_st;
+        stream_rows<kTri>(TS, o, inv, mint, live, [&](const float* q, int r) {
+          tri_candidate(q, T.n_sph + __ldg(TS.perm + r), o, d, oxd,
+                        T.two_sided, mint, maxt, c);
+          return false;
+        });
+      }
+      auto bound = [&]() { return c.t; };
       for (int gi = 0; gi < G->n_tri; ++gi) {
         const GridDesc& g = G->g[gi];
         grid_walk(g, o, d, mint, maxt, [&](int cell) {
           const int e = __ldg(g.off + cell + 1);
           for (int k = __ldg(g.off + cell); k < e; ++k) {
             const int j = __ldg(g.items + k);
-            const float* q = G->tri_tab + static_cast<size_t>(j) * kTri;
-            const V3 ng = ld3(q);
-            const float div = dot(ng, d);
-            if (T.two_sided ? !(div != 0.0f) : !(div > 0.0f)) continue;
-            const float idiv = 1.0f / div;
-            const float beta =
-                (dot(ld3(q + 12), oxd) - dot(ld3(q + 6), d)) * idiv;
-            const float gamma =
-                (dot(ld3(q + 3), d) - dot(ld3(q + 9), oxd)) * idiv;
-            const float t = (q[15] - dot(ng, o)) * idiv;
-            const int obj = T.n_sph + j;
-            if (beta >= 0.0f && beta <= 1.0f && gamma >= 0.0f &&
-                beta + gamma <= 1.0f && t >= mint && t <= maxt &&
-                (t < bt || (t == bt && obj < bobj)) && q[17] > 0.0f) {
-              const float alpha = 1.0f - beta - gamma;
-              bn = normalize(alpha * ld3(q + 18) + beta * ld3(q + 21) +
-                             gamma * ld3(q + 24));
-              bt = t;
-              bm = q[16];
-              bobj = obj;
-              bbeta = beta;
-              bgamma = gamma;
-            }
+            tri_candidate(G->tri_tab + static_cast<size_t>(j) * kTri,
+                          T.n_sph + j, o, d, oxd, T.two_sided, mint, maxt, c);
           }
           return false;
         }, bound);
@@ -449,24 +606,18 @@ __device__ float trace(const Tables& T, V3 o, V3 d, float mint, float maxt,
           const int e = __ldg(g.off + cell + 1);
           for (int k = __ldg(g.off + cell); k < e; ++k) {
             const int j = __ldg(g.items + k);
-            const float* s = G->sph_tab + static_cast<size_t>(j) * kSph;
-            float b;
-            const float dis = sphere_dis(s, o, d, a, b);
-            float t;
-            bool far;
-            if (dis >= 0.0f &&
-                sphere_root(b, dis, inv2a, mint, maxt, t, far) &&
-                (t < bt || (t == bt && j < bobj)) && s[5] > 0.0f) {
-              bt = t;
-              bn = normalize(o + t * d - ld3(s));
-              bm = s[4];
-              bobj = j;
-              bbeta = far ? 1.0f : 0.0f;
-            }
+            sph_candidate(G->sph_tab + static_cast<size_t>(j) * kSph, j, o,
+                          d, a, inv2a, mint, maxt, c);
           }
           return false;
         }, bound);
       }
+      bt = c.t;
+      bn = c.n;
+      bm = c.m;
+      bobj = c.obj;
+      bbeta = c.beta;
+      bgamma = c.gamma;
     }
   }
   const bool found = bm >= 0.0f;
@@ -483,9 +634,10 @@ __device__ float trace(const Tables& T, V3 o, V3 d, float mint, float maxt,
 
 // Occlusion of the segment [mint, maxt]; stops at the first hit. Spheres
 // kRows at a time and masks as in trace.
-// Grid mode (kGrid): the prefix as in trace, then the grids' walks, each
-// stopping at its first occluder.
-template <int kRows = 2, bool kGrid = false>
+// Grid mode (kGrid): the prefix as in trace, then the streamed chunks
+// (kStream; a chunk is tested where its box overlaps [mint, maxt]) and the
+// grids' walks, each stopping at its first occluder.
+template <int kRows = 2, bool kGrid = false, bool kStream = false>
 __device__ bool anyhit(const Tables& T, V3 o, V3 d, float mint, float maxt,
                        const Grids* G = nullptr) {
   if (mint == maxt) return false;
@@ -497,7 +649,7 @@ __device__ bool anyhit(const Tables& T, V3 o, V3 d, float mint, float maxt,
     return sphere_root(b, dis, inv2a, mint, maxt, t, far) &&
            T.sph[i * kSph + 5] > 0.0f;
   };
-  const int ns = (kGrid && G->sph) ? 0 : T.n_sph;
+  const int ns = kGrid ? G->sph_resident(T.n_sph) : T.n_sph;
   int i = 0;
   for (; i + kRows <= ns; i += kRows) {
     float b[kRows], dis[kRows];
@@ -528,28 +680,31 @@ __device__ bool anyhit(const Tables& T, V3 o, V3 d, float mint, float maxt,
       return true;
   }
   if constexpr (kGrid) {
+    if constexpr (kStream) {
+      const V3 inv = safe_inv(d);
+      auto window = [&]() { return maxt; };
+      if (stream_rows<kSph>(G->sph_st, o, inv, mint, window,
+                            [&](const float* s, int) {
+                              return sph_occludes(s, o, d, a, inv2a, mint,
+                                                  maxt);
+                            }) ||
+          stream_rows<kTri>(G->tri_st, o, inv, mint, window,
+                            [&](const float* q, int) {
+                              return tri_occludes(q, o, d, oxd, T.two_sided,
+                                                  mint, maxt);
+                            }))
+        return true;
+    }
     bool occ = false;
     auto bound = []() { return inf_f(); };
     for (int gi = 0; gi < G->n_tri && !occ; ++gi) {
       const GridDesc& g = G->g[gi];
       grid_walk(g, o, d, mint, maxt, [&](int cell) {
         const int e = __ldg(g.off + cell + 1);
-        for (int k = __ldg(g.off + cell); k < e && !occ; ++k) {
-          const float* q =
-              G->tri_tab + static_cast<size_t>(__ldg(g.items + k)) * kTri;
-          const V3 ng = ld3(q);
-          const float div = dot(ng, d);
-          if (T.two_sided ? !(div != 0.0f) : !(div > 0.0f)) continue;
-          const float idiv = 1.0f / div;
-          const float beta =
-              (dot(ld3(q + 12), oxd) - dot(ld3(q + 6), d)) * idiv;
-          const float gamma =
-              (dot(ld3(q + 3), d) - dot(ld3(q + 9), oxd)) * idiv;
-          const float t = (q[15] - dot(ng, o)) * idiv;
-          occ = beta >= 0.0f && beta <= 1.0f && gamma >= 0.0f &&
-                beta + gamma <= 1.0f && t >= mint && t <= maxt &&
-                q[17] > 0.0f;
-        }
+        for (int k = __ldg(g.off + cell); k < e && !occ; ++k)
+          occ = tri_occludes(
+              G->tri_tab + static_cast<size_t>(__ldg(g.items + k)) * kTri, o,
+              d, oxd, T.two_sided, mint, maxt);
         return occ;
       }, bound);
     }
@@ -557,17 +712,10 @@ __device__ bool anyhit(const Tables& T, V3 o, V3 d, float mint, float maxt,
       const GridDesc& g = G->g[G->n_tri];
       grid_walk(g, o, d, mint, maxt, [&](int cell) {
         const int e = __ldg(g.off + cell + 1);
-        for (int k = __ldg(g.off + cell); k < e && !occ; ++k) {
-          const float* s =
-              G->sph_tab + static_cast<size_t>(__ldg(g.items + k)) * kSph;
-          float b;
-          const float dis = sphere_dis(s, o, d, a, b);
-          float t;
-          bool far;
-          occ = dis >= 0.0f &&
-                sphere_root(b, dis, inv2a, mint, maxt, t, far) &&
-                s[5] > 0.0f;
-        }
+        for (int k = __ldg(g.off + cell); k < e && !occ; ++k)
+          occ = sph_occludes(
+              G->sph_tab + static_cast<size_t>(__ldg(g.items + k)) * kSph, o,
+              d, a, inv2a, mint, maxt);
         return occ;
       }, bound);
     }

@@ -1,6 +1,7 @@
 """The whole progressive path-tracing pass: the counterpart of
 ``raytracing_tpu/ops/pallas/megakernel.py`` (path mode, with or without
-Russian roulette, and direct mode, over resident tables).
+Russian roulette, and direct mode, over resident, gridded or streamed
+tables).
 
 Two versions of one function:
 
@@ -24,10 +25,10 @@ schedule order, and ``occs`` ((1 + bounces) * L, R) bool, each NEE
 shadow ray's occlusion bit in schedule order (segment-major). Segments
 after a path died hold -1 / False.
 
-The brute loops' tables stay resident (no streaming): at most
-``SPH_RESIDENT_MAX`` spheres (JAX's ``SMEM_TABLE_MAX // 8``, which JAX's
-kernel also loops over resident) and ``UNROLL_OBJECTS`` triangles; in grid
-mode that bounds the brute prefix only.
+The brute loops' tables stay resident: at most ``SPH_RESIDENT_MAX``
+spheres (JAX's ``SMEM_TABLE_MAX // 8``, which JAX's kernel also loops over
+resident) and ``TRI_RESIDENT_MAX`` triangles; in grid mode that bounds the
+brute prefix only, and a streamed table (below) is not resident.
 
 Draws: with ``u_planes`` (``(2 * n_draws, R)``, plane ``2j + c`` for slot
 ``j``, component ``c``) both versions read them; without, both make the
@@ -52,6 +53,28 @@ on the least (t, id) pair, so ids, record and accumulator are the brute
 version's. ``block`` (the blocked layout, grid mode only) maps the
 kernel's threads to pixel blocks; draws, accumulator and record stay
 row-major, so the plain version ignores it.
+
+Streamed tables (``chunks``, a ``KernelChunks``; ``render/mega.chunk_tables``
+builds it, the counterpart of the Pallas kernel's ``chk`` / ``sph_chunks``
+operands, ``megakernel.py:874-935`` and ``:1226-1270``): the triangle
+table, the sphere table or both are read in Morton-sorted chunks of
+``STREAM_CHUNK`` rows, a sorted copy (read through ``perm`` instead, the
+table cost the kernel 1.1-1.6x, PERF.md). Per traced segment each ray
+slab-tests every chunk's box against its live window [mint, min(maxt,
+champion t)]
+(``chunk_overlap``) and tests the rows of the chunks it overlaps, with the
+brute loops' arithmetic; a candidate wins on the least (t, original id)
+pair, so ids, record and accumulator are the brute version's whatever the
+chunk order. The record names original rows (sphere i, n_sph + triangle
+j), never sorted ones, so kernel 3 runs on the original tables unchanged.
+A chunk's box is JAX's widened by ``CHUNK_PAD`` of the scene's scale (the
+largest coordinate of its bounds and its camera eye) on every side: a
+per-ray slab test can drop, by rounding, a chunk whose row the brute loop
+hits (an axis-aligned wall's box has no thickness, an edge shared by two
+chunks is hit at one t from both); the widening only visits more.
+Streaming runs in instances of the grid-mode build (``GRID_FLAGS``) of
+its own, with or without grids: in grid mode a sphere table past the
+resident budget without a sphere grid streams, as in JAX.
 
 Direct mode (``direct_pass_reference`` / ``direct_pass``, the kernel's
 ``mode="direct"``, ``megakernel.py:1362-1401``): per ray the primary hit,
@@ -83,11 +106,15 @@ INF = math.inf
 # the kernel keeps the brute loops' tables in shared memory and loops over
 # objects. UNROLL_OBJECTS is JAX's unroll budget (the routing threshold of
 # the backward); spheres stay resident up to JAX's SMEM_TABLE_MAX // 8, as
-# in JAX's kernel (accel.prepare_grids builds the sphere grid past it);
-# larger brute tables are ROADMAP Queue 1 item 10 (streaming)
+# in JAX's kernel; triangles up to JAX's STREAM_MIN_TRIS. Past them a table
+# streams in Morton chunks (render/mega.chunk_tables), or walks its grid
 UNROLL_OBJECTS = 64
 SPH_RESIDENT_MAX = 36 * 1024 // 8
 TRI_RESIDENT_MAX = UNROLL_OBJECTS
+# rows per streamed chunk (JAX's STREAM_CHUNK; csrc/pathtrace.cuh kChunk)
+STREAM_CHUNK = 128
+# a streamed chunk's box is widened by this share of the scene's scale
+CHUNK_PAD = 1e-4
 # shared memory a block may opt into on the H100 (227 KB)
 SMEM_BYTES_MAX = 232448
 # pass keys ride in the kernel's parameter block (csrc/megakernel.cu
@@ -114,6 +141,9 @@ PLAIN_GRID_CHUNK = 1 << 17
 
 launches = 0          # path mode (csrc/megakernel.cu pathtrace_kernel)
 direct_launches = 0   # direct mode (csrc/megakernel.cu direct_kernel)
+# the launches of either mode that streamed a table (counted in the two
+# above as well)
+stream_launches = 0
 
 
 def n_draws_of(n_lights: int, bounces: int, rr: bool = False) -> int:
@@ -163,6 +193,28 @@ class KernelGrids(NamedTuple):
     sph: object
     start: int
     rows: tuple
+
+
+class Stream(NamedTuple):
+    """One streamed table: ``rows`` its rows in Morton order, padded with
+    zero rows to ``n_chunks * STREAM_CHUNK``; ``boxes`` (n_chunks, 8) each
+    chunk's box [pmin xyz, pmax xyz, 0, 0]; ``perm`` (n_chunks *
+    STREAM_CHUNK,) int32, the original row of each sorted row, -1 for
+    padding."""
+    rows: torch.Tensor
+    boxes: torch.Tensor
+    perm: torch.Tensor
+
+    @property
+    def n_chunks(self) -> int:
+        return self.boxes.shape[0]
+
+
+class KernelChunks(NamedTuple):
+    """Kernel 1's streamed tables: the triangles' and the spheres'
+    ``Stream``, each None where that table is not streamed."""
+    tri: Stream | None
+    sph: Stream | None
 
 
 # ---------------------------------------------------------------------------
@@ -288,13 +340,175 @@ def _grid_occluded(o, d, a, inv2a, oxd, mint, maxt, sph, tri, two_sided,
     return occ
 
 
-def _trace(o, d, mint, maxt, sph, tri, two_sided, grid=None, work=None):
+def safe_inv(d: torch.Tensor) -> torch.Tensor:
+    """1 / d, with 1e-30 in place of a zero component (JAX's safe_inv)."""
+    return 1.0 / torch.where(d == 0.0, 1e-30, d)
+
+
+def chunk_overlap(box, o, inv, lo, hi) -> torch.Tensor:
+    """Whether each ray's window [lo, hi] overlaps the box [pmin, pmax]
+    (``box`` (8,)): the slab test of JAX's ``chunk_overlap``, per ray.
+    fmin / fmax, as the kernel's fminf / fmaxf, pass over a NaN."""
+    t0 = (box[0:3] - o) * inv
+    t1 = (box[3:6] - o) * inv
+    lo3, hi3 = torch.fmin(t0, t1), torch.fmax(t0, t1)
+    near = torch.fmax(torch.fmax(lo3[:, 0], lo3[:, 1]), lo3[:, 2])
+    far = torch.fmin(torch.fmin(hi3[:, 0], hi3[:, 1]), hi3[:, 2])
+    return torch.fmax(near, lo) <= torch.fmin(far, hi)
+
+
+def _streams(chunks: KernelChunks | None):
+    """(kind, stream) of each streamed table: the spheres', then the
+    triangles'."""
+    if chunks is None:
+        return []
+    return [(k, s) for k, s in (("sph", chunks.sph), ("tri", chunks.tri))
+            if s is not None]
+
+
+def _chunk_rows(st: Stream, c: int):
+    """Chunk c's rows and their original ids, padding dropped."""
+    sl = slice(c * STREAM_CHUNK, (c + 1) * STREAM_CHUNK)
+    ids = st.perm[sl].to(torch.int64)
+    keep = ids >= 0
+    return st.rows[sl][keep], ids[keep]
+
+
+def _add_stream_work(work, kind: str, tests, visits, row_tests) -> None:
+    """Adds one chunk's work over a ray batch to ``work``: ``chunk_tests``
+    (slab tests), ``chunk_visits`` (the rays that overlapped it) and
+    ``{kind}_tests`` (their (ray, row) tests, each distinct: a trace visits
+    a chunk once; a shadow ray stops at its first occluder)."""
+    if work is None:
+        return
+    for k, x in (("chunk_tests", tests), ("chunk_visits", visits),
+                 (f"{kind}_tests", row_tests)):
+        work[k] = work.get(k, 0) + int(x)
+
+
+def _block_hit(kind: str, r, rows, o, d, a, inv2a, oxd, mint, maxt,
+               two_sided):
+    """(ok, t, beta, gamma) (rays, rows) of the rays ``r`` against the
+    sphere or triangle ``rows`` as one block, with the brute loops'
+    arithmetic (beta and gamma None for spheres)."""
+    o1, d1 = o[r][:, None], d[r][:, None]
+    lo, hi = mint[r][:, None], maxt[r][:, None]
+    if kind == "sph":
+        return (*I.sphere_hit(o1, d1, a[r][:, None], inv2a[r][:, None], lo,
+                              hi, rows), None, None)
+    return I.triangle_hit(o1, d1, oxd[r][:, None], lo, hi, rows, two_sided)
+
+
+def _stream_closest(o, d, a, inv2a, oxd, mint, maxt, n_sph, two_sided,
+                    chunks: KernelChunks, state, work):
+    """The streamed chunks of ``_trace``, in ray batches: per chunk the
+    slab test of every live ray against [mint, min(maxt, champion t)],
+    then the chunk's rows tested as one (rays, rows) block with
+    ``_trace``'s arithmetic; a candidate wins on the least (t, original id)
+    pair. Returns the champion state (t, normal, material, id)."""
+    bt, bn, bm, bo = (x.clone() for x in state)
+    inv = safe_inv(d)
+    alive = mint != maxt
+    big = torch.iinfo(torch.int64).max
+    for s in range(0, o.shape[0], PLAIN_GRID_CHUNK):
+        c_ = slice(s, s + PLAIN_GRID_CHUNK)
+        live = alive[c_]
+        for kind, st in _streams(chunks):
+            for c in range(st.n_chunks):
+                hi = torch.minimum(maxt[c_], bt[c_])
+                ov = chunk_overlap(st.boxes[c], o[c_], inv[c_], mint[c_],
+                                   hi) & live
+                r = torch.nonzero(ov).squeeze(1) + s
+                rows, ids = _chunk_rows(st, c)
+                _add_stream_work(work, kind, live.sum(), r.numel(),
+                                 r.numel() * rows.shape[0])
+                if r.numel() == 0:
+                    continue
+                ok, t, beta, gamma = _block_hit(kind, r, rows, o, d, a,
+                                                inv2a, oxd, mint, maxt,
+                                                two_sided)
+                obj = ids if kind == "sph" else ids + n_sph
+                t = torch.where(ok, t, INF)
+                tmin = t.amin(1)
+                cand = torch.isfinite(t) & (t == tmin[:, None])
+                omin = torch.where(cand, obj, big).amin(1)
+                w = (cand & (obj == omin[:, None])).to(torch.int8).argmax(1)
+                cur_t, cur_o = bt[r], bo[r]
+                better = torch.isfinite(tmin) & ((tmin < cur_t) | (
+                    (tmin == cur_t) & (omin < cur_o)))
+                k = torch.nonzero(better).squeeze(1)
+                rk, wk, tk = r[k], w[k], tmin[k]
+                row = rows[wk]
+                if kind == "sph":
+                    hn = safe_normalize(o[rk] + tk[:, None] * d[rk]
+                                        - row[:, 0:3])
+                    mat = row[:, 4]
+                else:
+                    be, ga = beta[k, wk], gamma[k, wk]
+                    alpha = 1.0 - be - ga
+                    hn = safe_normalize(alpha[:, None] * row[:, 18:21]
+                                        + be[:, None] * row[:, 21:24]
+                                        + ga[:, None] * row[:, 24:27])
+                    mat = row[:, 16]
+                bt[rk], bn[rk], bm[rk], bo[rk] = tk, hn, mat, omin[k]
+    return bt, bn, bm, bo
+
+
+def _stream_occluded(o, d, a, inv2a, oxd, mint, maxt, two_sided,
+                     chunks: KernelChunks, occ, work):
+    """The streamed chunks of ``_anyhit`` for the live rays ``occ`` leaves
+    free: per chunk the slab test against [mint, maxt], then its rows in
+    order; a ray stops at its first occluder (``work`` counts its rows up
+    to that one)."""
+    occ = occ.clone()
+    inv = safe_inv(d)
+    alive = mint != maxt
+    for s in range(0, o.shape[0], PLAIN_GRID_CHUNK):
+        c_ = slice(s, s + PLAIN_GRID_CHUNK)
+        for kind, st in _streams(chunks):
+            for c in range(st.n_chunks):
+                free = alive[c_] & ~occ[c_]
+                ov = chunk_overlap(st.boxes[c], o[c_], inv[c_], mint[c_],
+                                   maxt[c_]) & free
+                r = torch.nonzero(ov).squeeze(1) + s
+                rows, _ = _chunk_rows(st, c)
+                if r.numel() == 0:
+                    _add_stream_work(work, kind, free.sum(), 0, 0)
+                    continue
+                ok = _block_hit(kind, r, rows, o, d, a, inv2a, oxd, mint,
+                                maxt, two_sided)[0]
+                hit = ok.any(1)
+                first = ok.to(torch.int8).argmax(1) + 1
+                _add_stream_work(work, kind, free.sum(), r.numel(),
+                                 torch.where(hit, first,
+                                             rows.shape[0]).sum())
+                occ[r] |= hit
+    return occ
+
+
+def _brute_counts(sph, tri, grid, chunks) -> tuple[int, int]:
+    """The spheres and triangles of the brute loops: all of a table that
+    neither a grid nor the chunks cover, the prefix below ``grid.start``."""
+    n_bs = sph.shape[0]
+    if (grid is not None and grid.sph is not None) or (
+            chunks is not None and chunks.sph is not None):
+        n_bs = 0
+    n_bt = tri.shape[0] if grid is None else grid.start
+    if chunks is not None and chunks.tri is not None:
+        n_bt = 0
+    return n_bs, n_bt
+
+
+def _trace(o, d, mint, maxt, sph, tri, two_sided, grid=None, work=None,
+           chunks=None):
     """Closest hit over spheres then triangles (champion loops with a
     strict ``t < best``). Returns (new maxt, hit point, shading normal,
     material id as float (-1 on a miss), champion (sphere i, n_sph +
     triangle j, -1 on a miss) as int64). With ``grid`` the loops cover the
     brute prefix and the grids' walks the rest (``_grid_closest``);
-    ``work`` (a dict) then sums the walks' work (``_add_walk_work``)."""
+    ``work`` (a dict) then sums the walks' work (``_add_walk_work``). With
+    ``chunks`` the streamed tables are read chunk by chunk
+    (``_stream_closest``; ``work`` sums ``_add_stream_work``)."""
     n = o.shape[0]
     alive = mint != maxt
     a = dot3(d, d)
@@ -303,8 +517,7 @@ def _trace(o, d, mint, maxt, sph, tri, two_sided, grid=None, work=None):
     bn = torch.zeros((n, 3), device=o.device)
     bm = torch.full((n,), -1.0, device=o.device)
     bo = torch.full((n,), -1, dtype=torch.int64, device=o.device)
-    n_bs = sph.shape[0] if grid is None or grid.sph is None else 0
-    n_bt = tri.shape[0] if grid is None else grid.start
+    n_bs, n_bt = _brute_counts(sph, tri, grid, chunks)
     for i in range(n_bs):
         row = sph[i]
         ok, t = I.sphere_hit(o, d, a, inv2a, mint, maxt, row)
@@ -331,6 +544,10 @@ def _trace(o, d, mint, maxt, sph, tri, two_sided, grid=None, work=None):
         bn = torch.where(better[:, None], hn, bn)
         bm = torch.where(better, row[16], bm)
         bo = torch.where(better, sph.shape[0] + i, bo)
+    if chunks is not None:
+        bt, bn, bm, bo = _stream_closest(o, d, a, inv2a, oxd, mint, maxt,
+                                         sph.shape[0], two_sided, chunks,
+                                         (bt, bn, bm, bo), work)
     if grid is not None:
         bt, bn, bm, bo = _grid_closest(o, d, a, inv2a, oxd, mint, maxt, sph,
                                        tri, two_sided, grid,
@@ -341,15 +558,16 @@ def _trace(o, d, mint, maxt, sph, tri, two_sided, grid=None, work=None):
             torch.where(found, bo, -1))
 
 
-def _anyhit(o, d, mint, maxt, sph, tri, two_sided, grid=None, work=None):
+def _anyhit(o, d, mint, maxt, sph, tri, two_sided, grid=None, work=None,
+            chunks=None):
     """Occlusion of the segments [mint, maxt] by any object (with ``grid``
-    the brute prefix, then ``_grid_occluded``)."""
+    the brute prefix, then ``_grid_occluded``; with ``chunks`` the streamed
+    tables, ``_stream_occluded``)."""
     alive = mint != maxt
     a = dot3(d, d)
     inv2a = 0.5 / a
     occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
-    n_bs = sph.shape[0] if grid is None or grid.sph is None else 0
-    n_bt = tri.shape[0] if grid is None else grid.start
+    n_bs, n_bt = _brute_counts(sph, tri, grid, chunks)
     for i in range(n_bs):
         occ = occ | I.sphere_hit(o, d, a, inv2a, mint, maxt, sph[i])[0]
     oxd = cross3(o, d)
@@ -357,6 +575,9 @@ def _anyhit(o, d, mint, maxt, sph, tri, two_sided, grid=None, work=None):
         occ = occ | I.triangle_hit(o, d, oxd, mint, maxt, tri[i],
                                    two_sided)[0]
     occ = occ & alive
+    if chunks is not None:
+        occ = _stream_occluded(o, d, a, inv2a, oxd, mint, maxt, two_sided,
+                               chunks, occ, work)
     if grid is not None:
         occ = _grid_occluded(o, d, a, inv2a, oxd, mint, maxt, sph, tri,
                              two_sided, grid, occ, work) & alive
@@ -410,7 +631,8 @@ def _pass_reference(par, sph, tri, mat, lig, acc, u, ray_offset: int, *,
                     spp: int, width: int, bounces: int, two_sided: bool,
                     normalize_emitter: bool, russian_roulette: bool = False,
                     rr_start_depth: int = 0, trace=None, anyhit=None,
-                    record=None, grid=None, work=None) -> torch.Tensor:
+                    record=None, grid=None, work=None,
+                    chunks=None) -> torch.Tensor:
     """One pass of ``_render_pass_kernel`` (path mode) over every ray;
     returns the new accumulator.
 
@@ -426,10 +648,12 @@ def _pass_reference(par, sph, tri, mat, lig, acc, u, ray_offset: int, *,
     slots = iter(range(u.shape[0] // 2))
     if trace is None:
         def trace(o, d, mint, maxt):
-            return _trace(o, d, mint, maxt, sph, tri, two_sided, grid, work)
+            return _trace(o, d, mint, maxt, sph, tri, two_sided, grid, work,
+                          chunks)
     if anyhit is None:
         def anyhit(o, d, mint, maxt):
-            return _anyhit(o, d, mint, maxt, sph, tri, two_sided, grid, work)
+            return _anyhit(o, d, mint, maxt, sph, tri, two_sided, grid, work,
+                           chunks)
     if record is not None:
         traced, occluded = trace, anyhit
 
@@ -536,12 +760,14 @@ def pathtrace_pass_reference(par, ipar, sph, tri, mat, lig, acc, u_planes,
                              seed: int, n_passes: int = 1,
                              russian_roulette: bool = False,
                              rr_start_depth: int = 0,
-                             record: bool = False, grid=None, work=None):
+                             record: bool = False, grid=None, work=None,
+                             chunks=None):
     """The plain version of ``pathtrace_pass`` on any device; returns a new
     accumulator (``acc`` is not modified), or ``(acc, ids, occs)`` with
     ``record=True`` (one pass). ``grid``: grid mode (a ``KernelGrids``);
-    ``work``: a dict that sums its walks' cell steps and item tests
-    (``_add_walk_work``)."""
+    ``chunks``: the streamed tables (a ``KernelChunks``); ``work``: a dict
+    that sums its walks' cell steps and item tests (``_add_walk_work``)
+    and its chunks' slab and row tests (``_add_stream_work``)."""
     if record and n_passes != 1:
         raise ValueError("champion recording is single-pass")
     roff = int(ipar[1])
@@ -555,7 +781,7 @@ def pathtrace_pass_reference(par, ipar, sph, tri, mat, lig, acc, u_planes,
                               normalize_emitter=normalize_emitter,
                               russian_roulette=russian_roulette,
                               rr_start_depth=rr_start_depth, record=rec,
-                              grid=grid, work=work)
+                              grid=grid, work=work, chunks=chunks)
     if not record:
         return acc
     occs = (torch.stack(rec["occs"]) if rec["occs"] else
@@ -566,13 +792,13 @@ def pathtrace_pass_reference(par, ipar, sph, tri, mat, lig, acc, u_planes,
 
 def _direct_reference(par, sph, tri, mat, lig, acc, u, *, spp: int,
                       width: int, two_sided: bool, grid=None,
-                      work=None) -> torch.Tensor:
+                      work=None, chunks=None) -> torch.Tensor:
     """One pass of ``_render_pass_kernel`` in direct mode over every ray;
     returns the new accumulator."""
     o, d, mint, maxt = _camera_rays(par, u[0:2].t(), acc.shape[0], 0, spp,
                                     width)
     _, hp, hn, matf, _ = _trace(o, d, mint, maxt, sph, tri, two_sided, grid,
-                                work)
+                                work, chunks)
     eps, ambient = par[24], par[25]
     valid = matf >= 0.0
     alb = _albedo(mat, matf)
@@ -588,7 +814,7 @@ def _direct_reference(par, sph, tri, mat, lig, acc, u, *, spp: int,
         sd = safe_normalize(dl)
         occ = _anyhit(so, sd, torch.where(valid, 0.0, INF),
                       torch.where(valid, dist, INF), sph, tri, two_sided,
-                      grid, work)
+                      grid, work, chunks)
         cosx = torch.clamp(dot3(sd, hn), 0.0, 1.0)
         shade = torch.clamp(ambient + torch.where(occ, 0.0, cosx), 0.0, 1.0)
         acc = acc + torch.where(valid[:, None], alb * shade[:, None], 0.0)
@@ -598,11 +824,12 @@ def _direct_reference(par, sph, tri, mat, lig, acc, u, *, spp: int,
 def direct_pass_reference(par, sph, tri, mat, lig, acc, u_planes, *,
                           key: torch.Tensor, spp: int, width: int,
                           two_sided: bool, n_passes: int = 1, grid=None,
-                          work=None) -> torch.Tensor:
+                          work=None, chunks=None) -> torch.Tensor:
     """The plain version of ``direct_pass`` on any device; returns a new
     accumulator. Pass p reads ``u_planes`` or, without them, the draws of
     ``direct_draw_planes`` keyed by ``key`` (one pass) or ``pass_key(key,
-    p)``. ``grid`` and ``work`` as ``pathtrace_pass_reference``."""
+    p)``. ``grid``, ``chunks`` and ``work`` as
+    ``pathtrace_pass_reference``."""
     for p in range(n_passes):
         u = u_planes
         if u is None:
@@ -611,7 +838,7 @@ def direct_pass_reference(par, sph, tri, mat, lig, acc, u_planes, *,
                                    lig.shape[0], spp, acc.device)
         acc = _direct_reference(par, sph, tri, mat, lig, acc, u, spp=spp,
                                 width=width, two_sided=two_sided, grid=grid,
-                                work=work)
+                                work=work, chunks=chunks)
     return acc
 
 
@@ -628,16 +855,18 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I,                # spp, width, bounces, rr, start
         _I, _I,                                       # two_sided, normalize
         _VP, _VP,                                     # ids, occs (record)
-        _I, _VP, _I, _I, _I, _I,   # grid, grids, n_grids, sph grid, start,
-        _VP]),                                        # block; stream
+        _I, _VP, _I, _I, _I,        # grid, grids, n_grids, sph grid, start,
+        _VP, _I,                                      # streams, block
+        _VP]),                                        # stream
     "rt_direct_pass": (ctypes.c_int, [
         _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _I,     # par, sph, tri, mat, lig
         _VP, _I, _I,                                  # acc, n_rays, ray_offset
         _VP, ctypes.c_uint, ctypes.c_uint,            # u_planes, key
         _I, _I, _I,                         # first pass, per_pass, n_passes
         _I, _I, _I,                                   # spp, width, two_sided
-        _I, _VP, _I, _I, _I, _I,   # grid, grids, n_grids, sph grid, start,
-        _VP]),                                        # block; stream
+        _I, _VP, _I, _I, _I,        # grid, grids, n_grids, sph grid, start,
+        _VP, _I,                                      # streams, block
+        _VP]),                                        # stream
 }
 
 
@@ -648,11 +877,33 @@ class _GridDesc(ctypes.Structure):
                 ("pmax", ctypes.c_float * 3), ("n", ctypes.c_int * 3)]
 
 
-def _grid_args(grid: KernelGrids | None, n_tri: int):
-    """(grid, descriptors, n_grids, sph grid, start) of the C interface;
-    the descriptors array must outlive the call."""
+class _StreamDesc(ctypes.Structure):
+    """csrc/pathtrace.cuh Stream."""
+    _fields_ = [("rows", ctypes.c_void_p), ("box", ctypes.c_void_p),
+                ("perm", ctypes.c_void_p), ("n", ctypes.c_int)]
+
+
+def _stream_desc(st: Stream | None, n: int) -> _StreamDesc:
+    if st is None:
+        return _StreamDesc(None, None, None, 0)
+    return _StreamDesc(st.rows.data_ptr(), st.boxes.data_ptr(),
+                       st.perm.data_ptr(), n)
+
+
+def _grid_args(grid: KernelGrids | None, chunks: KernelChunks | None,
+               n_sph: int, n_tri: int):
+    """(grid, descriptors, n_grids, sph grid, start, streams) of the C
+    interface: grid mode's build runs grids and streamed chunks alike
+    (``grid`` 1 with no grid descriptor streams only). The descriptor
+    arrays must outlive the call."""
+    streams = None
+    if chunks is not None:
+        streams = (_StreamDesc * 2)(_stream_desc(chunks.tri, n_tri),
+                                    _stream_desc(chunks.sph, n_sph))
+    sp = ctypes.addressof(streams) if streams is not None else None
     if grid is None:
-        return (0, None, 0, 0, n_tri), None
+        start = 0 if chunks is not None and chunks.tri is not None else n_tri
+        return (int(chunks is not None), None, 0, 0, start, sp), streams
     walks = [g for _, g in _grid_walks(grid)]
     desc = (_GridDesc * len(walks))(*(
         _GridDesc(g.cell_offsets.data_ptr(), g.item_indices.data_ptr()
@@ -662,7 +913,7 @@ def _grid_args(grid: KernelGrids | None, n_tri: int):
                   (ctypes.c_float * 3)(*g.pmax.tolist()),
                   (ctypes.c_int * 3)(*g.n)) for g in walks))
     return (1, ctypes.addressof(desc), len(walks),
-            int(grid.sph is not None), grid.start), desc
+            int(grid.sph is not None), grid.start, sp), (desc, streams)
 
 
 def _check_grid(grid: KernelGrids, n_tri: int, dev) -> None:
@@ -685,14 +936,44 @@ def _check_grid(grid: KernelGrids, n_tri: int, dev) -> None:
                              f"{g.cell_offsets.shape[0]} offsets")
 
 
+def _check_chunks(chunks: KernelChunks, sph, tri, grid, dev) -> None:
+    """The streamed tables' shapes, types and devices: each stream's rows
+    as wide as its table, whole chunks of them, a box per chunk and a row
+    of ``perm`` per sorted row (its ids index the table by construction,
+    ``render/mega.chunk_tables``)."""
+    if chunks.tri is not None and grid is not None:
+        raise ValueError("a triangle table is either streamed or gridded, "
+                         "not both")
+    if chunks.sph is not None and grid is not None and grid.sph is not None:
+        raise ValueError("a sphere table is either streamed or gridded, "
+                         "not both")
+    for name, st, table in (("tri", chunks.tri, tri), ("sph", chunks.sph,
+                                                        sph)):
+        if st is None:
+            continue
+        nc = -(-table.shape[0] // STREAM_CHUNK)
+        for what, t, shape, dtype in (
+                ("rows", st.rows, (nc * STREAM_CHUNK, table.shape[1]),
+                 torch.float32),
+                ("boxes", st.boxes, (nc, 8), torch.float32),
+                ("perm", st.perm, (nc * STREAM_CHUNK,), torch.int32)):
+            if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+                    or not t.is_contiguous()):
+                raise ValueError(
+                    f"{name} stream {what} must be a contiguous {shape} "
+                    f"{dtype} tensor on {dev}, got {tuple(t.shape)} "
+                    f"{t.dtype} on {t.device}")
+
+
 def _check_args(par, ipar, sph, tri, mat, lig, acc, u_planes, spp, width,
                 n_draws, n_passes, multi_pass_planes=False, grid=None,
-                block=0, resident=True):
+                block=0, resident=True, chunks=None):
     """Devices, types, shapes and limits of a launch of ``n_draws`` draw
     slots per ray and pass; ``multi_pass_planes`` lets one u-planes tensor
     serve every pass (direct mode). With ``grid`` the resident caps apply
     to its brute prefix; ``resident=False`` (kernel 3, which reads the
-    sphere and triangle tables from global memory) drops them."""
+    sphere and triangle tables from global memory) drops them, as does a
+    streamed table (``chunks``)."""
     dev = acc.device
     if acc.dtype != torch.float32 or acc.dim() != 2 or acc.shape[1] != 3:
         raise ValueError(f"acc must be (R, 3) float32, got "
@@ -729,6 +1010,10 @@ def _check_args(par, ipar, sph, tri, mat, lig, acc, u_planes, spp, width,
         _check_grid(grid, n_tri, dev)
         n_sph = 0 if grid.sph is not None else n_sph
         n_tri = grid.start
+    if chunks is not None:
+        _check_chunks(chunks, sph, tri, grid, dev)
+        n_sph = 0 if chunks.sph is not None else n_sph
+        n_tri = 0 if chunks.tri is not None else n_tri
     if not resident:
         n_sph = n_tri = 0
     if n_sph > SPH_RESIDENT_MAX or n_tri > TRI_RESIDENT_MAX:
@@ -744,8 +1029,9 @@ def _check_args(par, ipar, sph, tri, mat, lig, acc, u_planes, spp, width,
         raise ValueError("pixel math is exact below 2^24 rays")
     if block:
         rows = n // (spp * width)
-        if grid is None:
-            raise ValueError("the blocked layout is grid mode's")
+        if grid is None and chunks is None:
+            raise ValueError("the blocked layout is that of grid mode and "
+                             "streamed tables")
         if block < 0 or width % block or rows % block or roff:
             raise ValueError(f"block {block} must tile the {width} x {rows} "
                              "film of an unsharded launch")
@@ -775,11 +1061,12 @@ def _check_launch(acc, tensors, what: str) -> None:
                            "pathtrace_pass_diff (one pass per call)")
 
 
-def _lib(grid, build_flags: tuple):
+def _lib(grid, chunks, build_flags: tuple):
     """The build of kernel 1 that holds the launch's instances: grid mode's
-    (``GRID_FLAGS``) or the brute ones, with ``build_flags`` added."""
+    (``GRID_FLAGS``; grids or streamed chunks) or the brute ones, with
+    ``build_flags`` added."""
     return _build.load("megakernel", _SIGNATURES, tuple(build_flags) + (
-        GRID_FLAGS if grid is not None else ()))
+        GRID_FLAGS if grid is not None or chunks is not None else ()))
 
 
 def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
@@ -787,13 +1074,15 @@ def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
                    normalize_emitter: bool, seed: int,
                    n_passes: int = 1, russian_roulette: bool = False,
                    rr_start_depth: int = 0, record: bool = False,
-                   grid: KernelGrids | None = None, block: int = 0,
+                   grid: KernelGrids | None = None,
+                   chunks: KernelChunks | None = None, block: int = 0,
                    build_flags: tuple = ()):
     """``n_passes`` progressive passes over ``acc`` (R, 3), in place;
     returns ``acc``, or ``(acc, ids, occs)`` with ``record=True`` (one
     pass; see the module docstring). ``russian_roulette`` plays the
     roulette from depth ``rr_start_depth`` on. ``grid`` runs grid mode,
-    ``block`` the blocked layout (see the module docstring).
+    ``chunks`` streams tables, ``block`` the blocked layout (see the
+    module docstring).
     ``build_flags`` launches a build of the kernel with these nvcc flags
     added (e.g. ``("--fmad=false",)``), beside the default one.
 
@@ -803,10 +1092,10 @@ def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
     mat (M, 4) rgba; lig (L, 20) [pos, normal, irr, irr_normalized,
     radius, area, tangent, bitangent]; u_planes (2 * n_draws, R) or None.
     """
-    global launches
+    global launches, stream_launches
     _check_args(par, ipar, sph, tri, mat, lig, acc, u_planes, spp, width,
                 n_draws_of(lig.shape[0], bounces, russian_roulette), n_passes,
-                grid=grid, block=block)
+                grid=grid, block=block, chunks=chunks)
     if record and n_passes != 1:
         raise ValueError("champion recording is single-pass")
     kw = dict(spp=spp, width=width, bounces=bounces, two_sided=two_sided,
@@ -816,13 +1105,13 @@ def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
     if acc.device.type == "cpu":
         out = pathtrace_pass_reference(par, ipar, sph, tri, mat, lig, acc,
                                        u_planes, record=record, grid=grid,
-                                       **kw)
+                                       chunks=chunks, **kw)
         if not record:
             return acc.copy_(out)
         return acc.copy_(out[0]), out[1], out[2]
     _check_launch(acc, (par, sph, tri, mat, lig, acc, u_planes),
                   "pathtrace_pass")
-    lib = _lib(grid, build_flags)
+    lib = _lib(grid, chunks, build_flags)
     pass0, roff = (int(x) for x in ipar.tolist())
     base = rng.base_key(seed)
     ids = occs = None
@@ -832,7 +1121,7 @@ def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
         ids = torch.empty((n_seg, n), dtype=torch.int32, device=acc.device)
         occs = torch.empty((n_seg * lig.shape[0], n), dtype=torch.bool,
                            device=acc.device)
-    gargs, _desc = _grid_args(grid, tri.shape[0])
+    gargs, _desc = _grid_args(grid, chunks, sph.shape[0], tri.shape[0])
     with torch.cuda.device(acc.device):
         stream = torch.cuda.current_stream(acc.device).cuda_stream
         for first in range(0, n_passes, MAX_PASSES_PER_LAUNCH):
@@ -853,13 +1142,15 @@ def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
                 raise RuntimeError(
                     f"megakernel launch failed with CUDA error {err}")
             launches += 1
+            stream_launches += chunks is not None
     return (acc, ids, occs) if record else acc
 
 
 def direct_pass(par, sph, tri, mat, lig, acc, u_planes, *,
                 key: torch.Tensor, spp: int, width: int, two_sided: bool,
                 n_passes: int = 1, grid: KernelGrids | None = None,
-                block: int = 0, build_flags: tuple = ()) -> torch.Tensor:
+                chunks: KernelChunks | None = None, block: int = 0,
+                build_flags: tuple = ()) -> torch.Tensor:
     """Kernel 1's direct mode: ``n_passes`` direct-lighting passes added
     into ``acc`` (R, 3), in place; returns ``acc``. Pass p reads
     ``u_planes`` ((2 * (1 + L), R), ``u_planes_for_direct``'s layout) or,
@@ -867,22 +1158,23 @@ def direct_pass(par, sph, tri, mat, lig, acc, u_planes, *,
     ``key`` ((2,) uint32 CPU tensor) for a call of one pass and by
     ``pass_key(key, p)`` otherwise. On CPU tensors it runs
     ``direct_pass_reference``; on CUDA tensors it launches the kernel (one
-    launch per 64 passes) and counts ``direct_launches``. Tables, ``grid``
-    and ``block`` as ``pathtrace_pass``."""
-    global direct_launches
+    launch per 64 passes) and counts ``direct_launches``. Tables, ``grid``,
+    ``chunks`` and ``block`` as ``pathtrace_pass``."""
+    global direct_launches, stream_launches
     _check_args(par, torch.zeros(2, dtype=torch.int32), sph, tri, mat, lig,
                 acc, u_planes, spp, width, 1 + lig.shape[0], n_passes,
-                multi_pass_planes=True, grid=grid, block=block)
+                multi_pass_planes=True, grid=grid, block=block,
+                chunks=chunks)
     kw = dict(key=key, spp=spp, width=width, two_sided=two_sided,
-              n_passes=n_passes, grid=grid)
+              n_passes=n_passes, grid=grid, chunks=chunks)
     if acc.device.type == "cpu":
         return acc.copy_(direct_pass_reference(par, sph, tri, mat, lig, acc,
                                                u_planes, **kw))
     _check_launch(acc, (par, sph, tri, mat, lig, acc, u_planes),
                   "direct_pass")
-    lib = _lib(grid, build_flags)
+    lib = _lib(grid, chunks, build_flags)
     k0, k1 = rng.key_words(key)
-    gargs, _desc = _grid_args(grid, tri.shape[0])
+    gargs, _desc = _grid_args(grid, chunks, sph.shape[0], tri.shape[0])
     with torch.cuda.device(acc.device):
         stream = torch.cuda.current_stream(acc.device).cuda_stream
         for first in range(0, n_passes, MAX_PASSES_PER_LAUNCH):
@@ -897,4 +1189,5 @@ def direct_pass(par, sph, tri, mat, lig, acc, u_planes, *,
                 raise RuntimeError(
                     f"direct-mode launch failed with CUDA error {err}")
             direct_launches += 1
+            stream_launches += chunks is not None
     return acc

@@ -415,9 +415,10 @@ class _PassDiffCell(torch.autograd.Function):
     ``bwd_cell``). On CPU tensors the two wrappers run their plain
     versions, so the CPU exercises the same wiring: the saved record,
     ``diff_wrt`` and the hand-off of ``g`` to ``acc_in``. ``fwd`` holds
-    the recording forward's own arguments (``grid``, ``block``): the
-    record names original rows in grid mode too, so kernel 3 takes the
-    whole tables as they are."""
+    the recording forward's own arguments (``grid``, ``chunks``,
+    ``block``): the record names original rows in grid mode and over
+    streamed tables too, so kernel 3 takes the whole tables as they
+    are."""
 
     @staticmethod
     def forward(ctx, par, sph, tri, mat, lig, acc_in, ipar, u_planes, kw,
@@ -497,7 +498,7 @@ def pathtrace_pass_diff(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
                         normalize_emitter: bool, seed: int,
                         russian_roulette: bool = False,
                         rr_start_depth: int = 0, diff_wrt=DIFF_ALL,
-                        bwd_cell: bool = False, grid=None,
+                        bwd_cell: bool = False, grid=None, chunks=None,
                         block: int = 0, soft_bandwidth: float = 0.0,
                         soft_tau: float = 0.0) -> torch.Tensor:
     """One differentiable progressive pass: returns a new accumulator
@@ -510,8 +511,9 @@ def pathtrace_pass_diff(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
     forward under autograd, with the groups outside ``diff_wrt`` detached.
     ``bwd_cell=True``: kernel 1 recording and kernel 3 (``_PassDiffCell``),
     their plain versions on CPU tensors. ``grid`` (kernel 1's grid mode)
-    takes the cell route or the edge-aware one; ``block`` is kernel 1's
-    blocked layout.
+    takes the cell route or the edge-aware one; ``chunks`` (kernel 1's
+    streamed tables) the cell route; ``block`` is kernel 1's blocked
+    layout.
 
     ``soft_bandwidth > 0`` (edge-aware gradients, ``_PassDiffSoft`` on
     either device): the forward stays the hard pass, the backward is kernel
@@ -528,7 +530,12 @@ def pathtrace_pass_diff(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
         raise NotImplementedError(
             "grid-mode training takes the cell route; kernel 2 over a grid "
             "scene's tables is ROADMAP Queue 1 item 16")
-    fwd = dict(grid=grid, block=block)
+    if chunks is not None and not bwd_cell:
+        raise NotImplementedError(
+            "streamed tables train on the cell route (mega_bwd_impl 'auto' "
+            "or 'cell'); kernel 2 over them, JAX's _loop_diff windows, is "
+            "ROADMAP Queue 1 item 16")
+    fwd = dict(grid=grid, chunks=chunks, block=block)
     kw = dict(spp=spp, width=width, bounces=bounces, two_sided=two_sided,
               normalize_emitter=normalize_emitter, seed=seed,
               russian_roulette=russian_roulette,

@@ -35,9 +35,14 @@ scenes of ``chip_smoke.py``'s phase 18 (config 3's shape: cornell plus a
 992-triangle torus mesh in its 3^3 grid, in direct mode at block 64 and
 0 and in path mode at block 64, and recording; sphere_field(8192) in its
 6^3 sphere grid in path mode and recording) and kernel 3 on the sphere
-grid's record. A variant whose sources predate those modes (a parent
-commit's) is timed by running this tool from that commit's own checkout
-instead.
+grid's record; then kernel 1 over streamed Morton chunks on the scenes of
+``chip_smoke.py``'s phase 21 (the same torus scene without its grid, in
+direct mode at block 64 and in path mode at blocks 64 and 0, with the
+roulette, and recording; sphere_field(8192) without its sphere grid in
+path mode and recording) and kernel 3 on the streamed torus's record
+with ("sph", "mat", "tri"). A variant whose sources predate those modes
+(a parent commit's) is timed by running this tool from that commit's own
+checkout instead.
 ``--sass`` dumps ``cuobjdump -sass`` of the named variants' libraries into
 ``--out`` and prints, per kernel, the count of each memory, atomic and
 warp-level opcode, and the instructions around the first shared-memory
@@ -197,7 +202,8 @@ class Case:
     """One scene's tables and, with ``step``, a training step's cotangent
     of acc and kernel 1's record of that step's pass; ``grid``: in kernel
     1's grid mode over the scene's prepared grids, in the blocked layout
-    ``block``."""
+    ``block``; without a grid, tables past the resident budgets stream in
+    Morton chunks (``render/mega.chunk_tables``)."""
 
     def __init__(self, scene, dev, step: bool = True, grid: bool = False,
                  block: int = 0):
@@ -207,6 +213,8 @@ class Case:
         self.grid = mega.grid_tables(scene) if grid else None
         self.block = block
         self.tables = mega.scene_tables(scene, self.cfg)
+        self.chunks = mega.chunk_tables(scene, self.cfg, self.tables[1],
+                                        self.tables[2])
         self.kw = dict(spp=1, width=SIZE, bounces=BOUNCES, two_sided=False,
                        normalize_emitter=True, seed=self.cfg.seed)
         self.ipar = torch.tensor([STEP_PASSES - 1, 0], dtype=torch.int32)
@@ -225,9 +233,9 @@ class Case:
         self.live = (self.g != 0).any(-1).double().mean().item()
 
     def _mode(self, block=None) -> dict:
-        if self.grid is None:
+        if self.grid is None and self.chunks is None:
             return {}
-        return {"grid": self.grid,
+        return {"grid": self.grid, "chunks": self.chunks,
                 "block": self.block if block is None else block}
 
     def k1(self, n_passes: int = 1, record: bool = False, rr=False):
@@ -262,6 +270,41 @@ class Case:
         return MKG.pathtrace_pass_bwd_champ(
             self.tables[0], self.ipar, *self.tables[1:], g, None, self.ids,
             self.occs, diff_wrt=wrt, **self.kw)
+
+
+def stream_cases(dev) -> dict:
+    """Kernel 1's streamed cases on chip_smoke.py's phase 21 scenes."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    return {"torus": Case(chip_smoke._stream_scene("torus", SIZE, SIZE, dev),
+                          dev, block=64),
+            "spheres": Case(chip_smoke._stream_scene("spheres", SIZE, SIZE,
+                                                     dev), dev, step=False)}
+
+
+def measure_stream(cases: dict) -> dict:
+    torus, spheres = cases["torus"], cases["spheres"]
+    return {
+        "k1_stream_torus_direct_B64_16pass_ms_per_pass": time_ms(
+            lambda: torus.direct(16), reps=3, per=16),
+        "k1_stream_torus_path_B64_16pass_ms_per_pass": time_ms(
+            lambda: torus.k1(n_passes=16), reps=1, per=16),
+        "k1_stream_torus_path_B0_16pass_ms_per_pass": time_ms(
+            lambda: MK.pathtrace_pass(
+                torus.tables[0], torus.ipar, *torus.tables[1:], torus.acc,
+                None, n_passes=16, **torus.kw, **torus._mode(block=0)),
+            reps=1, per=16),
+        "k1_stream_torus_rr_B64_16pass_ms_per_pass": time_ms(
+            lambda: torus.k1(n_passes=16, rr=True), reps=1, per=16),
+        "k1_stream_torus_record_ms": time_ms(lambda: torus.k1(record=True),
+                                             reps=3),
+        "k3_stream_torus_step_g_sph_mat_tri_ms": time_ms(
+            lambda: torus.k3(torus.g, ("sph", "mat", "tri"))),
+        "k1_stream_spheres_16pass_ms_per_pass": time_ms(
+            lambda: spheres.k1(n_passes=16), reps=2, per=16),
+        "k1_stream_spheres_record_ms": time_ms(
+            lambda: spheres.k1(record=True), reps=5),
+    }
 
 
 def grid_cases(dev) -> dict:
@@ -403,6 +446,7 @@ def main(argv=None) -> int:
     print(f"cotangent share of rays with g != 0: cornell {cornell.live:.4%},"
           f" sphere_field({N_SPHERES}) {spheres.live:.4%}")
     grid = grid_cases(dev)
+    stream = stream_cases(dev)
     results: dict = {"card": smi, "turns": []}
     soft_first: dict = {}
     for order in (labels, labels[::-1]):
@@ -410,7 +454,7 @@ def main(argv=None) -> int:
         for label in order:
             use(libs[label])
             turn[label] = {**measure(cornell, spheres, fields),
-                           **measure_grid(grid)}
+                           **measure_grid(grid), **measure_stream(stream)}
             if "megakernel_soft" in libs[label]:
                 print(f"{label}:")
                 turn[label].update(measure_soft(cornell, soft_first))

@@ -13,16 +13,22 @@ and occlusion bits, kernel 3 (``csrc/megakernel_champ.cu``) differentiates
 the record. ``supported_diff`` gates the differentiable pass.
 
 ``supported`` is True only for what the port's kernel 1 covers: no
-stale-POI replication, fewer than 2^24 rays, and a resident table of at
-most 4608 spheres (JAX's ``SMEM_TABLE_MAX // 8``, the resident table its
-kernel loops over) and 64 triangles -- with ``cfg.use_grid`` the brute
-prefix alone, the rest in kernel 1's grid mode over the grids of
-``accel.prepare_grids`` (``grid_tables``). ``cfg.mega_block`` is grid
-mode's blocked layout where it tiles the film (``effective_block``).
-Anything else raises, naming the ROADMAP item that will cover it or the
-stage pipeline (``use_megakernel=False``) that covers it now; nothing
-falls through to another route. ``use_pallas`` selects the stage
-pipeline's hit kernels and is ignored here, as in the JAX package.
+stale-POI replication and fewer than 2^24 rays. Tables of at most 4608
+spheres (JAX's ``SMEM_TABLE_MAX // 8``, the resident table its kernel
+loops over) and 64 triangles (JAX's ``STREAM_MIN_TRIS``) stay resident;
+larger ones stream in Morton chunks (``chunk_tables``, JAX's
+``tri_chunk_tables`` / ``sph_chunk_tables``), routed as JAX's
+``render_pass_mega`` and ``render_direct_mega`` route them: triangles past
+64 when not in grid mode, spheres past 4608 without a sphere grid, grid
+mode included. With ``cfg.use_grid`` the triangles below the grids'
+start are the resident prefix (at most 64), the rest are walked in kernel
+1's grid mode over the grids of ``accel.prepare_grids`` (``grid_tables``).
+``cfg.mega_block`` is the blocked layout of grid mode and of streamed
+tables where it tiles the film (``effective_block``). Anything else
+raises, naming the ROADMAP item that will cover it or the stage pipeline
+(``use_megakernel=False``) that covers it now; nothing falls through to
+another route. ``use_pallas`` selects the stage pipeline's hit kernels
+and is ignored here, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -127,17 +133,106 @@ def grid_tables(scene: Scene) -> MK.KernelGrids:
 
 
 def _prepared(scene: Scene) -> None:
-    """Raises unless ``accel.prepare_grids`` built the grids a grid-mode
-    render of the scene reads."""
+    """Raises unless ``accel.prepare_grids`` built the triangle grids a
+    grid-mode render of the scene reads (spheres past the resident budget
+    without a sphere grid stream, as in JAX)."""
     if _all_triangles(scene).count and scene.folded_tri_grid is None:
         raise ValueError("use_grid needs the scene's grids: call "
                          "accel.prepare_grids(scene, ...) first")
-    if (scene.spheres.count > MK.SPH_RESIDENT_MAX
-            and scene.mega_sph_grid is None):
-        raise ValueError(
-            f"{scene.spheres.count} spheres are past the resident "
-            f"{MK.SPH_RESIDENT_MAX}: call accel.prepare_grids(scene, ...) "
-            "for the sphere grid")
+
+
+def streamed(scene: Scene, cfg: RenderConfig) -> tuple[bool, bool]:
+    """(triangles stream, spheres stream): JAX's routing
+    (``render/mega.py:710-717``, ``:811-814``): the triangles past
+    ``TRI_RESIDENT_MAX`` (JAX's ``STREAM_MIN_TRIS``) outside grid mode,
+    the spheres past ``SPH_RESIDENT_MAX`` (``SMEM_TABLE_MAX // 8``) unless
+    grid mode walks the sphere grid."""
+    tri = (not cfg.use_grid
+           and _all_triangles(scene).count > MK.TRI_RESIDENT_MAX)
+    sph = (scene.spheres.count > MK.SPH_RESIDENT_MAX
+           and not (cfg.use_grid and scene.mega_sph_grid is not None))
+    return tri, sph
+
+
+def _morton_codes(cen: torch.Tensor, pmin: torch.Tensor,
+                  pmax: torch.Tensor) -> torch.Tensor:
+    """30-bit Morton codes (10 bits per axis) of the points ``cen`` (N, 3)
+    against the box [pmin, pmax], as int64: JAX's ``_morton_codes`` (its
+    uint32 bit-spreading here in int64, masked)."""
+    ext = torch.clamp(pmax - pmin, min=1e-20)
+    q = torch.clamp((cen - pmin) / ext * 1024.0, 0.0, 1023.0).to(torch.int64)
+
+    def spread(x):
+        x = (x | (x << 16)) & 0x030000FF
+        x = (x | (x << 8)) & 0x0300F00F
+        x = (x | (x << 4)) & 0x030C30C3
+        return (x | (x << 2)) & 0x09249249
+
+    return spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
+
+
+def _stream(scene: Scene, table: torch.Tensor, cen: torch.Tensor,
+            lo: torch.Tensor, hi: torch.Tensor) -> MK.Stream:
+    """A table's ``Stream``: its rows in the stable argsort order of the
+    Morton codes of ``cen`` against the scene's bounds, padded with zero
+    rows to whole chunks, and that order (``perm``, padded with -1); per
+    chunk the box over its rows' boxes [lo, hi] (N, 3) (rows with lo =
+    +inf, hi = -inf take no part), widened by ``MK.CHUNK_PAD`` of the
+    scene's scale on every side. All on the table's device, with no host
+    synchronisation."""
+    n, dev = table.shape[0], table.device
+    C = MK.STREAM_CHUNK
+    nc = -(-n // C)
+    pad = nc * C - n
+    order = torch.argsort(_morton_codes(cen, scene.bounds_min,
+                                        scene.bounds_max), stable=True)
+    rows = torch.cat([table[order],
+                      table.new_zeros((pad, table.shape[1]))]).contiguous()
+    perm = torch.cat([order.to(torch.int32),
+                      torch.full((pad,), -1, dtype=torch.int32, device=dev)])
+    inf = torch.full((pad, 3), torch.inf, device=dev)
+    lo = torch.cat([lo[order], inf]).reshape(nc, C, 3).amin(1)
+    hi = torch.cat([hi[order], -inf]).reshape(nc, C, 3).amax(1)
+    scale = torch.cat([scene.bounds_min.abs(), scene.bounds_max.abs(),
+                       scene.camera.eye.abs()]).amax()
+    w = MK.CHUNK_PAD * scale
+    boxes = torch.cat([lo - w, hi + w, torch.zeros((nc, 2), device=dev)],
+                      -1).to(torch.float32).contiguous()
+    return MK.Stream(rows=rows, boxes=boxes, perm=perm)
+
+
+def tri_chunk_tables(scene: Scene, tri: torch.Tensor) -> MK.Stream:
+    """The triangle table ``tri`` (T, 32) streamed: JAX's
+    ``tri_chunk_tables`` (order by the Morton codes of the vertex
+    centroids, a chunk's box over its vertices), rows kept 32 wide (JAX's
+    128-lane padding is the TPU's) and the boxes widened."""
+    v = _all_triangles(scene).v.detach().to(torch.float32)
+    cen = (v[:, 0] + v[:, 1] + v[:, 2]) / 3.0
+    return _stream(scene, tri.detach(), cen, v.amin(1), v.amax(1))
+
+
+def sph_chunk_tables(scene: Scene, sph: torch.Tensor) -> MK.Stream:
+    """The sphere table ``sph`` (S, 8) streamed: JAX's ``sph_chunk_tables``
+    (order by the Morton codes of the centres, a chunk's box over centre
+    -/+ radius of its rows whose mask is set), the boxes widened."""
+    sph = sph.detach()
+    cen, r = sph[:, 0:3], sph[:, 3:4]
+    on = sph[:, 5:6] > 0.0
+    return _stream(scene, sph, cen, torch.where(on, cen - r, torch.inf),
+                   torch.where(on, cen + r, -torch.inf))
+
+
+def chunk_tables(scene: Scene, cfg: RenderConfig, sph: torch.Tensor,
+                 tri: torch.Tensor) -> MK.KernelChunks | None:
+    """Kernel 1's streamed tables of this call (``streamed`` says which),
+    built on the device from the tables ``scene_tables`` packed for it, so
+    a table being trained never reads stale boxes; None when nothing
+    streams."""
+    s_tri, s_sph = streamed(scene, cfg)
+    if not (s_tri or s_sph):
+        return None
+    return MK.KernelChunks(tri=tri_chunk_tables(scene, tri) if s_tri else None,
+                           sph=sph_chunk_tables(scene, sph) if s_sph else None)
 
 
 def supported(scene: Scene | None, cfg: RenderConfig) -> bool:
@@ -150,45 +245,40 @@ def supported(scene: Scene | None, cfg: RenderConfig) -> bool:
             "replicate_stale_poi is a stage-pipeline option (the JAX "
             "megakernel falls through to the stage pipeline for it): set "
             "use_megakernel=False")
-    if cfg.mega_block and not cfg.use_grid:
-        raise NotImplementedError(
-            "mega_block is the blocked layout of kernel 1's grid mode (set "
-            "use_grid=True); the brute instances keep the row-major map, "
-            "which gives the same image")
     if cfg.total_rays >= (1 << 24):
         raise NotImplementedError(
             f"{cfg.total_rays} rays: the kernel takes fewer than 2^24 per "
             "call; sharding is ROADMAP Queue 1 item 14")
     if scene is None:
         return True
-    n_sph, n_tri = scene.spheres.count, _all_triangles(scene).count
-    if cfg.use_grid:
-        _prepared(scene)
-        g = grid_tables(scene)
-        n_sph = 0 if g.sph is not None else n_sph
-        n_tri = g.start
-        if len(g.tri) + (g.sph is not None) > MK.GRIDS_MAX:
-            raise NotImplementedError(
-                f"kernel 1 walks at most {MK.GRIDS_MAX} grids per launch")
-    if n_sph > MK.SPH_RESIDENT_MAX or n_tri > MK.TRI_RESIDENT_MAX:
-        where = " outside the grids" if cfg.use_grid else ""
+    if cfg.mega_block and not cfg.use_grid and not any(streamed(scene, cfg)):
         raise NotImplementedError(
-            f"{n_sph} spheres / {n_tri} triangles{where}: kernel 1 keeps "
-            f"at most {MK.SPH_RESIDENT_MAX} spheres and "
-            f"{MK.TRI_RESIDENT_MAX} triangles resident; use_grid with "
-            "accel.prepare_grids walks larger tables, and streaming them "
-            "in Morton chunks is not ported yet (ROADMAP Queue 1 item 10)")
+            "mega_block is the blocked layout of kernel 1's grid mode (set "
+            "use_grid=True) and of streamed tables; the brute instances "
+            "keep the row-major map, which gives the same image")
+    if not cfg.use_grid:
+        return True
+    _prepared(scene)
+    g = grid_tables(scene)
+    if len(g.tri) + (g.sph is not None) > MK.GRIDS_MAX:
+        raise NotImplementedError(
+            f"kernel 1 walks at most {MK.GRIDS_MAX} grids per launch")
+    if g.start > MK.TRI_RESIDENT_MAX:
+        raise NotImplementedError(
+            f"{g.start} triangles outside the grids: kernel 1 keeps at most "
+            f"{MK.TRI_RESIDENT_MAX} resident in grid mode, as JAX's grid "
+            "kernel does (accel.prepare_grids' mesh_slabs grids a mesh)")
     return True
 
 
 def supported_diff(scene: Scene | None, cfg: RenderConfig) -> bool:
     """True when the differentiable pass covers this scene and config (the
-    hard-gradient backward over resident tables of at most
-    ``DIFF_TABLE_MAX`` objects per type; the edge-aware one,
-    ``cfg.mega_edge_bandwidth > 0``, over at most ``UNROLL_OBJECTS`` per
-    type, grid mode included); raises NotImplementedError naming the
-    ROADMAP Queue 1 item otherwise."""
-    supported(scene, cfg)   # streamed tables (item 10) raise here
+    hard-gradient backward over resident or streamed tables of at most
+    ``DIFF_TABLE_MAX`` objects per type, in grid mode ``GRID_DIFF_MAX``
+    rows; the edge-aware one, ``cfg.mega_edge_bandwidth > 0``, over at most
+    ``UNROLL_OBJECTS`` per type, grid mode included); raises
+    NotImplementedError naming the ROADMAP Queue 1 item otherwise."""
+    supported(scene, cfg)
     MKG._check_wrt(cfg.mega_grad_wrt)
     if scene is None:
         return True
@@ -213,11 +303,13 @@ def supported_diff(scene: Scene | None, cfg: RenderConfig) -> bool:
                 f"training covers at most {GRID_DIFF_MAX} rows per type "
                 f"(the JAX package's GRID_DIFF_MAX; spheres without a grid "
                 f"{DIFF_TABLE_MAX}); larger scenes render forward-only")
-    elif scene.spheres.count > DIFF_TABLE_MAX:
+    elif max(scene.spheres.count,
+             _all_triangles(scene).count) > DIFF_TABLE_MAX:
         raise NotImplementedError(
-            f"{scene.spheres.count} spheres: the differentiable pass covers "
-            f"at most {DIFF_TABLE_MAX} per type (the JAX package's "
-            "DIFF_TABLE_MAX); larger tables render forward-only")
+            f"{scene.spheres.count} spheres / {_all_triangles(scene).count} "
+            f"triangles: the differentiable pass covers at most "
+            f"{DIFF_TABLE_MAX} per type (the JAX package's DIFF_TABLE_MAX); "
+            "larger tables render forward-only")
     return True
 
 
@@ -227,8 +319,10 @@ def bwd_impl_for(scene: Scene | None, cfg: RenderConfig) -> str:
 
     * "pallas" -- kernel 2, the backward by replay over tables in shared
       memory. Past ``UNROLL_OBJECTS`` (64) spheres or triangles it raises
-      (ROADMAP Queue 1 item 16);
-    * "cell" -- the champion route: kernel 1 recording, then kernel 3;
+      (ROADMAP Queue 1 item 16: JAX's ``_loop_diff`` windows over streamed
+      tables);
+    * "cell" -- the champion route: kernel 1 recording (over streamed
+      tables too; the record names original rows), then kernel 3;
     * "auto" -- "cell" for grid mode and past 64 objects of either type,
       "pallas" otherwise;
     * "xla" -- the TPU-only dense backward: raises.
@@ -270,8 +364,10 @@ def bwd_impl_for(scene: Scene | None, cfg: RenderConfig) -> str:
     if impl == "pallas" and big:
         raise NotImplementedError(
             f"kernel 2 keeps the tables and their gradient buffers in shared "
-            f"memory, at most {MK.UNROLL_OBJECTS} objects per type (ROADMAP "
-            "Queue 1 item 16); mega_bwd_impl='auto' takes the cell route")
+            f"memory, at most {MK.UNROLL_OBJECTS} objects per type; past "
+            "that JAX's kernel 2 replays over streamed windows, which is "
+            "ROADMAP Queue 1 item 16; mega_bwd_impl='auto' takes the cell "
+            "route")
     return impl
 
 
@@ -306,6 +402,7 @@ def render_direct_mega(scene: Scene, cfg: RenderConfig,
                    spp=cfg.spp, width=cfg.width,
                    two_sided=cfg.two_sided_triangles, n_passes=n_passes,
                    grid=grid_tables(scene) if cfg.use_grid else None,
+                   chunks=chunk_tables(scene, cfg, sph, tri),
                    block=effective_block(cfg))
     n_lights = max(scene.lights.count, 1)
     img = acc.reshape(cfg.height, cfg.width, cfg.spp, 3).mean(2) \
@@ -355,6 +452,7 @@ def render_pass_mega(scene: Scene, state: dict, cfg: RenderConfig,
               russian_roulette=cfg.russian_roulette,
               rr_start_depth=cfg.rr_start_depth,
               grid=grid_tables(scene) if cfg.use_grid else None,
+              chunks=chunk_tables(scene, cfg, sph, tri),
               block=effective_block(cfg))
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (par, sph, tri, mat, lig, state["acc"])):

@@ -1,8 +1,8 @@
 """The CUDA kernels (the pass with and without Russian roulette, its
-recording, direct and grid modes and its blocked layout, its two adjoints
-with and without the roulette, the edge-aware adjoint kernel 2s and the
-stage pipeline's hit searches) against their plain PyTorch versions on the
-card.
+recording, direct, grid and streamed modes and its blocked layout, its two
+adjoints with and without the roulette, the edge-aware adjoint kernel 2s
+and the stage pipeline's hit searches) against their plain PyTorch
+versions on the card.
 
 Runs only where there is a CUDA device; elsewhere each test skips. Imports
 no jax, so it runs on a machine without it:
@@ -843,3 +843,116 @@ def test_soft_adjoint_kernel_finite_at_tiny_bandwidth(cuda):
                                                  *tables[1:], g, None, **kw)
     for name, a, b in zip(MKG.DIFF_ALL, want, got):
         assert torch.isfinite(a).all() and torch.isfinite(b).all(), name
+
+
+@pytest.mark.parametrize("mode", ["direct", "path", "roulette"])
+def test_streamed_kernel_matches_plain_version(cuda, mode):
+    """Kernel 1 over the streamed torus scene (cornell plus 992 triangles,
+    8 Morton chunks, no grid): its --fmad=false build equals the plain
+    streamed version on every ray, id and bit; the default build is within
+    1% of rays beyond 2e-4 and names original rows."""
+    from torch_grid_scenes import cornell_torus
+    scene = cornell_torus(64, 48, 31, 16, device=cuda)
+    cfg = RenderConfig(width=64, height=48,
+                       bounces=0 if mode == "direct" else 3,
+                       use_megakernel=True,
+                       russian_roulette=mode == "roulette", rr_start_depth=1)
+    tables = mega.scene_tables(scene, cfg)
+    chunks = mega.chunk_tables(scene, cfg, tables[1], tables[2])
+    assert chunks.tri.n_chunks == 8 and chunks.sph is None
+    zeros = torch.zeros((cfg.total_rays, 3), device=cuda)
+    before = MK.stream_launches
+    if mode == "direct":
+        key = torch.as_tensor(np.array([0, 5], np.uint32))
+        u = mega.u_planes_for_direct(key, cfg, scene.lights.count, cuda)
+        kw = dict(key=key, spp=1, width=64, two_sided=False, chunks=chunks)
+        want = (MK.direct_pass_reference(*tables, zeros, u, **kw),)
+        got = (MK.direct_pass(*tables, zeros.clone(), u, **kw),)
+        exact = (MK.direct_pass(*tables, zeros.clone(), u,
+                                build_flags=("--fmad=false",), **kw),)
+    else:
+        ipar = torch.tensor([0, 0], dtype=torch.int32)
+        u = mega.u_planes_for_pass(pt.init_state(cfg, cuda)["key"], 0, cfg,
+                                   scene.lights.count, cuda)
+        kw = dict(spp=1, width=64, bounces=3, two_sided=False,
+                  normalize_emitter=True, seed=cfg.seed, record=True,
+                  russian_roulette=cfg.russian_roulette, rr_start_depth=1,
+                  chunks=chunks)
+        want = MK.pathtrace_pass_reference(tables[0], ipar, *tables[1:],
+                                           zeros, u, **kw)
+        got = MK.pathtrace_pass(tables[0], ipar, *tables[1:], zeros.clone(),
+                                u, **kw)
+        exact = MK.pathtrace_pass(tables[0], ipar, *tables[1:],
+                                  zeros.clone(), u,
+                                  build_flags=("--fmad=false",), **kw)
+        assert (got[1] >= tables[1].shape[0]).any()
+        assert int(got[1].max()) < tables[1].shape[0] + tables[2].shape[0]
+    torch.cuda.synchronize()
+    assert MK.stream_launches == before + 2
+    for a, b in zip(exact, want):
+        assert torch.equal(a, b)
+    beyond = ((got[0] - want[0]).abs()
+              > TOL + TOL * want[0].abs()).any(-1).float().mean().item()
+    assert torch.isfinite(got[0]).all() and beyond <= 0.01
+
+
+def test_streamed_spheres_kernel_matches_brute(cuda, monkeypatch):
+    """sphere_field(600) streamed (the resident budget patched to 64, 5
+    chunks): the --fmad=false build equals the brute plain version on every
+    ray, id and bit."""
+    monkeypatch.setattr(MK, "SPH_RESIDENT_MAX", 64)
+    scene = sphere_field(600, cols=64, rows=48, device=cuda)
+    cfg = RenderConfig(width=64, height=48, bounces=3, use_megakernel=True)
+    assert mega.streamed(scene, cfg) == (False, True)
+    tables = mega.scene_tables(scene, cfg)
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    u = mega.u_planes_for_pass(pt.init_state(cfg, cuda)["key"], 0, cfg,
+                               scene.lights.count, cuda)
+    kw = dict(spp=1, width=64, bounces=3, two_sided=False,
+              normalize_emitter=True, seed=cfg.seed, record=True)
+    zeros = torch.zeros((cfg.total_rays, 3), device=cuda)
+    exact = MK.pathtrace_pass(
+        tables[0], ipar, *tables[1:], zeros.clone(), u,
+        chunks=mega.chunk_tables(scene, cfg, tables[1], tables[2]),
+        build_flags=("--fmad=false",), **kw)
+    want = MK.pathtrace_pass_reference(tables[0], ipar, *tables[1:], zeros,
+                                       u, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(exact, want):
+        assert torch.equal(a, b)
+
+
+def test_streamed_blocked_layout_is_bit_equal(cuda):
+    """The blocked layout over streamed tables: B = 16 renders B = 0's
+    image bit for bit."""
+    from torch_grid_scenes import cornell_torus
+    scene = cornell_torus(64, 48, 31, 16, device=cuda)
+    cfg = RenderConfig(width=64, height=48, bounces=0, use_megakernel=True)
+    img0 = mega.render_direct_mega(scene, cfg, n_passes=3)
+    img16 = mega.render_direct_mega(scene, replace(cfg, mega_block=16),
+                                    n_passes=3)
+    assert torch.equal(img0, img16)
+
+
+def test_streamed_cell_route_trains_through_kernels_1_and_3(cuda):
+    """render_pass on the streamed torus scene with ("sph", "mat", "tri")
+    requiring grad: one streamed kernel-1 (recording) and one kernel-3
+    launch, no kernel 2, finite gradients that reach the mesh."""
+    from torch_grid_scenes import cornell_torus
+    scene = cornell_torus(64, 48, 31, 16, device=cuda)
+    cfg = RenderConfig(width=64, height=48, bounces=3, use_megakernel=True,
+                       mega_grad_wrt=("sph", "mat", "tri"))
+    m = scene.meshes[0]
+    tv = m.tris.v.clone().requires_grad_(True)
+    mat = scene.materials.clone().requires_grad_(True)
+    sc = replace(scene, materials=mat,
+                 meshes=(replace(m, tris=replace(m.tris, v=tv)),))
+    k1, k2, k3 = MK.launches, MKG.launches, MKG.champ_launches
+    s1 = MK.stream_launches
+    st = pt.render_pass(sc, pt.init_state(cfg, cuda), cfg)
+    torch.mean(pt.image(st, cfg) ** 2).backward()
+    torch.cuda.synchronize()
+    assert (MK.launches - k1, MKG.launches - k2,
+            MKG.champ_launches - k3, MK.stream_launches - s1) == (1, 0, 1, 1)
+    assert torch.isfinite(tv.grad).all() and tv.grad.abs().max() > 0
+    assert torch.isfinite(mat.grad).all() and mat.grad.abs().max() > 0

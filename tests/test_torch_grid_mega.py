@@ -201,7 +201,10 @@ def test_blocked_layout_is_bit_equal(torus):
     """mega_block only maps the kernel's threads to pixels: the image of
     B = 4 equals that of B = 0 bit for bit (on the CPU the plain version,
     which ignores it; on the card tests/test_torch_cuda.py); B = 64 does
-    not tile 48x36, so it runs row-major there (JAX's _effective_block)."""
+    not tile 48x36, so it runs row-major there (JAX's _effective_block).
+    Without use_grid the torus scene's 138 triangles stream, whose blocked
+    layout tests/test_torch_stream.py checks; a scene of resident tables
+    takes no block."""
     _, ps = torus
     cfg = _cfg(RenderConfig, bounces=0)
     img0 = render_direct(ps, cfg)
@@ -215,8 +218,14 @@ def test_blocked_layout_is_bit_equal(torus):
     assert mega.effective_block(RenderConfig(width=48, height=36,
                                              mega_block=64)) == 0
     with pytest.raises(NotImplementedError, match="grid mode"):
-        render_direct(ps, replace(cfg, mega_block=4, use_grid=False))
+        render_direct(_cornell(), replace(cfg, mega_block=4, use_grid=False))
     assert mega.effective_block(replace(cfg, mega_block=4)) == 4
+
+
+def _cornell():
+    """The port's cornell box at W x H: 10 resident triangles."""
+    return scene_from_numpy(scene_to_numpy(jscenes.cornell_box(cols=W,
+                                                               rows=H)))
 
 
 def test_wrapper_rejects_bad_grids_and_blocks(torus):
@@ -237,7 +246,7 @@ def test_wrapper_rejects_bad_grids_and_blocks(torus):
         g0, cell_offsets=g0.cell_offsets.long()),))
     with pytest.raises(ValueError, match="int32"):
         MK.direct_pass(*tables, acc, None, grid=bad, **kw)
-    # a brute prefix past the resident budget still raises (item 10)
+    # a brute prefix past the resident budget still raises
     with pytest.raises(ValueError, match="resident"):
         MK.direct_pass(*tables, acc, None, grid=grid._replace(start=65),
                        **kw)

@@ -192,29 +192,36 @@ def test_supported_raises_outside_the_slice(case):
 
 def test_supported_object_budget():
     """Kernel 1 keeps up to 4608 spheres resident (JAX's SMEM_TABLE_MAX //
-    8) and 64 triangles; more raise (streaming is item 10) without a grid
-    and pass with one (grid mode walks them from global memory)."""
+    8) and 64 triangles; past that a table streams in Morton chunks (JAX's
+    routing: triangles outside grid mode, spheres without a sphere grid,
+    grid mode included) or, with a grid, is walked from global memory."""
     from raytracing_tpu_torch.accel import prepare_grids
     cfg = RenderConfig(width=8, height=8)
     gcfg = RenderConfig(width=8, height=8, use_grid=True)
     assert mega.supported(scenes.cornell_box(cols=8, rows=8), cfg)
     assert mega.supported(scenes.sphere_field(64, cols=8, rows=8), cfg)
     assert mega.supported(scenes.sphere_field(65, cols=8, rows=8), cfg)
-    assert mega.supported(scenes.sphere_field(4608, cols=8, rows=8), cfg)
+    small = scenes.sphere_field(4608, cols=8, rows=8)
+    assert mega.supported(small, cfg)
+    assert mega.streamed(small, cfg) == (False, False)
     big = scenes.sphere_field(4609, cols=8, rows=8)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        mega.supported(big, cfg)
-    with pytest.raises(ValueError, match="prepare_grids"):
-        mega.supported(big, gcfg)
-    assert mega.supported(prepare_grids(big, 1), gcfg)
+    for c in (cfg, gcfg):
+        assert mega.supported(big, c) and mega.streamed(big, c) == (False,
+                                                                    True)
+    gridded = prepare_grids(big, 1)
+    assert mega.supported(gridded, gcfg)
+    assert mega.streamed(gridded, gcfg) == (False, False)
     v = np.random.default_rng(0).uniform(-1, 1, (65, 3, 3))
     sc = scenes.cornell_box(cols=8, rows=8)
     tris65 = types.build_scene(camera=sc.camera,
                                triangles=types.make_triangles(v),
                                lights=sc.lights, materials=sc.materials)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        mega.supported(tris65, cfg)
+    assert mega.supported(tris65, cfg)
+    assert mega.streamed(tris65, cfg) == (True, False)
+    with pytest.raises(ValueError, match="prepare_grids"):
+        mega.supported(tris65, gcfg)
     assert mega.supported(prepare_grids(tris65, 2), gcfg)
+    assert mega.streamed(prepare_grids(tris65, 2), gcfg) == (False, False)
 
 
 def test_wrapper_rejects_bad_arguments():
