@@ -198,6 +198,42 @@ Phases, each fatal on failure (no exception is caught):
      launch of the phase's main-path runs must stream
      (MK.stream_launches); timing only, the torus of HOUSE_SEGMENTS (5,322
      triangles, BENCH_SCENE=house's count).
+ 22. kernels 2 and 2s past 64 objects per type (ROADMAP item 16): (a) at
+     LARGE_W x LARGE_H b5 (the main path's depth), the same u-planes and
+     seeded random cotangent, the u-planes and PRNG routes, one launch of
+     the large-table instance each (none of the 64-object one): kernel 2
+     vs its plain version (the long tables' rows tested a chunk at a
+     time over the program's Morton build, its ``chunks`` argument) on
+     sphere_field(256) and sphere_field(1024) (resident spheres, the 2-
+     and 8-row loops) with ("sph", "mat"), on the torus scene streamed and
+     over its grids with ("sph", "mat", "tri"), and on the streamed torus
+     at BRUTE_W x BRUTE_H b BRUTE_BOUNCES vs the brute plain version (one
+     row at a time, no Morton build); kernel 2s (the two-level composite,
+     the triangles Morton-sorted) vs its plain version on the torus scene
+     and sphere_field(256), with and without the roulette; all under phase
+     6's gates. Where kernel 2s misses them, the rays whose cotangent
+     float32 does not pin down (_ray_moves: the ray's share of the plain
+     cotangent moves between its draws moved by +2^-22 and -2^-22) are
+     excused one at a time, the least stable first, until every other ray
+     is within the gates; each must move the cotangent the gates then
+     read by more than UNSTABLE_MOVE of its norm, and at most 2% of the
+     rays go; the excused rays are listed; edge x grid
+     on the torus scene vs the streamed brute edge route (one kernel-1
+     and one large kernel-2s launch each; cosine >= 0.99999, max |d| <=
+     1e-3 of scale); (c) one launch of each route at DIFF_TABLE_MAX
+     (sphere_field(4096), a seeded soup of 4096 triangles) at CAP_W x
+     CAP_H b1, all five groups, the same gates; (b) at 1024^2 b5: the
+     "pallas" train step (one kernel-1 and one large kernel-2 launch per
+     step) beside the cell route's (kernel 1 recording and kernel 3) on
+     sphere_field(1024) with ("sph", "mat") and on the torus scene
+     streamed with ("sph", "mat", "tri"), LARGE_STEPS steps each, median
+     ms and fwd+bwd segments/s, kernel 2 alone on the last step's
+     cotangent with its bound; BENCH_EDGE on the torus scene (one step;
+     one kernel-1 and one large kernel-2s launch), kernel 2s alone (CUDA
+     events around its launch in that step) with its bound (pairs per
+     span and the spans' level). Prints the phase's seconds. The kernels
+     line's entries of this phase name the size of their ``ms``
+     (``shape``) and of their ``plain_ms`` (``plain_shape``).
 Each phase prints the seconds elapsed since the start before it runs.
 Ends with a kernels JSON line and, last, the device JSON line. Exits non-zero
 without a result where CUDA is missing or the package is not beside it.
@@ -261,6 +297,14 @@ STREAM_BRUTE_W, STREAM_BRUTE_H = 64, 48  # plain streamed vs plain brute
 EDGE_BW = 2e-2             # mega_edge_bandwidth (and tau)
 EDGE_W, EDGE_H = 256, 192  # kernel 2s vs its plain version, edge x grid
 EDGE_STEPS = 10
+# phase 22: kernels 2 and 2s past 64 objects per type (ROADMAP item 16)
+LARGE_W, LARGE_H = 24, 16  # kernel vs plain: 384 rays
+# kernel 2s's rays that float32 does not pin down (_ray_moves)
+UNSTABLE_MOVE = 1e-3
+BRUTE_W, BRUTE_H, BRUTE_BOUNCES = 8, 6, 2  # the streamed torus vs brute
+LARGE_STEPS = 5            # timed hard steps per route at 1024^2
+CAP_W, CAP_H = 16, 8       # one launch of each route at DIFF_TABLE_MAX
+SOFT_CHUNK = 64            # JAX's SOFT_CHUNK: rows per span past 64
 
 # Bounds: the least time the card could take for a kernel's work, the
 # larger of its FP32 operations over the H100's 67 TFLOP/s and its bytes
@@ -308,13 +352,18 @@ OPS_DIRECT_SHADE = 86    # per direct-mode shadow ray: disk point 28, ray
                          # ambient and clip 4, albedo x shade into acc 6
 # The reverse sweep (csrc/pathtrace_adj.cuh reverse_sweep), per taped
 # segment, shadow ray or path, each term under the diff_wrt groups that run
-# it (_adj_ops). With dot 5, cross 9, normalize 11 and normalize_adj 24:
-OPS_ADJ_SURFACE_SPHERE = 22    # tape read 1, hit point 6, normal 3 + 11,
-                               # albedo 1
-OPS_ADJ_SURFACE_TRIANGLE = 36  # the same with the vertex normals 17
-OPS_ADJ_NEE = 107        # per shadow ray: shadow_ray 53, light geometry 24
-                         # (q, r2, floor, two cosines, clips), shading 3,
-                         # albedo and throughput cotangents 27
+# it (_adj_ops), counted as kernel 2s's are: each forward piece once (kernel
+# 2: kernel 1's pass, _k1_ops; kernel 3: _k3_fwd_ops), the *_ADJ constants
+# the adjoint's own operations, not the pieces the sweep recomputes (the
+# champion's surface, the discriminant or the Moller-Trumbore terms, the
+# shadow ray and light geometry, the tangent frame and bounce direction,
+# the camera chain, the survival probability). With dot 5, cross 9,
+# normalize 11 and normalize_adj 24:
+OPS_SHADOW = 77          # kernel 3's forward piece per shadow ray: the
+                         # shadow ray 53 (disk point 28, ray 25) and the
+                         # light geometry 24 (kernel 1's in OPS_NEE)
+OPS_ADJ_NEE = 30         # per shadow ray: the shading's adjoint 3, albedo
+                         # and throughput cotangents 27
 OPS_ADJ_NEE_FREE = 4     # per free shadow ray: the geometric term
 OPS_ADJ_NEE_GEOM = 92    # per free shadow ray, with par/sph/tri/lig: gsh 6,
                          # ggeom 5, area and cosine cotangents 9, r2 5, clips
@@ -323,27 +372,25 @@ OPS_ADJ_NEE_GEOM = 92    # per free shadow ray, with par/sph/tri/lig: gsh 6,
 OPS_ADJ_NEE_LIG = 32     # per free shadow ray, with lig: the light row's
                          # position, normal, irradiance, tangent, bitangent
                          # 18, radius 14
-OPS_ADJ_BOUNCE = 293     # per segment followed by a taped one, with
-                         # par/sph/tri, after the recomputed bounce
-                         # (OPS_BOUNCE): tangent frame 53, direction 15 +
-                         # 24, cosine lift 9, tangent_frame_adj 171 (2
-                         # normalize 22, 6 cross 54, 3 normalize_adj 72,
-                         # min-component 11, adds 9, selects 3), origin,
-                         # normal and eps 21
-OPS_ADJ_SPHERE = 134     # per sphere champion, with par/sph/tri: hit point
-                         # and normal 32 + 18, root and discriminant 84
+OPS_ADJ_BOUNCE = 225     # per segment followed by a taped one, with
+                         # par/sph/tri: direction 24, cosine lift 9,
+                         # tangent_frame_adj 171 (2 normalize 22, 6 cross 54,
+                         # 3 normalize_adj 72, min-component 11, adds 9,
+                         # selects 3), origin, normal and eps 21
+OPS_ADJ_SPHERE = 106     # per sphere champion, with par/sph/tri: hit point
+                         # and normal 32 + 18, the root's and discriminant's
+                         # cotangents 56
 OPS_ADJ_SPHERE_ROW = 2   # with sph: the radius cotangent
-OPS_ADJ_TRIANGLE = 162   # per triangle champion, with par/sph/tri: hit
-                         # point and normal 32, barycentrics 19, o x d 9,
-                         # Moller-Trumbore numerators and divisor 34, their
-                         # cotangents 20, origin and direction 48
+OPS_ADJ_TRIANGLE = 119   # per triangle champion, with par/sph/tri: hit
+                         # point and normal 32, barycentrics 19, the
+                         # numerators' and divisor's cotangents 20, origin
+                         # and direction 48
 OPS_ADJ_TRIANGLE_ROW = 32  # with tri: the row's 25 cotangents
-OPS_ADJ_CAMERA = 280     # per path, with par: the camera chain replayed
-                         # 94, its adjoint 155, the par cotangents 31
-OPS_ADJ_RR = 46          # per segment that followed a roulette, plus 3 per
-                         # light (the throughput replayed): p 5, 1 / p, the
-                         # tie and bound weights 20, g.tp 5, the chain 5,
-                         # the three cotangents 11
+OPS_ADJ_CAMERA = 186     # per path, with par: the camera chain's adjoint
+                         # 155, the par cotangents 31
+OPS_ADJ_RR = 41          # per segment that followed a roulette: the tie and
+                         # bound weights 20, g.tp 5, the chain 5, the three
+                         # cotangents 11
 # Kernel 2s (csrc/pathtrace_soft_adj.cuh, csrc/megakernel_soft.cu), counted
 # the same way with each expf as one operation (a sigmoid: negate, expf,
 # add, divide: 4); _soft_ops puts them together per segment and light. What
@@ -363,6 +410,10 @@ OPS_SOFT_FIELDS_TRIANGLE = 42  # clips 6, vertex normals 15, normalize 11,
 OPS_SOFT_PAIR = 9        # per ordered pair of the composite (comp_fwd):
                          # sigmoid of the depth order 6, 1 - alpha s 2, product
 OPS_SOFT_BLEND = 24      # per hypothesis: coverage sum 2, weight 2, blend 20
+OPS_SOFT_SPAN = 7        # per span of the two-level composite (past 64
+                         # objects): its coverage's clip 2, 1 / cov 5 (it
+                         # is then a hypothesis of the spans' composite)
+OPS_SOFT_SPAN_ADJ = 10   # its adjoint: the clip and 1 / cov
 OPS_SOFT_SEGMENT = 30    # per segment: o x d 9, 1 / cov 5, the finished
                          # surface (clip, normal and its fallback) 16
 OPS_SOFT_PAIR_ADJ = 14   # per ordered pair in comp_adj, past the pair's
@@ -488,14 +539,13 @@ def _direct_ops(w: dict, n_sph: int, n_tri: int) -> float:
             + w["occluded"] * one)
 
 
-def _adj_ops(w: dict, wrt, n_lig: int = 1) -> float:
-    """FP32 operations of the reverse sweep over the taped segments of w
-    for the diff_wrt groups ``wrt``; the warp sums of the row adds and the
-    atomics are not counted."""
+def _adj_ops(w: dict, wrt) -> float:
+    """FP32 operations of the reverse sweep's own work (its recomputed
+    forward pieces are counted once with the forward: _k1_ops, _k3_fwd_ops)
+    over the taped segments of w for the diff_wrt groups ``wrt``; the warp
+    sums of the row adds and the atomics are not counted."""
     geo = bool({"par", "sph", "tri"} & set(wrt))
-    ops = (w["sph_hits"] * OPS_ADJ_SURFACE_SPHERE
-           + w["tri_hits"] * OPS_ADJ_SURFACE_TRIANGLE
-           + w["shadow"] * OPS_ADJ_NEE + w["free"] * OPS_ADJ_NEE_FREE)
+    ops = w["shadow"] * OPS_ADJ_NEE + w["free"] * OPS_ADJ_NEE_FREE
     if geo or "lig" in wrt:
         ops += w["free"] * OPS_ADJ_NEE_GEOM
     if "lig" in wrt:
@@ -503,14 +553,25 @@ def _adj_ops(w: dict, wrt, n_lig: int = 1) -> float:
     if geo:
         ops += (w["sph_hits"] * OPS_ADJ_SPHERE
                 + w["tri_hits"] * OPS_ADJ_TRIANGLE
-                + w["continued"] * (OPS_BOUNCE + OPS_ADJ_BOUNCE))
+                + w["continued"] * OPS_ADJ_BOUNCE)
     if "sph" in wrt:
         ops += w["sph_hits"] * OPS_ADJ_SPHERE_ROW
     if "tri" in wrt:
         ops += w["tri_hits"] * OPS_ADJ_TRIANGLE_ROW
     if "par" in wrt:
         ops += w["primary"] * OPS_ADJ_CAMERA
-    return ops + w["after_rr"] * (OPS_ADJ_RR + 3 * n_lig)
+    return ops + w["after_rr"] * OPS_ADJ_RR
+
+
+def _k3_ops(w: dict, n_lig: int, wrt) -> float:
+    """FP32 operations of kernel 3 on a record: its forward pieces once
+    (camera and emitter per ray, each recorded champion's surface, each
+    shadow ray and light geometry, each bounce, each roulette) and the
+    sweep's own (_adj_ops)."""
+    return (w["rays"] * (OPS_CAMERA + n_lig * OPS_EMITTER)
+            + (w["sph_hits"] + w["tri_hits"]) * OPS_CHAMP
+            + w["shadow"] * OPS_SHADOW + w["bounces"] * OPS_BOUNCE
+            + w["rr"] * OPS_RR + _adj_ops(w, wrt))
 
 
 def _table_bytes(tables) -> int:
@@ -721,18 +782,25 @@ def main_path(dev, smi: str) -> dict:
             **bound}
 
 
-def _grad_gates(name: str, want, got, max_gate: bool) -> float:
-    """Phase 6 gates of one group; returns max |got - want|."""
+def _gate_stats(want, got) -> tuple:
+    """One group's (finite, max |got - want|, plain norm, kernel norm,
+    cosine, the plain's largest |entry|)."""
     import torch
     a, b = want.double().ravel(), got.double().ravel()
-    _check(bool(torch.isfinite(b).all()), f"{name}: kernel 2 not finite")
     err = (a - b).abs().max().item() if a.numel() else 0.0
     na, nb = a.norm().item(), b.norm().item()
+    cos = (a @ b).item() / max(na * nb, 1e-300)
+    scale = a.abs().max().item() if a.numel() else 0.0
+    return bool(torch.isfinite(b).all()), err, na, nb, cos, scale
+
+
+def _grad_gates(name: str, want, got, max_gate: bool) -> float:
+    """Phase 6 gates of one group; returns max |got - want|."""
+    finite, err, na, nb, cos, scale = _gate_stats(want, got)
+    _check(finite, f"{name}: kernel 2 not finite")
     if na == 0.0:
         _check(nb == 0.0, f"{name}: plain gradient is 0, kernel's {nb:g}")
         return err
-    cos = (a @ b).item() / max(na * nb, 1e-300)
-    scale = a.abs().max().item()
     print(f"    {name}: cosine {cos:.9f}, norm ratio {nb / na:.7f}, "
           f"max|d| {err:.6g} = {err / scale:.3g} x max|plain| {scale:.6g}")
     _check(cos >= 0.999, f"{name}: cosine {cos:.6f} < 0.999")
@@ -1805,15 +1873,11 @@ def full_train(dev, smi: str) -> tuple[dict, dict]:
         n_s, n_t = tables[1].shape[0], tables[2].shape[0]
         work = _pass_work(ids, occs, n_l, n_s, live, rr_start=RR_START)
         if cell:
-            ops = (work["rays"] * (OPS_CAMERA + n_l * OPS_EMITTER)
-                   + (work["sph_hits"] + work["tri_hits"]) * OPS_CHAMP
-                   + work["bounces"] * OPS_BOUNCE + work["rr"] * OPS_RR
-                   + _adj_ops(work, TRAIN_WRT, n_l))
+            ops = _k3_ops(work, n_l, TRAIN_WRT)
             nbytes = (12 * cfg.total_rays + (1 + cfg.bounces) * (4 + n_l)
                       * work["rays"] + 2 * _table_bytes(tables))
         else:
-            ops = _k1_ops(work, n_s, n_t, n_l) + _adj_ops(work, TRAIN_WRT,
-                                                          n_l)
+            ops = _k1_ops(work, n_s, n_t, n_l) + _adj_ops(work, TRAIN_WRT)
             nbytes = 12 * cfg.total_rays + 2 * _table_bytes(tables)
         bound = _bound(ops, nbytes)
         label = "kernel 3 (cell route)" if cell else "kernel 2"
@@ -2536,9 +2600,7 @@ def _path_main(dev, smi: str, phase: int, name: str, scene, cfg, how: str,
                for n, a, b in zip(MKG.DIFF_ALL, want3, got3) if n in wrt)
     live = (g != 0).any(-1)
     w3 = _pass_work(ids, occs, n_l, tabs[1].shape[0], live)
-    k3_ops = (w3["rays"] * (OPS_CAMERA + n_l * OPS_EMITTER)
-              + (w3["sph_hits"] + w3["tri_hits"]) * OPS_CHAMP
-              + w3["bounces"] * OPS_BOUNCE + _adj_ops(w3, wrt))
+    k3_ops = _k3_ops(w3, n_l, wrt)
     k3_bound = _bound(k3_ops, 12 * cfg.total_rays
                       + (1 + cfg.bounces) * (4 + n_l) * w3["rays"]
                       + 2 * _table_bytes(tabs))
@@ -2632,9 +2694,7 @@ def _cell_bounds(tables, ids, occs, g, cfg):
     k1, k1_ops = _record_bound(tables, ids, occs, cfg)
     live = (g != 0).any(-1)
     w3 = _pass_work(ids, occs, n_l, n_s, live)
-    k3_ops = (w3["rays"] * (OPS_CAMERA + n_l * OPS_EMITTER)
-              + (w3["sph_hits"] + w3["tri_hits"]) * OPS_CHAMP
-              + w3["bounces"] * OPS_BOUNCE + _adj_ops(w3, TRAIN_WRT))
+    k3_ops = _k3_ops(w3, n_l, TRAIN_WRT)
     k3 = _bound(k3_ops, 12 * cfg.total_rays
                 + (1 + cfg.bounces) * (4 + n_l) * w3["rays"]
                 + 2 * _table_bytes(tables))
@@ -2647,21 +2707,31 @@ def _soft_ops(rays: float, segs: float, n_sph: int, n_tri: int,
     (the main path's step) over ``rays`` live rays (g != 0, inside the
     scene box) with ``segs`` segments between them. The soft program's work
     depends on the data only through those counts: every segment
-    composites every hypothesis, every shadow ray sees every occluder.
+    composites every hypothesis (past 64 objects in two levels: within
+    each span, then the spans), every shadow ray sees every occluder.
     Each segment's soft surface, each shadow ray's transmittance, the
     emitter and the bounce count once, then their adjoints."""
     n = n_sph + n_tri
+    if n <= UNROLL_SPHERES:
+        pairs, blends, spans = n * (n - 1), n, 0
+    else:
+        # two levels: pairs within each SOFT_CHUNK span of one type, then
+        # between the spans' blends (a zero padding row is no work)
+        widths = _soft_spans(n_sph) + _soft_spans(n_tri)
+        spans = len(widths)
+        pairs = sum(x * (x - 1) for x in widths) + spans * (spans - 1)
+        blends = n + spans
     hyp = n_sph * OPS_SOFT_SPHERE + n_tri * OPS_SOFT_TRIANGLE
     fields = n_sph * OPS_SOFT_FIELDS_SPHERE + n_tri * OPS_SOFT_FIELDS_TRIANGLE
     hyp_adj = (n_sph * OPS_SOFT_HYP_ADJ_SPHERE
                + n_tri * OPS_SOFT_HYP_ADJ_TRIANGLE)
     fields_adj = (n_sph * OPS_SOFT_FIELDS_ADJ_SPHERE
                   + n_tri * OPS_SOFT_FIELDS_ADJ_TRIANGLE)
-    pairs = n * (n - 1)
     # the surface, the throughput (3 per light), and their adjoints
-    surface = (hyp + fields + pairs * OPS_SOFT_PAIR + n * OPS_SOFT_BLEND
-               + OPS_SOFT_SEGMENT + 3 * n_lig + hyp_adj + fields_adj
-               + pairs * OPS_SOFT_PAIR_ADJ + n * OPS_SOFT_BLEND_ADJ
+    surface = (hyp + fields + pairs * OPS_SOFT_PAIR + blends * OPS_SOFT_BLEND
+               + OPS_SOFT_SEGMENT + spans * (OPS_SOFT_SPAN + OPS_SOFT_SPAN_ADJ)
+               + 3 * n_lig + hyp_adj + fields_adj
+               + pairs * OPS_SOFT_PAIR_ADJ + blends * OPS_SOFT_BLEND_ADJ
                + OPS_SOFT_SEGMENT_ADJ)
     nee = (hyp + n * OPS_SOFT_OCCLUDER + hyp_adj + n * OPS_SOFT_OCCLUDER_ADJ
            + OPS_SOFT_NEE_ADJ)
@@ -3343,6 +3413,530 @@ def stream_main(dev, smi: str, work: dict, grid_ms: float) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: kernels 2 and 2s past 64 objects per type (ROADMAP item 16)
+# ---------------------------------------------------------------------------
+
+def _large_scene(shape: str, w: int, h: int, dev):
+    """Phase 22's scenes: sphere_field(SMALL_SPHERES) ("spheres"),
+    sphere_field(N_SPHERES) ("spheres1024"), the torus scene of phase 21
+    (cornell + 992 triangles, no grid: "torus"), the same over its grids
+    (phase 16's, "torus-grid"), and at DIFF_TABLE_MAX sphere_field(4096)
+    ("cap-spheres") and a seeded soup of 4096 triangles in cornell's light
+    and camera ("cap-triangles")."""
+    from raytracing_tpu_torch.core.types import build_scene
+    from raytracing_tpu_torch.models.scenes import cornell_box, sphere_field
+    from raytracing_tpu_torch.render import mega
+    if shape == "spheres":
+        return sphere_field(SMALL_SPHERES, cols=w, rows=h, device=dev)
+    if shape == "spheres1024":
+        return sphere_field(N_SPHERES, cols=w, rows=h, device=dev)
+    if shape == "cap-spheres":
+        return sphere_field(mega.DIFF_TABLE_MAX, cols=w, rows=h, device=dev)
+    if shape == "cap-triangles":
+        c = cornell_box(cols=w, rows=h, device=dev)
+        return build_scene(camera=c.camera, lights=c.lights,
+                           materials=c.materials, triangles=_soup(
+                               mega.DIFF_TABLE_MAX, HIT_SEED).to(dev))
+    if shape == "torus-grid":
+        return _grid_scene("torus", w, h, dev)
+    return _stream_scene("torus", w, h, dev)
+
+
+def _plain_chunks(mega, MK, scene, tables):
+    """Streams for the plain versions' forward: the triangles past 64 and
+    the spheres past 64, in Morton chunks also where the kernel keeps them
+    resident or walks a grid. The plain version tests a chunk of rows at
+    a time and gives the brute version's champions, bits and values (phase
+    21 (2)), where the brute version launches per object."""
+    tri = (mega.tri_chunk_tables(scene, tables[2])
+           if tables[2].shape[0] > MK.UNROLL_OBJECTS else None)
+    sph = (mega.sph_chunk_tables(scene, tables[1])
+           if tables[1].shape[0] > MK.UNROLL_OBJECTS else None)
+    return (None if tri is None and sph is None
+            else MK.KernelChunks(tri=tri, sph=sph))
+
+
+def _gates_hold(want, got) -> bool:
+    """Whether one group passes phase 6's gates (_grad_gates with max
+    |d|), without failing the run."""
+    finite, err, na, nb, cos, scale = _gate_stats(want, got)
+    if not finite or na == 0.0:
+        return finite and nb == 0.0
+    return cos >= 0.999 and abs(nb / na - 1.0) <= 0.01 and err <= 5e-3 * scale
+
+
+def _ray_moves(MKS, tables, g, u, kw, wrt) -> dict:
+    """Per group in ``wrt``, how far each ray's share of the plain soft
+    cotangent moves between its draws moved by +2^-22 and by -2^-22 (a
+    roulette draw within rounding of its survival probability, a grazing
+    hit near a square root's zero: rays whose cotangent float32 does not
+    pin down). A ray's share is <g_r, d acc_r / d theta . v>, read by
+    forward-mode AD through soft_pass_value for a seeded normal tangent v
+    over the group's table; the larger move of two tangents. Only the
+    plain version is read: the kernel cannot choose the rays it is
+    excused on. Returns {group: (R,) moves}."""
+    import numpy as np
+    import torch
+    import torch.autograd.forward_ad as fwAD
+    from raytracing_tpu_torch.ops import megakernel_grad as MKG
+    rng = np.random.default_rng(GRAD_SEED)
+    vkw = {k: v for k, v in kw.items() if k not in ("seed", "diff_wrt")}
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    d = 2.0 ** -22
+    up = torch.where(u + d < 1.0, u + d, u - d)
+    down = torch.where(u - d >= 0.0, u - d, u + d)
+    moves = {}
+    for i, name in enumerate(MKG.DIFF_ALL):
+        if name not in wrt or not tables[i].numel():
+            continue
+        move = torch.zeros(g.shape[0], device=g.device)
+        for _ in range(2):
+            v = torch.as_tensor(rng.normal(size=tuple(tables[i].shape))
+                                .astype(np.float32), device=g.device)
+
+            def share(planes):
+                with fwAD.dual_level():
+                    duals = list(tables)
+                    duals[i] = fwAD.make_dual(tables[i], v)
+                    acc = MKS.soft_pass_value(duals[0], ipar, *duals[1:],
+                                              planes, **vkw)
+                    return (fwAD.unpack_dual(acc).tangent * g).sum(-1)
+            move = torch.maximum(move, (share(up) - share(down)).abs())
+        moves[name] = move
+    return moves
+
+
+def large_vs_plain(dev, shape: str, soft: bool, rr: bool, wrt,
+                   w: int = LARGE_W, h: int = LARGE_H,
+                   bounces: int = BOUNCES, brute: bool = False) -> dict:
+    """Phase 22 (a) and (c): kernel 2's large-table instance (``soft``
+    False; over the scene's resident spheres, its streamed chunks or its
+    grids, as the forward) or kernel 2s's large-table instance (the
+    two-level composite; the triangles in Morton order) against its plain
+    version on the same tables, u-planes and seeded random cotangent, the
+    u-planes and PRNG routes, under phase 6's gates (max |d| included).
+    The plain hard version tests the long tables a chunk of rows at a
+    time over the program's own Morton build (_plain_chunks), or with
+    ``brute`` one row at a time. Kernel 2s: where a group misses the gates,
+    the least stable rays by _ray_moves are excused one at a time (their
+    cotangent zeroed) until every other ray is within phase 6's gates;
+    each must move the cotangent the gates then read by more than
+    UNSTABLE_MOVE of its norm, and at most 2% of the rays go. Returns
+    max |d|, the plain version's ms and the kernel's (CUDA events, PRNG
+    route), and the size they were taken at."""
+    import numpy as np
+    import torch
+    from raytracing_tpu_torch import RenderConfig
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.ops import megakernel_grad as MKG
+    from raytracing_tpu_torch.ops import megakernel_soft as MKS
+    from raytracing_tpu_torch.render import mega
+    from raytracing_tpu_torch.render import pathtracer as pt
+
+    grid = shape == "torus-grid"
+    scene = _large_scene(shape, w, h, dev)
+    cfg = RenderConfig(width=w, height=h, bounces=bounces,
+                       russian_roulette=rr, rr_start_depth=RR_START,
+                       use_megakernel=True, use_grid=grid)
+    tables = list(mega.scene_tables(scene, cfg))
+    n_s, n_t = tables[1].shape[0], tables[2].shape[0]
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    u = mega.u_planes_for_pass(pt.init_state(cfg, dev)["key"], 0, cfg,
+                               scene.lights.count, dev)
+    g = torch.as_tensor(np.random.default_rng(GRAD_SEED).normal(
+        size=(cfg.total_rays, 3)).astype(np.float32), device=dev)
+    chunks = mega.chunk_tables(scene, cfg, tables[1], tables[2])
+    kw = _pass_kw(cfg, diff_wrt=wrt)
+    if soft:
+        st = mega.soft_tri_order(scene, tables[2], chunks)
+        if st is not None:
+            tables[2] = st.rows
+        kw.update(soft_bandwidth=EDGE_BW, soft_tau=EDGE_BW)
+
+        def plain(gg):
+            return MKS.pathtrace_pass_bwd_soft_reference(
+                tables[0], ipar, *tables[1:], gg, u, **kw)
+
+        def kernel(gg, planes):
+            return MKS.pathtrace_pass_bwd_soft(tables[0], ipar, *tables[1:],
+                                               gg, planes, **kw)
+        count = lambda: MKS.soft_large_launches  # noqa: E731
+    else:
+        replay = dict(grid=mega.grid_tables(scene) if grid else None,
+                      chunks=chunks)
+        pchunks = None if brute else _plain_chunks(mega, MK, scene, tables)
+
+        def plain(gg):
+            return MKG.pathtrace_pass_bwd_reference(
+                tables[0], ipar, *tables[1:], gg, u, chunks=pchunks, **kw)
+
+        def kernel(gg, planes):
+            return MKG.pathtrace_pass_bwd(tables[0], ipar, *tables[1:], gg,
+                                          planes, **kw, **replay)
+        count = lambda: MKG.large_launches  # noqa: E731
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = plain(g)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    before, small = count(), (MKG.launches, MKS.soft_launches)
+    got = {"u-planes": kernel(g, u), "PRNG": kernel(g, None)}
+    torch.cuda.synchronize()
+    _check(count() == before + 2 and (MKG.launches, MKS.soft_launches)
+           == small, f"{shape}: {count() - before} launches of the large-"
+           "table instance (want 2) or a launch of the 64-object one")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    kernel(g, None)
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end)
+    what = "kernel 2s" if soft else "kernel 2"
+    size = f"{w}x{h} b{bounces}"
+    order = ", Morton-sorted" if soft and n_t > 64 else ""
+    print(f"phase 22 {what} large-table instance, {shape} ({n_s} spheres, "
+          f"{n_t} triangle rows{order}{', over its grids' if grid else ''})"
+          f" {size}"
+          f"{' with the roulette' if rr else ''} wrt {list(wrt)} vs the "
+          f"plain version{' (brute)' if brute else ''}: plain "
+          f"{plain_ms:.6g} ms, kernel (PRNG route) {ms:.6g} ms")
+    _check(any(a.any().item() for n, a in zip(MKG.DIFF_ALL, want)
+               if n in wrt), f"{shape}: every plain cotangent is 0")
+    for route, outs in got.items():
+        _check(all(bool(torch.isfinite(b).all()) for b in outs),
+               f"{shape}: {what} {route} route not finite")
+    held = [n for n, a in zip(MKG.DIFF_ALL, want) if n in wrt and a.numel()]
+    if soft and not all(_gates_hold(want[i], outs[i]) for outs in
+                        got.values() for i, n in enumerate(MKG.DIFF_ALL)
+                        if n in held):
+        moves = _ray_moves(MKS, tables, g, u, kw, wrt)
+        idx = {n: i for i, n in enumerate(MKG.DIFF_ALL)}
+        # the least stable ray left, one at a time, until every other ray
+        # is within the gates: its move over the norm of the cotangent the
+        # gates then read (group by group), which must pass UNSTABLE_MOVE
+        cap = max(1, cfg.total_rays // 50)
+        excused = []
+        while not all(_gates_hold(want[i], outs[i]) for outs in got.values()
+                      for i, n in enumerate(MKG.DIFF_ALL) if n in held):
+            rel = torch.stack([m / max(want[idx[n]].norm().item(), 1e-30)
+                               for n, m in moves.items()]).amax(0)
+            rel[excused] = -1.0
+            r = int(rel.argmax())
+            move = rel[r].item()
+            print(f"  a group misses phase 6's gates; the least stable ray "
+                  f"left, {r}, moves the cotangent by {move:.3g} of its "
+                  "norm between draws moved by +-2^-22")
+            _check(len(excused) < cap and move > UNSTABLE_MOVE,
+                   f"{shape}: {what} misses phase 6's gates on rays that "
+                   f"are stable (ray {r}: {move:.3g} <= {UNSTABLE_MOVE:g}) "
+                   f"or past {cap} excused rays")
+            excused.append(r)
+            gk = g.clone()
+            gk[excused] = 0.0
+            want = plain(gk)
+            got = {"u-planes": kernel(gk, u), "PRNG": kernel(gk, None)}
+        print(f"  rays {excused} excused ({len(excused)} of at most {cap}); "
+              f"{what} on the other {cfg.total_rays - len(excused)} rays:")
+    err = 0.0
+    for route, outs in got.items():
+        print(f"  {what} {route} route vs plain version:")
+        for name, a, b in zip(MKG.DIFF_ALL, want, outs):
+            if name in held:
+                err = max(err, _grad_gates(name, a, b, True))
+            else:
+                _check(not b.any().item(), f"{name} outside diff_wrt "
+                       "is not zero")
+    return {"max_abs_err": err, "plain_ms": plain_ms, "ms": ms,
+            "shape": f"{shape} {size}"}
+
+
+def edge_grid_large(dev, w: int, h: int) -> float:
+    """Phase 22 (a): edge x grid on the torus scene (kernel 1's grid
+    forward; kernel 2s's large-table instance over a Morton-sorted copy
+    built for the backward alone) against the brute edge route over the
+    streamed table, ("sph", "mat", "tri"), the same seeded cotangent of
+    acc: equal
+    up to the order of float atomics (cosine >= 0.99999, max |d| <= 1e-3
+    of each group's scale). Returns the largest |d| over the scales."""
+    import numpy as np
+    import torch
+    from raytracing_tpu_torch import RenderConfig, replace
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.ops import megakernel_grad as MKG
+    from raytracing_tpu_torch.ops import megakernel_soft as MKS
+    from raytracing_tpu_torch.render import mega
+    from raytracing_tpu_torch.render import pathtracer as pt
+
+    cfg = RenderConfig(width=w, height=h, bounces=BOUNCES,
+                       use_megakernel=True, mega_edge_bandwidth=EDGE_BW,
+                       mega_grad_wrt=MESH_WRT)
+    gacc = torch.as_tensor(np.random.default_rng(GRAD_SEED).normal(
+        size=(cfg.total_rays, 3)).astype(np.float32), device=dev)
+    grads = []
+    for shape, c in (("torus", cfg), ("torus-grid",
+                                      replace(cfg, use_grid=True))):
+        sc = _large_scene(shape, w, h, dev)
+        m = sc.meshes[0]
+        p = {"center": sc.spheres.center, "materials": sc.materials,
+             "tv": m.tris.v}
+        p = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+        sc = replace(sc, spheres=replace(sc.spheres, center=p["center"]),
+                     materials=p["materials"],
+                     meshes=(replace(m, tris=replace(m.tris, v=p["tv"])),))
+        MK.launches = MKS.soft_large_launches = MKG.launches = 0
+        acc = mega.render_pass_mega(sc, pt.init_state(c, dev), c)["acc"]
+        grads.append(torch.autograd.grad((acc * gacc).sum(),
+                                          list(p.values())))
+        torch.cuda.synchronize()
+        _check(MK.launches == 1 and MKS.soft_large_launches == 1
+               and MKG.launches == 0,
+               f"edge {shape}: {MK.launches} kernel-1, "
+               f"{MKS.soft_large_launches} kernel-2s (large) and "
+               f"{MKG.launches} kernel-2 launches (want 1, 1, 0)")
+    worst = 0.0
+    print(f"phase 22 edge x grid, the torus scene {w}x{h} b{BOUNCES} "
+          "over its grids vs streamed brute, ('sph', 'mat', 'tri'):")
+    for name, a, b in zip(("center", "materials", "tv"), *grads):
+        a, b = a.double().ravel(), b.double().ravel()
+        _check(bool(torch.isfinite(b).all()), f"{name}: not finite")
+        scale = a.abs().max().item()
+        rel = (a - b).abs().max().item() / max(scale, 1e-30)
+        cos = (a @ b).item() / max(a.norm().item() * b.norm().item(), 1e-300)
+        print(f"    {name}: cosine {cos:.9f}, max|d| {rel:.3g} x "
+              f"max|brute| {scale:.6g}")
+        _check(scale > 0 and cos >= 0.99999 and rel <= 1e-3,
+               f"edge x grid {name}: cosine {cos:.9f}, max|d| {rel:.3g}")
+        worst = max(worst, rel)
+    return worst
+
+
+def _large_params(scene, mesh: bool) -> dict:
+    """The trained parameters of phase 22's steps: sphere centres, radii
+    and materials, and with ``mesh`` the torus's vertices."""
+    p = {"center": scene.spheres.center, "radius": scene.spheres.radius,
+         "materials": scene.materials}
+    if mesh:
+        p["tv"] = scene.meshes[0].tris.v
+    return {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+
+
+def _large_step(scene, cfg, dev, p: dict):
+    """bench.py::_train_bench's step on ``p`` (one pass, mean(image^2),
+    the gradients; parameters fixed, the state threaded); the cotangent of
+    the pass's acc lands in ``p["g"]``."""
+    import torch
+    from raytracing_tpu_torch import replace
+    from raytracing_tpu_torch.render import pathtracer as pt
+
+    leaves = [v for k, v in p.items() if k != "g"]
+    sc = replace(scene, spheres=replace(scene.spheres, center=p["center"],
+                                        radius=p["radius"]),
+                 materials=p["materials"])
+    if "tv" in p:
+        m = scene.meshes[0]
+        sc = replace(sc, meshes=(replace(m, tris=replace(m.tris,
+                                                         v=p["tv"])),))
+
+    def step(state):
+        st = pt.render_pass(sc, state, cfg)
+        st["acc"].register_hook(lambda g: p.__setitem__("g", g))
+        loss = torch.mean(pt.image(st, cfg) ** 2)
+        grads = torch.autograd.grad(loss, leaves)
+        return dict(st, acc=st["acc"].detach()), loss.detach(), grads
+    return step
+
+
+def _soft_spans(n: int) -> list:
+    """Rows per SOFT_CHUNK span of a table of n rows."""
+    return [min(SOFT_CHUNK, n - lo) for lo in range(0, n, SOFT_CHUNK)]
+
+
+def large_train(dev, smi: str, work: dict) -> dict:
+    """Phase 22 (b) at 1024^2 b5: the hard "pallas" step (kernel 1 and
+    kernel 2's large-table instance) beside the cell route's step (kernel 1
+    recording and kernel 3) on sphere_field(N_SPHERES) with ("sph", "mat")
+    and on the torus scene streamed with ("sph", "mat", "tri"), LARGE_STEPS
+    timed steps each after a warm-up, median ms, fwd+bwd segments/s,
+    launches; kernel 2 alone on the last step's cotangent (CUDA events)
+    with its bound; then BENCH_EDGE on the torus scene (tau = bandwidth =
+    EDGE_BW, ("sph", "mat")): one step, kernel 2s's large-table instance alone
+    timed by CUDA events around its launch inside that step, its bound.
+    ``work`` is phase 21's 256x192 chunk work of the torus in path mode.
+    Returns the entries by name."""
+    import torch
+    from raytracing_tpu_torch import RenderConfig, replace
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.ops import megakernel_grad as MKG
+    from raytracing_tpu_torch.ops import megakernel_soft as MKS
+    from raytracing_tpu_torch.render import mega
+    from raytracing_tpu_torch.render import pathtracer as pt
+
+    out = {}
+    for shape, wrt in (("spheres1024", TRAIN_WRT), ("torus", MESH_WRT)):
+        scene = _large_scene(shape, MAIN_W, MAIN_H, dev)
+        base = RenderConfig(width=MAIN_W, height=MAIN_H, bounces=BOUNCES,
+                            use_megakernel=True, mega_grad_wrt=wrt)
+        n_l = scene.lights.count
+        segs = base.total_rays * (1 + n_l + base.bounces * (1 + n_l))
+        ms = {}
+        for route in ("pallas", "cell"):
+            cfg = replace(base, mega_bwd_impl=route)
+            _check(mega.bwd_impl_for(scene, cfg) == route,
+                   f"{shape}: mega_bwd_impl={route} does not route there")
+            p = _large_params(scene, shape == "torus")
+            step = _large_step(scene, cfg, dev, p)
+            state, _, _ = step(pt.init_state(cfg, dev))        # warm-up
+            torch.cuda.synchronize()
+            MK.launches = MK.stream_launches = MKG.launches = 0
+            MKG.large_launches = MKG.champ_launches = 0
+            times = []
+            for _ in range(LARGE_STEPS):
+                t0 = time.perf_counter()
+                state, loss, grads = step(state)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            counts = (MK.launches, MK.stream_launches, MKG.launches,
+                      MKG.large_launches, MKG.champ_launches)
+            streamed = LARGE_STEPS if shape == "torus" else 0
+            want = ((LARGE_STEPS, streamed, 0, LARGE_STEPS, 0)
+                    if route == "pallas"
+                    else (LARGE_STEPS, streamed, 0, 0, LARGE_STEPS))
+            _check(counts == want, f"{shape} {route} step: launches (kernel "
+                   "1, streamed, kernel 2, kernel 2 large, kernel 3) "
+                   f"{counts}, want {want}")
+            _check(bool(torch.isfinite(loss)), f"{shape} {route}: loss")
+            for name, gr in zip(p, grads):
+                _check(bool(torch.isfinite(gr).all()) and bool(gr.any()),
+                       f"{shape} {route}: {name} gradient not finite or 0")
+            ms[route] = float(sorted(times)[len(times) // 2])
+            print(f"phase 22 {route} train step {shape} {MAIN_W}x{MAIN_H} "
+                  f"b{BOUNCES} wrt {list(wrt)} on [{smi}]: median "
+                  f"{ms[route]:.6g} ms/step of {LARGE_STEPS} (min "
+                  f"{min(times):.6g}, max {max(times):.6g}), "
+                  f"{segs / ms[route] * 1e3:.6g} fwd+bwd ray segments/s; "
+                  f"launches (kernel 1, streamed, kernel 2, kernel 2 large,"
+                  f" kernel 3) {counts}")
+            if route == "pallas":
+                launches, g = counts[3], p["g"].contiguous()
+                last = state["passes"] - 1
+        print(f"phase 22 {shape}: pallas step / cell step "
+              f"{ms['pallas'] / ms['cell']:.4g}x (\"auto\" keeps JAX's cell "
+              "route past 64 objects)")
+        # kernel 2's large-table instance alone on the last pallas step's
+        # cotangent
+        cfg = replace(base, mega_bwd_impl="pallas")
+        tables = mega.scene_tables(scene, cfg)
+        n_s, n_t = tables[1].shape[0], tables[2].shape[0]
+        chunks = mega.chunk_tables(scene, cfg, tables[1], tables[2])
+        ipar = torch.tensor([last, 0], dtype=torch.int32)
+        kw = _pass_kw(cfg, diff_wrt=wrt)
+        MKG.pathtrace_pass_bwd(tables[0], ipar, *tables[1:], g, None,
+                               chunks=chunks, **kw)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(3):
+            MKG.pathtrace_pass_bwd(tables[0], ipar, *tables[1:], g, None,
+                                   chunks=chunks, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        k_ms = start.elapsed_time(end) / 3
+        # its bound: the replay's forward (kernel 1's count of the pass,
+        # the streamed chunks' slab and row tests as phase 21's plain
+        # version counted them, scaled) and the sweep's own operations,
+        # over the rays with g != 0, from kernel 1's record of the pass
+        _, ids, occs = MK.pathtrace_pass(
+            tables[0], ipar, *tables[1:], torch.zeros_like(g), None,
+            record=True, chunks=chunks, **_pass_kw(cfg))
+        live = (g != 0).any(-1)
+        w = _pass_work(ids, occs, n_l, n_s, live)
+        if chunks is None:
+            ops = _k1_ops(w, n_s, n_t, n_l)
+            nbytes = _table_bytes(tables)
+        else:
+            share = live.double().mean().item()
+            ops = _stream_ops(w, _scaled(work, share * MAIN_W * MAIN_H
+                                         / (SMALL_W * SMALL_H)),
+                              chunks, n_s, n_t, n_l, False)
+            nbytes = _stream_bytes(tables, chunks)
+        ops += _adj_ops(w, wrt)
+        bound = _bound(ops, 12 * cfg.total_rays + 2 * nbytes)
+        print(f"phase 22 kernel 2 large-table instance alone, {shape} step "
+              f"cotangent wrt {list(wrt)}: {k_ms:.6g} ms "
+              f"({k_ms / ms['pallas']:.3%} of the step); bound "
+              f"{ops / max(w['rays'], 1):.6g} FP32 operations per live ray "
+              f"-> {bound['bound_ms']:.6g} ms ({bound['bound_by']}); share "
+              f"{bound['bound_ms'] / k_ms:.3%}")
+        out[shape] = {"launches": launches, "ms": k_ms,
+                      "shape": f"{shape} {MAIN_W}x{MAIN_H} b{BOUNCES}",
+                      "step_ms": ms["pallas"], "cell_step_ms": ms["cell"],
+                      **bound}
+
+    # BENCH_EDGE on the torus scene: one step, kernel 2s timed inside it
+    scene = _large_scene("torus", MAIN_W, MAIN_H, dev)
+    cfg = RenderConfig(width=MAIN_W, height=MAIN_H, bounces=BOUNCES,
+                       use_megakernel=True, mega_grad_wrt=TRAIN_WRT,
+                       mega_edge_bandwidth=EDGE_BW)
+    n_l = scene.lights.count
+    segs = cfg.total_rays * (1 + n_l + cfg.bounces * (1 + n_l))
+    p = _large_params(scene, False)
+    step = _large_step(scene, cfg, dev, p)
+    events, wrapped = [], MKS.pathtrace_pass_bwd_soft
+
+    def timed(*a, **k):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        r = wrapped(*a, **k)
+        end.record()
+        events.append((start, end))
+        return r
+
+    MKS.pathtrace_pass_bwd_soft = timed
+    try:
+        torch.cuda.synchronize()
+        MK.launches = MK.stream_launches = MKG.launches = 0
+        MKS.soft_launches = MKS.soft_large_launches = 0
+        t0 = time.perf_counter()
+        state, loss, grads = step(pt.init_state(cfg, dev))
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        MKS.pathtrace_pass_bwd_soft = wrapped
+    counts = (MK.launches, MK.stream_launches, MKG.launches,
+              MKS.soft_launches, MKS.soft_large_launches)
+    _check(len(events) == 1, f"edge step: {len(events)} kernel 2s calls")
+    _check(counts == (1, 1, 0, 0, 1), "edge step on the torus scene: "
+           "launches (kernel 1, streamed, kernel 2, kernel 2s, kernel 2s "
+           f"large) {counts}, want (1, 1, 0, 0, 1)")
+    _check(bool(torch.isfinite(loss)), "edge torus step: loss")
+    for name, gr in zip(p, grads):
+        _check(bool(torch.isfinite(gr).all()) and bool(gr.any()),
+               f"edge torus step: {name} gradient not finite or 0")
+    k_ms = events[0][0].elapsed_time(events[0][1])
+    tables = mega.scene_tables(scene, cfg)
+    rays, nsegs = _soft_work(MK, tables, p["g"], cfg)
+    ops = _soft_ops(rays, nsegs, tables[1].shape[0], tables[2].shape[0],
+                    n_l)
+    bound = _bound(ops, 12 * cfg.total_rays + 2 * _table_bytes(tables))
+    print(f"phase 22 BENCH_EDGE step, the torus scene ({tables[2].shape[0]} "
+          f"triangles, {len(_soft_spans(tables[2].shape[0]))} spans, "
+          f"Morton-sorted) {MAIN_W}x{MAIN_H} b{BOUNCES} wrt "
+          f"{list(TRAIN_WRT)} mega_edge_bandwidth {EDGE_BW:g} on [{smi}]: "
+          f"{step_ms:.6g} ms/step (one step), {segs / step_ms * 1e3:.6g} "
+          f"fwd+bwd ray segments/s; launches (kernel 1, streamed, kernel 2, "
+          f"kernel 2s, kernel 2s large) {counts}; kernel 2s large-table "
+          f"instance alone {k_ms:.6g} ms ({k_ms / step_ms:.3%} of the "
+          f"step); bound "
+          f"{ops / max(rays, 1):.6g} FP32 operations per live ray "
+          f"(OPS_SOFT_*, pairs per span and the spans' level) -> "
+          f"{bound['bound_ms']:.6g} ms ({bound['bound_by']}); share "
+          f"{bound['bound_ms'] / k_ms:.3%}")
+    out["edge"] = {"launches": counts[4], "ms": k_ms, "step_ms": step_ms,
+                   "shape": f"torus {MAIN_W}x{MAIN_H} b{BOUNCES}",
+                   **bound}
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3506,7 +4100,30 @@ def main() -> int:
     m21 = stream_main(dev, smi, {k: v["work"] for k, v in s21.items()},
                       p18s["ms"])
     stream_house(dev, smi)
+    _elapsed(22)
+    # phase 22: kernels 2 and 2s past 64 objects per type
+    t22 = time.perf_counter()
+    a22 = {shape: large_vs_plain(dev, shape, False, False, wrt)
+           for shape, wrt in (("spheres", TRAIN_WRT),
+                              ("spheres1024", TRAIN_WRT),
+                              ("torus", MESH_WRT), ("torus-grid", MESH_WRT))}
+    # the streamed torus against the brute plain version (no Morton build)
+    a22["brute"] = large_vs_plain(dev, "torus", False, False, MESH_WRT,
+                                  BRUTE_W, BRUTE_H, BRUTE_BOUNCES, brute=True)
+    s22 = [large_vs_plain(dev, shape, True, rr, wrt)
+           for shape, wrt in (("torus", MESH_WRT), ("spheres", TRAIN_WRT))
+           for rr in (False, True)]
+    edge_grid_large(dev, LARGE_W, LARGE_H)
+    c22 = {(shape, soft): large_vs_plain(dev, shape, soft, False,
+                                         MKG.DIFF_ALL, CAP_W, CAP_H, 1)
+           for shape in ("cap-spheres", "cap-triangles")
+           for soft in (False, True)}
+    l22 = large_train(dev, smi, s21[("torus", "path")]["work"])
+    print(f"phase 22: {time.perf_counter() - t22:.1f} s")
     print(f"[{time.perf_counter() - START:.1f} s elapsed in all]")
+    hard22 = max([x["max_abs_err"] for x in a22.values()]
+                 + [v["max_abs_err"] for (_, soft), v in c22.items()
+                    if not soft])
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -3658,7 +4275,34 @@ def main() -> int:
         "max_abs_err": max(m21["k3"]["max_abs_err"], c21["max_abs_err"]),
         "ms": m21["k3"]["ms"], "plain_ms": m21["k3"]["plain_ms"],
         "bound_ms": m21["k3"]["bound_ms"], "bound_by": m21["k3"]["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None}] + [{
+        "name": name, "route": "cuda",
+        "source": "raytracing_tpu_torch/csrc/megakernel_grad.cu",
+        "replaces": "raytracing_tpu/ops/pallas/megakernel_grad.py:223",
+        "launches": e["launches"], "max_abs_err": hard22, "ms": e["ms"],
+        "plain_ms": plain["plain_ms"], "bound_ms": e["bound_ms"],
+        "bound_by": e["bound_by"], "library_ms": None,
+        "shape": e["shape"], "plain_shape": plain["shape"]}
+        for name, e, plain in (
+            ("pathtrace_pass_bwd (adjoint megakernel past 64 objects, "
+             f"large-table instance: sphere_field({N_SPHERES}))",
+             l22["spheres1024"], a22["spheres1024"]),
+            ("pathtrace_pass_bwd (adjoint megakernel past 64 objects, "
+             "large-table instance: streamed cornell + torus)", l22["torus"],
+             a22["torus"]))] + [{
+        "name": "pathtrace_pass_bwd_soft (kernel 2s past 64 objects, "
+                "two-level composite: cornell + torus)",
+        "route": "cuda",
+        "source": "raytracing_tpu_torch/csrc/megakernel_soft.cu",
+        "replaces": "raytracing_tpu/ops/pallas/megakernel_grad.py:1883",
+        "launches": l22["edge"]["launches"],
+        "max_abs_err": max([x["max_abs_err"] for x in s22]
+                           + [v["max_abs_err"] for (_, soft), v
+                              in c22.items() if soft]),
+        "ms": l22["edge"]["ms"], "plain_ms": s22[0]["plain_ms"],
+        "bound_ms": l22["edge"]["bound_ms"],
+        "bound_by": l22["edge"]["bound_by"], "library_ms": None,
+        "shape": l22["edge"]["shape"], "plain_shape": s22[0]["shape"]}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -28,8 +28,8 @@ ignored. ``mega_edge_bandwidth > 0`` gives edge-aware gradients: the
 forward stays kernel 1's hard pass, the backward is kernel 2s, the adjoint
 of the soft program (``ops.megakernel_soft``) with that silhouette
 bandwidth and ``mega_edge_tau`` (0: the bandwidth) as its depth-order
-temperature; up to 64 objects per type, grid mode included, and past that
-``render.mega.supported_diff`` raises (ROADMAP Queue 1 item 16).
+temperature; up to ``DIFF_TABLE_MAX`` (4096) objects per type, grid mode
+included, and past that ``render.mega.supported_diff`` raises.
 """
 from __future__ import annotations
 

@@ -573,35 +573,6 @@ __global__ void __launch_bounds__(kBlock)
 
 }  // namespace
 
-// The global-memory arguments of a launch into the kernel's parameters:
-// the HOST array `grids` of n_grids descriptors (n_grids - sph_grid
-// triangle grids, then the sphere grid when sph_grid != 0) and the HOST
-// array `streams` (null, or the triangles' and the spheres' Stream, n = 0
-// for a table that does not stream); sph and tri are the whole tables in
-// global memory. Returns false on bad arguments.
-static bool set_grids(Grids& G, const GridDesc* grids, int n_grids,
-                      int sph_grid, int tri_start, const Stream* streams,
-                      const float* sph, int n_sph, const float* tri,
-                      int n_tri) {
-  if (n_grids < 0 || n_grids > kMaxGrids || sph_grid < 0 || sph_grid > 1 ||
-      sph_grid > n_grids || tri_start < 0 || (n_grids > 0 && !grids))
-    return false;
-  for (int i = 0; i < kMaxGrids; ++i)
-    G.g[i] = i < n_grids ? grids[i] : GridDesc{};
-  G.n_tri = n_grids - sph_grid;
-  G.sph = sph_grid;
-  G.tri_start = tri_start;
-  G.sph_tab = sph;
-  G.tri_tab = tri;
-  G.tri_st = streams ? streams[0] : Stream{};
-  G.sph_st = streams ? streams[1] : Stream{};
-  // a streamed table is the whole table, and neither gridded nor resident
-  if ((G.tri_st.n && (G.tri_st.n != n_tri || G.n_tri || tri_start)) ||
-      (G.sph_st.n && (G.sph_st.n != n_sph || G.sph)))
-    return false;
-  return true;
-}
-
 // C interface (bound with ctypes). `keys` is a HOST array of n_passes pass
 // keys (ignored with u_planes), copied into the launch's parameters.
 // rr != 0: Russian roulette from depth rr_start_depth on (its draw slots in

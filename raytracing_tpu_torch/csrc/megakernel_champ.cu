@@ -196,43 +196,9 @@ __device__ void ray_adjoint_champ(const Tables& T, const Draws& D,
                      gp);
 }
 
-struct Params {
-  const float* par;
-  const float* sph;  // global: read at the champions' rows only
-  const float* tri;
-  const float* mat;
-  const float* lig;
-  int n_sph, n_tri, n_mat, n_lig;
-  const float* g;  // (n_rays, 3) cotangent of acc
-  const int* ids;  // (1 + bounces, n_rays)
-  const uint8_t* occs;  // ((1 + bounces) * n_lig, n_rays)
-  int n_rays;
-  int ray_offset;
-  const float* u;  // (2 * n_draws, n_rays) or nullptr
-  uint32_t k0, k1;  // pass key of the PRNG route
-  int spp, width, bounces;
-  int rr_start;  // first depth of the roulette (kernel with kRR)
-  int two_sided, normalize_emitter;
-  int wrt;
-  float* dpar;
-  float* dsph;
-  float* dtri;
-  float* dmat;
-  float* dlig;
-};
-
-__device__ __forceinline__ void zero(float* p, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) p[i] = 0.0f;
-}
-
-__device__ __forceinline__ void flush(float* dst, const float* src, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    if (src[i] != 0.0f) atomicAdd(dst + i, src[i]);
-}
-
 template <bool kRR>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
-    pathtrace_bwd_champ_kernel(const __grid_constant__ Params p) {
+    pathtrace_bwd_champ_kernel(const __grid_constant__ AdjParams p) {
   extern __shared__ float4 smem4[];  // 16-byte aligned
   float* smem = reinterpret_cast<float*>(smem4);
   const int n_mat = kMat * p.n_mat, n_lig = kLig * p.n_lig;
@@ -270,39 +236,19 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   G.lig = g_lig;
   G.wrt = p.wrt;
 
-  const int n_draws = n_draws_of(p.n_lig, p.bounces, kRR);
   float gp[kNPar];
 #pragma unroll
   for (int i = 0; i < kNPar; ++i) gp[i] = 0.0f;
-  // a grid-stride loop in steps of whole warps: the lanes of a warp stay
-  // together (a lane past the end or with g = 0 runs inactive)
-  const int lane = threadIdx.x & 31;
-  for (int base = blockIdx.x * blockDim.x + threadIdx.x - lane;
-       base < p.n_rays; base += gridDim.x * blockDim.x) {
-    const int rid = base + lane;
-    V3 g = mk(0.0f, 0.0f, 0.0f);
-    if (rid < p.n_rays) {
-      const float* gr = p.g + 3 * static_cast<size_t>(rid);
-      g = mk(gr[0], gr[1], gr[2]);
-    }
-    const bool active = g.x != 0.0f || g.y != 0.0f || g.z != 0.0f;
-    const int rid_g = rid + p.ray_offset;
-    Draws D;
-    D.u = p.u;
-    D.n_rays = p.n_rays;
-    D.rid = rid;
-    D.k0 = p.k0;
-    D.k1 = p.k1;
-    D.base = static_cast<uint32_t>(rid_g) * static_cast<uint32_t>(2 * n_draws);
+  for_rays<kRR>(p, [&](const Draws& D, bool active, int rid_g, V3 g) {
     Rec R;
     R.ids = p.ids;
     R.occs = p.occs;
     R.n_rays = p.n_rays;
-    R.rid = rid;
+    R.rid = D.rid;
     ray_adjoint_champ<kRR>(T, D, R, active, rid_g, p.spp, p.width,
                            p.bounces, p.rr_start, p.normalize_emitter != 0,
                            g, G, tape, gp);
-  }
+  });
   if (p.wrt & kWPar) add_par(g_par, gp);
   __syncthreads();
   if (p.wrt & kWPar) flush(p.dpar, g_par, kNPar);
@@ -334,59 +280,23 @@ extern "C" int rt_pathtrace_bwd_champ(
       ids == nullptr || (n_lig > 0 && occs == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0 || wrt == 0) return static_cast<int>(cudaGetLastError());
-  Params p;
-  p.par = par;
-  p.sph = sph;
-  p.tri = tri;
-  p.mat = mat;
-  p.lig = lig;
-  p.n_sph = n_sph;
-  p.n_tri = n_tri;
-  p.n_mat = n_mat;
-  p.n_lig = n_lig;
-  p.g = g;
+  AdjParams p = adj_params(par, sph, n_sph, tri, n_tri, mat, n_mat, lig,
+                           n_lig, g, n_rays, ray_offset, u_planes, k0, k1,
+                           spp, width, bounces, rr_start_depth, two_sided,
+                           normalize_emitter, wrt, dpar, dsph, dtri, dmat,
+                           dlig);
   p.ids = ids;
   p.occs = occs;
-  p.n_rays = n_rays;
-  p.ray_offset = ray_offset;
-  p.u = u_planes;
-  p.k0 = k0;
-  p.k1 = k1;
-  p.spp = spp;
-  p.width = width;
-  p.bounces = bounces;
-  p.rr_start = rr_start_depth;
-  p.two_sided = two_sided;
-  p.normalize_emitter = normalize_emitter;
-  p.wrt = wrt;
-  p.dpar = dpar;
-  p.dsph = dsph;
-  p.dtri = dtri;
-  p.dmat = dmat;
-  p.dlig = dlig;
   const size_t smem =
       2 * sizeof(float) * (kParPad + kMat * n_mat + kLig * n_lig) +
       tape_bytes(bounces, kBlock);
-  void (*kernel)(Params) = rr ? pathtrace_bwd_champ_kernel<true>
-                              : pathtrace_bwd_champ_kernel<false>;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && smem > 48 * 1024)
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kBlock, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  void (*kernel)(AdjParams) = rr ? pathtrace_bwd_champ_kernel<true>
+                                  : pathtrace_bwd_champ_kernel<false>;
   // a grid-stride loop over a grid the card holds at once: each block
   // flushes its mat / lig / par buffers once
-  const long long need = (static_cast<long long>(n_rays) + kBlock - 1) /
-                         kBlock;
-  const long long fit = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  const int grid = static_cast<int>(need < fit ? need : fit);
+  int grid = 0;
+  const cudaError_t err = fit_grid(kernel, kBlock, smem, n_rays, grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

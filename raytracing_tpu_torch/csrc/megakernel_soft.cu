@@ -5,9 +5,12 @@
 // Replaces: raytracing_tpu/ops/pallas/megakernel_grad.py::_bwd_kernel
 // (launcher _bwd_pallas, :2152) on its soft route, soft_bandwidth > 0: what
 // jax.vjp of _tile_program_soft (:1516-2144) gives, path mode, with or
-// without Russian roulette, u-planes or PRNG draws, spp >= 1, at most 64
-// objects per type (the tables and their gradient buffers stay in shared
-// memory). The forward value of the pass is kernel 1's hard pass; only the
+// without Russian roulette, u-planes or PRNG draws, spp >= 1: at most 64
+// objects per type (the tables and per-warp gradient buffers stay in
+// shared memory; rt_pathtrace_bwd_soft), and past that up to
+// DIFF_TABLE_MAX = 4096 per type, JAX's two-level composite over every
+// SOFT_CHUNK span (soft_trace :1883-1938; rt_pathtrace_bwd_soft_large,
+// below). The forward value of the pass is kernel 1's hard pass; only the
 // backward is the soft program's. The plain version is
 // ops/megakernel_soft.pathtrace_pass_bwd_soft_reference.
 //
@@ -89,21 +92,25 @@ __device__ __forceinline__ V3 mul3(V3 a, V3 b) {
 }
 
 // Adds light li's row cotangents gl warp-wide (zero where !live).
+template <bool kAtomic>
 __device__ __forceinline__ void add_light(const Grads& G, bool live, int li,
                                           const float (&gl)[kLig]) {
   if (!(G.wrt & kWLig)) return;
 #pragma unroll
   for (int w = 0; w < kLig; ++w)
-    wadd(G.lig + li * kLig + w, live ? gl[w] : 0.0f);
+    wadd<kAtomic>(G.lig + li * kLig + w, live ? gl[w] : 0.0f);
 }
 
 // The whole adjoint of ray rid_g for acc cotangent g; warp-uniform (every
-// lane calls it, `active` false for a lane without a ray).
-template <bool kRR>
+// lane calls it, `active` false for a lane without a ray). Scr: Scratch
+// (one composite, at most 64 objects per type) or SpanScratch (JAX's
+// two-level composite over every span), whose trace_fwd, trace_adj,
+// vis_fwd and vis_adj run.
+template <bool kRR, class Scr>
 __device__ void ray_adjoint(const Tables& T, const Cfg& C, const Draws& D,
                             bool active, int rid_g, int spp, int width,
                             int bounces, int rr_start, bool normalize_emitter,
-                            V3 g, const Grads& G, Scratch& S,
+                            V3 g, const Grads& G, Scr& S,
                             float (&gp)[kNPar]) {
   const int L = T.n_lig;
   const float eps = T.par[kEps];
@@ -254,7 +261,7 @@ __device__ void ray_adjoint(const Tables& T, const Cfg& C, const Draws& D,
         gl[at[k] + 1] += v[k].y;
         gl[at[k] + 2] += v[k].z;
       }
-      add_light(G, live, li, gl);
+      add_light<Scr::kAtomic>(G, live, li, gl);
     }
     // the emitter terms in reverse: acc += (pw lw) irr, pw' = pw (1 - lw)
     float gPW0 = gPwE;
@@ -272,7 +279,7 @@ __device__ void ray_adjoint(const Tables& T, const Cfg& C, const Draws& D,
         gl[ce + 2] += g.z * (pw * e.lw);
         gPW0 = gPW0 * (1.0f - e.lw) + gai * e.lw;
         emit_adj(T, C, li, r, sf.cov, e, glw, go, gd, gMint, gCov, gTbar, gl);
-        add_light(G, live, li, gl);
+        add_light<Scr::kAtomic>(G, live, li, gl);
       }
     }
     // the soft surface into every hypothesis
@@ -289,48 +296,20 @@ __device__ void ray_adjoint(const Tables& T, const Cfg& C, const Draws& D,
   }
 }
 
-struct Params {
-  const float* par;
-  const float* sph;
-  const float* tri;
-  const float* mat;
-  const float* lig;
-  int n_sph, n_tri, n_mat, n_lig;
-  const float* g;  // (n_rays, 3) cotangent of acc
-  int n_rays;
-  int ray_offset;
-  const float* u;  // (2 * n_draws, n_rays) or nullptr
-  uint32_t k0, k1;  // pass key of the PRNG route
-  int spp, width, bounces;
-  int rr_start;
-  int two_sided, normalize_emitter;
-  int wrt;
-  float bw, tau;
-  float* dpar;
-  float* dsph;
-  float* dtri;
-  float* dmat;
-  float* dlig;
-};
-
-__device__ __forceinline__ void zero_buf(float* p, int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) p[i] = 0.0f;
-}
-
-// Adds the block's `copies` gradient buffers (`stride` floats apart) at
-// src into dst: one atomicAdd per nonzero word.
-__device__ __forceinline__ void flush(float* dst, const float* src, int n,
-                                      int stride, int copies) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    float v = 0.0f;
-    for (int w = 0; w < copies; ++w) v += src[w * stride + i];
-    if (v != 0.0f) atomicAdd(dst + i, v);
-  }
+// The block's rays (for_rays): each ray's adjoint adds into G and gp.
+template <bool kRR, class Scr>
+__device__ __forceinline__ void rays(const AdjParams& p, const Tables& T,
+                                     const Cfg& C, const Grads& G, Scr& S,
+                                     float (&gp)[kNPar]) {
+  for_rays<kRR>(p, [&](const Draws& D, bool active, int rid_g, V3 g) {
+    ray_adjoint<kRR, Scr>(T, C, D, active, rid_g, p.spp, p.width, p.bounces,
+                          p.rr_start, p.normalize_emitter != 0, g, G, S, gp);
+  });
 }
 
 template <bool kRR>
 __global__ void __launch_bounds__(kBlock)
-    pathtrace_bwd_soft_kernel(const __grid_constant__ Params p) {
+    pathtrace_bwd_soft_kernel(const __grid_constant__ AdjParams p) {
   extern __shared__ float4 smem4[];  // 16-byte aligned
   float* smem = reinterpret_cast<float*>(smem4);
   const Tables T = stage_tables(smem, p.par, p.sph, p.n_sph, p.tri, p.n_tri,
@@ -347,38 +326,17 @@ __global__ void __launch_bounds__(kBlock)
   G.mat = G.tri + kTri * p.n_tri;
   G.lig = G.mat + kMat * p.n_mat;
   G.wrt = p.wrt;
-  zero_buf(g_all, warps * n_tab);
+  zero(g_all, warps * n_tab);
   __syncthreads();
 
   Cfg C;
   C.ibw = 1.0f / p.bw;
   C.itau = 1.0f / p.tau;
   Scratch S;
-  const int n_draws = n_draws_of(p.n_lig, p.bounces, kRR);
   float gp[kNPar];
 #pragma unroll
   for (int i = 0; i < kNPar; ++i) gp[i] = 0.0f;
-  const int lane = threadIdx.x & 31;
-  for (int base = blockIdx.x * blockDim.x + threadIdx.x - lane;
-       base < p.n_rays; base += gridDim.x * blockDim.x) {
-    const int rid = base + lane;
-    V3 g = mk(0.0f, 0.0f, 0.0f);
-    if (rid < p.n_rays) {
-      const float* gr = p.g + 3 * static_cast<size_t>(rid);
-      g = mk(gr[0], gr[1], gr[2]);
-    }
-    const bool active = g.x != 0.0f || g.y != 0.0f || g.z != 0.0f;
-    const int rid_g = rid + p.ray_offset;
-    Draws D;
-    D.u = p.u;
-    D.n_rays = p.n_rays;
-    D.rid = rid;
-    D.k0 = p.k0;
-    D.k1 = p.k1;
-    D.base = static_cast<uint32_t>(rid_g) * static_cast<uint32_t>(2 * n_draws);
-    ray_adjoint<kRR>(T, C, D, active, rid_g, p.spp, p.width, p.bounces,
-                     p.rr_start, p.normalize_emitter != 0, g, G, S, gp);
-  }
+  rays<kRR>(p, T, C, G, S, gp);
   if (p.wrt & kWPar) add_par(g_par, gp);
   __syncthreads();
   const int o_sph = kParPad, o_tri = o_sph + kSph * p.n_sph,
@@ -390,15 +348,79 @@ __global__ void __launch_bounds__(kBlock)
   if (p.wrt & kWLig) flush(p.dlig, g_all + o_lig, kLig * p.n_lig, n_tab, warps);
 }
 
+// ---------------------------------------------------------------------------
+// Past 64 objects per type (rt_pathtrace_bwd_soft_large), up to DIFF_TABLE_MAX
+// = 4096 per type: JAX's two-level composite over every SOFT_CHUNK span
+// (pathtrace_soft_adj.cuh, SpanScratch). Soft cotangents reach every live
+// hypothesis on every segment, so the per-warp gradient buffers of the instance
+// above (four copies of the tables) do not fit: the block keeps one buffer,
+// which its warps add into atomically (wadd<true>), where the tables and it fit
+// in kResidentBytes each (tables staged as above); past that the sphere and
+// triangle tables are read from global memory (every lane of a warp reads the
+// same row: one L1 line) and their cotangents are added into the global outputs
+// (warp sums, one atomicAdd per word, row and warp), par, mat and lig staying
+// in the block's buffer.
+// ---------------------------------------------------------------------------
+
+constexpr size_t kResidentBytes = 48 * 1024;  // sphere and triangle rows
+
+struct LargeParams {
+  AdjParams p;
+  int resident;  // sphere and triangle tables and buffers in shared memory
+};
+
+template <bool kRR>
+__global__ void __launch_bounds__(kBlock)
+    pathtrace_bwd_soft_large_kernel(const __grid_constant__ LargeParams q) {
+  const AdjParams& p = q.p;
+  extern __shared__ float4 smem4[];  // 16-byte aligned
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int ns = q.resident ? p.n_sph : 0, nt = q.resident ? p.n_tri : 0;
+  Tables T = stage_tables(smem, p.par, p.sph, ns, p.tri, nt, p.mat, p.n_mat,
+                          p.lig, p.n_lig, p.two_sided != 0);
+  T.n_sph = p.n_sph;
+  T.n_tri = p.n_tri;
+  if (!q.resident) {
+    T.sph = p.sph;
+    T.tri = p.tri;
+  }
+  // the block's gradient buffer, in the staged tables' layout
+  const int n_tab = tables_floats(ns, nt, p.n_mat, p.n_lig);
+  float* g_par = smem + n_tab;
+  Grads G;
+  G.sph = q.resident ? g_par + kParPad : p.dsph;
+  G.tri = q.resident ? g_par + kParPad + kSph * ns : p.dtri;
+  G.mat = g_par + kParPad + kSph * ns + kTri * nt;
+  G.lig = G.mat + kMat * p.n_mat;
+  G.wrt = p.wrt;
+  zero(g_par, n_tab);
+  __syncthreads();
+
+  Cfg C;
+  C.ibw = 1.0f / p.bw;
+  C.itau = 1.0f / p.tau;
+  SpanScratch S;
+  float gp[kNPar];
+#pragma unroll
+  for (int i = 0; i < kNPar; ++i) gp[i] = 0.0f;
+  rays<kRR>(p, T, C, G, S, gp);
+  if (p.wrt & kWPar) add_par(g_par, gp);
+  __syncthreads();
+  if (p.wrt & kWPar) flush(p.dpar, g_par, kNPar);
+  if (q.resident && (p.wrt & kWSph)) flush(p.dsph, G.sph, kSph * ns);
+  if (q.resident && (p.wrt & kWTri)) flush(p.dtri, G.tri, kTri * nt);
+  if (p.wrt & kWMat) flush(p.dmat, G.mat, kMat * p.n_mat);
+  if (p.wrt & kWLig) flush(p.dlig, G.lig, kLig * p.n_lig);
+}
 }  // namespace
 
 // C interface (bound with ctypes). Adds the soft program's cotangents of
 // one pass into dpar (26,), dsph (S, 8), dtri (T, 32), dmat (M, 4), dlig
 // (L, 20), which the caller zeroes; `wrt` is a bit set of the groups (1 par,
 // 2 sph, 4 tri, 8 mat, 16 lig); bw and tau the soft bandwidth and the depth
-// order's temperature. Other arguments as rt_pathtrace_bwd. Launches on
-// `stream`, allocates nothing, does not synchronise; returns
-// cudaGetLastError() after the launch.
+// order's temperature. Other arguments as rt_pathtrace_bwd. At most 64
+// objects per type. Launches on `stream`, allocates nothing, does not
+// synchronise; returns cudaGetLastError() after the launch.
 extern "C" int rt_pathtrace_bwd_soft(
     const float* par, const float* sph, int n_sph, const float* tri,
     int n_tri, const float* mat, int n_mat, const float* lig, int n_lig,
@@ -411,57 +433,61 @@ extern "C" int rt_pathtrace_bwd_soft(
       n_sph > kUnroll || n_tri > kUnroll || !(bw > 0.0f) || !(tau > 0.0f))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0 || wrt == 0) return static_cast<int>(cudaGetLastError());
-  Params p;
-  p.par = par;
-  p.sph = sph;
-  p.tri = tri;
-  p.mat = mat;
-  p.lig = lig;
-  p.n_sph = n_sph;
-  p.n_tri = n_tri;
-  p.n_mat = n_mat;
-  p.n_lig = n_lig;
-  p.g = g;
-  p.n_rays = n_rays;
-  p.ray_offset = ray_offset;
-  p.u = u_planes;
-  p.k0 = k0;
-  p.k1 = k1;
-  p.spp = spp;
-  p.width = width;
-  p.bounces = bounces;
-  p.rr_start = rr_start_depth;
-  p.two_sided = two_sided;
-  p.normalize_emitter = normalize_emitter;
-  p.wrt = wrt;
+  AdjParams p = adj_params(par, sph, n_sph, tri, n_tri, mat, n_mat, lig,
+                           n_lig, g, n_rays, ray_offset, u_planes, k0, k1,
+                           spp, width, bounces, rr_start_depth, two_sided,
+                           normalize_emitter, wrt, dpar, dsph, dtri, dmat,
+                           dlig);
   p.bw = bw;
   p.tau = tau;
-  p.dpar = dpar;
-  p.dsph = dsph;
-  p.dtri = dtri;
-  p.dmat = dmat;
-  p.dlig = dlig;
   // the tables and one gradient buffer per warp
   const size_t smem = (1 + kBlock / 32) * sizeof(float) *
                       tables_floats(n_sph, n_tri, n_mat, n_lig);
-  void (*kernel)(Params) = rr ? pathtrace_bwd_soft_kernel<true>
-                               : pathtrace_bwd_soft_kernel<false>;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && smem > 48 * 1024)
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kBlock, smem);
+  void (*kernel)(AdjParams) = rr ? pathtrace_bwd_soft_kernel<true>
+                                  : pathtrace_bwd_soft_kernel<false>;
+  int grid = 0;
+  const cudaError_t err = fit_grid(kernel, kBlock, smem, n_rays, grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long need = (static_cast<long long>(n_rays) + kBlock - 1) /
-                         kBlock;
-  const long long fit = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  const int grid = static_cast<int>(need < fit ? need : fit);
   kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C interface past 64 objects per type: rt_pathtrace_bwd_soft's
+// arguments, at most kMaxSpans spans of kSpan rows (64 of each type:
+// DIFF_TABLE_MAX), the rows composited in the order given.
+extern "C" int rt_pathtrace_bwd_soft_large(
+    const float* par, const float* sph, int n_sph, const float* tri,
+    int n_tri, const float* mat, int n_mat, const float* lig, int n_lig,
+    const float* g, int n_rays, int ray_offset, const float* u_planes,
+    unsigned int k0, unsigned int k1, int spp, int width, int bounces, int rr,
+    int rr_start_depth, int two_sided, int normalize_emitter, int wrt,
+    float bw, float tau, float* dpar, float* dsph, float* dtri, float* dmat,
+    float* dlig, void* stream) {
+  const int spans = (n_sph + kSpan - 1) / kSpan + (n_tri + kSpan - 1) / kSpan;
+  if (bounces < 0 || bounces >= kMaxSeg || n_lig > kMaxLights ||
+      spans > kMaxSpans || !(bw > 0.0f) || !(tau > 0.0f))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rays <= 0 || wrt == 0) return static_cast<int>(cudaGetLastError());
+  LargeParams q;
+  q.p = adj_params(par, sph, n_sph, tri, n_tri, mat, n_mat, lig, n_lig, g,
+                   n_rays, ray_offset, u_planes, k0, k1, spp, width, bounces,
+                   rr_start_depth, two_sided, normalize_emitter, wrt, dpar,
+                   dsph, dtri, dmat, dlig);
+  q.p.bw = bw;
+  q.p.tau = tau;
+  q.resident = sizeof(float) * (kSph * static_cast<size_t>(n_sph) +
+                                kTri * static_cast<size_t>(n_tri)) <=
+               kResidentBytes;
+  // the staged tables and the block's gradient buffer in their layout
+  const size_t smem =
+      2 * sizeof(float) *
+      tables_floats(q.resident ? n_sph : 0, q.resident ? n_tri : 0, n_mat,
+                    n_lig);
+  void (*kernel)(LargeParams) = rr ? pathtrace_bwd_soft_large_kernel<true>
+                                    : pathtrace_bwd_soft_large_kernel<false>;
+  int grid = 0;
+  const cudaError_t err = fit_grid(kernel, kBlock, smem, n_rays, grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(q);
   return static_cast<int>(cudaGetLastError());
 }

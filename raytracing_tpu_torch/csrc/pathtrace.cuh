@@ -175,6 +175,36 @@ struct Grids {
   }
 };
 
+// The global-memory arguments of a launch into a kernel's parameters (kernel
+// 1's grid-mode build, kernel 2's large-table instance):
+// the HOST array `grids` of n_grids descriptors (n_grids - sph_grid
+// triangle grids, then the sphere grid when sph_grid != 0) and the HOST
+// array `streams` (null, or the triangles' and the spheres' Stream, n = 0
+// for a table that does not stream); sph and tri are the whole tables in
+// global memory. Returns false on bad arguments.
+inline bool set_grids(Grids& G, const GridDesc* grids, int n_grids,
+                      int sph_grid, int tri_start, const Stream* streams,
+                      const float* sph, int n_sph, const float* tri,
+                      int n_tri) {
+  if (n_grids < 0 || n_grids > kMaxGrids || sph_grid < 0 || sph_grid > 1 ||
+      sph_grid > n_grids || tri_start < 0 || (n_grids > 0 && !grids))
+    return false;
+  for (int i = 0; i < kMaxGrids; ++i)
+    G.g[i] = i < n_grids ? grids[i] : GridDesc{};
+  G.n_tri = n_grids - sph_grid;
+  G.sph = sph_grid;
+  G.tri_start = tri_start;
+  G.sph_tab = sph;
+  G.tri_tab = tri;
+  G.tri_st = streams ? streams[0] : Stream{};
+  G.sph_st = streams ? streams[1] : Stream{};
+  // a streamed table is the whole table, and neither gridded nor resident
+  if ((G.tri_st.n && (G.tri_st.n != n_tri || G.n_tri || tri_start)) ||
+      (G.sph_st.n && (G.sph_st.n != n_sph || G.sph)))
+    return false;
+  return true;
+}
+
 // 1 / d per axis, with 1e-30 in place of a zero component (JAX's safe_inv).
 __device__ __forceinline__ V3 safe_inv(V3 d) {
   return mk(1.0f / (d.x == 0.0f ? 1e-30f : d.x),

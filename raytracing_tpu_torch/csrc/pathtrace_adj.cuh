@@ -583,4 +583,148 @@ __device__ void reverse_sweep(const Tables& T, const Draws& D, const Tape& tape,
     camera_adj(T.par, D, col, row, samp, spp, go_n, gd_n, gp);
 }
 
+// ---------------------------------------------------------------------------
+// The launch side that kernels 2, 2s and 3 share.
+// ---------------------------------------------------------------------------
+
+// One adjoint launch's parameters: the tables, the cotangent g of acc, the
+// draws, the pass's settings and the outputs. bw and tau are kernel 2s's
+// soft bandwidth and depth temperature, ids and occs kernel 3's record of
+// the pass (kernel 1's); each kernel reads only its own.
+struct AdjParams {
+  const float* par;
+  const float* sph;
+  const float* tri;
+  const float* mat;
+  const float* lig;
+  int n_sph, n_tri, n_mat, n_lig;
+  const float* g;  // (n_rays, 3) cotangent of acc
+  const int* ids;  // (1 + bounces, n_rays)
+  const uint8_t* occs;  // ((1 + bounces) * n_lig, n_rays)
+  int n_rays;
+  int ray_offset;
+  const float* u;  // (2 * n_draws, n_rays) or nullptr
+  uint32_t k0, k1;  // pass key of the PRNG route
+  int spp, width, bounces;
+  int rr_start;  // first depth of the roulette (instances with kRR)
+  int two_sided, normalize_emitter;
+  int wrt;
+  float bw, tau;
+  float* dpar;
+  float* dsph;
+  float* dtri;
+  float* dmat;
+  float* dlig;
+};
+
+// The launch's parameters from the C interfaces' common arguments (ids,
+// occs, bw and tau zero).
+inline AdjParams adj_params(const float* par, const float* sph, int n_sph,
+                            const float* tri, int n_tri, const float* mat,
+                            int n_mat, const float* lig, int n_lig,
+                            const float* g, int n_rays, int ray_offset,
+                            const float* u_planes, unsigned int k0,
+                            unsigned int k1, int spp, int width, int bounces,
+                            int rr_start_depth, int two_sided,
+                            int normalize_emitter, int wrt, float* dpar,
+                            float* dsph, float* dtri, float* dmat,
+                            float* dlig) {
+  AdjParams p = {};
+  p.par = par;
+  p.sph = sph;
+  p.tri = tri;
+  p.mat = mat;
+  p.lig = lig;
+  p.n_sph = n_sph;
+  p.n_tri = n_tri;
+  p.n_mat = n_mat;
+  p.n_lig = n_lig;
+  p.g = g;
+  p.n_rays = n_rays;
+  p.ray_offset = ray_offset;
+  p.u = u_planes;
+  p.k0 = k0;
+  p.k1 = k1;
+  p.spp = spp;
+  p.width = width;
+  p.bounces = bounces;
+  p.rr_start = rr_start_depth;
+  p.two_sided = two_sided;
+  p.normalize_emitter = normalize_emitter;
+  p.wrt = wrt;
+  p.dpar = dpar;
+  p.dsph = dsph;
+  p.dtri = dtri;
+  p.dmat = dmat;
+  p.dlig = dlig;
+  return p;
+}
+
+__device__ __forceinline__ void zero(float* p, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) p[i] = 0.0f;
+}
+
+// Adds the block's `copies` gradient buffers (`stride` floats apart) at
+// src into dst: one atomicAdd per nonzero word.
+__device__ __forceinline__ void flush(float* dst, const float* src, int n,
+                                      int stride = 0, int copies = 1) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    float v = 0.0f;
+    for (int w = 0; w < copies; ++w) v += src[w * stride + i];
+    if (v != 0.0f) atomicAdd(dst + i, v);
+  }
+}
+
+// The block's rays in a grid-stride loop in steps of whole warps, so the
+// lanes of a warp stay together (a lane past the end or with g = 0 runs
+// inactive): f(D, active, rid_g, g) for each, with D the ray's draws
+// (D.rid its index in the launch) and rid_g its index in the pass.
+template <bool kRR, class F>
+__device__ __forceinline__ void for_rays(const AdjParams& p, F&& f) {
+  const int n_draws = n_draws_of(p.n_lig, p.bounces, kRR);
+  const int lane = threadIdx.x & 31;
+  for (int base = blockIdx.x * blockDim.x + threadIdx.x - lane;
+       base < p.n_rays; base += gridDim.x * blockDim.x) {
+    const int rid = base + lane;
+    V3 g = mk(0.0f, 0.0f, 0.0f);
+    if (rid < p.n_rays) {
+      const float* gr = p.g + 3 * static_cast<size_t>(rid);
+      g = mk(gr[0], gr[1], gr[2]);
+    }
+    const bool active = g.x != 0.0f || g.y != 0.0f || g.z != 0.0f;
+    const int rid_g = rid + p.ray_offset;
+    Draws D;
+    D.u = p.u;
+    D.n_rays = p.n_rays;
+    D.rid = rid;
+    D.k0 = p.k0;
+    D.k1 = p.k1;
+    D.base = static_cast<uint32_t>(rid_g) * static_cast<uint32_t>(2 * n_draws);
+    f(D, active, rid_g, g);
+  }
+}
+
+// Launch geometry of a grid-stride kernel of `block` threads: a grid the
+// card holds at once (each block flushes its buffers once), after opting
+// into `smem` bytes of dynamic shared memory.
+template <class Kernel>
+inline cudaError_t fit_grid(Kernel kernel, int block, size_t smem,
+                            int n_rays, int& grid) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        block, smem);
+  const long long need = (static_cast<long long>(n_rays) + block - 1) / block;
+  const long long fit = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  grid = static_cast<int>(need < fit ? need : fit);
+  return err;
+}
+
 }  // namespace rt

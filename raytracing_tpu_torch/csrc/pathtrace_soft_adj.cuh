@@ -17,6 +17,8 @@
 //     pass and a running prefix over j, O(N) per i as the forward. Past
 //     kUnroll hypotheses the spheres and the triangles each composite as one
 //     chunk (first_good 1e-9) and the two chunks' blends composite again;
+//     past kUnroll objects of a type, every kSpan span of a type does
+//     (SpanScratch, the large instance's section at the end);
 //   * the shadow transmittance vis = prod_k (1 - alpha_k sigmoid((dist -
 //     t_k) / bw)) and its adjoint, by the same exclusive products;
 //   * the emitter race of the primary segment, NEE per light, and the
@@ -31,8 +33,9 @@
 // butterfly and added by lane 0 (wadd) into its warp's own gradient buffer,
 // a plain add with no atomic (shared-memory float atomics are
 // compare-and-swap loops on this card, PR 5's finding for kernel 2); the
-// block sums its warps' buffers once at the end. A lane without a live
-// segment takes part with its adds masked to zero.
+// block sums its warps' buffers once at the end (the large instance: one
+// buffer per block or the outputs, added into atomically). A lane without
+// a live segment takes part with its adds masked to zero.
 #pragma once
 
 #include <cstddef>
@@ -77,10 +80,18 @@ __device__ __forceinline__ float clip01_d(float x) {
 
 // Adds v summed over the warp into *p, a word of the warp's own gradient
 // buffer (lane 0 adds, no other lane or warp writes it; all 32 lanes call).
+// kAtomic: a buffer that other warps add into too (a block's in shared
+// memory, or the outputs in global memory), so lane 0 adds atomically.
+template <bool kAtomic = false>
 __device__ __forceinline__ void wadd(float* p, float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  if ((threadIdx.x & 31) == 0 && v != 0.0f) *p += v;
+  if ((threadIdx.x & 31) == 0 && v != 0.0f) {
+    if (kAtomic)
+      atomicAdd(p, v);
+    else
+      *p += v;
+  }
 }
 
 // One segment's rays.
@@ -115,6 +126,7 @@ __device__ __forceinline__ int mat_row(const Tables& T, float mf) {
 // this one): local memory interleaves a word across a warp's lanes, so the
 // lines a scene touches are the same.
 struct Scratch {
+  static constexpr bool kAtomic = false;  // adds into per-warp buffers
   float a[kMaxHyp], t[kMaxHyp], tr[kMaxHyp];
   float A[kMaxHyp], ga[kMaxHyp], gt[kMaxHyp], sf[kMaxHyp], sc[kMaxHyp];
 };
@@ -183,7 +195,7 @@ __device__ __forceinline__ void hyp_fwd(const Tables& T, const Cfg& C, int k,
 // and, with kFields, gf (the 10 fields) to those of the ray (go, gd,
 // gmint) and of the object's rows (added warp-wide, zero where !live).
 // Warp-uniform: every lane calls it with the same k.
-template <bool kFields>
+template <bool kFields, bool kAtomic = false>
 __device__ void hyp_adj(const Tables& T, const Cfg& C, const Grads& G,
                         bool live, int k, const SRay& r, float ga, float gt,
                         const float* gf, V3& go, V3& gd, float& gmint) {
@@ -218,7 +230,7 @@ __device__ void hyp_adj(const Tables& T, const Cfg& C, const Grads& G,
         const int mr = mat_row(T, s[4]);
         if (mr >= 0)  // uniform: the object's material
           for (int w = 0; w < 3; ++w)
-            wadd(G.mat + mr * kMat + w, live ? gf[7 + w] : 0.0f);
+            wadd<kAtomic>(G.mat + mr * kMat + w, live ? gf[7 + w] : 0.0f);
       }
     }
     const float gs1 = ga * msk * s2;
@@ -239,10 +251,10 @@ __device__ void hyp_adj(const Tables& T, const Cfg& C, const Grads& G,
     gd = gd + gD;
     if (G.wrt & kWSph) {
       float* row = G.sph + k * kSph;
-      wadd(row + 0, live ? gC.x : 0.0f);
-      wadd(row + 1, live ? gC.y : 0.0f);
-      wadd(row + 2, live ? gC.z : 0.0f);
-      wadd(row + 3, live ? -2.0f * rad * gcq : 0.0f);
+      wadd<kAtomic>(row + 0, live ? gC.x : 0.0f);
+      wadd<kAtomic>(row + 1, live ? gC.y : 0.0f);
+      wadd<kAtomic>(row + 2, live ? gC.z : 0.0f);
+      wadd<kAtomic>(row + 3, live ? -2.0f * rad * gcq : 0.0f);
     }
     return;
   }
@@ -289,7 +301,7 @@ __device__ void hyp_adj(const Tables& T, const Cfg& C, const Grads& G,
       const int mr = mat_row(T, q[16]);
       if (mr >= 0)
         for (int w = 0; w < 3; ++w)
-          wadd(G.mat + mr * kMat + w, live ? gf[7 + w] : 0.0f);
+          wadd<kAtomic>(G.mat + mr * kMat + w, live ? gf[7 + w] : 0.0f);
     }
   }
   const float gs1 = ga * msk * sd * s2;
@@ -317,13 +329,13 @@ __device__ void hyp_adj(const Tables& T, const Cfg& C, const Grads& G,
     float* row = G.tri + j * kTri;
 #pragma unroll
     for (int w = 0; w < 5; ++w) {  // n_geo, c1, c2, e1, e2
-      wadd(row + 3 * w, live ? v3[w].x : 0.0f);
-      wadd(row + 3 * w + 1, live ? v3[w].y : 0.0f);
-      wadd(row + 3 * w + 2, live ? v3[w].z : 0.0f);
+      wadd<kAtomic>(row + 3 * w, live ? v3[w].x : 0.0f);
+      wadd<kAtomic>(row + 3 * w + 1, live ? v3[w].y : 0.0f);
+      wadd<kAtomic>(row + 3 * w + 2, live ? v3[w].z : 0.0f);
     }
-    wadd(row + 15, live ? gnt : 0.0f);  // k
+    wadd<kAtomic>(row + 15, live ? gnt : 0.0f);  // k
     if (kFields)
-      for (int w = 0; w < 9; ++w) wadd(row + 18 + w, live ? vn[w] : 0.0f);
+      for (int w = 0; w < 9; ++w) wadd<kAtomic>(row + 18 + w, live ? vn[w] : 0.0f);
   }
 }
 
@@ -334,7 +346,7 @@ __device__ void hyp_adj(const Tables& T, const Cfg& C, const Grads& G,
 // Composite of hypotheses [lo, hi) with alpha a[] and t t[]: fills tr[]
 // (each w_i / alpha_i) and returns the raw coverage, 1 / cov, the guard
 // and the blend of the fields fields(i, f).
-template <class Fields>
+template <bool kBlend = true, class Fields>
 __device__ __forceinline__ void comp_fwd(const float* a, const float* t,
                                          float* tr, int lo, int hi,
                                          float itau, float first_good,
@@ -354,7 +366,7 @@ __device__ __forceinline__ void comp_fwd(const float* a, const float* t,
   icov = 1.0f / (good ? cov : 1.0f);
 #pragma unroll
   for (int k = 0; k < 10; ++k) blend[k] = 0.0f;
-  if (!good) return;
+  if (!kBlend || !good) return;
   for (int i = lo; i < hi; ++i) {
     const float wn = a[i] * tr[i] * icov;
     float f[10];
@@ -669,6 +681,204 @@ __device__ __forceinline__ Nee nee_ray(const Tables& T, int li, float u0,
   s.dist = sqrtf(fmaxf(s.d2, 1e-20f));
   s.sd = normalize(s.dl);
   return s;
+}
+
+// ---------------------------------------------------------------------------
+// past kUnroll objects of a type (kernel 2s's large instance)
+// ---------------------------------------------------------------------------
+//
+// JAX's two-level composite over every SOFT_CHUNK span (soft_trace
+// megakernel_grad.py:1883-1938, _chunk_ranges :1838-1846): the sphere
+// table's spans of kSpan rows, then the triangle table's, each in the
+// order the rows are given (the caller hands triangles in Morton order,
+// padded with zero rows, which are value-neutral: alpha 0). Each span
+// composites locally (first_good 1e-9); each span's blend is then one
+// hypothesis of the outer composite (alpha its clipped coverage, t its
+// blended depth). The adjoint recomputes a span's hypotheses and local
+// composite when the outer adjoint reaches it, as JAX's _make_ck
+// checkpoint does, so a thread keeps one span's hypotheses and the spans'
+// blends, not every hypothesis. The shadow transmittance is a product over
+// every row, kept per span: a row's exclusive product is the other spans'
+// (a suffix and a running prefix over spans) times its own span's
+// exclusive product, so no factor is ever divided out. Row cotangents go
+// into buffers other warps add into as well (SpanScratch::kAtomic).
+
+constexpr int kSpan = kUnroll;   // JAX's SOFT_CHUNK
+constexpr int kMaxSpans = 128;   // DIFF_TABLE_MAX / kSpan of each type
+
+// The large instance's per-thread scratch (local memory, 12.8 KB): one
+// span's hypotheses in Scratch's arrays (kSpan entries, reused span by
+// span); per span its raw coverage craw, clipped coverage ca, blended
+// depth ct and fields cf, the outer composite's exclusive products ctr and
+// its adjoint's sums (cA, cga, cgt, csf, csc), and the transmittance's
+// span products vp and the shadow ray's length.
+struct SpanScratch {
+  static constexpr bool kAtomic = true;
+  float a[kSpan], t[kSpan], tr[kSpan];
+  float A[kSpan], ga[kSpan], gt[kSpan], sf[kSpan], sc[kSpan];
+  float craw[kMaxSpans], ca[kMaxSpans], ct[kMaxSpans], ctr[kMaxSpans];
+  float cf[kMaxSpans][10];
+  float cA[kMaxSpans], cga[kMaxSpans], cgt[kMaxSpans], csf[kMaxSpans],
+      csc[kMaxSpans];
+  float vp[kMaxSpans];
+  float dist;  // the shadow ray's length (vis_fwd's)
+};
+
+__device__ __forceinline__ int n_spans(const Tables& T) {
+  return (T.n_sph + kSpan - 1) / kSpan + (T.n_tri + kSpan - 1) / kSpan;
+}
+
+// Objects [lo, hi) of span c (objects: spheres, then triangles).
+__device__ __forceinline__ void span_of(const Tables& T, int c, int& lo,
+                                        int& hi) {
+  const int ns = (T.n_sph + kSpan - 1) / kSpan;
+  if (c < ns) {
+    lo = c * kSpan;
+    hi = min(T.n_sph, lo + kSpan);
+  } else {
+    const int j = (c - ns) * kSpan;
+    lo = T.n_sph + j;
+    hi = T.n_sph + min(T.n_tri, j + kSpan);
+  }
+}
+
+// The soft surface for ray r over every span; fills the spans' blends.
+__device__ void trace_fwd(const Tables& T, const Cfg& C, const SRay& r,
+                          SpanScratch& S, Surf& sf) {
+  const int nc = n_spans(T);
+  for (int c = 0; c < nc; ++c) {
+    int lo, hi;
+    span_of(T, c, lo, hi);
+    for (int i = 0; i < hi - lo; ++i)
+      hyp_fwd<false>(T, C, lo + i, r, S.a[i], S.t[i], nullptr);
+    auto fields = [&](int i, float* f) {
+      float a, t;
+      hyp_fwd<true>(T, C, lo + i, r, a, t, f);
+    };
+    float icov;
+    bool good;
+    comp_fwd(S.a, S.t, S.tr, 0, hi - lo, C.itau, 1e-9f, fields, S.craw[c],
+             icov, good, S.cf[c]);
+    S.ca[c] = clip01(S.craw[c]);
+    S.ct[c] = S.cf[c][0];
+  }
+  auto chunk = [&](int c, float* f) {
+    for (int k = 0; k < 10; ++k) f[k] = S.cf[c][k];
+  };
+  sf.two = false;
+  comp_fwd(S.ca, S.ct, S.ctr, 0, nc, C.itau, 1e-6f, chunk, sf.cov_raw,
+           sf.icov, sf.good, sf.f);
+  finish(sf);
+}
+
+// Adjoint of the two-level trace_fwd (after it, on the same scratch):
+// the outer composite's adjoint, and each span's, recomputed, as the outer
+// one reaches it. Warp-uniform.
+__device__ void trace_adj(const Tables& T, const Cfg& C, const Grads& G,
+                          bool live, const SRay& r, SpanScratch& S,
+                          const Surf& sf, float gcov, float gtbar, V3 gpbar,
+                          V3 gnbar, V3 galb, V3& go, V3& gd, float& gmint) {
+  const V3 gnr = sf.goodn ? sf.ninv * (gnbar - dot(gnbar, sf.nbar) * sf.nbar)
+                          : mk(0.0f, 0.0f, 0.0f);
+  const float gb[10] = {gtbar,  gpbar.x, gpbar.y, gpbar.z, gnr.x,
+                        gnr.y,  gnr.z,   galb.x,  galb.y,  galb.z};
+  auto chunk = [&](int c, float* f) {
+    for (int k = 0; k < 10; ++k) f[k] = S.cf[c][k];
+  };
+  // a span is a hypothesis of the outer composite: alpha its clipped
+  // coverage, t and fields its blend
+  auto span_adj = [&](int c, float ga, float gt, const float* gf) {
+    float gbc[10];
+    for (int k = 0; k < 10; ++k) gbc[k] = gf[k];
+    gbc[0] += gt;
+    int lo, hi;
+    span_of(T, c, lo, hi);
+    for (int i = 0; i < hi - lo; ++i)
+      hyp_fwd<false>(T, C, lo + i, r, S.a[i], S.t[i], nullptr);
+    auto fields = [&](int i, float* f) {
+      float a, t;
+      hyp_fwd<true>(T, C, lo + i, r, a, t, f);
+    };
+    auto obj_adj = [&](int i, float ga_i, float gt_i, const float* gf_i) {
+      hyp_adj<true, true>(T, C, G, live, lo + i, r, ga_i, gt_i, gf_i, go, gd,
+                          gmint);
+    };
+    float craw, icov, blend[10];
+    bool good;
+    comp_fwd<false>(S.a, S.t, S.tr, 0, hi - lo, C.itau, 1e-9f, fields, craw,
+                    icov, good, blend);
+    comp_adj(S.a, S.t, S.tr, 0, hi - lo, C.itau, craw, icov, good, ga, gbc,
+             fields, obj_adj, S.A, S.ga, S.gt, S.sf, S.sc);
+  };
+  comp_adj(S.ca, S.ct, S.ctr, 0, n_spans(T), C.itau, sf.cov_raw, sf.icov,
+           sf.good, gcov, gb, chunk, span_adj, S.cA, S.cga, S.cgt, S.csf,
+           S.csc);
+}
+
+// The shadow transmittance over every span; keeps each span's product.
+__device__ float vis_fwd(const Tables& T, const Cfg& C, const SRay& r,
+                         float dist, SpanScratch& S) {
+  const int nc = n_spans(T);
+  float vis = 1.0f;
+  S.dist = dist;
+  for (int c = 0; c < nc; ++c) {
+    int lo, hi;
+    span_of(T, c, lo, hi);
+    float prod = 1.0f;
+    for (int k = lo; k < hi; ++k) {
+      float a, t;
+      hyp_fwd<false>(T, C, k, r, a, t, nullptr);
+      prod = prod * (1.0f - a * sigm((dist - t) * C.ibw));
+    }
+    S.vp[c] = prod;
+    vis = vis * prod;
+  }
+  return vis;
+}
+
+// Adjoint of the spans' vis_fwd (after it, on the same scratch). Each
+// span's occluders are recomputed into its scratch. Warp-uniform.
+__device__ void vis_adj(const Tables& T, const Cfg& C, const Grads& G,
+                        bool live, const SRay& r, float gvis, SpanScratch& S,
+                        V3& go, V3& gd, float& gdist) {
+  const int nc = n_spans(T);
+  float run = 1.0f;
+  for (int c = nc - 1; c >= 0; --c) {
+    S.csf[c] = run;
+    run = run * S.vp[c];
+  }
+  float pre = 1.0f, gmint = 0.0f;
+  for (int c = 0; c < nc; ++c) {
+    const float other = pre * S.csf[c];  // the other spans' product
+    pre = pre * S.vp[c];
+    int lo, hi;
+    span_of(T, c, lo, hi);
+    const int w = hi - lo;
+    for (int i = 0; i < w; ++i) {
+      float a, t;
+      hyp_fwd<false>(T, C, lo + i, r, a, t, nullptr);
+      const float s = sigm((S.dist - t) * C.ibw);
+      S.ga[i] = a;
+      S.gt[i] = t;
+      S.A[i] = s;
+      S.sc[i] = a * s;
+    }
+    float srun = 1.0f;
+    for (int i = w - 1; i >= 0; --i) {
+      S.sf[i] = srun;
+      srun = srun * (1.0f - S.sc[i]);
+    }
+    float spre = 1.0f;
+    for (int i = 0; i < w; ++i) {
+      const float gin = -gvis * (other * (spre * S.sf[i]));
+      spre = spre * (1.0f - S.sc[i]);
+      const float s = S.A[i];
+      const float gx = gin * S.ga[i] * s * (1.0f - s) * C.ibw;
+      gdist += gx;
+      hyp_adj<false, true>(T, C, G, live, lo + i, r, gin * s, -gx, nullptr,
+                           go, gd, gmint);
+    }
+  }
 }
 
 }  // namespace soft

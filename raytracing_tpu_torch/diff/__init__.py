@@ -19,8 +19,10 @@ Three tiers of gradients, from production to toy:
    the pass (``ops.megakernel_soft``: sigmoid silhouette coverage, an
    alpha-composited soft depth order, soft shadow transmittance, a soft
    emitter race), so silhouette and shadow-boundary gradients are real.
-   Up to 64 objects per type, grid mode included (the soft backward
-   sweeps the scene's own rows); past that ROADMAP Queue 1 item 16.
+   Up to ``DIFF_TABLE_MAX`` (4096) objects per type, grid mode included
+   (the soft backward sweeps the scene's own rows; past 64 objects of a
+   type it composites in JAX's two levels, the triangles in Morton
+   order).
 
 3. Toy references (this package): ``soft.render_fake_shade_soft``,
    ``soft.render_direct_soft`` and ``soft.render_pathtrace_soft`` --

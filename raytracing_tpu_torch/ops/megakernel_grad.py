@@ -2,8 +2,8 @@
 ``raytracing_tpu/ops/pallas/megakernel_grad.py`` (hard route, path mode,
 with or without Russian roulette): two backwards, as in the JAX package.
 
-Kernel 2, the backward by replay (``bwd_impl_for`` "pallas"; tables of at
-most 64 objects per type):
+Kernel 2, the backward by replay (``bwd_impl_for`` "pallas"; up to
+``DIFF_TABLE_MAX`` objects per type, grid scenes included):
 
 * ``pathtrace_pass_bwd_reference`` -- its plain version: the parameter
   cotangents of one pass by ``torch.autograd.grad`` through the plain
@@ -11,11 +11,15 @@ most 64 objects per type):
   ``_bwd_reference`` returns; the CPU tests hold it against it.
 * ``pathtrace_pass_bwd`` -- the wrapper of the hand-written CUDA adjoint
   ``csrc/megakernel_grad.cu``. It takes CUDA tensors or raises, and counts
-  its launches in the module integer ``launches``.
+  its launches in the module integers ``launches`` (at most 64 objects
+  per type, tables in shared memory) and ``large_launches`` (past 64, or
+  over kernel 1's streamed chunks or grids: the large-table instance, JAX's
+  ``_loop_diff`` windows).
 
-Kernel 3, the champion ("cell") backward (``bwd_impl_for`` "cell"; the
-route past 64 objects), which differentiates kernel 1's record of the pass
-(``ops.megakernel.pathtrace_pass(record=True)``) and sweeps no table:
+Kernel 3, the champion ("cell") backward (``bwd_impl_for`` "cell"; what
+"auto" takes past 64 objects and in grid mode), which differentiates
+kernel 1's record of the pass (``ops.megakernel.pathtrace_pass(record=
+True)``) and sweeps no table:
 
 * ``champ_surface`` -- JAX's ``_champ_surface``: a recorded champion's
   surface re-derived from its row with the kernels' formulas;
@@ -60,7 +64,12 @@ DIFF_ALL = ("par", "sph", "tri", "mat", "lig")
 MAX_BOUNCES = 15
 MAX_LIGHTS = 32
 
-launches = 0          # kernel 2
+# the differentiable pass's table budget per object type, kernels 2 and 2s
+# (JAX's render/mega.py DIFF_TABLE_MAX)
+DIFF_TABLE_MAX = 4096
+
+launches = 0          # kernel 2, tables of at most 64 objects per type
+large_launches = 0    # kernel 2 past 64 objects (rt_pathtrace_bwd_large)
 champ_launches = 0    # kernel 3
 
 # nvcc flags of kernels 2 and 3: no contracted multiply-adds
@@ -76,6 +85,18 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I,                # spp, width, bounces, rr, start
         _I, _I,                                       # two_sided, normalize
         _I,                                           # diff_wrt bits
+        _VP, _VP, _VP, _VP, _VP,                      # dpar .. dlig
+        _VP]),                                        # stream
+    # past 64 objects per type: streamed chunks, grids, resident or global
+    # spheres
+    "rt_pathtrace_bwd_large": (ctypes.c_int, [
+        _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _I,     # par, sph, tri, mat, lig
+        _VP, _I, _I,                                  # g, n_rays, ray_offset
+        _VP, _U, _U,                                  # u_planes, pass key
+        _I, _I, _I, _I, _I,                # spp, width, bounces, rr, start
+        _I, _I,                                       # two_sided, normalize
+        _I,                                           # diff_wrt bits
+        _VP, _I, _I, _I, _VP,     # grids, n_grids, sph grid, start, streams
         _VP, _VP, _VP, _VP, _VP,                      # dpar .. dlig
         _VP]),                                        # stream
 }
@@ -100,25 +121,47 @@ def _check_wrt(diff_wrt) -> tuple:
     return tuple(n for n in DIFF_ALL if n in diff_wrt)
 
 
+def _leaf_stream(st, leaf: torch.Tensor):
+    """``st`` with its sorted rows gathered from ``leaf`` through its
+    ``perm`` (padding rows zero), so that autograd reaches the table's own
+    rows."""
+    if st is None:
+        return None
+    keep = (st.perm >= 0)[:, None]
+    return st._replace(rows=torch.where(
+        keep, leaf[st.perm.clamp(min=0).to(torch.int64)], 0.0))
+
+
 def pathtrace_pass_bwd_reference(par, ipar, sph, tri, mat, lig, g, u_planes,
                                  *, spp: int, width: int, bounces: int,
                                  two_sided: bool, normalize_emitter: bool,
                                  seed: int, russian_roulette: bool = False,
-                                 rr_start_depth: int = 0, diff_wrt=DIFF_ALL):
+                                 rr_start_depth: int = 0, diff_wrt=DIFF_ALL,
+                                 chunks=None):
     """Plain version of kernel 2: ``(dpar, dsph, dtri, dmat, dlig)`` of
     ``sum(g * acc_delta)`` for one pass, by autograd through the plain
-    forward. Groups outside ``diff_wrt`` come back as zeros."""
+    forward. Groups outside ``diff_wrt`` come back as zeros. With
+    ``chunks`` (``MK.KernelChunks`` of these tables) the forward tests the
+    streamed tables a chunk of rows at a time (``MK._stream_closest``: the
+    brute version's champions, bits and values), its rows gathered from
+    the tables through ``perm``: the same cotangents, in far fewer
+    launches on a long table."""
     sel = _check_wrt(diff_wrt)
     tables = dict(par=par, sph=sph, tri=tri, mat=mat, lig=lig)
     with torch.enable_grad():
         leaves = {k: (v.detach().requires_grad_(True) if k in sel
                       else v.detach()) for k, v in tables.items()}
+        if chunks is not None:
+            chunks = MK.KernelChunks(
+                tri=_leaf_stream(chunks.tri, leaves["tri"]),
+                sph=_leaf_stream(chunks.sph, leaves["sph"]))
         acc = MK.pathtrace_pass_reference(
             leaves["par"], ipar, leaves["sph"], leaves["tri"], leaves["mat"],
             leaves["lig"], torch.zeros_like(g), u_planes, spp=spp,
             width=width, bounces=bounces, two_sided=two_sided,
             normalize_emitter=normalize_emitter, seed=seed,
-            russian_roulette=russian_roulette, rr_start_depth=rr_start_depth)
+            russian_roulette=russian_roulette, rr_start_depth=rr_start_depth,
+            chunks=chunks)
         grads = dict(zip(sel, torch.autograd.grad(
             acc, [leaves[k] for k in sel], grad_outputs=g,
             allow_unused=True, materialize_grads=True))) if sel else {}
@@ -127,9 +170,14 @@ def pathtrace_pass_bwd_reference(par, ipar, sph, tri, mat, lig, g, u_planes,
 
 
 def _check_bwd_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp, width,
-                    bounces, rr, what: str = "kernel 2"):
+                    bounces, rr, what: str = "kernel 2", grid=None,
+                    chunks=None, resident=True):
+    """A backward's arguments: ``MK._check_args``' (with ``grid`` and
+    ``chunks`` its caps apply to the resident prefix; ``resident=False``
+    drops them), CUDA tensors, and the adjoint's tape and light caps."""
     MK._check_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp, width,
-                   MK.n_draws_of(lig.shape[0], bounces, rr), 1)
+                   MK.n_draws_of(lig.shape[0], bounces, rr), 1, grid=grid,
+                   chunks=chunks, resident=resident)
     if g.device.type != "cuda":
         raise ValueError(f"{what} takes CUDA tensors, got {g.device}; "
                          "on the CPU use its plain version (the wrapper's "
@@ -140,48 +188,71 @@ def _check_bwd_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp, width,
     if lig.shape[0] > MAX_LIGHTS:
         raise ValueError(f"the adjoint takes at most {MAX_LIGHTS} lights, "
                          f"got {lig.shape[0]}")
-    if max(sph.shape[0], tri.shape[0]) > MK.UNROLL_OBJECTS:
-        raise ValueError(
-            f"{what} keeps the tables and their gradient buffers in shared "
-            f"memory, at most {MK.UNROLL_OBJECTS} objects per type; past that "
-            "the hard route's champion backward (pathtrace_pass_bwd_champ) "
-            "differentiates, the soft route is ROADMAP Queue 1 item 16")
+
+
+def large_route(sph, tri, grid=None, chunks=None) -> bool:
+    """Whether kernel 2 runs its large-table instance: tables past
+    ``UNROLL_OBJECTS`` (64) objects of a type, streamed or gridded ones."""
+    return (grid is not None or chunks is not None
+            or max(sph.shape[0], tri.shape[0]) > MK.UNROLL_OBJECTS)
 
 
 def pathtrace_pass_bwd(par, ipar, sph, tri, mat, lig, g, u_planes, *,
                        spp: int, width: int, bounces: int, two_sided: bool,
                        normalize_emitter: bool, seed: int,
                        russian_roulette: bool = False,
-                       rr_start_depth: int = 0, diff_wrt=DIFF_ALL):
+                       rr_start_depth: int = 0, diff_wrt=DIFF_ALL,
+                       grid=None, chunks=None):
     """Kernel 2: the cotangents of ``pathtrace_pass_bwd_reference`` from
     the hand-written CUDA adjoint, for CUDA tensors (anything else raises).
     ``g`` (R, 3) is the cotangent of the pass's accumulator; the draws are
     ``u_planes`` or, without them, those of pass ``ipar[0]`` of ``seed``,
     made in-kernel as the forward makes them. Groups outside ``diff_wrt``
-    come back as zeros."""
-    global launches
+    come back as zeros.
+
+    Up to 64 objects per type (``large_route`` False) the tables and
+    their gradient buffers sit in shared memory (counter ``launches``).
+    Past that, and over kernel 1's streamed ``chunks`` or ``grid`` (the
+    forward's own arguments), the large-table instance replays with kernel
+    1's streamed and grid loops and adds the row cotangents into global
+    memory (counter ``large_launches``); cotangents land on the original
+    rows (a streamed champion is named by ``perm``), whatever the replay
+    reads."""
+    global launches, large_launches
     sel = _check_wrt(diff_wrt)
+    large = large_route(sph, tri, grid, chunks)
     _check_bwd_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp, width,
-                    bounces, russian_roulette)
+                    bounces, russian_roulette, grid=grid, chunks=chunks)
     outs = tuple(torch.zeros_like(t) for t in (par, sph, tri, mat, lig))
     wrt = sum(1 << i for i, n in enumerate(DIFF_ALL) if n in sel)
     if not wrt:
         return outs
-    lib = _build.load("megakernel_grad", _SIGNATURES, ADJ_FLAGS)
     pass0, roff = (int(x) for x in ipar.tolist())
     k0, k1 = rng.key_words(rng.pass_key(rng.base_key(seed), pass0))
     ptr = MK._ptr
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = lib.rt_pathtrace_bwd(
-            ptr(par), ptr(sph), sph.shape[0], ptr(tri), tri.shape[0],
+    args = (ptr(par), ptr(sph), sph.shape[0], ptr(tri), tri.shape[0],
             ptr(mat), mat.shape[0], ptr(lig), lig.shape[0], ptr(g),
             g.shape[0], roff, ptr(u_planes), k0, k1, spp, width, bounces,
             int(russian_roulette), rr_start_depth, int(two_sided),
-            int(normalize_emitter), wrt, *(ptr(t) for t in outs), stream)
+            int(normalize_emitter), wrt)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        lib = _build.load("megakernel_grad", _SIGNATURES, ADJ_FLAGS)
+        if large:
+            # the descriptor arrays must outlive the call
+            gargs, _desc = MK._grid_args(grid, chunks, sph.shape[0],
+                                         tri.shape[0])
+            err = lib.rt_pathtrace_bwd_large(
+                *args, *gargs[1:], *(ptr(t) for t in outs), stream)
+        else:
+            err = lib.rt_pathtrace_bwd(*args, *(ptr(t) for t in outs),
+                                       stream)
         if err != 0:
             raise RuntimeError(f"kernel 2 launch failed with CUDA error {err}")
-        launches += 1
+        if large:
+            large_launches += 1
+        else:
+            launches += 1
     return outs
 
 
@@ -381,7 +452,9 @@ class _PassDiff(torch.autograd.Function):
     The forward runs kernel 1 out of place, on a copy of ``acc_in``, so the
     tensor autograd saw going in is never overwritten behind its back. The
     backward hands ``g`` on to ``acc_in`` unchanged (acc_out = acc_in +
-    delta) and returns no cotangent for ``ipar`` and ``u_planes``."""
+    delta) and returns no cotangent for ``ipar`` and ``u_planes``. Kernel
+    2 replays over the forward's own ``grid`` and ``chunks`` (``fwd``), so
+    it picks the champions the forward picked."""
 
     @staticmethod
     def forward(ctx, par, sph, tri, mat, lig, acc_in, ipar, u_planes, kw,
@@ -393,6 +466,7 @@ class _PassDiff(torch.autograd.Function):
         # ipar carries the pass index (the draws' key) and the ray offset
         ctx.ipar, ctx.u_planes, ctx.kw = ipar, u_planes, kw
         ctx.diff_wrt = diff_wrt
+        ctx.replay = dict(grid=fwd["grid"], chunks=fwd["chunks"])
         return acc
 
     @staticmethod
@@ -404,7 +478,7 @@ class _PassDiff(torch.autograd.Function):
         if wrt:
             outs = pathtrace_pass_bwd(
                 tables[0], ctx.ipar, *tables[1:], g_out.contiguous(),
-                ctx.u_planes, diff_wrt=wrt, **ctx.kw)
+                ctx.u_planes, diff_wrt=wrt, **ctx.kw, **ctx.replay)
             grads = [o if n in wrt else None for n, o in zip(DIFF_ALL, outs)]
         return (*grads, g_out, None, None, None, None, None)
 
@@ -459,22 +533,37 @@ def _check_soft_grid_rows(grid, sph, tri) -> None:
             "backward takes the scene's own rows, not cell-major duplicates")
 
 
+def unpermute_rows(d_sorted: torch.Tensor, perm: torch.Tensor,
+                   n: int) -> torch.Tensor:
+    """Cotangents of a Morton-sorted copy (``MK.Stream``'s rows, padded)
+    on the original rows: row ``perm[r]`` gets sorted row r's, padding rows
+    (perm -1) are dropped. ``n`` is the original row count."""
+    out = d_sorted.new_zeros((n, d_sorted.shape[1]))
+    keep = perm >= 0
+    out[perm[keep].to(torch.int64)] = d_sorted[keep]
+    return out
+
+
 class _PassDiffSoft(torch.autograd.Function):
     """One pass on the edge-aware route (JAX's ``_make_diff_op`` with
     ``soft_bandwidth > 0``): forward = the hard pass, kernel 1 out of place
-    (``fwd``: its ``grid`` and ``block``); backward = kernel 2s, the
-    adjoint of the soft program over the tables as they are (the scene's
-    own rows, also in grid mode). On CPU tensors the forward and backward
-    are their plain versions, so the CPU runs the same wiring."""
+    (``fwd``: its ``grid``, ``chunks`` and ``block``); backward = kernel
+    2s, the adjoint of the soft program over the scene's own rows, also in
+    grid mode. With ``soft_tri`` (an ``MK.Stream``) the backward
+    composites the triangles in its Morton order, as JAX's soft route takes
+    the streamed table (``tri_chunk_tables``, padded to whole chunks), and
+    the cotangents return to the original rows through its ``perm``. On
+    CPU tensors the forward and backward are their plain versions, so the
+    CPU runs the same wiring."""
 
     @staticmethod
     def forward(ctx, par, sph, tri, mat, lig, acc_in, ipar, u_planes, kw,
-                diff_wrt, fwd, soft):
+                diff_wrt, fwd, soft, soft_tri):
         acc = MK.pathtrace_pass(par, ipar, sph, tri, mat, lig,
                                 acc_in.clone(), u_planes, **kw, **fwd)
         ctx.save_for_backward(par, sph, tri, mat, lig)
         ctx.ipar, ctx.u_planes, ctx.kw = ipar, u_planes, kw
-        ctx.diff_wrt, ctx.soft = diff_wrt, soft
+        ctx.diff_wrt, ctx.soft, ctx.soft_tri = diff_wrt, soft, soft_tri
         return acc
 
     @staticmethod
@@ -487,10 +576,15 @@ class _PassDiffSoft(torch.autograd.Function):
         if wrt:
             bwd = (MKS.pathtrace_pass_bwd_soft if g_out.device.type == "cuda"
                    else MKS.pathtrace_pass_bwd_soft_reference)
-            outs = bwd(par, ctx.ipar, sph, tri, mat, lig, g_out.contiguous(),
-                       ctx.u_planes, diff_wrt=wrt, **ctx.kw, **ctx.soft)
+            st = ctx.soft_tri
+            outs = list(bwd(par, ctx.ipar, sph,
+                            tri if st is None else st.rows, mat, lig,
+                            g_out.contiguous(), ctx.u_planes, diff_wrt=wrt,
+                            **ctx.kw, **ctx.soft))
+            if st is not None:
+                outs[2] = unpermute_rows(outs[2], st.perm, tri.shape[0])
             grads = [o if n in wrt else None for n, o in zip(DIFF_ALL, outs)]
-        return (*grads, g_out, None, None, None, None, None, None)
+        return (*grads, g_out, None, None, None, None, None, None, None)
 
 
 def pathtrace_pass_diff(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
@@ -500,19 +594,22 @@ def pathtrace_pass_diff(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
                         rr_start_depth: int = 0, diff_wrt=DIFF_ALL,
                         bwd_cell: bool = False, grid=None, chunks=None,
                         block: int = 0, soft_bandwidth: float = 0.0,
-                        soft_tau: float = 0.0) -> torch.Tensor:
+                        soft_tau: float = 0.0,
+                        soft_tri=None) -> torch.Tensor:
     """One differentiable progressive pass: returns a new accumulator
     (``acc`` is not modified); autograd reaches the tables in ``diff_wrt``
     and ``acc``. Arguments as ``ops.megakernel.pathtrace_pass`` with one
     pass; JAX's ``pathtrace_pass_diff`` without its TPU-only arguments.
 
     ``bwd_cell=False`` (kernel 2's route): on CUDA tensors the pass is
-    kernel 1 and its backward kernel 2; on CPU tensors it is the plain
-    forward under autograd, with the groups outside ``diff_wrt`` detached.
+    kernel 1 and its backward kernel 2, which replays over the same
+    ``grid`` (kernel 1's grid mode) or ``chunks`` (kernel 1's streamed
+    tables) as the forward, past 64 objects in its large-table instance; on
+    CPU tensors it is the plain brute forward under autograd (the
+    champions of the streamed and grid modes are the brute loops', the
+    least (t, id) pair), with the groups outside ``diff_wrt`` detached.
     ``bwd_cell=True``: kernel 1 recording and kernel 3 (``_PassDiffCell``),
-    their plain versions on CPU tensors. ``grid`` (kernel 1's grid mode)
-    takes the cell route or the edge-aware one; ``chunks`` (kernel 1's
-    streamed tables) the cell route; ``block`` is kernel 1's blocked
+    their plain versions on CPU tensors. ``block`` is kernel 1's blocked
     layout.
 
     ``soft_bandwidth > 0`` (edge-aware gradients, ``_PassDiffSoft`` on
@@ -520,21 +617,16 @@ def pathtrace_pass_diff(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
     2s, the adjoint of the soft program (``ops.megakernel_soft``), with
     ``soft_tau`` its depth-order temperature. It differentiates the tables
     it is given, which must be the scene's own rows: with ``grid`` too, no
-    cell-major duplicates (they would composite a surface twice)."""
+    cell-major duplicates (they would composite a surface twice).
+    ``soft_tri`` (an ``MK.Stream`` of the triangle table, e.g.
+    ``chunks.tri``) hands it the triangles in that Morton order; past 64
+    objects the two-level composite's spans follow the order it is
+    given."""
     sel = _check_wrt(diff_wrt)
     soft = soft_bandwidth > 0.0
     if soft and bwd_cell:
         raise ValueError("the champion (cell) backward is hard-gradient "
                          "only; edge mode needs the soft sweep")
-    if grid is not None and not (bwd_cell or soft):
-        raise NotImplementedError(
-            "grid-mode training takes the cell route; kernel 2 over a grid "
-            "scene's tables is ROADMAP Queue 1 item 16")
-    if chunks is not None and not bwd_cell:
-        raise NotImplementedError(
-            "streamed tables train on the cell route (mega_bwd_impl 'auto' "
-            "or 'cell'); kernel 2 over them, JAX's _loop_diff windows, is "
-            "ROADMAP Queue 1 item 16")
     fwd = dict(grid=grid, chunks=chunks, block=block)
     kw = dict(spp=spp, width=width, bounces=bounces, two_sided=two_sided,
               normalize_emitter=normalize_emitter, seed=seed,
@@ -548,7 +640,8 @@ def pathtrace_pass_diff(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
         return _PassDiffSoft.apply(par, sph, tri, mat, lig, acc, ipar,
                                    u_planes, kw, sel, fwd,
                                    dict(soft_bandwidth=soft_bandwidth,
-                                        soft_tau=soft_tau or soft_bandwidth))
+                                        soft_tau=soft_tau or soft_bandwidth),
+                                   soft_tri)
     if bwd_cell:
         return _PassDiffCell.apply(par, sph, tri, mat, lig, acc, ipar,
                                    u_planes, kw, sel, fwd)

@@ -24,14 +24,23 @@ visibility decision smoothed:
 Three functions:
 
 * ``soft_pass_value`` -- the soft accumulator delta (R, 3), vectorised over
-  rays and looping over objects line for line with ``_tile_program_soft``,
-  draws in the hard pass's slot order (``MK.pass_draws``);
+  rays and looping over objects line for line with ``_tile_program_soft``
+  (past 64 hypotheses vectorised over each span as well, as JAX's
+  value-level route ``vec=True`` is), draws in the hard pass's slot order
+  (``MK.pass_draws``);
 * ``pathtrace_pass_bwd_soft_reference`` -- kernel 2s's plain version:
   ``(dpar, dsph, dtri, dmat, dlig)`` of ``sum(g * soft_pass_value)`` by
   ``torch.autograd.grad``;
 * ``pathtrace_pass_bwd_soft`` -- the wrapper of the hand-written CUDA
   adjoint ``csrc/megakernel_soft.cu`` (kernel 2s): CUDA tensors or it
-  raises; it counts its launches in the module integer ``soft_launches``.
+  raises; it counts its launches in the module integers ``soft_launches``
+  (at most 64 objects per type) and ``soft_large_launches`` (past 64, the
+  two-level composite over every span, its large-table instance).
+
+Past 64 objects the spans follow the rows in the order they are handed:
+the differentiable pass hands the triangles in JAX's Morton order, padded
+with zero rows to whole chunks (``render/mega.soft_tri_order``); a zero row
+has coverage 0 and changes no value.
 
 Every guard of the JAX program is kept as a double ``where`` (the sphere
 root's square root, the triangle and emitter-plane divisions, the
@@ -39,7 +48,8 @@ composite's ``1 / cov``, the blended normal's fallback), and every
 ``jnp.clip`` and ``jnp.maximum`` is a minimum of a maximum so that its
 cotangent splits at ties and bounds as JAX's does. One deliberate
 difference from JAX's arithmetic: a sigmoid's argument ``x / bw`` (or
-``/ tau``) is ``x`` times the reciprocal, as in kernel 2s (``_div``). JAX's quirks stay: NEE
+``/ tau``) is ``x`` times the reciprocal, as in kernel 2s (``_div``).
+JAX's quirks stay: NEE
 uses the throughput before the albedo update and the squared distance to
 the light's centre; the emitter term applies on depth 0 only.
 """
@@ -60,7 +70,8 @@ from . import megakernel_grad as MKG
 # hypotheses per chunk of the two-level composite (JAX's SOFT_CHUNK)
 SOFT_CHUNK = 64
 
-soft_launches = 0     # kernel 2s
+soft_launches = 0        # kernel 2s, at most 64 objects per type
+soft_large_launches = 0  # kernel 2s past 64 (rt_pathtrace_bwd_soft_large)
 
 _VP, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _SIGNATURES = {
@@ -74,6 +85,10 @@ _SIGNATURES = {
         _VP, _VP, _VP, _VP, _VP,                      # dpar .. dlig
         _VP]),                                        # stream
 }
+# past 64 objects per type: the two-level composite over every SOFT_CHUNK
+# span, the same arguments
+_SIGNATURES["rt_pathtrace_bwd_soft_large"] = \
+    _SIGNATURES["rt_pathtrace_bwd_soft"]
 
 
 def _div(x: torch.Tensor, s: float) -> torch.Tensor:
@@ -121,31 +136,43 @@ class _Ray:
         self.o, self.d, self.mint = o, d, mint
         self.oxd = cross3(o, d)
 
+    def over_rows(self) -> "_Ray":
+        """The same rays with a row axis (R, 1, ...), against which a block
+        of rows (n, C) gives every (ray, row) pair."""
+        r = _Ray.__new__(_Ray)
+        r.o, r.d, r.oxd = self.o[:, None], self.d[:, None], self.oxd[:, None]
+        r.mint = self.mint[:, None]
+        return r
+
 
 def _sphere_hyp(row, ray: _Ray, bw: float):
     """(alpha, t) of a sphere row: sigmoid of the discriminant (unit
-    directions, a = 1) times a sigmoid of the near root past mint."""
-    m = ray.o - row[0:3]
+    directions, a = 1) times a sigmoid of the near root past mint. A row
+    (8,) against rays (R, ...) gives (R,); a block of rows (n, 8) against
+    ``ray.over_rows()`` gives (R, n)."""
+    m = ray.o - row[..., 0:3]
     b = dot3(m, ray.d)
-    cq = dot3(m, m) - row[3] * row[3]
+    cq = dot3(m, m) - row[..., 3] * row[..., 3]
     dis = b * b - cq
-    alpha = torch.sigmoid(_div(dis, bw)) * torch.where(row[5] > 0.0, 1.0, 0.0)
+    alpha = (torch.sigmoid(_div(dis, bw))
+             * torch.where(row[..., 5] > 0.0, 1.0, 0.0))
     t = -b - _safe_sqrt(dis)
     return alpha * torch.sigmoid(_div(t - ray.mint, bw)), t
 
 
 def _sphere_fields(row, ray: _Ray, t, alb):
-    p = ray.o + t[:, None] * ray.d
-    n = safe_normalize(p - row[0:3])
-    return torch.cat([t[:, None], p, n, alb.expand(t.shape[0], 3)], -1)
+    p = ray.o + t[..., None] * ray.d
+    n = safe_normalize(p - row[..., 0:3])
+    return torch.cat([t[..., None], p, n, alb.expand(*t.shape, 3)], -1)
 
 
 def _tri_hyp(row, ray: _Ray, bw: float, two_sided: bool):
     """(alpha, t, beta, gamma) of a triangle row: sigmoid of the
     barycentric margin (constant-split Moller-Trumbore) times a sigmoid of
-    t past mint; t = 1e6 where the ray sees the plane's back."""
-    ng, c1, c2 = row[0:3], row[3:6], row[6:9]
-    e1, e2, k = row[9:12], row[12:15], row[15]
+    t past mint; t = 1e6 where the ray sees the plane's back. Shapes as
+    ``_sphere_hyp``."""
+    ng, c1, c2 = row[..., 0:3], row[..., 3:6], row[..., 6:9]
+    e1, e2, k = row[..., 9:12], row[..., 12:15], row[..., 15]
     div = dot3(ng, ray.d)
     side_ok = (div != 0.0) if two_sided else (div > 0.0)
     idiv = 1.0 / torch.where(div == 0.0, 1.0, div)
@@ -154,19 +181,20 @@ def _tri_hyp(row, ray: _Ray, bw: float, two_sided: bool):
     t = torch.where(side_ok, (k - dot3(ng, ray.o)) * idiv, 1e6)
     margin = torch.minimum(torch.minimum(beta, gamma), 1.0 - beta - gamma)
     alpha = (torch.sigmoid(_div(margin, bw))
-             * torch.where(row[17] > 0.0, 1.0, 0.0)
+             * torch.where(row[..., 17] > 0.0, 1.0, 0.0)
              * side_ok.to(margin.dtype))
     return alpha * torch.sigmoid(_div(t - ray.mint, bw)), t, beta, gamma
 
 
 def _tri_fields(row, ray: _Ray, t, beta, gamma, alb):
-    p = ray.o + t[:, None] * ray.d
+    p = ray.o + t[..., None] * ray.d
     al = _clip01(1.0 - beta - gamma)
     be = _clip01(beta)
     ga = _clip01(gamma)
-    n = safe_normalize(al[:, None] * row[18:21] + be[:, None] * row[21:24]
-                       + ga[:, None] * row[24:27])
-    return torch.cat([t[:, None], p, n, alb.expand(t.shape[0], 3)], -1)
+    n = safe_normalize(al[..., None] * row[..., 18:21]
+                       + be[..., None] * row[..., 21:24]
+                       + ga[..., None] * row[..., 24:27])
+    return torch.cat([t[..., None], p, n, alb.expand(*t.shape, 3)], -1)
 
 
 def _composite(alphas, ts, fields, first_good: float, tau: float):
@@ -190,6 +218,26 @@ def _composite(alphas, ts, fields, first_good: float, tau: float):
     for w, f in zip(ws, fields):
         blend = blend + torch.where(good, w * icov, 0.0)[:, None] * f
     return cov, blend
+
+
+def _composite_span(alphas, ts, fields, first_good: float, tau: float):
+    """``_composite`` over a hypothesis axis, as JAX's ``_composite_vec``
+    (``megakernel_grad.py:1723``): alphas and ts (R, n), fields (R, n,
+    10); each weight's product over the span's other hypotheses is one
+    ``torch.prod`` (its factor at j = i set to 1), the sums run along the
+    axis: the same values as kernel 2s's sequential loops but for
+    rounding."""
+    n = alphas.shape[1]
+    occ = alphas[:, None, :] * torch.sigmoid(
+        _div(ts[:, :, None] - ts[:, None, :], tau))
+    self_ = torch.eye(n, dtype=torch.bool, device=alphas.device)
+    occ = torch.where(self_, torch.zeros_like(occ), occ)
+    w = alphas * torch.prod(1.0 - occ, dim=2)
+    cov = _clip01(w.sum(1))
+    good = cov > first_good
+    icov = 1.0 / torch.where(good, cov, 1.0)
+    wn = torch.where(good[:, None], w * icov[:, None], 0.0)
+    return cov, (wn[..., None] * fields).sum(1)
 
 
 class _Scene:
@@ -218,6 +266,32 @@ class _Scene:
             fields.append(f)
         return alphas, ts, fields
 
+    def span_hyps(self, ray: _Ray, kind: str, lo: int, hi: int,
+                  fields: bool = True):
+        """Hypotheses of rows [lo, hi) of one type as blocks: alphas and
+        ts (R, n) and, with ``fields``, fields (R, n, 10)."""
+        r = ray.over_rows()
+        if kind == "s":
+            rows = self.sph[lo:hi]
+            a, t = _sphere_hyp(rows, r, self.bw)
+            f = _sphere_fields(rows, r, t, self.alb_s[lo:hi]) if fields \
+                else None
+        else:
+            rows = self.tri[lo:hi]
+            a, t, beta, gamma = _tri_hyp(rows, r, self.bw, self.two_sided)
+            f = (_tri_fields(rows, r, t, beta, gamma, self.alb_t[lo:hi])
+                 if fields else None)
+        return a, t, f
+
+    def spans(self):
+        """JAX's ``_chunk_ranges``: (kind, lo, hi) of every SOFT_CHUNK span
+        of the sphere table, then of the triangle table, in the order the
+        rows are given."""
+        return [(kind, lo, min(lo + SOFT_CHUNK, n))
+                for kind, n in (("s", self.sph.shape[0]),
+                                ("t", self.tri.shape[0]))
+                for lo in range(0, n, SOFT_CHUNK)]
+
     def trace(self, ray: _Ray):
         """JAX's soft_trace: (cov, tbar, pbar, nbar, albbar)."""
         n_sph, n_tri = self.sph.shape[0], self.tri.shape[0]
@@ -227,18 +301,16 @@ class _Scene:
             cov, blend = _composite(a_s + a_t, t_s + t_t, f_s + f_t, 1e-6,
                                     self.tau)
         else:
-            # two levels: each SOFT_CHUNK span of one type composites
+            # two levels, vectorised over each span as JAX's value-level
+            # route is: each SOFT_CHUNK span of one type composites
             # locally, then the chunks' blends composite as hypotheses
-            alphas, ts, fields = [], [], []
-            for kind, n in (("s", n_sph), ("t", n_tri)):
-                for lo in range(0, n, SOFT_CHUNK):
-                    cov_c, blend_c = _composite(
-                        *self.hyps(ray, kind, lo, min(lo + SOFT_CHUNK, n)),
-                        1e-9, self.tau)
-                    alphas.append(cov_c)
-                    ts.append(blend_c[:, 0])
-                    fields.append(blend_c)
-            cov, blend = _composite(alphas, ts, fields, 1e-6, self.tau)
+            covs, blends = zip(*(
+                _composite_span(*self.span_hyps(ray, *span), 1e-9, self.tau)
+                for span in self.spans()))
+            blend_m = torch.stack(blends, 1)
+            cov, blend = _composite_span(torch.stack(covs, 1),
+                                         blend_m[..., 0], blend_m, 1e-6,
+                                         self.tau)
         # the blended normal can be tiny (opposing normals at an edge):
         # such rays take the fallback (0, 0, 1)
         nraw = blend[:, 4:7]
@@ -255,6 +327,13 @@ class _Scene:
         coverage inside the shadow segment [0, dist]."""
         ray = _Ray(o, d, torch.zeros_like(dist))
         vis = torch.ones_like(dist)
+        if self.sph.shape[0] + self.tri.shape[0] > MK.UNROLL_OBJECTS:
+            # a product, so the spans' form is exact (JAX's vis_span_vec)
+            for span in self.spans():
+                a, t, _ = self.span_hyps(ray, *span, fields=False)
+                inside = a * torch.sigmoid(_div(dist[:, None] - t, self.bw))
+                vis = vis * torch.prod(1.0 - inside, dim=1)
+            return vis
         for i in range(self.sph.shape[0]):
             a, t = _sphere_hyp(self.sph[i], ray, self.bw)
             vis = vis * (1.0 - a * torch.sigmoid(_div(dist - t, self.bw)))
@@ -406,33 +485,48 @@ def pathtrace_pass_bwd_soft(par, ipar, sph, tri, mat, lig, g, u_planes, *,
     raises). ``g`` (R, 3) is the cotangent of the pass's accumulator; the
     draws are ``u_planes`` or, without them, those of pass ``ipar[0]`` of
     ``seed``, made in-kernel. Groups outside ``diff_wrt`` come back as
-    zeros."""
-    global soft_launches
+    zeros. Up to 64 objects per type the tables and per-warp gradient
+    buffers sit in shared memory (counter ``soft_launches``); past that,
+    up to ``MKG.DIFF_TABLE_MAX`` per type, the large-table instance
+    composites every ``SOFT_CHUNK`` span of the rows in the order given
+    (counter ``soft_large_launches``)."""
+    global soft_launches, soft_large_launches
     sel = MKG._check_wrt(diff_wrt)
     MKG._check_bwd_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp,
-                        width, bounces, russian_roulette, "kernel 2s")
+                        width, bounces, russian_roulette, "kernel 2s",
+                        resident=False)
     if not (soft_bandwidth > 0.0 and soft_tau > 0.0):
         raise ValueError(f"the soft route needs a bandwidth and tau > 0, got "
                          f"{soft_bandwidth} and {soft_tau}")
+    if max(sph.shape[0], tri.shape[0]) > MKG.DIFF_TABLE_MAX:
+        raise NotImplementedError(
+            f"{sph.shape[0]} sphere / {tri.shape[0]} triangle rows: kernel "
+            f"2s composites at most {MKG.DIFF_TABLE_MAX} per type "
+            "(DIFF_TABLE_MAX); larger tables render forward-only")
+    large = max(sph.shape[0], tri.shape[0]) > MK.UNROLL_OBJECTS
     outs = tuple(torch.zeros_like(t) for t in (par, sph, tri, mat, lig))
     wrt = sum(1 << i for i, n in enumerate(MKG.DIFF_ALL) if n in sel)
     if not wrt:
         return outs
-    lib = _build.load("megakernel_soft", _SIGNATURES, MKG.ADJ_FLAGS)
     pass0, roff = (int(x) for x in ipar.tolist())
     k0, k1 = rng.key_words(rng.pass_key(rng.base_key(seed), pass0))
     ptr = MK._ptr
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = lib.rt_pathtrace_bwd_soft(
-            ptr(par), ptr(sph), sph.shape[0], ptr(tri), tri.shape[0],
-            ptr(mat), mat.shape[0], ptr(lig), lig.shape[0], ptr(g),
-            g.shape[0], roff, ptr(u_planes), k0, k1, spp, width, bounces,
-            int(russian_roulette), rr_start_depth, int(two_sided),
-            int(normalize_emitter), wrt, soft_bandwidth, soft_tau,
-            *(ptr(t) for t in outs), stream)
+        args = (ptr(par), ptr(sph), sph.shape[0], ptr(tri), tri.shape[0],
+                ptr(mat), mat.shape[0], ptr(lig), lig.shape[0], ptr(g),
+                g.shape[0], roff, ptr(u_planes), k0, k1, spp, width, bounces,
+                int(russian_roulette), rr_start_depth, int(two_sided),
+                int(normalize_emitter), wrt, soft_bandwidth, soft_tau,
+                *(ptr(t) for t in outs), stream)
+        lib = _build.load("megakernel_soft", _SIGNATURES, MKG.ADJ_FLAGS)
+        err = (lib.rt_pathtrace_bwd_soft_large if large
+               else lib.rt_pathtrace_bwd_soft)(*args)
         if err != 0:
             raise RuntimeError(f"kernel 2s launch failed with CUDA error "
                                f"{err}")
-        soft_launches += 1
+        if large:
+            soft_large_launches += 1
+        else:
+            soft_launches += 1
     return outs

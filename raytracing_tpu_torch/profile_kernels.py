@@ -97,6 +97,9 @@ LIBS = (("megakernel", MK._SIGNATURES, ()),
         ("megakernel_grad", MKG._SIGNATURES, MKG.ADJ_FLAGS),
         ("megakernel_champ", MKG._CHAMP_SIGNATURES, MKG.ADJ_FLAGS),
         ("megakernel_soft", MKS._SIGNATURES, MKG.ADJ_FLAGS))
+# kernel 2s past 64 objects runs seconds per launch at 1024^2: it is timed
+# on the torus scene at this size
+SOFT_LARGE_SIZE = 256
 
 
 def _smi(query: str) -> str:
@@ -126,6 +129,9 @@ def build(label: str, src: Path, name: str, signatures: dict,
         raise SystemExit(f"nvcc failed on {label}/{name}:\n{proc.stderr}")
     lib = ctypes.CDLL(str(so))
     for fname, (restype, argtypes) in signatures.items():
+        # a tree from before the large-table instances lacks their entries
+        if not hasattr(lib, fname):
+            continue
         getattr(lib, fname).restype = restype
         getattr(lib, fname).argtypes = argtypes
     return lib, proc.stdout + proc.stderr
@@ -206,19 +212,20 @@ class Case:
     Morton chunks (``render/mega.chunk_tables``)."""
 
     def __init__(self, scene, dev, step: bool = True, grid: bool = False,
-                 block: int = 0):
-        self.cfg = RenderConfig(width=SIZE, height=SIZE, bounces=BOUNCES,
+                 block: int = 0, size: int = SIZE):
+        self.cfg = RenderConfig(width=size, height=size, bounces=BOUNCES,
                                 use_megakernel=True, use_grid=grid,
                                 mega_block=block)
+        self.scene = scene
         self.grid = mega.grid_tables(scene) if grid else None
         self.block = block
         self.tables = mega.scene_tables(scene, self.cfg)
         self.chunks = mega.chunk_tables(scene, self.cfg, self.tables[1],
                                         self.tables[2])
-        self.kw = dict(spp=1, width=SIZE, bounces=BOUNCES, two_sided=False,
+        self.kw = dict(spp=1, width=size, bounces=BOUNCES, two_sided=False,
                        normalize_emitter=True, seed=self.cfg.seed)
         self.ipar = torch.tensor([STEP_PASSES - 1, 0], dtype=torch.int32)
-        self.acc = torch.zeros((SIZE * SIZE, 3), device=dev)
+        self.acc = torch.zeros((size * size, 3), device=dev)
         self.key = rng.base_key(self.cfg.seed)
         if not step:
             return
@@ -245,9 +252,13 @@ class Case:
                                  **self._mode())
 
     def k2(self, g, wrt, rr=False):
+        # past 64 objects (the large-table instance) over the forward's own
+        # grid or chunks
+        replay = {k: v for k, v in self._mode().items() if k != "block"}
         return MKG.pathtrace_pass_bwd(self.tables[0], self.ipar,
                                       *self.tables[1:], g, None,
-                                      diff_wrt=wrt, **self.kw, **self._rr(rr))
+                                      diff_wrt=wrt, **self.kw, **self._rr(rr),
+                                      **replay)
 
     def direct(self, n_passes: int, block=None):
         return MK.direct_pass(self.tables[0], *self.tables[1:], self.acc,
@@ -261,9 +272,12 @@ class Case:
                 if rr else {})
 
     def k2s(self, g, wrt, rr=False):
+        # past 64 triangles the soft backward takes them in Morton order
+        st = mega.soft_tri_order(self.scene, self.tables[2], self.chunks)
+        tri = self.tables[2] if st is None else st.rows
         return MKS.pathtrace_pass_bwd_soft(
-            self.tables[0], self.ipar, *self.tables[1:], g, None,
-            diff_wrt=wrt, soft_bandwidth=EDGE_BW, soft_tau=EDGE_BW,
+            self.tables[0], self.ipar, self.tables[1], tri, *self.tables[3:],
+            g, None, diff_wrt=wrt, soft_bandwidth=EDGE_BW, soft_tau=EDGE_BW,
             **self.kw, **self._rr(rr))
 
     def k3(self, g, wrt):
@@ -304,6 +318,31 @@ def measure_stream(cases: dict) -> dict:
             lambda: spheres.k1(n_passes=16), reps=2, per=16),
         "k1_stream_spheres_record_ms": time_ms(
             lambda: spheres.k1(record=True), reps=5),
+    }
+
+
+def large_cases(dev, spheres: Case, stream: dict) -> dict:
+    """Kernels 2 and 2s past 64 objects (their large-table instances):
+    kernel 2 on sphere_field(N_SPHERES)'s and the streamed torus's step
+    cotangents (the cases above), kernel 2s on the streamed torus at
+    SOFT_LARGE_SIZE^2."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    return {"spheres": spheres, "torus": stream["torus"],
+            "soft": Case(chip_smoke._stream_scene(
+                "torus", SOFT_LARGE_SIZE, SOFT_LARGE_SIZE, dev), dev,
+                size=SOFT_LARGE_SIZE)}
+
+
+def measure_large(cases: dict) -> dict:
+    sp, torus, soft = cases["spheres"], cases["torus"], cases["soft"]
+    return {
+        "k2_large_spheres_step_g_sph_mat_ms": time_ms(
+            lambda: sp.k2(sp.g, TRAIN_WRT), reps=3),
+        "k2_large_stream_torus_step_g_sph_mat_tri_ms": time_ms(
+            lambda: torus.k2(torus.g, ("sph", "mat", "tri")), reps=2),
+        f"k2s_large_stream_torus_{SOFT_LARGE_SIZE}_step_g_sph_mat_ms":
+            time_ms(lambda: soft.k2s(soft.g, TRAIN_WRT), reps=1),
     }
 
 
@@ -447,6 +486,7 @@ def main(argv=None) -> int:
           f" sphere_field({N_SPHERES}) {spheres.live:.4%}")
     grid = grid_cases(dev)
     stream = stream_cases(dev)
+    large = large_cases(dev, spheres, stream)
     results: dict = {"card": smi, "turns": []}
     soft_first: dict = {}
     for order in (labels, labels[::-1]):
@@ -458,6 +498,11 @@ def main(argv=None) -> int:
             if "megakernel_soft" in libs[label]:
                 print(f"{label}:")
                 turn[label].update(measure_soft(cornell, soft_first))
+            if (hasattr(libs[label].get("megakernel_grad"),
+                        "rt_pathtrace_bwd_large")
+                    and hasattr(libs[label].get("megakernel_soft"),
+                                "rt_pathtrace_bwd_soft_large")):
+                turn[label].update(measure_large(large))
             print(f"{label}: " + ", ".join(
                 f"{k} {v:.6g}" for k, v in turn[label].items()))
         results["turns"].append(turn)

@@ -7,10 +7,14 @@ When a table that the pass reads requires grad (scene parameters being
 fitted) and grad mode is on, the pass is differentiable: it runs
 ``ops.megakernel_grad.pathtrace_pass_diff`` with the backward that
 ``bwd_impl_for`` picks, as the JAX package does: kernel 2
-(``csrc/megakernel_grad.cu``) for tables of at most 64 objects per type,
-the champion ("cell") route past that -- kernel 1 records the champions
-and occlusion bits, kernel 3 (``csrc/megakernel_champ.cu``) differentiates
-the record. ``supported_diff`` gates the differentiable pass.
+(``csrc/megakernel_grad.cu``, replaying the pass; past 64 objects per
+type and on grid scenes its large-table instance) or the champion ("cell")
+route -- kernel 1 records the champions and occlusion bits, kernel 3
+(``csrc/megakernel_champ.cu``) differentiates the record -- which "auto"
+takes past 64 objects and in grid mode; in edge mode kernel 2s
+(``csrc/megakernel_soft.cu``) at any size the pass covers.
+``supported_diff`` gates the differentiable pass (``DIFF_TABLE_MAX``
+objects per type).
 
 ``supported`` is True only for what the port's kernel 1 covers: no
 stale-POI replication and fewer than 2^24 rays. Tables of at most 4608
@@ -44,7 +48,7 @@ from .stages import _all_triangles
 
 # the differentiable pass's table budget per object type (JAX's
 # render/mega.py DIFF_TABLE_MAX)
-DIFF_TABLE_MAX = 4096
+DIFF_TABLE_MAX = MKG.DIFF_TABLE_MAX
 # grid mode's differentiable row budget, counted as JAX counts its
 # duplicated cell-major diff rows (render/mega.py GRID_DIFF_MAX): the
 # triangle prefix plus the grids' payloads, and the sphere grid's payload.
@@ -272,30 +276,24 @@ def supported(scene: Scene | None, cfg: RenderConfig) -> bool:
 
 
 def supported_diff(scene: Scene | None, cfg: RenderConfig) -> bool:
-    """True when the differentiable pass covers this scene and config (the
-    hard-gradient backward over resident or streamed tables of at most
-    ``DIFF_TABLE_MAX`` objects per type, in grid mode ``GRID_DIFF_MAX``
-    rows; the edge-aware one, ``cfg.mega_edge_bandwidth > 0``, over at most
-    ``UNROLL_OBJECTS`` per type, grid mode included); raises
-    NotImplementedError naming the ROADMAP Queue 1 item otherwise."""
+    """True when the differentiable pass covers this scene and config, as
+    JAX's ``supported_diff`` (``render/mega.py:536-585``) gates it: tables
+    of at most ``DIFF_TABLE_MAX`` objects per type, resident or streamed,
+    the edge-aware backward (``cfg.mega_edge_bandwidth > 0``) included, in
+    grid mode too; grid mode's hard gradient up to ``GRID_DIFF_MAX`` rows
+    per type counted as JAX counts its duplicated cell-major rows. Raises
+    NotImplementedError otherwise: larger tables render forward-only, as
+    in JAX."""
     supported(scene, cfg)
     MKG._check_wrt(cfg.mega_grad_wrt)
     if scene is None:
         return True
-    if cfg.mega_edge_bandwidth > 0.0:
-        n_sph, n_tri = scene.spheres.count, _all_triangles(scene).count
-        if max(n_sph, n_tri) > MK.UNROLL_OBJECTS:
-            raise NotImplementedError(
-                f"{n_sph} spheres / {n_tri} triangles: the edge-aware "
-                f"backward (kernel 2s) keeps at most {MK.UNROLL_OBJECTS} "
-                "objects per type in shared memory; past that it is ROADMAP "
-                "Queue 1 item 16 (JAX takes its TPU-only 'xla' route)")
-        return True
-    if cfg.use_grid:
+    n_sph, n_tri = scene.spheres.count, _all_triangles(scene).count
+    if cfg.use_grid and cfg.mega_edge_bandwidth <= 0.0:
         g = grid_tables(scene)
         tri_rows = g.start + sum(int(x.item_indices.shape[0]) for x in g.tri)
         sph_rows = (int(g.sph.item_indices.shape[0]) if g.sph is not None
-                    else scene.spheres.count)
+                    else n_sph)
         budget = GRID_DIFF_MAX if g.sph is not None else DIFF_TABLE_MAX
         if tri_rows > GRID_DIFF_MAX or sph_rows > budget:
             raise NotImplementedError(
@@ -303,13 +301,12 @@ def supported_diff(scene: Scene | None, cfg: RenderConfig) -> bool:
                 f"training covers at most {GRID_DIFF_MAX} rows per type "
                 f"(the JAX package's GRID_DIFF_MAX; spheres without a grid "
                 f"{DIFF_TABLE_MAX}); larger scenes render forward-only")
-    elif max(scene.spheres.count,
-             _all_triangles(scene).count) > DIFF_TABLE_MAX:
+    elif max(n_sph, n_tri) > DIFF_TABLE_MAX:
         raise NotImplementedError(
-            f"{scene.spheres.count} spheres / {_all_triangles(scene).count} "
-            f"triangles: the differentiable pass covers at most "
-            f"{DIFF_TABLE_MAX} per type (the JAX package's DIFF_TABLE_MAX); "
-            "larger tables render forward-only")
+            f"{n_sph} spheres / {n_tri} triangles: the differentiable pass "
+            f"covers at most {DIFF_TABLE_MAX} per type (the JAX package's "
+            "DIFF_TABLE_MAX), the edge-aware one too; larger tables render "
+            "forward-only")
     return True
 
 
@@ -317,24 +314,28 @@ def bwd_impl_for(scene: Scene | None, cfg: RenderConfig) -> str:
     """The backward the differentiable pass runs (``cfg.mega_bwd_impl``),
     with the JAX package's semantics and names:
 
-    * "pallas" -- kernel 2, the backward by replay over tables in shared
-      memory. Past ``UNROLL_OBJECTS`` (64) spheres or triangles it raises
-      (ROADMAP Queue 1 item 16: JAX's ``_loop_diff`` windows over streamed
-      tables);
+    * "pallas" -- kernel 2, the backward by replay: up to 64 objects per
+      type over tables in shared memory, past that (and on a grid scene)
+      its large-table instance, which replays over kernel 1's streamed
+      chunks (JAX's ``_loop_diff`` windows) or grids and the scene's own
+      rows (JAX's kernel 2 replays over its duplicated cell-major diff
+      tables there; its AD scatters their cotangents back onto the same
+      original rows);
     * "cell" -- the champion route: kernel 1 recording (over streamed
-      tables too; the record names original rows), then kernel 3;
-    * "auto" -- "cell" for grid mode and past 64 objects of either type,
-      "pallas" otherwise;
+      tables and grids too; the record names original rows), then kernel
+      3;
+    * "auto" -- JAX's threshold: "cell" for grid mode and past 64 objects
+      of either type, "pallas" otherwise;
     * "xla" -- the TPU-only dense backward: raises.
 
-    "pallas" on a grid-mode scene raises (ROADMAP Queue 1 item 16): JAX
-    runs kernel 2 over its duplicated cell-major diff tables there, which
-    the port does not build. Returns "pallas" or "cell".
+    Returns "pallas" or "cell".
 
     Edge mode (``cfg.mega_edge_bandwidth > 0``): "auto" and "pallas" give
-    "pallas", kernel 2s over the scene's own rows, grid mode included;
-    "cell" raises, as JAX asserts; past 64 objects of either type it raises
-    (item 16) where JAX returns "xla"."""
+    "pallas", kernel 2s over the scene's own rows at any size the
+    differentiable pass covers, grid mode included (past 64 objects JAX's
+    "auto" takes its TPU-only dense "xla" route, which computes the same
+    soft cotangents at the value level); "cell" raises, as JAX
+    asserts."""
     impl = cfg.mega_bwd_impl
     if impl == "xla":
         raise NotImplementedError(
@@ -356,19 +357,22 @@ def bwd_impl_for(scene: Scene | None, cfg: RenderConfig) -> str:
         _all_triangles(scene).count) > MK.UNROLL_OBJECTS
     if impl == "auto":
         return "cell" if big or cfg.use_grid else "pallas"
-    if impl == "pallas" and cfg.use_grid:
-        raise NotImplementedError(
-            "grid-mode training takes the cell route (mega_bwd_impl 'auto' "
-            "or 'cell'); kernel 2 over a grid scene is ROADMAP Queue 1 item "
-            "16")
-    if impl == "pallas" and big:
-        raise NotImplementedError(
-            f"kernel 2 keeps the tables and their gradient buffers in shared "
-            f"memory, at most {MK.UNROLL_OBJECTS} objects per type; past "
-            "that JAX's kernel 2 replays over streamed windows, which is "
-            "ROADMAP Queue 1 item 16; mega_bwd_impl='auto' takes the cell "
-            "route")
     return impl
+
+
+def soft_tri_order(scene: Scene, tri: torch.Tensor,
+                   chunks: MK.KernelChunks | None) -> MK.Stream | None:
+    """The triangle order of the edge-aware backward, as JAX hands its soft
+    route the tables (``render/mega.py:690-700``, ``:711-712``): past 64
+    triangles the Morton-sorted rows of ``tri_chunk_tables``, padded with
+    zero rows to whole chunks -- the forward's streamed table, or in grid
+    mode a sorted copy built for the backward alone; None (the table's own
+    order) up to 64. The two-level composite's spans follow this order."""
+    if _all_triangles(scene).count <= MK.UNROLL_OBJECTS:
+        return None
+    if chunks is not None and chunks.tri is not None:
+        return chunks.tri
+    return tri_chunk_tables(scene, tri)
 
 
 def u_planes_for_direct(key: torch.Tensor, cfg: RenderConfig, n_lights: int,
@@ -463,12 +467,16 @@ def render_pass_mega(scene: Scene, state: dict, cfg: RenderConfig,
                 "under torch.no_grad()")
         cell = bwd_impl_for(scene, cfg) == "cell"
         # edge x grid: the primal walks the grids, the soft backward sweeps
-        # the scene's own rows (scene_tables never duplicates a row)
+        # the scene's own rows (scene_tables never duplicates a row), past
+        # 64 triangles in Morton order
+        soft_tri = (soft_tri_order(scene, tri, kw["chunks"])
+                    if cfg.mega_edge_bandwidth > 0.0 else None)
         acc = MKG.pathtrace_pass_diff(
             par, ipar, sph, tri, mat, lig, state["acc"], u_planes,
             diff_wrt=cfg.mega_grad_wrt, bwd_cell=cell,
             soft_bandwidth=cfg.mega_edge_bandwidth,
-            soft_tau=cfg.mega_edge_tau or cfg.mega_edge_bandwidth, **kw)
+            soft_tau=cfg.mega_edge_tau or cfg.mega_edge_bandwidth,
+            soft_tri=soft_tri, **kw)
     else:
         acc = MK.pathtrace_pass(par, ipar, sph, tri, mat, lig, state["acc"],
                                 u_planes, n_passes=n_passes, **kw)

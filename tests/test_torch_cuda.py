@@ -1,8 +1,9 @@
 """The CUDA kernels (the pass with and without Russian roulette, its
 recording, direct, grid and streamed modes and its blocked layout, its two
-adjoints with and without the roulette, the edge-aware adjoint kernel 2s
-and the stage pipeline's hit searches) against their plain PyTorch
-versions on the card.
+adjoints with and without the roulette, the edge-aware adjoint kernel 2s,
+the large-table instances of kernels 2 and 2s past 64 objects per type, and
+the stage pipeline's hit searches) against their plain PyTorch versions on
+the card.
 
 Runs only where there is a CUDA device; elsewhere each test skips. Imports
 no jax, so it runs on a machine without it:
@@ -956,3 +957,117 @@ def test_streamed_cell_route_trains_through_kernels_1_and_3(cuda):
             MKG.champ_launches - k3, MK.stream_launches - s1) == (1, 0, 1, 1)
     assert torch.isfinite(tv.grad).all() and tv.grad.abs().max() > 0
     assert torch.isfinite(mat.grad).all() and mat.grad.abs().max() > 0
+
+
+def _large_case(name, device, rr=False, w=32, h=24):
+    """(scene, cfg, tables, replay kwargs) of a scene past 64 objects:
+    sphere_field(100) (resident spheres), the torus scene streamed, or the
+    torus scene over its grids."""
+    from torch_grid_scenes import cornell_torus
+    from raytracing_tpu_torch.accel import prepare_grids
+    grid = name == "torus-grid"
+    scene = (sphere_field(100, cols=w, rows=h, device=device)
+             if name == "spheres" else cornell_torus(w, h, 16, 8,
+                                                     device=device))
+    if grid:
+        scene = prepare_grids(scene, 2)
+    cfg = RenderConfig(width=w, height=h, bounces=2, use_megakernel=True,
+                       russian_roulette=rr, rr_start_depth=1, use_grid=grid)
+    tables = mega.scene_tables(scene, cfg)
+    replay = dict(grid=mega.grid_tables(scene) if grid else None,
+                  chunks=mega.chunk_tables(scene, cfg, tables[1], tables[2]))
+    return scene, cfg, tables, replay
+
+
+@pytest.mark.parametrize("rr", [False, True])
+@pytest.mark.parametrize("name", ["spheres", "torus", "torus-grid"])
+def test_large_adjoint_kernel_matches_plain_version(cuda, name, rr):
+    """Kernel 2's large-table instance (resident spheres, streamed chunks,
+    grids) vs autograd through the plain forward, 32x24 b2, all five
+    groups, seeded random g, the u-planes and PRNG routes; one launch of
+    the large-table instance each, none of the small one."""
+    scene, cfg, tables, replay = _large_case(name, cuda, rr)
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    u = mega.u_planes_for_pass(pt.init_state(cfg, cuda)["key"], 0, cfg,
+                               scene.lights.count, cuda)
+    g = torch.as_tensor(np.random.default_rng(7).normal(
+        size=(cfg.total_rays, 3)).astype(np.float32), device=cuda)
+    kw = dict(spp=1, width=cfg.width, bounces=2, two_sided=False,
+              normalize_emitter=True, seed=cfg.seed, russian_roulette=rr,
+              rr_start_depth=1)
+    want = MKG.pathtrace_pass_bwd_reference(tables[0], ipar, *tables[1:], g,
+                                            u, **kw)
+    small, large = MKG.launches, MKG.large_launches
+    for planes in (u, None):
+        got = MKG.pathtrace_pass_bwd(tables[0], ipar, *tables[1:], g, planes,
+                                     **kw, **replay)
+        torch.cuda.synchronize()
+        _gates(*zip(*[(a, b) for a, b in zip(want, got) if a.numel()]),
+               names=[n for n, a in zip(MKG.DIFF_ALL, want) if a.numel()])
+    assert (MKG.launches, MKG.large_launches) == (small, large + 2)
+
+
+@pytest.mark.parametrize("rr", [False, True])
+@pytest.mark.parametrize("name", ["spheres", "torus"])
+def test_large_soft_kernel_matches_plain_version(cuda, name, rr):
+    """Kernel 2s's large-table instance (the two-level composite over every
+    span; the torus scene's triangles in Morton order, padded) vs its plain
+    version, 32x24 b2, all five groups, bandwidth and tau 2e-2."""
+    scene, cfg, tables, replay = _large_case(name, cuda, rr)
+    st = mega.soft_tri_order(scene, tables[2], replay["chunks"])
+    tables = list(tables)
+    if st is not None:
+        tables[2] = st.rows
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    g = torch.as_tensor(np.random.default_rng(8).normal(
+        size=(cfg.total_rays, 3)).astype(np.float32), device=cuda)
+    kw = dict(spp=1, width=cfg.width, bounces=2, two_sided=False,
+              normalize_emitter=True, seed=cfg.seed, russian_roulette=rr,
+              rr_start_depth=1, soft_bandwidth=2e-2, soft_tau=2e-2)
+    want = MKS.pathtrace_pass_bwd_soft_reference(tables[0], ipar,
+                                                 *tables[1:], g, None, **kw)
+    before = MKS.soft_large_launches
+    got = MKS.pathtrace_pass_bwd_soft(tables[0], ipar, *tables[1:], g, None,
+                                      **kw)
+    torch.cuda.synchronize()
+    assert MKS.soft_large_launches == before + 1
+    _gates(*zip(*[(a, b) for a, b in zip(want, got) if a.numel()]),
+           names=[n for n, a in zip(MKG.DIFF_ALL, want) if a.numel()])
+
+
+@pytest.mark.parametrize("edge", [False, True])
+def test_routes_past_64_train_through_their_kernels(cuda, edge):
+    """render_pass on the streamed torus scene with mega_bwd_impl="pallas"
+    (one streamed kernel-1 launch and one of kernel 2's large-table
+    instance, no kernel 3) or in edge mode (one of kernel 2s's large-table
+    instance), and the same route's gradients on the CPU."""
+    from torch_grid_scenes import cornell_torus
+    cfg = RenderConfig(width=32, height=24, bounces=2, use_megakernel=True,
+                       mega_bwd_impl="pallas",
+                       mega_edge_bandwidth=2e-2 if edge else 0.0,
+                       mega_grad_wrt=("sph", "mat", "tri"))
+
+    def run(device):
+        scene = cornell_torus(32, 24, 16, 8, device=device)
+        m = scene.meshes[0]
+        tv = m.tris.v.clone().requires_grad_(True)
+        mat = scene.materials.clone().requires_grad_(True)
+        sc = replace(scene, materials=mat,
+                     meshes=(replace(m, tris=replace(m.tris, v=tv)),))
+        st = pt.render_pass(sc, pt.init_state(cfg, device), cfg)
+        torch.mean(pt.image(st, cfg) ** 2).backward()
+        return [x.grad.cpu() for x in (tv, mat)]
+
+    counts = (MK.stream_launches, MKG.large_launches, MKG.champ_launches,
+              MKS.soft_large_launches)
+    got = run(cuda)
+    torch.cuda.synchronize()
+    moved = tuple(b - a for a, b in zip(counts, (
+        MK.stream_launches, MKG.large_launches, MKG.champ_launches,
+        MKS.soft_large_launches)))
+    assert moved == ((1, 0, 0, 1) if edge else (1, 1, 0, 0))
+    want = run("cpu")
+    for a, b in zip(want, got):
+        assert torch.isfinite(b).all() and b.abs().max() > 0
+        cos = (a * b).sum() / (a.norm() * b.norm())
+        assert cos >= 0.999 and abs(b.norm() / a.norm() - 1) <= 0.01

@@ -222,7 +222,9 @@ def test_routing_of_requires_grad_calls(scenes):
 def test_backward_gates(scenes):
     """bwd_impl_for has the JAX package's semantics: "auto" is kernel 2
     ("pallas") up to 64 objects per type and the champion route ("cell")
-    past that; "pallas" past 64 objects and the TPU-only "xla" raise."""
+    past that and in grid mode; "pallas" runs kernel 2 at any size the
+    differentiable pass covers, grid scenes included; the TPU-only "xla"
+    raises."""
     _, ps = scenes
     cfg = RenderConfig(width=W, height=H, bounces=1, use_megakernel=True)
     assert mega.supported_diff(ps, cfg)
@@ -233,23 +235,23 @@ def test_backward_gates(scenes):
     assert mega.bwd_impl_for(big, cfg) == "cell"
     with pytest.raises(NotImplementedError, match="Do not port"):
         mega.bwd_impl_for(ps, replace(cfg, mega_bwd_impl="xla"))
-    # edge mode: kernel 2s up to 64 objects per type, "cell" is hard-only,
-    # past 64 it is item 16 (JAX's TPU-only "xla" route)
+    # edge mode: kernel 2s at any size the pass covers, "cell" is hard-only
     edge = replace(cfg, mega_edge_bandwidth=1e-2)
     for impl in ("auto", "pallas"):
         assert mega.bwd_impl_for(ps, replace(edge, mega_bwd_impl=impl)) \
             == "pallas"
+        assert mega.bwd_impl_for(big, replace(edge, mega_bwd_impl=impl)) \
+            == "pallas"
     with pytest.raises(ValueError, match="hard-gradient only"):
         mega.bwd_impl_for(ps, replace(edge, mega_bwd_impl="cell"))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        mega.bwd_impl_for(big, edge)
-    # grid mode trains on the cell route; kernel 2 over it is item 16
+    # grid mode: "auto" trains on the cell route, "pallas" runs kernel 2's
+    # large-table instance over the grids
     gs, gcfg = prepare_grids(ps, 2), replace(cfg, use_grid=True)
     assert mega.bwd_impl_for(gs, gcfg) == "cell"
-    with pytest.raises(NotImplementedError, match="item 16"):
-        mega.bwd_impl_for(gs, replace(gcfg, mega_bwd_impl="pallas"))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        mega.bwd_impl_for(big, replace(cfg, mega_bwd_impl="pallas"))
+    assert mega.bwd_impl_for(gs, replace(gcfg, mega_bwd_impl="pallas")) \
+        == "pallas"
+    assert mega.bwd_impl_for(big, replace(cfg, mega_bwd_impl="pallas")) \
+        == "pallas"
     with pytest.raises(NotImplementedError, match="DIFF_TABLE_MAX"):
         mega.supported_diff(sphere_field(4097, cols=W, rows=H), cfg)
     with pytest.raises(ValueError, match="'auto', 'pallas' or 'cell'"):

@@ -51,7 +51,7 @@ from raytracing_tpu.render import mega as jmega
 from raytracing_tpu.render import pathtracer as jpt
 from raytracing_tpu.render.stages import _all_triangles as jall_triangles
 from raytracing_tpu_torch import RenderConfig, replace
-from raytracing_tpu_torch.core import types
+from raytracing_tpu_torch.core import rng, types
 from raytracing_tpu_torch.core.types import scene_from_numpy, scene_to_numpy
 from raytracing_tpu_torch.models import scenes
 from raytracing_tpu_torch.ops import megakernel as MK
@@ -470,23 +470,37 @@ def test_routing_follows_jax():
 
 
 def test_unported_routes_name_item_16():
-    """Kernel 2 over streamed tables (JAX's _loop_diff windows) is ROADMAP
-    Queue 1 item 16: "pallas", and the pass with bwd_cell=False, raise
-    naming it; edge mode past 64 objects too."""
+    """What item 16 left unported now routes: "pallas" over streamed tables
+    (JAX's _loop_diff windows) is kernel 2's large-table instance, edge mode
+    past 64 objects is kernel 2s, and the pass with bwd_cell=False takes
+    the chunks (on the CPU the plain brute forward under autograd, whose
+    champions the streamed forward's are); past DIFF_TABLE_MAX the pass
+    still raises, naming the budget, not item 16."""
     ps = _port(_jax_torus(8, 8))
     cfg = RenderConfig(width=8, height=8, bounces=1, use_megakernel=True)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        mega.bwd_impl_for(ps, replace(cfg, mega_bwd_impl="pallas"))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        mega.bwd_impl_for(ps, replace(cfg, mega_edge_bandwidth=1e-2))
+    assert mega.bwd_impl_for(ps, replace(cfg, mega_bwd_impl="pallas")) \
+        == "pallas"
+    assert mega.bwd_impl_for(ps, replace(cfg, mega_edge_bandwidth=1e-2)) \
+        == "pallas"
     tables = [t.clone().requires_grad_(True)
               for t in mega.scene_tables(ps, cfg)]
     chunks = mega.chunk_tables(ps, cfg, tables[1], tables[2])
-    with pytest.raises(NotImplementedError, match="item 16"):
-        MKG.pathtrace_pass_diff(
-            tables[0], torch.zeros(2, dtype=torch.int32), *tables[1:],
-            torch.zeros((64, 3)), None, spp=1, width=8, bounces=1,
-            two_sided=False, normalize_emitter=True, seed=0, chunks=chunks)
+    kw = dict(spp=1, width=8, bounces=1, two_sided=False,
+              normalize_emitter=True, seed=0)
+    u = mega.u_planes_for_pass(rng.base_key(0), 0, cfg, ps.lights.count)
+    acc = MKG.pathtrace_pass_diff(
+        tables[0], torch.zeros(2, dtype=torch.int32), *tables[1:],
+        torch.zeros((64, 3)), u, chunks=chunks, **kw)
+    brute = MK.pathtrace_pass_reference(
+        tables[0].detach(), torch.zeros(2, dtype=torch.int32),
+        *(t.detach() for t in tables[1:]), torch.zeros((64, 3)), u, **kw)
+    assert torch.equal(acc.detach(), brute)
+    acc.sum().backward()
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in tables)
+    with pytest.raises(NotImplementedError, match="DIFF_TABLE_MAX"):
+        mega.bwd_impl_for(_tris(4097, scenes.cornell_box(cols=8, rows=8)),
+                          replace(cfg, mega_edge_bandwidth=1e-2))
 
 
 def test_wrapper_rejects_bad_chunks():
