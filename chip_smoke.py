@@ -234,6 +234,34 @@ Phases, each fatal on failure (no exception is caught):
      span and the spans' level). Prints the phase's seconds. The kernels
      line's entries of this phase name the size of their ``ms``
      (``shape``) and of their ``plain_ms`` (``plain_shape``).
+ 23. the differentiable direct pass (pathtrace_pass_diff(mode="direct"),
+     ops/megakernel_grad.py): (iv) at DIRECT_W x DIRECT_H, the same
+     u_planes_for_direct draws and seeded random cotangent, on cornell
+     spp 1 and spp 4 through a lens of diameter 0.25 (all five groups),
+     sphere_field(SMALL_SPHERES) (kernels 2 and 2s's large-table
+     instances, ("sph", "mat")) and the torus scene streamed (("sph",
+     "mat", "tri")): piece a, kernel 1's direct-mode recording, bit-equal
+     to the launch that does not record, its --fmad=false build equal to
+     the plain record on every ray, id and bit, the build that runs within
+     phase 3's gates (SPHERE_GATES on the sphere field); piece b, kernel 2
+     (over the forward's streamed chunks), piece c, kernel 3 on kernel 1's
+     own record, and piece d, kernel 2s (EDGE_BW; on the large scenes at
+     DIRECT_SOFT_W x DIRECT_SOFT_H, the triangles Morton-sorted), each
+     against its plain version under phase 6's gates, with phase 22's
+     excusal of unstable rays for kernel 2s; the PRNG route bit-equal to
+     the u-planes route forward and within phase 6's gates backward;
+     (i)-(iii) at 1024^2 spp 1 with ("sph", "mat"), 1 warm-up and
+     DIRECT_STEPS timed SGD steps on mean(image^2) (the image the
+     per-pixel mean over spp over the lights, as render_direct_mega
+     forms it): cornell through kernels 1 and 2, through kernel 1
+     recording and kernel 3, and through kernels 1 and 2s
+     (mega_edge_bandwidth EDGE_BW), sphere_field(N_SPHERES) through kernel
+     2's large-table instance and through the cell route: exactly one
+     direct launch and one launch of the route's backward per step, a
+     finite loss, finite nonzero gradients; ms per step, fwd+bwd rays/s,
+     each kernel alone (CUDA events) on the last step with its share of
+     its bound (_direct_bounds, _soft_ops with ``direct``). Prints the
+     phase's seconds.
 Each phase prints the seconds elapsed since the start before it runs.
 Ends with a kernels JSON line and, last, the device JSON line. Exits non-zero
 without a result where CUDA is missing or the package is not beside it.
@@ -305,6 +333,9 @@ BRUTE_W, BRUTE_H, BRUTE_BOUNCES = 8, 6, 2  # the streamed torus vs brute
 LARGE_STEPS = 5            # timed hard steps per route at 1024^2
 CAP_W, CAP_H = 16, 8       # one launch of each route at DIFF_TABLE_MAX
 SOFT_CHUNK = 64            # JAX's SOFT_CHUNK: rows per span past 64
+DIRECT_W, DIRECT_H = 256, 192   # phase 23's kernel vs plain
+DIRECT_SOFT_W, DIRECT_SOFT_H = 64, 48   # kernel 2s vs plain past 64 objects
+DIRECT_STEPS = 10          # phase 23's timed train steps per route
 
 # Bounds: the least time the card could take for a kernel's work, the
 # larger of its FP32 operations over the H100's 67 TFLOP/s and its bytes
@@ -391,6 +422,26 @@ OPS_ADJ_CAMERA = 186     # per path, with par: the camera chain's adjoint
 OPS_ADJ_RR = 41          # per segment that followed a roulette: the tie and
                          # bound weights 20, g.tp 5, the chain 5, the three
                          # cotangents 11
+# Direct mode's adjoint (csrc/pathtrace_adj.cuh direct_sweep), counted the
+# same way; its champion's and camera's adjoints are OPS_ADJ_SPHERE,
+# OPS_ADJ_TRIANGLE (and their rows) and OPS_ADJ_CAMERA:
+OPS_ADJ_DIRECT = 17      # per shadow ray of a valid hit: the albedo's
+                         # cotangent 6, the outer clip's 10, ambient 1
+OPS_ADJ_DIRECT_GEOM = 53   # per free shadow ray, with par/sph/tri/lig: the
+                           # cosine's clip 5, direction 3 + 24, hit point
+                           # 3, normal 12, eps 6
+OPS_ADJ_DIRECT_LIG = 22  # per free shadow ray, with lig: radius 14,
+                         # tangent and bitangent 8
+OPS_DIRECT_SHADOW = 64   # kernel 3's forward piece per direct shadow ray:
+                         # the shadow ray 53, cosine and its clip 7, ambient
+                         # and its clip 4
+OPS_SOFT_DIRECT_NEE = 73     # kernel 2s, per direct shadow ray past its
+                             # transmittance: the shadow ray and its length
+                             # 53, the shade 20 (cosine, clips, vis, albedo)
+OPS_SOFT_DIRECT_NEE_ADJ = 115  # its adjoint: coverage and albedo 14, the
+                               # clips 15, direction 3 + 24, length 12,
+                               # origin and hit point 12, light row 22, eps
+                               # 6, normal 7
 # Kernel 2s (csrc/pathtrace_soft_adj.cuh, csrc/megakernel_soft.cu), counted
 # the same way with each expf as one operation (a sigmoid: negate, expf,
 # add, divide: 4); _soft_ops puts them together per segment and light. What
@@ -2702,7 +2753,7 @@ def _cell_bounds(tables, ids, occs, g, cfg):
 
 
 def _soft_ops(rays: float, segs: float, n_sph: int, n_tri: int,
-              n_lig: int) -> float:
+              n_lig: int, direct: bool = False) -> float:
     """FP32 operations of kernel 2s without the roulette and without par
     (the main path's step) over ``rays`` live rays (g != 0, inside the
     scene box) with ``segs`` segments between them. The soft program's work
@@ -2710,7 +2761,9 @@ def _soft_ops(rays: float, segs: float, n_sph: int, n_tri: int,
     composites every hypothesis (past 64 objects in two levels: within
     each span, then the spans), every shadow ray sees every occluder.
     Each segment's soft surface, each shadow ray's transmittance, the
-    emitter and the bounce count once, then their adjoints."""
+    emitter and the bounce count once, then their adjoints. ``direct``:
+    direct mode's (one segment per ray, the shade per light, no emitter
+    term)."""
     n = n_sph + n_tri
     if n <= UNROLL_SPHERES:
         pairs, blends, spans = n * (n - 1), n, 0
@@ -2735,6 +2788,10 @@ def _soft_ops(rays: float, segs: float, n_sph: int, n_tri: int,
                + OPS_SOFT_SEGMENT_ADJ)
     nee = (hyp + n * OPS_SOFT_OCCLUDER + hyp_adj + n * OPS_SOFT_OCCLUDER_ADJ
            + OPS_SOFT_NEE_ADJ)
+    if direct:
+        # one segment, no emitter term: the shade per light
+        nee += OPS_SOFT_DIRECT_NEE + OPS_SOFT_DIRECT_NEE_ADJ - OPS_SOFT_NEE_ADJ
+        return rays * OPS_CAMERA + segs * (surface + n_lig * nee)
     return (rays * (OPS_CAMERA + n_lig * (OPS_SOFT_EMIT + OPS_SOFT_EMIT_ADJ))
             + segs * (surface + n_lig * nee)
             + (segs - rays) * (OPS_BOUNCE + OPS_SOFT_BOUNCE_ADJ + 1))
@@ -3507,6 +3564,53 @@ def _ray_moves(MKS, tables, g, u, kw, wrt) -> dict:
     return moves
 
 
+def _excuse_unstable(MKS, tables, g, u, kw, held, want, got, plain, kernel,
+                     what: str):
+    """Phase 22's rule for kernel 2s, where a group in ``held`` misses
+    phase 6's gates: the least stable ray left by _ray_moves (the plain
+    version alone) is excused, one at a time (its cotangent zeroed, the
+    plain version ``plain(g)`` and the kernel's u-planes and PRNG routes
+    ``kernel(g, planes)`` rerun), until every other ray is within the
+    gates; each must move the cotangent the gates then read (its norm,
+    group by group) by more than UNSTABLE_MOVE, and at most 2% of the rays
+    go. Returns (want, got) on the rays kept; the excused rays are
+    listed."""
+    import torch
+    from raytracing_tpu_torch.ops import megakernel_grad as MKG
+
+    def hold(want, got):
+        return all(_gates_hold(want[i], outs[i]) for outs in got.values()
+                   for i, n in enumerate(MKG.DIFF_ALL) if n in held)
+
+    if hold(want, got):
+        return want, got
+    moves = _ray_moves(MKS, tables, g, u, kw, held)
+    idx = {n: i for i, n in enumerate(MKG.DIFF_ALL)}
+    cap = max(1, g.shape[0] // 50)
+    excused = []
+    while not hold(want, got):
+        rel = torch.stack([m / max(want[idx[n]].norm().item(), 1e-30)
+                           for n, m in moves.items()]).amax(0)
+        rel[excused] = -1.0
+        r = int(rel.argmax())
+        move = rel[r].item()
+        print(f"  a group misses phase 6's gates; the least stable ray "
+              f"left, {r}, moves the cotangent by {move:.3g} of its norm "
+              "between draws moved by +-2^-22")
+        _check(len(excused) < cap and move > UNSTABLE_MOVE,
+               f"{what} misses phase 6's gates on rays that are stable "
+               f"(ray {r}: {move:.3g} <= {UNSTABLE_MOVE:g}) or past {cap} "
+               "excused rays")
+        excused.append(r)
+        gk = g.clone()
+        gk[excused] = 0.0
+        want = plain(gk)
+        got = {"u-planes": kernel(gk, u), "PRNG": kernel(gk, None)}
+    print(f"  rays {excused} excused ({len(excused)} of at most {cap}); "
+          f"{what} on the other {g.shape[0] - len(excused)} rays:")
+    return want, got
+
+
 def large_vs_plain(dev, shape: str, soft: bool, rr: bool, wrt,
                    w: int = LARGE_W, h: int = LARGE_H,
                    bounces: int = BOUNCES, brute: bool = False) -> dict:
@@ -3607,37 +3711,9 @@ def large_vs_plain(dev, shape: str, soft: bool, rr: bool, wrt,
         _check(all(bool(torch.isfinite(b).all()) for b in outs),
                f"{shape}: {what} {route} route not finite")
     held = [n for n, a in zip(MKG.DIFF_ALL, want) if n in wrt and a.numel()]
-    if soft and not all(_gates_hold(want[i], outs[i]) for outs in
-                        got.values() for i, n in enumerate(MKG.DIFF_ALL)
-                        if n in held):
-        moves = _ray_moves(MKS, tables, g, u, kw, wrt)
-        idx = {n: i for i, n in enumerate(MKG.DIFF_ALL)}
-        # the least stable ray left, one at a time, until every other ray
-        # is within the gates: its move over the norm of the cotangent the
-        # gates then read (group by group), which must pass UNSTABLE_MOVE
-        cap = max(1, cfg.total_rays // 50)
-        excused = []
-        while not all(_gates_hold(want[i], outs[i]) for outs in got.values()
-                      for i, n in enumerate(MKG.DIFF_ALL) if n in held):
-            rel = torch.stack([m / max(want[idx[n]].norm().item(), 1e-30)
-                               for n, m in moves.items()]).amax(0)
-            rel[excused] = -1.0
-            r = int(rel.argmax())
-            move = rel[r].item()
-            print(f"  a group misses phase 6's gates; the least stable ray "
-                  f"left, {r}, moves the cotangent by {move:.3g} of its "
-                  "norm between draws moved by +-2^-22")
-            _check(len(excused) < cap and move > UNSTABLE_MOVE,
-                   f"{shape}: {what} misses phase 6's gates on rays that "
-                   f"are stable (ray {r}: {move:.3g} <= {UNSTABLE_MOVE:g}) "
-                   f"or past {cap} excused rays")
-            excused.append(r)
-            gk = g.clone()
-            gk[excused] = 0.0
-            want = plain(gk)
-            got = {"u-planes": kernel(gk, u), "PRNG": kernel(gk, None)}
-        print(f"  rays {excused} excused ({len(excused)} of at most {cap}); "
-              f"{what} on the other {cfg.total_rays - len(excused)} rays:")
+    if soft:
+        want, got = _excuse_unstable(MKS, tables, g, u, kw, held, want, got,
+                                     plain, kernel, f"{shape}: {what}")
     err = 0.0
     for route, outs in got.items():
         print(f"  {what} {route} route vs plain version:")
@@ -3937,6 +4013,415 @@ def large_train(dev, smi: str, work: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the differentiable direct pass (mode="direct")
+# ---------------------------------------------------------------------------
+
+def _direct_adj_ops(w: dict, wrt) -> float:
+    """FP32 operations of direct_sweep's own work over the work w of the
+    rays with g != 0 (a record of one segment) for the groups ``wrt``."""
+    geo = bool({"par", "sph", "tri"} & set(wrt))
+    ops = w["shadow"] * OPS_ADJ_DIRECT
+    if geo or "lig" in wrt:
+        ops += w["free"] * OPS_ADJ_DIRECT_GEOM
+    if "lig" in wrt:
+        ops += w["free"] * OPS_ADJ_DIRECT_LIG
+    if geo:
+        ops += (w["sph_hits"] * OPS_ADJ_SPHERE
+                + w["tri_hits"] * OPS_ADJ_TRIANGLE)
+    if "sph" in wrt:
+        ops += w["sph_hits"] * OPS_ADJ_SPHERE_ROW
+    if "tri" in wrt:
+        ops += w["tri_hits"] * OPS_ADJ_TRIANGLE_ROW
+    if "par" in wrt:
+        ops += w["primary"] * OPS_ADJ_CAMERA
+    return ops
+
+
+def _direct_bounds(tables, ids, occs, g, wrt) -> dict:
+    """Bounds of pieces a (kernel 1 recording the direct pass: ids (1, R),
+    occs (L, R)), b (kernel 2: kernel 1's pass over the rays with g != 0,
+    then direct_sweep) and c (kernel 3: the recorded champion's surface and
+    each shadow ray once, then direct_sweep), and each one's operations per
+    ray."""
+    n = ids.shape[1]
+    n_s, n_t, n_l = (t.shape[0] for t in tables[1:3] + tables[4:5])
+    w = _pass_work(ids, occs, n_l, n_s)
+    live = _pass_work(ids, occs, n_l, n_s, (g != 0).any(-1))
+    ops = {"a": _direct_ops(w, n_s, n_t),
+           "b": _direct_ops(live, n_s, n_t) + _direct_adj_ops(live, wrt),
+           "c": (live["rays"] * OPS_CAMERA + live["primary"] * OPS_CHAMP
+                 + live["shadow"] * OPS_DIRECT_SHADOW
+                 + _direct_adj_ops(live, wrt))}
+    nbytes = {"a": (24 + 4 + n_l) * n + _table_bytes(tables),
+              "b": 12 * n + 2 * _table_bytes(tables),
+              "c": 12 * n + (4 + n_l) * live["rays"]
+              + 2 * _table_bytes(tables)}
+    return {k: dict(_bound(ops[k], nbytes[k]),
+                    per_ray=ops[k] / max(w["rays"] if k == "a"
+                                         else live["rays"], 1))
+            for k in ops}
+
+
+def _direct_scene(name: str, w: int, h: int, dev, lens: float = 0.0):
+    """Phase 23's scenes: cornell (with a lens of diameter ``lens``),
+    sphere_field(SMALL_SPHERES) ("spheres", kernels 2 and 2s's large-table
+    instances), sphere_field(N_SPHERES) ("spheres1024") and the torus
+    scene without grids ("torus": 1,002 triangles streamed)."""
+    from raytracing_tpu_torch.models.scenes import cornell_box, sphere_field
+    if name == "cornell":
+        return cornell_box(cols=w, rows=h, lens_diameter=lens, device=dev)
+    if name == "spheres":
+        return sphere_field(SMALL_SPHERES, cols=w, rows=h, device=dev)
+    if name == "spheres1024":
+        return sphere_field(N_SPHERES, cols=w, rows=h, device=dev)
+    return _stream_scene("torus", w, h, dev)
+
+
+def _direct_inputs(dev, name: str, w: int, h: int, spp: int, lens: float,
+                   wrt) -> dict:
+    """Tables, u_planes_for_direct of pass 0's key, a seeded cotangent and
+    the kernels' arguments of one phase-23 case."""
+    import numpy as np
+    import torch
+    from raytracing_tpu_torch import RenderConfig
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.render import mega
+    scene = _direct_scene(name, w, h, dev, lens)
+    cfg = RenderConfig(width=w, height=h, spp=spp, bounces=0,
+                       use_megakernel=True)
+    tables = list(mega.scene_tables(scene, cfg))
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    key = MK.pass_key_of(ipar, cfg.seed)
+    return dict(scene=scene, cfg=cfg, tables=tables, ipar=ipar, key=key,
+                u=mega.u_planes_for_direct(key, cfg, scene.lights.count, dev),
+                g=torch.as_tensor(np.random.default_rng(GRAD_SEED).normal(
+                    size=(cfg.total_rays, 3)).astype(np.float32), device=dev),
+                chunks=mega.chunk_tables(scene, cfg, tables[1], tables[2]),
+                kw=_pass_kw(cfg, diff_wrt=wrt, mode="direct"))
+
+
+def _timed(fn):
+    """(result, host ms) of fn, synchronised."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _hold_routes(what: str, want, got: dict, wrt) -> float:
+    """Phase 6's gates (max |d| included) of each route in ``got`` against
+    the plain cotangents, and of the PRNG route against the u-planes
+    route; groups outside ``wrt`` zero. Returns max |d|."""
+    from raytracing_tpu_torch.ops import megakernel_grad as MKG
+    err = 0.0
+    for route, outs in got.items():
+        print(f"  {what} {route} route vs plain version:")
+        for name, a, b in zip(MKG.DIFF_ALL, want, outs):
+            if name in wrt and a.numel():
+                err = max(err, _grad_gates(name, a, b, True))
+            else:
+                _check(not b.any().item(), f"{what}: {name} outside "
+                       "diff_wrt is not zero")
+    print(f"  {what} PRNG route vs u-planes route:")
+    for name, a, b in zip(MKG.DIFF_ALL, got["u-planes"], got["PRNG"]):
+        if name in wrt and a.numel():
+            _grad_gates(name, a, b, True)
+    return err
+
+
+def direct_diff_vs_plain(dev, name: str, wrt, spp: int = 1,
+                         lens: float = 0.0, soft: bool = True) -> dict:
+    """Phase 23 (iv) on one scene at DIRECT_W x DIRECT_H: pieces a-d (a-c
+    without ``soft``) against their plain versions on the same tables,
+    u_planes_for_direct and seeded cotangent (kernel 2s on the large scenes
+    at DIRECT_SOFT_W x DIRECT_SOFT_H); the PRNG route against the u-planes
+    route (forward bit-equal, backward phase 6's gates). Returns each
+    piece's max |d| and plain ms."""
+    import torch
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.ops import megakernel_grad as MKG
+    from raytracing_tpu_torch.ops import megakernel_soft as MKS
+    from raytracing_tpu_torch.render import mega
+
+    w, h = DIRECT_W, DIRECT_H
+    x = _direct_inputs(dev, name, w, h, spp, lens, wrt)
+    t, ipar, u, g, kw, chunks = (x[k] for k in ("tables", "ipar", "u", "g",
+                                                 "kw", "chunks"))
+    size = f"{name} {w}x{h} spp {spp}" + (f" lens {lens:g}" if lens else "")
+    n = g.shape[0]
+    zeros = torch.zeros((n, 3), device=dev)
+    fkw = dict(key=x["key"], spp=spp, width=w, two_sided=False,
+               chunks=chunks)
+    out = {"plain_ms": {}, "max_abs_err": {}}
+    # a: recording, bit-equal to the launch that does not record; the
+    # --fmad=false build's record equal to the plain one
+    rec = MK.direct_pass(*t, zeros.clone(), u, record=True, **fkw)
+    acc = MK.direct_pass(*t, zeros.clone(), u, **fkw)
+    exact = MK.direct_pass(*t, zeros.clone(), u, record=True,
+                           build_flags=EXACT_FLAGS, **fkw)
+    prng = MK.direct_pass(*t, zeros.clone(), None, record=True, **fkw)
+    want, out["plain_ms"]["a"] = _timed(lambda: MK.direct_pass_reference(
+        *t, zeros, u, record=True, **fkw))
+    ids_d = (rec[1] != want[1]).double().mean().item()
+    occs_d = (rec[2] != want[2]).double().mean().item()
+    err_a = (rec[0] - want[0]).abs().max().item()
+    out["max_abs_err"]["a"] = err_a
+    print(f"phase 23 (a) direct recording, {size}: plain {out['plain_ms']['a']:.6g}"
+          f" ms; recording == not recording {torch.equal(rec[0], acc)}; "
+          f"--fmad=false build == plain: acc {torch.equal(exact[0], want[0])}"
+          f", ids {torch.equal(exact[1], want[1])}, bits "
+          f"{torch.equal(exact[2], want[2])}; the build that runs vs plain: "
+          f"ids {ids_d:.6%}, bits {occs_d:.6%} differ, max|d acc| "
+          f"{err_a:.6g}; PRNG == u-planes: acc {torch.equal(prng[0], rec[0])}"
+          f", record {torch.equal(prng[1], rec[1]) and torch.equal(prng[2], rec[2])}")
+    _check(torch.equal(rec[0], acc), f"{size}: the recording launch's acc "
+           "differs from the launch that does not record")
+    _check(all(torch.equal(a, b) for a, b in zip(exact, want)),
+           f"{size}: the --fmad=false recording build differs from the "
+           "plain record")
+    _check(torch.equal(prng[0], rec[0]) and torch.equal(prng[1], rec[1])
+           and torch.equal(prng[2], rec[2]),
+           f"{size}: the direct PRNG route differs from the u-planes route")
+    # contracted multiply-adds move grazing hits (phase 11): sphere fields
+    # under SPHERE_GATES, the rest under phase 3's
+    beyond = ((rec[0] - want[0]).abs() > TOL + TOL * want[0].abs()).any(
+        -1).double().mean().item()
+    gate_b, gate_i = ((SPHERE_GATES["beyond"], SPHERE_GATES["ids0"])
+                      if name.startswith("spheres") else (0.01, 0.01))
+    _check(beyond <= gate_b and ids_d <= gate_i,
+           f"{size}: {beyond:.4%} of rays beyond {TOL:g} (> {gate_b:.2%}) "
+           f"or {ids_d:.4%} of ids differ (> {gate_i:.2%})")
+    _, ids, occs = rec
+    # b: kernel 2 (its large-table instance past 64 objects, over the
+    # forward's streamed chunks)
+    large = MKG.large_route(t[1], t[2], None, chunks)
+    count = lambda: MKG.large_launches if large else MKG.launches  # noqa: E731
+    pchunks = _plain_chunks(mega, MK, x["scene"], t)
+    want, out["plain_ms"]["b"] = _timed(
+        lambda: MKG.pathtrace_pass_bwd_reference(t[0], ipar, *t[1:], g, u,
+                                                 chunks=pchunks, **kw))
+    before = count()
+    got = {r: MKG.pathtrace_pass_bwd(t[0], ipar, *t[1:], g, p, chunks=chunks,
+                                     **kw)
+           for r, p in (("u-planes", u), ("PRNG", None))}
+    torch.cuda.synchronize()
+    _check(count() == before + 2, f"{size}: kernel 2 launches "
+           f"{count() - before} (want 2{', large-table' if large else ''})")
+    print(f"phase 23 (b) kernel 2 direct{' (large-table instance)' if large else ''}"
+          f", {size} wrt {list(wrt)}: plain {out['plain_ms']['b']:.6g} ms")
+    out["max_abs_err"]["b"] = _hold_routes("kernel 2", want, got, wrt)
+    # c: kernel 3 on kernel 1's own record
+    want, out["plain_ms"]["c"] = _timed(
+        lambda: MKG.pathtrace_pass_bwd_champ_reference(
+            t[0], ipar, *t[1:], g, u, ids, occs, **kw))
+    before = MKG.champ_launches
+    got = {r: MKG.pathtrace_pass_bwd_champ(t[0], ipar, *t[1:], g, p, ids,
+                                           occs, **kw)
+           for r, p in (("u-planes", u), ("PRNG", None))}
+    torch.cuda.synchronize()
+    _check(MKG.champ_launches == before + 2, f"{size}: kernel 3 launches")
+    print(f"phase 23 (c) kernel 3 direct on kernel 1's record, {size}: plain "
+          f"{out['plain_ms']['c']:.6g} ms")
+    out["max_abs_err"]["c"] = _hold_routes("kernel 3", want, got, wrt)
+    out["shape"] = {"abc": f"{DIRECT_W}x{DIRECT_H}"}
+    if not soft:
+        return out
+    # d: kernel 2s (the large scenes at a smaller film: the plain soft
+    # program's two-level composite holds every pair of a span per ray)
+    if name != "cornell":
+        w, h = DIRECT_SOFT_W, DIRECT_SOFT_H
+        x = _direct_inputs(dev, name, w, h, spp, lens, wrt)
+        t, u, g, kw = (x[k] for k in ("tables", "u", "g", "kw"))
+        st = mega.soft_tri_order(x["scene"], t[2], x["chunks"])
+        if st is not None:
+            t[2] = st.rows
+    kw = dict(kw, soft_bandwidth=EDGE_BW, soft_tau=EDGE_BW)
+    soft_large = max(t[1].shape[0], t[2].shape[0]) > UNROLL_SPHERES
+    scount = (lambda: MKS.soft_large_launches if soft_large  # noqa: E731
+              else MKS.soft_launches)
+
+    def plain(gg):
+        return _soft_plain(MKS, t, ipar, gg, u, kw, chunk=1 << 14)
+
+    def kernel(gg, planes):
+        return MKS.pathtrace_pass_bwd_soft(t[0], ipar, *t[1:], gg, planes,
+                                           **kw)
+    want, out["plain_ms"]["d"] = _timed(lambda: plain(g))
+    before = scount()
+    got = {"u-planes": kernel(g, u), "PRNG": kernel(g, None)}
+    torch.cuda.synchronize()
+    _check(scount() == before + 2, f"{size}: kernel 2s launches")
+    held = [nm for nm, a in zip(MKG.DIFF_ALL, want) if nm in wrt and a.numel()]
+    print(f"phase 23 (d) kernel 2s direct{' (large-table instance)' if soft_large else ''}"
+          f", {name} {w}x{h}: plain {out['plain_ms']['d']:.6g} ms")
+    want, got = _excuse_unstable(MKS, t, g, u, kw, held, want, got, plain,
+                                 kernel, f"{name}: kernel 2s direct")
+    out["max_abs_err"]["d"] = _hold_routes("kernel 2s", want, got, wrt)
+    out["shape"]["d"] = f"{w}x{h}"
+    return out
+
+
+def direct_train(dev, smi: str, name: str, route: str) -> dict:
+    """Phase 23 (i)-(iii): one warm-up and DIRECT_STEPS timed SGD steps of
+    direct mode at 1024^2 spp 1 through pathtrace_pass_diff(mode="direct")
+    on ``route`` ("kernel2": kernels 1 and 2, past 64 objects kernel 2's
+    large-table instance; "cell": kernel 1 recording and kernel 3; "soft":
+    kernels 1 and 2s at EDGE_BW), ("sph", "mat"); the image is the
+    per-pixel mean over spp over the lights, as render_direct_mega forms
+    it. Gates one direct launch and one launch of the route's backward per
+    step, a finite loss and finite nonzero gradients; times each kernel
+    alone (CUDA events) on the last step's tables and cotangent, with its
+    bound."""
+    import torch
+    from raytracing_tpu_torch import RenderConfig, replace
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.ops import megakernel_grad as MKG
+    from raytracing_tpu_torch.ops import megakernel_soft as MKS
+    from raytracing_tpu_torch.render import mega
+
+    cfg = RenderConfig(width=MAIN_W, height=MAIN_H, bounces=0,
+                       use_megakernel=True)
+    scene = _direct_scene(name, MAIN_W, MAIN_H, dev)
+    n_l = scene.lights.count
+    soft = (dict(soft_bandwidth=EDGE_BW, soft_tau=EDGE_BW)
+            if route == "soft" else {})
+    kw = _pass_kw(cfg)
+    params = {"center": scene.spheres.center.clone().requires_grad_(True),
+              "radius": scene.spheres.radius.clone().requires_grad_(True),
+              "materials": scene.materials.clone().requires_grad_(True)}
+    seen = {}
+
+    def tables_of():
+        sc = replace(scene, spheres=replace(scene.spheres,
+                                            center=params["center"],
+                                            radius=params["radius"]),
+                     materials=params["materials"])
+        return mega.scene_tables(sc, cfg)
+
+    def step(i):
+        t = tables_of()
+        acc = MKG.pathtrace_pass_diff(
+            t[0], torch.tensor([i, 0], dtype=torch.int32), *t[1:],
+            torch.zeros((cfg.total_rays, 3), device=dev), None,
+            mode="direct", diff_wrt=TRAIN_WRT, bwd_cell=route == "cell",
+            **soft, **kw)
+        acc.register_hook(lambda g: seen.__setitem__("g", g))
+        img = acc.reshape(MAIN_H, MAIN_W, cfg.spp, 3).mean(2) / n_l
+        loss = torch.mean(img ** 2)
+        loss.backward()
+        grads = {}
+        with torch.no_grad():
+            for k, p in params.items():
+                grads[k] = p.grad
+                p -= TRAIN_LR * p.grad
+                p.grad = None
+        return loss.detach(), grads
+
+    loss0, _ = step(0)                                   # warm-up
+    torch.cuda.synchronize()
+    counters = {"kernel 1 (direct)": "MK.direct_launches",
+                "kernel 2": "MKG.launches",
+                "kernel 2 (large)": "MKG.large_launches",
+                "kernel 3": "MKG.champ_launches",
+                "kernel 2s": "MKS.soft_launches",
+                "kernel 2s (large)": "MKS.soft_large_launches"}
+    mods = {"MK": MK, "MKG": MKG, "MKS": MKS}
+    for c in counters.values():
+        m, attr = c.split(".")
+        setattr(mods[m], attr, 0)
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(1, 1 + DIRECT_STEPS):
+        loss, grads = step(i)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: getattr(mods[c.split(".")[0]], c.split(".")[1])
+           for k, c in counters.items()}
+    big = max(scene.spheres.count, 0) > UNROLL_SPHERES
+    bwd = {"kernel2": "kernel 2 (large)" if big else "kernel 2",
+           "cell": "kernel 3", "soft": "kernel 2s"}[route]
+    want = {k: (DIRECT_STEPS if k in ("kernel 1 (direct)", bwd) else 0)
+            for k in counters}
+    _check(got == want, f"direct {route} steps on {name}: launches {got} "
+           f"(want {want})")
+    losses = torch.stack([loss0] + losses)
+    _check(bool(torch.isfinite(losses).all()), "direct training loss not "
+           "finite")
+    for k in ("center", "materials", "radius"):
+        _check(grads[k] is not None and bool(torch.isfinite(grads[k]).all()),
+               f"{k} gradient missing or not finite")
+    for k in ("center", "materials"):
+        _check(bool(grads[k].any()), f"{k} gradient is zero")
+
+    # each kernel alone on the last step's tables and cotangent of acc
+    with torch.no_grad():
+        t = [x.detach() for x in tables_of()]
+    ipar = torch.tensor([DIRECT_STEPS, 0], dtype=torch.int32)
+    g = seen["g"].contiguous()
+    zeros = torch.zeros_like(g)
+    fkw = dict(key=MK.pass_key_of(ipar, cfg.seed), spp=1, width=MAIN_W,
+               two_sided=False)
+    bkw = dict(kw, diff_wrt=TRAIN_WRT, mode="direct")
+    _, ids, occs = MK.direct_pass(*t, zeros.clone(), None, record=True,
+                                  **fkw)
+    bounds = _direct_bounds(t, ids, occs, g, TRAIN_WRT)
+    if route == "kernel2":
+        runs = {"b": lambda: MKG.pathtrace_pass_bwd(t[0], ipar, *t[1:], g,
+                                                    None, **bkw)}
+    elif route == "cell":
+        runs = {"a": lambda: MK.direct_pass(*t, zeros.clone(), None,
+                                            record=True, **fkw),
+                "c": lambda: MKG.pathtrace_pass_bwd_champ(
+                    t[0], ipar, *t[1:], g, None, ids, occs, **bkw)}
+    else:
+        tl = list(t)
+        live, _ = _soft_work(MK, tl, g, cfg)
+        bounds["d"] = _bound(_soft_ops(live, live, tl[1].shape[0],
+                                       tl[2].shape[0], n_l, direct=True),
+                             12 * cfg.total_rays + 2 * _table_bytes(tl))
+        bounds["d"]["per_ray"] = _soft_ops(1, 1, tl[1].shape[0],
+                                           tl[2].shape[0], n_l, direct=True)
+        runs = {"d": lambda: MKS.pathtrace_pass_bwd_soft(
+            t[0], ipar, *t[1:], g, None, **soft, **bkw)}
+    ms = {}
+    for k, fn in runs.items():
+        fn()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        reps = 10
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms[k] = start.elapsed_time(end) / reps
+    print(f"phase 23 direct train {name} {MAIN_W}x{MAIN_H} spp 1 route "
+          f"{route} wrt {list(TRAIN_WRT)}, {DIRECT_STEPS} timed steps on "
+          f"[{smi}]: {wall * 1e3 / DIRECT_STEPS:.6g} ms/step, "
+          f"{cfg.total_rays * DIRECT_STEPS / wall:.6g} fwd+bwd rays/s; "
+          f"launches {got}; loss first {losses[0].item():.7g} last "
+          f"{losses[-1].item():.7g}; |grad| center "
+          f"{grads['center'].norm().item():.6g} materials "
+          f"{grads['materials'].norm().item():.6g}")
+    piece = {"a": "kernel 1 recording", "b": "kernel 2", "c": "kernel 3",
+             "d": "kernel 2s"}
+    for k, t_ms in ms.items():
+        b = bounds[k]
+        print(f"  piece {k} ({piece[k]}) alone on the last step's "
+              f"{'pass' if k == 'a' else 'cotangent'}: {t_ms:.6g} ms; bound "
+              f"{b['bound_ms']:.6g} ms ({b['bound_by']}, {b['per_ray']:.6g} "
+              f"FP32 operations per {'ray' if k == 'a' else 'ray with g != 0'}"
+              f"); share of the bound {b['bound_ms'] / t_ms:.3%}")
+    launches = {"a": got["kernel 1 (direct)"], "b": got[bwd],
+                "c": got[bwd], "d": got[bwd]}
+    return {k: {"ms": v, "launches": launches[k],
+                "bound_ms": bounds[k]["bound_ms"],
+                "bound_by": bounds[k]["bound_by"]} for k, v in ms.items()}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4120,6 +4605,23 @@ def main() -> int:
            for soft in (False, True)}
     l22 = large_train(dev, smi, s21[("torus", "path")]["work"])
     print(f"phase 22: {time.perf_counter() - t22:.1f} s")
+    _elapsed(23)
+    # phase 23: the differentiable direct pass through kernels 1
+    # (recording), 2, 3 and 2s
+    t23 = time.perf_counter()
+    # sphere_field(N_SPHERES) runs the instances the 1024^2 steps on it
+    # run (the 8-row sphere loop from kWideSpheres = 512 spheres): pieces
+    # a-c; kernel 2s past 64 is held on sphere_field(SMALL_SPHERES)
+    v23 = [direct_diff_vs_plain(dev, "cornell", MKG.DIFF_ALL),
+           direct_diff_vs_plain(dev, "cornell", MKG.DIFF_ALL, 4, 0.25),
+           direct_diff_vs_plain(dev, "spheres", TRAIN_WRT),
+           direct_diff_vs_plain(dev, "torus", MESH_WRT),
+           direct_diff_vs_plain(dev, "spheres1024", TRAIN_WRT, soft=False)]
+    d23 = {k: v for route in ("kernel2", "cell", "soft")
+           for k, v in direct_train(dev, smi, "cornell", route).items()}
+    b23 = {k: v for route in ("kernel2", "cell")
+           for k, v in direct_train(dev, smi, "spheres1024", route).items()}
+    print(f"phase 23: {time.perf_counter() - t23:.1f} s")
     print(f"[{time.perf_counter() - START:.1f} s elapsed in all]")
     hard22 = max([x["max_abs_err"] for x in a22.values()]
                  + [v["max_abs_err"] for (_, soft), v in c22.items()
@@ -4302,7 +4804,43 @@ def main() -> int:
         "ms": l22["edge"]["ms"], "plain_ms": s22[0]["plain_ms"],
         "bound_ms": l22["edge"]["bound_ms"],
         "bound_by": l22["edge"]["bound_by"], "library_ms": None,
-        "shape": l22["edge"]["shape"], "plain_shape": s22[0]["shape"]}]}))
+        "shape": l22["edge"]["shape"], "plain_shape": s22[0]["shape"]}] + [{
+        "name": name, "route": "cuda",
+        "source": f"raytracing_tpu_torch/csrc/{src}",
+        "replaces": f"raytracing_tpu/ops/pallas/{rep}",
+        "launches": e[k]["launches"],
+        "max_abs_err": (max(v["max_abs_err"][k] for v in v23[:4])
+                        if e is d23 else v23[i]["max_abs_err"][k]),
+        "ms": e[k]["ms"], "plain_ms": v23[i]["plain_ms"][k],
+        "bound_ms": e[k]["bound_ms"], "bound_by": e[k]["bound_by"],
+        "library_ms": None, "shape": f"{shape} {MAIN_W}x{MAIN_H} spp 1",
+        "plain_shape": f"{plain} "
+                       f"{v23[i]['shape']['d' if k == 'd' else 'abc']} spp 1"}
+        for k, e, i, shape, plain, name, src, rep in (
+            ("a", d23, 0, "cornell", "cornell", "direct_pass (megakernel, "
+             "direct mode recording)", "megakernel.cu",
+             "megakernel.py:1393"),
+            ("b", d23, 0, "cornell", "cornell", "pathtrace_pass_bwd (adjoint "
+             "megakernel, direct mode)", "megakernel_grad.cu",
+             "megakernel_grad.py:795"),
+            ("c", d23, 0, "cornell", "cornell", "pathtrace_pass_bwd_champ "
+             "(champion adjoint, direct mode)", "megakernel_champ.cu",
+             "megakernel_grad.py:1031"),
+            ("d", d23, 0, "cornell", "cornell", "pathtrace_pass_bwd_soft "
+             "(kernel 2s, direct mode)", "megakernel_soft.cu",
+             "megakernel_grad.py:2039"),
+            ("a", b23, 4, f"sphere_field({N_SPHERES})",
+             f"sphere_field({N_SPHERES})", "direct_pass (megakernel, direct "
+             "mode recording, 8-row sphere loop)", "megakernel.cu",
+             "megakernel.py:1393"),
+            ("b", b23, 4, f"sphere_field({N_SPHERES})",
+             f"sphere_field({N_SPHERES})", "pathtrace_pass_bwd (adjoint "
+             "megakernel, direct mode, large-table instance)",
+             "megakernel_grad.cu", "megakernel_grad.py:795"),
+            ("c", b23, 4, f"sphere_field({N_SPHERES})",
+             f"sphere_field({N_SPHERES})", "pathtrace_pass_bwd_champ "
+             "(champion adjoint, direct mode past 64 objects)",
+             "megakernel_champ.cu", "megakernel_grad.py:1031"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -57,6 +57,18 @@ def cross3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], -1)
 
 
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """jnp.clip(x, lo, hi): a minimum of a maximum, whose cotangent splits
+    at a bound as JAX's does (torch.clamp passes it whole there)."""
+    return torch.minimum(torch.maximum(x, torch.full_like(x, lo)),
+                         torch.full_like(x, hi))
+
+
+def at_least(x: torch.Tensor, lo: float) -> torch.Tensor:
+    """jnp.maximum(x, lo), its cotangent split at the tie as JAX's."""
+    return torch.maximum(x, torch.full_like(x, lo))
+
+
 def safe_normalize(v: torch.Tensor) -> torch.Tensor:
     """Normalize over the last axis, guarding the squared norm before rsqrt
     (a zero vector stays zero)."""

@@ -417,7 +417,12 @@ __global__ void __launch_bounds__(kBlock)
 // ray the primary hit, then per light a concentric disk sample, a shadow
 // ray and albedo * clip(ambient + (occluded ? 0 : cos), 0, 1). No emitter
 // term, no throughput, no bounce; K passes per launch, acc in registers.
-// A kernel of its own, so path mode's loop pays nothing for it.
+// A kernel of its own, so path mode's loop pays nothing for it. Recording
+// (the kRecord instances, launched for non-null ids, one pass; the
+// differentiable direct pass's cell route) writes JAX's one recorded
+// segment (megakernel.py:1642-1644): the primary champion and each light's
+// occlusion bit (unoccluded without a valid hit), with the arithmetic of
+// the launch that does not record.
 //
 // Draws, in u_planes_for_direct's layout: slot 0 the lens (unused at
 // spp > 1), slot 1 + li light li. The PRNG route makes what the stage
@@ -435,17 +440,6 @@ __global__ void __launch_bounds__(kBlock)
 // 80GB HBM3, 700 W): the threefry draws (integer, not counted) and the
 // object loops' dependent loads set the pace. 56 registers, 20 B spilled.
 // ---------------------------------------------------------------------------
-
-constexpr uint32_t kLensTag = 0u, kLightTag = 1u;  // core/rng LENS, LIGHT
-
-// jax.random.fold_in: threefry2x32(key, (0, data)) is the new key.
-__device__ __forceinline__ void fold_in(uint32_t& k0, uint32_t& k1,
-                                        uint32_t data) {
-  uint32_t x0 = 0u, x1 = data;
-  threefry2x32(k0, k1, x0, x1);
-  k0 = x0;
-  k1 = x1;
-}
 
 // The direct draws of ray rid: u-planes (plane 2j + c, column rid) or
 // threefry of slot key j of pass k at counter 2 rid_g + c.
@@ -485,11 +479,13 @@ struct DirectParams {
   int n_passes;
   int spp, width;
   int two_sided;
+  int* ids;        // (1, n_rays) or nullptr: not recording
+  uint8_t* occs;   // (n_lig, n_rays) or nullptr
   int block;       // blocked layout's block edge, 0: row-major
   Grids grids;     // grid mode (kernel with kGrid)
 };
 
-template <int kRows, bool kGrid, bool kStream>
+template <int kRows, bool kGrid, bool kStream, bool kRecord>
 __global__ void __launch_bounds__(kBlock)
     direct_kernel(const __grid_constant__ DirectParams p) {
   extern __shared__ float4 smem4[];  // 16-byte aligned
@@ -508,9 +504,7 @@ __global__ void __launch_bounds__(kBlock)
       const int j = i - k * n_slots;
       uint32_t k0 = p.k0, k1 = p.k1;
       if (p.per_pass) fold_in(k0, k1, static_cast<uint32_t>(p.first_pass + k));
-      fold_in(k0, k1, j == 0 ? kLensTag : kLightTag);  // draw_key(k, tag,
-      fold_in(k0, k1, 0u);                              //   0, light)
-      fold_in(k0, k1, j == 0 ? 0u : static_cast<uint32_t>(j - 1));
+      direct_slot_key(k0, k1, j);
       keys[2 * i] = k0;
       keys[2 * i + 1] = k1;
     }
@@ -537,6 +531,11 @@ __global__ void __launch_bounds__(kBlock)
   const float eps = T.par[kEps];
   const float ambient = T.par[kAmbient];
 
+  Rec R;
+  R.ids = p.ids;
+  R.occs = p.occs;
+  R.n_rays = p.n_rays;
+  R.rid = rid;
   float* a = p.acc + 3 * static_cast<size_t>(rid);
   float ar = a[0], ag = a[1], ab = a[2];
   for (int k = 0; k < p.n_passes; ++k) {
@@ -550,7 +549,14 @@ __global__ void __launch_bounds__(kBlock)
     camera_ray_uv(T.par, u0, u1, col, row, o, d, mint, maxt);
     Hit h;
     trace<kRows, kGrid, kStream>(T, o, d, mint, maxt, h, &p.grids);
-    if (!(h.m >= 0.0f)) continue;
+    if (kRecord) R.id(0, h.obj);
+    if (!(h.m >= 0.0f)) {
+      // no valid hit: no shadow ray, recorded unoccluded (JAX's dead
+      // window)
+      if (kRecord && R.occs != nullptr)
+        for (int li = 0; li < p.n_lig; ++li) R.occ(li, false);
+      continue;
+    }
     const V3 al = albedo(T, static_cast<int>(h.m));
     for (int li = 0; li < p.n_lig; ++li) {
       D.pair(k, 1 + li, u0, u1);
@@ -558,6 +564,7 @@ __global__ void __launch_bounds__(kBlock)
       const bool occ =
           anyhit<kRows, kGrid, kStream>(T, s.so, s.sd, 0.0f, s.dist,
                                         &p.grids);
+      if (kRecord) R.occ(li, occ);
       const float cosx = fminf(fmaxf(dot(s.sd, h.n), 0.0f), 1.0f);
       const float shade =
           fminf(fmaxf(ambient + (occ ? 0.0f : cosx), 0.0f), 1.0f);
@@ -569,6 +576,22 @@ __global__ void __launch_bounds__(kBlock)
   a[0] = ar;
   a[1] = ag;
   a[2] = ab;
+}
+
+// direct_kernel's instance for a launch: the 8-row sphere loop from
+// kWideSpheres resident spheres, the streamed instance when a stream is
+// passed (grid-mode build only).
+using DirectKernel = void (*)(DirectParams);
+
+template <bool kRecord>
+DirectKernel direct_instance(bool wide, bool streamed) {
+#if RT_GRID_MODE
+  if (streamed) return direct_kernel<2, true, true, kRecord>;
+#else
+  (void)streamed;
+#endif
+  return wide ? direct_kernel<8, kGridBuild, false, kRecord>
+              : direct_kernel<2, kGridBuild, false, kRecord>;
 }
 
 }  // namespace
@@ -660,13 +683,16 @@ extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
   return static_cast<int>(cudaGetLastError());
 }
 
-// C interface of direct mode (bound with ctypes): n_passes passes into acc.
-// (k0, k1) is the call's key (ignored with u_planes); this launch runs
-// passes first_pass ... first_pass + n_passes - 1 of the call, each keyed
-// by fold_in(key, pass) when per_pass != 0, by the key itself otherwise (a
-// call of one pass). grid_mode and block as rt_pathtrace_pass. Launches on
-// `stream`, allocates nothing, does not synchronise; returns
-// cudaGetLastError() after the launch.
+// C interface of direct mode (bound with ctypes): n_passes passes into acc,
+// rays ray_offset ... ray_offset + n_rays - 1 of the film. (k0, k1) is the
+// call's key (ignored with u_planes); this launch runs passes first_pass
+// ... first_pass + n_passes - 1 of the call, each keyed by fold_in(key,
+// pass) when per_pass != 0, by the key itself otherwise (a call of one
+// pass). Non-null `ids` (1, n_rays) (and `occs` (n_lig, n_rays) when n_lig
+// > 0) record the primary champion and the occlusion bits of a one-pass
+// launch. grid_mode and block as rt_pathtrace_pass. Launches on `stream`,
+// allocates nothing, does not synchronise; returns cudaGetLastError() after
+// the launch.
 extern "C" int rt_direct_pass(const float* par, const float* sph, int n_sph,
                               const float* tri, int n_tri, const float* mat,
                               int n_mat, const float* lig, int n_lig,
@@ -674,13 +700,16 @@ extern "C" int rt_direct_pass(const float* par, const float* sph, int n_sph,
                               const float* u_planes, unsigned int k0,
                               unsigned int k1, int first_pass, int per_pass,
                               int n_passes, int spp, int width, int two_sided,
-                              int grid_mode, const GridDesc* grids,
-                              int n_grids, int sph_grid, int tri_start,
+                              int* ids, uint8_t* occs, int grid_mode,
+                              const GridDesc* grids, int n_grids,
+                              int sph_grid, int tri_start,
                               const Stream* streams, int block,
                               void* stream) {
   DirectParams p;
   if (n_passes < 1 || n_passes > kMaxPasses || first_pass < 0 || block < 0 ||
       (grid_mode != 0) != kGridBuild || (block && !grid_mode) ||
+      (ids && n_passes != 1) || (!ids && occs) ||
+      (ids && n_lig > 0 && !occs) ||
       !set_grids(p.grids, grids, grid_mode ? n_grids : 0,
                  grid_mode ? sph_grid : 0, grid_mode ? tri_start : n_tri,
                  grid_mode ? streams : nullptr, sph, n_sph, tri, n_tri))
@@ -707,6 +736,8 @@ extern "C" int rt_direct_pass(const float* par, const float* sph, int n_sph,
   p.spp = spp;
   p.width = width;
   p.two_sided = two_sided;
+  p.ids = ids;
+  p.occs = occs;
   p.block = block;
   // the tables (in grid mode the brute prefix), then the slot keys of the
   // launch's passes
@@ -716,12 +747,9 @@ extern "C" int rt_direct_pass(const float* par, const float* sph, int n_sph,
           tables_floats(n_sph_smem, p.grids.tri_start, n_mat, n_lig) +
       (u_planes ? 0 : 2 * sizeof(uint32_t) * n_passes * (1 + n_lig));
   const bool wide = n_sph_smem >= kWideSpheres;
-  void (*kernel)(DirectParams) = wide ? direct_kernel<8, kGridBuild, false>
-                                      : direct_kernel<2, kGridBuild, false>;
-#if RT_GRID_MODE
-  if (p.grids.tri_st.n || p.grids.sph_st.n)  // the streamed instance
-    kernel = direct_kernel<2, true, true>;
-#endif
+  const bool streamed = p.grids.tri_st.n || p.grids.sph_st.n;
+  const DirectKernel kernel = ids ? direct_instance<true>(wide, streamed)
+                                  : direct_instance<false>(wide, streamed);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -4,7 +4,9 @@
 //
 // Replaces: raytracing_tpu/ops/pallas/megakernel_grad.py::_bwd_champ_kernel
 // (launcher _bwd_champ_pallas), path mode with or without Russian
-// roulette, u-planes or PRNG draws, spp >= 1. It computes what jax.vjp of _tile_program_champ gives
+// roulette and direct mode (kDirect: the recorded primary champion and
+// occlusion bits into pathtrace_adj.cuh's direct_sweep), u-planes or PRNG
+// draws, spp >= 1. It computes what jax.vjp of _tile_program_champ gives
 // (_bwd_champion): the hard gradient flows only through each trace
 // segment's champion row, and occlusion is a recorded constant. So once
 // kernel 1 has recorded each segment's champion (sphere i, n_sph +
@@ -196,7 +198,44 @@ __device__ void ray_adjoint_champ(const Tables& T, const Draws& D,
                      gp);
 }
 
-template <bool kRR>
+// The champion adjoint of ray rid_g in direct mode: the recorded primary
+// champion (champ_trace) and occlusion bits fill the one segment that
+// direct_sweep (pathtrace_adj.cuh) differentiates, as kernel 2's direct
+// mode does after its replay. Warp-uniform.
+__device__ void direct_adjoint_champ(const Tables& T, const DirectSlots& S,
+                                     const Rec& R, bool active, int rid_g,
+                                     int spp, int width, V3 g,
+                                     const Grads& G, float (&gp)[kNPar]) {
+  int col = 0, row = 0, samp = 0;
+  bool live = false;
+  Seg q;
+  q.obj = -1;
+  q.m = -1;
+  q.occ = 0u;
+  if (active) {
+    pixel_of(rid_g, spp, width, col, row, samp);
+    V3 o, d;
+    float mint, maxt;
+    camera_ray(T.par, S.lens(), col, row, samp, spp, o, d, mint, maxt);
+    Hit h;
+    champ_trace(T, o, d, mint, maxt, R.id(0), h);
+    live = h.m >= 0.0f;
+    if (live) {
+      q.o = o;
+      q.d = d;
+      q.t = h.t;
+      q.beta = h.beta;
+      q.gamma = h.gamma;
+      q.obj = h.obj;
+      q.m = static_cast<int>(h.m);
+      for (int li = 0; li < T.n_lig; ++li)
+        if (R.occ(li)) q.occ |= 1u << li;
+    }
+  }
+  direct_sweep(T, S, q, live, col, row, samp, spp, g, G, gp);
+}
+
+template <bool kRR, bool kDirect>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
     pathtrace_bwd_champ_kernel(const __grid_constant__ AdjParams p) {
   extern __shared__ float4 smem4[];  // 16-byte aligned
@@ -245,9 +284,13 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
     R.occs = p.occs;
     R.n_rays = p.n_rays;
     R.rid = D.rid;
-    ray_adjoint_champ<kRR>(T, D, R, active, rid_g, p.spp, p.width,
-                           p.bounces, p.rr_start, p.normalize_emitter != 0,
-                           g, G, tape, gp);
+    if constexpr (kDirect)
+      direct_adjoint_champ(T, direct_slots(D, p.dkeys, rid_g), R, active,
+                           rid_g, p.spp, p.width, g, G, gp);
+    else
+      ray_adjoint_champ<kRR>(T, D, R, active, rid_g, p.spp, p.width,
+                             p.bounces, p.rr_start, p.normalize_emitter != 0,
+                             g, G, tape, gp);
   });
   if (p.wrt & kWPar) add_par(g_par, gp);
   __syncthreads();
@@ -265,19 +308,21 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
 // `occs` ((1 + bounces) * n_lig, n_rays) bytes are kernel 1's record of
 // the same pass (occs may be null when n_lig == 0). (k0, k1) is the pass
 // key of the PRNG route (ignored with u_planes). rr != 0: the pass played
-// Russian roulette from depth rr_start_depth on. Launches on `stream`,
-// allocates nothing, does not synchronise; returns cudaGetLastError()
-// after the launch.
+// Russian roulette from depth rr_start_depth on. direct != 0: the pass is
+// direct mode's (bounces and rr 0, a record of one segment; draws as
+// rt_pathtrace_bwd's). Launches on `stream`, allocates nothing, does not
+// synchronise; returns cudaGetLastError() after the launch.
 extern "C" int rt_pathtrace_bwd_champ(
     const float* par, const float* sph, int n_sph, const float* tri,
     int n_tri, const float* mat, int n_mat, const float* lig, int n_lig,
     const float* g, const int* ids, const uint8_t* occs, int n_rays,
     int ray_offset, const float* u_planes, unsigned int k0, unsigned int k1,
-    int spp, int width, int bounces, int rr, int rr_start_depth,
+    int spp, int width, int bounces, int rr, int rr_start_depth, int direct,
     int two_sided, int normalize_emitter, int wrt, float* dpar, float* dsph,
     float* dtri, float* dmat, float* dlig, void* stream) {
   if (bounces < 0 || bounces >= kMaxSeg || n_lig > kMaxLights ||
-      ids == nullptr || (n_lig > 0 && occs == nullptr))
+      ids == nullptr || (n_lig > 0 && occs == nullptr) ||
+      (direct && (bounces || rr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0 || wrt == 0) return static_cast<int>(cudaGetLastError());
   AdjParams p = adj_params(par, sph, n_sph, tri, n_tri, mat, n_mat, lig,
@@ -287,11 +332,15 @@ extern "C" int rt_pathtrace_bwd_champ(
                            dlig);
   p.ids = ids;
   p.occs = occs;
+  if (direct) set_direct_keys(p);
+  // direct mode keeps no tape
   const size_t smem =
       2 * sizeof(float) * (kParPad + kMat * n_mat + kLig * n_lig) +
-      tape_bytes(bounces, kBlock);
-  void (*kernel)(AdjParams) = rr ? pathtrace_bwd_champ_kernel<true>
-                                  : pathtrace_bwd_champ_kernel<false>;
+      (direct ? 0 : tape_bytes(bounces, kBlock));
+  void (*kernel)(AdjParams) =
+      direct ? pathtrace_bwd_champ_kernel<false, true>
+      : rr   ? pathtrace_bwd_champ_kernel<true, false>
+             : pathtrace_bwd_champ_kernel<false, false>;
   // a grid-stride loop over a grid the card holds at once: each block
   // flushes its mat / lig / par buffers once
   int grid = 0;

@@ -9,6 +9,10 @@
 // rt_pathtrace_bwd_large, below). It computes what jax.vjp of _tile_program
 // gives: cotangents of par (26,), sph (S, 8), tri (T, 32), mat (M, 4) and lig
 // (L, 20). The soft (edge-aware) route is kernel 2s (megakernel_soft.cu).
+// Direct mode (mode="direct", _tile_program's direct branch :795-829;
+// direct != 0 at the C entries) is an instance of its own (kDirect):
+// direct_adjoint replays the primary trace and each light's shadow ray, then
+// pathtrace_adj.cuh's direct_sweep differentiates the one segment; no tape.
 //
 // Hard-gradient convention, as in the JAX package: the cotangent of a
 // closest hit flows to its champion only; occlusion is a step function
@@ -151,21 +155,73 @@ __device__ void ray_adjoint(const Tables& T, const Tables& R,
                      gp);
 }
 
-// The block's rays (for_rays): each ray's adjoint adds into G and gp.
-template <int kRows, bool kRR, bool kGlobal>
+// The adjoint of ray rid_g in direct mode (pathtrace_adj.cuh direct_sweep):
+// replay the primary trace and each light's shadow ray with kernel 1's
+// loops, as ray_adjoint replays a path, then sweep the one segment.
+// Warp-uniform, as ray_adjoint.
+template <int kRows, bool kGlobal>
+__device__ void direct_adjoint(const Tables& T, const Tables& R,
+                               const Grids* GR, const DirectSlots& S,
+                               bool active, int rid_g, int spp, int width,
+                               V3 g, const Grads& G, float (&gp)[kNPar]) {
+  const float eps = T.par[kEps];
+  int col = 0, row = 0, samp = 0;
+  bool live = false;
+  Seg q;
+  q.obj = -1;
+  q.m = -1;
+  q.occ = 0u;
+  if (active) {
+    pixel_of(rid_g, spp, width, col, row, samp);
+    V3 o, d;
+    float mint, maxt;
+    camera_ray(T.par, S.lens(), col, row, samp, spp, o, d, mint, maxt);
+    Hit h;
+    trace<kRows, kGlobal, kGlobal>(T, o, d, mint, maxt, h, GR);
+    live = h.m >= 0.0f;
+    if (live) {
+      q.o = o;
+      q.d = d;
+      q.t = h.t;
+      q.beta = h.beta;
+      q.gamma = h.gamma;
+      q.obj = h.obj;
+      q.m = static_cast<int>(h.m);
+      for (int li = 0; li < T.n_lig; ++li) {
+        float u0, u1;
+        S.pair(1 + li, u0, u1);
+        const Shadow sh = shadow_ray_uv(T, u0, u1, li, h, eps);
+        if (anyhit<kRows, kGlobal, kGlobal>(T, sh.so, sh.sd, 0.0f, sh.dist,
+                                            GR))
+          q.occ |= 1u << li;
+      }
+    }
+  }
+  direct_sweep(R, S, q, live, col, row, samp, spp, g, G, gp);
+}
+
+// The block's rays (for_rays): each ray's adjoint adds into G and gp; in
+// direct mode (kDirect) direct_adjoint's.
+template <int kRows, bool kRR, bool kGlobal, bool kDirect>
 __device__ __forceinline__ void rays(const AdjParams& p, const Tables& T,
                                      const Tables& R, const Grids* GR,
                                      const Grads& G, const Tape& tape,
                                      float (&gp)[kNPar]) {
   for_rays<kRR>(p, [&](const Draws& D, bool active, int rid_g, V3 g) {
-    ray_adjoint<kRows, kRR, kGlobal>(T, R, GR, D, active, rid_g, p.spp,
-                                     p.width, p.bounces, p.rr_start,
-                                     p.normalize_emitter != 0, g, G, tape,
+    if constexpr (kDirect)
+      direct_adjoint<kRows, kGlobal>(T, R, GR, direct_slots(D, p.dkeys,
+                                                            rid_g),
+                                     active, rid_g, p.spp, p.width, g, G,
                                      gp);
+    else
+      ray_adjoint<kRows, kRR, kGlobal>(T, R, GR, D, active, rid_g, p.spp,
+                                       p.width, p.bounces, p.rr_start,
+                                       p.normalize_emitter != 0, g, G, tape,
+                                       gp);
   });
 }
 
-template <bool kRR>
+template <bool kRR, bool kDirect>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
     pathtrace_bwd_kernel(const __grid_constant__ AdjParams p) {
   extern __shared__ float4 smem4[];  // 16-byte aligned
@@ -196,7 +252,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   float gp[kNPar];
 #pragma unroll
   for (int i = 0; i < kNPar; ++i) gp[i] = 0.0f;
-  rays<2, kRR, false>(p, T, T, nullptr, G, tape, gp);
+  rays<2, kRR, false, kDirect>(p, T, T, nullptr, G, tape, gp);
   if (p.wrt & kWPar) add_par(g_par, gp);
   __syncthreads();
   if (p.wrt & kWPar) flush(p.dpar, g_par, kNPar);
@@ -243,7 +299,7 @@ struct LargeParams {
   int sph_smem;  // spheres staged in shared memory (else global)
 };
 
-template <int kRows, bool kRR, bool kGlobal>
+template <int kRows, bool kRR, bool kGlobal, bool kDirect>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
     pathtrace_bwd_large_kernel(const __grid_constant__ LargeParams q) {
   const AdjParams& p = q.p;
@@ -283,7 +339,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   float gp[kNPar];
 #pragma unroll
   for (int i = 0; i < kNPar; ++i) gp[i] = 0.0f;
-  rays<kRows, kRR, kGlobal>(p, T, R, &q.grids, G, tape, gp);
+  rays<kRows, kRR, kGlobal, kDirect>(p, T, R, &q.grids, G, tape, gp);
   if (p.wrt & kWPar) add_par(g_par, gp);
   __syncthreads();
   if (p.wrt & kWPar) flush(p.dpar, g_par, kNPar);
@@ -298,8 +354,10 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
 // the caller zeroes; `wrt` is a bit set of the groups to compute (1 par,
 // 2 sph, 4 tri, 8 mat, 16 lig). (k0, k1) is the pass key of the PRNG
 // route (ignored with u_planes). rr != 0: the pass played Russian roulette
-// from depth rr_start_depth on. Launches on `stream`, allocates nothing,
-// does not synchronise; returns cudaGetLastError() after the launch.
+// from depth rr_start_depth on. direct != 0: the pass is direct mode's
+// (u_planes_for_direct's draws, or the slot keys of the pass key; bounces
+// and rr must be 0). Launches on `stream`, allocates nothing, does not
+// synchronise; returns cudaGetLastError() after the launch.
 extern "C" int rt_pathtrace_bwd(const float* par, const float* sph, int n_sph,
                                 const float* tri, int n_tri, const float* mat,
                                 int n_mat, const float* lig, int n_lig,
@@ -307,22 +365,28 @@ extern "C" int rt_pathtrace_bwd(const float* par, const float* sph, int n_sph,
                                 const float* u_planes, unsigned int k0,
                                 unsigned int k1, int spp, int width,
                                 int bounces, int rr, int rr_start_depth,
-                                int two_sided, int normalize_emitter, int wrt,
-                                float* dpar, float* dsph, float* dtri,
-                                float* dmat, float* dlig, void* stream) {
-  if (bounces < 0 || bounces >= kMaxSeg || n_lig > kMaxLights)
+                                int direct, int two_sided,
+                                int normalize_emitter, int wrt, float* dpar,
+                                float* dsph, float* dtri, float* dmat,
+                                float* dlig, void* stream) {
+  if (bounces < 0 || bounces >= kMaxSeg || n_lig > kMaxLights ||
+      (direct && (bounces || rr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0 || wrt == 0) return static_cast<int>(cudaGetLastError());
-  const AdjParams p = adj_params(par, sph, n_sph, tri, n_tri, mat, n_mat, lig,
-                                 n_lig, g, n_rays, ray_offset, u_planes, k0,
-                                 k1, spp, width, bounces, rr_start_depth,
-                                 two_sided, normalize_emitter, wrt, dpar,
-                                 dsph, dtri, dmat, dlig);
+  AdjParams p = adj_params(par, sph, n_sph, tri, n_tri, mat, n_mat, lig,
+                           n_lig, g, n_rays, ray_offset, u_planes, k0, k1,
+                           spp, width, bounces, rr_start_depth, two_sided,
+                           normalize_emitter, wrt, dpar, dsph, dtri, dmat,
+                           dlig);
+  if (direct) set_direct_keys(p);
+  // direct mode keeps no tape
   const size_t smem =
       2 * sizeof(float) * tables_floats(n_sph, n_tri, n_mat, n_lig) +
-      tape_bytes(bounces, kBlock);
+      (direct ? 0 : tape_bytes(bounces, kBlock));
   void (*kernel)(AdjParams) =
-      rr ? pathtrace_bwd_kernel<true> : pathtrace_bwd_kernel<false>;
+      direct ? pathtrace_bwd_kernel<false, true>
+      : rr   ? pathtrace_bwd_kernel<true, false>
+             : pathtrace_bwd_kernel<false, false>;
   int grid = 0;
   const cudaError_t err = fit_grid(kernel, kBlock, smem, n_rays, grid);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -345,12 +409,13 @@ extern "C" int rt_pathtrace_bwd_large(
     int n_tri, const float* mat, int n_mat, const float* lig, int n_lig,
     const float* g, int n_rays, int ray_offset, const float* u_planes,
     unsigned int k0, unsigned int k1, int spp, int width, int bounces, int rr,
-    int rr_start_depth, int two_sided, int normalize_emitter, int wrt,
-    const GridDesc* grids, int n_grids, int sph_grid, int tri_start,
+    int rr_start_depth, int direct, int two_sided, int normalize_emitter,
+    int wrt, const GridDesc* grids, int n_grids, int sph_grid, int tri_start,
     const Stream* streams, float* dpar, float* dsph, float* dtri, float* dmat,
     float* dlig, void* stream) {
   LargeParams q;
   if (bounces < 0 || bounces >= kMaxSeg || n_lig > kMaxLights ||
+      (direct && (bounces || rr)) ||
       !set_grids(q.grids, grids, n_grids, sph_grid, tri_start, streams, sph,
                  n_sph, tri, n_tri))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -359,24 +424,28 @@ extern "C" int rt_pathtrace_bwd_large(
                    n_rays, ray_offset, u_planes, k0, k1, spp, width, bounces,
                    rr_start_depth, two_sided, normalize_emitter, wrt, dpar,
                    dsph, dtri, dmat, dlig);
+  if (direct) set_direct_keys(q.p);
   const bool global = n_grids > 0 || q.grids.tri_st.n || q.grids.sph_st.n;
   // shared memory without spheres; they stay resident where they fit
   const size_t fixed =
       sizeof(float) * (tables_floats(0, tri_start, n_mat, n_lig) + kParPad +
                        kMat * n_mat + kLig * n_lig) +
-      tape_bytes(bounces, kBlock);
+      (direct ? 0 : tape_bytes(bounces, kBlock));
   const size_t sph_bytes = sizeof(float) * kSph * static_cast<size_t>(n_sph);
   q.sph_smem = q.grids.sph_resident(n_sph) > 0 &&
                fixed + sph_bytes <= kSmemMax;
   const size_t smem = fixed + (q.sph_smem ? sph_bytes : 0);
   const bool wide = !global && n_sph >= kWideSpheres;
   void (*kernel)(LargeParams) =
-      global ? (rr ? pathtrace_bwd_large_kernel<2, true, true>
-                   : pathtrace_bwd_large_kernel<2, false, true>)
-      : wide ? (rr ? pathtrace_bwd_large_kernel<8, true, false>
-                   : pathtrace_bwd_large_kernel<8, false, false>)
-             : (rr ? pathtrace_bwd_large_kernel<2, true, false>
-                   : pathtrace_bwd_large_kernel<2, false, false>);
+      direct ? (global ? pathtrace_bwd_large_kernel<2, false, true, true>
+                : wide ? pathtrace_bwd_large_kernel<8, false, false, true>
+                       : pathtrace_bwd_large_kernel<2, false, false, true>)
+      : global ? (rr ? pathtrace_bwd_large_kernel<2, true, true, false>
+                     : pathtrace_bwd_large_kernel<2, false, true, false>)
+      : wide   ? (rr ? pathtrace_bwd_large_kernel<8, true, false, false>
+                     : pathtrace_bwd_large_kernel<8, false, false, false>)
+               : (rr ? pathtrace_bwd_large_kernel<2, true, false, false>
+                     : pathtrace_bwd_large_kernel<2, false, false, false>);
   int grid = 0;
   const cudaError_t err = fit_grid(kernel, kBlock, smem, n_rays, grid);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -5,7 +5,8 @@
 // Replaces: raytracing_tpu/ops/pallas/megakernel_grad.py::_bwd_kernel
 // (launcher _bwd_pallas, :2152) on its soft route, soft_bandwidth > 0: what
 // jax.vjp of _tile_program_soft (:1516-2144) gives, path mode, with or
-// without Russian roulette, u-planes or PRNG draws, spp >= 1: at most 64
+// without Russian roulette, and direct mode (kDirect, direct_adjoint below:
+// the direct branch :2039-2075), u-planes or PRNG draws, spp >= 1: at most 64
 // objects per type (the tables and per-warp gradient buffers stay in
 // shared memory; rt_pathtrace_bwd_soft), and past that up to
 // DIFF_TABLE_MAX = 4096 per type, JAX's two-level composite over every
@@ -296,18 +297,115 @@ __device__ void ray_adjoint(const Tables& T, const Cfg& C, const Draws& D,
   }
 }
 
-// The block's rays (for_rays): each ray's adjoint adds into G and gp.
-template <bool kRR, class Scr>
+// The soft adjoint of ray rid_g in direct mode (JAX's _tile_program_soft
+// direct branch, megakernel_grad.py:2039-2075): the primary segment's
+// blended surface, shaded per light by clip(ambient + vis clip(cos)) with
+// vis the shadow ray's soft transmittance over [0, sqrt(max(d2, 1e-20))],
+// weighted by the path weight (1 inside the scene box) times the coverage,
+// times the blended albedo. One segment, no tape; the pieces are path
+// mode's (trace_fwd / trace_adj, vis_fwd / vis_adj, nee_ray, clip_adj).
+// Warp-uniform, as ray_adjoint.
+template <class Scr>
+__device__ void direct_adjoint(const Tables& T, const Cfg& C,
+                               const DirectSlots& DS, bool active, int rid_g,
+                               int spp, int width, V3 g, const Grads& G,
+                               Scr& S, float (&gp)[kNPar]) {
+  const int L = T.n_lig;
+  const float eps = T.par[kEps], ambient = T.par[kAmbient];
+  const V3 zero = mk(0.0f, 0.0f, 0.0f);
+  int col = 0, row = 0, samp = 0;
+  V3 o = zero, d = mk(0.0f, 0.0f, 1.0f);
+  float mint = 0.0f;
+  bool live = false;
+  if (active) {
+    pixel_of(rid_g, spp, width, col, row, samp);
+    float maxt;
+    camera_ray(T.par, DS.lens(), col, row, samp, spp, o, d, mint, maxt);
+    // a ray outside the scene box has path weight 0
+    live = mint < inf_f();
+    if (!live) {
+      o = zero;
+      d = mk(0.0f, 0.0f, 1.0f);
+      mint = 0.0f;
+    }
+  }
+  if (!__any_sync(kFull, live)) return;
+  const SRay r = sray(o, d, mint);
+  Surf sf;
+  trace_fwd(T, C, r, S, sf);
+  const V3 alb = sf.alb;
+  float gCov = 0.0f, gMint = 0.0f;
+  V3 gPbar = zero, gNbar = zero, gAlb = zero, go = zero, gd = zero;
+  for (int li = 0; li < L; ++li) {
+    const float* l = T.lig + li * kLig;
+    float gl[kLig] = {};
+    float u0 = 0.5f, u1 = 0.5f;
+    if (live) DS.pair(1 + li, u0, u1);
+    const Nee nr = nee_ray(T, li, u0, u1, sf.pbar, sf.nbar, eps);
+    const SRay sr = sray(nr.so, nr.sd, 0.0f);
+    const float vis = vis_fwd(T, C, sr, nr.dist, S);
+    const float cxv = dot(nr.sd, sf.nbar);
+    const float cosx = clip01(cxv);
+    const float x = ambient + vis * cosx;
+    const float shade = clip01(x);
+    // acc += ((cov alb) shade)
+    const float ga = dot(g, alb);
+    gCov += ga * shade;
+    gAlb = gAlb + (sf.cov * shade) * g;
+    const float gx = sf.cov * ga * clip01_d(x);
+    if (live) gp[kAmbient] += gx;
+    const float gc = gx * vis * clip01_d(cxv);
+    V3 gsd = gc * sf.nbar;
+    gNbar = gNbar + gc * nr.sd;
+    V3 gso = zero;
+    float gdist = 0.0f;
+    vis_adj(T, C, G, live, sr, gx * cosx, S, gso, gsd, gdist);
+    const float gd2 = gdist * 0.5f / nr.dist * hmax(nr.d2, 1e-20f);
+    const V3 gdl = normalize_adj(nr.dl, gsd) + (2.0f * gd2) * nr.dl;
+    gso = gso - gdl;
+    // tgt = lp + (sx rad) ta + (sy rad) ba
+    const float rad = l[12];
+    const V3 ta = ld3(l + 14), ba = ld3(l + 17);
+    gl[12] += nr.sx * dot(gdl, ta) + nr.sy * dot(gdl, ba);
+    const V3 v[3] = {gdl, (nr.sx * rad) * gdl, (nr.sy * rad) * gdl};
+    const int at[3] = {0, 14, 17};
+    for (int k = 0; k < 3; ++k) {
+      gl[at[k]] += v[k].x;
+      gl[at[k] + 1] += v[k].y;
+      gl[at[k] + 2] += v[k].z;
+    }
+    gPbar = gPbar + gso;
+    gNbar = gNbar + eps * gso;
+    if (live) gp[kEps] += dot(gso, sf.nbar);
+    add_light<Scr::kAtomic>(G, live, li, gl);
+  }
+  // the soft surface into every hypothesis
+  trace_adj(T, C, G, live, r, S, sf, gCov, 0.0f, gPbar, gNbar, gAlb, go, gd,
+            gMint);
+  if (live && (G.wrt & kWPar)) {
+    clip_adj(T.par, o, d, gMint, go, gd, gp);
+    camera_adj(T.par, DS.lens(), col, row, samp, spp, go, gd, gp);
+  }
+}
+
+// The block's rays (for_rays): each ray's adjoint adds into G and gp; in
+// direct mode (kDirect) direct_adjoint's.
+template <bool kRR, bool kDirect, class Scr>
 __device__ __forceinline__ void rays(const AdjParams& p, const Tables& T,
                                      const Cfg& C, const Grads& G, Scr& S,
                                      float (&gp)[kNPar]) {
   for_rays<kRR>(p, [&](const Draws& D, bool active, int rid_g, V3 g) {
-    ray_adjoint<kRR, Scr>(T, C, D, active, rid_g, p.spp, p.width, p.bounces,
-                          p.rr_start, p.normalize_emitter != 0, g, G, S, gp);
+    if constexpr (kDirect)
+      direct_adjoint<Scr>(T, C, direct_slots(D, p.dkeys, rid_g), active,
+                          rid_g, p.spp, p.width, g, G, S, gp);
+    else
+      ray_adjoint<kRR, Scr>(T, C, D, active, rid_g, p.spp, p.width,
+                            p.bounces, p.rr_start, p.normalize_emitter != 0,
+                            g, G, S, gp);
   });
 }
 
-template <bool kRR>
+template <bool kRR, bool kDirect>
 __global__ void __launch_bounds__(kBlock)
     pathtrace_bwd_soft_kernel(const __grid_constant__ AdjParams p) {
   extern __shared__ float4 smem4[];  // 16-byte aligned
@@ -336,7 +434,7 @@ __global__ void __launch_bounds__(kBlock)
   float gp[kNPar];
 #pragma unroll
   for (int i = 0; i < kNPar; ++i) gp[i] = 0.0f;
-  rays<kRR>(p, T, C, G, S, gp);
+  rays<kRR, kDirect>(p, T, C, G, S, gp);
   if (p.wrt & kWPar) add_par(g_par, gp);
   __syncthreads();
   const int o_sph = kParPad, o_tri = o_sph + kSph * p.n_sph,
@@ -369,7 +467,7 @@ struct LargeParams {
   int resident;  // sphere and triangle tables and buffers in shared memory
 };
 
-template <bool kRR>
+template <bool kRR, bool kDirect>
 __global__ void __launch_bounds__(kBlock)
     pathtrace_bwd_soft_large_kernel(const __grid_constant__ LargeParams q) {
   const AdjParams& p = q.p;
@@ -403,7 +501,7 @@ __global__ void __launch_bounds__(kBlock)
   float gp[kNPar];
 #pragma unroll
   for (int i = 0; i < kNPar; ++i) gp[i] = 0.0f;
-  rays<kRR>(p, T, C, G, S, gp);
+  rays<kRR, kDirect>(p, T, C, G, S, gp);
   if (p.wrt & kWPar) add_par(g_par, gp);
   __syncthreads();
   if (p.wrt & kWPar) flush(p.dpar, g_par, kNPar);
@@ -418,19 +516,21 @@ __global__ void __launch_bounds__(kBlock)
 // one pass into dpar (26,), dsph (S, 8), dtri (T, 32), dmat (M, 4), dlig
 // (L, 20), which the caller zeroes; `wrt` is a bit set of the groups (1 par,
 // 2 sph, 4 tri, 8 mat, 16 lig); bw and tau the soft bandwidth and the depth
-// order's temperature. Other arguments as rt_pathtrace_bwd. At most 64
-// objects per type. Launches on `stream`, allocates nothing, does not
-// synchronise; returns cudaGetLastError() after the launch.
+// order's temperature. Other arguments as rt_pathtrace_bwd (direct != 0:
+// direct mode's soft shade). At most 64 objects per type. Launches on
+// `stream`, allocates nothing, does not synchronise; returns
+// cudaGetLastError() after the launch.
 extern "C" int rt_pathtrace_bwd_soft(
     const float* par, const float* sph, int n_sph, const float* tri,
     int n_tri, const float* mat, int n_mat, const float* lig, int n_lig,
     const float* g, int n_rays, int ray_offset, const float* u_planes,
     unsigned int k0, unsigned int k1, int spp, int width, int bounces, int rr,
-    int rr_start_depth, int two_sided, int normalize_emitter, int wrt,
-    float bw, float tau, float* dpar, float* dsph, float* dtri, float* dmat,
-    float* dlig, void* stream) {
+    int rr_start_depth, int direct, int two_sided, int normalize_emitter,
+    int wrt, float bw, float tau, float* dpar, float* dsph, float* dtri,
+    float* dmat, float* dlig, void* stream) {
   if (bounces < 0 || bounces >= kMaxSeg || n_lig > kMaxLights ||
-      n_sph > kUnroll || n_tri > kUnroll || !(bw > 0.0f) || !(tau > 0.0f))
+      n_sph > kUnroll || n_tri > kUnroll || !(bw > 0.0f) || !(tau > 0.0f) ||
+      (direct && (bounces || rr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0 || wrt == 0) return static_cast<int>(cudaGetLastError());
   AdjParams p = adj_params(par, sph, n_sph, tri, n_tri, mat, n_mat, lig,
@@ -440,11 +540,14 @@ extern "C" int rt_pathtrace_bwd_soft(
                            dlig);
   p.bw = bw;
   p.tau = tau;
+  if (direct) set_direct_keys(p);
   // the tables and one gradient buffer per warp
   const size_t smem = (1 + kBlock / 32) * sizeof(float) *
                       tables_floats(n_sph, n_tri, n_mat, n_lig);
-  void (*kernel)(AdjParams) = rr ? pathtrace_bwd_soft_kernel<true>
-                                  : pathtrace_bwd_soft_kernel<false>;
+  void (*kernel)(AdjParams) =
+      direct ? pathtrace_bwd_soft_kernel<false, true>
+      : rr   ? pathtrace_bwd_soft_kernel<true, false>
+             : pathtrace_bwd_soft_kernel<false, false>;
   int grid = 0;
   const cudaError_t err = fit_grid(kernel, kBlock, smem, n_rays, grid);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -460,12 +563,13 @@ extern "C" int rt_pathtrace_bwd_soft_large(
     int n_tri, const float* mat, int n_mat, const float* lig, int n_lig,
     const float* g, int n_rays, int ray_offset, const float* u_planes,
     unsigned int k0, unsigned int k1, int spp, int width, int bounces, int rr,
-    int rr_start_depth, int two_sided, int normalize_emitter, int wrt,
-    float bw, float tau, float* dpar, float* dsph, float* dtri, float* dmat,
-    float* dlig, void* stream) {
+    int rr_start_depth, int direct, int two_sided, int normalize_emitter,
+    int wrt, float bw, float tau, float* dpar, float* dsph, float* dtri,
+    float* dmat, float* dlig, void* stream) {
   const int spans = (n_sph + kSpan - 1) / kSpan + (n_tri + kSpan - 1) / kSpan;
   if (bounces < 0 || bounces >= kMaxSeg || n_lig > kMaxLights ||
-      spans > kMaxSpans || !(bw > 0.0f) || !(tau > 0.0f))
+      spans > kMaxSpans || !(bw > 0.0f) || !(tau > 0.0f) ||
+      (direct && (bounces || rr)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0 || wrt == 0) return static_cast<int>(cudaGetLastError());
   LargeParams q;
@@ -475,6 +579,7 @@ extern "C" int rt_pathtrace_bwd_soft_large(
                    dsph, dtri, dmat, dlig);
   q.p.bw = bw;
   q.p.tau = tau;
+  if (direct) set_direct_keys(q.p);
   q.resident = sizeof(float) * (kSph * static_cast<size_t>(n_sph) +
                                 kTri * static_cast<size_t>(n_tri)) <=
                kResidentBytes;
@@ -483,8 +588,10 @@ extern "C" int rt_pathtrace_bwd_soft_large(
       2 * sizeof(float) *
       tables_floats(q.resident ? n_sph : 0, q.resident ? n_tri : 0, n_mat,
                     n_lig);
-  void (*kernel)(LargeParams) = rr ? pathtrace_bwd_soft_large_kernel<true>
-                                    : pathtrace_bwd_soft_large_kernel<false>;
+  void (*kernel)(LargeParams) =
+      direct ? pathtrace_bwd_soft_large_kernel<false, true>
+      : rr   ? pathtrace_bwd_soft_large_kernel<true, false>
+             : pathtrace_bwd_soft_large_kernel<false, false>;
   int grid = 0;
   const cudaError_t err = fit_grid(kernel, kBlock, smem, n_rays, grid);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -49,6 +49,21 @@ constexpr int kSegWords = 14;   // words of one tape segment
 // diff_wrt groups
 constexpr int kWPar = 1, kWSph = 2, kWTri = 4, kWMat = 8, kWLig = 16;
 
+// d max(a, b) / da and d min(a, b) / da, half at a tie (JAX's rule)
+__device__ __forceinline__ float hmax(float a, float b) {
+  return a > b ? 1.0f : (a == b ? 0.5f : 0.0f);
+}
+__device__ __forceinline__ float hmin(float a, float b) {
+  return a < b ? 1.0f : (a == b ? 0.5f : 0.0f);
+}
+// jnp.clip(x, 0, 1) = min(1, max(0, x)) and its derivative
+__device__ __forceinline__ float clip01(float x) {
+  return fminf(fmaxf(x, 0.0f), 1.0f);
+}
+__device__ __forceinline__ float clip01_d(float x) {
+  return hmax(x, 0.0f) * hmin(fmaxf(x, 0.0f), 1.0f);
+}
+
 // Adjoint of safe normalize y = v / |v| for cotangent gy.
 __device__ __forceinline__ V3 normalize_adj(V3 v, V3 gy) {
   const float n2 = dot(v, v);
@@ -584,6 +599,150 @@ __device__ void reverse_sweep(const Tables& T, const Draws& D, const Tape& tape,
 }
 
 // ---------------------------------------------------------------------------
+// Direct mode (JAX's mode="direct": _tile_program's direct branch,
+// megakernel_grad.py:795-829), which kernels 2 and 3 share: one segment,
+// the primary hit, shaded per light by albedo * clip(ambient + (occluded ?
+// 0 : clip(cos, 0, 1)), 0, 1) (no emitter term, throughput or bounce). Its
+// adjoint has no tape: the segment's champion and occlusion bits stay in
+// registers, and the sweep below runs once.
+// ---------------------------------------------------------------------------
+
+// Direct mode's draws of one ray, in u_planes_for_direct's layout (slot 0
+// the lens, slot 1 + li light li): the u-planes, or threefry of slot j's
+// key (direct_slot_key of the pass key) at counter 2 rid_g + c, as kernel
+// 1's direct mode draws them.
+struct DirectSlots {
+  Draws D;               // the u-planes and this ray's column
+  const uint32_t* keys;  // 2 words per slot (the PRNG route)
+  uint32_t base;         // 2 rid_g
+  __device__ __forceinline__ void pair(int j, float& u0, float& u1) const {
+    if (D.u != nullptr) {
+      D.pair(j, u0, u1);
+      return;
+    }
+    u0 = threefry_uniform(keys[2 * j], keys[2 * j + 1], base);
+    u1 = threefry_uniform(keys[2 * j], keys[2 * j + 1], base + 1u);
+  }
+  // Draws whose slot 0 is this ray's lens pair: what camera_ray and
+  // camera_adj read
+  __device__ __forceinline__ Draws lens() const {
+    Draws L = D;
+    if (D.u == nullptr) {
+      L.k0 = keys[0];
+      L.k1 = keys[1];
+      L.base = base;
+    }
+    return L;
+  }
+};
+
+__device__ __forceinline__ DirectSlots direct_slots(const Draws& D,
+                                                    const uint32_t* keys,
+                                                    int rid_g) {
+  DirectSlots S;
+  S.D = D;
+  S.keys = keys;
+  S.base = 2u * static_cast<uint32_t>(rid_g);
+  return S;
+}
+
+// The adjoint of direct mode's shade of one ray for the accumulator
+// cotangent g. q is the primary segment (o, d, champion, t, beta, gamma,
+// material, one occlusion bit per light); live: the lane has a ray with a
+// valid hit (a ray without one adds nothing). Per light: the albedo's
+// cotangent, ambient's (the outer clip), and where the light is free the
+// clipped cosine's through the shadow direction into the hit point, the
+// normal, eps and the light's row (position, radius, tangent, bitangent);
+// the shadow ray's length only selects, as in path mode. Then the albedo
+// into the material row, the closest hit into its champion row and the
+// camera chain into gp. Both clips split their cotangent at a bound as
+// jnp.clip does (clip01_d): cornell's white albedo and an unoccluded cosine
+// near 1 - ambient put rays there. Warp-uniform: every lane calls it.
+__device__ void direct_sweep(const Tables& T, const DirectSlots& S,
+                             const Seg& q, bool live, int col, int row,
+                             int samp, int spp, V3 g, const Grads& G,
+                             float (&gp)[kNPar]) {
+  const int L = T.n_lig;
+  const float eps = T.par[kEps], ambient = T.par[kAmbient];
+  const bool geo = (G.wrt & (kWPar | kWSph | kWTri)) != 0;
+  V3 hp, nraw, hn, al;
+  V3 ghp = mk(0.0f, 0.0f, 0.0f), ghn = ghp, galb = ghp;
+  Hit hq;
+  if (live) {
+    surface(T, q, hp, nraw, hn);
+    hq.p = hp;
+    hq.n = hn;
+    al = albedo(T, q.m);
+  }
+  for (int li = 0; li < L; ++li) {
+    // [pos] and [radius, area, tangent, bitangent]
+    float v0[3] = {}, v1[8] = {};
+    int key = -1;
+    if (live) {
+      float u0, u1;
+      S.pair(1 + li, u0, u1);
+      const Shadow sh = shadow_ray_uv(T, u0, u1, li, hq, eps);
+      const bool free = ((q.occ >> li) & 1u) == 0u;
+      const float cxv = dot(sh.sd, hn);
+      const float x = ambient + (free ? clip01(cxv) : 0.0f);
+      const float shade = clip01(x);
+      // acc += al * shade
+      galb = galb + shade * g;
+      const float gx = dot(g, al) * clip01_d(x);
+      gp[kAmbient] += gx;
+      if (free && (geo || (G.wrt & kWLig))) {
+        // sd = normalize(dl), dl = tgt - so, so = hp + eps hn
+        const float gc = gx * clip01_d(cxv);
+        const V3 gdl = normalize_adj(sh.dl, gc * hn);
+        ghp = ghp - gdl;
+        ghn = ghn + gc * sh.sd - eps * gdl;
+        gp[kEps] -= dot(gdl, hn);
+        if (G.wrt & kWLig) {
+          // tgt = lp + rad (sx ta + sy ba)
+          const float* l = T.lig + li * kLig;
+          const float rad = l[12];
+          const V3 ta = ld3(l + 14), ba = ld3(l + 17);
+          const V3 gta = (sh.sx * rad) * gdl, gba = (sh.sy * rad) * gdl;
+          v0[0] = gdl.x;
+          v0[1] = gdl.y;
+          v0[2] = gdl.z;
+          v1[0] = dot(gdl, sh.sx * ta + sh.sy * ba);
+          v1[2] = gta.x;
+          v1[3] = gta.y;
+          v1[4] = gta.z;
+          v1[5] = gba.x;
+          v1[6] = gba.y;
+          v1[7] = gba.z;
+          key = li;
+        }
+      }
+    }
+    if (G.wrt & kWLig) {
+      const Rows r = rows_of(key);
+      add_rows(r, G.lig + li * kLig, v0);
+      add_rows(r, G.lig + li * kLig + 12, v1);
+    }
+  }
+  if (G.wrt & kWMat) {
+    const bool add = live && q.m < T.n_mat;
+    add_row3(G.mat + (add ? q.m : 0) * kMat, add ? q.m : -1, galb);
+  }
+  if (!geo) return;
+  RowGrads R = {};
+  R.ks = R.kt = -1;
+  V3 go = mk(0.0f, 0.0f, 0.0f), gd = go;
+  if (live) trace_adj(T, q, nraw, ghp, ghn, G.wrt, go, gd, R);
+  if (G.wrt & kWSph) add_rows(rows_of(R.ks), G.sph + R.ks * kSph, R.vs);
+  if (G.wrt & kWTri) {
+    const Rows r = rows_of(R.kt);
+    add_rows(r, G.tri + R.kt * kTri, R.vt);
+    add_rows(r, G.tri + R.kt * kTri + 18, R.vn);
+  }
+  if (live && (G.wrt & kWPar))
+    camera_adj(T.par, S.lens(), col, row, samp, spp, go, gd, gp);
+}
+
+// ---------------------------------------------------------------------------
 // The launch side that kernels 2, 2s and 3 share.
 // ---------------------------------------------------------------------------
 
@@ -610,6 +769,9 @@ struct AdjParams {
   int two_sided, normalize_emitter;
   int wrt;
   float bw, tau;
+  // direct mode's slot keys of the pass key (set_direct_keys): slot 0 the
+  // lens, slot 1 + li light li
+  uint32_t dkeys[2 * (1 + kMaxLights)];
   float* dpar;
   float* dsph;
   float* dtri;
@@ -658,6 +820,17 @@ inline AdjParams adj_params(const float* par, const float* sph, int n_sph,
   p.dmat = dmat;
   p.dlig = dlig;
   return p;
+}
+
+// Direct mode's slot keys into p.dkeys, derived on the host from the pass
+// key (k0, k1) as kernel 1's direct mode derives them in-kernel.
+inline void set_direct_keys(AdjParams& p) {
+  for (int j = 0; j <= p.n_lig; ++j) {
+    uint32_t k0 = p.k0, k1 = p.k1;
+    direct_slot_key(k0, k1, j);
+    p.dkeys[2 * j] = k0;
+    p.dkeys[2 * j + 1] = k1;
+  }
 }
 
 __device__ __forceinline__ void zero(float* p, int n) {

@@ -24,7 +24,8 @@
 //   * the emitter race of the primary segment, NEE per light, and the
 //     bounce from the blended surface.
 // The gradient of JAX's jnp.maximum / jnp.minimum / jnp.clip splits at a tie
-// (hmax, hmin, clip01_d); the guards are the forward's double wheres.
+// (hmax, hmin, clip01_d, pathtrace_adj.cuh); the guards are the forward's
+// double wheres.
 //
 // Row cotangents are dense: every hypothesis adds into its object's row on
 // every segment. All lanes of a warp walk the same objects in the same order
@@ -62,20 +63,6 @@ struct Cfg {
 // 1 / (1 + exp(-x)): 0 at x -> -inf, 1 at x -> +inf, never NaN
 __device__ __forceinline__ float sigm(float x) {
   return 1.0f / (1.0f + expf(-x));
-}
-// d max(a, b) / da and d min(a, b) / da, half at a tie (JAX's rule)
-__device__ __forceinline__ float hmax(float a, float b) {
-  return a > b ? 1.0f : (a == b ? 0.5f : 0.0f);
-}
-__device__ __forceinline__ float hmin(float a, float b) {
-  return a < b ? 1.0f : (a == b ? 0.5f : 0.0f);
-}
-// jnp.clip(x, 0, 1) = min(1, max(0, x)) and its derivative
-__device__ __forceinline__ float clip01(float x) {
-  return fminf(fmaxf(x, 0.0f), 1.0f);
-}
-__device__ __forceinline__ float clip01_d(float x) {
-  return hmax(x, 0.0f) * hmin(fmaxf(x, 0.0f), 1.0f);
 }
 
 // Adds v summed over the warp into *p, a word of the warp's own gradient

@@ -37,6 +37,26 @@ __host__ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
   }
 }
 
+// jax.random.fold_in: threefry2x32(key, (0, data)) is the new key.
+__host__ __device__ __forceinline__ void fold_in(uint32_t& k0, uint32_t& k1,
+                                                 uint32_t data) {
+  uint32_t x0 = 0u, x1 = data;
+  threefry2x32(k0, k1, x0, x1);
+  k0 = x0;
+  k1 = x1;
+}
+
+// The key of direct mode's draw slot j for the pass key (k0, k1): the
+// stage route's draw_key(key, LENS) for the lens (j = 0) and draw_key(key,
+// LIGHT, 0, j - 1) for light j - 1 (core/rng LENS = 0, LIGHT = 1).
+__host__ __device__ __forceinline__ void direct_slot_key(uint32_t& k0,
+                                                         uint32_t& k1,
+                                                         int j) {
+  fold_in(k0, k1, j == 0 ? 0u : 1u);
+  fold_in(k0, k1, 0u);
+  fold_in(k0, k1, j == 0 ? 0u : static_cast<uint32_t>(j - 1));
+}
+
 // Uniform in [0, 1) of flat element `counter` (< 2^32, so the high word
 // is 0) of jax.random.uniform(key, ...).
 __device__ __forceinline__ float threefry_uniform(uint32_t k0, uint32_t k1,

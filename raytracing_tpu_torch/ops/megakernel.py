@@ -50,9 +50,10 @@ walked per ray (``accel/traverse.march`` in the plain version,
 ``csrc/pathtrace.cuh`` grid_walk in the kernel), their items read from
 the whole tables with the brute loops' arithmetic, a candidate winning
 on the least (t, id) pair, so ids, record and accumulator are the brute
-version's. ``block`` (the blocked layout, grid mode only) maps the
-kernel's threads to pixel blocks; draws, accumulator and record stay
-row-major, so the plain version ignores it.
+version's. ``block`` (the blocked layout) maps the kernel's threads to
+pixel blocks in grid mode and over streamed chunks; draws, accumulator and
+record stay row-major, so the image is the same: the brute instances keep
+the row-major map and the plain version ignores it.
 
 Streamed tables (``chunks``, a ``KernelChunks``; ``render/mega.chunk_tables``
 builds it, the counterpart of the Pallas kernel's ``chk`` / ``sph_chunks``
@@ -83,7 +84,9 @@ then per light a disk sample, a shadow ray and ``albedo * clip(ambient +
 draws are ``render/mega.u_planes_for_direct``'s (slot 0 the lens, slot 1 +
 li light li), or without u-planes those the stage route's ``render_direct``
 draws (``direct_draw_planes``), which the kernel makes in-kernel bit for
-bit.
+bit. ``record=True`` (one pass) records JAX's one segment
+(``megakernel.py:1642-1644``): ``ids`` (1, R), the primary champion, and
+``occs`` (L, R), one occlusion bit per light.
 """
 from __future__ import annotations
 
@@ -95,7 +98,8 @@ import torch
 
 from ..core import rng
 from ..core.sampling import cosine_hemisphere, sample_disk_point
-from ..core.types import AABB, Camera, cross3, dot3, safe_normalize
+from ..core.types import (AABB, Camera, at_least, clip, cross3, dot3,
+                          safe_normalize)
 from ..render.camera import (clip_to_bounds, focal_points,
                              stratified_lens_uv, thin_lens_rays)
 from . import _build
@@ -168,14 +172,16 @@ def draw_planes(key: torch.Tensor, n_rays: int, n_draws: int,
 
 
 def direct_draw_planes(key: torch.Tensor, n_rays: int, n_lights: int,
-                       spp: int, device=None) -> torch.Tensor:
+                       spp: int, device=None,
+                       ray_offset: int = 0) -> torch.Tensor:
     """Direct mode's draws in ``u_planes_for_direct``'s layout ``(2 * (1 +
-    L), n_rays)``: the lens pair from ``uniform(draw_key(key, LENS), (R,
-    2))`` (zeros at spp > 1, where the lens is stratified), then light li's
-    pair from ``uniform(draw_key(key, LIGHT, 0, li), (R, 2))`` -- the
-    stage route's ``render_direct`` draws."""
+    L), n_rays)``, rows ``[ray_offset, ray_offset + n_rays)``: the lens
+    pair from ``uniform(draw_key(key, LENS), (R, 2))`` (zeros at spp > 1,
+    where the lens is stratified), then light li's pair from
+    ``uniform(draw_key(key, LIGHT, 0, li), (R, 2))`` -- the stage route's
+    ``render_direct`` draws."""
     def pair(k):
-        return draw_planes(k, n_rays, 1, 0, device)
+        return draw_planes(k, n_rays, 1, ray_offset, device)
 
     lens = (pair(rng.draw_key(key, rng.LENS)) if spp == 1 else
             torch.zeros((2, n_rays), device=device))
@@ -606,11 +612,12 @@ def _camera_rays(par, lens_uv, n: int, ray_offset: int, spp: int,
     samp = rid - pix * spp
     row = torch.div(pix, width, rounding_mode="floor")
     col = pix - row * width
-    # the camera as the kernel reads it from par (cols/rows as f32 scalars)
+    # the camera as the kernel reads it from par (cols/rows as scalars of
+    # par's type; col/row in that type too, or a float64 par would meet
+    # float32 pixel coordinates and round the film point to float32)
     cam = Camera(eye=par[0:3], u=par[3:6], v=par[6:9], w=par[9:12],
                  width=par[12], height=par[13], cols=par[14], rows=par[15])
-    fp = focal_points(cam, col.to(torch.float32), row.to(torch.float32),
-                      par[16])
+    fp = focal_points(cam, col.to(par.dtype), row.to(par.dtype), par[16])
     uv = stratified_lens_uv(samp, spp) if spp > 1 else lens_uv
     rays = clip_to_bounds(thin_lens_rays(cam, fp, par[17], uv),
                           AABB(pmin=par[18:21], pmax=par[21:24]))
@@ -706,9 +713,9 @@ def _pass_reference(par, sph, tri, mat, lig, acc, u, ray_offset: int, *,
         # quirk, kept)
         q = hp - lp
         r2 = dot3(q, q)
-        cosx = torch.clamp(dot3(sd, hn), 0.0, 1.0)
-        cosy = torch.clamp(-dot3(sd, ln), 0.0, 1.0)
-        geom = lr[13] * cosx * cosy / torch.clamp(r2, min=1e-20)
+        cosx = clip(dot3(sd, hn), 0.0, 1.0)
+        cosy = clip(-dot3(sd, ln), 0.0, 1.0)
+        geom = lr[13] * cosx * cosy / at_least(r2, 1e-20)
         free = valid & ~occ
         alb = _albedo(mat, matf)
         sh = torch.where(free[:, None], geom[:, None] * irr, 0.0)
@@ -790,15 +797,27 @@ def pathtrace_pass_reference(par, ipar, sph, tri, mat, lig, acc, u_planes,
     return acc, torch.stack(rec["ids"]).to(torch.int32), occs
 
 
-def _direct_reference(par, sph, tri, mat, lig, acc, u, *, spp: int,
-                      width: int, two_sided: bool, grid=None,
-                      work=None, chunks=None) -> torch.Tensor:
-    """One pass of ``_render_pass_kernel`` in direct mode over every ray;
-    returns the new accumulator."""
-    o, d, mint, maxt = _camera_rays(par, u[0:2].t(), acc.shape[0], 0, spp,
-                                    width)
-    _, hp, hn, matf, _ = _trace(o, d, mint, maxt, sph, tri, two_sided, grid,
-                                work, chunks)
+def _direct_reference(par, sph, tri, mat, lig, acc, u, ray_offset: int = 0,
+                      *, spp: int, width: int, two_sided: bool, grid=None,
+                      work=None, chunks=None, trace=None, anyhit=None,
+                      record=None) -> torch.Tensor:
+    """One pass of ``_render_pass_kernel`` in direct mode over rays
+    ``[ray_offset, ray_offset + R)``; returns the new accumulator.
+    ``trace``, ``anyhit`` and ``record`` as ``_pass_reference``'s: the
+    record gets the primary champions and one occlusion bit per light."""
+    if trace is None:
+        def trace(o, d, mint, maxt):
+            return _trace(o, d, mint, maxt, sph, tri, two_sided, grid, work,
+                          chunks)
+    if anyhit is None:
+        def anyhit(o, d, mint, maxt):
+            return _anyhit(o, d, mint, maxt, sph, tri, two_sided, grid, work,
+                           chunks)
+    o, d, mint, maxt = _camera_rays(par, u[0:2].t(), acc.shape[0],
+                                    ray_offset, spp, width)
+    _, hp, hn, matf, obj = trace(o, d, mint, maxt)
+    if record is not None:
+        record["ids"].append(obj)
     eps, ambient = par[24], par[25]
     valid = matf >= 0.0
     alb = _albedo(mat, matf)
@@ -812,11 +831,12 @@ def _direct_reference(par, sph, tri, mat, lig, acc, u, *, spp: int,
         dist = torch.sqrt(torch.where(d2 > 0.0, d2, 1.0))
         dist = torch.where(d2 > 0.0, dist, 0.0)
         sd = safe_normalize(dl)
-        occ = _anyhit(so, sd, torch.where(valid, 0.0, INF),
-                      torch.where(valid, dist, INF), sph, tri, two_sided,
-                      grid, work, chunks)
-        cosx = torch.clamp(dot3(sd, hn), 0.0, 1.0)
-        shade = torch.clamp(ambient + torch.where(occ, 0.0, cosx), 0.0, 1.0)
+        occ = anyhit(so, sd, torch.where(valid, 0.0, INF),
+                     torch.where(valid, dist, INF))
+        if record is not None:
+            record["occs"].append(occ)
+        cosx = clip(dot3(sd, hn), 0.0, 1.0)
+        shade = clip(ambient + torch.where(occ, 0.0, cosx), 0.0, 1.0)
         acc = acc + torch.where(valid[:, None], alb * shade[:, None], 0.0)
     return acc
 
@@ -824,22 +844,53 @@ def _direct_reference(par, sph, tri, mat, lig, acc, u, *, spp: int,
 def direct_pass_reference(par, sph, tri, mat, lig, acc, u_planes, *,
                           key: torch.Tensor, spp: int, width: int,
                           two_sided: bool, n_passes: int = 1, grid=None,
-                          work=None, chunks=None) -> torch.Tensor:
+                          work=None, chunks=None, ray_offset: int = 0,
+                          record: bool = False):
     """The plain version of ``direct_pass`` on any device; returns a new
-    accumulator. Pass p reads ``u_planes`` or, without them, the draws of
-    ``direct_draw_planes`` keyed by ``key`` (one pass) or ``pass_key(key,
-    p)``. ``grid``, ``chunks`` and ``work`` as
-    ``pathtrace_pass_reference``."""
+    accumulator, or ``(acc, ids, occs)`` with ``record=True`` (one pass:
+    ``ids`` (1, R) int32 the primary champions, ``occs`` (L, R) bool the
+    occlusion bits, JAX's one recorded segment). Pass p reads ``u_planes``
+    or, without them, the draws of ``direct_draw_planes`` keyed by ``key``
+    (one pass) or ``pass_key(key, p)``. ``grid``, ``chunks``, ``work`` and
+    ``ray_offset`` as ``pathtrace_pass_reference``."""
+    if record and n_passes != 1:
+        raise ValueError("champion recording is single-pass")
+    rec = {"ids": [], "occs": []} if record else None
     for p in range(n_passes):
         u = u_planes
         if u is None:
             u = direct_draw_planes(key if n_passes == 1 else
                                    rng.pass_key(key, p), acc.shape[0],
-                                   lig.shape[0], spp, acc.device)
-        acc = _direct_reference(par, sph, tri, mat, lig, acc, u, spp=spp,
-                                width=width, two_sided=two_sided, grid=grid,
-                                work=work, chunks=chunks)
-    return acc
+                                   lig.shape[0], spp, acc.device, ray_offset)
+        acc = _direct_reference(par, sph, tri, mat, lig, acc, u, ray_offset,
+                                spp=spp, width=width, two_sided=two_sided,
+                                grid=grid, work=work, chunks=chunks,
+                                record=rec)
+    if not record:
+        return acc
+    occs = (torch.stack(rec["occs"]) if rec["occs"] else
+            torch.zeros((0, acc.shape[0]), dtype=torch.bool,
+                        device=acc.device))
+    return acc, torch.stack(rec["ids"]).to(torch.int32), occs
+
+
+def pass_key_of(ipar, seed: int) -> torch.Tensor:
+    """The key of pass ``ipar[0]``: ``fold_in(PRNGKey(seed), pass)``."""
+    return rng.pass_key(rng.base_key(seed), int(ipar[0]))
+
+
+def diff_draws(ipar, u_planes, n_rays: int, n_lights: int, bounces: int,
+               seed: int, device=None, rr: bool = False,
+               mode: str = "path", spp: int = 1) -> torch.Tensor:
+    """The draws of the differentiable pass ``ipar``: ``u_planes``, or in
+    path mode ``pass_draws``', in direct mode ``direct_draw_planes`` keyed
+    by ``pass_key_of(ipar, seed)`` (a one-pass direct call keyed as path
+    mode keys its passes), rows from the ray offset ``ipar[1]`` on."""
+    if u_planes is not None or mode == "path":
+        return pass_draws(ipar, u_planes, n_rays, n_lights, bounces, seed, 0,
+                          device, rr)
+    return direct_draw_planes(pass_key_of(ipar, seed), n_rays, n_lights, spp,
+                              device, int(ipar[1]))
 
 
 # ---------------------------------------------------------------------------
@@ -864,6 +915,7 @@ _SIGNATURES = {
         _VP, ctypes.c_uint, ctypes.c_uint,            # u_planes, key
         _I, _I, _I,                         # first pass, per_pass, n_passes
         _I, _I, _I,                                   # spp, width, two_sided
+        _VP, _VP,                                     # ids, occs (record)
         _I, _VP, _I, _I, _I,        # grid, grids, n_grids, sph grid, start,
         _VP, _I,                                      # streams, block
         _VP]),                                        # stream
@@ -1029,9 +1081,6 @@ def _check_args(par, ipar, sph, tri, mat, lig, acc, u_planes, spp, width,
         raise ValueError("pixel math is exact below 2^24 rays")
     if block:
         rows = n // (spp * width)
-        if grid is None and chunks is None:
-            raise ValueError("the blocked layout is that of grid mode and "
-                             "streamed tables")
         if block < 0 or width % block or rows % block or roff:
             raise ValueError(f"block {block} must tile the {width} x {rows} "
                              "film of an unsharded launch")
@@ -1059,6 +1108,13 @@ def _check_launch(acc, tensors, what: str) -> None:
         raise RuntimeError(f"{what} is forward-only on the card; "
                            "differentiate through ops.megakernel_grad."
                            "pathtrace_pass_diff (one pass per call)")
+
+
+def _kernel_block(block: int, grid, chunks) -> int:
+    """The blocked layout's block edge as the launch takes it: the brute
+    instances keep the row-major map (the same image, see the module
+    docstring), so only a launch with grids or streamed chunks blocks."""
+    return block if grid is not None or chunks is not None else 0
 
 
 def _lib(grid, chunks, build_flags: tuple):
@@ -1136,8 +1192,8 @@ def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
                 _ptr(acc), acc.shape[0], roff, _ptr(u_planes),
                 ctypes.addressof(keys), k, spp, width, bounces,
                 int(russian_roulette), rr_start_depth, int(two_sided),
-                int(normalize_emitter), _ptr(ids), _ptr(occs), *gargs, block,
-                stream)
+                int(normalize_emitter), _ptr(ids), _ptr(occs), *gargs,
+                _kernel_block(block, grid, chunks), stream)
             if err != 0:
                 raise RuntimeError(
                     f"megakernel launch failed with CUDA error {err}")
@@ -1150,30 +1206,47 @@ def direct_pass(par, sph, tri, mat, lig, acc, u_planes, *,
                 key: torch.Tensor, spp: int, width: int, two_sided: bool,
                 n_passes: int = 1, grid: KernelGrids | None = None,
                 chunks: KernelChunks | None = None, block: int = 0,
-                build_flags: tuple = ()) -> torch.Tensor:
+                build_flags: tuple = (), ray_offset: int = 0,
+                record: bool = False):
     """Kernel 1's direct mode: ``n_passes`` direct-lighting passes added
-    into ``acc`` (R, 3), in place; returns ``acc``. Pass p reads
-    ``u_planes`` ((2 * (1 + L), R), ``u_planes_for_direct``'s layout) or,
-    without them, makes ``direct_draw_planes``'s draws in-kernel, keyed by
-    ``key`` ((2,) uint32 CPU tensor) for a call of one pass and by
-    ``pass_key(key, p)`` otherwise. On CPU tensors it runs
-    ``direct_pass_reference``; on CUDA tensors it launches the kernel (one
-    launch per 64 passes) and counts ``direct_launches``. Tables, ``grid``,
-    ``chunks`` and ``block`` as ``pathtrace_pass``."""
+    into ``acc`` (R, 3), in place; returns ``acc``, or ``(acc, ids, occs)``
+    with ``record=True`` (one pass; ``direct_pass_reference`` gives the
+    layout). Pass p reads ``u_planes`` ((2 * (1 + L), R),
+    ``u_planes_for_direct``'s layout) or, without them, makes
+    ``direct_draw_planes``'s draws in-kernel, keyed by ``key`` ((2,)
+    uint32 CPU tensor) for a call of one pass and by ``pass_key(key, p)``
+    otherwise. ``acc`` holds rays ``[ray_offset, ray_offset + R)`` of the
+    film. On CPU tensors it runs ``direct_pass_reference``; on CUDA
+    tensors it launches the kernel (one launch per 64 passes) and counts
+    ``direct_launches``. Tables, ``grid``, ``chunks`` and ``block`` as
+    ``pathtrace_pass``."""
     global direct_launches, stream_launches
-    _check_args(par, torch.zeros(2, dtype=torch.int32), sph, tri, mat, lig,
-                acc, u_planes, spp, width, 1 + lig.shape[0], n_passes,
-                multi_pass_planes=True, grid=grid, block=block,
+    _check_args(par, torch.tensor([0, ray_offset], dtype=torch.int32), sph,
+                tri, mat, lig, acc, u_planes, spp, width, 1 + lig.shape[0],
+                n_passes, multi_pass_planes=True, grid=grid, block=block,
                 chunks=chunks)
+    if record and n_passes != 1:
+        raise ValueError("champion recording is single-pass")
     kw = dict(key=key, spp=spp, width=width, two_sided=two_sided,
-              n_passes=n_passes, grid=grid, chunks=chunks)
+              n_passes=n_passes, grid=grid, chunks=chunks,
+              ray_offset=ray_offset)
     if acc.device.type == "cpu":
-        return acc.copy_(direct_pass_reference(par, sph, tri, mat, lig, acc,
-                                               u_planes, **kw))
+        out = direct_pass_reference(par, sph, tri, mat, lig, acc, u_planes,
+                                    record=record, **kw)
+        if not record:
+            return acc.copy_(out)
+        return acc.copy_(out[0]), out[1], out[2]
     _check_launch(acc, (par, sph, tri, mat, lig, acc, u_planes),
                   "direct_pass")
     lib = _lib(grid, chunks, build_flags)
     k0, k1 = rng.key_words(key)
+    ids = occs = None
+    if record:
+        # the kernel writes every slot, missed rays included
+        ids = torch.empty((1, acc.shape[0]), dtype=torch.int32,
+                          device=acc.device)
+        occs = torch.empty((lig.shape[0], acc.shape[0]), dtype=torch.bool,
+                           device=acc.device)
     gargs, _desc = _grid_args(grid, chunks, sph.shape[0], tri.shape[0])
     with torch.cuda.device(acc.device):
         stream = torch.cuda.current_stream(acc.device).cuda_stream
@@ -1182,12 +1255,13 @@ def direct_pass(par, sph, tri, mat, lig, acc, u_planes, *,
             err = lib.rt_direct_pass(
                 _ptr(par), _ptr(sph), sph.shape[0], _ptr(tri), tri.shape[0],
                 _ptr(mat), mat.shape[0], _ptr(lig), lig.shape[0],
-                _ptr(acc), acc.shape[0], 0, _ptr(u_planes), k0, k1,
+                _ptr(acc), acc.shape[0], ray_offset, _ptr(u_planes), k0, k1,
                 first, int(n_passes > 1), k, spp, width, int(two_sided),
-                *gargs, block, stream)
+                _ptr(ids), _ptr(occs), *gargs,
+                _kernel_block(block, grid, chunks), stream)
             if err != 0:
                 raise RuntimeError(
                     f"direct-mode launch failed with CUDA error {err}")
             direct_launches += 1
             stream_launches += chunks is not None
-    return acc
+    return (acc, ids, occs) if record else acc

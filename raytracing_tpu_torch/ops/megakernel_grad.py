@@ -1,6 +1,7 @@
 """The differentiable pass: the counterpart of
-``raytracing_tpu/ops/pallas/megakernel_grad.py`` (hard route, path mode,
-with or without Russian roulette): two backwards, as in the JAX package.
+``raytracing_tpu/ops/pallas/megakernel_grad.py`` (hard route, path mode
+with or without Russian roulette, and direct mode): two backwards, as in
+the JAX package.
 
 Kernel 2, the backward by replay (``bwd_impl_for`` "pallas"; up to
 ``DIFF_TABLE_MAX`` objects per type, grid scenes included):
@@ -35,6 +36,14 @@ CUDA tensors is ``_PassDiff`` (forward = kernel 1, backward = kernel 2),
 on CPU tensors the plain forward under autograd. The cell route
 (``bwd_cell=True``) is ``_PassDiffCell`` on either device: forward = kernel
 1 recording, backward = kernel 3, each the plain version on CPU tensors.
+
+Direct mode (``mode="direct"``, JAX's: ``_tile_program``'s direct branch,
+``megakernel_grad.py:795-829``) runs every route over kernel 1's direct
+pass (``MK.direct_pass``): one segment, the primary hit shaded per light by
+``albedo * clip(ambient + (occluded ? 0 : clip(cos)))``, its draws
+``u_planes_for_direct``'s (``MK.diff_draws``); the record is one segment
+(``_check_record``); ``bounces`` and the roulette are ignored. Ambient
+gets a cotangent there.
 
 Gradients follow the JAX package's hard convention: the cotangent of a
 closest hit flows to its champion only, occlusion has no adjoint, and the
@@ -83,7 +92,7 @@ _SIGNATURES = {
         _VP, _I, _I,                                  # g, n_rays, ray_offset
         _VP, _U, _U,                                  # u_planes, pass key
         _I, _I, _I, _I, _I,                # spp, width, bounces, rr, start
-        _I, _I,                                       # two_sided, normalize
+        _I, _I, _I,                           # direct, two_sided, normalize
         _I,                                           # diff_wrt bits
         _VP, _VP, _VP, _VP, _VP,                      # dpar .. dlig
         _VP]),                                        # stream
@@ -94,7 +103,7 @@ _SIGNATURES = {
         _VP, _I, _I,                                  # g, n_rays, ray_offset
         _VP, _U, _U,                                  # u_planes, pass key
         _I, _I, _I, _I, _I,                # spp, width, bounces, rr, start
-        _I, _I,                                       # two_sided, normalize
+        _I, _I, _I,                           # direct, two_sided, normalize
         _I,                                           # diff_wrt bits
         _VP, _I, _I, _I, _VP,     # grids, n_grids, sph grid, start, streams
         _VP, _VP, _VP, _VP, _VP,                      # dpar .. dlig
@@ -106,7 +115,7 @@ _CHAMP_SIGNATURES = {
         _VP, _VP, _VP, _I, _I,            # g, ids, occs, n_rays, ray_offset
         _VP, _U, _U,                                  # u_planes, pass key
         _I, _I, _I, _I, _I,                # spp, width, bounces, rr, start
-        _I, _I,                                       # two_sided, normalize
+        _I, _I, _I,                           # direct, two_sided, normalize
         _I,                                           # diff_wrt bits
         _VP, _VP, _VP, _VP, _VP,                      # dpar .. dlig
         _VP]),                                        # stream
@@ -132,36 +141,52 @@ def _leaf_stream(st, leaf: torch.Tensor):
         keep, leaf[st.perm.clamp(min=0).to(torch.int64)], 0.0))
 
 
-def pathtrace_pass_bwd_reference(par, ipar, sph, tri, mat, lig, g, u_planes,
-                                 *, spp: int, width: int, bounces: int,
-                                 two_sided: bool, normalize_emitter: bool,
-                                 seed: int, russian_roulette: bool = False,
-                                 rr_start_depth: int = 0, diff_wrt=DIFF_ALL,
-                                 chunks=None):
-    """Plain version of kernel 2: ``(dpar, dsph, dtri, dmat, dlig)`` of
-    ``sum(g * acc_delta)`` for one pass, by autograd through the plain
-    forward. Groups outside ``diff_wrt`` come back as zeros. With
-    ``chunks`` (``MK.KernelChunks`` of these tables) the forward tests the
-    streamed tables a chunk of rows at a time (``MK._stream_closest``: the
-    brute version's champions, bits and values), its rows gathered from
-    the tables through ``perm``: the same cotangents, in far fewer
-    launches on a long table."""
-    sel = _check_wrt(diff_wrt)
-    tables = dict(par=par, sph=sph, tri=tri, mat=mat, lig=lig)
+MODES = ("path", "direct")
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+
+
+def n_draws_of(n_lights: int, bounces: int, rr: bool, mode: str) -> int:
+    """Draw slots of one pass (JAX's ``n_draw_pairs`` with the lens slot
+    kept): path mode's ``MK.n_draws_of``; direct mode's lens and one per
+    light (``u_planes_for_direct``), whatever the bounces and roulette."""
+    return (1 + n_lights if mode == "direct"
+            else MK.n_draws_of(n_lights, bounces, rr))
+
+
+def _plain_pass(par, ipar, sph, tri, mat, lig, acc, u, *, mode: str,
+                spp: int, width: int, bounces: int, two_sided: bool,
+                normalize_emitter: bool, russian_roulette: bool,
+                rr_start_depth: int, chunks=None, trace=None,
+                anyhit=None) -> torch.Tensor:
+    """``acc`` plus the plain pass on the draws ``u``: path mode's
+    ``MK._pass_reference`` or direct mode's ``MK._direct_reference``, with
+    its ``chunks`` and trace / any-hit hooks."""
+    roff = int(ipar[1])
+    if mode == "direct":
+        return MK._direct_reference(par, sph, tri, mat, lig, acc, u, roff,
+                                    spp=spp, width=width,
+                                    two_sided=two_sided, chunks=chunks,
+                                    trace=trace, anyhit=anyhit)
+    return MK._pass_reference(par, sph, tri, mat, lig, acc, u, roff, spp=spp,
+                              width=width, bounces=bounces,
+                              two_sided=two_sided,
+                              normalize_emitter=normalize_emitter,
+                              russian_roulette=russian_roulette,
+                              rr_start_depth=rr_start_depth, trace=trace,
+                              anyhit=anyhit, chunks=chunks)
+
+
+def _autograd_cotangents(tables: dict, sel, g, program):
+    """``(dpar, dsph, dtri, dmat, dlig)`` of ``sum(g * program(leaves))``
+    by autograd, the groups outside ``sel`` zeros."""
     with torch.enable_grad():
         leaves = {k: (v.detach().requires_grad_(True) if k in sel
                       else v.detach()) for k, v in tables.items()}
-        if chunks is not None:
-            chunks = MK.KernelChunks(
-                tri=_leaf_stream(chunks.tri, leaves["tri"]),
-                sph=_leaf_stream(chunks.sph, leaves["sph"]))
-        acc = MK.pathtrace_pass_reference(
-            leaves["par"], ipar, leaves["sph"], leaves["tri"], leaves["mat"],
-            leaves["lig"], torch.zeros_like(g), u_planes, spp=spp,
-            width=width, bounces=bounces, two_sided=two_sided,
-            normalize_emitter=normalize_emitter, seed=seed,
-            russian_roulette=russian_roulette, rr_start_depth=rr_start_depth,
-            chunks=chunks)
+        acc = program(leaves)
         grads = dict(zip(sel, torch.autograd.grad(
             acc, [leaves[k] for k in sel], grad_outputs=g,
             allow_unused=True, materialize_grads=True))) if sel else {}
@@ -169,25 +194,76 @@ def pathtrace_pass_bwd_reference(par, ipar, sph, tri, mat, lig, g, u_planes,
                  for k, v in tables.items())
 
 
+def pathtrace_pass_bwd_reference(par, ipar, sph, tri, mat, lig, g, u_planes,
+                                 *, spp: int, width: int, bounces: int,
+                                 two_sided: bool, normalize_emitter: bool,
+                                 seed: int, russian_roulette: bool = False,
+                                 rr_start_depth: int = 0, diff_wrt=DIFF_ALL,
+                                 chunks=None, mode: str = "path"):
+    """Plain version of kernel 2: ``(dpar, dsph, dtri, dmat, dlig)`` of
+    ``sum(g * acc_delta)`` for one pass, by autograd through the plain
+    forward, JAX's ``_bwd_reference``. ``mode`` "path" or "direct" (JAX's
+    ``mode``; direct mode ignores ``bounces`` and the roulette, as JAX
+    does). Groups outside ``diff_wrt`` come back as zeros. With ``chunks``
+    (``MK.KernelChunks`` of these tables) the forward tests the streamed
+    tables a chunk of rows at a time (``MK._stream_closest``: the brute
+    version's champions, bits and values), its rows gathered from the
+    tables through ``perm``: the same cotangents, in far fewer launches on
+    a long table."""
+    _check_mode(mode)
+    sel = _check_wrt(diff_wrt)
+    u = MK.diff_draws(ipar, u_planes, g.shape[0], lig.shape[0], bounces,
+                      seed, g.device, russian_roulette, mode, spp)
+
+    def program(t):
+        ch = chunks
+        if ch is not None:
+            ch = MK.KernelChunks(tri=_leaf_stream(ch.tri, t["tri"]),
+                                 sph=_leaf_stream(ch.sph, t["sph"]))
+        return _plain_pass(
+            t["par"], ipar, t["sph"], t["tri"], t["mat"], t["lig"],
+            torch.zeros_like(g), u, mode=mode, spp=spp, width=width,
+            bounces=bounces, two_sided=two_sided,
+            normalize_emitter=normalize_emitter,
+            russian_roulette=russian_roulette, rr_start_depth=rr_start_depth,
+            chunks=ch)
+
+    return _autograd_cotangents(dict(par=par, sph=sph, tri=tri, mat=mat,
+                                     lig=lig), sel, g, program)
+
+
 def _check_bwd_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp, width,
                     bounces, rr, what: str = "kernel 2", grid=None,
-                    chunks=None, resident=True):
+                    chunks=None, resident=True, mode: str = "path"):
     """A backward's arguments: ``MK._check_args``' (with ``grid`` and
     ``chunks`` its caps apply to the resident prefix; ``resident=False``
     drops them), CUDA tensors, and the adjoint's tape and light caps."""
+    _check_mode(mode)
     MK._check_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp, width,
-                   MK.n_draws_of(lig.shape[0], bounces, rr), 1, grid=grid,
+                   n_draws_of(lig.shape[0], bounces, rr, mode), 1, grid=grid,
                    chunks=chunks, resident=resident)
     if g.device.type != "cuda":
         raise ValueError(f"{what} takes CUDA tensors, got {g.device}; "
                          "on the CPU use its plain version (the wrapper's "
                          "name with _reference)")
-    if bounces > MAX_BOUNCES:
+    _check_caps(bounces, lig.shape[0], mode)
+
+
+def _check_caps(bounces: int, n_lig: int, mode: str) -> None:
+    """The adjoints' tape (path mode) and light caps."""
+    if mode == "path" and bounces > MAX_BOUNCES:
         raise ValueError(f"the adjoint's tape holds at most {MAX_BOUNCES} "
                          f"bounces, got {bounces}")
-    if lig.shape[0] > MAX_LIGHTS:
+    if n_lig > MAX_LIGHTS:
         raise ValueError(f"the adjoint takes at most {MAX_LIGHTS} lights, "
-                         f"got {lig.shape[0]}")
+                         f"got {n_lig}")
+
+
+def _c_settings(bounces: int, rr: bool, mode: str) -> tuple:
+    """(bounces, rr, direct) as the adjoints' C entries take them: direct
+    mode traces one segment and plays no roulette."""
+    direct = mode == "direct"
+    return (0, 0, 1) if direct else (bounces, int(rr), 0)
 
 
 def large_route(sph, tri, grid=None, chunks=None) -> bool:
@@ -202,13 +278,14 @@ def pathtrace_pass_bwd(par, ipar, sph, tri, mat, lig, g, u_planes, *,
                        normalize_emitter: bool, seed: int,
                        russian_roulette: bool = False,
                        rr_start_depth: int = 0, diff_wrt=DIFF_ALL,
-                       grid=None, chunks=None):
+                       grid=None, chunks=None, mode: str = "path"):
     """Kernel 2: the cotangents of ``pathtrace_pass_bwd_reference`` from
     the hand-written CUDA adjoint, for CUDA tensors (anything else raises).
     ``g`` (R, 3) is the cotangent of the pass's accumulator; the draws are
     ``u_planes`` or, without them, those of pass ``ipar[0]`` of ``seed``,
-    made in-kernel as the forward makes them. Groups outside ``diff_wrt``
-    come back as zeros.
+    made in-kernel as the forward makes them (``MK.diff_draws``). Groups
+    outside ``diff_wrt`` come back as zeros. ``mode`` "direct" runs the
+    adjoint of direct mode's shade (one segment, no roulette).
 
     Up to 64 objects per type (``large_route`` False) the tables and
     their gradient buffers sit in shared memory (counter ``launches``).
@@ -222,19 +299,21 @@ def pathtrace_pass_bwd(par, ipar, sph, tri, mat, lig, g, u_planes, *,
     sel = _check_wrt(diff_wrt)
     large = large_route(sph, tri, grid, chunks)
     _check_bwd_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp, width,
-                    bounces, russian_roulette, grid=grid, chunks=chunks)
+                    bounces, russian_roulette, grid=grid, chunks=chunks,
+                    mode=mode)
     outs = tuple(torch.zeros_like(t) for t in (par, sph, tri, mat, lig))
     wrt = sum(1 << i for i, n in enumerate(DIFF_ALL) if n in sel)
     if not wrt:
         return outs
-    pass0, roff = (int(x) for x in ipar.tolist())
-    k0, k1 = rng.key_words(rng.pass_key(rng.base_key(seed), pass0))
+    roff = int(ipar[1])
+    k0, k1 = rng.key_words(MK.pass_key_of(ipar, seed))
+    n_b, rr, direct = _c_settings(bounces, russian_roulette, mode)
     ptr = MK._ptr
     args = (ptr(par), ptr(sph), sph.shape[0], ptr(tri), tri.shape[0],
             ptr(mat), mat.shape[0], ptr(lig), lig.shape[0], ptr(g),
-            g.shape[0], roff, ptr(u_planes), k0, k1, spp, width, bounces,
-            int(russian_roulette), rr_start_depth, int(two_sided),
-            int(normalize_emitter), wrt)
+            g.shape[0], roff, ptr(u_planes), k0, k1, spp, width, n_b, rr,
+            rr_start_depth, direct, int(two_sided), int(normalize_emitter),
+            wrt)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         lib = _build.load("megakernel_grad", _SIGNATURES, ADJ_FLAGS)
@@ -349,36 +428,37 @@ def pathtrace_pass_bwd_champ_reference(par, ipar, sph, tri, mat, lig, g,
                                        normalize_emitter: bool, seed: int,
                                        russian_roulette: bool = False,
                                        rr_start_depth: int = 0,
-                                       diff_wrt=DIFF_ALL):
+                                       diff_wrt=DIFF_ALL, mode: str = "path"):
     """Plain version of kernel 3, JAX's ``_bwd_champion``: ``(dpar, dsph,
     dtri, dmat, dlig)`` of ``sum(g * acc_delta)`` for one pass, by autograd
     through the plain pass on the record ``ids`` (1 + bounces, R) and
-    ``occs`` ((1 + bounces) * L, R), which stay fixed. Groups outside
-    ``diff_wrt`` come back as zeros."""
+    ``occs`` ((1 + bounces) * L, R) -- in direct mode (1, R) and (L, R) --
+    which stay fixed. Groups outside ``diff_wrt`` come back as zeros."""
+    _check_mode(mode)
     sel = _check_wrt(diff_wrt)
-    tables = dict(par=par, sph=sph, tri=tri, mat=mat, lig=lig)
-    u = MK.pass_draws(ipar, u_planes, g.shape[0], lig.shape[0], bounces,
-                      seed, 0, g.device, russian_roulette)
-    with torch.enable_grad():
-        leaves = {k: (v.detach().requires_grad_(True) if k in sel
-                      else v.detach()) for k, v in tables.items()}
-        trace, anyhit = _champ_hooks(ids, occs, leaves["sph"], leaves["tri"])
-        acc = MK._pass_reference(
-            leaves["par"], leaves["sph"], leaves["tri"], leaves["mat"],
-            leaves["lig"], torch.zeros_like(g), u, int(ipar[1]), spp=spp,
-            width=width, bounces=bounces, two_sided=two_sided,
+    u = MK.diff_draws(ipar, u_planes, g.shape[0], lig.shape[0], bounces,
+                      seed, g.device, russian_roulette, mode, spp)
+
+    def program(t):
+        trace, anyhit = _champ_hooks(ids, occs, t["sph"], t["tri"])
+        return _plain_pass(
+            t["par"], ipar, t["sph"], t["tri"], t["mat"], t["lig"],
+            torch.zeros_like(g), u, mode=mode, spp=spp, width=width,
+            bounces=bounces, two_sided=two_sided,
             normalize_emitter=normalize_emitter,
             russian_roulette=russian_roulette, rr_start_depth=rr_start_depth,
             trace=trace, anyhit=anyhit)
-        grads = dict(zip(sel, torch.autograd.grad(
-            acc, [leaves[k] for k in sel], grad_outputs=g,
-            allow_unused=True, materialize_grads=True))) if sel else {}
-    return tuple(grads[k] if k in grads else torch.zeros_like(v)
-                 for k, v in tables.items())
+
+    return _autograd_cotangents(dict(par=par, sph=sph, tri=tri, mat=mat,
+                                     lig=lig), sel, g, program)
 
 
-def _check_record(ids, occs, n_rays: int, n_lig: int, bounces: int, dev):
-    n_seg = 1 + bounces
+def _check_record(ids, occs, n_rays: int, n_lig: int, bounces: int, dev,
+                  mode: str = "path"):
+    """Kernel 1's record of a pass: ``ids`` (n_seg, R) int32 and ``occs``
+    (n_seg * L, R) bool, n_seg = 1 + bounces in path mode and 1 in direct
+    mode (JAX's ``n_seg_rec``)."""
+    n_seg = 1 if mode == "direct" else 1 + bounces
     for name, t, rows, dtype in (("ids", ids, n_seg, torch.int32),
                                  ("occs", occs, n_seg * n_lig, torch.bool)):
         if (t.device != dev or t.dtype != dtype
@@ -393,30 +473,32 @@ def pathtrace_pass_bwd_champ(par, ipar, sph, tri, mat, lig, g, u_planes, ids,
                              occs, *, spp: int, width: int, bounces: int,
                              two_sided: bool, normalize_emitter: bool,
                              seed: int, russian_roulette: bool = False,
-                             rr_start_depth: int = 0, diff_wrt=DIFF_ALL):
+                             rr_start_depth: int = 0, diff_wrt=DIFF_ALL,
+                             mode: str = "path"):
     """Kernel 3: the cotangents of ``pathtrace_pass_bwd_champ_reference``
     from the hand-written CUDA kernel on CUDA tensors, from the plain
     version on CPU tensors. ``ids`` and ``occs`` are kernel 1's record of
-    the pass (``ops.megakernel.pathtrace_pass(record=True)``) on the same
-    tables and draws; ``g`` (R, 3) is the cotangent of the pass's
-    accumulator; the draws are ``u_planes`` or, without them, those of
-    pass ``ipar[0]`` of ``seed``. Groups outside ``diff_wrt`` come back as
+    the pass (``ops.megakernel.pathtrace_pass(record=True)``, in direct
+    mode ``direct_pass(record=True)``) on the same tables and draws; ``g``
+    (R, 3) is the cotangent of the pass's accumulator; the draws are
+    ``u_planes`` or, without them, those of pass ``ipar[0]`` of ``seed``
+    (``MK.diff_draws``). Groups outside ``diff_wrt`` come back as
     zeros."""
     global champ_launches
+    _check_mode(mode)
     sel = _check_wrt(diff_wrt)
     # kernel 3 reads the sphere and triangle tables from global memory, at
     # any size (a grid scene's whole tables)
     MK._check_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp, width,
-                   MK.n_draws_of(lig.shape[0], bounces, russian_roulette), 1,
-                   resident=False)
-    if bounces > MAX_BOUNCES or lig.shape[0] > MAX_LIGHTS:
-        raise ValueError(f"the adjoint's tape holds at most {MAX_BOUNCES} "
-                         f"bounces and {MAX_LIGHTS} lights")
-    _check_record(ids, occs, g.shape[0], lig.shape[0], bounces, g.device)
+                   n_draws_of(lig.shape[0], bounces, russian_roulette, mode),
+                   1, resident=False)
+    _check_caps(bounces, lig.shape[0], mode)
+    _check_record(ids, occs, g.shape[0], lig.shape[0], bounces, g.device,
+                  mode)
     kw = dict(spp=spp, width=width, bounces=bounces, two_sided=two_sided,
               normalize_emitter=normalize_emitter, seed=seed,
               russian_roulette=russian_roulette,
-              rr_start_depth=rr_start_depth)
+              rr_start_depth=rr_start_depth, mode=mode)
     if g.device.type == "cpu":
         return pathtrace_pass_bwd_champ_reference(
             par, ipar, sph, tri, mat, lig, g, u_planes, ids, occs,
@@ -428,8 +510,9 @@ def pathtrace_pass_bwd_champ(par, ipar, sph, tri, mat, lig, g, u_planes, ids,
     if not wrt:
         return outs
     lib = _build.load("megakernel_champ", _CHAMP_SIGNATURES, ADJ_FLAGS)
-    pass0, roff = (int(x) for x in ipar.tolist())
-    k0, k1 = rng.key_words(rng.pass_key(rng.base_key(seed), pass0))
+    roff = int(ipar[1])
+    k0, k1 = rng.key_words(MK.pass_key_of(ipar, seed))
+    n_b, rr, direct = _c_settings(bounces, russian_roulette, mode)
     ptr = MK._ptr
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
@@ -437,13 +520,29 @@ def pathtrace_pass_bwd_champ(par, ipar, sph, tri, mat, lig, g, u_planes, ids,
             ptr(par), ptr(sph), sph.shape[0], ptr(tri), tri.shape[0],
             ptr(mat), mat.shape[0], ptr(lig), lig.shape[0], ptr(g),
             ptr(ids), ptr(occs), g.shape[0], roff, ptr(u_planes), k0, k1,
-            spp, width, bounces, int(russian_roulette), rr_start_depth,
-            int(two_sided), int(normalize_emitter), wrt,
-            *(ptr(t) for t in outs), stream)
+            spp, width, n_b, rr, rr_start_depth, direct, int(two_sided),
+            int(normalize_emitter), wrt, *(ptr(t) for t in outs), stream)
         if err != 0:
             raise RuntimeError(f"kernel 3 launch failed with CUDA error {err}")
         champ_launches += 1
     return outs
+
+
+def _forward(par, ipar, sph, tri, mat, lig, acc, u_planes, kw, fwd,
+             mode: str, record: bool = False):
+    """Kernel 1's pass of the differentiable pass (its plain version on CPU
+    tensors), on ``acc`` in place: path mode's ``MK.pathtrace_pass``, or
+    direct mode's ``MK.direct_pass`` keyed by ``MK.pass_key_of(ipar,
+    seed)`` at the ray offset ``ipar[1]``. ``fwd``: ``grid``, ``chunks``,
+    ``block``; ``record`` returns the record too."""
+    if mode == "path":
+        return MK.pathtrace_pass(par, ipar, sph, tri, mat, lig, acc,
+                                 u_planes, record=record, **kw, **fwd)
+    return MK.direct_pass(par, sph, tri, mat, lig, acc, u_planes,
+                          key=MK.pass_key_of(ipar, kw["seed"]),
+                          spp=kw["spp"], width=kw["width"],
+                          two_sided=kw["two_sided"], ray_offset=int(ipar[1]),
+                          record=record, **fwd)
 
 
 class _PassDiff(torch.autograd.Function):
@@ -458,14 +557,13 @@ class _PassDiff(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, par, sph, tri, mat, lig, acc_in, ipar, u_planes, kw,
-                diff_wrt, fwd):
+                diff_wrt, fwd, mode):
         acc = acc_in.clone()
-        MK.pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes,
-                          **kw, **fwd)
+        _forward(par, ipar, sph, tri, mat, lig, acc, u_planes, kw, fwd, mode)
         ctx.save_for_backward(par, sph, tri, mat, lig)
         # ipar carries the pass index (the draws' key) and the ray offset
         ctx.ipar, ctx.u_planes, ctx.kw = ipar, u_planes, kw
-        ctx.diff_wrt = diff_wrt
+        ctx.diff_wrt, ctx.mode = diff_wrt, mode
         ctx.replay = dict(grid=fwd["grid"], chunks=fwd["chunks"])
         return acc
 
@@ -478,9 +576,10 @@ class _PassDiff(torch.autograd.Function):
         if wrt:
             outs = pathtrace_pass_bwd(
                 tables[0], ctx.ipar, *tables[1:], g_out.contiguous(),
-                ctx.u_planes, diff_wrt=wrt, **ctx.kw, **ctx.replay)
+                ctx.u_planes, diff_wrt=wrt, mode=ctx.mode, **ctx.kw,
+                **ctx.replay)
             grads = [o if n in wrt else None for n, o in zip(DIFF_ALL, outs)]
-        return (*grads, g_out, None, None, None, None, None)
+        return (*grads, g_out, None, None, None, None, None, None)
 
 
 class _PassDiffCell(torch.autograd.Function):
@@ -496,13 +595,13 @@ class _PassDiffCell(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, par, sph, tri, mat, lig, acc_in, ipar, u_planes, kw,
-                diff_wrt, fwd):
-        acc, ids, occs = MK.pathtrace_pass(par, ipar, sph, tri, mat, lig,
-                                           acc_in.clone(), u_planes,
-                                           record=True, **kw, **fwd)
+                diff_wrt, fwd, mode):
+        acc, ids, occs = _forward(par, ipar, sph, tri, mat, lig,
+                                  acc_in.clone(), u_planes, kw, fwd, mode,
+                                  record=True)
         ctx.save_for_backward(par, sph, tri, mat, lig, ids, occs)
         ctx.ipar, ctx.u_planes, ctx.kw = ipar, u_planes, kw
-        ctx.diff_wrt = diff_wrt
+        ctx.diff_wrt, ctx.mode = diff_wrt, mode
         return acc
 
     @staticmethod
@@ -514,9 +613,10 @@ class _PassDiffCell(torch.autograd.Function):
         if wrt:
             outs = pathtrace_pass_bwd_champ(
                 par, ctx.ipar, sph, tri, mat, lig, g_out.contiguous(),
-                ctx.u_planes, ids, occs, diff_wrt=wrt, **ctx.kw)
+                ctx.u_planes, ids, occs, diff_wrt=wrt, mode=ctx.mode,
+                **ctx.kw)
             grads = [o if n in wrt else None for n, o in zip(DIFF_ALL, outs)]
-        return (*grads, g_out, None, None, None, None, None)
+        return (*grads, g_out, None, None, None, None, None, None)
 
 
 def _check_soft_grid_rows(grid, sph, tri) -> None:
@@ -558,12 +658,13 @@ class _PassDiffSoft(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, par, sph, tri, mat, lig, acc_in, ipar, u_planes, kw,
-                diff_wrt, fwd, soft, soft_tri):
-        acc = MK.pathtrace_pass(par, ipar, sph, tri, mat, lig,
-                                acc_in.clone(), u_planes, **kw, **fwd)
+                diff_wrt, fwd, mode, soft, soft_tri):
+        acc = acc_in.clone()
+        _forward(par, ipar, sph, tri, mat, lig, acc, u_planes, kw, fwd, mode)
         ctx.save_for_backward(par, sph, tri, mat, lig)
         ctx.ipar, ctx.u_planes, ctx.kw = ipar, u_planes, kw
         ctx.diff_wrt, ctx.soft, ctx.soft_tri = diff_wrt, soft, soft_tri
+        ctx.mode = mode
         return acc
 
     @staticmethod
@@ -580,11 +681,12 @@ class _PassDiffSoft(torch.autograd.Function):
             outs = list(bwd(par, ctx.ipar, sph,
                             tri if st is None else st.rows, mat, lig,
                             g_out.contiguous(), ctx.u_planes, diff_wrt=wrt,
-                            **ctx.kw, **ctx.soft))
+                            mode=ctx.mode, **ctx.kw, **ctx.soft))
             if st is not None:
                 outs[2] = unpermute_rows(outs[2], st.perm, tri.shape[0])
             grads = [o if n in wrt else None for n, o in zip(DIFF_ALL, outs)]
-        return (*grads, g_out, None, None, None, None, None, None, None)
+        return (*grads, g_out, None, None, None, None, None, None, None,
+                None)
 
 
 def pathtrace_pass_diff(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
@@ -594,12 +696,19 @@ def pathtrace_pass_diff(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
                         rr_start_depth: int = 0, diff_wrt=DIFF_ALL,
                         bwd_cell: bool = False, grid=None, chunks=None,
                         block: int = 0, soft_bandwidth: float = 0.0,
-                        soft_tau: float = 0.0,
-                        soft_tri=None) -> torch.Tensor:
+                        soft_tau: float = 0.0, soft_tri=None,
+                        mode: str = "path") -> torch.Tensor:
     """One differentiable progressive pass: returns a new accumulator
     (``acc`` is not modified); autograd reaches the tables in ``diff_wrt``
     and ``acc``. Arguments as ``ops.megakernel.pathtrace_pass`` with one
     pass; JAX's ``pathtrace_pass_diff`` without its TPU-only arguments.
+
+    ``mode`` (JAX's): "path", or "direct", kernel 1's direct mode
+    (``MK.direct_pass``: the primary hit shaded by ambient + clipped cosine
+    per light, times albedo), its draws ``u_planes`` (``u_planes_for_direct``'s
+    layout) or those of ``MK.diff_draws`` (keyed by pass ``ipar[0]`` of
+    ``seed``); ``bounces`` and the roulette are ignored there, as in JAX.
+    Every route below takes either mode.
 
     ``bwd_cell=False`` (kernel 2's route): on CUDA tensors the pass is
     kernel 1 and its backward kernel 2, which replays over the same
@@ -622,6 +731,7 @@ def pathtrace_pass_diff(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
     ``chunks.tri``) hands it the triangles in that Morton order; past 64
     objects the two-level composite's spans follow the order it is
     given."""
+    _check_mode(mode)
     sel = _check_wrt(diff_wrt)
     soft = soft_bandwidth > 0.0
     if soft and bwd_cell:
@@ -638,17 +748,20 @@ def pathtrace_pass_diff(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
         if grid is not None:
             _check_soft_grid_rows(grid, sph, tri)
         return _PassDiffSoft.apply(par, sph, tri, mat, lig, acc, ipar,
-                                   u_planes, kw, sel, fwd,
+                                   u_planes, kw, sel, fwd, mode,
                                    dict(soft_bandwidth=soft_bandwidth,
                                         soft_tau=soft_tau or soft_bandwidth),
                                    soft_tri)
     if bwd_cell:
         return _PassDiffCell.apply(par, sph, tri, mat, lig, acc, ipar,
-                                   u_planes, kw, sel, fwd)
+                                   u_planes, kw, sel, fwd, mode)
     if acc.device.type == "cpu":
         t = [x if n in sel else x.detach()
              for n, x in zip(DIFF_ALL, (par, sph, tri, mat, lig))]
-        return MK.pathtrace_pass_reference(t[0], ipar, *t[1:], acc,
-                                           u_planes, **kw)
+        u = MK.diff_draws(ipar, u_planes, acc.shape[0], lig.shape[0],
+                          bounces, seed, acc.device, russian_roulette, mode,
+                          spp)
+        kw.pop("seed")
+        return _plain_pass(t[0], ipar, *t[1:], acc, u, mode=mode, **kw)
     return _PassDiff.apply(par, sph, tri, mat, lig, acc, ipar, u_planes, kw,
-                           sel, fwd)
+                           sel, fwd, mode)

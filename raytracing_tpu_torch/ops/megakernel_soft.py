@@ -2,7 +2,9 @@
 ``_tile_program_soft`` in ``raytracing_tpu/ops/pallas/megakernel_grad.py``
 (``:1516-2144``; ``soft_pass_value`` ``:2668``, ``_bwd_reference`` with
 ``soft_bandwidth > 0`` ``:2364``), path mode, with or without Russian
-roulette.
+roulette, and direct mode (``mode="direct"``: the primary segment's
+blended surface shaded per light by ``clip(ambient + soft_vis *
+clip(cos))``, weighted by its coverage; ``_soft_direct``).
 
 The forward value of an edge-aware pass stays kernel 1's hard pass; its
 backward is the exact adjoint of a different program, the pass with every
@@ -45,7 +47,8 @@ has coverage 0 and changes no value.
 Every guard of the JAX program is kept as a double ``where`` (the sphere
 root's square root, the triangle and emitter-plane divisions, the
 composite's ``1 / cov``, the blended normal's fallback), and every
-``jnp.clip`` and ``jnp.maximum`` is a minimum of a maximum so that its
+``jnp.clip`` and ``jnp.maximum`` is a minimum of a maximum (``core.types``
+``clip`` and ``at_least``) so that its
 cotangent splits at ties and bounds as JAX's does. One deliberate
 difference from JAX's arithmetic: a sigmoid's argument ``x / bw`` (or
 ``/ tau``) is ``x`` times the reciprocal, as in kernel 2s (``_div``).
@@ -61,7 +64,7 @@ import torch
 
 from ..core import rng
 from ..core.sampling import cosine_hemisphere, sample_disk_point
-from ..core.types import cross3, dot3, safe_normalize
+from ..core.types import at_least, clip, cross3, dot3, safe_normalize
 from . import _build
 from . import intersect as I
 from . import megakernel as MK
@@ -80,7 +83,7 @@ _SIGNATURES = {
         _VP, _I, _I,                                  # g, n_rays, ray_offset
         _VP, _U, _U,                                  # u_planes, pass key
         _I, _I, _I, _I, _I,                # spp, width, bounces, rr, start
-        _I, _I,                                       # two_sided, normalize
+        _I, _I, _I,                           # direct, two_sided, normalize
         _I, _F, _F,                          # diff_wrt bits, bandwidth, tau
         _VP, _VP, _VP, _VP, _VP,                      # dpar .. dlig
         _VP]),                                        # stream
@@ -99,18 +102,6 @@ def _div(x: torch.Tensor, s: float) -> torch.Tensor:
     kernel so that both take the same branch where a ray sits at a tie
     (the roulette's clip bound on cornell's white albedo)."""
     return x * (1.0 / torch.full_like(x[..., :1], s))
-
-
-def _clip01(x: torch.Tensor) -> torch.Tensor:
-    """jnp.clip(x, 0, 1): a minimum of a maximum, whose cotangent splits at
-    a bound as JAX's does (torch.clamp passes it whole)."""
-    return torch.minimum(torch.maximum(x, torch.zeros_like(x)),
-                         torch.ones_like(x))
-
-
-def _floor(x: torch.Tensor, lo: float) -> torch.Tensor:
-    """jnp.maximum(x, lo), split at the tie as JAX splits it."""
-    return torch.maximum(x, torch.full_like(x, lo))
 
 
 def _safe_sqrt(x: torch.Tensor) -> torch.Tensor:
@@ -188,9 +179,9 @@ def _tri_hyp(row, ray: _Ray, bw: float, two_sided: bool):
 
 def _tri_fields(row, ray: _Ray, t, beta, gamma, alb):
     p = ray.o + t[..., None] * ray.d
-    al = _clip01(1.0 - beta - gamma)
-    be = _clip01(beta)
-    ga = _clip01(gamma)
+    al = clip(1.0 - beta - gamma, 0.0, 1.0)
+    be = clip(beta, 0.0, 1.0)
+    ga = clip(gamma, 0.0, 1.0)
     n = safe_normalize(al[..., None] * row[..., 18:21]
                        + be[..., None] * row[..., 21:24]
                        + ga[..., None] * row[..., 24:27])
@@ -211,7 +202,7 @@ def _composite(alphas, ts, fields, first_good: float, tau: float):
         w = a_i * trans
         ws.append(w)
         cov = cov + w
-    cov = _clip01(cov)
+    cov = clip(cov, 0.0, 1.0)
     good = cov > first_good
     icov = 1.0 / torch.where(good, cov, 1.0)
     blend = torch.zeros_like(fields[0])
@@ -233,7 +224,7 @@ def _composite_span(alphas, ts, fields, first_good: float, tau: float):
     self_ = torch.eye(n, dtype=torch.bool, device=alphas.device)
     occ = torch.where(self_, torch.zeros_like(occ), occ)
     w = alphas * torch.prod(1.0 - occ, dim=2)
-    cov = _clip01(w.sum(1))
+    cov = clip(w.sum(1), 0.0, 1.0)
     good = cov > first_good
     icov = 1.0 / torch.where(good, cov, 1.0)
     wn = torch.where(good[:, None], w * icov[:, None], 0.0)
@@ -343,12 +334,38 @@ class _Scene:
         return vis
 
 
+def _soft_direct(sc: _Scene, par, lig, o, d, mint, path_w, draw):
+    """The soft accumulator delta of direct mode (JAX's
+    ``_tile_program_soft`` direct branch, ``megakernel_grad.py:2039-2075``):
+    per light ``albedo * clip(ambient + soft_vis * clip(cos))`` of the
+    blended surface, weighted by ``path_w * cov``; the shadow ray's length
+    is ``sqrt(max(d2, 1e-20))``."""
+    eps, ambient = par[24], par[25]
+    cov, _, pbar, nbar, alb = sc.trace(_Ray(o, d, mint))
+    acc = torch.zeros_like(o)
+    w = path_w * cov
+    for li in range(lig.shape[0]):
+        lr = lig[li]
+        tgt = sample_disk_point(lr[0:3], lr[14:17], lr[17:20], lr[12], draw())
+        so = pbar + eps * nbar
+        dl = tgt - so
+        dist = I.sqrt_rn(at_least(dot3(dl, dl), 1e-20))
+        sd = safe_normalize(dl)
+        vis = sc.vis(so, sd, dist)
+        cosx = clip(dot3(sd, nbar), 0.0, 1.0)
+        shade = clip(ambient + vis * cosx, 0.0, 1.0)
+        acc = acc + w[:, None] * alb * shade[:, None]
+    return acc
+
+
 def _soft_pass(par, sph, tri, mat, lig, u, ray_offset: int, n: int, *,
                spp: int, width: int, bounces: int, two_sided: bool,
                normalize_emitter: bool, russian_roulette: bool,
-               rr_start_depth: int, bw: float, tau: float) -> torch.Tensor:
+               rr_start_depth: int, bw: float, tau: float,
+               mode: str = "path") -> torch.Tensor:
     """The soft accumulator delta (n, 3) of rays [ray_offset, ray_offset +
-    n) for the draws ``u`` (2 * n_draws, n)."""
+    n) for the draws ``u`` (2 * n_draws, n); ``mode`` "path" or "direct"
+    (``_soft_direct``)."""
     sc = _Scene(sph, tri, mat, lig, bw, tau, two_sided)
     n_lig = lig.shape[0]
     slots = iter(range(u.shape[0] // 2))
@@ -361,9 +378,11 @@ def _soft_pass(par, sph, tri, mat, lig, u, ray_offset: int, n: int, *,
     o, d, mint, _ = MK._camera_rays(par, lens, n, ray_offset, spp, width)
     eps = par[24]
     ok = mint < float("inf")
+    path_w = torch.where(ok, 1.0, 0.0)
+    if mode == "direct":
+        return _soft_direct(sc, par, lig, o, d, mint, path_w, draw)
     acc = torch.zeros((n, 3), device=par.device)
     tp = torch.ones((n, 3), device=par.device)
-    path_w = torch.where(ok, 1.0, 0.0)
     cov = pbar = nbar = None
     for depth in range(bounces + 1):
         if depth > 0:
@@ -407,13 +426,13 @@ def _soft_pass(par, sph, tri, mat, lig, u, ray_offset: int, n: int, *,
             tgt = sample_disk_point(lp, lr[14:17], lr[17:20], lr[12], draw())
             so = pbar + eps * nbar
             dl = tgt - so
-            dist = I.sqrt_rn(_floor(dot3(dl, dl), 1e-20))
+            dist = I.sqrt_rn(at_least(dot3(dl, dl), 1e-20))
             sd = safe_normalize(dl)
             vis = sc.vis(so, sd, dist)
             q = pbar - lp
-            cosx = _clip01(dot3(sd, nbar))
-            cosy = _clip01(-dot3(sd, ln))
-            geom = lr[13] * cosx * cosy / _floor(dot3(q, q), 1e-20)
+            cosx = clip(dot3(sd, nbar), 0.0, 1.0)
+            cosy = clip(-dot3(sd, ln), 0.0, 1.0)
+            geom = lr[13] * cosx * cosy / at_least(dot3(q, q), 1e-20)
             gain = path_w * cov * vis * geom
             acc = acc + gain[:, None] * tp * alb * irr
             tp = tp * alb
@@ -422,20 +441,23 @@ def _soft_pass(par, sph, tri, mat, lig, u, ray_offset: int, n: int, *,
 
 def soft_pass_value(par, ipar, sph, tri, mat, lig, u_planes, *, spp: int,
                     width: int, bounces: int, two_sided: bool,
-                    normalize_emitter: bool, russian_roulette: bool = False,
-                    rr_start_depth: int = 0, soft_bandwidth: float = 1e-2,
+                    normalize_emitter: bool, mode: str = "path",
+                    russian_roulette: bool = False, rr_start_depth: int = 0,
+                    soft_bandwidth: float = 1e-2,
                     soft_tau: float = 1e-2) -> torch.Tensor:
     """JAX's ``soft_pass_value``: the soft program's accumulator delta (R,
-    3) for the draws ``u_planes`` (2 * n_draws, R), differentiable by
-    autograd wrt every table. ``ipar`` (2,) int32: [pass index, ray
-    offset]."""
+    3) for the draws ``u_planes`` (2 * n_draws, R; in direct mode
+    ``u_planes_for_direct``'s layout), differentiable by autograd wrt every
+    table. ``ipar`` (2,) int32: [pass index, ray offset]; ``mode`` "path"
+    or "direct"."""
+    MKG._check_mode(mode)
     return _soft_pass(par, sph, tri, mat, lig, u_planes, int(ipar[1]),
                       u_planes.shape[1], spp=spp, width=width,
                       bounces=bounces, two_sided=two_sided,
                       normalize_emitter=normalize_emitter,
                       russian_roulette=russian_roulette,
                       rr_start_depth=rr_start_depth, bw=soft_bandwidth,
-                      tau=soft_tau)
+                      tau=soft_tau, mode=mode)
 
 
 def pathtrace_pass_bwd_soft_reference(par, ipar, sph, tri, mat, lig, g,
@@ -446,31 +468,29 @@ def pathtrace_pass_bwd_soft_reference(par, ipar, sph, tri, mat, lig, g,
                                       rr_start_depth: int = 0,
                                       diff_wrt=MKG.DIFF_ALL,
                                       soft_bandwidth: float = 1e-2,
-                                      soft_tau: float = 1e-2):
+                                      soft_tau: float = 1e-2,
+                                      mode: str = "path"):
     """Plain version of kernel 2s, JAX's ``_bwd_reference`` with
     ``soft_bandwidth > 0``: ``(dpar, dsph, dtri, dmat, dlig)`` of ``sum(g *
     soft_pass_value(...))`` for one pass, by autograd. The draws are
-    ``u_planes`` or those of pass ``ipar[0]`` of ``seed``. Groups outside
-    ``diff_wrt`` come back as zeros."""
+    ``u_planes`` or those of pass ``ipar[0]`` of ``seed``
+    (``MK.diff_draws``). Groups outside ``diff_wrt`` come back as
+    zeros."""
+    MKG._check_mode(mode)
     sel = MKG._check_wrt(diff_wrt)
-    tables = dict(par=par, sph=sph, tri=tri, mat=mat, lig=lig)
-    u = MK.pass_draws(ipar, u_planes, g.shape[0], lig.shape[0], bounces,
-                      seed, 0, g.device, russian_roulette)
-    with torch.enable_grad():
-        leaves = {k: (v.detach().requires_grad_(True) if k in sel
-                      else v.detach()) for k, v in tables.items()}
-        acc = _soft_pass(
-            leaves["par"], leaves["sph"], leaves["tri"], leaves["mat"],
-            leaves["lig"], u, int(ipar[1]), g.shape[0], spp=spp, width=width,
-            bounces=bounces, two_sided=two_sided,
-            normalize_emitter=normalize_emitter,
+    u = MK.diff_draws(ipar, u_planes, g.shape[0], lig.shape[0], bounces,
+                      seed, g.device, russian_roulette, mode, spp)
+
+    def program(t):
+        return _soft_pass(
+            t["par"], t["sph"], t["tri"], t["mat"], t["lig"], u,
+            int(ipar[1]), g.shape[0], spp=spp, width=width, bounces=bounces,
+            two_sided=two_sided, normalize_emitter=normalize_emitter,
             russian_roulette=russian_roulette, rr_start_depth=rr_start_depth,
-            bw=soft_bandwidth, tau=soft_tau)
-        grads = dict(zip(sel, torch.autograd.grad(
-            acc, [leaves[k] for k in sel], grad_outputs=g,
-            allow_unused=True, materialize_grads=True))) if sel else {}
-    return tuple(grads[k] if k in grads else torch.zeros_like(v)
-                 for k, v in tables.items())
+            bw=soft_bandwidth, tau=soft_tau, mode=mode)
+
+    return MKG._autograd_cotangents(dict(par=par, sph=sph, tri=tri, mat=mat,
+                                         lig=lig), sel, g, program)
 
 
 def pathtrace_pass_bwd_soft(par, ipar, sph, tri, mat, lig, g, u_planes, *,
@@ -479,22 +499,23 @@ def pathtrace_pass_bwd_soft(par, ipar, sph, tri, mat, lig, g, u_planes, *,
                             seed: int, russian_roulette: bool = False,
                             rr_start_depth: int = 0, diff_wrt=MKG.DIFF_ALL,
                             soft_bandwidth: float = 1e-2,
-                            soft_tau: float = 1e-2):
+                            soft_tau: float = 1e-2, mode: str = "path"):
     """Kernel 2s: the cotangents of ``pathtrace_pass_bwd_soft_reference``
     from the hand-written CUDA adjoint, for CUDA tensors (anything else
     raises). ``g`` (R, 3) is the cotangent of the pass's accumulator; the
     draws are ``u_planes`` or, without them, those of pass ``ipar[0]`` of
-    ``seed``, made in-kernel. Groups outside ``diff_wrt`` come back as
-    zeros. Up to 64 objects per type the tables and per-warp gradient
-    buffers sit in shared memory (counter ``soft_launches``); past that,
-    up to ``MKG.DIFF_TABLE_MAX`` per type, the large-table instance
-    composites every ``SOFT_CHUNK`` span of the rows in the order given
-    (counter ``soft_large_launches``)."""
+    ``seed``, made in-kernel (``MK.diff_draws``). Groups outside
+    ``diff_wrt`` come back as zeros; ``mode`` "direct" runs the adjoint of
+    the soft direct shade. Up to 64 objects per type the tables and
+    per-warp gradient buffers sit in shared memory (counter
+    ``soft_launches``); past that, up to ``MKG.DIFF_TABLE_MAX`` per type,
+    the large-table instance composites every ``SOFT_CHUNK`` span of the
+    rows in the order given (counter ``soft_large_launches``)."""
     global soft_launches, soft_large_launches
     sel = MKG._check_wrt(diff_wrt)
     MKG._check_bwd_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp,
                         width, bounces, russian_roulette, "kernel 2s",
-                        resident=False)
+                        resident=False, mode=mode)
     if not (soft_bandwidth > 0.0 and soft_tau > 0.0):
         raise ValueError(f"the soft route needs a bandwidth and tau > 0, got "
                          f"{soft_bandwidth} and {soft_tau}")
@@ -508,15 +529,16 @@ def pathtrace_pass_bwd_soft(par, ipar, sph, tri, mat, lig, g, u_planes, *,
     wrt = sum(1 << i for i, n in enumerate(MKG.DIFF_ALL) if n in sel)
     if not wrt:
         return outs
-    pass0, roff = (int(x) for x in ipar.tolist())
-    k0, k1 = rng.key_words(rng.pass_key(rng.base_key(seed), pass0))
+    roff = int(ipar[1])
+    k0, k1 = rng.key_words(MK.pass_key_of(ipar, seed))
+    n_b, rr, direct = MKG._c_settings(bounces, russian_roulette, mode)
     ptr = MK._ptr
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         args = (ptr(par), ptr(sph), sph.shape[0], ptr(tri), tri.shape[0],
                 ptr(mat), mat.shape[0], ptr(lig), lig.shape[0], ptr(g),
-                g.shape[0], roff, ptr(u_planes), k0, k1, spp, width, bounces,
-                int(russian_roulette), rr_start_depth, int(two_sided),
+                g.shape[0], roff, ptr(u_planes), k0, k1, spp, width, n_b,
+                rr, rr_start_depth, direct, int(two_sided),
                 int(normalize_emitter), wrt, soft_bandwidth, soft_tau,
                 *(ptr(t) for t in outs), stream)
         lib = _build.load("megakernel_soft", _SIGNATURES, MKG.ADJ_FLAGS)

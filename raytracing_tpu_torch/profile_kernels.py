@@ -40,9 +40,11 @@ grid's record; then kernel 1 over streamed Morton chunks on the scenes of
 direct mode at block 64 and in path mode at blocks 64 and 0, with the
 roulette, and recording; sphere_field(8192) without its sphere grid in
 path mode and recording) and kernel 3 on the streamed torus's record
-with ("sph", "mat", "tri"). A variant whose sources predate those modes
-(a parent commit's) is timed by running this tool from that commit's own
-checkout instead.
+with ("sph", "mat", "tri"); last the differentiable direct pass's four
+kernels on cornell's direct training step (kernel 1 recording, kernels 2,
+3 and 2s with ("sph", "mat"), ``DirectCase``). A variant whose sources
+predate those modes or their C interfaces (a parent commit's) is timed by
+running this tool from that commit's own checkout instead.
 ``--sass`` dumps ``cuobjdump -sass`` of the named variants' libraries into
 ``--out`` and prints, per kernel, the count of each memory, atomic and
 warp-level opcode, and the instructions around the first shared-memory
@@ -286,6 +288,58 @@ class Case:
             self.occs, diff_wrt=wrt, **self.kw)
 
 
+class DirectCase:
+    """Direct mode's differentiable pass on ``scene`` at SIZE^2 spp 1
+    (``pathtrace_pass_diff(mode="direct")``'s kernels): a training step's
+    cotangent of acc (the gradient of mean(image^2), the image the
+    per-pixel mean over the lights) and kernel 1's record of the pass."""
+
+    def __init__(self, scene, dev):
+        cfg = RenderConfig(width=SIZE, height=SIZE, use_megakernel=True)
+        self.tables = mega.scene_tables(scene, cfg)
+        self.ipar = torch.tensor([STEP_PASSES - 1, 0], dtype=torch.int32)
+        self.kw = dict(spp=1, width=SIZE, bounces=0, two_sided=False,
+                       normalize_emitter=True, seed=cfg.seed, mode="direct")
+        self.fkw = dict(key=MK.pass_key_of(self.ipar, cfg.seed), spp=1,
+                        width=SIZE, two_sided=False)
+        self.acc = torch.zeros((SIZE * SIZE, 3), device=dev)
+        acc = self.k1().clone().requires_grad_(True)
+        loss = torch.mean((acc / scene.lights.count) ** 2)
+        self.g = torch.autograd.grad(loss, acc)[0].contiguous()
+        _, self.ids, self.occs = self.k1(record=True)
+
+    def k1(self, record: bool = False):
+        return MK.direct_pass(*self.tables, self.acc.zero_(), None,
+                              record=record, **self.fkw)
+
+    def k2(self):
+        t = self.tables
+        return MKG.pathtrace_pass_bwd(t[0], self.ipar, *t[1:], self.g, None,
+                                      diff_wrt=TRAIN_WRT, **self.kw)
+
+    def k3(self):
+        t = self.tables
+        return MKG.pathtrace_pass_bwd_champ(
+            t[0], self.ipar, *t[1:], self.g, None, self.ids, self.occs,
+            diff_wrt=TRAIN_WRT, **self.kw)
+
+    def k2s(self):
+        t = self.tables
+        return MKS.pathtrace_pass_bwd_soft(
+            t[0], self.ipar, *t[1:], self.g, None, diff_wrt=TRAIN_WRT,
+            soft_bandwidth=EDGE_BW, soft_tau=EDGE_BW, **self.kw)
+
+
+def measure_direct(d: DirectCase) -> dict:
+    """The differentiable direct pass's four kernels on cornell's step."""
+    return {
+        "k1_direct_record_ms": time_ms(lambda: d.k1(record=True)),
+        "k2_direct_step_g_sph_mat_ms": time_ms(d.k2),
+        "k3_direct_step_g_sph_mat_ms": time_ms(d.k3),
+        "k2s_direct_step_g_sph_mat_ms": time_ms(d.k2s, reps=3),
+    }
+
+
 def stream_cases(dev) -> dict:
     """Kernel 1's streamed cases on chip_smoke.py's phase 21 scenes."""
     sys.path.insert(0, str(ROOT))
@@ -467,7 +521,7 @@ def main(argv=None) -> int:
     for (label, _, name, _, flags), (lib, log) in zip(jobs, built):
         libs.setdefault(label, {})[_stem(name, flags)] = lib
         for line in log.splitlines():
-            if re.search(r"registers|spill|stack", line):
+            if re.search(r"registers|spill|stack|Compiling entry", line):
                 print(f"  ptxas {label}/{_stem(name, flags)}: "
                       f"{line.strip()}")
     print(f"built {len(jobs)} libraries in {time.perf_counter() - t0:.2f} s")
@@ -487,6 +541,7 @@ def main(argv=None) -> int:
     grid = grid_cases(dev)
     stream = stream_cases(dev)
     large = large_cases(dev, spheres, stream)
+    direct = DirectCase(cornell_box(cols=SIZE, rows=SIZE, device=dev), dev)
     results: dict = {"card": smi, "turns": []}
     soft_first: dict = {}
     for order in (labels, labels[::-1]):
@@ -503,6 +558,7 @@ def main(argv=None) -> int:
                     and hasattr(libs[label].get("megakernel_soft"),
                                 "rt_pathtrace_bwd_soft_large")):
                 turn[label].update(measure_large(large))
+            turn[label].update(measure_direct(direct))
             print(f"{label}: " + ", ".join(
                 f"{k} {v:.6g}" for k, v in turn[label].items()))
         results["turns"].append(turn)

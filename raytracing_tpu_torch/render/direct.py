@@ -19,7 +19,8 @@ import torch
 from ..core import rng
 from ..core.config import RenderConfig
 from ..core.sampling import sample_disk_point
-from ..core.types import Hits, Rays, Scene, dot3, replace, safe_normalize
+from ..core.types import (Hits, Rays, Scene, clip, dot3, replace,
+                          safe_normalize)
 from ..ops.closest_hit import palette_lookup
 from . import stages
 from .camera import generate_primary_rays
@@ -48,7 +49,7 @@ def render_direct(scene: Scene, cfg: RenderConfig,
     n_lights = max(scene.lights.count, 1)
     img = acc.reshape(cfg.height, cfg.width, cfg.spp, 3).mean(2) \
         / (n_lights * n_passes)
-    return torch.clamp(img, 0.0, 1.0)
+    return clip(img, 0.0, 1.0)
 
 
 def _direct_pass_acc(scene: Scene, cfg: RenderConfig, key: torch.Tensor
@@ -81,8 +82,8 @@ def _direct_pass_acc(scene: Scene, cfg: RenderConfig, key: torch.Tensor
                       mint=torch.where(hits.valid, 0.0, INF),
                       maxt=torch.where(hits.valid, dist, INF))
         occ = stages.occluded_any(shadow, scene, cfg, tables)
-        cosx = torch.clamp(dot3(sdir, hits.n), 0.0, 1.0)
+        cosx = clip(dot3(sdir, hits.n), 0.0, 1.0)
         shade = cfg.ambient + torch.where(~occ, cosx, 0.0)
-        contrib = albedo * torch.clamp(shade, 0.0, 1.0)[:, None]
+        contrib = albedo * clip(shade, 0.0, 1.0)[:, None]
         acc = acc + torch.where(hits.valid[:, None], contrib, 0.0)
     return acc

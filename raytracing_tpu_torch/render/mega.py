@@ -27,12 +27,14 @@ larger ones stream in Morton chunks (``chunk_tables``, JAX's
 mode included. With ``cfg.use_grid`` the triangles below the grids'
 start are the resident prefix (at most 64), the rest are walked in kernel
 1's grid mode over the grids of ``accel.prepare_grids`` (``grid_tables``).
-``cfg.mega_block`` is the blocked layout of grid mode and of streamed
-tables where it tiles the film (``effective_block``). Anything else
-raises, naming the ROADMAP item that will cover it or the stage pipeline
-(``use_megakernel=False``) that covers it now; nothing falls through to
-another route. ``use_pallas`` selects the stage pipeline's hit kernels
-and is ignored here, as in the JAX package.
+``cfg.mega_block`` is the blocked layout where it tiles the film
+(``effective_block``, JAX's gate): grid mode and streamed tables map the
+kernel's threads to pixel blocks, the brute instances keep the row-major
+map, which gives the same image. Anything else raises, naming the ROADMAP
+item that will cover it or the stage pipeline (``use_megakernel=False``)
+that covers it now; nothing falls through to another route. ``use_pallas``
+selects the stage pipeline's hit kernels and is ignored here, as in the
+JAX package.
 """
 from __future__ import annotations
 
@@ -40,7 +42,7 @@ import torch
 
 from ..core import rng
 from ..core.config import RenderConfig
-from ..core.types import Scene, tangent_frame
+from ..core.types import Scene, at_least, clip, tangent_frame
 from ..ops import intersect as I
 from ..ops import megakernel as MK
 from ..ops import megakernel_grad as MKG
@@ -105,8 +107,8 @@ def scene_tables(scene: Scene, cfg: RenderConfig
 
     lg = scene.lights
     t_ax, b_ax = tangent_frame(lg.normal)
-    irr_n = lg.irradiance / torch.clamp(
-        torch.linalg.norm(lg.irradiance, dim=-1, keepdim=True), min=1e-20)
+    irr_n = lg.irradiance / at_least(
+        torch.linalg.norm(lg.irradiance, dim=-1, keepdim=True), 1e-20)
     lig = torch.cat([
         lg.position, lg.normal, lg.irradiance, irr_n,
         lg.radius[:, None], lg.area[:, None], t_ax, b_ax,
@@ -252,14 +254,11 @@ def supported(scene: Scene | None, cfg: RenderConfig) -> bool:
     if cfg.total_rays >= (1 << 24):
         raise NotImplementedError(
             f"{cfg.total_rays} rays: the kernel takes fewer than 2^24 per "
-            "call; sharding is ROADMAP Queue 1 item 14")
+            "call (pixel math is exact below it, a sharded render included); "
+            "the JAX package takes the stage pipeline there: set "
+            "use_megakernel=False")
     if scene is None:
         return True
-    if cfg.mega_block and not cfg.use_grid and not any(streamed(scene, cfg)):
-        raise NotImplementedError(
-            "mega_block is the blocked layout of kernel 1's grid mode (set "
-            "use_grid=True) and of streamed tables; the brute instances "
-            "keep the row-major map, which gives the same image")
     if not cfg.use_grid:
         return True
     _prepared(scene)
@@ -411,7 +410,7 @@ def render_direct_mega(scene: Scene, cfg: RenderConfig,
     n_lights = max(scene.lights.count, 1)
     img = acc.reshape(cfg.height, cfg.width, cfg.spp, 3).mean(2) \
         / (n_lights * n_passes)
-    return torch.clamp(img, 0.0, 1.0)
+    return clip(img, 0.0, 1.0)
 
 
 def u_planes_for_pass(key: torch.Tensor, passes: int, cfg: RenderConfig,

@@ -23,8 +23,8 @@ import torch
 
 from ..core.config import RenderConfig
 from ..core.sampling import cosine_hemisphere, sample_disk_point
-from ..core.types import Hits, Lights, Rays, Scene, Triangles, dot3, \
-    replace, safe_normalize
+from ..core.types import Hits, Lights, Rays, Scene, Triangles, at_least, \
+    clip, dot3, replace, safe_normalize
 from ..ops import hit_kernels as HK
 from ..ops import intersect as I
 from ..ops.megakernel import survival_p
@@ -192,7 +192,7 @@ def light_render(acc: torch.Tensor, rays: Rays, hits: Hits, lights: Lights,
     nrm = lights.normal[light_idx]
     irr = lights.irradiance[light_idx]
     if cfg.normalize_emitter:
-        irr = irr / torch.clamp(torch.linalg.norm(irr), min=1e-20)
+        irr = irr / at_least(torch.linalg.norm(irr), 1e-20)
     t = I.light_disk_t(rays.o, rays.d, pos, nrm, lights.radius[light_idx])
     hit = rays.alive & torch.isfinite(t) & (t >= rays.mint) & (t < rays.maxt)
     acc = acc + torch.where(hit[:, None], irr[None, :], 0.0)
@@ -234,9 +234,9 @@ def nee_shade(acc: torch.Tensor, hits: Hits, scene: Scene, light_idx: int,
     occ = occluded_any(shadow, scene, cfg, tables)
 
     r2 = dot3(hits.p - pos[None, :], hits.p - pos[None, :])
-    cosx = torch.clamp(dot3(sdir, hits.n), 0.0, 1.0)
-    cosy = torch.clamp(dot3(-sdir, nrm[None, :]), 0.0, 1.0)
-    geom = area * cosx * cosy / torch.clamp(r2, min=1e-20)
+    cosx = clip(dot3(sdir, hits.n), 0.0, 1.0)
+    cosy = clip(dot3(-sdir, nrm[None, :]), 0.0, 1.0)
+    geom = area * cosx * cosy / at_least(r2, 1e-20)
     free = valid & ~occ
     shade = torch.where(free[:, None], geom[:, None] * irr[None, :], 0.0)
 
@@ -285,4 +285,4 @@ def copy_to_pixel(acc: torch.Tensor, passes: int,
     [0, 1]. Returns the float image (H, W, 3)."""
     img = acc.reshape(cfg.height, cfg.width, cfg.spp, 3).sum(2)
     img = img * (cfg.exposure / (cfg.spp * passes))
-    return torch.clamp(img, 0.0, 1.0)
+    return clip(img, 0.0, 1.0)

@@ -1,9 +1,10 @@
 """The CUDA kernels (the pass with and without Russian roulette, its
 recording, direct, grid and streamed modes and its blocked layout, its two
 adjoints with and without the roulette, the edge-aware adjoint kernel 2s,
-the large-table instances of kernels 2 and 2s past 64 objects per type, and
-the stage pipeline's hit searches) against their plain PyTorch versions on
-the card.
+the large-table instances of kernels 2 and 2s past 64 objects per type,
+the differentiable direct pass through kernels 1 (recording), 2, 3 and 2s,
+and the stage pipeline's hit searches) against their plain PyTorch
+versions on the card.
 
 Runs only where there is a CUDA device; elsewhere each test skips. Imports
 no jax, so it runs on a machine without it:
@@ -1071,3 +1072,241 @@ def test_routes_past_64_train_through_their_kernels(cuda, edge):
         assert torch.isfinite(b).all() and b.abs().max() > 0
         cos = (a * b).sum() / (a.norm() * b.norm())
         assert cos >= 0.999 and abs(b.norm() / a.norm() - 1) <= 0.01
+
+
+def _direct_inputs(cuda, name: str, w: int = 64, h: int = 48, spp: int = 1,
+                   lens: float = 0.0):
+    """(scene, tables, u_planes_for_direct, seeded g, kw) of direct mode:
+    cornell, sphere_field(80) (past 64 spheres) or the torus scene (138
+    triangles, streamed)."""
+    from torch_grid_scenes import cornell_torus
+    if name == "cornell":
+        scene = cornell_box(cols=w, rows=h, lens_diameter=lens, device=cuda)
+    elif name == "spheres":
+        scene = sphere_field(80, cols=w, rows=h, device=cuda)
+    else:
+        scene = cornell_torus(w, h, device=cuda)
+    cfg = RenderConfig(width=w, height=h, spp=spp, use_megakernel=True)
+    tables = list(mega.scene_tables(scene, cfg))
+    key = MK.pass_key_of(torch.tensor([4, 0]), 0)
+    u = mega.u_planes_for_direct(key, cfg, scene.lights.count, cuda)
+    g = torch.as_tensor(np.random.default_rng(2).normal(
+        size=(cfg.total_rays, 3)).astype(np.float32), device=cuda)
+    kw = dict(spp=spp, width=w, bounces=5, two_sided=False,
+              normalize_emitter=False, seed=0, mode="direct")
+    return scene, cfg, tables, u, g, kw
+
+
+def test_direct_recording_matches_plain_record(cuda):
+    """Kernel 1's direct mode recording (piece a): its accumulator
+    bit-equal to the launch that does not record, its --fmad=false build's
+    record equal to the plain record on every id and bit, the PRNG route's
+    record equal to the u-planes route's."""
+    _, cfg, t, u, _, _ = _direct_inputs(cuda, "cornell")
+    z = torch.zeros((cfg.total_rays, 3), device=cuda)
+    kw = dict(key=MK.pass_key_of(torch.tensor([4, 0]), 0), spp=1, width=64,
+              two_sided=False)
+    acc, ids, occs = MK.direct_pass(*t, z.clone(), u, record=True, **kw)
+    plain = MK.direct_pass(*t, z.clone(), u, **kw)
+    exact = MK.direct_pass(*t, z.clone(), u, record=True,
+                           build_flags=("--fmad=false",), **kw)
+    prng = MK.direct_pass(*t, z.clone(), None, record=True, **kw)
+    want = MK.direct_pass_reference(*t, z, u, record=True, **kw)
+    assert torch.equal(acc, plain)
+    assert torch.equal(exact[1], want[1]) and torch.equal(exact[2], want[2])
+    assert torch.equal(prng[1], ids) and torch.equal(prng[2], occs)
+    assert occs.any() and (ids < 0).any() and (ids >= 0).any()
+
+
+@pytest.mark.parametrize("spp,lens", [(1, 0.0), (4, 0.25)])
+@pytest.mark.parametrize("kernel", ["2", "3", "2s"])
+def test_direct_adjoint_kernels_match_plain_versions(cuda, kernel, spp,
+                                                     lens):
+    """Kernels 2, 3 and 2s in direct mode (pieces b, c, d) against their
+    plain versions, cornell 64x48 (spp 4: 32x24 through a 0.25 lens), all
+    five groups, the u-planes and PRNG routes, phase 6's gates; kernel 3
+    on kernel 1's own record (its --fmad=false build, the plain record)."""
+    w, h = (64, 48) if spp == 1 else (32, 24)
+    _, cfg, t, u, g, kw = _direct_inputs(cuda, "cornell", w, h, spp, lens)
+    ipar = torch.tensor([4, 0], dtype=torch.int32)
+    soft = dict(soft_bandwidth=2e-2, soft_tau=2e-2)
+    if kernel == "2":
+        want = MKG.pathtrace_pass_bwd_reference(t[0], ipar, *t[1:], g, u,
+                                                **kw)
+        before = MKG.launches
+        got = [MKG.pathtrace_pass_bwd(t[0], ipar, *t[1:], g, p, **kw)
+               for p in (u, None)]
+        assert MKG.launches == before + 2
+    elif kernel == "3":
+        _, ids, occs = MK.direct_pass(
+            *t, torch.zeros_like(g), u, key=MK.pass_key_of(ipar, 0),
+            spp=spp, width=w, two_sided=False, record=True,
+            build_flags=("--fmad=false",))
+        want = MKG.pathtrace_pass_bwd_champ_reference(
+            t[0], ipar, *t[1:], g, u, ids, occs, **kw)
+        before = MKG.champ_launches
+        got = [MKG.pathtrace_pass_bwd_champ(t[0], ipar, *t[1:], g, p, ids,
+                                            occs, **kw) for p in (u, None)]
+        assert MKG.champ_launches == before + 2
+    else:
+        want = MKS.pathtrace_pass_bwd_soft_reference(t[0], ipar, *t[1:], g,
+                                                     u, **soft, **kw)
+        before = MKS.soft_launches
+        got = [MKS.pathtrace_pass_bwd_soft(t[0], ipar, *t[1:], g, p,
+                                           **soft, **kw) for p in (u, None)]
+        assert MKS.soft_launches == before + 2
+    for outs in got:
+        _gates(want, outs)
+
+
+@pytest.mark.parametrize("name", ["spheres", "torus"])
+def test_direct_large_adjoint_kernels_match_plain_versions(cuda, name):
+    """Kernels 2 and 2s in direct mode past 64 objects (their large-table
+    instances): sphere_field(80) resident, the torus scene over its
+    streamed chunks (kernel 2s on the Morton-sorted rows), 32x24, all five
+    groups, phase 6's gates."""
+    scene, cfg, t, u, g, kw = _direct_inputs(cuda, name, 32, 24)
+    ipar = torch.tensor([4, 0], dtype=torch.int32)
+    chunks = mega.chunk_tables(scene, cfg, t[1], t[2])
+    want = MKG.pathtrace_pass_bwd_reference(t[0], ipar, *t[1:], g, u,
+                                            chunks=chunks, **kw)
+    def held(want, got):
+        # sphere_field has no triangles: an empty group is not held
+        keep = [i for i, a in enumerate(want) if a.numel()]
+        _gates([want[i] for i in keep], [got[i] for i in keep],
+               [MKG.DIFF_ALL[i] for i in keep])
+
+    before = (MKG.large_launches, MKS.soft_large_launches)
+    held(want, MKG.pathtrace_pass_bwd(t[0], ipar, *t[1:], g, None,
+                                      chunks=chunks, **kw))
+    st = mega.soft_tri_order(scene, t[2], chunks)
+    ts = list(t)
+    if st is not None:
+        ts[2] = st.rows
+    soft = dict(soft_bandwidth=2e-2, soft_tau=2e-2)
+    held(MKS.pathtrace_pass_bwd_soft_reference(ts[0], ipar, *ts[1:], g, u,
+                                               **soft, **kw),
+         MKS.pathtrace_pass_bwd_soft(ts[0], ipar, *ts[1:], g, None, **soft,
+                                     **kw))
+    assert (MKG.large_launches, MKS.soft_large_launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def test_direct_wide_sphere_loop_matches_plain_versions(cuda):
+    """The instances sphere_field(1024) runs (the 8-row sphere loop from
+    kWideSpheres = 512 spheres): kernel 1's direct recording (its
+    --fmad=false build equal to the plain record on every id and bit),
+    kernel 2's large-table instance and kernel 3 on that record against
+    their plain versions, 32x24, ("sph", "mat"), phase 6's gates."""
+    w, h = 32, 24
+    scene = sphere_field(1024, cols=w, rows=h, device=cuda)
+    cfg = RenderConfig(width=w, height=h, use_megakernel=True)
+    t = list(mega.scene_tables(scene, cfg))
+    ipar = torch.tensor([4, 0], dtype=torch.int32)
+    key = MK.pass_key_of(ipar, 0)
+    u = mega.u_planes_for_direct(key, cfg, scene.lights.count, cuda)
+    g = torch.as_tensor(np.random.default_rng(2).normal(
+        size=(cfg.total_rays, 3)).astype(np.float32), device=cuda)
+    z = torch.zeros_like(g)
+    fkw = dict(key=key, spp=1, width=w, two_sided=False)
+    acc, _, _ = MK.direct_pass(*t, z.clone(), u, record=True, **fkw)
+    assert torch.equal(acc, MK.direct_pass(*t, z.clone(), u, **fkw))
+    _, ids, occs = MK.direct_pass(*t, z.clone(), u, record=True,
+                                  build_flags=("--fmad=false",), **fkw)
+    want = MK.direct_pass_reference(*t, z, u, record=True, **fkw)
+    assert torch.equal(ids, want[1]) and torch.equal(occs, want[2])
+    assert (ids >= 0).any() and occs.any()
+    kw = dict(spp=1, width=w, bounces=0, two_sided=False,
+              normalize_emitter=False, seed=0, mode="direct",
+              diff_wrt=("sph", "mat"))
+    chunks = MK.KernelChunks(tri=None,
+                             sph=mega.sph_chunk_tables(scene, t[1]))
+    names = ("sph", "mat")
+    pick = [MKG.DIFF_ALL.index(n) for n in names]
+    want = MKG.pathtrace_pass_bwd_reference(t[0], ipar, *t[1:], g, u,
+                                            chunks=chunks, **kw)
+    before = (MKG.large_launches, MKG.champ_launches)
+    got = MKG.pathtrace_pass_bwd(t[0], ipar, *t[1:], g, u, **kw)
+    _gates([want[i] for i in pick], [got[i] for i in pick], names)
+    want = MKG.pathtrace_pass_bwd_champ_reference(t[0], ipar, *t[1:], g, u,
+                                                  ids, occs, **kw)
+    got = MKG.pathtrace_pass_bwd_champ(t[0], ipar, *t[1:], g, u, ids, occs,
+                                       **kw)
+    _gates([want[i] for i in pick], [got[i] for i in pick], names)
+    assert (MKG.large_launches, MKG.champ_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+
+
+@pytest.mark.parametrize("route", ["kernel2", "cell", "soft"])
+def test_direct_diff_pass_trains_through_its_kernels(cuda, route):
+    """pathtrace_pass_diff(mode="direct") on the card: one direct launch
+    and one launch of the route's backward (kernel 2, kernel 1 recording
+    and kernel 3, or kernel 2s) per step, the value bit-equal to
+    direct_pass, ("sph", "mat") cotangents as on the CPU."""
+    _, cfg, t, u, _, kw = _direct_inputs(cuda, "cornell")
+    kw.pop("mode")
+    ipar = torch.tensor([4, 0], dtype=torch.int32)
+    soft = (dict(soft_bandwidth=2e-2, soft_tau=2e-2) if route == "soft"
+            else {})
+
+    def step(device):
+        tt = [x.to(device).clone().requires_grad_(n in ("sph", "mat"))
+              for n, x in zip(MKG.DIFF_ALL, t)]
+        acc = MKG.pathtrace_pass_diff(
+            tt[0], ipar, *tt[1:], torch.zeros((cfg.total_rays, 3),
+                                              device=device), None,
+            mode="direct", diff_wrt=("sph", "mat"),
+            bwd_cell=route == "cell", **soft, **kw)
+        torch.mean(acc ** 2).backward()
+        return acc.detach().cpu(), [tt[1].grad.cpu(), tt[3].grad.cpu()]
+
+    counts = lambda: (MK.direct_launches, MKG.launches,  # noqa: E731
+                      MKG.champ_launches, MKS.soft_launches)
+    before = counts()
+    acc, got = step(cuda)
+    torch.cuda.synchronize()
+    moved = tuple(b - a for a, b in zip(before, counts()))
+    assert moved == {"kernel2": (1, 1, 0, 0), "cell": (1, 0, 1, 0),
+                     "soft": (1, 0, 0, 1)}[route]
+    assert torch.equal(acc, MK.direct_pass(
+        *t, torch.zeros((cfg.total_rays, 3), device=cuda), None,
+        key=MK.pass_key_of(ipar, 0), spp=1, width=64,
+        two_sided=False).cpu())
+    _, want = step("cpu")
+    for a, b in zip(want, got):
+        assert torch.isfinite(b).all() and b.abs().max() > 0
+        cos = (a * b).sum() / (a.norm() * b.norm())
+        assert cos >= 0.999 and abs(b.norm() / a.norm() - 1) <= 0.01
+
+
+def test_direct_ray_offset_and_blocked_brute_tables(cuda):
+    """Kernel 1's direct mode at a ray offset: two half-film launches equal
+    one full launch (PRNG route); mega_block on cornell's brute tables
+    (which raised before) renders the same image and trains to the
+    unblocked gradients."""
+    _, cfg, t, _, _, _ = _direct_inputs(cuda, "cornell")
+    n = cfg.total_rays
+    kw = dict(key=MK.pass_key_of(torch.tensor([4, 0]), 0), spp=1, width=64,
+              two_sided=False)
+    full = MK.direct_pass(*t, torch.zeros((n, 3), device=cuda), None, **kw)
+    half = [MK.direct_pass(*t, torch.zeros((n // 2, 3), device=cuda), None,
+                           ray_offset=o, **kw) for o in (0, n // 2)]
+    assert torch.equal(torch.cat(half), full)
+    scene = cornell_box(cols=64, rows=48, device=cuda)
+    base = RenderConfig(width=64, height=48, bounces=2, use_megakernel=True,
+                        mega_grad_wrt=("sph", "mat"))
+
+    def grads(c):
+        center = scene.spheres.center.clone().requires_grad_(True)
+        sc = replace(scene, spheres=replace(scene.spheres, center=center))
+        st = pt.render_pass(sc, pt.init_state(c, cuda), c)
+        torch.mean(pt.image(st, c) ** 2).backward()
+        return st["acc"].detach(), center.grad
+
+    a0, g0 = grads(base)
+    a8, g8 = grads(replace(base, mega_block=8))
+    assert torch.equal(a0, a8)
+    torch.testing.assert_close(g8, g0, rtol=1e-5, atol=1e-6)
+    assert torch.equal(mega.render_direct_mega(scene, base),
+                       mega.render_direct_mega(scene, replace(base,
+                                                              mega_block=4)))

@@ -204,7 +204,7 @@ def test_blocked_layout_is_bit_equal(torus):
     not tile 48x36, so it runs row-major there (JAX's _effective_block).
     Without use_grid the torus scene's 138 triangles stream, whose blocked
     layout tests/test_torch_stream.py checks; a scene of resident tables
-    takes no block."""
+    takes the block and keeps the row-major map: the same image."""
     _, ps = torus
     cfg = _cfg(RenderConfig, bounces=0)
     img0 = render_direct(ps, cfg)
@@ -217,8 +217,9 @@ def test_blocked_layout_is_bit_equal(torus):
     assert torch.equal(st0["acc"], st4["acc"])
     assert mega.effective_block(RenderConfig(width=48, height=36,
                                              mega_block=64)) == 0
-    with pytest.raises(NotImplementedError, match="grid mode"):
-        render_direct(_cornell(), replace(cfg, mega_block=4, use_grid=False))
+    brute = replace(cfg, use_grid=False)
+    assert torch.equal(render_direct(_cornell(), replace(brute, mega_block=4)),
+                       render_direct(_cornell(), brute))
     assert mega.effective_block(replace(cfg, mega_block=4)) == 4
 
 

@@ -18,7 +18,7 @@ from raytracing_tpu.ops import intersect as jintersect
 from raytracing_tpu.render import camera as jcamera
 from raytracing_tpu.render import mega as jmega
 from raytracing_tpu.render import stages as jstages
-from raytracing_tpu_torch import RenderConfig, default_device
+from raytracing_tpu_torch import RenderConfig, default_device, replace
 from raytracing_tpu_torch.core import sampling
 from raytracing_tpu_torch.core import types
 from raytracing_tpu_torch.io.png import write_png
@@ -174,20 +174,32 @@ UNSUPPORTED = {
     "stale_poi": (dict(replicate_stale_poi=True), NotImplementedError,
                   "stage-pipeline option.*set use_megakernel=False"),
     "rays": (dict(width=4096, height=4096), NotImplementedError,
-             "ROADMAP Queue 1 item 14"),
-    "block": (dict(mega_block=8), NotImplementedError, "grid mode"),
+             "stage pipeline.*set use_megakernel=False"),
+    # inside the slice since the brute instances take mega_block
+    "block": (dict(mega_block=8), None, None),
 }
 
 
 @pytest.mark.parametrize("case", sorted(UNSUPPORTED))
 def test_supported_raises_outside_the_slice(case):
     """Outside what kernel 1 covers ``supported`` raises; a grid-mode
-    render of a scene without its grids names prepare_grids; the blocked
-    layout is grid mode's (tests/test_torch_grid_mega.py holds it)."""
+    render of a scene without its grids names prepare_grids; 2^24 rays or
+    more name the stage pipeline, which the JAX package takes there. The
+    blocked layout on brute tables is inside: ``supported`` returns True
+    and the blocked image equals the row-major one (the brute instances
+    keep the row-major map; tests/test_torch_direct_diff.py holds values
+    and gradients)."""
     kw, exc, match = UNSUPPORTED[case]
+    scene = scenes.cornell_box(cols=8, rows=8)
+    cfg = RenderConfig(**{"width": 8, "height": 8, **kw})
+    if exc is None:
+        assert mega.supported(scene, cfg)
+        one = replace(cfg, mega_block=0)
+        assert torch.equal(mega.render_direct_mega(scene, cfg),
+                           mega.render_direct_mega(scene, one))
+        return
     with pytest.raises(exc, match=match):
-        mega.supported(scenes.cornell_box(cols=8, rows=8),
-                       RenderConfig(**{"width": 8, "height": 8, **kw}))
+        mega.supported(scene, cfg)
 
 
 def test_supported_object_budget():
