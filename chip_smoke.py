@@ -5,7 +5,8 @@
 
 Phases, each fatal on failure (no exception is caught):
   1. the card: torch's device name and nvidia-smi's name and power limit;
-  2. build the CUDA kernels from csrc/ (nvcc, sm_90a) and print the time;
+  2. build the CUDA kernels from csrc/ (nvcc, sm_90a) and print the time
+     (every library's nvcc at once, before any timed phase);
   3. kernel vs its plain PyTorch version, cornell b5 at 256x192 and at the
      main path's 1024x1024, same u-planes: at most 1% of rays beyond
      rtol/atol 2e-4 (contracted FMAs move rays at silhouettes and grazing
@@ -172,7 +173,10 @@ Phases, each fatal on failure (no exception is caught):
      ratio of the two steps (bench.py's budget is 3x; not gated), kernel 2s
      alone on the last step's cotangent (CUDA events) against its plain
      version (phase 6's gates, max |d| included) and its share of its
-     bound (OPS_SOFT_*);
+     bound (OPS_SOFT_*) and of its second bound (SFU_SOFT_*: MUFU
+     operations at 16 per SM per clock), with what its launch took (lanes
+     per ray, shared memory per block, registers; stack frame and spill
+     bytes from the build's ptxas report);
  21. streamed Morton chunks (render/mega.chunk_tables, no grid): (1)
      kernel 1 over cornell plus the 992-triangle torus (1,002 triangles in
      8 chunks) in path, roulette (from RR_START) and direct modes, the
@@ -217,7 +221,8 @@ Phases, each fatal on failure (no exception is caught):
      excused one at a time, the least stable first, until every other ray
      is within the gates; each must move the cotangent the gates then
      read by more than UNSTABLE_MOVE of its norm, and at most 2% of the
-     rays go; the excused rays are listed; edge x grid
+     rays go; the excused rays are listed, and the phase prints how many
+     it excused in all; edge x grid
      on the torus scene vs the streamed brute edge route (one kernel-1
      and one large kernel-2s launch each; cosine >= 0.99999, max |d| <=
      1e-3 of scale); (c) one launch of each route at DIFF_TABLE_MAX
@@ -230,8 +235,9 @@ Phases, each fatal on failure (no exception is caught):
      ms and fwd+bwd segments/s, kernel 2 alone on the last step's
      cotangent with its bound; BENCH_EDGE on the torus scene (one step;
      one kernel-1 and one large kernel-2s launch), kernel 2s alone (CUDA
-     events around its launch in that step) with its bound (pairs per
-     span and the spans' level). Prints the phase's seconds. The kernels
+     events around its launch in that step) with its bounds (pairs per
+     span and the spans' level; FP32 and MUFU) and its launch. Prints the
+     phase's seconds. The kernels
      line's entries of this phase name the size of their ``ms``
      (``shape``) and of their ``plain_ms`` (``plain_shape``).
  23. the differentiable direct pass (pathtrace_pass_diff(mode="direct"),
@@ -501,6 +507,32 @@ OPS_SOFT_EMIT_ADJ = 106  # its adjoint and the emitter term's (emit_adj and
                          # the sweep's acc and path-weight cotangents)
 OPS_SOFT_BOUNCE_ADJ = 225  # per bounce: OPS_ADJ_BOUNCE past the tangent
                            # frame 53 and the direction 15 it recomputes
+# Kernel 2s's second bound: its special-function (MUFU) operations at the
+# H100's 16 per SM per clock (132 SMs, the SM clock nvidia-smi reports as
+# clocks.max.sm), counted like OPS_SOFT_* (what the function needs once).
+# A sigmoid is 2: EX2 inside expf and RCP inside the IEEE division
+# (profile_kernels --sass of kernel 2s: one MUFU.EX2 per expf site and one
+# MUFU.RCP per division site); sqrtf, rsqrtf and each other division 1;
+# sinf and cosf are FP32 polynomials, no MUFU.
+PEAK_SFU_PER_SM_CLOCK = 16
+N_SMS = 132
+SFU_SOFT_SIGMOID = 2
+SFU_SOFT_SPHERE = 5      # two sigmoids, the guarded root
+SFU_SOFT_TRIANGLE = 5    # two sigmoids, 1 / (n . d)
+SFU_SOFT_FIELDS = 1      # the normal's normalize
+SFU_SOFT_COMPOSITE = 1   # 1 / cov, per composite (a segment's, a span's)
+SFU_SOFT_SEGMENT = 1     # the finished normal's rsqrt
+SFU_SOFT_HYP_ADJ_SPHERE = 2    # 0.5 / sq; with fields normalize_adj
+SFU_SOFT_HYP_ADJ_TRIANGLE = 1  # with fields: normalize_adj
+SFU_SOFT_NEE = 10        # per shadow ray: disk point, length, direction,
+                         # geometry; its adjoint's normalize_adj and
+                         # divisions
+SFU_SOFT_EMIT = 7        # per light on the primary segment: 1 / den, three
+                         # sigmoids
+SFU_SOFT_BOUNCE = 11     # per bounce: disk point, lift, direction, tangent
+                         # frame; the adjoint's normalize_adjs
+SFU_SOFT_CAMERA = 20     # per ray: the camera chain, the box clip and their
+                         # adjoints' divisions and normalizes
 
 
 def _elapsed(phase: int) -> None:
@@ -516,6 +548,18 @@ def _fail(msg: str) -> None:
 def _check(ok: bool, msg: str) -> None:
     if not ok:
         _fail(msg)
+
+
+def _print_builds(_build, libs) -> None:
+    """Each library's build time and its ptxas report."""
+    for name, _, flags in libs:
+        info = _build.build_log.get((name, flags))
+        print(f"  {' '.join((name,) + flags)}: "
+              + (f"built in {info['seconds']:.2f} s" if info else "cached"))
+        for line in (info["ptxas"] if info else "").splitlines():
+            if any(k in line for k in ("registers", "spill", "stack",
+                                       "Compiling entry")):
+                print("    ptxas:", line.strip())
 
 
 def _smi(query: str) -> str:
@@ -2797,6 +2841,79 @@ def _soft_ops(rays: float, segs: float, n_sph: int, n_tri: int,
             + (segs - rays) * (OPS_BOUNCE + OPS_SOFT_BOUNCE_ADJ + 1))
 
 
+def _soft_sfu(rays: float, segs: float, n_sph: int, n_tri: int,
+              n_lig: int, direct: bool = False) -> float:
+    """Special-function (MUFU) operations of kernel 2s on the work of
+    _soft_ops (same arguments): each hypothesis, field, ordered pair,
+    composite, occluder and scalar piece once, with SFU_SOFT_*."""
+    n = n_sph + n_tri
+    if n <= UNROLL_SPHERES:
+        pairs, comps = n * (n - 1), 1
+    else:
+        widths = _soft_spans(n_sph) + _soft_spans(n_tri)
+        spans = len(widths)
+        pairs = sum(x * (x - 1) for x in widths) + spans * (spans - 1)
+        comps = spans + 1
+    hyp = n_sph * SFU_SOFT_SPHERE + n_tri * SFU_SOFT_TRIANGLE
+    surface = (hyp + n * SFU_SOFT_FIELDS + pairs * SFU_SOFT_SIGMOID
+               + comps * SFU_SOFT_COMPOSITE + SFU_SOFT_SEGMENT
+               + n_sph * SFU_SOFT_HYP_ADJ_SPHERE
+               + n_tri * SFU_SOFT_HYP_ADJ_TRIANGLE)
+    nee = (hyp + n * SFU_SOFT_SIGMOID + n_sph * (SFU_SOFT_HYP_ADJ_SPHERE - 1)
+           + SFU_SOFT_NEE)
+    if direct:
+        return rays * SFU_SOFT_CAMERA + segs * (surface + n_lig * nee)
+    return (rays * (SFU_SOFT_CAMERA + n_lig * SFU_SOFT_EMIT)
+            + segs * (surface + n_lig * nee)
+            + (segs - rays) * SFU_SOFT_BOUNCE)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_clock_hz() -> float:
+    """The card's maximum SM clock, from nvidia-smi."""
+    return float(_smi("clocks.max.sm").split()[0]) * 1e6
+
+
+def _sfu_bound(sfu: float) -> dict:
+    """Kernel 2s's second bound: its MUFU operations over 16 per SM per
+    clock on every SM at the maximum SM clock."""
+    rate = PEAK_SFU_PER_SM_CLOCK * N_SMS * _sm_clock_hz()
+    return {"bound_sfu_ms": 1e3 * sfu / rate}
+
+
+def _soft_stats(MKS, rr: bool, direct: bool) -> dict:
+    """Kernel 2s's last launch (MKS.last_launch: lanes per ray, 1 for the
+    large-table kernel's thread per ray; shared memory per block;
+    registers) and its instance's ptxas report (stack frame and spill
+    bytes) from the build's log."""
+    import re
+    from raytracing_tpu_torch.ops import _build
+    last = MKS.last_launch()
+    flags = _build.NVCC_FLAGS + MKS.soft_flags(rr, direct)
+    src = _build.CSRC / "megakernel_soft.cu"
+    log = _build.BUILD_DIR / (f"libmegakernel_soft-"
+                              f"{_build._source_hash(src, flags)}.log")
+    text = log.read_text() if log.exists() else ""
+    # the instance that ran, by its template arguments: the group layout's
+    # <G, kRR, kDirect>, or the large-table kernel's <kRR, kDirect>
+    inst = (f"soft_large_kernelILb{int(rr)}ELb{int(direct)}E"
+            if last["group"] == 1 else
+            f"soft_kernelILi{last['group']}ELb{int(rr)}ELb{int(direct)}E")
+    stack = spill = None
+    lines = text.splitlines()
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and inst in line:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", lines[i + 1])
+            if m:
+                stack, spill = int(m.group(1)), int(m.group(2))
+            break
+    return {"group": last["group"], "registers": last["registers"],
+            "stack_bytes": stack, "spill_bytes": spill,
+            "smem_bytes": last["smem_bytes"],
+            "warps_per_sm": last["warps_per_sm"]}
+
+
 def _soft_work(MK, tables, g, cfg) -> tuple:
     """(live rays, their segments) of kernel 2s without the roulette: the
     rays with g != 0 whose primary ray meets the scene box."""
@@ -3071,20 +3188,26 @@ def edge_train(dev, smi: str) -> dict:
     for name, a, b in zip(MKG.DIFF_ALL, want, got):
         if name in TRAIN_WRT:
             err = max(err, _grad_gates(name, a, b, True))
+    stats = _soft_stats(MKS, False, False)
     rays, nsegs = _soft_work(MK, tables, g, edge)
     ops = _soft_ops(rays, nsegs, tables[1].shape[0], tables[2].shape[0], n_l)
-    bound = _bound(ops, 12 * edge.total_rays + 2 * _table_bytes(tables))
+    sfu = _soft_sfu(rays, nsegs, tables[1].shape[0], tables[2].shape[0], n_l)
+    bound = {**_bound(ops, 12 * edge.total_rays + 2 * _table_bytes(tables)),
+             **_sfu_bound(sfu)}
     print(f"phase 20 kernel 2s alone on the step's cotangent {ms:.6g} ms "
           f"({ms / res['edge']['ms']:.3%} of the edge step), plain version "
           f"{plain_ms:.6g} ms; bound: {ops / max(rays, 1):.6g} FP32 "
           f"operations per live ray (OPS_SOFT_* constants, expf counted as "
           f"one; {rays:.0f} live rays, {nsegs:.0f} segments) -> "
           f"{bound['bound_ms']:.6g} ms ({bound['bound_by']}); share of the "
-          f"bound {bound['bound_ms'] / ms:.3%}")
+          f"bound {bound['bound_ms'] / ms:.3%}; second bound "
+          f"{sfu / max(rays, 1):.6g} MUFU operations per live ray "
+          f"(SFU_SOFT_*) -> {bound['bound_sfu_ms']:.6g} ms, share "
+          f"{bound['bound_sfu_ms'] / ms:.3%}; launch {stats}")
     return {"launches": res["edge"]["launches"], "ms": ms,
             "plain_ms": plain_ms, "max_abs_err": err,
             "step_ms": res["edge"]["ms"], "hard_step_ms": res["hard"]["ms"],
-            **bound}
+            "stats": stats, **bound}
 
 
 def _stream_scene(shape: str, w: int, h: int, dev):
@@ -3573,8 +3696,8 @@ def _excuse_unstable(MKS, tables, g, u, kw, held, want, got, plain, kernel,
     ``kernel(g, planes)`` rerun), until every other ray is within the
     gates; each must move the cotangent the gates then read (its norm,
     group by group) by more than UNSTABLE_MOVE, and at most 2% of the rays
-    go. Returns (want, got) on the rays kept; the excused rays are
-    listed."""
+    go. Returns (want, got) on the rays kept and the excused rays, which
+    are listed."""
     import torch
     from raytracing_tpu_torch.ops import megakernel_grad as MKG
 
@@ -3583,7 +3706,7 @@ def _excuse_unstable(MKS, tables, g, u, kw, held, want, got, plain, kernel,
                    for i, n in enumerate(MKG.DIFF_ALL) if n in held)
 
     if hold(want, got):
-        return want, got
+        return want, got, []
     moves = _ray_moves(MKS, tables, g, u, kw, held)
     idx = {n: i for i, n in enumerate(MKG.DIFF_ALL)}
     cap = max(1, g.shape[0] // 50)
@@ -3608,7 +3731,7 @@ def _excuse_unstable(MKS, tables, g, u, kw, held, want, got, plain, kernel,
         got = {"u-planes": kernel(gk, u), "PRNG": kernel(gk, None)}
     print(f"  rays {excused} excused ({len(excused)} of at most {cap}); "
           f"{what} on the other {g.shape[0] - len(excused)} rays:")
-    return want, got
+    return want, got, excused
 
 
 def large_vs_plain(dev, shape: str, soft: bool, rr: bool, wrt,
@@ -3711,9 +3834,11 @@ def large_vs_plain(dev, shape: str, soft: bool, rr: bool, wrt,
         _check(all(bool(torch.isfinite(b).all()) for b in outs),
                f"{shape}: {what} {route} route not finite")
     held = [n for n, a in zip(MKG.DIFF_ALL, want) if n in wrt and a.numel()]
+    excused = []
     if soft:
-        want, got = _excuse_unstable(MKS, tables, g, u, kw, held, want, got,
-                                     plain, kernel, f"{shape}: {what}")
+        want, got, excused = _excuse_unstable(MKS, tables, g, u, kw, held,
+                                              want, got, plain, kernel,
+                                              f"{shape}: {what}")
     err = 0.0
     for route, outs in got.items():
         print(f"  {what} {route} route vs plain version:")
@@ -3724,7 +3849,7 @@ def large_vs_plain(dev, shape: str, soft: bool, rr: bool, wrt,
                 _check(not b.any().item(), f"{name} outside diff_wrt "
                        "is not zero")
     return {"max_abs_err": err, "plain_ms": plain_ms, "ms": ms,
-            "shape": f"{shape} {size}"}
+            "shape": f"{shape} {size}", "excused": len(excused)}
 
 
 def edge_grid_large(dev, w: int, h: int) -> float:
@@ -3989,11 +4114,15 @@ def large_train(dev, smi: str, work: dict) -> dict:
         _check(bool(torch.isfinite(gr).all()) and bool(gr.any()),
                f"edge torus step: {name} gradient not finite or 0")
     k_ms = events[0][0].elapsed_time(events[0][1])
+    stats = _soft_stats(MKS, False, False)
     tables = mega.scene_tables(scene, cfg)
     rays, nsegs = _soft_work(MK, tables, p["g"], cfg)
     ops = _soft_ops(rays, nsegs, tables[1].shape[0], tables[2].shape[0],
                     n_l)
-    bound = _bound(ops, 12 * cfg.total_rays + 2 * _table_bytes(tables))
+    sfu = _soft_sfu(rays, nsegs, tables[1].shape[0], tables[2].shape[0],
+                    n_l)
+    bound = {**_bound(ops, 12 * cfg.total_rays + 2 * _table_bytes(tables)),
+             **_sfu_bound(sfu)}
     print(f"phase 22 BENCH_EDGE step, the torus scene ({tables[2].shape[0]} "
           f"triangles, {len(_soft_spans(tables[2].shape[0]))} spans, "
           f"Morton-sorted) {MAIN_W}x{MAIN_H} b{BOUNCES} wrt "
@@ -4006,10 +4135,13 @@ def large_train(dev, smi: str, work: dict) -> dict:
           f"{ops / max(rays, 1):.6g} FP32 operations per live ray "
           f"(OPS_SOFT_*, pairs per span and the spans' level) -> "
           f"{bound['bound_ms']:.6g} ms ({bound['bound_by']}); share "
-          f"{bound['bound_ms'] / k_ms:.3%}")
+          f"{bound['bound_ms'] / k_ms:.3%}; second bound "
+          f"{sfu / max(rays, 1):.6g} MUFU operations per live ray -> "
+          f"{bound['bound_sfu_ms']:.6g} ms, share "
+          f"{bound['bound_sfu_ms'] / k_ms:.3%}; launch {stats}")
     out["edge"] = {"launches": counts[4], "ms": k_ms, "step_ms": step_ms,
                    "shape": f"torus {MAIN_W}x{MAIN_H} b{BOUNCES}",
-                   **bound}
+                   "stats": stats, **bound}
     return out
 
 
@@ -4257,8 +4389,9 @@ def direct_diff_vs_plain(dev, name: str, wrt, spp: int = 1,
     held = [nm for nm, a in zip(MKG.DIFF_ALL, want) if nm in wrt and a.numel()]
     print(f"phase 23 (d) kernel 2s direct{' (large-table instance)' if soft_large else ''}"
           f", {name} {w}x{h}: plain {out['plain_ms']['d']:.6g} ms")
-    want, got = _excuse_unstable(MKS, t, g, u, kw, held, want, got, plain,
-                                 kernel, f"{name}: kernel 2s direct")
+    want, got, _ = _excuse_unstable(MKS, t, g, u, kw, held, want, got,
+                                    plain, kernel,
+                                    f"{name}: kernel 2s direct")
     out["max_abs_err"]["d"] = _hold_routes("kernel 2s", want, got, wrt)
     out["shape"]["d"] = f"{w}x{h}"
     return out
@@ -4385,6 +4518,8 @@ def direct_train(dev, smi: str, name: str, route: str) -> dict:
                              12 * cfg.total_rays + 2 * _table_bytes(tl))
         bounds["d"]["per_ray"] = _soft_ops(1, 1, tl[1].shape[0],
                                            tl[2].shape[0], n_l, direct=True)
+        bounds["d"].update(_sfu_bound(_soft_sfu(
+            live, live, tl[1].shape[0], tl[2].shape[0], n_l, direct=True)))
         runs = {"d": lambda: MKS.pathtrace_pass_bwd_soft(
             t[0], ipar, *t[1:], g, None, **soft, **bkw)}
     ms = {}
@@ -4398,6 +4533,7 @@ def direct_train(dev, smi: str, name: str, route: str) -> dict:
         end.record()
         torch.cuda.synchronize()
         ms[k] = start.elapsed_time(end) / reps
+    stats = _soft_stats(MKS, False, True) if route == "soft" else {}
     print(f"phase 23 direct train {name} {MAIN_W}x{MAIN_H} spp 1 route "
           f"{route} wrt {list(TRAIN_WRT)}, {DIRECT_STEPS} timed steps on "
           f"[{smi}]: {wall * 1e3 / DIRECT_STEPS:.6g} ms/step, "
@@ -4414,12 +4550,18 @@ def direct_train(dev, smi: str, name: str, route: str) -> dict:
               f"{'pass' if k == 'a' else 'cotangent'}: {t_ms:.6g} ms; bound "
               f"{b['bound_ms']:.6g} ms ({b['bound_by']}, {b['per_ray']:.6g} "
               f"FP32 operations per {'ray' if k == 'a' else 'ray with g != 0'}"
-              f"); share of the bound {b['bound_ms'] / t_ms:.3%}")
+              f"); share of the bound {b['bound_ms'] / t_ms:.3%}"
+              + (f"; second bound {b['bound_sfu_ms']:.6g} ms (MUFU), share "
+                 f"{b['bound_sfu_ms'] / t_ms:.3%}; launch {stats}"
+                 if k == "d" else ""))
     launches = {"a": got["kernel 1 (direct)"], "b": got[bwd],
                 "c": got[bwd], "d": got[bwd]}
     return {k: {"ms": v, "launches": launches[k],
                 "bound_ms": bounds[k]["bound_ms"],
-                "bound_by": bounds[k]["bound_by"]} for k, v in ms.items()}
+                "bound_by": bounds[k]["bound_by"],
+                **({"stats": stats,
+                    "bound_sfu_ms": bounds[k]["bound_sfu_ms"]}
+                   if k == "d" else {})} for k, v in ms.items()}
 
 
 def main() -> int:
@@ -4456,19 +4598,14 @@ def main() -> int:
             ("megakernel", MK._SIGNATURES, MK.GRID_FLAGS),
             ("megakernel_grad", MKG._SIGNATURES, MKG.ADJ_FLAGS),
             ("megakernel_champ", MKG._CHAMP_SIGNATURES, MKG.ADJ_FLAGS),
-            ("megakernel_soft", MKS._SIGNATURES, MKG.ADJ_FLAGS),
             ("hit_kernels", HK._SIGNATURES, ())]
+    # kernel 2s: one build per mode (path, the roulette, direct)
+    libs += [("megakernel_soft", MKS._SIGNATURES, flags)
+             for flags in MKS.SOFT_BUILDS]
     _build.load_all(libs)
     print(f"phase 2 build ({len(libs)} nvcc at once): "
           f"{time.perf_counter() - t0:.2f} s ({_build.BUILD_DIR})")
-    for name, _, flags in libs:
-        info = _build.build_log.get((name, flags))
-        print(f"  {' '.join((name,) + flags)}: "
-              + (f"built in {info['seconds']:.2f} s" if info else "cached"))
-        for line in (info["ptxas"] if info else "").splitlines():
-            if any(k in line for k in ("registers", "spill", "stack",
-                                       "Compiling entry")):
-                print("    ptxas:", line.strip())
+    _print_builds(_build, libs)
 
     _elapsed(3)
     # phase 3: kernel vs plain version
@@ -4604,6 +4741,12 @@ def main() -> int:
            for shape in ("cap-spheres", "cap-triangles")
            for soft in (False, True)}
     l22 = large_train(dev, smi, s21[("torus", "path")]["work"])
+    excused = [x["excused"] for x in s22] + [v["excused"] for (_, soft), v
+                                             in c22.items() if soft]
+    print(f"phase 22 kernel 2s: {sum(excused)} rays excused in all "
+          f"({excused}: torus, torus with the roulette, sphere_field"
+          f"({SMALL_SPHERES}), with the roulette, then the DIFF_TABLE_MAX "
+          "spheres and triangles)")
     print(f"phase 22: {time.perf_counter() - t22:.1f} s")
     _elapsed(23)
     # phase 23: the differentiable direct pass through kernels 1
@@ -4749,6 +4892,7 @@ def main() -> int:
                            + [x["max_abs_err"] for x in s20]),
         "ms": t20["ms"], "plain_ms": t20["plain_ms"],
         "bound_ms": t20["bound_ms"], "bound_by": t20["bound_by"],
+        "bound_sfu_ms": t20["bound_sfu_ms"], **t20["stats"],
         "library_ms": None}] + [{
         "name": name, "route": "cuda",
         "source": "raytracing_tpu_torch/csrc/megakernel.cu",
@@ -4804,6 +4948,7 @@ def main() -> int:
         "ms": l22["edge"]["ms"], "plain_ms": s22[0]["plain_ms"],
         "bound_ms": l22["edge"]["bound_ms"],
         "bound_by": l22["edge"]["bound_by"], "library_ms": None,
+        "bound_sfu_ms": l22["edge"]["bound_sfu_ms"], **l22["edge"]["stats"],
         "shape": l22["edge"]["shape"], "plain_shape": s22[0]["shape"]}] + [{
         "name": name, "route": "cuda",
         "source": f"raytracing_tpu_torch/csrc/{src}",
@@ -4813,6 +4958,8 @@ def main() -> int:
                         if e is d23 else v23[i]["max_abs_err"][k]),
         "ms": e[k]["ms"], "plain_ms": v23[i]["plain_ms"][k],
         "bound_ms": e[k]["bound_ms"], "bound_by": e[k]["bound_by"],
+        **({"bound_sfu_ms": e[k]["bound_sfu_ms"], **e[k]["stats"]}
+           if k == "d" else {}),
         "library_ms": None, "shape": f"{shape} {MAIN_W}x{MAIN_H} spp 1",
         "plain_shape": f"{plain} "
                        f"{v23[i]['shape']['d' if k == 'd' else 'abc']} spp 1"}

@@ -7,37 +7,45 @@
 // jax.vjp of _tile_program_soft (:1516-2144) gives, path mode, with or
 // without Russian roulette, and direct mode (kDirect, direct_adjoint below:
 // the direct branch :2039-2075), u-planes or PRNG draws, spp >= 1: at most 64
-// objects per type (the tables and per-warp gradient buffers stay in
-// shared memory; rt_pathtrace_bwd_soft), and past that up to
-// DIFF_TABLE_MAX = 4096 per type, JAX's two-level composite over every
-// SOFT_CHUNK span (soft_trace :1883-1938; rt_pathtrace_bwd_soft_large,
-// below). The forward value of the pass is kernel 1's hard pass; only the
-// backward is the soft program's. The plain version is
+// objects per type (rt_pathtrace_bwd_soft, the group layout below), and
+// past that up to DIFF_TABLE_MAX = 4096 per type, JAX's two-level composite
+// over every SOFT_CHUNK span (soft_trace :1883-1938;
+// rt_pathtrace_bwd_soft_large, a thread per ray in `namespace large` with
+// pathtrace_soft_span.cuh: the group layout measured slower there at
+// 1024^2, PERF.md §6 row 2s'). The forward value of the pass is kernel 1's
+// hard pass; only the backward is the soft program's. The plain version is
 // ops/megakernel_soft.pathtrace_pass_bwd_soft_reference.
 //
-// Per ray, one thread (a grid-stride loop in steps of whole warps, as
-// kernel 2): replay the soft forward and keep a tape of bounces + 1
+// One adjoint for both entries (ray_adjoint, direct_adjoint), on a
+// composite that the entry supplies (Comp, below). Up to 64 objects per
+// type one group of G lanes per ray (GroupComp, pathtrace_soft_adj.cuh);
+// past that one thread per ray (large::SpanComp,
+// pathtrace_soft_span.cuh). Replay the soft forward and tape bounces + 1
 // segments (the segment's origin, direction, window start, throughput and
-// path weight at its start; pathtrace_soft_adj.cuh recomputes the rest),
-// then sweep the segments in reverse: the bounce to the next segment, the
-// roulette's 1 / p (rr_adj, on the soft throughput), NEE per light in
-// reverse with the shadow transmittance's adjoint, the emitter race on the
-// primary segment, the composite's adjoint into every hypothesis, and last
-// the camera chain and the scene-AABB clip (mint is differentiable here,
-// unlike the hard route) into par. A path ends early only by the roulette;
-// a ray that leaves the scene box has path weight 0 and adds nothing.
+// path weight at its start, and its draws; the group layout also tapes
+// its soft surface and, past 64 hypotheses, each span's coverage, blend
+// and outer exclusive product), then sweep the segments in reverse: the
+// bounce to the next segment, the roulette's 1 / p (rr_adj, on the soft
+// throughput), NEE per light in reverse with the shadow transmittance's
+// adjoint, the emitter race on the primary segment, the composite's
+// adjoint into every hypothesis, and last the camera chain and the
+// scene-AABB clip (mint is differentiable here, unlike the hard route)
+// into par. A path ends early only by the roulette; a ray that leaves the
+// scene box has path weight 0 and adds nothing.
 //
 // Draws: u-planes or in-kernel threefry at the forward's counters
-// (pathtrace.cuh Draws), bit-equal to u_planes_for_pass.
+// (pathtrace.cuh Draws), bit-equal to u_planes_for_pass; the replay
+// computes each segment's draws (a word a lane) and tapes them.
 //
-// Row cotangents: each warp sums a word over its lanes and adds it into its
-// own gradient buffer in shared memory (no atomics there); the block adds
-// its warps' buffers into the outputs with one global atomicAdd per nonzero
-// word. The per-thread scratch (Scratch, kMaxHyp hypotheses) lives in
-// local memory.
+// What bounds it: the composite's ordered pairs (a sigmoid, two MUFU
+// operations, per pair and pass), FP32 operations and their latency, not
+// bytes (PERF.md §6, rows 2s, 2s', 2sd; §7). The launcher picks G from the
+// widest composite (group_for) and the block size with the most resident
+// warps per SM (the occupancy API).
 //
-// Float atomics and warp sums make results order-dependent: they agree
-// with the plain version to float tolerance, never bitwise.
+// Float atomics (the flush) and the groups' sums make results
+// order-dependent: they agree with the plain version to float tolerance,
+// never bitwise.
 
 #include <cstddef>
 #include <cstdint>
@@ -45,14 +53,24 @@
 #include <cuda_runtime.h>
 
 #include "pathtrace_soft_adj.cuh"
+#include "pathtrace_soft_span.cuh"
 
 namespace {
 
 using namespace rt;
 using namespace rt::soft;
 
-constexpr int kBlock = 128;
-constexpr int kTapeWords = 11;  // o, d, mint, tp, path weight
+constexpr int kMaxBlock = 128;
+
+// One build holds the instances of one mode, RT_SOFT_MODE: 0 path, 1 path
+// with Russian roulette, 2 direct (ops/megakernel_soft.soft_flags), so that
+// the three builds compile at the same time; a C entry called in another
+// mode returns cudaErrorInvalidValue.
+#ifndef RT_SOFT_MODE
+#define RT_SOFT_MODE 0
+#endif
+constexpr bool kBuildRR = RT_SOFT_MODE == 1;
+constexpr bool kBuildDirect = RT_SOFT_MODE == 2;
 
 // Adjoint of the primary ray's scene-AABB clip, mint = max(max(n0, max(n1,
 // n2)), 0) with n_ax = min(t0, t1), t = (p - o) / d (d = 0 read as 1e-30):
@@ -92,89 +110,116 @@ __device__ __forceinline__ V3 mul3(V3 a, V3 b) {
   return mk(a.x * b.x, a.y * b.y, a.z * b.z);
 }
 
-// Adds light li's row cotangents gl warp-wide (zero where !live).
-template <bool kAtomic>
-__device__ __forceinline__ void add_light(const Grads& G, bool live, int li,
-                                          const float (&gl)[kLig]) {
-  if (!(G.wrt & kWLig)) return;
-#pragma unroll
-  for (int w = 0; w < kLig; ++w)
-    wadd<kAtomic>(G.lig + li * kLig + w, live ? gl[w] : 0.0f);
-}
+// The adjoints below run on either of two composites, Comp:
+//   * GroupComp<G> (up to 64 objects per type): the ray's group of G lanes,
+//     its tape, scratch and gradient buffer in the group's shared slice;
+//     the sweep reads the replay's taped surface;
+//   * large::SpanComp (past 64): one thread per ray, its tape and span
+//     scratch in local memory, row cotangents summed over the warp and
+//     added atomically; the sweep runs the segment's composite again.
+// Comp gives: kLanes (lanes per ray) and kDraw (where a segment's draws
+// start in its tape); lane(), wrt(), sync() (between a lane's tape writes
+// and another lane's reads), seg(s) (segment s's tape), pwc() (the path
+// weights before each emitter term); trace_fwd / surface / trace_adj (the
+// soft surface: the replay's, the sweep's, its adjoint), vis_fwd / vis_adj
+// (the shadow transmittance) and add_light (a light's row cotangents).
 
-// The whole adjoint of ray rid_g for acc cotangent g; warp-uniform (every
-// lane calls it, `active` false for a lane without a ray). Scr: Scratch
-// (one composite, at most 64 objects per type) or SpanScratch (JAX's
-// two-level composite over every span), whose trace_fwd, trace_adj,
-// vis_fwd and vis_adj run.
-template <bool kRR, class Scr>
-__device__ void ray_adjoint(const Tables& T, const Cfg& C, const Draws& D,
-                            bool active, int rid_g, int spp, int width,
-                            int bounces, int rr_start, bool normalize_emitter,
-                            V3 g, const Grads& G, Scr& S,
-                            float (&gp)[kNPar]) {
+// The whole adjoint of ray rid_g for acc cotangent g on composite cm;
+// warp-uniform (every lane calls it, `active` false for a lane without a
+// ray).
+template <bool kRR, class Comp>
+__device__ __forceinline__ void ray_adjoint(Comp& cm, const Tables& T,
+                                            const Cfg& C, const Draws& D,
+                                            bool active, int rid_g, int spp,
+                                            int width, int bounces,
+                                            int rr_start,
+                                            bool normalize_emitter, V3 g,
+                                            float (&gp)[kNPar]) {
+  constexpr int kU = Comp::kDraw;
   const int L = T.n_lig;
   const float eps = T.par[kEps];
+  const V3 zero = mk(0.0f, 0.0f, 0.0f), up = mk(0.0f, 0.0f, 1.0f);
   int col = 0, row = 0, samp = 0, nseg = 0;
-  float tape[kMaxSeg][kTapeWords];
+  V3 o = zero, d = up, tp = mk(1.0f, 1.0f, 1.0f);
+  float mint = 0.0f, pw = 1.0f;
+  bool alive = false;
   if (active) {
     pixel_of(rid_g, spp, width, col, row, samp);
-    V3 o, d;
-    float mint, maxt;
+    float maxt;
     camera_ray(T.par, D, col, row, samp, spp, o, d, mint, maxt);
-    V3 tp = mk(1.0f, 1.0f, 1.0f);
-    float pw = 1.0f;
     // a ray outside the scene box has path weight 0: no segment
-    for (int s = 0; s <= bounces && mint < inf_f(); ++s) {
-      const float w[kTapeWords] = {o.x,  o.y,  o.z,  d.x,  d.y, d.z,
-                                   mint, tp.x, tp.y, tp.z, pw};
-      for (int k = 0; k < kTapeWords; ++k) tape[s][k] = w[k];
+    alive = mint < inf_f();
+  }
+  for (int s = 0; s <= bounces; ++s) {
+    if (!__any_sync(kFull, alive)) break;
+    float* seg = cm.seg(s);
+    if (alive) {
       nseg = s + 1;
-      const SRay r = sray(o, d, mint);
-      Surf sf;
-      trace_fwd(T, C, r, S, sf);
-      if (s == 0)
-        for (int li = 0; li < L; ++li)
-          pw = pw * (1.0f - emit_fwd(T, C, li, r, sf.cov, sf.tbar).lw);
-      for (int li = 0; li < L; ++li) tp = mul3(tp, sf.alb);
-      if (s == bounces) break;
-      // the roulette on the soft throughput; a path it ends adds nothing
-      if (kRR && s >= rr_start && !rr_survive(D, s, L, tp)) break;
-      Hit h;
-      h.p = sf.pbar;
-      h.n = sf.nbar;
-      float cx, cy, cz;
-      bounce_ray(D, bounce_slot(s, L, kRR), h, eps, cx, cy, cz, o, d);
-      mint = 0.0f;
-      pw = pw * sf.cov;
+      if (cm.lane() == 0) {
+        const float w[kTapeRay] = {o.x,  o.y,  o.z,  d.x,  d.y, d.z,
+                                   mint, tp.x, tp.y, tp.z, pw};
+#pragma unroll
+        for (int k = 0; k < kTapeRay; ++k) seg[k] = w[k];
+      }
+      // the segment's draws, a word a lane, for the replay and the sweep:
+      // the bounce's pair (before the last depth), each light's NEE pair
+      for (int k = cm.lane(); k < 2 + 2 * L; k += Comp::kLanes) {
+        float v = 0.0f;
+        if (k >= 2)
+          v = draw(D, nee_slot(s, (k - 2) >> 1, L, kRR), k & 1);
+        else if (s < bounces)
+          v = draw(D, bounce_slot(s, L, kRR), k);
+        seg[kU + k] = v;
+      }
     }
+    cm.sync();
+    const SRay r = alive ? sray(o, d, mint) : sray(zero, up, 0.0f);
+    Surf sf;
+    cm.trace_fwd(T, C, r, seg, sf);
+    if (!alive) continue;
+    if (s == 0)
+      for (int li = 0; li < L; ++li)
+        pw = pw * (1.0f - emit_fwd(T, C, li, r, sf.cov, sf.tbar).lw);
+    for (int li = 0; li < L; ++li) tp = mul3(tp, sf.alb);
+    // the roulette on the soft throughput; a path it ends adds nothing
+    if (s == bounces || (kRR && s >= rr_start && !rr_survive(D, s, L, tp))) {
+      alive = false;
+      continue;
+    }
+    Hit h;
+    h.p = sf.pbar;
+    h.n = sf.nbar;
+    float cx, cy, cz;
+    bounce_ray_uv(seg[kU], seg[kU + 1], h, eps, cx, cy, cz, o, d);
+    mint = 0.0f;
+    pw = pw * sf.cov;
   }
 
   // the reverse sweep, warp-uniform: cotangents of the next segment's
   // origin, direction, throughput and path weight
-  const V3 zero = mk(0.0f, 0.0f, 0.0f);
+  float* pwc = cm.pwc();
   V3 gO = zero, gD = zero, gTP = zero;
   float gPW = 0.0f;
   for (int s = __reduce_max_sync(kFull, nseg) - 1; s >= 0; --s) {
     const bool live = s < nseg;
-    const float* w = tape[live ? s : 0];
+    const float* w = cm.seg(s);
     const V3 o = live ? mk(w[0], w[1], w[2]) : zero;
-    const V3 d = live ? mk(w[3], w[4], w[5]) : mk(0.0f, 0.0f, 1.0f);
+    const V3 d = live ? mk(w[3], w[4], w[5]) : up;
     const float mint = live ? w[6] : 0.0f;
     const V3 tp0 = live ? mk(w[7], w[8], w[9]) : zero;
     const float pw0 = live ? w[10] : 0.0f;
     const SRay r = sray(o, d, mint);
-    Surf sf;
-    trace_fwd(T, C, r, S, sf);
+    const Surf sf = cm.surface(T, C, r, w);
     const V3 alb = sf.alb;
     // the path weight through the emitter terms (primary segment)
-    float pwc[kMaxLights + 1];
     float pwE = pw0;
-    if (s == 0)
+    if (s == 0) {
       for (int li = 0; li < L; ++li) {
-        pwc[li] = pwE;
+        if (cm.lane() == 0) pwc[li] = pwE;
         pwE = pwE * (1.0f - emit_fwd(T, C, li, r, sf.cov, sf.tbar).lw);
       }
+      cm.sync();
+    }
     float gCov = 0.0f, gTbar = 0.0f, gMint = 0.0f, gPwE = 0.0f;
     V3 gPbar = zero, gNbar = zero, gAlb = zero, go = zero, gd = zero;
     V3 gTPc = zero;  // of the throughput after the current light's NEE
@@ -191,7 +236,7 @@ __device__ void ray_adjoint(const Tables& T, const Cfg& C, const Draws& D,
       h.n = sf.nbar;
       float cx, cy, cz;
       V3 o2, d2, tx, bx;
-      bounce_ray(D, bounce_slot(s, L, kRR), h, eps, cx, cy, cz, o2, d2);
+      bounce_ray_uv(w[kU], w[kU + 1], h, eps, cx, cy, cz, o2, d2);
       tangent_frame(sf.nbar, tx, bx);
       const V3 gdr = normalize_adj(cx * tx + cy * bx + cz * sf.nbar, gD);
       gNbar = gNbar + cz * gdr + tangent_frame_adj(sf.nbar, cx * gdr, cy * gdr);
@@ -205,11 +250,11 @@ __device__ void ray_adjoint(const Tables& T, const Cfg& C, const Draws& D,
       float gl[kLig] = {};
       V3 tpb = tp0;  // throughput before this light's NEE
       for (int k = 0; k < li; ++k) tpb = mul3(tpb, alb);
-      float u0 = 0.5f, u1 = 0.5f;
-      if (live) D.pair(nee_slot(s, li, L, kRR), u0, u1);
+      const float u0 = live ? w[kU + 2 + 2 * li] : 0.5f;
+      const float u1 = live ? w[kU + 3 + 2 * li] : 0.5f;
       const Nee nr = nee_ray(T, li, u0, u1, sf.pbar, sf.nbar, eps);
       const SRay sr = sray(nr.so, nr.sd, 0.0f);
-      const float vis = vis_fwd(T, C, sr, nr.dist, S);
+      const float vis = cm.vis_fwd(T, C, sr, nr.dist);
       const V3 lp = ld3(l), ln = ld3(l + 3), irr = ld3(l + 6);
       const float area = l[13], rad = l[12];
       const V3 q = sf.pbar - lp;
@@ -243,7 +288,7 @@ __device__ void ray_adjoint(const Tables& T, const Cfg& C, const Draws& D,
       V3 glp = mk(-gq.x, -gq.y, -gq.z);
       V3 gso = zero;
       float gdist = 0.0f;
-      vis_adj(T, C, G, live, sr, gvis, S, gso, gsd, gdist);
+      cm.vis_adj(T, C, live, sr, nr.dist, gvis, gso, gsd, gdist);
       const float gd2 = gdist * 0.5f / nr.dist * hmax(nr.d2, 1e-20f);
       const V3 gdl = normalize_adj(nr.dl, gsd) + (2.0f * gd2) * nr.dl;
       gso = gso - gdl;
@@ -257,12 +302,13 @@ __device__ void ray_adjoint(const Tables& T, const Cfg& C, const Draws& D,
       if (live) gp[kEps] += dot(gso, sf.nbar);
       const V3 v[4] = {glp, gln, gta, gba};
       const int at[4] = {0, 3, 14, 17};
+#pragma unroll
       for (int k = 0; k < 4; ++k) {
         gl[at[k]] += v[k].x;
         gl[at[k] + 1] += v[k].y;
         gl[at[k] + 2] += v[k].z;
       }
-      add_light<Scr::kAtomic>(G, live, li, gl);
+      cm.add_light(live, li, gl);
     }
     // the emitter terms in reverse: acc += (pw lw) irr, pw' = pw (1 - lw)
     float gPW0 = gPwE;
@@ -275,18 +321,27 @@ __device__ void ray_adjoint(const Tables& T, const Cfg& C, const Draws& D,
         const float gai = dot(g, irr);
         const float glw = gai * pw - gPW0 * pw;
         float gl[kLig] = {};
-        gl[ce] += g.x * (pw * e.lw);
-        gl[ce + 1] += g.y * (pw * e.lw);
-        gl[ce + 2] += g.z * (pw * e.lw);
+        const V3 gi = mk(g.x * (pw * e.lw), g.y * (pw * e.lw),
+                         g.z * (pw * e.lw));
+        // irradiance words 6-8, or 9-11 normalized (static indices)
+        if (normalize_emitter) {
+          gl[9] += gi.x;
+          gl[10] += gi.y;
+          gl[11] += gi.z;
+        } else {
+          gl[6] += gi.x;
+          gl[7] += gi.y;
+          gl[8] += gi.z;
+        }
         gPW0 = gPW0 * (1.0f - e.lw) + gai * e.lw;
         emit_adj(T, C, li, r, sf.cov, e, glw, go, gd, gMint, gCov, gTbar, gl);
-        add_light<Scr::kAtomic>(G, live, li, gl);
+        cm.add_light(live, li, gl);
       }
     }
     // the soft surface into every hypothesis
-    trace_adj(T, C, G, live, r, S, sf, gCov, gTbar, gPbar, gNbar, gAlb, go,
-              gd, gMint);
-    if (live && s == 0 && (G.wrt & kWPar)) {
+    cm.trace_adj(T, C, live, r, w, sf, gCov, gTbar, gPbar, gNbar, gAlb, go,
+                 gd, gMint);
+    if (live && s == 0 && (cm.wrt() & kWPar)) {
       clip_adj(T.par, o, d, gMint, go, gd, gp);
       camera_adj(T.par, D, col, row, samp, spp, go, gd, gp);
     }
@@ -298,18 +353,21 @@ __device__ void ray_adjoint(const Tables& T, const Cfg& C, const Draws& D,
 }
 
 // The soft adjoint of ray rid_g in direct mode (JAX's _tile_program_soft
-// direct branch, megakernel_grad.py:2039-2075): the primary segment's
-// blended surface, shaded per light by clip(ambient + vis clip(cos)) with
-// vis the shadow ray's soft transmittance over [0, sqrt(max(d2, 1e-20))],
-// weighted by the path weight (1 inside the scene box) times the coverage,
-// times the blended albedo. One segment, no tape; the pieces are path
-// mode's (trace_fwd / trace_adj, vis_fwd / vis_adj, nee_ray, clip_adj).
-// Warp-uniform, as ray_adjoint.
-template <class Scr>
-__device__ void direct_adjoint(const Tables& T, const Cfg& C,
-                               const DirectSlots& DS, bool active, int rid_g,
-                               int spp, int width, V3 g, const Grads& G,
-                               Scr& S, float (&gp)[kNPar]) {
+// direct branch, megakernel_grad.py:2039-2075) on composite cm: the
+// primary segment's blended surface, shaded per light by clip(ambient +
+// vis clip(cos)) with vis the shadow ray's soft transmittance over [0,
+// sqrt(max(d2, 1e-20))], weighted by the path weight (1 inside the scene
+// box) times the coverage, times the blended albedo. One segment (tape
+// segment 0 holds its draws); the pieces are path mode's. Warp-uniform, as
+// ray_adjoint.
+template <class Comp>
+__device__ __forceinline__ void direct_adjoint(Comp& cm, const Tables& T,
+                                               const Cfg& C,
+                                               const DirectSlots& DS,
+                                               bool active, int rid_g,
+                                               int spp, int width, V3 g,
+                                               float (&gp)[kNPar]) {
+  constexpr int kU = Comp::kDraw;
   const int L = T.n_lig;
   const float eps = T.par[kEps], ambient = T.par[kAmbient];
   const V3 zero = mk(0.0f, 0.0f, 0.0f);
@@ -331,19 +389,32 @@ __device__ void direct_adjoint(const Tables& T, const Cfg& C,
   }
   if (!__any_sync(kFull, live)) return;
   const SRay r = sray(o, d, mint);
+  float* seg = cm.seg(0);
+  // the shadow rays' draws, a word a lane (slot 1 + li: DirectSlots::pair)
+  for (int k = cm.lane(); k < 2 * L; k += Comp::kLanes) {
+    const int j = 1 + (k >> 1), c = k & 1;
+    float v = 0.5f;
+    if (live)
+      v = DS.D.u != nullptr
+              ? draw(DS.D, j, c)
+              : threefry_uniform(DS.keys[2 * j], DS.keys[2 * j + 1],
+                                 DS.base + static_cast<uint32_t>(c));
+    seg[kU + 2 + k] = v;
+  }
+  cm.sync();
   Surf sf;
-  trace_fwd(T, C, r, S, sf);
+  cm.trace_fwd(T, C, r, seg, sf);
   const V3 alb = sf.alb;
   float gCov = 0.0f, gMint = 0.0f;
   V3 gPbar = zero, gNbar = zero, gAlb = zero, go = zero, gd = zero;
   for (int li = 0; li < L; ++li) {
     const float* l = T.lig + li * kLig;
     float gl[kLig] = {};
-    float u0 = 0.5f, u1 = 0.5f;
-    if (live) DS.pair(1 + li, u0, u1);
+    const float u0 = seg[kU + 2 + 2 * li];
+    const float u1 = seg[kU + 3 + 2 * li];
     const Nee nr = nee_ray(T, li, u0, u1, sf.pbar, sf.nbar, eps);
     const SRay sr = sray(nr.so, nr.sd, 0.0f);
-    const float vis = vis_fwd(T, C, sr, nr.dist, S);
+    const float vis = cm.vis_fwd(T, C, sr, nr.dist);
     const float cxv = dot(nr.sd, sf.nbar);
     const float cosx = clip01(cxv);
     const float x = ambient + vis * cosx;
@@ -359,7 +430,7 @@ __device__ void direct_adjoint(const Tables& T, const Cfg& C,
     gNbar = gNbar + gc * nr.sd;
     V3 gso = zero;
     float gdist = 0.0f;
-    vis_adj(T, C, G, live, sr, gx * cosx, S, gso, gsd, gdist);
+    cm.vis_adj(T, C, live, sr, nr.dist, gx * cosx, gso, gsd, gdist);
     const float gd2 = gdist * 0.5f / nr.dist * hmax(nr.d2, 1e-20f);
     const V3 gdl = normalize_adj(nr.dl, gsd) + (2.0f * gd2) * nr.dl;
     gso = gso - gdl;
@@ -369,6 +440,7 @@ __device__ void direct_adjoint(const Tables& T, const Cfg& C,
     gl[12] += nr.sx * dot(gdl, ta) + nr.sy * dot(gdl, ba);
     const V3 v[3] = {gdl, (nr.sx * rad) * gdl, (nr.sy * rad) * gdl};
     const int at[3] = {0, 14, 17};
+#pragma unroll
     for (int k = 0; k < 3; ++k) {
       gl[at[k]] += v[k].x;
       gl[at[k] + 1] += v[k].y;
@@ -377,88 +449,253 @@ __device__ void direct_adjoint(const Tables& T, const Cfg& C,
     gPbar = gPbar + gso;
     gNbar = gNbar + eps * gso;
     if (live) gp[kEps] += dot(gso, sf.nbar);
-    add_light<Scr::kAtomic>(G, live, li, gl);
+    cm.add_light(live, li, gl);
   }
   // the soft surface into every hypothesis
-  trace_adj(T, C, G, live, r, S, sf, gCov, 0.0f, gPbar, gNbar, gAlb, go, gd,
-            gMint);
-  if (live && (G.wrt & kWPar)) {
+  cm.trace_adj(T, C, live, r, seg, sf, gCov, 0.0f, gPbar, gNbar, gAlb, go,
+               gd, gMint);
+  if (live && (cm.wrt() & kWPar)) {
     clip_adj(T.par, o, d, gMint, go, gd, gp);
     camera_adj(T.par, DS.lens(), col, row, samp, spp, go, gd, gp);
   }
 }
 
-// The block's rays (for_rays): each ray's adjoint adds into G and gp; in
-// direct mode (kDirect) direct_adjoint's.
-template <bool kRR, bool kDirect, class Scr>
-__device__ __forceinline__ void rays(const AdjParams& p, const Tables& T,
-                                     const Cfg& C, const Grads& G, Scr& S,
-                                     float (&gp)[kNPar]) {
-  for_rays<kRR>(p, [&](const Draws& D, bool active, int rid_g, V3 g) {
-    if constexpr (kDirect)
-      direct_adjoint<Scr>(T, C, direct_slots(D, p.dkeys, rid_g), active,
-                          rid_g, p.spp, p.width, g, G, S, gp);
-    else
-      ray_adjoint<kRR, Scr>(T, C, D, active, rid_g, p.spp, p.width,
-                            p.bounces, p.rr_start, p.normalize_emitter != 0,
-                            g, G, S, gp);
-  });
-}
+// ---------------------------------------------------------------------------
+// Up to 64 objects per type: the group layout (pathtrace_soft_adj.cuh)
+// ---------------------------------------------------------------------------
 
-template <bool kRR, bool kDirect>
-__global__ void __launch_bounds__(kBlock)
-    pathtrace_bwd_soft_kernel(const __grid_constant__ AdjParams p) {
+// The group layout's composite for the adjoints above: the ray's group of
+// G lanes, its tape, scratch and gradient buffer in the group's slice.
+template <int G>
+struct GroupComp {
+  static constexpr int kLanes = G;
+  static constexpr int kDraw = kTapeSeg;
+  Grp<G> gr;
+  SGrads SG;
+  __device__ __forceinline__ int lane() const { return gr.lane; }
+  __device__ __forceinline__ int wrt() const { return SG.wrt; }
+  __device__ __forceinline__ void sync() const { __syncwarp(); }
+  __device__ __forceinline__ float* seg(int s) const { return gr.seg(s); }
+  __device__ __forceinline__ float* pwc() const { return gr.s + gr.L->pwc; }
+  __device__ __forceinline__ void trace_fwd(const Tables& T, const Cfg& C,
+                                            const SRay& r, float* seg,
+                                            Surf& sf) const {
+    trace_fwd_g(gr, T, C, r, seg, sf);
+  }
+  // the sweep's surface: the one the replay taped
+  __device__ __forceinline__ Surf surface(const Tables&, const Cfg&,
+                                          const SRay&,
+                                          const float* seg) const {
+    return surf_of(seg);
+  }
+  __device__ __forceinline__ void trace_adj(
+      const Tables& T, const Cfg& C, bool live, const SRay& r,
+      const float* seg, const Surf& sf, float gcov, float gtbar, V3 gpbar,
+      V3 gnbar, V3 galb, V3& go, V3& gd, float& gmint) const {
+    trace_adj_g(gr, T, C, SG, live, r, seg, sf, gcov, gtbar, gpbar, gnbar,
+                galb, go, gd, gmint);
+  }
+  __device__ __forceinline__ float vis_fwd(const Tables& T, const Cfg& C,
+                                           const SRay& r, float dist) const {
+    return vis_fwd_g(gr, T, C, r, dist);
+  }
+  __device__ __forceinline__ void vis_adj(const Tables& T, const Cfg& C,
+                                          bool live, const SRay& r,
+                                          float dist, float gvis, V3& go,
+                                          V3& gd, float& gdist) const {
+    vis_adj_g(gr, T, C, SG, live, r, dist, gvis, go, gd, gdist);
+  }
+  // light li's row cotangents gl: lane 0's plain adds, where live
+  __device__ __forceinline__ void add_light(bool live, int li,
+                                            const float (&gl)[kLig]) const {
+    if (!(SG.wrt & kWLig) || !live || gr.lane != 0) return;
+#pragma unroll
+    for (int w = 0; w < kLig; ++w)
+      if (gl[w] != 0.0f) SG.lig[li * kLig + w] += gl[w];
+  }
+};
+
+// One launch: the pass's parameters, the groups' layout and the staged
+// tables' floats.
+struct SoftParams {
+  AdjParams p;
+  Layout L;
+  int n_tab;
+};
+
+// The block's groups take rays in a grid-stride loop, a warp's 32 / G
+// groups consecutive rays and in step; each group's buffer collects its
+// rays' cotangents, and the block adds its groups' buffers into the outputs
+// at the end.
+template <int G, bool kRR, bool kDirect>
+__global__ void __launch_bounds__(kMaxBlock)
+    pathtrace_bwd_soft_kernel(const __grid_constant__ SoftParams q) {
+  const AdjParams& p = q.p;
+  const Layout& L = q.L;
   extern __shared__ float4 smem4[];  // 16-byte aligned
   float* smem = reinterpret_cast<float*>(smem4);
   const Tables T = stage_tables(smem, p.par, p.sph, p.n_sph, p.tri, p.n_tri,
                                 p.mat, p.n_mat, p.lig, p.n_lig,
                                 p.two_sided != 0);
-  // one gradient buffer per warp, in the tables' layout
-  const int n_tab = tables_floats(p.n_sph, p.n_tri, p.n_mat, p.n_lig);
-  const int warps = (blockDim.x + 31) / 32;
-  float* g_all = smem + n_tab;
-  float* g_par = g_all + (threadIdx.x >> 5) * n_tab;
-  Grads G;
-  G.sph = g_par + kParPad;
-  G.tri = G.sph + kSph * p.n_sph;
-  G.mat = G.tri + kTri * p.n_tri;
-  G.lig = G.mat + kMat * p.n_mat;
-  G.wrt = p.wrt;
-  zero(g_all, warps * n_tab);
+  const int groups = blockDim.x / G;
+  float* slices = smem + q.n_tab;
+  zero(slices, groups * L.size);
+  GroupComp<G> cm;
+  Grp<G>& gr = cm.gr;
+  gr.lane = threadIdx.x & (G - 1);
+  gr.gq = (threadIdx.x & 31) / G;
+  gr.s = slices + (threadIdx.x / G) * L.size;
+  gr.L = &L;
+  // the group's row buffers, after its par
+  float* rb = gr.s + L.grad + kParPad;
+  SGrads& SG = cm.SG;
+  SG.sph = rb + (L.w_sph >= 0 ? L.w_sph : 0);
+  SG.tri = rb + (L.w_tri >= 0 ? L.w_tri : 0);
+  SG.mat = L.w_mat >= 0 ? rb + L.w_mat : nullptr;
+  SG.lig = L.w_lig >= 0 ? rb + L.w_lig : nullptr;
+  SG.wrt = p.wrt;
   __syncthreads();
 
   Cfg C;
   C.ibw = 1.0f / p.bw;
   C.itau = 1.0f / p.tau;
-  Scratch S;
   float gp[kNPar];
 #pragma unroll
   for (int i = 0; i < kNPar; ++i) gp[i] = 0.0f;
-  rays<kRR, kDirect>(p, T, C, G, S, gp);
-  if (p.wrt & kWPar) add_par(g_par, gp);
+  const int per_warp = 32 / G;
+  const int n_draws = n_draws_of(p.n_lig, p.bounces, kRR);
+  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int n_warps = (gridDim.x * blockDim.x) >> 5;
+  for (int base = warp * per_warp; base < p.n_rays;
+       base += n_warps * per_warp) {
+    const int rid = base + gr.gq;
+    V3 g = mk(0.0f, 0.0f, 0.0f);
+    if (rid < p.n_rays) {
+      const float* gg = p.g + 3 * static_cast<size_t>(rid);
+      g = mk(gg[0], gg[1], gg[2]);
+    }
+    const bool active = g.x != 0.0f || g.y != 0.0f || g.z != 0.0f;
+    const int rid_g = rid + p.ray_offset;
+    Draws D;
+    D.u = p.u;
+    D.n_rays = p.n_rays;
+    D.rid = rid;
+    D.k0 = p.k0;
+    D.k1 = p.k1;
+    D.base = static_cast<uint32_t>(rid_g) * static_cast<uint32_t>(2 * n_draws);
+    if constexpr (kDirect)
+      direct_adjoint(cm, T, C, direct_slots(D, p.dkeys, rid_g), active, rid_g,
+                     p.spp, p.width, g, gp);
+    else
+      ray_adjoint<kRR>(cm, T, C, D, active, rid_g, p.spp, p.width, p.bounces,
+                       p.rr_start, p.normalize_emitter != 0, g, gp);
+  }
+  if ((p.wrt & kWPar) && gr.lane == 0)
+    for (int i = 0; i < kNPar; ++i) gr.s[L.grad + i] += gp[i];
   __syncthreads();
-  const int o_sph = kParPad, o_tri = o_sph + kSph * p.n_sph,
-            o_mat = o_tri + kTri * p.n_tri, o_lig = o_mat + kMat * p.n_mat;
-  if (p.wrt & kWPar) flush(p.dpar, g_all, kNPar, n_tab, warps);
-  if (p.wrt & kWSph) flush(p.dsph, g_all + o_sph, kSph * p.n_sph, n_tab, warps);
-  if (p.wrt & kWTri) flush(p.dtri, g_all + o_tri, kTri * p.n_tri, n_tab, warps);
-  if (p.wrt & kWMat) flush(p.dmat, g_all + o_mat, kMat * p.n_mat, n_tab, warps);
-  if (p.wrt & kWLig) flush(p.dlig, g_all + o_lig, kLig * p.n_lig, n_tab, warps);
+  if (p.wrt & kWPar) flush(p.dpar, slices + L.grad, kNPar, L.size, groups);
+  const float* rb0 = slices + L.grad + kParPad;
+  if (L.w_sph >= 0)
+    flush(p.dsph, rb0 + L.w_sph, kSph * p.n_sph, L.size, groups);
+  if (L.w_tri >= 0)
+    flush(p.dtri, rb0 + L.w_tri, kTri * p.n_tri, L.size, groups);
+  if (L.w_mat >= 0)
+    flush(p.dmat, rb0 + L.w_mat, kMat * p.n_mat, L.size, groups);
+  if (L.w_lig >= 0)
+    flush(p.dlig, rb0 + L.w_lig, kLig * p.n_lig, L.size, groups);
 }
 
+using Kernel = void (*)(SoftParams);
+
+Kernel kernel_for(int G) {
+  return G == 4   ? pathtrace_bwd_soft_kernel<4, kBuildRR, kBuildDirect>
+         : G == 8 ? pathtrace_bwd_soft_kernel<8, kBuildRR, kBuildDirect>
+                  : pathtrace_bwd_soft_kernel<32, kBuildRR, kBuildDirect>;
+}
+
+// What the last launch took (rt_soft_last).
+int g_last[8] = {};
+
 // ---------------------------------------------------------------------------
-// Past 64 objects per type (rt_pathtrace_bwd_soft_large), up to DIFF_TABLE_MAX
-// = 4096 per type: JAX's two-level composite over every SOFT_CHUNK span
-// (pathtrace_soft_adj.cuh, SpanScratch). Soft cotangents reach every live
-// hypothesis on every segment, so the per-warp gradient buffers of the instance
-// above (four copies of the tables) do not fit: the block keeps one buffer,
-// which its warps add into atomically (wadd<true>), where the tables and it fit
-// in kResidentBytes each (tables staged as above); past that the sphere and
-// triangle tables are read from global memory (every lane of a warp reads the
-// same row: one L1 line) and their cotangents are added into the global outputs
-// (warp sums, one atomicAdd per word, row and warp), par, mat and lig staying
-// in the block's buffer.
+// Past 64 objects per type: the span kernel (pathtrace_soft_span.cuh), one
+// thread per ray, the warp's lanes summing each row word by a butterfly.
+// The group layout took 9.57 s here against its 7.29 s at the main path's
+// 1024^2 (one ray per warp at 8 resident warps per SM against 32 rays per
+// warp at 12, the same lane work per ray; PERF.md §6 row 2s'), so this
+// stays.
 // ---------------------------------------------------------------------------
+
+namespace large {
+
+using namespace rt::soft::span;
+
+constexpr int kBlock = 128;
+
+// The span kernel's composite for the adjoints above: one thread per ray,
+// its tape (the ray's words, then its draws), path weights and span scratch
+// in local memory; row cotangents summed over the warp and added
+// atomically (wadd; zero where !live).
+struct SpanComp {
+  static constexpr int kLanes = 1;
+  static constexpr int kDraw = kTapeRay;
+  SpanScratch S;
+  Grads G;
+  int tw;  // tape words per segment: kDraw + 2 + 2 n_lig
+  float tape[kMaxSeg * (kDraw + 2 + 2 * kMaxLights)];
+  float pw[kMaxLights + 1];
+  __device__ __forceinline__ int lane() const { return 0; }
+  __device__ __forceinline__ int wrt() const { return G.wrt; }
+  __device__ __forceinline__ void sync() const {}
+  __device__ __forceinline__ float* seg(int s) { return tape + s * tw; }
+  __device__ __forceinline__ float* pwc() { return pw; }
+  __device__ __forceinline__ void trace_fwd(const Tables& T, const Cfg& C,
+                                            const SRay& r, float*, Surf& sf) {
+    span::trace_fwd(T, C, r, S, sf);
+  }
+  // the sweep's surface: the segment's composite again (it refills S)
+  __device__ __forceinline__ Surf surface(const Tables& T, const Cfg& C,
+                                          const SRay& r, const float*) {
+    Surf sf;
+    span::trace_fwd(T, C, r, S, sf);
+    return sf;
+  }
+  __device__ __forceinline__ void trace_adj(
+      const Tables& T, const Cfg& C, bool live, const SRay& r, const float*,
+      const Surf& sf, float gcov, float gtbar, V3 gpbar, V3 gnbar, V3 galb,
+      V3& go, V3& gd, float& gmint) {
+    span::trace_adj(T, C, G, live, r, S, sf, gcov, gtbar, gpbar, gnbar, galb,
+                    go, gd, gmint);
+  }
+  __device__ __forceinline__ float vis_fwd(const Tables& T, const Cfg& C,
+                                           const SRay& r, float dist) {
+    return span::vis_fwd(T, C, r, dist, S);
+  }
+  __device__ __forceinline__ void vis_adj(const Tables& T, const Cfg& C,
+                                          bool live, const SRay& r, float,
+                                          float gvis, V3& go, V3& gd,
+                                          float& gdist) {
+    span::vis_adj(T, C, G, live, r, gvis, S, go, gd, gdist);
+  }
+  __device__ __forceinline__ void add_light(bool live, int li,
+                                            const float (&gl)[kLig]) {
+    if (!(G.wrt & kWLig)) return;
+#pragma unroll
+    for (int w = 0; w < kLig; ++w)
+      wadd(G.lig + li * kLig + w, live ? gl[w] : 0.0f);
+  }
+};
+
+// Past 64 objects per type (rt_pathtrace_bwd_soft_large), up to
+// DIFF_TABLE_MAX = 4096 per type: JAX's two-level composite over every
+// SOFT_CHUNK span (pathtrace_soft_span.cuh). Soft cotangents reach every
+// live hypothesis on every segment, so the block keeps one gradient
+// buffer, which its warps add into atomically (wadd), where the sphere and
+// triangle tables and their buffers fit in kResidentBytes (tables staged
+// as the group layout's); past that the sphere and triangle tables are read
+// from global memory (every lane of a warp reads the same row: one L1
+// line) and their cotangents are added into the global outputs (warp sums,
+// one atomicAdd per word, row and warp), par, mat and lig staying in the
+// block's buffer.
 
 constexpr size_t kResidentBytes = 48 * 1024;  // sphere and triangle rows
 
@@ -485,23 +722,31 @@ __global__ void __launch_bounds__(kBlock)
   // the block's gradient buffer, in the staged tables' layout
   const int n_tab = tables_floats(ns, nt, p.n_mat, p.n_lig);
   float* g_par = smem + n_tab;
-  Grads G;
+  SpanComp cm;
+  Grads& G = cm.G;
   G.sph = q.resident ? g_par + kParPad : p.dsph;
   G.tri = q.resident ? g_par + kParPad + kSph * ns : p.dtri;
   G.mat = g_par + kParPad + kSph * ns + kTri * nt;
   G.lig = G.mat + kMat * p.n_mat;
   G.wrt = p.wrt;
+  cm.tw = SpanComp::kDraw + 2 + 2 * p.n_lig;
   zero(g_par, n_tab);
   __syncthreads();
 
   Cfg C;
   C.ibw = 1.0f / p.bw;
   C.itau = 1.0f / p.tau;
-  SpanScratch S;
   float gp[kNPar];
 #pragma unroll
   for (int i = 0; i < kNPar; ++i) gp[i] = 0.0f;
-  rays<kRR, kDirect>(p, T, C, G, S, gp);
+  for_rays<kRR>(p, [&](const Draws& D, bool active, int rid_g, V3 g) {
+    if constexpr (kDirect)
+      direct_adjoint(cm, T, C, direct_slots(D, p.dkeys, rid_g), active, rid_g,
+                     p.spp, p.width, g, gp);
+    else
+      ray_adjoint<kRR>(cm, T, C, D, active, rid_g, p.spp, p.width, p.bounces,
+                       p.rr_start, p.normalize_emitter != 0, g, gp);
+  });
   if (p.wrt & kWPar) add_par(g_par, gp);
   __syncthreads();
   if (p.wrt & kWPar) flush(p.dpar, g_par, kNPar);
@@ -510,6 +755,106 @@ __global__ void __launch_bounds__(kBlock)
   if (p.wrt & kWMat) flush(p.dmat, G.mat, kMat * p.n_mat);
   if (p.wrt & kWLig) flush(p.dlig, G.lig, kLig * p.n_lig);
 }
+
+// Launches it on the pass p (the C entry's arguments checked).
+int launch(const AdjParams& p, int n_sph, int n_tri, int n_mat, int n_lig,
+           void* stream) {
+  LargeParams q;
+  q.p = p;
+  q.resident = sizeof(float) * (kSph * static_cast<size_t>(n_sph) +
+                                kTri * static_cast<size_t>(n_tri)) <=
+               kResidentBytes;
+  // the staged tables and the block's gradient buffer in their layout
+  const size_t smem =
+      2 * sizeof(float) *
+      tables_floats(q.resident ? n_sph : 0, q.resident ? n_tri : 0, n_mat,
+                    n_lig);
+  void (*kernel)(LargeParams) =
+      pathtrace_bwd_soft_large_kernel<kBuildRR, kBuildDirect>;
+  int grid = 0;
+  cudaError_t err = fit_grid(kernel, kBlock, smem, p.n_rays, grid);
+  int per_sm = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kBlock, smem);
+  cudaFuncAttributes fa;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int last[8] = {1, kBlock / 32, q.resident, static_cast<int>(smem),
+                       !q.resident && (p.wrt & (kWSph | kWTri)) ? 1 : 0,
+                       per_sm * kBlock / 32, fa.numRegs,
+                       static_cast<int>(fa.localSizeBytes)};
+  for (int k = 0; k < 8; ++k) g_last[k] = last[k];
+  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(q);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace large
+
+// The group size for the widest composite w. Each lane runs its ray's
+// scalar work, so fewer lanes are cheaper (cornell's 12 hypotheses: 31.5
+// ms at G = 4, 46.8 at 8, 138.2 at 32; PERF.md §6 row 2s), while a group's
+// slice grows as w^2: wider composites take more lanes per ray so that the
+// slices of a block still fit in shared memory. The thresholds 16 and 32
+// come from that fit, not from a timing: no scene of 17-64 objects has
+// been timed at another G.
+int group_for(int w) { return w <= 16 ? 4 : w <= 32 ? 8 : 32; }
+
+// Launches kernel 2s's group layout on the pass p (at most 64 objects per
+// type: the tables staged in shared memory) in the block size with the
+// most resident warps per SM (the occupancy API, which counts shared
+// memory and registers; on a tie the larger block).
+int launch(const AdjParams& p, void* stream) {
+  const int nseg = kBuildDirect ? 1 : p.bounces + 1;
+  const int w =
+      make_layout(32, p.n_sph, p.n_tri, p.n_mat, p.n_lig, nseg, p.wrt).w;
+  const int G = group_for(w);
+  const Kernel kernel = kernel_for(G);
+  int dev = 0, opt = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&opt, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                 dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, opt);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  SoftParams q;
+  q.p = p;
+  q.L = make_layout(G, p.n_sph, p.n_tri, p.n_mat, p.n_lig, nseg, p.wrt);
+  q.n_tab = tables_floats(p.n_sph, p.n_tri, p.n_mat, p.n_lig);
+  int best = 0, threads = 0;
+  size_t smem = 0;
+  for (int warps = 4; warps >= 1; warps /= 2) {
+    const int t = 32 * warps;
+    const size_t bytes =
+        sizeof(float) * (q.n_tab + static_cast<size_t>(t / G) * q.L.size);
+    if (bytes > static_cast<size_t>(opt)) continue;
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, t,
+                                                        bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm * warps > best) {
+      best = per_sm * warps;
+      threads = t;
+      smem = bytes;
+    }
+  }
+  if (best == 0) return static_cast<int>(cudaErrorInvalidValue);
+  int grid = 0;
+  // fit_grid counts one ray per thread: a group takes one
+  err = fit_grid(kernel, threads, smem, p.n_rays * G, grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int last[8] = {G,    threads / 32, 1, static_cast<int>(smem), 0,
+                       best, fa.numRegs,   static_cast<int>(fa.localSizeBytes)};
+  for (int k = 0; k < 8; ++k) g_last[k] = last[k];
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(q);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // C interface (bound with ctypes). Adds the soft program's cotangents of
@@ -517,7 +862,8 @@ __global__ void __launch_bounds__(kBlock)
 // (L, 20), which the caller zeroes; `wrt` is a bit set of the groups (1 par,
 // 2 sph, 4 tri, 8 mat, 16 lig); bw and tau the soft bandwidth and the depth
 // order's temperature. Other arguments as rt_pathtrace_bwd (direct != 0:
-// direct mode's soft shade). At most 64 objects per type. Launches on
+// direct mode's soft shade); rr and direct are the build's RT_SOFT_MODE.
+// At most 64 objects per type. Launches on
 // `stream`, allocates nothing, does not synchronise; returns
 // cudaGetLastError() after the launch.
 extern "C" int rt_pathtrace_bwd_soft(
@@ -530,7 +876,8 @@ extern "C" int rt_pathtrace_bwd_soft(
     float* dmat, float* dlig, void* stream) {
   if (bounces < 0 || bounces >= kMaxSeg || n_lig > kMaxLights ||
       n_sph > kUnroll || n_tri > kUnroll || !(bw > 0.0f) || !(tau > 0.0f) ||
-      (direct && (bounces || rr)))
+      (direct && (bounces || rr)) || (rr != 0) != kBuildRR ||
+      (direct != 0) != kBuildDirect)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0 || wrt == 0) return static_cast<int>(cudaGetLastError());
   AdjParams p = adj_params(par, sph, n_sph, tri, n_tri, mat, n_mat, lig,
@@ -541,18 +888,7 @@ extern "C" int rt_pathtrace_bwd_soft(
   p.bw = bw;
   p.tau = tau;
   if (direct) set_direct_keys(p);
-  // the tables and one gradient buffer per warp
-  const size_t smem = (1 + kBlock / 32) * sizeof(float) *
-                      tables_floats(n_sph, n_tri, n_mat, n_lig);
-  void (*kernel)(AdjParams) =
-      direct ? pathtrace_bwd_soft_kernel<false, true>
-      : rr   ? pathtrace_bwd_soft_kernel<true, false>
-             : pathtrace_bwd_soft_kernel<false, false>;
-  int grid = 0;
-  const cudaError_t err = fit_grid(kernel, kBlock, smem, n_rays, grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  return launch(p, stream);
 }
 
 // C interface past 64 objects per type: rt_pathtrace_bwd_soft's
@@ -566,35 +902,28 @@ extern "C" int rt_pathtrace_bwd_soft_large(
     int rr_start_depth, int direct, int two_sided, int normalize_emitter,
     int wrt, float bw, float tau, float* dpar, float* dsph, float* dtri,
     float* dmat, float* dlig, void* stream) {
-  const int spans = (n_sph + kSpan - 1) / kSpan + (n_tri + kSpan - 1) / kSpan;
   if (bounces < 0 || bounces >= kMaxSeg || n_lig > kMaxLights ||
-      spans > kMaxSpans || !(bw > 0.0f) || !(tau > 0.0f) ||
-      (direct && (bounces || rr)))
+      n_spans_of(n_sph, n_tri) > kMaxSpans || !(bw > 0.0f) ||
+      !(tau > 0.0f) || (direct && (bounces || rr)) ||
+      (rr != 0) != kBuildRR || (direct != 0) != kBuildDirect)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0 || wrt == 0) return static_cast<int>(cudaGetLastError());
-  LargeParams q;
-  q.p = adj_params(par, sph, n_sph, tri, n_tri, mat, n_mat, lig, n_lig, g,
-                   n_rays, ray_offset, u_planes, k0, k1, spp, width, bounces,
-                   rr_start_depth, two_sided, normalize_emitter, wrt, dpar,
-                   dsph, dtri, dmat, dlig);
-  q.p.bw = bw;
-  q.p.tau = tau;
-  if (direct) set_direct_keys(q.p);
-  q.resident = sizeof(float) * (kSph * static_cast<size_t>(n_sph) +
-                                kTri * static_cast<size_t>(n_tri)) <=
-               kResidentBytes;
-  // the staged tables and the block's gradient buffer in their layout
-  const size_t smem =
-      2 * sizeof(float) *
-      tables_floats(q.resident ? n_sph : 0, q.resident ? n_tri : 0, n_mat,
-                    n_lig);
-  void (*kernel)(LargeParams) =
-      direct ? pathtrace_bwd_soft_large_kernel<false, true>
-      : rr   ? pathtrace_bwd_soft_large_kernel<true, false>
-             : pathtrace_bwd_soft_large_kernel<false, false>;
-  int grid = 0;
-  const cudaError_t err = fit_grid(kernel, kBlock, smem, n_rays, grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(q);
-  return static_cast<int>(cudaGetLastError());
+  AdjParams p = adj_params(par, sph, n_sph, tri, n_tri, mat, n_mat, lig,
+                           n_lig, g, n_rays, ray_offset, u_planes, k0, k1,
+                           spp, width, bounces, rr_start_depth, two_sided,
+                           normalize_emitter, wrt, dpar, dsph, dtri, dmat,
+                           dlig);
+  p.bw = bw;
+  p.tau = tau;
+  if (direct) set_direct_keys(p);
+  return large::launch(p, n_sph, n_tri, n_mat, n_lig, stream);
+}
+
+// What the last launch took, into out[8]: the lanes per ray (1: the
+// large-table kernel's thread per ray), warps per block, staged sphere and
+// triangle tables (1/0), dynamic shared memory bytes per block, sphere and
+// triangle rows into global memory (1/0), resident warps per SM, and the
+// kernel's registers and local memory bytes per thread.
+extern "C" void rt_soft_last(int* out) {
+  for (int k = 0; k < 8; ++k) out[k] = g_last[k];
 }

@@ -1,8 +1,10 @@
 // The soft (edge-aware) pass and its hand-written adjoint, for kernel 2s
 // (megakernel_soft.cu): the counterpart of _tile_program_soft
-// (raytracing_tpu/ops/pallas/megakernel_grad.py:1516-2144), path mode.
-// The plain version is ops/megakernel_soft.py; the arithmetic below follows
-// it operation for operation (built with --fmad=false, as kernels 2 and 3).
+// (raytracing_tpu/ops/pallas/megakernel_grad.py:1516-2144), path and direct
+// mode. The plain version is ops/megakernel_soft.py; the arithmetic of each
+// hypothesis and of each ordered pair follows it operation for operation
+// (built with --fmad=false, as kernels 2 and 3); sums over hypotheses run
+// in another order.
 //
 // The pieces, each with its forward and its adjoint:
 //   * a hypothesis: one object's soft coverage alpha and depth t for a ray
@@ -14,29 +16,50 @@
 //     fields blended by w_i / cov where cov > first_good. Its adjoint never
 //     divides by (1 - alpha_j s_ij), which is 0 behind a near, fully covering
 //     surface: the exclusive products prod_{k != i, j} come from a suffix
-//     pass and a running prefix over j, O(N) per i as the forward. Past
-//     kUnroll hypotheses the spheres and the triangles each composite as one
-//     chunk (first_good 1e-9) and the two chunks' blends composite again;
-//     past kUnroll objects of a type, every kSpan span of a type does
-//     (SpanScratch, the large instance's section at the end);
+//     pass and a running prefix over j, O(N) per i as the forward. Up to
+//     kUnroll hypotheses one composite; past that JAX's two levels: every
+//     kSpan span of a type composites (first_good 1e-9), and the spans'
+//     blends composite again as hypotheses;
 //   * the shadow transmittance vis = prod_k (1 - alpha_k sigmoid((dist -
-//     t_k) / bw)) and its adjoint, by the same exclusive products;
+//     t_k) / bw)) and its adjoint, by the same exclusive products (past
+//     kUnroll a product per span, then over the spans);
 //   * the emitter race of the primary segment, NEE per light, and the
 //     bounce from the blended surface.
 // The gradient of JAX's jnp.maximum / jnp.minimum / jnp.clip splits at a tie
 // (hmax, hmin, clip01_d, pathtrace_adj.cuh); the guards are the forward's
 // double wheres.
 //
-// Row cotangents are dense: every hypothesis adds into its object's row on
-// every segment. All lanes of a warp walk the same objects in the same order
-// (the soft program has no early exit, so the sweep is converged by
-// construction), and each row word is summed over the warp by a shuffle
-// butterfly and added by lane 0 (wadd) into its warp's own gradient buffer,
-// a plain add with no atomic (shared-memory float atomics are
-// compare-and-swap loops on this card, PR 5's finding for kernel 2); the
-// block sums its warps' buffers once at the end (the large instance: one
-// buffer per block or the outputs, added into atomically). A lane without
-// a live segment takes part with its adds masked to zero.
+// The layout for the H100 (PERF.md §6 has the attribution that ranked
+// it). A group of G lanes (G a template parameter:
+// 4, 8 or 32, from the widest composite) takes one ray; the groups of a
+// warp step through their rays together (the soft program has no early exit
+// but the roulette and the scene box, so every group runs the same loops;
+// a group without a live segment runs them with its adds masked off). The
+// ray's scalar work (camera, bounce, NEE geometry, the emitter race) runs
+// in every lane of its group alike, so the group's lanes hold the same
+// values; the hypotheses of a composite are split over the lanes (lane l
+// owns i = l, l + G, ...), whose pair loops read alpha and t from shared
+// memory (one word for the group). Everything a lane indexes lives in its
+// group's slice of dynamic shared memory (Layout): the composite's alpha,
+// t, exclusive products, the pair sigmoids s_ij of the composite being
+// differentiated (S, kept from its forward for its adjoint), each lane's
+// row of suffix products and pair cotangents (GO), the two-level
+// composite's per-span arrays, and the ray's tape (per segment the ray, its
+// soft surface and, past kUnroll, every span's coverage, blend and outer
+// exclusive product, so that the sweep runs no forward composite besides
+// the one whose s_ij its adjoint reads). Sums over hypotheses are the
+// lanes' partial sums added by an xor butterfly over the group (the same
+// bits in every lane). Row cotangents go into the group's own gradient
+// buffer, in the tables' layout but holding only the groups in `wrt`: the
+// lane that owns a hypothesis adds its object's row words with a plain add
+// (no other lane of the block writes them, no atomic); the group's lanes
+// whose objects share a material row sum their words first by
+// pathtrace_adj.cuh's rows_of and add_rows' shuffle tree over those lanes
+// (add_rows_plain); lane 0 adds the light rows and par, which come from the
+// scalar work. The block sums its groups' buffers into the outputs once, at
+// the end (pathtrace_adj.cuh flush). This layout serves the entry of at
+// most 64 objects per type; past that the span kernel of
+// pathtrace_soft_span.cuh runs (PERF.md §6 says why).
 #pragma once
 
 #include <cstddef>
@@ -49,8 +72,9 @@
 namespace rt {
 namespace soft {
 
-constexpr int kUnroll = 64;            // JAX's UNROLL_OBJECTS (and SOFT_CHUNK)
-constexpr int kMaxHyp = 2 * kUnroll;   // at most kUnroll per type
+constexpr int kUnroll = 64;   // JAX's UNROLL_OBJECTS: one composite up to this
+constexpr int kSpan = kUnroll;  // JAX's SOFT_CHUNK: rows per span past it
+constexpr int kMaxSpans = 128;  // DIFF_TABLE_MAX / kSpan of each type
 
 // The reciprocals of the bandwidth and of the depth order's temperature:
 // a sigmoid's argument is x * (1 / bw), not x / bw (one IEEE division
@@ -60,25 +84,11 @@ struct Cfg {
   float ibw, itau;
 };
 
-// 1 / (1 + exp(-x)): 0 at x -> -inf, 1 at x -> +inf, never NaN
+// 1 / (1 + exp(-x)): 0 at x -> -inf, 1 at x -> +inf, never NaN. On sm_90a
+// it is two MUFU operations (EX2 inside expf, RCP inside the IEEE
+// division), beside the FP32 ones.
 __device__ __forceinline__ float sigm(float x) {
   return 1.0f / (1.0f + expf(-x));
-}
-
-// Adds v summed over the warp into *p, a word of the warp's own gradient
-// buffer (lane 0 adds, no other lane or warp writes it; all 32 lanes call).
-// kAtomic: a buffer that other warps add into too (a block's in shared
-// memory, or the outputs in global memory), so lane 0 adds atomically.
-template <bool kAtomic = false>
-__device__ __forceinline__ void wadd(float* p, float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  if ((threadIdx.x & 31) == 0 && v != 0.0f) {
-    if (kAtomic)
-      atomicAdd(p, v);
-    else
-      *p += v;
-  }
 }
 
 // One segment's rays.
@@ -102,21 +112,66 @@ __device__ __forceinline__ int mat_row(const Tables& T, float mf) {
   return static_cast<float>(m) == mf ? m : -1;
 }
 
-// Per-thread scratch of one segment, indexed by hypothesis (objects:
-// spheres, then triangles): the composite's alpha, t and exclusive
-// products (trans), then the adjoint's per-hypothesis sums; the shadow
-// transmittance reuses the adjoint's arrays while it runs. It lives in
-// local memory (4 KB a thread); a scene uses the first n_sph + n_tri words
-// of each array. A 16-entry instance for small scenes took as long on
-// cornell's 1024^2 b5 step cotangent (profile_kernels in turns on an
-// NVIDIA H100 80GB HBM3 at 700 W: 39.2-40.4 ms against 40.2-40.4 ms for
-// this one): local memory interleaves a word across a warp's lanes, so the
-// lines a scene touches are the same.
-struct Scratch {
-  static constexpr bool kAtomic = false;  // adds into per-warp buffers
-  float a[kMaxHyp], t[kMaxHyp], tr[kMaxHyp];
-  float A[kMaxHyp], ga[kMaxHyp], gt[kMaxHyp], sf[kMaxHyp], sc[kMaxHyp];
+// Component c of draw slot j of this ray (Draws::pair's u0 or u1; the
+// u-planes or threefry).
+__device__ __forceinline__ float draw(const Draws& D, int j, int c) {
+  if (D.u != nullptr)
+    return __ldg(D.u + static_cast<size_t>(2 * j + c) * D.n_rays + D.rid);
+  return threefry_uniform(D.k0, D.k1,
+                          D.base + 2u * static_cast<uint32_t>(j) +
+                              static_cast<uint32_t>(c));
+}
+
+// A group's gradient buffers in shared memory, laid out like the tables.
+struct SGrads {
+  float* sph;
+  float* tri;
+  float* mat;
+  float* lig;
+  int wrt;
 };
+
+// hyp_adj's adder for the group layout: word w of sphere (tri false) or
+// triangle row k of the group's buffer, the owning lane's plain add where
+// live.
+struct OwnerAdd {
+  const SGrads& G;
+  bool live;
+  __device__ __forceinline__ void operator()(bool tri, int k, int w,
+                                             float v) const {
+    if (live && v != 0.0f)
+      (tri ? G.tri : G.sph)[k * (tri ? kTri : kSph) + w] += v;
+  }
+};
+
+
+// add_rows (pathtrace_adj.cuh) into a buffer that no other group writes:
+// the lanes of a row's group sum by the same shuffle tree, the lowest adds
+// with a plain add. Warp-uniform.
+template <int N>
+__device__ __forceinline__ void add_rows_plain(const Rows& r, float* p,
+                                               float (&v)[N]) {
+  if (!r.any) return;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = r.peers & ((1u << lane) - 1u);
+  unsigned higher = r.peers & ~below & ~(1u << lane);
+  int rank = __popc(below);
+  while (__any_sync(kFull, higher != 0u)) {
+    const int src = higher != 0u ? __ffs(higher) - 1 : lane;
+#pragma unroll
+    for (int k = 0; k < N; ++k) {
+      const float x = __shfl_sync(kFull, v[k], src);
+      if (higher != 0u) v[k] += x;
+    }
+    higher &= ~__ballot_sync(kFull, rank & 1);
+    rank >>= 1;
+  }
+  if (r.peers != 0u && below == 0u) {
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      if (v[k] != 0.0f) p[k] += v[k];
+  }
+}
 
 // ---------------------------------------------------------------------------
 // hypotheses
@@ -180,12 +235,17 @@ __device__ __forceinline__ void hyp_fwd(const Tables& T, const Cfg& C, int k,
 
 // Adjoint of hyp_fwd for object k: from the cotangents ga (alpha), gt (t)
 // and, with kFields, gf (the 10 fields) to those of the ray (go, gd,
-// gmint) and of the object's rows (added warp-wide, zero where !live).
-// Warp-uniform: every lane calls it with the same k.
-template <bool kFields, bool kAtomic = false>
-__device__ void hyp_adj(const Tables& T, const Cfg& C, const Grads& G,
-                        bool live, int k, const SRay& r, float ga, float gt,
-                        const float* gf, V3& go, V3& gd, float& gmint) {
+// gmint) and of the object's rows: each word of its sphere or triangle row
+// (where that group is in wrt) to add(tri, row, word, v), and with kFields
+// the material row's three words to gmat (the caller adds them). The group
+// layout adds by the owning lane (OwnerAdd), the span kernel warp-wide
+// (pathtrace_soft_span.cuh).
+template <bool kFields, class Add>
+__device__ __forceinline__ void hyp_adj(const Tables& T, const Cfg& C,
+                                        int wrt, const Add& add, int k,
+                                        const SRay& r, float ga, float gt,
+                                        const float* gf, V3& go, V3& gd,
+                                        float& gmint, float (&gmat)[3]) {
   const float ibw = C.ibw;
   const V3 o = r.o, d = r.d;
   if (k < T.n_sph) {
@@ -213,12 +273,8 @@ __device__ void hyp_adj(const Tables& T, const Cfg& C, const Grads& G,
       gO = gO + gp;
       gD = gD + t * gp;
       gT += dot(gp, d);
-      if (G.wrt & kWMat) {
-        const int mr = mat_row(T, s[4]);
-        if (mr >= 0)  // uniform: the object's material
-          for (int w = 0; w < 3; ++w)
-            wadd<kAtomic>(G.mat + mr * kMat + w, live ? gf[7 + w] : 0.0f);
-      }
+#pragma unroll
+      for (int w = 0; w < 3; ++w) gmat[w] = gf[7 + w];
     }
     const float gs1 = ga * msk * s2;
     const float gs2 = ga * (s1 * msk);
@@ -236,12 +292,11 @@ __device__ void hyp_adj(const Tables& T, const Cfg& C, const Grads& G,
     gC = gC - gm;
     go = go + gO;
     gd = gd + gD;
-    if (G.wrt & kWSph) {
-      float* row = G.sph + k * kSph;
-      wadd<kAtomic>(row + 0, live ? gC.x : 0.0f);
-      wadd<kAtomic>(row + 1, live ? gC.y : 0.0f);
-      wadd<kAtomic>(row + 2, live ? gC.z : 0.0f);
-      wadd<kAtomic>(row + 3, live ? -2.0f * rad * gcq : 0.0f);
+    if (wrt & kWSph) {
+      add(false, k, 0, gC.x);
+      add(false, k, 1, gC.y);
+      add(false, k, 2, gC.z);
+      add(false, k, 3, -2.0f * rad * gcq);
     }
     return;
   }
@@ -284,12 +339,8 @@ __device__ void hyp_adj(const Tables& T, const Cfg& C, const Grads& G,
     gO = gO + gp;
     gD = gD + t * gp;
     gT += dot(gp, d);
-    if (G.wrt & kWMat) {
-      const int mr = mat_row(T, q[16]);
-      if (mr >= 0)
-        for (int w = 0; w < 3; ++w)
-          wadd<kAtomic>(G.mat + mr * kMat + w, live ? gf[7 + w] : 0.0f);
-    }
+#pragma unroll
+    for (int w = 0; w < 3; ++w) gmat[w] = gf[7 + w];
   }
   const float gs1 = ga * msk * sd * s2;
   const float gs2 = ga * (s1 * msk * sd);
@@ -310,19 +361,20 @@ __device__ void hyp_adj(const Tables& T, const Cfg& C, const Grads& G,
   gO = gO - gnt * ng + cross(d, goxd);
   go = go + gO;
   gd = gd + gD;
-  if (G.wrt & kWTri) {
+  if (wrt & kWTri) {
     const V3 v3[5] = {gdiv * d - gnt * o, gng * d, -gnb * d, -gng * r.oxd,
                       gnb * r.oxd};
-    float* row = G.tri + j * kTri;
 #pragma unroll
     for (int w = 0; w < 5; ++w) {  // n_geo, c1, c2, e1, e2
-      wadd<kAtomic>(row + 3 * w, live ? v3[w].x : 0.0f);
-      wadd<kAtomic>(row + 3 * w + 1, live ? v3[w].y : 0.0f);
-      wadd<kAtomic>(row + 3 * w + 2, live ? v3[w].z : 0.0f);
+      add(true, j, 3 * w, v3[w].x);
+      add(true, j, 3 * w + 1, v3[w].y);
+      add(true, j, 3 * w + 2, v3[w].z);
     }
-    wadd<kAtomic>(row + 15, live ? gnt : 0.0f);  // k
-    if (kFields)
-      for (int w = 0; w < 9; ++w) wadd<kAtomic>(row + 18 + w, live ? vn[w] : 0.0f);
+    add(true, j, 15, gnt);  // k
+    if (kFields) {
+#pragma unroll
+      for (int w = 0; w < 9; ++w) add(true, j, 18 + w, vn[w]);
+    }
   }
 }
 
@@ -330,7 +382,8 @@ __device__ void hyp_adj(const Tables& T, const Cfg& C, const Grads& G,
 // the composite
 // ---------------------------------------------------------------------------
 
-// Composite of hypotheses [lo, hi) with alpha a[] and t t[]: fills tr[]
+// The spans' composite (two levels), run by one lane of a group: the
+// composite of hypotheses [lo, hi) with alpha a[] and t t[]: fills tr[]
 // (each w_i / alpha_i) and returns the raw coverage, 1 / cov, the guard
 // and the blend of the fields fields(i, f).
 template <bool kBlend = true, class Fields>
@@ -363,12 +416,12 @@ __device__ __forceinline__ void comp_fwd(const float* a, const float* t,
   }
 }
 
-// Adjoint of comp_fwd: from the cotangents of the clipped coverage (gcov)
-// and of the blend (gb) to each hypothesis's alpha, t and fields, handed to
-// adj(i, ga_i, gt_i, gf_i) in order (warp-uniform). A, ga, gt, sf and sc
-// are scratch indexed like a[].
+// Adjoint of comp_fwd (one lane): from the cotangents of the clipped
+// coverage (gcov) and of the blend (gb) to each hypothesis's alpha, t and
+// fields, handed to adj(i, ga_i, gt_i, gf_i) in order. A, ga, gt, sf and
+// sc are scratch indexed like a[].
 template <class Fields, class Adj>
-__device__ void comp_adj(const float* a, const float* t, const float* tr,
+__device__ __forceinline__ void comp_adj(const float* a, const float* t, const float* tr,
                          int lo, int hi, float itau, float cov_raw, float icov,
                          bool good, float gcov, const float (&gb)[10],
                          Fields fields, Adj adj, float* A, float* ga,
@@ -424,16 +477,367 @@ __device__ void comp_adj(const float* a, const float* t, const float* tr,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// a group's shared slice
+// ---------------------------------------------------------------------------
+
+constexpr int kTapeRay = 11;   // per segment: o, d, mint, tp, path weight;
+constexpr int kTapeSeg = 24;   // then cov_raw, 1 / cov, good, the blend (13);
+                               // then its draws (the bounce's pair, each
+                               // light's NEE pair), then the spans
+constexpr int kTapeSpan = 12;  // per span: craw, its blend, the outer tr
+// per span of the outer composite: alpha, t, tr, its adjoint's A, ga, gt,
+// sf, sc, the shadow ray's span product, and what the outer adjoint hands
+// the span (its alpha's cotangent and its blend's, kSpanOut words)
+constexpr int kSpanOut = 11;
+constexpr int kCsWords = 9 + kSpanOut;
+enum { kCa, kCt, kCtr, kCA, kCga, kCgt, kCsf, kCsc, kVp };
+
+// Offsets (in floats) of a group's slice of dynamic shared memory, and the
+// composites it holds: one of w <= kUnroll hypotheses (nc = 0), or nc
+// spans of at most w each. The host computes it for the launch.
+struct Layout {
+  int w, nc, sp, tw, tspan;  // tspan: the spans' words in a segment
+  int a, t, tr, A, ga, gt, f, s, go, pwc, cs, tape, grad, size;
+  // the group's row buffers, at grad + kParPad: offsets, -1 where not held
+  int w_sph, w_tri, w_mat, w_lig;
+};
+
+__host__ __device__ inline int n_spans_of(int n_sph, int n_tri) {
+  return (n_sph + kSpan - 1) / kSpan + (n_tri + kSpan - 1) / kSpan;
+}
+
+__host__ __device__ inline Layout make_layout(int G, int n_sph, int n_tri,
+                                              int n_mat, int n_lig,
+                                              int nseg, int wrt) {
+  Layout L = {};
+  const int n = n_sph + n_tri;
+  if (n <= kUnroll) {
+    L.nc = 0;
+    L.w = n > 0 ? n : 1;
+  } else {
+    L.nc = n_spans_of(n_sph, n_tri);
+    const int ws = n_sph < kSpan ? n_sph : kSpan;
+    const int wt = n_tri < kSpan ? n_tri : kSpan;
+    L.w = ws > wt ? ws : wt;
+  }
+  L.sp = L.w | 1;  // odd: a column and a row of S both spread over the banks
+  L.tspan = kTapeSeg + 2 + 2 * n_lig;
+  L.tw = L.tspan + kTapeSpan * L.nc;
+  int o = 0;
+  L.a = o;
+  o += L.w;
+  L.t = o;
+  o += L.w;
+  L.tr = o;
+  o += L.w;
+  L.A = o;
+  o += L.w;
+  L.ga = o;
+  o += L.w;
+  L.gt = o;
+  o += L.w;
+  // S; the replay's fields (one composite) share its words: a composite
+  // that keeps its s_ij gathers no fields
+  L.s = L.f = o;
+  o += L.nc == 0 && 10 > L.sp ? 10 * L.w : L.w * L.sp;
+  L.go = o;
+  o += L.w * (G + 1);
+  L.pwc = o;
+  o += n_lig + 1;
+  L.cs = o;
+  o += kCsWords * L.nc;
+  L.tape = o;
+  o += nseg * L.tw;
+  L.grad = o;  // par
+  o += kParPad;
+  int g = 0;
+  L.w_sph = L.w_tri = L.w_mat = L.w_lig = -1;
+  if (wrt & kWSph) {
+    L.w_sph = g;
+    g += kSph * n_sph;
+  }
+  if (wrt & kWTri) {
+    L.w_tri = g;
+    g += kTri * n_tri;
+  }
+  if (wrt & kWMat) {
+    L.w_mat = g;
+    g += kMat * n_mat;
+  }
+  if (wrt & kWLig) {
+    L.w_lig = g;
+    g += kLig * n_lig;
+  }
+  o += g;
+  // a multiple of 32 words plus G: the groups of a warp start on
+  // different banks (G < 32)
+  L.size = (o + 31) / 32 * 32 + (G < 32 ? G : 0);
+  return L;
+}
+
+// One lane's view of its group: its lane index, its group's index in the
+// warp, and the group's slice.
+template <int G>
+struct Grp {
+  int lane, gq;
+  float* s;
+  const Layout* L;
+  __device__ __forceinline__ float* a() const { return s + L->a; }
+  __device__ __forceinline__ float* t() const { return s + L->t; }
+  __device__ __forceinline__ float* tr() const { return s + L->tr; }
+  __device__ __forceinline__ float* A() const { return s + L->A; }
+  __device__ __forceinline__ float* ga() const { return s + L->ga; }
+  __device__ __forceinline__ float* gt() const { return s + L->gt; }
+  __device__ __forceinline__ float* f() const { return s + L->f; }
+  __device__ __forceinline__ float* cs(int k) const {
+    return s + L->cs + k * L->nc;
+  }
+  __device__ __forceinline__ float* seg(int i) const {
+    return s + L->tape + i * L->tw;
+  }
+  // s_ij of the composite being differentiated, column-major
+  __device__ __forceinline__ float& S(int i, int j) const {
+    return s[L->s + j * L->sp + i];
+  }
+  // word j of lane q's row (suffix products, then pair cotangents)
+  __device__ __forceinline__ float& GO(int j, int q) const {
+    return s[L->go + j * (G + 1) + q];
+  }
+  __device__ __forceinline__ bool owns(int k) const {
+    return (k & (G - 1)) == lane;
+  }
+  // v summed over the group's lanes: the same bits in every lane (each
+  // level adds two equal pairs). Warp-uniform.
+  __device__ __forceinline__ float sum(float v) const {
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1)
+      v += __shfl_xor_sync(kFull, v, off, G);
+    return v;
+  }
+  __device__ __forceinline__ V3 sum(V3 v) const {
+    return mk(sum(v.x), sum(v.y), sum(v.z));
+  }
+  // the group's lanes for which p holds, as bits 0..G-1. Warp-uniform.
+  __device__ __forceinline__ unsigned ballot(bool p) const {
+    const unsigned b = __ballot_sync(kFull, p);
+    if constexpr (G == 32)
+      return b;
+    else
+      return (b >> (gq * G)) & ((1u << G) - 1u);
+  }
+};
+
+
+// ---------------------------------------------------------------------------
+// the group's composite
+// ---------------------------------------------------------------------------
+
+// The spans: span c holds objects [lo, hi) (spheres, then triangles), the
+// sphere table's kSpan-row spans first, each in the order the rows are
+// given (the caller hands triangles in Morton order past kUnroll, padded
+// with zero rows, which are value-neutral: alpha 0).
+__device__ __forceinline__ void span_of(const Tables& T, int c, int& lo,
+                                        int& hi) {
+  const int ns = (T.n_sph + kSpan - 1) / kSpan;
+  if (c < ns) {
+    lo = c * kSpan;
+    hi = min(T.n_sph, lo + kSpan);
+  } else {
+    const int j = (c - ns) * kSpan;
+    lo = T.n_sph + j;
+    hi = T.n_sph + min(T.n_tri, j + kSpan);
+  }
+}
+
+// alpha and t of objects [lo, hi) for ray r into the group's a[], t[]
+// (each lane its own), then __syncwarp.
+template <int G>
+__device__ __forceinline__ void load_hyps(const Grp<G>& gr, const Tables& T,
+                                          const Cfg& C, const SRay& r, int lo,
+                                          int hi) {
+  float* a = gr.a();
+  float* t = gr.t();
+  for (int i = gr.lane; i < hi - lo; i += G)
+    hyp_fwd<false>(T, C, lo + i, r, a[i], t[i], nullptr);
+  __syncwarp();
+}
+
+// The composite of the group's hypotheses [0, w) (a[], t[] in place): each
+// lane composites its own, tr[i] = prod_{j != i} (1 - a_j s_ij) in the
+// order of j, keeping s_ij in S with kKeepS; returns in every lane the raw
+// coverage, 1 / cov, the guard and, with kBlend, the blend of fields(i, f).
+// One composite (nc = 0) sums the coverage and the blend in hypothesis
+// order, as the plain version's _composite (each lane alike, the fields
+// gathered in f()): the replay's throughput, and so the roulette, then
+// round as there. A span's sums are the lanes' (the plain version sums a
+// span as a vector). The caller syncs before another lane writes a, t,
+// tr, S or f. Warp-uniform.
+template <int G, bool kKeepS, bool kBlend, class Fields>
+__device__ __forceinline__ void comp_fwd_g(const Grp<G>& gr, int w, float itau,
+                           float first_good, Fields fields, float& cov_raw,
+                           float& icov, bool& good, float (&blend)[10]) {
+  const float* a = gr.a();
+  const float* t = gr.t();
+  float* tr = gr.tr();
+  float part = 0.0f;
+  for (int i = gr.lane; i < w; i += G) {
+    const float ti = t[i];
+    float trans = 1.0f;
+    // j = i is a factor 1 (exact): the sigmoids of an unrolled step are
+    // independent, only the product waits
+#pragma unroll 4
+    for (int j = 0; j < w; ++j) {
+      const float s = sigm((ti - t[j]) * itau);
+      if (kKeepS) gr.S(i, j) = s;
+      trans = trans * (j == i ? 1.0f : 1.0f - a[j] * s);
+    }
+    tr[i] = trans;
+    part = part + a[i] * trans;
+  }
+  const bool ordered = gr.L->nc == 0;
+  if (ordered) {
+    __syncwarp();
+    cov_raw = 0.0f;
+    for (int i = 0; i < w; ++i) cov_raw = cov_raw + a[i] * tr[i];
+  } else {
+    cov_raw = gr.sum(part);
+  }
+  const float cov = clip01(cov_raw);
+  good = cov > first_good;
+  icov = 1.0f / (good ? cov : 1.0f);
+  if (kBlend && ordered) {
+    float* F = gr.f();
+    if (good)
+      for (int i = gr.lane; i < w; i += G) fields(i, F + 10 * i);
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < 10; ++k) blend[k] = 0.0f;
+    if (good)
+      for (int i = 0; i < w; ++i) {
+        const float wn = a[i] * tr[i] * icov;
+#pragma unroll
+        for (int k = 0; k < 10; ++k) blend[k] = blend[k] + wn * F[10 * i + k];
+      }
+    return;
+  }
+  float b[10];
+#pragma unroll
+  for (int k = 0; k < 10; ++k) b[k] = 0.0f;
+  if (kBlend && good)
+    for (int i = gr.lane; i < w; i += G) {
+      const float wn = a[i] * tr[i] * icov;
+      float f[10];
+      fields(i, f);
+#pragma unroll
+      for (int k = 0; k < 10; ++k) b[k] = b[k] + wn * f[k];
+    }
+#pragma unroll
+  for (int k = 0; k < 10; ++k) blend[k] = kBlend ? gr.sum(b[k]) : 0.0f;
+}
+
+// Adjoint of comp_fwd_g (after it with kKeepS and a __syncwarp): from the
+// cotangents of the clipped coverage (gcov) and of the blend (gb) to each
+// hypothesis's alpha, t and fields, handed to adj(has, i, ga_i, gt_i, gf_i)
+// by the owning lane in rounds of G hypotheses (every lane of the warp
+// calls it in every round, has false past w, so adj may hold warp
+// collectives). In each round every lane runs its hypothesis's suffix and
+// prefix passes over j (the serial version's operations, s_ij read from S)
+// and leaves the pair cotangents in its GO row; then the owner of j sums
+// the round's rows into ga[j] and gt[j]. Warp-uniform.
+template <int G, class Fields, class Adj>
+__device__ __forceinline__ void comp_adj_g(const Grp<G>& gr, int w, float itau,
+                           float cov_raw, float icov, bool good, float gcov,
+                           const float (&gb)[10], Fields fields, Adj adj) {
+  const float* a = gr.a();
+  const float* tr = gr.tr();
+  float* A = gr.A();
+  float* ga = gr.ga();
+  float* gt = gr.gt();
+  // the blend: A_i = gb . f_i, and through 1 / cov
+  float part = 0.0f;
+  for (int i = gr.lane; i < w; i += G) {
+    float Ai = 0.0f;
+    if (good) {
+      float f[10];
+      fields(i, f);
+#pragma unroll
+      for (int k = 0; k < 10; ++k) Ai += gb[k] * f[k];
+      part += Ai * (a[i] * tr[i]);
+    }
+    A[i] = Ai;
+    ga[i] = 0.0f;
+    gt[i] = 0.0f;
+  }
+  const float gicov = gr.sum(part);
+  if (good) gcov -= gicov * icov * icov;
+  const float gcr = gcov * clip01_d(cov_raw);
+  // w_i = a_i tr_i, tr_i = prod_{j != i} (1 - a_j s_ij)
+  for (int k0 = 0; k0 < w; k0 += G) {
+    const int i = k0 + gr.lane;
+    bool row = false;
+    if (i < w) {
+      const float gw = (good ? A[i] * icov : 0.0f) + gcr;
+      ga[i] += gw * tr[i];
+      const float gtr = gw * a[i];
+      if (gtr != 0.0f) {
+        row = true;
+        // suffix products over j > k (k != i)
+        float run = 1.0f;
+#pragma unroll 4
+        for (int j = w - 1; j >= 0; --j) {
+          gr.GO(j, gr.lane) = run;
+          run = run * (j == i ? 1.0f : 1.0f - a[j] * gr.S(i, j));
+        }
+        float pre = 1.0f, gti = 0.0f;
+#pragma unroll 4
+        for (int j = 0; j < w; ++j) {
+          const float sc = gr.S(i, j);
+          const float go_ij = -gtr * (pre * gr.GO(j, gr.lane));
+          gr.GO(j, gr.lane) = go_ij;
+          const float gx = go_ij * a[j] * sc * (1.0f - sc) * itau;
+          gti += j == i ? 0.0f : gx;
+          pre = pre * (j == i ? 1.0f : 1.0f - a[j] * sc);
+        }
+        gt[i] += gti;
+      }
+    }
+    const unsigned rows = gr.ballot(row);
+    __syncwarp();
+    // the round's pair cotangents into their columns
+    for (int j = gr.lane; j < w; j += G) {
+      float gaj = 0.0f, gtj = 0.0f;
+#pragma unroll 4
+      for (int q = 0; q < G; ++q) {
+        const bool use = ((rows >> q) & 1u) && k0 + q != j;
+        const float sc = gr.S(k0 + q, j);
+        const float go_ij = gr.GO(j, q);
+        gaj += use ? go_ij * sc : 0.0f;
+        gtj -= use ? go_ij * a[j] * sc * (1.0f - sc) * itau : 0.0f;
+      }
+      ga[j] += gaj;
+      gt[j] += gtj;
+    }
+    __syncwarp();
+  }
+  for (int k0 = 0; k0 < w; k0 += G) {
+    const int i = k0 + gr.lane;
+    const bool has = i < w;
+    const float wn = has && good ? a[i] * tr[i] * icov : 0.0f;
+    float gf[10];
+#pragma unroll
+    for (int k = 0; k < 10; ++k) gf[k] = gb[k] * wn;
+    adj(has, i, has ? ga[i] : 0.0f, has ? gt[i] : 0.0f, gf);
+  }
+}
+
+
 // The soft surface of one segment: JAX's soft_trace and _finish_surface.
 struct Surf {
   float cov_raw, icov;
   bool good;
   float f[10];  // blend: tbar, pbar, nraw, albedo
-  // two levels (n_sph + n_tri > kUnroll): the two chunks
-  bool two;
-  float ca[2], ct[2], ctr[2], craw[2], cicov[2];
-  bool cgood[2];
-  float cf[2][10];
   // the finished surface
   float cov, tbar;
   V3 pbar, nraw, nbar, alb;
@@ -453,123 +857,315 @@ __device__ __forceinline__ void finish(Surf& s) {
   s.nbar = s.goodn ? s.ninv * s.nraw : mk(0.0f, 0.0f, 1.0f);
 }
 
-// The soft surface for ray r; fills S.a, S.t, S.tr.
-__device__ void trace_fwd(const Tables& T, const Cfg& C, const SRay& r,
-                          Scratch& S, Surf& sf) {
-  const int n = T.n_sph + T.n_tri;
-  for (int k = 0; k < n; ++k)
-    hyp_fwd<false>(T, C, k, r, S.a[k], S.t[k], nullptr);
-  auto fields = [&](int k, float* f) {
-    float a, t;
-    hyp_fwd<true>(T, C, k, r, a, t, f);
-  };
-  sf.two = n > kUnroll;
-  if (!sf.two) {
-    comp_fwd(S.a, S.t, S.tr, 0, n, C.itau, 1e-6f, fields, sf.cov_raw, sf.icov,
-             sf.good, sf.f);
-  } else {
-    const int bounds[3] = {0, T.n_sph, n};
-    for (int c = 0; c < 2; ++c) {
-      comp_fwd(S.a, S.t, S.tr, bounds[c], bounds[c + 1], C.itau, 1e-9f, fields,
-               sf.craw[c], sf.cicov[c], sf.cgood[c], sf.cf[c]);
-      sf.ca[c] = clip01(sf.craw[c]);
-      sf.ct[c] = sf.cf[c][0];
-    }
-    auto chunk = [&](int c, float* f) {
-      for (int k = 0; k < 10; ++k) f[k] = sf.cf[c][k];
+// The surface a tape segment holds (words 11-23).
+__device__ __forceinline__ Surf surf_of(const float* seg) {
+  Surf s;
+  s.cov_raw = seg[11];
+  s.icov = seg[12];
+  s.good = seg[13] != 0.0f;
+#pragma unroll
+  for (int k = 0; k < 10; ++k) s.f[k] = seg[14 + k];
+  finish(s);
+  return s;
+}
+
+// The soft surface for ray r, into tape segment seg (words 11-23 and, past
+// kUnroll, each span's words) by lane 0, and into sf in every lane.
+// Warp-uniform.
+template <int G>
+__device__ __forceinline__ void trace_fwd_g(const Grp<G>& gr, const Tables& T, const Cfg& C,
+                            const SRay& r, float* seg, Surf& sf) {
+  const int nc = gr.L->nc;
+  auto fields_at = [&](int lo) {
+    return [&, lo](int i, float* f) {
+      float a, t;
+      hyp_fwd<true>(T, C, lo + i, r, a, t, f);
     };
-    comp_fwd(sf.ca, sf.ct, sf.ctr, 0, 2, C.itau, 1e-6f, chunk, sf.cov_raw,
-             sf.icov, sf.good, sf.f);
+  };
+  if (nc == 0) {
+    const int n = T.n_sph + T.n_tri;
+    load_hyps(gr, T, C, r, 0, n);
+    comp_fwd_g<G, false, true>(gr, n, C.itau, 1e-6f, fields_at(0),
+                               sf.cov_raw, sf.icov, sf.good, sf.f);
+    __syncwarp();
+  } else {
+    float* ca = gr.cs(kCa);
+    float* ct = gr.cs(kCt);
+    for (int c = 0; c < nc; ++c) {
+      int lo, hi;
+      span_of(T, c, lo, hi);
+      load_hyps(gr, T, C, r, lo, hi);
+      float craw, icov, cf[10];
+      bool good;
+      comp_fwd_g<G, false, true>(gr, hi - lo, C.itau, 1e-9f, fields_at(lo),
+                                 craw, icov, good, cf);
+      if (gr.lane == 0) {
+        float* w = seg + gr.L->tspan + kTapeSpan * c;
+        w[0] = craw;
+#pragma unroll
+        for (int k = 0; k < 10; ++k) w[1 + k] = cf[k];
+        ca[c] = clip01(craw);
+        ct[c] = cf[0];
+      }
+      __syncwarp();
+    }
+    // the spans' blends composite again (one lane)
+    if (gr.lane == 0) {
+      float* ctr = gr.cs(kCtr);
+      auto chunk = [&](int c, float* f) {
+        for (int k = 0; k < 10; ++k) f[k] = seg[gr.L->tspan + kTapeSpan * c + 1 + k];
+      };
+      comp_fwd(ca, ct, ctr, 0, nc, C.itau, 1e-6f, chunk, sf.cov_raw, sf.icov,
+               sf.good, sf.f);
+      for (int c = 0; c < nc; ++c) seg[gr.L->tspan + kTapeSpan * c + 11] = ctr[c];
+      seg[11] = sf.cov_raw;
+      seg[12] = sf.icov;
+      seg[13] = sf.good ? 1.0f : 0.0f;
+      for (int k = 0; k < 10; ++k) seg[14 + k] = sf.f[k];
+    }
+    __syncwarp();
+    sf = surf_of(seg);
+    return;
+  }
+  if (gr.lane == 0) {
+    seg[11] = sf.cov_raw;
+    seg[12] = sf.icov;
+    seg[13] = sf.good ? 1.0f : 0.0f;
+#pragma unroll
+    for (int k = 0; k < 10; ++k) seg[14 + k] = sf.f[k];
   }
   finish(sf);
 }
 
-// Adjoint of trace_fwd from the cotangents of cov, tbar, pbar, nbar and the
-// albedo to the ray's (go, gd, gmint) and the rows. Warp-uniform.
-__device__ void trace_adj(const Tables& T, const Cfg& C, const Grads& G,
-                          bool live, const SRay& r, Scratch& S,
-                          const Surf& sf, float gcov, float gtbar, V3 gpbar,
-                          V3 gnbar, V3 galb, V3& go, V3& gd, float& gmint) {
+// Adjoint of trace_fwd_g for the segment taped at seg (its surface sf), from
+// the cotangents of cov, tbar, pbar, nbar and the albedo to the ray's (go,
+// gd, gmint) and the rows: the outer composite's adjoint by lane 0 (two
+// levels), then each composite's forward again (its s_ij kept) and its
+// adjoint, the hypotheses' adjoints by their owners, the material rows
+// summed over the group. Warp-uniform.
+template <int G>
+__device__ __forceinline__ void trace_adj_g(const Grp<G>& gr, const Tables& T, const Cfg& C,
+                            const SGrads& SG, bool live, const SRay& r,
+                            const float* seg, const Surf& sf, float gcov,
+                            float gtbar, V3 gpbar, V3 gnbar, V3 galb, V3& go,
+                            V3& gd, float& gmint) {
+  const V3 zero = mk(0.0f, 0.0f, 0.0f);
   const V3 gnr = sf.goodn ? sf.ninv * (gnbar - dot(gnbar, sf.nbar) * sf.nbar)
-                          : mk(0.0f, 0.0f, 0.0f);
+                          : zero;
   const float gb[10] = {gtbar,  gpbar.x, gpbar.y, gpbar.z, gnr.x,
                         gnr.y,  gnr.z,   galb.x,  galb.y,  galb.z};
-  auto fields = [&](int k, float* f) {
-    float a, t;
-    hyp_fwd<true>(T, C, k, r, a, t, f);
+  V3 gop = zero, gdp = zero;
+  float gmp = 0.0f;
+  auto fields_at = [&](int lo) {
+    return [&, lo](int i, float* f) {
+      float a, t;
+      hyp_fwd<true>(T, C, lo + i, r, a, t, f);
+    };
   };
-  auto obj_adj = [&](int k, float ga, float gt, const float* gf) {
-    hyp_adj<true>(T, C, G, live, k, r, ga, gt, gf, go, gd, gmint);
+  auto adj_at = [&](int lo) {
+    return [&, lo](bool has, int i, float ga, float gt, const float* gf) {
+      float gm[3] = {0.0f, 0.0f, 0.0f};
+      int mr = -1;
+      if (has) {
+        hyp_adj<true>(T, C, SG.wrt, OwnerAdd{SG, live}, lo + i, r, ga, gt,
+                      gf, gop, gdp, gmp, gm);
+        const int k = lo + i;
+        if (live)
+          mr = mat_row(T, k < T.n_sph ? T.sph[k * kSph + 4]
+                                      : T.tri[(k - T.n_sph) * kTri + 16]);
+      }
+      // the group's lanes whose objects share a material row sum first
+      if (SG.wrt & kWMat)
+        add_rows_plain(rows_of(mr < 0 ? -1 : (gr.gq << 24) + mr),
+                       SG.mat + (mr < 0 ? 0 : mr) * kMat, gm);
+    };
   };
-  const int n = T.n_sph + T.n_tri;
-  if (!sf.two) {
-    comp_adj(S.a, S.t, S.tr, 0, n, C.itau, sf.cov_raw, sf.icov, sf.good, gcov,
-             gb, fields, obj_adj, S.A, S.ga, S.gt, S.sf, S.sc);
-    return;
+  const int nc = gr.L->nc;
+  if (nc == 0) {
+    const int n = T.n_sph + T.n_tri;
+    float craw, icov, blend[10];
+    bool good;
+    load_hyps(gr, T, C, r, 0, n);
+    comp_fwd_g<G, true, false>(gr, n, C.itau, 1e-6f, fields_at(0), craw,
+                               icov, good, blend);
+    __syncwarp();
+    comp_adj_g(gr, n, C.itau, craw, icov, good, gcov, gb, fields_at(0),
+               adj_at(0));
+    __syncwarp();
+  } else {
+    float* out = gr.cs(kCsWords - kSpanOut);  // kSpanOut words per span
+    if (gr.lane == 0) {
+      // a span is a hypothesis of the outer composite: alpha its clipped
+      // coverage, t and fields its blend
+      float* ca = gr.cs(kCa);
+      float* ct = gr.cs(kCt);
+      float* ctr = gr.cs(kCtr);
+      for (int c = 0; c < nc; ++c) {
+        const float* w = seg + gr.L->tspan + kTapeSpan * c;
+        ca[c] = clip01(w[0]);
+        ct[c] = w[1];
+        ctr[c] = w[11];
+      }
+      auto chunk = [&](int c, float* f) {
+        for (int k = 0; k < 10; ++k) f[k] = seg[gr.L->tspan + kTapeSpan * c + 1 + k];
+      };
+      auto span_out = [&](int c, float ga, float gt, const float* gf) {
+        float* o = out + c * kSpanOut;
+        o[0] = ga;
+        for (int k = 0; k < 10; ++k) o[1 + k] = gf[k];
+        o[1] += gt;
+      };
+      comp_adj(ca, ct, ctr, 0, nc, C.itau, sf.cov_raw, sf.icov, sf.good, gcov,
+               gb, chunk, span_out, gr.cs(kCA), gr.cs(kCga), gr.cs(kCgt),
+               gr.cs(kCsf), gr.cs(kCsc));
+    }
+    __syncwarp();
+    for (int c = 0; c < nc; ++c) {
+      int lo, hi;
+      span_of(T, c, lo, hi);
+      const float* o = out + c * kSpanOut;
+      float gbc[10];
+#pragma unroll
+      for (int k = 0; k < 10; ++k) gbc[k] = o[1 + k];
+      float craw, icov, blend[10];
+      bool good;
+      load_hyps(gr, T, C, r, lo, hi);
+      comp_fwd_g<G, true, false>(gr, hi - lo, C.itau, 1e-9f, fields_at(lo),
+                                 craw, icov, good, blend);
+      __syncwarp();
+      comp_adj_g(gr, hi - lo, C.itau, craw, icov, good, o[0], gbc,
+                 fields_at(lo), adj_at(lo));
+      __syncwarp();
+    }
   }
-  const int bounds[3] = {0, T.n_sph, n};
-  float A2[2], ga2[2], gt2[2], sf2[2], sc2[2];
-  auto chunk = [&](int c, float* f) {
-    for (int k = 0; k < 10; ++k) f[k] = sf.cf[c][k];
-  };
-  // a chunk is a hypothesis of the outer composite: alpha its clipped
-  // coverage, t and fields its blend
-  auto chunk_adj = [&](int c, float ga, float gt, const float* gf) {
-    float gbc[10];
-    for (int k = 0; k < 10; ++k) gbc[k] = gf[k];
-    gbc[0] += gt;
-    comp_adj(S.a, S.t, S.tr, bounds[c], bounds[c + 1], C.itau, sf.craw[c],
-             sf.cicov[c], sf.cgood[c], ga, gbc, fields, obj_adj, S.A, S.ga,
-             S.gt, S.sf, S.sc);
-  };
-  comp_adj(sf.ca, sf.ct, sf.ctr, 0, 2, C.itau, sf.cov_raw, sf.icov, sf.good,
-           gcov, gb, chunk, chunk_adj, A2, ga2, gt2, sf2, sc2);
+  go = go + gr.sum(gop);
+  gd = gd + gr.sum(gdp);
+  gmint += gr.sum(gmp);
 }
 
 // ---------------------------------------------------------------------------
 // the shadow transmittance
 // ---------------------------------------------------------------------------
 
+// Objects [lo, hi)'s occluders of the shadow ray r with length dist: alpha
+// in a[], t in t[], the sigmoid in tr[] and the coverage alpha s in ga[]
+// (each lane its own, then __syncwarp); returns prod (1 - alpha s) in
+// object order, the same in every lane.
+template <int G>
+__device__ __forceinline__ float vis_span(const Grp<G>& gr, const Tables& T, const Cfg& C,
+                          const SRay& r, float dist, int lo, int hi) {
+  float* a = gr.a();
+  float* t = gr.t();
+  float* s = gr.tr();
+  float* sc = gr.ga();
+  for (int i = gr.lane; i < hi - lo; i += G) {
+    hyp_fwd<false>(T, C, lo + i, r, a[i], t[i], nullptr);
+    s[i] = sigm((dist - t[i]) * C.ibw);
+    sc[i] = a[i] * s[i];
+  }
+  __syncwarp();
+  float prod = 1.0f;
+  for (int i = 0; i < hi - lo; ++i) prod = prod * (1.0f - sc[i]);
+  return prod;
+}
+
 // vis = prod_k (1 - alpha_k sigmoid((dist - t_k) / bw)) on the shadow ray
-// (so, sd) with mint 0; keeps alpha in S.ga, t in S.gt, the sigmoid in S.A
-// and each occluder's coverage in S.sc.
-__device__ float vis_fwd(const Tables& T, const Cfg& C, const SRay& r,
-                         float dist, Scratch& S) {
-  const int n = T.n_sph + T.n_tri;
+// r with mint 0: one product up to kUnroll objects (its occluders stay in
+// the group's arrays for vis_adj_g), past that one per span (kept in the
+// span arrays), then over the spans. Warp-uniform.
+template <int G>
+__device__ __forceinline__ float vis_fwd_g(const Grp<G>& gr, const Tables& T, const Cfg& C,
+                           const SRay& r, float dist) {
+  const int nc = gr.L->nc;
+  if (nc == 0) return vis_span(gr, T, C, r, dist, 0, T.n_sph + T.n_tri);
   float vis = 1.0f;
-  for (int k = 0; k < n; ++k) {
-    float a, t;
-    hyp_fwd<false>(T, C, k, r, a, t, nullptr);
-    const float s = sigm((dist - t) * C.ibw);
-    S.ga[k] = a;
-    S.gt[k] = t;
-    S.A[k] = s;
-    S.sc[k] = a * s;
-    vis = vis * (1.0f - S.sc[k]);
+  for (int c = 0; c < nc; ++c) {
+    int lo, hi;
+    span_of(T, c, lo, hi);
+    const float prod = vis_span(gr, T, C, r, dist, lo, hi);
+    if (gr.lane == 0) gr.cs(kVp)[c] = prod;
+    vis = vis * prod;
+    __syncwarp();
   }
   return vis;
 }
 
-// Adjoint of vis_fwd (after it, on the same scratch) for the cotangent
-// gvis: into the shadow ray's (go, gd), gdist and the rows. Warp-uniform.
-__device__ void vis_adj(const Tables& T, const Cfg& C, const Grads& G,
-                        bool live, const SRay& r, float gvis, Scratch& S,
-                        V3& go, V3& gd, float& gdist) {
-  const int n = T.n_sph + T.n_tri;
+// The adjoint of one product's occluders (in the group's arrays): each
+// occluder's exclusive product other * (prefix * suffix) (one product:
+// prefix * suffix) by chains every lane runs, each keeping its own
+// occluders' words; then the owners' hypothesis adjoints.
+template <int G>
+__device__ __forceinline__ void vis_adj_span(const Grp<G>& gr, const Tables& T, const Cfg& C,
+                             const SGrads& SG, bool live, const SRay& r,
+                             float gvis, int lo, int hi, bool one,
+                             float other, V3& gop, V3& gdp, float& gdistp) {
+  const float* a = gr.a();
+  const float* s = gr.tr();
+  const float* sc = gr.ga();
+  float* ex = gr.gt();
+  const int w = hi - lo;
   float run = 1.0f;
-  for (int k = n - 1; k >= 0; --k) {
-    S.sf[k] = run;
-    run = run * (1.0f - S.sc[k]);
+  for (int i = w - 1; i >= 0; --i) {
+    if (gr.owns(i)) ex[i] = run;
+    run = run * (1.0f - sc[i]);
   }
-  float pre = 1.0f, gmint = 0.0f;
-  for (int k = 0; k < n; ++k) {
-    const float gin = -gvis * (pre * S.sf[k]);
-    pre = pre * (1.0f - S.sc[k]);
-    const float s = S.A[k];
-    const float gx = gin * S.ga[k] * s * (1.0f - s) * C.ibw;
-    gdist += gx;
-    hyp_adj<false>(T, C, G, live, k, r, gin * s, -gx, nullptr, go, gd, gmint);
+  float pre = 1.0f;
+  for (int i = 0; i < w; ++i) {
+    if (gr.owns(i)) ex[i] = one ? pre * ex[i] : other * (pre * ex[i]);
+    pre = pre * (1.0f - sc[i]);
   }
+  float gmint = 0.0f, gm[3];
+  for (int i = gr.lane; i < w; i += G) {
+    const float gin = -gvis * ex[i];
+    const float si = s[i];
+    const float gx = gin * a[i] * si * (1.0f - si) * C.ibw;
+    gdistp += gx;
+    hyp_adj<false>(T, C, SG.wrt, OwnerAdd{SG, live}, lo + i, r, gin * si,
+                   -gx, nullptr, gop, gdp, gmint, gm);
+  }
+  __syncwarp();
+}
+
+// Adjoint of vis_fwd_g (after it) for the cotangent gvis: into the shadow
+// ray's (go, gd), gdist and the rows. Past kUnroll each span's occluders
+// are computed again. Warp-uniform.
+template <int G>
+__device__ __forceinline__ void vis_adj_g(const Grp<G>& gr, const Tables& T, const Cfg& C,
+                          const SGrads& SG, bool live, const SRay& r,
+                          float dist, float gvis, V3& go, V3& gd,
+                          float& gdist) {
+  const V3 zero = mk(0.0f, 0.0f, 0.0f);
+  V3 gop = zero, gdp = zero;
+  float gdistp = 0.0f;
+  const int nc = gr.L->nc;
+  if (nc == 0) {
+    vis_adj_span(gr, T, C, SG, live, r, gvis, 0, T.n_sph + T.n_tri, true,
+                 1.0f, gop, gdp, gdistp);
+  } else {
+    const float* vp = gr.cs(kVp);
+    float* csf = gr.cs(kCsf);
+    if (gr.lane == 0) {
+      float run = 1.0f;
+      for (int c = nc - 1; c >= 0; --c) {
+        csf[c] = run;
+        run = run * vp[c];
+      }
+    }
+    __syncwarp();
+    float pre = 1.0f;
+    for (int c = 0; c < nc; ++c) {
+      const float other = pre * csf[c];  // the other spans' product
+      pre = pre * vp[c];
+      int lo, hi;
+      span_of(T, c, lo, hi);
+      vis_span(gr, T, C, r, dist, lo, hi);
+      vis_adj_span(gr, T, C, SG, live, r, gvis, lo, hi, false, other, gop,
+                   gdp, gdistp);
+    }
+  }
+  go = go + gr.sum(gop);
+  gd = gd + gr.sum(gdp);
+  gdist += gr.sum(gdistp);
 }
 
 // ---------------------------------------------------------------------------
@@ -668,204 +1264,6 @@ __device__ __forceinline__ Nee nee_ray(const Tables& T, int li, float u0,
   s.dist = sqrtf(fmaxf(s.d2, 1e-20f));
   s.sd = normalize(s.dl);
   return s;
-}
-
-// ---------------------------------------------------------------------------
-// past kUnroll objects of a type (kernel 2s's large instance)
-// ---------------------------------------------------------------------------
-//
-// JAX's two-level composite over every SOFT_CHUNK span (soft_trace
-// megakernel_grad.py:1883-1938, _chunk_ranges :1838-1846): the sphere
-// table's spans of kSpan rows, then the triangle table's, each in the
-// order the rows are given (the caller hands triangles in Morton order,
-// padded with zero rows, which are value-neutral: alpha 0). Each span
-// composites locally (first_good 1e-9); each span's blend is then one
-// hypothesis of the outer composite (alpha its clipped coverage, t its
-// blended depth). The adjoint recomputes a span's hypotheses and local
-// composite when the outer adjoint reaches it, as JAX's _make_ck
-// checkpoint does, so a thread keeps one span's hypotheses and the spans'
-// blends, not every hypothesis. The shadow transmittance is a product over
-// every row, kept per span: a row's exclusive product is the other spans'
-// (a suffix and a running prefix over spans) times its own span's
-// exclusive product, so no factor is ever divided out. Row cotangents go
-// into buffers other warps add into as well (SpanScratch::kAtomic).
-
-constexpr int kSpan = kUnroll;   // JAX's SOFT_CHUNK
-constexpr int kMaxSpans = 128;   // DIFF_TABLE_MAX / kSpan of each type
-
-// The large instance's per-thread scratch (local memory, 12.8 KB): one
-// span's hypotheses in Scratch's arrays (kSpan entries, reused span by
-// span); per span its raw coverage craw, clipped coverage ca, blended
-// depth ct and fields cf, the outer composite's exclusive products ctr and
-// its adjoint's sums (cA, cga, cgt, csf, csc), and the transmittance's
-// span products vp and the shadow ray's length.
-struct SpanScratch {
-  static constexpr bool kAtomic = true;
-  float a[kSpan], t[kSpan], tr[kSpan];
-  float A[kSpan], ga[kSpan], gt[kSpan], sf[kSpan], sc[kSpan];
-  float craw[kMaxSpans], ca[kMaxSpans], ct[kMaxSpans], ctr[kMaxSpans];
-  float cf[kMaxSpans][10];
-  float cA[kMaxSpans], cga[kMaxSpans], cgt[kMaxSpans], csf[kMaxSpans],
-      csc[kMaxSpans];
-  float vp[kMaxSpans];
-  float dist;  // the shadow ray's length (vis_fwd's)
-};
-
-__device__ __forceinline__ int n_spans(const Tables& T) {
-  return (T.n_sph + kSpan - 1) / kSpan + (T.n_tri + kSpan - 1) / kSpan;
-}
-
-// Objects [lo, hi) of span c (objects: spheres, then triangles).
-__device__ __forceinline__ void span_of(const Tables& T, int c, int& lo,
-                                        int& hi) {
-  const int ns = (T.n_sph + kSpan - 1) / kSpan;
-  if (c < ns) {
-    lo = c * kSpan;
-    hi = min(T.n_sph, lo + kSpan);
-  } else {
-    const int j = (c - ns) * kSpan;
-    lo = T.n_sph + j;
-    hi = T.n_sph + min(T.n_tri, j + kSpan);
-  }
-}
-
-// The soft surface for ray r over every span; fills the spans' blends.
-__device__ void trace_fwd(const Tables& T, const Cfg& C, const SRay& r,
-                          SpanScratch& S, Surf& sf) {
-  const int nc = n_spans(T);
-  for (int c = 0; c < nc; ++c) {
-    int lo, hi;
-    span_of(T, c, lo, hi);
-    for (int i = 0; i < hi - lo; ++i)
-      hyp_fwd<false>(T, C, lo + i, r, S.a[i], S.t[i], nullptr);
-    auto fields = [&](int i, float* f) {
-      float a, t;
-      hyp_fwd<true>(T, C, lo + i, r, a, t, f);
-    };
-    float icov;
-    bool good;
-    comp_fwd(S.a, S.t, S.tr, 0, hi - lo, C.itau, 1e-9f, fields, S.craw[c],
-             icov, good, S.cf[c]);
-    S.ca[c] = clip01(S.craw[c]);
-    S.ct[c] = S.cf[c][0];
-  }
-  auto chunk = [&](int c, float* f) {
-    for (int k = 0; k < 10; ++k) f[k] = S.cf[c][k];
-  };
-  sf.two = false;
-  comp_fwd(S.ca, S.ct, S.ctr, 0, nc, C.itau, 1e-6f, chunk, sf.cov_raw,
-           sf.icov, sf.good, sf.f);
-  finish(sf);
-}
-
-// Adjoint of the two-level trace_fwd (after it, on the same scratch):
-// the outer composite's adjoint, and each span's, recomputed, as the outer
-// one reaches it. Warp-uniform.
-__device__ void trace_adj(const Tables& T, const Cfg& C, const Grads& G,
-                          bool live, const SRay& r, SpanScratch& S,
-                          const Surf& sf, float gcov, float gtbar, V3 gpbar,
-                          V3 gnbar, V3 galb, V3& go, V3& gd, float& gmint) {
-  const V3 gnr = sf.goodn ? sf.ninv * (gnbar - dot(gnbar, sf.nbar) * sf.nbar)
-                          : mk(0.0f, 0.0f, 0.0f);
-  const float gb[10] = {gtbar,  gpbar.x, gpbar.y, gpbar.z, gnr.x,
-                        gnr.y,  gnr.z,   galb.x,  galb.y,  galb.z};
-  auto chunk = [&](int c, float* f) {
-    for (int k = 0; k < 10; ++k) f[k] = S.cf[c][k];
-  };
-  // a span is a hypothesis of the outer composite: alpha its clipped
-  // coverage, t and fields its blend
-  auto span_adj = [&](int c, float ga, float gt, const float* gf) {
-    float gbc[10];
-    for (int k = 0; k < 10; ++k) gbc[k] = gf[k];
-    gbc[0] += gt;
-    int lo, hi;
-    span_of(T, c, lo, hi);
-    for (int i = 0; i < hi - lo; ++i)
-      hyp_fwd<false>(T, C, lo + i, r, S.a[i], S.t[i], nullptr);
-    auto fields = [&](int i, float* f) {
-      float a, t;
-      hyp_fwd<true>(T, C, lo + i, r, a, t, f);
-    };
-    auto obj_adj = [&](int i, float ga_i, float gt_i, const float* gf_i) {
-      hyp_adj<true, true>(T, C, G, live, lo + i, r, ga_i, gt_i, gf_i, go, gd,
-                          gmint);
-    };
-    float craw, icov, blend[10];
-    bool good;
-    comp_fwd<false>(S.a, S.t, S.tr, 0, hi - lo, C.itau, 1e-9f, fields, craw,
-                    icov, good, blend);
-    comp_adj(S.a, S.t, S.tr, 0, hi - lo, C.itau, craw, icov, good, ga, gbc,
-             fields, obj_adj, S.A, S.ga, S.gt, S.sf, S.sc);
-  };
-  comp_adj(S.ca, S.ct, S.ctr, 0, n_spans(T), C.itau, sf.cov_raw, sf.icov,
-           sf.good, gcov, gb, chunk, span_adj, S.cA, S.cga, S.cgt, S.csf,
-           S.csc);
-}
-
-// The shadow transmittance over every span; keeps each span's product.
-__device__ float vis_fwd(const Tables& T, const Cfg& C, const SRay& r,
-                         float dist, SpanScratch& S) {
-  const int nc = n_spans(T);
-  float vis = 1.0f;
-  S.dist = dist;
-  for (int c = 0; c < nc; ++c) {
-    int lo, hi;
-    span_of(T, c, lo, hi);
-    float prod = 1.0f;
-    for (int k = lo; k < hi; ++k) {
-      float a, t;
-      hyp_fwd<false>(T, C, k, r, a, t, nullptr);
-      prod = prod * (1.0f - a * sigm((dist - t) * C.ibw));
-    }
-    S.vp[c] = prod;
-    vis = vis * prod;
-  }
-  return vis;
-}
-
-// Adjoint of the spans' vis_fwd (after it, on the same scratch). Each
-// span's occluders are recomputed into its scratch. Warp-uniform.
-__device__ void vis_adj(const Tables& T, const Cfg& C, const Grads& G,
-                        bool live, const SRay& r, float gvis, SpanScratch& S,
-                        V3& go, V3& gd, float& gdist) {
-  const int nc = n_spans(T);
-  float run = 1.0f;
-  for (int c = nc - 1; c >= 0; --c) {
-    S.csf[c] = run;
-    run = run * S.vp[c];
-  }
-  float pre = 1.0f, gmint = 0.0f;
-  for (int c = 0; c < nc; ++c) {
-    const float other = pre * S.csf[c];  // the other spans' product
-    pre = pre * S.vp[c];
-    int lo, hi;
-    span_of(T, c, lo, hi);
-    const int w = hi - lo;
-    for (int i = 0; i < w; ++i) {
-      float a, t;
-      hyp_fwd<false>(T, C, lo + i, r, a, t, nullptr);
-      const float s = sigm((S.dist - t) * C.ibw);
-      S.ga[i] = a;
-      S.gt[i] = t;
-      S.A[i] = s;
-      S.sc[i] = a * s;
-    }
-    float srun = 1.0f;
-    for (int i = w - 1; i >= 0; --i) {
-      S.sf[i] = srun;
-      srun = srun * (1.0f - S.sc[i]);
-    }
-    float spre = 1.0f;
-    for (int i = 0; i < w; ++i) {
-      const float gin = -gvis * (other * (spre * S.sf[i]));
-      spre = spre * (1.0f - S.sc[i]);
-      const float s = S.A[i];
-      const float gx = gin * S.ga[i] * s * (1.0f - s) * C.ibw;
-      gdist += gx;
-      hyp_adj<false, true>(T, C, G, live, lo + i, r, gin * s, -gx, nullptr,
-                           go, gd, gmint);
-    }
-  }
 }
 
 }  // namespace soft

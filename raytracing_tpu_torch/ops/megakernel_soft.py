@@ -92,6 +92,25 @@ _SIGNATURES = {
 # span, the same arguments
 _SIGNATURES["rt_pathtrace_bwd_soft_large"] = \
     _SIGNATURES["rt_pathtrace_bwd_soft"]
+# what the last launch took (last_launch)
+_SIGNATURES["rt_soft_last"] = (None, [_VP])
+LAST_KEYS = ("group", "warps", "resident", "smem_bytes", "rows_global",
+             "warps_per_sm", "registers", "local_bytes")
+
+
+def soft_flags(rr: bool, direct: bool) -> tuple:
+    """nvcc flags of kernel 2s's build for one mode: each build holds only
+    its mode's instances (``csrc/megakernel_soft.cu`` RT_SOFT_MODE: path,
+    path with the roulette, direct), so the three compile at once."""
+    mode = 2 if direct else int(rr)
+    return tuple(MKG.ADJ_FLAGS) + (f"-DRT_SOFT_MODE={mode}",)
+
+
+# the three builds, in RT_SOFT_MODE order
+SOFT_BUILDS = tuple(soft_flags(rr, direct)
+                    for rr, direct in ((False, False), (True, False),
+                                       (False, True)))
+_last_flags = SOFT_BUILDS[0]
 
 
 def _div(x: torch.Tensor, s: float) -> torch.Tensor:
@@ -493,6 +512,19 @@ def pathtrace_pass_bwd_soft_reference(par, ipar, sph, tri, mat, lig, g,
                                          lig=lig), sel, g, program)
 
 
+def last_launch() -> dict:
+    """What kernel 2s's last launch in this process took: its group size
+    (lanes per ray; 1 for the large-table entry's thread per ray), warps per
+    block, whether the sphere and triangle tables were staged in shared
+    memory, the block's shared-memory bytes, whether their row cotangents
+    went straight to global memory, resident warps per SM, and the kernel's
+    registers and local-memory bytes per thread."""
+    lib = _build.load("megakernel_soft", _SIGNATURES, _last_flags)
+    out = (ctypes.c_int * len(LAST_KEYS))()
+    lib.rt_soft_last(out)
+    return dict(zip(LAST_KEYS, out))
+
+
 def pathtrace_pass_bwd_soft(par, ipar, sph, tri, mat, lig, g, u_planes, *,
                             spp: int, width: int, bounces: int,
                             two_sided: bool, normalize_emitter: bool,
@@ -507,11 +539,11 @@ def pathtrace_pass_bwd_soft(par, ipar, sph, tri, mat, lig, g, u_planes, *,
     ``seed``, made in-kernel (``MK.diff_draws``). Groups outside
     ``diff_wrt`` come back as zeros; ``mode`` "direct" runs the adjoint of
     the soft direct shade. Up to 64 objects per type the tables and
-    per-warp gradient buffers sit in shared memory (counter
+    each group's gradient buffer sit in shared memory (counter
     ``soft_launches``); past that, up to ``MKG.DIFF_TABLE_MAX`` per type,
     the large-table instance composites every ``SOFT_CHUNK`` span of the
     rows in the order given (counter ``soft_large_launches``)."""
-    global soft_launches, soft_large_launches
+    global soft_launches, soft_large_launches, _last_flags
     sel = MKG._check_wrt(diff_wrt)
     MKG._check_bwd_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp,
                         width, bounces, russian_roulette, "kernel 2s",
@@ -541,12 +573,14 @@ def pathtrace_pass_bwd_soft(par, ipar, sph, tri, mat, lig, g, u_planes, *,
                 rr, rr_start_depth, direct, int(two_sided),
                 int(normalize_emitter), wrt, soft_bandwidth, soft_tau,
                 *(ptr(t) for t in outs), stream)
-        lib = _build.load("megakernel_soft", _SIGNATURES, MKG.ADJ_FLAGS)
+        flags = soft_flags(rr != 0, direct != 0)
+        lib = _build.load("megakernel_soft", _SIGNATURES, flags)
         err = (lib.rt_pathtrace_bwd_soft_large if large
                else lib.rt_pathtrace_bwd_soft)(*args)
         if err != 0:
             raise RuntimeError(f"kernel 2s launch failed with CUDA error "
                                f"{err}")
+        _last_flags = flags
         if large:
             soft_large_launches += 1
         else:

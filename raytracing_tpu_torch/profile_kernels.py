@@ -45,11 +45,18 @@ kernels on cornell's direct training step (kernel 1 recording, kernels 2,
 3 and 2s with ("sph", "mat"), ``DirectCase``). A variant whose sources
 predate those modes or their C interfaces (a parent commit's) is timed by
 running this tool from that commit's own checkout instead.
-``--sass`` dumps ``cuobjdump -sass`` of the named variants' libraries into
-``--out`` and prints, per kernel, the count of each memory, atomic and
-warp-level opcode, and the instructions around the first shared-memory
-atomic. Every build's ``ptxas -v`` report is printed. Results also go to
-``--out``/profile.json. Needs a CUDA card.
+``--only soft`` builds kernel 2s alone and times only it: cornell's step
+cotangent (("sph", "mat"), all groups, the roulette, the random
+cotangent), direct mode, and the torus scene past 64 objects at each size
+of ``--soft-large-sizes`` (256 by default; 1024 is the main path's), each
+variant's cotangents held to the first variant's; ``--soft-excused`` runs ``chip_smoke.py``'s phase 22 comparisons of
+kernel 2s with its plain version under each variant and prints how many
+rays each excused. ``--sass`` dumps
+``cuobjdump -sass`` of the named variants' libraries into ``--out`` and
+prints, per kernel, the count of each memory, atomic, warp-level and
+special-function (MUFU) opcode, and the instructions around the first
+shared-memory atomic. Every build's ``ptxas -v`` report is printed.
+Results also go to ``--out``/profile.json. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -98,7 +105,9 @@ LIBS = (("megakernel", MK._SIGNATURES, ()),
         ("megakernel", MK._SIGNATURES, MK.GRID_FLAGS),
         ("megakernel_grad", MKG._SIGNATURES, MKG.ADJ_FLAGS),
         ("megakernel_champ", MKG._CHAMP_SIGNATURES, MKG.ADJ_FLAGS),
-        ("megakernel_soft", MKS._SIGNATURES, MKG.ADJ_FLAGS))
+        *(("megakernel_soft", MKS._SIGNATURES, flags)
+          for flags in MKS.SOFT_BUILDS))
+SOFT_LIBS = LIBS[-len(MKS.SOFT_BUILDS):]
 # kernel 2s past 64 objects runs seconds per launch at 1024^2: it is timed
 # on the torus scene at this size
 SOFT_LARGE_SIZE = 256
@@ -113,8 +122,11 @@ def _smi(query: str) -> str:
 
 def _stem(name: str, flags: tuple) -> str:
     """A library's file stem: its source's name, "-grid" for kernel 1's
-    grid-mode half."""
-    return name + ("-grid" if MK.GRID_FLAGS[0] in flags else "")
+    grid-mode half, "-rr" and "-direct" for kernel 2s's builds of those
+    modes."""
+    soft = {MKS.SOFT_BUILDS[1]: "-rr", MKS.SOFT_BUILDS[2]: "-direct"}
+    return name + ("-grid" if MK.GRID_FLAGS[0] in flags
+                   else soft.get(tuple(flags), ""))
 
 
 def build(label: str, src: Path, name: str, signatures: dict,
@@ -170,7 +182,7 @@ def sass_summary(label: str, name: str, out: Path) -> None:
         elif func and re.search(r"/\*[0-9a-f]{4,}\*/", line):
             lines[func].append(line.strip())
     keep = re.compile(r"^(ATOM|RED|LDS|STS|LDL|STL|LDG|STG|MATCH|SHFL|VOTE|"
-                      r"BSSY|BSYNC|WARPSYNC|BAR|LDC)")
+                      r"BSSY|BSYNC|WARPSYNC|BAR|LDC|MUFU)")
     for func, body in lines.items():
         ops = Counter()
         first_atoms = None
@@ -463,6 +475,20 @@ def measure(cornell: Case, spheres: Case, fields: dict) -> dict:
     }
 
 
+def _hold(name: str, wrt, want, got) -> None:
+    """Prints cosine and max |d| over the group's scale of ``got`` against
+    ``want``, per group in ``wrt``."""
+    for gname, a, b in zip(MKG.DIFF_ALL, want, got):
+        if gname in wrt:
+            a, b = a.double().ravel(), b.double().ravel()
+            cos = (a @ b).item() / max(a.norm().item() * b.norm().item(),
+                                       1e-300)
+            rel = ((a - b).abs().max() / a.abs().max().clamp_min(1e-300)
+                   ).item()
+            print(f"  k2s {name} {gname} vs the first variant: cosine "
+                  f"{cos:.9f}, max|d| {rel:.3g} x scale")
+
+
 def measure_soft(cornell: Case, first: dict) -> dict:
     """Kernel 2s on cornell's step cotangent (and the seeded random one).
     Each variant's cotangents are held to those of the first variant
@@ -471,15 +497,9 @@ def measure_soft(cornell: Case, first: dict) -> dict:
     something else is not timed as a faster one."""
     for name, wrt in (("sph_mat", TRAIN_WRT), ("all", MKG.DIFF_ALL)):
         got = cornell.k2s(cornell.g, wrt)
-        want = first.setdefault(name, got)
-        for gname, a, b in zip(MKG.DIFF_ALL, want, got):
-            if gname in wrt:
-                a, b = a.double().ravel(), b.double().ravel()
-                cos = (a @ b).item() / max(a.norm().item() * b.norm().item(),
-                                           1e-300)
-                rel = ((a - b).abs().max() / a.abs().max()).item()
-                print(f"  k2s {name} {gname} vs the first variant: cosine "
-                      f"{cos:.9f}, max|d| {rel:.3g} x scale")
+        _hold(name, wrt, first.setdefault(name, got), got)
+    got = cornell.k2s(cornell.g, TRAIN_WRT, rr=True)
+    _hold("rr", TRAIN_WRT, first.setdefault("rr", got), got)
     return {
         "k2s_cornell_step_g_sph_mat_ms": time_ms(
             lambda: cornell.k2s(cornell.g, TRAIN_WRT), reps=3),
@@ -492,6 +512,64 @@ def measure_soft(cornell: Case, first: dict) -> dict:
     }
 
 
+def soft_cases(dev, sizes) -> dict:
+    """Kernel 2s's cases for ``--only soft``: cornell's path-mode and
+    direct-mode steps and the streamed torus scene at each size."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    cases = {"cornell": Case(cornell_box(cols=SIZE, rows=SIZE, device=dev),
+                             dev),
+             "direct": DirectCase(cornell_box(cols=SIZE, rows=SIZE,
+                                              device=dev), dev)}
+    for n in sizes:
+        cases[f"torus{n}"] = Case(chip_smoke._stream_scene("torus", n, n,
+                                                           dev), dev, size=n)
+    return cases
+
+
+def soft_excused(dev, libs: dict, labels) -> dict:
+    """Per variant, the rays that ``chip_smoke.py``'s phase 22 excuses
+    when it holds kernel 2s to its plain version (the torus scene and
+    sphere_field(256), with and without the roulette); a failed
+    comparison counts as None."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    out = {}
+    for label in labels:
+        use(libs[label])
+        counts = []
+        for shape, wrt in (("torus", chip_smoke.MESH_WRT),
+                           ("spheres", chip_smoke.TRAIN_WRT)):
+            for rr in (False, True):
+                try:
+                    counts.append(chip_smoke.large_vs_plain(
+                        dev, shape, True, rr, wrt)["excused"])
+                except SystemExit:
+                    counts.append(None)
+        out[label] = counts
+        print(f"{label}: phase 22 excused rays (torus, torus rr, spheres, "
+              f"spheres rr) {counts}")
+    return out
+
+
+def measure_soft_only(cases: dict, first: dict) -> dict:
+    """Kernel 2s alone: cornell (measure_soft), direct mode and the torus
+    past 64 objects, each held to the first variant's cotangents."""
+    out = measure_soft(cases["cornell"], first)
+    d = cases["direct"]
+    got = d.k2s()
+    _hold("direct", TRAIN_WRT, first.setdefault("direct", got), got)
+    out["k2s_direct_step_g_sph_mat_ms"] = time_ms(d.k2s, reps=5)
+    for key, c in cases.items():
+        if not key.startswith("torus"):
+            continue
+        got = c.k2s(c.g, TRAIN_WRT)
+        _hold(key, TRAIN_WRT, first.setdefault(key, got), got)
+        out[f"k2s_large_stream_{key}_step_g_sph_mat_ms"] = time_ms(
+            lambda: c.k2s(c.g, TRAIN_WRT), reps=1)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variant", action="append", default=[],
@@ -500,6 +578,13 @@ def main(argv=None) -> int:
     ap.add_argument("--sass", action="append", default=[],
                     help="dump the SASS of this variant's libraries")
     ap.add_argument("--out", default=str(BUILD / "out"))
+    ap.add_argument("--only", choices=("all", "soft"), default="all",
+                    help="soft: build and time kernel 2s alone")
+    ap.add_argument("--soft-large-sizes", default="256",
+                    help="with --only soft: film sizes of the torus case")
+    ap.add_argument("--soft-excused", action="store_true",
+                    help="with --only soft: phase 22's excused rays per "
+                         "variant")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_kernels needs a CUDA card")
@@ -513,23 +598,51 @@ def main(argv=None) -> int:
         ("tree", str(_build.CSRC))]
     variants = [(label, Path(src).resolve()) for label, src in variants]
     t0 = time.perf_counter()
-    jobs = [(label, src, *lib) for label, src in variants for lib in LIBS
-            if (src / f"{lib[0]}.cu").exists()]
+    libs_used = LIBS if args.only == "all" else SOFT_LIBS
+    jobs = [(label, src, *lib) for label, src in variants
+            for lib in libs_used if (src / f"{lib[0]}.cu").exists()]
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
         built = list(pool.map(lambda j: build(*j), jobs))
     libs: dict = {}
+    ptxas = []
     for (label, _, name, _, flags), (lib, log) in zip(jobs, built):
         libs.setdefault(label, {})[_stem(name, flags)] = lib
         for line in log.splitlines():
             if re.search(r"registers|spill|stack|Compiling entry", line):
-                print(f"  ptxas {label}/{_stem(name, flags)}: "
-                      f"{line.strip()}")
+                ptxas.append(f"  ptxas {label}/{_stem(name, flags)}: "
+                             f"{line.strip()}")
+    print("\n".join(ptxas))
+    (out / "ptxas.txt").write_text("\n".join(ptxas) + "\n")
     print(f"built {len(jobs)} libraries in {time.perf_counter() - t0:.2f} s")
     for label in args.sass:
-        for name, _, flags in LIBS:
+        for name, _, flags in libs_used:
             sass_summary(label, _stem(name, flags), out)
 
     labels = [label for label, _ in variants]
+    if args.only == "soft":
+        # the other kernels come from the package's own csrc
+        for label in labels:
+            libs[label] = {_stem(name, flags): libs[label][_stem(name, flags)]
+                           for name, _, flags in SOFT_LIBS}
+        use(libs[labels[0]])
+        cases = soft_cases(dev, [int(n) for n in
+                                 args.soft_large_sizes.split(",")])
+        results: dict = {"card": smi, "turns": []}
+        first: dict = {}
+        for order in (labels, labels[::-1]):
+            turn = {}
+            for label in order:
+                use(libs[label])
+                print(f"{label}:")
+                turn[label] = measure_soft_only(cases, first)
+                print(f"{label}: " + ", ".join(
+                    f"{k} {v:.6g}" for k, v in turn[label].items()))
+            results["turns"].append(turn)
+        if args.soft_excused:
+            results["excused"] = soft_excused(dev, libs, labels)
+        (out / "profile.json").write_text(json.dumps(results, indent=1))
+        print(f"card: [{smi}]")
+        return 0
     use(libs[labels[0]])
     cornell = Case(cornell_box(cols=SIZE, rows=SIZE, device=dev), dev)
     spheres = Case(sphere_field(N_SPHERES, cols=SIZE, rows=SIZE,

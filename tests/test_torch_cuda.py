@@ -1036,6 +1036,118 @@ def test_large_soft_kernel_matches_plain_version(cuda, name, rr):
            names=[n for n, a in zip(MKG.DIFF_ALL, want) if a.numel()])
 
 
+def _soft_scene(n_sph, n_tri, device, shared=False, w=32, h=24, seed=11):
+    """Cornell's camera, light and materials around n_sph seeded spheres
+    and n_tri seeded triangles inside the box (with ``shared`` every
+    object takes material 3, whose channels differ: a white albedo of 1
+    puts throughputs on the roulette's clip bound, where float32 rounding
+    picks the branch; tests/test_torch_edge_parity.py): kernel 2s at a
+    given hypothesis count."""
+    c = cornell_box(cols=w, rows=h, device=device)
+    r = np.random.default_rng(seed)
+
+    def mats(n):
+        return (np.full(n, 3, np.int32) if shared
+                else r.integers(0, 5, n).astype(np.int32))
+    sph = tri = None
+    if n_sph:
+        sph = make_spheres(r.uniform(-0.7, 0.7, (n_sph, 3)),
+                           r.uniform(0.05, 0.2, n_sph), mats(n_sph),
+                           device=device)
+    if n_tri:
+        v = (r.uniform(-0.7, 0.7, (n_tri, 1, 3))
+             + r.uniform(-0.25, 0.25, (n_tri, 3, 3))).astype(np.float32)
+        tri = make_triangles(v, mat_ids=mats(n_tri), device=device)
+    return build_scene(camera=c.camera, lights=c.lights,
+                       materials=c.materials, spheres=sph, triangles=tri)
+
+
+def _soft_vs_plain(scene, rr, wrt=MKG.DIFF_ALL, bounces=2, seed=12):
+    """Kernel 2s (the entry the table sizes pick; past 64 triangles in
+    Morton order) vs its plain version on ``scene`` at its film, seeded
+    random g, bandwidth and tau 2e-2, PRNG draws, under phase 6's gates on
+    the non-empty groups in ``wrt``; returns what the launch took
+    (MKS.last_launch)."""
+    cam = scene.camera
+    w, h = int(cam.cols), int(cam.rows)
+    cfg = RenderConfig(width=w, height=h, bounces=bounces,
+                       russian_roulette=rr, rr_start_depth=1,
+                       use_megakernel=True)
+    tables = list(mega.scene_tables(scene, cfg))
+    chunks = mega.chunk_tables(scene, cfg, tables[1], tables[2])
+    st = mega.soft_tri_order(scene, tables[2], chunks)
+    if st is not None:
+        tables[2] = st.rows
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    g = torch.as_tensor(np.random.default_rng(seed).normal(
+        size=(cfg.total_rays, 3)).astype(np.float32),
+        device=scene.camera.eye.device)
+    kw = dict(spp=1, width=w, bounces=bounces, two_sided=False,
+              normalize_emitter=True, seed=cfg.seed, russian_roulette=rr,
+              rr_start_depth=1, diff_wrt=wrt, soft_bandwidth=2e-2,
+              soft_tau=2e-2)
+    want = MKS.pathtrace_pass_bwd_soft_reference(tables[0], ipar,
+                                                 *tables[1:], g, None, **kw)
+    before = MKS.soft_launches + MKS.soft_large_launches
+    got = MKS.pathtrace_pass_bwd_soft(tables[0], ipar, *tables[1:], g, None,
+                                      **kw)
+    torch.cuda.synchronize()
+    assert MKS.soft_launches + MKS.soft_large_launches == before + 1
+    held = [i for i, (n, a) in enumerate(zip(MKG.DIFF_ALL, want))
+            if n in wrt and a.numel()]
+    _gates([want[i] for i in held], [got[i] for i in held],
+           [MKG.DIFF_ALL[i] for i in held])
+    for n, b in zip(MKG.DIFF_ALL, got):
+        assert n in wrt or not b.any(), n
+    return MKS.last_launch()
+
+
+@pytest.mark.parametrize("rr", [False, True])
+@pytest.mark.parametrize("n_sph,n_tri,group", [
+    (1, 0, 4), (4, 4, 4), (5, 4, 4), (15, 16, 8), (17, 16, 32),
+    (64, 64, 32)], ids=["1", "8", "9", "31", "33", "128"])
+def test_soft_kernel_at_hypothesis_counts(cuda, n_sph, n_tri, group, rr):
+    """Kernel 2s's 64-object entry at hypothesis counts on both sides of
+    its group sizes (4 lanes per ray up to 16 hypotheses, 8 up to 32, 32
+    past that; 128 = 64 + 64 is its two-level composite), with and without
+    the roulette, against its plain version."""
+    before = MKS.soft_launches
+    last = _soft_vs_plain(_soft_scene(n_sph, n_tri, cuda), rr)
+    assert MKS.soft_launches == before + 1
+    assert last["group"] == group
+
+
+@pytest.mark.parametrize("rr", [False, True])
+def test_large_soft_kernel_one_row_last_span(cuda, rr):
+    """Kernel 2s past 64 objects on 65 triangles and 3 spheres: the
+    triangles' spans hold 64 rows and 1 (Morton order, no padding row),
+    with and without the roulette."""
+    before = MKS.soft_large_launches
+    _soft_vs_plain(_soft_scene(3, 65, cuda), rr)
+    assert MKS.soft_large_launches == before + 1
+
+
+@pytest.mark.parametrize("rr", [False, True])
+def test_large_soft_kernel_rows_in_global_memory(cuda, rr):
+    """Kernel 2s past 64 objects with "tri" in wrt on 2,048 triangles: the
+    triangle table and its gradient buffer pass the shared-memory limit,
+    so the rows are read from global memory and their cotangents added
+    there, summed over each warp (rows_global); 16x12 b1."""
+    last = _soft_vs_plain(_soft_scene(2, 2048, cuda, w=16, h=12), rr,
+                          wrt=("mat", "tri"), bounces=1)
+    assert last["rows_global"] == 1 and last["resident"] == 0
+
+
+@pytest.mark.parametrize("rr", [False, True])
+@pytest.mark.parametrize("n_sph,n_tri", [(20, 30), (8, 100)],
+                         ids=["64-entry", "large"])
+def test_soft_kernel_one_shared_material(cuda, n_sph, n_tri, rr):
+    """Kernel 2s where every object shares one material: every lane of every
+    group adds into one material row (summed over the group's lanes, then
+    one add), on both entries, with and without the roulette."""
+    _soft_vs_plain(_soft_scene(n_sph, n_tri, cuda, shared=True), rr)
+
+
 @pytest.mark.parametrize("edge", [False, True])
 def test_routes_past_64_train_through_their_kernels(cuda, edge):
     """render_pass on the streamed torus scene with mega_bwd_impl="pallas"
