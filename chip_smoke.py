@@ -213,9 +213,13 @@ Phases, each fatal on failure (no exception is caught):
      over its grids with ("sph", "mat", "tri"), and on the streamed torus
      at BRUTE_W x BRUTE_H b BRUTE_BOUNCES vs the brute plain version (one
      row at a time, no Morton build); kernel 2s (the two-level composite,
-     the triangles Morton-sorted) vs its plain version on the torus scene
-     and sphere_field(256), with and without the roulette; all under phase
-     6's gates. Where kernel 2s misses them, the rays whose cotangent
+     sparse over each warp's live rows; the triangles Morton-sorted) vs
+     its plain version in path mode, with the roulette and in direct mode
+     (SOFT_MODES) on the torus scene (("sph", "mat", "tri")),
+     sphere_field(1024), a film whose rays all miss (every span mask
+     empty: every plain and kernel word exactly 0) and a packed
+     sphere_field(128) whose warps' live rows fill every span; all under
+     phase 6's gates. Where kernel 2s misses them, the rays whose cotangent
      float32 does not pin down (_ray_moves: the ray's share of the plain
      cotangent moves between its draws moved by +2^-22 and -2^-22) are
      excused one at a time, the least stable first, until every other ray
@@ -227,7 +231,8 @@ Phases, each fatal on failure (no exception is caught):
      and one large kernel-2s launch each; cosine >= 0.99999, max |d| <=
      1e-3 of scale); (c) one launch of each route at DIFF_TABLE_MAX
      (sphere_field(4096), a seeded soup of 4096 triangles) at CAP_W x
-     CAP_H b1, all five groups, the same gates; (b) at 1024^2 b5: the
+     CAP_H b1, all five groups, the same gates, kernel 2s also with the
+     roulette (from depth 0) and in direct mode; (b) at 1024^2 b5: the
      "pallas" train step (one kernel-1 and one large kernel-2 launch per
      step) beside the cell route's (kernel 1 recording and kernel 3) on
      sphere_field(1024) with ("sph", "mat") and on the torus scene
@@ -235,8 +240,12 @@ Phases, each fatal on failure (no exception is caught):
      ms and fwd+bwd segments/s, kernel 2 alone on the last step's
      cotangent with its bound; BENCH_EDGE on the torus scene (one step;
      one kernel-1 and one large kernel-2s launch), kernel 2s alone (CUDA
-     events around its launch in that step) with its bounds (pairs per
-     span and the spans' level; FP32 and MUFU) and its launch. Prints the
+     events around its launch in that step) with its bounds, FP32 and
+     MUFU: dense (every pair of every span and the spans' level) and live
+     work (every row's hypothesis once, then only the rows live for each
+     warp, counted by the plain version, MKS.live_stats, on LIVE_BLOCKS
+     blocks of the step's rays; the kernels line's bound), and its launch.
+     Prints the
      phase's seconds. The kernels
      line's entries of this phase name the size of their ``ms``
      (``shape``) and of their ``plain_ms`` (``plain_shape``).
@@ -338,6 +347,8 @@ UNSTABLE_MOVE = 1e-3
 BRUTE_W, BRUTE_H, BRUTE_BOUNCES = 8, 6, 2  # the streamed torus vs brute
 LARGE_STEPS = 5            # timed hard steps per route at 1024^2
 CAP_W, CAP_H = 16, 8       # one launch of each route at DIFF_TABLE_MAX
+LIVE_BLOCKS, LIVE_BLOCK = 8, 1024  # kernel 2s's live rows, counted on rays
+SOFT_MODES = ("path", "rr", "direct")  # kernel 2s's builds (RT_SOFT_MODE)
 SOFT_CHUNK = 64            # JAX's SOFT_CHUNK: rows per span past 64
 DIRECT_W, DIRECT_H = 256, 192   # phase 23's kernel vs plain
 DIRECT_SOFT_W, DIRECT_SOFT_H = 64, 48   # kernel 2s vs plain past 64 objects
@@ -2868,6 +2879,83 @@ def _soft_sfu(rays: float, segs: float, n_sph: int, n_tri: int,
             + (segs - rays) * SFU_SOFT_BOUNCE)
 
 
+def _soft_live_terms(n_sph: int, n_tri: int, live: dict) -> dict:
+    """Per warp-segment and per shadow ray, the work kernel 2s's large-table
+    instance runs on this run's data (MKS.live_stats' means): every row's
+    hypothesis once (the replay's pass and the shadow ray's: a row dead at
+    its first factor costs less, so this overstates), then only the rows
+    live for the warp: their count in sphere and triangle spans, the
+    ordered pairs within the live spans and between them, and the live
+    spans."""
+    sur, sh = live["surface"], live["shadow"]
+    spans = sur["live_spans"]
+    return dict(
+        u_s=sur["union_rows_sph"], u_t=sur["union_rows"] - sur["union_rows_sph"],
+        pairs=(sur["union_pairs"] - sur["union_rows"]
+               + spans * max(spans - 1.0, 0.0)),
+        spans=spans, v_s=sh["union_rows_sph"],
+        v_t=sh["union_rows"] - sh["union_rows_sph"])
+
+
+def _soft_live(MKS, args: tuple, kw: dict, n_rays: int) -> dict:
+    """MKS.live_stats of one kernel 2s call (its wrapper's positional
+    arguments and keywords) on LIVE_BLOCKS blocks of LIVE_BLOCK rays spread
+    evenly over its n_rays."""
+    par, ipar, sph, tri, mat, lig, _, u = args
+    step = n_rays // LIVE_BLOCKS // 32 * 32
+    return MKS.live_stats(
+        par, ipar, sph, tri, mat, lig, u,
+        blocks=[(b * step, min(LIVE_BLOCK, n_rays - b * step))
+                for b in range(LIVE_BLOCKS)],
+        **{k: v for k, v in kw.items() if k != "diff_wrt"})
+
+
+def _soft_ops_live(rays: float, segs: float, n_sph: int, n_tri: int,
+                   n_lig: int, live: dict) -> float:
+    """_soft_ops on the work this run's data needs (_soft_live_terms):
+    the sparse kernel's live-work bound. Every lane of a warp runs its
+    warp's live rows, so a ray is charged its warp's union. Counted once,
+    as _soft_ops counts: a live row's hypothesis again in the sweep and the
+    replay's composites are not charged."""
+    w = _soft_live_terms(n_sph, n_tri, live)
+    u = w["u_s"] + w["u_t"]
+    hyp = n_sph * OPS_SOFT_SPHERE + n_tri * OPS_SOFT_TRIANGLE
+    surface = (hyp + w["u_s"] * (OPS_SOFT_FIELDS_SPHERE
+                                 + OPS_SOFT_HYP_ADJ_SPHERE
+                                 + OPS_SOFT_FIELDS_ADJ_SPHERE)
+               + w["u_t"] * (OPS_SOFT_FIELDS_TRIANGLE
+                             + OPS_SOFT_HYP_ADJ_TRIANGLE
+                             + OPS_SOFT_FIELDS_ADJ_TRIANGLE)
+               + w["pairs"] * (OPS_SOFT_PAIR + OPS_SOFT_PAIR_ADJ)
+               + (u + w["spans"]) * (OPS_SOFT_BLEND + OPS_SOFT_BLEND_ADJ)
+               + w["spans"] * (OPS_SOFT_SPAN + OPS_SOFT_SPAN_ADJ)
+               + OPS_SOFT_SEGMENT + OPS_SOFT_SEGMENT_ADJ + 3 * n_lig)
+    nee = (hyp + (w["v_s"] + w["v_t"]) * (OPS_SOFT_OCCLUDER
+                                          + OPS_SOFT_OCCLUDER_ADJ)
+           + w["v_s"] * OPS_SOFT_HYP_ADJ_SPHERE
+           + w["v_t"] * OPS_SOFT_HYP_ADJ_TRIANGLE + OPS_SOFT_NEE_ADJ)
+    return (rays * (OPS_CAMERA + n_lig * (OPS_SOFT_EMIT + OPS_SOFT_EMIT_ADJ))
+            + segs * (surface + n_lig * nee)
+            + (segs - rays) * (OPS_BOUNCE + OPS_SOFT_BOUNCE_ADJ + 1))
+
+
+def _soft_sfu_live(rays: float, segs: float, n_sph: int, n_tri: int,
+                   n_lig: int, live: dict) -> float:
+    """_soft_sfu on the work of _soft_ops_live."""
+    w = _soft_live_terms(n_sph, n_tri, live)
+    u = w["u_s"] + w["u_t"]
+    hyp = n_sph * SFU_SOFT_SPHERE + n_tri * SFU_SOFT_TRIANGLE
+    surface = (hyp + u * SFU_SOFT_FIELDS + w["pairs"] * SFU_SOFT_SIGMOID
+               + (w["spans"] + 1) * SFU_SOFT_COMPOSITE + SFU_SOFT_SEGMENT
+               + w["u_s"] * SFU_SOFT_HYP_ADJ_SPHERE
+               + w["u_t"] * SFU_SOFT_HYP_ADJ_TRIANGLE)
+    nee = (hyp + (w["v_s"] + w["v_t"]) * SFU_SOFT_SIGMOID
+           + w["v_s"] * (SFU_SOFT_HYP_ADJ_SPHERE - 1) + SFU_SOFT_NEE)
+    return (rays * (SFU_SOFT_CAMERA + n_lig * SFU_SOFT_EMIT)
+            + segs * (surface + n_lig * nee)
+            + (segs - rays) * SFU_SOFT_BOUNCE)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_clock_hz() -> float:
     """The card's maximum SM clock, from nvidia-smi."""
@@ -3601,14 +3689,23 @@ def _large_scene(shape: str, w: int, h: int, dev):
     """Phase 22's scenes: sphere_field(SMALL_SPHERES) ("spheres"),
     sphere_field(N_SPHERES) ("spheres1024"), the torus scene of phase 21
     (cornell + 992 triangles, no grid: "torus"), the same over its grids
-    (phase 16's, "torus-grid"), and at DIFF_TABLE_MAX sphere_field(4096)
+    (phase 16's, "torus-grid"), at DIFF_TABLE_MAX sphere_field(4096)
     ("cap-spheres") and a seeded soup of 4096 triangles in cornell's light
-    and camera ("cap-triangles")."""
+    and camera ("cap-triangles"), a film whose rays all miss
+    (tests/torch_grid_scenes.py miss_field, "misses") and sphere_field(128)
+    packed within 0.5, where every warp's live rows fill both 64-row spans
+    ("cluster")."""
     from raytracing_tpu_torch.core.types import build_scene
     from raytracing_tpu_torch.models.scenes import cornell_box, sphere_field
     from raytracing_tpu_torch.render import mega
+    if shape == "misses":
+        sys.path.insert(0, str(HERE / "tests"))
+        from torch_grid_scenes import miss_field
+        return miss_field(N_SPHERES, w, h, dev)
     if shape == "spheres":
         return sphere_field(SMALL_SPHERES, cols=w, rows=h, device=dev)
+    if shape == "cluster":
+        return sphere_field(128, cols=w, rows=h, spread=0.5, device=dev)
     if shape == "spheres1024":
         return sphere_field(N_SPHERES, cols=w, rows=h, device=dev)
     if shape == "cap-spheres":
@@ -3736,7 +3833,8 @@ def _excuse_unstable(MKS, tables, g, u, kw, held, want, got, plain, kernel,
 
 def large_vs_plain(dev, shape: str, soft: bool, rr: bool, wrt,
                    w: int = LARGE_W, h: int = LARGE_H,
-                   bounces: int = BOUNCES, brute: bool = False) -> dict:
+                   bounces: int = BOUNCES, brute: bool = False,
+                   direct: bool = False, rr_start: int = RR_START) -> dict:
     """Phase 22 (a) and (c): kernel 2's large-table instance (``soft``
     False; over the scene's resident spheres, its streamed chunks or its
     grids, as the forward) or kernel 2s's large-table instance (the
@@ -3749,9 +3847,12 @@ def large_vs_plain(dev, shape: str, soft: bool, rr: bool, wrt,
     the least stable rays by _ray_moves are excused one at a time (their
     cotangent zeroed) until every other ray is within phase 6's gates;
     each must move the cotangent the gates then read by more than
-    UNSTABLE_MOVE of its norm, and at most 2% of the rays go. Returns
-    max |d|, the plain version's ms and the kernel's (CUDA events, PRNG
-    route), and the size they were taken at."""
+    UNSTABLE_MOVE of its norm, and at most 2% of the rays go. ``direct``:
+    direct mode (u_planes_for_direct, no bounce); the roulette from depth
+    ``rr_start``. On the film whose rays all miss ("misses") every plain
+    cotangent and every kernel word must be exactly 0. Returns max |d|,
+    the plain version's ms and the kernel's (CUDA events, PRNG route), and
+    the size they were taken at."""
     import numpy as np
     import torch
     from raytracing_tpu_torch import RenderConfig
@@ -3762,19 +3863,27 @@ def large_vs_plain(dev, shape: str, soft: bool, rr: bool, wrt,
     from raytracing_tpu_torch.render import pathtracer as pt
 
     grid = shape == "torus-grid"
+    empty = shape == "misses"
     scene = _large_scene(shape, w, h, dev)
+    if direct:
+        bounces = 0
     cfg = RenderConfig(width=w, height=h, bounces=bounces,
-                       russian_roulette=rr, rr_start_depth=RR_START,
+                       russian_roulette=rr, rr_start_depth=rr_start,
                        use_megakernel=True, use_grid=grid)
     tables = list(mega.scene_tables(scene, cfg))
     n_s, n_t = tables[1].shape[0], tables[2].shape[0]
     ipar = torch.tensor([0, 0], dtype=torch.int32)
-    u = mega.u_planes_for_pass(pt.init_state(cfg, dev)["key"], 0, cfg,
-                               scene.lights.count, dev)
+    if direct:
+        u = mega.u_planes_for_direct(MK.pass_key_of(ipar, cfg.seed), cfg,
+                                     scene.lights.count, dev)
+    else:
+        u = mega.u_planes_for_pass(pt.init_state(cfg, dev)["key"], 0, cfg,
+                                   scene.lights.count, dev)
     g = torch.as_tensor(np.random.default_rng(GRAD_SEED).normal(
         size=(cfg.total_rays, 3)).astype(np.float32), device=dev)
     chunks = mega.chunk_tables(scene, cfg, tables[1], tables[2])
-    kw = _pass_kw(cfg, diff_wrt=wrt)
+    kw = _pass_kw(cfg, diff_wrt=wrt, **({"mode": "direct"} if direct
+                                        else {}))
     if soft:
         st = mega.soft_tri_order(scene, tables[2], chunks)
         if st is not None:
@@ -3820,19 +3929,30 @@ def large_vs_plain(dev, shape: str, soft: bool, rr: bool, wrt,
     torch.cuda.synchronize()
     ms = start.elapsed_time(end)
     what = "kernel 2s" if soft else "kernel 2"
-    size = f"{w}x{h} b{bounces}"
+    size = f"{w}x{h} " + ("direct" if direct else f"b{bounces}")
     order = ", Morton-sorted" if soft and n_t > 64 else ""
     print(f"phase 22 {what} large-table instance, {shape} ({n_s} spheres, "
           f"{n_t} triangle rows{order}{', over its grids' if grid else ''})"
           f" {size}"
-          f"{' with the roulette' if rr else ''} wrt {list(wrt)} vs the "
+          f"{f' with the roulette from depth {rr_start}' if rr else ''} "
+          f"wrt {list(wrt)} vs the "
           f"plain version{' (brute)' if brute else ''}: plain "
           f"{plain_ms:.6g} ms, kernel (PRNG route) {ms:.6g} ms")
-    _check(any(a.any().item() for n, a in zip(MKG.DIFF_ALL, want)
-               if n in wrt), f"{shape}: every plain cotangent is 0")
     for route, outs in got.items():
         _check(all(bool(torch.isfinite(b).all()) for b in outs),
                f"{shape}: {what} {route} route not finite")
+    if empty:
+        # no live row anywhere: every word of both sides exactly 0
+        _check(not any(a.any().item() for a in want),
+               f"{shape}: a plain cotangent is not 0")
+        for route, outs in got.items():
+            _check(not any(b.any().item() for b in outs),
+                   f"{shape}: {what} {route} route adds a nonzero word")
+        print(f"  {what}: every plain and kernel cotangent exactly 0")
+        return {"max_abs_err": 0.0, "plain_ms": plain_ms, "ms": ms,
+                "shape": f"{shape} {size}", "excused": 0}
+    _check(any(a.any().item() for n, a in zip(MKG.DIFF_ALL, want)
+               if n in wrt), f"{shape}: every plain cotangent is 0")
     held = [n for n, a in zip(MKG.DIFF_ALL, want) if n in wrt and a.numel()]
     excused = []
     if soft:
@@ -4082,7 +4202,7 @@ def large_train(dev, smi: str, work: dict) -> dict:
     segs = cfg.total_rays * (1 + n_l + cfg.bounces * (1 + n_l))
     p = _large_params(scene, False)
     step = _large_step(scene, cfg, dev, p)
-    events, wrapped = [], MKS.pathtrace_pass_bwd_soft
+    events, wrapped, call = [], MKS.pathtrace_pass_bwd_soft, []
 
     def timed(*a, **k):
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -4090,6 +4210,7 @@ def large_train(dev, smi: str, work: dict) -> dict:
         r = wrapped(*a, **k)
         end.record()
         events.append((start, end))
+        call.append((a, k))
         return r
 
     MKS.pathtrace_pass_bwd_soft = timed
@@ -4117,12 +4238,25 @@ def large_train(dev, smi: str, work: dict) -> dict:
     stats = _soft_stats(MKS, False, False)
     tables = mega.scene_tables(scene, cfg)
     rays, nsegs = _soft_work(MK, tables, p["g"], cfg)
-    ops = _soft_ops(rays, nsegs, tables[1].shape[0], tables[2].shape[0],
-                    n_l)
-    sfu = _soft_sfu(rays, nsegs, tables[1].shape[0], tables[2].shape[0],
-                    n_l)
-    bound = {**_bound(ops, 12 * cfg.total_rays + 2 * _table_bytes(tables)),
+    n_s, n_t = tables[1].shape[0], tables[2].shape[0]
+    # the dense bound (every pair of every span), and the live-work bound
+    # on the rows live for each warp, counted by the plain version on
+    # LIVE_BLOCKS blocks of whole warps spread over the step's own launch
+    ops = _soft_ops(rays, nsegs, n_s, n_t, n_l)
+    sfu = _soft_sfu(rays, nsegs, n_s, n_t, n_l)
+    dense = {**_bound(ops, 12 * cfg.total_rays + 2 * _table_bytes(tables)),
              **_sfu_bound(sfu)}
+    live = _soft_live(MKS, *call[0], cfg.total_rays)
+    ops_live = _soft_ops_live(rays, nsegs, n_s, n_t, n_l, live)
+    sfu_live = _soft_sfu_live(rays, nsegs, n_s, n_t, n_l, live)
+    bound = {**_bound(ops_live,
+                      12 * cfg.total_rays + 2 * _table_bytes(tables)),
+             **_sfu_bound(sfu_live),
+             "dense_bound_ms": dense["bound_ms"],
+             "dense_bound_sfu_ms": dense["bound_sfu_ms"]}
+    print(f"phase 22 BENCH_EDGE step, the torus scene: live rows per warp "
+          f"(the plain version, {LIVE_BLOCKS} blocks of {LIVE_BLOCK} rays): "
+          f"{json.dumps(live)}")
     print(f"phase 22 BENCH_EDGE step, the torus scene ({tables[2].shape[0]} "
           f"triangles, {len(_soft_spans(tables[2].shape[0]))} spans, "
           f"Morton-sorted) {MAIN_W}x{MAIN_H} b{BOUNCES} wrt "
@@ -4131,14 +4265,18 @@ def large_train(dev, smi: str, work: dict) -> dict:
           f"fwd+bwd ray segments/s; launches (kernel 1, streamed, kernel 2, "
           f"kernel 2s, kernel 2s large) {counts}; kernel 2s large-table "
           f"instance alone {k_ms:.6g} ms ({k_ms / step_ms:.3%} of the "
-          f"step); bound "
+          f"step); dense bound "
           f"{ops / max(rays, 1):.6g} FP32 operations per live ray "
           f"(OPS_SOFT_*, pairs per span and the spans' level) -> "
-          f"{bound['bound_ms']:.6g} ms ({bound['bound_by']}); share "
-          f"{bound['bound_ms'] / k_ms:.3%}; second bound "
-          f"{sfu / max(rays, 1):.6g} MUFU operations per live ray -> "
-          f"{bound['bound_sfu_ms']:.6g} ms, share "
-          f"{bound['bound_sfu_ms'] / k_ms:.3%}; launch {stats}")
+          f"{dense['bound_ms']:.6g} ms ({dense['bound_by']}), MUFU "
+          f"{sfu / max(rays, 1):.6g} -> {dense['bound_sfu_ms']:.6g} ms; "
+          f"live-work bound (the hypotheses and the warps' union rows and "
+          f"pairs the kernel runs) {ops_live / max(rays, 1):.6g} FP32 "
+          f"operations per live ray -> {bound['bound_ms']:.6g} ms "
+          f"({bound['bound_by']}; share {bound['bound_ms'] / k_ms:.3%}), "
+          f"MUFU {sfu_live / max(rays, 1):.6g} -> "
+          f"{bound['bound_sfu_ms']:.6g} ms (share "
+          f"{bound['bound_sfu_ms'] / k_ms:.3%}); launch {stats}")
     out["edge"] = {"launches": counts[4], "ms": k_ms, "step_ms": step_ms,
                    "shape": f"torus {MAIN_W}x{MAIN_H} b{BOUNCES}",
                    "stats": stats, **bound}
@@ -4732,21 +4870,34 @@ def main() -> int:
     # the streamed torus against the brute plain version (no Morton build)
     a22["brute"] = large_vs_plain(dev, "torus", False, False, MESH_WRT,
                                   BRUTE_W, BRUTE_H, BRUTE_BOUNCES, brute=True)
-    s22 = [large_vs_plain(dev, shape, True, rr, wrt)
-           for shape, wrt in (("torus", MESH_WRT), ("spheres", TRAIN_WRT))
-           for rr in (False, True)]
+    # kernel 2s past 64 in path mode, with the roulette and in direct mode:
+    # the torus (its triangles in wrt), sphere_field(N_SPHERES), the film
+    # whose rays all miss (every span mask empty), the cluster whose warps'
+    # live rows fill every span and, at DIFF_TABLE_MAX, the spheres and the
+    # triangle soup (one bounce, the roulette from depth 0)
+    s22 = {(shape, mode): large_vs_plain(
+               dev, shape, True, mode == "rr", wrt, direct=mode == "direct")
+           for shape, wrt in (("torus", MESH_WRT),
+                              ("spheres1024", TRAIN_WRT),
+                              ("misses", MKG.DIFF_ALL),
+                              ("cluster", MKG.DIFF_ALL))
+           for mode in SOFT_MODES}
     edge_grid_large(dev, LARGE_W, LARGE_H)
-    c22 = {(shape, soft): large_vs_plain(dev, shape, soft, False,
-                                         MKG.DIFF_ALL, CAP_W, CAP_H, 1)
-           for shape in ("cap-spheres", "cap-triangles")
-           for soft in (False, True)}
+    c22 = {(shape, False, "path"): large_vs_plain(
+               dev, shape, False, False, MKG.DIFF_ALL, CAP_W, CAP_H, 1)
+           for shape in ("cap-spheres", "cap-triangles")}
+    c22.update({(shape, True, mode): large_vs_plain(
+                    dev, shape, True, mode == "rr", MKG.DIFF_ALL, CAP_W,
+                    CAP_H, 1, direct=mode == "direct", rr_start=0)
+                for shape in ("cap-spheres", "cap-triangles")
+                for mode in SOFT_MODES})
     l22 = large_train(dev, smi, s21[("torus", "path")]["work"])
-    excused = [x["excused"] for x in s22] + [v["excused"] for (_, soft), v
-                                             in c22.items() if soft]
-    print(f"phase 22 kernel 2s: {sum(excused)} rays excused in all "
-          f"({excused}: torus, torus with the roulette, sphere_field"
-          f"({SMALL_SPHERES}), with the roulette, then the DIFF_TABLE_MAX "
-          "spheres and triangles)")
+    excused = {f"{shape} {mode}": x["excused"]
+               for (shape, mode), x in s22.items()}
+    excused.update({f"{shape} {mode}": v["excused"]
+                    for (shape, soft, mode), v in c22.items() if soft})
+    print(f"phase 22 kernel 2s: {sum(excused.values())} rays excused in "
+          f"all ({excused})")
     print(f"phase 22: {time.perf_counter() - t22:.1f} s")
     _elapsed(23)
     # phase 23: the differentiable direct pass through kernels 1
@@ -4767,7 +4918,7 @@ def main() -> int:
     print(f"phase 23: {time.perf_counter() - t23:.1f} s")
     print(f"[{time.perf_counter() - START:.1f} s elapsed in all]")
     hard22 = max([x["max_abs_err"] for x in a22.values()]
-                 + [v["max_abs_err"] for (_, soft), v in c22.items()
+                 + [v["max_abs_err"] for (_, soft, _), v in c22.items()
                     if not soft])
 
     print(smi)
@@ -4942,14 +5093,18 @@ def main() -> int:
         "source": "raytracing_tpu_torch/csrc/megakernel_soft.cu",
         "replaces": "raytracing_tpu/ops/pallas/megakernel_grad.py:1883",
         "launches": l22["edge"]["launches"],
-        "max_abs_err": max([x["max_abs_err"] for x in s22]
-                           + [v["max_abs_err"] for (_, soft), v
+        "max_abs_err": max([x["max_abs_err"] for x in s22.values()]
+                           + [v["max_abs_err"] for (_, soft, _), v
                               in c22.items() if soft]),
-        "ms": l22["edge"]["ms"], "plain_ms": s22[0]["plain_ms"],
+        "ms": l22["edge"]["ms"],
+        "plain_ms": s22[("torus", "path")]["plain_ms"],
         "bound_ms": l22["edge"]["bound_ms"],
         "bound_by": l22["edge"]["bound_by"], "library_ms": None,
-        "bound_sfu_ms": l22["edge"]["bound_sfu_ms"], **l22["edge"]["stats"],
-        "shape": l22["edge"]["shape"], "plain_shape": s22[0]["shape"]}] + [{
+        "bound_sfu_ms": l22["edge"]["bound_sfu_ms"],
+        "dense_bound_ms": l22["edge"]["dense_bound_ms"],
+        "dense_bound_sfu_ms": l22["edge"]["dense_bound_sfu_ms"],
+        **l22["edge"]["stats"], "shape": l22["edge"]["shape"],
+        "plain_shape": s22[("torus", "path")]["shape"]}] + [{
         "name": name, "route": "cuda",
         "source": f"raytracing_tpu_torch/csrc/{src}",
         "replaces": f"raytracing_tpu/ops/pallas/{rep}",

@@ -11,10 +11,19 @@
 // past that up to DIFF_TABLE_MAX = 4096 per type, JAX's two-level composite
 // over every SOFT_CHUNK span (soft_trace :1883-1938;
 // rt_pathtrace_bwd_soft_large, a thread per ray in `namespace large` with
-// pathtrace_soft_span.cuh: the group layout measured slower there at
-// 1024^2, PERF.md §6 row 2s'). The forward value of the pass is kernel 1's
-// hard pass; only the backward is the soft program's. The plain version is
-// ops/megakernel_soft.pathtrace_pass_bwd_soft_reference.
+// pathtrace_soft_span.cuh). Past 64 the warp composites sparsely: it
+// skips every hypothesis whose soft coverage is exactly 0 for all its live
+// rays (a factor of alpha exactly 0: the sigmoid 1 / (1 + exp(-x)) is 0
+// below x = -88.72), and every span left empty. A skipped hypothesis
+// contributes factors of exactly 1, terms of exactly 0 and a zero adjoint,
+// so each ray's values keep the dense composite's bits (only the atomic
+// order of the row sums changes); pathtrace_soft_span.cuh says why. The
+// replay evaluates every row once per segment and shadow ray; the sweep
+// and the adjoints run over the live rows only. The forward value of the
+// pass is kernel 1's hard pass; only the backward is the soft program's.
+// The plain version is
+// ops/megakernel_soft.pathtrace_pass_bwd_soft_reference (dense: the
+// oracle).
 //
 // One adjoint for both entries (ray_adjoint, direct_adjoint), on a
 // composite that the entry supplies (Comp, below). Up to 64 objects per
@@ -22,9 +31,10 @@
 // past that one thread per ray (large::SpanComp,
 // pathtrace_soft_span.cuh). Replay the soft forward and tape bounces + 1
 // segments (the segment's origin, direction, window start, throughput and
-// path weight at its start, and its draws; the group layout also tapes
-// its soft surface and, past 64 hypotheses, each span's coverage, blend
-// and outer exclusive product), then sweep the segments in reverse: the
+// path weight at its start, its soft surface and its draws; the group
+// layout also tapes, past 64 hypotheses, each span's coverage, blend and
+// outer exclusive product; the span kernel each span's 64-bit mask of the
+// rows live for its warp), then sweep the segments in reverse: the
 // bounce to the next segment, the roulette's 1 / p (rr_adj, on the soft
 // throughput), NEE per light in reverse with the shadow transmittance's
 // adjoint, the emitter race on the primary segment, the composite's
@@ -37,11 +47,13 @@
 // (pathtrace.cuh Draws), bit-equal to u_planes_for_pass; the replay
 // computes each segment's draws (a word a lane) and tapes them.
 //
-// What bounds it: the composite's ordered pairs (a sigmoid, two MUFU
-// operations, per pair and pass), FP32 operations and their latency, not
-// bytes (PERF.md §6, rows 2s, 2s', 2sd; §7). The launcher picks G from the
-// widest composite (group_for) and the block size with the most resident
-// warps per SM (the occupancy API).
+// What bounds it: up to 64 objects the composite's ordered pairs (a
+// sigmoid, two MUFU operations, per pair and pass), FP32 operations and
+// their latency, not bytes (PERF.md §6, rows 2s, 2sd; §7); past 64 the
+// live spans' adjoint chains, then the replay's pass over every row per
+// segment and shadow ray (row 2s'). The
+// launcher picks G from the widest composite (group_for) and the block
+// size with the most resident warps per SM (the occupancy API).
 //
 // Float atomics (the flush) and the groups' sums make results
 // order-dependent: they agree with the plain version to float tolerance,
@@ -115,14 +127,18 @@ __device__ __forceinline__ V3 mul3(V3 a, V3 b) {
 //     its tape, scratch and gradient buffer in the group's shared slice;
 //     the sweep reads the replay's taped surface;
 //   * large::SpanComp (past 64): one thread per ray, its tape and span
-//     scratch in local memory, row cotangents summed over the warp and
-//     added atomically; the sweep runs the segment's composite again.
+//     scratch in local memory, its warp's span masks in shared memory, row
+//     cotangents of the warp's live rows summed over the warp and added
+//     atomically; the sweep reads the taped surface, its adjoint runs the
+//     live rows' composites again.
 // Comp gives: kLanes (lanes per ray) and kDraw (where a segment's draws
 // start in its tape); lane(), wrt(), sync() (between a lane's tape writes
 // and another lane's reads), seg(s) (segment s's tape), pwc() (the path
 // weights before each emitter term); trace_fwd / surface / trace_adj (the
-// soft surface: the replay's, the sweep's, its adjoint), vis_fwd / vis_adj
-// (the shadow transmittance) and add_light (a light's row cotangents).
+// soft surface of segment s: the replay's, the sweep's, its adjoint),
+// vis_fwd / vis_adj (the shadow transmittance) and add_light (a light's row
+// cotangents). `live` says whether the lane's ray is live (the large
+// entry's warp skips what no live lane needs).
 
 // The whole adjoint of ray rid_g for acc cotangent g on composite cm;
 // warp-uniform (every lane calls it, `active` false for a lane without a
@@ -175,7 +191,7 @@ __device__ __forceinline__ void ray_adjoint(Comp& cm, const Tables& T,
     cm.sync();
     const SRay r = alive ? sray(o, d, mint) : sray(zero, up, 0.0f);
     Surf sf;
-    cm.trace_fwd(T, C, r, seg, sf);
+    cm.trace_fwd(T, C, alive, s, r, sf);
     if (!alive) continue;
     if (s == 0)
       for (int li = 0; li < L; ++li)
@@ -209,7 +225,7 @@ __device__ __forceinline__ void ray_adjoint(Comp& cm, const Tables& T,
     const V3 tp0 = live ? mk(w[7], w[8], w[9]) : zero;
     const float pw0 = live ? w[10] : 0.0f;
     const SRay r = sray(o, d, mint);
-    const Surf sf = cm.surface(T, C, r, w);
+    const Surf sf = cm.surface(T, C, s, r);
     const V3 alb = sf.alb;
     // the path weight through the emitter terms (primary segment)
     float pwE = pw0;
@@ -254,7 +270,7 @@ __device__ __forceinline__ void ray_adjoint(Comp& cm, const Tables& T,
       const float u1 = live ? w[kU + 3 + 2 * li] : 0.5f;
       const Nee nr = nee_ray(T, li, u0, u1, sf.pbar, sf.nbar, eps);
       const SRay sr = sray(nr.so, nr.sd, 0.0f);
-      const float vis = cm.vis_fwd(T, C, sr, nr.dist);
+      const float vis = cm.vis_fwd(T, C, live, sr, nr.dist);
       const V3 lp = ld3(l), ln = ld3(l + 3), irr = ld3(l + 6);
       const float area = l[13], rad = l[12];
       const V3 q = sf.pbar - lp;
@@ -339,7 +355,7 @@ __device__ __forceinline__ void ray_adjoint(Comp& cm, const Tables& T,
       }
     }
     // the soft surface into every hypothesis
-    cm.trace_adj(T, C, live, r, w, sf, gCov, gTbar, gPbar, gNbar, gAlb, go,
+    cm.trace_adj(T, C, live, s, r, sf, gCov, gTbar, gPbar, gNbar, gAlb, go,
                  gd, gMint);
     if (live && s == 0 && (cm.wrt() & kWPar)) {
       clip_adj(T.par, o, d, gMint, go, gd, gp);
@@ -403,7 +419,7 @@ __device__ __forceinline__ void direct_adjoint(Comp& cm, const Tables& T,
   }
   cm.sync();
   Surf sf;
-  cm.trace_fwd(T, C, r, seg, sf);
+  cm.trace_fwd(T, C, live, 0, r, sf);
   const V3 alb = sf.alb;
   float gCov = 0.0f, gMint = 0.0f;
   V3 gPbar = zero, gNbar = zero, gAlb = zero, go = zero, gd = zero;
@@ -414,7 +430,7 @@ __device__ __forceinline__ void direct_adjoint(Comp& cm, const Tables& T,
     const float u1 = seg[kU + 3 + 2 * li];
     const Nee nr = nee_ray(T, li, u0, u1, sf.pbar, sf.nbar, eps);
     const SRay sr = sray(nr.so, nr.sd, 0.0f);
-    const float vis = cm.vis_fwd(T, C, sr, nr.dist);
+    const float vis = cm.vis_fwd(T, C, live, sr, nr.dist);
     const float cxv = dot(nr.sd, sf.nbar);
     const float cosx = clip01(cxv);
     const float x = ambient + vis * cosx;
@@ -452,7 +468,7 @@ __device__ __forceinline__ void direct_adjoint(Comp& cm, const Tables& T,
     cm.add_light(live, li, gl);
   }
   // the soft surface into every hypothesis
-  cm.trace_adj(T, C, live, r, seg, sf, gCov, 0.0f, gPbar, gNbar, gAlb, go,
+  cm.trace_adj(T, C, live, 0, r, sf, gCov, 0.0f, gPbar, gNbar, gAlb, go,
                gd, gMint);
   if (live && (cm.wrt() & kWPar)) {
     clip_adj(T.par, o, d, gMint, go, gd, gp);
@@ -478,25 +494,25 @@ struct GroupComp {
   __device__ __forceinline__ float* seg(int s) const { return gr.seg(s); }
   __device__ __forceinline__ float* pwc() const { return gr.s + gr.L->pwc; }
   __device__ __forceinline__ void trace_fwd(const Tables& T, const Cfg& C,
-                                            const SRay& r, float* seg,
+                                            bool, int s, const SRay& r,
                                             Surf& sf) const {
-    trace_fwd_g(gr, T, C, r, seg, sf);
+    trace_fwd_g(gr, T, C, r, gr.seg(s), sf);
   }
   // the sweep's surface: the one the replay taped
-  __device__ __forceinline__ Surf surface(const Tables&, const Cfg&,
-                                          const SRay&,
-                                          const float* seg) const {
-    return surf_of(seg);
+  __device__ __forceinline__ Surf surface(const Tables&, const Cfg&, int s,
+                                          const SRay&) const {
+    return surf_of(gr.seg(s));
   }
   __device__ __forceinline__ void trace_adj(
-      const Tables& T, const Cfg& C, bool live, const SRay& r,
-      const float* seg, const Surf& sf, float gcov, float gtbar, V3 gpbar,
-      V3 gnbar, V3 galb, V3& go, V3& gd, float& gmint) const {
-    trace_adj_g(gr, T, C, SG, live, r, seg, sf, gcov, gtbar, gpbar, gnbar,
-                galb, go, gd, gmint);
+      const Tables& T, const Cfg& C, bool live, int s, const SRay& r,
+      const Surf& sf, float gcov, float gtbar, V3 gpbar, V3 gnbar, V3 galb,
+      V3& go, V3& gd, float& gmint) const {
+    trace_adj_g(gr, T, C, SG, live, r, gr.seg(s), sf, gcov, gtbar, gpbar,
+                gnbar, galb, go, gd, gmint);
   }
   __device__ __forceinline__ float vis_fwd(const Tables& T, const Cfg& C,
-                                           const SRay& r, float dist) const {
+                                           bool, const SRay& r,
+                                           float dist) const {
     return vis_fwd_g(gr, T, C, r, dist);
   }
   __device__ __forceinline__ void vis_adj(const Tables& T, const Cfg& C,
@@ -618,11 +634,10 @@ int g_last[8] = {};
 
 // ---------------------------------------------------------------------------
 // Past 64 objects per type: the span kernel (pathtrace_soft_span.cuh), one
-// thread per ray, the warp's lanes summing each row word by a butterfly.
-// The group layout took 9.57 s here against its 7.29 s at the main path's
-// 1024^2 (one ray per warp at 8 resident warps per SM against 32 rays per
-// warp at 12, the same lane work per ray; PERF.md §6 row 2s'), so this
-// stays.
+// thread per ray, the warp compositing only the rows and spans that are
+// live for its 32 rays (exact: the header says why). The group layout took
+// 9.57 s here against the dense thread per ray's 7.29 s at the main path's
+// 1024^2 (PERF.md §6 row 2s'), so the span kernel keeps a thread per ray.
 // ---------------------------------------------------------------------------
 
 namespace large {
@@ -632,14 +647,18 @@ using namespace rt::soft::span;
 constexpr int kBlock = 128;
 
 // The span kernel's composite for the adjoints above: one thread per ray,
-// its tape (the ray's words, then its draws), path weights and span scratch
-// in local memory; row cotangents summed over the warp and added
-// atomically (wadd; zero where !live).
+// its tape (the ray's words, its soft surface, then its draws), path
+// weights and span scratch in local memory, its warp's span masks in
+// shared memory (Warp), its live spans' words in global memory (SpanTape,
+// nc slots per segment); row cotangents summed over the warp and added
+// atomically (wadd; zero where !live). The sweep reads the taped surface.
 struct SpanComp {
   static constexpr int kLanes = 1;
-  static constexpr int kDraw = kTapeRay;
+  static constexpr int kDraw = kTapeSeg;
   SpanScratch S;
   Grads G;
+  Warp W;
+  SpanTape spans;  // segment 0's; segment s is s nc slots on
   int tw;  // tape words per segment: kDraw + 2 + 2 n_lig
   float tape[kMaxSeg * (kDraw + 2 + 2 * kMaxLights)];
   float pw[kMaxLights + 1];
@@ -648,33 +667,48 @@ struct SpanComp {
   __device__ __forceinline__ void sync() const {}
   __device__ __forceinline__ float* seg(int s) { return tape + s * tw; }
   __device__ __forceinline__ float* pwc() { return pw; }
-  __device__ __forceinline__ void trace_fwd(const Tables& T, const Cfg& C,
-                                            const SRay& r, float*, Surf& sf) {
-    span::trace_fwd(T, C, r, S, sf);
+  __device__ __forceinline__ uint64_t* masks(int s) const {
+    return W.seg + s * W.nc;
   }
-  // the sweep's surface: the segment's composite again (it refills S)
-  __device__ __forceinline__ Surf surface(const Tables& T, const Cfg& C,
-                                          const SRay& r, const float*) {
-    Surf sf;
-    span::trace_fwd(T, C, r, S, sf);
-    return sf;
+  __device__ __forceinline__ SpanTape span_tape(int s) const {
+    SpanTape t = spans;
+    t.p += static_cast<size_t>(s) * W.nc * kSpanWords * t.stride;
+    return t;
+  }
+  // the replay's surface of segment s, taped (words 11-23) with its masks
+  __device__ __forceinline__ void trace_fwd(const Tables& T, const Cfg& C,
+                                            bool live, int s, const SRay& r,
+                                            Surf& sf) {
+    span::trace_fwd(T, C, r, live, S, W, masks(s), span_tape(s), sf);
+    float* w = seg(s);
+    w[11] = sf.cov_raw;
+    w[12] = sf.icov;
+    w[13] = sf.good ? 1.0f : 0.0f;
+#pragma unroll
+    for (int k = 0; k < 10; ++k) w[14 + k] = sf.f[k];
+  }
+  // the sweep's surface: the one the replay taped
+  __device__ __forceinline__ Surf surface(const Tables&, const Cfg&, int s,
+                                          const SRay&) {
+    return surf_of(seg(s));
   }
   __device__ __forceinline__ void trace_adj(
-      const Tables& T, const Cfg& C, bool live, const SRay& r, const float*,
+      const Tables& T, const Cfg& C, bool live, int s, const SRay& r,
       const Surf& sf, float gcov, float gtbar, V3 gpbar, V3 gnbar, V3 galb,
       V3& go, V3& gd, float& gmint) {
-    span::trace_adj(T, C, G, live, r, S, sf, gcov, gtbar, gpbar, gnbar, galb,
-                    go, gd, gmint);
+    span::trace_adj(T, C, G, live, r, S, W, masks(s), span_tape(s), sf, gcov,
+                    gtbar, gpbar, gnbar, galb, go, gd, gmint);
   }
   __device__ __forceinline__ float vis_fwd(const Tables& T, const Cfg& C,
-                                           const SRay& r, float dist) {
-    return span::vis_fwd(T, C, r, dist, S);
+                                           bool live, const SRay& r,
+                                           float dist) {
+    return span::vis_fwd(T, C, r, dist, live, S, W);
   }
   __device__ __forceinline__ void vis_adj(const Tables& T, const Cfg& C,
                                           bool live, const SRay& r, float,
                                           float gvis, V3& go, V3& gd,
                                           float& gdist) {
-    span::vis_adj(T, C, G, live, r, gvis, S, go, gd, gdist);
+    span::vis_adj(T, C, G, live, r, gvis, S, W, go, gd, gdist);
   }
   __device__ __forceinline__ void add_light(bool live, int li,
                                             const float (&gl)[kLig]) {
@@ -695,13 +729,18 @@ struct SpanComp {
 // from global memory (every lane of a warp reads the same row: one L1
 // line) and their cotangents are added into the global outputs (warp sums,
 // one atomicAdd per word, row and warp), par, mat and lig staying in the
-// block's buffer.
+// block's buffer. After the buffer, each warp's words (Warp: its segments'
+// span masks). The live spans' words (SpanTape) go to a buffer the launch
+// allocates on the stream (cudaMallocAsync) and frees after the kernel.
 
 constexpr size_t kResidentBytes = 48 * 1024;  // sphere and triangle rows
 
 struct LargeParams {
   AdjParams p;
   int resident;  // sphere and triangle tables and buffers in shared memory
+  int nseg;      // segments a ray's tape holds
+  int warp_at;   // byte offset of the warps' words in shared memory
+  float* spans;  // the live spans' words: nseg nc kSpanWords per thread
 };
 
 template <bool kRR, bool kDirect>
@@ -730,6 +769,12 @@ __global__ void __launch_bounds__(kBlock)
   G.lig = G.mat + kMat * p.n_mat;
   G.wrt = p.wrt;
   cm.tw = SpanComp::kDraw + 2 + 2 * p.n_lig;
+  const int nc = n_spans_of(p.n_sph, p.n_tri);
+  cm.W = warp_at(reinterpret_cast<uint8_t*>(smem4) + q.warp_at +
+                     (threadIdx.x >> 5) * warp_bytes(q.nseg, nc),
+                 q.nseg, nc);
+  cm.spans.stride = static_cast<size_t>(gridDim.x) * blockDim.x;
+  cm.spans.p = q.spans + blockIdx.x * blockDim.x + threadIdx.x;
   zero(g_par, n_tab);
   __syncthreads();
 
@@ -764,11 +809,17 @@ int launch(const AdjParams& p, int n_sph, int n_tri, int n_mat, int n_lig,
   q.resident = sizeof(float) * (kSph * static_cast<size_t>(n_sph) +
                                 kTri * static_cast<size_t>(n_tri)) <=
                kResidentBytes;
-  // the staged tables and the block's gradient buffer in their layout
-  const size_t smem =
+  q.nseg = kBuildDirect ? 1 : p.bounces + 1;
+  // the staged tables and the block's gradient buffer in their layout,
+  // then the warps' words
+  const size_t tab =
       2 * sizeof(float) *
       tables_floats(q.resident ? n_sph : 0, q.resident ? n_tri : 0, n_mat,
                     n_lig);
+  q.warp_at = static_cast<int>((tab + 15) / 16 * 16);
+  const size_t smem = q.warp_at + static_cast<size_t>(kBlock / 32) *
+                                      warp_bytes(q.nseg,
+                                                 n_spans_of(n_sph, n_tri));
   void (*kernel)(LargeParams) =
       pathtrace_bwd_soft_large_kernel<kBuildRR, kBuildDirect>;
   int grid = 0;
@@ -779,14 +830,23 @@ int launch(const AdjParams& p, int n_sph, int n_tri, int n_mat, int n_lig,
                                                         kBlock, smem);
   cudaFuncAttributes fa;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
+  // the live spans' words of every launched thread, stream-ordered
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t tape = sizeof(float) * kSpanWords * q.nseg *
+                      static_cast<size_t>(n_spans_of(n_sph, n_tri)) * grid *
+                      kBlock;
+  if (err == cudaSuccess)
+    err = cudaMallocAsync(reinterpret_cast<void**>(&q.spans), tape, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int last[8] = {1, kBlock / 32, q.resident, static_cast<int>(smem),
                        !q.resident && (p.wrt & (kWSph | kWTri)) ? 1 : 0,
                        per_sm * kBlock / 32, fa.numRegs,
                        static_cast<int>(fa.localSizeBytes)};
   for (int k = 0; k < 8; ++k) g_last[k] = last[k];
-  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(q);
-  return static_cast<int>(cudaGetLastError());
+  kernel<<<grid, kBlock, smem, st>>>(q);
+  err = cudaGetLastError();
+  const cudaError_t freed = cudaFreeAsync(q.spans, st);
+  return static_cast<int>(err != cudaSuccess ? err : freed);
 }
 
 }  // namespace large
@@ -893,7 +953,9 @@ extern "C" int rt_pathtrace_bwd_soft(
 
 // C interface past 64 objects per type: rt_pathtrace_bwd_soft's
 // arguments, at most kMaxSpans spans of kSpan rows (64 of each type:
-// DIFF_TABLE_MAX), the rows composited in the order given.
+// DIFF_TABLE_MAX), the rows composited in the order given. Allocates its
+// live spans' tape on `stream` (cudaMallocAsync; 48 bytes per span,
+// segment and launched thread) and frees it there after the launch.
 extern "C" int rt_pathtrace_bwd_soft_large(
     const float* par, const float* sph, int n_sph, const float* tri,
     int n_tri, const float* mat, int n_mat, const float* lig, int n_lig,

@@ -177,43 +177,61 @@ __device__ __forceinline__ void add_rows_plain(const Rows& r, float* p,
 // hypotheses
 // ---------------------------------------------------------------------------
 
+// hyp_fwd's default vote: every factor is evaluated.
+struct NoVote {
+  __device__ __forceinline__ bool operator()(bool) const { return true; }
+};
+
 // alpha and t of object k for ray r; with f (10 floats) also its fields
-// (t, hit point, normal, albedo).
-template <bool kFields>
-__device__ __forceinline__ void hyp_fwd(const Tables& T, const Cfg& C, int k,
+// (t, hit point, normal, albedo). Without fields, vote(p) is asked after
+// each factor of alpha whether to go on (p: this lane's product so far is
+// nonzero); where it says no, a is 0 and t unset. Returns the last vote
+// (NoVote: true), taken on whether no factor of alpha is 0.
+template <bool kFields, class Vote = NoVote>
+__device__ __forceinline__ bool hyp_fwd(const Tables& T, const Cfg& C, int k,
                                         const SRay& r, float& a, float& t,
-                                        float* f) {
+                                        float* f, Vote vote = {}) {
   float mf;
   V3 n;
+  a = 0.0f;
   if (k < T.n_sph) {
     const float* s = T.sph + k * kSph;
+    const float msk = s[5] > 0.0f ? 1.0f : 0.0f;
+    if (!kFields && !vote(msk != 0.0f)) return false;
     const V3 c = ld3(s);
     const float rad = s[3];
     const V3 m = r.o - c;
     const float b = dot(m, r.d);
     const float cq = dot(m, m) - rad * rad;
     const float dis = b * b - cq;
-    const float msk = s[5] > 0.0f ? 1.0f : 0.0f;
+    const float s1 = sigm(dis * C.ibw);
+    if (!kFields && !vote(s1 * msk != 0.0f)) return false;
     const float sq = dis > 0.0f ? sqrtf(dis) : 0.0f;
     t = -b - sq;
-    a = sigm(dis * C.ibw) * msk * sigm((t - r.mint) * C.ibw);
-    if (!kFields) return;
+    const float s2 = sigm((t - r.mint) * C.ibw);
+    a = s1 * msk * s2;
+    if (!kFields) return vote(s1 * msk != 0.0f && s2 != 0.0f);
     n = normalize(r.o + t * r.d - c);
     mf = s[4];
   } else {
     const float* q = T.tri + (k - T.n_sph) * kTri;
+    const float msk = q[17] > 0.0f ? 1.0f : 0.0f;
+    if (!kFields && !vote(msk != 0.0f)) return false;
     const V3 ng = ld3(q);
     const float div = dot(ng, r.d);
     const bool side = T.two_sided ? div != 0.0f : div > 0.0f;
+    if (!kFields && !vote(msk != 0.0f && side)) return false;
     const float idiv = 1.0f / (div == 0.0f ? 1.0f : div);
     const float beta = (dot(ld3(q + 12), r.oxd) - dot(ld3(q + 6), r.d)) * idiv;
     const float gamma = (dot(ld3(q + 3), r.d) - dot(ld3(q + 9), r.oxd)) * idiv;
-    t = side ? (q[15] - dot(ng, r.o)) * idiv : 1e6f;
     const float w3 = 1.0f - beta - gamma;
     const float margin = fminf(fminf(beta, gamma), w3);
-    a = sigm(margin * C.ibw) * (q[17] > 0.0f ? 1.0f : 0.0f) *
-        (side ? 1.0f : 0.0f) * sigm((t - r.mint) * C.ibw);
-    if (!kFields) return;
+    const float m1 = sigm(margin * C.ibw) * msk * (side ? 1.0f : 0.0f);
+    if (!kFields && !vote(m1 != 0.0f)) return false;
+    t = side ? (q[15] - dot(ng, r.o)) * idiv : 1e6f;
+    const float s2 = sigm((t - r.mint) * C.ibw);
+    a = m1 * s2;
+    if (!kFields) return vote(m1 != 0.0f && s2 != 0.0f);
     n = normalize(clip01(w3) * ld3(q + 18) + clip01(beta) * ld3(q + 21) +
                   clip01(gamma) * ld3(q + 24));
     mf = q[16];
@@ -231,6 +249,7 @@ __device__ __forceinline__ void hyp_fwd(const Tables& T, const Cfg& C, int k,
   f[7] = al.x;
   f[8] = al.y;
   f[9] = al.z;
+  return true;
 }
 
 // Adjoint of hyp_fwd for object k: from the cotangents ga (alpha), gt (t)

@@ -23,7 +23,7 @@ visibility decision smoothed:
   surface, and the path goes on with weight ``1 - lw``;
 * paths never end early, except by Russian roulette, which stays hard.
 
-Three functions:
+Four functions:
 
 * ``soft_pass_value`` -- the soft accumulator delta (R, 3), vectorised over
   rays and looping over objects line for line with ``_tile_program_soft``
@@ -37,7 +37,11 @@ Three functions:
   adjoint ``csrc/megakernel_soft.cu`` (kernel 2s): CUDA tensors or it
   raises; it counts its launches in the module integers ``soft_launches``
   (at most 64 objects per type) and ``soft_large_launches`` (past 64, the
-  two-level composite over every span, its large-table instance).
+  two-level composite over every span, its large-table instance);
+* ``live_stats`` -- what that large-table instance composites, counted
+  with the plain version: per warp of 32 rays the live spans and the
+  union of the rows whose coverage is not exactly 0 (the kernel skips the
+  rest; its bound and ``profile_kernels`` read these counts).
 
 Past 64 objects the spans follow the rows in the order they are handed:
 the differentiable pass hands the triangles in JAX's Morton order, padded
@@ -233,21 +237,41 @@ def _composite(alphas, ts, fields, first_good: float, tau: float):
 def _composite_span(alphas, ts, fields, first_good: float, tau: float):
     """``_composite`` over a hypothesis axis, as JAX's ``_composite_vec``
     (``megakernel_grad.py:1723``): alphas and ts (R, n), fields (R, n,
-    10); each weight's product over the span's other hypotheses is one
-    ``torch.prod`` (its factor at j = i set to 1), the sums run along the
-    axis: the same values as kernel 2s's sequential loops but for
-    rounding."""
+    10). Each weight's product over the span's other hypotheses (its factor
+    at j = i set to 1), the coverage and the blend run along the axis in
+    hypothesis order, the order of kernel 2s's loops (a vectorised
+    reduction reassociates), so that a hypothesis whose alpha is exactly 0
+    for every ray can be dropped without changing a bit (its factors are
+    exactly 1, its terms exactly 0)."""
     n = alphas.shape[1]
     occ = alphas[:, None, :] * torch.sigmoid(
         _div(ts[:, :, None] - ts[:, None, :], tau))
     self_ = torch.eye(n, dtype=torch.bool, device=alphas.device)
     occ = torch.where(self_, torch.zeros_like(occ), occ)
-    w = alphas * torch.prod(1.0 - occ, dim=2)
-    cov = clip(w.sum(1), 0.0, 1.0)
+    trans = torch.ones_like(alphas)
+    for j in range(n):
+        trans = trans * (1.0 - occ[:, :, j])
+    w = alphas * trans
+    cov = torch.zeros_like(alphas[:, 0])
+    for i in range(n):
+        cov = cov + w[:, i]
+    cov = clip(cov, 0.0, 1.0)
     good = cov > first_good
     icov = 1.0 / torch.where(good, cov, 1.0)
     wn = torch.where(good[:, None], w * icov[:, None], 0.0)
-    return cov, (wn[..., None] * fields).sum(1)
+    blend = torch.zeros_like(fields[:, 0])
+    for i in range(n):
+        blend = blend + wn[:, i, None] * fields[:, i]
+    return cov, blend
+
+
+def _ordered_prod(x: torch.Tensor) -> torch.Tensor:
+    """The product of x (R, n) along its last axis in column order (a
+    factor of exactly 1 changes no bit)."""
+    p = torch.ones_like(x[:, 0])
+    for j in range(x.shape[1]):
+        p = p * x[:, j]
+    return p
 
 
 class _Scene:
@@ -258,6 +282,31 @@ class _Scene:
         self.bw, self.tau, self.two_sided = bw, tau, two_sided
         self.alb_s = _albedos(mat, sph[:, 4])
         self.alb_t = _albedos(mat, tri[:, 16])
+        # live_stats' counts (None: not counting) and the rays still on
+        # their paths (R,)
+        self.stats = None
+        self.live = None
+
+    def _count(self, kind: str, alphas, spheres: bool) -> None:
+        """live_stats: per warp of 32 rays, the span's rows whose alpha is
+        nonzero for some live ray of the warp (``spheres``: a sphere
+        span)."""
+        if self.stats is None:
+            return
+        live = (alphas != 0.0) & self.live[:, None]
+        u = live.reshape(-1, 32, live.shape[1]).any(1).sum(1).double()
+        st = self.stats.setdefault(kind, dict(segments=0, spans=0, rows=0.0,
+                                              rows_sph=0.0, pairs=0.0, max=0))
+        st["max"] = max(st["max"], int(u.max()))
+        st["spans"] += int((u > 0).sum())
+        st["rows"] += float(u.sum())
+        if spheres:
+            st["rows_sph"] += float(u.sum())
+        st["pairs"] += float((u * u).sum())
+
+    def _counted(self, kind: str, n_rays: int) -> None:
+        if self.stats is not None:
+            self.stats[kind]["segments"] += n_rays // 32
 
     def hyps(self, ray: _Ray, kind: str, lo: int, hi: int):
         """Hypotheses (alphas, ts, fields) of rows [lo, hi) of one type."""
@@ -314,9 +363,14 @@ class _Scene:
             # two levels, vectorised over each span as JAX's value-level
             # route is: each SOFT_CHUNK span of one type composites
             # locally, then the chunks' blends composite as hypotheses
-            covs, blends = zip(*(
-                _composite_span(*self.span_hyps(ray, *span), 1e-9, self.tau)
-                for span in self.spans()))
+            covs, blends = [], []
+            for span in self.spans():
+                a, t, f = self.span_hyps(ray, *span)
+                self._count("surface", a, span[0] == "s")
+                cov, blend = _composite_span(a, t, f, 1e-9, self.tau)
+                covs.append(cov)
+                blends.append(blend)
+            self._counted("surface", ray.o.shape[0])
             blend_m = torch.stack(blends, 1)
             cov, blend = _composite_span(torch.stack(covs, 1),
                                          blend_m[..., 0], blend_m, 1e-6,
@@ -338,11 +392,14 @@ class _Scene:
         ray = _Ray(o, d, torch.zeros_like(dist))
         vis = torch.ones_like(dist)
         if self.sph.shape[0] + self.tri.shape[0] > MK.UNROLL_OBJECTS:
-            # a product, so the spans' form is exact (JAX's vis_span_vec)
+            # a product, so the spans' form is exact (JAX's vis_span_vec),
+            # each span's in row order as kernel 2s's
             for span in self.spans():
                 a, t, _ = self.span_hyps(ray, *span, fields=False)
+                self._count("shadow", a, span[0] == "s")
                 inside = a * torch.sigmoid(_div(dist[:, None] - t, self.bw))
-                vis = vis * torch.prod(1.0 - inside, dim=1)
+                vis = vis * _ordered_prod(1.0 - inside)
+            self._counted("shadow", dist.shape[0])
             return vis
         for i in range(self.sph.shape[0]):
             a, t = _sphere_hyp(self.sph[i], ray, self.bw)
@@ -381,11 +438,12 @@ def _soft_pass(par, sph, tri, mat, lig, u, ray_offset: int, n: int, *,
                spp: int, width: int, bounces: int, two_sided: bool,
                normalize_emitter: bool, russian_roulette: bool,
                rr_start_depth: int, bw: float, tau: float,
-               mode: str = "path") -> torch.Tensor:
+               mode: str = "path", stats: dict | None = None) -> torch.Tensor:
     """The soft accumulator delta (n, 3) of rays [ray_offset, ray_offset +
     n) for the draws ``u`` (2 * n_draws, n); ``mode`` "path" or "direct"
-    (``_soft_direct``)."""
+    (``_soft_direct``); ``stats``: live_stats' counts."""
     sc = _Scene(sph, tri, mat, lig, bw, tau, two_sided)
+    sc.stats = stats
     n_lig = lig.shape[0]
     slots = iter(range(u.shape[0] // 2))
 
@@ -398,6 +456,9 @@ def _soft_pass(par, sph, tri, mat, lig, u, ray_offset: int, n: int, *,
     eps = par[24]
     ok = mint < float("inf")
     path_w = torch.where(ok, 1.0, 0.0)
+    # the rays kernel 2s's warps vote with: in the box, not ended by the
+    # roulette (live_stats)
+    sc.live = ok
     if mode == "direct":
         return _soft_direct(sc, par, lig, o, d, mint, path_w, draw)
     acc = torch.zeros((n, 3), device=par.device)
@@ -414,6 +475,7 @@ def _soft_pass(par, sph, tri, mat, lig, u, ray_offset: int, n: int, *,
                     tp = torch.where(survive[:, None], tp * inv_p[:, None],
                                      0.0)
                     path_w = torch.where(survive, path_w, 0.0)
+                    sc.live = sc.live & survive
             # the bounce from the blended surface
             d = cosine_hemisphere(nbar, draw())
             o = pbar + eps * nbar
@@ -510,6 +572,56 @@ def pathtrace_pass_bwd_soft_reference(par, ipar, sph, tri, mat, lig, g,
 
     return MKG._autograd_cotangents(dict(par=par, sph=sph, tri=tri, mat=mat,
                                          lig=lig), sel, g, program)
+
+
+def live_stats(par, ipar, sph, tri, mat, lig, u_planes, *, blocks,
+               spp: int, width: int, bounces: int, two_sided: bool,
+               normalize_emitter: bool, seed: int,
+               russian_roulette: bool = False, rr_start_depth: int = 0,
+               soft_bandwidth: float = 1e-2, soft_tau: float = 1e-2,
+               mode: str = "path") -> dict:
+    """What kernel 2s's large-table instance composites, counted by the
+    plain version on the rays of ``blocks`` ((ray offset, count) pairs of
+    whole warps) of pass ``ipar[0]``, with its draws (``u_planes`` or the
+    pass's own): per warp of 32 consecutive rays, segment (or shadow ray)
+    and span, the union of the rows whose alpha is nonzero for some ray of
+    the warp still on its path (inside the scene box, not ended by the
+    roulette; the kernel's vote also keeps the rare rows whose alpha
+    underflowed, and drops rays whose cotangent is 0). Returns, for
+    "surface" (the segments' composites) and "shadow" (the shadow rays):
+    the warp-segments counted, the mean live spans per warp-segment, the
+    mean union rows per live span and per warp-segment (and of those in
+    sphere spans), the largest union of a span (64: the warp's slots fill
+    it) and the mean sum over spans of the union rows squared (the pair
+    loops' size) per warp-segment; and the rows a dense pass evaluates."""
+    MKG._check_mode(mode)
+    stats: dict = {}
+    with torch.no_grad():
+        for off, n in blocks:
+            if off % 32 or n % 32:
+                raise ValueError(f"block ({off}, {n}) is not whole warps")
+            ip = torch.tensor([int(ipar[0]), off], dtype=torch.int32)
+            u = MK.diff_draws(ip, None if u_planes is None
+                              else u_planes[:, off:off + n].contiguous(), n,
+                              lig.shape[0], bounces, seed, par.device,
+                              russian_roulette, mode, spp)
+            _soft_pass(par, sph, tri, mat, lig, u, off, n, spp=spp,
+                       width=width, bounces=bounces, two_sided=two_sided,
+                       normalize_emitter=normalize_emitter,
+                       russian_roulette=russian_roulette,
+                       rr_start_depth=rr_start_depth, bw=soft_bandwidth,
+                       tau=soft_tau, mode=mode, stats=stats)
+    out = {"rows": sph.shape[0] + tri.shape[0]}
+    for kind, st in stats.items():
+        segs = max(st["segments"], 1)
+        out[kind] = dict(warp_segments=st["segments"],
+                         live_spans=st["spans"] / segs,
+                         union_rows_per_span=st["rows"] / max(st["spans"], 1),
+                         union_rows=st["rows"] / segs,
+                         union_rows_sph=st["rows_sph"] / segs,
+                         max_union=st["max"],
+                         union_pairs=st["pairs"] / segs)
+    return out
 
 
 def last_launch() -> dict:

@@ -47,11 +47,19 @@ predate those modes or their C interfaces (a parent commit's) is timed by
 running this tool from that commit's own checkout instead.
 ``--only soft`` builds kernel 2s alone and times only it: cornell's step
 cotangent (("sph", "mat"), all groups, the roulette, the random
-cotangent), direct mode, and the torus scene past 64 objects at each size
-of ``--soft-large-sizes`` (256 by default; 1024 is the main path's), each
-variant's cotangents held to the first variant's; ``--soft-excused`` runs ``chip_smoke.py``'s phase 22 comparisons of
-kernel 2s with its plain version under each variant and prints how many
-rays each excused. ``--sass`` dumps
+cotangent), direct mode, and past 64 objects (the large-table instance)
+the torus scene at each size of ``--soft-large-sizes`` (256 by default;
+1024 is the main path's) in path mode, with the roulette and in direct
+mode, and sphere_field(1024) at each size of ``--soft-sphere-sizes``
+(none by default), each on its own step cotangent, each variant's
+cotangents held to the first variant's, with what each large launch took
+(``MKS.last_launch``: registers, local bytes, resident warps per SM);
+``--soft-live`` also counts, by the plain version on a strided subsample
+of whole warps of each large case's rays and draws, the live spans per
+warp-segment and the warp's union of live rows per span
+(``MKS.live_stats``); ``--soft-excused`` runs ``chip_smoke.py``'s phase
+22 comparisons of kernel 2s with its plain version under each variant
+and prints how many rays each excused. ``--sass`` dumps
 ``cuobjdump -sass`` of the named variants' libraries into ``--out`` and
 prints, per kernel, the count of each memory, atomic, warp-level and
 special-function (MUFU) opcode, and the instructions around the first
@@ -285,14 +293,23 @@ class Case:
         return ({"russian_roulette": True, "rr_start_depth": RR_START}
                 if rr else {})
 
-    def k2s(self, g, wrt, rr=False):
-        # past 64 triangles the soft backward takes them in Morton order
+    def soft_tables(self) -> list:
+        """The tables as the soft backward takes them: past 64 triangles
+        in Morton order."""
         st = mega.soft_tri_order(self.scene, self.tables[2], self.chunks)
-        tri = self.tables[2] if st is None else st.rows
-        return MKS.pathtrace_pass_bwd_soft(
-            self.tables[0], self.ipar, self.tables[1], tri, *self.tables[3:],
-            g, None, diff_wrt=wrt, soft_bandwidth=EDGE_BW, soft_tau=EDGE_BW,
-            **self.kw, **self._rr(rr))
+        return [*self.tables[:2], self.tables[2] if st is None else st.rows,
+                *self.tables[3:]]
+
+    def soft_kw(self, rr=False, direct=False) -> dict:
+        kw = dict(self.kw, soft_bandwidth=EDGE_BW, soft_tau=EDGE_BW,
+                  **self._rr(rr))
+        return dict(kw, bounces=0, mode="direct") if direct else kw
+
+    def k2s(self, g, wrt, rr=False, direct=False):
+        t = self.soft_tables()
+        return MKS.pathtrace_pass_bwd_soft(t[0], self.ipar, *t[1:], g, None,
+                                           diff_wrt=wrt,
+                                           **self.soft_kw(rr, direct))
 
     def k3(self, g, wrt):
         return MKG.pathtrace_pass_bwd_champ(
@@ -512,9 +529,10 @@ def measure_soft(cornell: Case, first: dict) -> dict:
     }
 
 
-def soft_cases(dev, sizes) -> dict:
+def soft_cases(dev, sizes, sphere_sizes=()) -> dict:
     """Kernel 2s's cases for ``--only soft``: cornell's path-mode and
-    direct-mode steps and the streamed torus scene at each size."""
+    direct-mode steps, the streamed torus scene at each size and
+    sphere_field(N_SPHERES) at each of sphere_sizes."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     cases = {"cornell": Case(cornell_box(cols=SIZE, rows=SIZE, device=dev),
@@ -524,7 +542,33 @@ def soft_cases(dev, sizes) -> dict:
     for n in sizes:
         cases[f"torus{n}"] = Case(chip_smoke._stream_scene("torus", n, n,
                                                            dev), dev, size=n)
+    for n in sphere_sizes:
+        cases[f"spheres{n}"] = Case(sphere_field(N_SPHERES, cols=n, rows=n,
+                                                 device=dev), dev, size=n)
     return cases
+
+
+LARGE_MODES = (("", {}), ("_rr", {"rr": True}), ("_direct", {"direct": True}))
+
+
+def soft_live(cases: dict, blocks: int = 8, block: int = 1024) -> dict:
+    """MKS.live_stats of each large case (torus, sphere_field) in each mode
+    on ``blocks`` blocks of ``block`` rays spread evenly over its film."""
+    out = {}
+    for key, c in cases.items():
+        if not key.startswith(("torus", "spheres")):
+            continue
+        n = c.cfg.total_rays
+        step = n // blocks // 32 * 32
+        spans = [(k * step, min(block, n - k * step)) for k in range(blocks)]
+        t = c.soft_tables()
+        for tag, mode in LARGE_MODES:
+            st = MKS.live_stats(t[0], c.ipar, *t[1:], None, blocks=spans,
+                                **c.soft_kw(**mode))
+            out[f"{key}{tag}"] = st
+            print(f"live rows, {key}{tag} (plain version, {blocks} blocks of "
+                  f"{block} rays): " + json.dumps(st))
+    return out
 
 
 def soft_excused(dev, libs: dict, labels) -> dict:
@@ -561,12 +605,18 @@ def measure_soft_only(cases: dict, first: dict) -> dict:
     _hold("direct", TRAIN_WRT, first.setdefault("direct", got), got)
     out["k2s_direct_step_g_sph_mat_ms"] = time_ms(d.k2s, reps=5)
     for key, c in cases.items():
-        if not key.startswith("torus"):
+        if not key.startswith(("torus", "spheres")):
             continue
-        got = c.k2s(c.g, TRAIN_WRT)
-        _hold(key, TRAIN_WRT, first.setdefault(key, got), got)
-        out[f"k2s_large_stream_{key}_step_g_sph_mat_ms"] = time_ms(
-            lambda: c.k2s(c.g, TRAIN_WRT), reps=1)
+        for tag, mode in LARGE_MODES:
+            name = f"{key}{tag}"
+            got = c.k2s(c.g, TRAIN_WRT, **mode)
+            _hold(name, TRAIN_WRT, first.setdefault(name, got), got)
+            out[f"k2s_large_{name}_step_g_sph_mat_ms"] = time_ms(
+                lambda: c.k2s(c.g, TRAIN_WRT, **mode), reps=1)
+            last = MKS.last_launch()
+            for k in ("registers", "local_bytes", "warps_per_sm",
+                      "smem_bytes"):
+                out[f"k2s_large_{name}_{k}"] = last[k]
     return out
 
 
@@ -582,6 +632,12 @@ def main(argv=None) -> int:
                     help="soft: build and time kernel 2s alone")
     ap.add_argument("--soft-large-sizes", default="256",
                     help="with --only soft: film sizes of the torus case")
+    ap.add_argument("--soft-sphere-sizes", default="",
+                    help="with --only soft: film sizes of the "
+                         "sphere_field(1024) case past 64 objects")
+    ap.add_argument("--soft-live", action="store_true",
+                    help="with --only soft: the plain version's count of "
+                         "the large cases' live rows per warp")
     ap.add_argument("--soft-excused", action="store_true",
                     help="with --only soft: phase 22's excused rays per "
                          "variant")
@@ -626,8 +682,12 @@ def main(argv=None) -> int:
                            for name, _, flags in SOFT_LIBS}
         use(libs[labels[0]])
         cases = soft_cases(dev, [int(n) for n in
-                                 args.soft_large_sizes.split(",")])
+                                 args.soft_large_sizes.split(",") if n],
+                           [int(n) for n in
+                            args.soft_sphere_sizes.split(",") if n])
         results: dict = {"card": smi, "turns": []}
+        if args.soft_live:
+            results["live"] = soft_live(cases)
         first: dict = {}
         for order in (labels, labels[::-1]):
             turn = {}

@@ -1062,14 +1062,19 @@ def _soft_scene(n_sph, n_tri, device, shared=False, w=32, h=24, seed=11):
                        materials=c.materials, spheres=sph, triangles=tri)
 
 
-def _soft_vs_plain(scene, rr, wrt=MKG.DIFF_ALL, bounces=2, seed=12):
+def _soft_vs_plain(scene, rr, wrt=MKG.DIFF_ALL, bounces=2, seed=12,
+                   direct=False, live=None, empty=False):
     """Kernel 2s (the entry the table sizes pick; past 64 triangles in
     Morton order) vs its plain version on ``scene`` at its film, seeded
     random g, bandwidth and tau 2e-2, PRNG draws, under phase 6's gates on
-    the non-empty groups in ``wrt``; returns what the launch took
-    (MKS.last_launch)."""
+    the non-empty groups in ``wrt`` (``direct``: direct mode); with
+    ``live`` a list, MKS.live_stats of the pass is appended to it; with
+    ``empty`` every word of both sides must be exactly 0 instead. Returns
+    what the launch took (MKS.last_launch)."""
     cam = scene.camera
     w, h = int(cam.cols), int(cam.rows)
+    if direct:
+        bounces = 0
     cfg = RenderConfig(width=w, height=h, bounces=bounces,
                        russian_roulette=rr, rr_start_depth=1,
                        use_megakernel=True)
@@ -1085,7 +1090,11 @@ def _soft_vs_plain(scene, rr, wrt=MKG.DIFF_ALL, bounces=2, seed=12):
     kw = dict(spp=1, width=w, bounces=bounces, two_sided=False,
               normalize_emitter=True, seed=cfg.seed, russian_roulette=rr,
               rr_start_depth=1, diff_wrt=wrt, soft_bandwidth=2e-2,
-              soft_tau=2e-2)
+              soft_tau=2e-2, mode="direct" if direct else "path")
+    if live is not None:
+        live.append(MKS.live_stats(
+            tables[0], ipar, *tables[1:], None, blocks=[(0, g.shape[0])],
+            **{k: v for k, v in kw.items() if k != "diff_wrt"}))
     want = MKS.pathtrace_pass_bwd_soft_reference(tables[0], ipar,
                                                  *tables[1:], g, None, **kw)
     before = MKS.soft_launches + MKS.soft_large_launches
@@ -1093,6 +1102,10 @@ def _soft_vs_plain(scene, rr, wrt=MKG.DIFF_ALL, bounces=2, seed=12):
                                       **kw)
     torch.cuda.synchronize()
     assert MKS.soft_launches + MKS.soft_large_launches == before + 1
+    if empty:
+        assert not any(a.any() for a in want)
+        assert not any(b.any() for b in got)
+        return MKS.last_launch()
     held = [i for i, (n, a) in enumerate(zip(MKG.DIFF_ALL, want))
             if n in wrt and a.numel()]
     _gates([want[i] for i in held], [got[i] for i in held],
@@ -1124,6 +1137,51 @@ def test_large_soft_kernel_one_row_last_span(cuda, rr):
     with and without the roulette."""
     before = MKS.soft_large_launches
     _soft_vs_plain(_soft_scene(3, 65, cuda), rr)
+    assert MKS.soft_large_launches == before + 1
+
+
+SOFT_MODES = ["path", "roulette", "direct"]
+
+
+def _mode(mode: str) -> dict:
+    return dict(rr=mode == "roulette", direct=mode == "direct")
+
+
+@pytest.mark.parametrize("mode", SOFT_MODES)
+def test_large_soft_kernel_when_every_ray_misses(cuda, mode):
+    """Kernel 2s past 64 objects on a film whose rays all miss
+    (tests/torch_grid_scenes.py miss_field: the live rays' hypotheses all
+    have a factor exactly 0, so every span mask of every warp is empty, as
+    MKS.live_stats counts): the kernel adds no word, as its plain version
+    gives exactly 0 everywhere."""
+    from torch_grid_scenes import miss_field
+    live = []
+    _soft_vs_plain(miss_field(1024, 32, 24, cuda), wrt=MKG.DIFF_ALL,
+                   live=live, empty=True, **_mode(mode))
+    for kind in ("surface", "shadow"):
+        assert live[0][kind]["warp_segments"] > 0
+        assert live[0][kind]["max_union"] == 0
+
+
+@pytest.mark.parametrize("mode", SOFT_MODES)
+def test_large_soft_kernel_when_live_rows_fill_spans(cuda, mode):
+    """Kernel 2s past 64 objects on sphere_field(128) packed within 0.5:
+    every warp's live rows fill both 64-row spans (MKS.live_stats), so the
+    slot loops run the dense composite; all five groups."""
+    live = []
+    _soft_vs_plain(sphere_field(128, cols=32, rows=24, spread=0.5,
+                                device=cuda), live=live, **_mode(mode))
+    for kind in ("surface", "shadow"):
+        assert live[0][kind]["union_rows_per_span"] == 64.0
+
+
+@pytest.mark.parametrize("mode", SOFT_MODES)
+def test_large_soft_kernel_on_sphere_field_1024(cuda, mode):
+    """Kernel 2s past 64 objects on sphere_field(1024) (16 resident
+    spans), ("sph", "mat"), 24x16."""
+    before = MKS.soft_large_launches
+    _soft_vs_plain(sphere_field(1024, cols=24, rows=16, device=cuda),
+                   wrt=("sph", "mat"), **_mode(mode))
     assert MKS.soft_large_launches == before + 1
 
 

@@ -75,3 +75,35 @@ def cornell_torus(cols: int, rows: int, n_major: int = 16, n_minor: int = 4,
     from raytracing_tpu_torch.models.scenes import cornell_box
     return _with_mesh(types, cornell_box(cols=cols, rows=rows, device=device),
                       *torus_arrays(n_major, n_minor), 4, device=device)
+
+
+def miss_field(n_spheres: int, cols: int, rows: int, device=None):
+    """The port's sphere_field(n_spheres) with its cloud moved 40 behind a
+    camera at the origin that looks away from it (+z), its light kept and
+    the scene box widened to hold the camera: every ray is live (mint 0),
+    and every hypothesis of every segment, bounce and shadow ray has a
+    factor of its soft coverage exactly 0 (the cloud lies 35 or more
+    behind or beside each ray, the light's disk out of view), so kernel
+    2s's warps see only empty span masks and every cotangent is 0."""
+    import torch
+    from raytracing_tpu_torch.core.types import (Camera, Lights, build_scene,
+                                                 make_spheres)
+    from raytracing_tpu_torch.models.scenes import sphere_field
+    ref = sphere_field(n_spheres, cols=cols, rows=rows)
+    rng = np.random.default_rng(7)  # sphere_field's seed and layout
+    spread = 4.0
+    centers = rng.uniform(-spread, spread, (n_spheres, 3)).astype(np.float32)
+    radii = rng.uniform(0.15, 0.5, n_spheres).astype(np.float32)
+    mats = rng.integers(0, 5, n_spheres).astype(np.int32)
+    centers[:, 2] -= 40.0
+    lights = Lights.make([[0.0, spread * 2.5, 0.0]], [[0.0, -1.0, 0.0]],
+                         [[25.0, 25.0, 25.0]], [spread * 0.5])
+    cam = Camera.look_at([0.0, 0.0, 0.0], [0.0, 0.0, 1.0], [0.0, 1.0, 0.0],
+                         60.0, cols, rows)
+    scene = build_scene(camera=cam, spheres=make_spheres(centers, radii,
+                                                         mats),
+                        lights=lights, materials=ref.materials,
+                        focal_length=spread * 3.0, lens_diameter=0.0)
+    return dataclasses.replace(
+        scene, bounds_min=torch.full((3,), -60.0),
+        bounds_max=torch.full((3,), 60.0)).to(device)
