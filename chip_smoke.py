@@ -216,7 +216,8 @@ Phases, each fatal on failure (no exception is caught):
      sparse over each warp's live rows; the triangles Morton-sorted) vs
      its plain version in path mode, with the roulette and in direct mode
      (SOFT_MODES) on the torus scene (("sph", "mat", "tri")),
-     sphere_field(1024), a film whose rays all miss (every span mask
+     sphere_field(1024), sphere_field(256) (path mode and the roulette),
+     a film whose rays all miss (every span mask
      empty: every plain and kernel word exactly 0) and a packed
      sphere_field(128) whose warps' live rows fill every span; all under
      phase 6's gates. Where kernel 2s misses them, the rays whose cotangent
@@ -241,10 +242,13 @@ Phases, each fatal on failure (no exception is caught):
      cotangent with its bound; BENCH_EDGE on the torus scene (one step;
      one kernel-1 and one large kernel-2s launch), kernel 2s alone (CUDA
      events around its launch in that step) with its bounds, FP32 and
-     MUFU: dense (every pair of every span and the spans' level) and live
-     work (every row's hypothesis once, then only the rows live for each
-     warp, counted by the plain version, MKS.live_stats, on LIVE_BLOCKS
-     blocks of the step's rays; the kernels line's bound), and its launch.
+     MUFU: dense (every factor of every row, every pair of every span and
+     the spans' level; the kernels line's dense_bound_ms) and live work
+     (what this run's data needs: each ray's rows up to the first factor
+     of alpha exactly 0, then only its own live rows, pairs and spans,
+     counted by the plain version, MKS.live_stats, on LIVE_BLOCKS blocks
+     of the step's rays; the kernels line's bound), the warps' union of
+     live rows that the kernel runs beside them, and its launch.
      Prints the
      phase's seconds. The kernels
      line's entries of this phase name the size of their ``ms``
@@ -466,11 +470,17 @@ OPS_SOFT_DIRECT_NEE_ADJ = 115  # its adjoint: coverage and albedo 14, the
 # and its sweep each run the soft forward, comp_adj recomputes the fields
 # and the pair sigmoids, hyp_adj its hypothesis, the sweep the bounce) are
 # not, and the *_ADJ constants are the adjoint's own operations.
-OPS_SOFT_SPHERE = 37     # a sphere hypothesis (hyp_fwd): m 3, b 5, c 7,
-                         # discriminant 2, mask 2, guarded root 3, t 2, two
-                         # sigmoids with their scalings and products 13
-OPS_SOFT_TRIANGLE = 63   # a triangle hypothesis: n.d 5, side 2, 1 / div 3,
-                         # beta 12, gamma 12, t 8, margin 4, coverage 17
+# A hypothesis (hyp_fwd) per factor of its alpha, in the order the kernel
+# evaluates and votes them: where a factor is exactly 0 for a ray, the
+# function needs none of the later ones (MKS.live_stats' reach_s and
+# reach_t count the rows that evaluate each; on dense tables every row
+# evaluates all). A sphere's 37: mask 2; m 3, b 5, c 7, discriminant 2 and
+# its sigmoid with scaling and product 6; guarded root 3, t 2, its sigmoid
+# past mint with scaling and product 7. A triangle's 63: mask 1; n.d 5,
+# side 2; 1 / div 3, beta 12, gamma 12, margin 4, its sigmoid with scaling
+# and products 8; t 8, its sigmoid past mint with scaling and product 8.
+OPS_SOFT_SPHERE_FACTORS = (2, 23, 12)
+OPS_SOFT_TRIANGLE_FACTORS = (1, 7, 39, 16)
 OPS_SOFT_FIELDS_SPHERE = 30    # its fields: hit point 6 + 3, normal 11,
                                # material 4, point 6
 OPS_SOFT_FIELDS_TRIANGLE = 42  # clips 6, vertex normals 15, normalize 11,
@@ -528,8 +538,9 @@ OPS_SOFT_BOUNCE_ADJ = 225  # per bounce: OPS_ADJ_BOUNCE past the tangent
 PEAK_SFU_PER_SM_CLOCK = 16
 N_SMS = 132
 SFU_SOFT_SIGMOID = 2
-SFU_SOFT_SPHERE = 5      # two sigmoids, the guarded root
-SFU_SOFT_TRIANGLE = 5    # two sigmoids, 1 / (n . d)
+SFU_SOFT_SPHERE_FACTORS = (0, 2, 3)      # per factor as OPS_SOFT_*_FACTORS:
+SFU_SOFT_TRIANGLE_FACTORS = (0, 0, 3, 2)  # sigmoids, the guarded root,
+                                          # 1 / (n . d)
 SFU_SOFT_FIELDS = 1      # the normal's normalize
 SFU_SOFT_COMPOSITE = 1   # 1 / cov, per composite (a segment's, a span's)
 SFU_SOFT_SEGMENT = 1     # the finished normal's rsqrt
@@ -2807,42 +2818,62 @@ def _cell_bounds(tables, ids, occs, g, cfg):
     return k1, k3, (k1_ops, k3_ops / max(w3["rays"], 1))
 
 
-def _soft_ops(rays: float, segs: float, n_sph: int, n_tri: int,
-              n_lig: int, direct: bool = False) -> float:
-    """FP32 operations of kernel 2s without the roulette and without par
-    (the main path's step) over ``rays`` live rays (g != 0, inside the
-    scene box) with ``segs`` segments between them. The soft program's work
-    depends on the data only through those counts: every segment
-    composites every hypothesis (past 64 objects in two levels: within
-    each span, then the spans), every shadow ray sees every occluder.
-    Each segment's soft surface, each shadow ray's transmittance, the
-    emitter and the bounce count once, then their adjoints. ``direct``:
-    direct mode's (one segment per ray, the shade per light, no emitter
-    term)."""
+def _soft_dense(n_sph: int, n_tri: int) -> dict:
+    """Kernel 2s's work per segment ("surface") and per shadow ray
+    ("shadow") on dense tables, in MKS.live_stats' terms: every row
+    evaluates every factor of alpha and is live, every pair of every span
+    (past 64 objects in two levels: within each SOFT_CHUNK span of one
+    type, then between the spans' blends; a zero padding row is no work)."""
     n = n_sph + n_tri
     if n <= UNROLL_SPHERES:
-        pairs, blends, spans = n * (n - 1), n, 0
+        pairs, spans = n * (n - 1), 0
     else:
-        # two levels: pairs within each SOFT_CHUNK span of one type, then
-        # between the spans' blends (a zero padding row is no work)
         widths = _soft_spans(n_sph) + _soft_spans(n_tri)
         spans = len(widths)
         pairs = sum(x * (x - 1) for x in widths) + spans * (spans - 1)
-        blends = n + spans
-    hyp = n_sph * OPS_SOFT_SPHERE + n_tri * OPS_SOFT_TRIANGLE
-    fields = n_sph * OPS_SOFT_FIELDS_SPHERE + n_tri * OPS_SOFT_FIELDS_TRIANGLE
-    hyp_adj = (n_sph * OPS_SOFT_HYP_ADJ_SPHERE
-               + n_tri * OPS_SOFT_HYP_ADJ_TRIANGLE)
-    fields_adj = (n_sph * OPS_SOFT_FIELDS_ADJ_SPHERE
-                  + n_tri * OPS_SOFT_FIELDS_ADJ_TRIANGLE)
+    rows = dict(reach_s=[n_sph] * len(OPS_SOFT_SPHERE_FACTORS),
+                reach_t=[n_tri] * len(OPS_SOFT_TRIANGLE_FACTORS),
+                rows_s=n_sph, rows_t=n_tri)
+    return {"surface": dict(rows, pairs=pairs, spans=spans),
+            "shadow": rows}
+
+
+def _reach(w: dict, sphere, triangle) -> float:
+    """The cost of the factors the rows of w evaluate (w's reach_s and
+    reach_t against per-factor costs)."""
+    return (sum(n * c for n, c in zip(w["reach_s"], sphere))
+            + sum(n * c for n, c in zip(w["reach_t"], triangle)))
+
+
+def _soft_ops(rays: float, segs: float, n_lig: int, work: dict,
+              direct: bool = False) -> float:
+    """FP32 operations of kernel 2s without the roulette and without par
+    (the main path's step) over ``rays`` live rays (g != 0, inside the
+    scene box) with ``segs`` segments between them, where each segment
+    and each shadow ray does ``work`` (_soft_dense: the tables' own; or
+    MKS.live_stats' per-ray means: what this run's data needs). Each
+    segment's soft surface, each shadow ray's transmittance, the emitter
+    and the bounce count once, then their adjoints. ``direct``: direct
+    mode's (one segment per ray, the shade per light, no emitter term)."""
+    sur, sh = work["surface"], work["shadow"]
+    blends = sur["rows_s"] + sur["rows_t"] + sur["spans"]
     # the surface, the throughput (3 per light), and their adjoints
-    surface = (hyp + fields + pairs * OPS_SOFT_PAIR + blends * OPS_SOFT_BLEND
-               + OPS_SOFT_SEGMENT + spans * (OPS_SOFT_SPAN + OPS_SOFT_SPAN_ADJ)
-               + 3 * n_lig + hyp_adj + fields_adj
-               + pairs * OPS_SOFT_PAIR_ADJ + blends * OPS_SOFT_BLEND_ADJ
-               + OPS_SOFT_SEGMENT_ADJ)
-    nee = (hyp + n * OPS_SOFT_OCCLUDER + hyp_adj + n * OPS_SOFT_OCCLUDER_ADJ
-           + OPS_SOFT_NEE_ADJ)
+    surface = (_reach(sur, OPS_SOFT_SPHERE_FACTORS, OPS_SOFT_TRIANGLE_FACTORS)
+               + sur["rows_s"] * (OPS_SOFT_FIELDS_SPHERE
+                                  + OPS_SOFT_HYP_ADJ_SPHERE
+                                  + OPS_SOFT_FIELDS_ADJ_SPHERE)
+               + sur["rows_t"] * (OPS_SOFT_FIELDS_TRIANGLE
+                                  + OPS_SOFT_HYP_ADJ_TRIANGLE
+                                  + OPS_SOFT_FIELDS_ADJ_TRIANGLE)
+               + sur["pairs"] * (OPS_SOFT_PAIR + OPS_SOFT_PAIR_ADJ)
+               + blends * (OPS_SOFT_BLEND + OPS_SOFT_BLEND_ADJ)
+               + sur["spans"] * (OPS_SOFT_SPAN + OPS_SOFT_SPAN_ADJ)
+               + OPS_SOFT_SEGMENT + OPS_SOFT_SEGMENT_ADJ + 3 * n_lig)
+    nee = (_reach(sh, OPS_SOFT_SPHERE_FACTORS, OPS_SOFT_TRIANGLE_FACTORS)
+           + (sh["rows_s"] + sh["rows_t"]) * (OPS_SOFT_OCCLUDER
+                                              + OPS_SOFT_OCCLUDER_ADJ)
+           + sh["rows_s"] * OPS_SOFT_HYP_ADJ_SPHERE
+           + sh["rows_t"] * OPS_SOFT_HYP_ADJ_TRIANGLE + OPS_SOFT_NEE_ADJ)
     if direct:
         # one segment, no emitter term: the shade per light
         nee += OPS_SOFT_DIRECT_NEE + OPS_SOFT_DIRECT_NEE_ADJ - OPS_SOFT_NEE_ADJ
@@ -2852,49 +2883,26 @@ def _soft_ops(rays: float, segs: float, n_sph: int, n_tri: int,
             + (segs - rays) * (OPS_BOUNCE + OPS_SOFT_BOUNCE_ADJ + 1))
 
 
-def _soft_sfu(rays: float, segs: float, n_sph: int, n_tri: int,
-              n_lig: int, direct: bool = False) -> float:
+def _soft_sfu(rays: float, segs: float, n_lig: int, work: dict,
+              direct: bool = False) -> float:
     """Special-function (MUFU) operations of kernel 2s on the work of
-    _soft_ops (same arguments): each hypothesis, field, ordered pair,
+    _soft_ops (same arguments): each factor, field, ordered pair,
     composite, occluder and scalar piece once, with SFU_SOFT_*."""
-    n = n_sph + n_tri
-    if n <= UNROLL_SPHERES:
-        pairs, comps = n * (n - 1), 1
-    else:
-        widths = _soft_spans(n_sph) + _soft_spans(n_tri)
-        spans = len(widths)
-        pairs = sum(x * (x - 1) for x in widths) + spans * (spans - 1)
-        comps = spans + 1
-    hyp = n_sph * SFU_SOFT_SPHERE + n_tri * SFU_SOFT_TRIANGLE
-    surface = (hyp + n * SFU_SOFT_FIELDS + pairs * SFU_SOFT_SIGMOID
-               + comps * SFU_SOFT_COMPOSITE + SFU_SOFT_SEGMENT
-               + n_sph * SFU_SOFT_HYP_ADJ_SPHERE
-               + n_tri * SFU_SOFT_HYP_ADJ_TRIANGLE)
-    nee = (hyp + n * SFU_SOFT_SIGMOID + n_sph * (SFU_SOFT_HYP_ADJ_SPHERE - 1)
-           + SFU_SOFT_NEE)
+    sur, sh = work["surface"], work["shadow"]
+    surface = (_reach(sur, SFU_SOFT_SPHERE_FACTORS, SFU_SOFT_TRIANGLE_FACTORS)
+               + (sur["rows_s"] + sur["rows_t"]) * SFU_SOFT_FIELDS
+               + sur["pairs"] * SFU_SOFT_SIGMOID
+               + (sur["spans"] + 1) * SFU_SOFT_COMPOSITE + SFU_SOFT_SEGMENT
+               + sur["rows_s"] * SFU_SOFT_HYP_ADJ_SPHERE
+               + sur["rows_t"] * SFU_SOFT_HYP_ADJ_TRIANGLE)
+    nee = (_reach(sh, SFU_SOFT_SPHERE_FACTORS, SFU_SOFT_TRIANGLE_FACTORS)
+           + (sh["rows_s"] + sh["rows_t"]) * SFU_SOFT_SIGMOID
+           + sh["rows_s"] * (SFU_SOFT_HYP_ADJ_SPHERE - 1) + SFU_SOFT_NEE)
     if direct:
         return rays * SFU_SOFT_CAMERA + segs * (surface + n_lig * nee)
     return (rays * (SFU_SOFT_CAMERA + n_lig * SFU_SOFT_EMIT)
             + segs * (surface + n_lig * nee)
             + (segs - rays) * SFU_SOFT_BOUNCE)
-
-
-def _soft_live_terms(n_sph: int, n_tri: int, live: dict) -> dict:
-    """Per warp-segment and per shadow ray, the work kernel 2s's large-table
-    instance runs on this run's data (MKS.live_stats' means): every row's
-    hypothesis once (the replay's pass and the shadow ray's: a row dead at
-    its first factor costs less, so this overstates), then only the rows
-    live for the warp: their count in sphere and triangle spans, the
-    ordered pairs within the live spans and between them, and the live
-    spans."""
-    sur, sh = live["surface"], live["shadow"]
-    spans = sur["live_spans"]
-    return dict(
-        u_s=sur["union_rows_sph"], u_t=sur["union_rows"] - sur["union_rows_sph"],
-        pairs=(sur["union_pairs"] - sur["union_rows"]
-               + spans * max(spans - 1.0, 0.0)),
-        spans=spans, v_s=sh["union_rows_sph"],
-        v_t=sh["union_rows"] - sh["union_rows_sph"])
 
 
 def _soft_live(MKS, args: tuple, kw: dict, n_rays: int) -> dict:
@@ -2908,52 +2916,6 @@ def _soft_live(MKS, args: tuple, kw: dict, n_rays: int) -> dict:
         blocks=[(b * step, min(LIVE_BLOCK, n_rays - b * step))
                 for b in range(LIVE_BLOCKS)],
         **{k: v for k, v in kw.items() if k != "diff_wrt"})
-
-
-def _soft_ops_live(rays: float, segs: float, n_sph: int, n_tri: int,
-                   n_lig: int, live: dict) -> float:
-    """_soft_ops on the work this run's data needs (_soft_live_terms):
-    the sparse kernel's live-work bound. Every lane of a warp runs its
-    warp's live rows, so a ray is charged its warp's union. Counted once,
-    as _soft_ops counts: a live row's hypothesis again in the sweep and the
-    replay's composites are not charged."""
-    w = _soft_live_terms(n_sph, n_tri, live)
-    u = w["u_s"] + w["u_t"]
-    hyp = n_sph * OPS_SOFT_SPHERE + n_tri * OPS_SOFT_TRIANGLE
-    surface = (hyp + w["u_s"] * (OPS_SOFT_FIELDS_SPHERE
-                                 + OPS_SOFT_HYP_ADJ_SPHERE
-                                 + OPS_SOFT_FIELDS_ADJ_SPHERE)
-               + w["u_t"] * (OPS_SOFT_FIELDS_TRIANGLE
-                             + OPS_SOFT_HYP_ADJ_TRIANGLE
-                             + OPS_SOFT_FIELDS_ADJ_TRIANGLE)
-               + w["pairs"] * (OPS_SOFT_PAIR + OPS_SOFT_PAIR_ADJ)
-               + (u + w["spans"]) * (OPS_SOFT_BLEND + OPS_SOFT_BLEND_ADJ)
-               + w["spans"] * (OPS_SOFT_SPAN + OPS_SOFT_SPAN_ADJ)
-               + OPS_SOFT_SEGMENT + OPS_SOFT_SEGMENT_ADJ + 3 * n_lig)
-    nee = (hyp + (w["v_s"] + w["v_t"]) * (OPS_SOFT_OCCLUDER
-                                          + OPS_SOFT_OCCLUDER_ADJ)
-           + w["v_s"] * OPS_SOFT_HYP_ADJ_SPHERE
-           + w["v_t"] * OPS_SOFT_HYP_ADJ_TRIANGLE + OPS_SOFT_NEE_ADJ)
-    return (rays * (OPS_CAMERA + n_lig * (OPS_SOFT_EMIT + OPS_SOFT_EMIT_ADJ))
-            + segs * (surface + n_lig * nee)
-            + (segs - rays) * (OPS_BOUNCE + OPS_SOFT_BOUNCE_ADJ + 1))
-
-
-def _soft_sfu_live(rays: float, segs: float, n_sph: int, n_tri: int,
-                   n_lig: int, live: dict) -> float:
-    """_soft_sfu on the work of _soft_ops_live."""
-    w = _soft_live_terms(n_sph, n_tri, live)
-    u = w["u_s"] + w["u_t"]
-    hyp = n_sph * SFU_SOFT_SPHERE + n_tri * SFU_SOFT_TRIANGLE
-    surface = (hyp + u * SFU_SOFT_FIELDS + w["pairs"] * SFU_SOFT_SIGMOID
-               + (w["spans"] + 1) * SFU_SOFT_COMPOSITE + SFU_SOFT_SEGMENT
-               + w["u_s"] * SFU_SOFT_HYP_ADJ_SPHERE
-               + w["u_t"] * SFU_SOFT_HYP_ADJ_TRIANGLE)
-    nee = (hyp + (w["v_s"] + w["v_t"]) * SFU_SOFT_SIGMOID
-           + w["v_s"] * (SFU_SOFT_HYP_ADJ_SPHERE - 1) + SFU_SOFT_NEE)
-    return (rays * (SFU_SOFT_CAMERA + n_lig * SFU_SOFT_EMIT)
-            + segs * (surface + n_lig * nee)
-            + (segs - rays) * SFU_SOFT_BOUNCE)
 
 
 @functools.lru_cache(maxsize=None)
@@ -3278,8 +3240,9 @@ def edge_train(dev, smi: str) -> dict:
             err = max(err, _grad_gates(name, a, b, True))
     stats = _soft_stats(MKS, False, False)
     rays, nsegs = _soft_work(MK, tables, g, edge)
-    ops = _soft_ops(rays, nsegs, tables[1].shape[0], tables[2].shape[0], n_l)
-    sfu = _soft_sfu(rays, nsegs, tables[1].shape[0], tables[2].shape[0], n_l)
+    dense = _soft_dense(tables[1].shape[0], tables[2].shape[0])
+    ops = _soft_ops(rays, nsegs, n_l, dense)
+    sfu = _soft_sfu(rays, nsegs, n_l, dense)
     bound = {**_bound(ops, 12 * edge.total_rays + 2 * _table_bytes(tables)),
              **_sfu_bound(sfu)}
     print(f"phase 20 kernel 2s alone on the step's cotangent {ms:.6g} ms "
@@ -4239,24 +4202,25 @@ def large_train(dev, smi: str, work: dict) -> dict:
     tables = mega.scene_tables(scene, cfg)
     rays, nsegs = _soft_work(MK, tables, p["g"], cfg)
     n_s, n_t = tables[1].shape[0], tables[2].shape[0]
-    # the dense bound (every pair of every span), and the live-work bound
-    # on the rows live for each warp, counted by the plain version on
-    # LIVE_BLOCKS blocks of whole warps spread over the step's own launch
-    ops = _soft_ops(rays, nsegs, n_s, n_t, n_l)
-    sfu = _soft_sfu(rays, nsegs, n_s, n_t, n_l)
-    dense = {**_bound(ops, 12 * cfg.total_rays + 2 * _table_bytes(tables)),
-             **_sfu_bound(sfu)}
+    # the dense bound (every factor of every row, every pair of every
+    # span), and the live-work bound: what this run's data needs, each
+    # ray's own live rows, pairs and spans and each row's factors up to
+    # the first exactly 0, counted by the plain version on LIVE_BLOCKS
+    # blocks of whole warps spread over the step's own launch
+    nbytes = 12 * cfg.total_rays + 2 * _table_bytes(tables)
+    dense = _soft_dense(n_s, n_t)
+    ops, sfu = (f(rays, nsegs, n_l, dense) for f in (_soft_ops, _soft_sfu))
     live = _soft_live(MKS, *call[0], cfg.total_rays)
-    ops_live = _soft_ops_live(rays, nsegs, n_s, n_t, n_l, live)
-    sfu_live = _soft_sfu_live(rays, nsegs, n_s, n_t, n_l, live)
-    bound = {**_bound(ops_live,
-                      12 * cfg.total_rays + 2 * _table_bytes(tables)),
-             **_sfu_bound(sfu_live),
-             "dense_bound_ms": dense["bound_ms"],
-             "dense_bound_sfu_ms": dense["bound_sfu_ms"]}
-    print(f"phase 22 BENCH_EDGE step, the torus scene: live rows per warp "
-          f"(the plain version, {LIVE_BLOCKS} blocks of {LIVE_BLOCK} rays): "
-          f"{json.dumps(live)}")
+    ops_live, sfu_live = (f(rays, nsegs, n_l, live)
+                          for f in (_soft_ops, _soft_sfu))
+    bound = {**_bound(ops_live, nbytes), **_sfu_bound(sfu_live),
+             "dense_bound_ms": _bound(ops, nbytes)["bound_ms"]}
+    dense_sfu_ms = _sfu_bound(sfu)["bound_sfu_ms"]
+    sur = live["surface"]
+    print(f"phase 22 BENCH_EDGE step, the torus scene: live work (the "
+          f"plain version, {LIVE_BLOCKS} blocks of {LIVE_BLOCK} rays; per "
+          f"ray what the function needs, per warp the union of its rays' "
+          f"live rows, which the kernel runs): {json.dumps(live)}")
     print(f"phase 22 BENCH_EDGE step, the torus scene ({tables[2].shape[0]} "
           f"triangles, {len(_soft_spans(tables[2].shape[0]))} spans, "
           f"Morton-sorted) {MAIN_W}x{MAIN_H} b{BOUNCES} wrt "
@@ -4268,15 +4232,18 @@ def large_train(dev, smi: str, work: dict) -> dict:
           f"step); dense bound "
           f"{ops / max(rays, 1):.6g} FP32 operations per live ray "
           f"(OPS_SOFT_*, pairs per span and the spans' level) -> "
-          f"{dense['bound_ms']:.6g} ms ({dense['bound_by']}), MUFU "
-          f"{sfu / max(rays, 1):.6g} -> {dense['bound_sfu_ms']:.6g} ms; "
-          f"live-work bound (the hypotheses and the warps' union rows and "
-          f"pairs the kernel runs) {ops_live / max(rays, 1):.6g} FP32 "
-          f"operations per live ray -> {bound['bound_ms']:.6g} ms "
-          f"({bound['bound_by']}; share {bound['bound_ms'] / k_ms:.3%}), "
-          f"MUFU {sfu_live / max(rays, 1):.6g} -> "
-          f"{bound['bound_sfu_ms']:.6g} ms (share "
-          f"{bound['bound_sfu_ms'] / k_ms:.3%}); launch {stats}")
+          f"{bound['dense_bound_ms']:.6g} ms, MUFU "
+          f"{sfu / max(rays, 1):.6g} -> {dense_sfu_ms:.6g} ms; "
+          f"live-work bound (each ray's own live rows {sur['rows_s']:.4g} + "
+          f"{sur['rows_t']:.4g}, pairs {sur['pairs']:.4g} and spans "
+          f"{sur['spans']:.4g} per segment; the design runs its warp's "
+          f"union: rows {sur['union_rows']:.4g}, pairs "
+          f"{sur['union_pairs']:.4g}, spans {sur['union_spans']:.4g}) "
+          f"{ops_live / max(rays, 1):.6g} FP32 operations per live ray -> "
+          f"{bound['bound_ms']:.6g} ms ({bound['bound_by']}; share "
+          f"{bound['bound_ms'] / k_ms:.3%}), MUFU "
+          f"{sfu_live / max(rays, 1):.6g} -> {bound['bound_sfu_ms']:.6g} ms "
+          f"(share {bound['bound_sfu_ms'] / k_ms:.3%}); launch {stats}")
     out["edge"] = {"launches": counts[4], "ms": k_ms, "step_ms": step_ms,
                    "shape": f"torus {MAIN_W}x{MAIN_H} b{BOUNCES}",
                    "stats": stats, **bound}
@@ -4651,13 +4618,12 @@ def direct_train(dev, smi: str, name: str, route: str) -> dict:
     else:
         tl = list(t)
         live, _ = _soft_work(MK, tl, g, cfg)
-        bounds["d"] = _bound(_soft_ops(live, live, tl[1].shape[0],
-                                       tl[2].shape[0], n_l, direct=True),
+        dense = _soft_dense(tl[1].shape[0], tl[2].shape[0])
+        bounds["d"] = _bound(_soft_ops(live, live, n_l, dense, direct=True),
                              12 * cfg.total_rays + 2 * _table_bytes(tl))
-        bounds["d"]["per_ray"] = _soft_ops(1, 1, tl[1].shape[0],
-                                           tl[2].shape[0], n_l, direct=True)
-        bounds["d"].update(_sfu_bound(_soft_sfu(
-            live, live, tl[1].shape[0], tl[2].shape[0], n_l, direct=True)))
+        bounds["d"]["per_ray"] = _soft_ops(1, 1, n_l, dense, direct=True)
+        bounds["d"].update(_sfu_bound(_soft_sfu(live, live, n_l, dense,
+                                                direct=True)))
         runs = {"d": lambda: MKS.pathtrace_pass_bwd_soft(
             t[0], ipar, *t[1:], g, None, **soft, **bkw)}
     ms = {}
@@ -4871,17 +4837,19 @@ def main() -> int:
     a22["brute"] = large_vs_plain(dev, "torus", False, False, MESH_WRT,
                                   BRUTE_W, BRUTE_H, BRUTE_BOUNCES, brute=True)
     # kernel 2s past 64 in path mode, with the roulette and in direct mode:
-    # the torus (its triangles in wrt), sphere_field(N_SPHERES), the film
-    # whose rays all miss (every span mask empty), the cluster whose warps'
-    # live rows fill every span and, at DIFF_TABLE_MAX, the spheres and the
-    # triangle soup (one bounce, the roulette from depth 0)
+    # the torus (its triangles in wrt), sphere_field(SMALL_SPHERES) (path
+    # and roulette, as before the sparse kernel) and sphere_field(N_SPHERES),
+    # the film whose rays all miss (every span mask empty), the cluster
+    # whose warps' live rows fill every span and, at DIFF_TABLE_MAX, the
+    # spheres and the triangle soup (one bounce, the roulette from depth 0)
     s22 = {(shape, mode): large_vs_plain(
                dev, shape, True, mode == "rr", wrt, direct=mode == "direct")
-           for shape, wrt in (("torus", MESH_WRT),
-                              ("spheres1024", TRAIN_WRT),
-                              ("misses", MKG.DIFF_ALL),
-                              ("cluster", MKG.DIFF_ALL))
-           for mode in SOFT_MODES}
+           for shape, wrt, modes in (("torus", MESH_WRT, SOFT_MODES),
+                                     ("spheres", TRAIN_WRT, ("path", "rr")),
+                                     ("spheres1024", TRAIN_WRT, SOFT_MODES),
+                                     ("misses", MKG.DIFF_ALL, SOFT_MODES),
+                                     ("cluster", MKG.DIFF_ALL, SOFT_MODES))
+           for mode in modes}
     edge_grid_large(dev, LARGE_W, LARGE_H)
     c22 = {(shape, False, "path"): large_vs_plain(
                dev, shape, False, False, MKG.DIFF_ALL, CAP_W, CAP_H, 1)
@@ -5102,7 +5070,6 @@ def main() -> int:
         "bound_by": l22["edge"]["bound_by"], "library_ms": None,
         "bound_sfu_ms": l22["edge"]["bound_sfu_ms"],
         "dense_bound_ms": l22["edge"]["dense_bound_ms"],
-        "dense_bound_sfu_ms": l22["edge"]["dense_bound_sfu_ms"],
         **l22["edge"]["stats"], "shape": l22["edge"]["shape"],
         "plain_shape": s22[("torus", "path")]["shape"]}] + [{
         "name": name, "route": "cuda",

@@ -730,8 +730,8 @@ struct SpanComp {
 // line) and their cotangents are added into the global outputs (warp sums,
 // one atomicAdd per word, row and warp), par, mat and lig staying in the
 // block's buffer. After the buffer, each warp's words (Warp: its segments'
-// span masks). The live spans' words (SpanTape) go to a buffer the launch
-// allocates on the stream (cudaMallocAsync) and frees after the kernel.
+// span masks). The live spans' words (SpanTape) go to a global buffer the
+// caller allocates (rt_soft_large_tape gives its size).
 
 constexpr size_t kResidentBytes = 48 * 1024;  // sphere and triangle rows
 
@@ -801,52 +801,68 @@ __global__ void __launch_bounds__(kBlock)
   if (p.wrt & kWLig) flush(p.dlig, G.lig, kLig * p.n_lig);
 }
 
-// Launches it on the pass p (the C entry's arguments checked).
-int launch(const AdjParams& p, int n_sph, int n_tri, int n_mat, int n_lig,
-           void* stream) {
-  LargeParams q;
-  q.p = p;
+// The launch's shape on a pass's sizes: the staged tables and the block's
+// gradient buffer in their layout, then the warps' words; the grid; and
+// the floats of the live spans' tape (kSpanWords per span, segment and
+// launched thread), which the caller allocates.
+struct Plan {
+  LargeParams q;  // without the pass and the tape
+  size_t smem;
+  int grid;
+  long long tape;
+};
+
+cudaError_t plan(int n_sph, int n_tri, int n_mat, int n_lig, int bounces,
+                 int n_rays, Plan& P) {
+  LargeParams& q = P.q;
   q.resident = sizeof(float) * (kSph * static_cast<size_t>(n_sph) +
                                 kTri * static_cast<size_t>(n_tri)) <=
                kResidentBytes;
-  q.nseg = kBuildDirect ? 1 : p.bounces + 1;
-  // the staged tables and the block's gradient buffer in their layout,
-  // then the warps' words
+  q.nseg = kBuildDirect ? 1 : bounces + 1;
   const size_t tab =
       2 * sizeof(float) *
       tables_floats(q.resident ? n_sph : 0, q.resident ? n_tri : 0, n_mat,
                     n_lig);
   q.warp_at = static_cast<int>((tab + 15) / 16 * 16);
-  const size_t smem = q.warp_at + static_cast<size_t>(kBlock / 32) *
-                                      warp_bytes(q.nseg,
-                                                 n_spans_of(n_sph, n_tri));
+  const int nc = n_spans_of(n_sph, n_tri);
+  P.smem = q.warp_at +
+           static_cast<size_t>(kBlock / 32) * warp_bytes(q.nseg, nc);
+  P.grid = 0;
+  const cudaError_t err =
+      fit_grid(pathtrace_bwd_soft_large_kernel<kBuildRR, kBuildDirect>,
+               kBlock, P.smem, n_rays, P.grid);
+  P.tape = static_cast<long long>(kSpanWords) * q.nseg * nc * P.grid * kBlock;
+  return err;
+}
+
+// Launches it on the pass p (the C entry's arguments checked) with the
+// live spans' tape `spans` of `spans_floats` floats (at least plan's).
+int launch(const AdjParams& p, int n_sph, int n_tri, int n_mat, int n_lig,
+           float* spans, long long spans_floats, void* stream) {
+  Plan P;
+  cudaError_t err =
+      plan(n_sph, n_tri, n_mat, n_lig, p.bounces, p.n_rays, P);
+  if (err == cudaSuccess && (spans == nullptr || spans_floats < P.tape))
+    err = cudaErrorInvalidValue;
+  LargeParams q = P.q;
+  q.p = p;
+  q.spans = spans;
   void (*kernel)(LargeParams) =
       pathtrace_bwd_soft_large_kernel<kBuildRR, kBuildDirect>;
-  int grid = 0;
-  cudaError_t err = fit_grid(kernel, kBlock, smem, p.n_rays, grid);
   int per_sm = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kBlock, smem);
+                                                        kBlock, P.smem);
   cudaFuncAttributes fa;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, kernel);
-  // the live spans' words of every launched thread, stream-ordered
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t tape = sizeof(float) * kSpanWords * q.nseg *
-                      static_cast<size_t>(n_spans_of(n_sph, n_tri)) * grid *
-                      kBlock;
-  if (err == cudaSuccess)
-    err = cudaMallocAsync(reinterpret_cast<void**>(&q.spans), tape, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int last[8] = {1, kBlock / 32, q.resident, static_cast<int>(smem),
+  const int last[8] = {1, kBlock / 32, q.resident, static_cast<int>(P.smem),
                        !q.resident && (p.wrt & (kWSph | kWTri)) ? 1 : 0,
                        per_sm * kBlock / 32, fa.numRegs,
                        static_cast<int>(fa.localSizeBytes)};
   for (int k = 0; k < 8; ++k) g_last[k] = last[k];
-  kernel<<<grid, kBlock, smem, st>>>(q);
-  err = cudaGetLastError();
-  const cudaError_t freed = cudaFreeAsync(q.spans, st);
-  return static_cast<int>(err != cudaSuccess ? err : freed);
+  kernel<<<P.grid, kBlock, P.smem, static_cast<cudaStream_t>(stream)>>>(q);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace large
@@ -951,11 +967,29 @@ extern "C" int rt_pathtrace_bwd_soft(
   return launch(p, stream);
 }
 
+// The floats of the live spans' tape that rt_pathtrace_bwd_soft_large
+// needs on a pass of these sizes, into *floats (0 without rays).
+extern "C" int rt_soft_large_tape(int n_sph, int n_tri, int n_mat, int n_lig,
+                                  int bounces, int n_rays, long long* floats) {
+  *floats = 0;
+  if (bounces < 0 || bounces >= kMaxSeg || n_lig > kMaxLights ||
+      n_spans_of(n_sph, n_tri) > kMaxSpans)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rays <= 0) return static_cast<int>(cudaSuccess);
+  large::Plan P;
+  const cudaError_t err =
+      large::plan(n_sph, n_tri, n_mat, n_lig, bounces, n_rays, P);
+  if (err == cudaSuccess) *floats = P.tape;
+  return static_cast<int>(err);
+}
+
 // C interface past 64 objects per type: rt_pathtrace_bwd_soft's
 // arguments, at most kMaxSpans spans of kSpan rows (64 of each type:
-// DIFF_TABLE_MAX), the rows composited in the order given. Allocates its
-// live spans' tape on `stream` (cudaMallocAsync; 48 bytes per span,
-// segment and launched thread) and frees it there after the launch.
+// DIFF_TABLE_MAX), the rows composited in the order given, and before
+// `stream` the live spans' tape: a device buffer of `spans_floats` floats,
+// at least rt_soft_large_tape's (48 bytes per span, segment and launched
+// thread), which the kernel overwrites; it must stay allocated until the
+// launch has run on `stream`.
 extern "C" int rt_pathtrace_bwd_soft_large(
     const float* par, const float* sph, int n_sph, const float* tri,
     int n_tri, const float* mat, int n_mat, const float* lig, int n_lig,
@@ -963,7 +997,8 @@ extern "C" int rt_pathtrace_bwd_soft_large(
     unsigned int k0, unsigned int k1, int spp, int width, int bounces, int rr,
     int rr_start_depth, int direct, int two_sided, int normalize_emitter,
     int wrt, float bw, float tau, float* dpar, float* dsph, float* dtri,
-    float* dmat, float* dlig, void* stream) {
+    float* dmat, float* dlig, float* spans, long long spans_floats,
+    void* stream) {
   if (bounces < 0 || bounces >= kMaxSeg || n_lig > kMaxLights ||
       n_spans_of(n_sph, n_tri) > kMaxSpans || !(bw > 0.0f) ||
       !(tau > 0.0f) || (direct && (bounces || rr)) ||
@@ -978,7 +1013,8 @@ extern "C" int rt_pathtrace_bwd_soft_large(
   p.bw = bw;
   p.tau = tau;
   if (direct) set_direct_keys(p);
-  return large::launch(p, n_sph, n_tri, n_mat, n_lig, stream);
+  return large::launch(p, n_sph, n_tri, n_mat, n_lig, spans, spans_floats,
+                       stream);
 }
 
 // What the last launch took, into out[8]: the lanes per ray (1: the

@@ -162,7 +162,7 @@ __device__ __forceinline__ bool lane0() { return (threadIdx.x & 31) == 0; }
 
 // A segment's live spans on the tape, per lane: for live span slot j the
 // outer composite's inputs, its clipped coverage ca, its exclusive product
-// ctr and its blend cf (10), in global memory that the launch allocates
+// ctr and its blend cf (10), in global memory that the caller allocates
 // (each word of a slot `stride` floats from the next: the launched
 // threads', so a warp's 32 words are one line). The replay writes them,
 // the sweep reads them instead of compositing every live span again.

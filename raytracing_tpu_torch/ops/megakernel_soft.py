@@ -38,10 +38,12 @@ Four functions:
   raises; it counts its launches in the module integers ``soft_launches``
   (at most 64 objects per type) and ``soft_large_launches`` (past 64, the
   two-level composite over every span, its large-table instance);
-* ``live_stats`` -- what that large-table instance composites, counted
-  with the plain version: per warp of 32 rays the live spans and the
-  union of the rows whose coverage is not exactly 0 (the kernel skips the
-  rest; its bound and ``profile_kernels`` read these counts).
+* ``live_stats`` -- the work of that large-table instance, counted with
+  the plain version: per ray the rows, pairs and spans whose coverage has
+  no factor exactly 0 (what the function needs; the kernel skips the
+  rest), and per warp of 32 rays the union of its rays' live rows (what
+  the kernel runs); ``chip_smoke.py``'s bound and ``profile_kernels``
+  read these counts.
 
 Past 64 objects the spans follow the rows in the order they are handed:
 the differentiable pass hands the triangles in JAX's Morton order, padded
@@ -93,9 +95,14 @@ _SIGNATURES = {
         _VP]),                                        # stream
 }
 # past 64 objects per type: the two-level composite over every SOFT_CHUNK
-# span, the same arguments
-_SIGNATURES["rt_pathtrace_bwd_soft_large"] = \
-    _SIGNATURES["rt_pathtrace_bwd_soft"]
+# span, the same arguments and before the stream the live spans' tape
+# (pointer, floats), whose size rt_soft_large_tape gives
+_SIGNATURES["rt_pathtrace_bwd_soft_large"] = (ctypes.c_int, [
+    *_SIGNATURES["rt_pathtrace_bwd_soft"][1][:-1], _VP, ctypes.c_longlong,
+    _VP])
+_SIGNATURES["rt_soft_large_tape"] = (ctypes.c_int, [
+    _I, _I, _I, _I, _I, _I,   # n_sph, n_tri, n_mat, n_lig, bounces, n_rays
+    _VP])                     # long long floats (out)
 # what the last launch took (last_launch)
 _SIGNATURES["rt_soft_last"] = (None, [_VP])
 LAST_KEYS = ("group", "warps", "resident", "smem_bytes", "rows_global",
@@ -159,19 +166,27 @@ class _Ray:
         return r
 
 
-def _sphere_hyp(row, ray: _Ray, bw: float):
-    """(alpha, t) of a sphere row: sigmoid of the discriminant (unit
-    directions, a = 1) times a sigmoid of the near root past mint. A row
-    (8,) against rays (R, ...) gives (R,); a block of rows (n, 8) against
-    ``ray.over_rows()`` gives (R, n)."""
+def _sphere_factors(row, ray: _Ray, bw: float):
+    """((mask, sigmoid of the discriminant, sigmoid of the near root past
+    mint), t) of a sphere row (unit directions, a = 1): alpha's factors in
+    the order kernel 2s evaluates them. Shapes as ``_sphere_hyp``."""
     m = ray.o - row[..., 0:3]
     b = dot3(m, ray.d)
     cq = dot3(m, m) - row[..., 3] * row[..., 3]
     dis = b * b - cq
-    alpha = (torch.sigmoid(_div(dis, bw))
-             * torch.where(row[..., 5] > 0.0, 1.0, 0.0))
+    msk = torch.where(row[..., 5] > 0.0, 1.0, 0.0)
     t = -b - _safe_sqrt(dis)
-    return alpha * torch.sigmoid(_div(t - ray.mint, bw)), t
+    return (msk, torch.sigmoid(_div(dis, bw)),
+            torch.sigmoid(_div(t - ray.mint, bw))), t
+
+
+def _sphere_hyp(row, ray: _Ray, bw: float):
+    """(alpha, t) of a sphere row: sigmoid of the discriminant times a
+    sigmoid of the near root past mint. A row (8,) against rays (R, ...)
+    gives (R,); a block of rows (n, 8) against ``ray.over_rows()`` gives
+    (R, n)."""
+    (msk, s1, s2), t = _sphere_factors(row, ray, bw)
+    return s1 * msk * s2, t
 
 
 def _sphere_fields(row, ray: _Ray, t, alb):
@@ -180,10 +195,11 @@ def _sphere_fields(row, ray: _Ray, t, alb):
     return torch.cat([t[..., None], p, n, alb.expand(*t.shape, 3)], -1)
 
 
-def _tri_hyp(row, ray: _Ray, bw: float, two_sided: bool):
-    """(alpha, t, beta, gamma) of a triangle row: sigmoid of the
-    barycentric margin (constant-split Moller-Trumbore) times a sigmoid of
-    t past mint; t = 1e6 where the ray sees the plane's back. Shapes as
+def _tri_factors(row, ray: _Ray, bw: float, two_sided: bool):
+    """((mask, side, sigmoid of the barycentric margin, sigmoid of t past
+    mint), t, beta, gamma) of a triangle row (constant-split
+    Moller-Trumbore; t = 1e6 where the ray sees the plane's back): alpha's
+    factors in the order kernel 2s evaluates them. Shapes as
     ``_sphere_hyp``."""
     ng, c1, c2 = row[..., 0:3], row[..., 3:6], row[..., 6:9]
     e1, e2, k = row[..., 9:12], row[..., 12:15], row[..., 15]
@@ -194,10 +210,18 @@ def _tri_hyp(row, ray: _Ray, bw: float, two_sided: bool):
     gamma = (dot3(c1, ray.d) - dot3(e1, ray.oxd)) * idiv
     t = torch.where(side_ok, (k - dot3(ng, ray.o)) * idiv, 1e6)
     margin = torch.minimum(torch.minimum(beta, gamma), 1.0 - beta - gamma)
-    alpha = (torch.sigmoid(_div(margin, bw))
-             * torch.where(row[..., 17] > 0.0, 1.0, 0.0)
-             * side_ok.to(margin.dtype))
-    return alpha * torch.sigmoid(_div(t - ray.mint, bw)), t, beta, gamma
+    return (torch.where(row[..., 17] > 0.0, 1.0, 0.0),
+            side_ok.to(margin.dtype), torch.sigmoid(_div(margin, bw)),
+            torch.sigmoid(_div(t - ray.mint, bw))), t, beta, gamma
+
+
+def _tri_hyp(row, ray: _Ray, bw: float, two_sided: bool):
+    """(alpha, t, beta, gamma) of a triangle row: sigmoid of the
+    barycentric margin times a sigmoid of t past mint, on the side the
+    ray may see. Shapes as ``_sphere_hyp``."""
+    (msk, side, sm, s2), t, beta, gamma = _tri_factors(row, ray, bw,
+                                                      two_sided)
+    return sm * msk * side * s2, t, beta, gamma
 
 
 def _tri_fields(row, ray: _Ray, t, beta, gamma, alb):
@@ -282,31 +306,10 @@ class _Scene:
         self.bw, self.tau, self.two_sided = bw, tau, two_sided
         self.alb_s = _albedos(mat, sph[:, 4])
         self.alb_t = _albedos(mat, tri[:, 16])
-        # live_stats' counts (None: not counting) and the rays still on
-        # their paths (R,)
-        self.stats = None
-        self.live = None
 
-    def _count(self, kind: str, alphas, spheres: bool) -> None:
-        """live_stats: per warp of 32 rays, the span's rows whose alpha is
-        nonzero for some live ray of the warp (``spheres``: a sphere
-        span)."""
-        if self.stats is None:
-            return
-        live = (alphas != 0.0) & self.live[:, None]
-        u = live.reshape(-1, 32, live.shape[1]).any(1).sum(1).double()
-        st = self.stats.setdefault(kind, dict(segments=0, spans=0, rows=0.0,
-                                              rows_sph=0.0, pairs=0.0, max=0))
-        st["max"] = max(st["max"], int(u.max()))
-        st["spans"] += int((u > 0).sum())
-        st["rows"] += float(u.sum())
-        if spheres:
-            st["rows_sph"] += float(u.sum())
-        st["pairs"] += float((u * u).sum())
-
-    def _counted(self, kind: str, n_rays: int) -> None:
-        if self.stats is not None:
-            self.stats[kind]["segments"] += n_rays // 32
+    def paths(self, live) -> None:
+        """The rays (R,) bool still on their paths: inside the scene box,
+        not ended by the roulette (read by live_stats' counter only)."""
 
     def hyps(self, ray: _Ray, kind: str, lo: int, hi: int):
         """Hypotheses (alphas, ts, fields) of rows [lo, hi) of one type."""
@@ -363,14 +366,9 @@ class _Scene:
             # two levels, vectorised over each span as JAX's value-level
             # route is: each SOFT_CHUNK span of one type composites
             # locally, then the chunks' blends composite as hypotheses
-            covs, blends = [], []
-            for span in self.spans():
-                a, t, f = self.span_hyps(ray, *span)
-                self._count("surface", a, span[0] == "s")
-                cov, blend = _composite_span(a, t, f, 1e-9, self.tau)
-                covs.append(cov)
-                blends.append(blend)
-            self._counted("surface", ray.o.shape[0])
+            covs, blends = zip(*(
+                _composite_span(*self.span_hyps(ray, *span), 1e-9, self.tau)
+                for span in self.spans()))
             blend_m = torch.stack(blends, 1)
             cov, blend = _composite_span(torch.stack(covs, 1),
                                          blend_m[..., 0], blend_m, 1e-6,
@@ -396,10 +394,8 @@ class _Scene:
             # each span's in row order as kernel 2s's
             for span in self.spans():
                 a, t, _ = self.span_hyps(ray, *span, fields=False)
-                self._count("shadow", a, span[0] == "s")
                 inside = a * torch.sigmoid(_div(dist[:, None] - t, self.bw))
                 vis = vis * _ordered_prod(1.0 - inside)
-            self._counted("shadow", dist.shape[0])
             return vis
         for i in range(self.sph.shape[0]):
             a, t = _sphere_hyp(self.sph[i], ray, self.bw)
@@ -438,12 +434,11 @@ def _soft_pass(par, sph, tri, mat, lig, u, ray_offset: int, n: int, *,
                spp: int, width: int, bounces: int, two_sided: bool,
                normalize_emitter: bool, russian_roulette: bool,
                rr_start_depth: int, bw: float, tau: float,
-               mode: str = "path", stats: dict | None = None) -> torch.Tensor:
+               mode: str = "path", scene=_Scene) -> torch.Tensor:
     """The soft accumulator delta (n, 3) of rays [ray_offset, ray_offset +
     n) for the draws ``u`` (2 * n_draws, n); ``mode`` "path" or "direct"
-    (``_soft_direct``); ``stats``: live_stats' counts."""
-    sc = _Scene(sph, tri, mat, lig, bw, tau, two_sided)
-    sc.stats = stats
+    (``_soft_direct``); ``scene`` makes the _Scene (live_stats' counter)."""
+    sc = scene(sph, tri, mat, lig, bw, tau, two_sided)
     n_lig = lig.shape[0]
     slots = iter(range(u.shape[0] // 2))
 
@@ -456,9 +451,8 @@ def _soft_pass(par, sph, tri, mat, lig, u, ray_offset: int, n: int, *,
     eps = par[24]
     ok = mint < float("inf")
     path_w = torch.where(ok, 1.0, 0.0)
-    # the rays kernel 2s's warps vote with: in the box, not ended by the
-    # roulette (live_stats)
-    sc.live = ok
+    live = ok
+    sc.paths(live)
     if mode == "direct":
         return _soft_direct(sc, par, lig, o, d, mint, path_w, draw)
     acc = torch.zeros((n, 3), device=par.device)
@@ -475,7 +469,8 @@ def _soft_pass(par, sph, tri, mat, lig, u, ray_offset: int, n: int, *,
                     tp = torch.where(survive[:, None], tp * inv_p[:, None],
                                      0.0)
                     path_w = torch.where(survive, path_w, 0.0)
-                    sc.live = sc.live & survive
+                    live = live & survive
+                    sc.paths(live)
             # the bounce from the blended surface
             d = cosine_hemisphere(nbar, draw())
             o = pbar + eps * nbar
@@ -574,28 +569,119 @@ def pathtrace_pass_bwd_soft_reference(par, ipar, sph, tri, mat, lig, g,
                                          lig=lig), sel, g, program)
 
 
+class _LiveCount(_Scene):
+    """live_stats' scene: on every span of each segment's composite
+    ("surface") and each shadow ray ("shadow") past 64 objects, the work
+    the soft program needs on each ray still on its path (a row's
+    factors of alpha up to the first that is exactly 0 for that ray, and
+    the rows, pairs and spans live for it), and what kernel 2s's warps of
+    32 consecutive rays run (the union of their rays' live rows). ``sums``
+    collects both per kind."""
+
+    def __init__(self, *args, sums: dict):
+        super().__init__(*args)
+        self.sums, self.live, self.seg = sums, None, None
+
+    def paths(self, live) -> None:
+        self.live = live
+
+    def span_hyps(self, ray: _Ray, kind: str, lo: int, hi: int,
+                  fields: bool = True):
+        out = super().span_hyps(ray, kind, lo, hi, fields)
+        r = ray.over_rows()
+        if kind == "s":
+            factors, _ = _sphere_factors(self.sph[lo:hi], r, self.bw)
+        else:
+            factors, *_ = _tri_factors(self.tri[lo:hi], r, self.bw,
+                                       self.two_sided)
+        on = torch.ones(out[0].shape, dtype=torch.bool,
+                        device=out[0].device)
+        seg = self.seg
+        for k, f in enumerate(factors):
+            seg[f"reach_{kind}"][k] += on.sum(1)  # rows that evaluate f
+            on = on & (f != 0.0)
+        n_on = on.sum(1)
+        seg[f"rows_{kind}"] += n_on
+        seg["pairs"] += n_on * (n_on - 1)
+        seg["spans"] += n_on > 0
+        u = (on & self.live[:, None]).reshape(-1, 32, on.shape[1]).any(1)
+        u = u.sum(1)
+        seg["union_rows"] += u
+        if kind == "s":
+            seg["union_rows_sph"] += u
+        seg["union_pairs"] += u * (u - 1)
+        seg["union_spans"] += u > 0
+        seg["max_union"] = max(seg["max_union"], int(u.max()))
+        return out
+
+    def _segment(self, kind: str, run, *args):
+        n, dev = self.live.shape[0], self.live.device
+        z = lambda m: torch.zeros(m, dtype=torch.int64,  # noqa: E731
+                                  device=dev)
+        self.seg = dict(reach_s=[z(n) for _ in range(3)],
+                        reach_t=[z(n) for _ in range(4)], rows_s=z(n),
+                        rows_t=z(n), pairs=z(n), spans=z(n),
+                        union_rows=z(n // 32), union_rows_sph=z(n // 32),
+                        union_pairs=z(n // 32), union_spans=z(n // 32),
+                        max_union=0)
+        out = run(*args)
+        seg, live = self.seg, self.live
+        seg["pairs"] = seg["pairs"] + seg["spans"] * (seg["spans"] - 1)
+        seg["union_pairs"] = (seg["union_pairs"]
+                              + seg["union_spans"] * (seg["union_spans"] - 1))
+        st = self.sums.setdefault(kind, dict(ray_segments=0,
+                                             warp_segments=0, max_union=0))
+        st["ray_segments"] += int(live.sum())
+        st["warp_segments"] += n // 32
+        st["max_union"] = max(st["max_union"], seg.pop("max_union"))
+        for key, x in seg.items():
+            if key.startswith("union"):
+                st[key] = st.get(key, 0) + int(x.sum())
+            elif key.startswith("reach"):
+                st[key] = [a + int(b[live].sum()) for a, b in
+                           zip(st.get(key, [0] * len(x)), x)]
+            else:
+                st[key] = st.get(key, 0) + int(x[live].sum())
+        return out
+
+    def trace(self, ray: _Ray):
+        return self._segment("surface", super().trace, ray)
+
+    def vis(self, o, d, dist):
+        return self._segment("shadow", super().vis, o, d, dist)
+
+
 def live_stats(par, ipar, sph, tri, mat, lig, u_planes, *, blocks,
                spp: int, width: int, bounces: int, two_sided: bool,
                normalize_emitter: bool, seed: int,
                russian_roulette: bool = False, rr_start_depth: int = 0,
                soft_bandwidth: float = 1e-2, soft_tau: float = 1e-2,
                mode: str = "path") -> dict:
-    """What kernel 2s's large-table instance composites, counted by the
-    plain version on the rays of ``blocks`` ((ray offset, count) pairs of
-    whole warps) of pass ``ipar[0]``, with its draws (``u_planes`` or the
-    pass's own): per warp of 32 consecutive rays, segment (or shadow ray)
-    and span, the union of the rows whose alpha is nonzero for some ray of
-    the warp still on its path (inside the scene box, not ended by the
-    roulette; the kernel's vote also keeps the rare rows whose alpha
-    underflowed, and drops rays whose cotangent is 0). Returns, for
-    "surface" (the segments' composites) and "shadow" (the shadow rays):
-    the warp-segments counted, the mean live spans per warp-segment, the
-    mean union rows per live span and per warp-segment (and of those in
-    sphere spans), the largest union of a span (64: the warp's slots fill
-    it) and the mean sum over spans of the union rows squared (the pair
-    loops' size) per warp-segment; and the rows a dense pass evaluates."""
+    """The work of kernel 2s's large-table instance (past 64 objects),
+    counted by the plain version (``_LiveCount``) on the rays of
+    ``blocks`` ((ray offset, count) pairs of whole warps) of pass
+    ``ipar[0]`` with its draws (``u_planes`` or the pass's own). A row is
+    live for a ray where no factor of its alpha is exactly 0 (the kernel
+    drops the others exactly; a ray is on its path inside the scene box
+    until the roulette ends it). Returns "rows" (what a dense pass
+    evaluates) and, for "surface" (the segments' composites) and "shadow"
+    (the shadow rays):
+
+    * what the function needs, as means per ray-segment on its path
+      (``ray_segments`` of them): ``reach_s`` and ``reach_t``, per factor
+      of a sphere's (mask, discriminant, depth) and a triangle's (mask,
+      side, margin, depth) alpha the rows that evaluate it (up to the
+      first factor exactly 0); ``rows_s`` and ``rows_t``, the live rows;
+      ``pairs``, the ordered pairs of live rows within each span and of
+      the spans holding one; ``spans``, those spans;
+    * what the kernel's warps run, as means per warp-segment
+      (``warp_segments``): ``union_spans`` (spans with a row live for some
+      ray of the warp), ``union_rows`` (of them ``union_rows_sph`` in
+      sphere spans), ``union_rows_per_span``, ``union_pairs`` (as
+      ``pairs`` over the unions) and the largest union of a span,
+      ``max_union`` (64: the warp's slots fill it)."""
     MKG._check_mode(mode)
-    stats: dict = {}
+    sums: dict = {}
     with torch.no_grad():
         for off, n in blocks:
             if off % 32 or n % 32:
@@ -610,17 +696,23 @@ def live_stats(par, ipar, sph, tri, mat, lig, u_planes, *, blocks,
                        normalize_emitter=normalize_emitter,
                        russian_roulette=russian_roulette,
                        rr_start_depth=rr_start_depth, bw=soft_bandwidth,
-                       tau=soft_tau, mode=mode, stats=stats)
+                       tau=soft_tau, mode=mode,
+                       scene=lambda *a: _LiveCount(*a, sums=sums))
     out = {"rows": sph.shape[0] + tri.shape[0]}
-    for kind, st in stats.items():
-        segs = max(st["segments"], 1)
-        out[kind] = dict(warp_segments=st["segments"],
-                         live_spans=st["spans"] / segs,
-                         union_rows_per_span=st["rows"] / max(st["spans"], 1),
-                         union_rows=st["rows"] / segs,
-                         union_rows_sph=st["rows_sph"] / segs,
-                         max_union=st["max"],
-                         union_pairs=st["pairs"] / segs)
+    for kind, st in sums.items():
+        rays, warps = max(st["ray_segments"], 1), max(st["warp_segments"], 1)
+        out[kind] = dict(
+            ray_segments=st["ray_segments"],
+            **{k: ([x / rays for x in v] if k.startswith("reach")
+                   else v / rays)
+               for k, v in st.items() if k.startswith(("reach", "rows",
+                                                       "pairs", "spans"))},
+            warp_segments=st["warp_segments"],
+            **{k: v / warps for k, v in st.items()
+               if k.startswith("union")},
+            union_rows_per_span=(st["union_rows"]
+                                 / max(st["union_spans"], 1)),
+            max_union=st["max_union"])
     return out
 
 
@@ -687,8 +779,20 @@ def pathtrace_pass_bwd_soft(par, ipar, sph, tri, mat, lig, g, u_planes, *,
                 *(ptr(t) for t in outs), stream)
         flags = soft_flags(rr != 0, direct != 0)
         lib = _build.load("megakernel_soft", _SIGNATURES, flags)
-        err = (lib.rt_pathtrace_bwd_soft_large if large
-               else lib.rt_pathtrace_bwd_soft)(*args)
+        if large:
+            # the live spans' tape, from torch's allocator on this stream
+            n = ctypes.c_longlong(0)
+            err = lib.rt_soft_large_tape(sph.shape[0], tri.shape[0],
+                                         mat.shape[0], lig.shape[0], n_b,
+                                         g.shape[0], ctypes.byref(n))
+            if err != 0:
+                raise RuntimeError(f"kernel 2s's tape size failed with CUDA "
+                                   f"error {err}")
+            tape = torch.empty(max(n.value, 1), device=g.device)
+            err = lib.rt_pathtrace_bwd_soft_large(*args[:-1], ptr(tape),
+                                                  tape.numel(), stream)
+        else:
+            err = lib.rt_pathtrace_bwd_soft(*args)
         if err != 0:
             raise RuntimeError(f"kernel 2s launch failed with CUDA error "
                                f"{err}")

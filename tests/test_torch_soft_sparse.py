@@ -22,7 +22,10 @@ factors. Here:
     same bits, and the same cotangents, under the same dropping;
 (d) why the kernel votes on alpha's factors, not on alpha: a row whose
     alpha is 0 only because the product of two nonzero sigmoids underflows
-    gets a nonzero (denormal) cotangent, so it must stay live.
+    gets a nonzero (denormal) cotangent, so it must stay live;
+(e) ``live_stats``, which the kernel's live-work bound reads, counts per
+    ray what a direct count of alpha's factors gives on the primary
+    segment, and per warp at least what each of its rays needs.
 
 Small sizes: a 16x12 film, spans of 64. No kernel is built.
 """
@@ -371,3 +374,64 @@ def test_underflowed_alpha_keeps_a_cotangent():
     gr, = torch.autograd.grad(1e3 * a.sum(), row)
     assert gr.abs().max() > 0.0
     assert gr.abs().max() < 1e-37  # denormal: below anything float32 shows
+
+
+# ---------------------------------------------------------------------------
+# (e) live_stats' counts
+# ---------------------------------------------------------------------------
+
+def test_live_stats_counts_each_rays_factors():
+    """(e) On the torus scene's primary segment (direct mode): per ray on
+    its path, the rows that evaluate each factor of alpha (up to the first
+    exactly 0), the live rows, the ordered pairs of live rows within each
+    span and of the spans holding one, and those spans, as a direct count
+    of the factors gives; each warp's union of live rows holds at least
+    every one of its rays' own."""
+    tables, _, _ = _torus()
+    n, seed = W * H, 5
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    st = MKS.live_stats(tables[0], ipar, *tables[1:], None,
+                        blocks=[(0, n)], spp=1, width=W, bounces=0,
+                        two_sided=False, normalize_emitter=True, seed=seed,
+                        soft_bandwidth=BW, soft_tau=TAU, mode="direct")
+    u = MK.diff_draws(ipar, None, n, tables[4].shape[0], 0, seed,
+                      torch.device("cpu"), False, "direct", 1)
+    o, d, mint, _ = MK._camera_rays(tables[0], u[0:2].t(), n, 0, 1, W)
+    live = mint < float("inf")
+    r = MKS._Ray(o, d, mint).over_rows()
+    sc = MKS._Scene(tables[1], tables[2], tables[3], tables[4], BW, TAU,
+                    False)
+    want = {"reach_s": np.zeros(3), "reach_t": np.zeros(4), "rows_s": 0,
+            "rows_t": 0, "pairs": 0, "spans": 0}
+    spans = torch.zeros(n, dtype=torch.int64)
+    pairs = torch.zeros(n, dtype=torch.int64)
+    for kind, lo, hi in sc.spans():
+        if kind == "s":
+            fs, _ = MKS._sphere_factors(sc.sph[lo:hi], r, BW)
+        else:
+            fs, *_ = MKS._tri_factors(sc.tri[lo:hi], r, BW, False)
+        nz = torch.stack(torch.broadcast_tensors(*fs), -1) != 0.0
+        # factors a row evaluates: through its first zero, or all
+        first = torch.where(nz.all(-1), nz.shape[-1],
+                            (~nz).to(torch.int64).argmax(-1) + 1)
+        for k in range(nz.shape[-1]):
+            want[f"reach_{kind}"][k] += float((first > k)[live].sum())
+        own = nz.all(-1).sum(1)
+        want[f"rows_{kind}"] += int(own[live].sum())
+        pairs += own * (own - 1)
+        spans += own > 0
+    pairs += spans * (spans - 1)
+    want["pairs"] = int(pairs[live].sum())
+    want["spans"] = int(spans[live].sum())
+    sur = st["surface"]
+    m = int(live.sum())
+    assert sur["ray_segments"] == m > 0
+    for key, x in want.items():
+        assert np.allclose(np.asarray(sur[key]) * m, x), key
+    assert 0 < sur["rows_t"] < tables[2].shape[0]
+    for kind in ("surface", "shadow"):
+        x = st[kind]
+        assert x["warp_segments"] == n // 32
+        assert x["union_rows"] * x["warp_segments"] >= \
+            (x["rows_s"] + x["rows_t"]) * x["ray_segments"] / 32
+        assert 0 < x["max_union"] <= MKS.SOFT_CHUNK
