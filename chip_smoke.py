@@ -177,7 +177,8 @@ Phases, each fatal on failure (no exception is caught):
      operations at 16 per SM per clock), with what its launch took (lanes
      per ray, shared memory per block, registers; stack frame and spill
      bytes from the build's ptxas report);
- 21. streamed Morton chunks (render/mega.chunk_tables, no grid): (1)
+ 21. streamed tables (render/mega.chunk_tables: Morton chunks and the
+     tree over them, no grid): (1)
      kernel 1 over cornell plus the 992-triangle torus (1,002 triangles in
      8 chunks) in path, roulette (from RR_START) and direct modes, the
      path modes recording, and over sphere_field(STREAM_SPHERES) (64
@@ -185,8 +186,12 @@ Phases, each fatal on failure (no exception is caught):
      same draws at 256x192: phase 3's gates and at most 1% of id slots and
      occlusion bits differing on the torus, SPHERE_GATES on the spheres;
      the --fmad=false build equal on every ray, id and bit; records
-     naming original rows; (2) the plain streamed version equal to the
-     plain brute version (ids, bits, acc) on the torus scene at
+     naming original rows; the kernel's tree walk counted on the plain
+     version's rays (MK.tree_walk_work: node and row tests, leaves, a
+     warp's union) beside the Morton chunks' slab and row tests, none of
+     its champions or occlusion bits missing; (2) the plain streamed
+     version equal to the plain brute version (ids, bits, acc) on the
+     torus scene at
      STREAM_BRUTE_W x STREAM_BRUTE_H, path b1 and direct; (3) kernel 3 on
      kernel 1's streamed record vs its plain version with ("sph", "mat",
      "tri") (phase 19's gates); (4) at 1024^2 b5: the torus scene's
@@ -196,9 +201,10 @@ Phases, each fatal on failure (no exception is caught):
      render_direct (16 passes per call, block 64), and sphere_field(8192)
      streamed beside phase 18's sphere-grid time: segments/s or rays/s, ms
      per pass, the kernel alone, the device's idle share, the first pass
-     vs plain, the share of the bound (OPS_CHUNK per slab test, OPS_STREAM
-     per streamed trace or shadow ray, and the plain version's row tests
-     at 256x192, a shadow ray's up to its first occluder, scaled); every
+     vs plain, the share of the bound (OPS_CHUNK per slab test of a
+     chunk or a node, OPS_STREAM per streamed trace or shadow ray, and the
+     row tests at 256x192, a shadow ray's up to its first occluder,
+     scaled, priced by the smaller of the two counts, both printed); every
      launch of the phase's main-path runs must stream
      (MK.stream_launches); timing only, the torus of HOUSE_SEGMENTS (5,322
      triangles, BENCH_SCENE=house's count).
@@ -3285,20 +3291,35 @@ def _stream_cfg(shape: str, w: int, h: int, mode: str, **kw):
 
 def _stream_bytes(tables, chunks) -> int:
     """The tables (a streamed one read through its order) and each
-    stream's boxes and order (perm)."""
+    stream's order (perm) and walk layout (node boxes, leaf masks, loose
+    positions)."""
     return _table_bytes(tables) + sum(
-        4 * (st.boxes.numel() + st.perm.numel())
+        4 * (st.perm.numel() + st.tree.nodes.numel() + st.tree.masks.numel()
+             + st.tree.loose.numel())
         for st in (chunks.tri, chunks.sph) if st is not None)
+
+
+def _stream_counts(work: dict, walk: dict) -> dict:
+    """The two counts of a streamed pass's slab and row tests that a bound
+    may price: the Morton order's (the plain version's ``work``: every
+    chunk's slab test, the rows of the chunks a ray overlaps) and the
+    tree walk's (``MK.tree_walk_work``: node slab tests, loose and leaf
+    rows), a shadow ray's rows up to its first occluder in both."""
+    rows = ("sph_tests", "tri_tests")
+    return {"morton": {"slab_tests": work["chunk_tests"],
+                       **{k: work.get(k, 0) for k in rows}},
+            "tree": {"slab_tests": walk["node_tests"],
+                     **{k: walk.get(k, 0) for k in rows}}}
 
 
 def _stream_ops(w: dict, work: dict, chunks, n_sph: int, n_tri: int,
                 n_lig: int, direct: bool) -> float:
     """FP32 operations of a streamed pass: the resident tables as _k1_ops
     and _direct_ops count them, the streamed set-up (OPS_STREAM) per
-    traced segment and shadow ray, and the slab tests and the (ray, row)
-    tests of the chunks as the plain version counted them (``work``,
-    scaled to this pass's rays; a shadow ray's rows up to its first
-    occluder)."""
+    traced segment and shadow ray, and the slab tests (OPS_CHUNK each, a
+    chunk's or a node's) and the (ray, row) tests of one count of
+    ``_stream_counts`` (``work``, scaled to this pass's rays; a shadow
+    ray's rows up to its first occluder)."""
     n_s = 0 if chunks.sph is not None else n_sph
     n_t = 0 if chunks.tri is not None else n_tri
     tests = n_s * OPS_SPHERE_TEST + n_t * OPS_TRIANGLE_TEST
@@ -3308,7 +3329,7 @@ def _stream_ops(w: dict, work: dict, chunks, n_sph: int, n_tri: int,
            + w["sph_hits"] * OPS_SPHERE_HIT + w["tri_hits"] * OPS_TRIANGLE_HIT
            + w["free"] * tests + w["occluded"] * one
            + (seg + w["shadow"]) * OPS_STREAM
-           + work["chunk_tests"] * OPS_CHUNK
+           + work["slab_tests"] * OPS_CHUNK
            + work.get("sph_tests", 0) * OPS_SPHERE_TEST
            + work.get("tri_tests", 0) * OPS_TRIANGLE_TEST)
     if direct:
@@ -3325,8 +3346,10 @@ def stream_vs_plain(dev, shape: str, mode: str) -> dict:
     bit for bit): phase 3's gates and at most 1% of id slots and of
     occlusion bits differing (the grazing share) on the torus,
     SPHERE_GATES on the spheres; its --fmad=false build equal on every
-    ray, id and bit. Returns max |d|, the plain ms and the plain version's
-    chunk work."""
+    ray, id and bit; the tree walk's counts on the plain version's rays
+    (``MK.tree_walk_work``), which must keep every champion and occlusion
+    bit of the plain version. Returns max |d|, the plain ms and the two
+    counts (``_stream_counts``)."""
     import torch
     from raytracing_tpu_torch.core import rng
     from raytracing_tpu_torch.ops import megakernel as MK
@@ -3360,6 +3383,8 @@ def stream_vs_plain(dev, shape: str, mode: str) -> dict:
         got = (MK.direct_pass(*tables, zeros.clone(), u, **kw),)
         exact = (MK.direct_pass(*tables, zeros.clone(), u,
                                 build_flags=EXACT_FLAGS, **kw),)
+        walk_kw = dict(kw, bounces=0, normalize_emitter=False,
+                       seed=cfg.seed, mode="direct")
     else:
         u = mega.u_planes_for_pass(pt.init_state(cfg, dev)["key"], 0, cfg,
                                    scene.lights.count, dev)
@@ -3381,7 +3406,12 @@ def stream_vs_plain(dev, shape: str, mode: str) -> dict:
         if mode == "path":
             _check(torch.equal(run(), got[0]), f"{shape}: the recording "
                    "launch's acc differs from the path launch's")
+        walk_kw = kw
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    walk = MK.tree_walk_work(tables[0], ipar, *tables[1:], zeros, u,
+                             **walk_kw)
+    walk_s = time.perf_counter() - t0
     err = (got[0] - want[0]).abs()
     beyond = (err > TOL + TOL * want[0].abs()).any(-1).double().mean().item()
     gm, wm = got[0].double().mean().item(), want[0].double().mean().item()
@@ -3397,6 +3427,23 @@ def stream_vs_plain(dev, shape: str, mode: str) -> dict:
           f"{ids:.6%} (first segments {ids0:.6%}), occlusion bits {occs:.6%};"
           f" --fmad=false build equal {same}; plain chunk work: "
           f"{ {k: int(v) for k, v in work.items()} }")
+    walks = walk["traces"] + walk["shadows"]
+    kind = "sph_tests" if shape == "spheres" else "tri_tests"
+    print(f"phase 21 streamed {shape} {mode} {w}x{h}: per live trace or "
+          f"shadow ray ({walks}), the Morton chunks "
+          f"{work['chunk_tests'] / walks:.4g} slab and "
+          f"{work[kind] / walks:.4g} row tests, the tree walk "
+          f"{walk['node_tests'] / walks:.4g} slab (node) and "
+          f"{walk[kind] / walks:.4g} row tests "
+          f"({walk.get('loose_tests', 0) / walks:.4g} loose), "
+          f"{walk['leaf_visits'] / walks:.4g} leaves; a warp's union "
+          f"{walk['union_leaves'] / walks * 32:.4g} leaves and "
+          f"{walk['union_' + kind] / walks * 32:.4g} row tests per warp "
+          f"of 32 such rays; champions missed {walk['misses']}, occlusion "
+          f"bits missed {walk['occ_misses']} ({walk_s:.3g} s): "
+          f"{ {k: int(v) for k, v in walk.items()} }")
+    _check(walk["misses"] == 0 and walk["occ_misses"] == 0,
+           f"{shape} {mode}: the tree walk culled a champion or occluder")
     _check(bool(torch.isfinite(got[0]).all()) and got[0].max().item() > 0,
            f"{shape} {mode}: streamed acc not finite or black")
     _check(same, f"{shape} {mode}: the --fmad=false build differs from the "
@@ -3415,7 +3462,19 @@ def stream_vs_plain(dev, shape: str, mode: str) -> dict:
                f"{shape} {mode}: beyond {beyond:.4%}, mean rel {rel:.3g}, "
                f"ids {ids:.4%}, occlusion bits {occs:.4%}")
     return {"max_abs_err": err.max().item(), "plain_ms": plain_ms,
-            "work": work}
+            "work": _stream_counts(work, walk)}
+
+
+def _stream_bound(ops_of, nbytes: float) -> dict:
+    """The bound of a streamed pass priced by each count of
+    ``_stream_counts`` (``ops_of(order)``): ``bound_ms`` the smaller
+    (what this run's data needs, by the cheaper order), ``bound_by`` its
+    limit, ``bound_from`` its order, and each order's bound beside it."""
+    b = {o: _bound(ops_of(o), nbytes) for o in ("morton", "tree")}
+    best = min(b, key=lambda o: b[o]["bound_ms"])
+    return {**b[best], "bound_from": best,
+            "morton_bound_ms": b["morton"]["bound_ms"],
+            "tree_bound_ms": b["tree"]["bound_ms"]}
 
 
 def stream_plain_vs_brute(dev) -> None:
@@ -3535,10 +3594,15 @@ def stream_direct_main(dev, smi: str, work: dict) -> dict:
         torch.zeros_like(zeros), u, chunks=chunks, record=True,
         **_pass_kw(replace(cfg, bounces=0)))
     w = _pass_work(ids, occs, scene.lights.count, tables[1].shape[0])
-    ops = _stream_ops(w, _scaled(work, cfg.total_rays / (SMALL_W * SMALL_H)),
-                      chunks, tables[1].shape[0], tables[2].shape[0],
+    scale = cfg.total_rays / (SMALL_W * SMALL_H)
+    bound = _stream_bound(
+        lambda o: _stream_ops(w, _scaled(work[o], scale), chunks,
+                              tables[1].shape[0], tables[2].shape[0],
+                              scene.lights.count, True),
+        24 * cfg.total_rays + _stream_bytes(tables, chunks))
+    ops = _stream_ops(w, _scaled(work[bound["bound_from"]], scale), chunks,
+                      tables[1].shape[0], tables[2].shape[0],
                       scene.lights.count, True)
-    bound = _bound(ops, 24 * cfg.total_rays + _stream_bytes(tables, chunks))
     print(f"phase 21 cornell + torus ({tables[2].shape[0]} triangles, "
           f"{chunks.tri.n_chunks} chunks) {MAIN_W}x{MAIN_H} direct, "
           f"streamed, {GRID_PASSES} passes per call, B = {GRID_BLOCK} on "
@@ -3550,8 +3614,11 @@ def stream_direct_main(dev, smi: str, work: dict) -> dict:
           f"{launches}; plain version {plain_ms:.6g} ms, max|d acc| "
           f"{err.max().item():.6g}, rays beyond {TOL:g} {beyond:.6%}, mean "
           f"rel {rel:.3g}; bound {ops / cfg.total_rays:.6g} FP32 operations "
-          f"per ray -> {bound['bound_ms']:.6g} ms ({bound['bound_by']}), "
-          f"share {bound['bound_ms'] / k_ms:.3%}")
+          f"per ray -> {bound['bound_ms']:.6g} ms ({bound['bound_by']}, "
+          f"the {bound['bound_from']} count; the Morton chunks' "
+          f"{bound['morton_bound_ms']:.6g} ms, the tree walk's "
+          f"{bound['tree_bound_ms']:.6g} ms), share "
+          f"{bound['bound_ms'] / k_ms:.3%}")
     return {"launches": launches, "ms": k_ms, "plain_ms": plain_ms,
             "max_abs_err": err.max().item(), **bound}
 
@@ -3594,8 +3661,10 @@ def stream_main(dev, smi: str, work: dict, grid_ms: float) -> dict:
     scene streamed at B = GRID_BLOCK with the cell route's train step
     (("sph", "mat", "tri")), at B = 0, with the roulette from RR_START;
     sphere_field(STREAM_SPHERES) streamed beside shape 3's sphere-grid
-    time of phase 18 (``grid_ms``). ``work`` holds the 256x192 chunk work
-    of phase 21 (1) per shape and mode. Returns the entries by name."""
+    time of phase 18 (``grid_ms``). ``work`` holds the 256x192 counts of
+    phase 21 (1) per shape and mode (``_stream_counts``); each bound is
+    priced by the smaller (``_stream_bound``). Returns the entries by
+    name."""
     from raytracing_tpu_torch.render import mega
 
     scale = MAIN_W * MAIN_H / (SMALL_W * SMALL_H)
@@ -3612,14 +3681,20 @@ def stream_main(dev, smi: str, work: dict, grid_ms: float) -> dict:
                   if st is not None)
         name = (f"sphere_field({n_s})" if shape == "spheres"
                 else f"cornell + torus ({n_t} triangles)")
+        priced = {}
+
+        def ops_of(w):
+            priced.update({o: _stream_ops(w, _scaled(wk[o], scale), chunks,
+                                          n_s, n_t, scene.lights.count,
+                                          False) for o in wk})
+            return min(priced.values())
+
         fwd, k3 = _path_main(
             dev, smi, 21, name, scene, cfg,
             f"streamed ({n_c} chunks){', RR' if mode == 'rr' else ''}",
             accel=lambda sc, tabs: {"chunks": mega.chunk_tables(
                 sc, cfg, tabs[1], tabs[2])},
-            ops_of=lambda w: _stream_ops(
-                w, _scaled(wk, scale), chunks, n_s, n_t, scene.lights.count,
-                False),
+            ops_of=ops_of,
             bytes_of=lambda tabs: _stream_bytes(tabs, chunks),
             gates=((SPHERE_GATES["beyond"], SPHERE_GATES["rel"])
                    if shape == "spheres" else (0.01, 1e-5)),
@@ -3627,6 +3702,13 @@ def stream_main(dev, smi: str, work: dict, grid_ms: float) -> dict:
         _check(fwd["streamed"] == fwd["launches"],
                f"{label}: {fwd['streamed']} of {fwd['launches']} launches "
                "streamed")
+        fwd.update(_stream_bound(priced.__getitem__, 24 * cfg.total_rays
+                                 + _stream_bytes(tables, chunks)))
+        print(f"phase 21 {label}: bound {fwd['bound_ms']:.6g} ms from the "
+              f"{fwd['bound_from']} count (the Morton chunks' "
+              f"{fwd['morton_bound_ms']:.6g} ms, the tree walk's "
+              f"{fwd['tree_bound_ms']:.6g} ms), share "
+              f"{fwd['bound_ms'] / fwd['ms']:.3%}")
         out[label] = fwd
         if k3 is not None:
             out["k3"] = k3
@@ -4046,8 +4128,8 @@ def large_train(dev, smi: str, work: dict) -> dict:
     with its bound; then BENCH_EDGE on the torus scene (tau = bandwidth =
     EDGE_BW, ("sph", "mat")): one step, kernel 2s's large-table instance alone
     timed by CUDA events around its launch inside that step, its bound.
-    ``work`` is phase 21's 256x192 chunk work of the torus in path mode.
-    Returns the entries by name."""
+    ``work`` is phase 21's 256x192 counts of the torus in path mode
+    (``_stream_counts``). Returns the entries by name."""
     import torch
     from raytracing_tpu_torch import RenderConfig, replace
     from raytracing_tpu_torch.ops import megakernel as MK
@@ -4139,9 +4221,11 @@ def large_train(dev, smi: str, work: dict) -> dict:
             nbytes = _table_bytes(tables)
         else:
             share = live.double().mean().item()
-            ops = _stream_ops(w, _scaled(work, share * MAIN_W * MAIN_H
-                                         / (SMALL_W * SMALL_H)),
-                              chunks, n_s, n_t, n_l, False)
+            # the smaller of the Morton chunks' and the tree walk's counts
+            ops = min(_stream_ops(w, _scaled(work[o], share * MAIN_W * MAIN_H
+                                             / (SMALL_W * SMALL_H)),
+                                  chunks, n_s, n_t, n_l, False)
+                      for o in ("morton", "tree"))
             nbytes = _stream_bytes(tables, chunks)
         ops += _adj_ops(w, wrt)
         bound = _bound(ops, 12 * cfg.total_rays + 2 * nbytes)
@@ -5020,7 +5104,9 @@ def main() -> int:
         "max_abs_err": max([e["max_abs_err"]]
                            + [s21[k]["max_abs_err"] for k in keys]),
         "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-        "bound_by": e["bound_by"], "library_ms": None}
+        "bound_by": e["bound_by"], "bound_from": e["bound_from"],
+        "morton_bound_ms": e["morton_bound_ms"],
+        "tree_bound_ms": e["tree_bound_ms"], "library_ms": None}
         for name, line, e, keys in (
             ("pathtrace_pass (megakernel, streamed triangles: cornell + "
              "torus)", 903, m21["torus"], [("torus", "path")]),

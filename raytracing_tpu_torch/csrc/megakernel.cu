@@ -106,19 +106,32 @@
 // Streamed tables (JAX's Morton chunks, megakernel.py:874-935 and
 // :1226-1270; pathtrace.cuh Stream): a triangle table past 64 rows outside
 // grid mode, and a sphere table past 4608 rows without a sphere grid, stay
-// in global memory in Morton-sorted chunks of 128 rows with a box each.
-// They run in instances of the grid-mode build of their own (template
-// parameter kStream, 2-row sphere loop only: three more instances), whose
-// grid walks are skipped when there is no grid; the grid-only instances
-// keep their code, since the stream loops in them cost grid direct mode
-// 10-15% per pass (96 registers against 72; one H100 80GB HBM3, 700 W,
-// profile_kernels). The shared-memory prefix is empty for a streamed
-// table. Each thread slab-tests every chunk against its
-// live window and tests the rows of the chunks it overlaps, a candidate
-// winning on the least (t, original id) pair, so the record names original
-// rows and the champion is the brute loops' (JAX keeps the first in Morton
-// order at an exact tie). Simple and correct first: per-thread culling and
-// global reads of rows that L2 holds (times in PERF.md).
+// in global memory in their Morton-sorted copy, with the walk's layout over
+// it (render/mega.py chunk_tree): leaf boxes over runs of 2 sorted rows,
+// an implicit binary tree of boxes over the leaves, and the loose rows
+// (room-sized: cornell's walls), which no box holds. They run in instances
+// of the grid-mode build of their own (template parameter kStream, 2-row
+// resident sphere loop only: three more instances), whose grid walks are
+// skipped when there is no grid; the grid-only instances keep their code,
+// since stream loops in them cost grid direct mode 10-15% per pass (96
+// registers against 72; one H100 80GB HBM3, 700 W, profile_kernels). The
+// shared-memory prefix is empty for a streamed table. Each thread tests
+// the loose rows, then walks the tree, culling a node whose box its live
+// window [mint, min(maxt, champion t)] misses, with a stack of a level's
+// depth, and tests a visited leaf's rows a few at a time (pathtrace.cuh
+// lane_walk, warp_walk, leaf_rows). Triangles are walked by each lane
+// nearest child first; spheres by the warp over the union of its lanes'
+// trees (a node entered when any lane's window overlaps it), which saves
+// the walk's steps where a row's test is cheap: each schedule measured
+// the faster on its own table kind, and staging a leaf's rows in shared
+// memory slower (PERF.md, PR 14). What bounded PR 9's loop,
+// which slab-tested every chunk in Morton order and ran each overlapped
+// chunk's 128 rows one dependent load at a time: Morton order is not front
+// to back, so the champion culled few chunks, and the walls widened most
+// chunk boxes to the room. A candidate wins on the least (t, original id)
+// pair, so the record names original rows and the champion is the brute
+// loops' in any visiting order (JAX keeps the first in Morton order at an
+// exact tie). Times in PERF.md.
 //
 // One build holds one half of the instances: the brute ones, or, with
 // -DRT_GRID_MODE=1 (ops/megakernel.py GRID_FLAGS), grid mode's, which also

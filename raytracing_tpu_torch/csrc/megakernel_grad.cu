@@ -271,9 +271,10 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
 //   * the replay traces with kernel 1's own loops: spheres resident in
 //     shared memory as far as they fit beside the tape (else read from
 //     global memory by the same loop), triangles past 64 over kernel 1's
-//     streamed Morton chunks (kStream: chunk boxes widened by CHUNK_PAD,
-//     the sorted copy, perm to original rows), a grid scene's triangles
-//     and spheres over its grids (kGrid) -- so the replay picks the
+//     walk of a streamed table's tree (kStream: the loose rows, then the
+//     box tree over the sorted copy, perm to original rows; pathtrace.cuh
+//     lane_walk, warp_walk), a grid scene's triangles and spheres over
+//     its grids (kGrid) -- so the replay picks the
 //     champions and occlusion bits of the forward it differentiates: the
 //     least (t, original id) pair, as kernel 1's streamed and grid modes
 //     and its brute loops give it (JAX's streamed winner at an exact tie
@@ -285,9 +286,9 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
 //     gradient touches one champion row per segment, so no per-block
 //     table of all rows is kept; par, mat and lig cotangents stay in
 //     shared memory and are flushed once per block.
-// The chunk culling changes no value: it skips chunks no ray of the warp
-// can hit. kRows = 8 from kWideSpheres resident-loop spheres (kernel 1's
-// rule), kGlobal for streamed or gridded tables.
+// The tree's culling changes no value: it skips only leaves whose boxes
+// the ray's live window misses. kRows = 8 from kWideSpheres resident-loop
+// spheres (kernel 1's rule), kGlobal for streamed or gridded tables.
 // ---------------------------------------------------------------------------
 
 constexpr int kWideSpheres = 512;          // kernel 1's 8-row loop threshold

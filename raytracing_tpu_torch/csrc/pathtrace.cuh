@@ -143,20 +143,42 @@ struct GridDesc {
 };
 // A streamed table (JAX's Morton chunks; ops/megakernel.py Stream, built
 // on the card by render/mega.py chunk_tables): its n rows in Morton order
-// in global memory, in chunks of kChunk rows (the last one partial; the
-// padding rows past n are never read), each chunk's box [pmin xyz, pmax
-// xyz, 0, 0] (widened when built, so that a slab test's rounding never
-// drops a chunk whose row the brute loop hits), and perm, the original
-// row of each sorted row. A sorted copy: read through perm instead, the
-// whole table cost the streamed kernel 1.1-1.6x (one H100 80GB HBM3,
-// 700 W, profile_kernels). n = 0: the table is not streamed.
-constexpr int kChunk = 128;
+// in global memory (the padding rows past n are zero rows, which no ray
+// hits), perm, the original row of each sorted row, and the walk's layout
+// over them (render/mega.py chunk_tree, ops/megakernel.py StreamTree): the
+// node boxes of an implicit binary tree over n_slots leaves (a power of
+// two; node k's box [pmin xyz, pmax xyz, 0, 0] at node + 8 k, the root 1,
+// the children of k 2 k and 2 k + 1, leaf j the node n_slots + j over the
+// sorted rows [j leaf, (j + 1) leaf); a box with pmin.x > pmax.x is empty),
+// a mask word per 32 rows of a leaf (the rows that take part in it; a
+// leaf of fewer than 32 rows has one word, its low bits), and
+// the loose rows (n_loose sorted positions, -1 after the last), which every
+// ray tests before the tree. Each node's box contains the box of every row
+// under it, widened, so the slab test's monotone rounding never culls a
+// leaf whose row the brute loop hits. A sorted copy: read through perm
+// instead, the whole table cost the streamed kernel 1.1-1.6x (one H100
+// 80GB HBM3, 700 W, profile_kernels). n = 0: the table is not streamed.
+constexpr int kTreeDepth = 20;  // levels of a tree: the walk's stack
+constexpr int kLooseMax = 64;
 struct Stream {
   const float* rows;
-  const float* box;
   const int* perm;
-  int n;
+  const float* node;
+  const unsigned* mask;
+  const int* loose;
+  int n, leaf, n_slots, n_loose;
 };
+
+// Whether the walk's layout of a stream of n > 0 rows is well formed.
+inline bool stream_ok(const Stream& S) {
+  const bool pow2 = S.n_slots > 0 && (S.n_slots & (S.n_slots - 1)) == 0;
+  return S.rows && S.perm && S.node && S.mask && S.loose &&
+         S.leaf > 0 && S.leaf <= 128 && (S.leaf & (S.leaf - 1)) == 0 &&
+         pow2 &&
+         S.n_slots <= (1 << kTreeDepth) &&
+         static_cast<long long>(S.n_slots) * S.leaf >= S.n &&
+         S.n_loose >= 1 && S.n_loose <= kLooseMax;
+}
 
 // The tables of a launch that live in global memory: triangle grids g[0,
 // n_tri), then the sphere grid when sph != 0, and the streamed tables
@@ -199,8 +221,9 @@ inline bool set_grids(Grids& G, const GridDesc* grids, int n_grids,
   G.tri_st = streams ? streams[0] : Stream{};
   G.sph_st = streams ? streams[1] : Stream{};
   // a streamed table is the whole table, and neither gridded nor resident
-  if ((G.tri_st.n && (G.tri_st.n != n_tri || G.n_tri || tri_start)) ||
-      (G.sph_st.n && (G.sph_st.n != n_sph || G.sph)))
+  if ((G.tri_st.n && (G.tri_st.n != n_tri || G.n_tri || tri_start ||
+                      !stream_ok(G.tri_st))) ||
+      (G.sph_st.n && (G.sph_st.n != n_sph || G.sph || !stream_ok(G.sph_st))))
     return false;
   return true;
 }
@@ -212,39 +235,169 @@ __device__ __forceinline__ V3 safe_inv(V3 d) {
             1.0f / (d.z == 0.0f ? 1e-30f : d.z));
 }
 
-// The slab test of the box [b[0..2], b[3..5]] (global memory) against the
-// ray's window [lo, hi], with inv = safe_inv(d): JAX's chunk_overlap for
-// one ray.
-__device__ __forceinline__ bool chunk_overlap(const float* b, V3 o, V3 inv,
-                                              float lo, float hi) {
-  const float t0x = (__ldg(b + 0) - o.x) * inv.x;
-  const float t1x = (__ldg(b + 3) - o.x) * inv.x;
-  const float t0y = (__ldg(b + 1) - o.y) * inv.y;
-  const float t1y = (__ldg(b + 4) - o.y) * inv.y;
-  const float t0z = (__ldg(b + 2) - o.z) * inv.z;
-  const float t1z = (__ldg(b + 5) - o.z) * inv.z;
+// The slab test of node box nb (global memory, [pmin xyz, pmax xyz, 0, 0])
+// against the ray's window [lo, hi], with inv = safe_inv(d): JAX's
+// chunk_overlap for one ray (ops/megakernel.py chunk_overlap). False for
+// an empty box; else `enter` = max(near, lo), which the window's end must
+// reach.
+__device__ __forceinline__ bool node_enter(const float* nb, V3 o, V3 inv,
+                                           float lo, float hi, float& enter) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(nb));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(nb) + 1);
+  if (a.x > a.w) return false;  // pmin.x > pmax.x: no row under it
+  const float t0x = (a.x - o.x) * inv.x;
+  const float t1x = (a.w - o.x) * inv.x;
+  const float t0y = (a.y - o.y) * inv.y;
+  const float t1y = (b.x - o.y) * inv.y;
+  const float t0z = (a.z - o.z) * inv.z;
+  const float t1z = (b.y - o.z) * inv.z;
   const float near = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
                            fminf(t0z, t1z));
   const float far = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
                           fmaxf(t0z, t1z));
-  return fmaxf(near, lo) <= fminf(far, hi);
+  enter = fmaxf(near, lo);
+  return enter <= fminf(far, hi);
 }
 
-// The rows of stream S (kCols floats each), chunk by chunk in order: each
-// chunk whose box overlaps [lo, hi()] (hi read per chunk, so that a closer
-// champion culls the chunks after it) has row(q, r) called on each of its
-// rows q, r its sorted position (its original id is perm[r]); stops and
-// returns true where row returns true.
-template <int kCols, class Hi, class Row>
-__device__ __forceinline__ bool stream_rows(const Stream& S, V3 o, V3 inv,
-                                            float lo, Hi hi, Row row) {
-  for (int c = 0; c * kChunk < S.n; ++c) {
-    if (!chunk_overlap(S.box + 8 * c, o, inv, lo, hi())) continue;
-    const int e = min(S.n, (c + 1) * kChunk);
-    for (int r = c * kChunk; r < e; ++r)
-      if (row(S.rows + static_cast<size_t>(r) * kCols, r)) return true;
+// The rows of stream S that a ray with live window [lo, hi()] may hit
+// (hi() read at every test, so that a closer champion culls what is
+// left): loose(r) on each loose row, then the tree, and leaf(r0, m) on each
+// word of a visited leaf (r0 its first sorted row, m the rows that take
+// part). Stops and returns true where loose or leaf returns true. `<=`
+// throughout, so a tie at the champion's t is still tested. Two
+// schedules, each the faster on one kind of table (PERF.md, PR 14):
+//
+// lane_walk (triangles): each lane walks its own tree, nearest child
+// first (the smaller entry; the other waits on a stack with its entry and
+// is dropped when popped past the window's end). A triangle's test is
+// costly, so a lane tests only the leaves its own window reaches.
+template <class Hi, class Loose, class Leaf>
+__device__ __forceinline__ bool lane_walk(const Stream& S, V3 o, V3 inv,
+                                          float lo, Hi hi, Loose loose,
+                                          Leaf leaf) {
+  for (int k = 0; k < S.n_loose; ++k) {
+    const int r = __ldg(S.loose + k);
+    if (r < 0) break;
+    if (loose(r)) return true;
   }
-  return false;
+  int stack[kTreeDepth];
+  float enter[kTreeDepth];
+  int sp = 0;
+  int node = 1;
+  float e;
+  if (!node_enter(S.node + 8, o, inv, lo, hi(), e)) return false;
+  const int words = (S.leaf + 31) >> 5;
+  while (true) {
+    if (node >= S.n_slots) {
+      const int j = node - S.n_slots;
+      for (int w = 0; w < words; ++w)
+        if (leaf(j * S.leaf + 32 * w, __ldg(S.mask + j * words + w)))
+          return true;
+    } else {
+      float e0, e1;
+      const float* c = S.node + 16 * node;
+      const bool h0 = node_enter(c, o, inv, lo, hi(), e0);
+      const bool h1 = node_enter(c + 8, o, inv, lo, hi(), e1);
+      if (h0 && h1) {
+        const int first = e1 < e0 ? 1 : 0;
+        stack[sp] = 2 * node + 1 - first;
+        enter[sp] = first ? e0 : e1;
+        ++sp;
+        node = 2 * node + first;
+        continue;
+      }
+      if (h0 || h1) {
+        node = 2 * node + (h0 ? 0 : 1);
+        continue;
+      }
+    }
+    do {
+      if (sp == 0) return false;
+      --sp;
+    } while (!(enter[sp] <= hi()));
+    node = stack[sp];
+  }
+}
+
+// warp_walk (spheres): the warp walks the union of its lanes' trees as
+// one: a node is entered when any active lane's window overlaps it, the
+// child that more lanes enter nearer first first (the other waits on a
+// stack with each lane's entry and is dropped when popped past every
+// lane's window), a leaf's rows tested by the lanes whose own window
+// overlaps it; a lane that is done (an occluder found) drops out of the
+// votes, and the walk returns whether it is. A sphere's test is cheap and
+// a molecule's tree deep, so the walk's own steps, taken once per warp
+// without divergence, are what it saves. The warp is the active lanes at
+// the walk's start (__activemask): every vote inside is over them and
+// their control flow is uniform, so lanes of a warp that enter it apart
+// (paths at other segments, kernel 2's replay) each walk their own union,
+// and no lane waits on one outside it.
+template <class Hi, class Loose, class Leaf>
+__device__ __forceinline__ bool warp_walk(const Stream& S, V3 o, V3 inv,
+                                          float lo, Hi hi, Loose loose,
+                                          Leaf leaf) {
+  bool done = false;
+  for (int k = 0; k < S.n_loose && !done; ++k) {
+    const int r = __ldg(S.loose + k);
+    if (r < 0) break;
+    done = loose(r);
+  }
+  const float none = __int_as_float(0x7fffffff);  // NaN: no entry
+  auto lim = [&]() { return done ? -inf_f() : hi(); };
+  const unsigned wm = __activemask();
+  int stack[kTreeDepth];
+  float enter[kTreeDepth];  // this lane's entry of each node on the stack
+  int sp = 0;
+  int node = 1;
+  float e;
+  float mine = node_enter(S.node + 8, o, inv, lo, lim(), e) ? e : none;
+  if (!__any_sync(wm, mine <= lim())) return done;
+  const int words = (S.leaf + 31) >> 5;
+  while (true) {
+    const bool in = mine <= lim();
+    if (node >= S.n_slots) {
+      if (in) {
+        const int j = node - S.n_slots;
+        for (int w = 0; w < words; ++w)
+          if (leaf(j * S.leaf + 32 * w, __ldg(S.mask + j * words + w))) {
+            done = true;
+            break;
+          }
+      }
+    } else {
+      float e0 = none, e1 = none;
+      bool h0 = false, h1 = false;
+      const float* c = S.node + 16 * node;
+      if (in) {
+        h0 = node_enter(c, o, inv, lo, lim(), e0);
+        h1 = node_enter(c + 8, o, inv, lo, lim(), e1);
+      }
+      const unsigned b0 = __ballot_sync(wm, h0);
+      const unsigned b1 = __ballot_sync(wm, h1);
+      if (b0 && b1) {
+        const int v1 = __popc(__ballot_sync(wm, h1 && (!h0 || e1 < e0)));
+        const int v0 = __popc(__ballot_sync(wm, h0 && (!h1 || e0 <= e1)));
+        const int first = v1 > v0 ? 1 : 0;
+        stack[sp] = 2 * node + 1 - first;
+        enter[sp] = first ? (h0 ? e0 : none) : (h1 ? e1 : none);
+        ++sp;
+        node = 2 * node + first;
+        mine = first ? (h1 ? e1 : none) : (h0 ? e0 : none);
+        continue;
+      }
+      if (b0 || b1) {
+        node = 2 * node + (b0 ? 0 : 1);
+        mine = b0 ? (h0 ? e0 : none) : (h1 ? e1 : none);
+        continue;
+      }
+    }
+    do {
+      if (sp == 0) return done;
+      --sp;
+    } while (!__any_sync(wm, enter[sp] <= lim()));
+    node = stack[sp];
+    mine = enter[sp];
+  }
 }
 
 // The walk of one ray's live window [mint, maxt] through grid g, cell by
@@ -432,10 +585,52 @@ struct Champ {
   float beta, gamma;
 };
 
-// Triangle row q of a global table (a grid cell's item, a streamed
-// chunk's row), object id obj, as a closest-hit candidate of the ray (o,
-// d) in [mint, maxt]: the brute loop's arithmetic, the least (t, id) pair
-// winning over the champion c.
+// The test of triangle row q of a global table against the ray (o, d) in
+// [mint, maxt], from its floats 0-15 (the brute loop's arithmetic): facing
+// (two_sided: any side), inside and in the window; t, beta, gamma.
+struct TriTest {
+  float t, beta, gamma;
+  bool ok;
+};
+__device__ __forceinline__ TriTest tri_test(const float* q, V3 o, V3 d,
+                                            V3 oxd, bool two_sided,
+                                            float mint, float maxt) {
+  TriTest h = {0.0f, 0.0f, 0.0f, false};
+  const V3 ng = ld3(q);
+  const float div = dot(ng, d);
+  if (two_sided ? !(div != 0.0f) : !(div > 0.0f)) return h;
+  const float idiv = 1.0f / div;
+  // constant-split Moller-Trumbore over [n_geo, c1, c2, e1, e2, k]
+  h.beta = (dot(ld3(q + 12), oxd) - dot(ld3(q + 6), d)) * idiv;
+  h.gamma = (dot(ld3(q + 3), d) - dot(ld3(q + 9), oxd)) * idiv;
+  h.t = (q[15] - dot(ng, o)) * idiv;
+  h.ok = h.beta >= 0.0f && h.beta <= 1.0f && h.gamma >= 0.0f &&
+         h.beta + h.gamma <= 1.0f && h.t >= mint && h.t <= maxt;
+  return h;
+}
+
+// Test h of triangle row q, object id obj, taken over the champion c where
+// it wins on the least (t, id) pair and the row's mask is set; the mask
+// and the shading floats 18-26 are read only then.
+__device__ __forceinline__ void tri_take(const float* q, int obj,
+                                         const TriTest& h, Champ& c) {
+  if (h.ok && (h.t < c.t || (h.t == c.t && obj < c.obj)) && q[17] > 0.0f) {
+    const float alpha = 1.0f - h.beta - h.gamma;
+    c.n = normalize(alpha * ld3(q + 18) + h.beta * ld3(q + 21) +
+                    h.gamma * ld3(q + 24));
+    c.t = h.t;
+    c.m = q[16];
+    c.obj = obj;
+    c.beta = h.beta;
+    c.gamma = h.gamma;
+  }
+}
+
+// Triangle row q of a global table (a grid cell's item), object id obj,
+// as a closest-hit candidate of the ray (o, d) in [mint, maxt]: the brute
+// loop's arithmetic, the least (t, id) pair winning over the champion c
+// (tri_test and tri_take, above, split it for a streamed leaf; the grid
+// walk keeps this form, whose code its instances were timed with).
 __device__ __forceinline__ void tri_candidate(const float* q, int obj, V3 o,
                                               V3 d, V3 oxd, bool two_sided,
                                               float mint, float maxt,
@@ -462,8 +657,25 @@ __device__ __forceinline__ void tri_candidate(const float* q, int obj, V3 o,
   }
 }
 
-// Sphere row s of a global table, object id j, as tri_candidate; a = d.d,
-// inv2a = 0.5 / a.
+// Sphere row s, object id j, with its discriminant dis and b
+// (sphere_dis), taken over the champion c as tri_take takes a triangle; a
+// = d.d, inv2a = 0.5 / a.
+__device__ __forceinline__ void sph_take(const float* s, int j, V3 o, V3 d,
+                                         float inv2a, float mint, float maxt,
+                                         float b, float dis, Champ& c) {
+  float t;
+  bool far;
+  if (dis >= 0.0f && sphere_root(b, dis, inv2a, mint, maxt, t, far) &&
+      (t < c.t || (t == c.t && j < c.obj)) && s[5] > 0.0f) {
+    c.t = t;
+    c.n = normalize(o + t * d - ld3(s));
+    c.m = s[4];
+    c.obj = j;
+    c.beta = far ? 1.0f : 0.0f;
+  }
+}
+
+// Sphere row s of a global table, object id j, as tri_candidate.
 __device__ __forceinline__ void sph_candidate(const float* s, int j, V3 o,
                                               V3 d, float a, float inv2a,
                                               float mint, float maxt,
@@ -481,6 +693,36 @@ __device__ __forceinline__ void sph_candidate(const float* s, int j, V3 o,
     c.beta = far ? 1.0f : 0.0f;
   }
 }
+
+// The rows of one 32-row word of a streamed leaf (r0 its first sorted row,
+// m the rows that take part), kU at a time: test(r) of each of the kU rows
+// first (independent, so their loads are in flight together), then take(r,
+// test) in row order; stops and returns true where take does.
+template <int kU, class Test, class Take>
+__device__ __forceinline__ bool leaf_rows(int r0, unsigned m, Test test,
+                                          Take take) {
+  while (m) {
+    int r[kU];
+    decltype(test(0)) h[kU];
+#pragma unroll
+    for (int k = 0; k < kU; ++k) {
+      r[k] = m ? r0 + __ffs(m) - 1 : -1;
+      m &= m - 1u;
+    }
+#pragma unroll
+    for (int k = 0; k < kU; ++k)
+      if (r[k] >= 0) h[k] = test(r[k]);
+#pragma unroll
+    for (int k = 0; k < kU; ++k)
+      if (r[k] >= 0 && take(r[k], h[k])) return true;
+  }
+  return false;
+}
+constexpr int kTriRows = 2;  // a streamed leaf's rows per step (leaf_rows)
+constexpr int kSphRows = 4;
+struct SphTest {
+  float b, dis;
+};
 
 // Whether triangle row q / sphere row s of a global table occludes the
 // ray (o, d) in [mint, maxt] (the brute any-hit loop's tests).
@@ -529,13 +771,19 @@ __device__ __forceinline__ bool sph_occludes(const float* s, V3 o, V3 d,
 // the brute loops' whatever order the chunks and cells come in (mesh
 // triangles that share an edge are hit at the same t).
 //
-// A streamed table (the Pallas kernel's chunk loops, megakernel.py:874-935):
-// each thread slab-tests every chunk's box against its own live window
-// [mint, min(maxt, champion t)] and tests the rows of the chunks it
-// overlaps, from the Morton-sorted copy (stream_rows). The Pallas kernel
-// fetches a chunk when any ray of its tile overlaps it; here a warp runs
-// a chunk's rows when any of its lanes does (SIMT), and only those lanes
-// test them. The rows live in L2 (1,002 triangles take 125 KB).
+// A streamed table (the Pallas kernel's chunk loops, megakernel.py:874-935,
+// which test every Morton chunk a ray tile overlaps, in Morton order): the
+// table's tree is walked, triangles by each lane on its own (lane_walk),
+// spheres by the warp over its lanes' union (warp_walk): the loose rows
+// first, so that a wall's t culls the tree from the start, then nearer
+// children first, culled by the live window [mint, min(maxt, champion
+// t)]; a visited leaf's rows are tested kTriRows / kSphRows at a time
+// (leaf_rows) from the Morton-sorted copy, which L2 holds (1,002 triangles
+// take 125 KB). A row's mask and shading floats are read only where it
+// wins. The
+// walk visits leaves in another order than the brute loop's rows and the
+// Morton chunks, which changes no champion: the least (t, original id)
+// pair wins.
 template <int kRows = 2, bool kGrid = false, bool kStream = false>
 __device__ float trace(const Tables& T, V3 o, V3 d, float mint, float maxt,
                        Hit& h, const Grids* G = nullptr) {
@@ -606,16 +854,45 @@ __device__ float trace(const Tables& T, V3 o, V3 d, float mint, float maxt,
         const V3 inv = safe_inv(d);
         auto live = [&]() { return fminf(maxt, c.t); };
         const Stream& SS = G->sph_st;
-        stream_rows<kSph>(SS, o, inv, mint, live, [&](const float* s, int r) {
-          sph_candidate(s, __ldg(SS.perm + r), o, d, a, inv2a, mint, maxt, c);
-          return false;
-        });
+        if (SS.n) {
+          auto row = [&](int r) {
+            return SS.rows + static_cast<size_t>(r) * kSph;
+          };
+          auto test = [&](int r) {
+            SphTest h;
+            h.dis = sphere_dis(row(r), o, d, a, h.b);
+            return h;
+          };
+          auto take = [&](int r, const SphTest& h) {
+            if (h.dis >= 0.0f)
+              sph_take(row(r), __ldg(SS.perm + r), o, d, inv2a, mint, maxt,
+                       h.b, h.dis, c);
+            return false;
+          };
+          warp_walk(SS, o, inv, mint, live,
+                    [&](int r) { return take(r, test(r)); },
+                    [&](int r0, unsigned m) {
+                      return leaf_rows<kSphRows>(r0, m, test, take);
+                    });
+        }
         const Stream& TS = G->tri_st;
-        stream_rows<kTri>(TS, o, inv, mint, live, [&](const float* q, int r) {
-          tri_candidate(q, T.n_sph + __ldg(TS.perm + r), o, d, oxd,
-                        T.two_sided, mint, maxt, c);
-          return false;
-        });
+        if (TS.n) {
+          auto row = [&](int r) {
+            return TS.rows + static_cast<size_t>(r) * kTri;
+          };
+          auto test = [&](int r) {
+            return tri_test(row(r), o, d, oxd, T.two_sided, mint, maxt);
+          };
+          auto take = [&](int r, const TriTest& h) {
+            if (h.ok) tri_take(row(r), T.n_sph + __ldg(TS.perm + r), h, c);
+            return false;
+          };
+          lane_walk(TS, o, inv, mint, live,
+                    [&](int r) { return take(r, test(r)); },
+                    [&](int r0, unsigned m) {
+                      return leaf_rows<kTriRows>(r0, m, test, take);
+                    });
+        }
       }
       auto bound = [&]() { return c.t; };
       for (int gi = 0; gi < G->n_tri; ++gi) {
@@ -664,9 +941,9 @@ __device__ float trace(const Tables& T, V3 o, V3 d, float mint, float maxt,
 
 // Occlusion of the segment [mint, maxt]; stops at the first hit. Spheres
 // kRows at a time and masks as in trace.
-// Grid mode (kGrid): the prefix as in trace, then the streamed chunks
-// (kStream; a chunk is tested where its box overlaps [mint, maxt]) and the
-// grids' walks, each stopping at its first occluder.
+// Grid mode (kGrid): the prefix as in trace, then the streamed tables
+// (kStream; trace's walk over [mint, maxt]) and the grids' walks, each
+// stopping at its first occluder.
 template <int kRows = 2, bool kGrid = false, bool kStream = false>
 __device__ bool anyhit(const Tables& T, V3 o, V3 d, float mint, float maxt,
                        const Grids* G = nullptr) {
@@ -713,17 +990,48 @@ __device__ bool anyhit(const Tables& T, V3 o, V3 d, float mint, float maxt,
     if constexpr (kStream) {
       const V3 inv = safe_inv(d);
       auto window = [&]() { return maxt; };
-      if (stream_rows<kSph>(G->sph_st, o, inv, mint, window,
-                            [&](const float* s, int) {
-                              return sph_occludes(s, o, d, a, inv2a, mint,
-                                                  maxt);
-                            }) ||
-          stream_rows<kTri>(G->tri_st, o, inv, mint, window,
-                            [&](const float* q, int) {
-                              return tri_occludes(q, o, d, oxd, T.two_sided,
-                                                  mint, maxt);
-                            }))
-        return true;
+      const Stream& SS = G->sph_st;
+      if (SS.n) {
+        auto row = [&](int r) {
+          return SS.rows + static_cast<size_t>(r) * kSph;
+        };
+        auto test = [&](int r) {
+          SphTest h;
+          h.dis = sphere_dis(row(r), o, d, a, h.b);
+          return h;
+        };
+        auto take = [&](int r, const SphTest& h) {
+          float t;
+          bool far;
+          return h.dis >= 0.0f &&
+                 sphere_root(h.b, h.dis, inv2a, mint, maxt, t, far) &&
+                 row(r)[5] > 0.0f;
+        };
+        if (warp_walk(SS, o, inv, mint, window,
+                      [&](int r) { return take(r, test(r)); },
+                      [&](int r0, unsigned m) {
+                        return leaf_rows<kSphRows>(r0, m, test, take);
+                      }))
+          return true;
+      }
+      const Stream& TS = G->tri_st;
+      if (TS.n) {
+        auto row = [&](int r) {
+          return TS.rows + static_cast<size_t>(r) * kTri;
+        };
+        auto test = [&](int r) {
+          return tri_test(row(r), o, d, oxd, T.two_sided, mint, maxt);
+        };
+        auto take = [&](int r, const TriTest& h) {
+          return h.ok && row(r)[17] > 0.0f;
+        };
+        if (lane_walk(TS, o, inv, mint, window,
+                      [&](int r) { return take(r, test(r)); },
+                      [&](int r0, unsigned m) {
+                        return leaf_rows<kTriRows>(r0, m, test, take);
+                      }))
+          return true;
+      }
     }
     bool occ = false;
     auto bound = []() { return inf_f(); };

@@ -58,21 +58,28 @@ the row-major map and the plain version ignores it.
 Streamed tables (``chunks``, a ``KernelChunks``; ``render/mega.chunk_tables``
 builds it, the counterpart of the Pallas kernel's ``chk`` / ``sph_chunks``
 operands, ``megakernel.py:874-935`` and ``:1226-1270``): the triangle
-table, the sphere table or both are read in Morton-sorted chunks of
-``STREAM_CHUNK`` rows, a sorted copy (read through ``perm`` instead, the
-table cost the kernel 1.1-1.6x, PERF.md). Per traced segment each ray
-slab-tests every chunk's box against its live window [mint, min(maxt,
-champion t)]
-(``chunk_overlap``) and tests the rows of the chunks it overlaps, with the
-brute loops' arithmetic; a candidate wins on the least (t, original id)
-pair, so ids, record and accumulator are the brute version's whatever the
-chunk order. The record names original rows (sphere i, n_sph + triangle
-j), never sorted ones, so kernel 3 runs on the original tables unchanged.
-A chunk's box is JAX's widened by ``CHUNK_PAD`` of the scene's scale (the
+table, the sphere table or both are read from a Morton-sorted copy (read
+through ``perm`` instead, the table cost the kernel 1.1-1.6x, PERF.md),
+the record naming original rows (sphere i, n_sph + triangle j), never
+sorted ones, so kernel 3 runs on the original tables unchanged. The plain
+version, the oracle, keeps JAX's chunks of ``STREAM_CHUNK`` rows: per
+traced segment each ray slab-tests every chunk's box against its live
+window [mint, min(maxt, champion t)] (``chunk_overlap``) and tests the
+rows of the chunks it overlaps, with the brute loops' arithmetic. The
+kernel walks each stream's ``StreamTree`` instead (``render/mega.
+chunk_tree``): the loose rows (room-sized, outside every box) first, then
+an implicit binary tree of boxes over leaves of ``STREAM_LEAF`` sorted
+rows, nearest child first, culled by the same slab test against the same
+live window. A candidate wins on the least (t, original id) pair, so ids,
+record and accumulator are the brute version's in any visiting order.
+Every box is JAX's widened by ``CHUNK_PAD`` of the scene's scale (the
 largest coordinate of its bounds and its camera eye) on every side: a
-per-ray slab test can drop, by rounding, a chunk whose row the brute loop
+per-ray slab test can drop, by rounding, a box whose row the brute loop
 hits (an axis-aligned wall's box has no thickness, an edge shared by two
-chunks is hit at one t from both); the widening only visits more.
+boxes is hit at one t from both); the widening only visits more, and the
+slab test's rounding is monotone, so a box that contains another
+overlaps every window the inner one does. ``tree_walk_work`` counts what
+the kernel's walk does on the plain version's rays (the bound's work).
 Streaming runs in instances of the grid-mode build (``GRID_FLAGS``) of
 its own, with or without grids: in grid mode a sphere table past the
 resident budget without a sphere grid streams, as in JAX.
@@ -119,6 +126,16 @@ TRI_RESIDENT_MAX = UNROLL_OBJECTS
 STREAM_CHUNK = 128
 # a streamed chunk's box is widened by this share of the scene's scale
 CHUNK_PAD = 1e-4
+# the walk's layout over a streamed table (render/mega.chunk_tree): rows per
+# leaf box (a power of two up to STREAM_CHUNK), the
+# most loose rows (tested first by every ray, outside the boxes), the share
+# of the scene box's longest side from which a row's longest side makes it
+# loose, and the deepest tree a ray walks (csrc/pathtrace.cuh kTreeDepth,
+# its stack)
+STREAM_LEAF = 2
+LOOSE_MAX = 64
+LOOSE_SHARE = 0.5
+TREE_DEPTH_MAX = 20
 # shared memory a block may opt into on the H100 (227 KB)
 SMEM_BYTES_MAX = 232448
 # pass keys ride in the kernel's parameter block (csrc/megakernel.cu
@@ -201,15 +218,39 @@ class KernelGrids(NamedTuple):
     rows: tuple
 
 
+class StreamTree(NamedTuple):
+    """The kernel's walk over one streamed table (``render/mega.chunk_tree``),
+    indexing its Morton copy: ``nodes`` (2 P, 8) float32, an implicit binary
+    tree over P leaves (a power of two): node k's box [pmin xyz, pmax xyz, 0,
+    0], the root 1, the children of k 2 k and 2 k + 1, leaf j the node P + j
+    over the sorted rows [j L, (j + 1) L) (row 0 unused; a box with pmin
+    +inf and pmax -inf is empty: no row of it takes part); ``masks``
+    (n_leaves, ceil(L / 32)) int32, bit b of word w set where row j L + 32
+    w + b takes part in leaf j (neither padding nor loose); ``loose`` (K,)
+    int32, the sorted positions of the loose rows, which every ray tests
+    first, -1 after the last; ``leaf`` the rows per leaf, L."""
+    nodes: torch.Tensor
+    masks: torch.Tensor
+    loose: torch.Tensor
+    leaf: int
+
+    @property
+    def n_slots(self) -> int:
+        """Leaf slots of the implicit tree (P)."""
+        return self.nodes.shape[0] // 2
+
+
 class Stream(NamedTuple):
     """One streamed table: ``rows`` its rows in Morton order, padded with
     zero rows to ``n_chunks * STREAM_CHUNK``; ``boxes`` (n_chunks, 8) each
     chunk's box [pmin xyz, pmax xyz, 0, 0]; ``perm`` (n_chunks *
     STREAM_CHUNK,) int32, the original row of each sorted row, -1 for
-    padding."""
+    padding; ``tree`` the kernel's walk over them (the plain version reads
+    the chunks and ignores it; the kernel needs it)."""
     rows: torch.Tensor
     boxes: torch.Tensor
     perm: torch.Tensor
+    tree: StreamTree | None = None
 
     @property
     def n_chunks(self) -> int:
@@ -490,6 +531,260 @@ def _stream_occluded(o, d, a, inv2a, oxd, mint, maxt, two_sided,
                                              rows.shape[0]).sum())
                 occ[r] |= hit
     return occ
+
+
+def _node_enter(box, o, inv, lo, hi):
+    """``chunk_overlap`` of per-ray boxes ``box`` (R, 8) with the entry
+    max(near, lo) the kernel's ``node_enter`` keeps; an empty box (pmin.x
+    > pmax.x) is missed. Returns (overlaps, entry)."""
+    t0 = (box[:, 0:3] - o) * inv
+    t1 = (box[:, 3:6] - o) * inv
+    lo3, hi3 = torch.fmin(t0, t1), torch.fmax(t0, t1)
+    near = torch.fmax(torch.fmax(lo3[:, 0], lo3[:, 1]), lo3[:, 2])
+    far = torch.fmin(torch.fmin(hi3[:, 0], hi3[:, 1]), hi3[:, 2])
+    enter = torch.fmax(near, lo)
+    return (enter <= torch.fmin(far, hi)) & ~(box[:, 0] > box[:, 3]), enter
+
+
+def _least(t, obj):
+    """Per ray the least (t, id) pair of (rays, rows) candidates (t INF
+    where none): (t, id), id -1 where none."""
+    big = torch.iinfo(torch.int64).max
+    tmin = t.amin(1)
+    cand = torch.isfinite(t) & (t == tmin[:, None])
+    omin = torch.where(cand, obj, big).amin(1)
+    return tmin, torch.where(torch.isfinite(tmin), omin, -1)
+
+
+def _walk_tree(kind: str, st: Stream, o, d, a, inv2a, oxd, mint, maxt,
+               two_sided: bool, n_sph: int, closest: bool, champ, out: dict,
+               warp: int):
+    """One stream's part of a trace (``closest``: ``champ`` the (t, id)
+    champion so far, returned improved) or of a shadow ray (``champ`` the
+    occlusion bits so far, returned or-ed), walked as the kernel's
+    ``lane_walk`` walks it: the loose rows, then from the root the nearer
+    child first (the other pushed with its entry and dropped when popped
+    past the window's end), the window's end the champion's t. Adds to
+    ``out``: ``node_tests`` (slab tests of node boxes), ``leaf_visits``,
+    ``{kind}_tests`` (row tests, loose rows included; a shadow ray's rows up
+    to its first occluder), ``loose_tests``, and per warp of ``warp``
+    consecutive rays the union of its lanes' leaves, ``union_leaves`` and
+    ``union_{kind}_tests`` (each such leaf's rows once: what the kernel's
+    ``warp_walk``, the spheres' schedule, runs; its per-ray counts are
+    these, in each ray's own order)."""
+    tree = st.tree
+    dev = o.device
+    slots, leaf = tree.n_slots, tree.leaf
+    perm = st.perm.to(torch.int64)
+    obj_all = perm + (0 if kind == "sph" else n_sph)
+    inv = safe_inv(d)
+    visits = []              # (warp, leaf) of each leaf visit
+
+    def add(key: str, x) -> None:
+        out[key] = out.get(key, 0) + int(x)
+
+    if closest:
+        bt, bo = (x.clone() for x in champ)
+    else:
+        occ = champ.clone()
+    alive = (mint != maxt) if closest else (mint != maxt) & ~occ
+
+    def hi(r):
+        return torch.minimum(maxt[r], bt[r]) if closest else maxt[r]
+
+    def rows_hit(r, rows):
+        o1, d1 = o[r][:, None], d[r][:, None]
+        lo, hi_ = mint[r][:, None], maxt[r][:, None]
+        if kind == "sph":
+            return I.sphere_hit(o1, d1, a[r][:, None], inv2a[r][:, None], lo,
+                                hi_, rows)[0:2]
+        return I.triangle_hit(o1, d1, oxd[r][:, None], lo, hi_, rows,
+                              two_sided)[0:2]
+
+    def test_rows(r, pos, live):
+        """Rays r against the sorted rows pos (n, k) where ``live``."""
+        ok, t = rows_hit(r, st.rows[pos])
+        ok = ok & live
+        if closest:
+            add(f"{kind}_tests", live.sum())
+            t2, o2 = _least(torch.where(ok, t, INF), obj_all[pos])
+            better = (o2 >= 0) & ((t2 < bt[r]) | ((t2 == bt[r])
+                                                   & (o2 < bo[r])))
+            bt[r] = torch.where(better, t2, bt[r])
+            bo[r] = torch.where(better, o2, bo[r])
+        else:
+            hit = ok.any(1)
+            upto = torch.cumsum(live.to(torch.int64), 1)
+            first = ok.to(torch.int8).argmax(1)
+            n_t = torch.where(hit, upto.gather(1, first[:, None])[:, 0],
+                              live.sum(1))
+            add(f"{kind}_tests", n_t.sum())
+            occ[r] = occ[r] | hit
+
+    loose = tree.loose.to(torch.int64)
+    loose = loose[loose >= 0]
+    r = torch.nonzero(alive).squeeze(1)
+    if loose.numel() and r.numel():
+        pos = loose[None].expand(r.numel(), -1)
+        before = out.get(f"{kind}_tests", 0)
+        test_rows(r, pos, torch.ones_like(pos, dtype=torch.bool))
+        add("loose_tests", out[f"{kind}_tests"] - before)
+    if not closest:
+        alive = alive & ~occ
+    n = o.shape[0]
+    depth = TREE_DEPTH_MAX
+    stack = torch.zeros((n, depth), dtype=torch.int64, device=dev)
+    enter = torch.zeros((n, depth), device=dev)
+    sp = torch.zeros(n, dtype=torch.int64, device=dev)
+    node = torch.ones(n, dtype=torch.int64, device=dev)
+    r = torch.nonzero(alive).squeeze(1)
+    ok, _ = _node_enter(tree.nodes[node[r]], o[r], inv[r], mint[r], hi(r))
+    add("node_tests", r.numel())
+    active = torch.zeros(n, dtype=torch.bool, device=dev)
+    active[r[ok]] = True
+    lane = torch.arange(leaf, device=dev)
+    bit = (lane % 32)
+    while True:
+        r = torch.nonzero(active).squeeze(1)
+        if r.numel() == 0:
+            break
+        nd = node[r]
+        at_leaf = nd >= slots
+        pop = torch.zeros(n, dtype=torch.bool, device=dev)
+        # leaves
+        rl = r[at_leaf]
+        if rl.numel():
+            j = node[rl] - slots
+            pos = j[:, None] * leaf + lane
+            words = tree.masks[j].to(torch.int64) & 0xFFFFFFFF
+            live = ((words[:, lane // 32] >> bit) & 1).bool()
+            add("leaf_visits", rl.numel())
+            visits.append(torch.stack([rl // warp, j], 1))
+            test_rows(rl, pos, live)
+            pop[rl] = True
+            if not closest:
+                active[rl] = ~occ[rl]
+        # inner nodes
+        ri = r[~at_leaf]
+        if ri.numel():
+            c0 = 2 * node[ri]
+            h = hi(ri)
+            h0, e0 = _node_enter(tree.nodes[c0], o[ri], inv[ri], mint[ri], h)
+            h1, e1 = _node_enter(tree.nodes[c0 + 1], o[ri], inv[ri],
+                                 mint[ri], h)
+            add("node_tests", 2 * ri.numel())
+            both = h0 & h1
+            first = (e1 < e0).to(torch.int64)
+            rb = ri[both]
+            stack[rb, sp[rb]] = (c0 + 1 - first)[both]
+            enter[rb, sp[rb]] = torch.where(first.bool(), e0, e1)[both]
+            sp[rb] += 1
+            node[ri] = torch.where(both, c0 + first,
+                                   torch.where(h0, c0, c0 + 1))
+            pop[ri[~(h0 | h1)]] = True
+        # pop the next node still in the window
+        need = pop & active
+        while True:
+            rp = torch.nonzero(need).squeeze(1)
+            if rp.numel() == 0:
+                break
+            empty = sp[rp] == 0
+            active[rp[empty]] = False
+            need[rp[empty]] = False
+            rp = rp[~empty]
+            sp[rp] -= 1
+            fits = enter[rp, sp[rp]] <= hi(rp)
+            rk = rp[fits]
+            node[rk] = stack[rk, sp[rk]]
+            need[rk] = False
+    if visits:
+        pairs = torch.unique(torch.cat(visits), dim=0)
+        live_rows = torch.stack([
+            ((tree.masks[pairs[:, 1]].to(torch.int64) & 0xFFFFFFFF)
+             >> b) & 1 for b in range(32)]).sum((0, 2))
+        add("union_leaves", pairs.shape[0])
+        add(f"union_{kind}_tests", live_rows.sum())
+    return (bt, bo) if closest else occ
+
+
+def tree_walk_work(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
+                   chunks: KernelChunks, spp: int, width: int, bounces: int,
+                   two_sided: bool, normalize_emitter: bool, seed: int,
+                   russian_roulette: bool = False, rr_start_depth: int = 0,
+                   mode: str = "path", key=None, warp: int = 32,
+                   work=None) -> dict:
+    """What kernel 1's walk over the streamed tables' trees does on one
+    pass's rays, counted outside the plain version: the pass runs the plain
+    streamed version (``pathtrace_pass_reference``'s, or
+    ``direct_pass_reference``'s with ``mode="direct"`` and ``key``;
+    ``work`` gets its Morton chunks' counts), and each of its traces and
+    shadow rays is walked again over ``chunks``' trees in the kernel's
+    order (``_walk_tree``). Returns the walk's counts summed over the pass,
+    ``traces`` and ``shadows`` (live walks), and ``misses`` and
+    ``occ_misses``: the rays whose walked champion (least (t, id)) or
+    occlusion bit differs from the plain version's, which a walk that
+    culled the leaf holding the winner or the first occluder would give."""
+    out: dict = {}
+    n_sph = sph.shape[0]
+    # the resident tables of the brute loops, which run before the streams
+    sph_b = sph if chunks.sph is None else sph[:0]
+    tri_b = tri if chunks.tri is None else tri[:0]
+
+    def trace(o, d, mint, maxt):
+        res = _trace(o, d, mint, maxt, sph, tri, two_sided, None, work,
+                     chunks)
+        a = dot3(d, d)
+        inv2a = 0.5 / a
+        oxd = cross3(o, d)
+        brute = _trace(o, d, mint, maxt, sph_b, tri_b, two_sided)
+        ids = brute[4] + torch.where(brute[4] >= sph_b.shape[0],
+                                     n_sph - sph_b.shape[0], 0)
+        found = brute[3] >= 0.0
+        champ = (torch.where(found, brute[0], INF), torch.where(found, ids,
+                                                                 -1))
+        for kind, st in _streams(chunks):
+            champ = _walk_tree(kind, st, o, d, a, inv2a, oxd, mint, maxt,
+                               two_sided, n_sph, True, champ, out, warp)
+        alive = mint != maxt
+        out["traces"] = out.get("traces", 0) + int(alive.sum())
+        want = torch.where(res[3] >= 0.0, res[4], -1)
+        out["misses"] = out.get("misses", 0) + int(
+            ((champ[1] != want) & alive).sum())
+        return res
+
+    def anyhit(o, d, mint, maxt):
+        occ = _anyhit(o, d, mint, maxt, sph, tri, two_sided, None, work,
+                      chunks)
+        a = dot3(d, d)
+        inv2a = 0.5 / a
+        oxd = cross3(o, d)
+        walked = _anyhit(o, d, mint, maxt, sph_b, tri_b, two_sided)
+        for kind, st in _streams(chunks):
+            walked = _walk_tree(kind, st, o, d, a, inv2a, oxd, mint, maxt,
+                                two_sided, n_sph, False, walked, out, warp)
+        alive = mint != maxt
+        out["shadows"] = out.get("shadows", 0) + int(alive.sum())
+        out["occ_misses"] = out.get("occ_misses", 0) + int(
+            ((walked & alive) != occ).sum())
+        return occ
+
+    if mode == "direct":
+        u = u_planes if u_planes is not None else direct_draw_planes(
+            key, acc.shape[0], lig.shape[0], spp, acc.device)
+        _direct_reference(par, sph, tri, mat, lig, acc, u, spp=spp,
+                          width=width, two_sided=two_sided, trace=trace,
+                          anyhit=anyhit)
+    else:
+        u = pass_draws(ipar, u_planes, acc.shape[0], lig.shape[0], bounces,
+                       seed, 0, acc.device, russian_roulette)
+        _pass_reference(par, sph, tri, mat, lig, acc, u, int(ipar[1]),
+                        spp=spp, width=width, bounces=bounces,
+                        two_sided=two_sided,
+                        normalize_emitter=normalize_emitter,
+                        russian_roulette=russian_roulette,
+                        rr_start_depth=rr_start_depth, trace=trace,
+                        anyhit=anyhit)
+    return out
 
 
 def _brute_counts(sph, tri, grid, chunks) -> tuple[int, int]:
@@ -931,15 +1226,21 @@ class _GridDesc(ctypes.Structure):
 
 class _StreamDesc(ctypes.Structure):
     """csrc/pathtrace.cuh Stream."""
-    _fields_ = [("rows", ctypes.c_void_p), ("box", ctypes.c_void_p),
-                ("perm", ctypes.c_void_p), ("n", ctypes.c_int)]
+    _fields_ = [("rows", ctypes.c_void_p), ("perm", ctypes.c_void_p),
+                ("node", ctypes.c_void_p), ("mask", ctypes.c_void_p),
+                ("loose", ctypes.c_void_p), ("n", ctypes.c_int),
+                ("leaf", ctypes.c_int), ("n_slots", ctypes.c_int),
+                ("n_loose", ctypes.c_int)]
 
 
 def _stream_desc(st: Stream | None, n: int) -> _StreamDesc:
     if st is None:
-        return _StreamDesc(None, None, None, 0)
-    return _StreamDesc(st.rows.data_ptr(), st.boxes.data_ptr(),
-                       st.perm.data_ptr(), n)
+        return _StreamDesc(None, None, None, None, None, 0, 0, 0, 0)
+    t = st.tree
+    return _StreamDesc(st.rows.data_ptr(), st.perm.data_ptr(),
+                       t.nodes.data_ptr(), t.masks.data_ptr(),
+                       t.loose.data_ptr(), n, t.leaf, t.n_slots,
+                       t.loose.shape[0])
 
 
 def _grid_args(grid: KernelGrids | None, chunks: KernelChunks | None,
@@ -988,11 +1289,48 @@ def _check_grid(grid: KernelGrids, n_tri: int, dev) -> None:
                              f"{g.cell_offsets.shape[0]} offsets")
 
 
+def tree_slots(n_leaves: int) -> int:
+    """The implicit tree's leaf slots over ``n_leaves`` leaves: the least
+    power of two that holds them."""
+    return 1 << max(0, (n_leaves - 1).bit_length())
+
+
+def _check_tree(name: str, tree: StreamTree | None, n_rows: int, dev) -> None:
+    """A stream's walk layout (``StreamTree``) over ``n_rows`` sorted rows:
+    whole leaves of a power of two rows up to 128, a mask word per 32 rows
+    of a leaf, a node box per slot of the least power-of-two tree over the
+    leaves, no deeper than the kernel's stack, and 1 to LOOSE_MAX loose
+    positions."""
+    if tree is None:
+        raise ValueError(f"{name} stream has no tree: the kernel walks "
+                         "render/mega.chunk_tree's layout")
+    leaf = tree.leaf
+    if not 0 < leaf <= STREAM_CHUNK or leaf & (leaf - 1) or n_rows % leaf:
+        raise ValueError(f"{name} stream tree leaves of {leaf} rows do not "
+                         f"tile {n_rows} rows")
+    slots = tree_slots(n_rows // leaf)
+    if slots > 1 << TREE_DEPTH_MAX:
+        raise ValueError(f"{name} stream tree of {slots} leaves is deeper "
+                         f"than {TREE_DEPTH_MAX} levels")
+    for what, t, shape, dtype in (
+            ("nodes", tree.nodes, (2 * slots, 8), torch.float32),
+            ("masks", tree.masks, (n_rows // leaf, -(-leaf // 32)),
+             torch.int32),
+            ("loose", tree.loose, (min(LOOSE_MAX, n_rows),), torch.int32)):
+        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous()):
+            raise ValueError(
+                f"{name} stream tree {what} must be a contiguous {shape} "
+                f"{dtype} tensor on {dev}, got {tuple(t.shape)} {t.dtype} "
+                f"on {t.device}")
+
+
 def _check_chunks(chunks: KernelChunks, sph, tri, grid, dev) -> None:
     """The streamed tables' shapes, types and devices: each stream's rows
-    as wide as its table, whole chunks of them, a box per chunk and a row
+    as wide as its table, whole chunks of them, a box per chunk, a row
     of ``perm`` per sorted row (its ids index the table by construction,
-    ``render/mega.chunk_tables``)."""
+    ``render/mega.chunk_tables``) and the walk's layout over them
+    (``_check_tree``)."""
     if chunks.tri is not None and grid is not None:
         raise ValueError("a triangle table is either streamed or gridded, "
                          "not both")
@@ -1015,6 +1353,7 @@ def _check_chunks(chunks: KernelChunks, sph, tri, grid, dev) -> None:
                     f"{name} stream {what} must be a contiguous {shape} "
                     f"{dtype} tensor on {dev}, got {tuple(t.shape)} "
                     f"{t.dtype} on {t.device}")
+        _check_tree(name, st.tree, nc * STREAM_CHUNK, dev)
 
 
 def _check_args(par, ipar, sph, tri, mat, lig, acc, u_planes, spp, width,

@@ -59,8 +59,19 @@ of whole warps of each large case's rays and draws, the live spans per
 warp-segment and the warp's union of live rows per span
 (``MKS.live_stats``); ``--soft-excused`` runs ``chip_smoke.py``'s phase
 22 comparisons of kernel 2s with its plain version under each variant
-and prints how many rays each excused. ``--sass`` dumps
-``cuobjdump -sass`` of the named variants' libraries into ``--out`` and
+and prints how many rays each excused. ``--only stream`` builds kernel
+1's grid-mode half and kernels 2 and 3 and times only the streamed cases
+above, the torus of ``chip_smoke.py``'s HOUSE_SEGMENTS (5,322 triangles)
+in path mode at block 64, kernel 2's large-table instance on the streamed
+torus's step cotangent with ("sph", "mat", "tri"), each streamed scene's
+``chunk_tables`` build (host clock, synchronised) and grid shape 1 in
+direct mode at block 64 (whose instances share no code with the streamed
+ones), each variant at each of ``--leaf-sizes`` (``MK.STREAM_LEAF``, the
+streamed tables' leaf rows, rebuilt per size). Its harness uses only what
+a tree from before the streamed tree walk has too, so a parent commit is
+timed by copying this file into its checkout and running it there.
+``--sass`` dumps ``cuobjdump -sass`` of the named variants' libraries
+into ``--out`` and
 prints, per kernel, the count of each memory, atomic, warp-level and
 special-function (MUFU) opcode, and the instructions around the first
 shared-memory atomic. Every build's ``ptxas -v`` report is printed.
@@ -116,6 +127,8 @@ LIBS = (("megakernel", MK._SIGNATURES, ()),
         *(("megakernel_soft", MKS._SIGNATURES, flags)
           for flags in MKS.SOFT_BUILDS))
 SOFT_LIBS = LIBS[-len(MKS.SOFT_BUILDS):]
+# kernel 1's grid-mode half (the streamed instances) and kernels 2 and 3
+STREAM_LIBS = LIBS[1:4]
 # kernel 2s past 64 objects runs seconds per launch at 1024^2: it is timed
 # on the torus scene at this size
 SOFT_LARGE_SIZE = 256
@@ -369,14 +382,62 @@ def measure_direct(d: DirectCase) -> dict:
     }
 
 
-def stream_cases(dev) -> dict:
-    """Kernel 1's streamed cases on chip_smoke.py's phase 21 scenes."""
+def stream_cases(dev, house: bool = False) -> dict:
+    """Kernel 1's streamed cases on chip_smoke.py's phase 21 scenes (with
+    ``house`` also its torus of HOUSE_SEGMENTS, 5,322 triangles)."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
-    return {"torus": Case(chip_smoke._stream_scene("torus", SIZE, SIZE, dev),
-                          dev, block=64),
-            "spheres": Case(chip_smoke._stream_scene("spheres", SIZE, SIZE,
-                                                     dev), dev, step=False)}
+    cases = {"torus": Case(chip_smoke._stream_scene("torus", SIZE, SIZE,
+                                                    dev), dev, block=64),
+             "spheres": Case(chip_smoke._stream_scene("spheres", SIZE, SIZE,
+                                                      dev), dev, step=False)}
+    if house:
+        cases["house"] = Case(chip_smoke._stream_scene("house", SIZE, SIZE,
+                                                       dev), dev, step=False,
+                              block=64)
+    return cases
+
+
+def rechunk(cases: dict) -> None:
+    """Build each case's streamed tables again (after MK.STREAM_LEAF
+    changed)."""
+    for c in cases.values():
+        c.chunks = mega.chunk_tables(c.scene, c.cfg, c.tables[1],
+                                     c.tables[2])
+
+
+def chunk_build_ms(case: Case, reps: int = 10) -> float:
+    """Host-clock ms of one ``chunk_tables`` call on the case's tables,
+    synchronised (every streamed call builds its chunks)."""
+    mega.chunk_tables(case.scene, case.cfg, case.tables[1], case.tables[2])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        mega.chunk_tables(case.scene, case.cfg, case.tables[1],
+                          case.tables[2])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def measure_stream_only(cases: dict, grid: Case) -> dict:
+    """``--only stream``: kernel 1's streamed cases (``measure_stream``),
+    the house-size torus at block 64, kernel 2's large-table instance on
+    the streamed torus's step cotangent, the chunk build of each scene,
+    and grid shape 1 in direct mode, whose instances share no code with
+    the streamed ones."""
+    house = cases["house"]
+    out = measure_stream(cases)
+    out.update({
+        "k1_stream_house_path_B64_16pass_ms_per_pass": time_ms(
+            lambda: house.k1(n_passes=16), reps=1, per=16),
+        "k2_large_stream_torus_step_g_sph_mat_tri_ms": time_ms(
+            lambda: cases["torus"].k2(cases["torus"].g,
+                                      ("sph", "mat", "tri")), reps=2),
+        "k1_grid_torus_direct_B64_16pass_ms_per_pass": time_ms(
+            lambda: grid.direct(16), reps=5, per=16),
+        **{f"chunk_build_{k}_ms": chunk_build_ms(c)
+           for k, c in cases.items()}})
+    return out
 
 
 def measure_stream(cases: dict) -> dict:
@@ -620,6 +681,58 @@ def measure_soft_only(cases: dict, first: dict) -> dict:
     return out
 
 
+def hold_records(key: str, cases: dict, first: dict) -> None:
+    """Kernel 1's record of one pass (b5 at block 64 on the torus scenes,
+    block 0 on the spheres) under this variant and leaf size against the
+    first one's: the champion ids and occlusion bits that differ (any
+    visiting order gives the least (t, original id) pair, so none should)
+    and the accumulator's max |d|."""
+    for name, c in cases.items():
+        got = MK.pathtrace_pass(c.tables[0], c.ipar, *c.tables[1:],
+                                torch.zeros_like(c.acc), None, record=True,
+                                **c.kw, **c._mode())
+        want = first.setdefault(name, got)
+        n_ids = int((got[1] != want[1]).sum())
+        n_occ = int((got[2] != want[2]).sum())
+        d = (got[0] - want[0]).abs().max().item()
+        print(f"  {key} {name} record vs the first: ids differ {n_ids} of "
+              f"{got[1].numel()}, occlusion bits differ {n_occ}, max|d acc| "
+              f"{d:.3g}", flush=True)
+
+
+def stream_only(dev, smi: str, libs: dict, labels: list, out: Path,
+                leaf_sizes: str) -> int:
+    """``--only stream``: each variant at each leaf size in turns (first
+    to last, then back), the leaf sizes where the package has them (a
+    parent tree before the streamed tree walk has no leaves: it is timed
+    at its own layout)."""
+    use(libs[labels[0]])
+    cases = stream_cases(dev, house=True)
+    grid = grid_cases(dev)["torus"]
+    leaves = ([int(n) for n in leaf_sizes.split(",") if n]
+              if hasattr(MK, "STREAM_LEAF") else []) or [None]
+    results: dict = {"card": smi, "turns": []}
+    first: dict = {}
+    for order in (labels, labels[::-1]):
+        turn = {}
+        for label in order:
+            use(libs[label])
+            for leaf in leaves:
+                key = label if leaf is None else f"{label}/leaf{leaf}"
+                if leaf is not None:
+                    MK.STREAM_LEAF = leaf
+                    rechunk(cases)
+                hold_records(key, cases, first)
+                turn[key] = measure_stream_only(cases, grid)
+                print(f"{key}: " + ", ".join(
+                    f"{k} {v:.6g}" for k, v in turn[key].items()),
+                    flush=True)
+        results["turns"].append(turn)
+    (out / "profile.json").write_text(json.dumps(results, indent=1))
+    print(f"card: [{smi}]")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variant", action="append", default=[],
@@ -628,8 +741,15 @@ def main(argv=None) -> int:
     ap.add_argument("--sass", action="append", default=[],
                     help="dump the SASS of this variant's libraries")
     ap.add_argument("--out", default=str(BUILD / "out"))
-    ap.add_argument("--only", choices=("all", "soft"), default="all",
-                    help="soft: build and time kernel 2s alone")
+    ap.add_argument("--only", choices=("all", "soft", "stream"),
+                    default="all",
+                    help="soft: build and time kernel 2s alone; stream: "
+                         "kernel 1's streamed cases, kernel 2's streamed "
+                         "step and grid shape 1's direct mode alone")
+    ap.add_argument("--leaf-sizes", default="",
+                    help="with --only stream: the streamed tables' leaf "
+                         "sizes to time each variant at (MK.STREAM_LEAF; "
+                         "default the package's)")
     ap.add_argument("--soft-large-sizes", default="256",
                     help="with --only soft: film sizes of the torus case")
     ap.add_argument("--soft-sphere-sizes", default="",
@@ -654,7 +774,8 @@ def main(argv=None) -> int:
         ("tree", str(_build.CSRC))]
     variants = [(label, Path(src).resolve()) for label, src in variants]
     t0 = time.perf_counter()
-    libs_used = LIBS if args.only == "all" else SOFT_LIBS
+    libs_used = {"all": LIBS, "soft": SOFT_LIBS,
+                 "stream": STREAM_LIBS}[args.only]
     jobs = [(label, src, *lib) for label, src in variants
             for lib in libs_used if (src / f"{lib[0]}.cu").exists()]
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
@@ -703,6 +824,8 @@ def main(argv=None) -> int:
         (out / "profile.json").write_text(json.dumps(results, indent=1))
         print(f"card: [{smi}]")
         return 0
+    if args.only == "stream":
+        return stream_only(dev, smi, libs, labels, out, args.leaf_sizes)
     use(libs[labels[0]])
     cornell = Case(cornell_box(cols=SIZE, rows=SIZE, device=dev), dev)
     spheres = Case(sphere_field(N_SPHERES, cols=SIZE, rows=SIZE,

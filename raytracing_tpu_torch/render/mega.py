@@ -177,6 +177,14 @@ def _morton_codes(cen: torch.Tensor, pmin: torch.Tensor,
     return spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
 
 
+def _pad_width(scene: Scene) -> torch.Tensor:
+    """The widening of a streamed table's boxes: ``MK.CHUNK_PAD`` of the
+    scene's scale (the largest coordinate of its bounds and camera eye)."""
+    scale = torch.cat([scene.bounds_min.abs(), scene.bounds_max.abs(),
+                       scene.camera.eye.abs()]).amax()
+    return MK.CHUNK_PAD * scale
+
+
 def _stream(scene: Scene, table: torch.Tensor, cen: torch.Tensor,
             lo: torch.Tensor, hi: torch.Tensor) -> MK.Stream:
     """A table's ``Stream``: its rows in the stable argsort order of the
@@ -184,7 +192,8 @@ def _stream(scene: Scene, table: torch.Tensor, cen: torch.Tensor,
     rows to whole chunks, and that order (``perm``, padded with -1); per
     chunk the box over its rows' boxes [lo, hi] (N, 3) (rows with lo =
     +inf, hi = -inf take no part), widened by ``MK.CHUNK_PAD`` of the
-    scene's scale on every side. All on the table's device, with no host
+    scene's scale on every side; and the kernel's walk over them
+    (``chunk_tree``). All on the table's device, with no host
     synchronisation."""
     n, dev = table.shape[0], table.device
     C = MK.STREAM_CHUNK
@@ -197,14 +206,84 @@ def _stream(scene: Scene, table: torch.Tensor, cen: torch.Tensor,
     perm = torch.cat([order.to(torch.int32),
                       torch.full((pad,), -1, dtype=torch.int32, device=dev)])
     inf = torch.full((pad, 3), torch.inf, device=dev)
-    lo = torch.cat([lo[order], inf]).reshape(nc, C, 3).amin(1)
-    hi = torch.cat([hi[order], -inf]).reshape(nc, C, 3).amax(1)
-    scale = torch.cat([scene.bounds_min.abs(), scene.bounds_max.abs(),
-                       scene.camera.eye.abs()]).amax()
-    w = MK.CHUNK_PAD * scale
-    boxes = torch.cat([lo - w, hi + w, torch.zeros((nc, 2), device=dev)],
+    lo = torch.cat([lo[order], inf])
+    hi = torch.cat([hi[order], -inf])
+    w = _pad_width(scene)
+    boxes = torch.cat([lo.reshape(nc, C, 3).amin(1) - w,
+                       hi.reshape(nc, C, 3).amax(1) + w,
+                       torch.zeros((nc, 2), device=dev)],
                       -1).to(torch.float32).contiguous()
-    return MK.Stream(rows=rows, boxes=boxes, perm=perm)
+    return MK.Stream(rows=rows, boxes=boxes, perm=perm,
+                     tree=chunk_tree(scene, lo, hi, perm))
+
+
+def chunk_tree(scene: Scene, lo: torch.Tensor, hi: torch.Tensor,
+               perm: torch.Tensor) -> MK.StreamTree:
+    """The kernel's walk over a streamed table's Morton copy
+    (``MK.StreamTree``), from the sorted rows' boxes [lo, hi] (N, 3) and
+    ``perm`` (N,) (-1: padding), N whole chunks of rows; on their device,
+    with no host synchronisation.
+
+    * Loose rows: a row whose box's longest side is at least
+      ``MK.LOOSE_SHARE`` of the scene box's longest side (a wall of a room;
+      none on a field of small spheres), the ``MK.LOOSE_MAX`` longest of
+      them. Every ray tests them first, so their champion's t culls the
+      tree from the start, and they widen no box.
+    * Leaves: consecutive runs of ``MK.STREAM_LEAF`` sorted rows; a leaf's
+      box is the least box over its other rows' boxes (none: the empty box,
+      pmin +inf, pmax -inf), widened by ``MK.CHUNK_PAD`` of the scene's
+      scale as the chunks' are (an axis-aligned wall's box has no
+      thickness), and its mask names those rows.
+    * Nodes: an implicit binary tree over the leaves in Morton order,
+      padded with empty leaves to a power of two; a node's box is the least
+      box over its children's, one reshape per level.
+
+    Why the culling is exact: the slab test (``MK.chunk_overlap``, the
+    kernel's ``node_enter``) rounds monotonically, so in float arithmetic
+    a box that contains another overlaps every window the inner one
+    overlaps, and each node contains the widened box of every row under
+    it. A leaf is thus visited by every ray whose window the chunk of
+    Morton rows around its hit would pass, and a candidate wins on the
+    least (t, original id) pair whatever the order of the visits."""
+    n, dev = perm.shape[0], perm.device
+    leaf = MK.STREAM_LEAF
+    n_leaves = n // leaf
+    slots = MK.tree_slots(n_leaves)
+    inf = torch.tensor(torch.inf, device=dev)
+    side = (hi - lo).amax(1)
+    room = (scene.bounds_max - scene.bounds_min).amax()
+    score = torch.where((perm >= 0) & (side >= MK.LOOSE_SHARE * room), side,
+                        -inf)
+    top, pos = torch.topk(score, min(MK.LOOSE_MAX, n))
+    picked = top > -inf
+    loose = torch.where(picked, pos, -1).to(torch.int32)
+    is_loose = torch.zeros(n, dtype=torch.bool, device=dev).scatter(
+        0, pos, picked)
+    live = (perm >= 0) & ~is_loose
+    w = _pad_width(scene)
+    lo_l = torch.where(live[:, None], lo, inf).reshape(n_leaves, leaf,
+                                                        3).amin(1) - w
+    hi_l = torch.where(live[:, None], hi, -inf).reshape(n_leaves, leaf,
+                                                         3).amax(1) + w
+    empty = torch.full((slots - n_leaves, 3), torch.inf, device=dev)
+    levels = [(torch.cat([lo_l, empty]), torch.cat([hi_l, -empty]))]
+    while levels[0][0].shape[0] > 1:
+        a, b = levels[0]
+        levels.insert(0, (a.reshape(-1, 2, 3).amin(1),
+                          b.reshape(-1, 2, 3).amax(1)))
+    lo_n = torch.cat([torch.zeros((1, 3), device=dev)]
+                     + [a for a, _ in levels])
+    hi_n = torch.cat([torch.zeros((1, 3), device=dev)]
+                     + [b for _, b in levels])
+    nodes = torch.cat([lo_n, hi_n, torch.zeros((2 * slots, 2), device=dev)],
+                      -1).to(torch.float32).contiguous()
+    word = min(leaf, 32)
+    bits = (live.reshape(n_leaves, -1, word).to(torch.int64)
+            << torch.arange(word, device=dev)).sum(-1)
+    masks = torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(
+        torch.int32)
+    return MK.StreamTree(nodes=nodes, masks=masks.contiguous(), loose=loose,
+                         leaf=leaf)
 
 
 def tri_chunk_tables(scene: Scene, tri: torch.Tensor) -> MK.Stream:

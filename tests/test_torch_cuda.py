@@ -924,6 +924,69 @@ def test_streamed_spheres_kernel_matches_brute(cuda, monkeypatch):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("leaf", [1, 2, 4, 8, 16, 32, 64, 128])
+def test_streamed_kernel_every_leaf_size(cuda, monkeypatch, leaf):
+    """The tree walk at each leaf size the kernel takes (MK.STREAM_LEAF),
+    on the house-size torus (5,322 triangles: 5,376 leaves of 1 row down
+    to 42 of 128, trees 13 to 6 levels deep) at 64x48 b3: the --fmad=false
+    build equals the plain streamed version on every ray, id and bit."""
+    from torch_grid_scenes import cornell_torus
+    monkeypatch.setattr(MK, "STREAM_LEAF", leaf)
+    scene = cornell_torus(64, 48, 83, 32, device=cuda)
+    cfg = RenderConfig(width=64, height=48, bounces=3, use_megakernel=True)
+    tables = mega.scene_tables(scene, cfg)
+    chunks = mega.chunk_tables(scene, cfg, tables[1], tables[2])
+    assert chunks.tri.tree.leaf == leaf
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    u = mega.u_planes_for_pass(pt.init_state(cfg, cuda)["key"], 0, cfg,
+                               scene.lights.count, cuda)
+    kw = dict(spp=1, width=64, bounces=3, two_sided=False,
+              normalize_emitter=True, seed=cfg.seed, record=True,
+              chunks=chunks)
+    zeros = torch.zeros((cfg.total_rays, 3), device=cuda)
+    exact = MK.pathtrace_pass(tables[0], ipar, *tables[1:], zeros.clone(),
+                              u, build_flags=("--fmad=false",), **kw)
+    want = MK.pathtrace_pass_reference(tables[0], ipar, *tables[1:], zeros,
+                                       u, **kw)
+    torch.cuda.synchronize()
+    assert (want[1] >= tables[1].shape[0]).any()
+    for a, b in zip(exact, want):
+        assert torch.equal(a, b)
+
+
+def test_streamed_kernel_rejects_malformed_tree(cuda):
+    """The C entry checks the walk's layout itself (pathtrace.cuh
+    stream_ok): a leaf of 48 rows, a tree with too few leaf slots or with
+    a count that is not a power of two, or no loose list returns
+    cudaErrorInvalidValue and launches nothing."""
+    from torch_grid_scenes import cornell_torus
+    scene = cornell_torus(16, 16, 31, 16, device=cuda)
+    cfg = RenderConfig(width=16, height=16, bounces=0, use_megakernel=True)
+    par, sph, tri, mat, lig = mega.scene_tables(scene, cfg)
+    chunks = mega.chunk_tables(scene, cfg, sph, tri)
+    lib = MK._lib(None, chunks, ())
+    acc = torch.zeros((cfg.total_rays, 3), device=cuda)
+    p = MK._ptr
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for field, value in (("leaf", 48), ("n_slots", 2), ("n_slots", 24),
+                         ("n_loose", 0)):
+        gargs, streams = MK._grid_args(None, chunks, sph.shape[0],
+                                       tri.shape[0])
+        setattr(streams[0], field, value)
+        err = lib.rt_direct_pass(
+            p(par), p(sph), sph.shape[0], p(tri), tri.shape[0], p(mat),
+            mat.shape[0], p(lig), lig.shape[0], p(acc), acc.shape[0], 0,
+            None, 0, 7, 0, 0, 1, 1, 16, 0, None, None, *gargs, 0, stream)
+        assert err == 1, (field, value, err)
+    gargs, streams = MK._grid_args(None, chunks, sph.shape[0], tri.shape[0])
+    err = lib.rt_direct_pass(
+        p(par), p(sph), sph.shape[0], p(tri), tri.shape[0], p(mat),
+        mat.shape[0], p(lig), lig.shape[0], p(acc), acc.shape[0], 0, None,
+        0, 7, 0, 0, 1, 1, 16, 0, None, None, *gargs, 0, stream)
+    torch.cuda.synchronize()
+    assert err == 0 and acc.max() > 0
+
+
 def test_streamed_blocked_layout_is_bit_equal(cuda):
     """The blocked layout over streamed tables: B = 16 renders B = 0's
     image bit for bit."""
