@@ -342,6 +342,14 @@ GRID_PASSES = 16           # passes per call (bench.py BENCH_PASSES)
 GRID_BLOCK = 64            # assign07's (and bench.py's mesh scenes') block
 GRID_REPS = 5
 GRID_TRAIN_STEPS = 5
+# kernel 1's grid mode before the cell-major copies (the walk that tested
+# every item of each cell through the CSR, one dependent load at a time),
+# as this script measured it on one H100 80GB HBM3 at 700.00 W: ms per
+# pass (kernel alone) and of the recording launch. Printed beside this
+# run's times (phase 18); no gate reads them
+BEFORE_GRID_MS = {"shape 1": 0.314348, "shape 2": 6.99592,
+                  "shape 2 recording": 7.41169, "shape 3": 1.42714,
+                  "shape 3 recording": 1.60053}
 MESH_WRT = ("sph", "mat", "tri")
 STREAM_SPHERES = GRID_SPHERES   # streamed: no sphere grid (phase 21)
 HOUSE_SEGMENTS = (83, 32)  # 5,312 faces + 10 walls: BENCH_SCENE=house's 5,322
@@ -354,7 +362,7 @@ EDGE_STEPS = 10
 LARGE_W, LARGE_H = 24, 16  # kernel vs plain: 384 rays
 # kernel 2s's rays that float32 does not pin down (_ray_moves)
 UNSTABLE_MOVE = 1e-3
-BRUTE_W, BRUTE_H, BRUTE_BOUNCES = 8, 6, 2  # the streamed torus vs brute
+BRUTE_W, BRUTE_H, BRUTE_BOUNCES = 8, 6, 1  # the streamed torus vs brute
 LARGE_STEPS = 5            # timed hard steps per route at 1024^2
 CAP_W, CAP_H = 16, 8       # one launch of each route at DIFF_TABLE_MAX
 LIVE_BLOCKS, LIVE_BLOCK = 8, 1024  # kernel 2s's live rows, counted on rays
@@ -2237,10 +2245,42 @@ def _grid_cfg(shape: str, w: int, h: int, mode: str, **kw):
 
 
 def _grid_bytes(tables, grid) -> int:
-    return _table_bytes(tables) + sum(
-        4 * (g.cell_offsets.numel() + g.item_indices.numel())
-        for g in list(grid.tri) + ([grid.sph] if grid.sph is not None
-                                   else []))
+    """The tables, each triangle grid's cell-major copy as the kernel reads
+    it (the copied rows' original ids, the cell table and the node boxes;
+    the copied rows are the tables' rows, counted once) and the sphere
+    grid's CSR."""
+    csr = ([grid.sph.cell_offsets, grid.sph.item_indices]
+           if grid.sph is not None else [])
+    return _table_bytes(tables) + 4 * sum(
+        t.numel() for t in [t for cp in grid.copies
+                            for t in (cp.perm, cp.cell, cp.nodes)] + csr)
+
+
+def _grid_counts(work: dict, walk: dict) -> dict:
+    """The two counts of a grid-mode pass's tests that a bound may price:
+    the march's (the plain version's ``work``: the cell steps and the
+    distinct (ray, item) tests of each cell's every item) and the cell
+    walk's (``MK.grid_walk_work``: the same steps, the node slab tests of
+    the cells' trees and the row tests of the leaves they visit), a shadow
+    ray's up to its first occluder in the walk's."""
+    rows = ("sph_tests", "tri_tests")
+    return {"march": {"cells": work["cells"], "node_tests": 0,
+                      **{k: work.get(k, 0) for k in rows}},
+            "walk": {"cells": walk["cells"],
+                     "node_tests": walk.get("node_tests", 0),
+                     **{k: walk.get(k, 0) for k in rows}}}
+
+
+def _grid_bound(ops_of, nbytes: float) -> dict:
+    """The bound of a grid-mode pass priced by each count of
+    ``_grid_counts`` (``ops_of(count)``): ``bound_ms`` the smaller,
+    ``bound_by`` its limit, ``bound_from`` its count, and each count's
+    bound beside it."""
+    b = {o: _bound(ops_of(o), nbytes) for o in ("march", "walk")}
+    best = min(b, key=lambda o: b[o]["bound_ms"])
+    return {**b[best], "bound_from": best,
+            "march_bound_ms": b["march"]["bound_ms"],
+            "walk_bound_ms": b["walk"]["bound_ms"]}
 
 
 def _grid_ops(w: dict, work: dict, grid, n_sph: int, n_lig: int,
@@ -2248,10 +2288,11 @@ def _grid_ops(w: dict, work: dict, grid, n_sph: int, n_lig: int,
     """FP32 operations of a grid-mode pass: the brute prefix as _k1_ops and
     _direct_ops count it (the spheres unless gridded, the triangles below
     ``start``), one walk set-up per grid for each traced segment and shadow
-    ray, and the walks' cell steps and item tests as the plain march
-    counted them (``work``, scaled to this pass's rays): each item once per
-    ray and walk however many of the walk's cells hold it, no side cell
-    (their visits and the raw tests are printed beside)."""
+    ray, and the walks' cell steps, node slab tests (OPS_CHUNK each, the
+    streamed trees' test) and row tests of one count of ``_grid_counts``
+    (``work``, scaled to this pass's rays; the march's each item once per
+    ray and walk however many of the walk's cells hold it, no side cell:
+    their visits and the raw tests are printed beside)."""
     n_s = 0 if grid.sph is not None else n_sph
     n_t = grid.start
     tests = n_s * OPS_SPHERE_TEST + n_t * OPS_TRIANGLE_TEST
@@ -2263,6 +2304,7 @@ def _grid_ops(w: dict, work: dict, grid, n_sph: int, n_lig: int,
            + w["free"] * tests + w["occluded"] * one
            + (seg + w["shadow"]) * n_grids * OPS_WALK
            + work["cells"] * OPS_CELL
+           + work.get("node_tests", 0) * OPS_CHUNK
            + work.get("sph_tests", 0) * OPS_SPHERE_TEST
            + work.get("tri_tests", 0) * OPS_TRIANGLE_TEST)
     if direct:
@@ -2305,7 +2347,10 @@ def grid_vs_plain(dev, shape: str, mode: str) -> dict:
     within 1e-6) in direct mode and, on the torus, in path mode at depth 1
     (the brute loops launch per object: ~20 s for a b5 pass over the torus
     whatever the film; the CPU tests hold the roulette's grid to brute
-    force). Returns max |d|, the plain ms and the plain march's work."""
+    force); in "direct" and "path" the kernel's cell walk counted on the
+    plain version's rays (``MK.grid_walk_work``), which must keep every
+    champion and occlusion bit of the plain version. Returns max |d|, the
+    plain ms and the two counts (``_grid_counts``; none in "rr")."""
     import torch
     from raytracing_tpu_torch import replace
     from raytracing_tpu_torch.core import rng
@@ -2317,7 +2362,7 @@ def grid_vs_plain(dev, shape: str, mode: str) -> dict:
     scene = _grid_scene(shape, w, h, dev)
     cfg = _grid_cfg(shape, w, h, mode)
     tables = mega.scene_tables(scene, cfg)
-    grid = mega.grid_tables(scene)
+    grid = mega.grid_tables(scene, tables[1], tables[2])
     ipar = torch.tensor([0, 0], dtype=torch.int32)
     zeros = torch.zeros((cfg.total_rays, 3), device=dev)
     work = {}
@@ -2335,6 +2380,8 @@ def grid_vs_plain(dev, shape: str, mode: str) -> dict:
         exact = (MK.direct_pass(*tables, zeros.clone(), u, grid=grid,
                                 build_flags=EXACT_FLAGS, **kw),)
         brute = (want, (MK.direct_pass_reference(*tables, zeros, u, **kw),))
+        walk_kw = dict(kw, bounces=0, normalize_emitter=False,
+                       seed=cfg.seed, mode="direct")
     else:
         u = mega.u_planes_for_pass(pt.init_state(cfg, dev)["key"], 0, cfg,
                                    scene.lights.count, dev)
@@ -2357,6 +2404,7 @@ def grid_vs_plain(dev, shape: str, mode: str) -> dict:
         if mode == "path":
             _check(torch.equal(run(), got[0]), f"{shape}: the recording "
                    "launch's acc differs from the path launch's")
+        walk_kw = {k: v for k, v in kw.items() if k != "record"}
         brute = None
         if shape == "torus" and mode == "path":
             c1 = replace(cfg, bounces=1)
@@ -2366,6 +2414,11 @@ def grid_vs_plain(dev, shape: str, mode: str) -> dict:
                 tables[0], ipar, *tables[1:], zeros, u1, record=True,
                 grid=g, **_pass_kw(c1)) for g in (grid, None))
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # the roulette's walk is held on the CPU (tests/test_torch_grid_tree.py)
+    walk = (MK.grid_walk_work(tables[0], ipar, *tables[1:], zeros, u,
+                              grid=grid, **walk_kw) if mode != "rr" else None)
+    walk_s = time.perf_counter() - t0
     err = (got[0] - want[0]).abs()
     beyond = (err > TOL + TOL * want[0].abs()).any(-1).double().mean().item()
     gm, wm = got[0].double().mean().item(), want[0].double().mean().item()
@@ -2390,6 +2443,26 @@ def grid_vs_plain(dev, shape: str, mode: str) -> dict:
         _check(bsame and bmax <= 1e-6,
                f"{shape} {mode}: grid plain version != brute plain version")
     print(line)
+    if walk is None:
+        _check(bool(torch.isfinite(got[0]).all()) and got[0].max().item() > 0,
+               f"{shape} {mode}: grid acc not finite or black")
+        _check(same, f"{shape} {mode}: the --fmad=false build differs from "
+               "the plain version")
+        return {"max_abs_err": err.max().item(), "plain_ms": plain_ms}
+    walks = walk["traces"] + walk["shadows"]
+    kind = "sph_tests" if shape == "spheres" else "tri_tests"
+    print(f"phase 17 grid mode {shape} {mode} {w}x{h}: per live trace or "
+          f"shadow ray ({walks}), {walk['cells'] / walks:.4g} cells; the "
+          f"march {work[kind] / walks:.4g} distinct row tests "
+          f"({work[kind + '_raw'] / walks:.4g} in all), the cell walk "
+          f"{walk.get('node_tests', 0) / walks:.4g} node and "
+          f"{walk[kind] / walks:.4g} row tests, "
+          f"{walk.get('leaf_visits', 0) / walks:.4g} leaves; champions "
+          f"missed {walk['misses']}, occlusion bits missed "
+          f"{walk['occ_misses']} ({walk_s:.3g} s): "
+          f"{ {k: int(v) for k, v in walk.items()} }")
+    _check(walk["misses"] == 0 and walk["occ_misses"] == 0,
+           f"{shape} {mode}: the cell walk culled a champion or occluder")
     _check(bool(torch.isfinite(got[0]).all()) and got[0].max().item() > 0,
            f"{shape} {mode}: grid acc not finite or black")
     _check(same, f"{shape} {mode}: the --fmad=false build differs from the "
@@ -2401,8 +2474,12 @@ def grid_vs_plain(dev, shape: str, mode: str) -> dict:
         d = {"beyond": beyond, "rel": rel, "ids": ids, "ids0": ids0}
         _check(all(d[k] <= SPHERE_GATES[k] for k in d),
                f"{shape} {mode}: {d}, limits {SPHERE_GATES}")
+    if len(got) > 1:
+        _check(bool((got[1] >= -1).all()) and bool(
+            (got[1] < tables[1].shape[0] + tables[2].shape[0]).all()),
+            f"{shape} {mode}: recorded ids outside the original rows")
     return {"max_abs_err": err.max().item(), "plain_ms": plain_ms,
-            "work": work}
+            "work": _grid_counts(work, walk)}
 
 
 def _scaled(work: dict, factor: float) -> dict:
@@ -2428,7 +2505,7 @@ def grid_direct_main(dev, smi: str, work: dict) -> dict:
     base = _grid_cfg("torus", MAIN_W, MAIN_H, "direct", n_slabs=3)
     n_rays = base.total_rays * (1 + scene.lights.count) * GRID_PASSES
     tables = mega.scene_tables(scene, base)
-    grid = mega.grid_tables(scene)
+    grid = mega.grid_tables(scene, tables[1], tables[2])
     key = rng.base_key(base.seed)
     res = {}
     for block in (GRID_BLOCK, 0, 0, GRID_BLOCK):
@@ -2493,17 +2570,25 @@ def grid_direct_main(dev, smi: str, work: dict) -> dict:
         torch.zeros_like(zeros), u, grid=grid, record=True,
         **_pass_kw(replace(base, bounces=0)))
     w = _pass_work(ids, occs, scene.lights.count, tables[1].shape[0])
-    ops = _grid_ops(w, _scaled(work, base.total_rays / (SMALL_W * SMALL_H)),
-                    grid, tables[1].shape[0], scene.lights.count, True)
-    bound = _bound(ops, 24 * base.total_rays + _grid_bytes(tables, grid))
+    scale = base.total_rays / (SMALL_W * SMALL_H)
+    priced = {o: _grid_ops(w, _scaled(work[o], scale), grid,
+                           tables[1].shape[0], scene.lights.count, True)
+              for o in work}
+    bound = _grid_bound(priced.__getitem__, 24 * base.total_rays
+                        + _grid_bytes(tables, grid))
+    ops = priced[bound["bound_from"]]
     k_b = min(x[1] for x in res[GRID_BLOCK]) / GRID_PASSES
     k_0 = min(x[1] for x in res[0]) / GRID_PASSES
     print(f"phase 18 config 3's shape per pass: kernel B = {GRID_BLOCK} "
-          f"{k_b:.6g} ms, B = 0 {k_0:.6g} ms (best of two turns); plain "
-          f"version {plain_ms:.6g} ms, max|d acc| {err.max().item():.6g}, "
-          f"rays beyond {TOL:g} {beyond:.6%}, mean rel {rel:.3g}; bound "
-          f"{ops / base.total_rays:.6g} FP32 operations per ray -> "
-          f"{bound['bound_ms']:.6g} ms ({bound['bound_by']}), share "
+          f"{k_b:.6g} ms, B = 0 {k_0:.6g} ms (best of two turns; before the "
+          f"cell-major copies {BEFORE_GRID_MS['shape 1']:.6g} ms at B = "
+          f"{GRID_BLOCK}); plain version {plain_ms:.6g} ms, max|d acc| "
+          f"{err.max().item():.6g}, rays beyond {TOL:g} {beyond:.6%}, mean "
+          f"rel {rel:.3g}; bound {ops / base.total_rays:.6g} FP32 operations "
+          f"per ray -> {bound['bound_ms']:.6g} ms ({bound['bound_by']}, from "
+          f"the {bound['bound_from']} count: the march's "
+          f"{bound['march_bound_ms']:.6g} ms, the cell walk's "
+          f"{bound['walk_bound_ms']:.6g} ms), share "
           f"{bound['bound_ms'] / k_b:.3%}; image -> {out}")
     return {"launches": res[GRID_BLOCK][1][3], "ms": k_b,
             "plain_ms": plain_ms, "max_abs_err": err.max().item(), **bound}
@@ -2520,22 +2605,44 @@ def grid_path_main(dev, smi: str, shape: str, work: dict) -> tuple:
     scene = _grid_scene(shape, MAIN_W, MAIN_H, dev)
     cfg = _grid_cfg(shape, MAIN_W, MAIN_H, "path", mega_block=block,
                     mega_grad_wrt=MESH_WRT if shape == "torus" else TRAIN_WRT)
-    grid = mega.grid_tables(scene)
+    tables = mega.scene_tables(scene, cfg)
+    grid = mega.grid_tables(scene, tables[1], tables[2])
     scale = cfg.total_rays / (SMALL_W * SMALL_H)
     n_sph = scene.spheres.count
     name = ("cornell + torus" if shape == "torus"
             else f"sphere_field({GRID_SPHERES})")
     sph_grid = (f" + sphere grid {grid.sph.n}" if grid.sph is not None
                 else "")
-    return _path_main(
+    priced = {}
+
+    def ops_of(w):
+        priced.update({o: _grid_ops(w, _scaled(work[o], scale), grid, n_sph,
+                                    scene.lights.count, False)
+                       for o in work})
+        return min(priced.values())
+
+    fwd, k3 = _path_main(
         dev, smi, 18, name, scene, cfg,
         f"grid mode (kernel grids {[g.n for g in grid.tri]}{sph_grid})",
-        accel=lambda sc, tables: {"grid": grid},
-        ops_of=lambda w: _grid_ops(w, _scaled(work, scale), grid, n_sph,
-                                   scene.lights.count, False),
-        bytes_of=lambda tables: _grid_bytes(tables, grid),
+        accel=lambda sc, tabs: {"grid": mega.grid_tables(sc, tabs[1],
+                                                         tabs[2])},
+        ops_of=ops_of, bytes_of=lambda tabs: _grid_bytes(tabs, grid),
         gates=((0.01, 1e-5) if shape == "torus"
                else (SPHERE_GATES["beyond"], SPHERE_GATES["rel"])))
+    fwd.update(_grid_bound(priced.__getitem__, 24 * cfg.total_rays
+                           + _grid_bytes(tables, grid)))
+    label = "shape 2" if shape == "torus" else "shape 3"
+    before, before_rec = (BEFORE_GRID_MS[label],
+                          BEFORE_GRID_MS[label + " recording"])
+    print(f"phase 18 {name} ({label}): kernel {fwd['ms']:.6g} ms/pass, "
+          f"recording {k3['rec_ms']:.6g} ms; before the cell-major copies "
+          f"{before:.6g} / {before_rec:.6g} ms (x{before / fwd['ms']:.3g} / "
+          f"x{before_rec / k3['rec_ms']:.3g}); bound {fwd['bound_ms']:.6g} ms"
+          f" from the {fwd['bound_from']} count (the march's "
+          f"{fwd['march_bound_ms']:.6g} ms, the cell walk's "
+          f"{fwd['walk_bound_ms']:.6g} ms), share "
+          f"{fwd['bound_ms'] / fwd['ms']:.3%}")
+    return fwd, k3
 
 
 def _path_main(dev, smi: str, phase: int, name: str, scene, cfg, how: str,
@@ -2762,7 +2869,8 @@ def kernel3_on_record(dev, shape: str, w: int, h: int, wrt,
     cfg = (_stream_cfg if stream else _grid_cfg)(shape, w, h, "path")
     tables = mega.scene_tables(scene, cfg)
     accel = ({"chunks": mega.chunk_tables(scene, cfg, tables[1], tables[2])}
-             if stream else {"grid": mega.grid_tables(scene)})
+             if stream else {"grid": mega.grid_tables(scene, tables[1],
+                                                      tables[2])})
     ipar = torch.tensor([0, 0], dtype=torch.int32)
     u = mega.u_planes_for_pass(pt.init_state(cfg, dev)["key"], 0, cfg,
                                scene.lights.count, dev)
@@ -3944,8 +4052,8 @@ def large_vs_plain(dev, shape: str, soft: bool, rr: bool, wrt,
                                                gg, planes, **kw)
         count = lambda: MKS.soft_large_launches  # noqa: E731
     else:
-        replay = dict(grid=mega.grid_tables(scene) if grid else None,
-                      chunks=chunks)
+        replay = dict(grid=mega.grid_tables(scene, tables[1], tables[2])
+                      if grid else None, chunks=chunks)
         pchunks = None if brute else _plain_chunks(mega, MK, scene, tables)
 
         def plain(gg):
@@ -5048,7 +5156,9 @@ def main() -> int:
         "max_abs_err": max(d18["max_abs_err"], g17_err["torus"]),
         "ms": d18["ms"], "plain_ms": d18["plain_ms"],
         "bound_ms": d18["bound_ms"], "bound_by": d18["bound_by"],
-        "library_ms": None}, {
+        "bound_from": d18["bound_from"],
+        "march_bound_ms": d18["march_bound_ms"],
+        "walk_bound_ms": d18["walk_bound_ms"], "library_ms": None}, {
         "name": "pathtrace_pass (megakernel, grid mode: mesh grid)",
         "route": "cuda", "source": "raytracing_tpu_torch/csrc/megakernel.cu",
         "replaces": "raytracing_tpu/ops/pallas/megakernel.py:932",
@@ -5056,7 +5166,9 @@ def main() -> int:
         "max_abs_err": max(p18t["max_abs_err"], g17_err["torus"]),
         "ms": p18t["ms"], "plain_ms": p18t["plain_ms"],
         "bound_ms": p18t["bound_ms"], "bound_by": p18t["bound_by"],
-        "library_ms": None}, {
+        "bound_from": p18t["bound_from"],
+        "march_bound_ms": p18t["march_bound_ms"],
+        "walk_bound_ms": p18t["walk_bound_ms"], "library_ms": None}, {
         "name": "pathtrace_pass (megakernel, grid mode: sphere grid)",
         "route": "cuda", "source": "raytracing_tpu_torch/csrc/megakernel.cu",
         "replaces": "raytracing_tpu/ops/pallas/megakernel.py:932",
@@ -5064,7 +5176,9 @@ def main() -> int:
         "max_abs_err": max(p18s["max_abs_err"], g17_err["spheres"]),
         "ms": p18s["ms"], "plain_ms": p18s["plain_ms"],
         "bound_ms": p18s["bound_ms"], "bound_by": p18s["bound_by"],
-        "library_ms": None}, {
+        "bound_from": p18s["bound_from"],
+        "march_bound_ms": p18s["march_bound_ms"],
+        "walk_bound_ms": p18s["walk_bound_ms"], "library_ms": None}, {
         "name": "pathtrace_pass_bwd_champ (champion adjoint, grid record: "
                 "sphere grid)",
         "route": "cuda",

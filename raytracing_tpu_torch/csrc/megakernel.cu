@@ -93,15 +93,27 @@
 // 3-axis DDA) and stops at its own champion, so no cell order is baked.
 // The brute prefix stays in shared memory: the triangles below the grids'
 // start (cornell's walls) and the spheres unless the sphere grid is on.
-// The gridded rows, the whole sphere table under the sphere grid and the
-// CSR arrays are read from global memory (__ldg for the CSR; the rows by
-// plain loads): a 992-triangle table is 127 KB and 8192 spheres 256 KB,
-// which L2 holds. Champions are the least (t, id) pair, so a record names
-// the row the brute loops would (the original row: sphere i or n_sph +
-// fold index j, never a duplicated cell-major row as JAX's diff tables
-// do), and kernel 3 differentiates it unchanged. What bounds it: the
-// dependent CSR and row loads of the walk, whose cells and items differ
-// from lane to lane; simple and correct first (its times in PERF.md).
+// A triangle grid's rows are read from its cell-major copy
+// (render/mega.py grid_cells, rebuilt on the card every call from the
+// call's tables): a visited cell's rows are contiguous, in leaves of
+// ops/megakernel.py GRID_LEAF rows under a box tree of the cell's own,
+// which each lane walks nearest child first over its live window (the
+// kCells instances, pathtrace.cuh cell_walk). The sphere grid's cells are
+// walked through the CSR, every item from the whole table (a tree per
+// cell, walked per lane or per warp, and the copy's rows alone measured
+// slower there: a sphere's test is cheaper than a node's, the copy holds
+// each sphere 2.85 times and L1 holds less of it). What bounded the walk
+// before the copies (one H100 80GB HBM3, 700 W, profile_kernels --only
+// grid): every item of a visited cell read through its index, one
+// dependent load at a time, 74-146 triangles per cell of the torus scene;
+// the cell walk tests ~8 node boxes and ~0.5 rows per walk there, and
+// took the mesh grid's path pass from 7.03 to 5.87 ms. Its instances ask
+// for 7 blocks per SM (72 registers, kCellMinBlocks; direct mode 8):
+// left free, ptxas gave them 128 registers, and 16 warps per SM ran the
+// walk slower than 28 with spills (PERF.md §6, row 1c). Champions are the
+// least (t, id) pair, so a record names the row the brute loops would
+// (the original row: sphere i or n_sph + fold index j, never a copied or
+// duplicated row), and kernel 3 differentiates it unchanged.
 //
 // Streamed tables (JAX's Morton chunks, megakernel.py:874-935 and
 // :1226-1270; pathtrace.cuh Stream): a triangle table past 64 rows outside
@@ -176,6 +188,16 @@ using namespace rt;
 
 constexpr int kBlock = 128;
 constexpr int kMaxPasses = 64;  // pass keys carried in the parameter block
+// Blocks per SM that the grid-mode build's instances ask registers for
+// (__launch_bounds__): path mode walking cell trees or streams 7 (72
+// registers), path mode over the sphere grid alone and direct mode over
+// grids 8 (64). Left free, ptxas gave the cell walk's instances 128
+// registers (the mesh grid's path pass 6.48 against 5.87 ms at 7 blocks),
+// the streamed ones 118 (+19-30% per pass) and the sphere grid's 76
+// (1.55 against 1.39 ms at 8 blocks): 16-24 warps per SM ran these walks
+// slower than 28-32 with spills (PERF.md §6, row 1c).
+constexpr int kCellMinBlocks = 7;
+constexpr int kGridMinBlocks = 8;
 constexpr int kWideSpheres = 512;  // from here the 8-row sphere loop
 
 struct Acc {
@@ -203,7 +225,7 @@ struct Rec {
 // throughput *= albedo. A hit with no valid material adds nothing.
 // Returns the occlusion bit (false without a valid hit, as JAX's dead
 // window gives).
-template <int kRows, bool kGrid, bool kStream>
+template <int kRows, bool kGrid, bool kStream, bool kCells>
 __device__ __forceinline__ bool nee(const Tables& T, const Grids* G,
                                     const Draws& D, int slot, int li,
                                     const Hit& h, float eps, Acc& A) {
@@ -211,7 +233,7 @@ __device__ __forceinline__ bool nee(const Tables& T, const Grids* G,
   const float* l = T.lig + li * kLig;
   const Shadow s = shadow_ray(T, D, slot, li, h, eps);
   const bool occ =
-      anyhit<kRows, kGrid, kStream>(T, s.so, s.sd, 0.0f, s.dist, G);
+      anyhit<kRows, kGrid, kStream, kCells>(T, s.so, s.sd, 0.0f, s.dist, G);
   // geometric term with the distance to the light CENTRE (reference quirk)
   const V3 lp = ld3(l), ln = ld3(l + 3);
   const V3 q = h.p - lp;
@@ -238,7 +260,7 @@ __device__ __forceinline__ bool nee(const Tables& T, const Grids* G,
 // of the schedule, so acc is what pass after pass would give. kRR: Russian
 // roulette from depth rr_start on (a template parameter, so the build
 // without it keeps its registers and code).
-template <int kRows, bool kRR, bool kGrid, bool kStream>
+template <int kRows, bool kRR, bool kGrid, bool kStream, bool kCells>
 __device__ void passes(const Tables& T, const Grids* G, Draws& D,
                        const Rec& R,
                        const uint32_t* keys, int n_passes, int rid_g,
@@ -275,7 +297,7 @@ __device__ void passes(const Tables& T, const Grids* G, Draws& D,
       maxt = inf_f();
     }
     depth += 1;
-    maxt = trace<kRows, kGrid, kStream>(T, o, d, mint, maxt, h, G);
+    maxt = trace<kRows, kGrid, kStream, kCells>(T, o, d, mint, maxt, h, G);
     R.id(depth, h.obj);  // before the emitter test, as JAX records it
     if (fresh) {
       // emitter hits on the primary segment only; a hit ends the path
@@ -291,8 +313,9 @@ __device__ void passes(const Tables& T, const Grids* G, Draws& D,
     }
     for (int li = 0; li < L; ++li)
       R.occ(depth * L + li,
-            nee<kRows, kGrid, kStream>(T, G, D, nee_slot(depth, li, L, kRR),
-                                       li, h, eps, A));
+            nee<kRows, kGrid, kStream, kCells>(T, G, D,
+                                               nee_slot(depth, li, L, kRR),
+                                               li, h, eps, A));
     // a path without a valid hit stays dead: nothing more accumulates
     bool more = depth < bounces && h.m >= 0.0f;
     if (kRR && more && depth >= rr_start) {
@@ -379,9 +402,11 @@ __device__ __forceinline__ Tables stage_launch_tables(
 // block in place instead of copying it to each thread's stack.
 // kRows: sphere rows per iteration of the object loops (pathtrace.cuh);
 // kRR: Russian roulette; kGrid: grid mode's global tables; kStream: the
-// streamed chunks as well
-template <int kRows, bool kRR, bool kGrid, bool kStream>
-__global__ void __launch_bounds__(kBlock)
+// streamed chunks as well; kCells: triangle grids, walked through their
+// cell-major copies (the instances without them keep their code)
+template <int kRows, bool kRR, bool kGrid, bool kStream, bool kCells>
+__global__ void __launch_bounds__(
+    kBlock, kGrid ? (kCells || kStream ? kCellMinBlocks : kGridMinBlocks) : 1)
     pathtrace_kernel(const __grid_constant__ Params p) {
   extern __shared__ float4 smem4[];  // 16-byte aligned
   const Tables T = stage_launch_tables<kGrid>(
@@ -416,7 +441,7 @@ __global__ void __launch_bounds__(kBlock)
   A.r = a[0];
   A.g = a[1];
   A.b = a[2];
-  passes<kRows, kRR, kGrid, kStream>(T, &p.grids, D, R,
+  passes<kRows, kRR, kGrid, kStream, kCells>(T, &p.grids, D, R,
                             p.u == nullptr ? p.keys : nullptr,
                      p.n_passes, rid_g, p.spp, p.width, p.bounces,
                      p.rr_start, p.normalize_emitter != 0, A);
@@ -498,8 +523,9 @@ struct DirectParams {
   Grids grids;     // grid mode (kernel with kGrid)
 };
 
-template <int kRows, bool kGrid, bool kStream, bool kRecord>
-__global__ void __launch_bounds__(kBlock)
+template <int kRows, bool kGrid, bool kStream, bool kRecord, bool kCells>
+__global__ void __launch_bounds__(
+    kBlock, kGrid && !kStream ? kGridMinBlocks : 1)
     direct_kernel(const __grid_constant__ DirectParams p) {
   extern __shared__ float4 smem4[];  // 16-byte aligned
   float* smem = reinterpret_cast<float*>(smem4);
@@ -561,7 +587,7 @@ __global__ void __launch_bounds__(kBlock)
     float mint, maxt;
     camera_ray_uv(T.par, u0, u1, col, row, o, d, mint, maxt);
     Hit h;
-    trace<kRows, kGrid, kStream>(T, o, d, mint, maxt, h, &p.grids);
+    trace<kRows, kGrid, kStream, kCells>(T, o, d, mint, maxt, h, &p.grids);
     if (kRecord) R.id(0, h.obj);
     if (!(h.m >= 0.0f)) {
       // no valid hit: no shadow ray, recorded unoccluded (JAX's dead
@@ -575,8 +601,8 @@ __global__ void __launch_bounds__(kBlock)
       D.pair(k, 1 + li, u0, u1);
       const Shadow s = shadow_ray_uv(T, u0, u1, li, h, eps);
       const bool occ =
-          anyhit<kRows, kGrid, kStream>(T, s.so, s.sd, 0.0f, s.dist,
-                                        &p.grids);
+          anyhit<kRows, kGrid, kStream, kCells>(T, s.so, s.sd, 0.0f, s.dist,
+                                                &p.grids);
       if (kRecord) R.occ(li, occ);
       const float cosx = fminf(fmaxf(dot(s.sd, h.n), 0.0f), 1.0f);
       const float shade =
@@ -593,18 +619,20 @@ __global__ void __launch_bounds__(kBlock)
 
 // direct_kernel's instance for a launch: the 8-row sphere loop from
 // kWideSpheres resident spheres, the streamed instance when a stream is
-// passed (grid-mode build only).
+// passed, the cell walk's when a triangle grid is (grid-mode build only).
 using DirectKernel = void (*)(DirectParams);
 
-template <bool kRecord>
+template <bool kRecord, bool kCells>
 DirectKernel direct_instance(bool wide, bool streamed) {
 #if RT_GRID_MODE
-  if (streamed) return direct_kernel<2, true, true, kRecord>;
+  if (streamed) return direct_kernel<2, true, true, kRecord, kCells>;
+  return wide ? direct_kernel<8, true, false, kRecord, kCells>
+              : direct_kernel<2, true, false, kRecord, kCells>;
 #else
   (void)streamed;
+  return wide ? direct_kernel<8, false, false, kRecord, false>
+              : direct_kernel<2, false, false, kRecord, false>;
 #endif
-  return wide ? direct_kernel<8, kGridBuild, false, kRecord>
-              : direct_kernel<2, kGridBuild, false, kRecord>;
 }
 
 }  // namespace
@@ -639,7 +667,7 @@ extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
       (ids && n_lig > 0 && !occs) || block < 0 || (block && !grid_mode) ||
       !set_grids(p.grids, grids, grid_mode ? n_grids : 0,
                  grid_mode ? sph_grid : 0, grid_mode ? tri_start : n_tri,
-                 grid_mode ? streams : nullptr, sph, n_sph, tri, n_tri))
+                 grid_mode ? streams : nullptr, sph, n_sph, n_tri))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
   p.par = par;
@@ -676,14 +704,22 @@ extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
   // one, where the wide loop's registers cost more occupancy than it saves
   const bool wide = n_sph_smem >= kWideSpheres;
   void (*kernel)(Params) =
-      rr ? (wide ? pathtrace_kernel<8, true, kGridBuild, false>
-                 : pathtrace_kernel<2, true, kGridBuild, false>)
-         : (wide ? pathtrace_kernel<8, false, kGridBuild, false>
-                 : pathtrace_kernel<2, false, kGridBuild, false>);
+      rr ? (wide ? pathtrace_kernel<8, true, kGridBuild, false, false>
+                 : pathtrace_kernel<2, true, kGridBuild, false, false>)
+         : (wide ? pathtrace_kernel<8, false, kGridBuild, false, false>
+                 : pathtrace_kernel<2, false, kGridBuild, false, false>);
 #if RT_GRID_MODE
-  if (p.grids.tri_st.n || p.grids.sph_st.n)  // the streamed instances
-    kernel = rr ? pathtrace_kernel<2, true, true, true>
-                : pathtrace_kernel<2, false, true, true>;
+  const bool streamed = p.grids.tri_st.n || p.grids.sph_st.n;
+  if (p.grids.n_tri > 0)  // the cell walk's instances
+    kernel = streamed ? (rr ? pathtrace_kernel<2, true, true, true, true>
+                            : pathtrace_kernel<2, false, true, true, true>)
+             : rr ? (wide ? pathtrace_kernel<8, true, true, false, true>
+                          : pathtrace_kernel<2, true, true, false, true>)
+                  : (wide ? pathtrace_kernel<8, false, true, false, true>
+                          : pathtrace_kernel<2, false, true, false, true>);
+  else if (streamed)  // the streamed instances
+    kernel = rr ? pathtrace_kernel<2, true, true, true, false>
+                : pathtrace_kernel<2, false, true, true, false>;
 #endif
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -725,7 +761,7 @@ extern "C" int rt_direct_pass(const float* par, const float* sph, int n_sph,
       (ids && n_lig > 0 && !occs) ||
       !set_grids(p.grids, grids, grid_mode ? n_grids : 0,
                  grid_mode ? sph_grid : 0, grid_mode ? tri_start : n_tri,
-                 grid_mode ? streams : nullptr, sph, n_sph, tri, n_tri))
+                 grid_mode ? streams : nullptr, sph, n_sph, n_tri))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
   p.par = par;
@@ -761,8 +797,12 @@ extern "C" int rt_direct_pass(const float* par, const float* sph, int n_sph,
       (u_planes ? 0 : 2 * sizeof(uint32_t) * n_passes * (1 + n_lig));
   const bool wide = n_sph_smem >= kWideSpheres;
   const bool streamed = p.grids.tri_st.n || p.grids.sph_st.n;
-  const DirectKernel kernel = ids ? direct_instance<true>(wide, streamed)
-                                  : direct_instance<false>(wide, streamed);
+  const bool cells = p.grids.n_tri > 0;
+  const DirectKernel kernel =
+      ids ? (cells ? direct_instance<true, true>(wide, streamed)
+                   : direct_instance<true, false>(wide, streamed))
+          : (cells ? direct_instance<false, true>(wide, streamed)
+                   : direct_instance<false, false>(wide, streamed));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

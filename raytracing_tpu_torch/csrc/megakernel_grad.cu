@@ -93,7 +93,7 @@ constexpr int kMinBlocks = 4;
 // streamed chunks and grids of GR as well (kernel 1's kGrid / kStream
 // loops); the sweep reads the champions' rows from R, the whole tables
 // (the same as T in the instances over tables of at most 64 objects).
-template <int kRows, bool kRR, bool kGlobal>
+template <int kRows, bool kRR, bool kGlobal, bool kCells = kGlobal>
 __device__ void ray_adjoint(const Tables& T, const Tables& R,
                             const Grids* GR, const Draws& D, bool active,
                             int rid_g, int spp, int width, int bounces,
@@ -112,7 +112,7 @@ __device__ void ray_adjoint(const Tables& T, const Tables& R,
     float mint, maxt;
     camera_ray(T.par, D, col, row, samp, spp, o, d, mint, maxt);
     Hit h;
-    maxt = trace<kRows, kGlobal, kGlobal>(T, o, d, mint, maxt, h, GR);
+    maxt = trace<kRows, kGlobal, kGlobal, kCells>(T, o, d, mint, maxt, h, GR);
     emit = emitter_hit(T, o, d, mint, maxt);
     V3 tp = mk(1.0f, 1.0f, 1.0f);
     for (int s = 0; s <= bounces && emit < 0; ++s) {
@@ -131,8 +131,8 @@ __device__ void ray_adjoint(const Tables& T, const Tables& R,
       for (int li = 0; li < L; ++li) {
         const Shadow sh =
             shadow_ray(T, D, nee_slot(s, li, L, kRR), li, h, eps);
-        if (anyhit<kRows, kGlobal, kGlobal>(T, sh.so, sh.sd, 0.0f, sh.dist,
-                                            GR))
+        if (anyhit<kRows, kGlobal, kGlobal, kCells>(T, sh.so, sh.sd, 0.0f,
+                                                    sh.dist, GR))
           q.occ |= 1u << li;
         tp = mk(tp.x * al.x, tp.y * al.y, tp.z * al.z);
       }
@@ -144,7 +144,7 @@ __device__ void ray_adjoint(const Tables& T, const Tables& R,
       if (kRR && s >= rr_start && !rr_survive(D, s, L, tp)) break;
       float cx, cy, cz;
       bounce_ray(D, bounce_slot(s, L, kRR), h, eps, cx, cy, cz, o, d);
-      trace<kRows, kGlobal, kGlobal>(T, o, d, 0.0f, inf_f(), h, GR);
+      trace<kRows, kGlobal, kGlobal, kCells>(T, o, d, 0.0f, inf_f(), h, GR);
     }
   }
   // an emitter hit ends the path; nothing else depends on the tables
@@ -159,7 +159,7 @@ __device__ void ray_adjoint(const Tables& T, const Tables& R,
 // replay the primary trace and each light's shadow ray with kernel 1's
 // loops, as ray_adjoint replays a path, then sweep the one segment.
 // Warp-uniform, as ray_adjoint.
-template <int kRows, bool kGlobal>
+template <int kRows, bool kGlobal, bool kCells = kGlobal>
 __device__ void direct_adjoint(const Tables& T, const Tables& R,
                                const Grids* GR, const DirectSlots& S,
                                bool active, int rid_g, int spp, int width,
@@ -177,7 +177,7 @@ __device__ void direct_adjoint(const Tables& T, const Tables& R,
     float mint, maxt;
     camera_ray(T.par, S.lens(), col, row, samp, spp, o, d, mint, maxt);
     Hit h;
-    trace<kRows, kGlobal, kGlobal>(T, o, d, mint, maxt, h, GR);
+    trace<kRows, kGlobal, kGlobal, kCells>(T, o, d, mint, maxt, h, GR);
     live = h.m >= 0.0f;
     if (live) {
       q.o = o;
@@ -191,8 +191,8 @@ __device__ void direct_adjoint(const Tables& T, const Tables& R,
         float u0, u1;
         S.pair(1 + li, u0, u1);
         const Shadow sh = shadow_ray_uv(T, u0, u1, li, h, eps);
-        if (anyhit<kRows, kGlobal, kGlobal>(T, sh.so, sh.sd, 0.0f, sh.dist,
-                                            GR))
+        if (anyhit<kRows, kGlobal, kGlobal, kCells>(T, sh.so, sh.sd, 0.0f,
+                                                    sh.dist, GR))
           q.occ |= 1u << li;
       }
     }
@@ -201,23 +201,23 @@ __device__ void direct_adjoint(const Tables& T, const Tables& R,
 }
 
 // The block's rays (for_rays): each ray's adjoint adds into G and gp; in
-// direct mode (kDirect) direct_adjoint's.
-template <int kRows, bool kRR, bool kGlobal, bool kDirect>
+// direct mode (kDirect) direct_adjoint's. kCells: the replay walks
+// triangle grids (kernel 1's cell walk; instances of their own).
+template <int kRows, bool kRR, bool kGlobal, bool kDirect,
+          bool kCells = kGlobal>
 __device__ __forceinline__ void rays(const AdjParams& p, const Tables& T,
                                      const Tables& R, const Grids* GR,
                                      const Grads& G, const Tape& tape,
                                      float (&gp)[kNPar]) {
   for_rays<kRR>(p, [&](const Draws& D, bool active, int rid_g, V3 g) {
     if constexpr (kDirect)
-      direct_adjoint<kRows, kGlobal>(T, R, GR, direct_slots(D, p.dkeys,
-                                                            rid_g),
-                                     active, rid_g, p.spp, p.width, g, G,
-                                     gp);
+      direct_adjoint<kRows, kGlobal, kCells>(
+          T, R, GR, direct_slots(D, p.dkeys, rid_g), active, rid_g, p.spp,
+          p.width, g, G, gp);
     else
-      ray_adjoint<kRows, kRR, kGlobal>(T, R, GR, D, active, rid_g, p.spp,
-                                       p.width, p.bounces, p.rr_start,
-                                       p.normalize_emitter != 0, g, G, tape,
-                                       gp);
+      ray_adjoint<kRows, kRR, kGlobal, kCells>(
+          T, R, GR, D, active, rid_g, p.spp, p.width, p.bounces, p.rr_start,
+          p.normalize_emitter != 0, g, G, tape, gp);
   });
 }
 
@@ -300,7 +300,7 @@ struct LargeParams {
   int sph_smem;  // spheres staged in shared memory (else global)
 };
 
-template <int kRows, bool kRR, bool kGlobal, bool kDirect>
+template <int kRows, bool kRR, bool kGlobal, bool kDirect, bool kCells>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
     pathtrace_bwd_large_kernel(const __grid_constant__ LargeParams q) {
   const AdjParams& p = q.p;
@@ -340,7 +340,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   float gp[kNPar];
 #pragma unroll
   for (int i = 0; i < kNPar; ++i) gp[i] = 0.0f;
-  rays<kRows, kRR, kGlobal, kDirect>(p, T, R, &q.grids, G, tape, gp);
+  rays<kRows, kRR, kGlobal, kDirect, kCells>(p, T, R, &q.grids, G, tape, gp);
   if (p.wrt & kWPar) add_par(g_par, gp);
   __syncthreads();
   if (p.wrt & kWPar) flush(p.dpar, g_par, kNPar);
@@ -418,7 +418,7 @@ extern "C" int rt_pathtrace_bwd_large(
   if (bounces < 0 || bounces >= kMaxSeg || n_lig > kMaxLights ||
       (direct && (bounces || rr)) ||
       !set_grids(q.grids, grids, n_grids, sph_grid, tri_start, streams, sph,
-                 n_sph, tri, n_tri))
+                 n_sph, n_tri))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0 || wrt == 0) return static_cast<int>(cudaGetLastError());
   q.p = adj_params(par, sph, n_sph, tri, n_tri, mat, n_mat, lig, n_lig, g,
@@ -437,16 +437,26 @@ extern "C" int rt_pathtrace_bwd_large(
                fixed + sph_bytes <= kSmemMax;
   const size_t smem = fixed + (q.sph_smem ? sph_bytes : 0);
   const bool wide = !global && n_sph >= kWideSpheres;
-  void (*kernel)(LargeParams) =
-      direct ? (global ? pathtrace_bwd_large_kernel<2, false, true, true>
-                : wide ? pathtrace_bwd_large_kernel<8, false, false, true>
-                       : pathtrace_bwd_large_kernel<2, false, false, true>)
-      : global ? (rr ? pathtrace_bwd_large_kernel<2, true, true, false>
-                     : pathtrace_bwd_large_kernel<2, false, true, false>)
-      : wide   ? (rr ? pathtrace_bwd_large_kernel<8, true, false, false>
-                     : pathtrace_bwd_large_kernel<8, false, false, false>)
-               : (rr ? pathtrace_bwd_large_kernel<2, true, false, false>
-                     : pathtrace_bwd_large_kernel<2, false, false, false>);
+  // the global instances with triangle grids walk kernel 1's cell trees
+  // (kCells), the others keep their code and registers
+  const bool cells = q.grids.n_tri > 0;
+  void (*kernel)(LargeParams);
+  if (global && cells)
+    kernel = direct ? pathtrace_bwd_large_kernel<2, false, true, true, true>
+             : rr   ? pathtrace_bwd_large_kernel<2, true, true, false, true>
+                    : pathtrace_bwd_large_kernel<2, false, true, false, true>;
+  else if (global)
+    kernel = direct ? pathtrace_bwd_large_kernel<2, false, true, true, false>
+             : rr   ? pathtrace_bwd_large_kernel<2, true, true, false, false>
+                    : pathtrace_bwd_large_kernel<2, false, true, false, false>;
+  else if (wide)
+    kernel = direct ? pathtrace_bwd_large_kernel<8, false, false, true, false>
+             : rr   ? pathtrace_bwd_large_kernel<8, true, false, false, false>
+                    : pathtrace_bwd_large_kernel<8, false, false, false, false>;
+  else
+    kernel = direct ? pathtrace_bwd_large_kernel<2, false, false, true, false>
+             : rr   ? pathtrace_bwd_large_kernel<2, true, false, false, false>
+                    : pathtrace_bwd_large_kernel<2, false, false, false, false>;
   int grid = 0;
   const cudaError_t err = fit_grid(kernel, kBlock, smem, n_rays, grid);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -133,14 +133,40 @@ struct Hit {
 // host). One grid: the CSR offsets (C + 1) and payload of item ids (the
 // absolute row of the triangle fold, or the sphere row), in global memory;
 // its box [pmin, pmax], cell width (1e-30 on a degenerate axis) and
-// resolution. The layout is the ctypes structure of ops/megakernel.py.
+// resolution; and the walk's cell-major copy of its rows (render/mega.py
+// grid_cells, ops/megakernel.py CellCopy): `rows`, each cell's items' rows
+// cell after cell (in the Morton order of their centres within a cell,
+// each cell's run padded with zero rows to whole leaves), `perm` the
+// original row of each copied row, `cell` per cell {first copied row, its
+// tree's node 0, leaf slots, items}, and `node` the cells' box trees (node
+// k of a cell at node + 8 (node 0 + k): the root 1, the children of k 2 k
+// and 2 k + 1, leaf j the node slots + j over the cell's rows [j leaf,
+// min((j + 1) leaf, items)); a box with pmin.x > pmax.x is empty). A cell
+// of at most one leaf (slots 0 or 1) has no tree: its rows are tested
+// directly. The layout is the ctypes structure of ops/megakernel.py.
 constexpr int kMaxGrids = 8;
+constexpr int kCellLeafMax = 32;  // a cell leaf's rows: one mask word
 struct GridDesc {
   const int* off;
   const int* items;
   float pmin[3], width[3], pmax[3];
   int n[3];
+  const float* rows;
+  const int* perm;
+  const int4* cell;
+  const float* node;
+  int leaf;
 };
+
+// Whether grid g's layout is one the kernel takes: a triangle grid's
+// cell-major copy (its cells' rows and trees are checked by the wrapper,
+// ops/megakernel.py _check_copy), the sphere grid's CSR.
+inline bool grid_ok(const GridDesc& g, bool tri) {
+  if (!(g.n[0] > 0 && g.n[1] > 0 && g.n[2] > 0 && g.off)) return false;
+  if (!tri) return g.items != nullptr;
+  return g.rows && g.perm && g.cell && g.node && g.leaf > 0 &&
+         g.leaf <= kCellLeafMax && (g.leaf & (g.leaf - 1)) == 0;
+}
 // A streamed table (JAX's Morton chunks; ops/megakernel.py Stream, built
 // on the card by render/mega.py chunk_tables): its n rows in Morton order
 // in global memory (the padding rows past n are zero rows, which no ray
@@ -183,13 +209,13 @@ inline bool stream_ok(const Stream& S) {
 // The tables of a launch that live in global memory: triangle grids g[0,
 // n_tri), then the sphere grid when sph != 0, and the streamed tables
 // (tri_st, sph_st). Triangles [0, tri_start) and (without the sphere grid
-// or a sphere stream) the spheres stay brute force in shared memory; the
-// gridded rows are read from the whole tables in global memory.
+// or a sphere stream) the spheres stay brute force in shared memory; a
+// triangle grid's rows are read from its cell-major copy, the sphere
+// grid's from the whole sphere table sph_tab in global memory.
 struct Grids {
   GridDesc g[kMaxGrids];
   int n_tri, sph, tri_start;
   const float* sph_tab;
-  const float* tri_tab;
   Stream tri_st, sph_st;
   // spheres in shared memory (the brute loops') out of a table of n_sph
   __host__ __device__ int sph_resident(int n_sph) const {
@@ -202,22 +228,23 @@ struct Grids {
 // the HOST array `grids` of n_grids descriptors (n_grids - sph_grid
 // triangle grids, then the sphere grid when sph_grid != 0) and the HOST
 // array `streams` (null, or the triangles' and the spheres' Stream, n = 0
-// for a table that does not stream); sph and tri are the whole tables in
-// global memory. Returns false on bad arguments.
+// for a table that does not stream); sph is the whole sphere table in
+// global memory, n_sph and n_tri the tables' rows. Returns false on bad
+// arguments.
 inline bool set_grids(Grids& G, const GridDesc* grids, int n_grids,
                       int sph_grid, int tri_start, const Stream* streams,
-                      const float* sph, int n_sph, const float* tri,
-                      int n_tri) {
+                      const float* sph, int n_sph, int n_tri) {
   if (n_grids < 0 || n_grids > kMaxGrids || sph_grid < 0 || sph_grid > 1 ||
       sph_grid > n_grids || tri_start < 0 || (n_grids > 0 && !grids))
     return false;
-  for (int i = 0; i < kMaxGrids; ++i)
+  for (int i = 0; i < kMaxGrids; ++i) {
     G.g[i] = i < n_grids ? grids[i] : GridDesc{};
+    if (i < n_grids && !grid_ok(G.g[i], i < n_grids - sph_grid)) return false;
+  }
   G.n_tri = n_grids - sph_grid;
   G.sph = sph_grid;
   G.tri_start = tri_start;
   G.sph_tab = sph;
-  G.tri_tab = tri;
   G.tri_st = streams ? streams[0] : Stream{};
   G.sph_st = streams ? streams[1] : Stream{};
   // a streamed table is the whole table, and neither gridded nor resident
@@ -259,55 +286,47 @@ __device__ __forceinline__ bool node_enter(const float* nb, V3 o, V3 inv,
   return enter <= fminf(far, hi);
 }
 
-// The rows of stream S that a ray with live window [lo, hi()] may hit
+// The walks of an implicit binary tree of boxes (node k's box [pmin xyz,
+// pmax xyz, 0, 0] at node + 8 k, the root 1, the children of k 2 k and 2 k
+// + 1, leaf j the node n_slots + j) by a ray with live window [lo, hi()]
 // (hi() read at every test, so that a closer champion culls what is
-// left): loose(r) on each loose row, then the tree, and leaf(r0, m) on each
-// word of a visited leaf (r0 its first sorted row, m the rows that take
-// part). Stops and returns true where loose or leaf returns true. `<=`
-// throughout, so a tie at the champion's t is still tested. Two
-// schedules, each the faster on one kind of table (PERF.md, PR 14):
+// left): leaf(j) on each visited leaf, stopping and returning true where
+// it does. `<=` throughout, so a tie at the champion's t is still tested.
+// Two schedules, each the faster on one kind of table (PERF.md §6, rows
+// 1', 1'' and 1c):
 //
-// lane_walk (triangles): each lane walks its own tree, nearest child
-// first (the smaller entry; the other waits on a stack with its entry and
-// is dropped when popped past the window's end). A triangle's test is
-// costly, so a lane tests only the leaves its own window reaches.
-template <class Hi, class Loose, class Leaf>
-__device__ __forceinline__ bool lane_walk(const Stream& S, V3 o, V3 inv,
-                                          float lo, Hi hi, Loose loose,
+// lane_tree: each lane walks its own tree, nearest child first (the
+// smaller entry; the other waits on a stack with its entry and is dropped
+// when popped past the window's end). A triangle's test is costly, so a
+// lane tests only the leaves its own window reaches.
+template <class Hi, class Leaf>
+__device__ __forceinline__ bool lane_tree(const float* node, int n_slots,
+                                          V3 o, V3 inv, float lo, Hi hi,
                                           Leaf leaf) {
-  for (int k = 0; k < S.n_loose; ++k) {
-    const int r = __ldg(S.loose + k);
-    if (r < 0) break;
-    if (loose(r)) return true;
-  }
   int stack[kTreeDepth];
   float enter[kTreeDepth];
   int sp = 0;
-  int node = 1;
+  int k = 1;
   float e;
-  if (!node_enter(S.node + 8, o, inv, lo, hi(), e)) return false;
-  const int words = (S.leaf + 31) >> 5;
+  if (!node_enter(node + 8, o, inv, lo, hi(), e)) return false;
   while (true) {
-    if (node >= S.n_slots) {
-      const int j = node - S.n_slots;
-      for (int w = 0; w < words; ++w)
-        if (leaf(j * S.leaf + 32 * w, __ldg(S.mask + j * words + w)))
-          return true;
+    if (k >= n_slots) {
+      if (leaf(k - n_slots)) return true;
     } else {
       float e0, e1;
-      const float* c = S.node + 16 * node;
+      const float* c = node + 16 * k;
       const bool h0 = node_enter(c, o, inv, lo, hi(), e0);
       const bool h1 = node_enter(c + 8, o, inv, lo, hi(), e1);
       if (h0 && h1) {
         const int first = e1 < e0 ? 1 : 0;
-        stack[sp] = 2 * node + 1 - first;
+        stack[sp] = 2 * k + 1 - first;
         enter[sp] = first ? e0 : e1;
         ++sp;
-        node = 2 * node + first;
+        k = 2 * k + first;
         continue;
       }
       if (h0 || h1) {
-        node = 2 * node + (h0 ? 0 : 1);
+        k = 2 * k + (h0 ? 0 : 1);
         continue;
       }
     }
@@ -315,59 +334,43 @@ __device__ __forceinline__ bool lane_walk(const Stream& S, V3 o, V3 inv,
       if (sp == 0) return false;
       --sp;
     } while (!(enter[sp] <= hi()));
-    node = stack[sp];
+    k = stack[sp];
   }
 }
 
-// warp_walk (spheres): the warp walks the union of its lanes' trees as
-// one: a node is entered when any active lane's window overlaps it, the
-// child that more lanes enter nearer first first (the other waits on a
-// stack with each lane's entry and is dropped when popped past every
-// lane's window), a leaf's rows tested by the lanes whose own window
-// overlaps it; a lane that is done (an occluder found) drops out of the
-// votes, and the walk returns whether it is. A sphere's test is cheap and
-// a molecule's tree deep, so the walk's own steps, taken once per warp
-// without divergence, are what it saves. The warp is the active lanes at
-// the walk's start (__activemask): every vote inside is over them and
-// their control flow is uniform, so lanes of a warp that enter it apart
-// (paths at other segments, kernel 2's replay) each walk their own union,
-// and no lane waits on one outside it.
-template <class Hi, class Loose, class Leaf>
-__device__ __forceinline__ bool warp_walk(const Stream& S, V3 o, V3 inv,
-                                          float lo, Hi hi, Loose loose,
+// warp_tree: the lanes of `wm` (the caller's, each at the same tree, all
+// of them calling) walk the union of their trees as one: a node is entered
+// when any lane's window overlaps it, the child that more lanes enter
+// nearer first first (the other waits on a stack with each lane's entry
+// and is dropped when popped past every lane's window), a leaf tested by
+// the lanes whose own window overlaps it; a lane that is done (`done` on
+// entry, or an occluder found) drops out of the votes, and the walk
+// returns whether it is. A sphere's test is cheap and a molecule's tree
+// deep, so the walk's own steps, taken once per warp without divergence,
+// are what it saves. Every vote is over wm and the lanes' control flow is
+// uniform, so no lane waits on one outside wm.
+template <class Hi, class Leaf>
+__device__ __forceinline__ bool warp_tree(unsigned wm, const float* node,
+                                          int n_slots, V3 o, V3 inv,
+                                          float lo, Hi hi, bool done,
                                           Leaf leaf) {
-  bool done = false;
-  for (int k = 0; k < S.n_loose && !done; ++k) {
-    const int r = __ldg(S.loose + k);
-    if (r < 0) break;
-    done = loose(r);
-  }
   const float none = __int_as_float(0x7fffffff);  // NaN: no entry
   auto lim = [&]() { return done ? -inf_f() : hi(); };
-  const unsigned wm = __activemask();
   int stack[kTreeDepth];
   float enter[kTreeDepth];  // this lane's entry of each node on the stack
   int sp = 0;
-  int node = 1;
+  int k = 1;
   float e;
-  float mine = node_enter(S.node + 8, o, inv, lo, lim(), e) ? e : none;
+  float mine = node_enter(node + 8, o, inv, lo, lim(), e) ? e : none;
   if (!__any_sync(wm, mine <= lim())) return done;
-  const int words = (S.leaf + 31) >> 5;
   while (true) {
     const bool in = mine <= lim();
-    if (node >= S.n_slots) {
-      if (in) {
-        const int j = node - S.n_slots;
-        for (int w = 0; w < words; ++w)
-          if (leaf(j * S.leaf + 32 * w, __ldg(S.mask + j * words + w))) {
-            done = true;
-            break;
-          }
-      }
+    if (k >= n_slots) {
+      if (in && leaf(k - n_slots)) done = true;
     } else {
       float e0 = none, e1 = none;
       bool h0 = false, h1 = false;
-      const float* c = S.node + 16 * node;
+      const float* c = node + 16 * k;
       if (in) {
         h0 = node_enter(c, o, inv, lo, lim(), e0);
         h1 = node_enter(c + 8, o, inv, lo, lim(), e1);
@@ -378,15 +381,15 @@ __device__ __forceinline__ bool warp_walk(const Stream& S, V3 o, V3 inv,
         const int v1 = __popc(__ballot_sync(wm, h1 && (!h0 || e1 < e0)));
         const int v0 = __popc(__ballot_sync(wm, h0 && (!h1 || e0 <= e1)));
         const int first = v1 > v0 ? 1 : 0;
-        stack[sp] = 2 * node + 1 - first;
+        stack[sp] = 2 * k + 1 - first;
         enter[sp] = first ? (h0 ? e0 : none) : (h1 ? e1 : none);
         ++sp;
-        node = 2 * node + first;
+        k = 2 * k + first;
         mine = first ? (h1 ? e1 : none) : (h0 ? e0 : none);
         continue;
       }
       if (b0 || b1) {
-        node = 2 * node + (b0 ? 0 : 1);
+        k = 2 * k + (b0 ? 0 : 1);
         mine = b0 ? (h0 ? e0 : none) : (h1 ? e1 : none);
         continue;
       }
@@ -395,9 +398,55 @@ __device__ __forceinline__ bool warp_walk(const Stream& S, V3 o, V3 inv,
       if (sp == 0) return done;
       --sp;
     } while (!__any_sync(wm, enter[sp] <= lim()));
-    node = stack[sp];
+    k = stack[sp];
     mine = enter[sp];
   }
+}
+
+// The rows of stream S that a ray with live window [lo, hi()] may hit:
+// loose(r) on each loose row, then the tree, and leaf(r0, m) on each word
+// of a visited leaf (r0 its first sorted row, m the rows that take part);
+// stops and returns true where loose or leaf returns true. Triangles are
+// walked by each lane (lane_walk), spheres by the warp of the lanes active
+// at the walk's start (warp_walk, __activemask: lanes of a warp that enter
+// it apart, as paths at other segments or kernel 2's replay do, each walk
+// their own union).
+template <class Hi, class Loose, class Leaf>
+__device__ __forceinline__ bool lane_walk(const Stream& S, V3 o, V3 inv,
+                                          float lo, Hi hi, Loose loose,
+                                          Leaf leaf) {
+  for (int k = 0; k < S.n_loose; ++k) {
+    const int r = __ldg(S.loose + k);
+    if (r < 0) break;
+    if (loose(r)) return true;
+  }
+  const int words = (S.leaf + 31) >> 5;
+  return lane_tree(S.node, S.n_slots, o, inv, lo, hi, [&](int j) {
+    for (int w = 0; w < words; ++w)
+      if (leaf(j * S.leaf + 32 * w, __ldg(S.mask + j * words + w)))
+        return true;
+    return false;
+  });
+}
+template <class Hi, class Loose, class Leaf>
+__device__ __forceinline__ bool warp_walk(const Stream& S, V3 o, V3 inv,
+                                          float lo, Hi hi, Loose loose,
+                                          Leaf leaf) {
+  bool done = false;
+  for (int k = 0; k < S.n_loose && !done; ++k) {
+    const int r = __ldg(S.loose + k);
+    if (r < 0) break;
+    done = loose(r);
+  }
+  const int words = (S.leaf + 31) >> 5;
+  return warp_tree(__activemask(), S.node, S.n_slots, o, inv, lo, hi, done,
+                   [&](int j) {
+                     for (int w = 0; w < words; ++w)
+                       if (leaf(j * S.leaf + 32 * w,
+                                __ldg(S.mask + j * words + w)))
+                         return true;
+                     return false;
+                   });
 }
 
 // The walk of one ray's live window [mint, maxt] through grid g, cell by
@@ -626,37 +675,6 @@ __device__ __forceinline__ void tri_take(const float* q, int obj,
   }
 }
 
-// Triangle row q of a global table (a grid cell's item), object id obj,
-// as a closest-hit candidate of the ray (o, d) in [mint, maxt]: the brute
-// loop's arithmetic, the least (t, id) pair winning over the champion c
-// (tri_test and tri_take, above, split it for a streamed leaf; the grid
-// walk keeps this form, whose code its instances were timed with).
-__device__ __forceinline__ void tri_candidate(const float* q, int obj, V3 o,
-                                              V3 d, V3 oxd, bool two_sided,
-                                              float mint, float maxt,
-                                              Champ& c) {
-  const V3 ng = ld3(q);
-  const float div = dot(ng, d);
-  if (two_sided ? !(div != 0.0f) : !(div > 0.0f)) return;
-  const float idiv = 1.0f / div;
-  // constant-split Moller-Trumbore over [n_geo, c1, c2, e1, e2, k]
-  const float beta = (dot(ld3(q + 12), oxd) - dot(ld3(q + 6), d)) * idiv;
-  const float gamma = (dot(ld3(q + 3), d) - dot(ld3(q + 9), oxd)) * idiv;
-  const float t = (q[15] - dot(ng, o)) * idiv;
-  if (beta >= 0.0f && beta <= 1.0f && gamma >= 0.0f &&
-      beta + gamma <= 1.0f && t >= mint && t <= maxt &&
-      (t < c.t || (t == c.t && obj < c.obj)) && q[17] > 0.0f) {
-    const float alpha = 1.0f - beta - gamma;
-    c.n = normalize(alpha * ld3(q + 18) + beta * ld3(q + 21) +
-                    gamma * ld3(q + 24));
-    c.t = t;
-    c.m = q[16];
-    c.obj = obj;
-    c.beta = beta;
-    c.gamma = gamma;
-  }
-}
-
 // Sphere row s, object id j, with its discriminant dis and b
 // (sphere_dis), taken over the champion c as tri_take takes a triangle; a
 // = d.d, inv2a = 0.5 / a.
@@ -675,7 +693,10 @@ __device__ __forceinline__ void sph_take(const float* s, int j, V3 o, V3 d,
   }
 }
 
-// Sphere row s of a global table, object id j, as tri_candidate.
+// Sphere row s of a global table (a sphere grid cell's item), object id
+// j, as a closest-hit candidate of the ray (o, d) in [mint, maxt] with a =
+// d.d, inv2a = 0.5 / a: the brute loop's arithmetic, the least (t, id) pair
+// winning over the champion c.
 __device__ __forceinline__ void sph_candidate(const float* s, int j, V3 o,
                                               V3 d, float a, float inv2a,
                                               float mint, float maxt,
@@ -724,21 +745,34 @@ struct SphTest {
   float b, dis;
 };
 
-// Whether triangle row q / sphere row s of a global table occludes the
-// ray (o, d) in [mint, maxt] (the brute any-hit loop's tests).
-__device__ __forceinline__ bool tri_occludes(const float* q, V3 o, V3 d,
-                                             V3 oxd, bool two_sided,
-                                             float mint, float maxt) {
-  const V3 ng = ld3(q);
-  const float div = dot(ng, d);
-  if (two_sided ? !(div != 0.0f) : !(div > 0.0f)) return false;
-  const float idiv = 1.0f / div;
-  const float beta = (dot(ld3(q + 12), oxd) - dot(ld3(q + 6), d)) * idiv;
-  const float gamma = (dot(ld3(q + 3), d) - dot(ld3(q + 9), oxd)) * idiv;
-  const float t = (q[15] - dot(ng, o)) * idiv;
-  return beta >= 0.0f && beta <= 1.0f && gamma >= 0.0f &&
-         beta + gamma <= 1.0f && t >= mint && t <= maxt && q[17] > 0.0f;
+// The low n bits of a mask word (n <= 32).
+__device__ __forceinline__ unsigned low_bits(int n) {
+  return n >= 32 ? 0xffffffffu : (1u << n) - 1u;
 }
+
+// Cell `cell` of triangle grid g's copy for a ray with live window [lo,
+// hi()]: test(r) and take(r, test) on its copied rows r, kU at a time
+// (leaf_rows): a cell of at most one leaf all its rows, a larger one the
+// leaves of its tree that the lane's own walk visits (lane_tree; the
+// lanes at the same cell walking their union, warp_tree over the
+// __match_any_sync partition of a warp, measured 1.8x slower on the mesh
+// grid, PERF.md §6 row 1c); stops and returns true where take does.
+template <int kU, class Hi, class Test, class Take>
+__device__ __forceinline__ bool cell_walk(const GridDesc& g, int cell, V3 o,
+                                          V3 inv, float lo, Hi hi, Test test,
+                                          Take take) {
+  const int4 c = __ldg(g.cell + cell);  // first row, node 0, slots, items
+  auto leaf = [&](int j) {
+    return leaf_rows<kU>(c.x + j * g.leaf,
+                         low_bits(min(c.w - j * g.leaf, g.leaf)), test, take);
+  };
+  if (c.z <= 1) return c.w > 0 && leaf(0);
+  return lane_tree(g.node + 8 * static_cast<size_t>(c.y), c.z, o, inv, lo,
+                   hi, leaf);
+}
+
+// Whether sphere row s of a global table occludes the ray (o, d) in
+// [mint, maxt] (the brute any-hit loop's test).
 __device__ __forceinline__ bool sph_occludes(const float* s, V3 o, V3 d,
                                              float a, float inv2a,
                                              float mint, float maxt) {
@@ -763,13 +797,20 @@ __device__ __forceinline__ bool sph_occludes(const float* s, V3 o, V3 d,
 //
 // Grid mode (kGrid, G non-null): the brute loops cover the shared-memory
 // prefix (T.n_tri triangles; the spheres unless gridded or streamed), then
-// the streamed tables are read chunk by chunk (kStream, instances of their
-// own, so that grid mode alone keeps its code) and each grid is walked
-// (grid_walk), their rows tested from global memory with the same
-// arithmetic (tri_candidate / sph_candidate serve both); there a
+// the streamed tables are walked (kStream, instances of their own, so that
+// grid mode alone keeps its code) and each grid is marched cell by cell
+// (grid_walk), its rows tested from global memory with the brute loops'
+// arithmetic: a triangle grid's visited cell through its cell-major copy,
+// its tree walked by each lane nearest child first over the live window
+// [mint, min(maxt, champion t)] and a leaf's rows kTriRows at a time
+// (cell_walk; kCells, instances of their own, so that the instances
+// without a triangle grid keep their code and registers); the sphere
+// grid's cell every item through the CSR
+// (sph_candidate; a tree per cell, walked per lane or per warp, and the
+// copy's rows alone measured slower for spheres, PERF.md §6 row 1c). There a
 // candidate wins on the least (t, original id) pair, so the champion is
-// the brute loops' whatever order the chunks and cells come in (mesh
-// triangles that share an edge are hit at the same t).
+// the brute loops' whatever order the chunks, cells and leaves come in
+// (mesh triangles that share an edge are hit at the same t).
 //
 // A streamed table (the Pallas kernel's chunk loops, megakernel.py:874-935,
 // which test every Morton chunk a ray tile overlaps, in Morton order): the
@@ -784,7 +825,8 @@ __device__ __forceinline__ bool sph_occludes(const float* s, V3 o, V3 d,
 // walk visits leaves in another order than the brute loop's rows and the
 // Morton chunks, which changes no champion: the least (t, original id)
 // pair wins.
-template <int kRows = 2, bool kGrid = false, bool kStream = false>
+template <int kRows = 2, bool kGrid = false, bool kStream = false,
+          bool kCells = kGrid>
 __device__ float trace(const Tables& T, V3 o, V3 d, float mint, float maxt,
                        Hit& h, const Grids* G = nullptr) {
   float bt = inf_f();
@@ -895,16 +937,23 @@ __device__ float trace(const Tables& T, V3 o, V3 d, float mint, float maxt,
         }
       }
       auto bound = [&]() { return c.t; };
-      for (int gi = 0; gi < G->n_tri; ++gi) {
+      const V3 inv = safe_inv(d);
+      auto live = [&]() { return fminf(maxt, c.t); };
+      for (int gi = 0; kCells && gi < G->n_tri; ++gi) {
         const GridDesc& g = G->g[gi];
-        grid_walk(g, o, d, mint, maxt, [&](int cell) {
-          const int e = __ldg(g.off + cell + 1);
-          for (int k = __ldg(g.off + cell); k < e; ++k) {
-            const int j = __ldg(g.items + k);
-            tri_candidate(G->tri_tab + static_cast<size_t>(j) * kTri,
-                          T.n_sph + j, o, d, oxd, T.two_sided, mint, maxt, c);
-          }
+        auto row = [&](int r) {
+          return g.rows + static_cast<size_t>(r) * kTri;
+        };
+        auto test = [&](int r) {
+          return tri_test(row(r), o, d, oxd, T.two_sided, mint, maxt);
+        };
+        auto take = [&](int r, const TriTest& h) {
+          if (h.ok) tri_take(row(r), T.n_sph + __ldg(g.perm + r), h, c);
           return false;
+        };
+        grid_walk(g, o, d, mint, maxt, [&](int cell) {
+          return cell_walk<kTriRows>(g, cell, o, inv, mint, live, test,
+                                     take);
         }, bound);
       }
       if (G->sph) {
@@ -944,7 +993,8 @@ __device__ float trace(const Tables& T, V3 o, V3 d, float mint, float maxt,
 // Grid mode (kGrid): the prefix as in trace, then the streamed tables
 // (kStream; trace's walk over [mint, maxt]) and the grids' walks, each
 // stopping at its first occluder.
-template <int kRows = 2, bool kGrid = false, bool kStream = false>
+template <int kRows = 2, bool kGrid = false, bool kStream = false,
+          bool kCells = kGrid>
 __device__ bool anyhit(const Tables& T, V3 o, V3 d, float mint, float maxt,
                        const Grids* G = nullptr) {
   if (mint == maxt) return false;
@@ -1035,14 +1085,22 @@ __device__ bool anyhit(const Tables& T, V3 o, V3 d, float mint, float maxt,
     }
     bool occ = false;
     auto bound = []() { return inf_f(); };
-    for (int gi = 0; gi < G->n_tri && !occ; ++gi) {
+    const V3 inv = safe_inv(d);
+    auto window = [&]() { return maxt; };
+    for (int gi = 0; kCells && gi < G->n_tri && !occ; ++gi) {
       const GridDesc& g = G->g[gi];
+      auto row = [&](int r) {
+        return g.rows + static_cast<size_t>(r) * kTri;
+      };
+      auto test = [&](int r) {
+        return tri_test(row(r), o, d, oxd, T.two_sided, mint, maxt);
+      };
+      auto take = [&](int r, const TriTest& h) {
+        return h.ok && row(r)[17] > 0.0f;
+      };
       grid_walk(g, o, d, mint, maxt, [&](int cell) {
-        const int e = __ldg(g.off + cell + 1);
-        for (int k = __ldg(g.off + cell); k < e && !occ; ++k)
-          occ = tri_occludes(
-              G->tri_tab + static_cast<size_t>(__ldg(g.items + k)) * kTri, o,
-              d, oxd, T.two_sided, mint, maxt);
+        occ = cell_walk<kTriRows>(g, cell, o, inv, mint, window, test,
+                                  take);
         return occ;
       }, bound);
     }

@@ -46,11 +46,20 @@ it from ``accel.prepare_grids``' grids, the counterpart of the Pallas
 kernel's grid operands): the triangles below ``grid.start`` and, without
 a sphere grid, the spheres are the brute prefix that stays resident (the
 caps below apply to it); each triangle grid and the sphere grid are
-walked per ray (``accel/traverse.march`` in the plain version,
-``csrc/pathtrace.cuh`` grid_walk in the kernel), their items read from
-the whole tables with the brute loops' arithmetic, a candidate winning
-on the least (t, id) pair, so ids, record and accumulator are the brute
-version's. ``block`` (the blocked layout) maps the kernel's threads to
+walked per ray cell by cell in order (``accel/traverse.march`` in the
+plain version, ``csrc/pathtrace.cuh`` grid_walk in the kernel), with the
+brute loops' arithmetic, a candidate winning on the least (t, id) pair,
+so ids, record and accumulator are the brute version's. The plain
+version, the oracle, tests every item of each cell it visits from the
+whole tables; the kernel reads each triangle grid's cell-major copy
+(``KernelGrids.copies``, ``render/mega.grid_cells``): each cell's rows
+contiguous, in leaves of ``GRID_LEAF`` rows under a box tree per cell,
+walked nearest child first over the live window [mint, min(maxt,
+champion t)], the boxes widened as the streamed trees' are (below), the
+record naming original rows; the sphere grid's cells every item through
+the CSR, as the plain version. ``grid_walk_work`` counts what that walk
+does on the plain version's rays (the bound's work).
+``block`` (the blocked layout) maps the kernel's threads to
 pixel blocks in grid mode and over streamed chunks; draws, accumulator and
 record stay row-major, so the image is the same: the brute instances keep
 the row-major map and the plain version ignores it.
@@ -99,6 +108,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -153,6 +163,11 @@ PAR_PAD = 28
 
 # grids of one launch (csrc/pathtrace.cuh kMaxGrids)
 GRIDS_MAX = 8
+# rows per leaf of the cells' box trees over a triangle grid's cell-major
+# copy (render/mega.grid_cells): a power of two up to CELL_LEAF_MAX
+# (csrc/pathtrace.cuh kCellLeafMax)
+GRID_LEAF = 1
+CELL_LEAF_MAX = 32
 # nvcc flags of the library that holds grid mode's instances (the default
 # build holds the brute ones; csrc/megakernel.cu RT_GRID_MODE)
 GRID_FLAGS = ("-DRT_GRID_MODE=1",)
@@ -206,16 +221,44 @@ def direct_draw_planes(key: torch.Tensor, n_rays: int, n_lights: int,
                                for li in range(n_lights)])
 
 
+class CellCopy(NamedTuple):
+    """The kernel's cell-major copy of one triangle grid
+    (``render/mega.grid_cells``): ``rows`` (R, 32) float32, each cell's
+    items' rows, cell after cell, in the Morton order of the items'
+    centres within a cell, each cell's run padded with zero rows to whole
+    leaves; ``perm`` (R,) int32, the original row of each copied row (the
+    item id, a row of the folded triangle table), -1 for padding; ``cell``
+    (C, 4) int32, per cell [first copied row, its tree's node 0 (-1
+    without a tree), leaf slots, items]: a cell of at most one leaf (slots
+    0 or 1) has no tree and its rows are tested directly, a larger one an
+    implicit binary tree over its leaves of ``leaf`` rows padded with
+    empty leaves to a power of two (node k at node 0 + k: the root 1, the
+    children of k 2 k and 2 k + 1, leaf j the node slots + j over the
+    cell's rows [j leaf, min((j + 1) leaf, items))); ``nodes`` (N, 8)
+    float32, the trees' boxes [pmin xyz, pmax xyz, 0, 0] (a box with
+    pmin.x > pmax.x is empty)."""
+    rows: torch.Tensor
+    perm: torch.Tensor
+    cell: torch.Tensor
+    nodes: torch.Tensor
+    leaf: int
+
+
 class KernelGrids(NamedTuple):
     """Kernel 1's grid mode: triangle grids (``accel.grid.Grid``, item ids
     absolute into the folded triangle table), the sphere grid or None,
-    ``start``, the brute triangle prefix, and ``rows``, the scene's own
+    ``start``, the brute triangle prefix, ``rows``, the scene's own
     (sphere, triangle) row counts, which the tables the grids index hold
-    (the edge-aware backward checks its tables against them)."""
+    (the edge-aware backward checks its tables against them), and
+    ``copies``, the kernel's cell-major copy of each triangle grid
+    (``CellCopy``, in ``tri``'s order), which the plain version ignores
+    and the kernel walks (the sphere grid's cells are walked through its
+    CSR over the whole table)."""
     tri: tuple
     sph: object
     start: int
     rows: tuple
+    copies: tuple | None = None
 
 
 class StreamTree(NamedTuple):
@@ -707,44 +750,173 @@ def _walk_tree(kind: str, st: Stream, o, d, a, inv2a, oxd, mint, maxt,
     return (bt, bo) if closest else occ
 
 
-def tree_walk_work(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
-                   chunks: KernelChunks, spp: int, width: int, bounces: int,
-                   two_sided: bool, normalize_emitter: bool, seed: int,
-                   russian_roulette: bool = False, rr_start_depth: int = 0,
-                   mode: str = "path", key=None, warp: int = 32,
-                   work=None) -> dict:
-    """What kernel 1's walk over the streamed tables' trees does on one
-    pass's rays, counted outside the plain version: the pass runs the plain
-    streamed version (``pathtrace_pass_reference``'s, or
-    ``direct_pass_reference``'s with ``mode="direct"`` and ``key``;
-    ``work`` gets its Morton chunks' counts), and each of its traces and
-    shadow rays is walked again over ``chunks``' trees in the kernel's
-    order (``_walk_tree``). Returns the walk's counts summed over the pass,
-    ``traces`` and ``shadows`` (live walks), and ``misses`` and
-    ``occ_misses``: the rays whose walked champion (least (t, id)) or
-    occlusion bit differs from the plain version's, which a walk that
-    culled the leaf holding the winner or the first occluder would give."""
+def _walk_cells(g, cp: CellCopy, o, d, oxd, mint, maxt, two_sided: bool,
+                n_sph: int, closest: bool, champ, out: dict):
+    """One triangle grid's part of a trace (``closest``: ``champ`` the (t, id)
+    champion so far, returned improved) or of a shadow ray (``champ`` the
+    occlusion bits so far, returned or-ed), walked as the kernel walks it:
+    the march over the grid's cells in order (``accel/traverse.march``,
+    the kernel's ``grid_walk``), and in each cell visited, over its
+    cell-major copy ``cp``, its rows directly where it has at most one
+    leaf, else its tree from the root, nearer child first (the other
+    pushed with its entry and dropped when popped past the window's end),
+    the window's end the champion's t (``lane_tree``). Adds to ``out``:
+    ``cells`` and ``side_cells`` (the march's steps and side cells),
+    ``node_tests`` (slab tests of node boxes), ``leaf_visits`` (a cell
+    without a tree: one), ``tri_tests`` (row tests; a shadow ray's up to
+    its first occluder)."""
+    from ..accel.traverse import march
+    dev = o.device
+    cells = cp.cell.to(torch.int64)
+    leaf = cp.leaf
+    obj_all = cp.perm.to(torch.int64) + n_sph
+    inv = safe_inv(d)
+    lane = torch.arange(leaf, device=dev)
+
+    def add(key: str, x) -> None:
+        out[key] = out.get(key, 0) + int(x)
+
+    if closest:
+        bt, bo = (x.clone() for x in champ)
+    else:
+        occ = champ.clone()
+
+    def hi(r):
+        return torch.minimum(maxt[r], bt[r]) if closest else maxt[r]
+
+    def test_leaf(r, row0, count, j):
+        """Rays r at leaf j of their cells (first rows row0, count rows)."""
+        if r.numel() == 0:
+            return
+        add("leaf_visits", r.numel())
+        pos = (row0 + j * leaf)[:, None] + lane
+        live = lane < (count - j * leaf)[:, None]
+        ok, t = I.triangle_hit(o[r][:, None], d[r][:, None],
+                               oxd[r][:, None], mint[r][:, None],
+                               maxt[r][:, None], cp.rows[pos], two_sided)[0:2]
+        ok = ok & live
+        if closest:
+            add("tri_tests", live.sum())
+            t2, o2 = _least(torch.where(ok, t, INF), obj_all[pos])
+            better = (o2 >= 0) & ((t2 < bt[r]) | ((t2 == bt[r])
+                                                   & (o2 < bo[r])))
+            bt[r] = torch.where(better, t2, bt[r])
+            bo[r] = torch.where(better, o2, bo[r])
+        else:
+            hit = ok.any(1)
+            upto = torch.cumsum(live.to(torch.int64), 1)
+            first = ok.to(torch.int8).argmax(1)
+            add("tri_tests", torch.where(
+                hit, upto.gather(1, first[:, None])[:, 0], live.sum(1)).sum())
+            occ[r] = occ[r] | hit
+
+    def walk_trees(r, node0, slots, row0, count):
+        """Rays r each walk their cell's tree (node 0 at node0)."""
+        n = r.numel()
+        if n == 0:
+            return
+        stack = torch.zeros((n, TREE_DEPTH_MAX), dtype=torch.int64,
+                            device=dev)
+        enter = torch.zeros((n, TREE_DEPTH_MAX), device=dev)
+        sp = torch.zeros(n, dtype=torch.int64, device=dev)
+        node = torch.ones(n, dtype=torch.int64, device=dev)
+        ok, _ = _node_enter(cp.nodes[node0 + 1], o[r], inv[r], mint[r],
+                            hi(r))
+        add("node_tests", n)
+        active = ok.clone()
+        while True:
+            i = torch.nonzero(active).squeeze(1)
+            if i.numel() == 0:
+                break
+            at_leaf = node[i] >= slots[i]
+            pop = torch.zeros(n, dtype=torch.bool, device=dev)
+            il = i[at_leaf]
+            if il.numel():
+                test_leaf(r[il], row0[il], count[il], node[il] - slots[il])
+                pop[il] = True
+                if not closest:
+                    active[il] = ~occ[r[il]]
+            ii = i[~at_leaf]
+            if ii.numel():
+                ri = r[ii]
+                c0 = 2 * node[ii]
+                h = hi(ri)
+                h0, e0 = _node_enter(cp.nodes[node0[ii] + c0], o[ri], inv[ri],
+                                     mint[ri], h)
+                h1, e1 = _node_enter(cp.nodes[node0[ii] + c0 + 1], o[ri],
+                                     inv[ri], mint[ri], h)
+                add("node_tests", 2 * ii.numel())
+                both = h0 & h1
+                first = (e1 < e0).to(torch.int64)
+                ib = ii[both]
+                stack[ib, sp[ib]] = (c0 + 1 - first)[both]
+                enter[ib, sp[ib]] = torch.where(first.bool(), e0, e1)[both]
+                sp[ib] += 1
+                node[ii] = torch.where(both, c0 + first,
+                                       torch.where(h0, c0, c0 + 1))
+                pop[ii[~(h0 | h1)]] = True
+            need = pop & active
+            while True:
+                ip = torch.nonzero(need).squeeze(1)
+                if ip.numel() == 0:
+                    break
+                empty = sp[ip] == 0
+                active[ip[empty]] = False
+                need[ip[empty]] = False
+                ip = ip[~empty]
+                sp[ip] -= 1
+                fits = enter[ip, sp[ip]] <= hi(r[ip])
+                ik = ip[fits]
+                node[ik] = stack[ik, sp[ik]]
+                need[ik] = False
+
+    def visit(cell, active):
+        r = torch.nonzero(active).squeeze(1)
+        row0, node0, slots, count = cells[cell[r]].unbind(1)
+        flat = (slots <= 1) & (count > 0)
+        test_leaf(r[flat], row0[flat], count[flat], 0)
+        tree = slots >= 2
+        walk_trees(r[tree], node0[tree], slots[tree], row0[tree],
+                   count[tree])
+        return bt if closest else torch.where(occ, -INF, INF)
+
+    # an occluded ray's window is dead: the march skips it
+    lo = mint if closest else torch.where(occ, maxt, mint)
+    steps, side = march(o, d, lo, maxt, g, visit)
+    add("cells", steps.sum())
+    add("side_cells", side.sum())
+    return (bt, bo) if closest else occ
+
+
+def _count_walks(par, ipar, sph, tri, mat, lig, acc, u_planes, *, spp,
+                 width, bounces, two_sided, normalize_emitter, seed,
+                 russian_roulette, rr_start_depth, mode, key, work,
+                 grid=None, chunks=None, brute, walks) -> dict:
+    """Runs the plain pass (over ``grid`` or ``chunks``; ``work`` gets its
+    counts) and walks each of its traces and shadow rays again as the
+    kernel does: the brute loops over ``brute`` (sph, tri) first, then
+    ``walks(o, d, a, inv2a, oxd, mint, maxt, closest, champ, out)``.
+    Returns the walks' counts, ``traces`` and ``shadows`` (live walks),
+    and ``misses`` and ``occ_misses``: the rays whose walked champion
+    (least (t, id)) or occlusion bit differs from the plain version's,
+    which a walk that culled the rows holding the winner or the first
+    occluder would give."""
     out: dict = {}
     n_sph = sph.shape[0]
-    # the resident tables of the brute loops, which run before the streams
-    sph_b = sph if chunks.sph is None else sph[:0]
-    tri_b = tri if chunks.tri is None else tri[:0]
+    sph_b, tri_b = brute
 
     def trace(o, d, mint, maxt):
-        res = _trace(o, d, mint, maxt, sph, tri, two_sided, None, work,
+        res = _trace(o, d, mint, maxt, sph, tri, two_sided, grid, work,
                      chunks)
         a = dot3(d, d)
         inv2a = 0.5 / a
         oxd = cross3(o, d)
-        brute = _trace(o, d, mint, maxt, sph_b, tri_b, two_sided)
-        ids = brute[4] + torch.where(brute[4] >= sph_b.shape[0],
-                                     n_sph - sph_b.shape[0], 0)
-        found = brute[3] >= 0.0
-        champ = (torch.where(found, brute[0], INF), torch.where(found, ids,
-                                                                 -1))
-        for kind, st in _streams(chunks):
-            champ = _walk_tree(kind, st, o, d, a, inv2a, oxd, mint, maxt,
-                               two_sided, n_sph, True, champ, out, warp)
+        b = _trace(o, d, mint, maxt, sph_b, tri_b, two_sided)
+        ids = b[4] + torch.where(b[4] >= sph_b.shape[0],
+                                 n_sph - sph_b.shape[0], 0)
+        found = b[3] >= 0.0
+        champ = (torch.where(found, b[0], INF), torch.where(found, ids, -1))
+        champ = walks(o, d, a, inv2a, oxd, mint, maxt, True, champ, out)
         alive = mint != maxt
         out["traces"] = out.get("traces", 0) + int(alive.sum())
         want = torch.where(res[3] >= 0.0, res[4], -1)
@@ -753,15 +925,13 @@ def tree_walk_work(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
         return res
 
     def anyhit(o, d, mint, maxt):
-        occ = _anyhit(o, d, mint, maxt, sph, tri, two_sided, None, work,
+        occ = _anyhit(o, d, mint, maxt, sph, tri, two_sided, grid, work,
                       chunks)
         a = dot3(d, d)
         inv2a = 0.5 / a
         oxd = cross3(o, d)
         walked = _anyhit(o, d, mint, maxt, sph_b, tri_b, two_sided)
-        for kind, st in _streams(chunks):
-            walked = _walk_tree(kind, st, o, d, a, inv2a, oxd, mint, maxt,
-                                two_sided, n_sph, False, walked, out, warp)
+        walked = walks(o, d, a, inv2a, oxd, mint, maxt, False, walked, out)
         alive = mint != maxt
         out["shadows"] = out.get("shadows", 0) + int(alive.sum())
         out["occ_misses"] = out.get("occ_misses", 0) + int(
@@ -785,6 +955,92 @@ def tree_walk_work(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
                         rr_start_depth=rr_start_depth, trace=trace,
                         anyhit=anyhit)
     return out
+
+
+def tree_walk_work(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
+                   chunks: KernelChunks, spp: int, width: int, bounces: int,
+                   two_sided: bool, normalize_emitter: bool, seed: int,
+                   russian_roulette: bool = False, rr_start_depth: int = 0,
+                   mode: str = "path", key=None, warp: int = 32,
+                   work=None) -> dict:
+    """What kernel 1's walk over the streamed tables' trees does on one
+    pass's rays, counted outside the plain version (``_count_walks``): the
+    pass runs the plain streamed version (``pathtrace_pass_reference``'s,
+    or ``direct_pass_reference``'s with ``mode="direct"`` and ``key``;
+    ``work`` gets its Morton chunks' counts), and each of its traces and
+    shadow rays is walked again over ``chunks``' trees in the kernel's
+    order (``_walk_tree``). Returns the walk's counts summed over the pass,
+    ``traces``, ``shadows``, ``misses`` and ``occ_misses``."""
+    n_sph = sph.shape[0]
+
+    def walks(o, d, a, inv2a, oxd, mint, maxt, closest, champ, out):
+        for kind, st in _streams(chunks):
+            champ = _walk_tree(kind, st, o, d, a, inv2a, oxd, mint, maxt,
+                               two_sided, n_sph, closest, champ, out, warp)
+        return champ
+
+    # the resident tables of the brute loops, which run before the streams
+    brute = (sph if chunks.sph is None else sph[:0],
+             tri if chunks.tri is None else tri[:0])
+    return _count_walks(
+        par, ipar, sph, tri, mat, lig, acc, u_planes, spp=spp, width=width,
+        bounces=bounces, two_sided=two_sided,
+        normalize_emitter=normalize_emitter, seed=seed,
+        russian_roulette=russian_roulette, rr_start_depth=rr_start_depth,
+        mode=mode, key=key, work=work, chunks=chunks, brute=brute,
+        walks=walks)
+
+
+def grid_walk_work(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
+                   grid: KernelGrids, spp: int, width: int, bounces: int,
+                   two_sided: bool, normalize_emitter: bool, seed: int,
+                   russian_roulette: bool = False, rr_start_depth: int = 0,
+                   mode: str = "path", key=None, work=None) -> dict:
+    """What kernel 1's grid mode does on one pass's rays, counted outside
+    the plain version (``_count_walks``), as ``tree_walk_work`` counts the
+    streamed walk: the pass runs the plain grid version (the march over
+    each cell's items, ``work`` its counts), and each of its traces and
+    shadow rays is walked again as the kernel walks it, the brute prefix
+    first, then each grid's march with each visited cell's rows walked over
+    its cell-major copy (``grid.copies``, ``_walk_cells``; the sphere
+    grid's cells every item, as the plain version). Returns the walks'
+    counts summed over the pass (``cells``, ``side_cells``,
+    ``node_tests``, ``leaf_visits``, ``{kind}_tests``), ``traces``,
+    ``shadows``, ``misses`` and ``occ_misses``."""
+    n_sph = sph.shape[0]
+
+    def walks(o, d, a, inv2a, oxd, mint, maxt, closest, champ, out):
+        for g, cp in zip(grid.tri, grid.copies):
+            champ = _walk_cells(g, cp, o, d, oxd, mint, maxt, two_sided,
+                                n_sph, closest, champ, out)
+        if grid.sph is not None:
+            # the sphere grid's cells: every item through the CSR, as the
+            # plain version walks them (their raw tests are the kernel's)
+            one = KernelGrids(tri=(), sph=grid.sph, start=0, rows=grid.rows)
+            tmp: dict = {}
+            if closest:
+                t, o2 = champ
+                st = (t, torch.zeros_like(o), torch.where(o2 >= 0, 0.0, -1.0),
+                      o2)
+                res = _grid_closest(o, d, a, inv2a, oxd, mint, maxt, sph,
+                                    tri, two_sided, one, st, tmp)
+                champ = (res[0], res[3])
+            else:
+                champ = _grid_occluded(o, d, a, inv2a, oxd, mint, maxt, sph,
+                                       tri, two_sided, one, champ, tmp)
+            for k, v in (("cells", tmp["cells"]),
+                         ("side_cells", tmp["side_cells"]),
+                         ("sph_tests", tmp["sph_tests_raw"])):
+                out[k] = out.get(k, 0) + int(v)
+        return champ
+
+    brute = (sph if grid.sph is None else sph[:0], tri[:grid.start])
+    return _count_walks(
+        par, ipar, sph, tri, mat, lig, acc, u_planes, spp=spp, width=width,
+        bounces=bounces, two_sided=two_sided,
+        normalize_emitter=normalize_emitter, seed=seed,
+        russian_roulette=russian_roulette, rr_start_depth=rr_start_depth,
+        mode=mode, key=key, work=work, grid=grid, brute=brute, walks=walks)
 
 
 def _brute_counts(sph, tri, grid, chunks) -> tuple[int, int]:
@@ -1221,7 +1477,10 @@ class _GridDesc(ctypes.Structure):
     """csrc/pathtrace.cuh GridDesc."""
     _fields_ = [("off", ctypes.c_void_p), ("items", ctypes.c_void_p),
                 ("pmin", ctypes.c_float * 3), ("width", ctypes.c_float * 3),
-                ("pmax", ctypes.c_float * 3), ("n", ctypes.c_int * 3)]
+                ("pmax", ctypes.c_float * 3), ("n", ctypes.c_int * 3),
+                ("rows", ctypes.c_void_p), ("perm", ctypes.c_void_p),
+                ("cell", ctypes.c_void_p), ("node", ctypes.c_void_p),
+                ("leaf", ctypes.c_int)]
 
 
 class _StreamDesc(ctypes.Structure):
@@ -1264,7 +1523,11 @@ def _grid_args(grid: KernelGrids | None, chunks: KernelChunks | None,
                   (ctypes.c_float * 3)(*g.pmin.tolist()),
                   (ctypes.c_float * 3)(*g.width().tolist()),
                   (ctypes.c_float * 3)(*g.pmax.tolist()),
-                  (ctypes.c_int * 3)(*g.n)) for g in walks))
+                  (ctypes.c_int * 3)(*g.n),
+                  *((cp.rows.data_ptr(), cp.perm.data_ptr(),
+                     cp.cell.data_ptr(), cp.nodes.data_ptr(), cp.leaf)
+                    if cp is not None else (None, None, None, None, 0)))
+        for g, cp in zip(walks, tuple(grid.copies) + (None,))))
     return (1, ctypes.addressof(desc), len(walks),
             int(grid.sph is not None), grid.start, sp), (desc, streams)
 
@@ -1287,6 +1550,63 @@ def _check_grid(grid: KernelGrids, n_tri: int, dev) -> None:
         if g.cell_offsets.shape[0] != g.n_cells + 1:
             raise ValueError(f"grid of {g.n} cells has "
                              f"{g.cell_offsets.shape[0]} offsets")
+    copies = grid.copies or ()
+    if len(copies) != len(grid.tri):
+        raise ValueError("grid mode needs each triangle grid's cell-major "
+                         "copy: render/mega.grid_tables(scene, sph, tri) "
+                         "builds them")
+    for g, cp in zip(grid.tri, copies):
+        _check_copy(g, cp, dev)
+
+
+def _check_copy(g, cp: CellCopy, dev) -> None:
+    """A grid's cell-major copy (``CellCopy``) as the kernel takes it:
+    leaves of a power of two rows up to CELL_LEAF_MAX, rows as wide as the
+    table's and whole leaves of them, a row of ``perm`` per copied row, a
+    [first row, node 0, slots, items] row per cell, node boxes of 8 floats,
+    each cell's rows and tree inside the copy and no deeper than the
+    kernel's stack (its contents are ``render/mega.grid_cells``' by
+    construction)."""
+    leaf = cp.leaf
+    if not 0 < leaf <= CELL_LEAF_MAX or leaf & (leaf - 1):
+        raise ValueError(f"grid copy: leaves of {leaf} rows, not a "
+                         f"power of two up to {CELL_LEAF_MAX}")
+    n = cp.rows.shape[0] if cp.rows.dim() == 2 else -1
+    for what, t, shape, dtype in (
+            ("rows", cp.rows, (n, TRI_COLS), torch.float32),
+            ("perm", cp.perm, (n,), torch.int32),
+            ("cell", cp.cell, (g.n_cells, 4), torch.int32),
+            ("nodes", cp.nodes, (cp.nodes.shape[0], 8), torch.float32)):
+        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != shape
+                or not t.is_contiguous() or t.numel() == 0):
+            raise ValueError(
+                f"grid copy {what} must be a contiguous non-empty "
+                f"{shape} {dtype} tensor on {dev}, got {tuple(t.shape)} "
+                f"{t.dtype} on {t.device}")
+    if n % leaf:
+        raise ValueError(f"grid copy: {n} rows are not whole leaves "
+                         f"of {leaf}")
+    # the cells' rows and trees: read once per cell table (a layout is
+    # cached and never written, and a read on the card synchronises)
+    if _CHECKED_CELLS.get(id(cp.cell)) is cp.cell:
+        return
+    row0, node0, slots, count = cp.cell.to(torch.int64).unbind(1)
+    leaves = -(-count // leaf)
+    tree = slots >= 2
+    bad = ((row0 < 0) | (row0 + leaves * leaf > n) | (count < 0)
+           | torch.where(tree, (slots < leaves) | (slots & (slots - 1) != 0)
+                         | (slots > 1 << TREE_DEPTH_MAX) | (node0 < 0)
+                         | (node0 + 2 * slots > cp.nodes.shape[0]),
+                         slots != leaves))
+    if bool(bad.any()):
+        raise ValueError("grid copy: a cell's rows or tree lie "
+                         "outside the copy")
+    _CHECKED_CELLS[id(cp.cell)] = cp.cell
+
+
+# the cell tables _check_copy has read, by id (weakly: a table that is
+# dropped leaves)
+_CHECKED_CELLS: weakref.WeakValueDictionary = weakref.WeakValueDictionary()
 
 
 def tree_slots(n_leaves: int) -> int:

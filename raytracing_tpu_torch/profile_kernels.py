@@ -70,6 +70,15 @@ ones), each variant at each of ``--leaf-sizes`` (``MK.STREAM_LEAF``, the
 streamed tables' leaf rows, rebuilt per size). Its harness uses only what
 a tree from before the streamed tree walk has too, so a parent commit is
 timed by copying this file into its checkout and running it there.
+``--only grid`` does the same for kernel 1's grid mode: the grid cases
+above (shape 1 direct at blocks 64 and 0, shape 2 path at blocks 64 and
+0, with the roulette and recording, shape 3 path and recording), kernel 3
+on both records, kernel 2's large-table instance on each grid scene's
+step cotangent and each scene's grid-mode arguments' build (the cell-major
+copies' gather, host clock, synchronised), each variant at each of
+``--leaf-sizes`` (``MK.GRID_LEAF``), each variant's records held to the
+first's; a parent commit before the copies is timed from its own checkout
+with this file copied in (its ``grid_tables`` takes the scene alone).
 ``--sass`` dumps ``cuobjdump -sass`` of the named variants' libraries
 into ``--out`` and
 prints, per kernel, the count of each memory, atomic, warp-level and
@@ -127,7 +136,8 @@ LIBS = (("megakernel", MK._SIGNATURES, ()),
         *(("megakernel_soft", MKS._SIGNATURES, flags)
           for flags in MKS.SOFT_BUILDS))
 SOFT_LIBS = LIBS[-len(MKS.SOFT_BUILDS):]
-# kernel 1's grid-mode half (the streamed instances) and kernels 2 and 3
+# kernel 1's grid-mode half (the grid and streamed instances) and kernels
+# 2 and 3
 STREAM_LIBS = LIBS[1:4]
 # kernel 2s past 64 objects runs seconds per launch at 1024^2: it is timed
 # on the torus scene at this size
@@ -239,6 +249,16 @@ def time_ms(fn, reps: int = REPS, per: int = 1) -> float:
     return start.elapsed_time(end) / (reps * per)
 
 
+def _grid_tables(scene, tables):
+    """Kernel 1's grid-mode arguments with their cell-major copies of the
+    tables (a tree from before the copies builds them from the scene
+    alone)."""
+    try:
+        return mega.grid_tables(scene, tables[1], tables[2])
+    except TypeError:
+        return mega.grid_tables(scene)
+
+
 class Case:
     """One scene's tables and, with ``step``, a training step's cotangent
     of acc and kernel 1's record of that step's pass; ``grid``: in kernel
@@ -252,9 +272,9 @@ class Case:
                                 use_megakernel=True, use_grid=grid,
                                 mega_block=block)
         self.scene = scene
-        self.grid = mega.grid_tables(scene) if grid else None
         self.block = block
         self.tables = mega.scene_tables(scene, self.cfg)
+        self.grid = _grid_tables(scene, self.tables) if grid else None
         self.chunks = mega.chunk_tables(scene, self.cfg, self.tables[1],
                                         self.tables[2])
         self.kw = dict(spp=1, width=size, bounces=BOUNCES, two_sided=False,
@@ -490,15 +510,94 @@ def measure_large(cases: dict) -> dict:
     }
 
 
-def grid_cases(dev) -> dict:
+def grid_cases(dev, step: bool = False) -> dict:
     """Kernel 1's grid-mode cases on chip_smoke.py's phase 18 scenes (the
-    torus mesh is the smoke script's, not the package's)."""
+    torus mesh is the smoke script's, not the package's); with ``step``
+    the torus's training step too."""
     sys.path.insert(0, str(ROOT))
     import chip_smoke
     return {"torus": Case(chip_smoke._grid_scene("torus", SIZE, SIZE, dev),
-                          dev, step=False, grid=True, block=64),
+                          dev, step=step, grid=True, block=64),
             "spheres": Case(chip_smoke._grid_scene("spheres", SIZE, SIZE,
                                                    dev), dev, grid=True)}
+
+
+def regrid(cases: dict) -> None:
+    """Build each case's grid-mode arguments again (after the cells' leaf
+    sizes changed)."""
+    for c in cases.values():
+        c.grid = _grid_tables(c.scene, c.tables)
+
+
+def grid_build_ms(case: Case, reps: int = 10) -> float:
+    """Host-clock ms of one ``grid_tables`` call on the case's tables
+    (the cell-major copies' gather; their layout is cached), synchronised
+    (every grid-mode call builds them)."""
+    _grid_tables(case.scene, case.tables)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        _grid_tables(case.scene, case.tables)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def measure_grid_only(cases: dict) -> dict:
+    """``--only grid``: kernel 1's grid cases (``measure_grid``), the torus
+    path pass at block 0 and with the roulette, kernel 3 on the torus's
+    record with ("sph", "mat", "tri"), kernel 2's large-table instance on
+    each grid scene's step cotangent (its replay walks the same cells),
+    and each scene's grid-mode arguments' build."""
+    torus, spheres = cases["torus"], cases["spheres"]
+    out = measure_grid(cases)
+    out.update({
+        "k1_grid_torus_path_B0_16pass_ms_per_pass": time_ms(
+            lambda: MK.pathtrace_pass(
+                torus.tables[0], torus.ipar, *torus.tables[1:], torus.acc,
+                None, n_passes=16, **torus.kw, **torus._mode(block=0)),
+            reps=2, per=16),
+        "k1_grid_torus_rr_B64_16pass_ms_per_pass": time_ms(
+            lambda: torus.k1(n_passes=16, rr=True), reps=2, per=16),
+        "k3_grid_torus_step_g_sph_mat_tri_ms": time_ms(
+            lambda: torus.k3(torus.g, ("sph", "mat", "tri"))),
+        "k2_large_grid_torus_step_g_sph_mat_tri_ms": time_ms(
+            lambda: torus.k2(torus.g, ("sph", "mat", "tri")), reps=2),
+        "k2_large_grid_spheres_step_g_sph_mat_ms": time_ms(
+            lambda: spheres.k2(spheres.g, TRAIN_WRT), reps=2),
+        **{f"grid_build_{k}_ms": grid_build_ms(c) for k, c in cases.items()}})
+    return out
+
+
+def grid_only(dev, smi: str, libs: dict, labels: list, out: Path,
+              leaf_sizes: str) -> int:
+    """``--only grid``: each variant at each leaf size of the mesh grid's
+    cell trees (``MK.GRID_LEAF``) in turns (first to last, then back),
+    each variant's records held to the first's (a parent tree before the
+    cell-major copies is timed at its own layout)."""
+    use(libs[labels[0]])
+    cases = grid_cases(dev, step=True)
+    leaves = ([int(n) for n in leaf_sizes.split(",") if n]
+              if hasattr(MK, "GRID_LEAF") else []) or [None]
+    results: dict = {"card": smi, "turns": []}
+    first: dict = {}
+    for order in (labels, labels[::-1]):
+        turn = {}
+        for label in order:
+            use(libs[label])
+            for leaf in leaves:
+                key = label if leaf is None else f"{label}/leaf{leaf}"
+                if leaf is not None:
+                    MK.GRID_LEAF = leaf
+                    regrid(cases)
+                hold_records(key, cases, first)
+                turn[key] = measure_grid_only(cases)
+                print(f"{key}: " + ", ".join(
+                    f"{k} {v:.6g}" for k, v in turn[key].items()),
+                    flush=True)
+        results["turns"].append(turn)
+    (out / "profile.json").write_text(json.dumps(results, indent=1))
+    print(f"card: [{smi}]")
+    return 0
 
 
 def measure_grid(cases: dict) -> dict:
@@ -741,15 +840,18 @@ def main(argv=None) -> int:
     ap.add_argument("--sass", action="append", default=[],
                     help="dump the SASS of this variant's libraries")
     ap.add_argument("--out", default=str(BUILD / "out"))
-    ap.add_argument("--only", choices=("all", "soft", "stream"),
+    ap.add_argument("--only", choices=("all", "soft", "stream", "grid"),
                     default="all",
                     help="soft: build and time kernel 2s alone; stream: "
                          "kernel 1's streamed cases, kernel 2's streamed "
-                         "step and grid shape 1's direct mode alone")
+                         "step and grid shape 1's direct mode alone; grid: "
+                         "kernel 1's grid cases and kernels 2 and 3 on the "
+                         "grid scenes alone")
     ap.add_argument("--leaf-sizes", default="",
-                    help="with --only stream: the streamed tables' leaf "
-                         "sizes to time each variant at (MK.STREAM_LEAF; "
-                         "default the package's)")
+                    help="with --only stream or grid: the streamed tables' "
+                         "leaf sizes (MK.STREAM_LEAF) or the mesh grid "
+                         "cells' (MK.GRID_LEAF) to time each variant at "
+                         "(default the package's)")
     ap.add_argument("--soft-large-sizes", default="256",
                     help="with --only soft: film sizes of the torus case")
     ap.add_argument("--soft-sphere-sizes", default="",
@@ -774,8 +876,8 @@ def main(argv=None) -> int:
         ("tree", str(_build.CSRC))]
     variants = [(label, Path(src).resolve()) for label, src in variants]
     t0 = time.perf_counter()
-    libs_used = {"all": LIBS, "soft": SOFT_LIBS,
-                 "stream": STREAM_LIBS}[args.only]
+    libs_used = {"all": LIBS, "soft": SOFT_LIBS, "stream": STREAM_LIBS,
+                 "grid": STREAM_LIBS}[args.only]
     jobs = [(label, src, *lib) for label, src in variants
             for lib in libs_used if (src / f"{lib[0]}.cu").exists()]
     with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
@@ -826,6 +928,8 @@ def main(argv=None) -> int:
         return 0
     if args.only == "stream":
         return stream_only(dev, smi, libs, labels, out, args.leaf_sizes)
+    if args.only == "grid":
+        return grid_only(dev, smi, libs, labels, out, args.leaf_sizes)
     use(libs[labels[0]])
     cornell = Case(cornell_box(cols=SIZE, rows=SIZE, device=dev), dev)
     spheres = Case(sphere_field(N_SPHERES, cols=SIZE, rows=SIZE,

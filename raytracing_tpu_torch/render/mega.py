@@ -26,7 +26,9 @@ larger ones stream in Morton chunks (``chunk_tables``, JAX's
 64 when not in grid mode, spheres past 4608 without a sphere grid, grid
 mode included. With ``cfg.use_grid`` the triangles below the grids'
 start are the resident prefix (at most 64), the rest are walked in kernel
-1's grid mode over the grids of ``accel.prepare_grids`` (``grid_tables``).
+1's grid mode over the grids of ``accel.prepare_grids`` and, per grid, a
+cell-major copy of the call's tables with a box tree per cell
+(``grid_tables``, ``grid_cells``).
 ``cfg.mega_block`` is the blocked layout where it tiles the film
 (``effective_block``, JAX's gate): grid mode and streamed tables map the
 kernel's threads to pixel blocks, the brute instances keep the row-major
@@ -38,6 +40,10 @@ JAX package.
 """
 from __future__ import annotations
 
+import weakref
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from ..core import rng
@@ -123,19 +129,145 @@ def effective_block(cfg: RenderConfig) -> int:
     return b if b and cfg.width % b == 0 and cfg.height % b == 0 else 0
 
 
-def grid_tables(scene: Scene) -> MK.KernelGrids:
-    """Kernel 1's grid-mode arguments from the scene's prepared grids:
-    ``folded_tri_grid`` (the brute prefix ends at the first one's
-    ``start``; without triangle grids it is every triangle) and
-    ``mega_sph_grid``. The grids' CSR arrays are used as built: a cell
-    holds its items in id order and the kernel walks each ray's cells in
-    order, so nothing is baked for a camera. ``rows`` are the row counts
-    of ``scene_tables``, which packs each of the scene's objects once."""
+def _scene_grids(scene: Scene) -> MK.KernelGrids:
+    """The scene's prepared grids as kernel 1's grid mode reads them,
+    without their cell-major copies: ``folded_tri_grid`` (the brute prefix
+    ends at the first one's ``start``; without triangle grids it is every
+    triangle) and ``mega_sph_grid``; ``rows`` the row counts of
+    ``scene_tables``, which packs each of the scene's objects once."""
     grids = tuple(scene.folded_tri_grid or ())
     n_tri = _all_triangles(scene).count
     start = grids[0].start if grids else n_tri
     return MK.KernelGrids(tri=grids, sph=scene.mega_sph_grid, start=start,
                           rows=(scene.spheres.count, n_tri))
+
+
+def grid_tables(scene: Scene, sph: torch.Tensor,
+                tri: torch.Tensor) -> MK.KernelGrids:
+    """Kernel 1's grid-mode arguments from the scene's prepared grids
+    (``_scene_grids``) and, per triangle grid, the kernel's cell-major copy
+    of the table ``scene_tables`` packed for this call (``grid_cells``), so
+    a table being trained never reads stale rows or boxes. The grids' CSR
+    arrays are used as built and the kernel walks each ray's cells in
+    order, so nothing is baked for a camera."""
+    g = _scene_grids(scene)
+    if not g.tri:
+        return g._replace(copies=())
+    v = _all_triangles(scene).v.detach().to(torch.float32)
+    tri = tri.detach()
+    return g._replace(copies=tuple(
+        grid_cells(scene, grid, tri, v.amin(1), v.amax(1),
+                   lambda: v.mean(1), MK.GRID_LEAF) for grid in g.tri))
+
+
+class CellLayout(NamedTuple):
+    """The part of a grid's cell-major copy that depends only on its CSR
+    and its items' centres when first seen (``cell_layout``), on the
+    grid's device: ``src`` (R,) int64, the item of each copied row (-1:
+    padding), ``cell`` (C, 4) int32 (``MK.CellCopy.cell``), ``n_nodes``,
+    and the (node, leaf) pairs of each real leaf of a cell's tree with
+    that leaf's node and every node above it (``pair_node``,
+    ``pair_leaf``; leaf i the copy's rows [i L, (i + 1) L)), over which
+    each node's box is the least box of its leaves'."""
+    src: torch.Tensor
+    cell: torch.Tensor
+    pair_node: torch.Tensor
+    pair_leaf: torch.Tensor
+    n_nodes: int
+
+
+# per grid (weakly: a grid that is dropped takes its layouts along), per
+# leaf size, its CellLayout
+_LAYOUTS: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def cell_layout(grid, centres, leaf: int) -> CellLayout:
+    """The cell-major layout of ``grid`` at leaves of ``leaf`` rows, built
+    once on the host (numpy) and cached per grid: each cell's items in the
+    Morton order of their centres (``centres()`` (O, 3), called only when
+    the layout is built; codes against the grid's box, ties in id order),
+    each cell's run padded to whole leaves; a cell of more than one leaf
+    gets an implicit binary tree over its leaves, padded with empty leaves
+    to a power of two. Only the boxes depend on the tables: ``grid_cells``
+    gathers them every call."""
+    per = _LAYOUTS.setdefault(grid, {})
+    if leaf in per:
+        return per[leaf]
+    dev = grid.cell_offsets.device
+    off = grid.cell_offsets.cpu().numpy().astype(np.int64)
+    items = grid.item_indices.cpu().numpy().astype(np.int64)
+    counts = np.diff(off)
+    cell_of = np.repeat(np.arange(counts.shape[0]), counts)
+    cen = centres().detach().to(torch.float32).cpu()
+    code = _morton_codes(cen[torch.as_tensor(items)],
+                         torch.as_tensor(grid.pmin),
+                         torch.as_tensor(grid.pmax)).numpy()
+    order = np.lexsort((items, code, cell_of))
+    n_leaves = -(-counts // leaf)
+    tree = n_leaves >= 2
+    depth = np.ceil(np.log2(np.maximum(n_leaves, 1))).astype(np.int64)
+    slots = np.where(tree, 1 << depth, n_leaves)
+    size = n_leaves * leaf
+    row0 = np.cumsum(size) - size
+    src = np.full(max(int(size.sum()), leaf), -1, np.int64)
+    pos = np.arange(items.shape[0]) - np.repeat(off[:-1], counts)
+    src[np.repeat(row0, counts) + pos] = items[order]
+    nn = np.where(tree, 2 * slots, 0)
+    node0 = np.where(tree, np.cumsum(nn) - nn, -1)
+    # each real leaf of a tree: its node and every node above it
+    tc = np.nonzero(tree)[0]
+    nl = n_leaves[tc]
+    j = np.arange(int(nl.sum())) - np.repeat(np.cumsum(nl) - nl, nl)
+    k = np.repeat(slots[tc], nl) + j              # the leaf's node in its tree
+    up = np.repeat(depth[tc], nl) + 1             # nodes from the leaf up
+    lvl = np.arange(int(up.sum())) - np.repeat(np.cumsum(up) - up, up)
+    pair_node = np.repeat(np.repeat(node0[tc], nl), up) + (
+        np.repeat(k, up) >> lvl)
+    pair_leaf = np.repeat(np.repeat(row0[tc] // leaf, nl) + j, up)
+    cell = np.stack([row0, node0, slots, counts], 1).astype(np.int32)
+    per[leaf] = CellLayout(
+        src=torch.as_tensor(src, device=dev),
+        cell=torch.as_tensor(cell, device=dev).contiguous(),
+        pair_node=torch.as_tensor(pair_node, device=dev),
+        pair_leaf=torch.as_tensor(pair_leaf, device=dev),
+        n_nodes=max(int(nn.sum()), 1))
+    return per[leaf]
+
+
+def grid_cells(scene: Scene, grid, table: torch.Tensor, lo: torch.Tensor,
+               hi: torch.Tensor, centres, leaf: int) -> MK.CellCopy:
+    """The kernel's cell-major copy of ``grid`` (``MK.CellCopy``) over
+    ``table`` (its rows indexed by the grid's item ids), with the rows'
+    boxes [lo, hi] (O, 3) (+inf / -inf: a row without one): the layout
+    (``cell_layout``, cached per grid) and, gathered on the table's device
+    with no host synchronisation, the copied rows, each leaf's box over its
+    rows' boxes and each node's over its leaves', widened by
+    ``MK.CHUNK_PAD`` of the scene's scale as ``chunk_tree`` widens the
+    streamed tables' (so the slab test's monotone rounding never culls a
+    leaf whose row the brute loop hits; see ``chunk_tree``)."""
+    lay = cell_layout(grid, centres, leaf)
+    dev = table.device
+    ok = lay.src >= 0
+    s = lay.src.clamp(min=0)
+    rows = torch.where(ok[:, None], table[s], 0.0).to(torch.float32)
+    w = _pad_width(scene)
+    n_leaves = s.shape[0] // leaf
+    # scalars, not tensors made from host values: such a copy to the card
+    # would synchronise the stream on every call
+    lo_l = torch.where(ok[:, None], lo[s], torch.inf).reshape(
+        n_leaves, leaf, 3).amin(1) - w
+    hi_l = torch.where(ok[:, None], hi[s], -torch.inf).reshape(
+        n_leaves, leaf, 3).amax(1) + w
+    at = lay.pair_node[:, None].expand(-1, 3)
+    lo_n = torch.full((lay.n_nodes, 3), torch.inf, device=dev).scatter_reduce(
+        0, at, lo_l[lay.pair_leaf], "amin")
+    hi_n = torch.full((lay.n_nodes, 3), -torch.inf,
+                      device=dev).scatter_reduce(0, at, hi_l[lay.pair_leaf],
+                                                 "amax")
+    nodes = torch.cat([lo_n, hi_n, torch.zeros((lay.n_nodes, 2), device=dev)],
+                      -1).to(torch.float32).contiguous()
+    return MK.CellCopy(rows=rows.contiguous(), perm=lay.src.to(torch.int32),
+                       cell=lay.cell, nodes=nodes, leaf=leaf)
 
 
 def _prepared(scene: Scene) -> None:
@@ -341,7 +473,7 @@ def supported(scene: Scene | None, cfg: RenderConfig) -> bool:
     if not cfg.use_grid:
         return True
     _prepared(scene)
-    g = grid_tables(scene)
+    g = _scene_grids(scene)
     if len(g.tri) + (g.sph is not None) > MK.GRIDS_MAX:
         raise NotImplementedError(
             f"kernel 1 walks at most {MK.GRIDS_MAX} grids per launch")
@@ -368,7 +500,7 @@ def supported_diff(scene: Scene | None, cfg: RenderConfig) -> bool:
         return True
     n_sph, n_tri = scene.spheres.count, _all_triangles(scene).count
     if cfg.use_grid and cfg.mega_edge_bandwidth <= 0.0:
-        g = grid_tables(scene)
+        g = _scene_grids(scene)
         tri_rows = g.start + sum(int(x.item_indices.shape[0]) for x in g.tri)
         sph_rows = (int(g.sph.item_indices.shape[0]) if g.sph is not None
                     else n_sph)
@@ -483,7 +615,8 @@ def render_direct_mega(scene: Scene, cfg: RenderConfig,
     MK.direct_pass(par, sph, tri, mat, lig, acc, u_planes, key=key,
                    spp=cfg.spp, width=cfg.width,
                    two_sided=cfg.two_sided_triangles, n_passes=n_passes,
-                   grid=grid_tables(scene) if cfg.use_grid else None,
+                   grid=grid_tables(scene, sph, tri) if cfg.use_grid
+                   else None,
                    chunks=chunk_tables(scene, cfg, sph, tri),
                    block=effective_block(cfg))
     n_lights = max(scene.lights.count, 1)
@@ -533,7 +666,7 @@ def render_pass_mega(scene: Scene, state: dict, cfg: RenderConfig,
               normalize_emitter=cfg.normalize_emitter, seed=cfg.seed,
               russian_roulette=cfg.russian_roulette,
               rr_start_depth=cfg.rr_start_depth,
-              grid=grid_tables(scene) if cfg.use_grid else None,
+              grid=grid_tables(scene, sph, tri) if cfg.use_grid else None,
               chunks=chunk_tables(scene, cfg, sph, tri),
               block=effective_block(cfg))
     if torch.is_grad_enabled() and any(

@@ -613,7 +613,7 @@ def test_grid_kernel_matches_plain_version(cuda, mode):
                        use_grid=True, bounces=0 if mode == "direct" else 4,
                        russian_roulette=mode == "roulette", rr_start_depth=1)
     tables = mega.scene_tables(scene, cfg)
-    grid = mega.grid_tables(scene)
+    grid = mega.grid_tables(scene, tables[1], tables[2])
     zeros = torch.zeros((cfg.total_rays, 3), device=cuda)
     if mode == "direct":
         key = torch.as_tensor(np.array([0, 5], np.uint32))
@@ -658,7 +658,7 @@ def test_grid_blocked_layout_is_bit_equal(cuda):
     cfg = RenderConfig(width=64, height=48, bounces=3, use_megakernel=True,
                        use_grid=True)
     tables = mega.scene_tables(scene, cfg)
-    grid = mega.grid_tables(scene)
+    grid = mega.grid_tables(scene, tables[1], tables[2])
     ipar = torch.tensor([0, 0], dtype=torch.int32)
     kw = dict(spp=1, width=64, bounces=3, two_sided=False,
               normalize_emitter=True, seed=cfg.seed, record=True, grid=grid)
@@ -695,7 +695,8 @@ def test_sphere_grid_kernel_matches_brute(cuda, monkeypatch):
               normalize_emitter=True, seed=cfg.seed, record=True)
     zeros = torch.zeros((cfg.total_rays, 3), device=cuda)
     exact = MK.pathtrace_pass(tables[0], ipar, *tables[1:], zeros.clone(), u,
-                              grid=mega.grid_tables(scene),
+                              grid=mega.grid_tables(scene, tables[1],
+                                                    tables[2]),
                               build_flags=("--fmad=false",), **kw)
     want = MK.pathtrace_pass_reference(tables[0], ipar, *tables[1:], zeros,
                                        u, **kw)
@@ -724,6 +725,195 @@ def test_grid_cell_route_trains_through_kernels_1_and_3(cuda):
             MKG.champ_launches - k3) == (1, 0, 1)
     assert torch.isfinite(tv.grad).all() and tv.grad.abs().max() > 0
     assert torch.isfinite(mat.grad).all() and mat.grad.abs().max() > 0
+
+
+def _cell_scene(kind, res, device, w=64, h=48, segments=(31, 16)):
+    """A grid scene whose cells hold 0, 1, a leaf's and a leaf and one
+    rows at grid resolution ``res``: the torus scene (992 triangles at the
+    default ``segments``) with its mesh grid at res^3, or sphere_field(600)
+    (the resident budget patched to 64 by the caller) with its sphere grid
+    rebuilt at res^3."""
+    import dataclasses
+    from raytracing_tpu_torch.accel import prepare_grids
+    from raytracing_tpu_torch.accel.grid import build_sphere_grid
+    from torch_grid_scenes import cornell_torus
+    if kind == "tri":
+        return prepare_grids(cornell_torus(w, h, *segments, device=device),
+                             3, mesh_slabs=res)
+    sc = prepare_grids(sphere_field(600, cols=w, rows=h, device=device), 1)
+    g = build_sphere_grid(sc.spheres, sc.sphere_bounds_min,
+                          sc.sphere_bounds_max, res)
+    return dataclasses.replace(sc, mega_sph_grid=g)
+
+
+@pytest.mark.parametrize("res,leaf", [(1, 2), (2, 1), (3, 1), (3, 2),
+                                      (3, 4), (3, 8), (5, 4)])
+@pytest.mark.parametrize("kind", ["tri", "sph"])
+def test_grid_cell_walk_equals_plain_version(cuda, monkeypatch, kind, res,
+                                             leaf):
+    """The mesh grid's cell trees at grid resolutions 1 to 5 (one cell of
+    every row down to cells of none, one, a leaf's and a leaf and one
+    rows) and at each leaf size, and the sphere grid (walked through its
+    CSR) beside the same: the --fmad=false build equals the plain grid
+    version (the march over every item of each cell) on every ray, id and
+    bit, path b3 and direct; the record names original rows."""
+    monkeypatch.setattr(MK, "SPH_RESIDENT_MAX", 64)
+    monkeypatch.setattr(MK, "GRID_LEAF", leaf)
+    scene = _cell_scene(kind, res, cuda)
+    cfg = RenderConfig(width=64, height=48, bounces=3, use_megakernel=True,
+                       use_grid=True)
+    tables = mega.scene_tables(scene, cfg)
+    grid = mega.grid_tables(scene, tables[1], tables[2])
+    assert [cp.leaf for cp in grid.copies] == ([leaf] if kind == "tri"
+                                               else [])
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    u = mega.u_planes_for_pass(pt.init_state(cfg, cuda)["key"], 0, cfg,
+                               scene.lights.count, cuda)
+    kw = dict(spp=1, width=64, bounces=3, two_sided=False,
+              normalize_emitter=True, seed=cfg.seed, record=True, grid=grid)
+    zeros = torch.zeros((cfg.total_rays, 3), device=cuda)
+    exact = MK.pathtrace_pass(tables[0], ipar, *tables[1:], zeros.clone(), u,
+                              build_flags=("--fmad=false",), **kw)
+    want = MK.pathtrace_pass_reference(tables[0], ipar, *tables[1:], zeros,
+                                       u, **kw)
+    key = torch.as_tensor(np.array([0, 5], np.uint32))
+    du = mega.u_planes_for_direct(key, cfg, scene.lights.count, cuda)
+    dkw = dict(key=key, spp=1, width=64, two_sided=False, grid=grid,
+               record=True)
+    dexact = MK.direct_pass(*tables, zeros.clone(), du,
+                            build_flags=("--fmad=false",), **dkw)
+    dwant = MK.direct_pass_reference(*tables, zeros, du, **dkw)
+    torch.cuda.synchronize()
+    n_sph = tables[1].shape[0]
+    hit = want[1][want[1] >= 0]
+    assert ((hit >= n_sph) if kind == "tri" else (hit < n_sph)).any()
+    assert int(want[1].max()) < n_sph + tables[2].shape[0]
+    for a, b in zip(tuple(exact) + tuple(dexact), tuple(want) + tuple(dwant)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["tri", "sph"])
+def test_grid_kernel_3_on_the_cell_walk_record(cuda, monkeypatch, kind):
+    """Kernel 1's record over the cell walk names original rows (its ids
+    and bits equal the plain grid version's, --fmad=false) and kernel 3 on
+    it matches its plain version under phase 6's gates."""
+    monkeypatch.setattr(MK, "SPH_RESIDENT_MAX", 64)
+    scene = _cell_scene(kind, 3, cuda)
+    cfg = RenderConfig(width=64, height=48, bounces=2, use_megakernel=True,
+                       use_grid=True)
+    tables = mega.scene_tables(scene, cfg)
+    grid = mega.grid_tables(scene, tables[1], tables[2])
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    kw = dict(spp=1, width=64, bounces=2, two_sided=False,
+              normalize_emitter=True, seed=cfg.seed)
+    zeros = torch.zeros((cfg.total_rays, 3), device=cuda)
+    _, ids, occs = MK.pathtrace_pass(tables[0], ipar, *tables[1:], zeros,
+                                     None, record=True, grid=grid,
+                                     build_flags=("--fmad=false",), **kw)
+    _, wids, woccs = MK.pathtrace_pass_reference(
+        tables[0], ipar, *tables[1:], zeros, None, record=True, grid=grid,
+        **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(ids, wids) and torch.equal(occs, woccs)
+    g = torch.as_tensor(np.random.default_rng(3).normal(
+        size=(cfg.total_rays, 3)).astype(np.float32), device=cuda)
+    wrt = MKG.DIFF_ALL
+    want = MKG.pathtrace_pass_bwd_champ_reference(
+        tables[0], ipar, *tables[1:], g, None, ids, occs, diff_wrt=wrt, **kw)
+    got = MKG.pathtrace_pass_bwd_champ(tables[0], ipar, *tables[1:], g, None,
+                                       ids, occs, diff_wrt=wrt, **kw)
+    torch.cuda.synchronize()
+    _gates(*zip(*[(a, b) for a, b in zip(want, got) if a.numel()]),
+           names=[n for n, a in zip(MKG.DIFF_ALL, want) if a.numel()])
+
+
+@pytest.mark.parametrize("kind", ["tri", "sph"])
+def test_grid_pallas_backward_through_the_large_entry(cuda, monkeypatch,
+                                                      kind):
+    """mega_bwd_impl="pallas" on a grid scene (the mesh grid, the sphere
+    grid) runs kernel 1 and kernel 2's large entry, whose replay walks the
+    same cells from divergent code; its cotangents match the plain
+    backward's (phase 6's gates; the torus of 256 triangles, whose brute
+    plain backward runs per object)."""
+    monkeypatch.setattr(MK, "SPH_RESIDENT_MAX", 64)
+    scene = _cell_scene(kind, 3, cuda, 32, 24, (16, 8))
+    cfg = RenderConfig(width=32, height=24, bounces=2, use_megakernel=True,
+                       use_grid=True, mega_bwd_impl="pallas",
+                       mega_grad_wrt=MKG.DIFF_ALL)
+    assert mega.bwd_impl_for(scene, cfg) == "pallas"
+    tables = mega.scene_tables(scene, cfg)
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    g = torch.as_tensor(np.random.default_rng(5).normal(
+        size=(cfg.total_rays, 3)).astype(np.float32), device=cuda)
+    kw = dict(spp=1, width=32, bounces=2, two_sided=False,
+              normalize_emitter=True, seed=cfg.seed)
+    want = MKG.pathtrace_pass_bwd_reference(tables[0], ipar, *tables[1:], g,
+                                            None, **kw)
+    large = MKG.large_launches
+    got = MKG.pathtrace_pass_bwd(
+        tables[0], ipar, *tables[1:], g, None,
+        grid=mega.grid_tables(scene, tables[1], tables[2]), **kw)
+    torch.cuda.synchronize()
+    assert MKG.large_launches == large + 1
+    _gates(*zip(*[(a, b) for a, b in zip(want, got) if a.numel()]),
+           names=[n for n, a in zip(MKG.DIFF_ALL, want) if a.numel()])
+    # and through render_pass: one kernel-1 and one large kernel-2 launch
+    m = scene.materials.clone().requires_grad_(True)
+    k1, large = MK.launches, MKG.large_launches
+    st = pt.render_pass(replace(scene, materials=m), pt.init_state(cfg, cuda),
+                        cfg)
+    torch.mean(pt.image(st, cfg) ** 2).backward()
+    torch.cuda.synchronize()
+    assert (MK.launches - k1, MKG.large_launches - large) == (1, 1)
+    assert torch.isfinite(m.grad).all() and m.grad.abs().max() > 0
+
+
+def test_grid_kernel_rejects_a_bad_copy(cuda):
+    """A grid without its cell-major copies, or with copies of the wrong
+    shapes or leaves, raises in the wrapper; the C entry checks the
+    descriptor itself (pathtrace.cuh grid_ok): a leaf of 3 or 64 rows or a
+    missing node table returns cudaErrorInvalidValue and launches
+    nothing."""
+    scene = _torus_scene(cuda, 16, 16)
+    cfg = RenderConfig(width=16, height=16, bounces=0, use_megakernel=True,
+                       use_grid=True)
+    par, sph, tri, mat, lig = mega.scene_tables(scene, cfg)
+    grid = mega.grid_tables(scene, sph, tri)
+    acc = torch.zeros((cfg.total_rays, 3), device=cuda)
+    kw = dict(key=torch.zeros(2, dtype=torch.int32), spp=1, width=16,
+              two_sided=False)
+    cp = grid.copies[0]
+    for bad in (grid._replace(copies=None),
+                grid._replace(copies=(cp._replace(leaf=3),)),
+                grid._replace(copies=(cp._replace(leaf=64),)),
+                grid._replace(copies=(cp._replace(
+                    rows=cp.rows[:, :8].contiguous()),)),
+                grid._replace(copies=(cp._replace(perm=cp.perm.long()),)),
+                grid._replace(copies=(cp._replace(
+                    cell=cp.cell[:-1].contiguous()),)),
+                grid._replace(copies=(cp._replace(
+                    nodes=cp.nodes[:, :6].contiguous()),))):
+        with pytest.raises(ValueError, match="grid"):
+            MK.direct_pass(par, sph, tri, mat, lig, acc, None, grid=bad, **kw)
+    lib = MK._lib(grid, None, ())
+    p = MK._ptr
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for field, value in (("leaf", 3), ("leaf", 64), ("node", None)):
+        gargs, (desc, _) = MK._grid_args(grid, None, sph.shape[0],
+                                         tri.shape[0])
+        setattr(desc[0], field, value)
+        err = lib.rt_direct_pass(
+            p(par), p(sph), sph.shape[0], p(tri), tri.shape[0], p(mat),
+            mat.shape[0], p(lig), lig.shape[0], p(acc), acc.shape[0], 0,
+            None, 0, 7, 0, 0, 1, 1, 16, 0, None, None, *gargs, 0, stream)
+        assert err == 1, (field, value, err)
+    gargs, _desc = MK._grid_args(grid, None, sph.shape[0], tri.shape[0])
+    err = lib.rt_direct_pass(
+        p(par), p(sph), sph.shape[0], p(tri), tri.shape[0], p(mat),
+        mat.shape[0], p(lig), lig.shape[0], p(acc), acc.shape[0], 0, None,
+        0, 7, 0, 0, 1, 1, 16, 0, None, None, *gargs, 0, stream)
+    torch.cuda.synchronize()
+    assert err == 0 and acc.max() > 0
 
 
 @pytest.mark.parametrize("rr", [False, True])
@@ -1038,7 +1228,8 @@ def _large_case(name, device, rr=False, w=32, h=24):
     cfg = RenderConfig(width=w, height=h, bounces=2, use_megakernel=True,
                        russian_roulette=rr, rr_start_depth=1, use_grid=grid)
     tables = mega.scene_tables(scene, cfg)
-    replay = dict(grid=mega.grid_tables(scene) if grid else None,
+    replay = dict(grid=mega.grid_tables(scene, tables[1], tables[2])
+                  if grid else None,
                   chunks=mega.chunk_tables(scene, cfg, tables[1], tables[2]))
     return scene, cfg, tables, replay
 

@@ -137,11 +137,11 @@ def test_torch_edge_grid_matches_brute_and_row_contract():
     dup = torch.cat([tri, tri[:3]])      # rows binned in two cells, twice
     with pytest.raises(ValueError, match="cell-major"):
         MKG.pathtrace_pass_diff(par, IPAR, sph, dup, mat, lig, acc, u,
-                                grid=mega.grid_tables(gs),
+                                grid=mega.grid_tables(gs, sph, tri),
                                 soft_bandwidth=BW, **kw)
     with pytest.raises(ValueError, match="cell-major"):
         MKG.pathtrace_pass_diff(par, IPAR, torch.cat([sph, sph[:1]]), tri,
-                                mat, lig, acc, u, grid=mega.grid_tables(gs),
+                                mat, lig, acc, u, grid=mega.grid_tables(gs, sph, tri),
                                 soft_bandwidth=BW, **kw)
     with pytest.raises(ValueError, match="hard-gradient only"):
         MKG.pathtrace_pass_diff(par, IPAR, sph, tri, mat, lig, acc, u,

@@ -131,7 +131,7 @@ def test_grid_mode_equals_brute_route(torus, mode):
     if mode == "roulette":
         kw.update(russian_roulette=True, rr_start_depth=1)
     cfg = RenderConfig(**kw)
-    grid = mega.grid_tables(ps)
+    grid = mega.grid_tables(ps, *_tables(ps, cfg)[1:3])
     if mode == "direct":
         cfg = replace(cfg, bounces=0)
         tables = _tables(ps, cfg)
@@ -163,7 +163,7 @@ def test_sphere_grid_equals_brute_route(monkeypatch, mode):
     assert ps.mega_sph_grid is not None and ps.mega_sph_grid.n == (2, 2, 2)
     cfg = RenderConfig(width=24, height=16, bounces=1, use_grid=True,
                        use_megakernel=True)
-    grid = mega.grid_tables(ps)
+    grid = mega.grid_tables(ps, *_tables(ps, cfg)[1:3])
     assert grid.tri == () and grid.sph is ps.mega_sph_grid
     if mode == "direct":
         got = render_direct(ps, replace(cfg, bounces=0))
@@ -233,7 +233,7 @@ def test_wrapper_rejects_bad_grids_and_blocks(torus):
     _, ps = torus
     cfg = _cfg(RenderConfig, bounces=0)
     tables = _tables(ps, cfg)
-    grid = mega.grid_tables(ps)
+    grid = mega.grid_tables(ps, tables[1], tables[2])
     acc = torch.zeros((cfg.total_rays, 3))
     kw = dict(key=torch.zeros(2, dtype=torch.int32), spp=1, width=W,
               two_sided=False)
