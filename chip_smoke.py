@@ -210,10 +210,12 @@ Phases, each fatal on failure (no exception is caught):
      triangles, BENCH_SCENE=house's count).
  22. kernels 2 and 2s past 64 objects per type (ROADMAP item 16): (a) at
      LARGE_W x LARGE_H b5 (the main path's depth), the same u-planes and
-     seeded random cotangent, the u-planes and PRNG routes, one launch of
-     the large-table instance each (none of the 64-object one): kernel 2
-     vs its plain version (the long tables' rows tested a chunk at a
-     time over the program's Morton build, its ``chunks`` argument) on
+     seeded random cotangent, the u-planes and PRNG routes, one count of
+     the large-table route each (none of the 64-object one): kernel 2
+     (kernel 1's --fmad=false record of the pass, then kernel 3's sweep
+     of it: MKG.pathtrace_pass_bwd_split) vs its plain version (the
+     long tables' rows tested a chunk at a time over the program's
+     Morton build, its ``chunks`` argument) on
      sphere_field(256) and sphere_field(1024) (resident spheres, the 2-
      and 8-row loops) with ("sph", "mat"), on the torus scene streamed and
      over its grids with ("sph", "mat", "tri"), and on the streamed torus
@@ -240,12 +242,16 @@ Phases, each fatal on failure (no exception is caught):
      (sphere_field(4096), a seeded soup of 4096 triangles) at CAP_W x
      CAP_H b1, all five groups, the same gates, kernel 2s also with the
      roulette (from depth 0) and in direct mode; (b) at 1024^2 b5: the
-     "pallas" train step (one kernel-1 and one large kernel-2 launch per
-     step) beside the cell route's (kernel 1 recording and kernel 3) on
-     sphere_field(1024) with ("sph", "mat") and on the torus scene
+     "pallas" train step (one kernel-1 launch and one large kernel-2
+     count per step: the record and the sweep count no kernel-1 or
+     kernel-3 launch) beside the cell route's (kernel 1 recording and
+     kernel 3) on sphere_field(1024) with ("sph", "mat") and on the torus scene
      streamed with ("sph", "mat", "tri"), LARGE_STEPS steps each, median
      ms and fwd+bwd segments/s, kernel 2 alone on the last step's
-     cotangent with its bound; BENCH_EDGE on the torus scene (one step;
+     cotangent (both launches, then the record and the sweep each alone)
+     with its bound (the record's count plus the sweep's operations;
+     bytes: 12 per ray, the tables twice, the record, 4 + L per segment,
+     written and read); BENCH_EDGE on the torus scene (one step;
      one kernel-1 and one large kernel-2s launch), kernel 2s alone (CUDA
      events around its launch in that step) with its bounds, FP32 and
      MUFU: dense (every factor of every row, every pair of every span and
@@ -263,9 +269,10 @@ Phases, each fatal on failure (no exception is caught):
      ops/megakernel_grad.py): (iv) at DIRECT_W x DIRECT_H, the same
      u_planes_for_direct draws and seeded random cotangent, on cornell
      spp 1 and spp 4 through a lens of diameter 0.25 (all five groups),
-     sphere_field(SMALL_SPHERES) (kernels 2 and 2s's large-table
-     instances, ("sph", "mat")) and the torus scene streamed (("sph",
-     "mat", "tri")): piece a, kernel 1's direct-mode recording, bit-equal
+     sphere_field(SMALL_SPHERES) (kernel 2's large-table route and kernel
+     2s's large-table instance, ("sph", "mat")) and the torus scene
+     streamed (("sph", "mat", "tri")): piece a, kernel 1's direct-mode
+     recording, bit-equal
      to the launch that does not record, its --fmad=false build equal to
      the plain record on every ray, id and bit, the build that runs within
      phase 3's gates (SPHERE_GATES on the sphere field); piece b, kernel 2
@@ -281,7 +288,7 @@ Phases, each fatal on failure (no exception is caught):
      forms it): cornell through kernels 1 and 2, through kernel 1
      recording and kernel 3, and through kernels 1 and 2s
      (mega_edge_bandwidth EDGE_BW), sphere_field(N_SPHERES) through kernel
-     2's large-table instance and through the cell route: exactly one
+     2's large-table route and through the cell route: exactly one
      direct launch and one launch of the route's backward per step, a
      finite loss, finite nonzero gradients; ms per step, fwd+bwd rays/s,
      each kernel alone (CUDA events) on the last step with its share of
@@ -3988,10 +3995,11 @@ def large_vs_plain(dev, shape: str, soft: bool, rr: bool, wrt,
                    w: int = LARGE_W, h: int = LARGE_H,
                    bounces: int = BOUNCES, brute: bool = False,
                    direct: bool = False, rr_start: int = RR_START) -> dict:
-    """Phase 22 (a) and (c): kernel 2's large-table instance (``soft``
-    False; over the scene's resident spheres, its streamed chunks or its
-    grids, as the forward) or kernel 2s's large-table instance (the
-    two-level composite; the triangles in Morton order) against its plain
+    """Phase 22 (a) and (c): kernel 2's large-table route (``soft``
+    False; the record over the scene's resident spheres, its streamed
+    chunks or its grids, as the forward, then kernel 3's sweep) or
+    kernel 2s's large-table instance (the two-level composite; the
+    triangles in Morton order) against its plain
     version on the same tables, u-planes and seeded random cotangent, the
     u-planes and PRNG routes, under phase 6's gates (max |d| included).
     The plain hard version tests the long tables a chunk of rows at a
@@ -4084,7 +4092,7 @@ def large_vs_plain(dev, shape: str, soft: bool, rr: bool, wrt,
     what = "kernel 2s" if soft else "kernel 2"
     size = f"{w}x{h} " + ("direct" if direct else f"b{bounces}")
     order = ", Morton-sorted" if soft and n_t > 64 else ""
-    print(f"phase 22 {what} large-table instance, {shape} ({n_s} spheres, "
+    print(f"phase 22 {what} past 64 objects, {shape} ({n_s} spheres, "
           f"{n_t} triangle rows{order}{', over its grids' if grid else ''})"
           f" {size}"
           f"{f' with the roulette from depth {rr_start}' if rr else ''} "
@@ -4228,13 +4236,15 @@ def _soft_spans(n: int) -> list:
 
 def large_train(dev, smi: str, work: dict) -> dict:
     """Phase 22 (b) at 1024^2 b5: the hard "pallas" step (kernel 1 and
-    kernel 2's large-table instance) beside the cell route's step (kernel 1
-    recording and kernel 3) on sphere_field(N_SPHERES) with ("sph", "mat")
+    kernel 2 past 64 objects: the record, then kernel 3's sweep) beside
+    the cell route's step (kernel 1 recording and kernel 3) on
+    sphere_field(N_SPHERES) with ("sph", "mat")
     and on the torus scene streamed with ("sph", "mat", "tri"), LARGE_STEPS
     timed steps each after a warm-up, median ms, fwd+bwd segments/s,
-    launches; kernel 2 alone on the last step's cotangent (CUDA events)
-    with its bound; then BENCH_EDGE on the torus scene (tau = bandwidth =
-    EDGE_BW, ("sph", "mat")): one step, kernel 2s's large-table instance alone
+    launches; kernel 2 alone on the last step's cotangent (CUDA events;
+    both launches, then each alone) with its bound; then BENCH_EDGE on
+    the torus scene (tau = bandwidth = EDGE_BW, ("sph", "mat")): one
+    step, kernel 2s's large-table instance alone
     timed by CUDA events around its launch inside that step, its bound.
     ``work`` is phase 21's 256x192 counts of the torus in path mode
     (``_stream_counts``). Returns the entries by name."""
@@ -4297,28 +4307,44 @@ def large_train(dev, smi: str, work: dict) -> dict:
         print(f"phase 22 {shape}: pallas step / cell step "
               f"{ms['pallas'] / ms['cell']:.4g}x (\"auto\" keeps JAX's cell "
               "route past 64 objects)")
-        # kernel 2's large-table instance alone on the last pallas step's
-        # cotangent
+        # kernel 2 past 64 objects alone on the last pallas step's
+        # cotangent: both launches (the uncontracted record, kernel 3's
+        # sweep), then each alone
         cfg = replace(base, mega_bwd_impl="pallas")
         tables = mega.scene_tables(scene, cfg)
         n_s, n_t = tables[1].shape[0], tables[2].shape[0]
         chunks = mega.chunk_tables(scene, cfg, tables[1], tables[2])
         ipar = torch.tensor([last, 0], dtype=torch.int32)
         kw = _pass_kw(cfg, diff_wrt=wrt)
-        MKG.pathtrace_pass_bwd(tables[0], ipar, *tables[1:], g, None,
-                               chunks=chunks, **kw)
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        for _ in range(3):
-            MKG.pathtrace_pass_bwd(tables[0], ipar, *tables[1:], g, None,
-                                   chunks=chunks, **kw)
-        end.record()
-        torch.cuda.synchronize()
-        k_ms = start.elapsed_time(end) / 3
-        # its bound: the replay's forward (kernel 1's count of the pass,
+        rkw = {k: v for k, v in kw.items() if k != "diff_wrt"}
+        pieces = {
+            "both": lambda: MKG.pathtrace_pass_bwd(
+                tables[0], ipar, *tables[1:], g, None, chunks=chunks, **kw),
+            "record": lambda: MKG._record(
+                tables[0], ipar, *tables[1:], g, None, mode="path",
+                chunks=chunks, grid=None, block=0, **rkw)}
+        rec = pieces["record"]()
+        pieces["sweep"] = lambda: MKG._launch_champ(
+            tables[0], ipar, *tables[1:], g, None, *rec, wrt, mode="path",
+            **rkw)
+        piece_ms = {}
+        for k, fn in pieces.items():
+            fn()
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            for _ in range(3):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            piece_ms[k] = start.elapsed_time(end) / 3
+        k_ms = piece_ms["both"]
+        # its bound: the record's forward (kernel 1's count of the pass,
         # the streamed chunks' slab and row tests as phase 21's plain
         # version counted them, scaled) and the sweep's own operations,
-        # over the rays with g != 0, from kernel 1's record of the pass
+        # over the rays with g != 0, from kernel 1's record of the pass;
+        # bytes: the tables twice, the cotangent and the record, (4 + L) B
+        # a segment, written and read
         _, ids, occs = MK.pathtrace_pass(
             tables[0], ipar, *tables[1:], torch.zeros_like(g), None,
             record=True, chunks=chunks, **_pass_kw(cfg))
@@ -4336,14 +4362,19 @@ def large_train(dev, smi: str, work: dict) -> dict:
                       for o in ("morton", "tree"))
             nbytes = _stream_bytes(tables, chunks)
         ops += _adj_ops(w, wrt)
-        bound = _bound(ops, 12 * cfg.total_rays + 2 * nbytes)
-        print(f"phase 22 kernel 2 large-table instance alone, {shape} step "
-              f"cotangent wrt {list(wrt)}: {k_ms:.6g} ms "
-              f"({k_ms / ms['pallas']:.3%} of the step); bound "
+        bound = _bound(ops, 12 * cfg.total_rays + 2 * nbytes
+                       + 2 * (4 + n_l) * ids.numel())
+        print(f"phase 22 kernel 2 past 64 objects alone (record + sweep), "
+              f"{shape} step cotangent wrt {list(wrt)}: {k_ms:.6g} ms "
+              f"({k_ms / ms['pallas']:.3%} of the step; the record alone "
+              f"{piece_ms['record']:.6g} ms, kernel 3's sweep alone "
+              f"{piece_ms['sweep']:.6g} ms); bound "
               f"{ops / max(w['rays'], 1):.6g} FP32 operations per live ray "
               f"-> {bound['bound_ms']:.6g} ms ({bound['bound_by']}); share "
               f"{bound['bound_ms'] / k_ms:.3%}")
         out[shape] = {"launches": launches, "ms": k_ms,
+                      "record_ms": piece_ms["record"],
+                      "sweep_ms": piece_ms["sweep"],
                       "shape": f"{shape} {MAIN_W}x{MAIN_H} b{BOUNCES}",
                       "step_ms": ms["pallas"], "cell_step_ms": ms["cell"],
                       **bound}
@@ -4467,12 +4498,13 @@ def _direct_adj_ops(w: dict, wrt) -> float:
     return ops
 
 
-def _direct_bounds(tables, ids, occs, g, wrt) -> dict:
+def _direct_bounds(tables, ids, occs, g, wrt, split: bool = False) -> dict:
     """Bounds of pieces a (kernel 1 recording the direct pass: ids (1, R),
     occs (L, R)), b (kernel 2: kernel 1's pass over the rays with g != 0,
-    then direct_sweep) and c (kernel 3: the recorded champion's surface and
-    each shadow ray once, then direct_sweep), and each one's operations per
-    ray."""
+    then direct_sweep; with ``split``, past 64 objects, the record it
+    writes and reads too) and c (kernel 3: the recorded champion's surface
+    and each shadow ray once, then direct_sweep), and each one's
+    operations per ray."""
     n = ids.shape[1]
     n_s, n_t, n_l = (t.shape[0] for t in tables[1:3] + tables[4:5])
     w = _pass_work(ids, occs, n_l, n_s)
@@ -4483,7 +4515,8 @@ def _direct_bounds(tables, ids, occs, g, wrt) -> dict:
                  + live["shadow"] * OPS_DIRECT_SHADOW
                  + _direct_adj_ops(live, wrt))}
     nbytes = {"a": (24 + 4 + n_l) * n + _table_bytes(tables),
-              "b": 12 * n + 2 * _table_bytes(tables),
+              "b": 12 * n + 2 * _table_bytes(tables)
+              + (2 * (4 + n_l) * n if split else 0),
               "c": 12 * n + (4 + n_l) * live["rays"]
               + 2 * _table_bytes(tables)}
     return {k: dict(_bound(ops[k], nbytes[k]),
@@ -4624,7 +4657,7 @@ def direct_diff_vs_plain(dev, name: str, wrt, spp: int = 1,
            f"{size}: {beyond:.4%} of rays beyond {TOL:g} (> {gate_b:.2%}) "
            f"or {ids_d:.4%} of ids differ (> {gate_i:.2%})")
     _, ids, occs = rec
-    # b: kernel 2 (its large-table instance past 64 objects, over the
+    # b: kernel 2 (past 64 objects the record and the sweep, over the
     # forward's streamed chunks)
     large = MKG.large_route(t[1], t[2], None, chunks)
     count = lambda: MKG.large_launches if large else MKG.launches  # noqa: E731
@@ -4639,7 +4672,7 @@ def direct_diff_vs_plain(dev, name: str, wrt, spp: int = 1,
     torch.cuda.synchronize()
     _check(count() == before + 2, f"{size}: kernel 2 launches "
            f"{count() - before} (want 2{', large-table' if large else ''})")
-    print(f"phase 23 (b) kernel 2 direct{' (large-table instance)' if large else ''}"
+    print(f"phase 23 (b) kernel 2 direct{' (record + sweep)' if large else ''}"
           f", {size} wrt {list(wrt)}: plain {out['plain_ms']['b']:.6g} ms")
     out["max_abs_err"]["b"] = _hold_routes("kernel 2", want, got, wrt)
     # c: kernel 3 on kernel 1's own record
@@ -4698,7 +4731,7 @@ def direct_train(dev, smi: str, name: str, route: str) -> dict:
     """Phase 23 (i)-(iii): one warm-up and DIRECT_STEPS timed SGD steps of
     direct mode at 1024^2 spp 1 through pathtrace_pass_diff(mode="direct")
     on ``route`` ("kernel2": kernels 1 and 2, past 64 objects kernel 2's
-    large-table instance; "cell": kernel 1 recording and kernel 3; "soft":
+    record and sweep; "cell": kernel 1 recording and kernel 3; "soft":
     kernels 1 and 2s at EDGE_BW), ("sph", "mat"); the image is the
     per-pixel mean over spp over the lights, as render_direct_mega forms
     it. Gates one direct launch and one launch of the route's backward per
@@ -4798,7 +4831,8 @@ def direct_train(dev, smi: str, name: str, route: str) -> dict:
     bkw = dict(kw, diff_wrt=TRAIN_WRT, mode="direct")
     _, ids, occs = MK.direct_pass(*t, zeros.clone(), None, record=True,
                                   **fkw)
-    bounds = _direct_bounds(t, ids, occs, g, TRAIN_WRT)
+    bounds = _direct_bounds(t, ids, occs, g, TRAIN_WRT,
+                            split=MKG.large_route(t[1], t[2]))
     if route == "kernel2":
         runs = {"b": lambda: MKG.pathtrace_pass_bwd(t[0], ipar, *t[1:], g,
                                                     None, **bkw)}
@@ -5242,19 +5276,22 @@ def main() -> int:
         "bound_ms": m21["k3"]["bound_ms"], "bound_by": m21["k3"]["bound_by"],
         "library_ms": None}] + [{
         "name": name, "route": "cuda",
-        "source": "raytracing_tpu_torch/csrc/megakernel_grad.cu",
+        "source": "raytracing_tpu_torch/csrc/megakernel_champ.cu",
+        "record_source": "raytracing_tpu_torch/csrc/megakernel.cu",
         "replaces": "raytracing_tpu/ops/pallas/megakernel_grad.py:223",
         "launches": e["launches"], "max_abs_err": hard22, "ms": e["ms"],
+        "record_ms": e["record_ms"], "sweep_ms": e["sweep_ms"],
         "plain_ms": plain["plain_ms"], "bound_ms": e["bound_ms"],
         "bound_by": e["bound_by"], "library_ms": None,
         "shape": e["shape"], "plain_shape": plain["shape"]}
         for name, e, plain in (
-            ("pathtrace_pass_bwd (adjoint megakernel past 64 objects, "
-             f"large-table instance: sphere_field({N_SPHERES}))",
+            ("pathtrace_pass_bwd (adjoint past 64 objects, an uncontracted "
+             "record by kernel 1 and kernel 3's sweep: "
+             f"sphere_field({N_SPHERES}))",
              l22["spheres1024"], a22["spheres1024"]),
-            ("pathtrace_pass_bwd (adjoint megakernel past 64 objects, "
-             "large-table instance: streamed cornell + torus)", l22["torus"],
-             a22["torus"]))] + [{
+            ("pathtrace_pass_bwd (adjoint past 64 objects, an uncontracted "
+             "record by kernel 1 and kernel 3's sweep: streamed cornell + "
+             "torus)", l22["torus"], a22["torus"]))] + [{
         "name": "pathtrace_pass_bwd_soft (kernel 2s past 64 objects, "
                 "two-level composite: cornell + torus)",
         "route": "cuda",
@@ -5303,9 +5340,10 @@ def main() -> int:
              "mode recording, 8-row sphere loop)", "megakernel.cu",
              "megakernel.py:1393"),
             ("b", b23, 4, f"sphere_field({N_SPHERES})",
-             f"sphere_field({N_SPHERES})", "pathtrace_pass_bwd (adjoint "
-             "megakernel, direct mode, large-table instance)",
-             "megakernel_grad.cu", "megakernel_grad.py:795"),
+             f"sphere_field({N_SPHERES})", "pathtrace_pass_bwd (adjoint, "
+             "direct mode past 64 objects: an uncontracted record by "
+             "kernel 1 and kernel 3's sweep)",
+             "megakernel_champ.cu", "megakernel_grad.py:795"),
             ("c", b23, 4, f"sphere_field({N_SPHERES})",
              f"sphere_field({N_SPHERES})", "pathtrace_pass_bwd_champ "
              "(champion adjoint, direct mode past 64 objects)",

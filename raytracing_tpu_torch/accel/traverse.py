@@ -132,7 +132,7 @@ def lex_min(t, obj, ray, n: int):
     """Per ray the least (t, obj) pair among its pairs (INF t = no hit):
     (t (n,), obj (n,), pair index (n,) or -1)."""
     dev = t.device
-    tmin = torch.full((n,), INF, device=dev).scatter_reduce(
+    tmin = torch.full((n,), INF, dtype=t.dtype, device=dev).scatter_reduce(
         0, ray, t, "amin")
     cand = torch.isfinite(t) & (t == tmin[ray])
     big = torch.iinfo(torch.int64).max

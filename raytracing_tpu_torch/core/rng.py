@@ -59,12 +59,24 @@ def _make_key(y0: int, y1: int) -> torch.Tensor:
     return torch.tensor([y0, y1], dtype=torch.int64).to(torch.uint32)
 
 
-def base_key(seed: int) -> torch.Tensor:
-    """``jax.random.PRNGKey(seed)``: key data ``[0, seed mod 2**32]``."""
+def _seed_word(seed: int) -> int:
     seed = int(seed)
     if not -(1 << 31) <= seed < (1 << 32):
         raise OverflowError(f"seed {seed} outside the 32-bit range JAX takes")
-    return torch.tensor([0, seed & MASK32], dtype=torch.int64).to(torch.uint32)
+    return seed & MASK32
+
+
+def base_key(seed: int) -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)``: key data ``[0, seed mod 2**32]``."""
+    return torch.tensor([0, _seed_word(seed)],
+                        dtype=torch.int64).to(torch.uint32)
+
+
+def pass_key_words(seed: int, pass_idx: int) -> tuple[int, int]:
+    """``key_words(pass_key(base_key(seed), pass_idx))`` on Python ints
+    alone: the words a kernel launch takes, with no tensor made on the
+    way (a launch's host work)."""
+    return threefry2x32(0, _seed_word(seed), 0, int(pass_idx) & MASK32)
 
 
 def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:

@@ -218,7 +218,23 @@ struct Rec {
     if (occs != nullptr)
       occs[static_cast<size_t>(k) * n_rays + rid] = o ? 1 : 0;
   }
+  // the record of a ray that is not traced: n_seg misses, no occluder
+  __device__ __forceinline__ void miss(int n_seg, int n_lig) const {
+    for (int s = 0; s < n_seg; ++s) id(s, -1);
+    for (int k = 0; k < n_seg * n_lig; ++k) occ(k, false);
+  }
 };
+
+// Whether a recording launch skips ray rid: `live` is the cotangent (n_rays,
+// 3) of the pass that the record is for (null: every ray is traced), and a
+// ray whose row is 0 is one that kernel 3 never reads (pathtrace_adj.cuh
+// for_rays, the same test), so the launch that records for kernel 2 past 64
+// objects traces only the rays whose cotangent it needs.
+__device__ __forceinline__ bool skip_ray(const float* live, int rid) {
+  if (live == nullptr) return false;
+  const float* g = live + 3 * static_cast<size_t>(rid);
+  return !(g[0] != 0.0f || g[1] != 0.0f || g[2] != 0.0f);
+}
 
 // Next-event estimation for light li with draw slot `slot`: shadow ray to
 // a sampled disk point, shade with the pre-update throughput, then
@@ -358,6 +374,7 @@ struct Params {
   int two_sided, normalize_emitter;
   int* ids;        // (1 + bounces, n_rays) or nullptr: not recording
   uint8_t* occs;   // ((1 + bounces) * n_lig, n_rays) or nullptr
+  const float* live;  // recording: trace only these rays (skip_ray)
   int block;       // blocked layout's block edge, 0: row-major
   Grids grids;     // grid mode (kernel with kGrid)
 };
@@ -435,6 +452,10 @@ __global__ void __launch_bounds__(
   R.occs = p.occs;
   R.n_rays = p.n_rays;
   R.rid = rid;
+  if (skip_ray(p.live, rid)) {
+    R.miss(1 + p.bounces, p.n_lig);
+    return;
+  }
 
   float* a = p.acc + 3 * static_cast<size_t>(rid);
   Acc A;
@@ -519,6 +540,7 @@ struct DirectParams {
   int two_sided;
   int* ids;        // (1, n_rays) or nullptr: not recording
   uint8_t* occs;   // (n_lig, n_rays) or nullptr
+  const float* live;  // recording: trace only these rays (skip_ray)
   int block;       // blocked layout's block edge, 0: row-major
   Grids grids;     // grid mode (kernel with kGrid)
 };
@@ -575,6 +597,10 @@ __global__ void __launch_bounds__(
   R.occs = p.occs;
   R.n_rays = p.n_rays;
   R.rid = rid;
+  if (kRecord && skip_ray(p.live, rid)) {
+    R.miss(1, p.n_lig);
+    return;
+  }
   float* a = p.acc + 3 * static_cast<size_t>(rid);
   float ar = a[0], ag = a[1], ab = a[2];
   for (int k = 0; k < p.n_passes; ++k) {
@@ -641,7 +667,10 @@ DirectKernel direct_instance(bool wide, bool streamed) {
 // keys (ignored with u_planes), copied into the launch's parameters.
 // rr != 0: Russian roulette from depth rr_start_depth on (its draw slots in
 // the layout). Non-null `ids` (and `occs` when n_lig > 0) record the
-// champions and the occlusion bits of a one-pass launch. grid_mode != 0 runs
+// champions and the occlusion bits of a one-pass launch; with a non-null
+// `live` (the pass's cotangent, (n_rays, 3)) only the rays whose row is
+// nonzero are traced, the others recorded as misses (skip_ray), and acc is
+// scratch. grid_mode != 0 runs
 // grid mode over `grids` and the streamed tables `streams` (set_grids; only
 // in the build with RT_GRID_MODE=1, which takes nothing else); block > 0
 // its blocked layout.
@@ -655,7 +684,8 @@ extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
                                  int n_passes, int spp, int width, int bounces,
                                  int rr, int rr_start_depth, int two_sided,
                                  int normalize_emitter, int* ids,
-                                 uint8_t* occs, int grid_mode,
+                                 uint8_t* occs, const float* live,
+                                 int grid_mode,
                                  const GridDesc* grids, int n_grids,
                                  int sph_grid, int tri_start,
                                  const Stream* streams, int block,
@@ -663,7 +693,7 @@ extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
   Params p;
   if (n_passes < 1 || n_passes > kMaxPasses || (u_planes && n_passes != 1) ||
       (grid_mode != 0) != kGridBuild || (ids && n_passes != 1) ||
-      (!ids && occs) ||
+      (!ids && (occs || live)) ||
       (ids && n_lig > 0 && !occs) || block < 0 || (block && !grid_mode) ||
       !set_grids(p.grids, grids, grid_mode ? n_grids : 0,
                  grid_mode ? sph_grid : 0, grid_mode ? tri_start : n_tri,
@@ -694,6 +724,7 @@ extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
   p.normalize_emitter = normalize_emitter;
   p.ids = ids;
   p.occs = occs;
+  p.live = live;
   p.block = block;
   // the tables in shared memory: in grid mode the brute prefix alone
   const int n_sph_smem = p.grids.sph_resident(n_sph);
@@ -739,9 +770,9 @@ extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
 // pass) when per_pass != 0, by the key itself otherwise (a call of one
 // pass). Non-null `ids` (1, n_rays) (and `occs` (n_lig, n_rays) when n_lig
 // > 0) record the primary champion and the occlusion bits of a one-pass
-// launch. grid_mode and block as rt_pathtrace_pass. Launches on `stream`,
-// allocates nothing, does not synchronise; returns cudaGetLastError() after
-// the launch.
+// launch; `live`, grid_mode and block as rt_pathtrace_pass. Launches on
+// `stream`, allocates nothing, does not synchronise; returns
+// cudaGetLastError() after the launch.
 extern "C" int rt_direct_pass(const float* par, const float* sph, int n_sph,
                               const float* tri, int n_tri, const float* mat,
                               int n_mat, const float* lig, int n_lig,
@@ -749,7 +780,8 @@ extern "C" int rt_direct_pass(const float* par, const float* sph, int n_sph,
                               const float* u_planes, unsigned int k0,
                               unsigned int k1, int first_pass, int per_pass,
                               int n_passes, int spp, int width, int two_sided,
-                              int* ids, uint8_t* occs, int grid_mode,
+                              int* ids, uint8_t* occs, const float* live,
+                              int grid_mode,
                               const GridDesc* grids, int n_grids,
                               int sph_grid, int tri_start,
                               const Stream* streams, int block,
@@ -757,7 +789,7 @@ extern "C" int rt_direct_pass(const float* par, const float* sph, int n_sph,
   DirectParams p;
   if (n_passes < 1 || n_passes > kMaxPasses || first_pass < 0 || block < 0 ||
       (grid_mode != 0) != kGridBuild || (block && !grid_mode) ||
-      (ids && n_passes != 1) || (!ids && occs) ||
+      (ids && n_passes != 1) || (!ids && (occs || live)) ||
       (ids && n_lig > 0 && !occs) ||
       !set_grids(p.grids, grids, grid_mode ? n_grids : 0,
                  grid_mode ? sph_grid : 0, grid_mode ? tri_start : n_tri,
@@ -787,6 +819,7 @@ extern "C" int rt_direct_pass(const float* par, const float* sph, int n_sph,
   p.two_sided = two_sided;
   p.ids = ids;
   p.occs = occs;
+  p.live = live;
   p.block = block;
   // the tables (in grid mode the brute prefix), then the slot keys of the
   // launch's passes

@@ -3,12 +3,17 @@
 //
 // Replaces: raytracing_tpu/ops/pallas/megakernel_grad.py::_bwd_kernel (launcher
 // _bwd_pallas), hard route (soft_bandwidth == 0), path mode with or without
-// Russian roulette, u-planes or PRNG draws, spp >= 1: over unrolled tables (at
-// most 64 objects per type; rt_pathtrace_bwd), and past that over resident
-// spheres, streamed Morton chunks and grids (_loop_diff's windows;
-// rt_pathtrace_bwd_large, below). It computes what jax.vjp of _tile_program
-// gives: cotangents of par (26,), sph (S, 8), tri (T, 32), mat (M, 4) and lig
-// (L, 20). The soft (edge-aware) route is kernel 2s (megakernel_soft.cu).
+// Russian roulette, u-planes or PRNG draws, spp >= 1, over unrolled tables (at
+// most 64 objects per type; rt_pathtrace_bwd). It computes what jax.vjp of
+// _tile_program gives: cotangents of par (26,), sph (S, 8), tri (T, 32), mat
+// (M, 4) and lig (L, 20). Past 64 objects, and over streamed Morton chunks
+// and grids (_loop_diff's windows), the same cotangents come from two
+// launches (ops/megakernel_grad.py pathtrace_pass_bwd_split): kernel 1's
+// recording instance built with --fmad=false (megakernel.cu) records the
+// pass at kernel 1's occupancy (6-8 blocks of 128 threads per SM), then
+// kernel 3 (megakernel_champ.cu) sweeps the record; one launch that searched
+// inside the sweep's 128 registers and shared memory held 3-4 (PERF.md §6,
+// row 2′). The soft (edge-aware) route is kernel 2s (megakernel_soft.cu).
 // Direct mode (mode="direct", _tile_program's direct branch :795-829;
 // direct != 0 at the C entries) is an instance of its own (kDirect):
 // direct_adjoint replays the primary trace and each light's shadow ray, then
@@ -89,13 +94,10 @@ constexpr int kMinBlocks = 4;
 // The whole adjoint of ray rid_g for acc cotangent g; warp-uniform (every
 // lane calls it, `active` false for a lane without a ray). kRR: the pass
 // plays Russian roulette from depth rr_start on. The replay traces T with
-// kernel 1's loops: kRows sphere rows per iteration, and with kGlobal the
-// streamed chunks and grids of GR as well (kernel 1's kGrid / kStream
-// loops); the sweep reads the champions' rows from R, the whole tables
-// (the same as T in the instances over tables of at most 64 objects).
-template <int kRows, bool kRR, bool kGlobal, bool kCells = kGlobal>
-__device__ void ray_adjoint(const Tables& T, const Tables& R,
-                            const Grids* GR, const Draws& D, bool active,
+// kernel 1's brute loops (two sphere rows per iteration); the sweep reads
+// the champions' rows from the same tables.
+template <bool kRR>
+__device__ void ray_adjoint(const Tables& T, const Draws& D, bool active,
                             int rid_g, int spp, int width, int bounces,
                             int rr_start, bool normalize_emitter, V3 g,
                             const Grads& G, const Tape& tape,
@@ -112,7 +114,7 @@ __device__ void ray_adjoint(const Tables& T, const Tables& R,
     float mint, maxt;
     camera_ray(T.par, D, col, row, samp, spp, o, d, mint, maxt);
     Hit h;
-    maxt = trace<kRows, kGlobal, kGlobal, kCells>(T, o, d, mint, maxt, h, GR);
+    maxt = trace(T, o, d, mint, maxt, h);
     emit = emitter_hit(T, o, d, mint, maxt);
     V3 tp = mk(1.0f, 1.0f, 1.0f);
     for (int s = 0; s <= bounces && emit < 0; ++s) {
@@ -131,9 +133,7 @@ __device__ void ray_adjoint(const Tables& T, const Tables& R,
       for (int li = 0; li < L; ++li) {
         const Shadow sh =
             shadow_ray(T, D, nee_slot(s, li, L, kRR), li, h, eps);
-        if (anyhit<kRows, kGlobal, kGlobal, kCells>(T, sh.so, sh.sd, 0.0f,
-                                                    sh.dist, GR))
-          q.occ |= 1u << li;
+        if (anyhit(T, sh.so, sh.sd, 0.0f, sh.dist)) q.occ |= 1u << li;
         tp = mk(tp.x * al.x, tp.y * al.y, tp.z * al.z);
       }
       tape.put(s, q);
@@ -144,14 +144,14 @@ __device__ void ray_adjoint(const Tables& T, const Tables& R,
       if (kRR && s >= rr_start && !rr_survive(D, s, L, tp)) break;
       float cx, cy, cz;
       bounce_ray(D, bounce_slot(s, L, kRR), h, eps, cx, cy, cz, o, d);
-      trace<kRows, kGlobal, kGlobal, kCells>(T, o, d, 0.0f, inf_f(), h, GR);
+      trace(T, o, d, 0.0f, inf_f(), h);
     }
   }
   // an emitter hit ends the path; nothing else depends on the tables
   if (G.wrt & kWLig)
     add_row3(G.lig + max(emit, 0) * kLig + (normalize_emitter ? 9 : 6), emit,
              g);
-  reverse_sweep<kRR>(R, D, tape, nseg, col, row, samp, spp, rr_start, g, G,
+  reverse_sweep<kRR>(T, D, tape, nseg, col, row, samp, spp, rr_start, g, G,
                      gp);
 }
 
@@ -159,9 +159,7 @@ __device__ void ray_adjoint(const Tables& T, const Tables& R,
 // replay the primary trace and each light's shadow ray with kernel 1's
 // loops, as ray_adjoint replays a path, then sweep the one segment.
 // Warp-uniform, as ray_adjoint.
-template <int kRows, bool kGlobal, bool kCells = kGlobal>
-__device__ void direct_adjoint(const Tables& T, const Tables& R,
-                               const Grids* GR, const DirectSlots& S,
+__device__ void direct_adjoint(const Tables& T, const DirectSlots& S,
                                bool active, int rid_g, int spp, int width,
                                V3 g, const Grads& G, float (&gp)[kNPar]) {
   const float eps = T.par[kEps];
@@ -177,7 +175,7 @@ __device__ void direct_adjoint(const Tables& T, const Tables& R,
     float mint, maxt;
     camera_ray(T.par, S.lens(), col, row, samp, spp, o, d, mint, maxt);
     Hit h;
-    trace<kRows, kGlobal, kGlobal, kCells>(T, o, d, mint, maxt, h, GR);
+    trace(T, o, d, mint, maxt, h);
     live = h.m >= 0.0f;
     if (live) {
       q.o = o;
@@ -191,34 +189,11 @@ __device__ void direct_adjoint(const Tables& T, const Tables& R,
         float u0, u1;
         S.pair(1 + li, u0, u1);
         const Shadow sh = shadow_ray_uv(T, u0, u1, li, h, eps);
-        if (anyhit<kRows, kGlobal, kGlobal, kCells>(T, sh.so, sh.sd, 0.0f,
-                                                    sh.dist, GR))
-          q.occ |= 1u << li;
+        if (anyhit(T, sh.so, sh.sd, 0.0f, sh.dist)) q.occ |= 1u << li;
       }
     }
   }
-  direct_sweep(R, S, q, live, col, row, samp, spp, g, G, gp);
-}
-
-// The block's rays (for_rays): each ray's adjoint adds into G and gp; in
-// direct mode (kDirect) direct_adjoint's. kCells: the replay walks
-// triangle grids (kernel 1's cell walk; instances of their own).
-template <int kRows, bool kRR, bool kGlobal, bool kDirect,
-          bool kCells = kGlobal>
-__device__ __forceinline__ void rays(const AdjParams& p, const Tables& T,
-                                     const Tables& R, const Grids* GR,
-                                     const Grads& G, const Tape& tape,
-                                     float (&gp)[kNPar]) {
-  for_rays<kRR>(p, [&](const Draws& D, bool active, int rid_g, V3 g) {
-    if constexpr (kDirect)
-      direct_adjoint<kRows, kGlobal, kCells>(
-          T, R, GR, direct_slots(D, p.dkeys, rid_g), active, rid_g, p.spp,
-          p.width, g, G, gp);
-    else
-      ray_adjoint<kRows, kRR, kGlobal, kCells>(
-          T, R, GR, D, active, rid_g, p.spp, p.width, p.bounces, p.rr_start,
-          p.normalize_emitter != 0, g, G, tape, gp);
-  });
+  direct_sweep(T, S, q, live, col, row, samp, spp, g, G, gp);
 }
 
 template <bool kRR, bool kDirect>
@@ -252,7 +227,15 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   float gp[kNPar];
 #pragma unroll
   for (int i = 0; i < kNPar; ++i) gp[i] = 0.0f;
-  rays<2, kRR, false, kDirect>(p, T, T, nullptr, G, tape, gp);
+  // the block's rays (for_rays): each ray's adjoint adds into G and gp
+  for_rays<kRR>(p, [&](const Draws& D, bool active, int rid_g, V3 g) {
+    if constexpr (kDirect)
+      direct_adjoint(T, direct_slots(D, p.dkeys, rid_g), active, rid_g,
+                     p.spp, p.width, g, G, gp);
+    else
+      ray_adjoint<kRR>(T, D, active, rid_g, p.spp, p.width, p.bounces,
+                       p.rr_start, p.normalize_emitter != 0, g, G, tape, gp);
+  });
   if (p.wrt & kWPar) add_par(g_par, gp);
   __syncthreads();
   if (p.wrt & kWPar) flush(p.dpar, g_par, kNPar);
@@ -260,92 +243,6 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   if (p.wrt & kWTri) flush(p.dtri, g_tri, kTri * p.n_tri);
   if (p.wrt & kWMat) flush(p.dmat, g_mat, kMat * p.n_mat);
   if (p.wrt & kWLig) flush(p.dlig, g_lig, kLig * p.n_lig);
-}
-
-// ---------------------------------------------------------------------------
-// Past 64 objects per type (rt_pathtrace_bwd_large): JAX's _loop_diff windows
-// over streamed tables (megakernel_grad.py:223-296, the stream_tri / stream_sph
-// windows :2161-2168), and a grid scene's tables. Two copies of the tables no
-// longer fit the 227 KB of shared memory a block may use (4,096 spheres and
-// their gradient buffer take 256 KB), so:
-//   * the replay traces with kernel 1's own loops: spheres resident in
-//     shared memory as far as they fit beside the tape (else read from
-//     global memory by the same loop), triangles past 64 over kernel 1's
-//     walk of a streamed table's tree (kStream: the loose rows, then the
-//     box tree over the sorted copy, perm to original rows; pathtrace.cuh
-//     lane_walk, warp_walk), a grid scene's triangles and spheres over
-//     its grids (kGrid) -- so the replay picks the
-//     champions and occlusion bits of the forward it differentiates: the
-//     least (t, original id) pair, as kernel 1's streamed and grid modes
-//     and its brute loops give it (JAX's streamed winner at an exact tie
-//     is the first in Morton order);
-//   * the sweep reads each champion's row from the whole tables in global
-//     memory by its original id, and adds the sphere and triangle row
-//     cotangents straight into the global outputs (warp-aggregated
-//     atomicAdd, one per word, row and warp, as kernel 3): the hard
-//     gradient touches one champion row per segment, so no per-block
-//     table of all rows is kept; par, mat and lig cotangents stay in
-//     shared memory and are flushed once per block.
-// The tree's culling changes no value: it skips only leaves whose boxes
-// the ray's live window misses. kRows = 8 from kWideSpheres resident-loop
-// spheres (kernel 1's rule), kGlobal for streamed or gridded tables.
-// ---------------------------------------------------------------------------
-
-constexpr int kWideSpheres = 512;          // kernel 1's 8-row loop threshold
-constexpr size_t kSmemMax = 232448;        // 227 KB per block on the H100
-
-struct LargeParams {
-  AdjParams p;
-  Grids grids;   // the streamed chunks and grids of the replay
-  int sph_smem;  // spheres staged in shared memory (else global)
-};
-
-template <int kRows, bool kRR, bool kGlobal, bool kDirect, bool kCells>
-__global__ void __launch_bounds__(kBlock, kMinBlocks)
-    pathtrace_bwd_large_kernel(const __grid_constant__ LargeParams q) {
-  const AdjParams& p = q.p;
-  extern __shared__ float4 smem4[];  // 16-byte aligned
-  float* smem = reinterpret_cast<float*>(smem4);
-  // shared memory: par, the resident spheres, the brute triangle prefix,
-  // mat and lig; the par, mat and lig gradient buffers; the tape slab
-  const int n_sph_smem = q.sph_smem ? p.n_sph : 0;
-  Tables T = stage_tables(smem, p.par, p.sph, n_sph_smem, p.tri,
-                          q.grids.tri_start, p.mat, p.n_mat, p.lig, p.n_lig,
-                          p.two_sided != 0);
-  T.n_sph = p.n_sph;  // ids number triangles after every sphere
-  if (!q.sph_smem) T.sph = p.sph;
-  Tables R = T;       // the sweep: the whole tables, by original id
-  R.sph = p.sph;
-  R.tri = p.tri;
-  R.n_tri = p.n_tri;
-  const int n_tab = tables_floats(n_sph_smem, q.grids.tri_start, p.n_mat,
-                                  p.n_lig);
-  const int n_mat = kMat * p.n_mat, n_lig = kLig * p.n_lig;
-  float* g_par = smem + n_tab;
-  float* g_mat = g_par + kParPad;
-  float* g_lig = g_mat + n_mat;
-  zero(g_par, kParPad + n_mat + n_lig);
-  Tape tape;
-  tape.col = g_lig + n_lig + threadIdx.x;
-  tape.stride = blockDim.x;
-  __syncthreads();
-
-  Grads G;
-  G.sph = p.dsph;
-  G.tri = p.dtri;
-  G.mat = g_mat;
-  G.lig = g_lig;
-  G.wrt = p.wrt;
-
-  float gp[kNPar];
-#pragma unroll
-  for (int i = 0; i < kNPar; ++i) gp[i] = 0.0f;
-  rays<kRows, kRR, kGlobal, kDirect, kCells>(p, T, R, &q.grids, G, tape, gp);
-  if (p.wrt & kWPar) add_par(g_par, gp);
-  __syncthreads();
-  if (p.wrt & kWPar) flush(p.dpar, g_par, kNPar);
-  if (p.wrt & kWMat) flush(p.dmat, g_mat, n_mat);
-  if (p.wrt & kWLig) flush(p.dlig, g_lig, n_lig);
 }
 
 }  // namespace
@@ -392,74 +289,5 @@ extern "C" int rt_pathtrace_bwd(const float* par, const float* sph, int n_sph,
   const cudaError_t err = fit_grid(kernel, kBlock, smem, n_rays, grid);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// C interface past 64 objects per type: rt_pathtrace_bwd's arguments, and
-// the replay's global-memory tables as kernel 1's rt_pathtrace_pass takes
-// them in grid mode (set_grids): the HOST array `grids` of n_grids
-// descriptors (n_grids - sph_grid triangle grids, then the sphere grid),
-// tri_start the brute triangle prefix (n_tri without grids or a triangle
-// stream), and the HOST array `streams` (null, or the triangles' and the
-// spheres' Stream). Any table sizes: the tables are read from global
-// memory where shared memory does not hold them. Launches on `stream`,
-// allocates nothing, does not synchronise; returns cudaGetLastError()
-// after the launch.
-extern "C" int rt_pathtrace_bwd_large(
-    const float* par, const float* sph, int n_sph, const float* tri,
-    int n_tri, const float* mat, int n_mat, const float* lig, int n_lig,
-    const float* g, int n_rays, int ray_offset, const float* u_planes,
-    unsigned int k0, unsigned int k1, int spp, int width, int bounces, int rr,
-    int rr_start_depth, int direct, int two_sided, int normalize_emitter,
-    int wrt, const GridDesc* grids, int n_grids, int sph_grid, int tri_start,
-    const Stream* streams, float* dpar, float* dsph, float* dtri, float* dmat,
-    float* dlig, void* stream) {
-  LargeParams q;
-  if (bounces < 0 || bounces >= kMaxSeg || n_lig > kMaxLights ||
-      (direct && (bounces || rr)) ||
-      !set_grids(q.grids, grids, n_grids, sph_grid, tri_start, streams, sph,
-                 n_sph, n_tri))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (n_rays <= 0 || wrt == 0) return static_cast<int>(cudaGetLastError());
-  q.p = adj_params(par, sph, n_sph, tri, n_tri, mat, n_mat, lig, n_lig, g,
-                   n_rays, ray_offset, u_planes, k0, k1, spp, width, bounces,
-                   rr_start_depth, two_sided, normalize_emitter, wrt, dpar,
-                   dsph, dtri, dmat, dlig);
-  if (direct) set_direct_keys(q.p);
-  const bool global = n_grids > 0 || q.grids.tri_st.n || q.grids.sph_st.n;
-  // shared memory without spheres; they stay resident where they fit
-  const size_t fixed =
-      sizeof(float) * (tables_floats(0, tri_start, n_mat, n_lig) + kParPad +
-                       kMat * n_mat + kLig * n_lig) +
-      (direct ? 0 : tape_bytes(bounces, kBlock));
-  const size_t sph_bytes = sizeof(float) * kSph * static_cast<size_t>(n_sph);
-  q.sph_smem = q.grids.sph_resident(n_sph) > 0 &&
-               fixed + sph_bytes <= kSmemMax;
-  const size_t smem = fixed + (q.sph_smem ? sph_bytes : 0);
-  const bool wide = !global && n_sph >= kWideSpheres;
-  // the global instances with triangle grids walk kernel 1's cell trees
-  // (kCells), the others keep their code and registers
-  const bool cells = q.grids.n_tri > 0;
-  void (*kernel)(LargeParams);
-  if (global && cells)
-    kernel = direct ? pathtrace_bwd_large_kernel<2, false, true, true, true>
-             : rr   ? pathtrace_bwd_large_kernel<2, true, true, false, true>
-                    : pathtrace_bwd_large_kernel<2, false, true, false, true>;
-  else if (global)
-    kernel = direct ? pathtrace_bwd_large_kernel<2, false, true, true, false>
-             : rr   ? pathtrace_bwd_large_kernel<2, true, true, false, false>
-                    : pathtrace_bwd_large_kernel<2, false, true, false, false>;
-  else if (wide)
-    kernel = direct ? pathtrace_bwd_large_kernel<8, false, false, true, false>
-             : rr   ? pathtrace_bwd_large_kernel<8, true, false, false, false>
-                    : pathtrace_bwd_large_kernel<8, false, false, false, false>;
-  else
-    kernel = direct ? pathtrace_bwd_large_kernel<2, false, false, true, false>
-             : rr   ? pathtrace_bwd_large_kernel<2, true, false, false, false>
-                    : pathtrace_bwd_large_kernel<2, false, false, false, false>;
-  int grid = 0;
-  const cudaError_t err = fit_grid(kernel, kBlock, smem, n_rays, grid);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(q);
   return static_cast<int>(cudaGetLastError());
 }

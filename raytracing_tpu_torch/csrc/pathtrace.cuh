@@ -224,7 +224,7 @@ struct Grids {
 };
 
 // The global-memory arguments of a launch into a kernel's parameters (kernel
-// 1's grid-mode build, kernel 2's large-table instance):
+// 1's grid-mode build):
 // the HOST array `grids` of n_grids descriptors (n_grids - sph_grid
 // triangle grids, then the sphere grid when sph_grid != 0) and the HOST
 // array `streams` (null, or the triangles' and the spheres' Stream, n = 0

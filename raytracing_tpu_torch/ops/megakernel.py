@@ -1070,9 +1070,11 @@ def _trace(o, d, mint, maxt, sph, tri, two_sided, grid=None, work=None,
     alive = mint != maxt
     a = dot3(d, d)
     inv2a = 0.5 / a
-    bt = torch.full((n,), INF, device=o.device)
-    bn = torch.zeros((n, 3), device=o.device)
-    bm = torch.full((n,), -1.0, device=o.device)
+    # the champion state in the rays' precision (the chunk and grid
+    # searches write into it in place)
+    bt = torch.full((n,), INF, dtype=o.dtype, device=o.device)
+    bn = torch.zeros((n, 3), dtype=o.dtype, device=o.device)
+    bm = torch.full((n,), -1.0, dtype=o.dtype, device=o.device)
     bo = torch.full((n,), -1, dtype=torch.int64, device=o.device)
     n_bs, n_bt = _brute_counts(sph, tri, grid, chunks)
     for i in range(n_bs):
@@ -1456,7 +1458,7 @@ _SIGNATURES = {
         _VP, _VP, _I,                         # u_planes, host keys, n_passes
         _I, _I, _I, _I, _I,                # spp, width, bounces, rr, start
         _I, _I,                                       # two_sided, normalize
-        _VP, _VP,                                     # ids, occs (record)
+        _VP, _VP, _VP,                       # ids, occs, live (record)
         _I, _VP, _I, _I, _I,        # grid, grids, n_grids, sph grid, start,
         _VP, _I,                                      # streams, block
         _VP]),                                        # stream
@@ -1466,7 +1468,7 @@ _SIGNATURES = {
         _VP, ctypes.c_uint, ctypes.c_uint,            # u_planes, key
         _I, _I, _I,                         # first pass, per_pass, n_passes
         _I, _I, _I,                                   # spp, width, two_sided
-        _VP, _VP,                                     # ids, occs (record)
+        _VP, _VP, _VP,                       # ids, occs, live (record)
         _I, _VP, _I, _I, _I,        # grid, grids, n_grids, sph grid, start,
         _VP, _I,                                      # streams, block
         _VP]),                                        # stream
@@ -1826,9 +1828,26 @@ def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
         return acc.copy_(out[0]), out[1], out[2]
     _check_launch(acc, (par, sph, tri, mat, lig, acc, u_planes),
                   "pathtrace_pass")
+    ids, occs, n = _launch_pass(par, ipar, sph, tri, mat, lig, acc, u_planes,
+                                record=record, grid=grid, chunks=chunks,
+                                block=block, build_flags=build_flags, **kw)
+    launches += n
+    stream_launches += n if chunks is not None else 0
+    return (acc, ids, occs) if record else acc
+
+
+def _launch_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *, spp: int,
+                 width: int, bounces: int, two_sided: bool,
+                 normalize_emitter: bool, seed: int, n_passes: int,
+                 russian_roulette: bool, rr_start_depth: int, record: bool,
+                 grid, chunks, block: int, build_flags: tuple, live=None):
+    """``pathtrace_pass``'s launches on checked CUDA tensors, uncounted:
+    (ids, occs, launches made), the record None unless ``record``. With
+    ``live`` (a cotangent of acc, (R, 3)) a recording launch traces only
+    the rays whose row is nonzero and records the others as misses; acc
+    is then scratch."""
     lib = _lib(grid, chunks, build_flags)
     pass0, roff = (int(x) for x in ipar.tolist())
-    base = rng.base_key(seed)
     ids = occs = None
     if record:
         # the kernel writes every slot, dead segments included
@@ -1837,6 +1856,7 @@ def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
         occs = torch.empty((n_seg * lig.shape[0], n), dtype=torch.bool,
                            device=acc.device)
     gargs, _desc = _grid_args(grid, chunks, sph.shape[0], tri.shape[0])
+    made = 0
     with torch.cuda.device(acc.device):
         stream = torch.cuda.current_stream(acc.device).cuda_stream
         for first in range(0, n_passes, MAX_PASSES_PER_LAUNCH):
@@ -1844,21 +1864,20 @@ def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
             # host-computed pass keys, copied into the kernel's parameters
             keys = (ctypes.c_uint32 * (2 * k))(*(
                 w for p in range(k)
-                for w in rng.key_words(rng.pass_key(base, pass0 + first + p))))
+                for w in rng.pass_key_words(seed, pass0 + first + p)))
             err = lib.rt_pathtrace_pass(
                 _ptr(par), _ptr(sph), sph.shape[0], _ptr(tri), tri.shape[0],
                 _ptr(mat), mat.shape[0], _ptr(lig), lig.shape[0],
                 _ptr(acc), acc.shape[0], roff, _ptr(u_planes),
                 ctypes.addressof(keys), k, spp, width, bounces,
                 int(russian_roulette), rr_start_depth, int(two_sided),
-                int(normalize_emitter), _ptr(ids), _ptr(occs), *gargs,
-                _kernel_block(block, grid, chunks), stream)
+                int(normalize_emitter), _ptr(ids), _ptr(occs), _ptr(live),
+                *gargs, _kernel_block(block, grid, chunks), stream)
             if err != 0:
                 raise RuntimeError(
                     f"megakernel launch failed with CUDA error {err}")
-            launches += 1
-            stream_launches += chunks is not None
-    return (acc, ids, occs) if record else acc
+            made += 1
+    return ids, occs, made
 
 
 def direct_pass(par, sph, tri, mat, lig, acc, u_planes, *,
@@ -1897,6 +1916,21 @@ def direct_pass(par, sph, tri, mat, lig, acc, u_planes, *,
         return acc.copy_(out[0]), out[1], out[2]
     _check_launch(acc, (par, sph, tri, mat, lig, acc, u_planes),
                   "direct_pass")
+    ids, occs, n = _launch_direct(par, sph, tri, mat, lig, acc, u_planes,
+                                  record=record, block=block,
+                                  build_flags=build_flags, **kw)
+    direct_launches += n
+    stream_launches += n if chunks is not None else 0
+    return (acc, ids, occs) if record else acc
+
+
+def _launch_direct(par, sph, tri, mat, lig, acc, u_planes, *, key, spp: int,
+                   width: int, two_sided: bool, n_passes: int, grid, chunks,
+                   ray_offset: int, record: bool, block: int,
+                   build_flags: tuple, live=None):
+    """``direct_pass``'s launches on checked CUDA tensors, uncounted:
+    (ids, occs, launches made), the record None unless ``record``;
+    ``live`` as ``_launch_pass``'s."""
     lib = _lib(grid, chunks, build_flags)
     k0, k1 = rng.key_words(key)
     ids = occs = None
@@ -1907,6 +1941,7 @@ def direct_pass(par, sph, tri, mat, lig, acc, u_planes, *,
         occs = torch.empty((lig.shape[0], acc.shape[0]), dtype=torch.bool,
                            device=acc.device)
     gargs, _desc = _grid_args(grid, chunks, sph.shape[0], tri.shape[0])
+    made = 0
     with torch.cuda.device(acc.device):
         stream = torch.cuda.current_stream(acc.device).cuda_stream
         for first in range(0, n_passes, MAX_PASSES_PER_LAUNCH):
@@ -1916,11 +1951,10 @@ def direct_pass(par, sph, tri, mat, lig, acc, u_planes, *,
                 _ptr(mat), mat.shape[0], _ptr(lig), lig.shape[0],
                 _ptr(acc), acc.shape[0], ray_offset, _ptr(u_planes), k0, k1,
                 first, int(n_passes > 1), k, spp, width, int(two_sided),
-                _ptr(ids), _ptr(occs), *gargs,
+                _ptr(ids), _ptr(occs), _ptr(live), *gargs,
                 _kernel_block(block, grid, chunks), stream)
             if err != 0:
                 raise RuntimeError(
                     f"direct-mode launch failed with CUDA error {err}")
-            direct_launches += 1
-            stream_launches += chunks is not None
-    return (acc, ids, occs) if record else acc
+            made += 1
+    return ids, occs, made

@@ -14,8 +14,13 @@ Kernel 2, the backward by replay (``bwd_impl_for`` "pallas"; up to
   ``csrc/megakernel_grad.cu``. It takes CUDA tensors or raises, and counts
   its launches in the module integers ``launches`` (at most 64 objects
   per type, tables in shared memory) and ``large_launches`` (past 64, or
-  over kernel 1's streamed chunks or grids: the large-table instance, JAX's
-  ``_loop_diff`` windows).
+  over kernel 1's streamed chunks or grids, JAX's ``_loop_diff`` windows:
+  ``pathtrace_pass_bwd_split``, one count per call).
+* ``pathtrace_pass_bwd_split`` -- kernel 2 past 64 objects as two
+  launches: kernel 1's recording instance built without contracted
+  multiply-adds replays the pass's search and writes its record, then
+  kernel 3's sweep differentiates that record over the whole tables; on
+  CPU tensors the plain versions of both.
 
 Kernel 3, the champion ("cell") backward (``bwd_impl_for`` "cell"; what
 "auto" takes past 64 objects and in grid mode), which differentiates
@@ -78,12 +83,16 @@ MAX_LIGHTS = 32
 DIFF_TABLE_MAX = 4096
 
 launches = 0          # kernel 2, tables of at most 64 objects per type
-large_launches = 0    # kernel 2 past 64 objects (rt_pathtrace_bwd_large)
+large_launches = 0    # kernel 2 past 64 objects (pathtrace_pass_bwd_split)
 champ_launches = 0    # kernel 3
 
 # nvcc flags of kernels 2 and 3: no contracted multiply-adds
 # (csrc/pathtrace_adj.cuh says why)
 ADJ_FLAGS = ("--fmad=false",)
+# kernel 1's build that records the pass kernel 2 differentiates past 64
+# objects: uncontracted too, so it picks the champions and bits of the
+# plain version (a contracted record moves the sphere gradient)
+RECORD_FLAGS = ADJ_FLAGS
 
 _VP, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _SIGNATURES = {
@@ -94,18 +103,6 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I,                # spp, width, bounces, rr, start
         _I, _I, _I,                           # direct, two_sided, normalize
         _I,                                           # diff_wrt bits
-        _VP, _VP, _VP, _VP, _VP,                      # dpar .. dlig
-        _VP]),                                        # stream
-    # past 64 objects per type: streamed chunks, grids, resident or global
-    # spheres
-    "rt_pathtrace_bwd_large": (ctypes.c_int, [
-        _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _I,     # par, sph, tri, mat, lig
-        _VP, _I, _I,                                  # g, n_rays, ray_offset
-        _VP, _U, _U,                                  # u_planes, pass key
-        _I, _I, _I, _I, _I,                # spp, width, bounces, rr, start
-        _I, _I, _I,                           # direct, two_sided, normalize
-        _I,                                           # diff_wrt bits
-        _VP, _I, _I, _I, _VP,     # grids, n_grids, sph grid, start, streams
         _VP, _VP, _VP, _VP, _VP,                      # dpar .. dlig
         _VP]),                                        # stream
 }
@@ -234,19 +231,24 @@ def pathtrace_pass_bwd_reference(par, ipar, sph, tri, mat, lig, g, u_planes,
 
 def _check_bwd_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp, width,
                     bounces, rr, what: str = "kernel 2", grid=None,
-                    chunks=None, resident=True, mode: str = "path"):
+                    chunks=None, resident=True, mode: str = "path",
+                    block: int = 0):
     """A backward's arguments: ``MK._check_args``' (with ``grid`` and
     ``chunks`` its caps apply to the resident prefix; ``resident=False``
     drops them), CUDA tensors, and the adjoint's tape and light caps."""
     _check_mode(mode)
     MK._check_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp, width,
                    n_draws_of(lig.shape[0], bounces, rr, mode), 1, grid=grid,
-                   chunks=chunks, resident=resident)
+                   chunks=chunks, resident=resident, block=block)
+    _require_cuda(g, what)
+    _check_caps(bounces, lig.shape[0], mode)
+
+
+def _require_cuda(g, what: str) -> None:
     if g.device.type != "cuda":
         raise ValueError(f"{what} takes CUDA tensors, got {g.device}; "
                          "on the CPU use its plain version (the wrapper's "
                          "name with _reference)")
-    _check_caps(bounces, lig.shape[0], mode)
 
 
 def _check_caps(bounces: int, n_lig: int, mode: str) -> None:
@@ -267,8 +269,9 @@ def _c_settings(bounces: int, rr: bool, mode: str) -> tuple:
 
 
 def large_route(sph, tri, grid=None, chunks=None) -> bool:
-    """Whether kernel 2 runs its large-table instance: tables past
-    ``UNROLL_OBJECTS`` (64) objects of a type, streamed or gridded ones."""
+    """Whether kernel 2 runs its large-table route
+    (``pathtrace_pass_bwd_split``): tables past ``UNROLL_OBJECTS`` (64)
+    objects of a type, streamed or gridded ones."""
     return (grid is not None or chunks is not None
             or max(sph.shape[0], tri.shape[0]) > MK.UNROLL_OBJECTS)
 
@@ -278,7 +281,8 @@ def pathtrace_pass_bwd(par, ipar, sph, tri, mat, lig, g, u_planes, *,
                        normalize_emitter: bool, seed: int,
                        russian_roulette: bool = False,
                        rr_start_depth: int = 0, diff_wrt=DIFF_ALL,
-                       grid=None, chunks=None, mode: str = "path"):
+                       grid=None, chunks=None, block: int = 0,
+                       mode: str = "path"):
     """Kernel 2: the cotangents of ``pathtrace_pass_bwd_reference`` from
     the hand-written CUDA adjoint, for CUDA tensors (anything else raises).
     ``g`` (R, 3) is the cotangent of the pass's accumulator; the draws are
@@ -287,51 +291,157 @@ def pathtrace_pass_bwd(par, ipar, sph, tri, mat, lig, g, u_planes, *,
     outside ``diff_wrt`` come back as zeros. ``mode`` "direct" runs the
     adjoint of direct mode's shade (one segment, no roulette).
 
-    Up to 64 objects per type (``large_route`` False) the tables and
-    their gradient buffers sit in shared memory (counter ``launches``).
-    Past that, and over kernel 1's streamed ``chunks`` or ``grid`` (the
-    forward's own arguments), the large-table instance replays with kernel
-    1's streamed and grid loops and adds the row cotangents into global
-    memory (counter ``large_launches``); cotangents land on the original
-    rows (a streamed champion is named by ``perm``), whatever the replay
-    reads."""
-    global launches, large_launches
+    Up to 64 objects per type (``large_route`` False) one launch replays
+    the pass over tables and gradient buffers in shared memory (counter
+    ``launches``). Past that, and over kernel 1's streamed ``chunks`` or
+    ``grid`` (the forward's own arguments; ``block`` its blocked layout),
+    ``pathtrace_pass_bwd_split`` records the pass and sweeps the record
+    (counter ``large_launches``); cotangents land on the original rows,
+    whatever the search reads."""
+    global launches
     sel = _check_wrt(diff_wrt)
-    large = large_route(sph, tri, grid, chunks)
+    if large_route(sph, tri, grid, chunks):
+        _require_cuda(g, "kernel 2")
+        return pathtrace_pass_bwd_split(
+            par, ipar, sph, tri, mat, lig, g, u_planes, spp=spp, width=width,
+            bounces=bounces, two_sided=two_sided,
+            normalize_emitter=normalize_emitter, seed=seed,
+            russian_roulette=russian_roulette, rr_start_depth=rr_start_depth,
+            diff_wrt=sel, grid=grid, chunks=chunks, block=block, mode=mode)
     _check_bwd_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp, width,
                     bounces, russian_roulette, grid=grid, chunks=chunks,
-                    mode=mode)
+                    mode=mode, block=block)
     outs = tuple(torch.zeros_like(t) for t in (par, sph, tri, mat, lig))
     wrt = sum(1 << i for i, n in enumerate(DIFF_ALL) if n in sel)
     if not wrt:
         return outs
     roff = int(ipar[1])
-    k0, k1 = rng.key_words(MK.pass_key_of(ipar, seed))
+    k0, k1 = rng.pass_key_words(seed, int(ipar[0]))
     n_b, rr, direct = _c_settings(bounces, russian_roulette, mode)
     ptr = MK._ptr
-    args = (ptr(par), ptr(sph), sph.shape[0], ptr(tri), tri.shape[0],
-            ptr(mat), mat.shape[0], ptr(lig), lig.shape[0], ptr(g),
-            g.shape[0], roff, ptr(u_planes), k0, k1, spp, width, n_b, rr,
-            rr_start_depth, direct, int(two_sided), int(normalize_emitter),
-            wrt)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         lib = _build.load("megakernel_grad", _SIGNATURES, ADJ_FLAGS)
-        if large:
-            # the descriptor arrays must outlive the call
-            gargs, _desc = MK._grid_args(grid, chunks, sph.shape[0],
-                                         tri.shape[0])
-            err = lib.rt_pathtrace_bwd_large(
-                *args, *gargs[1:], *(ptr(t) for t in outs), stream)
-        else:
-            err = lib.rt_pathtrace_bwd(*args, *(ptr(t) for t in outs),
-                                       stream)
+        err = lib.rt_pathtrace_bwd(
+            ptr(par), ptr(sph), sph.shape[0], ptr(tri), tri.shape[0],
+            ptr(mat), mat.shape[0], ptr(lig), lig.shape[0], ptr(g),
+            g.shape[0], roff, ptr(u_planes), k0, k1, spp, width, n_b, rr,
+            rr_start_depth, direct, int(two_sided), int(normalize_emitter),
+            wrt, *(ptr(t) for t in outs), stream)
         if err != 0:
             raise RuntimeError(f"kernel 2 launch failed with CUDA error {err}")
-        if large:
-            large_launches += 1
-        else:
-            launches += 1
+        launches += 1
+    return outs
+
+
+def _record(par, ipar, sph, tri, mat, lig, g, u_planes, *, spp: int,
+            width: int, bounces: int, two_sided: bool,
+            normalize_emitter: bool, seed: int, russian_roulette: bool,
+            rr_start_depth: int, mode: str, grid, chunks, block: int):
+    """Kernel 1's record (ids, occs) of the pass that ``g`` is the
+    cotangent of, from its ``RECORD_FLAGS`` build on CUDA tensors (the
+    accumulator a scratch tensor; no launch counted), which traces only
+    the rays whose row of ``g`` is nonzero and records the others as
+    misses (kernel 3 reads no other), or from its plain version on CPU
+    tensors (every ray)."""
+    fwd = dict(grid=grid, chunks=chunks)
+    if g.device.type == "cpu":
+        acc = torch.zeros_like(g)
+        with torch.no_grad():
+            if mode == "path":
+                return MK.pathtrace_pass_reference(
+                    par, ipar, sph, tri, mat, lig, acc, u_planes, spp=spp,
+                    width=width, bounces=bounces, two_sided=two_sided,
+                    normalize_emitter=normalize_emitter, seed=seed,
+                    russian_roulette=russian_roulette,
+                    rr_start_depth=rr_start_depth, record=True, **fwd)[1:]
+            return MK.direct_pass_reference(
+                par, sph, tri, mat, lig, acc, u_planes,
+                key=MK.pass_key_of(ipar, seed), spp=spp, width=width,
+                two_sided=two_sided, ray_offset=int(ipar[1]), record=True,
+                **fwd)[1:]
+    # the accumulator is scratch: no memset
+    acc = torch.empty_like(g)
+    fwd.update(block=block, build_flags=RECORD_FLAGS, record=True, live=g)
+    if mode == "path":
+        ids, occs, _ = MK._launch_pass(
+            par, ipar, sph, tri, mat, lig, acc, u_planes, spp=spp,
+            width=width, bounces=bounces, two_sided=two_sided,
+            normalize_emitter=normalize_emitter, seed=seed, n_passes=1,
+            russian_roulette=russian_roulette, rr_start_depth=rr_start_depth,
+            **fwd)
+    else:
+        ids, occs, _ = MK._launch_direct(
+            par, sph, tri, mat, lig, acc, u_planes,
+            key=MK.pass_key_of(ipar, seed), spp=spp, width=width,
+            two_sided=two_sided, n_passes=1, ray_offset=int(ipar[1]), **fwd)
+    return ids, occs
+
+
+def pathtrace_pass_bwd_split(par, ipar, sph, tri, mat, lig, g, u_planes, *,
+                             spp: int, width: int, bounces: int,
+                             two_sided: bool, normalize_emitter: bool,
+                             seed: int, russian_roulette: bool = False,
+                             rr_start_depth: int = 0, diff_wrt=DIFF_ALL,
+                             grid=None, chunks=None, block: int = 0,
+                             mode: str = "path"):
+    """Kernel 2 past 64 objects per type (JAX's ``_loop_diff`` windows,
+    ``large_route``): the cotangents of ``pathtrace_pass_bwd_reference``
+    as two launches on the current stream, with no host sync between them.
+
+    1. The record: kernel 1's recording instance, built uncontracted
+       (``RECORD_FLAGS``), replays the pass's search with the same tables,
+       draws, ``grid``, ``chunks`` (``block`` its blocked layout) and
+       roulette as the forward, at kernel 1's occupancy, and writes the
+       champions ``ids`` (1 + bounces, R) and the occlusion bits ``occs``
+       ((1 + bounces) L, R) -- in direct mode one segment -- into tensors
+       from torch's caching allocator; its accumulator is scratch. It
+       traces only the rays whose cotangent row is nonzero, as the replay
+       did, and records the others as misses: kernel 3 reads no other.
+    2. The sweep: kernel 3 (``csrc/megakernel_champ.cu``) over the whole
+       tables and that record; each champion's t, beta and gamma are
+       re-derived from its row (``champ_surface``), which for the search's
+       own champion equals the search's values bit for bit, and a record
+       names original rows in grid and streamed mode.
+
+    One kernel did both before: its search ran inside the sweep's launch,
+    whose registers (128, for the sweep) and shared memory (the tape and
+    the resident spheres) held 3-4 blocks of 128 threads per SM, too few
+    warps for a latency-bound search; kernel 1's recording instances keep
+    6-8. The uncontracted record picks the champions and bits the replay
+    picked, so the cotangents equal that kernel's up to the order of float
+    atomics.
+
+    On CUDA tensors it counts one ``large_launches`` per call and neither
+    launch in ``MK.launches``, ``MK.stream_launches``,
+    ``MK.direct_launches`` or ``champ_launches``. On CPU tensors it runs
+    the plain versions of both pieces (``MK.pathtrace_pass_reference`` /
+    ``MK.direct_pass_reference`` recording, then
+    ``pathtrace_pass_bwd_champ_reference``), as ``_PassDiffCell`` does, so
+    the CPU runs the same wiring."""
+    global large_launches
+    sel = _check_wrt(diff_wrt)
+    _check_mode(mode)
+    kw = dict(spp=spp, width=width, bounces=bounces, two_sided=two_sided,
+              normalize_emitter=normalize_emitter, seed=seed,
+              russian_roulette=russian_roulette,
+              rr_start_depth=rr_start_depth, mode=mode)
+    if g.device.type == "cpu":
+        ids, occs = _record(par, ipar, sph, tri, mat, lig, g, u_planes,
+                            grid=grid, chunks=chunks, block=block, **kw)
+        return pathtrace_pass_bwd_champ_reference(
+            par, ipar, sph, tri, mat, lig, g, u_planes, ids, occs,
+            diff_wrt=sel, **kw)
+    _check_bwd_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp, width,
+                    bounces, russian_roulette, grid=grid, chunks=chunks,
+                    mode=mode, block=block)
+    if not sel:
+        return tuple(torch.zeros_like(t) for t in (par, sph, tri, mat, lig))
+    ids, occs = _record(par, ipar, sph, tri, mat, lig, g, u_planes,
+                        grid=grid, chunks=chunks, block=block, **kw)
+    outs = _launch_champ(par, ipar, sph, tri, mat, lig, g, u_planes, ids,
+                         occs, sel, **kw)
+    large_launches += 1
     return outs
 
 
@@ -505,13 +615,26 @@ def pathtrace_pass_bwd_champ(par, ipar, sph, tri, mat, lig, g, u_planes, ids,
             diff_wrt=sel, **kw)
     if g.device.type != "cuda":
         raise ValueError(f"no kernel for device {g.device}")
+    outs = _launch_champ(par, ipar, sph, tri, mat, lig, g, u_planes, ids,
+                         occs, sel, **kw)
+    if sel:
+        champ_launches += 1
+    return outs
+
+
+def _launch_champ(par, ipar, sph, tri, mat, lig, g, u_planes, ids, occs,
+                  sel, *, spp: int, width: int, bounces: int,
+                  two_sided: bool, normalize_emitter: bool, seed: int,
+                  russian_roulette: bool, rr_start_depth: int, mode: str):
+    """Kernel 3's launch on checked CUDA tensors, uncounted: the cotangents
+    of the groups ``sel`` (no launch without any)."""
     outs = tuple(torch.zeros_like(t) for t in (par, sph, tri, mat, lig))
     wrt = sum(1 << i for i, n in enumerate(DIFF_ALL) if n in sel)
     if not wrt:
         return outs
     lib = _build.load("megakernel_champ", _CHAMP_SIGNATURES, ADJ_FLAGS)
     roff = int(ipar[1])
-    k0, k1 = rng.key_words(MK.pass_key_of(ipar, seed))
+    k0, k1 = rng.pass_key_words(seed, int(ipar[0]))
     n_b, rr, direct = _c_settings(bounces, russian_roulette, mode)
     ptr = MK._ptr
     with torch.cuda.device(g.device):
@@ -524,7 +647,6 @@ def pathtrace_pass_bwd_champ(par, ipar, sph, tri, mat, lig, g, u_planes, ids,
             int(normalize_emitter), wrt, *(ptr(t) for t in outs), stream)
         if err != 0:
             raise RuntimeError(f"kernel 3 launch failed with CUDA error {err}")
-        champ_launches += 1
     return outs
 
 
@@ -552,8 +674,9 @@ class _PassDiff(torch.autograd.Function):
     tensor autograd saw going in is never overwritten behind its back. The
     backward hands ``g`` on to ``acc_in`` unchanged (acc_out = acc_in +
     delta) and returns no cotangent for ``ipar`` and ``u_planes``. Kernel
-    2 replays over the forward's own ``grid`` and ``chunks`` (``fwd``), so
-    it picks the champions the forward picked."""
+    2 replays (past 64 objects records) over the forward's own ``grid``,
+    ``chunks`` and ``block`` (``fwd``), so it picks the champions the
+    forward picked."""
 
     @staticmethod
     def forward(ctx, par, sph, tri, mat, lig, acc_in, ipar, u_planes, kw,
@@ -564,7 +687,7 @@ class _PassDiff(torch.autograd.Function):
         # ipar carries the pass index (the draws' key) and the ray offset
         ctx.ipar, ctx.u_planes, ctx.kw = ipar, u_planes, kw
         ctx.diff_wrt, ctx.mode = diff_wrt, mode
-        ctx.replay = dict(grid=fwd["grid"], chunks=fwd["chunks"])
+        ctx.replay = fwd
         return acc
 
     @staticmethod
@@ -713,7 +836,8 @@ def pathtrace_pass_diff(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
     ``bwd_cell=False`` (kernel 2's route): on CUDA tensors the pass is
     kernel 1 and its backward kernel 2, which replays over the same
     ``grid`` (kernel 1's grid mode) or ``chunks`` (kernel 1's streamed
-    tables) as the forward, past 64 objects in its large-table instance; on
+    tables) as the forward, past 64 objects as a record and a sweep
+    (``pathtrace_pass_bwd_split``); on
     CPU tensors it is the plain brute forward under autograd (the
     champions of the streamed and grid modes are the brute loops', the
     least (t, id) pair), with the groups outside ``diff_wrt`` detached.

@@ -79,6 +79,20 @@ copies' gather, host clock, synchronised), each variant at each of
 ``--leaf-sizes`` (``MK.GRID_LEAF``), each variant's records held to the
 first's; a parent commit before the copies is timed from its own checkout
 with this file copied in (its ``grid_tables`` takes the scene alone).
+``--only large`` times this checkout alone (a parent commit is timed by
+copying this file into its checkout and running it there): kernel 2
+past 64 objects per type through its wrapper, the record it differentiates
+(kernel 1's ``--fmad=false`` build; where the package has
+``MKG._record`` its own, over the rays with g != 0, and beside it every
+ray's) and kernel 3 on that record, on sphere_field(1024), the streamed
+torus (block 64), the torus in its mesh grid (block 64) and
+sphere_field(8192) in its sphere grid, in path mode, with the roulette
+and in direct mode, each on its step's cotangent; the rows that must not
+move (kernel 2 on cornell's step, kernel 3 on the cell route's record,
+kernel 1's passes); ``chip_smoke.py`` phase 22's "pallas" steps; and
+each launch's grid, registers, shared memory and blocks per SM from
+``torch.profiler``'s trace; with ``--bounds`` each scene's bound
+(``k2_large_bound``), which ``--only grid`` prints for its two scenes.
 ``--sass`` dumps ``cuobjdump -sass`` of the named variants' libraries
 into ``--out`` and
 prints, per kernel, the count of each memory, atomic, warp-level and
@@ -90,6 +104,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import inspect
 import json
 import re
 import shutil
@@ -578,7 +593,11 @@ def grid_only(dev, smi: str, libs: dict, labels: list, out: Path,
     cases = grid_cases(dev, step=True)
     leaves = ([int(n) for n in leaf_sizes.split(",") if n]
               if hasattr(MK, "GRID_LEAF") else []) or [None]
-    results: dict = {"card": smi, "turns": []}
+    results: dict = {"card": smi, "turns": [], "k2_large_bounds": {
+        f"grid_{key}": k2_large_bound(dev, f"grid_{key}", c,
+                                      MESH_WRT if key == "torus"
+                                      else TRAIN_WRT)
+        for key, c in cases.items()}}
     first: dict = {}
     for order in (labels, labels[::-1]):
         turn = {}
@@ -799,6 +818,318 @@ def hold_records(key: str, cases: dict, first: dict) -> None:
               f"{d:.3g}", flush=True)
 
 
+# --only large: kernel 2 past 64 objects and the launches of its two pieces
+EXACT = ("--fmad=false",)     # kernel 1's uncontracted build (the record's)
+MESH_WRT = ("sph", "mat", "tri")
+LARGE_SPECS = (("megakernel", MK._SIGNATURES, ()),
+               ("megakernel", MK._SIGNATURES, MK.GRID_FLAGS),
+               ("megakernel", MK._SIGNATURES, EXACT),
+               ("megakernel", MK._SIGNATURES, EXACT + MK.GRID_FLAGS),
+               ("megakernel_grad", MKG._SIGNATURES, MKG.ADJ_FLAGS),
+               ("megakernel_champ", MKG._CHAMP_SIGNATURES, MKG.ADJ_FLAGS))
+THREADS_PER_SM = 2048
+
+
+class LargeCase:
+    """Kernel 2's route past 64 objects on one scene at SIZE^2 (b5 in path
+    mode and with the roulette, one segment in direct mode): the step
+    cotangent of the pass (``Case``'s in path mode, the gradient of
+    mean((acc / L)^2) of the direct pass in direct mode), and the three
+    pieces it is timed as: (a) ``MKG.pathtrace_pass_bwd``, (b) kernel 1's
+    --fmad=false recording launch over the forward's own grid, chunks and
+    block (where the package has ``MKG._record``, the split's own, which
+    traces only the rays with g != 0; else every ray), (c) kernel 3 on
+    that record."""
+
+    def __init__(self, scene, dev, wrt, grid: bool = False, block: int = 0):
+        self.case = Case(scene, dev, grid=grid, block=block)
+        self.wrt = wrt
+        c = self.case
+        # the forward's arguments that kernel 2 takes (a tree before the
+        # record takes no block)
+        takes_block = "block" in inspect.signature(
+            MKG.pathtrace_pass_bwd).parameters
+        self.fwd = {k: v for k, v in c._mode().items()
+                    if k != "block" or takes_block}
+        self.key = MK.pass_key_of(c.ipar, c.cfg.seed)
+        zeros = torch.zeros_like(c.acc)
+        acc = MK.direct_pass(*c.tables, zeros, None, key=self.key, spp=1,
+                             width=SIZE, two_sided=False, **c._mode())
+        acc = acc.clone().requires_grad_(True)
+        loss = torch.mean((acc / scene.lights.count) ** 2)
+        self.g = {"path": c.g, "rr": c.g,
+                  "direct": torch.autograd.grad(loss, acc)[0].contiguous()}
+
+    def kw(self, mode: str) -> dict:
+        c = self.case
+        kw = dict(c.kw, **c._rr(mode == "rr"))
+        return dict(kw, bounces=0, mode="direct") if mode == "direct" else kw
+
+    def k2(self, mode: str):
+        c = self.case
+        return MKG.pathtrace_pass_bwd(c.tables[0], c.ipar, *c.tables[1:],
+                                      self.g[mode], None, diff_wrt=self.wrt,
+                                      **self.kw(mode), **self.fwd)
+
+    def record(self, mode: str):
+        c = self.case
+        if hasattr(MKG, "_record"):
+            # the split's own record launch: the rays with g != 0 only
+            kw = {"russian_roulette": False, "rr_start_depth": 0,
+                  "mode": "path", **self.kw(mode)}
+            return (None, *MKG._record(c.tables[0], c.ipar, *c.tables[1:],
+                                       self.g[mode], None, grid=c.grid,
+                                       chunks=c.chunks, block=c.block
+                                       if c._mode() else 0, **kw))
+        return self.record_all(mode)
+
+    def record_all(self, mode: str):
+        """kernel 1's --fmad=false record of every ray of the pass"""
+        c = self.case
+        zeros = torch.zeros_like(c.acc)
+        if mode == "direct":
+            return MK.direct_pass(*c.tables, zeros, None, key=self.key,
+                                  spp=1, width=SIZE, two_sided=False,
+                                  record=True, build_flags=EXACT,
+                                  **c._mode())
+        return MK.pathtrace_pass(c.tables[0], c.ipar, *c.tables[1:], zeros,
+                                 None, record=True, build_flags=EXACT,
+                                 **c.kw, **c._rr(mode == "rr"), **c._mode())
+
+    def k3(self, mode: str, rec):
+        c = self.case
+        return MKG.pathtrace_pass_bwd_champ(
+            c.tables[0], c.ipar, *c.tables[1:], self.g[mode], None, rec[1],
+            rec[2], diff_wrt=self.wrt, **self.kw(mode))
+
+
+def split_cases(dev) -> dict:
+    """--only large's scenes: sphere_field(N_SPHERES) (resident spheres,
+    kernel 1's 8-row loop), the streamed torus scene at block 64, the same
+    torus in its mesh grid at block 64, and sphere_field(8192) in its
+    sphere grid (chip_smoke.py's phases 21 and 18)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    return {
+        "spheres1024": LargeCase(sphere_field(N_SPHERES, cols=SIZE,
+                                              rows=SIZE, device=dev), dev,
+                                 TRAIN_WRT),
+        "stream_torus": LargeCase(chip_smoke._stream_scene(
+            "torus", SIZE, SIZE, dev), dev, MESH_WRT, block=64),
+        "grid_torus": LargeCase(chip_smoke._grid_scene(
+            "torus", SIZE, SIZE, dev), dev, MESH_WRT, grid=True, block=64),
+        "grid_spheres": LargeCase(chip_smoke._grid_scene(
+            "spheres", SIZE, SIZE, dev), dev, TRAIN_WRT, grid=True)}
+
+
+def _agree(want, got, wrt) -> str:
+    """cosine and max |d| over the group's scale, per group in wrt."""
+    parts = []
+    for name, a, b in zip(MKG.DIFF_ALL, want, got):
+        if name in wrt and a.numel():
+            a, b = a.double().ravel(), b.double().ravel()
+            cos = (a @ b).item() / max(a.norm().item() * b.norm().item(),
+                                       1e-300)
+            rel = ((a - b).abs().max() / a.abs().max().clamp_min(1e-300)
+                   ).item()
+            parts.append(f"{name} cos {cos:.7f} max|d| {rel:.3g}")
+    return ", ".join(parts)
+
+
+def launch_shapes(fn, out: Path) -> list:
+    """The kernels of one call of ``fn`` as torch.profiler's CUPTI trace
+    reports them: name, grid, block, registers per thread, shared memory
+    and the blocks per SM the card keeps resident (the trace's est.
+    achieved occupancy, from CUDA's occupancy calculator, in blocks of the
+    launch's threads; 0 where the calculator is not given the launch's
+    opt-in shared memory) beside the grid's blocks per SM (what
+    ``fit_grid`` launches for a grid-stride kernel: the resident blocks
+    per SM); torch's own fills and copies are left out. Empty where the
+    trace holds no device events."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    path = out / "trace.json"
+    prof.export_chrome_trace(str(path))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = []
+    for e in json.loads(path.read_text()).get("traceEvents", []):
+        a = e.get("args", {})
+        if e.get("cat") != "kernel" or "at::" in e.get("name", ""):
+            continue
+        threads = int(np.prod(a.get("block", [0])))
+        occ = a.get("est. achieved occupancy %")
+        shapes.append({
+            "name": re.sub(r"\(.*", "", e["name"])[-70:],
+            "us": e.get("dur"), "grid": a.get("grid"), "block": threads,
+            "registers": a.get("registers per thread"),
+            "smem": a.get("shared memory"), "occupancy_pct": occ,
+            "blocks_per_sm": (None if occ is None or not threads
+                              else occ / 100 * THREADS_PER_SM / threads),
+            "grid_per_sm": int(np.prod(a.get("grid", [0]))) / sms})
+    return shapes
+
+
+def k2_large_bound(dev, key: str, case: Case, wrt) -> dict:
+    """Kernel 2 past 64 objects' bound on ``case``'s step cotangent (path
+    b5), as ``chip_smoke.py`` phase 22 prices it: the record's count over
+    the rays with g != 0 (kernel 1's brute loops, or the smaller of the
+    streamed tables' Morton and tree counts or of the grids' march and
+    cell-walk counts, as phases 21 and 17 count them with the plain
+    version at SMALL_W x SMALL_H, scaled to the live rays) plus the sweep's
+    own operations; bytes: 12 per ray, the tables (and the chunks' or
+    grids' arrays) twice, and the record, (4 + L) B per segment, written
+    and read."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as S
+    t = case.tables
+    n_s, n_t, n_l = t[1].shape[0], t[2].shape[0], t[4].shape[0]
+    _, ids, occs = MK.pathtrace_pass(t[0], case.ipar, *t[1:],
+                                     torch.zeros_like(case.acc), None,
+                                     record=True, build_flags=EXACT,
+                                     **case.kw, **case._mode())
+    live = (case.g != 0).any(-1)
+    w = S._pass_work(ids, occs, n_l, n_s, live)
+    scale = (live.double().mean().item() * case.acc.shape[0]
+             / (S.SMALL_W * S.SMALL_H))
+    shape = "torus" if "torus" in key else "spheres"
+    if case.grid is not None:
+        work = S.grid_vs_plain(dev, shape, "path")["work"]
+        ops = min(S._grid_ops(w, S._scaled(work[o], scale), case.grid, n_s,
+                              n_l, False) for o in work)
+        nbytes = S._grid_bytes(t, case.grid)
+    elif case.chunks is not None:
+        work = S.stream_vs_plain(dev, shape, "path")["work"]
+        ops = min(S._stream_ops(w, S._scaled(work[o], scale), case.chunks,
+                                n_s, n_t, n_l, False) for o in work)
+        nbytes = S._stream_bytes(t, case.chunks)
+    else:
+        ops = S._k1_ops(w, n_s, n_t, n_l)
+        nbytes = S._table_bytes(t)
+    ops += S._adj_ops(w, wrt)
+    bound = S._bound(ops, 12 * case.acc.shape[0] + 2 * nbytes
+                     + 2 * (4 + n_l) * ids.numel())
+    print(f"kernel 2 past 64 objects, {key} step g wrt {list(wrt)}: bound "
+          f"{bound['bound_ms']:.6g} ms ({bound['bound_by']}; "
+          f"{ops / max(w['rays'], 1):.6g} FP32 operations per live ray, "
+          f"{w['rays']} live rays)", flush=True)
+    return bound
+
+
+def measure_large_only(cases: dict, others: dict) -> dict:
+    """(a) kernel 2 past 64 objects through its wrapper, (b) kernel 1's
+    --fmad=false record of the same pass, (c) kernel 3 on that record, per
+    case and mode, CUDA events; each case's (a) held to (c) (in a tree
+    whose kernel 2 replays inside its sweep the two are different kernels
+    that must agree to float tolerance). Then the rows this route must
+    not move: kernel 2 at 64 objects (cornell's step cotangent), kernel 3
+    on sphere_field(N_SPHERES)'s default-build record (the cell route) and
+    kernel 1's passes."""
+    out = {}
+    for key, c in cases.items():
+        for mode in ("path", "rr", "direct"):
+            rec = c.record(mode)
+            print(f"  {key} {mode}: kernel 2 vs kernel 3 on the record: "
+                  + _agree(c.k3(mode, rec), c.k2(mode), c.wrt), flush=True)
+            out[f"k2_large_{key}_{mode}_ms"] = time_ms(lambda: c.k2(mode))
+            out[f"k1_exact_record_{key}_{mode}_ms"] = time_ms(
+                lambda: c.record(mode))
+            out[f"k1_exact_record_all_rays_{key}_{mode}_ms"] = time_ms(
+                lambda: c.record_all(mode))
+            out[f"k3_on_record_{key}_{mode}_ms"] = time_ms(
+                lambda: c.k3(mode, rec))
+    cornell, spheres = others["cornell"], cases["spheres1024"].case
+    grid_t, stream_t = cases["grid_torus"].case, cases["stream_torus"].case
+    out.update({
+        "k2_cornell_step_g_sph_mat_ms": time_ms(
+            lambda: cornell.k2(cornell.g, TRAIN_WRT)),
+        "k3_spheres_step_g_sph_mat_ms": time_ms(
+            lambda: spheres.k3(spheres.g, TRAIN_WRT)),
+        "k1_cornell_16pass_ms_per_pass": time_ms(
+            lambda: cornell.k1(n_passes=16), reps=5, per=16),
+        "k1_spheres1024_16pass_ms_per_pass": time_ms(
+            lambda: spheres.k1(n_passes=16), reps=2, per=16),
+        "k1_grid_torus_path_B64_16pass_ms_per_pass": time_ms(
+            lambda: grid_t.k1(n_passes=16), reps=2, per=16),
+        "k1_stream_torus_path_B64_16pass_ms_per_pass": time_ms(
+            lambda: stream_t.k1(n_passes=16), reps=2, per=16),
+        "k1_spheres1024_record_ms": time_ms(
+            lambda: spheres.k1(record=True), reps=5)})
+    return out
+
+
+def large_steps(dev, smi: str) -> dict:
+    """chip_smoke.py phase 22's "pallas" train steps (kernel 1, then
+    kernel 2 past 64 objects): sphere_field(N_SPHERES) with ("sph", "mat")
+    and the streamed torus scene with ("sph", "mat", "tri") at SIZE^2 b5,
+    LARGE_STEPS timed steps after a warm-up, median ms."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    out = {}
+    for shape, wrt in (("spheres1024", TRAIN_WRT), ("torus", MESH_WRT)):
+        scene = chip_smoke._large_scene(shape, SIZE, SIZE, dev)
+        cfg = RenderConfig(width=SIZE, height=SIZE, bounces=BOUNCES,
+                           use_megakernel=True, mega_grad_wrt=wrt,
+                           mega_bwd_impl="pallas")
+        step = chip_smoke._large_step(scene, cfg, dev, chip_smoke
+                                      ._large_params(scene, shape == "torus"))
+        state, _, _ = step(pt.init_state(cfg, dev))
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(chip_smoke.LARGE_STEPS):
+            t0 = time.perf_counter()
+            state, _, _ = step(state)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[f"pallas_step_{shape}_ms"] = sorted(times)[len(times) // 2]
+    return out
+
+
+def large_only(dev, smi: str, out: Path, bounds: bool) -> int:
+    """``--only large``: this checkout's kernels (a parent commit is timed
+    by copying this file into its checkout and running it there): the
+    builds, then measure_large_only, the "pallas" steps and each piece's
+    launches (launch_shapes); with ``bounds`` each scene's bound
+    (k2_large_bound) first."""
+    t0 = time.perf_counter()
+    _build.load_all(LARGE_SPECS)
+    print(f"built {len(LARGE_SPECS)} libraries at once in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for (name, flags), b in sorted(_build.build_log.items()):
+        print(f"  nvcc {name} {' '.join(flags)}: {b['seconds']:.2f} s")
+        for line in b["ptxas"].splitlines():
+            if re.search(r"registers|spill", line):
+                print(f"    ptxas {name}: {line.strip()}")
+    cases = split_cases(dev)
+    others = {"cornell": Case(cornell_box(cols=SIZE, rows=SIZE, device=dev),
+                              dev)}
+    results = {"card": smi, "bounds": {
+        key: k2_large_bound(dev, key, c.case, c.wrt)
+        for key, c in cases.items()} if bounds else {}}
+    results["times"] = measure_large_only(cases, others)
+    results["times"].update(large_steps(dev, smi))
+    print("times: " + ", ".join(f"{k} {v:.6g}"
+                                for k, v in results["times"].items()))
+    shapes = {}
+    for key, c in cases.items():
+        for mode in ("path", "rr", "direct"):
+            rec = c.record(mode)
+            for piece, fn in (("k2", lambda: c.k2(mode)),
+                              ("record", lambda: c.record(mode)),
+                              ("k3", lambda: c.k3(mode, rec))):
+                shapes[f"{key} {mode} {piece}"] = launch_shapes(fn, out)
+                print(f"launches {key} {mode} {piece}: "
+                      f"{json.dumps(shapes[f'{key} {mode} {piece}'])}")
+    results["launches"] = shapes
+    (out / "profile.json").write_text(json.dumps(results, indent=1))
+    print(f"card: [{smi}]")
+    return 0
+
+
 def stream_only(dev, smi: str, libs: dict, labels: list, out: Path,
                 leaf_sizes: str) -> int:
     """``--only stream``: each variant at each leaf size in turns (first
@@ -840,18 +1171,23 @@ def main(argv=None) -> int:
     ap.add_argument("--sass", action="append", default=[],
                     help="dump the SASS of this variant's libraries")
     ap.add_argument("--out", default=str(BUILD / "out"))
-    ap.add_argument("--only", choices=("all", "soft", "stream", "grid"),
+    ap.add_argument("--only", choices=("all", "soft", "stream", "grid",
+                                       "large"),
                     default="all",
                     help="soft: build and time kernel 2s alone; stream: "
                          "kernel 1's streamed cases, kernel 2's streamed "
                          "step and grid shape 1's direct mode alone; grid: "
                          "kernel 1's grid cases and kernels 2 and 3 on the "
-                         "grid scenes alone")
+                         "grid scenes alone; large: kernel 2 past 64 "
+                         "objects and its pieces, this checkout only")
     ap.add_argument("--leaf-sizes", default="",
                     help="with --only stream or grid: the streamed tables' "
                          "leaf sizes (MK.STREAM_LEAF) or the mesh grid "
                          "cells' (MK.GRID_LEAF) to time each variant at "
                          "(default the package's)")
+    ap.add_argument("--bounds", action="store_true",
+                    help="with --only large: each scene's bound of kernel "
+                         "2 past 64 objects (the plain version's counts)")
     ap.add_argument("--soft-large-sizes", default="256",
                     help="with --only soft: film sizes of the torus case")
     ap.add_argument("--soft-sphere-sizes", default="",
@@ -872,6 +1208,8 @@ def main(argv=None) -> int:
     smi = _smi("name,power.limit")
     print(f"card: {torch.cuda.get_device_name(0)} [{smi}]")
 
+    if args.only == "large":
+        return large_only(dev, smi, out, args.bounds)
     variants = [tuple(v.split("=", 1)) for v in args.variant] or [
         ("tree", str(_build.CSRC))]
     variants = [(label, Path(src).resolve()) for label, src in variants]
@@ -953,10 +1291,8 @@ def main(argv=None) -> int:
             if "megakernel_soft" in libs[label]:
                 print(f"{label}:")
                 turn[label].update(measure_soft(cornell, soft_first))
-            if (hasattr(libs[label].get("megakernel_grad"),
-                        "rt_pathtrace_bwd_large")
-                    and hasattr(libs[label].get("megakernel_soft"),
-                                "rt_pathtrace_bwd_soft_large")):
+            if hasattr(libs[label].get("megakernel_soft"),
+                       "rt_pathtrace_bwd_soft_large"):
                 turn[label].update(measure_large(large))
             turn[label].update(measure_direct(direct))
             print(f"{label}: " + ", ".join(

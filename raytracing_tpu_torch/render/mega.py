@@ -8,7 +8,8 @@ fitted) and grad mode is on, the pass is differentiable: it runs
 ``ops.megakernel_grad.pathtrace_pass_diff`` with the backward that
 ``bwd_impl_for`` picks, as the JAX package does: kernel 2
 (``csrc/megakernel_grad.cu``, replaying the pass; past 64 objects per
-type and on grid scenes its large-table instance) or the champion ("cell")
+type and on grid scenes an uncontracted record of the pass by kernel 1 and
+kernel 3's sweep of it) or the champion ("cell")
 route -- kernel 1 records the champions and occlusion bits, kernel 3
 (``csrc/megakernel_champ.cu``) differentiates the record -- which "auto"
 takes past 64 objects and in grid mode; in edge mode kernel 2s
@@ -526,8 +527,9 @@ def bwd_impl_for(scene: Scene | None, cfg: RenderConfig) -> str:
 
     * "pallas" -- kernel 2, the backward by replay: up to 64 objects per
       type over tables in shared memory, past that (and on a grid scene)
-      its large-table instance, which replays over kernel 1's streamed
-      chunks (JAX's ``_loop_diff`` windows) or grids and the scene's own
+      kernel 1's uncontracted recording instance, which replays the search
+      over its streamed chunks (JAX's ``_loop_diff`` windows) or grids,
+      then kernel 3's sweep of that record over the scene's own
       rows (JAX's kernel 2 replays over its duplicated cell-major diff
       tables there; its AD scatters their cotangents back onto the same
       original rows);

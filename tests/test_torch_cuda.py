@@ -1,7 +1,8 @@
 """The CUDA kernels (the pass with and without Russian roulette, its
 recording, direct, grid and streamed modes and its blocked layout, its two
 adjoints with and without the roulette, the edge-aware adjoint kernel 2s,
-the large-table instances of kernels 2 and 2s past 64 objects per type,
+kernel 2 past 64 objects per type (an uncontracted record by kernel 1 and
+kernel 3's sweep of it) and kernel 2s's large-table instance,
 the differentiable direct pass through kernels 1 (recording), 2, 3 and 2s,
 and the stage pipeline's hit searches) against their plain PyTorch
 versions on the card.
@@ -831,8 +832,8 @@ def test_grid_kernel_3_on_the_cell_walk_record(cuda, monkeypatch, kind):
 def test_grid_pallas_backward_through_the_large_entry(cuda, monkeypatch,
                                                       kind):
     """mega_bwd_impl="pallas" on a grid scene (the mesh grid, the sphere
-    grid) runs kernel 1 and kernel 2's large entry, whose replay walks the
-    same cells from divergent code; its cotangents match the plain
+    grid) runs kernel 1 and kernel 2's large-table route, whose record
+    walks the same cells; its cotangents match the plain
     backward's (phase 6's gates; the torus of 256 triangles, whose brute
     plain backward runs per object)."""
     monkeypatch.setattr(MK, "SPH_RESIDENT_MAX", 64)
@@ -905,13 +906,14 @@ def test_grid_kernel_rejects_a_bad_copy(cuda):
         err = lib.rt_direct_pass(
             p(par), p(sph), sph.shape[0], p(tri), tri.shape[0], p(mat),
             mat.shape[0], p(lig), lig.shape[0], p(acc), acc.shape[0], 0,
-            None, 0, 7, 0, 0, 1, 1, 16, 0, None, None, *gargs, 0, stream)
+            None, 0, 7, 0, 0, 1, 1, 16, 0, None, None, None, *gargs, 0,
+            stream)
         assert err == 1, (field, value, err)
     gargs, _desc = MK._grid_args(grid, None, sph.shape[0], tri.shape[0])
     err = lib.rt_direct_pass(
         p(par), p(sph), sph.shape[0], p(tri), tri.shape[0], p(mat),
         mat.shape[0], p(lig), lig.shape[0], p(acc), acc.shape[0], 0, None,
-        0, 7, 0, 0, 1, 1, 16, 0, None, None, *gargs, 0, stream)
+        0, 7, 0, 0, 1, 1, 16, 0, None, None, None, *gargs, 0, stream)
     torch.cuda.synchronize()
     assert err == 0 and acc.max() > 0
 
@@ -1166,13 +1168,14 @@ def test_streamed_kernel_rejects_malformed_tree(cuda):
         err = lib.rt_direct_pass(
             p(par), p(sph), sph.shape[0], p(tri), tri.shape[0], p(mat),
             mat.shape[0], p(lig), lig.shape[0], p(acc), acc.shape[0], 0,
-            None, 0, 7, 0, 0, 1, 1, 16, 0, None, None, *gargs, 0, stream)
+            None, 0, 7, 0, 0, 1, 1, 16, 0, None, None, None, *gargs, 0,
+            stream)
         assert err == 1, (field, value, err)
     gargs, streams = MK._grid_args(None, chunks, sph.shape[0], tri.shape[0])
     err = lib.rt_direct_pass(
         p(par), p(sph), sph.shape[0], p(tri), tri.shape[0], p(mat),
         mat.shape[0], p(lig), lig.shape[0], p(acc), acc.shape[0], 0, None,
-        0, 7, 0, 0, 1, 1, 16, 0, None, None, *gargs, 0, stream)
+        0, 7, 0, 0, 1, 1, 16, 0, None, None, None, *gargs, 0, stream)
     torch.cuda.synchronize()
     assert err == 0 and acc.max() > 0
 
@@ -1237,10 +1240,11 @@ def _large_case(name, device, rr=False, w=32, h=24):
 @pytest.mark.parametrize("rr", [False, True])
 @pytest.mark.parametrize("name", ["spheres", "torus", "torus-grid"])
 def test_large_adjoint_kernel_matches_plain_version(cuda, name, rr):
-    """Kernel 2's large-table instance (resident spheres, streamed chunks,
-    grids) vs autograd through the plain forward, 32x24 b2, all five
-    groups, seeded random g, the u-planes and PRNG routes; one launch of
-    the large-table instance each, none of the small one."""
+    """Kernel 2 past 64 objects (the record and kernel 3's sweep; resident
+    spheres, streamed chunks, grids) vs autograd through the plain forward,
+    32x24 b2, all five groups, seeded random g, the u-planes and PRNG
+    routes; one count of the large-table route each, none of the small
+    one."""
     scene, cfg, tables, replay = _large_case(name, cuda, rr)
     ipar = torch.tensor([0, 0], dtype=torch.int32)
     u = mega.u_planes_for_pass(pt.init_state(cfg, cuda)["key"], 0, cfg,
@@ -1260,6 +1264,77 @@ def test_large_adjoint_kernel_matches_plain_version(cuda, name, rr):
         _gates(*zip(*[(a, b) for a, b in zip(want, got) if a.numel()]),
                names=[n for n, a in zip(MKG.DIFF_ALL, want) if a.numel()])
     assert (MKG.launches, MKG.large_launches) == (small, large + 2)
+
+
+@pytest.mark.parametrize("mode", ["path", "rr", "direct"])
+@pytest.mark.parametrize("name", ["torus", "torus-grid", "spheres1024"])
+def test_split_record_equals_uncontracted_kernel1(cuda, name, mode):
+    """Kernel 2's first launch past 64 objects (``MKG._record``, the
+    record that kernel 3 then sweeps) against kernel 1's --fmad=false
+    recording build, ``MK.pathtrace_pass(record=True)`` /
+    ``MK.direct_pass(record=True)``, on the same draws (u-planes and PRNG):
+    on a cotangent without a zero row ids equal id for id and occs bit for
+    bit; on one whose rows are zero on every third ray the live rays'
+    record is the same and the others are recorded as misses (-1, no
+    occluder), which kernel 3 never reads. The streamed 992-triangle
+    torus, the same torus over its grids and sphere_field(1024) (kernel
+    1's 8-row loop), 64x48 b5; the record counts no kernel-1 launch."""
+    from torch_grid_scenes import cornell_torus
+    from raytracing_tpu_torch.accel import prepare_grids
+    w, h = 64, 48
+    direct = mode == "direct"
+    scene = (sphere_field(1024, cols=w, rows=h, device=cuda)
+             if name == "spheres1024"
+             else cornell_torus(w, h, 31, 16, device=cuda))
+    if name == "torus-grid":
+        scene = prepare_grids(scene, 3, mesh_slabs="auto")
+    cfg = RenderConfig(width=w, height=h, bounces=0 if direct else 5,
+                       russian_roulette=mode == "rr", rr_start_depth=2,
+                       use_megakernel=True, use_grid=name == "torus-grid")
+    t = mega.scene_tables(scene, cfg)
+    fwd = dict(grid=mega.grid_tables(scene, t[1], t[2])
+               if cfg.use_grid else None,
+               chunks=mega.chunk_tables(scene, cfg, t[1], t[2]))
+    assert MKG.large_route(t[1], t[2], **fwd)
+    assert (fwd["chunks"] is not None) == (name == "torus")
+    ipar = torch.tensor([3, 0], dtype=torch.int32)
+    key = MK.pass_key_of(ipar, cfg.seed)
+    u = (mega.u_planes_for_direct(key, cfg, scene.lights.count, cuda)
+         if direct else
+         mega.u_planes_for_pass(pt.init_state(cfg, cuda)["key"], 3, cfg,
+                                scene.lights.count, cuda))
+    kw = dict(spp=1, width=w, bounces=cfg.bounces, two_sided=False,
+              normalize_emitter=True, seed=cfg.seed,
+              russian_roulette=mode == "rr", rr_start_depth=2)
+    z = torch.zeros((cfg.total_rays, 3), device=cuda)
+    g = torch.as_tensor(np.random.default_rng(4).uniform(
+        0.5, 1.0, size=(cfg.total_rays, 3)).astype(np.float32), device=cuda)
+    dead = torch.arange(cfg.total_rays, device=cuda) % 3 == 0
+    exact = ("--fmad=false",)
+    for planes, live in ((u, g), (None, g),
+                         (u, torch.where(dead[:, None], 0.0, g))):
+        if direct:
+            _, ids, occs = MK.direct_pass(*t, z.clone(), planes, key=key,
+                                          spp=1, width=w, two_sided=False,
+                                          record=True, build_flags=exact,
+                                          **fwd)
+        else:
+            _, ids, occs = MK.pathtrace_pass(t[0], ipar, *t[1:], z.clone(),
+                                             planes, record=True,
+                                             build_flags=exact, **kw, **fwd)
+        counts = (MK.launches, MK.direct_launches, MK.stream_launches)
+        rids, roccs = MKG._record(t[0], ipar, *t[1:], live, planes,
+                                  block=0, mode="direct" if direct
+                                  else "path", **kw, **fwd)
+        torch.cuda.synchronize()
+        assert (MK.launches, MK.direct_launches, MK.stream_launches) == counts
+        assert rids.dtype == torch.int32 and roccs.dtype == torch.bool
+        keep = (live != 0).any(-1)
+        assert torch.equal(rids[:, keep], ids[:, keep])
+        assert torch.equal(roccs[:, keep], occs[:, keep])
+        assert bool((rids[:, ~keep] == -1).all())
+        assert not bool(roccs[:, ~keep].any())
+        assert bool((ids[:, keep] >= 0).any())
 
 
 @pytest.mark.parametrize("rr", [False, True])
@@ -1620,7 +1695,7 @@ def test_direct_wide_sphere_loop_matches_plain_versions(cuda):
     """The instances sphere_field(1024) runs (the 8-row sphere loop from
     kWideSpheres = 512 spheres): kernel 1's direct recording (its
     --fmad=false build equal to the plain record on every id and bit),
-    kernel 2's large-table instance and kernel 3 on that record against
+    kernel 2 past 64 objects and kernel 3 on that record against
     their plain versions, 32x24, ("sph", "mat"), phase 6's gates."""
     w, h = 32, 24
     scene = sphere_field(1024, cols=w, rows=h, device=cuda)

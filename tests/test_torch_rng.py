@@ -90,3 +90,14 @@ def test_uniform_range_and_mean():
     u = rng.uniform(rng.base_key(99), (200_000,))
     assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
     assert abs(float(u.mean()) - 0.5) < 0.005
+
+
+@pytest.mark.parametrize("seed", [0, 7, -5, (1 << 32) - 1])
+def test_pass_key_words_equal_the_tensor_route(seed):
+    """The launches' pass key words (Python ints alone) are those of
+    ``pass_key(base_key(seed), p)``."""
+    for p in (0, 1, 10, (1 << 32) - 1):
+        assert rng.pass_key_words(seed, p) == rng.key_words(
+            rng.pass_key(rng.base_key(seed), p))
+    with pytest.raises(OverflowError):
+        rng.pass_key_words(1 << 32, 0)
