@@ -38,23 +38,35 @@ Phases, each fatal on failure (no exception is caught):
      share of its bound;
   8. kernels 4 and 5 (the stage pipeline's hit searches) vs their plain
      versions on 2^20 seeded rays with dead rays and short windows: kernel
-     4 over sphere_field(1024)'s spheres, kernel 5 over a seeded soup of
-     4096 triangles (single- and two-sided) and over cornell's 10. The
-     kernels are written to equal their plain versions bit for bit, so idx
-     and t must be equal on every ray (gates first set at idx on 99.99%
-     and t within rtol 1e-5, tightened once the card showed 100%). Kernel
-     and plain ms and the share of each kernel's bound;
+     4 over sphere_field(1024)'s spheres, over the tie and masked table
+     (sphere_field(1024) with 64 spheres copied to the last 64 rows, exact
+     ties the lower index must win, and every 9th sphere masked off), over
+     sphere_field(4096) on 2^18 rays (all three the tree instance) and
+     over cornell's 2 spheres (the brute loop), kernel 5 over a seeded
+     soup of 4096 triangles (single- and two-sided) and over cornell's 10.
+     The kernels are written to equal their plain versions bit for bit, so
+     idx and t must be equal on every ray (gates first set at idx on
+     99.99% and t within rtol 1e-5, tightened once the card showed 100%).
+     Kernel and plain ms and the share of each kernel's bound (the tree
+     instance's: the smaller of the brute count and the walk's, counted by
+     its plain emulation on every SAMPLE_STRIDE-th ray); the tree instance
+     searches with its tree built beforehand, as a stage pass does, and
+     the build's ms (host clock) is printed apart;
   9. the stage pipeline's main path: render_passes(sphere_field(1024),
      1024^2, b5, use_megakernel=False, use_pallas=True), 1 warm-up + 4
-     timed one-pass calls: exactly 12 kernel-4 and 0 kernel-5 launches per
-     pass, finite acc, and the first pass's mean radiance within 2% of the
-     same pass through use_pallas=False (same draws). Prints segments/s,
-     ms per pass and torch.profiler's split of one pass (the share in
-     kernels 4 and 5). Then one render_direct call on the same scene (2
-     kernel-4 launches), both PNGs under build/;
+     timed one-pass calls: exactly 12 kernel-4 launches per pass, all of
+     the tree instance, and 0 of kernel 5, finite acc, and the first
+     pass's mean radiance within 2% of the same pass through
+     use_pallas=False (same draws). Two of the first pass's searches, the
+     first bounce's closest hit and its shadow search, are held to the
+     plain version under phase 8's exact gates. Prints segments/s, ms per
+     pass and torch.profiler's split of one pass (the share in kernels 4
+     and 5). Then one render_direct call on the same scene (2 kernel-4
+     launches), both PNGs under build/;
  10. the stage route against kernel 1: cornell 1024^2 b5, one pass with
      the same pass key through use_megakernel=False, use_pallas=True (12
-     launches each of kernels 4 and 5) and through use_megakernel=True (1
+     launches each of kernels 4 and 5; kernel 4 runs its brute loop on
+     cornell's 2 spheres) and through use_megakernel=True (1
      launch of kernel 1): at most 1% of rays beyond rtol/atol 2e-4 and the
      mean accumulator within 1e-5 relative (phase 3's gates; kernel 1
      contracts FMAs, the stage route does not);
@@ -323,6 +335,9 @@ TRAIN_LR = 1e-3
 HIT_RAYS = 1 << 20
 HIT_SEED = 8
 N_SPHERES = 1024
+BIG_SPHERES, BIG_RAYS = 4096, 1 << 18   # phase 8's largest sphere table
+TIE_COPIES = 64          # the tie table's copied spheres
+SAMPLE_STRIDE = 61       # the walk's count runs on every 61st ray
 SOUP_TRIANGLES = 4096
 STAGE_TIMED_CALLS = 4
 # phases 11-12
@@ -1151,10 +1166,13 @@ def _soup(n: int, seed: int):
 
 
 def hit_kernel_vs_plain(dev, name: str, search, plain, rays, rows,
-                        *extra, test_ops: int, hit_ops: int) -> dict:
+                        *extra, test_ops: int, hit_ops: int,
+                        walk_ops=None) -> dict:
     """Phase 8, one table: the kernel against its plain version on the
     same rays and packed rows; returns errors, times and the bound (every
-    live ray tests every row at ``test_ops``, each hit adds ``hit_ops``)."""
+    live ray tests every row at ``test_ops``, each hit adds ``hit_ops``;
+    ``walk_ops``, where given, the tree walk's operations, and the bound
+    takes the smaller count)."""
     import torch
     got_t, got_i = search(*rays, rows, *extra)
     torch.cuda.synchronize()
@@ -1162,15 +1180,7 @@ def hit_kernel_vs_plain(dev, name: str, search, plain, rays, rows,
     want_t, want_i = plain(*rays, rows, *extra)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    same_i = got_i == want_i
-    idx_eq = same_i.double().mean().item()
-    fin = same_i & torch.isfinite(want_t)
-    dt = (got_t - want_t).abs()[fin]
-    max_err = dt.max().item() if dt.numel() else 0.0
-    rel = (dt / want_t.abs()[fin]).max().item() if dt.numel() else 0.0
-    bit_eq = (same_i & ((got_t == want_t) | (torch.isinf(got_t)
-                                             & torch.isinf(want_t)))
-              ).double().mean().item()
+    errs = _hold_search(name, (got_t, got_i), (want_t, want_i))
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     reps = 10
     start.record()
@@ -1182,38 +1192,128 @@ def hit_kernel_vs_plain(dev, name: str, search, plain, rays, rows,
     hits = (want_i >= 0).double().mean().item()
     n = rays[0].shape[0]
     live = (rays[2] != rays[3]).double().sum().item()
-    bound = _bound(live * rows.shape[0] * test_ops
-                   + hits * n * hit_ops, 40 * n + 4 * rows.numel())
+    brute = live * rows.shape[0] * test_ops
+    ops = brute if walk_ops is None else min(brute, walk_ops)
+    bound = _bound(ops + hits * n * hit_ops, 40 * n + 4 * rows.numel())
+    walk = ("" if walk_ops is None else
+            f" (the walk's count {walk_ops:.6g} operations against the "
+            f"brute {brute:.6g})")
     print(f"phase 8 {name}: {rays[0].shape[0]} rays x {rows.shape[0]} "
-          f"objects, {hits:.3%} hit; idx equal {idx_eq:.6%}, t bit-equal "
-          f"{bit_eq:.6%}, max|d t| {max_err:.6g} (rel {rel:.3g}); kernel "
+          f"objects, {hits:.3%} hit; {errs['text']}; kernel "
           f"{ms:.6g} ms (CUDA events), plain {plain_ms:.6g} ms; bound "
-          f"{bound['bound_ms']:.6g} ms ({bound['bound_by']}), share "
+          f"{bound['bound_ms']:.6g} ms ({bound['bound_by']}){walk}, share "
           f"{bound['bound_ms'] / ms:.3%}")
     _check(hits > 0.01, f"{name}: only {hits:.3%} of rays hit")
-    # the kernels are written to equal their plain versions bit for bit
-    # (no FMA contraction; IEEE sqrt and division on both sides), and the
-    # card shows it, so the gates are exact
+    return {"max_abs_err": errs["max_abs_err"], "ms": ms,
+            "plain_ms": plain_ms, **bound}
+
+
+def _hold_search(name: str, got, want) -> dict:
+    """A search's (t, idx) against its plain version's: idx equal and t
+    bit-equal on every ray. The kernels are written to equal their plain
+    versions bit for bit (no FMA contraction; IEEE sqrt and division on
+    both sides; the tree walk's champion the least (t, index) pair), and
+    the card shows it, so the gates are exact."""
+    import torch
+    (got_t, got_i), (want_t, want_i) = got, want
+    same_i = got_i == want_i
+    idx_eq = same_i.double().mean().item()
+    fin = same_i & torch.isfinite(want_t)
+    dt = (got_t - want_t).abs()[fin]
+    max_err = dt.max().item() if dt.numel() else 0.0
+    rel = (dt / want_t.abs()[fin]).max().item() if dt.numel() else 0.0
+    bit_eq = (same_i & ((got_t == want_t) | (torch.isinf(got_t)
+                                             & torch.isinf(want_t)))
+              ).double().mean().item()
     _check(idx_eq == 1.0, f"{name}: idx equal on {idx_eq:.6%} (< 100%)")
     _check(bit_eq == 1.0, f"{name}: t bit-equal on {bit_eq:.6%} (< 100%)")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            **bound}
+    return {"max_abs_err": max_err,
+            "text": f"idx equal {idx_eq:.6%}, t bit-equal {bit_eq:.6%}, "
+                    f"max|d t| {max_err:.6g} (rel {rel:.3g})"}
 
 
-def hit_kernels_vs_plain(dev) -> tuple[dict, dict]:
+def _walk_ops(HK, rays, rows) -> float:
+    """Kernel 4's tree walk on ``rays``, counted by its plain emulation
+    (``HK.sphere_walk_reference``) on every SAMPLE_STRIDE-th ray and
+    scaled: node tests at OPS_CHUNK (a slab test, as ``MK.tree_walk_work``
+    prices it) and row tests at OPS_SPHERE_TEST."""
+    work: dict = {}
+    HK.sphere_walk_reference(*(x[::SAMPLE_STRIDE].contiguous()
+                               for x in rays), HK.sphere_tree(rows), work)
+    n = rays[0].shape[0]
+    scale = n / -(-n // SAMPLE_STRIDE)
+    return scale * (work.get("node_tests", 0) * OPS_CHUNK
+                    + work.get("sph_tests", 0) * OPS_SPHERE_TEST)
+
+
+def _tie_table(dev):
+    """Phase 8's tie and masked table: sphere_field(N_SPHERES)'s rows with
+    spheres 0, 15, 30, ... copied to the last TIE_COPIES rows (exact ties:
+    a ray that hits one hits the other at the same t, and the lower index
+    must win) and every 9th sphere masked off."""
+    import torch
+    from raytracing_tpu_torch.models.scenes import sphere_field
+    from raytracing_tpu_torch.ops import hit_kernels as HK
+    sp = sphere_field(N_SPHERES, device=dev).spheres
+    c, r, m = sp.center.clone(), sp.radius.clone(), sp.mask.clone()
+    m[::9] = False
+    src = torch.arange(TIE_COPIES, device=dev) * 15
+    dst = torch.arange(N_SPHERES - TIE_COPIES, N_SPHERES, device=dev)
+    c[dst], r[dst], m[dst] = c[src], r[src], True
+    return HK.sphere_rows(c, r, m)
+
+
+def hit_kernels_vs_plain(dev) -> tuple[dict, dict, dict]:
     """Phase 8: kernels 4 and 5 against their plain versions; returns the
-    kernel-4 entry (sphere_field(1024)) and the kernel-5 entry (cornell's
-    10 triangles, the shape of its main path; the worst error of all)."""
+    kernel-4 tree entry (sphere_field(1024); the worst error of its three
+    tables), the brute entry (cornell's 2 spheres, the shape of its main
+    path) and the kernel-5 entry (cornell's 10 triangles; the worst error
+    of all)."""
+    import torch
     from raytracing_tpu_torch.models.scenes import cornell_box, sphere_field
     from raytracing_tpu_torch.ops import hit_kernels as HK
 
-    sp = sphere_field(N_SPHERES, device=dev).spheres
+    def k4(name, rays, rows, tree: bool):
+        """The tree instance searches with the tree built once beforehand,
+        as a stage pass does (its build timed apart)."""
+        before = HK.sphere_tree_launches
+        built = ()
+        if tree:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            built = (HK.sphere_tree(rows),)
+            torch.cuda.synchronize()
+            print(f"phase 8 {name}: the tree's build "
+                  f"{(time.perf_counter() - t0) * 1e3:.6g} ms (host clock, "
+                  "synchronised)")
+        out = hit_kernel_vs_plain(
+            dev, name, lambda *a: HK.sphere_search_rows(*a, *built),
+            HK.sphere_search_reference, rays, rows,
+            test_ops=OPS_SPHERE_TEST, hit_ops=OPS_SPHERE_HIT - 18,
+            walk_ops=_walk_ops(HK, rays, rows) if tree else None)
+        _check((HK.sphere_tree_launches > before) == tree,
+               f"{name}: the {'tree' if tree else 'brute'} instance did "
+               "not run")
+        return out
+
     rays = _seeded_rays(dev, HIT_RAYS, HIT_SEED, -6.0, 6.0)
-    k4 = hit_kernel_vs_plain(
-        dev, f"kernel 4 sphere_field({N_SPHERES})", HK.sphere_search_rows,
-        HK.sphere_search_reference, rays,
-        HK.sphere_rows(sp.center, sp.radius, sp.mask),
-        test_ops=OPS_SPHERE_TEST, hit_ops=OPS_SPHERE_HIT - 18)
+    sp = sphere_field(N_SPHERES, device=dev).spheres
+    k4t = k4(f"kernel 4 sphere_field({N_SPHERES}) (tree)", rays,
+             HK.sphere_rows(sp.center, sp.radius, sp.mask), True)
+    errs = [k4(f"kernel 4 sphere_field({N_SPHERES}), {TIE_COPIES} copies, "
+               "every 9th masked (tree)", rays, _tie_table(dev),
+               True)["max_abs_err"]]
+    big = sphere_field(BIG_SPHERES, device=dev).spheres
+    errs.append(k4(f"kernel 4 sphere_field({BIG_SPHERES}) (tree)",
+                   _seeded_rays(dev, BIG_RAYS, HIT_SEED + 3, -6.0, 6.0),
+                   HK.sphere_rows(big.center, big.radius, big.mask),
+                   True)["max_abs_err"])
+    k4t["max_abs_err"] = max([k4t["max_abs_err"], *errs])
+    cornell = cornell_box(device=dev)
+    room = _seeded_rays(dev, HIT_RAYS, HIT_SEED + 2, -0.95, 0.95)
+    cs = cornell.spheres
+    k4b = k4(f"kernel 4 cornell({cs.count}) (brute)", room,
+             HK.sphere_rows(cs.center, cs.radius, cs.mask), False)
     soup = _soup(SOUP_TRIANGLES, HIT_SEED + 1).to(dev)
     rows = HK.triangle_rows(soup.v, soup.mask)
     errs = []
@@ -1223,15 +1323,14 @@ def hit_kernels_vs_plain(dev) -> tuple[dict, dict]:
             HK.triangle_search_rows, HK.triangle_search_reference, rays,
             rows, two_sided, test_ops=OPS_TRIANGLE_TEST,
             hit_ops=OPS_TRIANGLE_HIT - 26)["max_abs_err"])
-    tris = cornell_box(device=dev).triangles
+    tris = cornell.triangles
     k5 = hit_kernel_vs_plain(
         dev, "kernel 5 cornell(10)", HK.triangle_search_rows,
-        HK.triangle_search_reference,
-        _seeded_rays(dev, HIT_RAYS, HIT_SEED + 2, -0.95, 0.95),
+        HK.triangle_search_reference, room,
         HK.triangle_rows(tris.v, tris.mask), False,
         test_ops=OPS_TRIANGLE_TEST, hit_ops=OPS_TRIANGLE_HIT - 26)
     k5["max_abs_err"] = max([k5["max_abs_err"], *errs])
-    return k4, k5
+    return k4t, k4b, k5
 
 
 def _profile_split(run) -> str:
@@ -1256,7 +1355,8 @@ def _profile_split(run) -> str:
             if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
     rows.sort(key=dev_us, reverse=True)
     total = sum(dev_us(e) for e in rows) / 1e3
-    hit = sum(dev_us(e) for e in rows if "search_kernel" in e.key) / 1e3
+    hit = sum(dev_us(e) for e in rows if "search_kernel" in e.key
+              or "sphere_tree_kernel" in e.key) / 1e3
     top = "; ".join(f"{e.key[:60]} x{e.count} {dev_us(e) / 1e3:.4g} ms"
                     for e in rows[:8])
     return (f"profiled pass {wall:.6g} ms wall: device busy {total:.6g} ms "
@@ -1282,7 +1382,7 @@ def stage_main_path(dev, smi: str) -> dict:
     n_l = scene.lights.count
     segs_per_pass = cfg.total_rays * (1 + n_l + cfg.bounces * (1 + n_l))
 
-    HK.sphere_launches = HK.triangle_launches = 0
+    HK.sphere_launches = HK.sphere_tree_launches = HK.triangle_launches = 0
     state = pt.render_passes(scene, pt.init_state(cfg, dev), cfg, 1)
     torch.cuda.synchronize()
     first = state["acc"].clone()
@@ -1291,11 +1391,13 @@ def stage_main_path(dev, smi: str) -> dict:
         state = pt.render_passes(scene, state, cfg, 1)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k4, k5 = HK.sphere_launches, HK.triangle_launches
+    k4, k4t = HK.sphere_launches, HK.sphere_tree_launches
+    k5 = HK.triangle_launches
     n_passes = 1 + STAGE_TIMED_CALLS
-    _check(k4 == 12 * n_passes and k5 == 0,
-           f"{k4} kernel-4 and {k5} kernel-5 launches for {n_passes} passes "
-           "(want 12 and 0 per pass)")
+    _check(k4 == 12 * n_passes and k4t == k4 and k5 == 0,
+           f"{k4} kernel-4 launches ({k4t} of the tree instance) and {k5} "
+           f"kernel-5 launches for {n_passes} passes (want 12, all of the "
+           "tree instance, and 0 per pass)")
     acc = state["acc"]
     _check(tuple(acc.shape) == (cfg.total_rays, 3), "acc shape")
     _check(bool(torch.isfinite(acc).all()), "stage acc not finite")
@@ -1329,6 +1431,7 @@ def stage_main_path(dev, smi: str) -> dict:
           f"ms); image mean {img.mean().item():.6g} -> {out}")
     print(f"phase 9 {split}")
     _check(rel <= 0.02, f"mean radiance differs by {rel:.3g} (> 2%)")
+    stage_searches_vs_plain(scene, cfg, dev)
 
     HK.sphere_launches = HK.triangle_launches = 0
     torch.cuda.synchronize()
@@ -1346,12 +1449,59 @@ def stage_main_path(dev, smi: str) -> dict:
     print(f"phase 9 render_direct {MAIN_W}x{MAIN_H}: {direct_ms:.6g} ms, "
           f"launches kernel 4 {d4}, kernel 5 {d5}; image mean "
           f"{dimg.mean().item():.6g} -> {dout}")
-    return {"launches": k4}
+    return {"launches": k4t}
+
+
+def _stage_searches(scene, cfg, dev) -> list:
+    """The kernel-4 searches of one stage pass (pass 0), in their order (a
+    closest hit, then its shadow search, per segment): each search's
+    arguments (o, d, mint, maxt, rows, tree) and the kernel's (t, idx)."""
+    import torch
+    from raytracing_tpu_torch.ops import hit_kernels as HK
+    from raytracing_tpu_torch.render import pathtracer as pt
+    search, seen = HK.sphere_search_rows, []
+
+    def spy(*args):
+        out = search(*args)
+        seen.append((args, out))
+        return out
+
+    HK.sphere_search_rows = spy
+    try:
+        pt.render_pass(scene, pt.init_state(cfg, dev), cfg)
+    finally:
+        HK.sphere_search_rows = search
+    torch.cuda.synchronize()
+    return seen
+
+
+def stage_searches_vs_plain(scene, cfg, dev) -> None:
+    """Phase 9: two of a pass's real kernel-4 searches, the first
+    bounce's closest hit (search 2) and its shadow search (search 3),
+    against the plain version under phase 8's exact gates."""
+    import torch
+    from raytracing_tpu_torch.ops import hit_kernels as HK
+    seen = _stage_searches(scene, cfg, dev)
+    _check(len(seen) == 12, f"{len(seen)} kernel-4 searches in one pass")
+    for k, what in ((2, "first bounce's closest hit"),
+                    (3, "its shadow search")):
+        (o, d, mint, maxt, rows, tree), got = seen[k]
+        _check(tree is not None, f"search {k} walked no tree")
+        t0 = time.perf_counter()
+        want = HK.sphere_search_reference(o, d, mint, maxt, rows)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        errs = _hold_search(f"phase 9 search {k}", got, want)
+        live = (mint != maxt).double().mean().item()
+        hits = (want[1] >= 0).double().mean().item()
+        print(f"phase 9 search {k} ({what}): {o.shape[0]} rays, {live:.3%} "
+              f"live, {hits:.3%} hit; {errs['text']}; plain {plain_ms:.6g} "
+              "ms")
 
 
 def stage_vs_megakernel(dev) -> dict:
     """Phase 10: the stage route against kernel 1 on cornell; returns the
-    kernel-5 launches."""
+    kernel-5 and kernel-4 launches."""
     import torch
     from raytracing_tpu_torch import RenderConfig, replace
     from raytracing_tpu_torch.models.scenes import cornell_box
@@ -1362,13 +1512,15 @@ def stage_vs_megakernel(dev) -> dict:
     cfg = RenderConfig(width=MAIN_W, height=MAIN_H, bounces=BOUNCES,
                        use_pallas=True)
     scene = cornell_box(cols=MAIN_W, rows=MAIN_H, device=dev)
-    HK.sphere_launches = HK.triangle_launches = 0
+    HK.sphere_launches = HK.sphere_tree_launches = HK.triangle_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = pt.render_pass(scene, pt.init_state(cfg, dev), cfg)["acc"]
     torch.cuda.synchronize()
     stage_ms = (time.perf_counter() - t0) * 1e3
     k4, k5 = HK.sphere_launches, HK.triangle_launches
+    _check(HK.sphere_tree_launches == 0,
+           "cornell's 2 spheres must take kernel 4's brute loop")
     mcfg = replace(cfg, use_megakernel=True)
     k1 = MK.launches
     want = pt.render_pass(scene, pt.init_state(mcfg, dev), mcfg)["acc"]
@@ -1389,7 +1541,7 @@ def stage_vs_megakernel(dev) -> dict:
     _check(bool(torch.isfinite(got).all()), "stage acc not finite")
     _check(beyond <= 0.01, f"{beyond:.4%} of rays beyond {TOL:g} (> 1%)")
     _check(rel <= 1e-5, f"mean acc differs by {rel:.3g} relative (> 1e-5)")
-    return {"launches": k5}
+    return {"launches": k5, "k4_launches": k4}
 
 
 def _record(MK, tables, ipar, acc, u, cfg, build_flags=()):
@@ -4961,7 +5113,7 @@ def main() -> int:
     t = train_path(dev, smi)
     _elapsed(8)
     # phase 8: kernels 4 and 5 vs their plain versions
-    h4, h5 = hit_kernels_vs_plain(dev)
+    h4, h4b, h5 = hit_kernels_vs_plain(dev)
     _elapsed(9)
     # phase 9: the stage pipeline's main path
     s9 = stage_main_path(dev, smi)
@@ -5132,10 +5284,16 @@ def main() -> int:
         "ms": t["ms"], "plain_ms": g_main["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
         "library_ms": None}, {
-        "name": "sphere_search (closest hit over spheres)", "route": "cuda",
+        "name": "sphere_search (closest hit over spheres, box tree walk: "
+                f"sphere_field({N_SPHERES}))", "route": "cuda",
         "source": "raytracing_tpu_torch/csrc/hit_kernels.cu",
         "replaces": "raytracing_tpu/ops/pallas/hit_kernels.py:58",
         "launches": s9["launches"], **h4, "library_ms": None}, {
+        "name": "sphere_search (closest hit over spheres, brute loop: "
+                "cornell's 2)", "route": "cuda",
+        "source": "raytracing_tpu_torch/csrc/hit_kernels.cu",
+        "replaces": "raytracing_tpu/ops/pallas/hit_kernels.py:58",
+        "launches": s10["k4_launches"], **h4b, "library_ms": None}, {
         "name": "triangle_search (closest hit over triangles)",
         "route": "cuda",
         "source": "raytracing_tpu_torch/csrc/hit_kernels.cu",

@@ -1,18 +1,20 @@
-// The stage pipeline's closest-hit searches as two CUDA kernels for Hopper
+// The stage pipeline's closest-hit searches as CUDA kernels for Hopper
 // (sm_90a): kernel 4 over spheres and kernel 5 over triangles.
 //
 // Replaces: raytracing_tpu/ops/pallas/hit_kernels.py::_sphere_kernel
 // (launcher sphere_search_pallas) and ::_triangle_kernel
 // (triangle_search_pallas). Each finds, per ray, the closest object whose
 // hit parameter lies inside [mint, maxt] and returns (t, idx), INF / -1 on
-// a miss or for a dead ray (mint == maxt). Any-hit is the same search
-// followed by isfinite(t), as in the JAX package.
+// a miss or for a dead ray (mint == maxt); exact ties go to the lowest
+// index. Any-hit is the same search followed by isfinite(t), as in the
+// JAX package.
 //
-// What bounds it on this card: FP32 instruction throughput. A search reads
-// 32 B and writes 8 B per ray, against ~25 flops per ray-sphere test and
-// ~40 per ray-triangle test, over every object of the scene (1024 spheres
-// in sphere_field(1024): ~2.6e4 flops per ray, ~640 flops per byte).
-// The design follows from that:
+// The brute loops (kernel 5, and kernel 4 on tables of up to
+// SPHERE_BRUTE_MAX rows, ops/hit_kernels.py): every live ray tests every
+// object. What bounds them on this card is FP32 instruction throughput: a
+// search reads 32 B and writes 8 B per ray, against ~20 operations per
+// ray-sphere test and ~40 per ray-triangle test over every object of the
+// scene. The design follows from that:
 //   * one thread per ray; the Pallas kernels' vector-wide masks become
 //     per-ray branches, and a dead ray skips the object loop;
 //   * the object table is staged through shared memory in chunks: the
@@ -26,6 +28,33 @@
 //     (the plain versions) in the same order, written with round-to-nearest
 //     intrinsics so that nvcc contracts nothing into FMAs: the kernels
 //     equal their plain versions bit for bit on the same packed rows.
+//
+// Kernel 4's tree instance (sphere_tree_kernel, past SPHERE_BRUTE_MAX
+// rows): the brute loop's 2^30 tests of 2^20 rays against sphere_field(
+// 1024) were near its own ceiling (the uncontracted tests run at about
+// half the FMA rate the bound assumes), so the work itself shrinks: each
+// ray walks a box tree over the rows (ops/hit_kernels.py sphere_tree,
+// built on the card once per stage pass: the rows in the Morton order of
+// their centres, leaves of SPHERE_LEAF rows (1, the fastest of 1, 2 and
+// 4) whose boxes are centre -/+ |radius| of their masked-on rows
+// widened by MK.CHUNK_PAD of the rows' scale, an
+// implicit binary tree of node boxes over them, and the loose rows, which
+// every ray tests first), nearest child first, culled at the champion's t
+// (pathtrace.cuh node_enter and lane_walk, kernel 1's streamed walk,
+// each lane its own). Each visited row runs the brute loop's uncontracted
+// test, so every candidate's t is the brute loop's bit for bit, and the
+// champion is the least (t, original index) pair, which is the brute
+// loop's strict `<` in index order whatever the order of the visits.
+// Why the walk culls no winner (render/mega.py chunk_tree's argument):
+// the slab test rounds monotonically, so in float arithmetic a box that
+// contains another overlaps every window the inner one overlaps; each
+// node contains the widened box of every row under it, and the widening
+// holds a row's rounded hit point inside its leaf's box. A node is
+// dropped only when its entry is past the champion's t (`<=` keeps ties,
+// whose lower index must still be tested). What bounds the walk: not the
+// FP32 rate any more but the latency of its dependent steps (a node test
+// is two 16-byte loads, 31 operations and a branch; the stack lives in
+// local memory) and the divergence of the lanes' paths.
 // Table rows (packed once per pass by ops/hit_kernels.py):
 //   spheres   (S, 8):  [center xyz, radius, 0, mask, 0, 0]
 //   triangles (T, 20): [n_geo, c1, c2, e1, e2, k, 0, mask, 0, 0]
@@ -44,6 +73,7 @@ namespace {
 using namespace rt;
 
 constexpr int kBlock = 256;
+constexpr int kTreeBlock = 128;  // 1-4% faster than 256 or 512 threads
 constexpr int kSphRow = 8;
 constexpr int kTriRow = 20;
 constexpr int kSphChunk = 512;  // 16 KB of shared memory
@@ -97,6 +127,34 @@ __device__ __forceinline__ void stage(float* s, const float* __restrict__ g,
   __syncthreads();
 }
 
+// The sphere test of the plain version (ops/intersect.sphere_hit),
+// uncontracted: whether ray r (a = d.d, inv2a = 0.5 / a) hits the sphere
+// (c, rad) at a root inside [lo, hi], the nearer such root in t. The
+// tree instance's; the brute loop above keeps its own inline copy of the
+// same operations (through this function it took 34 registers against
+// 32 and ran 20% slower: 1.43 against 1.19 ms on phase 8's search, one
+// H100 80GB HBM3 at 700 W, PERF.md section 6, row 4).
+__device__ __forceinline__ bool sphere_t(const Ray& r, float a, float inv2a,
+                                         V3 c, float rad, float& t) {
+  const V3 m = sub_rn(r.o, c);
+  const float b = mul(2.0f, dot_rn(m, r.d));
+  const float cq = sub(dot_rn(m, m), mul(rad, rad));
+  const float dis = sub(mul(b, b), mul(mul(4.0f, a), cq));
+  if (!(dis >= 0.0f)) return false;
+  const float sq = __fsqrt_rn(dis);
+  const float t0 = mul(sub(-b, sq), inv2a);
+  const float t1 = mul(add(-b, sq), inv2a);
+  const float tmn = fminf(t0, t1), tmx = fmaxf(t0, t1);
+  if (tmn >= r.lo && tmn <= r.hi) {
+    t = tmn;
+  } else if (tmx >= r.lo && tmx <= r.hi) {
+    t = tmx;
+  } else {
+    return false;
+  }
+  return true;
+}
+
 __global__ void __launch_bounds__(kBlock)
     sphere_search_kernel(const float* __restrict__ o,
                          const float* __restrict__ d,
@@ -148,6 +206,55 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
+// Kernel 4's tree instance: ray rid walks S, the box tree over the sorted
+// rows (Stream, pathtrace.cuh: rows, perm, node boxes, leaf masks and the
+// loose rows), each lane its own tree (lane_walk). The warp's union of
+// its lanes' trees (warp_walk, kernel 1's schedule for streamed spheres)
+// ran 2.3-3.4x slower on random rays and 1.3-1.7x over a stage pass's
+// searches (PERF.md section 6, row 4). The leaf masks name masked-on
+// rows only (sphere_tree), so a visited row needs no mask test; its
+// original index is read only where its t reaches the champion's.
+__global__ void __launch_bounds__(kTreeBlock)
+    sphere_tree_kernel(const float* __restrict__ o,
+                       const float* __restrict__ d,
+                       const float* __restrict__ mint,
+                       const float* __restrict__ maxt, const Stream S,
+                       float* __restrict__ t_out, int* __restrict__ i_out,
+                       int n_rays) {
+  const int rid = blockIdx.x * blockDim.x + threadIdx.x;
+  const Ray r = load_ray(o, d, mint, maxt, rid, n_rays);
+  if (!r.alive) {
+    if (rid < n_rays) {
+      t_out[rid] = inf_f();
+      i_out[rid] = -1;
+    }
+    return;
+  }
+  const float a = dot_rn(r.d, r.d);
+  const float inv2a = __fdiv_rn(0.5f, a);
+  float bt = inf_f();
+  int bi = -1;
+  auto test = [&](int s) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(S.rows) + 2 * s);
+    float t;
+    if (!sphere_t(r, a, inv2a, mk(q.x, q.y, q.z), q.w, t) || !(t <= bt))
+      return false;
+    const int id = __ldg(S.perm + s);
+    if (t < bt || id < bi) {
+      bt = t;
+      bi = id;
+    }
+    return false;
+  };
+  lane_walk(S, r.o, safe_inv(r.d), r.lo, [&]() { return fminf(r.hi, bt); },
+            test, [&](int r0, unsigned m) {
+              for (; m; m &= m - 1) test(r0 + __ffs(m) - 1);
+              return false;
+            });
+  t_out[rid] = bt;
+  i_out[rid] = bi;
+}
+
 template <bool kTwoSided>
 __global__ void __launch_bounds__(kBlock)
     triangle_search_kernel(const float* __restrict__ o,
@@ -195,16 +302,36 @@ __global__ void __launch_bounds__(kBlock)
 }  // namespace
 
 // o, d (n_rays, 3), mint, maxt (n_rays,), rows (n_obj, 8) float32;
-// t_out (n_rays,) float32, i_out (n_rays,) int32. Returns the launch's
-// cudaGetLastError().
+// t_out (n_rays,) float32, i_out (n_rays,) int32. walk 0: the brute loop
+// (the tree's arguments unused); 1: the tree instance over the tree of
+// rows (ops/hit_kernels.py SphereTree: t_rows (n_tree, 8) sorted rows,
+// perm (n_tree,), node (2 n_slots, 8) boxes, mask (n_tree / leaf words),
+// loose (n_loose,)). Returns cudaErrorInvalidValue, launching nothing,
+// for a tree that is malformed (stream_ok) or does not hold n_obj rows in
+// whole leaves, else the launch's cudaGetLastError().
 extern "C" int rt_sphere_search(const float* o, const float* d,
                                 const float* mint, const float* maxt,
-                                const float* rows, int n_obj, float* t_out,
-                                int* i_out, int n_rays, void* stream) {
+                                const float* rows, int n_obj,
+                                const float* t_rows, const int* perm,
+                                const float* node, const unsigned* mask,
+                                const int* loose, int n_tree, int leaf,
+                                int n_slots, int n_loose, int walk,
+                                float* t_out, int* i_out, int n_rays,
+                                void* stream) {
+  const Stream S = {t_rows, perm, node, mask, loose, n_tree, leaf, n_slots,
+                    n_loose};
+  if (walk < 0 || walk > 1 ||
+      (walk && (!stream_ok(S) || leaf > 32 || n_tree < n_obj ||
+                n_tree % leaf || n_tree - n_obj >= leaf)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  const int grid = (n_rays + kBlock - 1) / kBlock;
-  sphere_search_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      o, d, mint, maxt, rows, n_obj, t_out, i_out, n_rays);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (walk)
+    sphere_tree_kernel<<<(n_rays + kTreeBlock - 1) / kTreeBlock, kTreeBlock,
+                         0, s>>>(o, d, mint, maxt, S, t_out, i_out, n_rays);
+  else
+    sphere_search_kernel<<<(n_rays + kBlock - 1) / kBlock, kBlock, 0, s>>>(
+        o, d, mint, maxt, rows, n_obj, t_out, i_out, n_rays);
   return static_cast<int>(cudaGetLastError());
 }
 

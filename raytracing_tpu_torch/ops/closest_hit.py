@@ -110,7 +110,8 @@ def _ray_args(rays: Rays):
 # ---------------------------------------------------------------------------
 
 def _sphere_search(rays: Rays, spheres: Spheres, obj_chunk: int,
-                   use_pallas: bool, rows: torch.Tensor | None):
+                   use_pallas: bool, rows: torch.Tensor | None,
+                   tree: HK.SphereTree | None = None):
     """(best_t, best_idx) without gradients."""
     with torch.no_grad():
         if not use_pallas:
@@ -119,18 +120,21 @@ def _sphere_search(rays: Rays, spheres: Spheres, obj_chunk: int,
         if rows is None:
             rows = HK.sphere_rows(spheres.center, spheres.radius,
                                   spheres.mask)
-        return HK.sphere_search_rows(*_ray_args(rays), rows)
+        return HK.sphere_search_rows(*_ray_args(rays), rows, tree)
 
 
 def closest_hit_spheres(rays: Rays, spheres: Spheres, *,
                         obj_chunk: int = 2048, use_pallas: bool = False,
-                        rows: torch.Tensor | None = None) -> Champion:
+                        rows: torch.Tensor | None = None,
+                        tree: HK.SphereTree | None = None) -> Champion:
     """Closest valid sphere hit per ray. ``rows``: the packed table of
-    ``hit_kernels.sphere_rows`` (packed here when None)."""
+    ``hit_kernels.sphere_rows`` (packed here when None); ``tree``: kernel
+    4's box tree over it (``hit_kernels.sphere_tree``, built by the
+    search where the table needs one and None is passed)."""
     if spheres.count == 0:
         return _miss(rays)
     best_t, best_i = _sphere_search(rays, spheres, obj_chunk, use_pallas,
-                                    rows)
+                                    rows, tree)
     return sphere_champion(rays, spheres, best_t, best_i)
 
 
@@ -182,14 +186,16 @@ def sphere_hit_attrs(rays: Rays, spheres: Spheres, champ: Champion
 
 def anyhit_spheres(rays: Rays, spheres: Spheres, *, obj_chunk: int = 2048,
                    use_pallas: bool = False,
-                   rows: torch.Tensor | None = None) -> torch.Tensor:
-    """Occlusion: any valid sphere hit inside each ray's window."""
+                   rows: torch.Tensor | None = None,
+                   tree: HK.SphereTree | None = None) -> torch.Tensor:
+    """Occlusion: any valid sphere hit inside each ray's window (``rows``,
+    ``tree`` as in ``closest_hit_spheres``)."""
     if spheres.count == 0:
         return _miss(rays).valid
     with torch.no_grad():
         if use_pallas:
             occ = torch.isfinite(_sphere_search(rays, spheres, obj_chunk,
-                                                True, rows)[0])
+                                                True, rows, tree)[0])
         else:
             occ = _anyhit_scan(_sphere_ts(rays, spheres), spheres.count,
                                obj_chunk, rays)

@@ -4,8 +4,8 @@ kernel 5 ``_triangle_kernel``).
 
 Each search returns, per ray, the closest object whose hit parameter lies
 inside [mint, maxt]: ``(t float32 (R,), idx int32 (R,))``, INF / -1 on a
-miss and for dead rays (mint == maxt). Objects are visited in increasing
-index with a strict ``t < best``, so exact ties go to the lowest index.
+miss and for dead rays (mint == maxt). Exact ties go to the lowest index:
+the least (t, index) pair wins.
 
 Three layers per object type:
 
@@ -16,13 +16,25 @@ Three layers per object type:
   does not read left 0, so ``ops/intersect.sphere_hit`` / ``triangle_hit``
   read them as they are;
 * ``sphere_search_reference`` / ``triangle_search_reference``: the plain
-  PyTorch versions, a loop over objects in the Pallas kernels' arithmetic
+  PyTorch versions, a loop over objects in increasing index with a strict
+  ``t < best``, in the Pallas kernels' arithmetic
   (``ops/intersect.sphere_hit`` / ``triangle_hit``);
 * ``sphere_search_rows`` / ``triangle_search_rows``: the wrappers. On CUDA
   tensors they launch the hand-written kernels of ``csrc/hit_kernels.cu``
   (built at first use) or raise; on CPU tensors they run the plain
   version. Each launch adds one to the module integer ``sphere_launches``
   or ``triangle_launches``. No host-device synchronisation.
+
+Kernel 4 has two instances, picked by the table's size alone: up to
+``SPHERE_BRUTE_MAX`` rows every live ray tests every row (the brute
+loop); past it each ray walks a box tree over the rows (``sphere_tree``:
+``SphereTree``, JAX's Morton order and ``MK.box_tree``'s layout, built on
+the device with no host synchronisation; the stage pass builds it once
+per pass, ``render/stages.hit_tables``), counted in
+``sphere_tree_launches`` as well. Both give the brute loop's (t, idx)
+bit for bit; ``sphere_walk_reference`` is the plain version of the walk,
+in the kernel's order and arithmetic (``MK._walk_tree``), which also
+counts its node and row tests.
 
 ``sphere_search`` / ``triangle_search`` take the JAX launchers' arguments
 and pack the rows themselves. None of it is differentiable: the callers
@@ -32,17 +44,28 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 
 from ..core.types import cross3, dot3
 from . import _build
 from . import intersect as I
+from . import megakernel as MK
 
 INF = math.inf
 SPH_ROW, TRI_ROW = 8, 20
+# kernel 4: tables of up to SPHERE_BRUTE_MAX rows take the brute loop,
+# larger ones the walk of a box tree over leaves of SPHERE_LEAF rows (a
+# power of two up to 32; csrc/hit_kernels.cu sphere_tree_kernel). Both
+# measured on one H100 (PERF.md section 6, row 4): the walk overtakes the
+# brute loop between 128 and 192 rows on a stage pass's searches (192 to
+# 256 on random rays), and leaves of 1 row beat 2 and 4 at every size
+SPHERE_BRUTE_MAX = 128
+SPHERE_LEAF = 1
 
 sphere_launches = 0
+sphere_tree_launches = 0   # of sphere_launches, the tree instance's
 triangle_launches = 0
 
 
@@ -111,15 +134,116 @@ def triangle_search_reference(o, d, mint, maxt, rows, two_sided: bool
 
 
 # ---------------------------------------------------------------------------
+# kernel 4's box tree
+# ---------------------------------------------------------------------------
+
+class SphereTree(NamedTuple):
+    """Kernel 4's walk over a sphere table of S rows (``sphere_tree``):
+    ``rows`` (N, 8) float32, the rows in the stable order of their centres'
+    Morton codes, padded with zero rows to N, whole leaves; ``perm`` (N,)
+    int32, the original row of each sorted row, -1 for padding; ``tree``
+    the walk's layout over the sorted rows (``MK.StreamTree``: node boxes
+    of an implicit binary tree, leaf masks naming the masked-on rows,
+    loose rows)."""
+    rows: torch.Tensor
+    perm: torch.Tensor
+    tree: MK.StreamTree
+
+
+def sphere_tree(rows: torch.Tensor, leaf: int | None = None) -> SphereTree:
+    """The box tree of the packed sphere rows ``rows`` (S >= 1, 8) over
+    leaves of ``leaf`` rows (``SPHERE_LEAF``), on their device, with no host
+    synchronisation. Needs no scene: a masked-on row's box is centre -/+
+    |radius|, and the rows' own box (over those boxes) gives the Morton
+    codes' frame, the loose rule's room (its longest side) and the pad's
+    scale (its largest coordinate): every box is widened by ``MK.CHUNK_PAD``
+    of it, as kernel 1's streamed trees are by the scene's. Masked-off rows
+    take part in no box, mask or loose list."""
+    leaf = SPHERE_LEAF if leaf is None else leaf
+    with torch.no_grad():
+        rows = rows.detach()
+        s, dev = rows.shape[0], rows.device
+        n = -(-s // leaf) * leaf
+        cen, rad = rows[:, 0:3], rows[:, 3:4].abs()
+        on = rows[:, 5:6] > 0.0
+        lo = torch.where(on, cen - rad, INF)
+        hi = torch.where(on, cen + rad, -INF)
+        pmin, pmax = lo.amin(0), hi.amax(0)
+        order = torch.argsort(MK.morton_codes(cen, pmin, pmax), stable=True)
+        pad = n - s
+        inf = torch.full((pad, 3), INF, device=dev)
+        srows = torch.cat([rows[order], rows.new_zeros((pad, SPH_ROW))])
+        perm = torch.cat([order.to(torch.int32),
+                          torch.full((pad,), -1, dtype=torch.int32,
+                                     device=dev)])
+        lo, hi = torch.cat([lo[order], inf]), torch.cat([hi[order], -inf])
+        scale = torch.where(on, cen.abs() + rad, 0.0).amax()
+        tree = MK.box_tree(lo, hi, (perm >= 0) & (lo <= hi).all(1), leaf,
+                           MK.CHUNK_PAD * scale, (pmax - pmin).amax())
+    return SphereTree(rows=srows.contiguous(), perm=perm, tree=tree)
+
+
+def sphere_walk_reference(o, d, mint, maxt, tree: SphereTree,
+                          work: dict | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of kernel 4's tree instance: each ray walks
+    ``tree`` as the kernel's lane does (``MK._walk_tree``: the loose rows,
+    then nearest child first, culled at the champion's t, each row in the
+    brute loop's arithmetic, the least (t, original index) winning).
+    Returns ``sphere_search_reference``'s (t, idx); ``work`` gets the
+    walk's counts (``node_tests``, ``leaf_visits``, ``sph_tests``,
+    ``loose_tests``, and per 32 consecutive rays the union of their
+    leaves, ``union_leaves`` and ``union_sph_tests``)."""
+    n = o.shape[0]
+    a = dot3(d, d)
+    inv2a = torch.full_like(a, 0.5) / a
+    st = MK.Stream(rows=tree.rows, boxes=tree.rows[:0], perm=tree.perm,
+                   tree=tree.tree)
+    champ = (torch.full((n,), INF, device=o.device),
+             torch.full((n,), -1, dtype=torch.int64, device=o.device))
+    out = {} if work is None else work
+    bt, bi = MK._walk_tree("sph", st, o, d, a, inv2a, None, mint, maxt,
+                           False, 0, True, champ, out, 32)
+    return bt, bi.to(torch.int32)
+
+
+def _check_tree(tree: SphereTree, rows: torch.Tensor) -> None:
+    """A sphere tree's shapes, types and device against the table ``rows``
+    it was built from: the sorted rows and perm over whole leaves of at
+    most 32 rows that hold the table, and the walk's layout over them
+    (``MK._check_tree``)."""
+    if not isinstance(tree, SphereTree):
+        raise ValueError(f"tree must be a SphereTree, got {type(tree)}")
+    leaf = tree.tree.leaf
+    if not 0 < leaf <= 32 or leaf & (leaf - 1):
+        raise ValueError(f"sphere tree leaves of {leaf} rows: a power of "
+                         "two up to 32")
+    n = -(-rows.shape[0] // leaf) * leaf
+    for what, t, shape, dtype in (
+            ("rows", tree.rows, (n, SPH_ROW), torch.float32),
+            ("perm", tree.perm, (n,), torch.int32)):
+        if (t.device != rows.device or t.dtype != dtype
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(
+                f"sphere tree {what} must be a contiguous {shape} {dtype} "
+                f"tensor on {rows.device}, got {tuple(t.shape)} {t.dtype} "
+                f"on {t.device}")
+    MK._check_tree("sphere", tree.tree, n, rows.device)
+
+
+# ---------------------------------------------------------------------------
 # the wrappers
 # ---------------------------------------------------------------------------
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # o, d, mint, maxt, rows, n_obj, [two_sided,] t_out, i_out, n_rays,
-    # stream
+    # stream; the spheres' also the tree (sorted rows, perm, nodes, masks,
+    # loose, rows, leaf, slots, loose count) and the instance (0 brute, 1
+    # tree) after n_obj
     "rt_sphere_search": (ctypes.c_int, [_VP, _VP, _VP, _VP, _VP, _I,
-                                        _VP, _VP, _I, _VP]),
+                                        _VP, _VP, _VP, _VP, _VP, _I, _I,
+                                        _I, _I, _I, _VP, _VP, _I, _VP]),
     "rt_triangle_search": (ctypes.c_int, [_VP, _VP, _VP, _VP, _VP, _I, _I,
                                           _VP, _VP, _I, _VP]),
 }
@@ -169,17 +293,35 @@ def _launch(fname: str, o, d, mint, maxt, rows, *extra):
     return t, idx
 
 
-def sphere_search_rows(o, d, mint, maxt, rows
+def sphere_search_rows(o, d, mint, maxt, rows,
+                       tree: SphereTree | None = None
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Closest sphere (t, idx) per ray: kernel 4 on CUDA tensors, the plain
     version on CPU tensors. o, d (R, 3), mint, maxt (R,), rows (S, 8), all
-    float32 and contiguous on one device."""
-    global sphere_launches
+    float32 and contiguous on one device. Past ``SPHERE_BRUTE_MAX`` rows
+    the kernel walks ``tree`` (``sphere_tree(rows)``, built here when
+    None); a tree that is passed is checked on every device, and raises
+    ValueError where malformed."""
+    global sphere_launches, sphere_tree_launches
     _check_args(o, d, mint, maxt, rows, SPH_ROW)
+    if tree is not None:
+        _check_tree(tree, rows)
     if o.device.type == "cpu":
         return sphere_search_reference(o, d, mint, maxt, rows)
-    out = _launch("rt_sphere_search", o, d, mint, maxt, rows)
+    walk = rows.shape[0] > SPHERE_BRUTE_MAX
+    if walk:
+        if tree is None:
+            tree = sphere_tree(rows)
+        tr, st = tree, tree.tree
+        extra = (tr.rows.data_ptr(), tr.perm.data_ptr(),
+                 st.nodes.data_ptr(), st.masks.data_ptr(),
+                 st.loose.data_ptr(), tr.rows.shape[0], st.leaf,
+                 st.n_slots, st.loose.shape[0], 1)
+    else:
+        extra = (None,) * 5 + (0,) * 5
+    out = _launch("rt_sphere_search", o, d, mint, maxt, rows, *extra)
     sphere_launches += 1
+    sphere_tree_launches += int(walk)
     return out
 
 
@@ -200,7 +342,7 @@ def triangle_search_rows(o, d, mint, maxt, rows, two_sided: bool = False
 def sphere_search(o, d, mint, maxt, center, radius, mask
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """``sphere_search_pallas``'s arguments: packs the rows, then
-    ``sphere_search_rows``."""
+    ``sphere_search_rows`` (which builds the tree it walks)."""
     return sphere_search_rows(o, d, mint, maxt,
                               sphere_rows(center, radius, mask))
 

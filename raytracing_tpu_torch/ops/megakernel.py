@@ -1617,6 +1617,80 @@ def tree_slots(n_leaves: int) -> int:
     return 1 << max(0, (n_leaves - 1).bit_length())
 
 
+def morton_codes(cen: torch.Tensor, pmin: torch.Tensor,
+                 pmax: torch.Tensor) -> torch.Tensor:
+    """30-bit Morton codes (10 bits per axis) of the points ``cen`` (N, 3)
+    against the box [pmin, pmax], as int64: JAX's ``_morton_codes`` (its
+    uint32 bit-spreading here in int64, masked)."""
+    ext = torch.clamp(pmax - pmin, min=1e-20)
+    q = torch.clamp((cen - pmin) / ext * 1024.0, 0.0, 1023.0).to(torch.int64)
+
+    def spread(x):
+        x = (x | (x << 16)) & 0x030000FF
+        x = (x | (x << 8)) & 0x0300F00F
+        x = (x | (x << 4)) & 0x030C30C3
+        return (x | (x << 2)) & 0x09249249
+
+    return spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
+
+
+def box_tree(lo: torch.Tensor, hi: torch.Tensor, take: torch.Tensor,
+             leaf: int, pad: torch.Tensor, room: torch.Tensor) -> StreamTree:
+    """The walk's layout (``StreamTree``) over N sorted rows with boxes
+    [lo, hi] (N, 3) (+inf / -inf: none), of which ``take`` (N,) take part,
+    N a multiple of ``leaf``; on their device, with no host
+    synchronisation (``render/mega.chunk_tree`` and
+    ``ops/hit_kernels.sphere_tree`` build on it).
+
+    * Loose rows: a row that takes part and whose box's longest side is at
+      least ``LOOSE_SHARE`` of ``room`` (a wall of a room; none on a field
+      of small spheres), the ``LOOSE_MAX`` longest of them. Every ray
+      tests them first, so their champion's t culls the tree from the
+      start, and they widen no box.
+    * Leaves: consecutive runs of ``leaf`` rows; a leaf's box is the least
+      box over its other rows that take part (none: the empty box, pmin
+      +inf, pmax -inf), widened by ``pad`` on every side (an axis-aligned
+      wall's box has no thickness), and its mask names those rows.
+    * Nodes: an implicit binary tree over the leaves, padded with empty
+      leaves to a power of two; a node's box is the least box over its
+      children's, one reshape per level."""
+    n, dev = take.shape[0], take.device
+    n_leaves = n // leaf
+    slots = tree_slots(n_leaves)
+    inf = torch.full((), torch.inf, device=dev)
+    side = (hi - lo).amax(1)
+    score = torch.where(take & (side >= LOOSE_SHARE * room), side, -inf)
+    top, pos = torch.topk(score, min(LOOSE_MAX, n))
+    picked = top > -inf
+    loose = torch.where(picked, pos, -1).to(torch.int32)
+    is_loose = torch.zeros(n, dtype=torch.bool, device=dev).scatter(
+        0, pos, picked)
+    live = take & ~is_loose
+    lo_l = torch.where(live[:, None], lo, inf).reshape(n_leaves, leaf,
+                                                        3).amin(1) - pad
+    hi_l = torch.where(live[:, None], hi, -inf).reshape(n_leaves, leaf,
+                                                         3).amax(1) + pad
+    empty = torch.full((slots - n_leaves, 3), torch.inf, device=dev)
+    levels = [(torch.cat([lo_l, empty]), torch.cat([hi_l, -empty]))]
+    while levels[0][0].shape[0] > 1:
+        a, b = levels[0]
+        levels.insert(0, (a.reshape(-1, 2, 3).amin(1),
+                          b.reshape(-1, 2, 3).amax(1)))
+    lo_n = torch.cat([torch.zeros((1, 3), device=dev)]
+                     + [a for a, _ in levels])
+    hi_n = torch.cat([torch.zeros((1, 3), device=dev)]
+                     + [b for _, b in levels])
+    nodes = torch.cat([lo_n, hi_n, torch.zeros((2 * slots, 2), device=dev)],
+                      -1).to(torch.float32).contiguous()
+    word = min(leaf, 32)
+    bits = (live.reshape(n_leaves, -1, word).to(torch.int64)
+            << torch.arange(word, device=dev)).sum(-1)
+    masks = torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(
+        torch.int32)
+    return StreamTree(nodes=nodes, masks=masks.contiguous(), loose=loose,
+                      leaf=leaf)
+
+
 def _check_tree(name: str, tree: StreamTree | None, n_rows: int, dev) -> None:
     """A stream's walk layout (``StreamTree``) over ``n_rows`` sorted rows:
     whole leaves of a power of two rows up to 128, a mask word per 32 rows

@@ -93,6 +93,18 @@ kernel 1's passes); ``chip_smoke.py`` phase 22's "pallas" steps; and
 each launch's grid, registers, shared memory and blocks per SM from
 ``torch.profiler``'s trace; with ``--bounds`` each scene's bound
 (``k2_large_bound``), which ``--only grid`` prints for its two scenes.
+``--only hit`` times this checkout alone (a parent commit is timed by
+copying this file and ``chip_smoke.py`` into its checkout and running it
+there): kernel 4 (the stage pipeline's sphere search) in each
+configuration, the brute loop and the tree walk per lane and per warp at
+each of ``--leaf-sizes`` (``HK.SPHERE_LEAF``), on ``chip_smoke.py`` phase
+8's rays over sphere_field(1024) and sphere_field(4096), on the same rays
+over small fields (where the brute loop and the walk cross) and on the 12
+searches of one stage pass on sphere_field(1024) at 1024^2 b5 as phase 9
+records them (their sum is the kernel's time per pass), each held to the
+brute loop's results, each tree's build; then kernel 5, kernel 1's cornell
+pass and the stage passes of phases 9 (with ``torch.profiler``'s split)
+and 10, and the build's registers and spills.
 ``--sass`` dumps ``cuobjdump -sass`` of the named variants' libraries
 into ``--out`` and
 prints, per kernel, the count of each memory, atomic, warp-level and
@@ -121,6 +133,7 @@ import torch
 from .core import rng
 from .models.scenes import cornell_box, sphere_field
 from .ops import _build
+from .ops import hit_kernels as HK
 from .ops import megakernel as MK
 from .ops import megakernel_grad as MKG
 from .ops import megakernel_soft as MKS
@@ -1163,6 +1176,204 @@ def stream_only(dev, smi: str, libs: dict, labels: list, out: Path,
     return 0
 
 
+# --only hit: kernel 4 (the stage pipeline's sphere search) and its
+# neighbours on the stage route
+HIT_FIELDS = (64, 128, 192, 256, 384, 512)   # the brute / tree split
+HIT_SPEC = ("hit_kernels", HK._SIGNATURES, ())
+
+
+def _hit_configs(leaf_sizes: str) -> list:
+    """(label, HK attributes) of each kernel-4 configuration: the brute
+    loop on every table, then the tree walk at each leaf size (a tree from
+    before the tree instance has the brute loop alone)."""
+    if not hasattr(HK, "sphere_tree"):
+        return [("brute", {})]
+    leaves = [int(n) for n in leaf_sizes.split(",") if n] or [1, 2, 4]
+    return [("brute", {"SPHERE_BRUTE_MAX": 1 << 30})] + [
+        (f"tree/leaf{leaf}", {"SPHERE_BRUTE_MAX": 0, "SPHERE_LEAF": leaf})
+        for leaf in leaves]
+
+
+def _hit_cases(dev) -> dict:
+    """name -> (rays, rows): chip_smoke.py phase 8's rays on
+    sphere_field(N_SPHERES) and sphere_field(BIG_SPHERES), and the 12
+    searches of one stage pass on sphere_field(N_SPHERES) at SIZE^2 b5
+    (camera rays, then each segment's shadow and bounce rays, in pixel
+    order) as chip_smoke.py's phase 9 records them; then for the brute /
+    tree split each field of HIT_FIELDS on phase 8's rays and its own
+    stage pass's searches."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+
+    def rows_of(n):
+        sp = sphere_field(n, device=dev).spheres
+        return HK.sphere_rows(sp.center, sp.radius, sp.mask)
+
+    def stage(n):
+        scene = sphere_field(n, cols=SIZE, rows=SIZE, device=dev)
+        cfg = RenderConfig(width=SIZE, height=SIZE, bounces=BOUNCES,
+                           use_pallas=True)
+        return [(list(args[:4]), args[4])
+                for args, _ in cs._stage_searches(scene, cfg, dev)]
+
+    rays = cs._seeded_rays(dev, cs.HIT_RAYS, cs.HIT_SEED, -6.0, 6.0)
+    cases = {f"phase8 {N_SPHERES}": (rays, rows_of(N_SPHERES)),
+             f"phase8 {cs.BIG_SPHERES}": (
+                 cs._seeded_rays(dev, cs.BIG_RAYS, cs.HIT_SEED + 3, -6.0,
+                                 6.0), rows_of(cs.BIG_SPHERES))}
+    cases.update({f"stage{N_SPHERES} {k}": c
+                  for k, c in enumerate(stage(N_SPHERES))})
+    for n in HIT_FIELDS:
+        cases[f"phase8 {n}"] = (rays, rows_of(n))
+        cases.update({f"stage{n} {k}": c for k, c in enumerate(stage(n))})
+    return cases
+
+
+def _stage_pass(dev) -> dict:
+    """chip_smoke.py phases 9 and 10's stage passes: sphere_field(
+    N_SPHERES) and cornell at SIZE^2 b5, ms per one-pass call (host clock,
+    synchronised, the median of 5 after a warm-up) and torch.profiler's
+    split of one sphere_field pass."""
+    import chip_smoke as cs
+    out = {}
+    for name, scene in (("spheres", sphere_field(N_SPHERES, cols=SIZE,
+                                                 rows=SIZE, device=dev)),
+                        ("cornell", cornell_box(cols=SIZE, rows=SIZE,
+                                                device=dev))):
+        cfg = RenderConfig(width=SIZE, height=SIZE, bounces=BOUNCES,
+                           use_pallas=True)
+        state = pt.render_passes(scene, pt.init_state(cfg, dev), cfg, 1)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = pt.render_passes(scene, state, cfg, 1)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[f"stage_pass_{name}_ms"] = sorted(times)[2]
+        if name == "spheres":
+            split = cs._profile_split(
+                lambda: pt.render_passes(scene, state, cfg, 1))
+            print(f"  stage pass sphere_field({N_SPHERES}): {split}")
+    return out
+
+
+def measure_hit(cases: dict, configs: list, first: dict) -> dict:
+    """Each kernel-4 configuration on each case (CUDA events, REPS
+    launches after one, each with the tree built once beforehand, as the
+    stage pass does), each result held to the first result of its case
+    (the brute loop's, bit for bit); per stage pass the 12 searches' sum
+    (``stage<n>``); each tree's build (host clock, synchronised)."""
+    out = {}
+    defaults = {k: getattr(HK, k) for _, attrs in configs for k in attrs}
+    for label, attrs in configs:
+        for k, v in {**defaults, **attrs}.items():
+            setattr(HK, k, v)
+        trees = {}
+        for name, (rays, rows) in cases.items():
+            tree = None
+            if (hasattr(HK, "sphere_tree")
+                    and rows.shape[0] > HK.SPHERE_BRUTE_MAX):
+                if id(rows) not in trees:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    trees[id(rows)] = HK.sphere_tree(rows)
+                    torch.cuda.synchronize()
+                    out[f"{label} tree_build_ms {rows.shape[0]}"] = (
+                        time.perf_counter() - t0) * 1e3
+                tree = trees[id(rows)]
+            args = (*rays, rows) + ((tree,) if tree is not None else ())
+            got = HK.sphere_search_rows(*args)
+            want = first.setdefault(name, got)
+            bad = int((got[1] != want[1]).sum() + (got[0] != want[0]).sum())
+            if bad:
+                print(f"  {label} {name}: {bad} values differ from the "
+                      "first result's")
+            key = name.split(" ")[0]
+            ms = time_ms(lambda: HK.sphere_search_rows(*args))
+            if key.startswith("stage"):
+                out[f"{label} {key}"] = out.get(f"{label} {key}", 0.0) + ms
+            else:
+                out[f"{label} {name}"] = ms
+    for k, v in defaults.items():
+        setattr(HK, k, v)
+    return out
+
+
+def _hit_variants(variants: list) -> dict:
+    """label -> kernel 4's library built from each variant's sources (the
+    package's own as "tree" when none is named)."""
+    if not variants:
+        return {"tree": _build.load(*HIT_SPEC)}
+    libs = {}
+    for label, src in variants:
+        lib, log = build(label, src, *HIT_SPEC)
+        libs[label] = lib
+        _print_ptxas(label, log)
+    return libs
+
+
+def _print_ptxas(label: str, log: str) -> None:
+    for line in log.splitlines():
+        if re.search(r"Compiling entry|registers|spill|stack", line):
+            print(f"    ptxas {label}: {line.strip()}")
+
+
+def hit_only(dev, smi: str, out: Path, leaf_sizes: str,
+             variants: list) -> int:
+    """``--only hit``: kernel 4 in each configuration (``_hit_configs``)
+    of each variant (``--variant``, libraries with this checkout's C
+    interface) on phase 8's rays, one stage pass's recorded searches and
+    the brute / tree split's fields (``_hit_cases``), in turns (first to
+    last, then back); then kernel 5 on cornell's 10 triangles and phase
+    8's soup, kernel 1's cornell pass (16-pass launches) and the stage
+    passes of phases 9 and 10 (``_stage_pass``), which must not move. A
+    parent commit is timed by copying this file and ``chip_smoke.py``
+    into its checkout and running it there."""
+    import chip_smoke as cs
+    t0 = time.perf_counter()
+    specs = [HIT_SPEC, ("megakernel", MK._SIGNATURES, ())]
+    _build.load_all(specs)
+    print(f"built {len(specs)} libraries at once in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for log in sorted(_build.BUILD_DIR.glob("libhit_kernels-*.log")):
+        _print_ptxas("package", log.read_text())
+    libs = _hit_variants(variants)
+    cases = _hit_cases(dev)
+    configs = [(f"{label}:{name}" if len(libs) > 1 else name, lib, attrs)
+               for label, lib in libs.items()
+               for name, attrs in _hit_configs(leaf_sizes)]
+    results: dict = {"card": smi, "turns": []}
+    first: dict = {}
+    for order in (configs, configs[::-1]):
+        turn = {}
+        for label, lib, attrs in order:
+            _build._loaded[(HIT_SPEC[0], HIT_SPEC[2])] = lib
+            turn.update(measure_hit(cases, [(label, attrs)], first))
+        print("turn: " + ", ".join(f"{k} {v:.6g}" for k, v in turn.items()),
+              flush=True)
+        results["turns"].append(turn)
+    _build._loaded[(HIT_SPEC[0], HIT_SPEC[2])] = _build.load(*HIT_SPEC)
+    others = {}
+    rays = cases[f"phase8 {N_SPHERES}"][0]
+    room = cs._seeded_rays(dev, cs.HIT_RAYS, cs.HIT_SEED + 2, -0.95, 0.95)
+    tris = cornell_box(device=dev).triangles
+    soup = cs._soup(cs.SOUP_TRIANGLES, cs.HIT_SEED + 1).to(dev)
+    for name, r, t in (("cornell(10)", room, tris), ("soup", rays, soup)):
+        trow = HK.triangle_rows(t.v, t.mask)
+        others[f"k5 {name}"] = time_ms(
+            lambda: HK.triangle_search_rows(*r, trow, False))
+    cornell = Case(cornell_box(cols=SIZE, rows=SIZE, device=dev), dev,
+                   step=False)
+    others["k1 cornell 16-pass"] = time_ms(lambda: cornell.k1(16), per=16)
+    others.update(_stage_pass(dev))
+    print("others: " + ", ".join(f"{k} {v:.6g}" for k, v in others.items()))
+    results["others"] = others
+    (out / "profile.json").write_text(json.dumps(results, indent=1))
+    print(f"card: [{smi}]")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variant", action="append", default=[],
@@ -1172,19 +1383,23 @@ def main(argv=None) -> int:
                     help="dump the SASS of this variant's libraries")
     ap.add_argument("--out", default=str(BUILD / "out"))
     ap.add_argument("--only", choices=("all", "soft", "stream", "grid",
-                                       "large"),
+                                       "large", "hit"),
                     default="all",
                     help="soft: build and time kernel 2s alone; stream: "
                          "kernel 1's streamed cases, kernel 2's streamed "
                          "step and grid shape 1's direct mode alone; grid: "
                          "kernel 1's grid cases and kernels 2 and 3 on the "
                          "grid scenes alone; large: kernel 2 past 64 "
-                         "objects and its pieces, this checkout only")
+                         "objects and its pieces, this checkout only; hit: "
+                         "kernel 4's configurations and the stage route, "
+                         "this checkout only")
     ap.add_argument("--leaf-sizes", default="",
                     help="with --only stream or grid: the streamed tables' "
                          "leaf sizes (MK.STREAM_LEAF) or the mesh grid "
                          "cells' (MK.GRID_LEAF) to time each variant at "
-                         "(default the package's)")
+                         "(default the package's); with --only hit kernel "
+                         "4's tree leaves (HK.SPHERE_LEAF, default "
+                         "1,2,4)")
     ap.add_argument("--bounds", action="store_true",
                     help="with --only large: each scene's bound of kernel "
                          "2 past 64 objects (the plain version's counts)")
@@ -1210,6 +1425,10 @@ def main(argv=None) -> int:
 
     if args.only == "large":
         return large_only(dev, smi, out, args.bounds)
+    if args.only == "hit":
+        return hit_only(dev, smi, out, args.leaf_sizes,
+                        [(label, Path(src).resolve()) for label, src in
+                         (v.split("=", 1) for v in args.variant)])
     variants = [tuple(v.split("=", 1)) for v in args.variant] or [
         ("tree", str(_build.CSRC))]
     variants = [(label, Path(src).resolve()) for label, src in variants]

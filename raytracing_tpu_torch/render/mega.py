@@ -293,21 +293,7 @@ def streamed(scene: Scene, cfg: RenderConfig) -> tuple[bool, bool]:
     return tri, sph
 
 
-def _morton_codes(cen: torch.Tensor, pmin: torch.Tensor,
-                  pmax: torch.Tensor) -> torch.Tensor:
-    """30-bit Morton codes (10 bits per axis) of the points ``cen`` (N, 3)
-    against the box [pmin, pmax], as int64: JAX's ``_morton_codes`` (its
-    uint32 bit-spreading here in int64, masked)."""
-    ext = torch.clamp(pmax - pmin, min=1e-20)
-    q = torch.clamp((cen - pmin) / ext * 1024.0, 0.0, 1023.0).to(torch.int64)
-
-    def spread(x):
-        x = (x | (x << 16)) & 0x030000FF
-        x = (x | (x << 8)) & 0x0300F00F
-        x = (x | (x << 4)) & 0x030C30C3
-        return (x | (x << 2)) & 0x09249249
-
-    return spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
+_morton_codes = MK.morton_codes
 
 
 def _pad_width(scene: Scene) -> torch.Tensor:
@@ -357,19 +343,11 @@ def chunk_tree(scene: Scene, lo: torch.Tensor, hi: torch.Tensor,
     ``perm`` (N,) (-1: padding), N whole chunks of rows; on their device,
     with no host synchronisation.
 
-    * Loose rows: a row whose box's longest side is at least
-      ``MK.LOOSE_SHARE`` of the scene box's longest side (a wall of a room;
-      none on a field of small spheres), the ``MK.LOOSE_MAX`` longest of
-      them. Every ray tests them first, so their champion's t culls the
-      tree from the start, and they widen no box.
-    * Leaves: consecutive runs of ``MK.STREAM_LEAF`` sorted rows; a leaf's
-      box is the least box over its other rows' boxes (none: the empty box,
-      pmin +inf, pmax -inf), widened by ``MK.CHUNK_PAD`` of the scene's
-      scale as the chunks' are (an axis-aligned wall's box has no
-      thickness), and its mask names those rows.
-    * Nodes: an implicit binary tree over the leaves in Morton order,
-      padded with empty leaves to a power of two; a node's box is the least
-      box over its children's, one reshape per level.
+    The layout is ``MK.box_tree``'s over the rows that are not padding:
+    loose rows (the scene box's longest side is the room), leaves of
+    ``MK.STREAM_LEAF`` sorted rows whose boxes are widened by
+    ``MK.CHUNK_PAD`` of the scene's scale as the chunks' are, and an
+    implicit binary tree of node boxes over the leaves in Morton order.
 
     Why the culling is exact: the slab test (``MK.chunk_overlap``, the
     kernel's ``node_enter``) rounds monotonically, so in float arithmetic
@@ -378,45 +356,9 @@ def chunk_tree(scene: Scene, lo: torch.Tensor, hi: torch.Tensor,
     it. A leaf is thus visited by every ray whose window the chunk of
     Morton rows around its hit would pass, and a candidate wins on the
     least (t, original id) pair whatever the order of the visits."""
-    n, dev = perm.shape[0], perm.device
-    leaf = MK.STREAM_LEAF
-    n_leaves = n // leaf
-    slots = MK.tree_slots(n_leaves)
-    inf = torch.tensor(torch.inf, device=dev)
-    side = (hi - lo).amax(1)
     room = (scene.bounds_max - scene.bounds_min).amax()
-    score = torch.where((perm >= 0) & (side >= MK.LOOSE_SHARE * room), side,
-                        -inf)
-    top, pos = torch.topk(score, min(MK.LOOSE_MAX, n))
-    picked = top > -inf
-    loose = torch.where(picked, pos, -1).to(torch.int32)
-    is_loose = torch.zeros(n, dtype=torch.bool, device=dev).scatter(
-        0, pos, picked)
-    live = (perm >= 0) & ~is_loose
-    w = _pad_width(scene)
-    lo_l = torch.where(live[:, None], lo, inf).reshape(n_leaves, leaf,
-                                                        3).amin(1) - w
-    hi_l = torch.where(live[:, None], hi, -inf).reshape(n_leaves, leaf,
-                                                         3).amax(1) + w
-    empty = torch.full((slots - n_leaves, 3), torch.inf, device=dev)
-    levels = [(torch.cat([lo_l, empty]), torch.cat([hi_l, -empty]))]
-    while levels[0][0].shape[0] > 1:
-        a, b = levels[0]
-        levels.insert(0, (a.reshape(-1, 2, 3).amin(1),
-                          b.reshape(-1, 2, 3).amax(1)))
-    lo_n = torch.cat([torch.zeros((1, 3), device=dev)]
-                     + [a for a, _ in levels])
-    hi_n = torch.cat([torch.zeros((1, 3), device=dev)]
-                     + [b for _, b in levels])
-    nodes = torch.cat([lo_n, hi_n, torch.zeros((2 * slots, 2), device=dev)],
-                      -1).to(torch.float32).contiguous()
-    word = min(leaf, 32)
-    bits = (live.reshape(n_leaves, -1, word).to(torch.int64)
-            << torch.arange(word, device=dev)).sum(-1)
-    masks = torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(
-        torch.int32)
-    return MK.StreamTree(nodes=nodes, masks=masks.contiguous(), loose=loose,
-                         leaf=leaf)
+    return MK.box_tree(lo, hi, perm >= 0, MK.STREAM_LEAF, _pad_width(scene),
+                       room)
 
 
 def tri_chunk_tables(scene: Scene, tri: torch.Tensor) -> MK.Stream:

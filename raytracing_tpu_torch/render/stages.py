@@ -51,9 +51,13 @@ def _all_triangles(scene: Scene) -> Triangles:
 
 class HitTables(NamedTuple):
     """Object rows of the hit kernels, packed once per pass; None where
-    ``cfg.use_pallas`` is off or the scene has no objects of the type."""
+    ``cfg.use_pallas`` is off or the scene has no objects of the type.
+    ``sph_tree``: kernel 4's box tree over ``sph`` (``HK.sphere_tree``),
+    built once per pass where the table takes the tree instance (past
+    ``HK.SPHERE_BRUTE_MAX`` rows), else None."""
     sph: torch.Tensor | None
     tri: torch.Tensor | None
+    sph_tree: HK.SphereTree | None = None
 
 
 def hit_tables(scene: Scene, cfg: RenderConfig) -> HitTables:
@@ -62,10 +66,13 @@ def hit_tables(scene: Scene, cfg: RenderConfig) -> HitTables:
     tris = _all_triangles(scene)
     with torch.no_grad():
         sp = scene.spheres
+        sph = (HK.sphere_rows(sp.center, sp.radius, sp.mask)
+               if sp.count else None)
+        tree = (HK.sphere_tree(sph) if sp.count > HK.SPHERE_BRUTE_MAX
+                else None)
         return HitTables(
-            HK.sphere_rows(sp.center, sp.radius, sp.mask)
-            if sp.count else None,
-            HK.triangle_rows(tris.v, tris.mask) if tris.count else None)
+            sph, HK.triangle_rows(tris.v, tris.mask) if tris.count else None,
+            tree)
 
 
 def _check_grids(scene: Scene) -> None:
@@ -120,7 +127,7 @@ def trace_all(rays: Rays, hits: Hits, scene: Scene, cfg: RenderConfig,
             ch = closest_hit_spheres(rays, scene.spheres,
                                      obj_chunk=cfg.obj_chunk,
                                      use_pallas=cfg.use_pallas,
-                                     rows=tables.sph)
+                                     rows=tables.sph, tree=tables.sph_tree)
         merge(ch, *sphere_hit_attrs(rays, scene.spheres, ch))
     ts = cfg.two_sided_triangles
     if cfg.use_grid:
@@ -167,7 +174,7 @@ def occluded_any(rays: Rays, scene: Scene, cfg: RenderConfig,
             occ = occ | anyhit_spheres(rays, scene.spheres,
                                        obj_chunk=cfg.obj_chunk,
                                        use_pallas=cfg.use_pallas,
-                                       rows=tables.sph)
+                                       rows=tables.sph, tree=tables.sph_tree)
     ts = cfg.two_sided_triangles
     if cfg.use_grid:
         for tris, grid in _grid_batches(scene):
