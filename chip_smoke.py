@@ -161,10 +161,15 @@ Phases, each fatal on failure (no exception is caught):
      spheres): one kernel-1 and one kernel-3 launch per step, no kernel 2,
      ms/step, kernel 1 recording and kernel 3 alone with their bounds, and
      kernel 3 vs its plain version on the last step's record and cotangent
-     (phase 6's gates at 1024^2);
+     (phase 6's gates at 1024^2), its hot rows built on the card equal to
+     their plain version (MKG.hot_rows_reference) on that record, and the
+     plain count of kernel 3's row adds there (MKG.champ_add_count: the
+     scalar atomics of the design before the hot rows against this one's
+     slab adds, vector reductions and flushes);
  19. kernel 3 on kernel 1's grid record (original rows) vs its plain
      version (PRNG and u-planes routes, phase 6's gates) on both scenes at
-     256x192 with all five groups;
+     256x192 with all five groups, its hot rows equal to their plain
+     version, and the count of its row adds;
  20. edge-aware gradients (bench.py BENCH_EDGE=1, mega_edge_bandwidth and
      tau EDGE_BW): (a) kernel 2s (csrc/megakernel_soft.cu, the adjoint of
      the soft program) vs its plain version
@@ -206,8 +211,8 @@ Phases, each fatal on failure (no exception is caught):
      torus scene at
      STREAM_BRUTE_W x STREAM_BRUTE_H, path b1 and direct; (3) kernel 3 on
      kernel 1's streamed record vs its plain version with ("sph", "mat",
-     "tri") (phase 19's gates); (4) at 1024^2 b5: the torus scene's
-     forward (16 passes per call) at block 64 with the cell route's train
+     "tri") (phase 19's gates, its hot rows and its count); (4) at 1024^2
+     b5: the torus scene's forward (16 passes per call) at block 64 with the cell route's train
      step (one streamed kernel-1 recording and one kernel-3 launch per
      step, no kernel 2), at block 0, with the roulette, and direct through
      render_direct (16 passes per call, block 64), and sphere_field(8192)
@@ -260,8 +265,9 @@ Phases, each fatal on failure (no exception is caught):
      kernel 3) on sphere_field(1024) with ("sph", "mat") and on the torus scene
      streamed with ("sph", "mat", "tri"), LARGE_STEPS steps each, median
      ms and fwd+bwd segments/s, kernel 2 alone on the last step's
-     cotangent (both launches, then the record and the sweep each alone)
-     with its bound (the record's count plus the sweep's operations;
+     cotangent (both launches, then the record and the sweep each alone,
+     with the sweep's hot rows and the count of its row adds) with its
+     bound (the record's count plus the sweep's operations;
      bytes: 12 per ray, the tables twice, the record, 4 + L per segment,
      written and read); BENCH_EDGE on the torus scene (one step;
      one kernel-1 and one large kernel-2s launch), kernel 2s alone (CUDA
@@ -2988,6 +2994,9 @@ def _path_main(dev, smi: str, phase: int, name: str, scene, cfg, how: str,
     err3 = max(_grad_gates(n, a, b, False)
                for n, a, b in zip(MKG.DIFF_ALL, want3, got3) if n in wrt)
     live = (g != 0).any(-1)
+    print(f"  {name}: kernel 3 {k3_ms:.6g} ms; "
+          + _add_counts(MKG, ids, tabs[1].shape[0], tabs[2].shape[0], wrt,
+                        live))
     w3 = _pass_work(ids, occs, n_l, tabs[1].shape[0], live)
     k3_ops = _k3_ops(w3, n_l, wrt)
     k3_bound = _bound(k3_ops, 12 * cfg.total_rays
@@ -3053,7 +3062,8 @@ def kernel3_on_record(dev, shape: str, w: int, h: int, wrt,
           f"b{BOUNCES} wrt {list(wrt)}: plain {plain_ms:.6g} ms; recorded "
           f"rows: spheres {int(((ids >= 0) & (ids < n_sph)).sum())}, "
           f"triangles {tri_ids.numel()} (largest row "
-          f"{int(ids.max())} of {n_sph + tables[2].shape[0]})")
+          f"{int(ids.max())} of {n_sph + tables[2].shape[0]}); "
+          + _add_counts(MKG, ids, n_sph, tables[2].shape[0], wrt))
     err = 0.0
     for route, uu in (("u-planes", u), ("PRNG", None)):
         got = MKG.pathtrace_pass_bwd_champ(tables[0], ipar, *tables[1:], g,
@@ -3089,6 +3099,36 @@ def _cell_bounds(tables, ids, occs, g, cfg):
                 + (1 + cfg.bounces) * (4 + n_l) * w3["rays"]
                 + 2 * _table_bytes(tables))
     return k1, k3, (k1_ops, k3_ops / max(w3["rays"], 1))
+
+
+def _add_counts(MKG, ids, n_s: int, n_t: int, wrt, live=None) -> str:
+    """Phases 18, 19, 21 and 22: kernel 3's hot rows of the record ``ids``
+    built on the card (``MKG.hot_rows``: the count and select kernels)
+    held equal to their plain version (fatal), then the plain count of
+    kernel 3's sphere and triangle row adds over the rays ``live``
+    (``MKG.champ_add_count`` at those hot rows, a grid of 4 blocks per
+    SM): the scalar atomics of the design before the hot rows (one per
+    warp, row and word) against this one's slab adds, vector reductions
+    and flushes."""
+    import torch
+    slot, hot = MKG.hot_rows(ids, n_s, n_t)
+    want = MKG.hot_rows_reference(ids.cpu(), n_s, n_t, MKG.HOT_TRI)
+    _check(torch.equal(slot.cpu(), want[0])
+           and torch.equal(hot.cpu(), want[1]),
+           f"kernel 3's hot rows on the card differ from their plain "
+           f"version on a record of {ids.numel()} ids, {n_t} triangle "
+           f"rows: hot {hot.tolist()} against {want[1].tolist()}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    c = MKG.champ_add_count(ids, n_s, n_t, slot, wrt, live=live,
+                            blocks=4 * sms)
+    return (f"hot rows {hot.tolist()} (equal to the plain version's); "
+            f"row adds (plain count): {c['atomics_parent']} scalar atomics "
+            f"before the hot rows, {c['adds_new']} now (slab "
+            f"{c['slab_adds']}, vector reductions {c['vector_reds']}, "
+            f"flushes {c['flush_reds']}); triangle champions per live ray "
+            f"{c['tri_champions_per_ray']:.4g}, hot share of the warps' "
+            f"triangle row groups "
+            f"{c['tri_hot_groups'] / max(c['tri_groups'], 1):.4g}")
 
 
 def _soft_dense(n_sph: int, n_tri: int) -> dict:
@@ -4520,7 +4560,8 @@ def large_train(dev, smi: str, work: dict) -> dict:
               f"{shape} step cotangent wrt {list(wrt)}: {k_ms:.6g} ms "
               f"({k_ms / ms['pallas']:.3%} of the step; the record alone "
               f"{piece_ms['record']:.6g} ms, kernel 3's sweep alone "
-              f"{piece_ms['sweep']:.6g} ms); bound "
+              f"{piece_ms['sweep']:.6g} ms, its "
+              + _add_counts(MKG, rec[0], n_s, n_t, wrt, live) + "); bound "
               f"{ops / max(w['rays'], 1):.6g} FP32 operations per live ray "
               f"-> {bound['bound_ms']:.6g} ms ({bound['bound_by']}); share "
               f"{bound['bound_ms'] / k_ms:.3%}")

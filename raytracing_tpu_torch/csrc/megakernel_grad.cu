@@ -152,7 +152,7 @@ __device__ void ray_adjoint(const Tables& T, const Draws& D, bool active,
     add_row3(G.lig + max(emit, 0) * kLig + (normalize_emitter ? 9 : 6), emit,
              g);
   reverse_sweep<kRR>(T, D, tape, nseg, col, row, samp, spp, rr_start, g, G,
-                     gp);
+                     TableAdds{G.sph, G.tri}, gp);
 }
 
 // The adjoint of ray rid_g in direct mode (pathtrace_adj.cuh direct_sweep):
@@ -193,7 +193,8 @@ __device__ void direct_adjoint(const Tables& T, const DirectSlots& S,
       }
     }
   }
-  direct_sweep(T, S, q, live, col, row, samp, spp, g, G, gp);
+  direct_sweep(T, S, q, live, col, row, samp, spp, g, G,
+               TableAdds{G.sph, G.tri}, gp);
 }
 
 template <bool kRR, bool kDirect>

@@ -106,8 +106,16 @@ __device__ __forceinline__ V3 tangent_frame_adj(V3 n, V3 gt, V3 gb) {
 // together (the sweep is warp-uniform: reverse_sweep); the lanes group by
 // row (__match_any_sync, row -1: nothing to add), each group sums its
 // values in registers by a shuffle tree over its members (log2 of the
-// group's size rounds), and its lowest lane adds the sums: one atomic per
-// word, row and warp, never a zero.
+// group's size rounds; group_sum), and its lowest lane adds the sums.
+// add_rows adds them word by word: one atomic per word, row and warp,
+// never a zero; kernel 2's sphere and triangle rows (TableAdds) and every
+// kernel's material, light and par rows. Kernel 3's sphere and triangle
+// rows go to global memory, where those scalar atomics queued on the rows
+// most champions name (one H100 80GB HBM3, 700.00 W: 1.47-1.52 of the
+// torus sweep's 2.81-2.86 ms went to sending them); there the lowest lane
+// adds a hot triangle row into its warp's shared slab and sends every
+// other row as 16- and 8-byte reductions (megakernel_champ.cu HotAdds:
+// 1.27-1.29 ms).
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Rows {
@@ -123,10 +131,11 @@ __device__ __forceinline__ Rows rows_of(int row) {
   return r;
 }
 
+// Sums v over each group of r by the shuffle tree; true on the lowest lane
+// of a group that adds, which then holds the group's sums. Warp-uniform.
 template <int N>
-__device__ __forceinline__ void add_rows(const Rows& r, float* p,
-                                         float (&v)[N]) {
-  if (!r.any) return;
+__device__ __forceinline__ bool group_sum(const Rows& r, float (&v)[N]) {
+  if (!r.any) return false;
   const int lane = threadIdx.x & 31;
   const unsigned below = r.peers & ((1u << lane) - 1u);
   unsigned higher = r.peers & ~below & ~(1u << lane);
@@ -142,7 +151,13 @@ __device__ __forceinline__ void add_rows(const Rows& r, float* p,
     higher &= ~__ballot_sync(kFull, rank & 1);
     rank >>= 1;
   }
-  if (r.peers != 0u && below == 0u) {
+  return r.peers != 0u && below == 0u;
+}
+
+template <int N>
+__device__ __forceinline__ void add_rows(const Rows& r, float* p,
+                                         float (&v)[N]) {
+  if (group_sum(r, v)) {
 #pragma unroll
     for (int k = 0; k < N; ++k)
       if (v[k] != 0.0f) atomicAdd(p + k, v[k]);
@@ -161,13 +176,37 @@ __device__ __forceinline__ void add_par(float* g_par, float (&gp)[kNPar]) {
 }
 
 // Gradient buffers laid out like the tables: all in shared memory in
-// kernel 2; kernel 3 points sph and tri at the global outputs.
+// kernel 2; kernel 2s points sph and tri at the global outputs past 64
+// objects. The sweeps add the sphere and triangle rows through their
+// `Adds` argument (kernel 3's HotAdds keeps its own pointers), the
+// material, light and par rows here.
 struct Grads {
   float* sph;
   float* tri;
   float* mat;
   float* lig;
   int wrt;
+};
+
+// Kernel 2's sphere and triangle row adds: add_rows into G.sph and G.tri.
+// An Adds type has these two members, each called by all 32 lanes of the
+// warp together with the lane's row (-1: none) and its cotangent words:
+// sphere words 0-3 (centre, radius), triangle words 0-15 (n_geo, c1, c2,
+// e1, e2, k) and 18-26 (vn0, vn1, vn2); and kLdg, how the sweep reads a
+// triangle row (tri_row).
+struct TableAdds {
+  static constexpr bool kLdg = false;
+  float* sph;
+  float* tri;
+  __device__ __forceinline__ void sphere(int row, float (&v)[4]) const {
+    add_rows(rows_of(row), sph + row * kSph, v);
+  }
+  __device__ __forceinline__ void triangle(int row, float (&vt)[16],
+                                           float (&vn)[9]) const {
+    const Rows r = rows_of(row);
+    add_rows(r, tri + row * kTri, vt);
+    add_rows(r, tri + row * kTri + 18, vn);
+  }
 };
 
 // One trace segment of the tape.
@@ -253,16 +292,70 @@ __device__ __forceinline__ V3 rr_adj(V3 tp, V3 gy) {
             gy.z * inv_p + gm * w12 * half(tp.z, tp.y));
 }
 
+// A triangle row's words at r: n_geo, c1, c2, e1, e2 and k (0-15), and
+// the vertex normals vn0, vn1, vn2 (18-26). kLdg: the row lies in global
+// memory, 16-byte aligned (kernel 3), and is read in 16-byte loads through
+// the read-only cache; else word by word (kernel 2's rows in shared
+// memory).
+struct TriRow {
+  V3 ng, c1, c2, e1, e2;
+  float k;
+  V3 vn0, vn1, vn2;
+};
+
+template <bool kLdg>
+__device__ __forceinline__ void tri_normals(const float* r, V3& vn0, V3& vn1,
+                                            V3& vn2) {
+  if constexpr (kLdg) {
+    const float4* r4 = reinterpret_cast<const float4*>(r);
+    const float4 a4 = __ldg(r4 + 4), a5 = __ldg(r4 + 5), a6 = __ldg(r4 + 6);
+    vn0 = mk(a4.z, a4.w, a5.x);
+    vn1 = mk(a5.y, a5.z, a5.w);
+    vn2 = mk(a6.x, a6.y, a6.z);
+  } else {
+    vn0 = ld3(r + 18);
+    vn1 = ld3(r + 21);
+    vn2 = ld3(r + 24);
+  }
+}
+
+template <bool kLdg>
+__device__ __forceinline__ TriRow tri_row(const float* r) {
+  TriRow w;
+  if constexpr (kLdg) {
+    const float4* r4 = reinterpret_cast<const float4*>(r);
+    const float4 a0 = __ldg(r4), a1 = __ldg(r4 + 1), a2 = __ldg(r4 + 2),
+                 a3 = __ldg(r4 + 3);
+    w.ng = mk(a0.x, a0.y, a0.z);
+    w.c1 = mk(a0.w, a1.x, a1.y);
+    w.c2 = mk(a1.z, a1.w, a2.x);
+    w.e1 = mk(a2.y, a2.z, a2.w);
+    w.e2 = mk(a3.x, a3.y, a3.z);
+    w.k = a3.w;
+  } else {
+    w.ng = ld3(r);
+    w.c1 = ld3(r + 3);
+    w.c2 = ld3(r + 6);
+    w.e1 = ld3(r + 9);
+    w.e2 = ld3(r + 12);
+    w.k = r[15];
+  }
+  tri_normals<kLdg>(r, w.vn0, w.vn1, w.vn2);
+  return w;
+}
+
 // Surface of a tape segment: hit point, unnormalised and unit normal.
+template <bool kLdg>
 __device__ __forceinline__ void surface(const Tables& T, const Seg& q, V3& hp,
                                         V3& nraw, V3& hn) {
   hp = q.o + q.t * q.d;
   if (q.obj < T.n_sph) {
     nraw = hp - ld3(T.sph + q.obj * kSph);
   } else {
-    const float* r = T.tri + (q.obj - T.n_sph) * kTri;
+    V3 vn0, vn1, vn2;
+    tri_normals<kLdg>(T.tri + (q.obj - T.n_sph) * kTri, vn0, vn1, vn2);
     const float alpha = 1.0f - q.beta - q.gamma;
-    nraw = alpha * ld3(r + 18) + q.beta * ld3(r + 21) + q.gamma * ld3(r + 24);
+    nraw = alpha * vn0 + q.beta * vn1 + q.gamma * vn2;
   }
   hn = normalize(nraw);
 }
@@ -280,7 +373,9 @@ struct RowGrads {
 
 // Adjoint of the closest hit of segment q: from the cotangents of the hit
 // point and unit normal to those of the segment's origin and direction,
-// and the champion row's cotangent into R (groups in `wrt`).
+// and the champion row's cotangent into R (groups in `wrt`); kLdg as
+// tri_row's.
+template <bool kLdg>
 __device__ void trace_adj(const Tables& T, const Seg& q, V3 nraw, V3 ghp,
                           V3 ghn, int wrt, V3& go, V3& gd, RowGrads& R) {
   const V3 o = q.o, d = q.d;
@@ -330,10 +425,9 @@ __device__ void trace_adj(const Tables& T, const Seg& q, V3 nraw, V3 ghp,
     return;
   }
   const int j = q.obj - T.n_sph;
-  const float* row = T.tri + j * kTri;
-  const V3 ng = ld3(row), c1 = ld3(row + 3), c2 = ld3(row + 6),
-           e1 = ld3(row + 9), e2 = ld3(row + 12);
-  const V3 vn0 = ld3(row + 18), vn1 = ld3(row + 21), vn2 = ld3(row + 24);
+  const TriRow w = tri_row<kLdg>(T.tri + j * kTri);
+  const V3 ng = w.ng, c1 = w.c1, c2 = w.c2, e1 = w.e1, e2 = w.e2;
+  const V3 vn0 = w.vn0, vn1 = w.vn1, vn2 = w.vn2;
   const float beta = q.beta, gamma = q.gamma, alpha = 1.0f - beta - gamma;
   // nraw = alpha vn0 + beta vn1 + gamma vn2, alpha = 1 - beta - gamma
   const float g0 = dot(gnr, vn0);
@@ -345,7 +439,7 @@ __device__ void trace_adj(const Tables& T, const Seg& q, V3 nraw, V3 ghp,
   const float idiv = 1.0f / div;
   const float nb = dot(e2, oxd) - dot(c2, d);
   const float ngm = dot(c1, d) - dot(e1, oxd);
-  const float nt = row[15] - dot(ng, o);
+  const float nt = w.k - dot(ng, o);
   const float gidiv = gbeta * nb + ggamma * ngm + gt * nt;
   const float gnb = gbeta * idiv, gng = ggamma * idiv, gnt = gt * idiv;
   const float gdiv = -gidiv * idiv * idiv;
@@ -461,11 +555,11 @@ __device__ void camera_adj(const float* P, const Draws& D, int col, int row,
 // Warp-uniform: every lane of the warp calls it (nseg = 0 for a lane
 // without a path) and walks segments max(nseg) - 1 ... 0 under the
 // predicate s < nseg, so all lanes reach every row add together.
-template <bool kRR>
+template <bool kRR, class Adds>
 __device__ void reverse_sweep(const Tables& T, const Draws& D, const Tape& tape,
                               int nseg, int col, int row, int samp, int spp,
                               int rr_start, V3 g, const Grads& G,
-                              float (&gp)[kNPar]) {
+                              const Adds& A, float (&gp)[kNPar]) {
   const int L = T.n_lig;
   const float eps = T.par[kEps];
   const bool geo = (G.wrt & (kWPar | kWSph | kWTri)) != 0;
@@ -479,7 +573,7 @@ __device__ void reverse_sweep(const Tables& T, const Draws& D, const Tape& tape,
     Hit hq;
     if (live) {
       q = tape.get(T, s);
-      surface(T, q, hp, nraw, hn);
+      surface<Adds::kLdg>(T, q, hp, nraw, hn);
       hq.p = hp;
       hq.n = hn;
       al = albedo(T, q.m);
@@ -586,13 +680,10 @@ __device__ void reverse_sweep(const Tables& T, const Draws& D, const Tape& tape,
     if (!geo) continue;
     RowGrads R = {};
     R.ks = R.kt = -1;
-    if (live) trace_adj(T, q, nraw, ghp, ghn, G.wrt, go_n, gd_n, R);
-    if (G.wrt & kWSph) add_rows(rows_of(R.ks), G.sph + R.ks * kSph, R.vs);
-    if (G.wrt & kWTri) {
-      const Rows r = rows_of(R.kt);
-      add_rows(r, G.tri + R.kt * kTri, R.vt);
-      add_rows(r, G.tri + R.kt * kTri + 18, R.vn);
-    }
+    if (live)
+      trace_adj<Adds::kLdg>(T, q, nraw, ghp, ghn, G.wrt, go_n, gd_n, R);
+    if (G.wrt & kWSph) A.sphere(R.ks, R.vs);
+    if (G.wrt & kWTri) A.triangle(R.kt, R.vt, R.vn);
   }
   if (nseg > 0 && (G.wrt & kWPar))
     camera_adj(T.par, D, col, row, samp, spp, go_n, gd_n, gp);
@@ -658,10 +749,11 @@ __device__ __forceinline__ DirectSlots direct_slots(const Draws& D,
 // camera chain into gp. Both clips split their cotangent at a bound as
 // jnp.clip does (clip01_d): cornell's white albedo and an unoccluded cosine
 // near 1 - ambient put rays there. Warp-uniform: every lane calls it.
+template <class Adds>
 __device__ void direct_sweep(const Tables& T, const DirectSlots& S,
                              const Seg& q, bool live, int col, int row,
                              int samp, int spp, V3 g, const Grads& G,
-                             float (&gp)[kNPar]) {
+                             const Adds& A, float (&gp)[kNPar]) {
   const int L = T.n_lig;
   const float eps = T.par[kEps], ambient = T.par[kAmbient];
   const bool geo = (G.wrt & (kWPar | kWSph | kWTri)) != 0;
@@ -669,7 +761,7 @@ __device__ void direct_sweep(const Tables& T, const DirectSlots& S,
   V3 ghp = mk(0.0f, 0.0f, 0.0f), ghn = ghp, galb = ghp;
   Hit hq;
   if (live) {
-    surface(T, q, hp, nraw, hn);
+    surface<Adds::kLdg>(T, q, hp, nraw, hn);
     hq.p = hp;
     hq.n = hn;
     al = albedo(T, q.m);
@@ -731,13 +823,9 @@ __device__ void direct_sweep(const Tables& T, const DirectSlots& S,
   RowGrads R = {};
   R.ks = R.kt = -1;
   V3 go = mk(0.0f, 0.0f, 0.0f), gd = go;
-  if (live) trace_adj(T, q, nraw, ghp, ghn, G.wrt, go, gd, R);
-  if (G.wrt & kWSph) add_rows(rows_of(R.ks), G.sph + R.ks * kSph, R.vs);
-  if (G.wrt & kWTri) {
-    const Rows r = rows_of(R.kt);
-    add_rows(r, G.tri + R.kt * kTri, R.vt);
-    add_rows(r, G.tri + R.kt * kTri + 18, R.vn);
-  }
+  if (live) trace_adj<Adds::kLdg>(T, q, nraw, ghp, ghn, G.wrt, go, gd, R);
+  if (G.wrt & kWSph) A.sphere(R.ks, R.vs);
+  if (G.wrt & kWTri) A.triangle(R.kt, R.vt, R.vn);
   if (live && (G.wrt & kWPar))
     camera_adj(T.par, S.lens(), col, row, samp, spp, go, gd, gp);
 }

@@ -109,14 +109,23 @@ _SIGNATURES = {
 _CHAMP_SIGNATURES = {
     "rt_pathtrace_bwd_champ": (ctypes.c_int, [
         _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _I,     # par, sph, tri, mat, lig
-        _VP, _VP, _VP, _I, _I,            # g, ids, occs, n_rays, ray_offset
+        _VP, _VP, _VP,                                # g, ids, occs
+        _VP, _VP, _I,                       # slot, hot, n_hot (hot rows)
+        _I, _I,                                       # n_rays, ray_offset
         _VP, _U, _U,                                  # u_planes, pass key
         _I, _I, _I, _I, _I,                # spp, width, bounces, rr, start
         _I, _I, _I,                           # direct, two_sided, normalize
         _I,                                           # diff_wrt bits
         _VP, _VP, _VP, _VP, _VP,                      # dpar .. dlig
         _VP]),                                        # stream
+    "rt_champ_hot_rows": (ctypes.c_int, [
+        _VP, _I, _I, _I,                      # ids, n_ids, n_sph, n_tri
+        _VP, _VP, _VP, _I,            # counts (scratch), slot, hot, n_hot
+        _VP]),                                        # stream
 }
+# kernel 3's hot triangle rows (csrc/megakernel_champ.cu kHot; its C
+# entries refuse a `hot` of another length)
+HOT_TRI = 16
 
 
 def _check_wrt(diff_wrt) -> tuple:
@@ -622,17 +631,142 @@ def pathtrace_pass_bwd_champ(par, ipar, sph, tri, mat, lig, g, u_planes, ids,
     return outs
 
 
+def hot_rows_reference(ids, n_sph: int, n_tri: int, k: int) -> tuple:
+    """Plain version of kernel 3's hot rows: ``slot`` (n_tri,) int32, each
+    triangle row's slot among the ``k`` triangle rows that the record
+    ``ids`` (1 + bounces, R) names most (triangle j is id n_sph + j; any
+    other id is not counted): the rank by count, ties to the lower index;
+    -1 for every other row, a row the record never names included. And
+    ``hot`` (k,) int32, each slot's row (-1: an unused slot)."""
+    flat = ids.reshape(-1).to(torch.int64) - n_sph
+    flat = flat[(flat >= 0) & (flat < n_tri)]
+    counts = torch.bincount(flat, minlength=n_tri)
+    # stable: equal counts keep the lower index first
+    top = torch.argsort(-counts, stable=True)[:k]
+    top = top[counts[top] > 0]
+    slot = torch.full((n_tri,), -1, dtype=torch.int32, device=ids.device)
+    slot[top] = torch.arange(top.numel(), dtype=torch.int32,
+                             device=ids.device)
+    hot = torch.full((k,), -1, dtype=torch.int32, device=ids.device)
+    hot[:top.numel()] = top.to(torch.int32)
+    return slot, hot
+
+
+def _hot_map(lib, ids, n_sph: int, n_tri: int) -> tuple:
+    """Kernel 3's hot rows on the card (``rt_champ_hot_rows``: a memset and
+    two launches on the current stream, no host sync): ``slot`` (n_tri,)
+    and ``hot`` (HOT_TRI,) int32, as ``hot_rows_reference`` gives them."""
+    dev = ids.device
+    if ids.data_ptr() % 16:
+        ids = ids.clone()   # the count reads 16 bytes at a time
+    counts = torch.empty((n_tri,), dtype=torch.int32, device=dev)
+    slot = torch.empty_like(counts)
+    hot = torch.empty((HOT_TRI,), dtype=torch.int32, device=dev)
+    ptr = MK._ptr
+    with torch.cuda.device(dev):
+        err = lib.rt_champ_hot_rows(
+            ptr(ids), ids.numel(), n_sph, n_tri, ptr(counts), ptr(slot),
+            ptr(hot), HOT_TRI, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"kernel 3's hot rows failed with CUDA error "
+                           f"{err}")
+    return slot, hot
+
+
+def hot_rows(ids, n_sph: int, n_tri: int) -> tuple:
+    """Kernel 3's hot triangle rows of the record ``ids`` (1 + bounces, R)
+    int32: (slot (n_tri,), hot (HOT_TRI,)) as ``hot_rows_reference`` gives
+    them for ``HOT_TRI`` rows, from the hand-written kernels of
+    ``csrc/megakernel_champ.cu`` on a CUDA tensor (no host sync), from the
+    plain version on a CPU tensor."""
+    if ids.device.type == "cpu":
+        return hot_rows_reference(ids, n_sph, n_tri, HOT_TRI)
+    _require_cuda(ids, "hot_rows")
+    if ids.dtype != torch.int32:
+        raise ValueError(f"ids must be int32 (kernel 1's record), got "
+                         f"{ids.dtype}")
+    lib = _build.load("megakernel_champ", _CHAMP_SIGNATURES, ADJ_FLAGS)
+    return _hot_map(lib, ids.contiguous(), n_sph, n_tri)
+
+
+def champ_add_count(ids, n_sph: int, n_tri: int, slot, wrt, live=None,
+                    blocks: int = 528, block: int = 128) -> dict:
+    """Plain count of kernel 3's sphere and triangle row adds on the
+    record ``ids`` (1 + bounces, R) for the groups ``wrt``, with the hot
+    triangle rows ``slot`` (n_tri,): per warp of 32 consecutive rays
+    (``live`` (R,) bool: the rays with g != 0; others add nothing) and
+    segment, the distinct rows its lanes name, each a group of the warp's
+    lanes that one lane adds for. An upper count: words that are exactly
+    zero are skipped by the kernel, and a path that ends at the emitter
+    adds nothing. Returns the groups (``sph_groups``, ``tri_groups``) and
+    the hot triangle ones (``tri_hot_groups``), the parent design's scalar
+    atomics (4 per sphere group, 25 per triangle group), the slabs' adds
+    (one per hot group), the vector reductions (1 per sphere group, 9 per
+    cold triangle group), the flushes' (per block of ``block`` rays in a
+    grid of ``blocks``: 9 per hot row the block names), and the triangle
+    champions per live ray."""
+    n_seg, n = ids.shape
+    ids = ids.to(torch.int64)
+    if live is not None:
+        ids = torch.where(live[None, :].to(ids.device), ids, -1)
+    pad = (-n) % 32
+    if pad:
+        ids = torch.cat([ids, ids.new_full((n_seg, pad), -1)], 1)
+    warps = ids.shape[1] // 32
+    out = {"rays": int(live.sum()) if live is not None else n}
+
+    def groups(lo, hi):
+        """Each (segment, warp)'s distinct rows in [lo, hi) (less lo), and
+        their warps."""
+        rows = torch.where((ids >= lo) & (ids < hi), ids - lo, -1)
+        srt = rows.reshape(n_seg, warps, 32).sort(-1).values
+        first = torch.ones_like(srt, dtype=torch.bool)
+        first[..., 1:] = srt[..., 1:] != srt[..., :-1]
+        first &= srt >= 0
+        warp = torch.arange(warps, device=ids.device)[None, :, None]
+        return int((rows >= 0).sum()), srt[first], warp.expand_as(srt)[first]
+
+    sph_champions, sph, _ = groups(0, n_sph)
+    tri_champions, tri, tri_warp = groups(n_sph, n_sph + n_tri)
+    out["tri_champions"] = tri_champions
+    sph = sph if "sph" in wrt else sph[:0]
+    hot = slot.to(ids.device)[tri].to(torch.int64) >= 0
+    if "tri" not in wrt:
+        tri, hot, tri_warp = tri[:0], hot[:0], tri_warp[:0]
+    # the kernel's grid-stride loop: ray r is in block (r // block) % blocks
+    blk = (tri_warp * 32 // block) % blocks
+    flushed = torch.unique(blk[hot] * max(n_tri, 1) + tri[hot]).numel()
+    out["sph_groups"] = int(sph.numel())
+    out["tri_groups"] = int(tri.numel())
+    out["tri_hot_groups"] = int(hot.sum())
+    out["atomics_parent"] = 4 * out["sph_groups"] + 25 * out["tri_groups"]
+    out["slab_adds"] = out["tri_hot_groups"]
+    out["vector_reds"] = out["sph_groups"] + 9 * (out["tri_groups"]
+                                                 - out["tri_hot_groups"])
+    out["flush_reds"] = 9 * flushed
+    out["adds_new"] = (out["slab_adds"] + out["vector_reds"]
+                       + out["flush_reds"])
+    out["tri_champions_per_ray"] = tri_champions / max(out["rays"], 1)
+    return out
+
+
 def _launch_champ(par, ipar, sph, tri, mat, lig, g, u_planes, ids, occs,
                   sel, *, spp: int, width: int, bounces: int,
                   two_sided: bool, normalize_emitter: bool, seed: int,
                   russian_roulette: bool, rr_start_depth: int, mode: str):
-    """Kernel 3's launch on checked CUDA tensors, uncounted: the cotangents
-    of the groups ``sel`` (no launch without any)."""
+    """Kernel 3's launch on checked CUDA tensors, uncounted: the record's
+    hot triangle rows (``_hot_map``, where the launch adds triangle rows),
+    then the cotangents of the groups ``sel`` (no launch without any)."""
     outs = tuple(torch.zeros_like(t) for t in (par, sph, tri, mat, lig))
     wrt = sum(1 << i for i, n in enumerate(DIFF_ALL) if n in sel)
     if not wrt:
         return outs
     lib = _build.load("megakernel_champ", _CHAMP_SIGNATURES, ADJ_FLAGS)
+    if tri.data_ptr() % 16:
+        tri = tri.clone()   # the kernel reads a row in 16-byte loads
+    slot = hot = None
+    if "tri" in sel and tri.shape[0]:
+        slot, hot = _hot_map(lib, ids, sph.shape[0], tri.shape[0])
     roff = int(ipar[1])
     k0, k1 = rng.pass_key_words(seed, int(ipar[0]))
     n_b, rr, direct = _c_settings(bounces, russian_roulette, mode)
@@ -642,9 +776,10 @@ def _launch_champ(par, ipar, sph, tri, mat, lig, g, u_planes, ids, occs,
         err = lib.rt_pathtrace_bwd_champ(
             ptr(par), ptr(sph), sph.shape[0], ptr(tri), tri.shape[0],
             ptr(mat), mat.shape[0], ptr(lig), lig.shape[0], ptr(g),
-            ptr(ids), ptr(occs), g.shape[0], roff, ptr(u_planes), k0, k1,
-            spp, width, n_b, rr, rr_start_depth, direct, int(two_sided),
-            int(normalize_emitter), wrt, *(ptr(t) for t in outs), stream)
+            ptr(ids), ptr(occs), ptr(slot), ptr(hot), HOT_TRI, g.shape[0],
+            roff, ptr(u_planes), k0, k1, spp, width, n_b, rr,
+            rr_start_depth, direct, int(two_sided), int(normalize_emitter),
+            wrt, *(ptr(t) for t in outs), stream)
         if err != 0:
             raise RuntimeError(f"kernel 3 launch failed with CUDA error {err}")
     return outs

@@ -105,6 +105,17 @@ records them (their sum is the kernel's time per pass), each held to the
 brute loop's results, each tree's build; then kernel 5, kernel 1's cornell
 pass and the stage passes of phases 9 (with ``torch.profiler``'s split)
 and 10, and the build's registers and spills.
+``--only champ`` times kernel 3 of each variant (sources with the
+package's C interface) in every case the main path runs it, each step's
+record and cotangent at 1024^2 b5: the torus scene's grid and streamed
+records with ("sph", "mat", "tri"), sphere_field(1024) and its roulette
+step, the sphere grid, direct mode on cornell and sphere_field(1024),
+cornell with all five groups and ``chip_smoke.py`` phase 22's two sweeps
+(``champ_cases``); beside them each variant's kernel 2 on cornell's step,
+each case's device time, ``chip_smoke.py``'s train steps that run kernel
+3 (``champ_steps``), the hot rows' build and the plain count of each
+case's adds; a parent commit from before the hot rows is timed by copying
+this file into its checkout and running it there.
 ``--sass`` dumps ``cuobjdump -sass`` of the named variants' libraries
 into ``--out`` and
 prints, per kernel, the count of each memory, atomic, warp-level and
@@ -1374,6 +1385,251 @@ def hit_only(dev, smi: str, out: Path, leaf_sizes: str,
     return 0
 
 
+# --only champ: kernel 3 in every case the main path runs it, per variant
+CHAMP_SPECS = (("megakernel", MK._SIGNATURES, ()),
+               ("megakernel", MK._SIGNATURES, MK.GRID_FLAGS),
+               ("megakernel", MK._SIGNATURES, EXACT),
+               ("megakernel", MK._SIGNATURES, EXACT + MK.GRID_FLAGS),
+               ("megakernel_champ", MKG._CHAMP_SIGNATURES, MKG.ADJ_FLAGS))
+
+
+def _sweep_record(c: Case):
+    """Row 2′'s record of ``c``'s step: kernel 1's --fmad=false build over
+    the rays with g != 0 (``MKG._record``), as the "pallas" step makes it."""
+    kw = dict(c.kw, russian_roulette=False, rr_start_depth=0, mode="path")
+    return MKG._record(c.tables[0], c.ipar, *c.tables[1:], c.g, None,
+                       grid=c.grid, chunks=c.chunks,
+                       block=c.block if c._mode() else 0, **kw)
+
+
+def champ_cases(dev) -> dict:
+    """name -> (call, wrt, ids, n_sph, n_tri, g) of every kernel-3 case:
+    rows 3g (the grid torus, shape 2; the sphere grid, shape 3) and 3s (the
+    streamed torus) on their steps' records, row 3 (sphere_field(1024)) and
+    3a (its roulette step), 3d (direct mode on cornell and on
+    sphere_field(1024)), cornell with all five groups, and row 2′'s two
+    sweeps of chip_smoke.py phase 22 (sphere_field(1024) and the streamed
+    torus, on the record of the rays with g != 0), all at SIZE^2 b5."""
+    cornell = Case(cornell_box(cols=SIZE, rows=SIZE, device=dev), dev)
+    spheres = Case(sphere_field(N_SPHERES, cols=SIZE, rows=SIZE, device=dev),
+                   dev)
+    grid = grid_cases(dev, step=True)
+    torus = stream_cases(dev)["torus"]
+    d_cornell = DirectCase(cornell_box(cols=SIZE, rows=SIZE, device=dev), dev)
+    d_spheres = DirectCase(sphere_field(N_SPHERES, cols=SIZE, rows=SIZE,
+                                        device=dev), dev)
+    _, rr_ids, rr_occs = spheres.k1(record=True, rr=True)
+
+    def case(c, ids, occs, wrt, **kw):
+        def call():
+            return MKG.pathtrace_pass_bwd_champ(
+                c.tables[0], c.ipar, *c.tables[1:], c.g, None, ids, occs,
+                diff_wrt=wrt, **{**c.kw, **kw})
+        return (call, wrt, ids, c.tables[1].shape[0], c.tables[2].shape[0],
+                c.g)
+
+    cases = {
+        "3g_grid_torus": case(grid["torus"], grid["torus"].ids,
+                              grid["torus"].occs, MESH_WRT),
+        "3s_stream_torus": case(torus, torus.ids, torus.occs, MESH_WRT),
+        "3_spheres1024": case(spheres, spheres.ids, spheres.occs, TRAIN_WRT),
+        "3a_spheres1024_rr": case(spheres, rr_ids, rr_occs, TRAIN_WRT,
+                                  **Case._rr(True)),
+        "3g_grid_spheres": case(grid["spheres"], grid["spheres"].ids,
+                                grid["spheres"].occs, TRAIN_WRT),
+        "3_cornell_all": case(cornell, cornell.ids, cornell.occs,
+                              MKG.DIFF_ALL),
+        "2p_sweep_spheres1024": case(spheres, *_sweep_record(spheres),
+                                     TRAIN_WRT),
+        "2p_sweep_stream_torus": case(torus, *_sweep_record(torus),
+                                      MESH_WRT)}
+    for name, d in (("3d_cornell", d_cornell), ("3d_spheres1024", d_spheres)):
+        cases[name] = (d.k3, TRAIN_WRT, d.ids, d.tables[1].shape[0],
+                       d.tables[2].shape[0], d.g)
+    # kernel 2 on cornell's step (it shares the sweep): must not move
+    for name, wrt in (("k2_cornell", TRAIN_WRT),
+                      ("k2_cornell_all", MKG.DIFF_ALL)):
+        cases[name] = ((lambda w=wrt: cornell.k2(cornell.g, w)), wrt, None,
+                       2, 10, cornell.g)
+    return cases
+
+
+def champ_steps(dev) -> dict:
+    """chip_smoke.py's 1024^2 b5 train steps that run kernel 3 (one pass,
+    mean(image^2), the gradients, ``_large_step``): the cell route on the
+    torus scene over its grids at block 64 (phase 18) and streamed at block
+    64 (phase 21), and on sphere_field(N_SPHERES); the "pallas" route (row
+    2′: the record, then kernel 3's sweep) on the streamed torus and
+    sphere_field(N_SPHERES) (phase 22). name -> (step, state)."""
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    out = {}
+    for name, shape, impl, block in (
+            ("cell_grid_torus", "torus-grid", "cell", 64),
+            ("cell_stream_torus", "torus", "cell", 64),
+            ("cell_spheres1024", "spheres1024", "cell", 0),
+            ("pallas_stream_torus", "torus", "pallas", 0),
+            ("pallas_spheres1024", "spheres1024", "pallas", 0)):
+        mesh = "torus" in shape
+        cfg = RenderConfig(width=SIZE, height=SIZE, bounces=BOUNCES,
+                           use_megakernel=True, use_grid=shape == "torus-grid",
+                           mega_block=block, mega_bwd_impl=impl,
+                           mega_grad_wrt=MESH_WRT if mesh else TRAIN_WRT)
+        scene = cs._large_scene(shape, SIZE, SIZE, dev)
+        step = cs._large_step(scene, cfg, dev, cs._large_params(scene, mesh))
+        state, _, _ = step(pt.init_state(cfg, dev))
+        out[name] = [step, state]
+    torch.cuda.synchronize()
+    return out
+
+
+def time_steps(steps: dict, n: int = 7) -> dict:
+    """Median host-clock ms of ``n`` synchronised steps of each."""
+    out = {}
+    for name, st in steps.items():
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            st[1], _, _ = st[0](st[1])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[f"step_{name}"] = sorted(times)[n // 2]
+    return out
+
+
+def device_ms(fn, out: Path) -> float:
+    """The device time of one call of ``fn``: the sum of its kernels'
+    durations in torch.profiler's trace (``launch_shapes``), ms."""
+    return sum(k["us"] or 0.0 for k in launch_shapes(fn, out)) / 1e3
+
+
+def champ_counts(cases: dict) -> dict:
+    """The hot rows of each case's record built on the card, held equal to
+    their plain version, and the plain count of its row adds
+    (``MKG.champ_add_count``) over the rays with g != 0; none where the
+    package has no hot rows (a parent's checkout)."""
+    if not hasattr(MKG, "hot_rows"):
+        return {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for name, (_, wrt, ids, n_s, n_t, g) in cases.items():
+        if ids is None:
+            continue
+        slot, hot = MKG.hot_rows(ids, n_s, n_t)
+        want = MKG.hot_rows_reference(ids.cpu(), n_s, n_t, MKG.HOT_TRI)
+        if not (torch.equal(slot.cpu(), want[0])
+                and torch.equal(hot.cpu(), want[1])):
+            raise SystemExit(f"{name}: the hot rows on the card differ from "
+                             f"their plain version")
+        c = MKG.champ_add_count(ids, n_s, n_t, slot, wrt,
+                                live=(g != 0).any(-1), blocks=4 * sms)
+        out[name] = c
+        print(f"  adds {name}: parent's scalar atomics {c['atomics_parent']}"
+              f", new design's {c['adds_new']} (slab {c['slab_adds']}, "
+              f"vector {c['vector_reds']}, flush {c['flush_reds']}); "
+              f"triangle champions per ray "
+              f"{c['tri_champions_per_ray']:.4g}, hot share of triangle "
+              f"groups {c['tri_hot_groups'] / max(c['tri_groups'], 1):.4g}",
+              flush=True)
+    return out
+
+
+def champ_only(dev, smi: str, out: Path, variants: list) -> int:
+    """``--only champ``: kernel 3 of each variant (``--variant``, the
+    package's csrc as "tree" when none is named; sources with the
+    package's C interface) on every case of ``champ_cases``, in turns
+    (first to last, then back), CUDA events around the wrapper (the hot
+    rows' build included), each result held to the first variant's
+    (cosine, max |d|); with each variant's kernel 2 (which shares the
+    sweep) on cornell's step, each case's device time (the sum of its
+    kernels' durations in torch.profiler's trace; the host sets the pace
+    of the short cases' wrapper calls) and the train steps of
+    ``champ_steps`` (host clock); each variant's ptxas report and its
+    launches' registers, shared memory and blocks per SM. Where the
+    package builds hot rows: their build alone per case, held to their
+    plain version, and the plain count of each case's adds; a variant
+    built with another ``kHot`` runs with ``MKG.HOT_TRI`` set to it. A
+    parent from before the hot rows is timed by copying this file into
+    its checkout and running it there."""
+    t0 = time.perf_counter()
+    _build.load_all(CHAMP_SPECS + (("megakernel_grad", MKG._SIGNATURES,
+                                    MKG.ADJ_FLAGS),))
+    variants = list(variants) or [("tree", _build.CSRC)]
+    jobs = [(label, src, name, sig, MKG.ADJ_FLAGS)
+            for label, src in variants
+            for name, sig in (("megakernel_champ", MKG._CHAMP_SIGNATURES),
+                              ("megakernel_grad", MKG._SIGNATURES))]
+    with ThreadPoolExecutor(max_workers=len(jobs)) as pool:
+        built = list(pool.map(lambda j: build(*j), jobs))
+    print(f"built {len(built)} libraries of kernels 3 and 2 in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    libs: dict = {}
+    for (label, _, name, _, _), (lib, log) in zip(jobs, built):
+        _print_ptxas(f"{label}/{name}", log)
+        libs.setdefault(label, {})[name] = lib
+    # each variant's hot rows (a timing copy may change kHot; a parent's
+    # sources from before the hot rows have none)
+    k_hot = {label: re.search(r"constexpr int kHot = (\d+);",
+                              (src / "megakernel_champ.cu").read_text())
+             for label, src in variants}
+    package_k = getattr(MKG, "HOT_TRI", None)
+    keys = {name: (name, tuple(MKG.ADJ_FLAGS))
+            for name in ("megakernel_champ", "megakernel_grad")}
+    package = {name: _build._loaded[key] for name, key in keys.items()}
+    cases = champ_cases(dev)
+    steps = champ_steps(dev)
+    results: dict = {"card": smi, "turns": [], "counts": champ_counts(cases)}
+    first: dict = {}
+    labels = list(libs)
+    hot = hasattr(MKG, "_hot_map")
+
+    def put(label):
+        for name, key in keys.items():
+            _build._loaded[key] = libs[label][name]
+        if k_hot[label]:
+            MKG.HOT_TRI = int(k_hot[label].group(1))
+
+    for order in (labels, labels[::-1]):
+        turn = {}
+        for label in order:
+            put(label)
+            row = {}
+            for name, (call, wrt, ids, n_s, n_t, _) in cases.items():
+                got = call()
+                want = first.setdefault(name, got)
+                if got is not want:
+                    print(f"  {label} {name} vs {labels[0]}: "
+                          + _agree(want, got, wrt), flush=True)
+                row[name] = time_ms(call)
+                row[f"device_{name}"] = device_ms(call, out)
+                if hot and ids is not None and n_t:
+                    lib = libs[label]["megakernel_champ"]
+                    row[f"map_{name}"] = time_ms(
+                        lambda: MKG._hot_map(lib, ids, n_s, n_t))
+            row.update(time_steps(steps))
+            turn[label] = row
+            print(f"{label}: " + ", ".join(f"{k} {v:.6g}"
+                                           for k, v in row.items()),
+                  flush=True)
+        results["turns"].append(turn)
+    shapes = {}
+    for label in labels:
+        put(label)
+        for name in ("3s_stream_torus", "3a_spheres1024_rr", "3d_cornell",
+                     "k2_cornell"):
+            shapes[f"{label} {name}"] = launch_shapes(cases[name][0], out)
+            print(f"launches {label} {name}: "
+                  f"{json.dumps(shapes[f'{label} {name}'])}", flush=True)
+    results["launches"] = shapes
+    for name, key in keys.items():
+        _build._loaded[key] = package[name]
+    if package_k is not None:
+        MKG.HOT_TRI = package_k
+    (out / "profile.json").write_text(json.dumps(results, indent=1))
+    print(f"card: [{smi}]")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variant", action="append", default=[],
@@ -1383,7 +1639,7 @@ def main(argv=None) -> int:
                     help="dump the SASS of this variant's libraries")
     ap.add_argument("--out", default=str(BUILD / "out"))
     ap.add_argument("--only", choices=("all", "soft", "stream", "grid",
-                                       "large", "hit"),
+                                       "large", "hit", "champ"),
                     default="all",
                     help="soft: build and time kernel 2s alone; stream: "
                          "kernel 1's streamed cases, kernel 2's streamed "
@@ -1392,7 +1648,8 @@ def main(argv=None) -> int:
                          "grid scenes alone; large: kernel 2 past 64 "
                          "objects and its pieces, this checkout only; hit: "
                          "kernel 4's configurations and the stage route, "
-                         "this checkout only")
+                         "this checkout only; champ: kernel 3 in every "
+                         "case of the main path, per variant")
     ap.add_argument("--leaf-sizes", default="",
                     help="with --only stream or grid: the streamed tables' "
                          "leaf sizes (MK.STREAM_LEAF) or the mesh grid "
@@ -1425,6 +1682,10 @@ def main(argv=None) -> int:
 
     if args.only == "large":
         return large_only(dev, smi, out, args.bounds)
+    if args.only == "champ":
+        return champ_only(dev, smi, out,
+                          [(label, Path(src).resolve()) for label, src in
+                           (v.split("=", 1) for v in args.variant)])
     if args.only == "hit":
         return hit_only(dev, smi, out, args.leaf_sizes,
                         [(label, Path(src).resolve()) for label, src in

@@ -1809,3 +1809,205 @@ def test_direct_ray_offset_and_blocked_brute_tables(cuda):
     assert torch.equal(mega.render_direct_mega(scene, base),
                        mega.render_direct_mega(scene, replace(base,
                                                               mega_block=4)))
+
+
+# ---------------------------------------------------------------------------
+# kernel 3's row adds: the hot rows in a slab per warp, the others as
+# vector reductions (csrc/megakernel_champ.cu HotAdds)
+# ---------------------------------------------------------------------------
+
+def _torus_record(cuda, mode="path", w=64, h=48):
+    """The streamed cornell + 992-triangle torus at w x h (b5; the roulette
+    from depth 2 with mode "rr"; one segment in direct mode): tables,
+    kernel 1's record of the pass, u-planes, a seeded random g and the
+    backward's keyword arguments."""
+    from torch_grid_scenes import cornell_torus
+    direct = mode == "direct"
+    scene = cornell_torus(w, h, 31, 16, device=cuda)
+    cfg = RenderConfig(width=w, height=h, bounces=0 if direct else 5,
+                       russian_roulette=mode == "rr", rr_start_depth=2,
+                       use_megakernel=True)
+    t = mega.scene_tables(scene, cfg)
+    chunks = mega.chunk_tables(scene, cfg, t[1], t[2])
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    z = torch.zeros((cfg.total_rays, 3), device=cuda)
+    g = torch.as_tensor(np.random.default_rng(11).normal(
+        size=(cfg.total_rays, 3)).astype(np.float32), device=cuda)
+    if direct:
+        key = MK.pass_key_of(ipar, cfg.seed)
+        u = mega.u_planes_for_direct(key, cfg, scene.lights.count, cuda)
+        _, ids, occs = MK.direct_pass(*t, z, u, key=key, spp=1, width=w,
+                                      two_sided=False, record=True,
+                                      chunks=chunks)
+        kw = dict(spp=1, width=w, bounces=0, two_sided=False,
+                  normalize_emitter=True, seed=cfg.seed, mode="direct")
+    else:
+        u = mega.u_planes_for_pass(pt.init_state(cfg, cuda)["key"], 0, cfg,
+                                   scene.lights.count, cuda)
+        kw = dict(spp=1, width=w, bounces=5, two_sided=False,
+                  normalize_emitter=True, seed=cfg.seed,
+                  russian_roulette=mode == "rr", rr_start_depth=2)
+        _, ids, occs = MK.pathtrace_pass(t[0], ipar, *t[1:], z, u,
+                                         record=True, chunks=chunks, **kw)
+    return t, ipar, ids, occs, u, g, kw, chunks
+
+
+def _hold_champ(t, ipar, ids, occs, u, g, kw, wrt=MKG.DIFF_ALL):
+    """Kernel 3 (u-planes and PRNG routes) vs its plain version on one
+    record: phase 6's gates on every group the plain version gives a
+    nonzero cotangent, exact zeros where it gives none."""
+    want = MKG.pathtrace_pass_bwd_champ_reference(t[0], ipar, *t[1:], g, u,
+                                                  ids, occs, diff_wrt=wrt,
+                                                  **kw)
+    before = MKG.champ_launches
+    for planes in (u, None):
+        got = MKG.pathtrace_pass_bwd_champ(t[0], ipar, *t[1:], g, planes,
+                                           ids, occs, diff_wrt=wrt, **kw)
+        torch.cuda.synchronize()
+        held = [(n, a, b) for n, a, b in zip(MKG.DIFF_ALL, want, got)
+                if a.numel() and n in wrt and a.abs().max() > 0]
+        for n, a, b in zip(MKG.DIFF_ALL, want, got):
+            if a.numel() and not a.abs().max() > 0:
+                assert torch.equal(b, torch.zeros_like(b)), n
+        if held:
+            names, a, b = zip(*held)
+            _gates(a, b, names=names)
+    assert MKG.champ_launches == before + 2
+
+
+def _champ_lib():
+    from raytracing_tpu_torch.ops import _build
+    return _build.load("megakernel_champ", MKG._CHAMP_SIGNATURES,
+                       MKG.ADJ_FLAGS)
+
+
+def test_hot_rows_equal_plain_version_on_the_card(cuda):
+    """The hot rows built on the card (a memset and two launches) equal the
+    plain version's for HOT_TRI rows on the torus's record, a
+    sphere_field(200) record, a record naming one row and an all-miss
+    record."""
+    t, _, ids, *_ = _torus_record(cuda)
+    n_s, n_t = t[1].shape[0], t[2].shape[0]
+    cfg = RenderConfig(width=64, height=48, bounces=2, use_megakernel=True)
+    sf = mega.scene_tables(sphere_field(200, cols=64, rows=48, device=cuda),
+                           cfg)
+    _, sf_ids, _ = _record(sf, torch.zeros((cfg.total_rays, 3),
+                                           device=cuda), None, cfg)
+    one = torch.where(ids >= 0, n_s + 3, -1).to(torch.int32)
+    miss = torch.full_like(ids, -1)
+    for rec, ns, nt in ((ids, n_s, n_t), (sf_ids, 200, 0), (one, n_s, n_t),
+                        (miss, n_s, n_t), (ids[:1], n_s, n_t)):
+        got = MKG.hot_rows(rec, ns, nt)
+        want = MKG.hot_rows_reference(rec.cpu(), ns, nt, MKG.HOT_TRI)
+        for a, b in zip(want, got):
+            assert torch.equal(a, b.cpu())
+    assert int((MKG.hot_rows(ids, n_s, n_t)[0] >= 0).sum()) == MKG.HOT_TRI
+
+
+def test_champion_kernel_hot_and_cold_rows_on_the_torus(cuda):
+    """Kernel 3 on the streamed torus's record (64x48 b5, all five groups):
+    the record names more triangle rows than the slab holds, so hot rows
+    go through the warps' slabs and the others through vector reductions;
+    phase 6's gates."""
+    t, ipar, ids, occs, u, g, kw, _ = _torus_record(cuda)
+    n_s, n_t = t[1].shape[0], t[2].shape[0]
+    named = torch.unique(ids[(ids >= n_s) & (ids < n_s + n_t)]).numel()
+    assert named > MKG.HOT_TRI
+    _hold_champ(t, ipar, ids, occs, u, g, kw)
+
+
+def test_champion_kernel_when_every_champion_is_one_row(cuda):
+    """Every recorded champion the same triangle row (the torus's record
+    with each id replaced by the back wall's): the worst contention, all of
+    it in the slab; phase 6's gates."""
+    t, ipar, ids, occs, u, g, kw, _ = _torus_record(cuda)
+    n_s = t[1].shape[0]
+    tri = ids[ids >= n_s]
+    row = int(torch.bincount(tri.long() - n_s).argmax())
+    one = torch.where(ids >= 0, n_s + row, -1).to(torch.int32).contiguous()
+    _hold_champ(t, ipar, one, occs, u, g, kw)
+
+
+def test_champion_kernel_when_every_ray_misses(cuda):
+    """An all-miss record: no hot row; the only cotangents are the
+    emitter's, as the plain version gives them, and zeros elsewhere."""
+    t, ipar, ids, occs, u, g, kw, _ = _torus_record(cuda)
+    miss = torch.full_like(ids, -1)
+    _hold_champ(t, ipar, miss, torch.zeros_like(occs), u, g, kw)
+
+
+@pytest.mark.parametrize("mode", ["rr", "direct"])
+def test_champion_kernel_hot_rows_rr_and_direct(cuda, mode):
+    """Kernel 3's roulette and direct instances on the streamed torus's
+    record, all five groups, phase 6's gates."""
+    t, ipar, ids, occs, u, g, kw, _ = _torus_record(cuda, mode)
+    _hold_champ(t, ipar, ids, occs, u, g, kw)
+
+
+def test_split_sweep_hot_rows_on_the_torus(cuda):
+    """Row 2′ on the streamed torus (64x48 b5, all five groups): kernel 2
+    past 64 objects (its record, then kernel 3's sweep with the hot rows)
+    against the plain champion backward on the split's own record."""
+    t, ipar, _, _, u, g, kw, chunks = _torus_record(cuda)
+    rec_kw = dict(kw, mode="path")
+    ids, occs = MKG._record(t[0], ipar, *t[1:], g, u, grid=None,
+                            chunks=chunks, block=0, **rec_kw)
+    want = MKG.pathtrace_pass_bwd_champ_reference(t[0], ipar, *t[1:], g, u,
+                                                  ids, occs, **kw)
+    before = MKG.large_launches
+    got = MKG.pathtrace_pass_bwd(t[0], ipar, *t[1:], g, u, chunks=chunks,
+                                 **kw)
+    torch.cuda.synchronize()
+    assert MKG.large_launches == before + 1
+    _gates(want, got)
+
+
+def test_champion_hot_rows_without_host_sync(cuda):
+    """The hot rows and kernel 3 launch with no host synchronisation (any
+    sync raises under sync debug mode "error")."""
+    t, ipar, ids, occs, _, g, kw, _ = _torus_record(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        slot, _ = MKG.hot_rows(ids, t[1].shape[0], t[2].shape[0])
+        got = MKG.pathtrace_pass_bwd_champ(t[0], ipar, *t[1:], g, None, ids,
+                                           occs, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert int((slot >= 0).sum()) == MKG.HOT_TRI
+    assert all(torch.isfinite(x).all() for x in got)
+
+
+def test_champion_kernel_refuses_misaligned_outputs(cuda):
+    """dsph or dtri off a 16-byte boundary, or a hot-row list of another
+    length than the kernel's: the C entries return cudaErrorInvalidValue
+    (1) and launch nothing; no scalar fallback."""
+    t, ipar, ids, occs, _, g, kw, _ = _torus_record(cuda)
+    lib = _champ_lib()
+    slot, hot = MKG._hot_map(lib, ids, t[1].shape[0], t[2].shape[0])
+    outs = [torch.zeros_like(x) for x in t]
+    ptr = MK._ptr
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(args, n_hot=MKG.HOT_TRI):
+        return lib.rt_pathtrace_bwd_champ(
+            ptr(t[0]), ptr(t[1]), t[1].shape[0], ptr(t[2]), t[2].shape[0],
+            ptr(t[3]), t[3].shape[0], ptr(t[4]), t[4].shape[0], ptr(g),
+            ptr(ids), ptr(occs), ptr(slot), ptr(hot), n_hot, g.shape[0], 0,
+            None, 1, 2, 1, 64, 5, 0, 0, 0, 0, 1, 31, *args, stream)
+
+    for bad in (1, 2):
+        shifted = torch.zeros(outs[bad].numel() + 1, device=cuda)[1:]
+        args = [ptr(x) for x in outs]
+        args[bad] = shifted.data_ptr()
+        assert launch(args) == 1
+        torch.cuda.synchronize()
+        assert not shifted.any()
+    assert launch([ptr(x) for x in outs], MKG.HOT_TRI + 1) == 1
+    counts = torch.empty_like(slot)
+    assert lib.rt_champ_hot_rows(
+        ptr(ids), ids.numel(), t[1].shape[0], t[2].shape[0], ptr(counts),
+        ptr(slot), ptr(hot), MKG.HOT_TRI - 1, stream) == 1
+    torch.cuda.synchronize()
+    assert not any(x.any() for x in outs)
