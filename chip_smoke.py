@@ -399,6 +399,7 @@ SOFT_CHUNK = 64            # JAX's SOFT_CHUNK: rows per span past 64
 DIRECT_W, DIRECT_H = 256, 192   # phase 23's kernel vs plain
 DIRECT_SOFT_W, DIRECT_SOFT_H = 64, 48   # kernel 2s vs plain past 64 objects
 DIRECT_STEPS = 10          # phase 23's timed train steps per route
+WALK_SPHERES = 4608        # phase 23's largest resident table (the walk)
 
 # Bounds: the least time the card could take for a kernel's work, the
 # larger of its FP32 operations over the H100's 67 TFLOP/s and its bytes
@@ -4712,7 +4713,7 @@ def _direct_bounds(tables, ids, occs, g, wrt, split: bool = False) -> dict:
               + (2 * (4 + n_l) * n if split else 0),
               "c": 12 * n + (4 + n_l) * live["rays"]
               + 2 * _table_bytes(tables)}
-    return {k: dict(_bound(ops[k], nbytes[k]),
+    return {k: dict(_bound(ops[k], nbytes[k]), bytes=nbytes[k],
                     per_ray=ops[k] / max(w["rays"] if k == "a"
                                          else live["rays"], 1))
             for k in ops}
@@ -4920,6 +4921,155 @@ def direct_diff_vs_plain(dev, name: str, wrt, spp: int = 1,
     return out
 
 
+def _tree_equal(a, b) -> bool:
+    """Two sphere trees (MK.SphereTree) element for element."""
+    import torch
+    return a.tree.leaf == b.tree.leaf and all(
+        torch.equal(x, y) for x, y in (
+            (a.rows, b.rows), (a.perm, b.perm), (a.tree.nodes, b.tree.nodes),
+            (a.tree.masks, b.tree.masks), (a.tree.loose, b.tree.loose)))
+
+
+def _walk_tables(name: str, dev) -> list:
+    """Kernel 1's tables at MAIN_W x MAIN_H spp 1 past the direct walk's
+    threshold: sphere_field(N_SPHERES) ("spheres1024"), its tie and masked
+    copy (phase 8's: spheres 0, 15, 30, ... copied to the last TIE_COPIES
+    rows, every 9th masked off) and sphere_field(WALK_SPHERES)."""
+    import torch
+    from raytracing_tpu_torch import RenderConfig
+    from raytracing_tpu_torch.models.scenes import sphere_field
+    from raytracing_tpu_torch.render import mega
+    n = WALK_SPHERES if name == "spheres4608" else N_SPHERES
+    cfg = RenderConfig(width=MAIN_W, height=MAIN_H, bounces=0,
+                       use_megakernel=True)
+    t = list(mega.scene_tables(sphere_field(n, cols=MAIN_W, rows=MAIN_H,
+                                            device=dev), cfg))
+    if name == "ties":
+        sph = t[1].clone()
+        sph[::9, 5] = 0.0
+        src = torch.arange(TIE_COPIES, device=dev) * 15
+        dst = torch.arange(N_SPHERES - TIE_COPIES, N_SPHERES, device=dev)
+        sph[dst] = sph[src]
+        sph[dst, 5] = 1.0
+        t[1] = sph
+    return t
+
+
+def direct_walk_vs_brute(dev) -> None:
+    """Phase 23 (a), the sphere tree: on each table of _walk_tables at
+    MAIN_W x MAIN_H spp 1, the build kernel's tree equal to MK.sphere_tree
+    (torch.equal), and kernel 1's walk instances (the route past
+    MK.DIRECT_SPH_BRUTE_MAX) equal to its brute ones (forced), recording
+    and not, in the default and the --fmad=false builds: acc, ids and occs
+    with torch.equal, each fatal. Card against card: no plain run."""
+    import torch
+    from raytracing_tpu_torch.core import rng
+    from raytracing_tpu_torch.ops import hit_kernels as HK
+    from raytracing_tpu_torch.ops import megakernel as MK
+    for name in ("spheres1024", "ties", "spheres4608"):
+        t = _walk_tables(name, dev)
+        _check(MK.direct_walks(t[1]), f"{name}: {t[1].shape[0]} spheres do "
+               f"not take the walk (DIRECT_SPH_BRUTE_MAX "
+               f"{MK.DIRECT_SPH_BRUTE_MAX})")
+        built = MK.sphere_tree_build(t[1], MK.DIRECT_SPH_LEAF)
+        _check(_tree_equal(built, MK.sphere_tree(t[1], MK.DIRECT_SPH_LEAF)),
+               f"{name}: the build kernel's tree differs from MK.sphere_tree")
+        n = MAIN_W * MAIN_H
+        zeros = torch.zeros((n, 3), device=dev)
+        kw = dict(key=rng.base_key(1), spp=1, width=MAIN_W, two_sided=False)
+        same = {}
+        for flags in ((), EXACT_FLAGS):
+            got = {walk: MK.direct_pass(*t, zeros.clone(), None, record=True,
+                                        build_flags=flags, sphere_walk=walk,
+                                        **kw)
+                   for walk in (None, False)}
+            acc = MK.direct_pass(*t, zeros.clone(), None, build_flags=flags,
+                                 **kw)
+            same[flags] = (all(torch.equal(a, b)
+                               for a, b in zip(got[None], got[False]))
+                           and torch.equal(acc, got[None][0]))
+            _check(same[flags], f"{name}: the walk instance differs from the "
+                   f"brute instance (build flags {flags})")
+        hits = (got[None][1] >= 0).double().mean().item()
+        print(f"phase 23 (a) sphere tree, {name} ({t[1].shape[0]} spheres) "
+              f"{MAIN_W}x{MAIN_H} spp 1: build == MK.sphere_tree True; walk "
+              f"== brute (acc, ids, occs; recording and not): default build "
+              f"{same[()]}, --fmad=false {same[EXACT_FLAGS]}; hits "
+              f"{hits:.4%}")
+
+
+def _build_device_ms(HK, MK, rows, reps: int = 20) -> float:
+    """The tree's build kernel alone, ms per launch: ``reps`` launches of
+    its C entry back to back into one tree allocated once, between CUDA
+    events (through the wrapper, its allocations and checks pace the
+    launches: ~0.06-0.1 ms of host work against ~0.04 ms of device time
+    on sphere_field(1024))."""
+    import torch
+    tree = MK.sphere_tree_build(rows, MK.DIRECT_SPH_LEAF)
+    st = tree.tree
+    lib = MK._build.load("sphere_tree", MK._TREE_SIGNATURES)
+    args = (rows.data_ptr(), rows.shape[0], st.leaf, st.n_slots,
+            MK.CHUNK_PAD, MK.LOOSE_SHARE, st.loose.shape[0],
+            tree.rows.data_ptr(), tree.perm.data_ptr(), st.nodes.data_ptr(),
+            st.masks.data_ptr(), st.loose.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _check(lib.rt_sphere_tree(*args) == 0, "rt_sphere_tree failed")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        lib.rt_sphere_tree(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _direct_walk_work(MK, tables, key, tree, live=None) -> dict:
+    """The sphere tree's walk, counted by its plain emulation
+    (``MK._walk_tree``, the kernel's lane order) over a direct pass's traces
+    and shadow rays on ``tables`` at MAIN_W x MAIN_H spp 1 with the draws
+    of ``key``, over the rays in ``live`` (all by default; the others dead,
+    as the split's record skips them): node_tests, sph_tests, ..."""
+    import torch
+    work: dict = {}
+    n = MAIN_W * MAIN_H
+    sph, tri = tables[1], tables[2]
+
+    def window(mint, maxt):
+        if live is None:
+            return mint, maxt
+        inf = torch.full_like(mint, float("inf"))
+        return torch.where(live, mint, inf), torch.where(live, maxt, inf)
+
+    def trace(o, d, mint, maxt):
+        return MK._trace(o, d, *window(mint, maxt), sph, tri, False,
+                         work=work, sph_tree=tree)
+
+    def anyhit(o, d, mint, maxt):
+        return MK._anyhit(o, d, *window(mint, maxt), sph, tri, False,
+                          work=work, sph_tree=tree)
+
+    u = MK.direct_draw_planes(key, n, tables[4].shape[0], 1, sph.device)
+    with torch.no_grad():
+        MK._direct_reference(*tables, torch.zeros((n, 3), device=sph.device),
+                             u, spp=1, width=MAIN_W, two_sided=False,
+                             trace=trace, anyhit=anyhit)
+    return work
+
+
+def _direct_walk_ops(w: dict, work: dict, n_tri: int) -> float:
+    """FP32 operations of a direct pass whose sphere loops are the tree's
+    walk (``work``: node tests at OPS_CHUNK, a slab test, and row tests at
+    OPS_SPHERE_TEST, as kernel 4's walk is priced) over the record's work
+    w; the triangles tested as _direct_ops tests them."""
+    tri = n_tri * OPS_TRIANGLE_TEST
+    return (w["rays"] * OPS_CAMERA + w["primary"] * (OPS_TRACE + tri)
+            + work.get("node_tests", 0) * OPS_CHUNK
+            + work.get("sph_tests", 0) * OPS_SPHERE_TEST
+            + w["sph_hits"] * OPS_SPHERE_HIT
+            + w["tri_hits"] * OPS_TRIANGLE_HIT
+            + w["shadow"] * OPS_DIRECT_SHADE + w["free"] * tri)
+
+
 def direct_train(dev, smi: str, name: str, route: str) -> dict:
     """Phase 23 (i)-(iii): one warm-up and DIRECT_STEPS timed SGD steps of
     direct mode at 1024^2 spp 1 through pathtrace_pass_diff(mode="direct")
@@ -4933,6 +5083,7 @@ def direct_train(dev, smi: str, name: str, route: str) -> dict:
     bound."""
     import torch
     from raytracing_tpu_torch import RenderConfig, replace
+    from raytracing_tpu_torch.ops import hit_kernels as HK
     from raytracing_tpu_torch.ops import megakernel as MK
     from raytracing_tpu_torch.ops import megakernel_grad as MKG
     from raytracing_tpu_torch.ops import megakernel_soft as MKS
@@ -4979,6 +5130,8 @@ def direct_train(dev, smi: str, name: str, route: str) -> dict:
     loss0, _ = step(0)                                   # warm-up
     torch.cuda.synchronize()
     counters = {"kernel 1 (direct)": "MK.direct_launches",
+                "kernel 1 (direct, sphere tree)": "MK.direct_walk_launches",
+                "sphere tree build": "MK.tree_build_launches",
                 "kernel 2": "MKG.launches",
                 "kernel 2 (large)": "MKG.large_launches",
                 "kernel 3": "MKG.champ_launches",
@@ -5002,6 +5155,11 @@ def direct_train(dev, smi: str, name: str, route: str) -> dict:
            "cell": "kernel 3", "soft": "kernel 2s"}[route]
     want = {k: (DIRECT_STEPS if k in ("kernel 1 (direct)", bwd) else 0)
             for k in counters}
+    # past the threshold every direct launch walks a tree, built once per
+    # step by the forward (the split's record walks the forward's)
+    walks = MK.direct_walks(mega.scene_tables(scene, cfg)[1])
+    want["kernel 1 (direct, sphere tree)"] = DIRECT_STEPS * walks
+    want["sphere tree build"] = DIRECT_STEPS * walks
     _check(got == want, f"direct {route} steps on {name}: launches {got} "
            f"(want {want})")
     losses = torch.stack([loss0] + losses)
@@ -5027,8 +5185,10 @@ def direct_train(dev, smi: str, name: str, route: str) -> dict:
     bounds = _direct_bounds(t, ids, occs, g, TRAIN_WRT,
                             split=MKG.large_route(t[1], t[2]))
     if route == "kernel2":
-        runs = {"b": lambda: MKG.pathtrace_pass_bwd(t[0], ipar, *t[1:], g,
-                                                    None, **bkw)}
+        # the split's record walks the forward's tree, as in the step
+        fwd_tree = MK.direct_tree(t[1])
+        runs = {"b": lambda: MKG.pathtrace_pass_bwd(
+            t[0], ipar, *t[1:], g, None, sph_tree=fwd_tree, **bkw)}
     elif route == "cell":
         runs = {"a": lambda: MK.direct_pass(*t, zeros.clone(), None,
                                             record=True, **fkw),
@@ -5045,6 +5205,55 @@ def direct_train(dev, smi: str, name: str, route: str) -> dict:
                                                 direct=True)))
         runs = {"d": lambda: MKS.pathtrace_pass_bwd_soft(
             t[0], ipar, *t[1:], g, None, **soft, **bkw)}
+    build = {}
+    if walks:
+        # the walk's count (of the pieces this route times) against the
+        # brute one: the bound takes the smaller; the build kernel alone
+        # against its plain version
+        tree = MK.sphere_tree(t[1], MK.DIRECT_SPH_LEAF)
+        n_l = t[4].shape[0]
+        live = (g != 0).any(-1)
+        for k in ("a", "b"):
+            if k not in runs:
+                continue
+            w = _pass_work(ids, occs, n_l, t[1].shape[0],
+                           live if k == "b" else None)
+            work = _direct_walk_work(MK, t, fkw["key"], tree,
+                                     live if k == "b" else None)
+            ops = _direct_walk_ops(w, work, t[2].shape[0])
+            if k == "b":
+                ops += _direct_adj_ops(w, TRAIN_WRT)
+            walk_b = _bound(ops, bounds[k]["bytes"])
+            brute_ms = bounds[k]["bound_ms"]
+            rays = max(w["rays"], 1)
+            print(f"  piece {k} walk count: "
+                  f"{work.get('node_tests', 0) / rays:.6g} node tests and "
+                  f"{work.get('sph_tests', 0) / rays:.6g} row tests per "
+                  f"ray; bound {walk_b['bound_ms']:.6g} ms "
+                  f"({walk_b['bound_by']}; the brute count's "
+                  f"{brute_ms:.6g} ms)")
+            if walk_b["bound_ms"] < brute_ms:
+                bounds[k].update(walk_b, per_ray=ops / rays)
+            bounds[k].update(walk_bound_ms=walk_b["bound_ms"],
+                             brute_bound_ms=brute_ms)
+        built = MK.sphere_tree_build(t[1], MK.DIRECT_SPH_LEAF)
+        _check(_tree_equal(built, tree), f"{name}: the build kernel's tree "
+               "differs from MK.sphere_tree")
+        err = max(torch.where(a == b, 0.0, (a.double() - b.double()).abs())
+                  .max().item() for a, b in (
+                      (built.rows, tree.rows), (built.perm, tree.perm),
+                      (built.tree.nodes, tree.tree.nodes)))
+        plain_ms = _timed(lambda: MK.sphere_tree(t[1], MK.DIRECT_SPH_LEAF))[1]
+        # bytes: the table read once, the tree written once; operations:
+        # per row its box (6) and code (9), per node its box (6)
+        tree_bytes = 4 * sum(x.numel() for x in (
+            t[1], tree.rows, tree.perm, tree.tree.nodes, tree.tree.masks,
+            tree.tree.loose))
+        build = {"plain_ms": plain_ms, "max_abs_err": err,
+                 **_bound(15 * t[1].shape[0] + 6 * tree.tree.nodes.shape[0],
+                          tree_bytes)}
+        runs["build"] = lambda: MK.sphere_tree_build(t[1],
+                                                     MK.DIRECT_SPH_LEAF)
     ms = {}
     for k, fn in runs.items():
         fn()
@@ -5067,6 +5276,14 @@ def direct_train(dev, smi: str, name: str, route: str) -> dict:
           f"{grads['materials'].norm().item():.6g}")
     piece = {"a": "kernel 1 recording", "b": "kernel 2", "c": "kernel 3",
              "d": "kernel 2s"}
+    if "build" in ms:
+        build["wrapper_ms"] = ms.pop("build")
+        build["ms"] = _build_device_ms(HK, MK, t[1])
+        print(f"  the sphere tree's build alone ({t[1].shape[0]} rows, one "
+              f"launch): {build['ms']:.6g} ms (its C entry back to back); "
+              f"{build['wrapper_ms']:.6g} ms per wrapper call back to back; "
+              f"plain {build['plain_ms']:.6g} ms (host, synchronised); "
+              f"bound {build['bound_ms']:.6g} ms ({build['bound_by']})")
     for k, t_ms in ms.items():
         b = bounds[k]
         print(f"  piece {k} ({piece[k]}) alone on the last step's "
@@ -5079,12 +5296,22 @@ def direct_train(dev, smi: str, name: str, route: str) -> dict:
                  if k == "d" else ""))
     launches = {"a": got["kernel 1 (direct)"], "b": got[bwd],
                 "c": got[bwd], "d": got[bwd]}
-    return {k: {"ms": v, "launches": launches[k],
-                "bound_ms": bounds[k]["bound_ms"],
-                "bound_by": bounds[k]["bound_by"],
-                **({"stats": stats,
-                    "bound_sfu_ms": bounds[k]["bound_sfu_ms"]}
-                   if k == "d" else {})} for k, v in ms.items()}
+    out = {k: {"ms": v, "launches": launches[k],
+               "bound_ms": bounds[k]["bound_ms"],
+               "bound_by": bounds[k]["bound_by"],
+               **{x: bounds[k][x] for x in ("walk_bound_ms", "brute_bound_ms")
+                  if x in bounds[k]},
+               **({"stats": stats,
+                   "bound_sfu_ms": bounds[k]["bound_sfu_ms"]}
+                  if k == "d" else {})} for k, v in ms.items()}
+    if build:
+        out["build"] = dict(build, launches=got["sphere tree build"],
+                            walk_launches=got[
+                                "kernel 1 (direct, sphere tree)"])
+        for k in out:
+            if k in ("a", "b"):
+                out[k]["build_ms"] = build["ms"]
+    return out
 
 
 def main() -> int:
@@ -5121,7 +5348,8 @@ def main() -> int:
             ("megakernel", MK._SIGNATURES, MK.GRID_FLAGS),
             ("megakernel_grad", MKG._SIGNATURES, MKG.ADJ_FLAGS),
             ("megakernel_champ", MKG._CHAMP_SIGNATURES, MKG.ADJ_FLAGS),
-            ("hit_kernels", HK._SIGNATURES, ())]
+            ("hit_kernels", HK._SIGNATURES, ()),
+            ("sphere_tree", MK._TREE_SIGNATURES, ())]
     # kernel 2s: one build per mode (path, the roulette, direct)
     libs += [("megakernel_soft", MKS._SIGNATURES, flags)
              for flags in MKS.SOFT_BUILDS]
@@ -5298,6 +5526,9 @@ def main() -> int:
            direct_diff_vs_plain(dev, "spheres", TRAIN_WRT),
            direct_diff_vs_plain(dev, "torus", MESH_WRT),
            direct_diff_vs_plain(dev, "spheres1024", TRAIN_WRT, soft=False)]
+    # past MK.DIRECT_SPH_BRUTE_MAX spheres: the tree's build and walk
+    # against MK.sphere_tree and the brute instances, card against card
+    direct_walk_vs_brute(dev)
     d23 = {k: v for route in ("kernel2", "cell", "soft")
            for k, v in direct_train(dev, smi, "cornell", route).items()}
     b23 = {k: v for route in ("kernel2", "cell")
@@ -5516,6 +5747,8 @@ def main() -> int:
                         if e is d23 else v23[i]["max_abs_err"][k]),
         "ms": e[k]["ms"], "plain_ms": v23[i]["plain_ms"][k],
         "bound_ms": e[k]["bound_ms"], "bound_by": e[k]["bound_by"],
+        **{x: e[k][x] for x in ("build_ms", "walk_bound_ms",
+                                "brute_bound_ms") if x in e[k]},
         **({"bound_sfu_ms": e[k]["bound_sfu_ms"], **e[k]["stats"]}
            if k == "d" else {}),
         "library_ms": None, "shape": f"{shape} {MAIN_W}x{MAIN_H} spp 1",
@@ -5536,17 +5769,29 @@ def main() -> int:
              "megakernel_grad.py:2039"),
             ("a", b23, 4, f"sphere_field({N_SPHERES})",
              f"sphere_field({N_SPHERES})", "direct_pass (megakernel, direct "
-             "mode recording, 8-row sphere loop)", "megakernel.cu",
-             "megakernel.py:1393"),
+             "mode recording, walking a sphere tree built by its call)",
+             "megakernel.cu", "megakernel.py:1393"),
             ("b", b23, 4, f"sphere_field({N_SPHERES})",
              f"sphere_field({N_SPHERES})", "pathtrace_pass_bwd (adjoint, "
              "direct mode past 64 objects: an uncontracted record by "
-             "kernel 1 and kernel 3's sweep)",
+             "kernel 1 walking the sphere tree, and kernel 3's sweep)",
              "megakernel_champ.cu", "megakernel_grad.py:795"),
             ("c", b23, 4, f"sphere_field({N_SPHERES})",
              f"sphere_field({N_SPHERES})", "pathtrace_pass_bwd_champ "
              "(champion adjoint, direct mode past 64 objects)",
-             "megakernel_champ.cu", "megakernel_grad.py:1031"))]}))
+             "megakernel_champ.cu", "megakernel_grad.py:1031"))] + [{
+        "name": "sphere_tree_build (the box tree over a sphere table that "
+                "kernel 1's direct mode walks, one launch per call: "
+                f"sphere_field({N_SPHERES}))",
+        "route": "cuda",
+        "source": "raytracing_tpu_torch/csrc/sphere_tree.cu",
+        "replaces": None,
+        "launches": b23["build"]["launches"],
+        "max_abs_err": b23["build"]["max_abs_err"],
+        "ms": b23["build"]["ms"], "wrapper_ms": b23["build"]["wrapper_ms"],
+        "plain_ms": b23["build"]["plain_ms"],
+        "bound_ms": b23["build"]["bound_ms"],
+        "bound_by": b23["build"]["bound_by"], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -145,6 +145,27 @@
 // loops' in any visiting order (JAX keeps the first in Morton order at an
 // exact tie). Times in PERF.md.
 //
+// A resident sphere table past ops/megakernel.py DIRECT_SPH_BRUTE_MAX rows
+// in direct mode (the kTree instances of direct_kernel, recording and not,
+// picked when rt_direct_pass is given a tree; the brute build only, so the
+// default and the --fmad=false builds carry them): the sphere loop of the
+// primary trace and of each shadow ray becomes the walk of a box tree over
+// the rows (pathtrace.cuh warp_walk: the warp's union of its lanes' walks),
+// the triangle loop after it unchanged. The tree (ops/megakernel.py
+// SphereTree: the rows Morton-sorted, leaves of one row, node boxes
+// widened by CHUNK_PAD of the rows' scale) is built from the call's own
+// rows on the card by one launch of csrc/sphere_tree.cu, since a training
+// step changes the table every step; the sorted rows and nodes are read
+// from global memory, so the spheres are not staged in shared memory. What
+// bounded the brute loop: it tested every row of the table per ray and
+// shadow ray from shared memory, 20 FP32 operations and a broadcast read
+// per sphere, near its instruction-rate ceiling; the walk tests ~80 node
+// boxes and ~2.3 rows per ray on sphere_field(1024)
+// (MK.direct_walk_reference). Each
+// visited row runs the brute loop's arithmetic and the least (t, original
+// index) pair wins, so acc, ids and occs are the brute instances' bit for
+// bit under the same build flags. Times in PERF.md §6, row 1d.
+//
 // One build holds one half of the instances: the brute ones, or, with
 // -DRT_GRID_MODE=1 (ops/megakernel.py GRID_FLAGS), grid mode's, which also
 // stream. The wrappers load the half a launch needs, so nvcc compiles the
@@ -198,6 +219,11 @@ constexpr int kMaxPasses = 64;  // pass keys carried in the parameter block
 // slower than 28-32 with spills (PERF.md §6, row 1c).
 constexpr int kCellMinBlocks = 7;
 constexpr int kGridMinBlocks = 8;
+// The sphere tree's direct instances (kTree) likewise: left free, ptxas gave
+// them 83 registers (5 blocks of 128 per SM) and sphere_field(1024)'s
+// recording walk ran 505 us against 420 at 8 blocks (61 registers, no
+// spill; PERF.md §6, row 1d)
+constexpr int kTreeMinBlocks = 8;
 constexpr int kWideSpheres = 512;  // from here the 8-row sphere loop
 
 struct Acc {
@@ -543,21 +569,27 @@ struct DirectParams {
   const float* live;  // recording: trace only these rays (skip_ray)
   int block;       // blocked layout's block edge, 0: row-major
   Grids grids;     // grid mode (kernel with kGrid)
+  Stream tree;     // the spheres' tree (kernel with kTree)
 };
 
-template <int kRows, bool kGrid, bool kStream, bool kRecord, bool kCells>
+// kTree: the resident spheres walked as a box tree (pathtrace.cuh
+// warp_walk) from global memory, not staged in shared memory.
+template <int kRows, bool kGrid, bool kStream, bool kRecord, bool kCells,
+          bool kTree = false>
 __global__ void __launch_bounds__(
-    kBlock, kGrid && !kStream ? kGridMinBlocks : 1)
+    kBlock, kTree ? kTreeMinBlocks : kGrid && !kStream ? kGridMinBlocks : 1)
     direct_kernel(const __grid_constant__ DirectParams p) {
   extern __shared__ float4 smem4[];  // 16-byte aligned
   float* smem = reinterpret_cast<float*>(smem4);
-  const Tables T = stage_launch_tables<kGrid>(
-      smem, p.par, p.sph, p.n_sph, p.tri, p.n_tri, p.mat, p.n_mat, p.lig,
-      p.n_lig, p.two_sided != 0, p.grids);
+  const int n_sph_smem =
+      kTree ? 0 : kGrid ? p.grids.sph_resident(p.n_sph) : p.n_sph;
+  Tables T = stage_launch_tables<kGrid>(
+      smem, p.par, p.sph, kTree ? 0 : p.n_sph, p.tri, p.n_tri, p.mat,
+      p.n_mat, p.lig, p.n_lig, p.two_sided != 0, p.grids);
+  T.n_sph = p.n_sph;  // triangle ids count every sphere
   uint32_t* keys = reinterpret_cast<uint32_t*>(
-      smem + tables_floats(kGrid ? p.grids.sph_resident(p.n_sph) : p.n_sph,
-                           kGrid ? p.grids.tri_start : p.n_tri, p.n_mat,
-                           p.n_lig));
+      smem + tables_floats(n_sph_smem, kGrid ? p.grids.tri_start : p.n_tri,
+                           p.n_mat, p.n_lig));
   const int n_slots = 1 + p.n_lig;
   if (p.u == nullptr) {
     for (int i = threadIdx.x; i < p.n_passes * n_slots; i += blockDim.x) {
@@ -613,7 +645,8 @@ __global__ void __launch_bounds__(
     float mint, maxt;
     camera_ray_uv(T.par, u0, u1, col, row, o, d, mint, maxt);
     Hit h;
-    trace<kRows, kGrid, kStream, kCells>(T, o, d, mint, maxt, h, &p.grids);
+    trace<kRows, kGrid, kStream, kCells, kTree>(T, o, d, mint, maxt, h,
+                                               &p.grids, &p.tree);
     if (kRecord) R.id(0, h.obj);
     if (!(h.m >= 0.0f)) {
       // no valid hit: no shadow ray, recorded unoccluded (JAX's dead
@@ -626,9 +659,8 @@ __global__ void __launch_bounds__(
     for (int li = 0; li < p.n_lig; ++li) {
       D.pair(k, 1 + li, u0, u1);
       const Shadow s = shadow_ray_uv(T, u0, u1, li, h, eps);
-      const bool occ =
-          anyhit<kRows, kGrid, kStream, kCells>(T, s.so, s.sd, 0.0f, s.dist,
-                                                &p.grids);
+      const bool occ = anyhit<kRows, kGrid, kStream, kCells, kTree>(
+          T, s.so, s.sd, 0.0f, s.dist, &p.grids, &p.tree);
       if (kRecord) R.occ(li, occ);
       const float cosx = fminf(fmaxf(dot(s.sd, h.n), 0.0f), 1.0f);
       const float shade =
@@ -645,17 +677,20 @@ __global__ void __launch_bounds__(
 
 // direct_kernel's instance for a launch: the 8-row sphere loop from
 // kWideSpheres resident spheres, the streamed instance when a stream is
-// passed, the cell walk's when a triangle grid is (grid-mode build only).
+// passed, the cell walk's when a triangle grid is (grid-mode build only),
+// the sphere tree's when a tree is passed (brute build only).
 using DirectKernel = void (*)(DirectParams);
 
 template <bool kRecord, bool kCells>
-DirectKernel direct_instance(bool wide, bool streamed) {
+DirectKernel direct_instance(bool wide, bool streamed, bool tree) {
 #if RT_GRID_MODE
+  (void)tree;
   if (streamed) return direct_kernel<2, true, true, kRecord, kCells>;
   return wide ? direct_kernel<8, true, false, kRecord, kCells>
               : direct_kernel<2, true, false, kRecord, kCells>;
 #else
   (void)streamed;
+  if (tree) return direct_kernel<2, false, false, kRecord, false, true>;
   return wide ? direct_kernel<8, false, false, kRecord, false>
               : direct_kernel<2, false, false, kRecord, false>;
 #endif
@@ -770,9 +805,14 @@ extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
 // pass) when per_pass != 0, by the key itself otherwise (a call of one
 // pass). Non-null `ids` (1, n_rays) (and `occs` (n_lig, n_rays) when n_lig
 // > 0) record the primary champion and the occlusion bits of a one-pass
-// launch; `live`, grid_mode and block as rt_pathtrace_pass. Launches on
-// `stream`, allocates nothing, does not synchronise; returns
-// cudaGetLastError() after the launch.
+// launch; `live`, grid_mode and block as rt_pathtrace_pass. A non-null
+// `tree` (a HOST descriptor of the spheres' SphereTree, ops/megakernel.py:
+// n sorted rows in whole leaves of up to 32 that hold the n_sph rows, the
+// walk's layout over them) runs the kTree instances, which walk it in place
+// of the sphere loop (the brute build only; a malformed tree returns
+// cudaErrorInvalidValue, launching nothing). Launches on `stream`,
+// allocates nothing, does not synchronise; returns cudaGetLastError() after
+// the launch.
 extern "C" int rt_direct_pass(const float* par, const float* sph, int n_sph,
                               const float* tri, int n_tri, const float* mat,
                               int n_mat, const float* lig, int n_lig,
@@ -784,13 +824,16 @@ extern "C" int rt_direct_pass(const float* par, const float* sph, int n_sph,
                               int grid_mode,
                               const GridDesc* grids, int n_grids,
                               int sph_grid, int tri_start,
-                              const Stream* streams, int block,
-                              void* stream) {
+                              const Stream* streams, const Stream* tree,
+                              int block, void* stream) {
   DirectParams p;
   if (n_passes < 1 || n_passes > kMaxPasses || first_pass < 0 || block < 0 ||
       (grid_mode != 0) != kGridBuild || (block && !grid_mode) ||
       (ids && n_passes != 1) || (!ids && (occs || live)) ||
       (ids && n_lig > 0 && !occs) ||
+      (tree && (kGridBuild || n_sph < 1 || !stream_ok(*tree) ||
+                tree->leaf > kCellLeafMax || tree->n < n_sph ||
+                tree->n % tree->leaf || tree->n - n_sph >= tree->leaf)) ||
       !set_grids(p.grids, grids, grid_mode ? n_grids : 0,
                  grid_mode ? sph_grid : 0, grid_mode ? tri_start : n_tri,
                  grid_mode ? streams : nullptr, sph, n_sph, n_tri))
@@ -821,9 +864,10 @@ extern "C" int rt_direct_pass(const float* par, const float* sph, int n_sph,
   p.occs = occs;
   p.live = live;
   p.block = block;
-  // the tables (in grid mode the brute prefix), then the slot keys of the
-  // launch's passes
-  const int n_sph_smem = p.grids.sph_resident(n_sph);
+  p.tree = tree ? *tree : Stream{};
+  // the tables (in grid mode the brute prefix; the spheres unless walked as
+  // a tree), then the slot keys of the launch's passes
+  const int n_sph_smem = tree ? 0 : p.grids.sph_resident(n_sph);
   const size_t smem =
       sizeof(float) *
           tables_floats(n_sph_smem, p.grids.tri_start, n_mat, n_lig) +
@@ -831,11 +875,12 @@ extern "C" int rt_direct_pass(const float* par, const float* sph, int n_sph,
   const bool wide = n_sph_smem >= kWideSpheres;
   const bool streamed = p.grids.tri_st.n || p.grids.sph_st.n;
   const bool cells = p.grids.n_tri > 0;
+  const bool walk = tree != nullptr;
   const DirectKernel kernel =
-      ids ? (cells ? direct_instance<true, true>(wide, streamed)
-                   : direct_instance<true, false>(wide, streamed))
-          : (cells ? direct_instance<false, true>(wide, streamed)
-                   : direct_instance<false, false>(wide, streamed));
+      ids ? (cells ? direct_instance<true, true>(wide, streamed, walk)
+                   : direct_instance<true, false>(wide, streamed, walk))
+          : (cells ? direct_instance<false, true>(wide, streamed, walk)
+                   : direct_instance<false, false>(wide, streamed, walk));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

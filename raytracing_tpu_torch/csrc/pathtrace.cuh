@@ -449,6 +449,18 @@ __device__ __forceinline__ bool warp_walk(const Stream& S, V3 o, V3 inv,
                    });
 }
 
+// A resident sphere table walked as a box tree (kernel 1's direct mode past
+// ops/megakernel.py DIRECT_SPH_BRUTE_MAX rows, the kTree instances of trace
+// and anyhit): S is the table's tree (ops/megakernel.py SphereTree, built
+// on the card each call by csrc/sphere_tree.cu), its rows Morton-sorted in
+// global memory, which L2 holds (sphere_field(1024)'s rows and nodes take
+// 96 KB). The warp walks the union of its lanes' trees (warp_walk), as the
+// streamed spheres do. Each lane's own walk (lane_walk) was timed on direct
+// mode's camera and shadow rays at 8 blocks per SM: as fast on
+// sphere_field(1024) (recording 0.462-0.463 against 0.459-0.461 ms), 2-4%
+// faster at 224-512 spheres, 17% slower at 4,608 (1.088 against 0.926 ms;
+// PERF.md section 6, row 1d).
+
 // The walk of one ray's live window [mint, maxt] through grid g, cell by
 // cell in order (Amanatides-Woo, as the reference's Assign07 marches):
 // visit(cell) tests the cell's items over the whole window and returns
@@ -825,10 +837,19 @@ __device__ __forceinline__ bool sph_occludes(const float* s, V3 o, V3 d,
 // walk visits leaves in another order than the brute loop's rows and the
 // Morton chunks, which changes no champion: the least (t, original id)
 // pair wins.
+//
+// A resident sphere table walked as a tree (kTree, S its SphereTree; the
+// instances without it keep their code): the warp's walk (warp_walk) takes
+// the place of the sphere loop, culled at the live window [mint, min(maxt,
+// champion t)], each visited row in the brute loop's arithmetic, the least
+// (t, original index) winning, so the champion is the brute loop's; the
+// triangle loop runs after it unchanged (a triangle at a sphere's t still
+// loses).
 template <int kRows = 2, bool kGrid = false, bool kStream = false,
-          bool kCells = kGrid>
+          bool kCells = kGrid, bool kTree = false>
 __device__ float trace(const Tables& T, V3 o, V3 d, float mint, float maxt,
-                       Hit& h, const Grids* G = nullptr) {
+                       Hit& h, const Grids* G = nullptr,
+                       const Stream* S = nullptr) {
   float bt = inf_f();
   V3 bn = mk(0.0f, 0.0f, 0.0f);
   float bm = -1.0f;
@@ -850,7 +871,42 @@ __device__ float trace(const Tables& T, V3 o, V3 d, float mint, float maxt,
         bbeta = far ? 1.0f : 0.0f;
       }
     };
-    const int ns = kGrid ? G->sph_resident(T.n_sph) : T.n_sph;
+    if constexpr (kTree) {
+      // the tree's rows in the brute loop's arithmetic; a row's original
+      // index and mask are read only for a candidate that reaches the
+      // champion's t, and the least (t, index) pair wins
+      Champ c = {bt, bn, bm, bobj, bbeta, bgamma};
+      auto take = [&](int r) {
+        const float* s = S->rows + static_cast<size_t>(r) * kSph;
+        float b, t;
+        bool far;
+        const float dis = sphere_dis(s, o, d, a, b);
+        if (dis >= 0.0f && sphere_root(b, dis, inv2a, mint, maxt, t, far) &&
+            t <= c.t) {
+          const int j = __ldg(S->perm + r);
+          if ((t < c.t || j < c.obj) && s[5] > 0.0f) {
+            c.t = t;
+            c.n = normalize(o + t * d - ld3(s));
+            c.m = s[4];
+            c.obj = j;
+            c.beta = far ? 1.0f : 0.0f;
+          }
+        }
+        return false;
+      };
+      warp_walk(*S, o, safe_inv(d), mint,
+                [&]() { return fminf(maxt, c.t); }, take,
+                [&](int r0, unsigned m) {
+                  for (; m; m &= m - 1u) take(r0 + __ffs(m) - 1);
+                  return false;
+                });
+      bt = c.t;
+      bn = c.n;
+      bm = c.m;
+      bobj = c.obj;
+      bbeta = c.beta;
+    }
+    const int ns = kTree ? 0 : kGrid ? G->sph_resident(T.n_sph) : T.n_sph;
     int i = 0;
     for (; i + kRows <= ns; i += kRows) {
       float b[kRows], dis[kRows];
@@ -989,14 +1045,15 @@ __device__ float trace(const Tables& T, V3 o, V3 d, float mint, float maxt,
 }
 
 // Occlusion of the segment [mint, maxt]; stops at the first hit. Spheres
-// kRows at a time and masks as in trace.
+// kRows at a time and masks as in trace (kTree: the tree's walk instead,
+// stopping at its first occluder).
 // Grid mode (kGrid): the prefix as in trace, then the streamed tables
 // (kStream; trace's walk over [mint, maxt]) and the grids' walks, each
 // stopping at its first occluder.
 template <int kRows = 2, bool kGrid = false, bool kStream = false,
-          bool kCells = kGrid>
+          bool kCells = kGrid, bool kTree = false>
 __device__ bool anyhit(const Tables& T, V3 o, V3 d, float mint, float maxt,
-                       const Grids* G = nullptr) {
+                       const Grids* G = nullptr, const Stream* S = nullptr) {
   if (mint == maxt) return false;
   const float a = dot(d, d);
   const float inv2a = 0.5f / a;
@@ -1006,7 +1063,25 @@ __device__ bool anyhit(const Tables& T, V3 o, V3 d, float mint, float maxt,
     return sphere_root(b, dis, inv2a, mint, maxt, t, far) &&
            T.sph[i * kSph + 5] > 0.0f;
   };
-  const int ns = kGrid ? G->sph_resident(T.n_sph) : T.n_sph;
+  if constexpr (kTree) {
+    // trace's walk over [mint, maxt], stopping at the first occluder
+    auto occludes = [&](int r) {
+      const float* s = S->rows + static_cast<size_t>(r) * kSph;
+      float b, t;
+      bool far;
+      const float dis = sphere_dis(s, o, d, a, b);
+      return dis >= 0.0f && sphere_root(b, dis, inv2a, mint, maxt, t, far) &&
+             s[5] > 0.0f;
+    };
+    if (warp_walk(*S, o, safe_inv(d), mint, [&]() { return maxt; }, occludes,
+                  [&](int r0, unsigned m) {
+                    for (; m; m &= m - 1u)
+                      if (occludes(r0 + __ffs(m) - 1)) return true;
+                    return false;
+                  }))
+      return true;
+  }
+  const int ns = kTree ? 0 : kGrid ? G->sph_resident(T.n_sph) : T.n_sph;
   int i = 0;
   for (; i + kRows <= ns; i += kRows) {
     float b[kRows], dis[kRows];

@@ -28,8 +28,10 @@ Three layers per object type:
 Kernel 4 has two instances, picked by the table's size alone: up to
 ``SPHERE_BRUTE_MAX`` rows every live ray tests every row (the brute
 loop); past it each ray walks a box tree over the rows (``sphere_tree``:
-``SphereTree``, JAX's Morton order and ``MK.box_tree``'s layout, built on
-the device with no host synchronisation; the stage pass builds it once
+``MK.sphere_tree``'s ``SphereTree``, JAX's Morton order and
+``MK.box_tree``'s layout, built on the device with no host
+synchronisation, the layout kernel 1's direct mode walks too; the stage
+pass builds it once
 per pass, ``render/stages.hit_tables``), counted in
 ``sphere_tree_launches`` as well. Both give the brute loop's (t, idx)
 bit for bit; ``sphere_walk_reference`` is the plain version of the walk,
@@ -44,7 +46,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import NamedTuple
 
 import torch
 
@@ -52,6 +53,7 @@ from ..core.types import cross3, dot3
 from . import _build
 from . import intersect as I
 from . import megakernel as MK
+from .megakernel import SphereTree
 
 INF = math.inf
 SPH_ROW, TRI_ROW = 8, 20
@@ -137,50 +139,10 @@ def triangle_search_reference(o, d, mint, maxt, rows, two_sided: bool
 # kernel 4's box tree
 # ---------------------------------------------------------------------------
 
-class SphereTree(NamedTuple):
-    """Kernel 4's walk over a sphere table of S rows (``sphere_tree``):
-    ``rows`` (N, 8) float32, the rows in the stable order of their centres'
-    Morton codes, padded with zero rows to N, whole leaves; ``perm`` (N,)
-    int32, the original row of each sorted row, -1 for padding; ``tree``
-    the walk's layout over the sorted rows (``MK.StreamTree``: node boxes
-    of an implicit binary tree, leaf masks naming the masked-on rows,
-    loose rows)."""
-    rows: torch.Tensor
-    perm: torch.Tensor
-    tree: MK.StreamTree
-
-
 def sphere_tree(rows: torch.Tensor, leaf: int | None = None) -> SphereTree:
-    """The box tree of the packed sphere rows ``rows`` (S >= 1, 8) over
-    leaves of ``leaf`` rows (``SPHERE_LEAF``), on their device, with no host
-    synchronisation. Needs no scene: a masked-on row's box is centre -/+
-    |radius|, and the rows' own box (over those boxes) gives the Morton
-    codes' frame, the loose rule's room (its longest side) and the pad's
-    scale (its largest coordinate): every box is widened by ``MK.CHUNK_PAD``
-    of it, as kernel 1's streamed trees are by the scene's. Masked-off rows
-    take part in no box, mask or loose list."""
-    leaf = SPHERE_LEAF if leaf is None else leaf
-    with torch.no_grad():
-        rows = rows.detach()
-        s, dev = rows.shape[0], rows.device
-        n = -(-s // leaf) * leaf
-        cen, rad = rows[:, 0:3], rows[:, 3:4].abs()
-        on = rows[:, 5:6] > 0.0
-        lo = torch.where(on, cen - rad, INF)
-        hi = torch.where(on, cen + rad, -INF)
-        pmin, pmax = lo.amin(0), hi.amax(0)
-        order = torch.argsort(MK.morton_codes(cen, pmin, pmax), stable=True)
-        pad = n - s
-        inf = torch.full((pad, 3), INF, device=dev)
-        srows = torch.cat([rows[order], rows.new_zeros((pad, SPH_ROW))])
-        perm = torch.cat([order.to(torch.int32),
-                          torch.full((pad,), -1, dtype=torch.int32,
-                                     device=dev)])
-        lo, hi = torch.cat([lo[order], inf]), torch.cat([hi[order], -inf])
-        scale = torch.where(on, cen.abs() + rad, 0.0).amax()
-        tree = MK.box_tree(lo, hi, (perm >= 0) & (lo <= hi).all(1), leaf,
-                           MK.CHUNK_PAD * scale, (pmax - pmin).amax())
-    return SphereTree(rows=srows.contiguous(), perm=perm, tree=tree)
+    """Kernel 4's tree of the packed sphere rows: ``MK.sphere_tree`` over
+    leaves of ``leaf`` rows (``SPHERE_LEAF``)."""
+    return MK.sphere_tree(rows, SPHERE_LEAF if leaf is None else leaf)
 
 
 def sphere_walk_reference(o, d, mint, maxt, tree: SphereTree,
@@ -197,8 +159,7 @@ def sphere_walk_reference(o, d, mint, maxt, tree: SphereTree,
     n = o.shape[0]
     a = dot3(d, d)
     inv2a = torch.full_like(a, 0.5) / a
-    st = MK.Stream(rows=tree.rows, boxes=tree.rows[:0], perm=tree.perm,
-                   tree=tree.tree)
+    st = MK._tree_stream(tree)
     champ = (torch.full((n,), INF, device=o.device),
              torch.full((n,), -1, dtype=torch.int64, device=o.device))
     out = {} if work is None else work

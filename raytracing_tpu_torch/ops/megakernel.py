@@ -102,7 +102,17 @@ li light li), or without u-planes those the stage route's ``render_direct``
 draws (``direct_draw_planes``), which the kernel makes in-kernel bit for
 bit. ``record=True`` (one pass) records JAX's one segment
 (``megakernel.py:1642-1644``): ``ids`` (1, R), the primary champion, and
-``occs`` (L, R), one occlusion bit per light.
+``occs`` (L, R), one occlusion bit per light. Past ``DIRECT_SPH_BRUTE_MAX``
+resident spheres (no grid, no streamed table; ``direct_walks``) the kernel
+walks a box tree over the spheres instead of looping over them: the
+wrapper builds the table's ``SphereTree`` on the card every call
+(``sphere_tree_build``, leaves of ``DIRECT_SPH_LEAF`` rows) and
+launches the tree instances, which test each visited row in the brute
+loop's arithmetic and keep the least (t, original index) pair, so ``acc``,
+``ids`` and ``occs`` are the brute instances' bit for bit under the same
+build flags. On CPU tensors ``direct_pass`` runs the brute plain version;
+``direct_walk_reference`` is the plain version of the walk, which also
+counts it.
 """
 from __future__ import annotations
 
@@ -175,8 +185,24 @@ GRID_FLAGS = ("-DRT_GRID_MODE=1",)
 # few GB at 146 triangles per cell)
 PLAIN_GRID_CHUNK = 1 << 17
 
+# direct mode over resident spheres: past DIRECT_SPH_BRUTE_MAX rows the
+# kernel walks a box tree over leaves of DIRECT_SPH_LEAF rows. Timed on one
+# H100 (PERF.md section 6, row 1d; profile_kernels --only direct, 1024^2
+# spp 1): the brute loop is faster at 128 spheres (16-pass launches 0.157
+# against 0.163-0.165 ms per pass), the walk from 160 on (0.184-0.185
+# against 0.196)
+DIRECT_SPH_BRUTE_MAX = 128
+DIRECT_SPH_LEAF = 1
+# a sphere row's floats; the tree's build kernel (csrc/sphere_tree.cu) is
+# one block per table, so at most TREE_BUILD_MAX rows (its sort keys' row
+# bits)
+SPH_COLS = 8
+TREE_BUILD_MAX = 8192
+
 launches = 0          # path mode (csrc/megakernel.cu pathtrace_kernel)
 direct_launches = 0   # direct mode (csrc/megakernel.cu direct_kernel)
+direct_walk_launches = 0  # of direct_launches, the sphere tree's instances
+tree_build_launches = 0   # sphere_tree_build's kernel
 # the launches of either mode that streamed a table (counted in the two
 # above as well)
 stream_launches = 0
@@ -1056,8 +1082,15 @@ def _brute_counts(sph, tri, grid, chunks) -> tuple[int, int]:
     return n_bs, n_bt
 
 
+def _tree_stream(sph_tree) -> Stream:
+    """A sphere tree (``SphereTree``) as the stream ``_walk_tree``
+    walks."""
+    return Stream(rows=sph_tree.rows, boxes=sph_tree.rows[:0],
+                  perm=sph_tree.perm, tree=sph_tree.tree)
+
+
 def _trace(o, d, mint, maxt, sph, tri, two_sided, grid=None, work=None,
-           chunks=None):
+           chunks=None, sph_tree=None):
     """Closest hit over spheres then triangles (champion loops with a
     strict ``t < best``). Returns (new maxt, hit point, shading normal,
     material id as float (-1 on a miss), champion (sphere i, n_sph +
@@ -1065,7 +1098,10 @@ def _trace(o, d, mint, maxt, sph, tri, two_sided, grid=None, work=None,
     brute prefix and the grids' walks the rest (``_grid_closest``);
     ``work`` (a dict) then sums the walks' work (``_add_walk_work``). With
     ``chunks`` the streamed tables are read chunk by chunk
-    (``_stream_closest``; ``work`` sums ``_add_stream_work``)."""
+    (``_stream_closest``; ``work`` sums ``_add_stream_work``). With
+    ``sph_tree`` (a ``SphereTree`` of ``sph``) the sphere loop is the
+    walk of the tree in the kernel's order (``_walk_tree``; ``work`` sums
+    its counts), with the loop's champion."""
     n = o.shape[0]
     alive = mint != maxt
     a = dot3(d, d)
@@ -1077,6 +1113,17 @@ def _trace(o, d, mint, maxt, sph, tri, two_sided, grid=None, work=None,
     bm = torch.full((n,), -1.0, dtype=o.dtype, device=o.device)
     bo = torch.full((n,), -1, dtype=torch.int64, device=o.device)
     n_bs, n_bt = _brute_counts(sph, tri, grid, chunks)
+    if sph_tree is not None:
+        n_bs = 0
+        bt, bo = _walk_tree("sph", _tree_stream(sph_tree), o, d, a, inv2a,
+                            None, mint, maxt, False, 0, True, (bt, bo),
+                            {} if work is None else work, 32)
+        found = bo >= 0
+        row = sph[bo.clamp(min=0)]
+        ts = torch.where(found, bt, 0.0)
+        hn = safe_normalize(o + ts[:, None] * d - row[:, 0:3])
+        bn = torch.where(found[:, None], hn, bn)
+        bm = torch.where(found, row[:, 4], bm)
     for i in range(n_bs):
         row = sph[i]
         ok, t = I.sphere_hit(o, d, a, inv2a, mint, maxt, row)
@@ -1118,15 +1165,21 @@ def _trace(o, d, mint, maxt, sph, tri, two_sided, grid=None, work=None,
 
 
 def _anyhit(o, d, mint, maxt, sph, tri, two_sided, grid=None, work=None,
-            chunks=None):
+            chunks=None, sph_tree=None):
     """Occlusion of the segments [mint, maxt] by any object (with ``grid``
     the brute prefix, then ``_grid_occluded``; with ``chunks`` the streamed
-    tables, ``_stream_occluded``)."""
+    tables, ``_stream_occluded``; with ``sph_tree`` the spheres by the
+    tree's walk, as ``_trace``)."""
     alive = mint != maxt
     a = dot3(d, d)
     inv2a = 0.5 / a
     occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
     n_bs, n_bt = _brute_counts(sph, tri, grid, chunks)
+    if sph_tree is not None:
+        n_bs = 0
+        occ = _walk_tree("sph", _tree_stream(sph_tree), o, d, a, inv2a, None,
+                         mint, maxt, False, 0, False, occ,
+                         {} if work is None else work, 32)
     for i in range(n_bs):
         occ = occ | I.sphere_hit(o, d, a, inv2a, mint, maxt, sph[i])[0]
     oxd = cross3(o, d)
@@ -1353,19 +1406,20 @@ def pathtrace_pass_reference(par, ipar, sph, tri, mat, lig, acc, u_planes,
 def _direct_reference(par, sph, tri, mat, lig, acc, u, ray_offset: int = 0,
                       *, spp: int, width: int, two_sided: bool, grid=None,
                       work=None, chunks=None, trace=None, anyhit=None,
-                      record=None) -> torch.Tensor:
+                      record=None, sph_tree=None) -> torch.Tensor:
     """One pass of ``_render_pass_kernel`` in direct mode over rays
     ``[ray_offset, ray_offset + R)``; returns the new accumulator.
     ``trace``, ``anyhit`` and ``record`` as ``_pass_reference``'s: the
-    record gets the primary champions and one occlusion bit per light."""
+    record gets the primary champions and one occlusion bit per light;
+    ``sph_tree`` as ``_trace``'s."""
     if trace is None:
         def trace(o, d, mint, maxt):
             return _trace(o, d, mint, maxt, sph, tri, two_sided, grid, work,
-                          chunks)
+                          chunks, sph_tree)
     if anyhit is None:
         def anyhit(o, d, mint, maxt):
             return _anyhit(o, d, mint, maxt, sph, tri, two_sided, grid, work,
-                           chunks)
+                           chunks, sph_tree)
     o, d, mint, maxt = _camera_rays(par, u[0:2].t(), acc.shape[0],
                                     ray_offset, spp, width)
     _, hp, hn, matf, obj = trace(o, d, mint, maxt)
@@ -1398,16 +1452,20 @@ def direct_pass_reference(par, sph, tri, mat, lig, acc, u_planes, *,
                           key: torch.Tensor, spp: int, width: int,
                           two_sided: bool, n_passes: int = 1, grid=None,
                           work=None, chunks=None, ray_offset: int = 0,
-                          record: bool = False):
+                          record: bool = False, sph_tree=None):
     """The plain version of ``direct_pass`` on any device; returns a new
     accumulator, or ``(acc, ids, occs)`` with ``record=True`` (one pass:
     ``ids`` (1, R) int32 the primary champions, ``occs`` (L, R) bool the
     occlusion bits, JAX's one recorded segment). Pass p reads ``u_planes``
     or, without them, the draws of ``direct_draw_planes`` keyed by ``key``
     (one pass) or ``pass_key(key, p)``. ``grid``, ``chunks``, ``work`` and
-    ``ray_offset`` as ``pathtrace_pass_reference``."""
+    ``ray_offset`` as ``pathtrace_pass_reference``; ``sph_tree`` walks the
+    spheres as ``direct_walk_reference`` says."""
     if record and n_passes != 1:
         raise ValueError("champion recording is single-pass")
+    if sph_tree is not None and (grid is not None or chunks is not None):
+        raise ValueError("a sphere tree walks resident spheres: no grid, "
+                         "no streamed tables")
     rec = {"ids": [], "occs": []} if record else None
     for p in range(n_passes):
         u = u_planes
@@ -1418,13 +1476,39 @@ def direct_pass_reference(par, sph, tri, mat, lig, acc, u_planes, *,
         acc = _direct_reference(par, sph, tri, mat, lig, acc, u, ray_offset,
                                 spp=spp, width=width, two_sided=two_sided,
                                 grid=grid, work=work, chunks=chunks,
-                                record=rec)
+                                record=rec, sph_tree=sph_tree)
     if not record:
         return acc
     occs = (torch.stack(rec["occs"]) if rec["occs"] else
             torch.zeros((0, acc.shape[0]), dtype=torch.bool,
                         device=acc.device))
     return acc, torch.stack(rec["ids"]).to(torch.int32), occs
+
+
+def direct_walk_reference(par, sph, tri, mat, lig, acc, u_planes, *,
+                          key: torch.Tensor, spp: int, width: int,
+                          two_sided: bool, n_passes: int = 1,
+                          ray_offset: int = 0, record: bool = False,
+                          tree=None, work: dict | None = None):
+    """The plain version of kernel 1's direct mode over a sphere tree (its
+    kTree instances): ``direct_pass_reference`` with each trace's and shadow
+    ray's sphere loop replaced by the walk of ``tree`` (an
+    ``SphereTree`` of ``sph``; ``sphere_tree(sph, DIRECT_SPH_LEAF)``
+    when None) in the kernel's lane order and arithmetic (``_walk_tree``:
+    the loose rows, then nearest child first, culled at the champion's t,
+    the least (t, original index) winning; a shadow ray stops at its first
+    occluder), the triangles after it. Returns what
+    ``direct_pass_reference`` returns, equal to it exactly; ``work`` gets
+    the walk's counts summed over every trace and shadow ray
+    (``node_tests``, ``leaf_visits``, ``sph_tests``, ``loose_tests``,
+    ``union_leaves``, ``union_sph_tests``)."""
+    if tree is None:
+        tree = sphere_tree(sph, DIRECT_SPH_LEAF)
+    return direct_pass_reference(
+        par, sph, tri, mat, lig, acc, u_planes, key=key, spp=spp,
+        width=width, two_sided=two_sided, n_passes=n_passes,
+        ray_offset=ray_offset, record=record, sph_tree=tree,
+        work={} if work is None else work)
 
 
 def pass_key_of(ipar, seed: int) -> torch.Tensor:
@@ -1470,7 +1554,7 @@ _SIGNATURES = {
         _I, _I, _I,                                   # spp, width, two_sided
         _VP, _VP, _VP,                       # ids, occs, live (record)
         _I, _VP, _I, _I, _I,        # grid, grids, n_grids, sph grid, start,
-        _VP, _I,                                      # streams, block
+        _VP, _VP, _I,                          # streams, sphere tree, block
         _VP]),                                        # stream
 }
 
@@ -1640,11 +1724,12 @@ def box_tree(lo: torch.Tensor, hi: torch.Tensor, take: torch.Tensor,
     [lo, hi] (N, 3) (+inf / -inf: none), of which ``take`` (N,) take part,
     N a multiple of ``leaf``; on their device, with no host
     synchronisation (``render/mega.chunk_tree`` and
-    ``ops/hit_kernels.sphere_tree`` build on it).
+    ``sphere_tree`` build on it).
 
     * Loose rows: a row that takes part and whose box's longest side is at
       least ``LOOSE_SHARE`` of ``room`` (a wall of a room; none on a field
-      of small spheres), the ``LOOSE_MAX`` longest of them. Every ray
+      of small spheres), the ``LOOSE_MAX`` longest of them (a tie to the
+      lower position). Every ray
       tests them first, so their champion's t culls the tree from the
       start, and they widen no box.
     * Leaves: consecutive runs of ``leaf`` rows; a leaf's box is the least
@@ -1660,7 +1745,10 @@ def box_tree(lo: torch.Tensor, hi: torch.Tensor, take: torch.Tensor,
     inf = torch.full((), torch.inf, device=dev)
     side = (hi - lo).amax(1)
     score = torch.where(take & (side >= LOOSE_SHARE * room), side, -inf)
-    top, pos = torch.topk(score, min(LOOSE_MAX, n))
+    # a stable sort, so that a tie goes to the lower position on every
+    # device (csrc/sphere_tree.cu builds the same list)
+    top, pos = torch.sort(score, descending=True, stable=True)
+    top, pos = top[:min(LOOSE_MAX, n)], pos[:min(LOOSE_MAX, n)]
     picked = top > -inf
     loose = torch.where(picked, pos, -1).to(torch.int32)
     is_loose = torch.zeros(n, dtype=torch.bool, device=dev).scatter(
@@ -1689,6 +1777,120 @@ def box_tree(lo: torch.Tensor, hi: torch.Tensor, take: torch.Tensor,
         torch.int32)
     return StreamTree(nodes=nodes, masks=masks.contiguous(), loose=loose,
                       leaf=leaf)
+
+
+class SphereTree(NamedTuple):
+    """A box tree over a sphere table of S rows (``sphere_tree``), which
+    kernel 4 (``HK.sphere_search_rows``) and kernel 1's direct mode
+    (``direct_pass``) walk: ``rows`` (N, 8) float32, the rows in the
+    stable order of their centres' Morton codes, padded with zero rows to
+    N, whole leaves; ``perm`` (N,) int32, the original row of each sorted
+    row, -1 for padding; ``tree`` the walk's layout over the sorted rows
+    (``StreamTree``: node boxes of an implicit binary tree, leaf masks
+    naming the masked-on rows, loose rows)."""
+    rows: torch.Tensor
+    perm: torch.Tensor
+    tree: StreamTree
+
+
+def sphere_tree(rows: torch.Tensor, leaf: int) -> SphereTree:
+    """The box tree of the packed sphere rows ``rows`` (S >= 1, 8) over
+    leaves of ``leaf`` rows, on their device, with no host
+    synchronisation. Needs no scene: a masked-on row's box is centre -/+
+    |radius|, and the rows' own box (over those boxes) gives the Morton
+    codes' frame, the loose rule's room (its longest side) and the pad's
+    scale (its largest coordinate): every box is widened by ``CHUNK_PAD``
+    of it, as kernel 1's streamed trees are by the scene's. Masked-off rows
+    take part in no box, mask or loose list. ``sphere_tree_build`` is the
+    same build on the card in one launch."""
+    with torch.no_grad():
+        rows = rows.detach()
+        s, dev = rows.shape[0], rows.device
+        n = -(-s // leaf) * leaf
+        cen, rad = rows[:, 0:3], rows[:, 3:4].abs()
+        on = rows[:, 5:6] > 0.0
+        lo = torch.where(on, cen - rad, INF)
+        hi = torch.where(on, cen + rad, -INF)
+        pmin, pmax = lo.amin(0), hi.amax(0)
+        order = torch.argsort(morton_codes(cen, pmin, pmax), stable=True)
+        pad = n - s
+        inf = torch.full((pad, 3), INF, device=dev)
+        srows = torch.cat([rows[order], rows.new_zeros((pad, SPH_COLS))])
+        perm = torch.cat([order.to(torch.int32),
+                          torch.full((pad,), -1, dtype=torch.int32,
+                                     device=dev)])
+        lo, hi = torch.cat([lo[order], inf]), torch.cat([hi[order], -inf])
+        scale = torch.where(on, cen.abs() + rad, 0.0).amax()
+        tree = box_tree(lo, hi, (perm >= 0) & (lo <= hi).all(1), leaf,
+                        CHUNK_PAD * scale, (pmax - pmin).amax())
+    return SphereTree(rows=srows.contiguous(), perm=perm, tree=tree)
+
+
+_TREE_SIGNATURES = {
+    # rows, rows count, leaf, slots, pad share, loose share, loose count,
+    # sorted rows, perm, nodes, masks, loose, stream
+    "rt_sphere_tree": (ctypes.c_int, [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p]),
+}
+
+
+def sphere_tree_build(rows: torch.Tensor, leaf: int) -> SphereTree:
+    """``sphere_tree(rows, leaf)`` built on the card by one launch of
+    ``csrc/sphere_tree.cu`` (counted in ``tree_build_launches``; no host
+    synchronisation, the outputs views of one block from torch's allocator
+    on the current stream), equal to it element for element; on CPU
+    tensors ``sphere_tree`` itself. rows (S, 8) float32, contiguous, 1 <=
+    S <= TREE_BUILD_MAX on the card; leaf a power of two up to 32."""
+    global tree_build_launches
+    s = rows.shape[0] if rows.dim() == 2 else 0
+    if (rows.dim() != 2 or rows.shape[1] != SPH_COLS
+            or rows.dtype != torch.float32 or not rows.is_contiguous()):
+        raise ValueError(f"rows must be contiguous (S, {SPH_COLS}) float32, "
+                         f"got {tuple(rows.shape)} {rows.dtype}")
+    if not 0 < leaf <= 32 or leaf & (leaf - 1):
+        raise ValueError(f"sphere tree leaves of {leaf} rows: a power of "
+                         "two up to 32")
+    if s < 1:
+        raise ValueError("a sphere tree needs at least one row")
+    if rows.device.type == "cpu":
+        return sphere_tree(rows, leaf)
+    if s > TREE_BUILD_MAX:
+        raise ValueError(f"the tree's build kernel takes at most "
+                         f"{TREE_BUILD_MAX} rows, got {s}")
+    if torch.is_grad_enabled() and rows.requires_grad:
+        rows = rows.detach()
+    lib = _build.load("sphere_tree", _TREE_SIGNATURES)
+    n = -(-s // leaf) * leaf
+    slots = tree_slots(n // leaf)
+    n_loose = min(LOOSE_MAX, n)
+    # one allocation, cut into the five outputs (the wrapper runs every
+    # call: each torch.empty costs host time); rows and nodes first, whole
+    # 16-byte words, as the walks read them in float4s
+    sizes = (n * SPH_COLS, 16 * slots, n, n // leaf, n_loose)
+    dev = rows.device
+    parts = torch.empty((sum(sizes),), dtype=torch.int32,
+                        device=dev).split(sizes)
+    out = SphereTree(
+        rows=parts[0].view(torch.float32).view(n, SPH_COLS), perm=parts[2],
+        tree=StreamTree(nodes=parts[1].view(torch.float32).view(
+            2 * slots, 8), masks=parts[3].view(n // leaf, 1),
+            loose=parts[4], leaf=leaf))
+    st = out.tree
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.rt_sphere_tree(
+            rows.data_ptr(), s, leaf, slots, CHUNK_PAD, LOOSE_SHARE,
+            n_loose, out.rows.data_ptr(), out.perm.data_ptr(),
+            st.nodes.data_ptr(), st.masks.data_ptr(), st.loose.data_ptr(),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"rt_sphere_tree launch failed with CUDA error "
+                           f"{err}")
+    tree_build_launches += 1
+    return out
 
 
 def _check_tree(name: str, tree: StreamTree | None, n_rows: int, dev) -> None:
@@ -1954,12 +2156,42 @@ def _launch_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *, spp: int,
     return ids, occs, made
 
 
+def direct_walks(sph, grid=None, chunks=None) -> bool:
+    """Whether kernel 1's direct mode walks a box tree over the spheres:
+    resident spheres (no grid, no streamed table) past
+    ``DIRECT_SPH_BRUTE_MAX`` rows."""
+    return (grid is None and chunks is None
+            and sph.shape[0] > DIRECT_SPH_BRUTE_MAX)
+
+
+def direct_tree(sph, grid=None, chunks=None) -> SphereTree | None:
+    """The sphere tree that kernel 1's direct mode walks over the CUDA
+    table ``sph`` (``direct_walks``), built on the card by one launch
+    (``sphere_tree_build``), or None where the mode loops over the spheres
+    and on the CPU. A caller that launches several direct passes over one
+    table (a differentiable pass: its forward and kernel 2's record) builds
+    it once and hands it to each (``direct_pass``'s ``sph_tree``)."""
+    if sph.device.type != "cuda" or not direct_walks(sph, grid, chunks):
+        return None
+    return sphere_tree_build(sph, DIRECT_SPH_LEAF)
+
+
+def _tree_desc(tree) -> _StreamDesc:
+    """A ``SphereTree`` as the kernel's ``Stream`` descriptor."""
+    st = tree.tree
+    return _StreamDesc(tree.rows.data_ptr(), tree.perm.data_ptr(),
+                       st.nodes.data_ptr(), st.masks.data_ptr(),
+                       st.loose.data_ptr(), tree.rows.shape[0], st.leaf,
+                       st.n_slots, st.loose.shape[0])
+
+
 def direct_pass(par, sph, tri, mat, lig, acc, u_planes, *,
                 key: torch.Tensor, spp: int, width: int, two_sided: bool,
                 n_passes: int = 1, grid: KernelGrids | None = None,
                 chunks: KernelChunks | None = None, block: int = 0,
                 build_flags: tuple = (), ray_offset: int = 0,
-                record: bool = False):
+                record: bool = False, sphere_walk: bool | None = None,
+                sph_tree: SphereTree | None = None):
     """Kernel 1's direct mode: ``n_passes`` direct-lighting passes added
     into ``acc`` (R, 3), in place; returns ``acc``, or ``(acc, ids, occs)``
     with ``record=True`` (one pass; ``direct_pass_reference`` gives the
@@ -1971,8 +2203,14 @@ def direct_pass(par, sph, tri, mat, lig, acc, u_planes, *,
     film. On CPU tensors it runs ``direct_pass_reference``; on CUDA
     tensors it launches the kernel (one launch per 64 passes) and counts
     ``direct_launches``. Tables, ``grid``, ``chunks`` and ``block`` as
-    ``pathtrace_pass``."""
-    global direct_launches, stream_launches
+    ``pathtrace_pass``. On the card past ``DIRECT_SPH_BRUTE_MAX`` resident
+    spheres each launch walks a sphere tree built on the card by one more
+    launch (``direct_walks``; counted in ``direct_walk_launches`` and
+    ``tree_build_launches``), or ``sph_tree``, the caller's
+    (``direct_tree``), without a build; ``sphere_walk`` True or False
+    forces the walk or the brute loop (a test's switch; the CPU ignores
+    it and ``sph_tree``)."""
+    global direct_launches, direct_walk_launches, stream_launches
     _check_args(par, torch.tensor([0, ray_offset], dtype=torch.int32), sph,
                 tri, mat, lig, acc, u_planes, spp, width, 1 + lig.shape[0],
                 n_passes, multi_pass_planes=True, grid=grid, block=block,
@@ -1990,10 +2228,14 @@ def direct_pass(par, sph, tri, mat, lig, acc, u_planes, *,
         return acc.copy_(out[0]), out[1], out[2]
     _check_launch(acc, (par, sph, tri, mat, lig, acc, u_planes),
                   "direct_pass")
+    walk = (direct_walks(sph, grid, chunks) if sphere_walk is None
+            else sphere_walk)
     ids, occs, n = _launch_direct(par, sph, tri, mat, lig, acc, u_planes,
                                   record=record, block=block,
-                                  build_flags=build_flags, **kw)
+                                  build_flags=build_flags, sphere_walk=walk,
+                                  sph_tree=sph_tree, **kw)
     direct_launches += n
+    direct_walk_launches += n if walk else 0
     stream_launches += n if chunks is not None else 0
     return (acc, ids, occs) if record else acc
 
@@ -2001,10 +2243,37 @@ def direct_pass(par, sph, tri, mat, lig, acc, u_planes, *,
 def _launch_direct(par, sph, tri, mat, lig, acc, u_planes, *, key, spp: int,
                    width: int, two_sided: bool, n_passes: int, grid, chunks,
                    ray_offset: int, record: bool, block: int,
-                   build_flags: tuple, live=None):
+                   build_flags: tuple, live=None,
+                   sphere_walk: bool | None = None,
+                   sph_tree: SphereTree | None = None):
     """``direct_pass``'s launches on checked CUDA tensors, uncounted:
     (ids, occs, launches made), the record None unless ``record``;
-    ``live`` as ``_launch_pass``'s."""
+    ``live`` as ``_launch_pass``'s. Where the spheres are walked
+    (``direct_walks``, or ``sphere_walk``) the launches walk ``sph_tree``
+    (``direct_tree(sph)``, the caller's), or else a tree this call builds
+    (``sphere_tree_build``, which counts its launch)."""
+    walk = (direct_walks(sph, grid, chunks) if sphere_walk is None
+            else sphere_walk)
+    tree = None
+    if walk:
+        if grid is not None or chunks is not None or sph.shape[0] == 0:
+            raise ValueError("the sphere tree's instances walk resident "
+                             "spheres: no grid, no streamed tables, at "
+                             "least one sphere")
+        if sph_tree is None:
+            sph_tree = sphere_tree_build(sph, DIRECT_SPH_LEAF)
+        elif (sph_tree.rows.device != sph.device
+              or sph_tree.perm.shape[0] != -(-sph.shape[0]
+                                             // sph_tree.tree.leaf)
+              * sph_tree.tree.leaf):
+            raise ValueError(
+                f"sph_tree holds {sph_tree.perm.shape[0]} rows on "
+                f"{sph_tree.rows.device}, the table {sph.shape[0]} on "
+                f"{sph.device}: pass direct_tree(sph)")
+        # the descriptor holds raw pointers: sph_tree keeps its tensors
+        # alive until the launches are queued (freed after, their blocks
+        # are reused only by later work on this stream)
+        tree = _tree_desc(sph_tree)
     lib = _lib(grid, chunks, build_flags)
     k0, k1 = rng.key_words(key)
     ids = occs = None
@@ -2026,6 +2295,7 @@ def _launch_direct(par, sph, tri, mat, lig, acc, u_planes, *, key, spp: int,
                 _ptr(acc), acc.shape[0], ray_offset, _ptr(u_planes), k0, k1,
                 first, int(n_passes > 1), k, spp, width, int(two_sided),
                 _ptr(ids), _ptr(occs), _ptr(live), *gargs,
+                None if tree is None else ctypes.addressof(tree),
                 _kernel_block(block, grid, chunks), stream)
             if err != 0:
                 raise RuntimeError(

@@ -291,7 +291,7 @@ def pathtrace_pass_bwd(par, ipar, sph, tri, mat, lig, g, u_planes, *,
                        russian_roulette: bool = False,
                        rr_start_depth: int = 0, diff_wrt=DIFF_ALL,
                        grid=None, chunks=None, block: int = 0,
-                       mode: str = "path"):
+                       mode: str = "path", sph_tree=None):
     """Kernel 2: the cotangents of ``pathtrace_pass_bwd_reference`` from
     the hand-written CUDA adjoint, for CUDA tensors (anything else raises).
     ``g`` (R, 3) is the cotangent of the pass's accumulator; the draws are
@@ -305,7 +305,8 @@ def pathtrace_pass_bwd(par, ipar, sph, tri, mat, lig, g, u_planes, *,
     ``launches``). Past that, and over kernel 1's streamed ``chunks`` or
     ``grid`` (the forward's own arguments; ``block`` its blocked layout),
     ``pathtrace_pass_bwd_split`` records the pass and sweeps the record
-    (counter ``large_launches``); cotangents land on the original rows,
+    (counter ``large_launches``; ``sph_tree`` the forward's sphere tree in
+    direct mode, as there); cotangents land on the original rows,
     whatever the search reads."""
     global launches
     sel = _check_wrt(diff_wrt)
@@ -316,7 +317,8 @@ def pathtrace_pass_bwd(par, ipar, sph, tri, mat, lig, g, u_planes, *,
             bounces=bounces, two_sided=two_sided,
             normalize_emitter=normalize_emitter, seed=seed,
             russian_roulette=russian_roulette, rr_start_depth=rr_start_depth,
-            diff_wrt=sel, grid=grid, chunks=chunks, block=block, mode=mode)
+            diff_wrt=sel, grid=grid, chunks=chunks, block=block, mode=mode,
+            sph_tree=sph_tree)
     _check_bwd_args(par, ipar, sph, tri, mat, lig, g, u_planes, spp, width,
                     bounces, russian_roulette, grid=grid, chunks=chunks,
                     mode=mode, block=block)
@@ -346,13 +348,15 @@ def pathtrace_pass_bwd(par, ipar, sph, tri, mat, lig, g, u_planes, *,
 def _record(par, ipar, sph, tri, mat, lig, g, u_planes, *, spp: int,
             width: int, bounces: int, two_sided: bool,
             normalize_emitter: bool, seed: int, russian_roulette: bool,
-            rr_start_depth: int, mode: str, grid, chunks, block: int):
+            rr_start_depth: int, mode: str, grid, chunks, block: int,
+            sph_tree=None):
     """Kernel 1's record (ids, occs) of the pass that ``g`` is the
     cotangent of, from its ``RECORD_FLAGS`` build on CUDA tensors (the
     accumulator a scratch tensor; no launch counted), which traces only
     the rays whose row of ``g`` is nonzero and records the others as
     misses (kernel 3 reads no other), or from its plain version on CPU
-    tensors (every ray)."""
+    tensors (every ray). In direct mode ``sph_tree`` is the forward's
+    sphere tree (``MK.direct_tree``), walked without a second build."""
     fwd = dict(grid=grid, chunks=chunks)
     if g.device.type == "cpu":
         acc = torch.zeros_like(g)
@@ -383,7 +387,8 @@ def _record(par, ipar, sph, tri, mat, lig, g, u_planes, *, spp: int,
         ids, occs, _ = MK._launch_direct(
             par, sph, tri, mat, lig, acc, u_planes,
             key=MK.pass_key_of(ipar, seed), spp=spp, width=width,
-            two_sided=two_sided, n_passes=1, ray_offset=int(ipar[1]), **fwd)
+            two_sided=two_sided, n_passes=1, ray_offset=int(ipar[1]),
+            sph_tree=sph_tree, **fwd)
     return ids, occs
 
 
@@ -393,7 +398,7 @@ def pathtrace_pass_bwd_split(par, ipar, sph, tri, mat, lig, g, u_planes, *,
                              seed: int, russian_roulette: bool = False,
                              rr_start_depth: int = 0, diff_wrt=DIFF_ALL,
                              grid=None, chunks=None, block: int = 0,
-                             mode: str = "path"):
+                             mode: str = "path", sph_tree=None):
     """Kernel 2 past 64 objects per type (JAX's ``_loop_diff`` windows,
     ``large_route``): the cotangents of ``pathtrace_pass_bwd_reference``
     as two launches on the current stream, with no host sync between them.
@@ -406,7 +411,10 @@ def pathtrace_pass_bwd_split(par, ipar, sph, tri, mat, lig, g, u_planes, *,
        ((1 + bounces) L, R) -- in direct mode one segment -- into tensors
        from torch's caching allocator; its accumulator is scratch. It
        traces only the rays whose cotangent row is nonzero, as the replay
-       did, and records the others as misses: kernel 3 reads no other.
+       did, and records the others as misses: kernel 3 reads no other. In
+       direct mode it walks ``sph_tree``, the forward's sphere tree
+       (``MK.direct_tree``), where the forward walked one; without it
+       the record builds its own.
     2. The sweep: kernel 3 (``csrc/megakernel_champ.cu``) over the whole
        tables and that record; each champion's t, beta and gamma are
        re-derived from its row (``champ_surface``), which for the search's
@@ -447,7 +455,8 @@ def pathtrace_pass_bwd_split(par, ipar, sph, tri, mat, lig, g, u_planes, *,
     if not sel:
         return tuple(torch.zeros_like(t) for t in (par, sph, tri, mat, lig))
     ids, occs = _record(par, ipar, sph, tri, mat, lig, g, u_planes,
-                        grid=grid, chunks=chunks, block=block, **kw)
+                        grid=grid, chunks=chunks, block=block,
+                        sph_tree=sph_tree, **kw)
     outs = _launch_champ(par, ipar, sph, tri, mat, lig, g, u_planes, ids,
                          occs, sel, **kw)
     large_launches += 1
@@ -791,7 +800,8 @@ def _forward(par, ipar, sph, tri, mat, lig, acc, u_planes, kw, fwd,
     tensors), on ``acc`` in place: path mode's ``MK.pathtrace_pass``, or
     direct mode's ``MK.direct_pass`` keyed by ``MK.pass_key_of(ipar,
     seed)`` at the ray offset ``ipar[1]``. ``fwd``: ``grid``, ``chunks``,
-    ``block``; ``record`` returns the record too."""
+    ``block`` (direct mode also ``sph_tree``); ``record`` returns the
+    record too."""
     if mode == "path":
         return MK.pathtrace_pass(par, ipar, sph, tri, mat, lig, acc,
                                  u_planes, record=record, **kw, **fwd)
@@ -811,11 +821,16 @@ class _PassDiff(torch.autograd.Function):
     delta) and returns no cotangent for ``ipar`` and ``u_planes``. Kernel
     2 replays (past 64 objects records) over the forward's own ``grid``,
     ``chunks`` and ``block`` (``fwd``), so it picks the champions the
-    forward picked."""
+    forward picked; in direct mode past ``MK.DIRECT_SPH_BRUTE_MAX``
+    resident spheres both walk one sphere tree, built once by the forward
+    (``MK.direct_tree``) and kept for the record."""
 
     @staticmethod
     def forward(ctx, par, sph, tri, mat, lig, acc_in, ipar, u_planes, kw,
                 diff_wrt, fwd, mode):
+        if mode == "direct":
+            fwd = dict(fwd, sph_tree=MK.direct_tree(sph, fwd["grid"],
+                                                    fwd["chunks"]))
         acc = acc_in.clone()
         _forward(par, ipar, sph, tri, mat, lig, acc, u_planes, kw, fwd, mode)
         ctx.save_for_backward(par, sph, tri, mat, lig)

@@ -116,6 +116,22 @@ each case's device time, ``chip_smoke.py``'s train steps that run kernel
 3 (``champ_steps``), the hot rows' build and the plain count of each
 case's adds; a parent commit from before the hot rows is timed by copying
 this file into its checkout and running it there.
+``--only direct`` times this checkout alone (a parent commit is timed by
+copying this file into its checkout and running it there): kernel 1's
+direct mode at 1024^2 spp 1 on sphere_field(64, 128, 160, 192, 224, 256,
+512, 1024, 4608) and cornell, one recording pass and 16-pass launches,
+through the package's route (past ``MK.DIRECT_SPH_BRUTE_MAX`` spheres
+the sphere tree, its build included), forced to the brute loop, and
+forced to the walk, in two turns, each record held to the first's bit
+for bit (another walk is timed from a copy of the tree under
+``build/<name>/`` with this file copied in); one route call's kernels on
+sphere_field(1024) and (4608) as torch.profiler's trace times them (the
+build, then the walk), the build wrapper's host time and the torch
+build's; kernels 2 and 3 on the direct step cotangents of sphere_field(1024) (row 2d's record and sweep)
+and cornell; ``chip_smoke.py`` phase 23's direct train steps on
+sphere_field(1024) (cell and "pallas" routes, host clock); the direct
+instances' ptxas lines. ``--only direct-steps`` times those steps alone,
+so that one call can alternate a parent and a change several times.
 ``--sass`` dumps ``cuobjdump -sass`` of the named variants' libraries
 into ``--out`` and
 prints, per kernel, the count of each memory, atomic, warp-level and
@@ -151,6 +167,7 @@ from .ops import megakernel_soft as MKS
 from .render import mega
 from .render import pathtracer as pt
 from .core.config import RenderConfig
+from .core.types import replace
 
 ROOT = Path(__file__).resolve().parents[1]
 BUILD = ROOT / "build" / "profile"
@@ -1630,6 +1647,227 @@ def champ_only(dev, smi: str, out: Path, variants: list) -> int:
     return 0
 
 
+# --only direct: kernel 1's direct mode over resident sphere tables (the
+# brute loop against the sphere tree's walk) and the pieces around it
+# the threshold sweep
+DIRECT_FIELDS = (64, 128, 160, 192, 224, 256, 512, 1024, 4608)
+DIRECT_PASSES = 16        # bench.py's BENCH_PASSES for configs 2 and 4
+STEP_REPS = 7
+
+
+def _walk_args(walk) -> dict:
+    """direct_pass's route argument where the package has one (a parent
+    from before the sphere tree runs the brute loop alone)."""
+    if walk is None or "sphere_walk" not in inspect.signature(
+            MK.direct_pass).parameters:
+        return {}
+    return {"sphere_walk": walk}
+
+
+def _direct_configs(has_walk: bool) -> list:
+    """(label, route) of each direct-mode configuration: the package's
+    route, the brute loop and the walk."""
+    if not has_walk:
+        return [("route", None)]
+    return [("route", None), ("brute", False), ("walk", True)]
+
+
+def direct_cases(dev) -> dict:
+    """Tables at SIZE^2 spp 1: each field of DIRECT_FIELDS and cornell."""
+    cfg = RenderConfig(width=SIZE, height=SIZE, bounces=0,
+                       use_megakernel=True)
+    cases = {f"field{n}": mega.scene_tables(
+        sphere_field(n, cols=SIZE, rows=SIZE, device=dev), cfg)
+        for n in DIRECT_FIELDS}
+    cases["cornell"] = mega.scene_tables(
+        cornell_box(cols=SIZE, rows=SIZE, device=dev), cfg)
+    return cases
+
+
+def measure_direct_only(cases: dict, configs: list, first: dict) -> dict:
+    """Each configuration on each table: one recording pass (row 1d's
+    shape; the route's tree build included) and DIRECT_PASSES passes in one
+    launch (per pass), CUDA events; each record held to the first
+    configuration's bit for bit."""
+    out = {}
+    key = rng.base_key(0)
+    for label, walk in configs:
+        for name, t in cases.items():
+            acc = torch.zeros((SIZE * SIZE, 3), device=t[0].device)
+            kw = dict(key=key, spp=1, width=SIZE, two_sided=False,
+                      **_walk_args(walk))
+            rec = MK.direct_pass(*t, acc.zero_(), None, record=True, **kw)
+            want = first.setdefault(name, [x.clone() for x in rec])
+            bad = sum(int((a != b).sum()) for a, b in zip(rec, want))
+            if bad:
+                print(f"  {label} {name}: {bad} values differ from the "
+                      "first configuration's")
+            out[f"{label} {name} record"] = time_ms(
+                lambda: MK.direct_pass(*t, acc, None, record=True, **kw))
+            out[f"{label} {name} pass"] = time_ms(
+                lambda: MK.direct_pass(*t, acc, None,
+                                       n_passes=DIRECT_PASSES, **kw),
+                reps=3, per=DIRECT_PASSES)
+    return out
+
+
+def direct_steps_only(dev, smi: str, out: Path) -> int:
+    """``--only direct-steps``: phase 23's direct train steps alone
+    (``direct_steps``, 3 STEP_REPS per route), so that a call can run a
+    parent and a change in several alternating processes."""
+    _build.load_all([("megakernel", MK._SIGNATURES, ()),
+                     ("megakernel", MK._SIGNATURES, MKG.RECORD_FLAGS),
+                     ("megakernel_champ", MKG._CHAMP_SIGNATURES,
+                      MKG.ADJ_FLAGS)])
+    res = direct_steps(dev, 3 * STEP_REPS)
+    print("steps: " + ", ".join(f"{k} {v}" for k, v in res.items()))
+    (out / "profile.json").write_text(json.dumps({"card": smi, **res},
+                                                 indent=1))
+    print(f"card: [{smi}]")
+    return 0
+
+
+def direct_steps(dev, reps: int = STEP_REPS) -> dict:
+    """chip_smoke.py phase 23's direct train steps on sphere_field(
+    N_SPHERES) at SIZE^2 spp 1 with ("sph", "mat"): the cell route (kernel
+    1 recording, kernel 3) and the "pallas" route (kernel 1, then kernel 2
+    past 64 objects: the record and kernel 3's sweep); ms per step, host
+    clock around a synchronised step, the median of ``reps`` after a
+    warm-up."""
+    cfg = RenderConfig(width=SIZE, height=SIZE, bounces=0,
+                       use_megakernel=True)
+    scene = sphere_field(N_SPHERES, cols=SIZE, rows=SIZE, device=dev)
+    kw = dict(spp=1, width=SIZE, bounces=0, two_sided=False,
+              normalize_emitter=cfg.normalize_emitter, seed=cfg.seed)
+    out = {}
+    for route in ("cell", "pallas"):
+        params = [scene.spheres.center.clone().requires_grad_(True),
+                  scene.materials.clone().requires_grad_(True)]
+
+        def step(i):
+            sc = replace(scene, spheres=replace(scene.spheres,
+                                                center=params[0]),
+                         materials=params[1])
+            t = mega.scene_tables(sc, cfg)
+            acc = MKG.pathtrace_pass_diff(
+                t[0], torch.tensor([i, 0], dtype=torch.int32), *t[1:],
+                torch.zeros((cfg.total_rays, 3), device=dev), None,
+                mode="direct", diff_wrt=TRAIN_WRT,
+                bwd_cell=route == "cell", **kw)
+            torch.mean(acc ** 2).backward()
+            with torch.no_grad():
+                for p in params:
+                    p -= 1e-3 * p.grad
+                    p.grad = None
+
+        step(0)
+        times = []
+        for i in range(1, 1 + reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(i)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[f"step {route} ms"] = sorted(times)[reps // 2]
+        out[f"step {route} ms all"] = [round(x, 4) for x in times]
+    return out
+
+
+def direct_only(dev, smi: str, out: Path) -> int:
+    """``--only direct``: this checkout's kernel 1 in direct mode on the
+    fields of DIRECT_FIELDS and cornell at SIZE^2 spp 1 (``_direct_configs``:
+    the package's route, the brute loop and the walk;
+    recording and DIRECT_PASSES-pass launches), in two turns (first to last,
+    then back); the tree's build alone; kernel 2 past 64 objects on
+    sphere_field(N_SPHERES)'s direct step cotangent (row 2d's record and
+    sweep) and cornell's step pieces; phase 23's direct train steps
+    (``direct_steps``); the direct kernels' ptxas lines. A parent commit
+    is timed by copying this file into its checkout and running it there
+    (it has the route alone)."""
+    has_walk = hasattr(MK, "direct_walks")
+    t0 = time.perf_counter()
+    specs = [("megakernel", MK._SIGNATURES, ()),
+             ("megakernel", MK._SIGNATURES, MKG.RECORD_FLAGS),
+             ("megakernel_champ", MKG._CHAMP_SIGNATURES, MKG.ADJ_FLAGS),
+             ("megakernel_grad", MKG._SIGNATURES, MKG.ADJ_FLAGS)]
+    if has_walk:
+        specs.append(("sphere_tree", MK._TREE_SIGNATURES, ()))
+    _build.load_all(specs)
+    print(f"built {len(specs)} libraries at once in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name, _, flags in specs:
+        info = _build.build_log.get((name, tuple(flags)))
+        lines = (info["ptxas"] if info else "").splitlines()
+        for i, line in enumerate(lines):
+            if re.search(r"Compiling entry.*(direct_kernel|sphere_tree)",
+                         line):
+                entry = re.search(r"(direct_kernel\w*|sphere_tree\w*)",
+                                  line).group(1)[:60]
+                rest = [x.split("info    :")[-1].strip()
+                        for x in lines[i + 1:i + 4]
+                        if re.search(r"registers|stack|spill", x)]
+                print(f"    ptxas {name} {' '.join(flags)} {entry}: "
+                      f"{'; '.join(rest)}")
+        if info:
+            (out / f"ptxas_{name}{'_'.join(flags)}.txt").write_text(
+                info["ptxas"])
+    cases = direct_cases(dev)
+    configs = _direct_configs(has_walk)
+    results: dict = {"card": smi, "turns": [], "has_walk": has_walk,
+                     "brute_max": getattr(MK, "DIRECT_SPH_BRUTE_MAX", None)}
+    first: dict = {}
+    for order in (configs, configs[::-1]):
+        turn = measure_direct_only(cases, order, first)
+        print("turn: " + ", ".join(f"{k} {v:.6g}" for k, v in turn.items()),
+              flush=True)
+        results["turns"].append(turn)
+    others = {}
+    if has_walk:
+        for n in (1024, 4608):
+            t = cases[f"field{n}"]
+            rows = t[1]
+            acc = torch.zeros((SIZE * SIZE, 3), device=dev)
+            # one route call's kernels (the build, then the walk) as
+            # torch.profiler's trace times them, with their registers
+            for k in launch_shapes(lambda: MK.direct_pass(
+                    *t, acc, None, key=rng.base_key(0), spp=1, width=SIZE,
+                    two_sided=False, record=True), out):
+                others[f"field{n} route kernel {k['name'][-40:]}"] = (
+                    f"{k['us']} us, {k['registers']} registers, "
+                    f"{k['blocks_per_sm']} blocks per SM, smem {k['smem']}")
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(REPS):
+                MK.sphere_tree_build(rows, MK.DIRECT_SPH_LEAF)
+            torch.cuda.synchronize()
+            others[f"tree build {n} wrapper ms (host clock)"] = (
+                time.perf_counter() - t1) * 1e3 / REPS
+            torch_ms = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                MK.sphere_tree(rows, MK.DIRECT_SPH_LEAF)
+                torch.cuda.synchronize()
+                torch_ms.append((time.perf_counter() - t1) * 1e3)
+            others[f"torch tree {n} ms (host clock, median of 5)"] = sorted(
+                torch_ms)[2]
+    for name in ("field1024", "cornell"):
+        scene = (sphere_field(N_SPHERES, cols=SIZE, rows=SIZE, device=dev)
+                 if name == "field1024" else
+                 cornell_box(cols=SIZE, rows=SIZE, device=dev))
+        d = DirectCase(scene, dev)
+        others[f"{name} k2 direct step g ms"] = time_ms(d.k2)
+        others[f"{name} k3 direct step g ms"] = time_ms(d.k3)
+        others[f"{name} k1 direct record (step key) ms"] = time_ms(
+            lambda: d.k1(record=True))
+    others.update(direct_steps(dev))
+    print("others: " + ", ".join(f"{k} {v}" for k, v in others.items()))
+    results["others"] = others
+    (out / "profile.json").write_text(json.dumps(results, indent=1))
+    print(f"card: [{smi}]")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variant", action="append", default=[],
@@ -1639,7 +1877,8 @@ def main(argv=None) -> int:
                     help="dump the SASS of this variant's libraries")
     ap.add_argument("--out", default=str(BUILD / "out"))
     ap.add_argument("--only", choices=("all", "soft", "stream", "grid",
-                                       "large", "hit", "champ"),
+                                       "large", "hit", "champ", "direct",
+                                       "direct-steps"),
                     default="all",
                     help="soft: build and time kernel 2s alone; stream: "
                          "kernel 1's streamed cases, kernel 2's streamed "
@@ -1649,7 +1888,10 @@ def main(argv=None) -> int:
                          "objects and its pieces, this checkout only; hit: "
                          "kernel 4's configurations and the stage route, "
                          "this checkout only; champ: kernel 3 in every "
-                         "case of the main path, per variant")
+                         "case of the main path, per variant; direct: "
+                         "kernel 1's direct mode, brute loop and sphere "
+                         "tree, this checkout only; direct-steps: its "
+                         "direct train steps alone")
     ap.add_argument("--leaf-sizes", default="",
                     help="with --only stream or grid: the streamed tables' "
                          "leaf sizes (MK.STREAM_LEAF) or the mesh grid "
@@ -1686,6 +1928,10 @@ def main(argv=None) -> int:
         return champ_only(dev, smi, out,
                           [(label, Path(src).resolve()) for label, src in
                            (v.split("=", 1) for v in args.variant)])
+    if args.only == "direct":
+        return direct_only(dev, smi, out)
+    if args.only == "direct-steps":
+        return direct_steps_only(dev, smi, out)
     if args.only == "hit":
         return hit_only(dev, smi, out, args.leaf_sizes,
                         [(label, Path(src).resolve()) for label, src in

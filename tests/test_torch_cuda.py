@@ -906,14 +906,15 @@ def test_grid_kernel_rejects_a_bad_copy(cuda):
         err = lib.rt_direct_pass(
             p(par), p(sph), sph.shape[0], p(tri), tri.shape[0], p(mat),
             mat.shape[0], p(lig), lig.shape[0], p(acc), acc.shape[0], 0,
-            None, 0, 7, 0, 0, 1, 1, 16, 0, None, None, None, *gargs, 0,
-            stream)
+            None, 0, 7, 0, 0, 1, 1, 16, 0, None, None, None, *gargs, None,
+            0, stream)
         assert err == 1, (field, value, err)
     gargs, _desc = MK._grid_args(grid, None, sph.shape[0], tri.shape[0])
     err = lib.rt_direct_pass(
         p(par), p(sph), sph.shape[0], p(tri), tri.shape[0], p(mat),
         mat.shape[0], p(lig), lig.shape[0], p(acc), acc.shape[0], 0, None,
-        0, 7, 0, 0, 1, 1, 16, 0, None, None, None, *gargs, 0, stream)
+        0, 7, 0, 0, 1, 1, 16, 0, None, None, None, *gargs, None, 0,
+        stream)
     torch.cuda.synchronize()
     assert err == 0 and acc.max() > 0
 
@@ -1168,14 +1169,15 @@ def test_streamed_kernel_rejects_malformed_tree(cuda):
         err = lib.rt_direct_pass(
             p(par), p(sph), sph.shape[0], p(tri), tri.shape[0], p(mat),
             mat.shape[0], p(lig), lig.shape[0], p(acc), acc.shape[0], 0,
-            None, 0, 7, 0, 0, 1, 1, 16, 0, None, None, None, *gargs, 0,
-            stream)
+            None, 0, 7, 0, 0, 1, 1, 16, 0, None, None, None, *gargs, None,
+            0, stream)
         assert err == 1, (field, value, err)
     gargs, streams = MK._grid_args(None, chunks, sph.shape[0], tri.shape[0])
     err = lib.rt_direct_pass(
         p(par), p(sph), sph.shape[0], p(tri), tri.shape[0], p(mat),
         mat.shape[0], p(lig), lig.shape[0], p(acc), acc.shape[0], 0, None,
-        0, 7, 0, 0, 1, 1, 16, 0, None, None, None, *gargs, 0, stream)
+        0, 7, 0, 0, 1, 1, 16, 0, None, None, None, *gargs, None, 0,
+        stream)
     torch.cuda.synchronize()
     assert err == 0 and acc.max() > 0
 
