@@ -94,11 +94,17 @@ Phases, each fatal on failure (no exception is caught):
      render_pass -> image -> mean square -> backward -> SGD on sphere
      centers, radii and materials; 1 warm-up and 10 timed steps. Exactly
      one kernel-1 and one kernel-3 launch per step and no kernel-2 launch,
+     one build of kernel 3's ray order per step (MKG.order_launches),
      a finite loss, finite gradients. Prints ms/step, forward + backward
      segments/s, kernel 1 recording and kernel 3 alone (CUDA events around
      the wrappers, on the last step's pass and cotangent) with their shares
      of their bounds, and the plain champion backward's ms on the same
-     record;
+     record; then kernel 3's ray order on that record (MKG.champ_order,
+     built on the card) held equal to its plain version
+     (MKG.champ_order_reference) element for element, its device time,
+     and the plain counts of the segments its warps walk
+     (MKG.champ_warp_work) and of the row groups they add
+     (MKG.champ_add_count) in ray order and in the order;
  13. Russian roulette (from depth RR_START, as bench.py runs config 5):
      kernel 1 vs its plain version on the same u-planes, cornell at 256x192
      and 1024^2 b5 (phase 3's gates) and sphere_field(256) at 256x192
@@ -1813,6 +1819,7 @@ def train_cell_path(dev, smi: str) -> dict:
     state, loss0, _ = step(state)                       # warm-up
     torch.cuda.synchronize()
     MK.launches = MKG.launches = MKG.champ_launches = 0
+    MKG.order_launches = 0
     t0 = time.perf_counter()
     losses = []
     for _ in range(TRAIN_STEPS):
@@ -1821,9 +1828,12 @@ def train_cell_path(dev, smi: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k1, k2, k3 = MK.launches, MKG.launches, MKG.champ_launches
+    n_order = MKG.order_launches
     _check(k1 == TRAIN_STEPS and k3 == TRAIN_STEPS and k2 == 0,
            f"{k1} kernel-1, {k3} kernel-3 and {k2} kernel-2 launches for "
            f"{TRAIN_STEPS} steps (want one, one and none per step)")
+    _check(n_order == TRAIN_STEPS, f"{n_order} builds of kernel 3's ray "
+           f"order for {TRAIN_STEPS} steps (want one per step)")
     losses = torch.stack([loss0] + losses)
     _check(bool(torch.isfinite(losses).all()), "training loss not finite")
     for name in ("center", "materials", "radius"):
@@ -1866,6 +1876,7 @@ def train_cell_path(dev, smi: str) -> dict:
     end.record()
     torch.cuda.synchronize()
     k3_ms = start.elapsed_time(end) / reps
+    order = _order_phase(MKG, tables, ids, g)
     t1 = time.perf_counter()
     want = MKG.pathtrace_pass_bwd_champ_reference(
         tables[0], ipar, *tables[1:], g, None, ids, occs, diff_wrt=TRAIN_WRT,
@@ -1892,13 +1903,86 @@ def train_cell_path(dev, smi: str) -> dict:
           f" kernel 3 {ops[1]:.6g} per ray with g != 0 -> "
           f"{k3_bound['bound_ms']:.6g} ms ({k3_bound['bound_by']}), share "
           f"{k3_bound['bound_ms'] / k3_ms:.3%}")
+    ray, ordered = order["warp_work_ray"], order["warp_work_order"]
+    print(f"phase 12 kernel 3's ray order on that pass ({n_order} builds "
+          f"in {TRAIN_STEPS} steps): {order['n_live']} rays with g != 0 of "
+          f"{g.shape[0]}, equal to the plain version's element for element;"
+          f" {order['order_ms']:.6g} ms of device time per build "
+          f"({order['order_clock']}); kernel 3 "
+          f"{k3_ms:.6g} ms in the order (the build included); "
+          f"lane-segments walked / needed (plain count) in ray order "
+          f"{ray['walked']} / {ray['needed']} = {ray['ratio']:.4g}, in the "
+          f"order {ordered['walked']} / {ordered['needed']} = "
+          f"{ordered['ratio']:.4g}; sphere row groups in ray order "
+          f"{order['adds_ray']['sph_groups']}, in the order "
+          f"{order['adds_order']['sph_groups']}")
     print("  kernel 3 on the step's cotangent vs plain version:")
     err = 0.0
     for gname, a, b in zip(MKG.DIFF_ALL, want, got):
         if gname in TRAIN_WRT:
             err = max(err, _grad_gates(gname, a, b, False))
     return {"launches": k3, "ms": k3_ms, "plain_ms": plain_ms,
-            "max_abs_err": err, "k1_record_ms": k1_ms, **k3_bound}
+            "max_abs_err": err, "k1_record_ms": k1_ms, **k3_bound,
+            "order_launches": n_order, **order}
+
+
+def _order_device_ms(MKG, ids, g, n_obj: int, reps: int = 10) -> tuple:
+    """Kernel 3's ray order alone, ms of device time per build and the
+    clock that gave it: the sum of its three kernels' durations over
+    ``reps`` builds in torch.profiler's trace ("profiler"), or where the
+    trace holds no device time, ``reps`` builds between CUDA events
+    queued behind a spin of the stream, so that they run back to back
+    and the host's pace between them does not count ("events")."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    lib = MKG._build.load("megakernel_champ", MKG._CHAMP_SIGNATURES,
+                          MKG.ADJ_FLAGS)
+    MKG._order_map(lib, ids, g, n_obj)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            MKG._order_map(lib, ids, g, n_obj)
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages() if "order_" in e.key)
+    if us > 0:
+        return us / reps / 1e3, "profiler"
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(50_000_000)   # ~25 ms: the host queues the builds
+    start.record()
+    for _ in range(reps):
+        MKG._order_map(lib, ids, g, n_obj)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, "events"
+
+
+def _order_phase(MKG, tables, ids, g) -> dict:
+    """Phase 12, kernel 3's ray order on the last step's record and g: the
+    order built on the card held equal to its plain version element for
+    element (fatal), its device time, and the plain count of the segments
+    the warps walk and of the row groups they add in ray order and in the
+    order."""
+    import torch
+    n_s, n_t = tables[1].shape[0], tables[2].shape[0]
+    order, n_live = MKG.champ_order(ids, g, n_s + n_t)
+    n_live = int(n_live)
+    want, n_want = MKG.champ_order_reference(ids, g, "path", n_s + n_t)
+    _check(n_live == n_want and torch.equal(order[:n_live], want),
+           f"kernel 3's ray order on the card ({n_live} rays) differs from "
+           f"its plain version ({n_want} rays)")
+    order_ms, clock = _order_device_ms(MKG, ids, g, n_s + n_t)
+    ray = MKG.champ_warp_work(ids, g, None, "path", n_s + n_t)
+    ordered = MKG.champ_warp_work(ids, g, want, "path", n_s + n_t)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    slot, _ = MKG.hot_rows(ids, n_s, n_t)
+    adds = [MKG.champ_add_count(ids, n_s, n_t, slot, TRAIN_WRT, live=live,
+                                blocks=4 * sms, order=o)
+            for live, o in (((g != 0).any(-1), None), (None, want))]
+    return {"order_ms": order_ms, "order_clock": clock, "n_live": n_live,
+            "warp_work_ray": ray, "warp_work_order": ordered,
+            "adds_ray": adds[0], "adds_order": adds[1]}
 
 
 def rr_vs_plain(dev, name: str, w: int, h: int) -> dict:
@@ -5580,7 +5664,8 @@ def main() -> int:
                            + [c["max_abs_err"] for c in c_small]),
         "ms": c12["ms"], "plain_ms": c12["plain_ms"],
         "bound_ms": c12["bound_ms"], "bound_by": c12["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None, "order_launches": c12["order_launches"],
+        "order_ms": c12["order_ms"], "order_clock": c12["order_clock"]}, {
         "name": "pathtrace_pass (megakernel, Russian roulette)",
         "route": "cuda",
         "source": "raytracing_tpu_torch/csrc/megakernel.cu",

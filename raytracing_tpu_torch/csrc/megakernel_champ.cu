@@ -72,6 +72,35 @@
 // record (count 15.1, select 4.9); a launch without triangle rows counts
 // nothing and keeps no slab. 128 registers, 104 B of stack, 244 B spilled
 // (path; 256 B with the roulette, none in direct mode).
+//
+// The ray order (rt_champ_order, for_order; path mode and the roulette).
+// In ray order a warp's lanes are 32 consecutive rays, and the sweep runs
+// every lane to its warp's longest path (reverse_sweep's max over the
+// warp; the replay waits for it too), while a lane with g == 0 runs idle.
+// The record gives each path's length before the sweep starts, so the rays
+// are sorted first: those with g != 0, the longest key (leading recorded
+// ids inside the tables, at least the segments the sweep tapes) first,
+// rays of one key in ray order, by a stable counting sort in three
+// launches (order_count_kernel, order_scan_kernel, order_scatter_kernel),
+// no host sync. On sphere_field(1024)'s step (1024^2 b5) 196,715 of
+// 1,048,576 rays have g != 0 and the warps walked 4.24x the lane-segments
+// their lanes need (MKG.champ_warp_work), 1.0001x in the order; the
+// torus's and cornell's 1.65x and 1.66x. Measured on one H100 80GB HBM3 at
+// 700.00 W (python -m raytracing_tpu_torch.profile_kernels --only champ,
+// device time, the design before the order and this one in turns, the
+// order included): sphere_field(1024) ("sph", "mat") 0.653-0.658 ->
+// 0.117-0.118 ms, the roulette 0.672-0.703 -> 0.112-0.120, the torus's
+// records ("sph", "mat", "tri") 1.25-1.29 -> 0.79-0.82, cornell with all
+// five groups 1.50-1.55 -> 0.95-0.99; the order alone 17.2-17.7 us on
+// sphere_field(1024), 26-28 us where every ray is live. Direct mode
+// sweeps in ray order (for_rays): its one segment leaves nothing to even
+// out, only the rays with g == 0 to drop. An ordered direct instance,
+// timed in the same runs and dropped, won on sphere_field(1024)
+// (0.0879-0.0914 -> 0.0737-0.0751 ms, 59% of its rays live) and lost on
+// cornell (0.0910-0.0933 -> 0.106-0.119: every ray live, the order's
+// 13.7-14.0 us and the indirection all cost). The ordered instances: 128
+// registers, 236 B spilled (path), 232 (the roulette); direct 127
+// registers, none spilled.
 // Float atomics make the sums depend on order: results agree with the plain
 // version to float tolerance, never bitwise.
 //
@@ -354,10 +383,45 @@ __device__ void direct_adjoint_champ(const Tables& T, const DirectSlots& S,
   direct_sweep(T, S, q, live, col, row, samp, spp, g, G, A, gp);
 }
 
+// for_rays (pathtrace_adj.cuh) over the launch's ray order
+// (rt_champ_order): the loop's i-th ray is order[i] for i < n_live =
+// order[n_rays], in steps of whole warps over the same grid; a lane past
+// n_live runs inactive. Every ray in the order has g != 0.
+template <bool kRR, class F>
+__device__ __forceinline__ void for_order(const AdjParams& p,
+                                          const int* order, F&& f) {
+  const int n_draws = n_draws_of(p.n_lig, p.bounces, kRR);
+  const int n_live = __ldg(order + p.n_rays);
+  const int lane = threadIdx.x & 31;
+  for (int base = blockIdx.x * blockDim.x + threadIdx.x - lane;
+       base < n_live; base += gridDim.x * blockDim.x) {
+    const int i = base + lane;
+    const int rid = i < n_live ? __ldg(order + i) : p.n_rays;
+    V3 g = mk(0.0f, 0.0f, 0.0f);
+    if (i < n_live) {
+      const float* gr = p.g + 3 * static_cast<size_t>(rid);
+      g = mk(gr[0], gr[1], gr[2]);
+    }
+    const bool active = g.x != 0.0f || g.y != 0.0f || g.z != 0.0f;
+    const int rid_g = rid + p.ray_offset;
+    Draws D;
+    D.u = p.u;
+    D.n_rays = p.n_rays;
+    D.rid = rid;
+    D.k0 = p.k0;
+    D.k1 = p.k1;
+    D.base = static_cast<uint32_t>(rid_g) * static_cast<uint32_t>(2 * n_draws);
+    f(D, active, rid_g, g);
+  }
+}
+
+// Path mode sweeps the rays in the launch's order (for_order), direct mode
+// in ray order (for_rays; `order` null).
 template <bool kRR, bool kDirect>
 __global__ void __launch_bounds__(kBlock, kMinBlocks)
     pathtrace_bwd_champ_kernel(const __grid_constant__ AdjParams p,
-                               const int* slot, const int* hot) {
+                               const int* slot, const int* hot,
+                               const int* order) {
   extern __shared__ float4 smem4[];  // 16-byte aligned
   float* smem = reinterpret_cast<float*>(smem4);
   const int n_mat = kMat * p.n_mat, n_lig = kLig * p.n_lig;
@@ -404,7 +468,7 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
   float gp[kNPar];
 #pragma unroll
   for (int i = 0; i < kNPar; ++i) gp[i] = 0.0f;
-  for_rays<kRR>(p, [&](const Draws& D, bool active, int rid_g, V3 g) {
+  auto ray = [&](const Draws& D, bool active, int rid_g, V3 g) {
     Rec R;
     R.ids = p.ids;
     R.occs = p.occs;
@@ -417,7 +481,11 @@ __global__ void __launch_bounds__(kBlock, kMinBlocks)
       ray_adjoint_champ<kRR>(T, D, R, active, rid_g, p.spp, p.width,
                              p.bounces, p.rr_start, p.normalize_emitter != 0,
                              g, G, A, tape, gp);
-  });
+  };
+  if constexpr (kDirect)
+    for_rays<kRR>(p, ray);
+  else
+    for_order<kRR>(p, order, ray);
   if (p.wrt & kWPar) add_par(g_par, gp);
   __syncthreads();
   if (p.wrt & kWPar) flush(p.dpar, g_par, kNPar);
@@ -610,6 +678,203 @@ __global__ void __launch_bounds__(kSelectBlock)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The ray order of a record (rt_champ_order): the rays with g != 0, the
+// longest key first, rays of one key in ray order. A ray's key is the
+// number of its leading recorded ids in [0, n_obj): at least the segments
+// that ray_adjoint_champ tapes. A stable counting sort over tiles of
+// kOrderTile rays on the digit n_seg - key: the counts per (digit, tile),
+// one block's exclusive scan of them in (digit, tile) order, and a scatter
+// that ranks each tile's rays by warp votes.
+// ---------------------------------------------------------------------------
+
+constexpr int kOrderBlock = 256;
+constexpr int kOrderWarps = kOrderBlock / 32;
+constexpr int kOrderPer = 4;  // rays per thread
+constexpr int kOrderTile = kOrderBlock * kOrderPer;
+constexpr int kDigits = kMaxSeg + 1;  // keys 0 ... n_seg
+constexpr int kDropped = 255;         // the digit of a ray with g == 0
+constexpr int kScanBlock = 1024;
+constexpr int kScanPer = 8;  // entries per thread and chunk of the scan
+constexpr int kScanChunk = kScanBlock * kScanPer;
+
+// Ray j of tile t's chunk c, thread x: chunks of kOrderBlock consecutive
+// rays, so that a chunk's warps hold its rays in ray order.
+__device__ __forceinline__ int tile_ray(int tile, int c) {
+  return tile * kOrderTile + c * kOrderBlock + static_cast<int>(threadIdx.x);
+}
+
+// Each tile's rays: the digit of each (keys, one byte per ray; kDropped
+// for g == 0 or past n_rays) and the tile's count of each digit into
+// counts[digit * n_tiles + tile]. A thread's kOrderPer rays read their ids
+// segment by segment together, each up to its first id outside [0, n_obj).
+__global__ void __launch_bounds__(kOrderBlock)
+    order_count_kernel(const int* __restrict__ ids, int n_seg, int n_rays,
+                       int n_obj, const float* __restrict__ g,
+                       uint8_t* __restrict__ keys, int* __restrict__ counts,
+                       int n_tiles) {
+  __shared__ int hist[kDigits];
+  const int tile = blockIdx.x, lane = threadIdx.x & 31;
+  if (threadIdx.x < kDigits) hist[threadIdx.x] = 0;
+  int key[kOrderPer];
+  bool run[kOrderPer], live[kOrderPer];
+#pragma unroll
+  for (int c = 0; c < kOrderPer; ++c) {
+    const int rid = tile_ray(tile, c);
+    live[c] = false;
+    if (rid < n_rays) {
+      const float* gr = g + 3 * static_cast<size_t>(rid);
+      live[c] = __ldg(gr) != 0.0f || __ldg(gr + 1) != 0.0f ||
+                __ldg(gr + 2) != 0.0f;
+    }
+    run[c] = live[c];
+    key[c] = 0;
+  }
+  for (int s = 0; s < n_seg; ++s) {
+    int v[kOrderPer];
+#pragma unroll
+    for (int c = 0; c < kOrderPer; ++c)
+      v[c] = run[c] ? __ldg(ids + static_cast<size_t>(s) * n_rays +
+                            tile_ray(tile, c))
+                    : -1;
+    bool any = false;
+#pragma unroll
+    for (int c = 0; c < kOrderPer; ++c) {
+      run[c] = run[c] && static_cast<unsigned>(v[c]) <
+                             static_cast<unsigned>(n_obj);
+      key[c] += run[c] ? 1 : 0;
+      any = any || run[c];
+    }
+    if (!any) break;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < kOrderPer; ++c) {
+    const int rid = tile_ray(tile, c);
+    const int digit = live[c] ? n_seg - key[c] : kDropped;
+    if (rid < n_rays) keys[rid] = static_cast<uint8_t>(digit);
+    const unsigned peers = __match_any_sync(kFull, digit);
+    if (digit != kDropped && (peers & ((1u << lane) - 1u)) == 0u)
+      atomicAdd(&hist[digit], __popc(peers));
+  }
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) <= n_seg)
+    counts[threadIdx.x * n_tiles + tile] = hist[threadIdx.x];
+}
+
+// One block: counts (n entries in (digit, tile) order) replaced by their
+// exclusive prefix sums, and *n_live = their total. A chunk of kScanChunk
+// entries at a time: read into shared memory in coalesced loads, thread x
+// scans a run of kScanPer consecutive entries after a block scan of the
+// runs' sums, and the chunk goes back in coalesced stores.
+__global__ void __launch_bounds__(kScanBlock)
+    order_scan_kernel(int* __restrict__ counts, int n,
+                      int* __restrict__ n_live) {
+  __shared__ int buf[kScanChunk];
+  __shared__ int warp_sum[kScanBlock / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int carry = 0;
+  for (int c0 = 0; c0 < n; c0 += kScanChunk) {
+    const int m = min(kScanChunk, n - c0);
+#pragma unroll
+    for (int k = 0; k < kScanPer; ++k) {
+      const int i = k * kScanBlock + static_cast<int>(threadIdx.x);
+      if (i < m) buf[i] = counts[c0 + i];
+    }
+    __syncthreads();
+    int v[kScanPer], sum = 0;
+#pragma unroll
+    for (int k = 0; k < kScanPer; ++k) {
+      const int i = static_cast<int>(threadIdx.x) * kScanPer + k;
+      v[k] = i < m ? buf[i] : 0;
+      sum += v[k];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int x = __shfl_up_sync(kFull, incl, off);
+      if (lane >= off) incl += x;
+    }
+    if (lane == 31) warp_sum[warp] = incl;
+    __syncthreads();
+    int before = 0, total = 0;
+    for (int w = 0; w < kScanBlock / 32; ++w) {
+      if (w < warp) before += warp_sum[w];
+      total += warp_sum[w];
+    }
+    int run = carry + before + incl - sum;
+#pragma unroll
+    for (int k = 0; k < kScanPer; ++k) {
+      const int i = static_cast<int>(threadIdx.x) * kScanPer + k;
+      if (i < m) buf[i] = run;
+      run += v[k];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kScanPer; ++k) {
+      const int i = k * kScanBlock + static_cast<int>(threadIdx.x);
+      if (i < m) counts[c0 + i] = buf[i];
+    }
+    carry += total;
+    __syncthreads();  // buf and warp_sum are reused by the next chunk
+  }
+  if (threadIdx.x == 0) *n_live = carry;
+}
+
+// Each tile's rays to their places: order[offset of (digit, tile) + the
+// rays of that digit before it in the tile] = rid. Chunk by chunk, warp by
+// warp, lane by lane, so that a digit's rays keep ray order.
+__global__ void __launch_bounds__(kOrderBlock)
+    order_scatter_kernel(const uint8_t* __restrict__ keys, int n_seg,
+                         int n_rays, const int* __restrict__ offsets,
+                         int n_tiles, int* __restrict__ order) {
+  __shared__ int base[kDigits];
+  __shared__ int wc[kOrderWarps][kDigits];
+  const int tile = blockIdx.x, lane = threadIdx.x & 31,
+            warp = threadIdx.x >> 5;
+  if (static_cast<int>(threadIdx.x) <= n_seg)
+    base[threadIdx.x] = offsets[threadIdx.x * n_tiles + tile];
+  for (int c = 0; c < kOrderPer; ++c) {
+    for (int i = threadIdx.x; i < kOrderWarps * kDigits; i += blockDim.x)
+      (&wc[0][0])[i] = 0;
+    __syncthreads();
+    const int rid = tile_ray(tile, c);
+    const int digit = rid < n_rays ? keys[rid] : kDropped;
+    const unsigned peers = __match_any_sync(kFull, digit);
+    const unsigned below = peers & ((1u << lane) - 1u);
+    if (digit != kDropped && below == 0u) wc[warp][digit] = __popc(peers);
+    __syncthreads();
+    if (digit != kDropped) {
+      int pos = base[digit] + __popc(below);
+      for (int w = 0; w < warp; ++w) pos += wc[w][digit];
+      order[pos] = rid;
+    }
+    __syncthreads();
+    if (static_cast<int>(threadIdx.x) <= n_seg)
+      for (int w = 0; w < kOrderWarps; ++w)
+        base[threadIdx.x] += wc[w][threadIdx.x];
+    __syncthreads();
+  }
+}
+
+// rt_champ_order's scratch in ints: the order (n_rays), the live count
+// (padded to 4), the (digit, tile) counts, the digits (a byte per ray).
+struct OrderScratch {
+  int n_tiles, n_counts, n_words;
+  size_t live, counts, keys;  // offsets in ints
+};
+
+__host__ __device__ inline OrderScratch order_scratch(int n_rays, int n_seg) {
+  OrderScratch s;
+  s.n_tiles = (n_rays + kOrderTile - 1) / kOrderTile;
+  s.n_counts = (n_seg + 1) * s.n_tiles;
+  s.live = static_cast<size_t>(n_rays);
+  s.counts = s.live + 4;
+  s.keys = s.counts + static_cast<size_t>(s.n_counts);
+  s.n_words = static_cast<int>(s.keys + (static_cast<size_t>(n_rays) + 3) / 4);
+  return s;
+}
+
 }  // namespace
 
 // C interface (bound with ctypes).
@@ -659,6 +924,42 @@ extern "C" int rt_champ_hot_rows(const int* ids, int n_ids, int n_sph,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The ints of rt_champ_order's scratch for a record of n_seg segments
+// (1 ... kMaxSeg) of n_rays rays; -1 for another shape.
+extern "C" int rt_champ_order_words(int n_rays, int n_seg) {
+  if (n_rays < 0 || n_seg < 1 || n_seg > kMaxSeg) return -1;
+  return order_scratch(n_rays, n_seg).n_words;
+}
+
+// Kernel 3's ray order of a record: `ids` (n_seg, n_rays) int32 (kernel 1's
+// record; ids in [0, n_obj) are objects) and the cotangent `g` (n_rays, 3)
+// give, in `scratch` (n_words ints, rt_champ_order_words), the rays with g
+// != 0 in order (scratch[0 ... n_live)), the longest key first, rays of
+// one key in ray order, and n_live = scratch[n_rays]. Three launches on
+// `stream` (a memset of n_live for no rays); allocates nothing, does not
+// synchronise; returns the first error.
+extern "C" int rt_champ_order(const int* ids, int n_seg, int n_rays,
+                              int n_obj, const float* g, int* scratch,
+                              int n_words, void* stream) {
+  if (n_rays < 0 || n_seg < 1 || n_seg > kMaxSeg || n_obj < 0 ||
+      scratch == nullptr || n_words != order_scratch(n_rays, n_seg).n_words ||
+      (n_rays > 0 && (ids == nullptr || g == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const OrderScratch s = order_scratch(n_rays, n_seg);
+  int* live = scratch + s.live;
+  if (n_rays == 0)
+    return static_cast<int>(cudaMemsetAsync(live, 0, sizeof(int), st));
+  int* counts = scratch + s.counts;
+  uint8_t* keys = reinterpret_cast<uint8_t*>(scratch + s.keys);
+  order_count_kernel<<<s.n_tiles, kOrderBlock, 0, st>>>(
+      ids, n_seg, n_rays, n_obj, g, keys, counts, s.n_tiles);
+  order_scan_kernel<<<1, kScanBlock, 0, st>>>(counts, s.n_counts, live);
+  order_scatter_kernel<<<s.n_tiles, kOrderBlock, 0, st>>>(
+      keys, n_seg, n_rays, counts, s.n_tiles, scratch);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Adds the cotangents of one pass into dpar (26,), dsph (S, 8), dtri (T,
 // 32), dmat (M, 4), dlig (L, 20), which the caller zeroes (tri, dsph and
 // dtri 16-byte aligned: read and added in 16-byte words); `wrt` is a bit
@@ -667,7 +968,10 @@ extern "C" int rt_champ_hot_rows(const int* ids, int n_ids, int n_sph,
 // bytes are kernel 1's record of the same pass (occs may be null when
 // n_lig == 0); `slot` and `hot` (n_hot == kHot ints) its hot triangle
 // rows (rt_champ_hot_rows; needed with tri in wrt and n_tri > 0, else
-// ignored). (k0, k1) is the pass key of the PRNG route (ignored with
+// ignored). `order`: the record's ray order (rt_champ_order's scratch for
+// these ids and g), swept in that order; needed in path mode, null in
+// direct mode (which sweeps in ray order).
+// (k0, k1) is the pass key of the PRNG route (ignored with
 // u_planes). rr != 0: the pass played Russian roulette from depth
 // rr_start_depth on. direct != 0: the pass is direct mode's (bounces and
 // rr 0, a record of one segment; draws as rt_pathtrace_bwd's). Launches on
@@ -677,7 +981,7 @@ extern "C" int rt_pathtrace_bwd_champ(
     const float* par, const float* sph, int n_sph, const float* tri,
     int n_tri, const float* mat, int n_mat, const float* lig, int n_lig,
     const float* g, const int* ids, const uint8_t* occs, const int* slot,
-    const int* hot, int n_hot, int n_rays, int ray_offset,
+    const int* hot, int n_hot, const int* order, int n_rays, int ray_offset,
     const float* u_planes, unsigned int k0, unsigned int k1, int spp,
     int width, int bounces, int rr, int rr_start_depth, int direct,
     int two_sided, int normalize_emitter, int wrt, float* dpar, float* dsph,
@@ -690,6 +994,7 @@ extern "C" int rt_pathtrace_bwd_champ(
   if (bounces < 0 || bounces >= kMaxSeg || n_lig > kMaxLights ||
       ids == nullptr || (n_lig > 0 && occs == nullptr) ||
       (direct && (bounces || rr)) ||
+      (direct ? order != nullptr : order == nullptr) ||
       (slab && (slot == nullptr || hot == nullptr || n_hot != kHot)) ||
       ((wrt & kWSph) && misaligned(dsph)) ||
       ((wrt & kWTri) && misaligned(dtri)) ||
@@ -709,16 +1014,16 @@ extern "C" int rt_pathtrace_bwd_champ(
       sizeof(float) * (2 * (kParPad + kMat * n_mat + kLig * n_lig) +
                        (slab ? kWarps * kSlabWords : 0)) +
       (direct ? 0 : tape_bytes(bounces, kBlock));
-  void (*kernel)(AdjParams, const int*, const int*) =
-      direct ? pathtrace_bwd_champ_kernel<false, true>
-      : rr   ? pathtrace_bwd_champ_kernel<true, false>
-             : pathtrace_bwd_champ_kernel<false, false>;
+  using Kernel = void (*)(AdjParams, const int*, const int*, const int*);
+  const Kernel kernel = direct ? pathtrace_bwd_champ_kernel<false, true>
+                        : rr   ? pathtrace_bwd_champ_kernel<true, false>
+                               : pathtrace_bwd_champ_kernel<false, false>;
   // a grid-stride loop over a grid the card holds at once: each block
   // flushes its mat / lig / par buffers and its slabs once
   int grid = 0;
   const cudaError_t err = fit_grid(kernel, kBlock, smem, n_rays, grid);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<grid, kBlock, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, slab ? slot : nullptr, slab ? hot : nullptr);
+      p, slab ? slot : nullptr, slab ? hot : nullptr, order);
   return static_cast<int>(cudaGetLastError());
 }

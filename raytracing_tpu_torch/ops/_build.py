@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -91,3 +92,42 @@ def load_all(specs) -> list:
     specs = list(specs)
     with ThreadPoolExecutor(max_workers=len(specs)) as pool:
         return list(pool.map(lambda spec: load(*spec), specs))
+
+
+def ptxas_log(name: str, flags: tuple = ()) -> str:
+    """The ptxas report of the built library ``lib<name>`` for ``flags``
+    (the ``.log`` beside it; empty where it is not built)."""
+    stem = _source_hash(CSRC / f"{name}.cu", NVCC_FLAGS + tuple(flags))
+    log = BUILD_DIR / f"lib{name}-{stem}.log"
+    return log.read_text() if log.exists() else ""
+
+
+def ptxas_usage(log: str) -> dict:
+    """Each kernel entry of a ptxas report (``-Xptxas -v``): mangled name,
+    its anonymous namespace's per-build hash cut out -> {"registers",
+    "stack", "spill_stores", "spill_loads"} in registers and bytes."""
+    def key(name):
+        return re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_GLOBAL__N_", name)
+
+    out: dict[str, dict] = {}
+    entry = None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            entry = out.setdefault(key(m.group(1)), {})
+            continue
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = out.setdefault(key(m.group(1)), {})
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            entry.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                         spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            entry["registers"] = int(m.group(1))
+    return {k: v for k, v in out.items() if "registers" in v}

@@ -34,7 +34,12 @@ True)``) and sweeps no table:
   any-hit read the record (``champ_surface``, the recorded bits);
 * ``pathtrace_pass_bwd_champ`` -- the wrapper of the hand-written CUDA
   kernel ``csrc/megakernel_champ.cu``: on CUDA tensors it launches it and
-  counts ``champ_launches``, on CPU tensors it runs the plain version.
+  counts ``champ_launches``, on CPU tensors it runs the plain version;
+* ``champ_order`` -- the rays it sweeps in path mode, built on the card
+  before each launch from the record (the rays with g != 0, longest
+  recorded path first; counter ``order_launches``), and its plain version
+  ``champ_order_reference``; ``champ_warp_work`` counts the segments its
+  warps walk in either order.
 
 ``pathtrace_pass_diff`` is one differentiable pass. Kernel 2's route on
 CUDA tensors is ``_PassDiff`` (forward = kernel 1, backward = kernel 2),
@@ -85,6 +90,7 @@ DIFF_TABLE_MAX = 4096
 launches = 0          # kernel 2, tables of at most 64 objects per type
 large_launches = 0    # kernel 2 past 64 objects (pathtrace_pass_bwd_split)
 champ_launches = 0    # kernel 3
+order_launches = 0    # kernel 3's ray order (_order_map), one per build
 
 # nvcc flags of kernels 2 and 3: no contracted multiply-adds
 # (csrc/pathtrace_adj.cuh says why)
@@ -111,6 +117,7 @@ _CHAMP_SIGNATURES = {
         _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _I,     # par, sph, tri, mat, lig
         _VP, _VP, _VP,                                # g, ids, occs
         _VP, _VP, _I,                       # slot, hot, n_hot (hot rows)
+        _VP,                  # order (rt_champ_order; null in direct mode)
         _I, _I,                                       # n_rays, ray_offset
         _VP, _U, _U,                                  # u_planes, pass key
         _I, _I, _I, _I, _I,                # spp, width, bounces, rr, start
@@ -121,6 +128,11 @@ _CHAMP_SIGNATURES = {
     "rt_champ_hot_rows": (ctypes.c_int, [
         _VP, _I, _I, _I,                      # ids, n_ids, n_sph, n_tri
         _VP, _VP, _VP, _I,            # counts (scratch), slot, hot, n_hot
+        _VP]),                                        # stream
+    "rt_champ_order_words": (ctypes.c_int, [_I, _I]),   # n_rays, n_seg
+    "rt_champ_order": (ctypes.c_int, [
+        _VP, _I, _I, _I, _VP,                 # ids, n_seg, n_rays, n_obj, g
+        _VP, _I,                                      # scratch, its ints
         _VP]),                                        # stream
 }
 # kernel 3's hot triangle rows (csrc/megakernel_champ.cu kHot; its C
@@ -698,26 +710,133 @@ def hot_rows(ids, n_sph: int, n_tri: int) -> tuple:
     return _hot_map(lib, ids.contiguous(), n_sph, n_tri)
 
 
+def champ_keys(ids, n_obj: int | None = None) -> torch.Tensor:
+    """Each ray's key in kernel 3's ray order: the number of leading
+    segments of the record ``ids`` (n_seg, R) whose id lies in [0,
+    ``n_obj``) (n_sph + n_tri; None: any id >= 0), an upper bound of the
+    segments its sweep tapes. (R,) int64."""
+    ok = ids >= 0
+    if n_obj is not None:
+        ok &= ids < n_obj
+    return ok.to(torch.int64).cumprod(0).sum(0)
+
+
+def _check_order_record(ids, g, mode: str) -> None:
+    _check_mode(mode)
+    if ids.dim() != 2 or g.shape != (ids.shape[1], 3):
+        raise ValueError(f"ids must be (n_seg, R) and g (R, 3), got "
+                         f"{tuple(ids.shape)} and {tuple(g.shape)}")
+    if mode == "direct" and ids.shape[0] != 1:
+        raise ValueError(f"a direct record has one segment, got "
+                         f"{ids.shape[0]}")
+
+
+def champ_order_reference(ids, g, mode: str = "path",
+                          n_obj: int | None = None) -> tuple:
+    """Plain version of kernel 3's ray order (``champ_order``), torch ops
+    on any device: ``(order, n_live)``, ``order`` (n_live,) int32 the rays
+    of the record ``ids`` (n_seg, R) whose cotangent row of ``g`` (R, 3)
+    is nonzero (a ray with g = 0 adds nothing), the longest key
+    (``champ_keys``) first, rays of one key in ray order; a ray of key 0
+    stays (it can still meet the emitter). In direct mode (a record of
+    one segment) the key is 1 for a valid primary id, else 0."""
+    _check_order_record(ids, g, mode)
+    key = champ_keys(ids, n_obj)
+    live = (g != 0).any(-1).nonzero().ravel()
+    # a stable sort: rays of one key keep ray order
+    order = live[torch.argsort(-key[live], stable=True)]
+    return order.to(torch.int32), int(order.numel())
+
+
+def _order_map(lib, ids, g, n_obj: int) -> torch.Tensor:
+    """Kernel 3's ray order built on the card (``rt_champ_order``: three
+    launches on the current stream, no host sync) into one int32 tensor:
+    the order in its first entries, their count at ``[R]``; counts
+    ``order_launches``."""
+    global order_launches
+    n_seg, n = ids.shape
+    words = lib.rt_champ_order_words(n, n_seg)
+    if words < 0:
+        raise ValueError(f"no ray order for a record of {n_seg} segments")
+    scratch = torch.empty((words,), dtype=torch.int32, device=ids.device)
+    ptr = MK._ptr
+    with torch.cuda.device(ids.device):
+        err = lib.rt_champ_order(
+            ptr(ids), n_seg, n, n_obj, ptr(g), scratch.data_ptr(), words,
+            torch.cuda.current_stream(ids.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"kernel 3's ray order failed with CUDA error "
+                           f"{err}")
+    order_launches += 1
+    return scratch
+
+
+def champ_order(ids, g, n_obj: int, mode: str = "path") -> tuple:
+    """Kernel 3's ray order of the record ``ids`` (n_seg, R) int32 and the
+    cotangent ``g`` (R, 3): ``(order, n_live)`` with ``order[:n_live]``
+    what ``champ_order_reference(ids, g, mode, n_obj)`` gives. On a CUDA
+    tensor from the hand-written kernels of ``csrc/megakernel_champ.cu``
+    (no host sync): ``order`` (R,) int32 and ``n_live`` a (1,) int32
+    tensor, both views of one scratch tensor; on a CPU tensor the plain
+    version's (n_live an int)."""
+    _check_order_record(ids, g, mode)
+    if ids.device.type == "cpu":
+        return champ_order_reference(ids, g, mode, n_obj)
+    _require_cuda(ids, "champ_order")
+    if ids.dtype != torch.int32 or g.dtype != torch.float32:
+        raise ValueError(f"ids must be int32 and g float32, got {ids.dtype} "
+                         f"and {g.dtype}")
+    lib = _build.load("megakernel_champ", _CHAMP_SIGNATURES, ADJ_FLAGS)
+    scratch = _order_map(lib, ids.contiguous(), g.contiguous(), n_obj)
+    n = ids.shape[1]
+    return scratch[:n], scratch[n:n + 1]
+
+
+def champ_warp_work(ids, g, order=None, mode: str = "path",
+                    n_obj: int | None = None) -> dict:
+    """Plain count of the segments kernel 3's warps walk: per warp of 32
+    consecutive rays of ``order`` (the rays with g != 0; None: every ray in
+    ray order, a ray with g = 0 walking none), the lane-segments walked (32
+    x the warp's longest key, ``champ_keys``: the sweep runs every lane to
+    its warp's longest path) and those needed (the sum of the keys).
+    Returns their totals, their ratio and the warps."""
+    _check_order_record(ids, g, mode)
+    key = champ_keys(ids, n_obj) * (g != 0).any(-1).to(torch.int64)
+    if order is not None:
+        key = key[order.to(torch.int64)]
+    pad = (-key.numel()) % 32
+    warps = torch.cat([key, key.new_zeros(pad)]).reshape(-1, 32)
+    walked = int(warps.max(1).values.sum()) * 32
+    needed = int(key.sum())
+    return {"warps": warps.shape[0], "walked": walked, "needed": needed,
+            "ratio": walked / max(needed, 1)}
+
+
 def champ_add_count(ids, n_sph: int, n_tri: int, slot, wrt, live=None,
-                    blocks: int = 528, block: int = 128) -> dict:
+                    blocks: int = 528, block: int = 128,
+                    order=None) -> dict:
     """Plain count of kernel 3's sphere and triangle row adds on the
     record ``ids`` (1 + bounces, R) for the groups ``wrt``, with the hot
     triangle rows ``slot`` (n_tri,): per warp of 32 consecutive rays
-    (``live`` (R,) bool: the rays with g != 0; others add nothing) and
-    segment, the distinct rows its lanes name, each a group of the warp's
-    lanes that one lane adds for. An upper count: words that are exactly
-    zero are skipped by the kernel, and a path that ends at the emitter
-    adds nothing. Returns the groups (``sph_groups``, ``tri_groups``) and
+    (``live`` (R,) bool: the rays with g != 0; others add nothing; with
+    ``order``, the rays of kernel 3's ray order, ``champ_order``, 32
+    consecutive entries a warp) and segment, the distinct rows its lanes
+    name, each a group of the warp's lanes that one lane adds for. An
+    upper count: words that are exactly zero are skipped by the kernel,
+    and a path that ends at the emitter adds nothing. Returns the groups (``sph_groups``, ``tri_groups``) and
     the hot triangle ones (``tri_hot_groups``), the parent design's scalar
     atomics (4 per sphere group, 25 per triangle group), the slabs' adds
     (one per hot group), the vector reductions (1 per sphere group, 9 per
     cold triangle group), the flushes' (per block of ``block`` rays in a
     grid of ``blocks``: 9 per hot row the block names), and the triangle
     champions per live ray."""
-    n_seg, n = ids.shape
     ids = ids.to(torch.int64)
     if live is not None:
         ids = torch.where(live[None, :].to(ids.device), ids, -1)
+    if order is not None:
+        ids = ids[:, order.to(device=ids.device, dtype=torch.int64)]
+        live = torch.ones(ids.shape[1], dtype=torch.bool)
+    n_seg, n = ids.shape
     pad = (-n) % 32
     if pad:
         ids = torch.cat([ids, ids.new_full((n_seg, pad), -1)], 1)
@@ -764,8 +883,10 @@ def _launch_champ(par, ipar, sph, tri, mat, lig, g, u_planes, ids, occs,
                   two_sided: bool, normalize_emitter: bool, seed: int,
                   russian_roulette: bool, rr_start_depth: int, mode: str):
     """Kernel 3's launch on checked CUDA tensors, uncounted: the record's
-    hot triangle rows (``_hot_map``, where the launch adds triangle rows),
-    then the cotangents of the groups ``sel`` (no launch without any)."""
+    hot triangle rows (``_hot_map``, where the launch adds triangle rows)
+    and, in path mode, its ray order (``_order_map``; direct mode sweeps
+    in ray order, csrc/megakernel_champ.cu's header gives the times), then
+    the cotangents of the groups ``sel`` (no launch without any)."""
     outs = tuple(torch.zeros_like(t) for t in (par, sph, tri, mat, lig))
     wrt = sum(1 << i for i, n in enumerate(DIFF_ALL) if n in sel)
     if not wrt:
@@ -776,6 +897,8 @@ def _launch_champ(par, ipar, sph, tri, mat, lig, g, u_planes, ids, occs,
     slot = hot = None
     if "tri" in sel and tri.shape[0]:
         slot, hot = _hot_map(lib, ids, sph.shape[0], tri.shape[0])
+    order = (None if mode == "direct"
+             else _order_map(lib, ids, g, sph.shape[0] + tri.shape[0]))
     roff = int(ipar[1])
     k0, k1 = rng.pass_key_words(seed, int(ipar[0]))
     n_b, rr, direct = _c_settings(bounces, russian_roulette, mode)
@@ -785,8 +908,8 @@ def _launch_champ(par, ipar, sph, tri, mat, lig, g, u_planes, ids, occs,
         err = lib.rt_pathtrace_bwd_champ(
             ptr(par), ptr(sph), sph.shape[0], ptr(tri), tri.shape[0],
             ptr(mat), mat.shape[0], ptr(lig), lig.shape[0], ptr(g),
-            ptr(ids), ptr(occs), ptr(slot), ptr(hot), HOT_TRI, g.shape[0],
-            roff, ptr(u_planes), k0, k1, spp, width, n_b, rr,
+            ptr(ids), ptr(occs), ptr(slot), ptr(hot), HOT_TRI, ptr(order),
+            g.shape[0], roff, ptr(u_planes), k0, k1, spp, width, n_b, rr,
             rr_start_depth, direct, int(two_sided), int(normalize_emitter),
             wrt, *(ptr(t) for t in outs), stream)
         if err != 0:

@@ -113,8 +113,13 @@ step, the sphere grid, direct mode on cornell and sphere_field(1024),
 cornell with all five groups and ``chip_smoke.py`` phase 22's two sweeps
 (``champ_cases``); beside them each variant's kernel 2 on cornell's step,
 each case's device time, ``chip_smoke.py``'s train steps that run kernel
-3 (``champ_steps``), the hot rows' build and the plain count of each
-case's adds; a parent commit from before the hot rows is timed by copying
+3 (``champ_steps``, timed first, before any case, so that every
+checkout times them after the same work), the hot rows' build and the
+plain count of each case's adds; where the package has kernel 3's ray
+order (``MKG.champ_order``), the order's own device time per case, the
+order held to its plain version and the plain count of the warps'
+segments in ray order and in the order (``MKG.champ_warp_work``); a
+parent commit from before the hot rows or the order is timed by copying
 this file into its checkout and running it there.
 ``--only direct`` times this checkout alone (a parent commit is timed by
 copying this file into its checkout and running it there): kernel 1's
@@ -1523,10 +1528,15 @@ def device_ms(fn, out: Path) -> float:
 def champ_counts(cases: dict) -> dict:
     """The hot rows of each case's record built on the card, held equal to
     their plain version, and the plain count of its row adds
-    (``MKG.champ_add_count``) over the rays with g != 0; none where the
-    package has no hot rows (a parent's checkout)."""
+    (``MKG.champ_add_count``) over the rays with g != 0; where the package
+    has kernel 3's ray order, the order built on the card held equal to
+    its plain version element for element, the plain count of the warps'
+    segments (``MKG.champ_warp_work``) in ray order and in the order, and
+    the adds in the order. None where the package has no hot rows (a
+    parent's checkout)."""
     if not hasattr(MKG, "hot_rows"):
         return {}
+    ordered = hasattr(MKG, "champ_order")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
     for name, (_, wrt, ids, n_s, n_t, g) in cases.items():
@@ -1548,7 +1558,52 @@ def champ_counts(cases: dict) -> dict:
               f"{c['tri_champions_per_ray']:.4g}, hot share of triangle "
               f"groups {c['tri_hot_groups'] / max(c['tri_groups'], 1):.4g}",
               flush=True)
+        if not ordered:
+            continue
+        mode = "direct" if ids.shape[0] == 1 else "path"
+        order, n_live = MKG.champ_order(ids, g, n_s + n_t, mode)
+        n_live = int(n_live)
+        plain, n_plain = MKG.champ_order_reference(ids, g, mode, n_s + n_t)
+        if n_live != n_plain or not torch.equal(order[:n_live], plain):
+            raise SystemExit(f"{name}: kernel 3's ray order on the card "
+                             f"differs from its plain version")
+        c["warp_work_ray_order"] = MKG.champ_warp_work(ids, g, None, mode,
+                                                       n_s + n_t)
+        c["warp_work_order"] = MKG.champ_warp_work(ids, g, plain, mode,
+                                                   n_s + n_t)
+        c["adds_in_order"] = MKG.champ_add_count(
+            ids, n_s, n_t, slot, wrt, blocks=4 * sms, order=plain)
+        print(f"  order {name}: {n_live} live rays (equal to the plain "
+              f"version's); lane-segments walked / needed, ray order "
+              f"{c['warp_work_ray_order']}, the order "
+              f"{c['warp_work_order']}; row groups in the order: spheres "
+              f"{c['adds_in_order']['sph_groups']} (ray order "
+              f"{c['sph_groups']}), triangles "
+              f"{c['adds_in_order']['tri_groups']} ({c['tri_groups']})",
+              flush=True)
     return out
+
+
+def order_device_ms(cases: dict, lib, out: Path, reps: int = 20) -> dict:
+    """Kernel 3's ray order alone on each path-mode case's record and g
+    (direct mode sweeps in ray order): the device time of one
+    ``MKG._order_map`` (its three launches), ms, and its host time per
+    call over ``reps`` calls queued back to back (no sync)."""
+    res = {}
+    for name, (_, _, ids, n_s, n_t, g) in cases.items():
+        if ids is None or ids.shape[0] == 1:
+            continue
+
+        def build():
+            return MKG._order_map(lib, ids, g, n_s + n_t)
+        res[f"order_device_{name}"] = device_ms(build, out)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            build()
+        res[f"order_host_{name}"] = (time.perf_counter() - t0) * 1e3 / reps
+        torch.cuda.synchronize()
+    return res
 
 
 def champ_only(dev, smi: str, out: Path, variants: list) -> int:
@@ -1560,8 +1615,9 @@ def champ_only(dev, smi: str, out: Path, variants: list) -> int:
     (cosine, max |d|); with each variant's kernel 2 (which shares the
     sweep) on cornell's step, each case's device time (the sum of its
     kernels' durations in torch.profiler's trace; the host sets the pace
-    of the short cases' wrapper calls) and the train steps of
-    ``champ_steps`` (host clock); each variant's ptxas report and its
+    of the short cases' wrapper calls) and, before any case, twice, the
+    train steps of ``champ_steps`` (host clock; the package's csrc); each
+    variant's ptxas report and its
     launches' registers, shared memory and blocks per SM. Where the
     package builds hot rows: their build alone per case, held to their
     plain version, and the plain count of each case's adds; a variant
@@ -1593,12 +1649,22 @@ def champ_only(dev, smi: str, out: Path, variants: list) -> int:
     keys = {name: (name, tuple(MKG.ADJ_FLAGS))
             for name in ("megakernel_champ", "megakernel_grad")}
     package = {name: _build._loaded[key] for name, key in keys.items()}
-    cases = champ_cases(dev)
+    # the train steps first: the work before them is the same in every
+    # checkout (the cases' counts below are not)
     steps = champ_steps(dev)
-    results: dict = {"card": smi, "turns": [], "counts": champ_counts(cases)}
+    results: dict = {"card": smi, "steps": []}
+    for _ in range(2):
+        results["steps"].append(time_steps(steps))
+        print("steps: " + ", ".join(f"{k} {v:.6g}" for k, v in
+                                    results["steps"][-1].items()),
+              flush=True)
+    del steps
+    cases = champ_cases(dev)
+    results.update(turns=[], counts=champ_counts(cases))
     first: dict = {}
     labels = list(libs)
     hot = hasattr(MKG, "_hot_map")
+    ordered = hasattr(MKG, "_order_map")
 
     def put(label):
         for name, key in keys.items():
@@ -1623,7 +1689,9 @@ def champ_only(dev, smi: str, out: Path, variants: list) -> int:
                     lib = libs[label]["megakernel_champ"]
                     row[f"map_{name}"] = time_ms(
                         lambda: MKG._hot_map(lib, ids, n_s, n_t))
-            row.update(time_steps(steps))
+            if ordered:
+                row.update(order_device_ms(
+                    cases, libs[label]["megakernel_champ"], out))
             turn[label] = row
             print(f"{label}: " + ", ".join(f"{k} {v:.6g}"
                                            for k, v in row.items()),
@@ -1632,8 +1700,8 @@ def champ_only(dev, smi: str, out: Path, variants: list) -> int:
     shapes = {}
     for label in labels:
         put(label)
-        for name in ("3s_stream_torus", "3a_spheres1024_rr", "3d_cornell",
-                     "k2_cornell"):
+        for name in ("3_spheres1024", "3s_stream_torus", "3a_spheres1024_rr",
+                     "3d_cornell", "k2_cornell"):
             shapes[f"{label} {name}"] = launch_shapes(cases[name][0], out)
             print(f"launches {label} {name}: "
                   f"{json.dumps(shapes[f'{label} {name}'])}", flush=True)

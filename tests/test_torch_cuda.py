@@ -1988,6 +1988,7 @@ def test_champion_kernel_refuses_misaligned_outputs(cuda):
     t, ipar, ids, occs, _, g, kw, _ = _torus_record(cuda)
     lib = _champ_lib()
     slot, hot = MKG._hot_map(lib, ids, t[1].shape[0], t[2].shape[0])
+    order = MKG._order_map(lib, ids, g, t[1].shape[0] + t[2].shape[0])
     outs = [torch.zeros_like(x) for x in t]
     ptr = MK._ptr
     stream = torch.cuda.current_stream().cuda_stream
@@ -1996,8 +1997,9 @@ def test_champion_kernel_refuses_misaligned_outputs(cuda):
         return lib.rt_pathtrace_bwd_champ(
             ptr(t[0]), ptr(t[1]), t[1].shape[0], ptr(t[2]), t[2].shape[0],
             ptr(t[3]), t[3].shape[0], ptr(t[4]), t[4].shape[0], ptr(g),
-            ptr(ids), ptr(occs), ptr(slot), ptr(hot), n_hot, g.shape[0], 0,
-            None, 1, 2, 1, 64, 5, 0, 0, 0, 0, 1, 31, *args, stream)
+            ptr(ids), ptr(occs), ptr(slot), ptr(hot), n_hot, ptr(order),
+            g.shape[0], 0, None, 1, 2, 1, 64, 5, 0, 0, 0, 0, 1, 31, *args,
+            stream)
 
     for bad in (1, 2):
         shifted = torch.zeros(outs[bad].numel() + 1, device=cuda)[1:]
@@ -2013,3 +2015,221 @@ def test_champion_kernel_refuses_misaligned_outputs(cuda):
         ptr(slot), ptr(hot), MKG.HOT_TRI - 1, stream) == 1
     torch.cuda.synchronize()
     assert not any(x.any() for x in outs)
+
+
+def _order_records(cuda):
+    """name -> (ids, g, n_obj, mode) for kernel 3's ray order: kernel 1's
+    records of sphere_field(1024), cornell and the streamed torus at 64x48
+    b5 (the torus also with the roulette and in direct mode), each with a
+    seeded random g whose every fifth row is zero, and hand-made records:
+    every ray missing, every g zero, a ray count past a tile (1024) that
+    no warp divides with ids past the tables and misses between hits, one
+    partial warp, the most segments over more rays than one chunk of the
+    scan holds, a direct record."""
+    cfg = RenderConfig(width=64, height=48, bounces=5, use_megakernel=True)
+    gen = np.random.default_rng(5)
+
+    def cot(n):
+        g = gen.normal(size=(n, 3)).astype(np.float32)
+        g[::5] = 0.0
+        return torch.as_tensor(g, device=cuda)
+
+    out = {}
+    for name, scene in (
+            ("sphere_field(1024)", sphere_field(1024, cols=64, rows=48,
+                                                device=cuda)),
+            ("cornell", cornell_box(cols=64, rows=48, device=cuda))):
+        t = mega.scene_tables(scene, cfg)
+        _, ids, _ = _record(t, torch.zeros((cfg.total_rays, 3), device=cuda),
+                            None, cfg)
+        out[name] = (ids, cot(ids.shape[1]), t[1].shape[0] + t[2].shape[0],
+                     "path")
+    for mode in ("path", "rr", "direct"):
+        t, _, ids, *_ = _torus_record(cuda, mode)
+        out[f"torus {mode}"] = (ids, cot(ids.shape[1]),
+                                t[1].shape[0] + t[2].shape[0],
+                                "direct" if mode == "direct" else "path")
+    rand = torch.as_tensor(gen.integers(-1, 9, (6, 1024 + 37)),
+                           dtype=torch.int32, device=cuda)
+    out.update({
+        "every ray misses": (torch.full((6, 3000), -1, dtype=torch.int32,
+                                        device=cuda), cot(3000), 10, "path"),
+        "every g zero": (rand, torch.zeros((1061, 3), device=cuda), 7,
+                         "path"),
+        "1061 rays, ids past the tables": (rand, cot(1061), 7, "path"),
+        "31 rays": (rand[:, :31].contiguous(), cot(31), 7, "path"),
+        "16 segments, 2^20 + 5 rays (a scan of three chunks)": (
+            torch.as_tensor(gen.integers(-1, 40, (16, (1 << 20) + 5)),
+                            dtype=torch.int32, device=cuda),
+            cot((1 << 20) + 5), 37, "path"),
+        "direct, 2000 rays": (torch.as_tensor(
+            gen.integers(-1, 12, (1, 2000)), dtype=torch.int32,
+            device=cuda), cot(2000), 10, "direct")})
+    return out
+
+
+def test_champ_order_equals_plain_version_on_the_card(cuda):
+    """Kernel 3's ray order built on the card (three launches) equals its
+    plain version element for element, the live count too, on kernel 1's
+    records and on the edge cases of ``_order_records``."""
+    for name, (ids, g, n_obj, mode) in _order_records(cuda).items():
+        before = MKG.order_launches
+        order, n_live = MKG.champ_order(ids, g, n_obj, mode)
+        assert MKG.order_launches == before + 1
+        want, n_want = MKG.champ_order_reference(ids, g, mode, n_obj)
+        assert int(n_live) == n_want, name
+        assert torch.equal(order[:n_want], want), name
+        w = MKG.champ_warp_work(ids, g, order[:n_want], mode, n_obj)
+        assert w["walked"] <= MKG.champ_warp_work(ids, g, None, mode,
+                                                  n_obj)["walked"], name
+
+
+@pytest.mark.parametrize("mode", ["path", "rr", "direct"])
+def test_champion_kernel_in_its_mode_order(cuda, mode):
+    """Kernel 3 on the streamed torus's record (64x48 b5, all five groups)
+    against its plain version under phase 6's gates: path mode and the
+    roulette swept in the record's ray order, built once per launch;
+    direct mode in ray order, with no order built."""
+    t, ipar, ids, occs, u, g, kw, _ = _torus_record(cuda, mode)
+    before = MKG.order_launches
+    _hold_champ(t, ipar, ids, occs, u, g, kw)
+    assert MKG.order_launches == before + (0 if mode == "direct" else 2)
+
+
+def test_champion_kernel_refuses_a_missing_or_stray_order(cuda):
+    """Path mode without its ray order, or direct mode with one: the C
+    entry returns cudaErrorInvalidValue (1) and launches nothing."""
+    lib = _champ_lib()
+    ptr = MK._ptr
+    stream = torch.cuda.current_stream().cuda_stream
+    for mode in ("path", "direct"):
+        t, ipar, ids, occs, _, g, kw, _ = _torus_record(cuda, mode)
+        slot, hot = MKG._hot_map(lib, ids, t[1].shape[0], t[2].shape[0])
+        stray = MKG._order_map(lib, ids, g, t[1].shape[0] + t[2].shape[0])
+        direct = int(mode == "direct")
+        outs = [torch.zeros_like(x) for x in t]
+        assert lib.rt_pathtrace_bwd_champ(
+            ptr(t[0]), ptr(t[1]), t[1].shape[0], ptr(t[2]), t[2].shape[0],
+            ptr(t[3]), t[3].shape[0], ptr(t[4]), t[4].shape[0], ptr(g),
+            ptr(ids), ptr(occs), ptr(slot), ptr(hot), MKG.HOT_TRI,
+            ptr(stray) if direct else None, g.shape[0], 0, None, 1, 2, 1,
+            64, 0 if direct else 5, 0, 0, direct, 0, 1, 31,
+            *(ptr(x) for x in outs), stream) == 1
+        torch.cuda.synchronize()
+        assert not any(x.any() for x in outs)
+
+
+def test_champion_kernel_in_the_order_on_sphere_field(cuda):
+    """Kernel 3 in the package's order on sphere_field(1024)'s record at
+    64x48 b5 with and without the roulette, ("sph", "mat") and all five
+    groups: phase 6's gates."""
+    for rr in (False, True):
+        cfg = RenderConfig(width=64, height=48, bounces=5,
+                           russian_roulette=rr, rr_start_depth=2,
+                           use_megakernel=True)
+        scene = sphere_field(1024, cols=64, rows=48, device=cuda)
+        t = mega.scene_tables(scene, cfg)
+        ipar = torch.tensor([0, 0], dtype=torch.int32)
+        u = mega.u_planes_for_pass(pt.init_state(cfg, cuda)["key"], 0, cfg,
+                                   scene.lights.count, cuda)
+        kw = dict(spp=1, width=64, bounces=5, two_sided=False,
+                  normalize_emitter=True, seed=cfg.seed,
+                  russian_roulette=rr, rr_start_depth=2)
+        _, ids, occs = MK.pathtrace_pass(
+            t[0], ipar, *t[1:], torch.zeros((cfg.total_rays, 3),
+                                            device=cuda), u,
+            record=True, **kw)
+        g = torch.as_tensor(np.random.default_rng(7).normal(
+            size=(cfg.total_rays, 3)).astype(np.float32), device=cuda)
+        for wrt in (("sph", "mat"), MKG.DIFF_ALL):
+            _hold_champ(t, ipar, ids, occs, u, g, kw, wrt=wrt)
+
+
+def test_champ_order_without_host_sync(cuda):
+    """The ray order and kernel 3 in it launch with no host
+    synchronisation (any sync raises under sync debug mode "error")."""
+    t, ipar, ids, occs, _, g, kw, _ = _torus_record(cuda)
+    n_obj = t[1].shape[0] + t[2].shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        order, n_live = MKG.champ_order(ids, g, n_obj)
+        got = MKG.pathtrace_pass_bwd_champ(t[0], ipar, *t[1:], g, None, ids,
+                                           occs, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert int(n_live) == int((g != 0).any(-1).sum())
+    assert all(torch.isfinite(x).all() for x in got)
+
+
+def test_champ_order_refuses_bad_scratch(cuda):
+    """A scratch of another size than ``rt_champ_order_words`` gives, or a
+    record of more segments than the tape holds: cudaErrorInvalidValue (1)
+    and nothing written."""
+    t, _, ids, _, _, g, _, _ = _torus_record(cuda)
+    lib = _champ_lib()
+    n_seg, n = ids.shape
+    words = lib.rt_champ_order_words(n, n_seg)
+    assert words > n and lib.rt_champ_order_words(n, 17) == -1
+    scratch = torch.full((words + 1,), -7, dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (ids.data_ptr(), n_seg, n, t[1].shape[0] + t[2].shape[0],
+            g.data_ptr(), scratch.data_ptr())
+    assert lib.rt_champ_order(*args, words + 1, stream) == 1
+    assert lib.rt_champ_order(ids.data_ptr(), 17, n, 10, g.data_ptr(),
+                              scratch.data_ptr(), words, stream) == 1
+    torch.cuda.synchronize()
+    assert bool((scratch == -7).all())
+
+
+# ptxas's (registers, stack, spill stores) of kernels 2 and 2s, as their
+# builds before kernel 3's ray order gave them on the H100 (their sources
+# did not change with it)
+K2_PTXAS = [(128, 32, 0), (128, 80, 160), (128, 80, 164)]
+K2S_PTXAS = {
+    "path": [(168, 168, 244), (168, 176, 256), (168, 176, 264),
+             (168, 17392, 228)],
+    "rr": [(168, 168, 240), (168, 168, 252), (168, 176, 260),
+           (168, 17392, 224)],
+    "direct": [(128, 152, 228), (128, 160, 240), (128, 160, 240),
+               (128, 17416, 320)]}
+# kernel 3's spill stores before its ray order (path, roulette, direct),
+# bytes
+K3_SPILL = {(0, 0): 244, (1, 0): 256, (0, 1): 0}
+
+
+def _usage(name, flags):
+    from raytracing_tpu_torch.ops import _build
+    return _build.ptxas_usage(_build.ptxas_log(name, flags))
+
+
+def test_kernel_registers_and_spill(cuda):
+    """ptxas's report: kernels 2 and 2s keep their registers, stack and
+    spill; each of kernel 3's three instances keeps at most 128 registers
+    (its 4 blocks of 128 per SM) and spills at most 16 bytes more than
+    before its ray order (path mode and the roulette take the order,
+    direct mode not)."""
+    import re
+    from raytracing_tpu_torch.ops import _build
+    _champ_lib()
+    for flags in MKS.SOFT_BUILDS:
+        _build.load("megakernel_soft", MKS._SIGNATURES, flags)
+    _build.load("megakernel_grad", MKG._SIGNATURES, MKG.ADJ_FLAGS)
+
+    def table(usage):
+        return sorted((u["registers"], u["stack"], u["spill_stores"])
+                      for u in usage.values())
+
+    assert table(_usage("megakernel_grad", MKG.ADJ_FLAGS)) == K2_PTXAS
+    for mode, flags in zip(("path", "rr", "direct"), MKS.SOFT_BUILDS):
+        assert table(_usage("megakernel_soft", flags)) == K2S_PTXAS[mode]
+    champ = {k: u for k, u in _usage("megakernel_champ",
+                                     MKG.ADJ_FLAGS).items()
+             if "pathtrace_bwd_champ_kernel" in k}
+    assert len(champ) == 3
+    for name, u in champ.items():
+        rr, direct = (int(x) for x in re.search(
+            r"kernelILb(\d)ELb(\d)EE", name).groups())
+        assert u["registers"] <= 128, name
+        assert u["spill_stores"] <= K3_SPILL[(rr, direct)] + 16, name
