@@ -71,13 +71,24 @@ Phases, each fatal on failure (no exception is caught):
      mean accumulator within 1e-5 relative (phase 3's gates; kernel 1
      contracts FMAs, the stage route does not);
  11. the champion (cell) route's kernels: kernel 1 recording vs not
-     recording on sphere_field(1024) at 1024^2 b5 (bit-equal accumulators;
-     the recording launch's ms and its share of its bound);
+     recording on sphere_field(1024) at 1024^2 b5 (bit-equal
+     accumulators); kernel 1's path mode over the sphere tree (row 1s:
+     past MK.SPH_BRUTE_MAX["path"] resident spheres, its instances walk a
+     box tree built by its call) equal to its brute instances (forced) on
+     sphere_field(1024) at 1024^2 b5, path and the roulette, recording
+     and not, in both builds (acc, ids and occs, fatal), the recording
+     pass's ms through the tree and through the brute instance and the
+     tree build's device time (torch.profiler), beside the card's name
+     and power limit; row 1s's bound, the smaller of the brute count and
+     the walk's (the plain walk's count on the same pass);
      kernel 1 recording vs its plain version on the same u-planes, on
      sphere_field(1024) at 1024^2 and on sphere_field(256) and cornell at
      256x192, the share of differing champion ids and occlusion bits
-     printed: the same source built with --fmad=false must equal the plain
-     version on every ray, id and bit; the build that runs, on cornell,
+     printed (on the sphere fields, which the route walks as a tree, the
+     plain version is the plain walk, MK.pathtrace_walk_reference, equal
+     to the brute plain version on every value): the same source built
+     with --fmad=false must equal the plain version on every ray, id and
+     bit; the build that runs, on cornell,
      phase 3's gates; on sphere fields, where contracted multiply-adds move
      grazing hits, SPHERE_GATES (at most 0.02% of first-segment ids, 5e-3
      of the mean, 5% of rays beyond 2e-4, 1% of id slots; the comment above
@@ -94,7 +105,9 @@ Phases, each fatal on failure (no exception is caught):
      render_pass -> image -> mean square -> backward -> SGD on sphere
      centers, radii and materials; 1 warm-up and 10 timed steps. Exactly
      one kernel-1 and one kernel-3 launch per step and no kernel-2 launch,
-     one build of kernel 3's ray order per step (MKG.order_launches),
+     one build of kernel 3's ray order per step (MKG.order_launches), one
+     sphere tree build per step, which kernel 1 walks
+     (MK.tree_build_launches, MK.path_walk_launches),
      a finite loss, finite gradients. Prints ms/step, forward + backward
      segments/s, kernel 1 recording and kernel 3 alone (CUDA events around
      the wrappers, on the last step's pass and cotangent) with their shares
@@ -126,7 +139,7 @@ Phases, each fatal on failure (no exception is caught):
      a finite loss, finite nonzero last gradients; nominal segments/s of
      both, counted as bench.py:271 and :320 count them; then 10 steps of
      sphere_field(1024)'s cell route with the roulette: one kernel-1 and one
-     kernel-3 launch per step;
+     kernel-3 launch per step, one sphere tree build per step;
  15. direct mode and fake shade: kernel 1's direct mode vs its plain
      version on u_planes_for_direct (phase 3's gates) on cornell 1024^2 spp
      1 (assign08's shape) and spp 4 with focal length 2.8 and lens diameter
@@ -267,13 +280,17 @@ Phases, each fatal on failure (no exception is caught):
      roulette (from depth 0) and in direct mode; (b) at 1024^2 b5: the
      "pallas" train step (one kernel-1 launch and one large kernel-2
      count per step: the record and the sweep count no kernel-1 or
-     kernel-3 launch) beside the cell route's (kernel 1 recording and
+     kernel-3 launch; on sphere_field(1024) one sphere tree build per
+     step on either route, the "pallas" record walking the forward's)
+     beside the cell route's (kernel 1 recording and
      kernel 3) on sphere_field(1024) with ("sph", "mat") and on the torus scene
      streamed with ("sph", "mat", "tri"), LARGE_STEPS steps each, median
      ms and fwd+bwd segments/s, kernel 2 alone on the last step's
      cotangent (both launches, then the record and the sweep each alone,
      with the sweep's hot rows and the count of its row adds) with its
-     bound (the record's count plus the sweep's operations;
+     bound (the record's count, on sphere_field(1024) the smaller of the
+     brute count and the sphere tree walk's over the live rays, plus the
+     sweep's operations;
      bytes: 12 per ray, the tables twice, the record, 4 + L per segment,
      written and read); BENCH_EDGE on the torus scene (one step;
      one kernel-1 and one large kernel-2s launch), kernel 2s alone (CUDA
@@ -1583,12 +1600,153 @@ def _cell_scene(name: str, w: int, h: int, dev):
 SPHERE_GATES = {"ids0": 2e-4, "rel": 5e-3, "beyond": 0.05, "ids": 0.01}
 
 
-def record_vs_plain(dev) -> None:
+def _plain_record(MK, tables, ipar, zeros, u, cfg, work=None):
+    """Kernel 1's plain version of a recording pass on the route the kernel
+    takes: past MK.SPH_BRUTE_MAX["path"] resident spheres the plain walk of
+    the sphere tree (MK.pathtrace_walk_reference, which equals the brute
+    plain version on every value: tests/test_torch_path_walk.py, and
+    counts the walk into ``work``), else the brute plain version."""
+    kw = dict(record=True, **_pass_kw(cfg))
+    if MK.sphere_walks(tables[1]):
+        return MK.pathtrace_walk_reference(tables[0], ipar, *tables[1:],
+                                           zeros, u, work=work, **kw)
+    return MK.pathtrace_pass_reference(tables[0], ipar, *tables[1:], zeros,
+                                       u, **kw)
+
+
+def _path_walk_ops(w: dict, work: dict, n_tri: int, n_lig: int) -> float:
+    """FP32 operations of a path pass whose sphere loops are the tree's
+    walk (``work``: node tests at OPS_CHUNK, a slab test, and row tests at
+    OPS_SPHERE_TEST, as kernel 4's and direct mode's walks are priced)
+    over the record's work w; the rest as _k1_ops counts it."""
+    tri = n_tri * OPS_TRIANGLE_TEST
+    return (w["rays"] * OPS_CAMERA + w["traced"] * (OPS_TRACE + tri)
+            + work.get("node_tests", 0) * OPS_CHUNK
+            + work.get("sph_tests", 0) * OPS_SPHERE_TEST
+            + w["sph_hits"] * OPS_SPHERE_HIT
+            + w["tri_hits"] * OPS_TRIANGLE_HIT
+            + w["primary"] * n_lig * OPS_EMITTER + w["shadow"] * OPS_NEE
+            + w["free"] * tri + w["bounces"] * OPS_BOUNCE
+            + w["rr"] * OPS_RR)
+
+
+def _walk_bound(tables, ids, occs, cfg, work: dict) -> dict:
+    """The bound of a recording pass whose record is (ids, occs): the
+    smaller of the brute count's (_k1_ops) and the walk's (_path_walk_ops
+    over ``work``), bytes as _record_bound's. Both bounds are kept beside
+    it."""
+    n_s, n_t, n_l = (t.shape[0] for t in tables[1:3] + tables[4:5])
+    w = _pass_work(ids, occs, n_l, n_s)
+    nbytes = ((24 + (1 + cfg.bounces) * (4 + n_l)) * cfg.total_rays
+              + _table_bytes(tables))
+    brute = _bound(_k1_ops(w, n_s, n_t, n_l), nbytes)
+    walk = _bound(_path_walk_ops(w, work, n_t, n_l), nbytes)
+    best = walk if walk["bound_ms"] < brute["bound_ms"] else brute
+    rays = max(w["rays"], 1)
+    return dict(best, walk_bound_ms=walk["bound_ms"],
+                brute_bound_ms=brute["bound_ms"],
+                node_tests_per_ray=work.get("node_tests", 0) / rays,
+                sph_tests_per_ray=work.get("sph_tests", 0) / rays)
+
+
+def _tree_build_device_ms(MK, rows, reps: int = 10) -> tuple:
+    """The sphere tree's build kernel alone, ms of device time per build:
+    its durations in torch.profiler's trace over ``reps`` wrapper calls
+    ("profiler"), or where the trace holds no device time its C entry
+    back to back between CUDA events ("events", _build_device_ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    MK.sphere_tree_build(rows, MK.SPH_TREE_LEAF)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            MK.sphere_tree_build(rows, MK.SPH_TREE_LEAF)
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages() if "sphere_tree" in e.key)
+    if us > 0:
+        return us / reps / 1e3, "profiler"
+    return _build_device_ms(None, MK, rows, reps), "events"
+
+
+def path_walk_vs_brute(dev, smi: str) -> dict:
+    """Phase 11, kernel 1's path mode over the sphere tree (row 1s) on
+    sphere_field(N_SPHERES) at MAIN_W x MAIN_H b5: the tree instances (the
+    route past MK.SPH_BRUTE_MAX["path"]) equal to the brute instances
+    (forced through sphere_walk=False), path and the roulette (from
+    RR_START), recording and not, in the default and the --fmad=false
+    builds: acc, ids and occs with torch.equal, fatal; then the recording
+    pass through the tree (its build included) and through the brute
+    instance in turns (CUDA events) and the build's device time."""
+    import torch
+    from raytracing_tpu_torch import RenderConfig, replace
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.render import mega
+
+    base = RenderConfig(width=MAIN_W, height=MAIN_H, bounces=BOUNCES,
+                        use_megakernel=True)
+    scene = _cell_scene(f"sphere_field({N_SPHERES})", MAIN_W, MAIN_H, dev)
+    t = mega.scene_tables(scene, base)
+    _check(MK.sphere_walks(t[1]), f"{N_SPHERES} spheres do not take the "
+           f"walk (SPH_BRUTE_MAX {MK.SPH_BRUTE_MAX})")
+    ipar = torch.tensor([0, 0], dtype=torch.int32)
+    zeros = torch.zeros((base.total_rays, 3), device=dev)
+    same = {}
+    for flags in ((), EXACT_FLAGS):
+        for rr in (False, True):
+            cfg = replace(base, russian_roulette=rr,
+                          rr_start_depth=RR_START if rr else 0)
+            kw = _pass_kw(cfg, build_flags=flags)
+            rec = {walk: MK.pathtrace_pass(t[0], ipar, *t[1:], zeros.clone(),
+                                           None, record=True,
+                                           sphere_walk=walk, **kw)
+                   for walk in (None, False)}
+            acc = {walk: MK.pathtrace_pass(t[0], ipar, *t[1:], zeros.clone(),
+                                           None, sphere_walk=walk, **kw)
+                   for walk in (None, False)}
+            ok = (all(torch.equal(a, b) for a, b in zip(rec[None],
+                                                        rec[False]))
+                  and torch.equal(acc[None], acc[False])
+                  and torch.equal(acc[None], rec[None][0]))
+            same[f"{'rr' if rr else 'path'} {flags or 'default'}"] = ok
+            _check(ok, f"the tree instance differs from the brute instance "
+                   f"(roulette {rr}, build flags {flags})")
+    kw = _pass_kw(base)
+    ms = {None: [], False: []}
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for walk in (None, False, False, None):
+        MK.pathtrace_pass(t[0], ipar, *t[1:], zeros.clone(), None,
+                          record=True, sphere_walk=walk, **kw)
+        start.record()
+        for _ in range(5):
+            MK.pathtrace_pass(t[0], ipar, *t[1:], zeros.clone(), None,
+                              record=True, sphere_walk=walk, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        ms[walk].append(start.elapsed_time(end) / 5)
+    build_ms, clock = _tree_build_device_ms(MK, t[1])
+    print(f"phase 11 kernel 1 path mode over the sphere tree, "
+          f"sphere_field({N_SPHERES}) {MAIN_W}x{MAIN_H} b{BOUNCES}: tree == "
+          f"brute instance (acc, ids, occs; recording and not) {same}; "
+          f"recording through the tree (its build included) "
+          f"{[round(x, 6) for x in ms[None]]} ms, through the brute "
+          f"instance {[round(x, 6) for x in ms[False]]} ms; the build alone "
+          f"{build_ms:.6g} ms of device time ({clock}); on [{smi}]")
+    return {"ms": min(ms[None]), "brute_ms": min(ms[False]),
+            "build_ms": build_ms, "build_clock": clock}
+
+
+def record_vs_plain(dev, smi: str) -> dict:
     """Phase 11, kernel 1's recording mode: bit-equal to the plain launch
     at the main path's size; against its plain version on the same
     u-planes, as built and as built with --fmad=false (which must equal it
     on every ray, champion and bit), at the main path's size and at
-    256x192."""
+    256x192; on the sphere fields past MK.SPH_BRUTE_MAX["path"] the route
+    walks the sphere tree and its plain version is the plain walk
+    (_plain_record), whose count gives row 1s's bound. Returns row 1s's
+    entry (path_walk_vs_brute's timings, the bound, the plain walk's ms
+    and the largest |d acc| of the default build on the sphere fields)."""
     import torch
     from raytracing_tpu_torch import RenderConfig
     from raytracing_tpu_torch.ops import megakernel as MK
@@ -1607,19 +1765,6 @@ def record_vs_plain(dev) -> None:
                               normalize_emitter=True, seed=cfg.seed)
     rec, ids, occs = _record(MK, tables, ipar, acc.clone(), None, cfg)
     torch.cuda.synchronize()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(5):
-        _record(MK, tables, ipar, acc.clone(), None, cfg)
-    end.record()
-    torch.cuda.synchronize()
-    rec_ms = start.elapsed_time(end) / 5
-    bound, ops = _record_bound(tables, ids, occs, cfg)
-    print(f"phase 11 kernel 1 recording sphere_field({N_SPHERES}) "
-          f"{MAIN_W}x{MAIN_H} b{BOUNCES}: {rec_ms:.6g} ms; bound {ops:.6g} "
-          f"FP32 operations per ray (OPS_* constants) -> "
-          f"{bound['bound_ms']:.6g} ms ({bound['bound_by']}), share of the "
-          f"bound {bound['bound_ms'] / rec_ms:.3%}")
     hit = (ids >= 0).double().mean(-1).tolist()
     print(f"phase 11 kernel 1 sphere_field({N_SPHERES}) {MAIN_W}x{MAIN_H} "
           f"b{BOUNCES}: recording vs not, max|d acc| "
@@ -1629,7 +1774,9 @@ def record_vs_plain(dev) -> None:
     _check(torch.equal(rec, norec), "recording changes kernel 1's acc")
     _check(bool((ids >= -1).all()) and bool((ids < N_SPHERES).all()),
            "recorded ids outside [-1, n_sph)")
+    row = path_walk_vs_brute(dev, smi)
 
+    errs = []
     for name, w, h in ((f"sphere_field({N_SPHERES})", MAIN_W, MAIN_H),
                        (f"sphere_field({SMALL_SPHERES})", SMALL_W, SMALL_H),
                        ("cornell", SMALL_W, SMALL_H)):
@@ -1640,19 +1787,18 @@ def record_vs_plain(dev) -> None:
         u = mega.u_planes_for_pass(pt.init_state(cfg, dev)["key"], 0, cfg,
                                    scene.lights.count, dev)
         zeros = torch.zeros((cfg.total_rays, 3), device=dev)
+        work: dict = {}
         t0 = time.perf_counter()
-        want = MK.pathtrace_pass_reference(
-            tables[0], ipar, *tables[1:], zeros, u, spp=cfg.spp,
-            width=cfg.width, bounces=cfg.bounces, two_sided=False,
-            normalize_emitter=True, seed=cfg.seed, record=True)
+        want = _plain_record(MK, tables, ipar, zeros, u, cfg, work)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
+        how = "plain walk" if work else "plain"
         got = _record(MK, tables, ipar, zeros.clone(), u, cfg)
         exact = _record(MK, tables, ipar, zeros.clone(), u, cfg, EXACT_FLAGS)
         torch.cuda.synchronize()
         for build, r in (("kernel 1", got), ("--fmad=false build", exact)):
             d = _record_diff(r, want)
-            print(f"phase 11 {build} recording vs plain ({plain_ms:.6g} "
+            print(f"phase 11 {build} recording vs {how} ({plain_ms:.6g} "
                   f"ms), {name} {w}x{h} b{BOUNCES}: max|d acc| "
                   f"{d['max']:.6g}, rays beyond {TOL:g}: {d['beyond']:.6%}, "
                   f"mean acc rel {d['rel']:.3g}; ids differ on "
@@ -1669,8 +1815,28 @@ def record_vs_plain(dev) -> None:
             _check(d["rel"] <= 1e-5, f"{name}: mean acc differs by "
                    f"{d['rel']:.3g}")
         else:
+            errs.append(d["max"])
             _check(all(d[k] <= lim for k, lim in SPHERE_GATES.items()),
                    f"{name}: kernel 1 vs plain {d}, limits {SPHERE_GATES}")
+        if w == MAIN_W:
+            # row 1s's bound on this pass (the u-planes are the draws of
+            # the timed PRNG pass 0): the smaller of the brute count's and
+            # the walk's
+            _check(bool(work), f"{name}: the route does not walk the tree")
+            bound = _walk_bound(tables, want[1], want[2], cfg, work)
+            row.update(bound, plain_ms=plain_ms)
+            print(f"phase 11 row 1s bound, {name} {w}x{h} b{BOUNCES}: the "
+                  f"walk's count {bound['node_tests_per_ray']:.6g} node "
+                  f"tests and {bound['sph_tests_per_ray']:.6g} row tests "
+                  f"per ray, {work.get('union_leaves', 0)} leaves of the "
+                  f"warps' unions -> {bound['walk_bound_ms']:.6g} ms; the "
+                  f"brute count's {bound['brute_bound_ms']:.6g} ms; bound "
+                  f"{bound['bound_ms']:.6g} ms ({bound['bound_by']}), share "
+                  f"{bound['bound_ms'] / row['ms']:.3%} of the tree's "
+                  f"{row['ms']:.6g} ms, of the brute instance's "
+                  f"{bound['bound_ms'] / row['brute_ms']:.3%}")
+    row["max_abs_err"] = max(errs)
+    return row
 
 
 def _record_diff(got, want) -> dict:
@@ -1819,7 +1985,7 @@ def train_cell_path(dev, smi: str) -> dict:
     state, loss0, _ = step(state)                       # warm-up
     torch.cuda.synchronize()
     MK.launches = MKG.launches = MKG.champ_launches = 0
-    MKG.order_launches = 0
+    MKG.order_launches = MK.path_walk_launches = MK.tree_build_launches = 0
     t0 = time.perf_counter()
     losses = []
     for _ in range(TRAIN_STEPS):
@@ -1829,11 +1995,17 @@ def train_cell_path(dev, smi: str) -> dict:
     wall = time.perf_counter() - t0
     k1, k2, k3 = MK.launches, MKG.launches, MKG.champ_launches
     n_order = MKG.order_launches
+    walks, builds = MK.path_walk_launches, MK.tree_build_launches
     _check(k1 == TRAIN_STEPS and k3 == TRAIN_STEPS and k2 == 0,
            f"{k1} kernel-1, {k3} kernel-3 and {k2} kernel-2 launches for "
            f"{TRAIN_STEPS} steps (want one, one and none per step)")
     _check(n_order == TRAIN_STEPS, f"{n_order} builds of kernel 3's ray "
            f"order for {TRAIN_STEPS} steps (want one per step)")
+    # past SPH_BRUTE_MAX["path"] kernel 1 walks a sphere tree, built once
+    # per step by its recording forward
+    _check(walks == TRAIN_STEPS and builds == TRAIN_STEPS,
+           f"{walks} kernel-1 launches walking a sphere tree and {builds} "
+           f"tree builds for {TRAIN_STEPS} steps (want one each per step)")
     losses = torch.stack([loss0] + losses)
     _check(bool(torch.isfinite(losses).all()), "training loss not finite")
     for name in ("center", "materials", "radius"):
@@ -1883,13 +2055,14 @@ def train_cell_path(dev, smi: str) -> dict:
         **kw)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t1) * 1e3
-    k1_bound, k3_bound, ops = _cell_bounds(tables, ids, occs, g, cfg)
+    _, k3_bound, ops = _cell_bounds(tables, ids, occs, g, cfg)
     live = (g != 0).any(-1).double().mean().item()
     print(f"phase 12 train sphere_field({N_SPHERES}) {MAIN_W}x{MAIN_H} "
           f"b{BOUNCES} wrt {list(TRAIN_WRT)}, cell route, {TRAIN_STEPS} timed "
           f"steps on [{smi}]: {segs * TRAIN_STEPS / wall:.6g} fwd+bwd ray "
           f"segments/s ({segs} per step), {wall * 1e3 / TRAIN_STEPS:.6g} "
-          f"ms/step; launches kernel 1 {k1}, kernel 3 {k3}, kernel 2 {k2}; "
+          f"ms/step; launches kernel 1 {k1} (walking the sphere tree "
+          f"{walks}, tree builds {builds}), kernel 3 {k3}, kernel 2 {k2}; "
           f"alone on the last step's pass: kernel 1 recording {k1_ms:.6g} ms, "
           f"kernel 3 {k3_ms:.6g} ms ({live:.3%} of rays with g != 0), plain "
           f"champion backward {plain_ms:.6g} ms; loss first "
@@ -1897,12 +2070,10 @@ def train_cell_path(dev, smi: str) -> dict:
           f"center {grads['center'].norm().item():.6g} radius "
           f"{grads['radius'].norm().item():.6g} materials "
           f"{grads['materials'].norm().item():.6g}")
-    print(f"phase 12 bounds on that pass: kernel 1 recording {ops[0]:.6g} "
-          f"FP32 operations per ray -> {k1_bound['bound_ms']:.6g} ms "
-          f"({k1_bound['bound_by']}), share {k1_bound['bound_ms'] / k1_ms:.3%};"
-          f" kernel 3 {ops[1]:.6g} per ray with g != 0 -> "
-          f"{k3_bound['bound_ms']:.6g} ms ({k3_bound['bound_by']}), share "
-          f"{k3_bound['bound_ms'] / k3_ms:.3%}")
+    print(f"phase 12 bound on that pass (kernel 1 recording's: phase 11's "
+          f"row 1s): kernel 3 {ops[1]:.6g} FP32 operations per ray with g "
+          f"!= 0 -> {k3_bound['bound_ms']:.6g} ms ({k3_bound['bound_by']}), "
+          f"share {k3_bound['bound_ms'] / k3_ms:.3%}")
     ray, ordered = order["warp_work_ray"], order["warp_work_order"]
     print(f"phase 12 kernel 3's ray order on that pass ({n_order} builds "
           f"in {TRAIN_STEPS} steps): {order['n_live']} rays with g != 0 of "
@@ -1923,7 +2094,8 @@ def train_cell_path(dev, smi: str) -> dict:
             err = max(err, _grad_gates(gname, a, b, False))
     return {"launches": k3, "ms": k3_ms, "plain_ms": plain_ms,
             "max_abs_err": err, "k1_record_ms": k1_ms, **k3_bound,
-            "order_launches": n_order, **order}
+            "order_launches": n_order, "walk_launches": walks,
+            "tree_builds": builds, **order}
 
 
 def _order_device_ms(MKG, ids, g, n_obj: int, reps: int = 10) -> tuple:
@@ -2007,14 +2179,14 @@ def rr_vs_plain(dev, name: str, w: int, h: int) -> dict:
     zeros = torch.zeros((cfg.total_rays, 3), device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    want = MK.pathtrace_pass_reference(tables[0], ipar, *tables[1:], zeros,
-                                       u, record=True, **_pass_kw(cfg))
+    want = _plain_record(MK, tables, ipar, zeros, u, cfg)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
+    how = "plain walk" if MK.sphere_walks(tables[1]) else "plain"
     got = _record(MK, tables, ipar, zeros.clone(), u, cfg)
     d = _record_diff(got, want)
     ended = ((want[1][:-1] >= 0) & (want[1][1:] < 0)).double().sum().item()
-    print(f"phase 13 kernel 1 with the roulette vs plain ({plain_ms:.6g} ms)"
+    print(f"phase 13 kernel 1 with the roulette vs {how} ({plain_ms:.6g} ms)"
           f", {name} {w}x{h} b{BOUNCES}: max|d acc| {d['max']:.6g}, rays "
           f"beyond {TOL:g}: {d['beyond']:.6%}, mean acc rel {d['rel']:.3g}; "
           f"ids differ on {d['ids']:.6%} of slots ({d['ids0']:.6%} of first "
@@ -2209,6 +2381,7 @@ def full_train(dev, smi: str) -> tuple[dict, dict]:
         state = pt.init_state(cfg, dev)
         torch.cuda.synchronize()
         MK.launches = MKG.launches = MKG.champ_launches = 0
+        MK.path_walk_launches = MK.tree_build_launches = 0
         t0 = time.perf_counter()
         losses = []
         for _ in range(steps):
@@ -2221,6 +2394,14 @@ def full_train(dev, smi: str) -> tuple[dict, dict]:
         _check((k1, k2, k3) == want, f"{name}: launches kernel 1 {k1}, "
                f"kernel 2 {k2}, kernel 3 {k3} for {steps} steps (want "
                f"{want})")
+        # one sphere tree per step where kernel 1 walks one
+        trees = steps if MK.sphere_walks(
+            mega.scene_tables(scene, cfg)[1]) else 0
+        _check((MK.path_walk_launches, MK.tree_build_launches)
+               == (trees, trees), f"{name}: kernel 1 walked "
+               f"{MK.path_walk_launches} times and built "
+               f"{MK.tree_build_launches} trees for {steps} steps (want "
+               f"{trees} each)")
         losses = torch.stack(losses)
         _check(bool(torch.isfinite(losses).all()), f"{name}: loss")
         for gname, gr in grads.items():
@@ -4551,6 +4732,7 @@ def large_train(dev, smi: str, work: dict) -> dict:
             torch.cuda.synchronize()
             MK.launches = MK.stream_launches = MKG.launches = 0
             MKG.large_launches = MKG.champ_launches = 0
+            MK.path_walk_launches = MK.tree_build_launches = 0
             times = []
             for _ in range(LARGE_STEPS):
                 t0 = time.perf_counter()
@@ -4558,14 +4740,20 @@ def large_train(dev, smi: str, work: dict) -> dict:
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
             counts = (MK.launches, MK.stream_launches, MKG.launches,
-                      MKG.large_launches, MKG.champ_launches)
+                      MKG.large_launches, MKG.champ_launches,
+                      MK.path_walk_launches, MK.tree_build_launches)
             streamed = LARGE_STEPS if shape == "torus" else 0
-            want = ((LARGE_STEPS, streamed, 0, LARGE_STEPS, 0)
+            # sphere_field(1024): one sphere tree per step, which kernel 1
+            # walks and, on the "pallas" route, the record walks too
+            trees = 0 if shape == "torus" else LARGE_STEPS
+            want = ((LARGE_STEPS, streamed, 0, LARGE_STEPS, 0, trees, trees)
                     if route == "pallas"
-                    else (LARGE_STEPS, streamed, 0, 0, LARGE_STEPS))
+                    else (LARGE_STEPS, streamed, 0, 0, LARGE_STEPS, trees,
+                          trees))
             _check(counts == want, f"{shape} {route} step: launches (kernel "
-                   "1, streamed, kernel 2, kernel 2 large, kernel 3) "
-                   f"{counts}, want {want}")
+                   "1, streamed, kernel 2, kernel 2 large, kernel 3, kernel "
+                   f"1 walking a sphere tree, tree builds) {counts}, want "
+                   f"{want}")
             _check(bool(torch.isfinite(loss)), f"{shape} {route}: loss")
             for name, gr in zip(p, grads):
                 _check(bool(torch.isfinite(gr).all()) and bool(gr.any()),
@@ -4577,7 +4765,8 @@ def large_train(dev, smi: str, work: dict) -> dict:
                   f"{min(times):.6g}, max {max(times):.6g}), "
                   f"{segs / ms[route] * 1e3:.6g} fwd+bwd ray segments/s; "
                   f"launches (kernel 1, streamed, kernel 2, kernel 2 large,"
-                  f" kernel 3) {counts}")
+                  f" kernel 3, kernel 1 walking a sphere tree, tree builds) "
+                  f"{counts}")
             if route == "pallas":
                 launches, g = counts[3], p["g"].contiguous()
                 last = state["passes"] - 1
@@ -4594,12 +4783,15 @@ def large_train(dev, smi: str, work: dict) -> dict:
         ipar = torch.tensor([last, 0], dtype=torch.int32)
         kw = _pass_kw(cfg, diff_wrt=wrt)
         rkw = {k: v for k, v in kw.items() if k != "diff_wrt"}
+        # the record walks the forward's sphere tree, as in the step
+        tree = MK.pass_tree(tables[1], None, chunks)
         pieces = {
             "both": lambda: MKG.pathtrace_pass_bwd(
-                tables[0], ipar, *tables[1:], g, None, chunks=chunks, **kw),
+                tables[0], ipar, *tables[1:], g, None, chunks=chunks,
+                sph_tree=tree, **kw),
             "record": lambda: MKG._record(
                 tables[0], ipar, *tables[1:], g, None, mode="path",
-                chunks=chunks, grid=None, block=0, **rkw)}
+                chunks=chunks, grid=None, block=0, sph_tree=tree, **rkw)}
         rec = pieces["record"]()
         pieces["sweep"] = lambda: MKG._launch_champ(
             tables[0], ipar, *tables[1:], g, None, *rec, wrt, mode="path",
@@ -4627,7 +4819,14 @@ def large_train(dev, smi: str, work: dict) -> dict:
             record=True, chunks=chunks, **_pass_kw(cfg))
         live = (g != 0).any(-1)
         w = _pass_work(ids, occs, n_l, n_s, live)
-        if chunks is None:
+        if tree is not None:
+            # the smaller of the brute count's and the sphere tree walk's
+            # over the live rays (the plain walk, the others dead)
+            walked = _path_walk_work(MK, tables, ipar, cfg, live)
+            ops = min(_k1_ops(w, n_s, n_t, n_l),
+                      _path_walk_ops(w, walked, n_t, n_l))
+            nbytes = _table_bytes(tables)
+        elif chunks is None:
             ops = _k1_ops(w, n_s, n_t, n_l)
             nbytes = _table_bytes(tables)
         else:
@@ -5043,7 +5242,7 @@ def direct_walk_vs_brute(dev) -> None:
     """Phase 23 (a), the sphere tree: on each table of _walk_tables at
     MAIN_W x MAIN_H spp 1, the build kernel's tree equal to MK.sphere_tree
     (torch.equal), and kernel 1's walk instances (the route past
-    MK.DIRECT_SPH_BRUTE_MAX) equal to its brute ones (forced), recording
+    MK.SPH_BRUTE_MAX["direct"]) equal to its brute ones (forced), recording
     and not, in the default and the --fmad=false builds: acc, ids and occs
     with torch.equal, each fatal. Card against card: no plain run."""
     import torch
@@ -5052,11 +5251,11 @@ def direct_walk_vs_brute(dev) -> None:
     from raytracing_tpu_torch.ops import megakernel as MK
     for name in ("spheres1024", "ties", "spheres4608"):
         t = _walk_tables(name, dev)
-        _check(MK.direct_walks(t[1]), f"{name}: {t[1].shape[0]} spheres do "
-               f"not take the walk (DIRECT_SPH_BRUTE_MAX "
-               f"{MK.DIRECT_SPH_BRUTE_MAX})")
-        built = MK.sphere_tree_build(t[1], MK.DIRECT_SPH_LEAF)
-        _check(_tree_equal(built, MK.sphere_tree(t[1], MK.DIRECT_SPH_LEAF)),
+        _check(MK.sphere_walks(t[1], mode="direct"),
+               f"{name}: {t[1].shape[0]} spheres do not take the walk "
+               f"(SPH_BRUTE_MAX {MK.SPH_BRUTE_MAX})")
+        built = MK.sphere_tree_build(t[1], MK.SPH_TREE_LEAF)
+        _check(_tree_equal(built, MK.sphere_tree(t[1], MK.SPH_TREE_LEAF)),
                f"{name}: the build kernel's tree differs from MK.sphere_tree")
         n = MAIN_W * MAIN_H
         zeros = torch.zeros((n, 3), device=dev)
@@ -5089,7 +5288,7 @@ def _build_device_ms(HK, MK, rows, reps: int = 20) -> float:
     launches: ~0.06-0.1 ms of host work against ~0.04 ms of device time
     on sphere_field(1024))."""
     import torch
-    tree = MK.sphere_tree_build(rows, MK.DIRECT_SPH_LEAF)
+    tree = MK.sphere_tree_build(rows, MK.SPH_TREE_LEAF)
     st = tree.tree
     lib = MK._build.load("sphere_tree", MK._TREE_SIGNATURES)
     args = (rows.data_ptr(), rows.shape[0], st.leaf, st.n_slots,
@@ -5137,6 +5336,44 @@ def _direct_walk_work(MK, tables, key, tree, live=None) -> dict:
         MK._direct_reference(*tables, torch.zeros((n, 3), device=sph.device),
                              u, spp=1, width=MAIN_W, two_sided=False,
                              trace=trace, anyhit=anyhit)
+    return work
+
+
+def _path_walk_work(MK, tables, ipar, cfg, live) -> dict:
+    """The sphere tree's walk, counted by its plain emulation (``MK._trace``
+    / ``MK._anyhit`` with the tree, the kernel's lane order) over the path
+    pass ``ipar`` of ``cfg`` (its PRNG draws) on ``tables``, the rays
+    outside ``live`` dead in every segment, as the split's record skips
+    them: node_tests, sph_tests, ..."""
+    import torch
+    work: dict = {}
+    sph, tri = tables[1], tables[2]
+    tree = MK.sphere_tree(sph, MK.SPH_TREE_LEAF)
+    inf = torch.full_like(live, float("inf"), dtype=torch.float32)
+
+    def window(mint, maxt):
+        return torch.where(live, mint, inf), torch.where(live, maxt, inf)
+
+    def trace(o, d, mint, maxt):
+        return MK._trace(o, d, *window(mint, maxt), sph, tri, False,
+                         work=work, sph_tree=tree)
+
+    def anyhit(o, d, mint, maxt):
+        return MK._anyhit(o, d, *window(mint, maxt), sph, tri, False,
+                          work=work, sph_tree=tree)
+
+    n = live.shape[0]
+    kw = _pass_kw(cfg)
+    u = MK.pass_draws(ipar, None, n, tables[4].shape[0], cfg.bounces,
+                      cfg.seed, 0, sph.device, cfg.russian_roulette)
+    with torch.no_grad():
+        MK._pass_reference(*tables, torch.zeros((n, 3), device=sph.device),
+                           u, int(ipar[1]), spp=cfg.spp, width=cfg.width,
+                           bounces=cfg.bounces, two_sided=kw["two_sided"],
+                           normalize_emitter=kw["normalize_emitter"],
+                           russian_roulette=cfg.russian_roulette,
+                           rr_start_depth=cfg.rr_start_depth, trace=trace,
+                           anyhit=anyhit)
     return work
 
 
@@ -5241,7 +5478,8 @@ def direct_train(dev, smi: str, name: str, route: str) -> dict:
             for k in counters}
     # past the threshold every direct launch walks a tree, built once per
     # step by the forward (the split's record walks the forward's)
-    walks = MK.direct_walks(mega.scene_tables(scene, cfg)[1])
+    walks = MK.sphere_walks(mega.scene_tables(scene, cfg)[1],
+                            mode="direct")
     want["kernel 1 (direct, sphere tree)"] = DIRECT_STEPS * walks
     want["sphere tree build"] = DIRECT_STEPS * walks
     _check(got == want, f"direct {route} steps on {name}: launches {got} "
@@ -5270,7 +5508,7 @@ def direct_train(dev, smi: str, name: str, route: str) -> dict:
                             split=MKG.large_route(t[1], t[2]))
     if route == "kernel2":
         # the split's record walks the forward's tree, as in the step
-        fwd_tree = MK.direct_tree(t[1])
+        fwd_tree = MK.pass_tree(t[1], mode="direct")
         runs = {"b": lambda: MKG.pathtrace_pass_bwd(
             t[0], ipar, *t[1:], g, None, sph_tree=fwd_tree, **bkw)}
     elif route == "cell":
@@ -5294,7 +5532,7 @@ def direct_train(dev, smi: str, name: str, route: str) -> dict:
         # the walk's count (of the pieces this route times) against the
         # brute one: the bound takes the smaller; the build kernel alone
         # against its plain version
-        tree = MK.sphere_tree(t[1], MK.DIRECT_SPH_LEAF)
+        tree = MK.sphere_tree(t[1], MK.SPH_TREE_LEAF)
         n_l = t[4].shape[0]
         live = (g != 0).any(-1)
         for k in ("a", "b"):
@@ -5320,14 +5558,14 @@ def direct_train(dev, smi: str, name: str, route: str) -> dict:
                 bounds[k].update(walk_b, per_ray=ops / rays)
             bounds[k].update(walk_bound_ms=walk_b["bound_ms"],
                              brute_bound_ms=brute_ms)
-        built = MK.sphere_tree_build(t[1], MK.DIRECT_SPH_LEAF)
+        built = MK.sphere_tree_build(t[1], MK.SPH_TREE_LEAF)
         _check(_tree_equal(built, tree), f"{name}: the build kernel's tree "
                "differs from MK.sphere_tree")
         err = max(torch.where(a == b, 0.0, (a.double() - b.double()).abs())
                   .max().item() for a, b in (
                       (built.rows, tree.rows), (built.perm, tree.perm),
                       (built.tree.nodes, tree.tree.nodes)))
-        plain_ms = _timed(lambda: MK.sphere_tree(t[1], MK.DIRECT_SPH_LEAF))[1]
+        plain_ms = _timed(lambda: MK.sphere_tree(t[1], MK.SPH_TREE_LEAF))[1]
         # bytes: the table read once, the tree written once; operations:
         # per row its box (6) and code (9), per node its box (6)
         tree_bytes = 4 * sum(x.numel() for x in (
@@ -5337,7 +5575,7 @@ def direct_train(dev, smi: str, name: str, route: str) -> dict:
                  **_bound(15 * t[1].shape[0] + 6 * tree.tree.nodes.shape[0],
                           tree_bytes)}
         runs["build"] = lambda: MK.sphere_tree_build(t[1],
-                                                     MK.DIRECT_SPH_LEAF)
+                                                     MK.SPH_TREE_LEAF)
     ms = {}
     for k, fn in runs.items():
         fn()
@@ -5475,7 +5713,7 @@ def main() -> int:
     s10 = stage_vs_megakernel(dev)
     _elapsed(11)
     # phase 11: the cell route's kernels against their plain versions
-    record_vs_plain(dev)
+    r11 = record_vs_plain(dev, smi)
     c_main = kernel3_vs_plain(dev, f"sphere_field({N_SPHERES})", MAIN_W,
                               MAIN_H, TRAIN_WRT, max_gate=False)
     c_small = [kernel3_vs_plain(dev, name, SMALL_W, SMALL_H, MKG.DIFF_ALL,
@@ -5610,7 +5848,7 @@ def main() -> int:
            direct_diff_vs_plain(dev, "spheres", TRAIN_WRT),
            direct_diff_vs_plain(dev, "torus", MESH_WRT),
            direct_diff_vs_plain(dev, "spheres1024", TRAIN_WRT, soft=False)]
-    # past MK.DIRECT_SPH_BRUTE_MAX spheres: the tree's build and walk
+    # past MK.SPH_BRUTE_MAX["direct"] spheres: the tree's build and walk
     # against MK.sphere_tree and the brute instances, card against card
     direct_walk_vs_brute(dev)
     d23 = {k: v for route in ("kernel2", "cell", "soft")
@@ -5631,6 +5869,21 @@ def main() -> int:
         "launches": k["launches"], "max_abs_err": max_err,
         "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"], "library_ms": None}, {
+        "name": "pathtrace_pass (megakernel, path mode walking a sphere "
+                "tree built by its call: the cell step's recording, "
+                f"sphere_field({N_SPHERES}))", "route": "cuda",
+        "source": "raytracing_tpu_torch/csrc/megakernel.cu",
+        "replaces": "raytracing_tpu/ops/pallas/megakernel.py:873",
+        "launches": c12["walk_launches"],
+        "tree_builds": c12["tree_builds"],
+        "max_abs_err": r11["max_abs_err"], "ms": r11["ms"],
+        "brute_ms": r11["brute_ms"], "build_ms": r11["build_ms"],
+        "plain_ms": r11["plain_ms"], "bound_ms": r11["bound_ms"],
+        "bound_by": r11["bound_by"],
+        "walk_bound_ms": r11["walk_bound_ms"],
+        "brute_bound_ms": r11["brute_bound_ms"], "library_ms": None,
+        "shape": f"{MAIN_W}x{MAIN_H} b{BOUNCES}, one recording pass, the "
+                 "build included"}, {
         "name": "pathtrace_pass_bwd (adjoint megakernel)", "route": "cuda",
         "source": "raytracing_tpu_torch/csrc/megakernel_grad.cu",
         "replaces": "raytracing_tpu/ops/pallas/megakernel_grad.py:2152",

@@ -145,13 +145,14 @@
 // loops' in any visiting order (JAX keeps the first in Morton order at an
 // exact tie). Times in PERF.md.
 //
-// A resident sphere table past ops/megakernel.py DIRECT_SPH_BRUTE_MAX rows
-// in direct mode (the kTree instances of direct_kernel, recording and not,
-// picked when rt_direct_pass is given a tree; the brute build only, so the
-// default and the --fmad=false builds carry them): the sphere loop of the
-// primary trace and of each shadow ray becomes the walk of a box tree over
-// the rows (pathtrace.cuh warp_walk: the warp's union of its lanes' walks),
-// the triangle loop after it unchanged. The tree (ops/megakernel.py
+// A resident sphere table past ops/megakernel.py SPH_BRUTE_MAX[mode] rows
+// (the kTree instances of pathtrace_kernel and direct_kernel, recording and
+// not, picked when rt_pathtrace_pass or rt_direct_pass is given a tree; the
+// brute build only, so the default and the --fmad=false builds carry
+// them): the sphere loop of every trace and shadow ray becomes the walk of
+// a box tree over the rows (pathtrace.cuh tree_walk: each lane's own walk
+// in path mode, the warp's union of its lanes' walks in direct mode), the
+// triangle loop after it unchanged. The tree (ops/megakernel.py
 // SphereTree: the rows Morton-sorted, leaves of one row, node boxes
 // widened by CHUNK_PAD of the rows' scale) is built from the call's own
 // rows on the card by one launch of csrc/sphere_tree.cu, since a training
@@ -160,11 +161,12 @@
 // bounded the brute loop: it tested every row of the table per ray and
 // shadow ray from shared memory, 20 FP32 operations and a broadcast read
 // per sphere, near its instruction-rate ceiling; the walk tests ~80 node
-// boxes and ~2.3 rows per ray on sphere_field(1024)
-// (MK.direct_walk_reference). Each
-// visited row runs the brute loop's arithmetic and the least (t, original
-// index) pair wins, so acc, ids and occs are the brute instances' bit for
-// bit under the same build flags. Times in PERF.md §6, row 1d.
+// boxes and ~2.3 rows per ray in direct mode on sphere_field(1024)
+// (MK.direct_walk_reference) and ~170 node boxes and ~6 rows per ray of a
+// path pass at b5 (MK.pathtrace_walk_reference). Each visited row runs the
+// brute loop's arithmetic and the least (t, original index) pair wins, so
+// acc, ids and occs are the brute instances' bit for bit under the same
+// build flags. Times in PERF.md §6, rows 1d and 1s.
 //
 // One build holds one half of the instances: the brute ones, or, with
 // -DRT_GRID_MODE=1 (ops/megakernel.py GRID_FLAGS), grid mode's, which also
@@ -224,6 +226,11 @@ constexpr int kGridMinBlocks = 8;
 // recording walk ran 505 us against 420 at 8 blocks (61 registers, no
 // spill; PERF.md §6, row 1d)
 constexpr int kTreeMinBlocks = 8;
+// Path mode's (kTree of pathtrace_kernel, each lane's own walk): at 8
+// blocks 64 registers, 176 B of stack, 16-20 B spilled, and
+// sphere_field(1024)'s 1024^2 b5 pass ran 3.26 ms against 3.31 at 7 blocks
+// (70 registers, no spill) and 3.32 at 6 (PERF.md §6, row 1s)
+constexpr int kPathTreeMinBlocks = 8;
 constexpr int kWideSpheres = 512;  // from here the 8-row sphere loop
 
 struct Acc {
@@ -267,15 +274,17 @@ __device__ __forceinline__ bool skip_ray(const float* live, int rid) {
 // throughput *= albedo. A hit with no valid material adds nothing.
 // Returns the occlusion bit (false without a valid hit, as JAX's dead
 // window gives).
-template <int kRows, bool kGrid, bool kStream, bool kCells>
+template <int kRows, bool kGrid, bool kStream, bool kCells, bool kTree>
 __device__ __forceinline__ bool nee(const Tables& T, const Grids* G,
-                                    const Draws& D, int slot, int li,
-                                    const Hit& h, float eps, Acc& A) {
+                                    const Stream* S, const Draws& D,
+                                    int slot, int li, const Hit& h, float eps,
+                                    Acc& A) {
   if (!(h.m >= 0.0f)) return false;
   const float* l = T.lig + li * kLig;
   const Shadow s = shadow_ray(T, D, slot, li, h, eps);
   const bool occ =
-      anyhit<kRows, kGrid, kStream, kCells>(T, s.so, s.sd, 0.0f, s.dist, G);
+      anyhit<kRows, kGrid, kStream, kCells, kTree ? kLaneTree : kNoTree>(
+          T, s.so, s.sd, 0.0f, s.dist, G, S);
   // geometric term with the distance to the light CENTRE (reference quirk)
   const V3 lp = ld3(l), ln = ld3(l + 3);
   const V3 q = h.p - lp;
@@ -301,10 +310,12 @@ __device__ __forceinline__ bool nee(const Tables& T, const Grids* G,
 // their pass and depth. Each ray's passes and segments run in the order
 // of the schedule, so acc is what pass after pass would give. kRR: Russian
 // roulette from depth rr_start on (a template parameter, so the build
-// without it keeps its registers and code).
-template <int kRows, bool kRR, bool kGrid, bool kStream, bool kCells>
-__device__ void passes(const Tables& T, const Grids* G, Draws& D,
-                       const Rec& R,
+// without it keeps its registers and code); kTree: the resident spheres
+// walked as S, their box tree (trace and anyhit).
+template <int kRows, bool kRR, bool kGrid, bool kStream, bool kCells,
+          bool kTree>
+__device__ void passes(const Tables& T, const Grids* G, const Stream* S,
+                       Draws& D, const Rec& R,
                        const uint32_t* keys, int n_passes, int rid_g,
                        int spp, int width, int bounces, int rr_start,
                        bool normalize_emitter, Acc& A) {
@@ -339,7 +350,8 @@ __device__ void passes(const Tables& T, const Grids* G, Draws& D,
       maxt = inf_f();
     }
     depth += 1;
-    maxt = trace<kRows, kGrid, kStream, kCells>(T, o, d, mint, maxt, h, G);
+    maxt = trace<kRows, kGrid, kStream, kCells,
+                 kTree ? kLaneTree : kNoTree>(T, o, d, mint, maxt, h, G, S);
     R.id(depth, h.obj);  // before the emitter test, as JAX records it
     if (fresh) {
       // emitter hits on the primary segment only; a hit ends the path
@@ -355,9 +367,8 @@ __device__ void passes(const Tables& T, const Grids* G, Draws& D,
     }
     for (int li = 0; li < L; ++li)
       R.occ(depth * L + li,
-            nee<kRows, kGrid, kStream, kCells>(T, G, D,
-                                               nee_slot(depth, li, L, kRR),
-                                               li, h, eps, A));
+            nee<kRows, kGrid, kStream, kCells, kTree>(
+                T, G, S, D, nee_slot(depth, li, L, kRR), li, h, eps, A));
     // a path without a valid hit stays dead: nothing more accumulates
     bool more = depth < bounces && h.m >= 0.0f;
     if (kRR && more && depth >= rr_start) {
@@ -403,6 +414,7 @@ struct Params {
   const float* live;  // recording: trace only these rays (skip_ray)
   int block;       // blocked layout's block edge, 0: row-major
   Grids grids;     // grid mode (kernel with kGrid)
+  Stream tree;     // the spheres' tree (kernel with kTree)
 };
 
 // The row-major ray of thread slot `slot` in the blocked layout: slots
@@ -446,15 +458,22 @@ __device__ __forceinline__ Tables stage_launch_tables(
 // kRows: sphere rows per iteration of the object loops (pathtrace.cuh);
 // kRR: Russian roulette; kGrid: grid mode's global tables; kStream: the
 // streamed chunks as well; kCells: triangle grids, walked through their
-// cell-major copies (the instances without them keep their code)
-template <int kRows, bool kRR, bool kGrid, bool kStream, bool kCells>
+// cell-major copies; kTree: the resident spheres walked as a box tree
+// (pathtrace.cuh warp_walk) from global memory, not staged in shared
+// memory (the instances without them keep their code)
+template <int kRows, bool kRR, bool kGrid, bool kStream, bool kCells,
+          bool kTree = false>
 __global__ void __launch_bounds__(
-    kBlock, kGrid ? (kCells || kStream ? kCellMinBlocks : kGridMinBlocks) : 1)
+    kBlock, kTree ? kPathTreeMinBlocks
+            : kGrid ? (kCells || kStream ? kCellMinBlocks : kGridMinBlocks)
+                    : 1)
     pathtrace_kernel(const __grid_constant__ Params p) {
   extern __shared__ float4 smem4[];  // 16-byte aligned
-  const Tables T = stage_launch_tables<kGrid>(
-      reinterpret_cast<float*>(smem4), p.par, p.sph, p.n_sph, p.tri, p.n_tri,
-      p.mat, p.n_mat, p.lig, p.n_lig, p.two_sided != 0, p.grids);
+  Tables T = stage_launch_tables<kGrid>(
+      reinterpret_cast<float*>(smem4), p.par, p.sph, kTree ? 0 : p.n_sph,
+      p.tri, p.n_tri, p.mat, p.n_mat, p.lig, p.n_lig, p.two_sided != 0,
+      p.grids);
+  T.n_sph = p.n_sph;  // triangle ids count every sphere
   __syncthreads();
 
   const int slot = blockIdx.x * blockDim.x + threadIdx.x;
@@ -488,10 +507,10 @@ __global__ void __launch_bounds__(
   A.r = a[0];
   A.g = a[1];
   A.b = a[2];
-  passes<kRows, kRR, kGrid, kStream, kCells>(T, &p.grids, D, R,
-                            p.u == nullptr ? p.keys : nullptr,
-                     p.n_passes, rid_g, p.spp, p.width, p.bounces,
-                     p.rr_start, p.normalize_emitter != 0, A);
+  passes<kRows, kRR, kGrid, kStream, kCells, kTree>(
+      T, &p.grids, &p.tree, D, R, p.u == nullptr ? p.keys : nullptr,
+      p.n_passes, rid_g, p.spp, p.width, p.bounces, p.rr_start,
+      p.normalize_emitter != 0, A);
   a[0] = A.r;
   a[1] = A.g;
   a[2] = A.b;
@@ -645,8 +664,8 @@ __global__ void __launch_bounds__(
     float mint, maxt;
     camera_ray_uv(T.par, u0, u1, col, row, o, d, mint, maxt);
     Hit h;
-    trace<kRows, kGrid, kStream, kCells, kTree>(T, o, d, mint, maxt, h,
-                                               &p.grids, &p.tree);
+    trace<kRows, kGrid, kStream, kCells, kTree ? kWarpTree : kNoTree>(
+        T, o, d, mint, maxt, h, &p.grids, &p.tree);
     if (kRecord) R.id(0, h.obj);
     if (!(h.m >= 0.0f)) {
       // no valid hit: no shadow ray, recorded unoccluded (JAX's dead
@@ -659,8 +678,9 @@ __global__ void __launch_bounds__(
     for (int li = 0; li < p.n_lig; ++li) {
       D.pair(k, 1 + li, u0, u1);
       const Shadow s = shadow_ray_uv(T, u0, u1, li, h, eps);
-      const bool occ = anyhit<kRows, kGrid, kStream, kCells, kTree>(
-          T, s.so, s.sd, 0.0f, s.dist, &p.grids, &p.tree);
+      const bool occ =
+          anyhit<kRows, kGrid, kStream, kCells, kTree ? kWarpTree : kNoTree>(
+              T, s.so, s.sd, 0.0f, s.dist, &p.grids, &p.tree);
       if (kRecord) R.occ(li, occ);
       const float cosx = fminf(fmaxf(dot(s.sd, h.n), 0.0f), 1.0f);
       const float shade =
@@ -696,6 +716,16 @@ DirectKernel direct_instance(bool wide, bool streamed, bool tree) {
 #endif
 }
 
+// Whether `tree` is a SphereTree (ops/megakernel.py) over n_sph resident
+// rows that the kTree instances can walk: the brute build only, n sorted
+// rows in whole leaves of up to kCellLeafMax that hold the n_sph rows, a
+// well-formed walk layout over them.
+bool tree_ok(const Stream& tree, int n_sph) {
+  return !kGridBuild && n_sph >= 1 && stream_ok(tree) &&
+         tree.leaf <= kCellLeafMax && tree.n >= n_sph &&
+         tree.n % tree.leaf == 0 && tree.n - n_sph < tree.leaf;
+}
+
 }  // namespace
 
 // C interface (bound with ctypes). `keys` is a HOST array of n_passes pass
@@ -708,7 +738,10 @@ DirectKernel direct_instance(bool wide, bool streamed, bool tree) {
 // scratch. grid_mode != 0 runs
 // grid mode over `grids` and the streamed tables `streams` (set_grids; only
 // in the build with RT_GRID_MODE=1, which takes nothing else); block > 0
-// its blocked layout.
+// its blocked layout. A non-null `tree` (a HOST descriptor of the spheres'
+// SphereTree, as rt_direct_pass takes it: tree_ok) runs the kTree
+// instances, which walk it in place of the sphere loop (the brute build
+// only; a malformed tree returns cudaErrorInvalidValue, launching nothing).
 // Launches on `stream`, allocates nothing, does not synchronise; returns
 // cudaGetLastError() after the launch.
 extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
@@ -723,13 +756,14 @@ extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
                                  int grid_mode,
                                  const GridDesc* grids, int n_grids,
                                  int sph_grid, int tri_start,
-                                 const Stream* streams, int block,
-                                 void* stream) {
+                                 const Stream* streams, const Stream* tree,
+                                 int block, void* stream) {
   Params p;
   if (n_passes < 1 || n_passes > kMaxPasses || (u_planes && n_passes != 1) ||
       (grid_mode != 0) != kGridBuild || (ids && n_passes != 1) ||
       (!ids && (occs || live)) ||
       (ids && n_lig > 0 && !occs) || block < 0 || (block && !grid_mode) ||
+      (tree && !tree_ok(*tree, n_sph)) ||
       !set_grids(p.grids, grids, grid_mode ? n_grids : 0,
                  grid_mode ? sph_grid : 0, grid_mode ? tri_start : n_tri,
                  grid_mode ? streams : nullptr, sph, n_sph, n_tri))
@@ -761,8 +795,10 @@ extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
   p.occs = occs;
   p.live = live;
   p.block = block;
-  // the tables in shared memory: in grid mode the brute prefix alone
-  const int n_sph_smem = p.grids.sph_resident(n_sph);
+  p.tree = tree ? *tree : Stream{};
+  // the tables in shared memory: in grid mode the brute prefix alone, the
+  // spheres unless walked as a tree
+  const int n_sph_smem = tree ? 0 : p.grids.sph_resident(n_sph);
   const int n_tri_smem = p.grids.tri_start;
   const size_t smem =
       sizeof(float) * tables_floats(n_sph_smem, n_tri_smem, n_mat, n_lig);
@@ -774,6 +810,11 @@ extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
                  : pathtrace_kernel<2, true, kGridBuild, false, false>)
          : (wide ? pathtrace_kernel<8, false, kGridBuild, false, false>
                  : pathtrace_kernel<2, false, kGridBuild, false, false>);
+#if !RT_GRID_MODE
+  if (tree)  // the sphere tree's instances (the brute build only)
+    kernel = rr ? pathtrace_kernel<2, true, false, false, false, true>
+                : pathtrace_kernel<2, false, false, false, false, true>;
+#endif
 #if RT_GRID_MODE
   const bool streamed = p.grids.tri_st.n || p.grids.sph_st.n;
   if (p.grids.n_tri > 0)  // the cell walk's instances
@@ -805,14 +846,9 @@ extern "C" int rt_pathtrace_pass(const float* par, const float* sph, int n_sph,
 // pass) when per_pass != 0, by the key itself otherwise (a call of one
 // pass). Non-null `ids` (1, n_rays) (and `occs` (n_lig, n_rays) when n_lig
 // > 0) record the primary champion and the occlusion bits of a one-pass
-// launch; `live`, grid_mode and block as rt_pathtrace_pass. A non-null
-// `tree` (a HOST descriptor of the spheres' SphereTree, ops/megakernel.py:
-// n sorted rows in whole leaves of up to 32 that hold the n_sph rows, the
-// walk's layout over them) runs the kTree instances, which walk it in place
-// of the sphere loop (the brute build only; a malformed tree returns
-// cudaErrorInvalidValue, launching nothing). Launches on `stream`,
-// allocates nothing, does not synchronise; returns cudaGetLastError() after
-// the launch.
+// launch; `live`, grid_mode, block and `tree` as rt_pathtrace_pass.
+// Launches on `stream`, allocates nothing, does not synchronise; returns
+// cudaGetLastError() after the launch.
 extern "C" int rt_direct_pass(const float* par, const float* sph, int n_sph,
                               const float* tri, int n_tri, const float* mat,
                               int n_mat, const float* lig, int n_lig,
@@ -831,9 +867,7 @@ extern "C" int rt_direct_pass(const float* par, const float* sph, int n_sph,
       (grid_mode != 0) != kGridBuild || (block && !grid_mode) ||
       (ids && n_passes != 1) || (!ids && (occs || live)) ||
       (ids && n_lig > 0 && !occs) ||
-      (tree && (kGridBuild || n_sph < 1 || !stream_ok(*tree) ||
-                tree->leaf > kCellLeafMax || tree->n < n_sph ||
-                tree->n % tree->leaf || tree->n - n_sph >= tree->leaf)) ||
+      (tree && !tree_ok(*tree, n_sph)) ||
       !set_grids(p.grids, grids, grid_mode ? n_grids : 0,
                  grid_mode ? sph_grid : 0, grid_mode ? tri_start : n_tri,
                  grid_mode ? streams : nullptr, sph, n_sph, n_tri))

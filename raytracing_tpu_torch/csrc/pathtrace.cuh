@@ -449,17 +449,35 @@ __device__ __forceinline__ bool warp_walk(const Stream& S, V3 o, V3 inv,
                    });
 }
 
-// A resident sphere table walked as a box tree (kernel 1's direct mode past
-// ops/megakernel.py DIRECT_SPH_BRUTE_MAX rows, the kTree instances of trace
+// A resident sphere table walked as a box tree (kernel 1 past
+// ops/megakernel.py SPH_BRUTE_MAX[mode] rows, the kTree instances of trace
 // and anyhit): S is the table's tree (ops/megakernel.py SphereTree, built
 // on the card each call by csrc/sphere_tree.cu), its rows Morton-sorted in
 // global memory, which L2 holds (sphere_field(1024)'s rows and nodes take
-// 96 KB). The warp walks the union of its lanes' trees (warp_walk), as the
-// streamed spheres do. Each lane's own walk (lane_walk) was timed on direct
-// mode's camera and shadow rays at 8 blocks per SM: as fast on
-// sphere_field(1024) (recording 0.462-0.463 against 0.459-0.461 ms), 2-4%
-// faster at 224-512 spheres, 17% slower at 4,608 (1.088 against 0.926 ms;
-// PERF.md section 6, row 1d).
+// 96 KB). kTree names the schedule, each the faster in its mode (one H100
+// 80GB HBM3, 700 W; PERF.md section 6, rows 1d and 1s):
+//   * kWarpTree, direct mode: the warp walks the union of its lanes' trees
+//     (warp_walk), as the streamed spheres do. Each lane's own walk was as
+//     fast on sphere_field(1024)'s camera and shadow rays (recording
+//     0.462-0.463 against 0.459-0.461 ms), 2-4% faster at 224-512
+//     spheres, 17% slower at 4,608 (1.088 against 0.926 ms);
+//   * kLaneTree, path mode: each lane walks its own tree (lane_walk).
+//     Bounce rays leave a sphere in cosine-distributed directions, so a
+//     warp's lanes share few nodes, and the union walked 1.35x the time on
+//     sphere_field(1024) at 1024^2 b5 (one pass 4.39-4.47 against
+//     3.26-3.27 ms), 1.28x at 256 spheres, as fast at 4,608.
+constexpr int kNoTree = 0;
+constexpr int kWarpTree = 1;
+constexpr int kLaneTree = 2;
+template <int kTree, class Hi, class Loose, class Leaf>
+__device__ __forceinline__ bool tree_walk(const Stream& S, V3 o, V3 inv,
+                                          float lo, Hi hi, Loose loose,
+                                          Leaf leaf) {
+  if constexpr (kTree == kLaneTree)
+    return lane_walk(S, o, inv, lo, hi, loose, leaf);
+  else
+    return warp_walk(S, o, inv, lo, hi, loose, leaf);
+}
 
 // The walk of one ray's live window [mint, maxt] through grid g, cell by
 // cell in order (Amanatides-Woo, as the reference's Assign07 marches):
@@ -838,15 +856,15 @@ __device__ __forceinline__ bool sph_occludes(const float* s, V3 o, V3 d,
 // Morton chunks, which changes no champion: the least (t, original id)
 // pair wins.
 //
-// A resident sphere table walked as a tree (kTree, S its SphereTree; the
-// instances without it keep their code): the warp's walk (warp_walk) takes
-// the place of the sphere loop, culled at the live window [mint, min(maxt,
-// champion t)], each visited row in the brute loop's arithmetic, the least
-// (t, original index) winning, so the champion is the brute loop's; the
-// triangle loop runs after it unchanged (a triangle at a sphere's t still
-// loses).
+// A resident sphere table walked as a tree (kTree kWarpTree or kLaneTree,
+// S its SphereTree; the instances without it keep their code): the walk
+// (tree_walk) takes the place of the sphere loop, culled at the live
+// window [mint, min(maxt, champion t)], each visited row in the brute
+// loop's arithmetic, the least (t, original index) winning, so the
+// champion is the brute loop's; the triangle loop runs after it unchanged
+// (a triangle at a sphere's t still loses).
 template <int kRows = 2, bool kGrid = false, bool kStream = false,
-          bool kCells = kGrid, bool kTree = false>
+          bool kCells = kGrid, int kTree = kNoTree>
 __device__ float trace(const Tables& T, V3 o, V3 d, float mint, float maxt,
                        Hit& h, const Grids* G = nullptr,
                        const Stream* S = nullptr) {
@@ -871,7 +889,7 @@ __device__ float trace(const Tables& T, V3 o, V3 d, float mint, float maxt,
         bbeta = far ? 1.0f : 0.0f;
       }
     };
-    if constexpr (kTree) {
+    if constexpr (kTree != kNoTree) {
       // the tree's rows in the brute loop's arithmetic; a row's original
       // index and mask are read only for a candidate that reaches the
       // champion's t, and the least (t, index) pair wins
@@ -894,12 +912,12 @@ __device__ float trace(const Tables& T, V3 o, V3 d, float mint, float maxt,
         }
         return false;
       };
-      warp_walk(*S, o, safe_inv(d), mint,
-                [&]() { return fminf(maxt, c.t); }, take,
-                [&](int r0, unsigned m) {
-                  for (; m; m &= m - 1u) take(r0 + __ffs(m) - 1);
-                  return false;
-                });
+      tree_walk<kTree>(*S, o, safe_inv(d), mint,
+                       [&]() { return fminf(maxt, c.t); }, take,
+                       [&](int r0, unsigned m) {
+                         for (; m; m &= m - 1u) take(r0 + __ffs(m) - 1);
+                         return false;
+                       });
       bt = c.t;
       bn = c.n;
       bm = c.m;
@@ -1051,7 +1069,7 @@ __device__ float trace(const Tables& T, V3 o, V3 d, float mint, float maxt,
 // (kStream; trace's walk over [mint, maxt]) and the grids' walks, each
 // stopping at its first occluder.
 template <int kRows = 2, bool kGrid = false, bool kStream = false,
-          bool kCells = kGrid, bool kTree = false>
+          bool kCells = kGrid, int kTree = kNoTree>
 __device__ bool anyhit(const Tables& T, V3 o, V3 d, float mint, float maxt,
                        const Grids* G = nullptr, const Stream* S = nullptr) {
   if (mint == maxt) return false;
@@ -1063,7 +1081,7 @@ __device__ bool anyhit(const Tables& T, V3 o, V3 d, float mint, float maxt,
     return sphere_root(b, dis, inv2a, mint, maxt, t, far) &&
            T.sph[i * kSph + 5] > 0.0f;
   };
-  if constexpr (kTree) {
+  if constexpr (kTree != kNoTree) {
     // trace's walk over [mint, maxt], stopping at the first occluder
     auto occludes = [&](int r) {
       const float* s = S->rows + static_cast<size_t>(r) * kSph;
@@ -1073,12 +1091,12 @@ __device__ bool anyhit(const Tables& T, V3 o, V3 d, float mint, float maxt,
       return dis >= 0.0f && sphere_root(b, dis, inv2a, mint, maxt, t, far) &&
              s[5] > 0.0f;
     };
-    if (warp_walk(*S, o, safe_inv(d), mint, [&]() { return maxt; }, occludes,
-                  [&](int r0, unsigned m) {
-                    for (; m; m &= m - 1u)
-                      if (occludes(r0 + __ffs(m) - 1)) return true;
-                    return false;
-                  }))
+    if (tree_walk<kTree>(*S, o, safe_inv(d), mint, [&]() { return maxt; },
+                         occludes, [&](int r0, unsigned m) {
+                           for (; m; m &= m - 1u)
+                             if (occludes(r0 + __ffs(m) - 1)) return true;
+                           return false;
+                         }))
       return true;
   }
   const int ns = kTree ? 0 : kGrid ? G->sph_resident(T.n_sph) : T.n_sph;

@@ -1,6 +1,7 @@
 // The box tree over a sphere table, built on the card in one launch: the
-// layout that kernel 1's direct mode walks past MK.DIRECT_SPH_BRUTE_MAX
-// resident spheres (csrc/megakernel.cu direct_kernel's kTree instances).
+// layout that kernel 1 walks past MK.SPH_BRUTE_MAX[mode] resident spheres
+// (csrc/megakernel.cu pathtrace_kernel's and direct_kernel's kTree
+// instances).
 //
 // Its plain version is ops/megakernel.py sphere_tree (the layout of
 // MK.SphereTree, MK.box_tree's nodes, masks and loose rows); the output

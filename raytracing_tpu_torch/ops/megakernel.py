@@ -102,17 +102,20 @@ li light li), or without u-planes those the stage route's ``render_direct``
 draws (``direct_draw_planes``), which the kernel makes in-kernel bit for
 bit. ``record=True`` (one pass) records JAX's one segment
 (``megakernel.py:1642-1644``): ``ids`` (1, R), the primary champion, and
-``occs`` (L, R), one occlusion bit per light. Past ``DIRECT_SPH_BRUTE_MAX``
-resident spheres (no grid, no streamed table; ``direct_walks``) the kernel
-walks a box tree over the spheres instead of looping over them: the
-wrapper builds the table's ``SphereTree`` on the card every call
-(``sphere_tree_build``, leaves of ``DIRECT_SPH_LEAF`` rows) and
-launches the tree instances, which test each visited row in the brute
+``occs`` (L, R), one occlusion bit per light.
+
+Resident spheres walked as a tree (both modes): past
+``SPH_BRUTE_MAX[mode]`` resident spheres (no grid, no streamed table;
+``sphere_walks``) the kernel walks a box tree over the spheres instead of
+looping over them: the wrapper builds the table's ``SphereTree`` on the
+card once per call (``sphere_tree_build``, leaves of ``SPH_TREE_LEAF``
+rows; ``pass_tree`` for a caller that hands one tree to several calls)
+and launches the tree instances, which test each visited row in the brute
 loop's arithmetic and keep the least (t, original index) pair, so ``acc``,
 ``ids`` and ``occs`` are the brute instances' bit for bit under the same
-build flags. On CPU tensors ``direct_pass`` runs the brute plain version;
-``direct_walk_reference`` is the plain version of the walk, which also
-counts it.
+build flags. On CPU tensors the wrappers run the brute plain versions;
+``pathtrace_walk_reference`` and ``direct_walk_reference`` are the plain
+versions of the walk, which also count it.
 """
 from __future__ import annotations
 
@@ -185,14 +188,21 @@ GRID_FLAGS = ("-DRT_GRID_MODE=1",)
 # few GB at 146 triangles per cell)
 PLAIN_GRID_CHUNK = 1 << 17
 
-# direct mode over resident spheres: past DIRECT_SPH_BRUTE_MAX rows the
-# kernel walks a box tree over leaves of DIRECT_SPH_LEAF rows. Timed on one
-# H100 (PERF.md section 6, row 1d; profile_kernels --only direct, 1024^2
-# spp 1): the brute loop is faster at 128 spheres (16-pass launches 0.157
-# against 0.163-0.165 ms per pass), the walk from 160 on (0.184-0.185
-# against 0.196)
-DIRECT_SPH_BRUTE_MAX = 128
-DIRECT_SPH_LEAF = 1
+# resident spheres walked as a box tree (sphere_walks): past
+# SPH_BRUTE_MAX[mode] rows kernel 1 walks a tree over leaves of
+# SPH_TREE_LEAF rows in place of its sphere loop. Timed on one H100 80GB
+# HBM3 at 700 W (PERF.md section 6, rows 1d and 1s; profile_kernels --only
+# direct / --only path, 1024^2): in direct mode (spp 1) the brute loop is
+# faster at 128 spheres (16-pass launches 0.157 against 0.163-0.165 ms per
+# pass), the walk from 160 on (0.184-0.185 against 0.196); in path mode
+# (b5) the brute loop is as fast at 384 spheres in a recording pass
+# (1.969-1.970 against 1.934-1.955 ms) and faster in 16-pass launches
+# (1.457-1.459 against 1.637-1.663 ms per pass), the walk faster at 448 in
+# a recording pass (2.111 against 2.368-2.370) and as fast in 16-pass
+# launches (1.802-1.807 against 1.755-1.758), and from 512 in both (2.15
+# against 2.92, 1.86 against 2.23)
+SPH_BRUTE_MAX = {"path": 384, "direct": 128}
+SPH_TREE_LEAF = 1
 # a sphere row's floats; the tree's build kernel (csrc/sphere_tree.cu) is
 # one block per table, so at most TREE_BUILD_MAX rows (its sort keys' row
 # bits)
@@ -201,6 +211,7 @@ TREE_BUILD_MAX = 8192
 
 launches = 0          # path mode (csrc/megakernel.cu pathtrace_kernel)
 direct_launches = 0   # direct mode (csrc/megakernel.cu direct_kernel)
+path_walk_launches = 0    # of launches, the sphere tree's instances
 direct_walk_launches = 0  # of direct_launches, the sphere tree's instances
 tree_build_launches = 0   # sphere_tree_build's kernel
 # the launches of either mode that streamed a table (counted in the two
@@ -1244,8 +1255,8 @@ def _pass_reference(par, sph, tri, mat, lig, acc, u, ray_offset: int, *,
                     spp: int, width: int, bounces: int, two_sided: bool,
                     normalize_emitter: bool, russian_roulette: bool = False,
                     rr_start_depth: int = 0, trace=None, anyhit=None,
-                    record=None, grid=None, work=None,
-                    chunks=None) -> torch.Tensor:
+                    record=None, grid=None, work=None, chunks=None,
+                    sph_tree=None) -> torch.Tensor:
     """One pass of ``_render_pass_kernel`` (path mode) over every ray;
     returns the new accumulator.
 
@@ -1255,18 +1266,18 @@ def _pass_reference(par, sph, tri, mat, lig, acc, u, ray_offset: int, *,
     anyhit_override=)`` does; they are called in schedule order. With
     ``record`` (a dict of two lists) each trace appends its champions to
     ``record["ids"]`` and each NEE its occlusion bits to
-    ``record["occs"]``."""
+    ``record["occs"]``; ``sph_tree`` as ``_trace``'s."""
     n, dev = acc.shape[0], acc.device
     n_lig = lig.shape[0]
     slots = iter(range(u.shape[0] // 2))
     if trace is None:
         def trace(o, d, mint, maxt):
             return _trace(o, d, mint, maxt, sph, tri, two_sided, grid, work,
-                          chunks)
+                          chunks, sph_tree)
     if anyhit is None:
         def anyhit(o, d, mint, maxt):
             return _anyhit(o, d, mint, maxt, sph, tri, two_sided, grid, work,
-                           chunks)
+                           chunks, sph_tree)
     if record is not None:
         traced, occluded = trace, anyhit
 
@@ -1374,15 +1385,17 @@ def pathtrace_pass_reference(par, ipar, sph, tri, mat, lig, acc, u_planes,
                              russian_roulette: bool = False,
                              rr_start_depth: int = 0,
                              record: bool = False, grid=None, work=None,
-                             chunks=None):
+                             chunks=None, sph_tree=None):
     """The plain version of ``pathtrace_pass`` on any device; returns a new
     accumulator (``acc`` is not modified), or ``(acc, ids, occs)`` with
     ``record=True`` (one pass). ``grid``: grid mode (a ``KernelGrids``);
     ``chunks``: the streamed tables (a ``KernelChunks``); ``work``: a dict
     that sums its walks' cell steps and item tests (``_add_walk_work``)
-    and its chunks' slab and row tests (``_add_stream_work``)."""
+    and its chunks' slab and row tests (``_add_stream_work``);
+    ``sph_tree`` walks the spheres as ``pathtrace_walk_reference`` says."""
     if record and n_passes != 1:
         raise ValueError("champion recording is single-pass")
+    _check_walked(sph_tree, grid, chunks)
     roff = int(ipar[1])
     rec = {"ids": [], "occs": []} if record else None
     for p in range(n_passes):
@@ -1394,13 +1407,52 @@ def pathtrace_pass_reference(par, ipar, sph, tri, mat, lig, acc, u_planes,
                               normalize_emitter=normalize_emitter,
                               russian_roulette=russian_roulette,
                               rr_start_depth=rr_start_depth, record=rec,
-                              grid=grid, work=work, chunks=chunks)
+                              grid=grid, work=work, chunks=chunks,
+                              sph_tree=sph_tree)
     if not record:
         return acc
     occs = (torch.stack(rec["occs"]) if rec["occs"] else
             torch.zeros((0, acc.shape[0]), dtype=torch.bool,
                         device=acc.device))
     return acc, torch.stack(rec["ids"]).to(torch.int32), occs
+
+
+def _check_walked(sph_tree, grid, chunks) -> None:
+    """A sphere tree walks resident spheres only."""
+    if sph_tree is not None and (grid is not None or chunks is not None):
+        raise ValueError("a sphere tree walks resident spheres: no grid, "
+                         "no streamed tables")
+
+
+def pathtrace_walk_reference(par, ipar, sph, tri, mat, lig, acc, u_planes,
+                             *, spp: int, width: int, bounces: int,
+                             two_sided: bool, normalize_emitter: bool,
+                             seed: int, n_passes: int = 1,
+                             russian_roulette: bool = False,
+                             rr_start_depth: int = 0, record: bool = False,
+                             tree=None, work: dict | None = None):
+    """The plain version of kernel 1's path mode over a sphere tree (the
+    kTree instances of pathtrace_kernel): ``pathtrace_pass_reference`` with
+    each trace's and shadow ray's sphere loop replaced by the walk of
+    ``tree`` (an ``SphereTree`` of ``sph``; ``sphere_tree(sph,
+    SPH_TREE_LEAF)`` when None) in the kernel's lane order and arithmetic
+    (``_walk_tree``: the loose rows, then nearest child first, culled at
+    the champion's t, the least (t, original index) winning; a shadow ray
+    stops at its first occluder), the triangles after it; the roulette and
+    the record as there. Returns what ``pathtrace_pass_reference`` returns,
+    equal to it exactly; ``work`` gets the walk's counts summed over every
+    trace and shadow ray of every pass (``node_tests``, ``leaf_visits``,
+    ``sph_tests``, ``loose_tests``, and per warp of 32 consecutive rays the
+    union of its lanes' leaves, ``union_leaves``, and their rows,
+    ``union_sph_tests``)."""
+    if tree is None:
+        tree = sphere_tree(sph, SPH_TREE_LEAF)
+    return pathtrace_pass_reference(
+        par, ipar, sph, tri, mat, lig, acc, u_planes, spp=spp, width=width,
+        bounces=bounces, two_sided=two_sided,
+        normalize_emitter=normalize_emitter, seed=seed, n_passes=n_passes,
+        russian_roulette=russian_roulette, rr_start_depth=rr_start_depth,
+        record=record, sph_tree=tree, work={} if work is None else work)
 
 
 def _direct_reference(par, sph, tri, mat, lig, acc, u, ray_offset: int = 0,
@@ -1463,9 +1515,7 @@ def direct_pass_reference(par, sph, tri, mat, lig, acc, u_planes, *,
     spheres as ``direct_walk_reference`` says."""
     if record and n_passes != 1:
         raise ValueError("champion recording is single-pass")
-    if sph_tree is not None and (grid is not None or chunks is not None):
-        raise ValueError("a sphere tree walks resident spheres: no grid, "
-                         "no streamed tables")
+    _check_walked(sph_tree, grid, chunks)
     rec = {"ids": [], "occs": []} if record else None
     for p in range(n_passes):
         u = u_planes
@@ -1493,7 +1543,7 @@ def direct_walk_reference(par, sph, tri, mat, lig, acc, u_planes, *,
     """The plain version of kernel 1's direct mode over a sphere tree (its
     kTree instances): ``direct_pass_reference`` with each trace's and shadow
     ray's sphere loop replaced by the walk of ``tree`` (an
-    ``SphereTree`` of ``sph``; ``sphere_tree(sph, DIRECT_SPH_LEAF)``
+    ``SphereTree`` of ``sph``; ``sphere_tree(sph, SPH_TREE_LEAF)``
     when None) in the kernel's lane order and arithmetic (``_walk_tree``:
     the loose rows, then nearest child first, culled at the champion's t,
     the least (t, original index) winning; a shadow ray stops at its first
@@ -1503,7 +1553,7 @@ def direct_walk_reference(par, sph, tri, mat, lig, acc, u_planes, *,
     (``node_tests``, ``leaf_visits``, ``sph_tests``, ``loose_tests``,
     ``union_leaves``, ``union_sph_tests``)."""
     if tree is None:
-        tree = sphere_tree(sph, DIRECT_SPH_LEAF)
+        tree = sphere_tree(sph, SPH_TREE_LEAF)
     return direct_pass_reference(
         par, sph, tri, mat, lig, acc, u_planes, key=key, spp=spp,
         width=width, two_sided=two_sided, n_passes=n_passes,
@@ -1544,7 +1594,7 @@ _SIGNATURES = {
         _I, _I,                                       # two_sided, normalize
         _VP, _VP, _VP,                       # ids, occs, live (record)
         _I, _VP, _I, _I, _I,        # grid, grids, n_grids, sph grid, start,
-        _VP, _I,                                      # streams, block
+        _VP, _VP, _I,                          # streams, sphere tree, block
         _VP]),                                        # stream
     "rt_direct_pass": (ctypes.c_int, [
         _VP, _VP, _I, _VP, _I, _VP, _I, _VP, _I,     # par, sph, tri, mat, lig
@@ -2069,7 +2119,8 @@ def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
                    rr_start_depth: int = 0, record: bool = False,
                    grid: KernelGrids | None = None,
                    chunks: KernelChunks | None = None, block: int = 0,
-                   build_flags: tuple = ()):
+                   build_flags: tuple = (), sphere_walk: bool | None = None,
+                   sph_tree: SphereTree | None = None):
     """``n_passes`` progressive passes over ``acc`` (R, 3), in place;
     returns ``acc``, or ``(acc, ids, occs)`` with ``record=True`` (one
     pass; see the module docstring). ``russian_roulette`` plays the
@@ -2078,6 +2129,13 @@ def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
     module docstring).
     ``build_flags`` launches a build of the kernel with these nvcc flags
     added (e.g. ``("--fmad=false",)``), beside the default one.
+    On the card past ``SPH_BRUTE_MAX["path"]`` resident spheres
+    (``sphere_walks``) the call walks a sphere tree built on the card by
+    one more launch before its first (counted in ``path_walk_launches``
+    and ``tree_build_launches``), or ``sph_tree``, the caller's
+    (``pass_tree``), without a build; every launch of the call walks it.
+    ``sphere_walk`` True or False forces the walk or the brute loop (a
+    test's switch; the CPU ignores it and ``sph_tree``).
 
     par (26,) f32 scalars; ipar (2,) int32 CPU tensor [pass index, global
     ray offset]; sph (S, 8) [center xyz, radius, mat, mask, pad2]; tri
@@ -2085,7 +2143,7 @@ def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
     mat (M, 4) rgba; lig (L, 20) [pos, normal, irr, irr_normalized,
     radius, area, tangent, bitangent]; u_planes (2 * n_draws, R) or None.
     """
-    global launches, stream_launches
+    global launches, path_walk_launches, stream_launches
     _check_args(par, ipar, sph, tri, mat, lig, acc, u_planes, spp, width,
                 n_draws_of(lig.shape[0], bounces, russian_roulette), n_passes,
                 grid=grid, block=block, chunks=chunks)
@@ -2104,10 +2162,13 @@ def pathtrace_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *,
         return acc.copy_(out[0]), out[1], out[2]
     _check_launch(acc, (par, sph, tri, mat, lig, acc, u_planes),
                   "pathtrace_pass")
+    walk = _walks(sphere_walk, sph, grid, chunks, "path")
     ids, occs, n = _launch_pass(par, ipar, sph, tri, mat, lig, acc, u_planes,
                                 record=record, grid=grid, chunks=chunks,
-                                block=block, build_flags=build_flags, **kw)
+                                block=block, build_flags=build_flags,
+                                sphere_walk=walk, sph_tree=sph_tree, **kw)
     launches += n
+    path_walk_launches += n if walk else 0
     stream_launches += n if chunks is not None else 0
     return (acc, ids, occs) if record else acc
 
@@ -2116,12 +2177,16 @@ def _launch_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *, spp: int,
                  width: int, bounces: int, two_sided: bool,
                  normalize_emitter: bool, seed: int, n_passes: int,
                  russian_roulette: bool, rr_start_depth: int, record: bool,
-                 grid, chunks, block: int, build_flags: tuple, live=None):
+                 grid, chunks, block: int, build_flags: tuple, live=None,
+                 sphere_walk: bool | None = None,
+                 sph_tree: SphereTree | None = None):
     """``pathtrace_pass``'s launches on checked CUDA tensors, uncounted:
     (ids, occs, launches made), the record None unless ``record``. With
     ``live`` (a cotangent of acc, (R, 3)) a recording launch traces only
     the rays whose row is nonzero and records the others as misses; acc
-    is then scratch."""
+    is then scratch. The sphere tree's route as ``_launch_direct``'s."""
+    tree, _keep = _walk_desc(_walks(sphere_walk, sph, grid, chunks, "path"),
+                             sph, grid, chunks, sph_tree)
     lib = _lib(grid, chunks, build_flags)
     pass0, roff = (int(x) for x in ipar.tolist())
     ids = occs = None
@@ -2148,7 +2213,8 @@ def _launch_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *, spp: int,
                 ctypes.addressof(keys), k, spp, width, bounces,
                 int(russian_roulette), rr_start_depth, int(two_sided),
                 int(normalize_emitter), _ptr(ids), _ptr(occs), _ptr(live),
-                *gargs, _kernel_block(block, grid, chunks), stream)
+                *gargs, None if tree is None else ctypes.addressof(tree),
+                _kernel_block(block, grid, chunks), stream)
             if err != 0:
                 raise RuntimeError(
                     f"megakernel launch failed with CUDA error {err}")
@@ -2156,24 +2222,60 @@ def _launch_pass(par, ipar, sph, tri, mat, lig, acc, u_planes, *, spp: int,
     return ids, occs, made
 
 
-def direct_walks(sph, grid=None, chunks=None) -> bool:
-    """Whether kernel 1's direct mode walks a box tree over the spheres:
-    resident spheres (no grid, no streamed table) past
-    ``DIRECT_SPH_BRUTE_MAX`` rows."""
+def sphere_walks(sph, grid=None, chunks=None, mode: str = "path") -> bool:
+    """Whether kernel 1 in ``mode`` ("path" or "direct") walks a box tree
+    over the spheres: resident spheres (no grid, no streamed table) past
+    ``SPH_BRUTE_MAX[mode]`` rows."""
     return (grid is None and chunks is None
-            and sph.shape[0] > DIRECT_SPH_BRUTE_MAX)
+            and sph.shape[0] > SPH_BRUTE_MAX[mode])
 
 
-def direct_tree(sph, grid=None, chunks=None) -> SphereTree | None:
-    """The sphere tree that kernel 1's direct mode walks over the CUDA
-    table ``sph`` (``direct_walks``), built on the card by one launch
+def pass_tree(sph, grid=None, chunks=None,
+              mode: str = "path") -> SphereTree | None:
+    """The sphere tree that kernel 1 in ``mode`` walks over the CUDA table
+    ``sph`` (``sphere_walks``), built on the card by one launch
     (``sphere_tree_build``), or None where the mode loops over the spheres
-    and on the CPU. A caller that launches several direct passes over one
-    table (a differentiable pass: its forward and kernel 2's record) builds
-    it once and hands it to each (``direct_pass``'s ``sph_tree``)."""
-    if sph.device.type != "cuda" or not direct_walks(sph, grid, chunks):
+    and on the CPU. A caller that launches several passes over one table
+    (a differentiable pass: its forward and kernel 2's record) builds it
+    once and hands it to each (``pathtrace_pass``'s and ``direct_pass``'s
+    ``sph_tree``)."""
+    if sph.device.type != "cuda" or not sphere_walks(sph, grid, chunks,
+                                                     mode):
         return None
-    return sphere_tree_build(sph, DIRECT_SPH_LEAF)
+    return sphere_tree_build(sph, SPH_TREE_LEAF)
+
+
+def _walks(sphere_walk: bool | None, sph, grid, chunks, mode: str) -> bool:
+    """A launch's route: ``sphere_walk`` where the caller forces one,
+    else ``sphere_walks``."""
+    return (sphere_walks(sph, grid, chunks, mode) if sphere_walk is None
+            else sphere_walk)
+
+
+def _walk_desc(walk: bool, sph, grid, chunks, sph_tree: SphereTree | None):
+    """(descriptor, tree) of a launch that walks (``walk``): the tree is
+    ``sph_tree``, the caller's, checked against ``sph``, or else one built
+    here (``sphere_tree_build``, which counts its launch); (None, None) for
+    the brute loop. The descriptor holds raw pointers: the caller keeps the
+    tree until its launches are queued (freed earlier, its block could go
+    to the launch's own outputs, allocated after it, on this stream)."""
+    if not walk:
+        return None, None
+    if grid is not None or chunks is not None or sph.shape[0] == 0:
+        raise ValueError("the sphere tree's instances walk resident "
+                         "spheres: no grid, no streamed tables, at "
+                         "least one sphere")
+    if sph_tree is None:
+        sph_tree = sphere_tree_build(sph, SPH_TREE_LEAF)
+    elif (sph_tree.rows.device != sph.device
+          or sph_tree.perm.shape[0] != -(-sph.shape[0]
+                                         // sph_tree.tree.leaf)
+          * sph_tree.tree.leaf):
+        raise ValueError(
+            f"sph_tree holds {sph_tree.perm.shape[0]} rows on "
+            f"{sph_tree.rows.device}, the table {sph.shape[0]} on "
+            f"{sph.device}: pass pass_tree(sph)")
+    return _tree_desc(sph_tree), sph_tree
 
 
 def _tree_desc(tree) -> _StreamDesc:
@@ -2203,13 +2305,10 @@ def direct_pass(par, sph, tri, mat, lig, acc, u_planes, *,
     film. On CPU tensors it runs ``direct_pass_reference``; on CUDA
     tensors it launches the kernel (one launch per 64 passes) and counts
     ``direct_launches``. Tables, ``grid``, ``chunks`` and ``block`` as
-    ``pathtrace_pass``. On the card past ``DIRECT_SPH_BRUTE_MAX`` resident
-    spheres each launch walks a sphere tree built on the card by one more
-    launch (``direct_walks``; counted in ``direct_walk_launches`` and
-    ``tree_build_launches``), or ``sph_tree``, the caller's
-    (``direct_tree``), without a build; ``sphere_walk`` True or False
-    forces the walk or the brute loop (a test's switch; the CPU ignores
-    it and ``sph_tree``)."""
+    ``pathtrace_pass``. On the card past ``SPH_BRUTE_MAX["direct"]``
+    resident spheres each launch walks a sphere tree, as
+    ``pathtrace_pass``'s do (counted in ``direct_walk_launches``);
+    ``sphere_walk`` and ``sph_tree`` as there."""
     global direct_launches, direct_walk_launches, stream_launches
     _check_args(par, torch.tensor([0, ray_offset], dtype=torch.int32), sph,
                 tri, mat, lig, acc, u_planes, spp, width, 1 + lig.shape[0],
@@ -2228,8 +2327,7 @@ def direct_pass(par, sph, tri, mat, lig, acc, u_planes, *,
         return acc.copy_(out[0]), out[1], out[2]
     _check_launch(acc, (par, sph, tri, mat, lig, acc, u_planes),
                   "direct_pass")
-    walk = (direct_walks(sph, grid, chunks) if sphere_walk is None
-            else sphere_walk)
+    walk = _walks(sphere_walk, sph, grid, chunks, "direct")
     ids, occs, n = _launch_direct(par, sph, tri, mat, lig, acc, u_planes,
                                   record=record, block=block,
                                   build_flags=build_flags, sphere_walk=walk,
@@ -2249,31 +2347,11 @@ def _launch_direct(par, sph, tri, mat, lig, acc, u_planes, *, key, spp: int,
     """``direct_pass``'s launches on checked CUDA tensors, uncounted:
     (ids, occs, launches made), the record None unless ``record``;
     ``live`` as ``_launch_pass``'s. Where the spheres are walked
-    (``direct_walks``, or ``sphere_walk``) the launches walk ``sph_tree``
-    (``direct_tree(sph)``, the caller's), or else a tree this call builds
-    (``sphere_tree_build``, which counts its launch)."""
-    walk = (direct_walks(sph, grid, chunks) if sphere_walk is None
-            else sphere_walk)
-    tree = None
-    if walk:
-        if grid is not None or chunks is not None or sph.shape[0] == 0:
-            raise ValueError("the sphere tree's instances walk resident "
-                             "spheres: no grid, no streamed tables, at "
-                             "least one sphere")
-        if sph_tree is None:
-            sph_tree = sphere_tree_build(sph, DIRECT_SPH_LEAF)
-        elif (sph_tree.rows.device != sph.device
-              or sph_tree.perm.shape[0] != -(-sph.shape[0]
-                                             // sph_tree.tree.leaf)
-              * sph_tree.tree.leaf):
-            raise ValueError(
-                f"sph_tree holds {sph_tree.perm.shape[0]} rows on "
-                f"{sph_tree.rows.device}, the table {sph.shape[0]} on "
-                f"{sph.device}: pass direct_tree(sph)")
-        # the descriptor holds raw pointers: sph_tree keeps its tensors
-        # alive until the launches are queued (freed after, their blocks
-        # are reused only by later work on this stream)
-        tree = _tree_desc(sph_tree)
+    (``sphere_walks``, or ``sphere_walk``) the launches walk ``sph_tree``
+    (``pass_tree(sph, mode="direct")``, the caller's), or else a tree this
+    call builds (``sphere_tree_build``, which counts its launch)."""
+    tree, _keep = _walk_desc(_walks(sphere_walk, sph, grid, chunks,
+                                    "direct"), sph, grid, chunks, sph_tree)
     lib = _lib(grid, chunks, build_flags)
     k0, k1 = rng.key_words(key)
     ids = occs = None

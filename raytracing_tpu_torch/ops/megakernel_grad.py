@@ -317,8 +317,8 @@ def pathtrace_pass_bwd(par, ipar, sph, tri, mat, lig, g, u_planes, *,
     ``launches``). Past that, and over kernel 1's streamed ``chunks`` or
     ``grid`` (the forward's own arguments; ``block`` its blocked layout),
     ``pathtrace_pass_bwd_split`` records the pass and sweeps the record
-    (counter ``large_launches``; ``sph_tree`` the forward's sphere tree in
-    direct mode, as there); cotangents land on the original rows,
+    (counter ``large_launches``; ``sph_tree`` the forward's sphere tree,
+    as there); cotangents land on the original rows,
     whatever the search reads."""
     global launches
     sel = _check_wrt(diff_wrt)
@@ -367,8 +367,8 @@ def _record(par, ipar, sph, tri, mat, lig, g, u_planes, *, spp: int,
     accumulator a scratch tensor; no launch counted), which traces only
     the rays whose row of ``g`` is nonzero and records the others as
     misses (kernel 3 reads no other), or from its plain version on CPU
-    tensors (every ray). In direct mode ``sph_tree`` is the forward's
-    sphere tree (``MK.direct_tree``), walked without a second build."""
+    tensors (every ray). ``sph_tree`` is the forward's sphere tree
+    (``MK.pass_tree``), walked without a second build."""
     fwd = dict(grid=grid, chunks=chunks)
     if g.device.type == "cpu":
         acc = torch.zeros_like(g)
@@ -394,7 +394,7 @@ def _record(par, ipar, sph, tri, mat, lig, g, u_planes, *, spp: int,
             width=width, bounces=bounces, two_sided=two_sided,
             normalize_emitter=normalize_emitter, seed=seed, n_passes=1,
             russian_roulette=russian_roulette, rr_start_depth=rr_start_depth,
-            **fwd)
+            sph_tree=sph_tree, **fwd)
     else:
         ids, occs, _ = MK._launch_direct(
             par, sph, tri, mat, lig, acc, u_planes,
@@ -423,10 +423,10 @@ def pathtrace_pass_bwd_split(par, ipar, sph, tri, mat, lig, g, u_planes, *,
        ((1 + bounces) L, R) -- in direct mode one segment -- into tensors
        from torch's caching allocator; its accumulator is scratch. It
        traces only the rays whose cotangent row is nonzero, as the replay
-       did, and records the others as misses: kernel 3 reads no other. In
-       direct mode it walks ``sph_tree``, the forward's sphere tree
-       (``MK.direct_tree``), where the forward walked one; without it
-       the record builds its own.
+       did, and records the others as misses: kernel 3 reads no other. It
+       walks ``sph_tree``, the forward's sphere tree (``MK.pass_tree``),
+       where the forward walked one; without it the record builds its
+       own.
     2. The sweep: kernel 3 (``csrc/megakernel_champ.cu``) over the whole
        tables and that record; each champion's t, beta and gamma are
        re-derived from its row (``champ_surface``), which for the search's
@@ -923,7 +923,7 @@ def _forward(par, ipar, sph, tri, mat, lig, acc, u_planes, kw, fwd,
     tensors), on ``acc`` in place: path mode's ``MK.pathtrace_pass``, or
     direct mode's ``MK.direct_pass`` keyed by ``MK.pass_key_of(ipar,
     seed)`` at the ray offset ``ipar[1]``. ``fwd``: ``grid``, ``chunks``,
-    ``block`` (direct mode also ``sph_tree``); ``record`` returns the
+    ``block``, ``sph_tree``; ``record`` returns the
     record too."""
     if mode == "path":
         return MK.pathtrace_pass(par, ipar, sph, tri, mat, lig, acc,
@@ -944,16 +944,15 @@ class _PassDiff(torch.autograd.Function):
     delta) and returns no cotangent for ``ipar`` and ``u_planes``. Kernel
     2 replays (past 64 objects records) over the forward's own ``grid``,
     ``chunks`` and ``block`` (``fwd``), so it picks the champions the
-    forward picked; in direct mode past ``MK.DIRECT_SPH_BRUTE_MAX``
-    resident spheres both walk one sphere tree, built once by the forward
-    (``MK.direct_tree``) and kept for the record."""
+    forward picked; past ``MK.SPH_BRUTE_MAX[mode]`` resident spheres both
+    walk one sphere tree, built once by the forward (``MK.pass_tree``) and
+    kept for the record."""
 
     @staticmethod
     def forward(ctx, par, sph, tri, mat, lig, acc_in, ipar, u_planes, kw,
                 diff_wrt, fwd, mode):
-        if mode == "direct":
-            fwd = dict(fwd, sph_tree=MK.direct_tree(sph, fwd["grid"],
-                                                    fwd["chunks"]))
+        fwd = dict(fwd, sph_tree=MK.pass_tree(sph, fwd["grid"],
+                                              fwd["chunks"], mode))
         acc = acc_in.clone()
         _forward(par, ipar, sph, tri, mat, lig, acc, u_planes, kw, fwd, mode)
         ctx.save_for_backward(par, sph, tri, mat, lig)

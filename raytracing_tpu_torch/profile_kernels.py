@@ -125,7 +125,8 @@ this file into its checkout and running it there.
 copying this file into its checkout and running it there): kernel 1's
 direct mode at 1024^2 spp 1 on sphere_field(64, 128, 160, 192, 224, 256,
 512, 1024, 4608) and cornell, one recording pass and 16-pass launches,
-through the package's route (past ``MK.DIRECT_SPH_BRUTE_MAX`` spheres
+through the package's route (past ``MK.SPH_BRUTE_MAX["direct"]``
+spheres
 the sphere tree, its build included), forced to the brute loop, and
 forced to the walk, in two turns, each record held to the first's bit
 for bit (another walk is timed from a copy of the tree under
@@ -137,6 +138,21 @@ and cornell; ``chip_smoke.py`` phase 23's direct train steps on
 sphere_field(1024) (cell and "pallas" routes, host clock); the direct
 instances' ptxas lines. ``--only direct-steps`` times those steps alone,
 so that one call can alternate a parent and a change several times.
+``--only path`` does the same for kernel 1's path mode at 1024^2 b5 on
+the fields of ``--path-fields`` (default sphere_field(128-4608)) and
+cornell: one recording pass (row 1s's shape) and 16-pass launches per
+configuration (the package's route, past ``MK.SPH_BRUTE_MAX["path"]``
+spheres the sphere tree with its build included; forced to the brute
+loop; forced to the walk), on sphere_field(256, 1024, 4608) and cornell
+also the one-pass launch and the roulette, recording and not, in two
+turns, each record held to the first configuration's bit for bit; first
+the cell and "pallas" train steps on sphere_field(1024) (host clock,
+median of 7); kernel 2′'s record and whole split on that field's step
+cotangent; one route call's kernels as torch.profiler's trace times them
+(the build, then the walk); the path instances' ptxas lines. A parent is
+timed by copying this file into its checkout; another walk or
+``__launch_bounds__`` from a copy of the package under ``build/<name>/``
+with its ``csrc/`` edited, run from there.
 ``--sass`` dumps ``cuobjdump -sass`` of the named variants' libraries
 into ``--out`` and
 prints, per kernel, the count of each memory, atomic, warp-level and
@@ -1852,7 +1868,7 @@ def direct_only(dev, smi: str, out: Path) -> int:
     (``direct_steps``); the direct kernels' ptxas lines. A parent commit
     is timed by copying this file into its checkout and running it there
     (it has the route alone)."""
-    has_walk = hasattr(MK, "direct_walks")
+    has_walk = hasattr(MK, "sphere_walks") or hasattr(MK, "direct_walks")
     t0 = time.perf_counter()
     specs = [("megakernel", MK._SIGNATURES, ()),
              ("megakernel", MK._SIGNATURES, MKG.RECORD_FLAGS),
@@ -1882,7 +1898,7 @@ def direct_only(dev, smi: str, out: Path) -> int:
     cases = direct_cases(dev)
     configs = _direct_configs(has_walk)
     results: dict = {"card": smi, "turns": [], "has_walk": has_walk,
-                     "brute_max": getattr(MK, "DIRECT_SPH_BRUTE_MAX", None)}
+                     "brute_max": getattr(MK, "SPH_BRUTE_MAX", None)}
     first: dict = {}
     for order in (configs, configs[::-1]):
         turn = measure_direct_only(cases, order, first)
@@ -1906,7 +1922,7 @@ def direct_only(dev, smi: str, out: Path) -> int:
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             for _ in range(REPS):
-                MK.sphere_tree_build(rows, MK.DIRECT_SPH_LEAF)
+                MK.sphere_tree_build(rows, MK.SPH_TREE_LEAF)
             torch.cuda.synchronize()
             others[f"tree build {n} wrapper ms (host clock)"] = (
                 time.perf_counter() - t1) * 1e3 / REPS
@@ -1914,7 +1930,7 @@ def direct_only(dev, smi: str, out: Path) -> int:
             for _ in range(5):
                 torch.cuda.synchronize()
                 t1 = time.perf_counter()
-                MK.sphere_tree(rows, MK.DIRECT_SPH_LEAF)
+                MK.sphere_tree(rows, MK.SPH_TREE_LEAF)
                 torch.cuda.synchronize()
                 torch_ms.append((time.perf_counter() - t1) * 1e3)
             others[f"torch tree {n} ms (host clock, median of 5)"] = sorted(
@@ -1936,6 +1952,187 @@ def direct_only(dev, smi: str, out: Path) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# --only path: kernel 1's path mode over resident sphere tables (the brute
+# loop against the sphere tree's walk) and the pieces around it
+# the threshold sweep (record and 16-pass launches); the fields of
+# PATH_FULL also run the one-pass launch and the roulette
+PATH_FIELDS = (128, 160, 192, 224, 256, 512, 1024, 4608)
+PATH_FULL = ("field256", "field1024", "field4608", "cornell")
+PATH_PASSES = 16          # render_passes' passes per call (bench.py)
+
+
+def _path_walk_args(walk) -> dict:
+    """pathtrace_pass's route argument where the package has one (a parent
+    from before the path walk runs the brute loop alone)."""
+    if walk is None or "sphere_walk" not in inspect.signature(
+            MK.pathtrace_pass).parameters:
+        return {}
+    return {"sphere_walk": walk}
+
+
+def _path_configs(has_walk: bool) -> list:
+    """(label, route) of each path-mode configuration: the package's route,
+    the brute loop and the walk."""
+    if not has_walk:
+        return [("route", None)]
+    return [("route", None), ("brute", False), ("walk", True)]
+
+
+def path_cases(dev, fields) -> dict:
+    """Tables at SIZE^2 b5: each field of ``fields`` and cornell."""
+    cfg = RenderConfig(width=SIZE, height=SIZE, bounces=BOUNCES,
+                       use_megakernel=True)
+    cases = {f"field{n}": mega.scene_tables(
+        sphere_field(n, cols=SIZE, rows=SIZE, device=dev), cfg)
+        for n in fields}
+    cases["cornell"] = mega.scene_tables(
+        cornell_box(cols=SIZE, rows=SIZE, device=dev), cfg)
+    return cases
+
+
+def measure_path_only(cases: dict, configs: list, first: dict) -> dict:
+    """Each configuration on each table at SIZE^2 b5 (the PRNG draws of
+    pass STEP_PASSES - 1): one recording pass (row 1s's shape; the route's
+    tree build included) and PATH_PASSES passes in one launch (per pass),
+    on PATH_FULL also one pass and one pass with the roulette (from
+    RR_START), CUDA events; each record held to the first configuration's
+    bit for bit."""
+    out = {}
+    ipar = torch.tensor([STEP_PASSES - 1, 0], dtype=torch.int32)
+    base = dict(spp=1, width=SIZE, bounces=BOUNCES, two_sided=False,
+                normalize_emitter=True, seed=0)
+    for label, walk in configs:
+        for name, t in cases.items():
+            acc = torch.zeros((SIZE * SIZE, 3), device=t[0].device)
+            kw = dict(base, **_path_walk_args(walk))
+            rr = dict(kw, russian_roulette=True, rr_start_depth=RR_START)
+
+            def run(n_passes=1, record=False, **extra):
+                return MK.pathtrace_pass(t[0], ipar, *t[1:], acc, None,
+                                         n_passes=n_passes, record=record,
+                                         **(extra or kw))
+
+            for key, args in (("record", dict(record=True)),
+                              ("rr record", dict(record=True, **rr))):
+                if key == "rr record" and name not in PATH_FULL:
+                    continue
+                acc.zero_()
+                rec = run(**args)
+                want = first.setdefault((name, key),
+                                        [x.clone() for x in rec])
+                bad = sum(int((a != b).sum()) for a, b in zip(rec, want))
+                if bad:
+                    print(f"  {label} {name} {key}: {bad} values differ "
+                          "from the first configuration's")
+            out[f"{label} {name} record"] = time_ms(
+                lambda: run(record=True))
+            out[f"{label} {name} pass"] = time_ms(
+                lambda: run(PATH_PASSES), reps=3, per=PATH_PASSES)
+            if name in PATH_FULL:
+                out[f"{label} {name} one pass"] = time_ms(lambda: run())
+                out[f"{label} {name} rr"] = time_ms(lambda: run(**rr))
+                out[f"{label} {name} rr record"] = time_ms(
+                    lambda: run(record=True, **rr))
+    return out
+
+
+def path_record_k2(dev) -> dict:
+    """Kernel 2′ past 64 objects on sphere_field(N_SPHERES)'s step
+    cotangent (``Case``): its ``--fmad=false`` record over the rays with g
+    != 0 (``MKG._record``: the route's, building its own tree where it
+    walks, and walking the forward's tree where the package has one), the
+    whole split (the record and kernel 3's sweep), CUDA events."""
+    c = Case(sphere_field(N_SPHERES, cols=SIZE, rows=SIZE, device=dev), dev)
+    t = c.tables
+    rec = dict(c.kw, russian_roulette=False, rr_start_depth=0, mode="path",
+               grid=None, chunks=None, block=0)
+    out = {"k2 live share": c.live,
+           "k2 record ms": time_ms(lambda: MKG._record(
+               t[0], c.ipar, *t[1:], c.g, None, **rec)),
+           "k2 split ms": time_ms(lambda: MKG.pathtrace_pass_bwd_split(
+               t[0], c.ipar, *t[1:], c.g, None, diff_wrt=TRAIN_WRT,
+               **c.kw))}
+    if "sph_tree" in inspect.signature(MK._launch_pass).parameters:
+        tree = MK.pass_tree(t[1])
+        out["k2 record, the forward's tree ms"] = time_ms(
+            lambda: MKG._record(t[0], c.ipar, *t[1:], c.g, None,
+                                sph_tree=tree, **rec))
+    return out
+
+
+def path_only(dev, smi: str, out: Path, fields) -> int:
+    """``--only path``: this checkout's kernel 1 in path mode on the
+    fields of ``fields`` and cornell at SIZE^2 b5 (``_path_configs``: the
+    package's route, the brute loop and the walk; ``measure_path_only``),
+    in two turns (first to last, then back); one route call's kernels on
+    sphere_field(1024) and (4608) as torch.profiler's trace times them
+    (the build, then the walk); kernel 2′'s record and split on
+    sphere_field(N_SPHERES)'s step cotangent (``path_record_k2``); the
+    cell and "pallas" train steps on sphere_field(N_SPHERES)
+    (``champ_steps``' two, host clock, median of 7); the path instances'
+    ptxas lines. A parent commit is timed by copying this file into its
+    checkout and running it there (it has the route alone); a variant of
+    the kernel (another walk, another __launch_bounds__) from a copy of the
+    package under ``build/<name>/`` with this file, run the same way."""
+    has_walk = "sphere_walk" in inspect.signature(
+        MK.pathtrace_pass).parameters
+    t0 = time.perf_counter()
+    specs = [("megakernel", MK._SIGNATURES, ()),
+             ("megakernel", MK._SIGNATURES, MKG.RECORD_FLAGS),
+             ("megakernel_champ", MKG._CHAMP_SIGNATURES, MKG.ADJ_FLAGS),
+             ("megakernel_grad", MKG._SIGNATURES, MKG.ADJ_FLAGS)]
+    if hasattr(MK, "_TREE_SIGNATURES"):
+        specs.append(("sphere_tree", MK._TREE_SIGNATURES, ()))
+    _build.load_all(specs)
+    print(f"built {len(specs)} libraries at once in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name, _, flags in specs[:2]:
+        usage = _build.ptxas_usage(_build.ptxas_log(name, flags))
+        for entry, u in usage.items():
+            if "pathtrace_kernel" in entry:
+                print(f"    ptxas {name} {' '.join(flags)} "
+                      f"{entry[-44:]}: {u}")
+        (out / f"ptxas_{name}{'_'.join(flags)}.txt").write_text(
+            _build.ptxas_log(name, flags))
+    steps = {k: v for k, v in champ_steps(dev).items()
+             if k in ("cell_spheres1024", "pallas_spheres1024")}
+    results: dict = {"card": smi, "turns": [], "has_walk": has_walk,
+                     "brute_max": getattr(MK, "SPH_BRUTE_MAX", None)}
+    # the steps first, so that every checkout's steps follow the same work
+    results["steps"] = time_steps(steps)
+    print("steps: " + ", ".join(f"{k} {v:.6g}"
+                                for k, v in results["steps"].items()),
+          flush=True)
+    cases = path_cases(dev, fields)
+    configs = _path_configs(has_walk)
+    first: dict = {}
+    for order in (configs, configs[::-1]):
+        turn = measure_path_only(cases, order, first)
+        print("turn: " + ", ".join(f"{k} {v:.6g}" for k, v in turn.items()),
+              flush=True)
+        results["turns"].append(turn)
+    others = path_record_k2(dev)
+    ipar = torch.tensor([STEP_PASSES - 1, 0], dtype=torch.int32)
+    for n in (1024, 4608):
+        t = cases.get(f"field{n}")
+        if t is None:
+            continue
+        acc = torch.zeros((SIZE * SIZE, 3), device=dev)
+        for k in launch_shapes(lambda: MK.pathtrace_pass(
+                t[0], ipar, *t[1:], acc, None, record=True, spp=1,
+                width=SIZE, bounces=BOUNCES, two_sided=False,
+                normalize_emitter=True, seed=0), out):
+            others[f"field{n} route kernel {k['name'][-40:]}"] = (
+                f"{k['us']} us, {k['registers']} registers, "
+                f"{k['blocks_per_sm']} blocks per SM, smem {k['smem']}")
+    print("others: " + ", ".join(f"{k} {v}" for k, v in others.items()))
+    results["others"] = others
+    (out / "profile.json").write_text(json.dumps(results, indent=1))
+    print(f"card: [{smi}]")
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--variant", action="append", default=[],
@@ -1946,7 +2143,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=str(BUILD / "out"))
     ap.add_argument("--only", choices=("all", "soft", "stream", "grid",
                                        "large", "hit", "champ", "direct",
-                                       "direct-steps"),
+                                       "direct-steps", "path"),
                     default="all",
                     help="soft: build and time kernel 2s alone; stream: "
                          "kernel 1's streamed cases, kernel 2's streamed "
@@ -1959,7 +2156,9 @@ def main(argv=None) -> int:
                          "case of the main path, per variant; direct: "
                          "kernel 1's direct mode, brute loop and sphere "
                          "tree, this checkout only; direct-steps: its "
-                         "direct train steps alone")
+                         "direct train steps alone; path: kernel 1's path "
+                         "mode, brute loop and sphere tree, this checkout "
+                         "only")
     ap.add_argument("--leaf-sizes", default="",
                     help="with --only stream or grid: the streamed tables' "
                          "leaf sizes (MK.STREAM_LEAF) or the mesh grid "
@@ -1967,6 +2166,9 @@ def main(argv=None) -> int:
                          "(default the package's); with --only hit kernel "
                          "4's tree leaves (HK.SPHERE_LEAF, default "
                          "1,2,4)")
+    ap.add_argument("--path-fields",
+                    default=",".join(str(n) for n in PATH_FIELDS),
+                    help="with --only path: the sphere fields to time")
     ap.add_argument("--bounds", action="store_true",
                     help="with --only large: each scene's bound of kernel "
                          "2 past 64 objects (the plain version's counts)")
@@ -2000,6 +2202,9 @@ def main(argv=None) -> int:
         return direct_only(dev, smi, out)
     if args.only == "direct-steps":
         return direct_steps_only(dev, smi, out)
+    if args.only == "path":
+        return path_only(dev, smi, out,
+                         [int(n) for n in args.path_fields.split(",") if n])
     if args.only == "hit":
         return hit_only(dev, smi, out, args.leaf_sizes,
                         [(label, Path(src).resolve()) for label, src in

@@ -40,6 +40,7 @@ from raytracing_tpu_torch.core.types import AABB, Camera, make_spheres
 from raytracing_tpu_torch.io import pdb
 from raytracing_tpu_torch.models import assignments as A
 from raytracing_tpu_torch.render import simple
+from torch_threads import one_thread  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 W, H = 48, 36

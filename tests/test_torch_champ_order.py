@@ -15,6 +15,7 @@ from raytracing_tpu_torch.models.scenes import sphere_field
 from raytracing_tpu_torch.ops import megakernel as MK
 from raytracing_tpu_torch.ops import megakernel_grad as MKG
 from raytracing_tpu_torch.render import mega
+from torch_threads import one_thread  # noqa: F401
 
 
 def _ids(rows):

@@ -16,6 +16,7 @@ from raytracing_tpu_torch.core.config import RenderConfig
 from raytracing_tpu_torch.ops import megakernel as MK
 from raytracing_tpu_torch.ops import megakernel_grad as MKG
 from raytracing_tpu_torch.render import mega
+from torch_threads import one_thread  # noqa: F401
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 

@@ -52,6 +52,7 @@ from raytracing_tpu_torch.ops import megakernel as MK
 from raytracing_tpu_torch.ops import megakernel_grad as MKG
 from raytracing_tpu_torch.render import mega
 from raytracing_tpu_torch.render import pathtracer as pt
+from torch_threads import one_thread  # noqa: F401
 
 W, H, B = 32, 24, 2
 N_SPHERES = 80

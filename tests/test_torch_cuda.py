@@ -25,6 +25,7 @@ from raytracing_tpu_torch.ops import megakernel_grad as MKG
 from raytracing_tpu_torch.ops import megakernel_soft as MKS
 from raytracing_tpu_torch.render import mega
 from raytracing_tpu_torch.render import pathtracer as pt
+from torch_threads import one_thread  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 TOL = 2e-4

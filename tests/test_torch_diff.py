@@ -22,6 +22,7 @@ from raytracing_tpu_torch.core.types import (Camera, make_spheres,
                                              scene_from_numpy, scene_to_numpy)
 from raytracing_tpu_torch.diff import check_grad, finite_difference
 from raytracing_tpu_torch.diff import soft
+from torch_threads import one_thread  # noqa: F401
 
 W, H = 8, 6
 SEED = 5

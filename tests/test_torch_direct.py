@@ -27,6 +27,7 @@ from raytracing_tpu_torch.core import rng
 from raytracing_tpu_torch.core.types import scene_from_numpy, scene_to_numpy
 from raytracing_tpu_torch.ops import megakernel as MK
 from raytracing_tpu_torch.render import direct, mega
+from torch_threads import one_thread  # noqa: F401
 
 W, H = 32, 24
 TOL = 2e-4

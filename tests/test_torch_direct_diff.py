@@ -43,6 +43,7 @@ from raytracing_tpu_torch.ops import megakernel_soft as MKS
 from raytracing_tpu_torch.render import mega
 from raytracing_tpu_torch.render import pathtracer as pt
 from torch_grid_scenes import cornell_torus, jax_cornell_torus
+from torch_threads import one_thread  # noqa: F401
 
 GRAD_SEED = 5
 PASS = 3               # the differentiable pass's index (its draws' key)

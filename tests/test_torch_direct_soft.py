@@ -27,6 +27,7 @@ from raytracing_tpu.ops.pallas.megakernel_grad import soft_pass_value
 from raytracing_tpu.render import mega as jmega
 from raytracing_tpu_torch.ops import megakernel_grad as MKG
 from raytracing_tpu_torch.ops import megakernel_soft as MKS
+from torch_threads import one_thread  # noqa: F401
 
 W, H = 16, 12
 GRAD_SEED = 5

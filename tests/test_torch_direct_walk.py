@@ -1,5 +1,5 @@
 """Kernel 1's direct mode over a sphere tree (``MK.direct_walk_reference``,
-``MK.direct_walks``, ``MK.sphere_tree_build``; ``csrc/megakernel.cu``
+``MK.sphere_walks``, ``MK.sphere_tree_build``; ``csrc/megakernel.cu``
 ``direct_kernel``'s kTree instances, ``csrc/sphere_tree.cu``) on the CPU,
 and on the card where there is one.
 
@@ -26,14 +26,14 @@ What is held, exactly (no tolerance) unless stated:
   occlusion bits apart and the accumulator within 2e-4
   (``tests/test_torch_direct_diff.py``'s gates for cornell; measured: no
   bit apart);
-* (c) the route: the walk past ``MK.DIRECT_SPH_BRUTE_MAX`` resident
+* (c) the route: the walk past ``MK.SPH_BRUTE_MAX["direct"]`` resident
   spheres and not at it or below it, never with a grid or streamed
   tables; on CPU tensors ``direct_pass`` runs the brute plain version;
 * (d) the walk's counts (node and row tests, leaf visits, the warp
   unions) against what the tree and the rays allow;
 * (e) the build's wrapper: its argument checks (the C entry's) as
   ValueErrors, and on CPU tensors ``MK.sphere_tree`` itself, whose loose
-  list breaks ties by position; ``MK.direct_tree`` builds nothing on the
+  list breaks ties by position; ``MK.pass_tree`` builds nothing on the
   CPU, and a differentiable direct pass asks for one tree, handed to its
   forward and to kernel 2's record;
 * (f) on the card: the build kernel equals ``MK.sphere_tree``
@@ -58,6 +58,7 @@ from raytracing_tpu_torch.core.types import cross3
 from raytracing_tpu_torch.models.scenes import cornell_box, sphere_field
 from raytracing_tpu_torch.ops import megakernel as MK
 from raytracing_tpu_torch.render import mega
+from torch_threads import one_thread  # noqa: F401
 
 KEY_SEED = 5
 EXACT_FLAGS = ("--fmad=false",)
@@ -295,27 +296,28 @@ def test_walk_record_matches_jax(n):
 
 @pytest.mark.parametrize("delta", [-1, 0, 1])
 def test_route_walks_past_the_brute_threshold(delta):
-    n = MK.DIRECT_SPH_BRUTE_MAX + delta
+    n = MK.SPH_BRUTE_MAX["direct"] + delta
     sph = torch.zeros((n, 8))
-    assert MK.direct_walks(sph) == (delta > 0)
+    assert MK.sphere_walks(sph, mode="direct") == (delta > 0)
     fake = object()
-    assert not MK.direct_walks(sph, grid=fake)
-    assert not MK.direct_walks(sph, chunks=fake)
+    assert not MK.sphere_walks(sph, grid=fake, mode="direct")
+    assert not MK.sphere_walks(sph, chunks=fake, mode="direct")
 
 
 def test_route_keeps_cornell_brute():
     cornell = mega.scene_tables(cornell_box(cols=8, rows=6),
                                 RenderConfig(width=8, height=6,
                                              use_megakernel=True))
-    assert cornell[1].shape[0] == 2 and not MK.direct_walks(cornell[1])
-    assert MK.DIRECT_SPH_BRUTE_MAX >= 2
+    assert cornell[1].shape[0] == 2
+    assert not MK.sphere_walks(cornell[1], mode="direct")
+    assert MK.SPH_BRUTE_MAX["direct"] >= 2
 
 
 def test_cpu_route_runs_the_brute_plain_version(monkeypatch):
     """On CPU tensors direct_pass runs direct_pass_reference whatever the
     table's size or the forced route, and counts no launch."""
     t = _field(256, 16, 12)
-    monkeypatch.setattr(MK, "DIRECT_SPH_BRUTE_MAX", 16)
+    monkeypatch.setitem(MK.SPH_BRUTE_MAX, "direct", 16)
     calls = []
     real = MK.direct_pass_reference
     monkeypatch.setattr(MK, "direct_pass_reference",
@@ -334,12 +336,14 @@ def test_cpu_route_runs_the_brute_plain_version(monkeypatch):
 
 
 def test_direct_tree_is_built_on_the_card_only():
-    """direct_tree gives no tree for CPU tables, whatever their size, and
+    """pass_tree gives no tree for CPU tables, whatever their size, and
     none below the threshold or with a grid (no launch counted)."""
     before = MK.tree_build_launches
-    for n in (MK.DIRECT_SPH_BRUTE_MAX, MK.DIRECT_SPH_BRUTE_MAX + 1, 1024):
-        assert MK.direct_tree(torch.zeros((n, 8))) is None
-    assert MK.direct_tree(torch.zeros((256, 8)), grid=object()) is None
+    limit = MK.SPH_BRUTE_MAX["direct"]
+    for n in (limit, limit + 1, 1024):
+        assert MK.pass_tree(torch.zeros((n, 8)), mode="direct") is None
+    assert MK.pass_tree(torch.zeros((256, 8)), grid=object(),
+                        mode="direct") is None
     assert MK.tree_build_launches == before
 
 
@@ -352,8 +356,9 @@ def test_differentiable_direct_pass_builds_one_tree(monkeypatch):
     from raytracing_tpu_torch.ops import megakernel_grad as MKG
     t = _field(256, 8, 6)
     marker, asked, seen = object(), [], {}
-    monkeypatch.setattr(MK, "direct_tree", lambda sph, grid=None,
-                        chunks=None: asked.append(sph.shape[0]) or marker)
+    monkeypatch.setattr(MK, "pass_tree", lambda sph, grid=None,
+                        chunks=None, mode="path": asked.append(
+                            (sph.shape[0], mode)) or marker)
     real = MK.direct_pass
 
     def forward(*a, sph_tree=None, **k):
@@ -376,7 +381,7 @@ def test_differentiable_direct_pass_builds_one_tree(monkeypatch):
         torch.tensor([0, 0], dtype=torch.int32), None, kw, ("sph",),
         dict(grid=None, chunks=None, block=0), "direct")
     acc.sum().backward()
-    assert asked == [256]
+    assert asked == [(256, "direct")]
     assert seen == {"forward": marker, "record": marker}
     assert sph.grad is not None
 
@@ -567,13 +572,13 @@ def test_walk_instance_bit_equals_brute_instance(cuda, name, flags):
 
 @pytest.mark.cuda
 def test_walk_route_by_size_on_the_card(cuda, monkeypatch):
-    """Past DIRECT_SPH_BRUTE_MAX the wrapper builds a tree and walks it;
+    """Past SPH_BRUTE_MAX["direct"] the wrapper builds a tree and walks it;
     at it, the brute instance; both give the same record."""
     t = _field(256, 32, 24, cuda)
     u = _draws(t, 32, 24)
     recs = []
     for limit, walked in ((255, 1), (256, 0)):
-        monkeypatch.setattr(MK, "DIRECT_SPH_BRUTE_MAX", limit)
+        monkeypatch.setitem(MK.SPH_BRUTE_MAX, "direct", limit)
         before = MK.direct_walk_launches, MK.tree_build_launches
         recs.append(MK.direct_pass(*t, torch.zeros((768, 3), device=cuda),
                                    u, record=True, **_kw(32)))
@@ -611,13 +616,14 @@ def test_direct_step_builds_one_tree_on_the_card(cuda):
     g = torch.ones((n, 3), device=cuda)
     rec = dict(kw, russian_roulette=False, rr_start_depth=0, mode="direct",
                grid=None, chunks=None, block=0)
-    tree = MK.direct_tree(t[1])
+    tree = MK.pass_tree(t[1], mode="direct")
     a = MKG._record(t[0], ipar, *t[1:], g, None, sph_tree=tree, **rec)
     b = MKG._record(t[0], ipar, *t[1:], g, None, **rec)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
-    with pytest.raises(ValueError, match="direct_tree"):
+    with pytest.raises(ValueError, match="pass_tree"):
         MK.direct_pass(*t, torch.zeros((n, 3), device=cuda), None,
-                       sph_tree=MK.direct_tree(t[1][:200].contiguous()),
+                       sph_tree=MK.pass_tree(t[1][:200].contiguous(),
+                                             mode="direct"),
                        **_kw(32))
 
 

@@ -27,6 +27,7 @@ from raytracing_tpu_torch.ops import megakernel_soft as MKS
 from raytracing_tpu_torch.render import mega
 from raytracing_tpu_torch.render import pathtracer as pt
 from torch_edge_scenes import tri_row
+from torch_threads import one_thread  # noqa: F401
 
 BW = 2e-2
 IPAR = torch.zeros(2, dtype=torch.int32)

@@ -39,6 +39,7 @@ from raytracing_tpu_torch.ops import megakernel_soft as MKS
 from raytracing_tpu_torch.render import mega
 from raytracing_tpu_torch.render import pathtracer as pt
 from torch_grid_scenes import cornell_torus, jax_cornell_torus
+from torch_threads import one_thread  # noqa: F401
 
 W, H, B = 8, 6, 2
 TORUS = (16, 4)

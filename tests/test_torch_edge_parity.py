@@ -41,6 +41,7 @@ from raytracing_tpu.render import pathtracer as jpt
 from raytracing_tpu_torch.ops import megakernel_grad as MKG
 from raytracing_tpu_torch.ops import megakernel_soft as MKS
 from torch_edge_scenes import split_tables
+from torch_threads import one_thread  # noqa: F401
 
 RR_START = 1
 GRAD_SEED = 3

@@ -38,6 +38,7 @@ from raytracing_tpu_torch.ops import megakernel as MK
 from raytracing_tpu_torch.render import direct
 from raytracing_tpu_torch.render import pathtracer as pt
 from torch_grid_scenes import jax_cornell_torus
+from torch_threads import one_thread  # noqa: F401
 
 W, H = 16, 12
 TOL = 2e-4

@@ -36,6 +36,7 @@ from raytracing_tpu_torch.render import mega
 from raytracing_tpu_torch.render import pathtracer as pt
 from raytracing_tpu_torch.render.direct import render_direct
 from torch_grid_scenes import jax_cornell_torus
+from torch_threads import one_thread  # noqa: F401
 
 W, H = 12, 8
 TOL = 2e-4

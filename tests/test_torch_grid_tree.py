@@ -47,6 +47,7 @@ from raytracing_tpu_torch.ops import megakernel as MK
 from raytracing_tpu_torch.render import mega
 from raytracing_tpu_torch.render.stages import _all_triangles
 from torch_grid_scenes import cornell_torus
+from torch_threads import one_thread  # noqa: F401
 
 W, H = 16, 12
 TORUS = (16, 8)

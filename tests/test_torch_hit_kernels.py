@@ -34,6 +34,7 @@ from raytracing_tpu_torch.core import types
 from raytracing_tpu_torch.ops import closest_hit as ch
 from raytracing_tpu_torch.ops import hit_kernels as HK
 from raytracing_tpu_torch.ops import intersect as I
+from torch_threads import one_thread  # noqa: F401
 
 N_RAYS = 384
 

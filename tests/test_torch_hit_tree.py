@@ -43,6 +43,7 @@ from raytracing_tpu_torch.models.scenes import sphere_field
 from raytracing_tpu_torch.ops import hit_kernels as HK
 from raytracing_tpu_torch.ops import megakernel as MK
 from raytracing_tpu_torch.render import pathtracer as pt
+from torch_threads import one_thread  # noqa: F401
 
 N_RAYS = 2048
 LEAVES = (1, 2, 4, 8, 16, 32)

@@ -26,6 +26,7 @@ from raytracing_tpu_torch.core.types import scene_from_numpy, scene_to_numpy
 from raytracing_tpu_torch.ops import megakernel as MK
 from raytracing_tpu_torch.render import mega
 from raytracing_tpu_torch.render import pathtracer as pt
+from torch_threads import one_thread  # noqa: F401
 
 TOL = 2e-4
 

@@ -31,6 +31,7 @@ from raytracing_tpu_torch.models.scenes import sphere_field
 from raytracing_tpu_torch.ops import megakernel_grad as MKG
 from raytracing_tpu_torch.render import mega
 from raytracing_tpu_torch.render import pathtracer as pt
+from torch_threads import one_thread  # noqa: F401
 
 W, H = 32, 24
 PARAMS = ("center", "radius", "tv", "mat", "irr", "lpos", "eye")

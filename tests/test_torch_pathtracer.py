@@ -14,6 +14,7 @@ from raytracing_tpu_torch import RenderConfig, cli
 from raytracing_tpu_torch.core.types import scene_from_numpy, scene_to_numpy
 from raytracing_tpu_torch.ops import megakernel as MK
 from raytracing_tpu_torch.render import pathtracer as pt
+from torch_threads import one_thread  # noqa: F401
 
 W, H = 32, 24
 

@@ -16,6 +16,7 @@ from raytracing_tpu_torch import RenderConfig
 from raytracing_tpu_torch.core import rng
 from raytracing_tpu_torch.ops.megakernel import draw_planes
 from raytracing_tpu_torch.render.mega import u_planes_for_pass
+from torch_threads import one_thread  # noqa: F401
 
 SEEDS = [0, 1234, 987654321]
 

@@ -26,6 +26,7 @@ from raytracing_tpu_torch.models import scenes
 from raytracing_tpu_torch.ops import intersect
 from raytracing_tpu_torch.ops import megakernel as MK
 from raytracing_tpu_torch.render import camera, mega, stages
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # scene constructors run tan/norm/cross in float32 on both sides; libraries may

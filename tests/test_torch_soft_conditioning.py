@@ -40,6 +40,7 @@ from raytracing_tpu_torch.ops import megakernel as MK
 from raytracing_tpu_torch.ops import megakernel_soft as MKS
 from raytracing_tpu_torch.render import mega
 from raytracing_tpu_torch.render import pathtracer as pt
+from torch_threads import one_thread  # noqa: F401
 
 W, H, BOUNCES = 24, 16, 5       # chip_smoke LARGE_W x LARGE_H, BOUNCES
 GRAD_SEED = 2                   # chip_smoke GRAD_SEED

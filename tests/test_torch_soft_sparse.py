@@ -44,6 +44,7 @@ from raytracing_tpu_torch.render import mega
 
 sys.path.insert(0, str(Path(__file__).parent))
 from torch_grid_scenes import cornell_torus  # noqa: E402
+from torch_threads import one_thread  # noqa: E402,F401
 
 W, H = 16, 12
 TORUS = (31, 16)  # 992 faces: 16 Morton spans with the padding

@@ -33,6 +33,7 @@ from raytracing_tpu_torch.ops import hit_kernels as HK
 from raytracing_tpu_torch.render import camera, direct, stages
 from raytracing_tpu_torch.render import pathtracer as pt
 from test_torch_megakernel_grad import PARAMS, _jax_grads, _port_grads
+from torch_threads import one_thread  # noqa: F401
 
 W, H = 32, 24
 TOL = 2e-4

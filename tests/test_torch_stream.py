@@ -60,6 +60,7 @@ from raytracing_tpu_torch.render import mega
 from raytracing_tpu_torch.render import pathtracer as pt
 from raytracing_tpu_torch.render.direct import render_direct
 from torch_grid_scenes import jax_cornell_torus
+from torch_threads import one_thread  # noqa: F401
 
 W, H = 16, 12
 TORUS = (16, 8)
