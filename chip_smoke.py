@@ -43,7 +43,10 @@ Phases, each fatal on failure (no exception is caught):
      ties the lower index must win, and every 9th sphere masked off), over
      sphere_field(4096) on 2^18 rays (all three the tree instance) and
      over cornell's 2 spheres (the brute loop), kernel 5 over a seeded
-     soup of 4096 triangles (single- and two-sided) and over cornell's 10.
+     soup of 4096 triangles (single- and two-sided; the tree instance, its
+     tree built on the card by one launch and equal to HK.triangle_tree
+     element for element, the build's device time printed apart) and over
+     cornell's 10 (the brute loop).
      The kernels are written to equal their plain versions bit for bit, so
      idx and t must be equal on every ray (gates first set at idx on
      99.99% and t within rtol 1e-5, tightened once the card showed 100%).
@@ -55,7 +58,9 @@ Phases, each fatal on failure (no exception is caught):
   9. the stage pipeline's main path: render_passes(sphere_field(1024),
      1024^2, b5, use_megakernel=False, use_pallas=True), 1 warm-up + 4
      timed one-pass calls: exactly 12 kernel-4 launches per pass, all of
-     the tree instance, and 0 of kernel 5, finite acc, and the first
+     the tree instance, and 0 of kernel 5, one one-launch build of the
+     sphere tree per pass (MK.tree_build_launches) and no torch build,
+     finite acc, and the first
      pass's mean radiance within 2% of the same pass through
      use_pallas=False (same draws). Two of the first pass's searches, the
      first bounce's closest hit and its shadow search, are held to the
@@ -65,8 +70,8 @@ Phases, each fatal on failure (no exception is caught):
      launches), both PNGs under build/;
  10. the stage route against kernel 1: cornell 1024^2 b5, one pass with
      the same pass key through use_megakernel=False, use_pallas=True (12
-     launches each of kernels 4 and 5; kernel 4 runs its brute loop on
-     cornell's 2 spheres) and through use_megakernel=True (1
+     launches each of kernels 4 and 5; both run their brute loops on
+     cornell's 2 spheres and 10 triangles) and through use_megakernel=True (1
      launch of kernel 1): at most 1% of rays beyond rtol/atol 2e-4 and the
      mean accumulator within 1e-5 relative (phase 3's gates; kernel 1
      contracts FMAs, the stage route does not);
@@ -335,6 +340,19 @@ Phases, each fatal on failure (no exception is caught):
      each kernel alone (CUDA events) on the last step with its share of
      its bound (_direct_bounds, _soft_ops with ``direct``). Prints the
      phase's seconds.
+ 24. the stage pipeline's main path on the torus scene (cornell plus the
+     992-face torus, 1,002 triangles, no grids: BENCH_MEGA=0 on the
+     teapot's stand-in): render_passes at 1024^2 b5, use_pallas=True, 1
+     warm-up and 4 timed one-pass calls: exactly 12 kernel-5 launches per
+     pass, all of the tree instance, one one-launch triangle-tree build
+     per pass and no torch build, finite acc; the first pass against
+     kernel 1's streamed route (row 1', one launch, the same pass key)
+     under phase 10's gates; the card's build of the pass's tree equal to
+     HK.triangle_tree; two of the first pass's searches, the first
+     bounce's closest hit and its shadow search, held to the plain version
+     under phase 8's exact gates; segments/s, ms per pass, the 12
+     searches' ms on their own inputs, the build's device time and
+     torch.profiler's split of one pass.
 Each phase prints the seconds elapsed since the start before it runs.
 Ends with a kernels JSON line and, last, the device JSON line. Exits non-zero
 without a result where CUDA is missing or the package is not beside it.
@@ -393,6 +411,13 @@ GRID_PASSES = 16           # passes per call (bench.py BENCH_PASSES)
 GRID_BLOCK = 64            # assign07's (and bench.py's mesh scenes') block
 GRID_REPS = 5
 GRID_TRAIN_STEPS = 5
+# the stage route's pass before kernel 5's tree and the one-launch sphere
+# tree build (kernel 4's tree built by torch every pass, kernel 5's brute
+# loop), as raytracing_tpu_torch/profile_kernels.py --only hit measured it
+# on one H100 80GB HBM3 at 700.00 W: ms per one-pass call (host clock,
+# the median of 5) of phases 9 and 24's scenes, in two processes. Printed
+# beside this run's times; no gate reads them
+BEFORE_STAGE_MS = {"spheres": (73.8226, 69.3757), "torus": (106.023, 104.494)}
 # kernel 1's grid mode before the cell-major copies (the walk that tested
 # every item of each cell through the CSR, one dependent load at a time),
 # as this script measured it on one H100 80GB HBM3 at 700.00 W: ms per
@@ -1293,15 +1318,69 @@ def _tie_table(dev):
     return HK.sphere_rows(c, r, m)
 
 
-def hit_kernels_vs_plain(dev) -> tuple[dict, dict, dict]:
+def _tri_walk_ops(HK, rays, tree, two_sided: bool) -> float:
+    """Kernel 5's tree walk on ``rays``, counted by its plain version
+    (``HK.triangle_walk_reference``) on every SAMPLE_STRIDE-th ray and
+    scaled: node tests at OPS_CHUNK and row tests (loose rows included)
+    at OPS_TRIANGLE_TEST."""
+    work: dict = {}
+    HK.triangle_walk_reference(*(x[::SAMPLE_STRIDE].contiguous()
+                                 for x in rays), tree, two_sided, work)
+    n = rays[0].shape[0]
+    scale = n / -(-n // SAMPLE_STRIDE)
+    return scale * (work.get("node_tests", 0) * OPS_CHUNK
+                    + work.get("tri_tests", 0) * OPS_TRIANGLE_TEST)
+
+
+def _same_tree(got, want) -> bool:
+    """Two trees (a build on the card and the torch build) element for
+    element."""
+    import torch
+    return got.tree.leaf == want.tree.leaf and all(
+        torch.equal(a, b) for a, b in zip((*got[:2], *got.tree[:3]),
+                                          (*want[:2], *want.tree[:3])))
+
+
+def _profiled_ms(run, key: str, reps: int = 10, events=None) -> tuple:
+    """The device time per call of ``run`` in kernels named ``key``: their
+    durations in torch.profiler's trace over ``reps`` calls
+    ("profiler"), or where the trace holds no device time ``events()``
+    or, without it, ``reps`` calls back to back between CUDA events
+    ("events", the calls' host work included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages() if key in e.key)
+    if us > 0:
+        return us / reps / 1e3, "profiler"
+    if events is not None:
+        return events(), "events"
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        run()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, "events"
+
+
+def hit_kernels_vs_plain(dev) -> tuple[dict, dict, dict, dict]:
     """Phase 8: kernels 4 and 5 against their plain versions; returns the
     kernel-4 tree entry (sphere_field(1024); the worst error of its three
-    tables), the brute entry (cornell's 2 spheres, the shape of its main
-    path) and the kernel-5 entry (cornell's 10 triangles; the worst error
-    of all)."""
+    tables), its brute entry (cornell's 2 spheres, the shape of its main
+    path), the kernel-5 tree entry (the soup, single-sided; the worst
+    error of both sides) and its brute entry (cornell's 10 triangles)."""
     import torch
     from raytracing_tpu_torch.models.scenes import cornell_box, sphere_field
     from raytracing_tpu_torch.ops import hit_kernels as HK
+    from raytracing_tpu_torch.ops import megakernel as MK
 
     def k4(name, rays, rows, tree: bool):
         """The tree instance searches with the tree built once beforehand,
@@ -1344,23 +1423,53 @@ def hit_kernels_vs_plain(dev) -> tuple[dict, dict, dict]:
     cs = cornell.spheres
     k4b = k4(f"kernel 4 cornell({cs.count}) (brute)", room,
              HK.sphere_rows(cs.center, cs.radius, cs.mask), False)
+
+    # kernel 5 over the soup: the tree instance, its tree built on the card
+    # once beforehand as a stage pass builds it, equal to the torch build
     soup = _soup(SOUP_TRIANGLES, HIT_SEED + 1).to(dev)
     rows = HK.triangle_rows(soup.v, soup.mask)
-    errs = []
+    _check(HK.TRIANGLE_BRUTE_MAX < rows.shape[0] <= MK.TREE_BUILD_MAX,
+           "the soup must take kernel 5's tree instance and its one-launch "
+           "build")
+    builds = HK.triangle_build_launches
+    tree = HK.pass_triangle_tree(soup.v, rows)
+    torch.cuda.synchronize()
+    _check(HK.triangle_build_launches == builds + 1,
+           "the soup's tree was not built by one launch")
+    _check(_same_tree(tree, HK.triangle_tree(soup.v, rows)),
+           "the card's triangle tree differs from HK.triangle_tree")
+    build_ms, clock = _profiled_ms(
+        lambda: HK.triangle_tree_build(soup.v, rows), "triangle_tree_build")
+    print(f"phase 8 kernel 5 soup({SOUP_TRIANGLES}): the tree's build on the "
+          f"card equals HK.triangle_tree element for element; {build_ms:.6g} "
+          f"ms per build ({clock}), leaves of {tree.tree.leaf} rows, "
+          f"{int((tree.tree.loose >= 0).sum())} loose")
+    k5t, errs = None, []
     for two_sided in (False, True):
-        errs.append(hit_kernel_vs_plain(
-            dev, f"kernel 5 soup({SOUP_TRIANGLES}) two_sided={two_sided}",
-            HK.triangle_search_rows, HK.triangle_search_reference, rays,
-            rows, two_sided, test_ops=OPS_TRIANGLE_TEST,
-            hit_ops=OPS_TRIANGLE_HIT - 26)["max_abs_err"])
+        before = HK.triangle_tree_launches
+        e = hit_kernel_vs_plain(
+            dev, f"kernel 5 soup({SOUP_TRIANGLES}) two_sided={two_sided} "
+            "(tree)",
+            lambda o, d, lo, hi, r, ts: HK.triangle_search_rows(
+                o, d, lo, hi, r, ts, tree),
+            HK.triangle_search_reference, rays, rows, two_sided,
+            test_ops=OPS_TRIANGLE_TEST, hit_ops=OPS_TRIANGLE_HIT - 26,
+            walk_ops=_tri_walk_ops(HK, rays, tree, two_sided))
+        _check(HK.triangle_tree_launches > before,
+               "the soup's search did not run kernel 5's tree instance")
+        errs.append(e["max_abs_err"])
+        k5t = k5t or {**e, "build_ms": build_ms}
+    k5t["max_abs_err"] = max(errs)
     tris = cornell.triangles
-    k5 = hit_kernel_vs_plain(
-        dev, "kernel 5 cornell(10)", HK.triangle_search_rows,
-        HK.triangle_search_reference, room,
+    before = HK.triangle_tree_launches
+    k5b = hit_kernel_vs_plain(
+        dev, f"kernel 5 cornell({tris.count}) (brute)",
+        HK.triangle_search_rows, HK.triangle_search_reference, room,
         HK.triangle_rows(tris.v, tris.mask), False,
         test_ops=OPS_TRIANGLE_TEST, hit_ops=OPS_TRIANGLE_HIT - 26)
-    k5["max_abs_err"] = max([k5["max_abs_err"], *errs])
-    return k4t, k4b, k5
+    _check(HK.triangle_tree_launches == before,
+           "cornell's 10 triangles must take kernel 5's brute loop")
+    return k4t, k4b, k5t, k5b
 
 
 def _profile_split(run) -> str:
@@ -1386,12 +1495,14 @@ def _profile_split(run) -> str:
     rows.sort(key=dev_us, reverse=True)
     total = sum(dev_us(e) for e in rows) / 1e3
     hit = sum(dev_us(e) for e in rows if "search_kernel" in e.key
-              or "sphere_tree_kernel" in e.key) / 1e3
+              or "_tree_kernel" in e.key) / 1e3
+    built = sum(dev_us(e) for e in rows if "tree_build_kernel" in e.key) / 1e3
     top = "; ".join(f"{e.key[:60]} x{e.count} {dev_us(e) / 1e3:.4g} ms"
                     for e in rows[:8])
     return (f"profiled pass {wall:.6g} ms wall: device busy {total:.6g} ms "
             f"({total / wall:.3%}), kernels 4+5 {hit:.6g} ms ({hit / wall:.3%}"
-            f" of the pass); largest: {top}")
+            f" of the pass), the trees' builds {built:.6g} ms; largest: "
+            f"{top}")
 
 
 def stage_main_path(dev, smi: str) -> dict:
@@ -1402,6 +1513,7 @@ def stage_main_path(dev, smi: str) -> dict:
     from raytracing_tpu_torch.io.png import write_png
     from raytracing_tpu_torch.models.scenes import sphere_field
     from raytracing_tpu_torch.ops import hit_kernels as HK
+    from raytracing_tpu_torch.ops import megakernel as MK
     from raytracing_tpu_torch.render import pathtracer as pt
     from raytracing_tpu_torch.render.direct import render_direct
 
@@ -1413,6 +1525,7 @@ def stage_main_path(dev, smi: str) -> dict:
     segs_per_pass = cfg.total_rays * (1 + n_l + cfg.bounces * (1 + n_l))
 
     HK.sphere_launches = HK.sphere_tree_launches = HK.triangle_launches = 0
+    MK.tree_build_launches = HK.torch_tree_builds = 0
     state = pt.render_passes(scene, pt.init_state(cfg, dev), cfg, 1)
     torch.cuda.synchronize()
     first = state["acc"].clone()
@@ -1423,11 +1536,15 @@ def stage_main_path(dev, smi: str) -> dict:
     wall = time.perf_counter() - t0
     k4, k4t = HK.sphere_launches, HK.sphere_tree_launches
     k5 = HK.triangle_launches
+    builds, torch_builds = MK.tree_build_launches, HK.torch_tree_builds
     n_passes = 1 + STAGE_TIMED_CALLS
     _check(k4 == 12 * n_passes and k4t == k4 and k5 == 0,
            f"{k4} kernel-4 launches ({k4t} of the tree instance) and {k5} "
            f"kernel-5 launches for {n_passes} passes (want 12, all of the "
            "tree instance, and 0 per pass)")
+    _check(builds == n_passes and torch_builds == 0,
+           f"{builds} one-launch sphere-tree builds and {torch_builds} torch "
+           f"builds for {n_passes} passes (want 1 and 0 per pass)")
     acc = state["acc"]
     _check(tuple(acc.shape) == (cfg.total_rays, 3), "acc shape")
     _check(bool(torch.isfinite(acc).all()), "stage acc not finite")
@@ -1454,8 +1571,11 @@ def stage_main_path(dev, smi: str) -> dict:
     print(f"phase 9 stage route sphere_field({N_SPHERES}) {MAIN_W}x{MAIN_H} "
           f"b{BOUNCES} use_pallas on [{smi}]: {rate:.6g} ray segments/s "
           f"({segs_per_pass} per pass), {ms:.6g} ms/pass over "
-          f"{STAGE_TIMED_CALLS} timed one-pass calls; launches kernel 4 "
-          f"{k4}, kernel 5 {k5} for {n_passes} passes; first pass mean "
+          f"{STAGE_TIMED_CALLS} timed one-pass calls (host clock; with the "
+          f"torch build of kernel 4's tree "
+          f"{' / '.join(map(str, BEFORE_STAGE_MS['spheres']))} ms/pass); "
+          f"launches kernel 4 {k4}, kernel 5 {k5}, the tree's build "
+          f"{builds} for {n_passes} passes; first pass mean "
           f"radiance {mk:.9g} vs use_pallas=False {mx:.9g} (rel {rel:.3g}, "
           f"{beyond:.6%} of rays beyond {TOL:g}; that pass {xla_ms:.6g} "
           f"ms); image mean {img.mean().item():.6g} -> {out}")
@@ -1482,25 +1602,28 @@ def stage_main_path(dev, smi: str) -> dict:
     return {"launches": k4t}
 
 
-def _stage_searches(scene, cfg, dev) -> list:
-    """The kernel-4 searches of one stage pass (pass 0), in their order (a
-    closest hit, then its shadow search, per segment): each search's
-    arguments (o, d, mint, maxt, rows, tree) and the kernel's (t, idx)."""
+def _stage_searches(scene, cfg, dev,
+                    fn: str = "sphere_search_rows") -> list:
+    """The searches of one stage pass (pass 0) through the wrapper ``fn``
+    of ``HK`` (kernel 4's, or kernel 5's ``triangle_search_rows``), in
+    their order (a closest hit, then its shadow search, per segment):
+    each search's arguments (o, d, mint, maxt, rows, [two_sided,] tree)
+    and the kernel's (t, idx)."""
     import torch
     from raytracing_tpu_torch.ops import hit_kernels as HK
     from raytracing_tpu_torch.render import pathtracer as pt
-    search, seen = HK.sphere_search_rows, []
+    search, seen = getattr(HK, fn), []
 
     def spy(*args):
         out = search(*args)
         seen.append((args, out))
         return out
 
-    HK.sphere_search_rows = spy
+    setattr(HK, fn, spy)
     try:
         pt.render_pass(scene, pt.init_state(cfg, dev), cfg)
     finally:
-        HK.sphere_search_rows = search
+        setattr(HK, fn, search)
     torch.cuda.synchronize()
     return seen
 
@@ -1543,14 +1666,16 @@ def stage_vs_megakernel(dev) -> dict:
                        use_pallas=True)
     scene = cornell_box(cols=MAIN_W, rows=MAIN_H, device=dev)
     HK.sphere_launches = HK.sphere_tree_launches = HK.triangle_launches = 0
+    HK.triangle_tree_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = pt.render_pass(scene, pt.init_state(cfg, dev), cfg)["acc"]
     torch.cuda.synchronize()
     stage_ms = (time.perf_counter() - t0) * 1e3
     k4, k5 = HK.sphere_launches, HK.triangle_launches
-    _check(HK.sphere_tree_launches == 0,
-           "cornell's 2 spheres must take kernel 4's brute loop")
+    _check(HK.sphere_tree_launches == 0 and HK.triangle_tree_launches == 0,
+           "cornell's 2 spheres and 10 triangles must take kernels 4 and "
+           "5's brute loops")
     mcfg = replace(cfg, use_megakernel=True)
     k1 = MK.launches
     want = pt.render_pass(scene, pt.init_state(mcfg, dev), mcfg)["acc"]
@@ -1572,6 +1697,140 @@ def stage_vs_megakernel(dev) -> dict:
     _check(beyond <= 0.01, f"{beyond:.4%} of rays beyond {TOL:g} (> 1%)")
     _check(rel <= 1e-5, f"mean acc differs by {rel:.3g} relative (> 1e-5)")
     return {"launches": k5, "k4_launches": k4}
+
+
+def stage_torus(dev, smi: str) -> dict:
+    """Phase 24: the stage pipeline's main path on the torus scene
+    (cornell plus the torus of TORUS_SEGMENTS, 1,002 triangles, no grids:
+    BENCH_MEGA=0 on the teapot's stand-in), MAIN_W x MAIN_H b5,
+    use_pallas=True; returns kernel 5's tree launches, its tree builds, the
+    torch build's host ms and the 12 searches' ms."""
+    import torch
+    from raytracing_tpu_torch import RenderConfig, replace
+    from raytracing_tpu_torch.ops import hit_kernels as HK
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.render import pathtracer as pt
+    from raytracing_tpu_torch.render import stages
+
+    cfg = RenderConfig(width=MAIN_W, height=MAIN_H, bounces=BOUNCES,
+                       use_pallas=True)
+    scene = _stream_scene("torus", MAIN_W, MAIN_H, dev)
+    n_l = scene.lights.count
+    segs_per_pass = cfg.total_rays * (1 + n_l + cfg.bounces * (1 + n_l))
+    HK.triangle_launches = HK.triangle_tree_launches = 0
+    HK.triangle_build_launches = HK.torch_tree_builds = 0
+    state = pt.render_passes(scene, pt.init_state(cfg, dev), cfg, 1)
+    torch.cuda.synchronize()
+    first = state["acc"].clone()
+    t0 = time.perf_counter()
+    for _ in range(STAGE_TIMED_CALLS):
+        state = pt.render_passes(scene, state, cfg, 1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k5, k5t = HK.triangle_launches, HK.triangle_tree_launches
+    builds, torch_builds = HK.triangle_build_launches, HK.torch_tree_builds
+    n_passes = 1 + STAGE_TIMED_CALLS
+    _check(k5 == 12 * n_passes and k5t == k5,
+           f"{k5} kernel-5 launches ({k5t} of the tree instance) for "
+           f"{n_passes} passes (want 12 per pass, all of the tree instance)")
+    _check(builds == n_passes and torch_builds == 0,
+           f"{builds} one-launch triangle-tree builds and {torch_builds} "
+           f"torch builds for {n_passes} passes (want 1 and 0 per pass)")
+    acc = state["acc"]
+    _check(tuple(acc.shape) == (cfg.total_rays, 3), "acc shape")
+    _check(bool(torch.isfinite(acc).all()), "stage acc not finite")
+    ms = wall * 1e3 / STAGE_TIMED_CALLS
+    rate = segs_per_pass * STAGE_TIMED_CALLS / wall
+
+    # the first pass against kernel 1's streamed route (row 1'), the same
+    # pass key, phase 10's gates
+    mcfg = replace(cfg, use_megakernel=True)
+    k1 = MK.stream_launches
+    want = pt.render_pass(scene, pt.init_state(mcfg, dev), mcfg)["acc"]
+    torch.cuda.synchronize()
+    k1 = MK.stream_launches - k1
+    err = (first - want).abs()
+    beyond = (err > TOL + TOL * want.abs()).any(-1).double().mean().item()
+    gm, wm = first.double().mean().item(), want.double().mean().item()
+    rel = abs(gm - wm) / abs(wm)
+
+    # the torch build of the pass's tree (past MK.TREE_BUILD_MAX rows it is
+    # the pass's own), host clock, synchronised
+    tris = stages._all_triangles(scene)
+    rows = HK.triangle_rows(tris.v, tris.mask)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    want_tree = HK.triangle_tree(tris.v, rows)
+    torch.cuda.synchronize()
+    torch_ms = (time.perf_counter() - t1) * 1e3
+    tree = HK.triangle_tree_build(tris.v, rows)
+    _check(_same_tree(tree, want_tree), "the card's triangle tree of the "
+           "torus scene differs from HK.triangle_tree")
+    build_ms, clock = _profiled_ms(
+        lambda: HK.triangle_tree_build(tris.v, rows), "triangle_tree_build")
+    # bytes: the rows and vertices read once, the tree written once;
+    # operations: per row its box (6) and code (15), per node its box (6)
+    build_bound = _bound(
+        21 * rows.shape[0] + 6 * tree.tree.nodes.shape[0],
+        4 * (rows.numel() + tris.v.numel() + sum(x.numel() for x in (
+            tree.rows, tree.perm, tree.tree.nodes, tree.tree.masks,
+            tree.tree.loose))))
+    split = _profile_split(lambda: pt.render_passes(scene, state, cfg, 1))
+    print(f"phase 24 stage route cornell + torus ({tris.count} triangles) "
+          f"{MAIN_W}x{MAIN_H} b{BOUNCES} use_pallas on [{smi}]: {rate:.6g} "
+          f"ray segments/s ({segs_per_pass} per pass), {ms:.6g} ms/pass over "
+          f"{STAGE_TIMED_CALLS} timed one-pass calls (host clock; before "
+          f"kernel 5's tree {' / '.join(map(str, BEFORE_STAGE_MS['torus']))}"
+          f" ms/pass); launches kernel 5 {k5} ({k5t} of the tree instance), "
+          f"its tree's build "
+          f"{builds} for {n_passes} passes ({build_ms:.6g} ms, {clock}; "
+          f"bound {build_bound['bound_ms']:.6g} ms, {build_bound['bound_by']};"
+          f" the torch build {torch_ms:.6g} ms, host clock); first pass vs "
+          f"kernel 1's streamed "
+          f"route ({k1} launch): max|d acc| {err.max().item():.6g}, rays "
+          f"beyond {TOL:g}: {beyond:.6%}, mean acc stage {gm:.9g} kernel 1 "
+          f"{wm:.9g} (rel {rel:.3g})")
+    print(f"phase 24 {split}")
+    _check(k1 == 1, f"kernel 1's streamed route: {k1} launches (want 1)")
+    _check(beyond <= 0.01, f"{beyond:.4%} of rays beyond {TOL:g} (> 1%)")
+    _check(rel <= 1e-5, f"mean acc differs by {rel:.3g} relative (> 1e-5)")
+
+    # two of the first pass's searches held to the plain version, the 12
+    # timed on their own inputs
+    seen = _stage_searches(scene, cfg, dev, "triangle_search_rows")
+    _check(len(seen) == 12, f"{len(seen)} kernel-5 searches in one pass")
+    _check(all(a[6] is seen[0][0][6] and a[6] is not None for a, _ in seen),
+           "the pass's searches did not share one tree")
+    for k, what in ((2, "first bounce's closest hit"),
+                    (3, "its shadow search")):
+        (o, d, mint, maxt, rows, ts, tree), got = seen[k]
+        t0 = time.perf_counter()
+        want = HK.triangle_search_reference(o, d, mint, maxt, rows, ts)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        errs = _hold_search(f"phase 24 search {k}", got, want)
+        live = (mint != maxt).double().mean().item()
+        hits = (want[1] >= 0).double().mean().item()
+        print(f"phase 24 search {k} ({what}): {o.shape[0]} rays, "
+              f"{live:.3%} live, {hits:.3%} hit; {errs['text']}; plain "
+              f"{plain_ms:.6g} ms")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    reps = 5
+    search_ms = []
+    for args, _ in seen:
+        HK.triangle_search_rows(*args)
+        start.record()
+        for _ in range(reps):
+            HK.triangle_search_rows(*args)
+        end.record()
+        torch.cuda.synchronize()
+        search_ms.append(start.elapsed_time(end) / reps)
+    print(f"phase 24 kernel 5's 12 searches of the pass on their own inputs: "
+          f"{sum(search_ms):.6g} ms ("
+          + ", ".join(f"{x:.4g}" for x in search_ms) + ")")
+    return {"launches": k5t, "search_ms": sum(search_ms), "ms": ms,
+            "build": {"launches": builds, "max_abs_err": 0.0, "ms": build_ms,
+                      "clock": clock, "plain_ms": torch_ms, **build_bound}}
 
 
 def _record(MK, tables, ipar, acc, u, cfg, build_flags=()):
@@ -1654,20 +1913,9 @@ def _tree_build_device_ms(MK, rows, reps: int = 10) -> tuple:
     its durations in torch.profiler's trace over ``reps`` wrapper calls
     ("profiler"), or where the trace holds no device time its C entry
     back to back between CUDA events ("events", _build_device_ms)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    MK.sphere_tree_build(rows, MK.SPH_TREE_LEAF)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            MK.sphere_tree_build(rows, MK.SPH_TREE_LEAF)
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-             for e in prof.key_averages() if "sphere_tree" in e.key)
-    if us > 0:
-        return us / reps / 1e3, "profiler"
-    return _build_device_ms(None, MK, rows, reps), "events"
+    return _profiled_ms(lambda: MK.sphere_tree_build(rows, MK.SPH_TREE_LEAF),
+                        "sphere_tree", reps,
+                        lambda: _build_device_ms(None, MK, rows, reps))
 
 
 def path_walk_vs_brute(dev, smi: str) -> dict:
@@ -5704,7 +5952,7 @@ def main() -> int:
     t = train_path(dev, smi)
     _elapsed(8)
     # phase 8: kernels 4 and 5 vs their plain versions
-    h4, h4b, h5 = hit_kernels_vs_plain(dev)
+    h4, h4b, h5t, h5b = hit_kernels_vs_plain(dev)
     _elapsed(9)
     # phase 9: the stage pipeline's main path
     s9 = stage_main_path(dev, smi)
@@ -5856,6 +6104,10 @@ def main() -> int:
     b23 = {k: v for route in ("kernel2", "cell")
            for k, v in direct_train(dev, smi, "spheres1024", route).items()}
     print(f"phase 23: {time.perf_counter() - t23:.1f} s")
+    _elapsed(24)
+    # phase 24: the stage pipeline's main path on the torus scene (kernel
+    # 5's tree instance)
+    s24 = stage_torus(dev, smi)
     print(f"[{time.perf_counter() - START:.1f} s elapsed in all]")
     hard22 = max([x["max_abs_err"] for x in a22.values()]
                  + [v["max_abs_err"] for (_, soft, _), v in c22.items()
@@ -5903,11 +6155,26 @@ def main() -> int:
         "source": "raytracing_tpu_torch/csrc/hit_kernels.cu",
         "replaces": "raytracing_tpu/ops/pallas/hit_kernels.py:58",
         "launches": s10["k4_launches"], **h4b, "library_ms": None}, {
-        "name": "triangle_search (closest hit over triangles)",
+        "name": "triangle_search (closest hit over triangles, box tree "
+                f"walk: a {SOUP_TRIANGLES}-triangle soup; launches: the "
+                "torus scene's stage pass)",
         "route": "cuda",
         "source": "raytracing_tpu_torch/csrc/hit_kernels.cu",
         "replaces": "raytracing_tpu/ops/pallas/hit_kernels.py:138",
-        "launches": s10["launches"], **h5, "library_ms": None}, {
+        "launches": s24["launches"], **h5t,
+        "stage_search_ms": s24["search_ms"], "library_ms": None}, {
+        "name": "triangle_search (closest hit over triangles, brute loop: "
+                "cornell's 10)",
+        "route": "cuda",
+        "source": "raytracing_tpu_torch/csrc/hit_kernels.cu",
+        "replaces": "raytracing_tpu/ops/pallas/hit_kernels.py:138",
+        "launches": s10["launches"], **h5b, "library_ms": None}, {
+        "name": "triangle_tree_build (the box tree over a triangle table "
+                "that kernel 5 walks, one launch per stage pass: cornell + "
+                "torus)",
+        "route": "cuda",
+        "source": "raytracing_tpu_torch/csrc/sphere_tree.cu",
+        "replaces": None, **s24["build"], "library_ms": None}, {
         "name": "pathtrace_pass_bwd_champ (champion adjoint)",
         "route": "cuda",
         "source": "raytracing_tpu_torch/csrc/megakernel_champ.cu",

@@ -9,9 +9,9 @@
 // index. Any-hit is the same search followed by isfinite(t), as in the
 // JAX package.
 //
-// The brute loops (kernel 5, and kernel 4 on tables of up to
-// SPHERE_BRUTE_MAX rows, ops/hit_kernels.py): every live ray tests every
-// object. What bounds them on this card is FP32 instruction throughput: a
+// The brute loops (kernels 4 and 5 on tables of up to SPHERE_BRUTE_MAX
+// and TRIANGLE_BRUTE_MAX rows, ops/hit_kernels.py): every live ray tests
+// every object. What bounds them on this card is FP32 instruction throughput: a
 // search reads 32 B and writes 8 B per ray, against ~20 operations per
 // ray-sphere test and ~40 per ray-triangle test over every object of the
 // scene. The design follows from that:
@@ -55,6 +55,28 @@
 // FP32 rate any more but the latency of its dependent steps (a node test
 // is two 16-byte loads, 31 operations and a branch; the stack lives in
 // local memory) and the divergence of the lanes' paths.
+//
+// Kernel 5's tree instance (triangle_tree_kernel, past TRIANGLE_BRUTE_MAX
+// rows): kernel 4's design with a triangle's box. The brute loop ran a
+// 4096-triangle soup at 3% of its FP32 bound (11 ms for 2^20 rays, PERF.md
+// section 6, row 5): every live ray ran ~40 operations per row, so again
+// the work itself shrinks. The tree is ops/hit_kernels.py triangle_tree,
+// built on the card once per stage pass (csrc/sphere_tree.cu's triangle
+// instance): the rows in the Morton order of their vertex centroids,
+// leaves of TRIANGLE_LEAF rows whose boxes are the min / max of their
+// masked-on rows' vertices widened by MK.CHUNK_PAD of the table's largest
+// |coordinate|, and the loose rows (a box whose longest side is at least
+// MK.LOOSE_SHARE of the table box's: cornell's walls), which every ray
+// tests first. Each visited row runs the brute loop's uncontracted test
+// (triangle_t), so the champion is again the least (t, original index).
+// The culling argument is the spheres': a row's hit point lies in its
+// leaf's widened box. It asks more of a triangle's t, whose rounding
+// error 1 / div magnifies as a ray grazes the triangle's plane: a point
+// can leave the widened box only for a ray within a few thousandths of a
+// radian of the plane, near the box's edge, and the walk then misses it
+// only where another row's hit culls the leaf first. The CPU tests, the
+// plain walk over phase 8's 2^20 rays and over every search of a torus
+// stage pass, and the card (chip_smoke.py phases 8 and 24) found none.
 // Table rows (packed once per pass by ops/hit_kernels.py):
 //   spheres   (S, 8):  [center xyz, radius, 0, mask, 0, 0]
 //   triangles (T, 20): [n_geo, c1, c2, e1, e2, k, 0, mask, 0, 0]
@@ -153,6 +175,32 @@ __device__ __forceinline__ bool sphere_t(const Ray& r, float a, float inv2a,
     return false;
   }
   return true;
+}
+
+// The triangle test of the plain version (ops/intersect.triangle_hit),
+// uncontracted: whether ray r (oxd = cross(o, d)) hits the packed row q
+// (16-byte aligned) inside [lo, hi], two-sided (div != 0) or from the front
+// (div > 0), and its t. The tree instance's; the brute loop keeps its own
+// inline copy of the same operations, which it reads from shared memory.
+template <bool kTwoSided>
+__device__ __forceinline__ bool triangle_t(const Ray& r, V3 oxd,
+                                           const float* q, float& t) {
+  const float4* q4 = reinterpret_cast<const float4*>(q);
+  const float4 a = __ldg(q4);  // n_geo, c1.x
+  const V3 ng = mk(a.x, a.y, a.z);
+  const float div = dot_rn(r.d, ng);
+  if (kTwoSided ? !(div != 0.0f) : !(div > 0.0f)) return false;
+  const float4 b = __ldg(q4 + 1);  // c1.yz, c2.xy
+  const float4 c = __ldg(q4 + 2);  // c2.z, e1
+  const float4 e = __ldg(q4 + 3);  // e2, k
+  const V3 c1 = mk(a.w, b.x, b.y), c2 = mk(b.z, b.w, c.x);
+  const V3 e1 = mk(c.y, c.z, c.w), e2 = mk(e.x, e.y, e.z);
+  const float idiv = __fdiv_rn(1.0f, div);
+  const float beta = mul(sub(dot_rn(oxd, e2), dot_rn(r.d, c2)), idiv);
+  const float gamma = mul(sub(dot_rn(r.d, c1), dot_rn(oxd, e1)), idiv);
+  t = mul(sub(e.w, dot_rn(r.o, ng)), idiv);
+  return beta >= 0.0f && beta <= 1.0f && gamma >= 0.0f &&
+         add(beta, gamma) <= 1.0f && t >= r.lo && t <= r.hi;
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -299,6 +347,56 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
+// Kernel 5's tree instance: as sphere_tree_kernel over S, the box tree
+// over the sorted triangle rows (ops/hit_kernels.py TriangleTree), each
+// lane its own walk (lane_walk), every visited row through triangle_t.
+template <bool kTwoSided>
+__global__ void __launch_bounds__(kTreeBlock)
+    triangle_tree_kernel(const float* __restrict__ o,
+                         const float* __restrict__ d,
+                         const float* __restrict__ mint,
+                         const float* __restrict__ maxt, const Stream S,
+                         float* __restrict__ t_out, int* __restrict__ i_out,
+                         int n_rays) {
+  const int rid = blockIdx.x * blockDim.x + threadIdx.x;
+  const Ray r = load_ray(o, d, mint, maxt, rid, n_rays);
+  if (!r.alive) {
+    if (rid < n_rays) {
+      t_out[rid] = inf_f();
+      i_out[rid] = -1;
+    }
+    return;
+  }
+  const V3 oxd = cross_rn(r.o, r.d);
+  float bt = inf_f();
+  int bi = -1;
+  auto test = [&](int s) {
+    const float* q = S.rows + kTriRow * static_cast<size_t>(s);
+    float t;
+    if (!triangle_t<kTwoSided>(r, oxd, q, t) || !(t <= bt)) return false;
+    const int id = __ldg(S.perm + s);
+    if (t < bt || id < bi) {
+      bt = t;
+      bi = id;
+    }
+    return false;
+  };
+  lane_walk(S, r.o, safe_inv(r.d), r.lo, [&]() { return fminf(r.hi, bt); },
+            test, [&](int r0, unsigned m) {
+              for (; m; m &= m - 1) test(r0 + __ffs(m) - 1);
+              return false;
+            });
+  t_out[rid] = bt;
+  i_out[rid] = bi;
+}
+
+// Whether S is a well-formed tree over n_obj rows (pathtrace.cuh
+// stream_ok, leaves of at most 32 rows, whole leaves that hold the table).
+bool tree_ok(const Stream& S, int n_obj) {
+  return stream_ok(S) && S.leaf <= 32 && S.n >= n_obj && S.n % S.leaf == 0 &&
+         S.n - n_obj < S.leaf;
+}
+
 }  // namespace
 
 // o, d (n_rays, 3), mint, maxt (n_rays,), rows (n_obj, 8) float32;
@@ -320,9 +418,7 @@ extern "C" int rt_sphere_search(const float* o, const float* d,
                                 void* stream) {
   const Stream S = {t_rows, perm, node, mask, loose, n_tree, leaf, n_slots,
                     n_loose};
-  if (walk < 0 || walk > 1 ||
-      (walk && (!stream_ok(S) || leaf > 32 || n_tree < n_obj ||
-                n_tree % leaf || n_tree - n_obj >= leaf)))
+  if (walk < 0 || walk > 1 || (walk && !tree_ok(S, n_obj)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -335,16 +431,34 @@ extern "C" int rt_sphere_search(const float* o, const float* d,
   return static_cast<int>(cudaGetLastError());
 }
 
-// As rt_sphere_search with rows (n_obj, 20); two_sided accepts div != 0,
-// else div > 0.
+// As rt_sphere_search with rows (n_obj, 20) and a tree of TriangleTree
+// (t_rows (n_tree, 20)); two_sided accepts div != 0, else div > 0.
 extern "C" int rt_triangle_search(const float* o, const float* d,
                                   const float* mint, const float* maxt,
-                                  const float* rows, int n_obj, int two_sided,
-                                  float* t_out, int* i_out, int n_rays,
-                                  void* stream) {
+                                  const float* rows, int n_obj,
+                                  const float* t_rows, const int* perm,
+                                  const float* node, const unsigned* mask,
+                                  const int* loose, int n_tree, int leaf,
+                                  int n_slots, int n_loose, int walk,
+                                  int two_sided, float* t_out, int* i_out,
+                                  int n_rays, void* stream) {
+  const Stream S = {t_rows, perm, node, mask, loose, n_tree, leaf, n_slots,
+                    n_loose};
+  if (walk < 0 || walk > 1 || (walk && !tree_ok(S, n_obj)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
-  const int grid = (n_rays + kBlock - 1) / kBlock;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (walk) {
+    const int grid = (n_rays + kTreeBlock - 1) / kTreeBlock;
+    if (two_sided)
+      triangle_tree_kernel<true><<<grid, kTreeBlock, 0, s>>>(
+          o, d, mint, maxt, S, t_out, i_out, n_rays);
+    else
+      triangle_tree_kernel<false><<<grid, kTreeBlock, 0, s>>>(
+          o, d, mint, maxt, S, t_out, i_out, n_rays);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int grid = (n_rays + kBlock - 1) / kBlock;
   if (two_sided)
     triangle_search_kernel<true><<<grid, kBlock, 0, s>>>(
         o, d, mint, maxt, rows, n_obj, t_out, i_out, n_rays);

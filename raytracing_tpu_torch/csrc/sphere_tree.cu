@@ -1,16 +1,25 @@
-// The box tree over a sphere table, built on the card in one launch: the
+// The box tree over an object table, built on the card in one launch: the
 // layout that kernel 1 walks past MK.SPH_BRUTE_MAX[mode] resident spheres
 // (csrc/megakernel.cu pathtrace_kernel's and direct_kernel's kTree
-// instances).
+// instances) and kernels 4 and 5 walk past HK.SPHERE_BRUTE_MAX and
+// HK.TRIANGLE_BRUTE_MAX rows (csrc/hit_kernels.cu sphere_tree_kernel and
+// triangle_tree_kernel, the stage pass building each tree once). One
+// build, templated on the row kind: sphere_tree_build_kernel over sphere
+// rows, triangle_tree_build_kernel over triangle rows and their vertices.
 //
-// Its plain version is ops/megakernel.py sphere_tree (the layout of
-// MK.SphereTree, MK.box_tree's nodes, masks and loose rows); the output
-// equals it element for element (torch.equal) on the same rows:
-//   * each row's box: centre -/+ |radius| where its mask (column 5) is
-//     set, +inf / -inf otherwise; the table's box over those boxes, the
-//     pad MK.CHUNK_PAD * max(|centre| + |radius|) over the masked-on rows
-//     and the room (the box's longest side);
-//   * the rows in the stable order of their centres' 30-bit Morton codes
+// Its plain versions are ops/megakernel.py sphere_tree and
+// ops/hit_kernels.py triangle_tree (the layout of MK.SphereTree and
+// HK.TriangleTree, MK.box_tree's nodes, masks and loose rows); the output
+// equals them element for element (torch.equal) on the same rows:
+//   * each row's box where its mask is set (spheres column 5: centre -/+
+//     |radius|; triangles column 17: its vertices' min / max), +inf / -inf
+//     otherwise; the table's box over those boxes, the pad MK.CHUNK_PAD
+//     times the largest |coordinate| of a masked-on row's box (spheres
+//     |centre| + |radius|, triangles |vertex|) and the room (the box's
+//     longest side);
+//   * the rows in the stable order of the 30-bit Morton codes of their
+//     points (a sphere's centre, a triangle's vertex centroid (v0 + v1 +
+//     v2) / 3, as render/mega.tri_chunk_tables orders JAX's chunks)
 //     against the table's box (MK.morton_codes: (c - pmin) / max(pmax -
 //     pmin, 1e-20) * 1024 clamped to [0, 1023] and truncated, the bits
 //     interleaved), padded with zero rows to whole leaves; perm the
@@ -27,10 +36,11 @@
 // round-to-nearest intrinsics so that nvcc contracts nothing; minima and
 // maxima are exact in any order.
 //
-// Why one block: a training step changes the sphere table every step, so
-// the tree is rebuilt every call, and the torch build of the same layout
-// is ~140 small launches (2.3-3.0 ms of host time per call, PERF.md §7),
-// more than the walk saves. One block of kThreads threads holds a table of
+// Why one block: a training step changes the sphere table every step and a
+// stage pass packs its tables every pass, so the tree is rebuilt every
+// call, and the torch build of the same layout is ~140 small launches
+// (2.3-3.0 ms of host time per call, PERF.md §7), more than the walk
+// saves. One block of kThreads threads holds a table of
 // up to kMaxRows rows in shared memory: the stable sort is a bitonic sort
 // of (code, row) keys, each unique, so the order is the stable one; the
 // node levels are refitted one after another behind __syncthreads (a
@@ -59,21 +69,82 @@ struct Box {
   bool take;  // masked on, with a box (lo <= hi on every axis)
 };
 
-// Row r's box (rows (n, 8): [centre xyz, radius, ., mask, ., .]).
-__device__ __forceinline__ Box row_box(const float* rows, int r) {
-  const float* q = rows + static_cast<size_t>(r) * kSph;
-  const bool on = q[5] > 0.0f;
-  const float rad = fabsf(q[3]);
-  Box b;
-  b.take = on;
+// The row kinds. Each gives a row's box, the point of its Morton code and
+// its reach (the largest |coordinate| of its box's ends, 0 where masked
+// off: the pad's scale).
+//
+// Sphere rows (n, 8): [centre xyz, radius, ., mask, ., .].
+struct SphereRows {
+  static constexpr int kCols = kSph;
+  const float* rows;
+  __device__ __forceinline__ Box box(int r) const {
+    const float* q = rows + static_cast<size_t>(r) * kCols;
+    const bool on = q[5] > 0.0f;
+    const float rad = fabsf(q[3]);
+    Box b;
+    b.take = on;
 #pragma unroll
-  for (int ax = 0; ax < 3; ++ax) {
-    b.lo[ax] = on ? __fsub_rn(q[ax], rad) : inf_f();
-    b.hi[ax] = on ? __fadd_rn(q[ax], rad) : -inf_f();
-    b.take = b.take && b.lo[ax] <= b.hi[ax];
+    for (int ax = 0; ax < 3; ++ax) {
+      b.lo[ax] = on ? __fsub_rn(q[ax], rad) : inf_f();
+      b.hi[ax] = on ? __fadd_rn(q[ax], rad) : -inf_f();
+      b.take = b.take && b.lo[ax] <= b.hi[ax];
+    }
+    return b;
   }
-  return b;
-}
+  __device__ __forceinline__ float point(int r, int ax) const {
+    return rows[static_cast<size_t>(r) * kCols + ax];
+  }
+  __device__ __forceinline__ float reach(int r) const {
+    const float* q = rows + static_cast<size_t>(r) * kCols;
+    const float rad = fabsf(q[3]);
+    float m = 0.0f;
+    if (q[5] > 0.0f) {
+#pragma unroll
+      for (int ax = 0; ax < 3; ++ax) m = fmaxf(m, __fadd_rn(fabsf(q[ax]), rad));
+    }
+    return m;
+  }
+};
+
+// Triangle rows (n, 20): [n_geo, c1, c2, e1, e2, k, ., mask, ., .] (the
+// mask in column 17), and their vertices v (n, 3, 3), which the rows do
+// not hold.
+struct TriangleRows {
+  static constexpr int kCols = 20;
+  const float* rows;
+  const float* v;
+  __device__ __forceinline__ bool on(int r) const {
+    return rows[static_cast<size_t>(r) * kCols + 17] > 0.0f;
+  }
+  __device__ __forceinline__ Box box(int r) const {
+    const float* p = v + 9 * static_cast<size_t>(r);
+    const bool live = on(r);
+    Box b;
+    b.take = live;
+#pragma unroll
+    for (int ax = 0; ax < 3; ++ax) {
+      b.lo[ax] = live ? fminf(fminf(p[ax], p[3 + ax]), p[6 + ax]) : inf_f();
+      b.hi[ax] = live ? fmaxf(fmaxf(p[ax], p[3 + ax]), p[6 + ax]) : -inf_f();
+      b.take = b.take && b.lo[ax] <= b.hi[ax];
+    }
+    return b;
+  }
+  // the centroid as torch rounds (v0 + v1 + v2) / 3: two sums, then a true
+  // division
+  __device__ __forceinline__ float point(int r, int ax) const {
+    const float* p = v + 9 * static_cast<size_t>(r);
+    return __fdiv_rn(__fadd_rn(__fadd_rn(p[ax], p[3 + ax]), p[6 + ax]), 3.0f);
+  }
+  __device__ __forceinline__ float reach(int r) const {
+    const float* p = v + 9 * static_cast<size_t>(r);
+    float m = 0.0f;
+    if (on(r)) {
+#pragma unroll
+      for (int k = 0; k < 9; ++k) m = fmaxf(m, fabsf(p[k]));
+    }
+    return m;
+  }
+};
 
 __device__ __forceinline__ unsigned spread(unsigned x) {
   x = (x | (x << 16)) & 0x030000FFu;
@@ -98,11 +169,15 @@ __device__ float block_reduce(float v, bool max, float* scratch) {
   return scratch[0];
 }
 
-__global__ void __launch_bounds__(kThreads)
-    sphere_tree_build_kernel(const float* __restrict__ rows, int s, int leaf,
-                       int n_slots, float pad_share, float loose_share,
-                       int n_loose, float* out_rows, int* perm, float* node,
-                       int* mask, int* loose) {
+// The build of the table `tab` (s rows): one block of kThreads threads.
+template <class Table>
+__device__ __forceinline__ void build_tree(const Table& tab, int s, int leaf,
+                                           int n_slots, float pad_share,
+                                           float loose_share, int n_loose,
+                                           float* out_rows, int* perm,
+                                           float* node, int* mask,
+                                           int* loose) {
+  constexpr int kCols = Table::kCols;
   extern __shared__ unsigned long long keys[];  // np sort keys
   __shared__ float scratch[kThreads];
   __shared__ int n_cand;
@@ -123,16 +198,13 @@ __global__ void __launch_bounds__(kThreads)
   float hi[3] = {-inf_f(), -inf_f(), -inf_f()};
   float scale = 0.0f;
   for (int r = tid; r < s; r += kThreads) {
-    const Box b = row_box(rows, r);
-    const float* q = rows + static_cast<size_t>(r) * kSph;
-    const float rad = fabsf(q[3]);
-    const bool on = q[5] > 0.0f;
+    const Box b = tab.box(r);
 #pragma unroll
     for (int ax = 0; ax < 3; ++ax) {
       lo[ax] = fminf(lo[ax], b.lo[ax]);
       hi[ax] = fmaxf(hi[ax], b.hi[ax]);
-      if (on) scale = fmaxf(scale, __fadd_rn(fabsf(q[ax]), rad));
     }
+    scale = fmaxf(scale, tab.reach(r));
   }
   float pmin[3], pmax[3], ext[3];
   const float tiny = static_cast<float>(1e-20);  // as torch rounds it
@@ -153,12 +225,12 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = tid; i < np; i += kThreads) {
     unsigned long long key = ~0ull;
     if (i < s) {
-      const float* q = rows + static_cast<size_t>(i) * kSph;
       unsigned code = 0;
 #pragma unroll
       for (int ax = 0; ax < 3; ++ax) {
         const float x = __fmul_rn(
-            __fdiv_rn(__fsub_rn(q[ax], pmin[ax]), ext[ax]), 1024.0f);
+            __fdiv_rn(__fsub_rn(tab.point(i, ax), pmin[ax]), ext[ax]),
+            1024.0f);
         code |= spread(static_cast<unsigned>(fminf(fmaxf(x, 0.0f), 1023.0f)))
                 << ax;
       }
@@ -190,17 +262,17 @@ __global__ void __launch_bounds__(kThreads)
   };
 
   // the sorted rows, perm, and each position's loose score
-  for (int i = tid; i < n * kSph; i += kThreads) {
-    const int p = i / kSph;
-    out_rows[i] = p < s ? __ldg(rows + static_cast<size_t>(orig(p)) * kSph +
-                                (i - p * kSph))
+  for (int i = tid; i < n * kCols; i += kThreads) {
+    const int p = i / kCols;
+    out_rows[i] = p < s ? __ldg(tab.rows + static_cast<size_t>(orig(p)) *
+                                               kCols + (i - p * kCols))
                         : 0.0f;
   }
   for (int p = tid; p < n; p += kThreads) {
     perm[p] = p < s ? orig(p) : -1;
     float sc = -inf_f();
     if (p < s) {
-      const Box b = row_box(rows, orig(p));
+      const Box b = tab.box(orig(p));
       const float side =
           fmaxf(fmaxf(__fsub_rn(b.hi[0], b.lo[0]), __fsub_rn(b.hi[1], b.lo[1])),
                 __fsub_rn(b.hi[2], b.lo[2]));
@@ -247,7 +319,7 @@ __global__ void __launch_bounds__(kThreads)
         const unsigned bit = 1u << (p % 32);
         if ((take_bits[p / 32] & bit) && !(loose_bits[p / 32] & bit)) {
           m |= 1u << b;
-          const Box x = row_box(rows, orig(p));
+          const Box x = tab.box(orig(p));
 #pragma unroll
           for (int ax = 0; ax < 3; ++ax) {
             bl[ax] = fminf(bl[ax], x.lo[ax]);
@@ -287,6 +359,58 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+    sphere_tree_build_kernel(const SphereRows tab, int s, int leaf,
+                             int n_slots, float pad_share, float loose_share,
+                             int n_loose, float* out_rows, int* perm,
+                             float* node, int* mask, int* loose) {
+  build_tree(tab, s, leaf, n_slots, pad_share, loose_share, n_loose,
+             out_rows, perm, node, mask, loose);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    triangle_tree_build_kernel(const TriangleRows tab, int s, int leaf,
+                               int n_slots, float pad_share,
+                               float loose_share, int n_loose,
+                               float* out_rows, int* perm, float* node,
+                               int* mask, int* loose) {
+  build_tree(tab, s, leaf, n_slots, pad_share, loose_share, n_loose,
+             out_rows, perm, node, mask, loose);
+}
+
+// Checks the arguments (the entries' contract below) and launches kernel
+// over tab; cudaErrorInvalidValue, launching nothing, for bad ones.
+template <class Table, class Kernel>
+int launch_build(Kernel kernel, const Table& tab, int s, int leaf,
+                 int n_slots, float pad_share, float loose_share, int n_loose,
+                 float* out_rows, int* perm, float* node, int* mask,
+                 int* loose, void* stream) {
+  const int n = s > 0 && leaf > 0 ? (s + leaf - 1) / leaf * leaf : 0;
+  int slots = 1;
+  while (n > 0 && slots < n / leaf) slots <<= 1;
+  if (s < 1 || s > kMaxRows || leaf < 1 || leaf > 32 || (leaf & (leaf - 1)) ||
+      n_slots != slots || n_loose < 1 || n_loose > kLooseMax ||
+      n_loose > n || !tab.rows || !out_rows || !perm || !node || !mask ||
+      !loose)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int np = 1;
+  while (np < s) np <<= 1;
+  const size_t smem = sizeof(unsigned long long) * np +
+                      (sizeof(float) + sizeof(int)) * n +
+                      2 * sizeof(unsigned) * ((n + 31) / 32);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  kernel<<<1, kThreads, smem, st>>>(tab, s, leaf, n_slots, pad_share,
+                                    loose_share, n_loose, out_rows, perm,
+                                    node, mask, loose);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // rows (s, 8) float32, 1 <= s <= kMaxRows; leaf a power of two up to 32;
@@ -303,27 +427,20 @@ extern "C" int rt_sphere_tree(const float* rows, int s, int leaf,
                               int n_loose, float* out_rows, int* perm,
                               float* node, int* mask, int* loose,
                               void* stream) {
-  const int n = s > 0 && leaf > 0 ? (s + leaf - 1) / leaf * leaf : 0;
-  int slots = 1;
-  while (n > 0 && slots < n / leaf) slots <<= 1;
-  if (s < 1 || s > kMaxRows || leaf < 1 || leaf > 32 || (leaf & (leaf - 1)) ||
-      n_slots != slots || n_loose < 1 || n_loose > kLooseMax ||
-      n_loose > n || !rows || !out_rows || !perm || !node || !mask || !loose)
-    return static_cast<int>(cudaErrorInvalidValue);
-  int np = 1;
-  while (np < s) np <<= 1;
-  const size_t smem = sizeof(unsigned long long) * np +
-                      (sizeof(float) + sizeof(int)) * n +
-                      2 * sizeof(unsigned) * ((n + 31) / 32);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        sphere_tree_build_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  sphere_tree_build_kernel<<<1, kThreads, smem, st>>>(
-      rows, s, leaf, n_slots, pad_share, loose_share, n_loose, out_rows, perm,
-      node, mask, loose);
-  return static_cast<int>(cudaGetLastError());
+  return launch_build(sphere_tree_build_kernel, SphereRows{rows}, s, leaf,
+                      n_slots, pad_share, loose_share, n_loose, out_rows,
+                      perm, node, mask, loose, stream);
+}
+
+// As rt_sphere_tree over triangle rows (s, 20) and their vertices v (s, 3,
+// 3) float32; out_rows (n, 20).
+extern "C" int rt_triangle_tree(const float* rows, const float* v, int s,
+                                int leaf, int n_slots, float pad_share,
+                                float loose_share, int n_loose,
+                                float* out_rows, int* perm, float* node,
+                                int* mask, int* loose, void* stream) {
+  if (!v) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_build(triangle_tree_build_kernel, TriangleRows{rows, v}, s,
+                      leaf, n_slots, pad_share, loose_share, n_loose,
+                      out_rows, perm, node, mask, loose, stream);
 }

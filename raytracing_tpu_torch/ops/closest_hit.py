@@ -208,26 +208,36 @@ def anyhit_spheres(rays: Rays, spheres: Spheres, *, obj_chunk: int = 2048,
 
 def _triangle_search(rays: Rays, tris: Triangles, obj_chunk: int,
                      two_sided: bool, use_pallas: bool,
-                     rows: torch.Tensor | None):
+                     rows: torch.Tensor | None,
+                     tree: HK.TriangleTree | None = None):
+    """(best_t, best_idx) without gradients. Where it packs the rows
+    itself it builds their tree too (``HK.pass_triangle_tree``); a caller
+    that passes rows past ``HK.TRIANGLE_BRUTE_MAX`` passes their tree."""
     with torch.no_grad():
         if not use_pallas:
             return _champion_scan(_triangle_ts(rays, tris, two_sided),
                                   tris.count, obj_chunk, rays)
         if rows is None:
             rows = HK.triangle_rows(tris.v, tris.mask)
-        return HK.triangle_search_rows(*_ray_args(rays), rows, two_sided)
+            tree = HK.pass_triangle_tree(tris.v, rows)
+        return HK.triangle_search_rows(*_ray_args(rays), rows, two_sided,
+                                       tree)
 
 
 def closest_hit_triangles(rays: Rays, tris: Triangles, *,
                           obj_chunk: int = 2048, two_sided: bool = False,
                           use_pallas: bool = False,
-                          rows: torch.Tensor | None = None) -> Champion:
+                          rows: torch.Tensor | None = None,
+                          tree: HK.TriangleTree | None = None) -> Champion:
     """Closest valid Moller-Trumbore hit per ray. ``rows``: the packed
-    table of ``hit_kernels.triangle_rows`` (packed here when None)."""
+    table of ``hit_kernels.triangle_rows`` (packed here when None, with
+    its tree); ``tree``: kernel 5's box tree over it
+    (``hit_kernels.pass_triangle_tree``), which a caller passing ``rows``
+    past ``HK.TRIANGLE_BRUTE_MAX`` passes too."""
     if tris.count == 0:
         return _miss(rays)
     best_t, best_i = _triangle_search(rays, tris, obj_chunk, two_sided,
-                                      use_pallas, rows)
+                                      use_pallas, rows, tree)
     return triangle_champion(rays, tris, best_t, best_i)
 
 
@@ -270,13 +280,17 @@ def triangle_hit_attrs(rays: Rays, tris: Triangles, champ: Champion
 
 def anyhit_triangles(rays: Rays, tris: Triangles, *, obj_chunk: int = 2048,
                      two_sided: bool = False, use_pallas: bool = False,
-                     rows: torch.Tensor | None = None) -> torch.Tensor:
+                     rows: torch.Tensor | None = None,
+                     tree: HK.TriangleTree | None = None) -> torch.Tensor:
+    """Occlusion: any valid triangle hit inside each ray's window
+    (``rows``, ``tree`` as in ``closest_hit_triangles``)."""
     if tris.count == 0:
         return _miss(rays).valid
     with torch.no_grad():
         if use_pallas:
             occ = torch.isfinite(_triangle_search(rays, tris, obj_chunk,
-                                                  two_sided, True, rows)[0])
+                                                  two_sided, True, rows,
+                                                  tree)[0])
         else:
             occ = _anyhit_scan(_triangle_ts(rays, tris, two_sided),
                                tris.count, obj_chunk, rays)

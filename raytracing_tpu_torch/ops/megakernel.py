@@ -1876,15 +1876,33 @@ def sphere_tree(rows: torch.Tensor, leaf: int) -> SphereTree:
     return SphereTree(rows=srows.contiguous(), perm=perm, tree=tree)
 
 
+_F = ctypes.c_float
 _TREE_SIGNATURES = {
-    # rows, rows count, leaf, slots, pad share, loose share, loose count,
-    # sorted rows, perm, nodes, masks, loose, stream
+    # rows, [vertices,] rows count, leaf, slots, pad share, loose share,
+    # loose count, sorted rows, perm, nodes, masks, loose, stream
     "rt_sphere_tree": (ctypes.c_int, [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p]),
+        _VP, _I, _I, _I, _F, _F, _I, _VP, _VP, _VP, _VP, _VP, _VP]),
+    "rt_triangle_tree": (ctypes.c_int, [
+        _VP, _VP, _I, _I, _I, _F, _F, _I, _VP, _VP, _VP, _VP, _VP, _VP]),
 }
+
+
+def tree_outputs(n: int, cols: int, leaf: int, dev):
+    """The outputs of a tree build on the card over ``n`` sorted rows of
+    ``cols`` floats (whole leaves of ``leaf`` rows): (rows (n, cols),
+    perm (n,), ``StreamTree``), views of one block from torch's allocator
+    on the current stream (the wrappers run every call: each torch.empty
+    costs host time); rows and nodes first, whole 16-byte words, as the
+    walks read them in float4s."""
+    slots = tree_slots(n // leaf)
+    n_loose = min(LOOSE_MAX, n)
+    sizes = (n * cols, 16 * slots, n, n // leaf, n_loose)
+    parts = torch.empty((sum(sizes),), dtype=torch.int32,
+                        device=dev).split(sizes)
+    return (parts[0].view(torch.float32).view(n, cols), parts[2],
+            StreamTree(nodes=parts[1].view(torch.float32).view(2 * slots, 8),
+                       masks=parts[3].view(n // leaf, 1), loose=parts[4],
+                       leaf=leaf))
 
 
 def sphere_tree_build(rows: torch.Tensor, leaf: int) -> SphereTree:
@@ -1913,27 +1931,16 @@ def sphere_tree_build(rows: torch.Tensor, leaf: int) -> SphereTree:
     if torch.is_grad_enabled() and rows.requires_grad:
         rows = rows.detach()
     lib = _build.load("sphere_tree", _TREE_SIGNATURES)
-    n = -(-s // leaf) * leaf
-    slots = tree_slots(n // leaf)
-    n_loose = min(LOOSE_MAX, n)
-    # one allocation, cut into the five outputs (the wrapper runs every
-    # call: each torch.empty costs host time); rows and nodes first, whole
-    # 16-byte words, as the walks read them in float4s
-    sizes = (n * SPH_COLS, 16 * slots, n, n // leaf, n_loose)
     dev = rows.device
-    parts = torch.empty((sum(sizes),), dtype=torch.int32,
-                        device=dev).split(sizes)
-    out = SphereTree(
-        rows=parts[0].view(torch.float32).view(n, SPH_COLS), perm=parts[2],
-        tree=StreamTree(nodes=parts[1].view(torch.float32).view(
-            2 * slots, 8), masks=parts[3].view(n // leaf, 1),
-            loose=parts[4], leaf=leaf))
+    srows, perm, tree = tree_outputs(-(-s // leaf) * leaf, SPH_COLS, leaf,
+                                     dev)
+    out = SphereTree(rows=srows, perm=perm, tree=tree)
     st = out.tree
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.rt_sphere_tree(
-            rows.data_ptr(), s, leaf, slots, CHUNK_PAD, LOOSE_SHARE,
-            n_loose, out.rows.data_ptr(), out.perm.data_ptr(),
+            rows.data_ptr(), s, leaf, st.n_slots, CHUNK_PAD, LOOSE_SHARE,
+            st.loose.shape[0], out.rows.data_ptr(), out.perm.data_ptr(),
             st.nodes.data_ptr(), st.masks.data_ptr(), st.loose.data_ptr(),
             stream)
     if err != 0:

@@ -95,16 +95,23 @@ each launch's grid, registers, shared memory and blocks per SM from
 (``k2_large_bound``), which ``--only grid`` prints for its two scenes.
 ``--only hit`` times this checkout alone (a parent commit is timed by
 copying this file and ``chip_smoke.py`` into its checkout and running it
-there): kernel 4 (the stage pipeline's sphere search) in each
-configuration, the brute loop and the tree walk per lane and per warp at
-each of ``--leaf-sizes`` (``HK.SPHERE_LEAF``), on ``chip_smoke.py`` phase
-8's rays over sphere_field(1024) and sphere_field(4096), on the same rays
-over small fields (where the brute loop and the walk cross) and on the 12
-searches of one stage pass on sphere_field(1024) at 1024^2 b5 as phase 9
-records them (their sum is the kernel's time per pass), each held to the
-brute loop's results, each tree's build; then kernel 5, kernel 1's cornell
-pass and the stage passes of phases 9 (with ``torch.profiler``'s split)
-and 10, and the build's registers and spills.
+there): kernels 4 and 5 (the stage pipeline's searches; ``--hit-kernels``
+picks them) in each configuration, the brute loop and the tree walk at
+each of ``--leaf-sizes`` (``HK.SPHERE_LEAF``, ``HK.TRIANGLE_LEAF``):
+kernel 4 on ``chip_smoke.py`` phase 8's rays over sphere_field(1024) and
+sphere_field(4096), on the same rays over small fields (where the brute
+loop and the walk cross) and on the 12 searches of one stage pass on
+sphere_field(1024) at 1024^2 b5 as phase 9 records them (their sum is the
+kernel's time per pass); kernel 5 on phase 8's rays over its soup of 4096
+triangles (single- and two-sided) and over soups of 8-512, and on the 12
+searches of one stage pass on the torus scene (1,002 triangles) at 1024^2
+b5 as phase 24 records them, over the whole table and over its first
+8-512 rows; each held to the brute loop's results, then the sizes where
+the brute loop and the walks cross; each stage-pass tree's build (device
+time by torch.profiler, the torch build's host time after a warm-up);
+kernel 5 on cornell's 10, kernel 1's cornell pass and the stage passes of
+phases 9, 10 and 24 (with ``torch.profiler``'s splits), and the
+instances' and the builds' registers and spills.
 ``--only champ`` times kernel 3 of each variant (sources with the
 package's C interface) in every case the main path runs it, each step's
 record and cotangent at 1024^2 b5: the torus scene's grid and streamed
@@ -1279,16 +1286,18 @@ def _hit_cases(dev) -> dict:
 
 
 def _stage_pass(dev) -> dict:
-    """chip_smoke.py phases 9 and 10's stage passes: sphere_field(
-    N_SPHERES) and cornell at SIZE^2 b5, ms per one-pass call (host clock,
-    synchronised, the median of 5 after a warm-up) and torch.profiler's
-    split of one sphere_field pass."""
+    """chip_smoke.py phases 9, 10 and 24's stage passes: sphere_field(
+    N_SPHERES), cornell and the torus scene at SIZE^2 b5, ms per one-pass
+    call (host clock, synchronised, the median of 5 after a warm-up) and
+    torch.profiler's split of one sphere_field pass and one torus pass."""
     import chip_smoke as cs
     out = {}
     for name, scene in (("spheres", sphere_field(N_SPHERES, cols=SIZE,
                                                  rows=SIZE, device=dev)),
                         ("cornell", cornell_box(cols=SIZE, rows=SIZE,
-                                                device=dev))):
+                                                device=dev)),
+                        ("torus", cs._stream_scene("torus", SIZE, SIZE,
+                                                   dev))):
         cfg = RenderConfig(width=SIZE, height=SIZE, bounces=BOUNCES,
                            use_pallas=True)
         state = pt.render_passes(scene, pt.init_state(cfg, dev), cfg, 1)
@@ -1300,10 +1309,10 @@ def _stage_pass(dev) -> dict:
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
         out[f"stage_pass_{name}_ms"] = sorted(times)[2]
-        if name == "spheres":
+        if name != "cornell":
             split = cs._profile_split(
                 lambda: pt.render_passes(scene, state, cfg, 1))
-            print(f"  stage pass sphere_field({N_SPHERES}): {split}")
+            print(f"  stage pass {name}: {split}")
     return out
 
 
@@ -1349,6 +1358,148 @@ def measure_hit(cases: dict, configs: list, first: dict) -> dict:
     return out
 
 
+# kernel 5: the brute / tree split over tables of these many rows
+TRI_SPLIT = (8, 10, 12, 14, 16, 32, 64, 128, 256, 512)
+
+
+def _tri_configs(leaf_sizes: str) -> list:
+    """(label, HK attributes) of each kernel-5 configuration: the brute
+    loop on every table, then the tree walk at each leaf size (a tree from
+    before the tree instance has the brute loop alone)."""
+    if not hasattr(HK, "triangle_tree"):
+        return [("brute", {})]
+    leaves = [int(n) for n in leaf_sizes.split(",") if n] or [1, 2, 4]
+    return [("brute", {"TRIANGLE_BRUTE_MAX": 1 << 30})] + [
+        (f"tree/leaf{leaf}", {"TRIANGLE_BRUTE_MAX": 0, "TRIANGLE_LEAF": leaf})
+        for leaf in leaves]
+
+
+def _tri_cases(dev) -> dict:
+    """name -> (rays, v, rows, two_sided) of kernel 5: chip_smoke.py phase
+    8's rays over its soup of SOUP_TRIANGLES (single- and two-sided) and
+    the 12 searches of one stage pass on the torus scene (cornell plus
+    the 992-face torus, 1,002 triangles) at SIZE^2 b5 as chip_smoke.py's
+    phase 24 records them; for the brute / tree split, phase 8's rays over
+    a soup of each size of TRI_SPLIT and the pass's searches over the
+    table's first rows of each size (cornell's walls and a strip of the
+    torus)."""
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "tests"))
+    import chip_smoke as cs
+    from raytracing_tpu_torch.render import stages
+    rays = cs._seeded_rays(dev, cs.HIT_RAYS, cs.HIT_SEED, -6.0, 6.0)
+
+    def soup(n, seed):
+        t = cs._soup(n, seed).to(dev)
+        return t.v, HK.triangle_rows(t.v, t.mask)
+
+    v, rows = soup(cs.SOUP_TRIANGLES, cs.HIT_SEED + 1)
+    cases = {f"soup{cs.SOUP_TRIANGLES} {ts}": (rays, v, rows, ts)
+             for ts in (False, True)}
+    scene = cs._stream_scene("torus", SIZE, SIZE, dev)
+    cfg = RenderConfig(width=SIZE, height=SIZE, bounces=BOUNCES,
+                       use_pallas=True)
+    tris = stages._all_triangles(scene)
+    searches = [(list(args[:4]), args[5])
+                for args, _ in cs._stage_searches(scene, cfg, dev,
+                                                  "triangle_search_rows")]
+    for n in (*TRI_SPLIT, tris.count):
+        tv = tris.v[:n].contiguous()
+        trows = HK.triangle_rows(tv, tris.mask[:n])
+        cases.update({f"torus{n} {k}": (r, tv, trows, ts)
+                      for k, (r, ts) in enumerate(searches)})
+    for n in TRI_SPLIT:
+        cases[f"soup{n} False"] = (rays, *soup(n, cs.HIT_SEED + 1), False)
+    return cases
+
+
+def measure_tri(cases: dict, configs: list, first: dict) -> dict:
+    """Each kernel-5 configuration on each case (CUDA events, REPS
+    launches after one, each table's tree built once beforehand as the
+    stage pass builds it), each result held to the first result of its
+    case (the brute loop's, bit for bit); per stage pass the 12 searches'
+    sum (``torus<n>``)."""
+    out = {}
+    defaults = {k: getattr(HK, k) for _, attrs in configs for k in attrs}
+    for label, attrs in configs:
+        for k, v in {**defaults, **attrs}.items():
+            setattr(HK, k, v)
+        trees = {}
+        for name, (rays, v, rows, ts) in cases.items():
+            tree = ()
+            if hasattr(HK, "pass_triangle_tree"):
+                if id(rows) not in trees:
+                    trees[id(rows)] = HK.pass_triangle_tree(v, rows)
+                tree = (trees[id(rows)],)
+            args = (*rays, rows, ts, *tree)
+            got = HK.triangle_search_rows(*args)
+            want = first.setdefault(name, got)
+            bad = int((got[1] != want[1]).sum() + (got[0] != want[0]).sum())
+            if bad:
+                print(f"  k5 {label} {name}: {bad} values differ from the "
+                      "first result's")
+            key = name.split(" ")[0]
+            ms = time_ms(lambda: HK.triangle_search_rows(*args))
+            if key.startswith("torus"):
+                out[f"k5 {label} {key}"] = out.get(f"k5 {label} {key}",
+                                                   0.0) + ms
+            else:
+                out[f"k5 {label} {name}"] = ms
+    for k, v in defaults.items():
+        setattr(HK, k, v)
+    return out
+
+
+def _tri_split(turns: list, labels: list) -> None:
+    """Per kernel-5 case (a table of each size) the brute loop's ms (the
+    first label's) against each tree's, the least of the turns, and
+    which trees beat it: the sizes where they cross."""
+    head = f"k5 {labels[0]} "
+    for key in [k[len(head):] for k in turns[0] if k.startswith(head)]:
+        best = {lb: min(t[f"k5 {lb} {key}"] for t in turns) for lb in labels}
+        faster = [lb for lb in labels[1:] if best[lb] < best[labels[0]]]
+        print(f"  split {key}: " + ", ".join(f"{lb} {ms:.6g}" for lb, ms
+                                               in best.items())
+              + f"; faster than the brute loop: {faster or 'none'}")
+
+
+def tree_builds_ms(dev) -> dict:
+    """Each stage-pass tree's build alone, ms of device time
+    (torch.profiler; chip_smoke._profiled_ms): the sphere tree of
+    sphere_field(N_SPHERES) and the triangle trees of the soup and the
+    torus scene, through the one-launch builds; the torch builds' host
+    ms beside them."""
+    import chip_smoke as cs
+    from raytracing_tpu_torch.render import stages
+    sp = sphere_field(N_SPHERES, device=dev).spheres
+    srows = HK.sphere_rows(sp.center, sp.radius, sp.mask)
+    soup = cs._soup(cs.SOUP_TRIANGLES, cs.HIT_SEED + 1).to(dev)
+    tris = stages._all_triangles(cs._stream_scene("torus", 8, 8, dev))
+    out = {}
+    builds = [("sphere_field", "sphere_tree_build",
+               lambda: MK.sphere_tree_build(srows, HK.SPHERE_LEAF),
+               lambda: HK.sphere_tree(srows))]
+    if hasattr(HK, "triangle_tree_build"):
+        for name, t in (("soup", soup), ("torus", tris)):
+            trows = HK.triangle_rows(t.v, t.mask)
+            builds.append((name, "triangle_tree_build",
+                           lambda v=t.v, r=trows: HK.triangle_tree_build(v,
+                                                                         r),
+                           lambda v=t.v, r=trows: HK.triangle_tree(v, r)))
+    for name, key, card, plain in builds:
+        ms, clock = cs._profiled_ms(card, key)
+        plain()         # the first call loads torch's kernels
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain()
+        torch.cuda.synchronize()
+        out[f"build {name}"] = ms
+        out[f"torch build {name}"] = (time.perf_counter() - t0) * 1e3
+        print(f"  build {name}: {ms:.6g} ms ({clock}); the torch build "
+              f"{out[f'torch build {name}']:.6g} ms (host clock)")
+    return out
+
+
 def _hit_variants(variants: list) -> dict:
     """label -> kernel 4's library built from each variant's sources (the
     package's own as "tree" when none is named)."""
@@ -1369,49 +1520,63 @@ def _print_ptxas(label: str, log: str) -> None:
 
 
 def hit_only(dev, smi: str, out: Path, leaf_sizes: str,
-             variants: list) -> int:
-    """``--only hit``: kernel 4 in each configuration (``_hit_configs``)
-    of each variant (``--variant``, libraries with this checkout's C
-    interface) on phase 8's rays, one stage pass's recorded searches and
-    the brute / tree split's fields (``_hit_cases``), in turns (first to
-    last, then back); then kernel 5 on cornell's 10 triangles and phase
-    8's soup, kernel 1's cornell pass (16-pass launches) and the stage
-    passes of phases 9 and 10 (``_stage_pass``), which must not move. A
-    parent commit is timed by copying this file and ``chip_smoke.py``
-    into its checkout and running it there."""
+             variants: list, kernels: str = "4,5") -> int:
+    """``--only hit``: kernels 4 and 5 (``kernels``) in each configuration
+    (``_hit_configs``, ``_tri_configs``) of each variant (``--variant``,
+    libraries with this checkout's C interface) on phase 8's rays, one
+    stage pass's recorded searches and the brute / tree split's tables
+    (``_hit_cases``, ``_tri_cases``), in turns (first to last, then
+    back), then the split's sizes (``_tri_split``); then each stage-pass
+    tree's build (``tree_builds_ms``), kernel 5 on cornell's 10 triangles,
+    kernel 1's cornell pass (16-pass launches) and the stage passes of
+    phases 9, 10 and 24 (``_stage_pass``). A parent commit is timed by
+    copying this file and ``chip_smoke.py`` into its checkout and running
+    it there (its kernel 5 the brute loop alone)."""
     import chip_smoke as cs
     t0 = time.perf_counter()
     specs = [HIT_SPEC, ("megakernel", MK._SIGNATURES, ())]
+    if hasattr(MK, "_TREE_SIGNATURES"):
+        specs.append(("sphere_tree", MK._TREE_SIGNATURES, ()))
     _build.load_all(specs)
     print(f"built {len(specs)} libraries at once in "
           f"{time.perf_counter() - t0:.2f} s")
-    for log in sorted(_build.BUILD_DIR.glob("libhit_kernels-*.log")):
-        _print_ptxas("package", log.read_text())
+    for name in ("hit_kernels", "sphere_tree"):
+        for log in sorted(_build.BUILD_DIR.glob(f"lib{name}-*.log")):
+            _print_ptxas("package", log.read_text())
     libs = _hit_variants(variants)
-    cases = _hit_cases(dev)
+    cases = _hit_cases(dev) if "4" in kernels else {}
+    tri_cases = _tri_cases(dev) if "5" in kernels else {}
     configs = [(f"{label}:{name}" if len(libs) > 1 else name, lib, attrs)
                for label, lib in libs.items()
                for name, attrs in _hit_configs(leaf_sizes)]
+    tri_configs = [(f"{label}:{name}" if len(libs) > 1 else name, lib,
+                    attrs) for label, lib in libs.items()
+                   for name, attrs in _tri_configs(leaf_sizes)]
     results: dict = {"card": smi, "turns": []}
     first: dict = {}
-    for order in (configs, configs[::-1]):
+    tri_first: dict = {}
+    for turn_no in range(2):
         turn = {}
-        for label, lib, attrs in order:
+        for label, lib, attrs in (configs if turn_no == 0
+                                  else configs[::-1]) if cases else ():
             _build._loaded[(HIT_SPEC[0], HIT_SPEC[2])] = lib
             turn.update(measure_hit(cases, [(label, attrs)], first))
+        for label, lib, attrs in (tri_configs if turn_no == 0
+                                  else tri_configs[::-1]) if tri_cases else ():
+            _build._loaded[(HIT_SPEC[0], HIT_SPEC[2])] = lib
+            turn.update(measure_tri(tri_cases, [(label, attrs)], tri_first))
         print("turn: " + ", ".join(f"{k} {v:.6g}" for k, v in turn.items()),
               flush=True)
         results["turns"].append(turn)
     _build._loaded[(HIT_SPEC[0], HIT_SPEC[2])] = _build.load(*HIT_SPEC)
-    others = {}
-    rays = cases[f"phase8 {N_SPHERES}"][0]
+    if tri_cases:
+        _tri_split(results["turns"], [lb for lb, _, _ in tri_configs])
+    others = tree_builds_ms(dev)
     room = cs._seeded_rays(dev, cs.HIT_RAYS, cs.HIT_SEED + 2, -0.95, 0.95)
     tris = cornell_box(device=dev).triangles
-    soup = cs._soup(cs.SOUP_TRIANGLES, cs.HIT_SEED + 1).to(dev)
-    for name, r, t in (("cornell(10)", room, tris), ("soup", rays, soup)):
-        trow = HK.triangle_rows(t.v, t.mask)
-        others[f"k5 {name}"] = time_ms(
-            lambda: HK.triangle_search_rows(*r, trow, False))
+    trow = HK.triangle_rows(tris.v, tris.mask)
+    others["k5 cornell(10)"] = time_ms(
+        lambda: HK.triangle_search_rows(*room, trow, False))
     cornell = Case(cornell_box(cols=SIZE, rows=SIZE, device=dev), dev,
                    step=False)
     others["k1 cornell 16-pass"] = time_ms(lambda: cornell.k1(16), per=16)
@@ -2163,9 +2328,12 @@ def main(argv=None) -> int:
                     help="with --only stream or grid: the streamed tables' "
                          "leaf sizes (MK.STREAM_LEAF) or the mesh grid "
                          "cells' (MK.GRID_LEAF) to time each variant at "
-                         "(default the package's); with --only hit kernel "
-                         "4's tree leaves (HK.SPHERE_LEAF, default "
-                         "1,2,4)")
+                         "(default the package's); with --only hit kernels "
+                         "4 and 5's tree leaves (HK.SPHERE_LEAF, "
+                         "HK.TRIANGLE_LEAF; default 1,2,4)")
+    ap.add_argument("--hit-kernels", default="4,5",
+                    help="with --only hit: the kernels to time, 4 (spheres) "
+                         "and 5 (triangles)")
     ap.add_argument("--path-fields",
                     default=",".join(str(n) for n in PATH_FIELDS),
                     help="with --only path: the sphere fields to time")
@@ -2208,7 +2376,8 @@ def main(argv=None) -> int:
     if args.only == "hit":
         return hit_only(dev, smi, out, args.leaf_sizes,
                         [(label, Path(src).resolve()) for label, src in
-                         (v.split("=", 1) for v in args.variant)])
+                         (v.split("=", 1) for v in args.variant)],
+                        args.hit_kernels)
     variants = [tuple(v.split("=", 1)) for v in args.variant] or [
         ("tree", str(_build.CSRC))]
     variants = [(label, Path(src).resolve()) for label, src in variants]

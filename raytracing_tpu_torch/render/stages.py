@@ -52,15 +52,20 @@ def _all_triangles(scene: Scene) -> Triangles:
 class HitTables(NamedTuple):
     """Object rows of the hit kernels, packed once per pass; None where
     ``cfg.use_pallas`` is off or the scene has no objects of the type.
-    ``sph_tree``: kernel 4's box tree over ``sph`` (``HK.sphere_tree``),
-    built once per pass where the table takes the tree instance (past
-    ``HK.SPHERE_BRUTE_MAX`` rows), else None."""
+    ``sph_tree`` / ``tri_tree``: kernel 4's / kernel 5's box tree over
+    ``sph`` / ``tri``, built once per pass where the table takes the tree
+    instance (past ``HK.SPHERE_BRUTE_MAX`` / ``HK.TRIANGLE_BRUTE_MAX``
+    rows), else None."""
     sph: torch.Tensor | None
     tri: torch.Tensor | None
     sph_tree: HK.SphereTree | None = None
+    tri_tree: HK.TriangleTree | None = None
 
 
 def hit_tables(scene: Scene, cfg: RenderConfig) -> HitTables:
+    """The pass's packed rows and trees (``HK.pass_sphere_tree``,
+    ``HK.pass_triangle_tree``: on the card one launch each up to
+    ``MK.TREE_BUILD_MAX`` rows, the torch build past it)."""
     if not cfg.use_pallas:
         return HitTables(None, None)
     tris = _all_triangles(scene)
@@ -68,11 +73,10 @@ def hit_tables(scene: Scene, cfg: RenderConfig) -> HitTables:
         sp = scene.spheres
         sph = (HK.sphere_rows(sp.center, sp.radius, sp.mask)
                if sp.count else None)
-        tree = (HK.sphere_tree(sph) if sp.count > HK.SPHERE_BRUTE_MAX
-                else None)
+        tri = HK.triangle_rows(tris.v, tris.mask) if tris.count else None
         return HitTables(
-            sph, HK.triangle_rows(tris.v, tris.mask) if tris.count else None,
-            tree)
+            sph, tri, HK.pass_sphere_tree(sph) if sp.count else None,
+            HK.pass_triangle_tree(tris.v, tri) if tris.count else None)
 
 
 def _check_grids(scene: Scene) -> None:
@@ -140,7 +144,7 @@ def trace_all(rays: Rays, hits: Hits, scene: Scene, cfg: RenderConfig,
         tris = _all_triangles(scene)
         ch = closest_hit_triangles(rays, tris, obj_chunk=cfg.obj_chunk,
                                    two_sided=ts, use_pallas=cfg.use_pallas,
-                                   rows=tables.tri)
+                                   rows=tables.tri, tree=tables.tri_tree)
         merge(ch, *triangle_hit_attrs(rays, tris, ch))
 
     found = bm >= 0
@@ -184,7 +188,7 @@ def occluded_any(rays: Rays, scene: Scene, cfg: RenderConfig,
         occ = occ | anyhit_triangles(rays, _all_triangles(scene),
                                      obj_chunk=cfg.obj_chunk, two_sided=ts,
                                      use_pallas=cfg.use_pallas,
-                                     rows=tables.tri)
+                                     rows=tables.tri, tree=tables.tri_tree)
     return occ
 
 

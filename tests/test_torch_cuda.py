@@ -171,12 +171,15 @@ def test_sphere_kernel_matches_plain_version(cuda):
 
 
 @pytest.mark.parametrize("two_sided", [False, True])
-def test_triangle_kernel_matches_plain_version(cuda, two_sided):
+def test_triangle_kernel_matches_plain_version(cuda, two_sided, monkeypatch):
+    """Kernel 5's brute loop on 600 triangles (the threshold raised past
+    them; the tree instance: tests/test_torch_tri_tree.py)."""
     g = np.random.default_rng(1)
     tris = make_triangles((g.uniform(-4, 4, (600, 1, 3))
                            + g.uniform(-0.6, 0.6, (600, 3, 3)))
                           .astype(np.float32), device=cuda)
     rows = HK.triangle_rows(tris.v, tris.mask)
+    monkeypatch.setattr(HK, "TRIANGLE_BRUTE_MAX", rows.shape[0])
     rays = _rays(cuda, seed=2)
     before = HK.triangle_launches
     got = HK.triangle_search_rows(*rays, rows, two_sided)
