@@ -353,6 +353,23 @@ Phases, each fatal on failure (no exception is caught):
      under phase 8's exact gates; segments/s, ms per pass, the 12
      searches' ms on their own inputs, the build's device time and
      torch.profiler's split of one pass.
+ 25. sharding (``raytracing_tpu_torch/parallel/``): two ranks on one card
+     (gloo, collectives staged through the host) or one NCCL rank per
+     card where there are two or more, spawned after phase 2 built the
+     kernels. Each rank, with the launch counts set to 0 just before each
+     path and read just after: the sharded forward through kernel 1 on
+     cornell 1024^2 b5 and the uneven 1001x999 film (16 passes per call,
+     one launch per call), the "pallas" train step (cornell, ("sph",
+     "mat"): one kernel-1 and one kernel-2 launch) and the cell step
+     (sphere_field(1024): kernel 1 recording over one tree build, kernel
+     3 in one order), and kernel 4 over sphere_field(1024)'s spheres split
+     over the mesh's 'obj' axis (one launch of the tree instance per
+     rank). Held against this process: the gathered accumulators equal
+     the single-process launch (block 0) bit for bit, the steps' losses to
+     1e-5 and cotangents under phase 6's gates, the object-sharded search
+     (t, idx, valid) bit for bit. Prints per-rank ms per call and rays/s
+     beside the card's name and power limit; ranks that share a card
+     measure no scaling.
 Each phase prints the seconds elapsed since the start before it runs.
 Ends with a kernels JSON line and, last, the device JSON line. Exits non-zero
 without a result where CUDA is missing or the package is not beside it.
@@ -5884,6 +5901,284 @@ def direct_train(dev, smi: str, name: str, route: str) -> dict:
     return out
 
 
+SHARD_PASSES = PASSES_PER_CALL   # phase 25: passes per sharded call
+SHARD_CALLS = 5                  # timed sharded calls and steps per rank
+SHARD_UNEVEN = (1001, 999)       # 999,999 rays: no rank holds whole rows,
+                                 # and 2 ranks pad the last by one ray
+SHARD_STEPS = (("pallas", "cornell", {"mega_bwd_impl": "pallas"}),
+               ("cell", f"sphere_field({N_SPHERES})", {}))
+
+
+def _shard_counts(MK, MKG, HK) -> dict:
+    return {"k1": MK.launches, "k1_walk": MK.path_walk_launches,
+            "builds": MK.tree_build_launches, "k2": MKG.launches,
+            "k3": MKG.champ_launches, "order": MKG.order_launches,
+            "k4": HK.sphere_launches, "k4_tree": HK.sphere_tree_launches}
+
+
+def _zero_counts(MK, MKG, HK) -> None:
+    MK.launches = MK.path_walk_launches = MK.tree_build_launches = 0
+    MKG.launches = MKG.champ_launches = MKG.order_launches = 0
+    HK.sphere_launches = HK.sphere_tree_launches = 0
+
+
+def _shard_scene(name: str, w: int, h: int):
+    """Phase 25's scenes, built on the CPU (a rank moves them to its card
+    in ``replicate_scene``; the single-process runs with ``.to``), so both
+    sides hold the same bits."""
+    from raytracing_tpu_torch.models.scenes import cornell_box, sphere_field
+    if name == "cornell":
+        return cornell_box(cols=w, rows=h)
+    return sphere_field(N_SPHERES, cols=w, rows=h)
+
+
+def _shard_rank(n_obj: int) -> dict:
+    """Phase 25, one rank: the sharded forward (cornell 1024^2 and the
+    uneven film), the sharded "pallas" and cell train steps and the
+    object-sharded kernel-4 search, each driven with the launch counts set
+    to 0 just before and read just after; rank 0 hands back the gathered
+    results, every rank its counts and times."""
+    import torch
+    import torch.distributed as dist
+    from raytracing_tpu_torch import RenderConfig
+    from raytracing_tpu_torch.core.types import Rays
+    from raytracing_tpu_torch.ops import hit_kernels as HK
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.ops import megakernel_grad as MKG
+    from raytracing_tpu_torch.parallel import mesh as pm
+    from raytracing_tpu_torch.parallel.obj_parallel import \
+        closest_hit_spheres_objsharded
+    from raytracing_tpu_torch.render import pathtracer as pt
+
+    rank = dist.get_rank()
+    m = pm.make_mesh()
+    dev = pm.mesh_device(m)
+    out = {"rank": rank, "card": torch.cuda.get_device_name(dev),
+           "backend": dist.get_backend(), "cases": {}}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, 1e3 * (time.perf_counter() - t0)
+
+    for name, (w, h) in (("cornell", (MAIN_W, MAIN_H)),
+                         ("uneven", SHARD_UNEVEN)):
+        cfg = RenderConfig(width=w, height=h, bounces=BOUNCES,
+                           use_megakernel=True)
+        scene = pm.replicate_scene(_shard_scene("cornell", w, h), m)
+        render = pm.sharded_render_passes(m, cfg, SHARD_PASSES)
+        state = pm.shard_state(pt.init_state(cfg, dev), m)
+        off, local = pm.ray_slice(m, cfg.total_rays)
+        _zero_counts(MK, MKG, HK)
+        state, ms0 = timed(lambda: render(scene, state))
+        counts = _shard_counts(MK, MKG, HK)
+        full = pm.gather_state(state, m, cfg)["acc"]
+        times, gathers = [], []
+        for _ in range(SHARD_CALLS):
+            state, ms = timed(lambda: render(scene, state))
+            times.append(ms)
+            gathers.append(timed(lambda: pm.gather_state(state, m, cfg))[1])
+        out["cases"][name] = {
+            "counts": counts, "first_ms": ms0, "ms": sorted(times),
+            "gather_ms": sorted(gathers),
+            "slice": (off, local), "acc": full.cpu().numpy()
+            if rank == 0 else None}
+
+    for name, scene_name, extra in SHARD_STEPS:
+        cfg = RenderConfig(width=MAIN_W, height=MAIN_H, bounces=BOUNCES,
+                           mega_grad_wrt=TRAIN_WRT, use_megakernel=True,
+                           **extra)
+        scene = pm.replicate_scene(
+            _shard_scene(scene_name, MAIN_W, MAIN_H), m)
+        params = {"center": scene.spheres.center,
+                  "radius": scene.spheres.radius,
+                  "materials": scene.materials}
+        target = torch.zeros((MAIN_H, MAIN_W, 3), device=dev)
+        step = pm.make_train_step(m, cfg)
+        state = pm.shard_state(pt.init_state(cfg, dev), m)
+        _zero_counts(MK, MKG, HK)
+        ((loss, _), grads), ms0 = timed(
+            lambda: step(params, scene, state, target))
+        counts = _shard_counts(MK, MKG, HK)
+        times = []
+        for _ in range(SHARD_CALLS):
+            _, ms = timed(lambda: step(params, scene, state, target))
+            times.append(ms)
+        out["cases"][name] = {
+            "counts": counts, "first_ms": ms0, "ms": sorted(times),
+            "loss": float(loss),
+            "grads": {k: g.cpu().numpy() for k, g in grads.items()}}
+
+    m2 = pm.make_mesh(obj_parallel=n_obj)
+    spheres = pm.replicate_scene(_shard_scene("spheres", 8, 8), m2).spheres
+    rays = Rays(*_seeded_rays(dev, HIT_RAYS, HIT_SEED, -6.0, 6.0))
+    _zero_counts(MK, MKG, HK)
+    ch, ms0 = timed(lambda: closest_hit_spheres_objsharded(rays, spheres,
+                                                           m2))
+    counts = _shard_counts(MK, MKG, HK)
+    times = []
+    for _ in range(SHARD_CALLS):
+        _, ms = timed(lambda: closest_hit_spheres_objsharded(rays, spheres,
+                                                             m2))
+        times.append(ms)
+    out["cases"]["search"] = {
+        "counts": counts, "first_ms": ms0, "ms": sorted(times),
+        "mesh": tuple(m2.shape),
+        "t": ch.t.cpu().numpy() if rank == 0 else None,
+        "idx": ch.idx.cpu().numpy() if rank == 0 else None,
+        "valid": ch.valid.cpu().numpy() if rank == 0 else None}
+    return out
+
+
+def sharding(dev, smi: str) -> dict:
+    """Phase 25: the sharded paths on the card (``parallel/``): two gloo
+    ranks on one card, or one NCCL rank per card where there are two or
+    more. Every rank: the forward through kernel 1 (cornell 1024^2 b5 and
+    the uneven 1001x999 film, 16 passes per call: one launch per call),
+    the "pallas" train step (cornell, ("sph", "mat"): kernels 1 and 2) and
+    the cell step (sphere_field(1024): kernel 1 recording over its tree,
+    and kernel 3), and kernel 4 over sphere_field(1024)'s spheres split
+    over 'obj'. Held here against this process's single-process runs: the
+    gathered accumulators bit for bit (each ray is computed alone, keyed
+    by its global id, block 0), the steps' losses to 1e-5 and cotangents
+    under phase 6's gates, the search's (t, idx, valid) bit for bit.
+    Prints per-rank times; ranks that share a card measure no scaling."""
+    import numpy as np
+    import torch
+    from raytracing_tpu_torch import RenderConfig
+    from raytracing_tpu_torch.core.types import Rays
+    from raytracing_tpu_torch.ops.closest_hit import closest_hit_spheres
+    from raytracing_tpu_torch.parallel import mesh as pm
+    from raytracing_tpu_torch.parallel.scaling import segments_per_pass
+    from raytracing_tpu_torch.render import pathtracer as pt
+
+    t25 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    n = cards if cards >= 2 else 2
+    n_obj = 2 if n % 2 == 0 else n
+    backend, why = pm.pick_backend(n)
+    print(f"phase 25: {n} ranks, {backend} ({why})")
+    res = pm.spawn(_shard_rank, n, n_obj, store_dir=str(HERE / "build"),
+                   timeout=600)
+    print(f"phase 25: ranks done in {time.perf_counter() - t25:.1f} s")
+    shared = n > cards
+    note = (f"{n} ranks share one card: per-rank times, not a scaling "
+            "measurement" if shared else f"one rank per card ({n} cards)")
+    for r in res:
+        cs = r["cases"]
+        for name in ("cornell", "uneven"):
+            c = cs[name]
+            _check(c["counts"]["k1"] == 1 and c["counts"]["k2"] == 0,
+                   f"phase 25 rank {r['rank']} {name}: kernel 1 launched "
+                   f"{c['counts']['k1']} times in one sharded call")
+        _check(cs["pallas"]["counts"]["k1"] == 1
+               and cs["pallas"]["counts"]["k2"] == 1
+               and cs["pallas"]["counts"]["k3"] == 0,
+               f"phase 25 rank {r['rank']} pallas step: "
+               f"{cs['pallas']['counts']}")
+        c = cs["cell"]["counts"]
+        _check(c["k1"] == 1 and c["k3"] == 1 and c["k2"] == 0
+               and c["k1_walk"] == 1 and c["builds"] == 1
+               and c["order"] == 1,
+               f"phase 25 rank {r['rank']} cell step: {c}")
+        c = cs["search"]["counts"]
+        _check(c["k4"] == 1 and c["k4_tree"] == 1,
+               f"phase 25 rank {r['rank']} object-sharded search: {c}")
+    rank0 = res[0]["cases"]
+
+    for name, (w, h) in (("cornell", (MAIN_W, MAIN_H)),
+                         ("uneven", SHARD_UNEVEN)):
+        cfg = RenderConfig(width=w, height=h, bounces=BOUNCES,
+                           use_megakernel=True)
+        scene = _shard_scene("cornell", w, h).to(dev)
+        want = pt.render_passes(scene, pt.init_state(cfg, dev), cfg,
+                                SHARD_PASSES)["acc"].cpu().numpy()
+        got = rank0[name]["acc"]
+        _check(got.shape == want.shape and np.isfinite(got).all(),
+               f"phase 25 {name}: gathered acc {got.shape}")
+        _check(np.array_equal(got, want),
+               f"phase 25 {name}: the gathered accumulator differs from "
+               f"the single-process launch on "
+               f"{int((got != want).any(-1).sum())} rays")
+        segs = segments_per_pass(cfg, scene.lights.count)
+        for r in res:
+            c = r["cases"][name]
+            off, local = c["slice"]
+            ms = c["ms"][len(c["ms"]) // 2]
+            rays = min(local, cfg.total_rays - off)
+            print(f"phase 25 rank {r['rank']} forward {name} {w}x{h} "
+                  f"b{BOUNCES}, {SHARD_PASSES} passes per call, rays "
+                  f"[{off}, {off + local}): {ms:.3f} ms per call (median "
+                  f"of {SHARD_CALLS}; first {c['first_ms']:.3f}), "
+                  f"{rays * SHARD_PASSES / ms * 1e3:.6e} rays/s, "
+                  f"{segs * rays / cfg.total_rays * SHARD_PASSES / ms * 1e3:.6e}"
+                  f" segments/s; gather_state of the film "
+                  f"{c['gather_ms'][len(c['gather_ms']) // 2]:.3f} ms; "
+                  f"{r['card']}, {r['backend']}; {smi}; {note}")
+        print(f"phase 25 forward {name}: gathered == single-process launch, "
+              "bit for bit")
+
+    for name, scene_name, extra in SHARD_STEPS:
+        cfg = RenderConfig(width=MAIN_W, height=MAIN_H, bounces=BOUNCES,
+                           mega_grad_wrt=TRAIN_WRT, use_megakernel=True,
+                           **extra)
+        scene = _shard_scene(scene_name, MAIN_W, MAIN_H).to(dev)
+        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in (
+            ("center", scene.spheres.center),
+            ("radius", scene.spheres.radius),
+            ("materials", scene.materials))}
+        st = pt.render_pass(pm.apply_default_params(scene, leaves),
+                            pt.init_state(cfg, dev), cfg)
+        loss = torch.mean((pt.image(st, cfg) - torch.zeros(
+            (MAIN_H, MAIN_W, 3), device=dev)) ** 2)
+        want = dict(zip(leaves, torch.autograd.grad(loss,
+                                                    list(leaves.values()))))
+        got = rank0[name]
+        _check(abs(got["loss"] - loss.item()) <= 1e-5 * abs(loss.item()),
+               f"phase 25 {name} step: loss {got['loss']} vs single-process "
+               f"{loss.item()}")
+        print(f"phase 25 {name} step on {scene_name}: loss {got['loss']:.9g}"
+              f" (single process {loss.item():.9g})")
+        for k, w_ in want.items():
+            if w_.abs().max() == 0:
+                continue
+            _grad_gates(f"phase 25 {name} {k}", w_,
+                        torch.as_tensor(got["grads"][k], device=dev),
+                        max_gate=False)
+        for r in res:
+            c = r["cases"][name]
+            print(f"phase 25 rank {r['rank']} {name} step {scene_name} "
+                  f"{MAIN_W}x{MAIN_H} b{BOUNCES} {TRAIN_WRT}: "
+                  f"{c['ms'][len(c['ms']) // 2]:.3f} ms per step (median of "
+                  f"{SHARD_CALLS}; first {c['first_ms']:.3f}; the gather "
+                  f"and all-reduce included), launches {c['counts']}; "
+                  f"{r['card']}, {r['backend']}; {smi}; {note}")
+
+    sp = _shard_scene("spheres", 8, 8).to(dev).spheres
+    rays = Rays(*_seeded_rays(dev, HIT_RAYS, HIT_SEED, -6.0, 6.0))
+    want = closest_hit_spheres(rays, sp, use_pallas=True)
+    got = rank0["search"]
+    for k in ("t", "idx", "valid"):
+        _check(np.array_equal(got[k], getattr(want, k).cpu().numpy()),
+               f"phase 25 object-sharded search: {k} differs from the "
+               "unsharded kernel-4 search")
+    for r in res:
+        c = r["cases"]["search"]
+        print(f"phase 25 rank {r['rank']} object-sharded kernel 4 over "
+              f"sphere_field({N_SPHERES})'s spheres, mesh {c['mesh']}, "
+              f"{HIT_RAYS} rays: {c['ms'][len(c['ms']) // 2]:.3f} ms per "
+              f"call (median of {SHARD_CALLS}; the all-gather included), "
+              f"launches {c['counts']}; {r['card']}, {r['backend']}; "
+              f"{smi}; {note}")
+    print(f"phase 25 object-sharded search: (t, idx, valid) == unsharded, "
+          f"bit for bit; {int(want.valid.sum())} hits")
+    print(f"phase 25: {time.perf_counter() - t25:.1f} s")
+    return {"ranks": n, "backend": backend}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6108,6 +6403,10 @@ def main() -> int:
     # phase 24: the stage pipeline's main path on the torus scene (kernel
     # 5's tree instance)
     s24 = stage_torus(dev, smi)
+    _elapsed(25)
+    # phase 25: the sharded paths (parallel/), two ranks on one card or one
+    # rank per card
+    sharding(dev, smi)
     print(f"[{time.perf_counter() - START:.1f} s elapsed in all]")
     hard22 = max([x["max_abs_err"] for x in a22.values()]
                  + [v["max_abs_err"] for (_, soft, _), v in c22.items()

@@ -23,18 +23,18 @@ def replace(obj, **kw):
     return dataclasses.replace(obj, **kw)
 
 
-def _to(obj, device):
-    """Copy of a dataclass with every tensor (and nested dataclass) field
-    moved to ``device``."""
-    def move(v):
+def map_tensors(obj, fn):
+    """Copy of a dataclass with ``fn`` applied to every tensor field, nested
+    dataclasses and tuples included, in field order; other fields kept."""
+    def walk(v):
         if isinstance(v, torch.Tensor):
-            return v.to(device)
+            return fn(v)
         if dataclasses.is_dataclass(v):
-            return _to(v, device)
+            return map_tensors(v, fn)
         if isinstance(v, tuple):
-            return tuple(move(x) for x in v)
+            return tuple(walk(x) for x in v)
         return v
-    return dataclasses.replace(obj, **{f.name: move(getattr(obj, f.name))
+    return dataclasses.replace(obj, **{f.name: walk(getattr(obj, f.name))
                                        for f in dataclasses.fields(obj)})
 
 
@@ -42,7 +42,7 @@ class _OnDevice:
     """``.to(device)`` for the frozen dataclasses of tensors below."""
 
     def to(self, device):
-        return _to(self, device)
+        return map_tensors(self, lambda t: t.to(device))
 
 
 def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -67,6 +67,21 @@ def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
 def at_least(x: torch.Tensor, lo: float) -> torch.Tensor:
     """jnp.maximum(x, lo), its cotangent split at the tie as JAX's."""
     return torch.maximum(x, torch.full_like(x, lo))
+
+
+def ray_window(x: torch.Tensor, offset: int, n: int, dim: int = 0
+               ) -> torch.Tensor:
+    """Entries ``[offset, offset + n)`` of ``x`` along ``dim`` (the ray
+    axis), ``x`` zero-padded by ``n`` first, as JAX's sharded pass slices
+    its draws: a ray shard padded past the film's last ray (a ray count the
+    shards do not divide) keeps its window, its padding rows reading
+    zeros. ``x`` itself when the window is the whole axis."""
+    if offset == 0 and n == x.shape[dim]:
+        return x
+    pad = list(x.shape)
+    pad[dim] = n
+    x = torch.cat([x, x.new_zeros(pad)], dim)
+    return x.narrow(dim, offset, n)
 
 
 def safe_normalize(v: torch.Tensor) -> torch.Tensor:

@@ -2019,7 +2019,9 @@ def _check_args(par, ipar, sph, tri, mat, lig, acc, u_planes, spp, width,
     serve every pass (direct mode). With ``grid`` the resident caps apply
     to its brute prefix; ``resident=False`` (kernel 3, which reads the
     sphere and triangle tables from global memory) drops them, as does a
-    streamed table (``chunks``)."""
+    streamed table (``chunks``). ``acc`` holds rays ``[ipar[1], ipar[1] +
+    R)`` of the film, whole rows or not (a ray shard); the blocked layout
+    takes whole rows of an unsharded film."""
     dev = acc.device
     if acc.dtype != torch.float32 or acc.dim() != 2 or acc.shape[1] != 3:
         raise ValueError(f"acc must be (R, 3) float32, got "
@@ -2048,9 +2050,6 @@ def _check_args(par, ipar, sph, tri, mat, lig, acc, u_planes, spp, width,
     k = int(round(spp ** 0.5))
     if spp < 1 or k * k != spp:
         raise ValueError(f"spp must be a perfect square, got {spp}")
-    if n % (spp * width):
-        raise ValueError(f"{n} rays are not whole rows of {width} pixels "
-                         f"x {spp} spp")
     n_sph, n_tri = sph.shape[0], tri.shape[0]
     if grid is not None:
         _check_grid(grid, n_tri, dev)
@@ -2072,10 +2071,14 @@ def _check_args(par, ipar, sph, tri, mat, lig, acc, u_planes, spp, width,
                          f"more than {SMEM_BYTES_MAX}")
     roff = int(ipar[1])
     if roff < 0 or roff + n >= (1 << 24):
-        raise ValueError("pixel math is exact below 2^24 rays")
+        raise ValueError(
+            f"rays [{roff}, {roff + n}) reach 2^24 = {1 << 24}: pixel math "
+            "is exact below it (a sharded film's last shard counts its "
+            "padding rays)")
     if block:
         rows = n // (spp * width)
-        if block < 0 or width % block or rows % block or roff:
+        if (block < 0 or n % (spp * width) or width % block or rows % block
+                or roff):
             raise ValueError(f"block {block} must tile the {width} x {rows} "
                              "film of an unsharded launch")
     if (roff + n) * n_draws * 2 >= (1 << 32):

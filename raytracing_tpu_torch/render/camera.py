@@ -11,7 +11,8 @@ import torch
 
 from ..core import rng
 from ..core.sampling import concentric_disk
-from ..core.types import AABB, Camera, Rays, dot3, safe_normalize
+from ..core.types import AABB, Camera, Rays, dot3, ray_window, \
+    safe_normalize
 from ..ops.intersect import aabb_window
 
 INF = math.inf
@@ -90,23 +91,33 @@ def stratified_lens_uv(samp: torch.Tensor, spp: int) -> torch.Tensor:
 def generate_primary_rays(cam: Camera, bounds: AABB, focal_length,
                           lens_radius, spp: int,
                           key: torch.Tensor | None = None,
-                          lens_uv: torch.Tensor | None = None) -> Rays:
-    """Every camera ray of a pass, pixel-major and sample-minor, clipped to
-    ``bounds``. spp > 1: stratified lens-cell centres. spp == 1: the lens
-    point from ``lens_uv`` (P, 2), else drawn from ``key``, else the lens
-    centre."""
-    col, row = pixel_grid(cam)
-    fp = focal_points(cam, col, row, focal_length)
-    npix = col.shape[0]
-    dev = fp.device
+                          lens_uv: torch.Tensor | None = None,
+                          ray_offset: int = 0,
+                          n_rays: int | None = None) -> Rays:
+    """Camera rays of a pass, pixel-major and sample-minor, clipped to
+    ``bounds``: every ray of the film, or with ``n_rays`` rays
+    ``[ray_offset, ray_offset + n_rays)`` (a ray shard). Each is decoded
+    from its global id as kernel 1 decodes it, so a shard's rays are the
+    film's bit for bit; ids past the film's last ray (a padded shard)
+    decode to rows below the film, whose accumulator rows are discarded.
+    spp > 1: stratified lens-cell centres. spp == 1: the lens point from
+    ``lens_uv`` (the rays' own rows), else drawn from ``key`` (the film's
+    draws, the shard's rows), else the lens centre."""
+    npix = cam.cols * cam.rows
+    n = npix * spp if n_rays is None else n_rays
+    dev = cam.eye.device
+    rid = torch.arange(ray_offset, ray_offset + n, dtype=torch.int64,
+                       device=dev)
+    pix = torch.div(rid, spp, rounding_mode="floor")
+    row = torch.div(pix, cam.cols, rounding_mode="floor")
+    fp = focal_points(cam, (pix - row * cam.cols).to(torch.float32),
+                      row.to(torch.float32), focal_length)
     if spp > 1:
-        samp = torch.arange(npix * spp, device=dev) % spp
-        uv = stratified_lens_uv(samp, spp)
-        fp = fp[:, None].expand(npix, spp, 3).reshape(-1, 3)
+        uv = stratified_lens_uv(rid - pix * spp, spp)
     elif lens_uv is not None:
         uv = lens_uv
     elif key is not None:
-        uv = rng.uniform(key, (npix, 2), dev)
+        uv = ray_window(rng.uniform(key, (npix, 2), dev), ray_offset, n)
     else:
-        uv = torch.full((npix, 2), 0.5, device=dev)
+        uv = torch.full((n, 2), 0.5, device=dev)
     return clip_to_bounds(thin_lens_rays(cam, fp, lens_radius, uv), bounds)

@@ -49,7 +49,7 @@ import torch
 
 from ..core import rng
 from ..core.config import RenderConfig
-from ..core.types import Scene, at_least, clip, tangent_frame
+from ..core.types import Scene, at_least, clip, ray_window, tangent_frame
 from ..ops import intersect as I
 from ..ops import megakernel as MK
 from ..ops import megakernel_grad as MKG
@@ -580,7 +580,7 @@ def u_planes_for_pass(key: torch.Tensor, passes: int, cfg: RenderConfig,
 
 def render_pass_mega(scene: Scene, state: dict, cfg: RenderConfig,
                      u_planes: torch.Tensor | None = None,
-                     n_passes: int = 1) -> dict:
+                     n_passes: int = 1, ray_offset: int = 0) -> dict:
     """``n_passes`` progressive passes; same state contract as the JAX
     ``render_pass_mega``.
 
@@ -596,15 +596,33 @@ def render_pass_mega(scene: Scene, state: dict, cfg: RenderConfig,
     Without ``u_planes`` the draws of pass ``p`` are keyed by
     ``fold_in(PRNGKey(cfg.seed), p)``, which is ``state["key"]`` as
     ``init_state`` makes it; another key raises rather than render
-    different draws than the state names."""
+    different draws than the state names.
+
+    ``ray_offset`` (JAX's, under ``shard_map``): ``state["acc"]`` is a ray
+    shard, rays ``[ray_offset, ray_offset + len(acc))`` of the film, and
+    the launch keys pixel decode and draws by the global id (``ipar[1]``),
+    so each ray is the whole film's. ``u_planes`` may then be the whole
+    film's, (2 * n_draws, R): the shard's columns are taken after a zero
+    pad (``ray_window``). A sharded accumulator runs row-major: the
+    blocked layout's permutation would cross shards. ``supported`` checks
+    the film's ray count, not the shard's."""
     supported(scene, cfg)
     if u_planes is None and not torch.equal(
             state["key"].to(torch.int64),
             rng.base_key(cfg.seed).to(torch.int64)):
         raise ValueError("state['key'] is not PRNGKey(cfg.seed): the kernel "
                          "keys its draws by cfg.seed")
+    n_rays = state["acc"].shape[0]
+    sharded = ray_offset != 0 or n_rays != cfg.total_rays
+    if u_planes is not None and u_planes.shape[1] != n_rays:
+        if u_planes.shape[1] != cfg.total_rays:
+            raise ValueError(
+                f"u_planes has {u_planes.shape[1]} columns: the shard's "
+                f"{n_rays} or the film's {cfg.total_rays}")
+        u_planes = ray_window(u_planes, ray_offset, n_rays, 1).contiguous()
     par, sph, tri, mat, lig = scene_tables(scene, cfg)
-    ipar = torch.tensor([int(state["passes"]), 0], dtype=torch.int32)
+    ipar = torch.tensor([int(state["passes"]), ray_offset],
+                        dtype=torch.int32)
     kw = dict(spp=cfg.spp, width=cfg.width, bounces=cfg.bounces,
               two_sided=cfg.two_sided_triangles,
               normalize_emitter=cfg.normalize_emitter, seed=cfg.seed,
@@ -612,7 +630,7 @@ def render_pass_mega(scene: Scene, state: dict, cfg: RenderConfig,
               rr_start_depth=cfg.rr_start_depth,
               grid=grid_tables(scene, sph, tri) if cfg.use_grid else None,
               chunks=chunk_tables(scene, cfg, sph, tri),
-              block=effective_block(cfg))
+              block=0 if sharded else effective_block(cfg))
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (par, sph, tri, mat, lig, state["acc"])):
         if n_passes != 1:

@@ -27,7 +27,7 @@ import torch
 
 from ..core import rng
 from ..core.config import RenderConfig
-from ..core.types import Hits, Scene, replace
+from ..core.types import Hits, Scene, ray_window, replace
 from . import stages
 from .camera import generate_primary_rays
 from .mega import render_pass_mega
@@ -48,24 +48,31 @@ def init_state(cfg: RenderConfig, device) -> dict:
             "passes": 0}
 
 
-def _render_pass_stages(scene: Scene, state: dict, cfg: RenderConfig
-                        ) -> dict:
-    """One pass of the stage pipeline; ``acc`` is a new tensor."""
+def _render_pass_stages(scene: Scene, state: dict, cfg: RenderConfig,
+                        ray_offset: int = 0) -> dict:
+    """One pass of the stage pipeline; ``acc`` is a new tensor. With
+    ``ray_offset`` (a ray shard, JAX's GSPMD route) ``state["acc"]`` holds
+    rays ``[ray_offset, ray_offset + len(acc))`` of the film: the pass draws
+    the film's uniforms and keeps the shard's rows (``ray_window``), and
+    makes the shard's own camera rays."""
     acc, passes = state["acc"], int(state["passes"])
+    n_rays = acc.shape[0]
     kp = rng.pass_key(state["key"], passes)
     cam = replace(scene.camera, cols=cfg.width, rows=cfg.height)
     n_lights = scene.lights.count
     # one draw for the whole pass, (R, n_draws, 2); slots per depth:
     # [rr], bounce, NEE per light -- kernel 1 reads the same layout
     n_draws = pass_draw_count(cfg, n_lights)
-    u_all = rng.uniform(kp, (cfg.total_rays, n_draws, 2), scene.device)
+    u_all = ray_window(rng.uniform(kp, (cfg.total_rays, n_draws, 2),
+                                   scene.device), ray_offset, n_rays)
     draw = iter(range(n_draws))
 
     lens_u = u_all[:, next(draw)] if cfg.spp == 1 else None
     if cfg.spp > 1:
         next(draw)      # keep slot numbers stable across spp settings
     rays = generate_primary_rays(cam, scene.bounds, scene.focal_length,
-                                 scene.lens_radius, cfg.spp, lens_uv=lens_u)
+                                 scene.lens_radius, cfg.spp, lens_uv=lens_u,
+                                 ray_offset=ray_offset, n_rays=n_rays)
     tables = stages.hit_tables(scene, cfg)
     hits = Hits.none(rays.n, scene.device)
     rays, hits = stages.trace_all(rays, hits, scene, cfg, tables)
@@ -87,7 +94,8 @@ def _render_pass_stages(scene: Scene, state: dict, cfg: RenderConfig
     return {"acc": acc, "key": state["key"], "passes": passes + 1}
 
 
-def render_pass(scene: Scene, state: dict, cfg: RenderConfig) -> dict:
+def render_pass(scene: Scene, state: dict, cfg: RenderConfig,
+                ray_offset: int = 0) -> dict:
     """One progressive pass (spp samples per pixel); the differentiable
     step. With grad mode on and scene parameters that require grad, the
     returned ``acc`` carries a graph: ``image`` of it, a loss and
@@ -97,21 +105,26 @@ def render_pass(scene: Scene, state: dict, cfg: RenderConfig) -> dict:
     stages (every parameter). The state contract is unchanged; thread
     ``acc.detach()`` into the next step's state so that one step's graph
     ends with it. The megakernel route updates ``state["acc"]`` in place
-    when nothing requires grad; the stage route never does."""
+    when nothing requires grad; the stage route never does.
+    ``ray_offset``: ``state["acc"]`` is a ray shard, rays ``[ray_offset,
+    ray_offset + len(acc))`` of the film (``parallel.mesh``); each ray is
+    computed as in the whole film's pass."""
     if cfg.use_megakernel:
-        return render_pass_mega(scene, state, cfg)
-    return _render_pass_stages(scene, state, cfg)
+        return render_pass_mega(scene, state, cfg, ray_offset=ray_offset)
+    return _render_pass_stages(scene, state, cfg, ray_offset)
 
 
 def render_passes(scene: Scene, state: dict, cfg: RenderConfig,
-                  n_passes: int) -> dict:
+                  n_passes: int, ray_offset: int = 0) -> dict:
     """``n_passes`` passes. On the megakernel route they run in one kernel
     launch with the accumulator in registers across passes; the stage
-    route runs them one after another."""
+    route runs them one after another. ``ray_offset`` as in
+    ``render_pass``."""
     if cfg.use_megakernel:
-        return render_pass_mega(scene, state, cfg, n_passes=n_passes)
+        return render_pass_mega(scene, state, cfg, n_passes=n_passes,
+                                ray_offset=ray_offset)
     for _ in range(n_passes):
-        state = _render_pass_stages(scene, state, cfg)
+        state = _render_pass_stages(scene, state, cfg, ray_offset)
     return state
 
 
@@ -141,3 +154,49 @@ def load_checkpoint(path: str, device) -> dict:
             "key": torch.as_tensor(np.asarray(z["key"], np.uint32)
                                    .reshape(2)),
             "passes": int(z["passes"])}
+
+
+def _sharded_acc(state: dict, mesh, n_rays: int):
+    """A DTensor view of this rank's accumulator rows, ``Shard(0)`` over
+    'rays' (replicated over 'obj'): the film's (n_rays, 3), each rank's
+    local tensor its rows of the film (``parallel.mesh.ray_slice``; the
+    padding rows cut, which is ``torch.chunk``'s uneven split)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from ..parallel.mesh import ray_slice
+    off, local = ray_slice(mesh, n_rays)
+    rows = state["acc"][:max(0, min(local, n_rays - off))]
+    place = [Shard(0)] + [Replicate()] * (mesh.ndim - 1)
+    return DTensor.from_local(rows, mesh, place, run_check=False,
+                              shape=torch.Size((n_rays, 3)),
+                              stride=(3, 1))
+
+
+def save_checkpoint_sharded(path: str, state: dict, mesh,
+                            cfg: RenderConfig) -> None:
+    """Sharded checkpoint of a ray-sharded state (``parallel.mesh``) with
+    ``torch.distributed.checkpoint``: each rank writes its rows of the
+    film's accumulator (no gather), with the key data and pass count under
+    JAX's field names; every rank of ``mesh`` calls it."""
+    import torch.distributed.checkpoint as dcp
+    dcp.save({"acc": _sharded_acc(state, mesh, cfg.total_rays),
+              "key": state["key"].to(torch.int64),
+              "passes": torch.tensor(int(state["passes"]))},
+             checkpoint_id=path)
+
+
+def load_checkpoint_sharded(path: str, template: dict, mesh,
+                            cfg: RenderConfig) -> dict:
+    """The state ``save_checkpoint_sharded`` wrote, as this rank's slice
+    shaped as ``template`` (a ``shard_state`` of the same config), whatever
+    the mesh that wrote it; every rank of ``mesh`` calls it."""
+    import torch.distributed.checkpoint as dcp
+    acc = torch.zeros_like(template["acc"])
+    view = _sharded_acc({"acc": acc}, mesh, cfg.total_rays)
+    sd = {"acc": view, "key": torch.zeros(2, dtype=torch.int64),
+          "passes": torch.tensor(0)}
+    dcp.load(sd, checkpoint_id=path)
+    rows = sd["acc"].to_local()
+    acc[:rows.shape[0]].copy_(rows)
+    return {"acc": acc, "key": sd["key"].to(torch.uint32),
+            "passes": int(sd["passes"])}

@@ -2237,3 +2237,128 @@ def test_kernel_registers_and_spill(cuda):
             r"kernelILb(\d)ELb(\d)EE", name).groups())
         assert u["registers"] <= 128, name
         assert u["spill_stores"] <= K3_SPILL[(rr, direct)] + 16, name
+
+
+# ---------------------------------------------------------------------------
+# Ray shards (parallel/mesh.py): kernels 1 and 3 on a slice of the film with
+# a global ray offset, kernel 4 on a shard of the spheres
+# ---------------------------------------------------------------------------
+
+def _shards(n_rays: int, n: int) -> list:
+    """(offset, count) of n ray shards as ``parallel.mesh.ray_slice`` cuts
+    them: ceil(R / n) rays each, the last padded past the film."""
+    local = -(-n_rays // n)
+    return [(i * local, local) for i in range(n)]
+
+
+@pytest.mark.parametrize("name", ["cornell", "sphere_field(1024)"])
+def test_kernel_1_offset_slice_bit_equals_whole_film_rows(cuda, name):
+    """Kernel 1 on five shards of a 64x48 b5 film (615 rays: not whole
+    rows; the last padded by 3), keyed by the global ray id: each shard's
+    accumulator after a 3-pass launch is the whole film's launch's rows
+    bit for bit, and its record (one pass) the record's columns.
+    sphere_field(1024) walks the sphere tree each call builds."""
+    cfg = RenderConfig(width=64, height=48, bounces=5, use_megakernel=True)
+    scene = (cornell_box(cols=64, rows=48, device=cuda) if name == "cornell"
+             else sphere_field(1024, cols=64, rows=48, device=cuda))
+    R = cfg.total_rays
+    whole = pt.render_passes(scene, pt.init_state(cfg, cuda), cfg, 3)["acc"]
+    t = mega.scene_tables(scene, cfg)
+    kw = dict(spp=1, width=64, bounces=5, two_sided=False,
+              normalize_emitter=True, seed=cfg.seed)
+    _, ids, occs = MK.pathtrace_pass(
+        t[0], torch.tensor([0, 0], dtype=torch.int32), *t[1:],
+        torch.zeros((R, 3), device=cuda), None, record=True, **kw)
+    before = MK.launches
+    for off, n in _shards(R, 5):
+        st = {**pt.init_state(cfg, cuda),
+              "acc": torch.zeros((n, 3), device=cuda)}
+        got = pt.render_passes(scene, st, cfg, 3, ray_offset=off)["acc"]
+        real = min(n, R - off)
+        assert torch.equal(got[:real], whole[off:off + real]), off
+        _, sid, socc = MK.pathtrace_pass(
+            t[0], torch.tensor([0, off], dtype=torch.int32), *t[1:],
+            torch.zeros((n, 3), device=cuda), None, record=True, **kw)
+        assert torch.equal(sid[:, :real], ids[:, off:off + real]), off
+        assert torch.equal(socc[:, :real], occs[:, off:off + real]), off
+    torch.cuda.synchronize()
+    assert MK.launches == before + 10
+
+
+def test_kernel_3_order_and_sweep_on_an_offset_slice(cuda):
+    """Kernel 3 on sphere_field(200)'s record of five ray shards (64x48
+    b5): the ray order of each shard's record (local ray ids) equals its
+    plain version element for element; each shard's sweep (the shard's
+    u-planes and the PRNG route keyed by the global id) holds its plain
+    version to phase 6's gates; and the shards' cotangents summed hold the
+    whole film's launch to the same gates."""
+    cfg = RenderConfig(width=64, height=48, bounces=5, use_megakernel=True)
+    scene = sphere_field(200, cols=64, rows=48, device=cuda)
+    R = cfg.total_rays
+    t = mega.scene_tables(scene, cfg)
+    n_obj = t[1].shape[0] + t[2].shape[0]
+    u = mega.u_planes_for_pass(pt.init_state(cfg, cuda)["key"], 0, cfg,
+                               scene.lights.count, cuda)
+    g = torch.as_tensor(np.random.default_rng(13).normal(
+        size=(R, 3)).astype(np.float32), device=cuda)
+    kw = dict(spp=1, width=64, bounces=5, two_sided=False,
+              normalize_emitter=True, seed=cfg.seed)
+    ipar0 = torch.tensor([0, 0], dtype=torch.int32)
+    _, ids, occs = MK.pathtrace_pass(t[0], ipar0, *t[1:],
+                                     torch.zeros((R, 3), device=cuda), None,
+                                     record=True, **kw)
+    whole = MKG.pathtrace_pass_bwd_champ(t[0], ipar0, *t[1:], g, None, ids,
+                                         occs, **kw)
+    total = [torch.zeros_like(x) for x in whole]
+    for off, n in _shards(R, 5):
+        ipar = torch.tensor([0, off], dtype=torch.int32)
+        _, sid, socc = MK.pathtrace_pass(
+            t[0], ipar, *t[1:], torch.zeros((n, 3), device=cuda), None,
+            record=True, **kw)
+        sg = torch.zeros((n, 3), device=cuda)
+        real = min(n, R - off)
+        sg[:real] = g[off:off + real]
+        order, n_live = MKG.champ_order(sid, sg, n_obj, "path")
+        want, n_want = MKG.champ_order_reference(sid, sg, "path", n_obj)
+        assert int(n_live) == n_want and torch.equal(order[:n_want], want)
+        su = torch.zeros((u.shape[0], n), device=cuda)
+        su[:, :real] = u[:, off:off + real]
+        _hold_champ(t, ipar, sid, socc, su, sg, kw)
+        part = MKG.pathtrace_pass_bwd_champ(t[0], ipar, *t[1:], sg, None,
+                                            sid, socc, **kw)
+        total = [a + b for a, b in zip(total, part)]
+    torch.cuda.synchronize()
+    held = [(nm, a, b) for nm, a, b in zip(MKG.DIFF_ALL, whole, total)
+            if a.numel() and a.abs().max() > 0]
+    names, a, b = zip(*held)
+    _gates(a, b, names=names)
+
+
+@pytest.mark.parametrize("tie", [False, True])
+def test_kernel_4_on_sphere_shards_with_index_offsets(cuda, tie):
+    """Kernel 4 on shards of sphere_field(1024)'s rows (2 shards of 512:
+    the tree instance; 8 of 128: the brute loop), each shard's indices
+    offset by its first row and the least (t, shard) taken: the unsharded
+    search's (t, idx) bit for bit. With ``tie`` the second half copies the
+    first, so every hit ties across shards and the lower index wins."""
+    sp = sphere_field(1024, device=cuda).spheres
+    rows = HK.sphere_rows(sp.center, sp.radius, sp.mask)
+    if tie:
+        rows = torch.cat([rows[:512], rows[:512]]).contiguous()
+    rays = _rays(cuda)
+    want = HK.sphere_search_rows(*rays, rows)
+    for n_shards in (2, 8):
+        size = rows.shape[0] // n_shards
+        ts, ids = [], []
+        for k in range(n_shards):
+            st, si = HK.sphere_search_rows(
+                *rays, rows[k * size:(k + 1) * size].contiguous())
+            ts.append(st)
+            ids.append(torch.where(torch.isfinite(st), si + k * size, -1))
+        ts, ids = torch.stack(ts), torch.stack(ids)
+        win = torch.argmin(ts, 0)
+        col = torch.arange(ts.shape[1], device=cuda)
+        got = (ts[win, col], ids[win, col])
+        _bit_equal(got, want)
+        if tie:
+            assert (want[1] < 512).all()

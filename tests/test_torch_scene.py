@@ -283,6 +283,11 @@ def test_port_imports_no_jax():
             "import raytracing_tpu_torch.ops.closest_hit\n"
             "import raytracing_tpu_torch.render.stages\n"
             "import raytracing_tpu_torch.render.direct\n"
+            "import raytracing_tpu_torch.parallel.mesh\n"
+            "import raytracing_tpu_torch.parallel.obj_parallel\n"
+            "import raytracing_tpu_torch.parallel.scaling\n"
+            "import raytracing_tpu_torch.parallel.dryrun\n"
+            "import raytracing_tpu_torch.utils.runtime\n"
             "bad = [m for m in sys.modules if m in ('jax', 'raytracing_tpu') "
             "or m.startswith(('jax.', 'jaxlib', 'raytracing_tpu.'))]\n"
             "assert not bad, bad\n")
