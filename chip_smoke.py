@@ -370,6 +370,38 @@ Phases, each fatal on failure (no exception is caught):
      (t, idx, valid) bit for bit. Prints per-rank ms per call and rays/s
      beside the card's name and power limit; ranks that share a card
      measure no scaling.
+ 26. the surface (XML scenes, mesh JSON, the CLI, the viewer, mesh
+     scenes), on stand-ins written to a temporary directory by
+     tests/torch_xml_scenes.py (the reference's scene files are not in
+     the repository): (1) the torus scene written as XML and mesh JSON
+     (io/scene_xml.load_scene) is phase 18's config-3 scene element for
+     element after prepare_grids("auto", mesh_slabs="auto"), scene and
+     kernel tables, and kernel 1's films of both are bit-equal, direct
+     and path b5, GRID_PASSES passes at 1024^2, block GRID_BLOCK; (2)
+     config 3 through assign07(scene_xml=<the cornell_teapot stand-in>,
+     n_slabs=3, mesh_slabs="auto"): kernel 1's grid-mode direct pass
+     against its plain version at 256x192, the --fmad=false build equal to
+     it on every ray, the build that runs within phase 3's 1% of rays
+     beyond 2e-4 and within TEAPOT_REL of the mean (shadow rays that graze
+     the normalised torus near its terminator take the other side when
+     contracted multiply-adds move the hit point; the comment above
+     TEAPOT_REL gives the readings), and at
+     1024^2 exactly one direct launch per GRID_PASSES-pass call, made with
+     the grids, a finite film, 1 warm-up and GRID_REPS timed calls (ms per
+     pass, rays/s); (3) the CLI on that XML at 1024^2 b5 (--grid 3
+     --block 64, GRID_PASSES passes): exit 0, a PNG that io/png.read_png
+     reads back as (1024, 1024, 3), and --orbit 2 at 256x192: two frames
+     that differ; (4) the viewer: RenderSession at 1024^2 b5, 4 passes per
+     step: two steps on cornell, one kernel-1 launch and 4 passes each,
+     engine "megakernel" and device "cuda:0"; make_server on port 0
+     serves /, /scenes, /devices (naming the card), /status and
+     /frame.png (1024x1024); start on the XML scene advances the passes
+     within VIEWER_DEADLINE seconds, then stop; (5) big_mesh_scene with
+     RT_REFERENCE_DIR on a house_of_parliament.json stand-in (the
+     HOUSE_SEGMENTS torus, 5,312 faces) through render_passes at 1024^2
+     b5, GRID_PASSES passes per call, block GRID_BLOCK: one streamed
+     launch per call, a finite film, ms per pass. Prints the phase's
+     seconds.
 Each phase prints the seconds elapsed since the start before it runs.
 Ends with a kernels JSON line and, last, the device JSON line. Exits non-zero
 without a result where CUDA is missing or the package is not beside it.
@@ -463,6 +495,16 @@ SOFT_MODES = ("path", "rr", "direct")  # kernel 2s's builds (RT_SOFT_MODE)
 SOFT_CHUNK = 64            # JAX's SOFT_CHUNK: rows per span past 64
 DIRECT_W, DIRECT_H = 256, 192   # phase 23's kernel vs plain
 DIRECT_SOFT_W, DIRECT_SOFT_H = 64, 48   # kernel 2s vs plain past 64 objects
+VIEWER_DEADLINE = 120      # seconds for phase 26's viewer loop to advance
+# phase 26 (2): kernel 1 (contracted) vs plain, direct, on the cornell_teapot
+# stand-in (a torus normalised and scaled by 0.7), one pass. Readings on one
+# H100 80GB HBM3 (PERF.md): at 256x192 41 of 49,152 rays beyond 2e-4
+# (25 brighter, 16 darker: shadow rays near the torus' terminator), mean
+# 1.44e-4 apart; 21 rays and 4.1e-5 through a pinhole; at 1024^2 954 rays
+# (496 / 458) and 3.26e-5; the --fmad=false build equal to the plain
+# version on every ray in all three. So the mean only bounds that noise;
+# the --fmad=false build's equality is what would show a fault.
+TEAPOT_REL = 5e-4
 DIRECT_STEPS = 10          # phase 23's timed train steps per route
 WALK_SPHERES = 4608        # phase 23's largest resident table (the walk)
 
@@ -6179,6 +6221,337 @@ def sharding(dev, smi: str) -> dict:
     return {"ranks": n, "backend": backend}
 
 
+def _numpy_tables(scene, cfg) -> dict:
+    """A scene's leaves and prepared grids (scene_to_numpy) and kernel 1's
+    tables of it (render/mega.scene_tables), as numpy on the host."""
+    from raytracing_tpu_torch.core.types import scene_to_numpy
+    from raytracing_tpu_torch.render import mega
+    d = scene_to_numpy(scene)
+    for name, t in zip(("par", "sph", "tri", "mat", "lig"),
+                       mega.scene_tables(scene, cfg)):
+        d[f"kernel.{name}"] = t.cpu().numpy()
+    return d
+
+
+def _call_ms(fn, reps: int) -> float:
+    """ms per call of ``fn`` after one warm-up call (host clock around
+    ``reps`` calls and a synchronize)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _xml_torus(dev, root: str) -> None:
+    """Phase 26 (1): the torus XML against phase 18's scene."""
+    import numpy as np
+    import torch
+    from raytracing_tpu_torch import replace
+    from raytracing_tpu_torch.accel import prepare_grids
+    from raytracing_tpu_torch.io.scene_xml import load_scene
+    from raytracing_tpu_torch.render import pathtracer as pt
+    from raytracing_tpu_torch.render.direct import render_direct
+    from torch_xml_scenes import cornell_torus_xml
+
+    path = cornell_torus_xml(root, *TORUS_SEGMENTS)
+    got = prepare_grids(load_scene(path, MAIN_W, MAIN_H, dev), "auto",
+                        mesh_slabs="auto")
+    want = _grid_scene("torus", MAIN_W, MAIN_H, dev)
+    base = _grid_cfg("torus", MAIN_W, MAIN_H, "path", mega_block=GRID_BLOCK)
+    a, b = _numpy_tables(got, base), _numpy_tables(want, base)
+    _check(sorted(a) == sorted(b), "XML torus: other tables than phase 18's")
+    diff = [k for k in a if a[k].dtype != b[k].dtype
+            or not np.array_equal(a[k], b[k])]
+    _check(not diff, f"XML torus tables differ from phase 18's: {diff}")
+    films = {}
+    for mode in ("direct", "path"):
+        cfg = replace(base, bounces=0) if mode == "direct" else base
+        out = []
+        for scene in (got, want):
+            if mode == "direct":
+                out.append(render_direct(scene, cfg, n_passes=GRID_PASSES))
+            else:
+                out.append(pt.render_passes(scene, pt.init_state(cfg, dev),
+                                            cfg, GRID_PASSES)["acc"])
+        torch.cuda.synchronize()
+        _check(bool(torch.isfinite(out[0]).all()) and out[0].max() > 0,
+               f"XML torus {mode}: film not finite or black")
+        films[mode] = torch.equal(out[0], out[1])
+        _check(films[mode], f"XML torus {mode} film != phase 18's scene's")
+    print(f"phase 26 (1) the torus written as XML + mesh JSON ({len(a)} "
+          f"tables, {2 * TORUS_SEGMENTS[0] * TORUS_SEGMENTS[1]} faces): every "
+          f"table equals phase 18's; kernel 1's films bit-equal at "
+          f"{MAIN_W}x{MAIN_H}, {GRID_PASSES} passes, direct and path "
+          f"b{BOUNCES}: {films}")
+
+
+def _config3_xml(dev, smi: str, path: str) -> None:
+    """Phase 26 (2): config 3 through assign07(scene_xml=...)."""
+    import torch
+    from raytracing_tpu_torch.core import rng
+    from raytracing_tpu_torch.models.assignments import assign07
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.render import mega
+
+    # kernel vs plain version at 256x192, one pass on the same draws
+    fn, (scene, cfg), _ = assign07(SMALL_W, SMALL_H, n_slabs=3,
+                                   scene_xml=path, mesh_slabs="auto",
+                                   device=dev)
+    tables = mega.scene_tables(scene, cfg)
+    grid = mega.grid_tables(scene, tables[1], tables[2])
+    key = rng.base_key(cfg.seed)
+    u = mega.u_planes_for_direct(key, cfg, scene.lights.count, dev)
+    zeros = torch.zeros((cfg.total_rays, 3), device=dev)
+    one = dict(key=key, spp=1, width=SMALL_W, two_sided=False, grid=grid)
+    want = MK.direct_pass_reference(*tables, zeros, u, **one)
+    got = MK.direct_pass(*tables, zeros.clone(), u, block=GRID_BLOCK, **one)
+    exact = MK.direct_pass(*tables, zeros.clone(), u, block=GRID_BLOCK,
+                           build_flags=EXACT_FLAGS, **one)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    beyond = (err > TOL + TOL * want.abs()).any(-1).double().mean().item()
+    rel = abs(got.double().mean().item() / want.double().mean().item() - 1)
+    same = torch.equal(exact, want)
+    print(f"phase 26 (2) config 3 via assign07(scene_xml=cornell_teapot "
+          f"stand-in) {SMALL_W}x{SMALL_H}: kernel vs plain max|d acc| "
+          f"{err.max().item():.6g}, rays beyond {TOL:g} {beyond:.6%}, mean "
+          f"rel {rel:.3g}; --fmad=false build equal {same}")
+    _check(bool(torch.isfinite(got).all()), "config 3 via XML: acc")
+    _check(same, "config 3 via XML: the --fmad=false build differs from "
+           "the plain version")
+    _check(beyond <= 0.01 and rel <= TEAPOT_REL,
+           f"config 3 via XML {SMALL_W}x{SMALL_H}: beyond {beyond:.4%}, "
+           f"rel {rel:.3g} (limit {TEAPOT_REL:g})")
+
+    fn, (scene, cfg), _ = assign07(MAIN_W, MAIN_H, n_slabs=3,
+                                   scene_xml=path, mesh_slabs="auto",
+                                   device=dev)
+    n_grid = [g.n for g in scene.folded_tri_grid]
+    grids = []
+    launch = MK.direct_pass
+
+    def spy(*args, **kw):
+        grids.append(kw.get("grid") is not None)
+        return launch(*args, **kw)
+    MK.direct_pass = spy
+    try:
+        img = fn(scene, cfg, n_passes=GRID_PASSES)          # warm-up
+        torch.cuda.synchronize()
+        MK.launches = MK.direct_launches = MK.stream_launches = 0
+        grids.clear()
+        img = fn(scene, cfg, n_passes=GRID_PASSES)
+        torch.cuda.synchronize()
+        counts = (MK.direct_launches, MK.launches, MK.stream_launches)
+        _check(counts == (1, 0, 0) and grids == [True],
+               f"config 3 via XML: launches (direct, path, streamed) "
+               f"{counts}, with the grids {grids}, for one call")
+        ms = _call_ms(lambda: fn(scene, cfg, n_passes=GRID_PASSES),
+                      GRID_REPS)
+    finally:
+        MK.direct_pass = launch
+    _check(bool(torch.isfinite(img).all()) and img.max().item() > 0,
+           "config 3 via XML: image not finite or black")
+    n_rays = cfg.total_rays * (1 + scene.lights.count) * GRID_PASSES
+    print(f"phase 26 (2) config 3 via XML (cornell_teapot stand-in: "
+          f"{scene.triangles.count} walls, meshes "
+          f"{[m.tris.count for m in scene.meshes]}, kernel grids {n_grid}) "
+          f"{MAIN_W}x{MAIN_H} direct, {GRID_PASSES} passes per call, B = "
+          f"{cfg.mega_block} on [{smi}]: one grid-mode launch per call; "
+          f"{ms / GRID_PASSES:.6g} ms/pass ({ms:.6g} ms per call, "
+          f"{GRID_REPS} calls after 1 warm-up), {n_rays / (ms / 1e3):.6g} "
+          "rays/s")
+
+
+def _cli_xml(dev, smi: str, path: str, root: str) -> None:
+    """Phase 26 (3): the CLI on the XML scene and its orbit."""
+    import contextlib
+    import io
+
+    import numpy as np
+    from raytracing_tpu_torch import cli
+    from raytracing_tpu_torch.io.png import read_png
+
+    out = str(Path(root) / "cli.png")
+    argv = ["--scene", path, "--grid", "3", "--block", str(GRID_BLOCK),
+            "--width", str(MAIN_W), "--height", str(MAIN_H), "--passes",
+            str(GRID_PASSES), "--bounces", str(BOUNCES), "-o", out]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        rc = cli.main(argv)
+    sec = time.perf_counter() - t0
+    _check(rc == 0, f"the CLI exited {rc}")
+    img = read_png(out)
+    _check(img.shape == (MAIN_H, MAIN_W, 3) and img.max() > 0,
+           f"the CLI's PNG reads back as {img.shape}")
+    orbit = str(Path(root) / "orbit.png")
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(["--scene", path, "--width", str(SMALL_W), "--height",
+                       str(SMALL_H), "--passes", "4", "--orbit", "2", "-o",
+                       orbit])
+    frames = [read_png(str(Path(root) / f"orbit_frame{f:03d}.png"))
+              for f in range(2)]
+    _check(rc == 0 and frames[0].shape == (SMALL_H, SMALL_W, 3)
+           and not np.array_equal(frames[0], frames[1]),
+           "--orbit 2: two frames that differ")
+    stats = [x.strip() for x in text.getvalue().splitlines()
+             if ":" in x and not x.startswith("\r")][:7]
+    print(f"phase 26 (3) the CLI on the XML at {MAIN_W}x{MAIN_H} b{BOUNCES} "
+          f"--grid 3, {GRID_PASSES} passes: exit 0 in {sec:.3f} s on [{smi}] "
+          f"(process already warm), PNG {img.shape}; printed {stats}; "
+          f"--orbit 2 at {SMALL_W}x{SMALL_H}: two frames that differ")
+
+
+def _viewer(dev, smi: str, path: str) -> None:
+    """Phase 26 (4): the viewer's session, its HTTP surface and loop."""
+    import tempfile
+    import threading
+    import urllib.request
+
+    import torch
+    from raytracing_tpu_torch import viewer
+    from raytracing_tpu_torch.io.png import read_png
+    from raytracing_tpu_torch.ops import megakernel as MK
+
+    s = viewer.RenderSession(MAIN_W, MAIN_H, bounces=BOUNCES,
+                             chunk_passes=4, scenes={
+                                 "cornell": None, "spheres": None,
+                                 "teapot": path}, device=dev)
+    s.step(n_passes=4)                                   # warm-up
+    torch.cuda.synchronize()
+    passes0 = s.status()["passes"]
+    MK.launches = MK.direct_launches = 0
+    t0 = time.perf_counter()
+    for _ in range(2):
+        s.step(n_passes=4)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 2
+    st = s.status()
+    _check(MK.launches == 2 and MK.direct_launches == 0
+           and st["passes"] == passes0 + 8,
+           f"viewer: {MK.launches} launches, passes {passes0} -> "
+           f"{st['passes']} for two steps")
+    _check(st["engine"] == "megakernel" and st["device"] == "cuda:0",
+           f"viewer status {st}")
+    srv = viewer.make_server(s, port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+
+    def get(p):
+        return urllib.request.urlopen(base + p, timeout=60).read()
+    try:
+        _check(b"<canvas" in get("/"), "viewer: / has no canvas")
+        _check(json.loads(get("/scenes")) == ["cornell", "spheres", "teapot"],
+               "viewer: /scenes")
+        devs = json.loads(get("/devices"))
+        _check(torch.cuda.get_device_name(0) in devs[0], f"/devices {devs}")
+        _check(json.loads(get("/status"))["engine"] == "megakernel",
+               "viewer: /status")
+        png = get("/frame.png")
+        with tempfile.NamedTemporaryFile(suffix=".png") as f:
+            f.write(png)
+            f.flush()
+            shape = read_png(f.name).shape
+        _check(png[:8] == b"\x89PNG\r\n\x1a\n"
+               and shape == (MAIN_H, MAIN_W, 3), f"/frame.png {shape}")
+        t0 = time.perf_counter()
+        frame0 = s.status()["frame"]
+        s.start(scene="teapot", renderer="path", spp=1, focal=None,
+                lens=None, device=0, orbit=False)
+        # the start resets the passes; two of the loop's frames hold 8
+        while not (s.status()["frame"] >= frame0 + 2
+                   and s.status()["passes"] >= 8):
+            _check(time.perf_counter() - t0 < VIEWER_DEADLINE
+                   and s._thread.is_alive(),
+                   "viewer: the loop on the XML scene made no passes")
+            time.sleep(0.01)
+        loop_s = time.perf_counter() - t0
+        st = s.status()
+        s.stop()
+    finally:
+        s.stop()
+        srv.shutdown()
+        srv.server_close()
+    print(f"phase 26 (4) viewer {MAIN_W}x{MAIN_H} b{BOUNCES} on [{smi}]: "
+          f"two 4-pass steps on cornell, one launch each, "
+          f"{step_ms:.6g} ms per step (host clock); /, /scenes, /devices "
+          f"{devs}, /status, /frame.png {shape}; the loop on the XML scene "
+          f"made 8 passes in {loop_s:.3f} s (scene load and grids included), "
+          f"{st['msegs_per_s']:.6g} M segments/s, engine {st['engine']}")
+
+
+def _house(dev, smi: str, root: str) -> None:
+    """Phase 26 (5): big_mesh_scene on the house stand-in, streamed."""
+    import os
+
+    import torch
+    from raytracing_tpu_torch import RenderConfig
+    from raytracing_tpu_torch.models.scenes import big_mesh_scene
+    from raytracing_tpu_torch.ops import megakernel as MK
+    from raytracing_tpu_torch.render import pathtracer as pt
+    from torch_xml_scenes import house_reference_dir
+
+    before = os.environ.get("RT_REFERENCE_DIR")
+    os.environ["RT_REFERENCE_DIR"] = house_reference_dir(
+        str(Path(root) / "reference"))
+    try:
+        scene = big_mesh_scene(cols=MAIN_W, rows=MAIN_H, device=dev)
+    finally:
+        if before is None:
+            del os.environ["RT_REFERENCE_DIR"]
+        else:
+            os.environ["RT_REFERENCE_DIR"] = before
+    cfg = RenderConfig(width=MAIN_W, height=MAIN_H, bounces=BOUNCES,
+                       use_megakernel=True, mega_block=GRID_BLOCK)
+    state = pt.render_passes(scene, pt.init_state(cfg, dev), cfg,
+                             GRID_PASSES)                       # warm-up
+    torch.cuda.synchronize()
+    MK.launches = MK.stream_launches = 0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    state = pt.render_passes(scene, state, cfg, GRID_PASSES)
+    end.record()
+    torch.cuda.synchronize()
+    _check(MK.launches == 1 == MK.stream_launches,
+           f"big_mesh_scene: {MK.launches} launches, {MK.stream_launches} "
+           "streamed, for one call")
+    _check(bool(torch.isfinite(state["acc"]).all())
+           and state["acc"].max().item() > 0, "big_mesh_scene: acc")
+    print(f"phase 26 (5) big_mesh_scene (house_of_parliament.json stand-in, "
+          f"{scene.triangles.count} triangles, streamed) {MAIN_W}x{MAIN_H} "
+          f"b{BOUNCES}, B = {GRID_BLOCK}, {GRID_PASSES} passes per call on "
+          f"[{smi}]: one streamed launch per call, "
+          f"{start.elapsed_time(end) / GRID_PASSES:.6g} ms/pass")
+
+
+def surface(dev, smi: str) -> None:
+    """Phase 26: XML scenes, mesh JSON, the CLI, the viewer and
+    big_mesh_scene on stand-ins written to a temporary directory."""
+    import tempfile
+
+    sys.path.insert(0, str(HERE / "tests"))
+    from torch_xml_scenes import cornell_teapot_xml
+
+    t0 = time.perf_counter()
+    parts = []
+    with tempfile.TemporaryDirectory() as root:
+        path = cornell_teapot_xml(str(Path(root) / "teapot"))
+        for run in (lambda: _xml_torus(dev, str(Path(root) / "torus")),
+                    lambda: _config3_xml(dev, smi, path),
+                    lambda: _cli_xml(dev, smi, path, root),
+                    lambda: _viewer(dev, smi, path),
+                    lambda: _house(dev, smi, root)):
+            t1 = time.perf_counter()
+            run()
+            parts.append(round(time.perf_counter() - t1, 1))
+    print(f"phase 26: {time.perf_counter() - t0:.1f} s (parts 1-5 {parts} "
+          "s)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6407,6 +6780,10 @@ def main() -> int:
     # phase 25: the sharded paths (parallel/), two ranks on one card or one
     # rank per card
     sharding(dev, smi)
+    _elapsed(26)
+    # phase 26: the surface (XML scenes, mesh JSON, the CLI, the viewer,
+    # big_mesh_scene)
+    surface(dev, smi)
     print(f"[{time.perf_counter() - START:.1f} s elapsed in all]")
     hard22 = max([x["max_abs_err"] for x in a22.values()]
                  + [v["max_abs_err"] for (_, soft, _), v in c22.items()

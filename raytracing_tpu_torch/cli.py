@@ -11,6 +11,9 @@
   python -m raytracing_tpu_torch.cli --renderer fake -o fake.png
   python -m raytracing_tpu_torch.cli --renderer direct --grid 4 --block 64 \
       -o grid.png
+  python -m raytracing_tpu_torch.cli --scene scenes/cornell_teapot.xml \
+      --grid 3 --block 64 --width 1024 --height 1024 -o teapot.png
+  python -m raytracing_tpu_torch.cli --orbit 16 -o orbit.png
   python -m raytracing_tpu_torch.cli --cpu --width 64 --height 48 -o x.png
 
 Same flags as the JAX CLI: the megakernel by default (kernel 1, in path
@@ -19,11 +22,12 @@ searches in the hit kernels with ``--pallas``); ``--renderer fake`` is the
 fake-shade sphere renderer (``render/simple.py``). ``--grid N`` builds
 the uniform grids (``accel.prepare_grids(scene, N, mesh_slabs=...)``) and
 renders in kernel 1's grid mode (the stage route's grid branch with
-``--no-megakernel``); ``--block B`` is kernel 1's blocked layout. The path
-renderer's
-progressive state is checkpointed after every chunk of passes and on
-Ctrl-C, and ``--resume`` continues it (JAX checkpoints included). Flags
-for parts not ported yet raise.
+``--no-megakernel``); ``--block B`` is kernel 1's blocked layout.
+``--scene`` takes a builtin name or an XML scene file
+(``io.scene_xml``). ``--orbit N`` writes N path-traced frames
+``<output>_frameNNN.png`` with the eye orbited around the scene. The path
+renderer's progressive state is checkpointed after every chunk of passes
+and on Ctrl-C, and ``--resume`` continues it (JAX checkpoints included).
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ def build_parser() -> argparse.ArgumentParser:
         prog="raytracing_tpu_torch",
         description="path tracer on an NVIDIA GPU (PyTorch + CUDA)")
     p.add_argument("--scene", default="cornell",
-                   help="builtin scene name (cornell, spheres)")
+                   help="builtin scene name (cornell, spheres) or XML path")
     p.add_argument("--renderer", default="path",
                    choices=["path", "direct", "fake"],
                    help="pipeline: path tracing, direct lighting, or the "
@@ -78,22 +82,20 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--resume", action="store_true",
                    help="resume from checkpoint")
     p.add_argument("--orbit", type=int, default=0, metavar="N",
-                   help="orbit animation (not ported yet)")
+                   help="render N frames orbiting the scene (Assign02 "
+                        "rotate-camera animation); output becomes a "
+                        "frame_%%03d.png sequence")
     p.add_argument("--list-devices", action="store_true")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (the kernel's plain PyTorch version)")
     return p
 
 
-def _not_ported(what: str, item: int) -> SystemExit:
-    return SystemExit(f"{what} is not ported yet (ROADMAP Queue 1 item "
-                      f"{item})")
-
-
 def load_named_scene(name: str, width: int, height: int, device):
-    from .models.scenes import cornell_box, sphere_field
     if name.endswith(".xml"):
-        raise _not_ported("XML scenes", 15)
+        from .io.scene_xml import load_scene
+        return load_scene(name, width, height, device)
+    from .models.scenes import cornell_box, sphere_field
     if name == "cornell":
         return cornell_box(cols=width, rows=height, device=device)
     if name == "spheres":
@@ -114,12 +116,10 @@ def main(argv=None) -> int:
             print(f"[{i}] cuda: {pr.name} ({pr.multi_processor_count} SMs, "
                   f"{pr.total_memory / 2**30:.0f} GiB)")
         return 0
-    if args.orbit:
-        raise _not_ported("--orbit", 15)
-
     from . import RenderConfig, default_device, replace
     from .io.png import write_png
     from .render import pathtracer
+    from .utils.runtime import scene_stats
 
     device = default_device(cpu=args.cpu)
     scene = load_named_scene(args.scene, args.width, args.height, device)
@@ -145,8 +145,24 @@ def main(argv=None) -> int:
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "plain PyTorch version")
     print(f"device: {device.type} ({name})")
-    print(f"  spheres: {scene.spheres.count}  triangles: "
-          f"{scene.triangles.count}  lights: {scene.lights.count}")
+    for k, v in scene_stats(scene).items():
+        print(f"  {k}: {v}")
+
+    if args.orbit:
+        # the reference's rotate animation: the eye orbited around the
+        # scene bounds, a fresh progressive render per frame
+        import os
+
+        base, ext = os.path.splitext(args.output)
+        for f in range(args.orbit):
+            cam = scene.camera.orbit(scene.bounds, 360.0 * f / args.orbit)
+            state = pathtracer.render_passes(
+                replace(scene, camera=cam), pathtracer.init_state(cfg, device),
+                cfg, args.passes)
+            frame = f"{base}_frame{f:03d}{ext}"
+            write_png(frame, pathtracer.image(state, cfg))
+            print(f"frame {f + 1}/{args.orbit}: {frame}")
+        return 0
 
     if args.renderer == "fake":
         from .render.simple import render_fake_shade

@@ -1,4 +1,5 @@
-"""Samplers: concentric disk map, cosine hemisphere, disk-light point
+"""Samplers: the [0, 1]^2 -> [-1, 1]^2 map, concentric disk map, stratified
+lens grid, cosine hemisphere, disk-light point
 (``raytracing_tpu.core.sampling``; the kernel's ``_concentric`` and
 bounce direction, ``ops/pallas/megakernel.py:212-242, 1502-1512``).
 Shape-polymorphic over leading batch axes."""
@@ -12,6 +13,12 @@ from .types import safe_normalize, tangent_frame
 
 _PI_4 = math.pi / 4.0
 _PI_2 = math.pi / 2.0
+
+
+def distort(u: torch.Tensor) -> torch.Tensor:
+    """[0, 1]^2 -> [-1, 1]^2 with (0, 0) pinned."""
+    zero = (u == 0.0).all(-1, keepdim=True)
+    return torch.where(zero, 0.0, u * 2.0 - 1.0)
 
 
 def concentric_disk(u: torch.Tensor) -> torch.Tensor:
@@ -28,6 +35,24 @@ def concentric_disk(u: torch.Tensor) -> torch.Tensor:
     out = torch.stack([torch.cos(phi) * radius, torch.sin(phi) * radius], -1)
     zero = (u[..., 0] == 0.0) & (u[..., 1] == 0.0)
     return torch.where(zero[..., None], u, out)
+
+
+def stratified_lens_uv(samp: torch.Tensor, spp: int) -> torch.Tensor:
+    """(N, 2) lens-cell centres of sub-ray ``samp`` for spp = k^2: sample
+    j varies fastest in x (the kernel's arithmetic)."""
+    k = int(round(spp ** 0.5))
+    if k * k != spp:
+        raise ValueError(f"spp must be a perfect square, got {spp}")
+    si = torch.div(samp, k, rounding_mode="floor")
+    sj = samp - si * k
+    return torch.stack([(sj.to(torch.float32) + 0.5) / k,
+                        (si.to(torch.float32) + 0.5) / k], -1)
+
+
+def stratified_lens_coords(spp: int, device=None) -> torch.Tensor:
+    """(spp, 2) stratified cell centres on [0, 1]^2 for spp = k^2 sub-rays
+    per pixel, in the ray-slot order of a pixel's rays (j fastest, in x)."""
+    return stratified_lens_uv(torch.arange(spp, device=device), spp)
 
 
 def cosine_hemisphere(normal: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

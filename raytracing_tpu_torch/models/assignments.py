@@ -18,11 +18,12 @@ capability:
 
 Scenes are built on ``device`` (default: the card; tests pass "cpu", where
 the kernels' plain versions run). Reference data files (PDB molecules, XML
-scenes) are read from the directory named by the environment variable
-``RT_REFERENCE_DIR`` when it is set and holds them; otherwise the
+scenes, mesh JSON) are read from the directory named by the environment
+variable ``RT_REFERENCE_DIR`` when it is set and holds them; otherwise the
 programmatic scenes of ``models/scenes.py`` stand in, as in the JAX package
-when its reference directory is absent. XML scenes are not ported yet
-(ROADMAP Queue 1 item 15) and raise.
+when its reference directory is absent. ``scene_xml=`` of 07, 08 and 10
+loads an XML scene (``io.scene_xml.load_scene``); 07 then grids each mesh
+at ``mesh_slabs`` and renders in kernel 1's grid mode.
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ from ..accel import prepare_grids
 from ..core.config import RenderConfig
 from ..core.types import AABB, Camera, make_spheres
 from ..io.pdb import load_pdb
+from ..io.scene_xml import load_scene
 from ..render.direct import render_direct
 from ..render.pathtracer import image, init_state, render_passes
 from ..render.simple import render_fake_shade
@@ -54,11 +56,6 @@ def _ref(path: str) -> str | None:
         return None
     p = os.path.join(root, path)
     return p if os.path.exists(p) else None
-
-
-def _no_xml(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: XML scenes are not ported yet (ROADMAP Queue 1 item 15)")
 
 
 def molecule_scene(name: str = "c60.pdb", cols: int = 512, rows: int = 512,
@@ -165,23 +162,33 @@ def assign06(cols=512, rows=512, n_slabs=8, device=None):
 
 def assign07(cols=512, rows=512, n_slabs=4, scene_xml: str | None = None,
              mesh_slabs: int | str = "xml", device=None):
-    """Full 3-D uniform grid DDA (``scene_xml``, a mesh-instancing XML
-    scene with ``mesh_slabs``, needs the XML reader)."""
+    """Full 3-D uniform grid DDA. ``scene_xml`` swaps in a mesh-instancing
+    XML scene (e.g. cornell_teapot.xml): each mesh gets its own grid at its
+    XML ``nslabs`` (``mesh_slabs="xml"``), at an int, or by the cost model
+    ("auto"), and the walls stay brute force."""
     if scene_xml is not None:
-        raise _no_xml("assign07(scene_xml=...)")
+        scene = prepare_grids(load_scene(scene_xml, cols, rows,
+                                         _device(device)),
+                              n_slabs, mesh_slabs=mesh_slabs)
+        cfg = RenderConfig(width=cols, height=rows, spp=1, bounces=0,
+                           use_grid=True, n_slabs=n_slabs,
+                           use_megakernel=True, mega_block=64)
+        return render_direct, (scene, cfg), cfg
     scene, cfg = _mesh_scene(cols, rows, device, use_grid=True,
                              n_slabs=n_slabs)
     return render_direct, (scene, cfg), cfg
 
 
 def assign08(cols=320, rows=240, scene_xml: str | None = None, device=None):
-    """Disk lights, shadow rays and ambient + cosine shade (cornell, or the
-    reference's cornell.xml, which needs the XML reader)."""
-    if scene_xml is not None:
-        raise _no_xml("assign08(scene_xml=...)")
-    if _ref("Assign08-Shadow_Tracing/scenes/cornell.xml"):
-        raise _no_xml("assign08 with the reference's cornell.xml")
-    scene = cornell_box(cols=cols, rows=rows, device=_device(device))
+    """Point or disk lights, shadow rays and ambient + cosine shade: the
+    XML scene ``scene_xml``, else the reference's cornell.xml where
+    ``RT_REFERENCE_DIR`` holds it, else cornell."""
+    if scene_xml is None:
+        scene_xml = _ref("Assign08-Shadow_Tracing/scenes/cornell.xml")
+    if scene_xml:
+        scene = load_scene(scene_xml, cols, rows, _device(device))
+    else:
+        scene = cornell_box(cols=cols, rows=rows, device=_device(device))
     cfg = RenderConfig(width=cols, height=rows, spp=1, bounces=0,
                        use_megakernel=True)
     return render_direct, (scene, cfg), cfg
@@ -200,10 +207,9 @@ def assign09(cols=320, rows=240, spp=4, focal_length=2.8,
 def assign10(cols=320, rows=240, spp=1, bounces=5, passes=32,
              scene_xml: str | None = None, device=None):
     """Progressive Monte Carlo path tracing (the flagship pipeline)."""
-    if scene_xml:
-        raise _no_xml("assign10(scene_xml=...)")
     dev = _device(device)
-    scene = cornell_box(cols=cols, rows=rows, device=dev)
+    scene = (load_scene(scene_xml, cols, rows, dev) if scene_xml
+             else cornell_box(cols=cols, rows=rows, device=dev))
     cfg = RenderConfig(width=cols, height=rows, spp=spp, bounces=bounces,
                        use_megakernel=True)
 

@@ -1,11 +1,21 @@
 """Programmatic scenes, numpy-built and number for number those of
-``raytracing_tpu.models.scenes``: ``cornell_box`` and ``sphere_field``."""
+``raytracing_tpu.models.scenes``: ``cornell_box``, ``big_mesh_scene`` (a
+reference mesh JSON) and ``sphere_field``."""
 from __future__ import annotations
 
 import numpy as np
 
-from ..core.types import Camera, Lights, Scene, build_scene, make_spheres, \
-    make_triangles
+import torch
+
+from ..core.types import AABB, Camera, Lights, Scene, build_scene, \
+    make_spheres, make_triangles
+
+# the reference's assignment folders that hold tri/ meshes, searched in
+# this order under RT_REFERENCE_DIR
+_MESH_DIRS = ("Assign07-3D_uniform_grid_acceleration",
+              "Assign06-1D_uniform_slab_acceleration",
+              "Assign05-Bounding_Box", "Assign04-Triangle_Mesh",
+              "Assign10-Path_Tracing")
 
 
 def _quad(p00, p10, p11, p01, normal):
@@ -71,6 +81,34 @@ def cornell_box(cols: int = 320, rows: int = 240,
                        lights=lights, materials=materials,
                        focal_length=focal_length,
                        lens_diameter=lens_diameter).to(device)
+
+
+def big_mesh_scene(name: str = "house_of_parliament.json",
+                   cols: int = 512, rows: int = 512, device=None) -> Scene:
+    """A reference mesh JSON (house_of_parliament.json: 5,322 triangles)
+    from ``tri/`` of the reference's assignment folders under
+    ``RT_REFERENCE_DIR``, normalised to the unit cube, one overhead disk
+    light, the camera framed on its bounds; raises FileNotFoundError when
+    no folder holds it. Past kernel 1's resident budget its triangles
+    stream. ``device``: None is ``default_device()``, the card."""
+    from ..io.mesh_json import load_mesh_json, normalize_unit_cube
+    from .assignments import _device, _ref
+
+    path = next((p for p in (_ref(f"{d}/tri/{name}") for d in _MESH_DIRS)
+                 if p), None)
+    if path is None:
+        raise FileNotFoundError(name)
+    dev = _device(device)
+    md = normalize_unit_cube(load_mesh_json(path))
+    tris = make_triangles(md.positions, md.normals, md.material_indices)
+    lights = Lights.make([[0.0, 2.5, 0.0]], [[0.0, -1.0, 0.0]],
+                         [[8.0, 8.0, 8.0]], [0.8])
+    bounds = AABB(pmin=torch.as_tensor(md.bounds_min),
+                  pmax=torch.as_tensor(md.bounds_max))
+    return build_scene(camera=Camera.auto_frame(bounds, cols, rows),
+                       triangles=tris, lights=lights,
+                       materials=md.materials, focal_length=2.0,
+                       lens_diameter=0.0).to(dev)
 
 
 def sphere_field(n_spheres: int, cols: int = 512, rows: int = 512,

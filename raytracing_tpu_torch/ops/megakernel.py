@@ -127,11 +127,11 @@ from typing import NamedTuple
 import torch
 
 from ..core import rng
-from ..core.sampling import cosine_hemisphere, sample_disk_point
+from ..core.sampling import (cosine_hemisphere, sample_disk_point,
+                             stratified_lens_uv)
 from ..core.types import (AABB, Camera, at_least, clip, cross3, dot3,
                           safe_normalize)
-from ..render.camera import (clip_to_bounds, focal_points,
-                             stratified_lens_uv, thin_lens_rays)
+from ..render.camera import clip_to_bounds, focal_points, thin_lens_rays
 from . import _build
 from . import intersect as I
 

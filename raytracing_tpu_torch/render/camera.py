@@ -1,6 +1,7 @@
-"""Primary rays: pixel grid, film point, pinhole ray, focal point, thin-lens
-ray, the scene-AABB clip and the whole ``generate_primary_rays`` of the
-stage pipeline (``raytracing_tpu.render.camera``; the kernel's
+"""Primary rays: pixel grid, film point, pinhole ray, parallel
+(orthographic) ray, focal point, thin-lens ray, the scene-AABB clip and
+the whole ``generate_primary_rays`` of the stage pipeline
+(``raytracing_tpu.render.camera``; the kernel's
 ``ops/pallas/megakernel.py:444-493``, whose arithmetic order the thin-lens
 origin follows, so both routes of a pass make the same camera rays)."""
 from __future__ import annotations
@@ -10,7 +11,7 @@ import math
 import torch
 
 from ..core import rng
-from ..core.sampling import concentric_disk
+from ..core.sampling import concentric_disk, stratified_lens_uv
 from ..core.types import AABB, Camera, Rays, dot3, ray_window, \
     safe_normalize
 from ..ops.intersect import aabb_window
@@ -45,6 +46,17 @@ def pinhole_rays(cam: Camera, col: torch.Tensor, row: torch.Tensor) -> Rays:
                 maxt=torch.full((n,), INF, device=d.device))
 
 
+def parallel_rays(cam: Camera, col: torch.Tensor, row: torch.Tensor
+                  ) -> Rays:
+    """Orthographic rays: o = the film point (relative to the eye, as the
+    JAX package takes it), d = -W; window [0, INF)."""
+    cop = film_point(cam, col, row)
+    n = col.shape[0]
+    return Rays(o=cop, d=(-cam.w).expand(n, 3),
+                mint=torch.zeros((n,), device=cop.device),
+                maxt=torch.full((n,), INF, device=cop.device))
+
+
 def focal_points(cam: Camera, col: torch.Tensor, row: torch.Tensor,
                  focal_length) -> torch.Tensor:
     """Pinhole ray from the eye through the film point, cut with the plane
@@ -74,18 +86,6 @@ def clip_to_bounds(rays: Rays, bounds: AABB) -> Rays:
     tmin, tmax, ok = aabb_window(rays.o, rays.d, bounds.pmin, bounds.pmax)
     return Rays(o=rays.o, d=rays.d, mint=torch.where(ok, tmin, INF),
                 maxt=torch.where(ok, tmax, INF))
-
-
-def stratified_lens_uv(samp: torch.Tensor, spp: int) -> torch.Tensor:
-    """(N, 2) lens-cell centres of sub-ray ``samp`` for spp = k^2: sample
-    j varies fastest in x."""
-    k = int(round(spp ** 0.5))
-    if k * k != spp:
-        raise ValueError(f"spp must be a perfect square, got {spp}")
-    si = torch.div(samp, k, rounding_mode="floor")
-    sj = samp - si * k
-    return torch.stack([(sj.to(torch.float32) + 0.5) / k,
-                        (si.to(torch.float32) + 0.5) / k], -1)
 
 
 def generate_primary_rays(cam: Camera, bounds: AABB, focal_length,

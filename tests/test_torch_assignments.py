@@ -13,8 +13,8 @@ run kernel 1's direct mode and assign10 its path mode, through their plain
 versions here; JAX's assign10 runs its interpret-mode kernel, so it is
 compared at one pass of one bounce (the golden at four passes of two).
 assign06 and 07 run kernel 1's grid mode (plain version here; JAX's
-interpret-mode grid kernel takes ~15 s and ~60 s of this file's time); an
-XML scene raises (item 15).
+interpret-mode grid kernel takes ~15 s and ~60 s of this file's time); XML
+scenes are held in tests/test_torch_xml_scenes.py.
 
 Images at rtol/atol 2e-4; fake shade (assign01-03, ``render/simple.py``
 and its orbit) allows 0.2% of pixels past that and none past 1e-3: its
@@ -89,9 +89,15 @@ def test_assignment_matches_jax_and_golden(name):
 
 
 def test_assignments_without_a_port_raise():
-    for fn in (A.assign07, A.assign08, A.assign10):
-        with pytest.raises(NotImplementedError, match="item 15"):
+    """Every assignment is ported (XML scenes: tests/
+    test_torch_xml_scenes.py); an XML scene that is not there raises
+    FileNotFoundError in both packages."""
+    for fn, jfn in ((A.assign07, JA.assign07), (A.assign08, JA.assign08),
+                    (A.assign10, JA.assign10)):
+        with pytest.raises(FileNotFoundError):
             fn(W, H, scene_xml="scene.xml", device="cpu")
+        with pytest.raises(FileNotFoundError):
+            jfn(W, H, scene_xml="scene.xml")
     assert sorted(A.ALL) == sorted(JA.ALL)
     # assign03 (two stages) and assign05 (assign04's pipeline) as JAX's
     _close_fake_shade(_run(A.assign03(W, H, device="cpu")),

@@ -99,9 +99,12 @@ def test_cli_writes_png_and_resumes(tmp_path, capsys):
 
 @pytest.mark.parametrize("flag", [["--scene", "room.xml"],
                                   ["--grid", "2", "--scene", "room.xml"],
-                                  ["--orbit", "2"]])
+                                  ["--orbit", "2", "--scene", "room"]])
 def test_cli_rejects_what_is_not_ported(flag):
-    """XML scenes (item 15) and the orbit animation raise; --grid and
-    --block are ported (tests/test_torch_grid.py)."""
-    with pytest.raises(SystemExit, match="not ported yet"):
+    """XML scenes and the orbit animation are ported
+    (tests/test_torch_xml_scenes.py); what the CLI still rejects is a
+    scene it does not have: an XML file that is not there
+    (FileNotFoundError, as the JAX CLI raises), a builtin name it does not
+    know (SystemExit)."""
+    with pytest.raises((FileNotFoundError, SystemExit), match="room"):
         cli.main(["--cpu", "--width", "8", "--height", "8", *flag])

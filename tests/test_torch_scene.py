@@ -288,6 +288,16 @@ def test_port_imports_no_jax():
             "import raytracing_tpu_torch.parallel.scaling\n"
             "import raytracing_tpu_torch.parallel.dryrun\n"
             "import raytracing_tpu_torch.utils.runtime\n"
+            "import raytracing_tpu_torch.io.mesh_json\n"
+            "import raytracing_tpu_torch.io.scene_xml\n"
+            "import raytracing_tpu_torch.io.png\n"
+            "import raytracing_tpu_torch.core.sampling\n"
+            "import raytracing_tpu_torch.render.camera\n"
+            "import raytracing_tpu_torch.models.assignments\n"
+            "import raytracing_tpu_torch.viewer\n"
+            "import raytracing_tpu_torch.examples.smoke_render\n"
+            "import raytracing_tpu_torch.examples.inverse_render\n"
+            "import raytracing_tpu_torch.examples.silhouette_optim\n"
             "bad = [m for m in sys.modules if m in ('jax', 'raytracing_tpu') "
             "or m.startswith(('jax.', 'jaxlib', 'raytracing_tpu.'))]\n"
             "assert not bad, bad\n")
